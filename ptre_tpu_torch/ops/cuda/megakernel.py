@@ -1,0 +1,366 @@
+"""Scene packing for the dense render kernel + the plain PyTorch bounce loop.
+
+Port of the dense-class pieces of `ptre_tpu/ops/pallas/megakernel.py`:
+
+  * `pack_tri32` / `pack_sph16` / `pack_mats` (`megakernel.py:169-223`) —
+    the flat tables the kernel stages into shared memory;
+  * `dense_supported` (`megakernel.py:1110`) — the ≤64-triangle,
+    ≤64-sphere, ≤8-material class the serial-sweep kernel takes;
+  * `trace_block` + `scatter_shade` — the plain PyTorch version of
+    `_trace_block` (`megakernel.py:811`) and `_scatter_shade`
+    (`megakernel.py:611`), vectorised over rays and looping over
+    primitives. Their CUDA twins are `trace_path` / `scatter_shade` in
+    `csrc/trace.cuh`; the three are written in the same operation order so
+    that they agree to float rounding.
+
+Integrator semantics are the reference's: closest hit with triangles first
+and spheres bounded by the closest triangle (including the far-root quirk),
+ties to the lowest index, emission as a terminal multiplicative factor, the
+sky gradient on a miss, the degenerate-pdf fallback and shadow-epsilon
+offsets along the final normal.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+_BIG = float(np.float32(3e38))
+_TAU = float(np.float32(2.0 * 3.14159265358979))
+_INV_PI = float(np.float32(1.0 / 3.14159265358979))
+MAX_MATS = 8
+DENSE_MAX_TRI = 64  # shared memory: 64 * 32 * 4 B = 8 KiB
+DENSE_MAX_SPH = 64
+
+
+def f32(x) -> float:
+    """A Python float holding ``x`` rounded to float32, so scalar operands
+    enter every tensor op with the kernel's float32 value."""
+    return float(np.float32(x))
+
+
+def dense_supported(packet) -> bool:
+    """Whether the dense (serial shared-memory sweep) kernel takes the packet."""
+    return (
+        max(int(packet.num_triangles), 1) <= DENSE_MAX_TRI
+        and max(int(packet.num_spheres), 1) <= DENSE_MAX_SPH
+        and packet.num_materials <= MAX_MATS
+    )
+
+
+def pack_tri32(v0, v1, v2, n0, n1, n2, valid, mat):
+    """(T, 32): v0 v1 v2 (0-8), n0 n1 n2 (9-17), valid (18), mat (19)."""
+    T = v0.shape[0]
+    return torch.cat(
+        [v0, v1, v2, n0, n1, n2, valid[:, None].float(), mat[:, None].float(),
+         torch.zeros((T, 12), dtype=torch.float32, device=v0.device)], dim=1)
+
+
+def pack_sph16(center, radius, valid, mat):
+    """(S, 16): center (0-2), radius (3), valid (4), mat (5)."""
+    S = center.shape[0]
+    return torch.cat(
+        [center, radius[:, None], valid[:, None].float(), mat[:, None].float(),
+         torch.zeros((S, 10), dtype=torch.float32, device=center.device)], dim=1)
+
+
+def pack_mats(kind, albedo, param):
+    """(8, 8): kind (0), albedo (1-3), param (4); rows zero-padded to 8."""
+    M = kind.shape[0]
+    if M > MAX_MATS:
+        raise ValueError(f"the dense kernel takes <= {MAX_MATS} materials, got {M}")
+    out = torch.zeros((MAX_MATS, 8), dtype=torch.float32, device=kind.device)
+    out[:M, 0] = kind.float()
+    out[:M, 1:4] = albedo
+    out[:M, 4] = param
+    return out
+
+
+@dataclasses.dataclass
+class PackedScene:
+    """The kernel's view of a packet: world-space tables, on the packet's
+    device. Built once per `render_step`, reused by every sample."""
+
+    tris: torch.Tensor  # (n_tri, 32)
+    sphs: torch.Tensor  # (n_sph, 16)
+    mats: torch.Tensor  # (8, 8)
+    sky: torch.Tensor  # (8,): bottom rgb, top rgb, 0, 0
+    n_tri: int
+    n_sph: int
+    num_mats: int
+
+
+def pack_scene(packet) -> PackedScene:
+    """Pack a dense-class packet (`render_kernel.py:279-308`): the first
+    max(count, 1) rows of each table — an empty class keeps one invalid
+    padding row, so the sweep always has a row to read."""
+    v0, v1, v2, n0, n1, n2 = packet.world_triangles()
+    nt = max(int(packet.num_triangles), 1)
+    ns = max(int(packet.num_spheres), 1)
+    dev = packet.device
+    if v0.shape[0] == 0:
+        tris = torch.zeros((1, 32), dtype=torch.float32, device=dev)
+    else:
+        tris = pack_tri32(v0[:nt], v1[:nt], v2[:nt], n0[:nt], n1[:nt],
+                          n2[:nt], packet.tri_valid[:nt], packet.tri_mat[:nt])
+    if packet.sph_center.shape[0] == 0:
+        sphs = torch.zeros((1, 16), dtype=torch.float32, device=dev)
+    else:
+        sphs = pack_sph16(packet.sph_center[:ns], packet.sph_radius[:ns],
+                          packet.sph_valid[:ns], packet.sph_mat[:ns])
+    sky = torch.cat([packet.sky_bottom, packet.sky_top,
+                     torch.zeros(2, dtype=torch.float32, device=dev)])
+    return PackedScene(
+        tris=tris.contiguous(), sphs=sphs.contiguous(),
+        mats=pack_mats(packet.mat_kind, packet.mat_albedo, packet.mat_param),
+        sky=sky.contiguous(), n_tri=tris.shape[0],
+        n_sph=sphs.shape[0], num_mats=int(packet.num_materials))
+
+
+@dataclasses.dataclass(frozen=True)
+class TraceConsts:
+    """Float32-rounded integrator scalars (`RenderConfig`)."""
+
+    t_min: float
+    t_max: float
+    det_eps: float
+    shadow_eps: float
+    pdf_eps: float
+
+    @classmethod
+    def from_config(cls, config) -> "TraceConsts":
+        return cls(f32(config.t_min), f32(config.t_max), f32(config.det_eps),
+                   f32(config.shadow_eps), f32(config.pdf_eps))
+
+
+def sky_color(dy, sky):
+    """Miss shading: vertical gradient on the incoming direction's y
+    (`megakernel.py:706-713`)."""
+    a = (dy + 1.0) * 0.5
+    return tuple((1.0 - a) * sky[c] + a * sky[3 + c] for c in range(3))
+
+
+def scatter_shade(nx, ny, nz, dx, dy, dz, mat_id, u1, u2, mats, num_mats,
+                  pdf_eps):
+    """Material select + ONB cosine scatter + Oren–Nayar / emissive weight
+    for hit rays (`megakernel.py:611-714`; the sky-on-miss select is the
+    caller's). ``mats`` is the (8, 8) table as nested Python floats.
+    Returns (f_r, f_g, f_b, wix, wiy, wiz, is_emissive)."""
+    zero = torch.zeros_like(nx)
+    m_kind, m_ar, m_ag, m_ab, m_param = zero, zero, zero, zero, zero
+    for m in range(num_mats):
+        is_m = torch.abs(mat_id - float(m)) < 0.5
+        row = mats[m]
+        m_kind = torch.where(is_m, row[0], m_kind)
+        m_ar = torch.where(is_m, row[1], m_ar)
+        m_ag = torch.where(is_m, row[2], m_ag)
+        m_ab = torch.where(is_m, row[3], m_ab)
+        m_param = torch.where(is_m, row[4], m_param)
+    is_emissive = m_kind > 0.5
+
+    # cosine-weighted sample in the ONB (onb.h + random.cu:96-107)
+    phi = _TAU * u1
+    sr_ = torch.sqrt(u2)
+    lx = torch.cos(phi) * sr_
+    ly = torch.sin(phi) * sr_
+    lz = torch.sqrt(torch.clamp(1.0 - u2, min=0.0))
+    big_x = torch.abs(nx) > 0.9
+    ax = torch.where(big_x, 0.0, 1.0 + zero)
+    ay = torch.where(big_x, 1.0, zero)
+    vx = ny * 0.0 - nz * ay
+    vy = nz * ax - nx * 0.0
+    vz = nx * ay - ny * ax
+    vlen = torch.sqrt(vx * vx + vy * vy + vz * vz)
+    vinv = 1.0 / torch.where(vlen > 0.0, vlen, 1.0 + zero)
+    vx, vy, vz = vx * vinv, vy * vinv, vz * vinv
+    ux = vy * nz - vz * ny
+    uy = vz * nx - vx * nz
+    uz = vx * ny - vy * nx
+    wix = lx * ux + ly * vx + lz * nx
+    wiy = lx * uy + ly * vy + lz * ny
+    wiz = lx * uz + ly * vz + lz * nz
+
+    ndotwi = nx * wix + ny * wiy + nz * wiz
+    pdf = ndotwi * _INV_PI
+    degen = pdf < pdf_eps
+    wix = torch.where(degen, nx, wix)
+    wiy = torch.where(degen, ny, wiy)
+    wiz = torch.where(degen, nz, wiz)
+    pdf = torch.where(degen, _INV_PI + zero, pdf)
+    ndotwi = torch.where(degen, 1.0 + zero, ndotwi)
+    cosw = torch.clamp(ndotwi, min=0.0)
+
+    # Oren–Nayar A/B (material.cu:20-41), transcendental-free world-frame form
+    sigma = torch.clamp(m_param, 0.0, 1.0)
+    s2 = sigma * sigma
+    A = 1.0 - 0.5 * s2 / (s2 + 0.33)
+    B = 0.45 * s2 / (s2 + 0.09)
+    wox, woy, woz = -dx, -dy, -dz
+    li = torch.sqrt(wix * wix + wiy * wiy)
+    lo = torch.sqrt(wox * wox + woy * woy)
+    li_safe = torch.where(li > 0, li, 1.0 + zero)
+    lo_safe = torch.where(lo > 0, lo, 1.0 + zero)
+    ci_ = torch.where(li > 1e-12, wix / li_safe, 1.0 + zero)
+    si_ = torch.where(li > 1e-12, wiy / li_safe, zero)
+    co_ = torch.where(lo > 1e-12, wox / lo_safe, 1.0 + zero)
+    so_ = torch.where(lo > 1e-12, woy / lo_safe, zero)
+    cos_dphi = ci_ * co_ + si_ * so_
+    cos_to = torch.clamp(wox * nx + woy * ny + woz * nz, 0.0, 1.0)
+    cos_ti = torch.clamp(ndotwi, 0.0, 1.0)
+    cos_a = torch.minimum(cos_ti, cos_to)
+    cos_b = torch.maximum(cos_ti, cos_to)
+    sin_a = torch.sqrt(torch.clamp(1.0 - cos_a * cos_a, min=0.0))
+    tan_b = torch.sqrt(torch.clamp(1.0 - cos_b * cos_b, min=0.0)) / torch.clamp(
+        cos_b, min=1e-6)
+    coeff = (A + B * cos_dphi * sin_a * tan_b) * _INV_PI
+
+    w_pdf = torch.where(is_emissive, 1.0 + zero, cosw / pdf)
+    f = [w_pdf * torch.where(is_emissive, m_param * alb, alb * coeff)
+         for alb in (m_ar, m_ag, m_ab)]
+    return f[0], f[1], f[2], wix, wiy, wiz, is_emissive
+
+
+def trace_block(o, d, scene: PackedScene, consts: TraceConsts, get_uniforms,
+                max_depth: int):
+    """Masked bounce loop over a batch of rays (any common shape) → linear
+    color (r, g, b). ``o``/``d`` are (x, y, z) tuples of float32 tensors;
+    ``get_uniforms(bounce)`` returns that bounce's (u1, u2).
+
+    Every bounce runs on every ray: a dead ray's bounce is a no-op (its
+    factor is 1), which is what the reference's per-block skip and the CUDA
+    kernel's per-thread ``break`` rely on."""
+    ox, oy, oz = o
+    dx, dy, dz = d
+    k = consts
+    # per-primitive scalars computed once in float32 (as the kernel does
+    # per thread), then read as Python floats: exact float32 values
+    tr = scene.tris.float()
+    v0 = tr[:, 0:3]
+    e1 = tr[:, 3:6] - v0
+    e2 = tr[:, 6:9] - v0
+    gn = torch.stack([e1[:, 1] * e2[:, 2] - e1[:, 2] * e2[:, 1],
+                      e1[:, 2] * e2[:, 0] - e1[:, 0] * e2[:, 2],
+                      e1[:, 0] * e2[:, 1] - e1[:, 1] * e2[:, 0]], dim=1)
+    tri_rows = torch.cat([v0, e1, e2, tr[:, 9:20], gn], dim=1).tolist()
+    sp = scene.sphs.float()
+    sph_rows = sp[:, 0:6].tolist()
+    # inverse radius guarded against r = 0 (`megakernel.py:925`)
+    inv_r = (1.0 / torch.where(sp[:, 3] == 0.0, 1.0, sp[:, 3])).tolist()
+    mats = scene.mats.float().tolist()
+    sky = scene.sky.float().tolist()
+
+    cr = torch.ones_like(ox)
+    cg = torch.ones_like(ox)
+    cb = torch.ones_like(ox)
+    active = torch.ones_like(ox, dtype=torch.bool)
+    zero = torch.zeros_like(ox)
+    for bounce in range(max_depth):
+        # ---- triangle sweep: strict t < best keeps the lowest index -------
+        tri_t = zero + _BIG
+        tri_hit = torch.zeros_like(active)
+        bnx, bny, bnz, tri_mat = zero, zero, zero, zero
+        for row in tri_rows:
+            (v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z,
+             n0x, n0y, n0z, n1x, n1y, n1z, n2x, n2y, n2z, valid, mat,
+             gnx, gny, gnz) = row
+            if not valid > 0.5:
+                continue  # an invalid row accepts nothing: it changes nothing
+            pvx = dy * e2z - dz * e2y
+            pvy = dz * e2x - dx * e2z
+            pvz = dx * e2y - dy * e2x
+            det = e1x * pvx + e1y * pvy + e1z * pvz
+            inv_det = 1.0 / torch.where(torch.abs(det) < k.det_eps, 1.0 + zero, det)
+            tvx, tvy, tvz = ox - v0x, oy - v0y, oz - v0z
+            u = (tvx * pvx + tvy * pvy + tvz * pvz) * inv_det
+            qvx = tvy * e1z - tvz * e1y
+            qvy = tvz * e1x - tvx * e1z
+            qvz = tvx * e1y - tvy * e1x
+            v = (dx * qvx + dy * qvy + dz * qvz) * inv_det
+            t = (e2x * qvx + e2y * qvy + e2z * qvz) * inv_det
+            acc = ((torch.abs(det) >= k.det_eps) & (u >= 0.0) & (u <= 1.0)
+                   & (v >= 0.0) & (u + v <= 1.0) & (t >= k.t_min)
+                   & (t <= k.t_max))
+            upd = acc & (t < tri_t)
+            # interpolated normal, sign-flipped from the geometric normal
+            # before normalising (`megakernel.py:878-889`)
+            w_ = 1.0 - u - v
+            sign = torch.where(dx * gnx + dy * gny + dz * gnz < 0.0, 1.0 + zero,
+                          -1.0 + zero)
+            inx = w_ * n0x + u * n1x + v * n2x
+            iny = w_ * n0y + u * n1y + v * n2y
+            inz = w_ * n0z + u * n1z + v * n2z
+            tri_t = torch.where(upd, t, tri_t)
+            bnx = torch.where(upd, inx * sign, bnx)
+            bny = torch.where(upd, iny * sign, bny)
+            bnz = torch.where(upd, inz * sign, bnz)
+            tri_mat = torch.where(upd, mat, tri_mat)
+            tri_hit = tri_hit | acc
+        tri_best = torch.where(tri_hit, tri_t, k.t_max + zero)
+
+        # ---- spheres, bounded by the closest triangle ---------------------
+        sph_t = zero + _BIG
+        sph_hit = torch.zeros_like(active)
+        s_cx, s_cy, s_cz, s_ir, sph_mat = zero, zero, zero, zero, zero
+        for (cx, cy, cz, r, valid, mat), ir in zip(sph_rows, inv_r):
+            if not valid > 0.5:
+                continue
+            ocx, ocy, ocz = cx - ox, cy - oy, cz - oz
+            halfb = dx * ocx + dy * ocy + dz * ocz
+            c = ocx * ocx + ocy * ocy + ocz * ocz - f32(r * r)
+            delta = halfb * halfb - c
+            sq = torch.sqrt(torch.clamp(delta, min=0.0))
+            t_near = halfb - sq
+            t = torch.where(t_near >= k.t_min, t_near, halfb + sq)
+            # far-root quirk: acceptance bounds t_near, not t
+            acc = (delta >= 0.0) & (t_near <= tri_best) & (t >= k.t_min)
+            upd = acc & (t < sph_t)
+            sph_t = torch.where(upd, t, sph_t)
+            s_cx = torch.where(upd, cx, s_cx)
+            s_cy = torch.where(upd, cy, s_cy)
+            s_cz = torch.where(upd, cz, s_cz)
+            s_ir = torch.where(upd, ir, s_ir)
+            sph_mat = torch.where(upd, mat, sph_mat)
+            sph_hit = sph_hit | acc
+
+        hit = tri_hit | sph_hit
+        use_sph = sph_hit
+
+        # ---- merge winner, finish the normal ------------------------------
+        t_hit = torch.where(use_sph, sph_t, tri_t)
+        px = ox + t_hit * dx
+        py = oy + t_hit * dy
+        pz = oz + t_hit * dz
+        snx = (px - s_cx) * s_ir
+        sny = (py - s_cy) * s_ir
+        snz = (pz - s_cz) * s_ir
+        s_sign = torch.where(dx * snx + dy * sny + dz * snz < 0.0, 1.0 + zero,
+                        -1.0 + zero)
+        nx = torch.where(use_sph, snx * s_sign, bnx)
+        ny = torch.where(use_sph, sny * s_sign, bny)
+        nz = torch.where(use_sph, snz * s_sign, bnz)
+        nlen = torch.sqrt(nx * nx + ny * ny + nz * nz)
+        ninv = torch.where(nlen > 0.0, 1.0 / torch.where(nlen > 0.0, nlen, 1.0 + zero), zero)
+        nx, ny, nz = nx * ninv, ny * ninv, nz * ninv
+        mat_id = torch.where(use_sph, sph_mat, tri_mat)
+
+        u1, u2 = get_uniforms(bounce)
+        f_r, f_g, f_b, wix, wiy, wiz, is_emissive = scatter_shade(
+            nx, ny, nz, dx, dy, dz, mat_id, u1, u2, mats, scene.num_mats,
+            k.pdf_eps)
+        sky_r, sky_g, sky_b = sky_color(dy, sky)
+        cr = cr * torch.where(active, torch.where(hit, f_r, sky_r), 1.0 + zero)
+        cg = cg * torch.where(active, torch.where(hit, f_g, sky_g), 1.0 + zero)
+        cb = cb * torch.where(active, torch.where(hit, f_b, sky_b), 1.0 + zero)
+
+        # next ray along the final normal (`megakernel.py:967-977`)
+        nxt = active & hit & ~is_emissive
+        ox = torch.where(nxt, px + k.shadow_eps * nx, ox)
+        oy = torch.where(nxt, py + k.shadow_eps * ny, oy)
+        oz = torch.where(nxt, pz + k.shadow_eps * nz, oz)
+        dx = torch.where(nxt, wix, dx)
+        dy = torch.where(nxt, wiy, dy)
+        dz = torch.where(nxt, wiz, dz)
+        active = nxt
+    return cr, cg, cb
