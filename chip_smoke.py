@@ -3,16 +3,28 @@
 
     python3 chip_smoke.py
 
-Builds the render kernel from ``ptre_tpu_torch/csrc`` with nvcc, holds it
-against its plain PyTorch version on the card, then drives the port's main
-path — demo scene → ``render_step`` → ``to_display`` at 1920x1080, spp 4 —
-and checks that every sample went through the kernel. Any failed check
-raises and the script exits non-zero; it prints its result lines only after
-every phase passed:
+Builds the kernels from ``ptre_tpu_torch/csrc`` with nvcc (one process per
+source, all at once), then:
 
-  * a JSON line ``{"kernels": [...]}``: per kernel its launches on the main
-    path, its largest error against the plain version, and its and the
-    plain version's time per call at the main path's shape;
+  1-5. holds the render kernel against its plain PyTorch version and drives
+       the progressive main path — demo scene → ``render_step`` →
+       ``to_display`` at 1920x1080 and 1280x720, spp 4 — checking that every
+       sample went through the kernel;
+  6-7. holds the recording forward and the fused backward kernels of the
+       gradient path against their plain versions at 1920x1080;
+  8.   drives the training main path — ``differentiable_params`` →
+       ``mse_step`` at 1920x1080, spp 1 (1 + 8 steps) and one spp-64 step —
+       checking that every sample went through both kernels, and that
+       ``two_pass_mse_step`` equals ``mse_step`` at 320x180.
+
+Any failed check raises and the script exits non-zero; it prints its result
+lines only after every phase passed:
+
+  * a JSON line ``{"kernels": [...]}``: per kernel its launches on its main
+    path, its largest error against the plain version (for the gradient
+    kernels outside the rays whose path flipped, which are counted and
+    bounded on their own), and its and the plain version's time per call at
+    the main path's shape;
   * last, ``{"ok": true, "device": {...}}``.
 
 Every time printed is beside the card's name and power limit as
@@ -43,6 +55,30 @@ SPP, STEPS = 4, 8  # bench.py's defaults: 1 warm-up step + 8 timed steps
 TIGHT, TIGHT_FRAC = 1e-4, 0.999
 DISPLAY_STEPS, DISPLAY_FRAC, DISPLAY_MAX = 2, 0.995, 8
 FLIP_FRAC = 1e-5
+# Gradient kernels vs plain versions (phases 6-7). The record kernel's color
+# is unclamped (an emitter gives 10): TIGHT is relative above 1. The
+# backward kernel recomputes the chain with FMAs, and float32 is too coarse
+# for some rays: a ray whose path flips (a near/far root or the
+# degenerate-pdf test decided the other way) differs wholesale, and the
+# ground sphere (r = 10) computes |oc|^2 - r^2 ~ 2e-3 for rays leaving its
+# surface with an ulp of 7.6e-6, so its center and radius gradients carry
+# float32 noise. Measured at 1920x1080 (NVIDIA H100 80GB HBM3, 700 W): the
+# plain version in float32 flips 86-90 rays against its own float64
+# evaluation, and without them its summed d(center), d(radius) are 8e-4 to
+# 9.5e-4 (relative L2) from float64.
+# Hence: per-ray d(o), d(d) >= 99.9 % of elements within RAY_TIGHT of the
+# largest; at most BWD_FLIP_FRAC of the rays flipped (error beyond FLIP_REL
+# of the ray's own gradient); with the flipped rays' cotangents zeroed, the
+# material and sky gradients within SUM_REL of the plain version, and the
+# geometry gradients no further from float64 than GEOM_FACTOR times the
+# plain float32 version (or SUM_REL).
+RAY_TIGHT, FLIP_REL, RAY_ATOL, SUM_REL = 1e-4, 1e-2, 1e-3, 1e-4
+BWD_FLIP_FRAC, GEOM_FACTOR = 1e-4, 2.0
+GRAD_SEED = 0x5EED
+SPP_TRAIN = 64  # bench.py's 64-spp step
+# two_pass_mse_step vs mse_step: test_train_step.py's rtol; atol relative to
+# the leaf's largest entry, since atomics sum d(table) in no fixed order
+TWO_PASS_RTOL, TWO_PASS_ATOL = 2e-4, 1e-5
 
 
 class SmokeFailure(AssertionError):
@@ -263,7 +299,7 @@ def main():
               f"Mrays/s [{card}]", flush=True)
 
     launches, k_ms, p_ms = results[(W_MAIN, H_MAIN)]
-    print(json.dumps({"kernels": [{
+    kernels = [{
         "name": "render_sample",
         "route": "cuda",
         "source": "ptre_tpu_torch/csrc/render_kernel.cu",
@@ -272,10 +308,298 @@ def main():
         "max_abs_err": max(err_ext, err_philox),
         "ms": k_ms,
         "plain_ms": p_ms,
-    }]}), flush=True)
+    }]
+    kernels += gradient_phases(dev, card, rs)
+
+    # ---- 9. result -----------------------------------------------------------------
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
+
+
+def gradient_phases(dev, card, rs):
+    """Phases 6-8: the recording and fused backward kernels against their
+    plain versions, then the training step (`mse_step`) at 1920x1080.
+    Returns the two kernels' entries of the ``kernels`` line."""
+    import numpy as np
+    import torch
+
+    from ptre_tpu.utils.config import RenderConfig
+    from ptre_tpu_torch.models import demo
+    from ptre_tpu_torch.ops import camera as cam_ops
+    from ptre_tpu_torch.ops import path_replay, rng
+    from ptre_tpu_torch.ops.cuda import fused_grad as fg
+    from ptre_tpu_torch.ops.cuda import megakernel as mk
+    from ptre_tpu_torch.parallel import sharding as sh
+    from ptre_tpu_torch.render import pathtracer as pt
+    from ptre_tpu_torch.render import train
+
+    W, H, B = W_MAIN, H_MAIN, 5
+    R = W * H
+    cfg = RenderConfig(width=W, height=H, max_depth=B)
+    pkt = demo.reference_demo_scene(32, 16).build_packet().to(dev)
+    cam = cam_ops.Camera.create(width=W, height=H)
+    params = sh.differentiable_params(pkt, cam)
+    _, cam_dev = sh.apply_params(params, pkt, cam)
+    px, py = pt.pixel_grid(H, W, dev)
+    jit = rng.ray_uniforms(GRAD_SEED, 0, R, 1, dev) - 0.5
+    o, d = (t.contiguous() for t in cam_ops.get_rays(cam_dev, px, py, jit.T))
+    scene = mk.pack_scene(pkt)
+    k = mk.TraceConsts.from_config(cfg)
+    table, T, sky6 = path_replay.build_table(pkt)
+    urand_ext = torch.from_numpy(rs.random((2 + 2 * B, R), dtype=np.float32)).to(dev)
+
+    # ---- 6. recording kernel vs its plain version --------------------------------
+    print(f"phase 6: recording kernel vs plain, {W}x{H}, max_depth {B}", flush=True)
+    rec_err, recorded = 0.0, {}
+    for mode, ur in (("external uniforms", urand_ext), ("philox", None)):
+        color, sel = mk.trace_fused_sel(o, d, scene, k, B, GRAD_SEED, 0, ur)
+        want_c, want_s = mk.trace_record_reference(o, d, scene, k, B, GRAD_SEED, 0, ur)
+        torch.cuda.synchronize()
+        diff = (color - want_c).abs()
+        scale = want_c.abs().clamp_min(1.0)
+        tight = float((diff <= TIGHT * scale).float().mean())
+        flip = (diff > 0.05 * scale).any(dim=1) | (sel != want_s).any(dim=0)
+        flipped = int(flip.sum())
+        sel_rays = int((sel != want_s).any(dim=0).sum())
+        allowed = math.ceil(FLIP_FRAC * R)
+        rec_err = max(rec_err, float(diff[~flip].max()))
+        print(f"  {mode}: color max_abs_err {float(diff.max()):.3e}, "
+              f"{100 * tight:.4f}% within {TIGHT:g} (relative above 1); "
+              f"{sel_rays} rays with other selections, {flipped} flipped rays "
+              f"(allowed {allowed}); {int((sel >= 0).sum())} hits recorded", flush=True)
+        check(bool(torch.isfinite(color).all()), f"record {mode}: non-finite color")
+        check(tight >= TIGHT_FRAC, f"record {mode}: only {tight:.6f} within {TIGHT}")
+        check(flipped <= allowed, f"record {mode}: {flipped} flipped rays")
+        check(bool(((sel >= -1) & (sel < table.shape[0])).all()), f"record {mode}: bad rows")
+        recorded[mode] = (sel, ur)
+
+    # ---- 7. backward kernel vs its plain version ----------------------------------
+    print(f"phase 7: fused backward kernel vs plain, {W}x{H}, same selections", flush=True)
+    dcol = torch.from_numpy(rs.standard_normal((R, 3), dtype=np.float32)).to(dev)
+    bwd_err = 0.0
+    groups = {"v0-v2": slice(0, 9), "n0-n2": slice(9, 18), "center": slice(18, 21),
+              "radius": slice(21, 22), "albedo": slice(23, 26), "param": slice(26, 27)}
+    geometry = ("v0-v2", "n0-n2", "center", "radius")
+    f64 = torch.float64
+    for mode, (sel, ur) in recorded.items():
+        ur64 = mk.trace_uniforms(o, B, GRAD_SEED, 0, ur).to(f64)
+
+        def three(cot):
+            """kernel, plain float32, plain float64 — the same inputs."""
+            out = (fg.fused_bwd(table, sky6, o, d, sel, cot, k, B, T, GRAD_SEED, 0, ur),
+                   fg.fused_bwd_reference(table, sky6, o, d, sel, cot, k, B, T,
+                                          GRAD_SEED, 0, ur),
+                   fg.fused_bwd_reference(table.to(f64), sky6.to(f64), o.to(f64),
+                                          d.to(f64), sel, cot.to(f64), k, B, T,
+                                          GRAD_SEED, 0, ur64))
+            torch.cuda.synchronize()
+            return out
+
+        def flipped(a, b, mag):
+            err = ((a[2].to(f64) - b[2].to(f64)).abs()
+                   + (a[3].to(f64) - b[3].to(f64)).abs()).amax(dim=1)
+            return err > FLIP_REL * mag + RAY_ATOL
+
+        got, want, exact = three(dcol)
+        mag = (exact[2].abs() + exact[3].abs()).amax(dim=1)
+        flip_k, flip_p = flipped(got, want, mag), flipped(want, exact, mag)
+        for name, a, b in (("d(o)", got[2], want[2]), ("d(d)", got[3], want[3])):
+            top = float(b.abs().max())
+            err = (a - b).abs()
+            frac = float((err <= RAY_TIGHT * top).float().mean())
+            bwd_err = max(bwd_err, float(err[~flip_k].max()))
+            print(f"  {mode} {name}: max_abs_err {float(err.max()):.3e}, "
+                  f"{float(err[~flip_k].max()):.3e} outside flipped rays (largest "
+                  f"{top:.3e}); {100 * frac:.4f}% within {RAY_TIGHT:g} of the largest",
+                  flush=True)
+            check(bool(torch.isfinite(a).all()), f"bwd {mode}: non-finite {name}")
+            check(frac >= TIGHT_FRAC, f"bwd {mode}: only {frac:.6f} of {name} within")
+        allowed = math.ceil(BWD_FLIP_FRAC * R)
+        print(f"  {mode}: {int(flip_k.sum())} rays flipped between kernel and plain "
+              f"(allowed {allowed}); {int(flip_p.sum())} between plain float32 and "
+              f"float64", flush=True)
+        check(int(flip_k.sum()) <= allowed, f"bwd {mode}: {int(flip_k.sum())} flipped")
+        # the summed gradients, without the flipped rays' cotangents
+        got, want, exact = three(torch.where((flip_k | flip_p)[:, None], 0.0, dcol))
+        named = [(n, sl) for n, sl in groups.items()] + [("sky", None)]
+        for name, sl in named:
+            a, b, e = ((x[1] if sl is None else x[0][:, sl]).to(f64)
+                       for x in (got, want, exact))
+            if float(e.norm()) == 0.0:  # no gradient reaches it (emissive cube)
+                check(float(a.norm()) == 0.0, f"bwd {mode}: d(table) {name} not zero")
+                continue
+            rel_p = float((a - b).norm() / b.norm())
+            rel_k64 = float((a - e).norm() / e.norm())
+            rel_p64 = float((b - e).norm() / e.norm())
+            bwd_err = max(bwd_err, float((a - b).abs().max()))
+            print(f"  {mode} d({'sky' if sl is None else 'table ' + name}): relative L2 "
+                  f"kernel-plain {rel_p:.3e}, kernel-float64 {rel_k64:.3e}, "
+                  f"plain-float64 {rel_p64:.3e}", flush=True)
+            if name in geometry:
+                check(rel_k64 <= max(SUM_REL, GEOM_FACTOR * rel_p64),
+                      f"bwd {mode}: d(table) {name} off float64 by {rel_k64}")
+            else:
+                check(rel_p <= SUM_REL, f"bwd {mode}: d({name}) relative L2 {rel_p}")
+        check(bool(torch.isfinite(got[0]).all() and torch.isfinite(got[1]).all()),
+              f"bwd {mode}: non-finite d(table) or d(sky)")
+        del got, want, exact
+
+    # kernel times at the main shape (CUDA events) and the plain versions'
+    def events(fn, reps):
+        fn()
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for _ in range(reps):
+            fn()
+        e1.record()
+        torch.cuda.synchronize()
+        return e0.elapsed_time(e1) / reps
+
+    sel_p, _ = recorded["philox"]
+    rec_ms = events(lambda: mk.trace_fused_sel(o, d, scene, k, B, GRAD_SEED, 0), 20)
+    bwd_ms = events(lambda: fg.fused_bwd(table, sky6, o, d, sel_p, dcol, k, B, T,
+                                         GRAD_SEED, 0), 10)
+    rec_plain_ms = events(lambda: mk.trace_record_reference(o, d, scene, k, B,
+                                                            GRAD_SEED, 0), 2)
+    bwd_plain_ms = events(lambda: fg.fused_bwd_reference(
+        table, sky6, o, d, sel_p, dcol, k, B, T, GRAD_SEED, 0), 2)
+    print(f"  record kernel {rec_ms:.4f} ms, plain {rec_plain_ms:.3f} ms; backward "
+          f"kernel {bwd_ms:.4f} ms, plain {bwd_plain_ms:.3f} ms (CUDA events, "
+          f"{W}x{H}) [{card}]", flush=True)
+    del recorded, dcol, urand_ext
+
+    # ---- 8. the training main path ---------------------------------------------------
+    print(f"phase 8: training main path {W}x{H}: mse_step spp 1 (1 + {STEPS} steps), "
+          f"spp {SPP_TRAIN} (1 + 1 steps), two_pass_mse_step spp {SPP_TRAIN}", flush=True)
+    target = torch.zeros((R, 3), device=dev)
+
+    def step(spp, seed):
+        loss, grads = train.mse_step(params, pkt, cam, target, cfg, seed, spp=spp)
+        torch.cuda.synchronize()
+        check(math.isfinite(float(loss)), f"mse_step spp {spp}: loss {float(loss)}")
+        for key, g in grads.items():
+            check(bool(torch.isfinite(g).all()), f"mse_step spp {spp}: non-finite d{key}")
+        return loss, grads
+
+    mk.record_launches = fg.launches = 0
+    step(1, 100)
+    t0 = time.perf_counter()
+    for i in range(STEPS):
+        loss, grads = step(1, 101 + i)
+    dt1 = (time.perf_counter() - t0) / STEPS
+    launches = (mk.record_launches, fg.launches)
+    check(launches == (STEPS + 1, STEPS + 1), f"spp-1 steps: launches {launches}, "
+          f"expected {STEPS + 1} of each kernel")
+    check(float(grads["mat_albedo"].abs().max()) > 0 and
+          float(grads["sph_radius"].abs().max()) > 0 and
+          float(grads["cam_position"].abs().max()) > 0, "spp-1 step: zero gradients")
+    torch.cuda.reset_peak_memory_stats()
+    step(1, 200)
+    peak1 = torch.cuda.max_memory_allocated()
+    print(f"  spp 1: {dt1 * 1e3:.3f} ms/step, {R * B / dt1 / 1e6:.2f} Mrays/s fwd+bwd "
+          f"(W*H*max_depth/s, host clock), loss {float(loss):.6f}, peak "
+          f"{peak1 / 2**20:.1f} MiB [{card}]", flush=True)
+
+    # the first spp-64 step grows the caching allocator by ~19 GiB (measured
+    # 1.9 s against ~1.0 s for the next ones): one warm-up step first
+    step(SPP_TRAIN, 299)
+    mk.record_launches = fg.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loss64, _ = step(SPP_TRAIN, 300)
+    dt64 = time.perf_counter() - t0
+    peak64 = torch.cuda.max_memory_allocated()
+    check((mk.record_launches, fg.launches) == (SPP_TRAIN, SPP_TRAIN),
+          f"spp-{SPP_TRAIN} step: launches {(mk.record_launches, fg.launches)}")
+    print(f"  spp {SPP_TRAIN}: {dt64 * 1e3:.1f} ms/step, "
+          f"{R * SPP_TRAIN * B / dt64 / 1e6:.2f} Mrays/s (W*H*spp*max_depth/s), loss "
+          f"{float(loss64):.6f}, peak {peak64 / 2**30:.2f} GiB [{card}]", flush=True)
+
+    # the constant-memory schedule at the same shape
+    mk.record_launches = fg.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loss2p, grads2p = train.two_pass_mse_step(params, pkt, cam, target, cfg, 300,
+                                              spp=SPP_TRAIN)
+    torch.cuda.synchronize()
+    dt2p = time.perf_counter() - t0
+    peak2p = torch.cuda.max_memory_allocated()
+    check((mk.record_launches, fg.launches) == (2 * SPP_TRAIN, SPP_TRAIN),
+          f"two-pass spp {SPP_TRAIN}: launches {(mk.record_launches, fg.launches)}")
+    check(abs(float(loss2p) - float(loss64)) <= 1e-6 * abs(float(loss64)),
+          f"two-pass loss {float(loss2p)} vs {float(loss64)}")
+    check(all(bool(torch.isfinite(g).all()) for g in grads2p.values()),
+          "two-pass: non-finite gradient")
+    print(f"  two_pass_mse_step spp {SPP_TRAIN}: {dt2p * 1e3:.1f} ms/step, peak "
+          f"{peak2p / 2**30:.2f} GiB [{card}]", flush=True)
+    del grads2p
+
+    # one spp-1 step of the plain versions on the card, by name
+    def plain_step():
+        leaves = {key: v.detach().requires_grad_(True) for key, v in params.items()}
+        pk, cm = sh.apply_params(leaves, pkt, cam)
+        oo, dd = cam_ops.get_rays(cm, px, py, jit.T)
+        with torch.no_grad():
+            _, sel_ = mk.trace_record_reference(oo, dd, mk.pack_scene(pk), k, B,
+                                                GRAD_SEED, 0)
+        ur = mk.trace_uniforms(oo, B, GRAD_SEED, 0)
+        color = path_replay.replay(oo, dd, sel_, ur, pk, cfg)
+        loss = torch.mean((color - target) ** 2)
+        return torch.autograd.grad(loss, list(leaves.values()))
+
+    plain_step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain_step()
+    torch.cuda.synchronize()
+    dt_plain = time.perf_counter() - t0
+    print(f"  plain PyTorch spp-1 step on the card: {dt_plain * 1e3:.1f} ms, "
+          f"{R * B / dt_plain / 1e6:.2f} Mrays/s [{card}]", flush=True)
+
+    # the two-pass schedule equals the monolithic step (smaller shape)
+    Ws, Hs, spp_s = 320, 180, 8
+    cfg_s = RenderConfig(width=Ws, height=Hs, max_depth=B)
+    cam_s = cam_ops.Camera.create(width=Ws, height=Hs)
+    par_s = sh.differentiable_params(pkt, cam_s)
+    tgt_s = torch.from_numpy(rs.uniform(0.0, 0.5, (Ws * Hs, 3)).astype(np.float32)).to(dev)
+    l1, g1 = train.mse_step(par_s, pkt, cam_s, tgt_s, cfg_s, 7, spp=spp_s)
+    l2, g2 = train.two_pass_mse_step(par_s, pkt, cam_s, tgt_s, cfg_s, 7, spp=spp_s,
+                                     samples_per_call=3)
+    torch.cuda.synchronize()
+    worst = 0.0
+    for key in g1:
+        a, b = g2[key], g1[key]
+        excess = float(((a - b).abs() - TWO_PASS_RTOL * b.abs()).max())
+        worst = max(worst, excess / max(float(b.abs().max()), 1e-30))
+        check(bool(torch.allclose(a, b, rtol=TWO_PASS_RTOL,
+                                  atol=TWO_PASS_ATOL * float(b.abs().max()))),
+              f"two_pass d{key} differs from mse_step: {float((a - b).abs().max())}")
+    check(abs(float(l1) - float(l2)) <= 1e-6 * abs(float(l1)), f"two_pass loss {l1} {l2}")
+    print(f"  two_pass_mse_step == mse_step at {Ws}x{Hs}, spp {spp_s} (chunks of 3): "
+          f"loss {float(l1):.6f} vs {float(l2):.6f}, worst excess over rtol "
+          f"{worst:.2e} of the leaf's largest", flush=True)
+
+    return [{
+        "name": "trace_record",
+        "route": "cuda",
+        "source": "ptre_tpu_torch/csrc/record_kernel.cu",
+        "replaces": "ptre_tpu/ops/pallas/megakernel.py:734",
+        "launches": launches[0],
+        "max_abs_err": rec_err,
+        "ms": rec_ms,
+        "plain_ms": rec_plain_ms,
+    }, {
+        "name": "fused_bwd",
+        "route": "cuda",
+        "source": "ptre_tpu_torch/csrc/fused_grad_kernel.cu",
+        "replaces": "ptre_tpu/ops/pallas/fused_grad.py:112",
+        "launches": launches[1],
+        "max_abs_err": bwd_err,
+        "ms": bwd_ms,
+        "plain_ms": bwd_plain_ms,
+    }]
 
 
 if __name__ == "__main__":

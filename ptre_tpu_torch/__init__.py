@@ -11,11 +11,12 @@ reuses only the jax-free modules: ``models.mesh``, ``utils.config``,
 ``utils.errors`` and ``utils.image``.
 
 Layout:
-  ops/       — math, Philox RNG, camera, per-sample post-processing
+  ops/       — math, Philox RNG, camera, integrator, gradsafe forms, replay
   ops/cuda/  — kernel wrappers, their plain PyTorch versions, the nvcc build
   csrc/      — the CUDA C++ sources
   models/    — scene graph, ScenePacket, demo scenes
-  render/    — progressive path tracer frame pipeline
+  parallel/  — the differentiable parameter set (multi-GPU still to come)
+  render/    — progressive path tracer frame pipeline, training steps
   utils/     — device checks, interop with the JAX package's pytrees
 """
 

@@ -1,7 +1,8 @@
-// Per-pixel path tracing, shared by the CUDA render kernel and its host
-// build: trace_path (the bounce loop) and scatter_shade (material select,
-// ONB cosine scatter, Oren-Nayar / emissive weight), then render_pixel (ray
-// generation, clamp + scrub, running average).
+// Per-pixel path tracing, shared by the CUDA render and recording kernels
+// and their host builds: trace_path (the bounce loop, with an optional
+// selection recorder) and scatter_shade (material select, ONB cosine
+// scatter, Oren-Nayar / emissive weight), then render_pixel (ray generation,
+// clamp + scrub, running average).
 //
 // These are the one-ray forms of ptre_tpu/ops/pallas/megakernel.py
 // _trace_block (:811) and _scatter_shade (:611), and of the per-tile body of
@@ -30,6 +31,7 @@ constexpr int kMaxMats = 8;
 constexpr int kTriStride = 32;  // pack_tri32 row
 constexpr int kSphStride = 16;  // pack_sph16 row
 constexpr int kMatStride = 8;   // pack_mats row
+constexpr int kMaxDepth = 8;    // bounces the gradient kernels keep state for
 
 constexpr float kBig = 3.00000001e+38f;
 constexpr float kTau = 6.28318548f;     // float32(2 * 3.14159265358979)
@@ -44,6 +46,17 @@ struct RenderParams {
   float inv_n, w_old;  // running average: 1/n and (n-1)/n
   uint32_t seed_lo, seed_hi, sample;
   int32_t height, width, n_tri, n_sph, num_mats, max_depth, clamp,
+      external_rng;
+};
+
+// Arguments of the recording and fused backward kernels, passed by value.
+// Mirrored field for field by TraceParams in ops/cuda/megakernel.py.
+struct TraceParams {
+  float t_min, t_max, det_eps, shadow_eps, pdf_eps;
+  uint32_t seed_lo, seed_hi, sample;
+  int32_t n_rays, n_tri, n_sph, num_mats, max_depth,
+      sph_offset,  // unified-table row of sphere 0 (the padded triangle rows)
+      n_rows,      // unified-table rows (fused backward only)
       external_rng;
 };
 
@@ -196,18 +209,42 @@ PTRE_HD void scatter_shade(float nx, float ny, float nz, float dx, float dy,
   *emissive = is_emissive;
 }
 
+// Recorder policies of trace_path. NoRecord compiles to nothing, so the
+// render kernel's code and registers are those of a loop without recording.
+struct NoRecord {
+  PTRE_HD void hit(int, int, int) {}
+};
+
+// Writes the winner of every bounce that hits as a unified-table row
+// (megakernel.py:933-937): triangle j -> j, sphere s -> sph_offset + s.
+// Bounces after the path ended are left to the caller (-1).
+struct SelRecorder {
+  int32_t* sel;  // (max_depth, n_rays)
+  int64_t ray, n_rays;
+  int sph_offset;
+  int n_hits = 0;
+
+  PTRE_HD void hit(int bounce, int tri_idx, int sph_idx) {
+    sel[bounce * n_rays + ray] = sph_idx >= 0 ? sph_offset + sph_idx : tri_idx;
+    n_hits = bounce + 1;
+  }
+};
+
 // One path, up to max_depth bounces (megakernel.py:811-990). A path that
 // misses (sky) or hits an emitter ends with a per-thread break: the
 // reference's skipped bounces are no-ops, so the image is the same.
-template <class Uniforms>
+// ``rec.hit(bounce, tri, sph)`` sees each hit's winner (sph >= 0 when a
+// sphere won).
+template <class Params, class Uniforms, class Recorder>
 PTRE_HD void trace_path(float ox, float oy, float oz, float dx, float dy,
-                        float dz, const SceneTables& sc, const RenderParams& p,
-                        Uniforms& un, float col[3]) {
+                        float dz, const SceneTables& sc, const Params& p,
+                        Uniforms& un, Recorder& rec, float col[3]) {
   float cr = 1.0f, cg = 1.0f, cb = 1.0f;
   for (int bounce = 0; bounce < p.max_depth; ++bounce) {
     // triangle sweep; strict t < best keeps the lowest index (:840-892)
     float tri_t = kBig;
     bool tri_hit = false;
+    int tri_idx = 0;
     float bnx = 0.0f, bny = 0.0f, bnz = 0.0f, tri_mat = 0.0f;
     for (int j = 0; j < sc.n_tri; ++j) {
       const float* tr = sc.tris + j * kTriStride;
@@ -245,6 +282,7 @@ PTRE_HD void trace_path(float ox, float oy, float oz, float dx, float dy,
         bny = (w * tr[10] + u * tr[13] + v * tr[16]) * sign;
         bnz = (w * tr[11] + u * tr[14] + v * tr[17]) * sign;
         tri_mat = tr[19];
+        tri_idx = j;
       }
     }
     const float tri_best = tri_hit ? tri_t : p.t_max;
@@ -253,6 +291,7 @@ PTRE_HD void trace_path(float ox, float oy, float oz, float dx, float dy,
     // acceptance bounds t_near, not t (:906-928)
     float sph_t = kBig;
     bool sph_hit = false;
+    int sph_idx = 0;
     float s_cx = 0.0f, s_cy = 0.0f, s_cz = 0.0f, s_ir = 0.0f, sph_mat = 0.0f;
     for (int s = 0; s < sc.n_sph; ++s) {
       const float* sp = sc.sphs + s * kSphStride;
@@ -275,6 +314,7 @@ PTRE_HD void trace_path(float ox, float oy, float oz, float dx, float dy,
         s_cz = cz;
         s_ir = 1.0f / (r == 0.0f ? 1.0f : r);
         sph_mat = sp[5];
+        sph_idx = s;
       }
     }
 
@@ -289,6 +329,7 @@ PTRE_HD void trace_path(float ox, float oy, float oz, float dx, float dy,
 
     // merge the winner (a sphere candidate already beat the triangles)
     const bool use_sph = sph_hit;
+    rec.hit(bounce, tri_idx, use_sph ? sph_idx : -1);
     const float t_hit = use_sph ? sph_t : tri_t;
     const float px = ox + t_hit * dx;
     const float py = oy + t_hit * dy;
@@ -367,7 +408,8 @@ PTRE_HD void render_pixel(const RenderParams& p, const SceneTables& sc, int x,
   dz = mul_rn(dz, dinv);
 
   float col[3];
-  trace_path(ox, oy, oz, dx, dy, dz, sc, p, un, col);
+  NoRecord rec;
+  trace_path(ox, oy, oz, dx, dy, dz, sc, p, un, rec, col);
 
   for (int ch = 0; ch < 3; ++ch) {
     float v = col[ch];
@@ -375,6 +417,27 @@ PTRE_HD void render_pixel(const RenderParams& p, const SceneTables& sc, int x,
     if (!isfinite(v)) v = 0.0f;  // NaN and +-inf (integrator.py:188)
     accum[ch] = add_rn(mul_rn(v, p.inv_n), mul_rn(accum[ch], p.w_old));
   }
+}
+
+// Ray `ray` of a recording trace (megakernel.py:734-808 with record_sel):
+// (R, 3) rays in, the unclamped color and the per-bounce selections out —
+// the unified-table row of each hit, -1 after the path ended.
+PTRE_HD void record_ray(const TraceParams& p, const SceneTables& sc,
+                        int64_t ray, const float* o, const float* d,
+                        const float* urand, float* color, int32_t* sel) {
+  SelRecorder rec = {sel, ray, p.n_rays, p.sph_offset};
+  const float* ro = o + 3 * ray;
+  const float* rd = d + 3 * ray;
+  float col[3];
+  if (p.external_rng) {
+    ExternalUniforms un = {urand, ray, p.n_rays};
+    trace_path(ro[0], ro[1], ro[2], rd[0], rd[1], rd[2], sc, p, un, rec, col);
+  } else {
+    PhiloxUniforms un(p.seed_lo, p.seed_hi, (uint32_t)ray, p.sample);
+    trace_path(ro[0], ro[1], ro[2], rd[0], rd[1], rd[2], sc, p, un, rec, col);
+  }
+  for (int b = rec.n_hits; b < p.max_depth; ++b) sel[b * p.n_rays + ray] = -1;
+  for (int ch = 0; ch < 3; ++ch) color[3 * ray + ch] = col[ch];
 }
 
 // Pixel (x, y) with the uniform source the params select.

@@ -1,10 +1,12 @@
 """Build the CUDA kernels from the repository's own sources at first use.
 
-``nvcc`` compiles ``csrc/render_kernel.cu`` into a shared library with a
-plain C interface, loaded with ``ctypes`` (no PyTorch headers, so a build
-takes seconds, not minutes). The library lands in ``ptre_tpu_torch/_build/``
-(git-ignored) under a name keyed on a hash of the sources and flags, so an
-edited source rebuilds and an unchanged one is reused.
+``nvcc`` compiles each kernel translation unit (``KERNEL_UNITS``) to an
+object file — all of them at once, one process each — and links them into
+one shared library with a plain C interface, loaded with ``ctypes`` (no
+PyTorch headers, so a build takes seconds, not minutes). The library lands
+in ``ptre_tpu_torch/_build/`` (git-ignored) under a name keyed on a hash of
+the sources and flags, so an edited source rebuilds and an unchanged one is
+reused.
 
 A missing ``nvcc`` or a failed build raises; nothing falls back.
 """
@@ -26,9 +28,11 @@ CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
 DEFAULT_CUDA_HOME = "/usr/local/cuda"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
-#: the kernel translation unit and the headers it includes
-SOURCES = ("render_kernel.cu", "trace.cuh", "philox.cuh")
+              "-Xcompiler", "-fPIC", "-Xptxas=-v")
+#: the kernel translation units, each compiled by its own nvcc process
+KERNEL_UNITS = ("render_kernel.cu", "record_kernel.cu", "fused_grad_kernel.cu")
+#: every source the library is built from: the units and their headers
+SOURCES = KERNEL_UNITS + ("trace.cuh", "philox.cuh", "replay.cuh")
 
 #: (seconds, ptxas report) of the build this process ran, or None if the
 #: library was already built
@@ -62,6 +66,27 @@ def _source_hash() -> str:
     return h.hexdigest()[:16]
 
 
+def _compile_all(nvcc: str, tmp_dir: str):
+    """Compile every unit to ``tmp_dir/<unit>.o``, all processes started
+    together; returns the concatenated ptxas reports."""
+    procs = []
+    for unit in KERNEL_UNITS:
+        cmd = [nvcc, *NVCC_FLAGS, "-I", CSRC_DIR, "-c", "-o",
+               os.path.join(tmp_dir, unit + ".o"), os.path.join(CSRC_DIR, unit)]
+        procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.PIPE, text=True)))
+    reports, failures = [], []
+    for cmd, proc in procs:
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            failures.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                            f"{out}\n{err}")
+        reports.append(err)
+    if failures:
+        raise RendererError("\n".join(failures))
+    return "".join(reports)
+
+
 @functools.lru_cache(maxsize=None)
 def load_library() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library; cached per process."""
@@ -69,22 +94,35 @@ def load_library() -> ctypes.CDLL:
     lib_path = os.path.join(BUILD_DIR, f"libptre_kernels_{_source_hash()}.so")
     if not os.path.exists(lib_path):
         nvcc = find_nvcc()
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{lib_path}.{os.getpid()}.tmp"
-        cmd = [nvcc, *NVCC_FLAGS, "-I", CSRC_DIR, "-o", tmp,
-               os.path.join(CSRC_DIR, "render_kernel.cu")]
+        tmp_dir = os.path.join(BUILD_DIR, f"obj.{os.getpid()}")
+        os.makedirs(tmp_dir, exist_ok=True)
         t0 = time.perf_counter()
+        report = _compile_all(nvcc, tmp_dir)
+        tmp = f"{lib_path}.{os.getpid()}.tmp"
+        cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared", "-o", tmp,
+               *(os.path.join(tmp_dir, u + ".o") for u in KERNEL_UNITS)]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
             raise RendererError(
-                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                f"nvcc link failed ({proc.returncode}):\n{' '.join(cmd)}\n"
                 f"{proc.stdout}\n{proc.stderr}")
         os.replace(tmp, lib_path)  # atomic: concurrent builds both succeed
-        last_build = (time.perf_counter() - t0, proc.stderr)
+        shutil.rmtree(tmp_dir, ignore_errors=True)
+        last_build = (time.perf_counter() - t0, report)
     lib = ctypes.CDLL(lib_path)
+    ptr = ctypes.c_void_p
     lib.ptre_render_sample.restype = ctypes.c_int
     # (params, accum, urand, tris, sphs, mats, sky, stream)
-    lib.ptre_render_sample.argtypes = [ctypes.c_void_p] * 8
+    lib.ptre_render_sample.argtypes = [ptr] * 8
+    lib.ptre_trace_record.restype = ctypes.c_int
+    # (params, o, d, urand, tris, sphs, mats, sky, color, sel, stream)
+    lib.ptre_trace_record.argtypes = [ptr] * 11
+    lib.ptre_fused_bwd_blocks.restype = ctypes.c_int
+    lib.ptre_fused_bwd_blocks.argtypes = [ctypes.c_int]
+    lib.ptre_fused_bwd.restype = ctypes.c_int
+    # (params, table, sky, o, d, sel, urand, dcol, d_o, d_d, dtab_part,
+    #  dsky_part, n_blocks, stream)
+    lib.ptre_fused_bwd.argtypes = [ptr] * 12 + [ctypes.c_int, ptr]
     lib.ptre_cuda_error_string.restype = ctypes.c_char_p
     lib.ptre_cuda_error_string.argtypes = [ctypes.c_int]
     return lib

@@ -11,7 +11,12 @@ Port of the dense-class pieces of `ptre_tpu/ops/pallas/megakernel.py`:
     (`megakernel.py:611`), vectorised over rays and looping over
     primitives. Their CUDA twins are `trace_path` / `scatter_shade` in
     `csrc/trace.cuh`; the three are written in the same operation order so
-    that they agree to float rounding.
+    that they agree to float rounding;
+  * `trace_fused_sel` — the recording forward of the gradient path
+    (`_mega_kernel_dense` with ``record_sel``, `megakernel.py:734`): the
+    wrapper of `csrc/record_kernel.cu` (counted in ``record_launches``),
+    with `trace_record_reference` (``trace_block(record=True)``) as its
+    plain version, and the argument checks shared by the CUDA wrappers.
 
 Integrator semantics are the reference's: closest hit with triangles first
 and spheres bounded by the closest triangle (including the far-root quirk),
@@ -22,10 +27,15 @@ offsets along the final normal.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 
 import numpy as np
 import torch
+
+from ptre_tpu.utils.errors import RendererError
+from ptre_tpu_torch.ops import rng
+from ptre_tpu_torch.ops.cuda import build
 
 _BIG = float(np.float32(3e38))
 _TAU = float(np.float32(2.0 * 3.14159265358979))
@@ -90,6 +100,8 @@ class PackedScene:
     n_tri: int
     n_sph: int
     num_mats: int
+    tri_rows: int  # the packet's padded triangle rows: sphere s is row T + s
+    #              of the unified table (`ops/path_replay.build_table`)
 
 
 def pack_scene(packet) -> PackedScene:
@@ -116,7 +128,8 @@ def pack_scene(packet) -> PackedScene:
         tris=tris.contiguous(), sphs=sphs.contiguous(),
         mats=pack_mats(packet.mat_kind, packet.mat_albedo, packet.mat_param),
         sky=sky.contiguous(), n_tri=tris.shape[0],
-        n_sph=sphs.shape[0], num_mats=int(packet.num_materials))
+        n_sph=sphs.shape[0], num_mats=int(packet.num_materials),
+        tri_rows=int(packet.tri_v0.shape[0]))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -223,10 +236,16 @@ def scatter_shade(nx, ny, nz, dx, dy, dz, mat_id, u1, u2, mats, num_mats,
 
 
 def trace_block(o, d, scene: PackedScene, consts: TraceConsts, get_uniforms,
-                max_depth: int):
+                max_depth: int, record: bool = False):
     """Masked bounce loop over a batch of rays (any common shape) → linear
     color (r, g, b). ``o``/``d`` are (x, y, z) tuples of float32 tensors;
     ``get_uniforms(bounce)`` returns that bounce's (u1, u2).
+
+    With ``record`` it also returns the selections, (max_depth, *shape)
+    int32: per bounce the winner's unified table row (``j`` for triangle j,
+    ``scene.tri_rows + s`` for sphere s), -1 where the bounce missed or the
+    path had already ended (`_trace_block` `:933-937` records the same
+    winner; its dead-ray rows differ, see `trace_fused_sel`).
 
     Every bounce runs on every ray: a dead ray's bounce is a no-op (its
     factor is 1), which is what the reference's per-block skip and the CUDA
@@ -256,12 +275,15 @@ def trace_block(o, d, scene: PackedScene, consts: TraceConsts, get_uniforms,
     cb = torch.ones_like(ox)
     active = torch.ones_like(ox, dtype=torch.bool)
     zero = torch.zeros_like(ox)
+    izero = torch.zeros_like(ox, dtype=torch.int32)
+    sels = []
     for bounce in range(max_depth):
         # ---- triangle sweep: strict t < best keeps the lowest index -------
         tri_t = zero + _BIG
         tri_hit = torch.zeros_like(active)
         bnx, bny, bnz, tri_mat = zero, zero, zero, zero
-        for row in tri_rows:
+        tri_idx = izero
+        for j, row in enumerate(tri_rows):
             (v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z,
              n0x, n0y, n0z, n1x, n1y, n1z, n2x, n2y, n2z, valid, mat,
              gnx, gny, gnz) = row
@@ -296,6 +318,7 @@ def trace_block(o, d, scene: PackedScene, consts: TraceConsts, get_uniforms,
             bny = torch.where(upd, iny * sign, bny)
             bnz = torch.where(upd, inz * sign, bnz)
             tri_mat = torch.where(upd, mat, tri_mat)
+            tri_idx = torch.where(upd, j, tri_idx)
             tri_hit = tri_hit | acc
         tri_best = torch.where(tri_hit, tri_t, k.t_max + zero)
 
@@ -303,7 +326,8 @@ def trace_block(o, d, scene: PackedScene, consts: TraceConsts, get_uniforms,
         sph_t = zero + _BIG
         sph_hit = torch.zeros_like(active)
         s_cx, s_cy, s_cz, s_ir, sph_mat = zero, zero, zero, zero, zero
-        for (cx, cy, cz, r, valid, mat), ir in zip(sph_rows, inv_r):
+        sph_idx = izero
+        for s, ((cx, cy, cz, r, valid, mat), ir) in enumerate(zip(sph_rows, inv_r)):
             if not valid > 0.5:
                 continue
             ocx, ocy, ocz = cx - ox, cy - oy, cz - oz
@@ -322,10 +346,14 @@ def trace_block(o, d, scene: PackedScene, consts: TraceConsts, get_uniforms,
             s_cz = torch.where(upd, cz, s_cz)
             s_ir = torch.where(upd, ir, s_ir)
             sph_mat = torch.where(upd, mat, sph_mat)
+            sph_idx = torch.where(upd, s, sph_idx)
             sph_hit = sph_hit | acc
 
         hit = tri_hit | sph_hit
         use_sph = sph_hit
+        if record:
+            row = torch.where(use_sph, sph_idx + scene.tri_rows, tri_idx)
+            sels.append(torch.where(active & hit, row, -1).to(torch.int32))
 
         # ---- merge winner, finish the normal ------------------------------
         t_hit = torch.where(use_sph, sph_t, tri_t)
@@ -363,4 +391,159 @@ def trace_block(o, d, scene: PackedScene, consts: TraceConsts, get_uniforms,
         dy = torch.where(nxt, wiy, dy)
         dz = torch.where(nxt, wiz, dz)
         active = nxt
+    if record:
+        return cr, cg, cb, torch.stack(sels)
     return cr, cg, cb
+
+
+# ---- recording forward of the gradient path ---------------------------------
+
+#: kernel launches made by `trace_fused_sel` in this process
+record_launches = 0
+#: bounces the CUDA kernels keep per-thread state for (`kMaxDepth`, trace.cuh)
+MAX_DEPTH = 8
+
+
+class TraceParams(ctypes.Structure):
+    """Arguments of the recording and fused backward kernels; field for
+    field `ptre::TraceParams` (trace.cuh), every field 4 bytes."""
+
+    _fields_ = [
+        ("t_min", ctypes.c_float), ("t_max", ctypes.c_float),
+        ("det_eps", ctypes.c_float), ("shadow_eps", ctypes.c_float),
+        ("pdf_eps", ctypes.c_float),
+        ("seed_lo", ctypes.c_uint32), ("seed_hi", ctypes.c_uint32),
+        ("sample", ctypes.c_uint32),
+        ("n_rays", ctypes.c_int32), ("n_tri", ctypes.c_int32),
+        ("n_sph", ctypes.c_int32), ("num_mats", ctypes.c_int32),
+        ("max_depth", ctypes.c_int32), ("sph_offset", ctypes.c_int32),
+        ("n_rows", ctypes.c_int32), ("external_rng", ctypes.c_int32),
+    ]
+
+
+def trace_params(n_rays: int, consts: TraceConsts, max_depth: int, seed: int,
+                 sample: int, external_rng: bool, scene: PackedScene = None,
+                 sph_offset: int = 0, n_rows: int = 0) -> TraceParams:
+    """The kernels' arguments. The recording kernel reads the ``scene``
+    counts (and its sphere offset); the backward kernel ``sph_offset`` and
+    the table's ``n_rows``."""
+    p = TraceParams()
+    p.t_min, p.t_max, p.det_eps = consts.t_min, consts.t_max, consts.det_eps
+    p.shadow_eps, p.pdf_eps = consts.shadow_eps, consts.pdf_eps
+    p.seed_lo, p.seed_hi = seed & 0xFFFFFFFF, (seed >> 32) & 0xFFFFFFFF
+    p.sample = sample & 0xFFFFFFFF
+    p.n_rays, p.max_depth, p.external_rng = n_rays, max_depth, int(external_rng)
+    p.sph_offset, p.n_rows = sph_offset, n_rows
+    if scene is not None:
+        p.n_tri, p.n_sph, p.num_mats = scene.n_tri, scene.n_sph, scene.num_mats
+        p.sph_offset = scene.tri_rows
+    return p
+
+
+def trace_uniforms(o, max_depth: int, seed: int, sample: int, urand=None):
+    """The (2 + 2*max_depth, R) uniforms of a trace: ``urand`` as given, or
+    the Philox draws keyed by (seed, ray, sample, draw) the kernels make."""
+    if urand is not None:
+        return urand
+    return rng.ray_uniforms(seed, sample, o.shape[0], 1 + max_depth, o.device)
+
+
+def trace_record_reference(o, d, scene: PackedScene, consts: TraceConsts,
+                           max_depth: int, seed: int = 0, sample: int = 0,
+                           urand=None):
+    """Plain PyTorch version of the recording kernel: (R, 3) rays → (color
+    (R, 3) unclamped, selections (max_depth, R) int32)."""
+    ur = trace_uniforms(o, max_depth, seed, sample, urand)
+    cr, cg, cb, sel = trace_block(
+        o.unbind(dim=1), d.unbind(dim=1), scene, consts,
+        lambda b: (ur[2 + 2 * b], ur[3 + 2 * b]), max_depth, record=True)
+    return torch.stack([cr, cg, cb], dim=1), sel
+
+
+def check_tensors(ref: str, device, expected):
+    """Raise unless every (name, tensor, shape, dtype) entry is a contiguous
+    tensor of that dtype and shape on ``device``, the device of ``ref``."""
+    for name, t, shape, dtype in expected:
+        if t.device != device:
+            raise RendererError(f"{name} is on {t.device}, {ref} on {device}")
+        if t.dtype != dtype or not t.is_contiguous():
+            want = str(dtype).replace("torch.", "")
+            raise RendererError(f"{name} must be contiguous {want}, got "
+                                f"{t.dtype} contiguous={t.is_contiguous()}")
+        if tuple(t.shape) != tuple(shape):
+            raise RendererError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+
+
+def check_rays(o, d, max_depth: int, urand=None, extra=()):
+    """The checks shared by the recording and backward kernels: (R, 3) float32
+    rays, (2 + 2*max_depth, R) uniforms if given, ``extra`` entries, all on
+    ``o``'s device, and ``1 <= max_depth <= MAX_DEPTH``."""
+    R = o.shape[0] if o.dim() == 2 else -1
+    expected = [("o", o, (R, 3), torch.float32), ("d", d, (R, 3), torch.float32)]
+    if urand is not None:
+        expected.append(("urand", urand, (2 + 2 * max_depth, R), torch.float32))
+    check_tensors("o", o.device, expected + list(extra))
+    if not 1 <= max_depth <= MAX_DEPTH:
+        raise RendererError(f"the CUDA kernels take 1 <= max_depth <= {MAX_DEPTH}, "
+                            f"got {max_depth}")
+
+
+def check_scene(scene: PackedScene, ref: str, device):
+    """Raise unless the packed scene lies on ``device`` (that of ``ref``) and
+    is dense-class."""
+    check_tensors(ref, device, [("tris", scene.tris, (scene.n_tri, 32), torch.float32),
+                           ("sphs", scene.sphs, (scene.n_sph, 16), torch.float32),
+                           ("mats", scene.mats, (MAX_MATS, 8), torch.float32),
+                           ("sky", scene.sky, (8,), torch.float32)])
+    if not (1 <= scene.n_tri <= DENSE_MAX_TRI and 1 <= scene.n_sph <= DENSE_MAX_SPH
+            and scene.num_mats <= MAX_MATS):
+        raise RendererError(
+            f"the dense kernels take <= {DENSE_MAX_TRI} triangles, <= "
+            f"{DENSE_MAX_SPH} spheres, <= {MAX_MATS} materials; got "
+            f"{scene.n_tri}, {scene.n_sph}, {scene.num_mats}")
+
+
+def trace_fused_sel(o, d, scene: PackedScene, consts: TraceConsts,
+                    max_depth: int, seed: int = 0, sample: int = 0,
+                    urand=None):
+    """Trace one sample per ray and record per-bounce selections: the
+    forward half of the gradient path (`megakernel.trace_fused_sel` with
+    ``planar="color"``). Returns (color (R, 3) float32 unclamped,
+    selections (max_depth, R) int32).
+
+    CUDA tensors launch `csrc/record_kernel.cu` (counted in
+    ``record_launches``); CPU tensors run `trace_record_reference`; anything
+    else raises. Uniforms: ``urand`` (2 + 2*max_depth, R), or Philox draws
+    keyed by (seed, ray, sample, draw) when None.
+
+    The reference's dead-ray rows differ by design: its kernel writes tri,
+    sph and use_sph for every lane of a live block and masks only the hit
+    row with ``hit & active``; here a bounce that did not hit, or came after
+    the path ended, is -1 — all the backward reads (`fused_grad.py:157-170`).
+    """
+    global record_launches
+    if o.device.type == "cpu":
+        return trace_record_reference(o, d, scene, consts, max_depth, seed,
+                                      sample, urand)
+    if o.device.type != "cuda":
+        raise RendererError(f"trace_fused_sel runs on cuda or cpu, not {o.device}")
+    check_rays(o, d, max_depth, urand)
+    check_scene(scene, "o", o.device)
+    R = o.shape[0]
+    color = torch.empty((R, 3), dtype=torch.float32, device=o.device)
+    sel = torch.empty((max_depth, R), dtype=torch.int32, device=o.device)
+    params = trace_params(R, consts, max_depth, seed, sample,
+                          external_rng=urand is not None, scene=scene)
+    lib = build.load_library()
+    with torch.cuda.device(o.device):
+        stream = torch.cuda.current_stream(o.device).cuda_stream
+        rc = lib.ptre_trace_record(
+            ctypes.addressof(params), o.data_ptr(), d.data_ptr(),
+            None if urand is None else urand.data_ptr(), scene.tris.data_ptr(),
+            scene.sphs.data_ptr(), scene.mats.data_ptr(), scene.sky.data_ptr(),
+            color.data_ptr(), sel.data_ptr(), stream)
+    if rc != 0:
+        raise RendererError(
+            f"record kernel launch failed: {lib.ptre_cuda_error_string(rc).decode()}")
+    record_launches += 1
+    return color, sel

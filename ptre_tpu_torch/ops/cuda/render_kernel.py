@@ -149,27 +149,11 @@ def sample_accum_reference(accum, scene: mk.PackedScene, cam_rows, n: int,
 
 def _check_cuda_inputs(accum, scene, urand, max_depth):
     H, W = accum.shape[:2]
-    expected = [("accum", accum, (H, W, 3)),
-                ("tris", scene.tris, (scene.n_tri, 32)),
-                ("sphs", scene.sphs, (scene.n_sph, 16)),
-                ("mats", scene.mats, (mk.MAX_MATS, 8)),
-                ("sky", scene.sky, (8,))]
+    expected = [("accum", accum, (H, W, 3), torch.float32)]
     if urand is not None:
-        expected.append(("urand", urand, (2 + 2 * max_depth, H, W)))
-    for name, t, shape in expected:
-        if t.device != accum.device:
-            raise RendererError(f"{name} is on {t.device}, accum on {accum.device}")
-        if t.dtype != torch.float32 or not t.is_contiguous():
-            raise RendererError(f"{name} must be contiguous float32, got "
-                                f"{t.dtype} contiguous={t.is_contiguous()}")
-        if tuple(t.shape) != shape:
-            raise RendererError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
-    if not (1 <= scene.n_tri <= mk.DENSE_MAX_TRI and 1 <= scene.n_sph <= mk.DENSE_MAX_SPH
-            and scene.num_mats <= mk.MAX_MATS):
-        raise RendererError(
-            f"the dense kernel takes <= {mk.DENSE_MAX_TRI} triangles, "
-            f"<= {mk.DENSE_MAX_SPH} spheres, <= {mk.MAX_MATS} materials; got "
-            f"{scene.n_tri}, {scene.n_sph}, {scene.num_mats}")
+        expected.append(("urand", urand, (2 + 2 * max_depth, H, W), torch.float32))
+    mk.check_tensors("accum", accum.device, expected)
+    mk.check_scene(scene, "accum", accum.device)
 
 
 def sample_accum(accum, scene: mk.PackedScene, cam_rows, n: int, config,

@@ -1,12 +1,18 @@
-"""Per-sample post-processing of the integrator (`ptre_tpu/ops/integrator.py`).
+"""Path-tracing integrator: per-sample post-processing and the
+differentiable trace (`ptre_tpu/ops/integrator.py`).
 
-Only `postprocess_sample` is ported so far; the staged differentiable
-``trace`` is still to come (ROADMAP A5).
+``trace`` routes every dense-class packet to the fused gradient path
+(`ops/cuda/fused_grad.trace_grad`): the recording kernel forward and the
+fused backward kernel on the card, their plain versions on the CPU. The
+staged, autograd-capable trace of the reference (ROADMAP A5) is not ported,
+so a packet the dense kernels refuse raises instead of falling back.
 """
 
 from __future__ import annotations
 
 import torch
+
+from ptre_tpu_torch.ops.cuda import fused_grad
 
 
 def postprocess_sample(color, clamp: bool = True):
@@ -16,3 +22,25 @@ def postprocess_sample(color, clamp: bool = True):
     if clamp:
         color = torch.clamp(color, 0.0, 1.0)
     return torch.where(torch.isfinite(color), color, torch.zeros_like(color))
+
+
+def check_grad_dispatch(packet, device) -> None:
+    """Raise unless `trace` has a path for this packet on ``device``: the
+    dense fused gradient kernels (or their plain versions on the CPU)."""
+    device = torch.device(device)
+    if device.type not in ("cuda", "cpu"):
+        raise NotImplementedError(f"trace runs on cuda or cpu, not {device}")
+    fused_grad.require_dense(packet)
+
+
+def trace(origins, directions, packet, config, seed: int = 0, sample: int = 0,
+          urand=None):
+    """Trace one sample per ray → linear color (R, 3), differentiable
+    w.r.t. the rays and the packet's float leaves.
+
+    ``seed``/``sample`` key the Philox draws (seed, ray, sample, draw);
+    ``urand`` (2 + 2*max_depth, R) replaces them (parity runs).
+    """
+    check_grad_dispatch(packet, origins.device)
+    return fused_grad.trace_grad(origins, directions, packet, config, seed,
+                                 sample, urand)

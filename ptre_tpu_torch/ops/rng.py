@@ -62,19 +62,26 @@ def u01(words):
     return (words >> 8).to(torch.float32) * (2.0 ** -24)
 
 
+def ray_uniforms(seed: int, sample: int, n_rays: int, n_pairs: int,
+                 device=None):
+    """(2 * n_pairs, n_rays) uniforms: rows 2k and 2k+1 are draw pair k of
+    each ray (pixel), keyed by (seed, ray, sample, k) as the kernels key
+    them. ``n_pairs = 1`` gives only the pixel jitter (+0.5)."""
+    pix = torch.arange(n_rays, dtype=torch.int64, device=device)
+    smp = torch.tensor(sample & _MASK, dtype=torch.int64, device=device)
+    zero = torch.zeros((), dtype=torch.int64, device=device)
+    rows = []
+    for block in range((n_pairs + 1) // 2):
+        blk = torch.tensor(block, dtype=torch.int64, device=device)
+        words = philox4x32(pix, smp, blk, zero, seed & _MASK, seed >> 32)
+        rows.extend(words)
+    return torch.stack([u01(w) for w in rows[: 2 * n_pairs]])
+
+
 def render_uniforms(seed: int, sample: int, height: int, width: int,
                     max_depth: int, device=None):
     """The (2 + 2*max_depth, H, W) uniforms the render kernel draws in-kernel
     for one sample: rows 0-1 are the pixel jitter (+0.5), rows 2b+2 and
     2b+3 bounce b's scatter pair — the layout of the external ``urand``."""
-    pix = torch.arange(height * width, dtype=torch.int64, device=device)
-    smp = torch.tensor(sample & _MASK, dtype=torch.int64, device=device)
-    zero = torch.zeros((), dtype=torch.int64, device=device)
-    rows = []
-    n_pairs = 1 + max_depth
-    for block in range((n_pairs + 1) // 2):
-        blk = torch.tensor(block, dtype=torch.int64, device=device)
-        words = philox4x32(pix, smp, blk, zero, seed & _MASK, seed >> 32)
-        rows.extend(words)
-    return torch.stack([u01(w) for w in rows[: 2 * n_pairs]]).reshape(
-        2 * n_pairs, height, width)
+    return ray_uniforms(seed, sample, height * width, 1 + max_depth,
+                        device).reshape(2 + 2 * max_depth, height, width)

@@ -1,0 +1,127 @@
+"""Single-device differentiable training steps (`ptre_tpu/render/train.py`).
+
+Two exact schedules for the image-MSE loss L = mean((M - T)^2), with the
+mean image M = (1/S) sum_s I_s over S samples per pixel:
+
+* `mse_step` — one autograd graph over all samples. Each sample keeps its
+  recorded selections (20 bytes a ray at max_depth 5) and the ray-generation
+  residuals until the backward; at 1920x1080 and 64 spp that is some
+  gigabytes, which an 80 GB card holds (`PERF.md` gives the measured peak).
+
+* `two_pass_mse_step` — constant memory in the sample count:
+
+      pass 1:  M = (1/S) sum_s I_s(theta)             (forward only)
+      cot    = dL/dI_s = 2 (M - T) / (N S)            (the same for every s)
+      pass 2:  dL/dtheta = sum_s cot . dI_s/dtheta    (one backward per chunk)
+
+  The exact gradient: dM/dI_s = 1/S does not depend on s, so the cotangent
+  factors out of the sum (validated against `mse_step`).
+
+On CUDA tensors every sample is one launch of the recording kernel and one
+of the fused backward kernel (`ops/cuda/fused_grad`); on CPU tensors their
+plain versions run. Random numbers: per sample s, the port's Philox keyed by
+(seed, pixel, s, draw) — draw 0 the pixel jitter, draw 1 + b bounce b — or
+given uniforms ``urand`` (S, 2 + 2*max_depth, H, W), the layout of
+`render/pathtracer.render_step`.
+
+Not carried over from the reference: the dead ``n = target.size`` of
+``mse_step``, the ``spp % samples_per_call`` assert (a ragged last chunk
+runs instead) and the ``samples_per_call = 8`` default, which bounded the
+length of one TPU dispatch; here a chunk only sets how many samples' graphs
+one backward holds.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ptre_tpu_torch.ops import camera as cam_ops
+from ptre_tpu_torch.ops import integrator, rng
+from ptre_tpu_torch.parallel import sharding as sh
+from ptre_tpu_torch.render import pathtracer as pt
+
+
+def sample_color(params, packet, cam, config, seed: int, sample: int,
+                 urand=None):
+    """One jittered sample per pixel → RAW linear color (H*W, 3), row-major.
+
+    ``params`` (`sharding.differentiable_params`) override the packet's and
+    camera's leaves; the color is unclamped (training integrates in linear
+    space). ``urand``: this sample's (2 + 2*max_depth, H, W) uniforms, rows
+    0-1 the pixel jitter + 0.5; None draws Philox keyed by (seed, pixel,
+    sample, draw).
+    """
+    pk, cm = sh.apply_params(params, packet, cam)
+    dev = packet.device
+    R = cm.height * cm.width
+    px, py = pt.pixel_grid(cm.height, cm.width, dev)
+    if urand is None:
+        jit = rng.ray_uniforms(seed, sample, R, 1, dev)
+    else:
+        urand = urand.reshape(2 + 2 * config.max_depth, R)
+        jit = urand[:2]
+    o, d = cam_ops.get_rays(cm, px, py, (jit - 0.5).T)
+    return integrator.trace(o, d, pk, config, seed, sample, urand)
+
+
+def _leaves(params):
+    return {k: v.detach().requires_grad_(True) for k, v in params.items()}
+
+
+def _grad_dict(out, leaves):
+    grads = torch.autograd.grad(out, list(leaves.values()), allow_unused=True)
+    return {k: torch.zeros_like(v) if g is None else g
+            for (k, v), g in zip(leaves.items(), grads)}
+
+
+def mse_step(params, packet, cam, target, config, seed: int, spp: int = 1,
+             urand=None):
+    """(loss, grads) of the image MSE at ``spp`` samples, one graph.
+
+    ``target``: (H*W, 3) linear, row-major. ``urand``: optional
+    (spp, 2 + 2*max_depth, H, W) uniforms. Returns the loss as a 0-d tensor
+    and a dict of gradients with ``params``' keys.
+    """
+    integrator.check_grad_dispatch(packet, target.device)
+    leaves = _leaves(params)
+    acc = torch.zeros_like(target)
+    for s in range(spp):
+        acc = acc + sample_color(leaves, packet, cam, config, seed, s,
+                                 None if urand is None else urand[s])
+    loss = torch.mean((acc / spp - target) ** 2)
+    return loss.detach(), _grad_dict(loss, leaves)
+
+
+def two_pass_mse_step(params, packet, cam, target, config, seed: int,
+                      spp: int = 64, samples_per_call: int = 1, urand=None):
+    """Exact (loss, grads) of the image MSE with memory independent of spp.
+
+    Pass 1 renders the mean image without a graph; pass 2 backpropagates the
+    fixed cotangent 2 (M - T) / (N S) through ``samples_per_call`` samples at
+    a time (the last chunk may be shorter). One sample per backward keeps
+    the memory at one sample's graph, the point of this schedule.
+    """
+    integrator.check_grad_dispatch(packet, target.device)
+    c = max(1, min(samples_per_call, spp))
+
+    def urand_of(s):
+        return None if urand is None else urand[s]
+
+    with torch.no_grad():
+        acc = torch.zeros_like(target)
+        for s in range(spp):
+            acc = acc + sample_color(params, packet, cam, config, seed, s,
+                                     urand_of(s))
+        mean_img = acc / spp
+        loss = torch.mean((mean_img - target) ** 2)
+        cot = 2.0 * (mean_img - target) / (target.numel() * spp)
+
+    grads = None
+    for s0 in range(0, spp, c):
+        leaves = _leaves(params)
+        part = sum(torch.sum(sample_color(leaves, packet, cam, config, seed, s,
+                                          urand_of(s)) * cot)
+                   for s in range(s0, min(s0 + c, spp)))
+        g = _grad_dict(part, leaves)
+        grads = g if grads is None else {k: grads[k] + g[k] for k in grads}
+    return loss, grads

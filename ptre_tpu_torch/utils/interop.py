@@ -1,8 +1,10 @@
 """Carry the JAX package's state across into the port.
 
-The JAX package's pytrees (ScenePacket, Camera, AccumState) cross as numpy
-arrays — ``np.asarray`` on each leaf — so both packages render the same
-scene, from the same pose, onto the same history. Nothing here imports jax.
+The JAX package's pytrees (ScenePacket, Camera, AccumState, the
+differentiable parameters) cross as numpy arrays — ``np.asarray`` on each
+leaf — so both packages render the same scene, from the same pose, onto the
+same history, and differentiate the same parameters. Nothing here imports
+jax.
 """
 
 from __future__ import annotations
@@ -42,3 +44,21 @@ def accum_from_numpy(linear, frame, device=None) -> AccumState:
     lin = torch.from_numpy(np.array(linear, dtype=np.float32))
     return AccumState(linear=lin if device is None else lin.to(device),
                       frame=int(frame))
+
+
+def params_from_numpy(arrays: Dict[str, np.ndarray], device=None) -> Dict[str, torch.Tensor]:
+    """The port's parameter dict from the JAX ``differentiable_params``
+    leaves (``np.asarray`` of each), as float32 tensors."""
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32)).to(device)
+            for k, v in arrays.items()}
+
+
+def selections_from_jax(sel, tri_rows: int) -> torch.Tensor:
+    """JAX's (B, 4, R) float selection rows (tri index, sphere index,
+    use_sph, hit & active) → the port's (B, R) int32 unified-table rows:
+    ``tri`` or ``tri_rows + sph`` where the bounce hit, else -1."""
+    sel = np.asarray(sel)
+    tri = sel[:, 0].astype(np.int64)
+    sph = sel[:, 1].astype(np.int64) + tri_rows
+    rows = np.where(sel[:, 2] > 0.5, sph, tri)
+    return torch.from_numpy(np.where(sel[:, 3] > 0.5, rows, -1).astype(np.int32))

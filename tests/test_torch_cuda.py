@@ -1,4 +1,4 @@
-"""The CUDA render kernel on the card vs its plain PyTorch version.
+"""The CUDA kernels on the card vs their plain PyTorch versions.
 
 Marked ``cuda``: each test skips where torch sees no CUDA device (the check
 runs inside a fixture, never at import). On a machine with the card:
@@ -24,9 +24,13 @@ from ptre_tpu.utils.config import RenderConfig
 from ptre_tpu.utils.errors import RendererError
 from ptre_tpu_torch.models import demo
 from ptre_tpu_torch.ops import camera as cam_ops
+from ptre_tpu_torch.ops import path_replay
+from ptre_tpu_torch.ops.cuda import fused_grad as fg
 from ptre_tpu_torch.ops.cuda import megakernel as mk
 from ptre_tpu_torch.ops.cuda import render_kernel as rk
+from ptre_tpu_torch.parallel import sharding as sh
 from ptre_tpu_torch.render import pathtracer as pt
+from ptre_tpu_torch.render import train
 
 pytestmark = pytest.mark.cuda
 
@@ -92,3 +96,103 @@ def test_wrapper_rejects_bad_inputs(cuda):
                         urand=torch.rand((3, 32, 64), device=cuda))
     with pytest.raises(RendererError, match="accum on"):
         rk.sample_accum(prev, packed, rows, 1, cfg, urand=torch.rand((12, 32, 64)))
+
+
+# ---- the gradient path's kernels -----------------------------------------------
+# Tolerances as in chip_smoke.py phases 6-7: FMA contraction can flip a
+# grazing ray's path (the forward) or a branch of its gradient (the
+# backward); everything else agrees to float rounding.
+
+
+def _grad_setup(dev, W=256, H=128, B=5):
+    cfg = RenderConfig(width=W, height=H, max_depth=B)
+    pkt = demo.reference_demo_scene(16, 8).build_packet().to(dev)
+    cam = cam_ops.Camera.create(width=W, height=H)
+    params = sh.differentiable_params(pkt, cam)
+    _, cam_dev = sh.apply_params(params, pkt, cam)
+    px, py = pt.pixel_grid(H, W, dev)
+    jit = torch.rand((H * W, 2), device=dev, generator=torch.Generator(dev).manual_seed(3))
+    o, d = (t.contiguous() for t in cam_ops.get_rays(cam_dev, px, py, jit - 0.5))
+    return cfg, pkt, cam, params, o, d, mk.pack_scene(pkt), mk.TraceConsts.from_config(cfg)
+
+
+@pytest.mark.parametrize("external", [True, False])
+def test_record_kernel_matches_plain_version(cuda, external):
+    cfg, pkt, _, _, o, d, scene, k = _grad_setup(cuda)
+    R = o.shape[0]
+    urand = torch.rand((12, R), device=cuda) if external else None
+    before = mk.record_launches
+    color, sel = mk.trace_fused_sel(o, d, scene, k, 5, 9, 1, urand)
+    want_c, want_s = mk.trace_record_reference(o, d, scene, k, 5, 9, 1, urand)
+    torch.cuda.synchronize()
+    assert mk.record_launches == before + 1
+    diff = (color - want_c).abs()
+    scale = want_c.abs().clamp_min(1.0)
+    assert float((diff <= 1e-4 * scale).float().mean()) >= 0.999
+    assert int((sel != want_s).any(dim=0).sum()) <= math.ceil(1e-4 * R)
+    assert bool(((sel >= 0) & (sel < scene.tri_rows + scene.n_sph)).any())
+
+
+@pytest.mark.parametrize("external", [True, False])
+def test_backward_kernel_matches_plain_version(cuda, external):
+    cfg, pkt, _, _, o, d, scene, k = _grad_setup(cuda)
+    R = o.shape[0]
+    urand = torch.rand((12, R), device=cuda) if external else None
+    _, sel = mk.trace_fused_sel(o, d, scene, k, 5, 9, 1, urand)
+    table, T, sky6 = path_replay.build_table(pkt)
+    dcol = torch.randn((R, 3), device=cuda, generator=torch.Generator(cuda).manual_seed(5))
+    before = fg.launches
+    got = fg.fused_bwd(table, sky6, o, d, sel, dcol, k, 5, T, 9, 1, urand)
+    want = fg.fused_bwd_reference(table, sky6, o, d, sel, dcol, k, 5, T, 9, 1, urand)
+    torch.cuda.synchronize()
+    assert fg.launches == before + 1
+    ray_err = ((got[2] - want[2]).abs() + (got[3] - want[3]).abs()).amax(dim=1)
+    ray_mag = (want[2].abs() + want[3].abs()).amax(dim=1)
+    flip = ray_err > 1e-2 * ray_mag + 1e-3
+    assert int(flip.sum()) <= math.ceil(1e-4 * R)
+    for a, b in ((got[2], want[2]), (got[3], want[3])):
+        assert float(((a - b).abs() <= 1e-4 * b.abs().max()).float().mean()) >= 0.999
+    # material and sky gradients, without the flipped rays
+    got = fg.fused_bwd(table, sky6, o, d, sel, torch.where(flip[:, None], 0.0, dcol),
+                       k, 5, T, 9, 1, urand)
+    want = fg.fused_bwd_reference(table, sky6, o, d, sel,
+                                  torch.where(flip[:, None], 0.0, dcol), k, 5, T, 9, 1,
+                                  urand)
+    for a, b in ((got[0][:, 23:27], want[0][:, 23:27]), (got[1], want[1])):
+        assert float((a - b).norm() / b.norm()) <= 1e-4
+
+
+def test_mse_step_goes_through_both_kernels(cuda):
+    cfg, pkt, cam, params, _, _, _, _ = _grad_setup(cuda, W=160, H=90)
+    target = torch.zeros((160 * 90, 3), device=cuda)
+    before = (mk.record_launches, fg.launches)
+    loss, grads = train.mse_step(params, pkt, cam, target, cfg, seed=4, spp=3)
+    torch.cuda.synchronize()
+    assert (mk.record_launches, fg.launches) == (before[0] + 3, before[1] + 3)
+    assert math.isfinite(float(loss)) and float(loss) > 0
+    assert all(bool(torch.isfinite(g).all()) for g in grads.values())
+    assert float(grads["mat_albedo"].abs().max()) > 0
+
+
+def test_gradient_wrappers_reject_bad_inputs(cuda):
+    cfg, pkt, _, _, o, d, scene, k = _grad_setup(cuda, W=64, H=32)
+    R = o.shape[0]
+    with pytest.raises(RendererError, match="contiguous"):
+        mk.trace_fused_sel(o.double(), d, scene, k, 5)
+    with pytest.raises(RendererError, match="shape"):
+        mk.trace_fused_sel(o, d, scene, k, 5, urand=torch.rand((3, R), device=cuda))
+    with pytest.raises(RendererError, match="o on cuda"):
+        mk.trace_fused_sel(o, d, scene, k, 5, urand=torch.rand((12, R)))
+    with pytest.raises(RendererError, match="max_depth"):
+        mk.trace_fused_sel(o, d, scene, k, mk.MAX_DEPTH + 1)
+    _, sel = mk.trace_fused_sel(o, d, scene, k, 5)
+    table, T, sky6 = path_replay.build_table(pkt)
+    dcol = torch.ones((R, 3), device=cuda)
+    with pytest.raises(RendererError, match="contiguous"):
+        fg.fused_bwd(table, sky6, o, d, sel.long(), dcol, k, 5, T)
+    with pytest.raises(RendererError, match="shape"):
+        fg.fused_bwd(table, sky6, o, d, sel[:3], dcol, k, 5, T)
+    with pytest.raises(RendererError, match="o on cuda"):
+        fg.fused_bwd(table.cpu(), sky6, o, d, sel, dcol, k, 5, T)
+    with pytest.raises(RendererError, match="table rows"):
+        fg.fused_bwd(torch.zeros((200, 27), device=cuda), sky6, o, d, sel, dcol, k, 5, T)

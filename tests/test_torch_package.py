@@ -8,6 +8,7 @@ take instead of running plain PyTorch on the card.
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import subprocess
 import sys
@@ -19,12 +20,16 @@ import torch
 from ptre_tpu.utils.config import RenderConfig
 from ptre_tpu.utils.errors import RendererError
 from ptre_tpu_torch.models import demo
-from ptre_tpu_torch.models.scene import Material, MaterialKind
+from ptre_tpu_torch.models.scene import PACKET_LEAVES, Material, MaterialKind
 from ptre_tpu_torch.ops import camera as cam_ops
 from ptre_tpu_torch.ops.cuda import build
+from ptre_tpu_torch.ops import integrator
+from ptre_tpu_torch.ops.cuda import fused_grad
 from ptre_tpu_torch.ops.cuda import megakernel as mk
 from ptre_tpu_torch.ops.cuda import render_kernel as rk
+from ptre_tpu_torch.parallel import sharding as sh
 from ptre_tpu_torch.render import pathtracer as pt
+from ptre_tpu_torch.render import train
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -42,6 +47,12 @@ SLICE_MODULES = [
     "ptre_tpu_torch.models.scene",
     "ptre_tpu_torch.models.demo",
     "ptre_tpu_torch.render.pathtracer",
+    "ptre_tpu_torch.ops.gradsafe",
+    "ptre_tpu_torch.ops.path_replay",
+    "ptre_tpu_torch.ops.cuda.replay_kernel",
+    "ptre_tpu_torch.ops.cuda.fused_grad",
+    "ptre_tpu_torch.parallel.sharding",
+    "ptre_tpu_torch.render.train",
 ]
 #: the reference modules the port may import: all jax-free
 ALLOWED_REFERENCE = {"ptre_tpu", "ptre_tpu.models", "ptre_tpu.models.mesh",
@@ -125,3 +136,57 @@ def test_render_step_refuses_non_dense_packet_on_cuda():
     with pytest.raises(NotImplementedError):
         pt.check_dispatch(big, "meta")
 
+
+
+def test_training_refuses_non_dense_packet_on_cuda_before_any_cuda_call(monkeypatch):
+    """mse_step, two_pass_mse_step and trace_grad raise NotImplementedError
+    for a packet the dense kernels refuse, before building or launching
+    anything. The CUDA tensors are fake ones (no card here): nothing may
+    touch them."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    def no_cuda(*args, **kwargs):
+        raise AssertionError("a CUDA call was made")
+
+    monkeypatch.setattr(build, "load_library", no_cuda)
+    big = demo.config3_scene(segments=24, rings=12).build_packet()
+    assert not mk.dense_supported(big)
+    W, H = 16, 8
+    cfg = RenderConfig(width=W, height=H)
+    cam = cam_ops.Camera.create(width=W, height=H)
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        pkt = dataclasses.replace(big, **{
+            k: torch.empty_like(getattr(big, k), device="cuda") for k in PACKET_LEAVES})
+        target = torch.zeros((W * H, 3), device="cuda")
+        o = torch.zeros((W * H, 3), device="cuda")
+        assert target.device.type == "cuda" and pkt.device.type == "cuda"
+        params = {k: torch.empty_like(v, device="cuda")
+                  for k, v in sh.differentiable_params(big, cam).items()}
+        for step in (train.mse_step, train.two_pass_mse_step):
+            with pytest.raises(NotImplementedError, match="A5, A9, B6, B7, B11"):
+                step(params, pkt, cam, target, cfg, seed=1, spp=2)
+        with pytest.raises(NotImplementedError, match="A5, A9, B6, B7, B11"):
+            fused_grad.trace_grad(o, o, pkt, cfg)
+        with pytest.raises(NotImplementedError, match="A5, A9, B6, B7, B11"):
+            integrator.trace(o, o, pkt, cfg)
+    with pytest.raises(NotImplementedError, match="cuda or cpu"):
+        integrator.check_grad_dispatch(demo.reference_demo_scene(8, 4).build_packet(),
+                                       "meta")
+
+
+def test_gradient_wrappers_on_cpu_run_plain_versions_without_launch():
+    torch.set_num_threads(1)
+    W, H = 16, 8
+    cfg = RenderConfig(width=W, height=H, max_depth=3)
+    pkt = demo.reference_demo_scene(8, 4).build_packet()
+    cam = cam_ops.Camera.create(width=W, height=H)
+    before = (mk.record_launches, fused_grad.launches)
+    loss, grads = train.mse_step(sh.differentiable_params(pkt, cam), pkt, cam,
+                                 torch.zeros((W * H, 3)), cfg, seed=2)
+    assert (mk.record_launches, fused_grad.launches) == before
+    assert set(grads) == set(sh.PARAM_KEYS) and float(loss) > 0
+    assert all(bool(torch.isfinite(g).all()) for g in grads.values())
+    with pytest.raises(RendererError, match="cuda or cpu"):
+        mk.trace_fused_sel(torch.empty((4, 3), device="meta"),
+                           torch.empty((4, 3), device="meta"),
+                           mk.pack_scene(pkt), mk.TraceConsts.from_config(cfg), 3)
