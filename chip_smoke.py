@@ -15,7 +15,15 @@ source, all at once), then:
   8.   drives the training main path — ``differentiable_params`` →
        ``mse_step`` at 1920x1080, spp 1 (1 + 8 steps) and one spp-64 step —
        checking that every sample went through both kernels, and that
-       ``two_pass_mse_step`` equals ``mse_step`` at 320x180.
+       ``two_pass_mse_step`` equals ``mse_step`` at 320x180;
+  9-10. holds the wavefront's mask and bounce kernels against their plain
+       versions on the bounce-1 state of BASELINE config 3 (16,128
+       triangles) at 512x512 and config 4 (16,140 triangles) at 1920x1080,
+       then the whole kernel ``wavefront.trace`` against the plain one;
+  11.  drives the triangle-scale main path — ``render_step`` on config 3 at
+       512x512 and config 4 at 1920x1080, spp 4 (1 + 8 steps) — checking
+       that every live bounce went through the kernels, and prints where a
+       bounce's time goes.
 
 Any failed check raises and the script exits non-zero; it prints its result
 lines only after every phase passed:
@@ -310,8 +318,9 @@ def main():
         "plain_ms": p_ms,
     }]
     kernels += gradient_phases(dev, card, rs)
+    kernels += wavefront_phases(dev, card, rs)
 
-    # ---- 9. result -----------------------------------------------------------------
+    # ---- result --------------------------------------------------------------------
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -599,6 +608,234 @@ def gradient_phases(dev, card, rs):
         "max_abs_err": bwd_err,
         "ms": bwd_ms,
         "plain_ms": bwd_plain_ms,
+    }]
+
+
+# Wavefront kernels vs plain versions (phases 9-10). The slab test has no
+# a*b+c: verdicts equal. The bounce kernel contracts FMAs: next-state values
+# TIGHT_FRAC within TIGHT, a ray whose values differ beyond WAVE_FLIP (another
+# primitive or path) on at most FLIP_FRAC of the rays, dead rays bit for bit.
+WAVE_FLIP = 1e-2
+WAVE_SEED = 0x7EA
+TRI_CONFIGS = (  # (name, (scene function, kwargs), W, H): bench.py --tri-scene / --mixed-scene
+    ("config 3", ("config3_scene", dict(segments=128, rings=64)), 512, 512),
+    ("config 4", ("config4_mixed_scene", dict(segments=128, rings=64)), 1920, 1080),
+)
+
+
+def wavefront_phases(dev, card, rs):
+    """Phases 9-11: the wavefront's mask and bounce kernels against their
+    plain versions, then the triangle-scale render path. Returns the two
+    kernels' entries of the ``kernels`` line."""
+    import numpy as np
+    import torch
+
+    from ptre_tpu.utils.config import RenderConfig
+    from ptre_tpu_torch.models import demo
+    from ptre_tpu_torch.ops import camera as cam_ops
+    from ptre_tpu_torch.ops import rng
+    from ptre_tpu_torch.ops.cuda import megakernel as mk
+    from ptre_tpu_torch.ops.cuda import render_kernel as rk
+    from ptre_tpu_torch.ops.cuda import wavefront as wf
+    from ptre_tpu_torch.ops.integrator import postprocess_sample
+    from ptre_tpu_torch.render import pathtracer as pt
+
+    def events(fn, reps):
+        fn()
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for _ in range(reps):
+            fn()
+        e1.record()
+        torch.cuda.synchronize()
+        return e0.elapsed_time(e1) / reps
+
+    B = 5
+    setups, times = {}, {}
+    mask_err, bounce_err = 0.0, 0.0
+    for name, (fn, kw), W, H in TRI_CONFIGS:
+        R = W * H
+        cfg = RenderConfig(width=W, height=H, max_depth=B)
+        k = mk.TraceConsts.from_config(cfg)
+        t0 = time.perf_counter()
+        pkt = getattr(demo, fn)(**kw).build_packet().to(dev)
+        cam = cam_ops.Camera.create(width=W, height=H)
+        scene = wf.prepare_scene(pkt, screen_cam=cam)
+        torch.cuda.synchronize()
+        check(pt.route(pkt) == "wavefront", f"{name}: route {pt.route(pkt)}")
+        px, py = pt.pixel_grid(H, W, dev)
+        u = rng.ray_uniforms(WAVE_SEED, 1, R, 1, dev)
+        o, d = (x.contiguous() for x in cam_ops.get_rays(cam, px, py, (u - 0.5).T))
+        state0, ids0, short0 = wf.primary_state(o, d, scene, (H, W))
+        check(short0 is not None, f"{name}: bounce 0 not screen-binned")
+        state1 = wf.wave_bounce(state0, ids0, *short0, scene, k, 0, WAVE_SEED, 1)
+        perm = wf.coherence_order(state1, scene)
+        state1, ids1 = state1[:, perm].contiguous(), ids0[perm].contiguous()
+        torch.cuda.synchronize()
+        print(f"phase 9: mask kernel vs plain, {name} ({pkt.num_triangles} triangles, "
+              f"{scene.n_leaf} leaves) at {W}x{H}, bounce-1 state "
+              f"({int((state1[9] > 0.5).sum())} live rays of {R}; scene packed in "
+              f"{time.perf_counter() - t0:.2f} s)", flush=True)
+        got = wf.wave_mask(state1, scene.boxes, k.t_min)
+        want = wf.wave_mask_reference(state1, scene.boxes, k.t_min)
+        torch.cuda.synchronize()
+        n_diff = int((got != want).sum())
+        mask_err = max(mask_err, float((got.float() - want.float()).abs().max()))
+        share0 = float(short0[1].float().sum()) / (short0[1].numel() * scene.n_leaf)
+        print(f"  verdicts: {n_diff} of {got.numel()} differ; survival share of (block, "
+              f"leaf) pairs {100 * float(got.float().mean()):.3f} % at bounce 1 "
+              f"(screen binning at bounce 0: {100 * share0:.3f} %)", flush=True)
+        check(n_diff == 0, f"{name}: {n_diff} mask verdicts differ from the plain version")
+        mask_ms = events(lambda: wf.wave_mask(state1, scene.boxes, k.t_min), 20)
+        mask_plain_ms = events(lambda: wf.wave_mask_reference(state1, scene.boxes, k.t_min), 1)
+
+        print(f"phase 10: bounce kernel vs plain, {name} at {W}x{H}, same state and "
+              "shortlists", flush=True)
+        short, cnt = wf.shortlists_from_mask(got)
+        urand = torch.from_numpy(rs.random((2 + 2 * B, R), dtype=np.float32)).to(dev)
+        dead = state1[9] < 0.5
+        for mode, ur in (("philox", None), ("external uniforms", urand)):
+            bk = wf.wave_bounce(state1, ids1, short, cnt, scene, k, 1, WAVE_SEED, 1, ur)
+            bp = wf.wave_bounce_reference(state1, ids1, short, cnt, scene, k, 1, WAVE_SEED,
+                                          1, ur)
+            torch.cuda.synchronize()
+            err = (bk - bp).abs()
+            tight = float((err <= TIGHT).float().mean())
+            flip = (err > WAVE_FLIP).any(dim=0)
+            allowed = math.ceil(FLIP_FRAC * R)
+            e = float(err[:, ~flip].max())
+            bounce_err = max(bounce_err, e)
+            print(f"  {mode}: max_abs_err {float(err.max()):.3e} ({e:.3e} outside flipped "
+                  f"rays), {100 * tight:.4f}% within {TIGHT:g}, {int(flip.sum())} rays "
+                  f"flipped (allowed {allowed}), {int((bk[9] > 0.5).sum())} live after",
+                  flush=True)
+            check(bool(torch.isfinite(bk).all()), f"{name} {mode}: non-finite state")
+            check(tight >= TIGHT_FRAC, f"{name} {mode}: only {tight:.6f} within {TIGHT}")
+            check(int(flip.sum()) <= allowed, f"{name} {mode}: {int(flip.sum())} flipped")
+            check(torch.equal(bk[:, dead], state1[:, dead]), f"{name} {mode}: dead rays changed")
+        bounce_ms = events(lambda: wf.wave_bounce(state1, ids1, short, cnt, scene, k, 1,
+                                                  WAVE_SEED, 1), 10)
+        bounce_plain_ms = events(lambda: wf.wave_bounce_reference(
+            state1, ids1, short, cnt, scene, k, 1, WAVE_SEED, 1), 1)
+        print(f"  mask kernel {mask_ms:.4f} ms, plain {mask_plain_ms:.3f} ms; bounce kernel "
+              f"{bounce_ms:.4f} ms, plain {bounce_plain_ms:.3f} ms (CUDA events, bounce 1, "
+              f"{name} {W}x{H}) [{card}]", flush=True)
+        times[name] = (mask_ms, mask_plain_ms, bounce_ms, bounce_plain_ms)
+
+        # the whole trace, kernels vs plain versions, same Philox draws
+        t0 = time.perf_counter()
+        ck = wf.trace(o, d, scene, k, B, WAVE_SEED, 1, tile_hint=(H, W))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        cp = wf.trace(o, d, scene, k, B, WAVE_SEED, 1, tile_hint=(H, W), plain=True)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        print(f"  whole trace: kernels {1e3 * (t1 - t0):.2f} ms, plain {1e3 * (t2 - t1):.1f} ms "
+              f"(host clock) [{card}]", flush=True)
+        img_k = postprocess_sample(ck, True).reshape(H, W, 3)
+        img_p = postprocess_sample(cp, True).reshape(H, W, 3)
+        compare(img_k, img_p, pt, f"{name} {W}x{H} trace, one sample")
+        setups[name] = (pkt, cam, cfg)
+        del state0, state1, bk, bp, got, want, urand, ck, cp
+
+    # ---- 11. the triangle-scale main path ------------------------------------------------
+    launches = [0, 0]
+    for name, _, W, H in TRI_CONFIGS:
+        pkt, cam, cfg = setups[name]
+        print(f"phase 11: triangle main path, {name} at {W}x{H}, spp {SPP}, 1 + {STEPS} "
+              "steps", flush=True)
+        gen = torch.Generator().manual_seed(cfg.seed)
+        wf.mask_launches = wf.bounce_launches = wf.live_bounces = wf.binned_bounces = 0
+        rk.launches = 0
+        acc = pt.render_step(pkt, cam, pt.AccumState.create(H, W, dev), gen, cfg, spp=SPP)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(STEPS):
+            acc = pt.render_step(pkt, cam, acc, gen, cfg, spp=SPP)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = (wf.mask_launches, wf.bounce_launches, wf.live_bounces, wf.binned_bounces,
+                  rk.launches)
+        samples = SPP * (STEPS + 1)
+        print(f"  launches: mask {counts[0]}, bounce {counts[1]}; live bounces {counts[2]} "
+              f"of {samples * B}, bounce 0 binned {counts[3]} times; render kernel "
+              f"{counts[4]}", flush=True)
+        check(counts[4] == 0, f"{name}: the dense render kernel ran")
+        check(counts[3] == samples, f"{name}: bounce 0 binned {counts[3]} times")
+        check(counts[1] == counts[2] and samples < counts[2] <= samples * B,
+              f"{name}: {counts[1]} bounce launches for {counts[2]} live bounces")
+        check(counts[0] == counts[2] - counts[3],
+              f"{name}: {counts[0]} mask launches for {counts[2] - counts[3]} culled bounces")
+        launches[0] += counts[0]
+        launches[1] += counts[1]
+        lin = acc.linear
+        check(acc.frame == samples, f"{name}: frame {acc.frame}")
+        check(bool(torch.isfinite(lin).all()), f"{name}: non-finite image")
+        check(float(lin.min()) >= 0.0 and float(lin.max()) <= 1.0 + 1e-6,
+              f"{name}: image outside [0, 1]")
+        # a pixel whose primary ray missed averages sky-gradient values: blue 1,
+        # (1 - r) / 0.5 == (1 - g) / 0.3; geometry breaks that
+        sky_like = ((lin[..., 2] - 1.0).abs() < 1e-5) & (
+            ((1.0 - lin[..., 0]) / 0.5 - (1.0 - lin[..., 1]) / 0.3).abs() < 1e-4)
+        geo = 1.0 - float(sky_like.float().mean())
+        check(geo > 0.05, f"{name}: {100 * geo:.2f} % of the pixels are not sky")
+        ms_sample = dt * 1e3 / (STEPS * SPP)
+        mrays = W * H * SPP * STEPS * B / dt / 1e6
+        print(f"  render_step: {ms_sample:.3f} ms/sample, {mrays:.2f} Mrays/s "
+              f"(W*H*spp*steps*max_depth/s, host clock); {100 * geo:.1f} % of the pixels "
+              f"show geometry [{card}]", flush=True)
+
+        # where a sample's time goes, by stage (CUDA events around each)
+        timer = wf.StageTimer()
+        n_live0 = wf.live_bounces
+        pt.sample_image(wf.prepare_scene(pkt, screen_cam=cam), cam, cfg, 12345, 1,
+                        timer=timer)
+        split = timer.totals()
+        bounces = wf.live_bounces - n_live0
+        total = sum(ms for ms, _ in split.values())
+        print(f"  one sample, {bounces} live bounces, {total:.3f} ms of stages: " + ", ".join(
+            f"{stage} {ms:.3f} ms / {n} ({ms / n:.4f} ms each)"
+            for stage, (ms, n) in sorted(split.items())) + f" [{card}]", flush=True)
+        print("  per bounce: " + ", ".join(
+            f"{stage} {ms / bounces:.3f} ms" for stage, (ms, _) in sorted(split.items()))
+            + f" [{card}]", flush=True)
+
+    # one plain sample at config 3 (host clock), against the kernels' sample
+    pkt, cam, cfg = setups["config 3"]
+    scene = wf.prepare_scene(pkt, screen_cam=cam)
+    px, py = pt.pixel_grid(cam.height, cam.width, dev)
+    u = rng.ray_uniforms(7, 1, cam.height * cam.width, 1, dev)
+    o, d = (x.contiguous() for x in cam_ops.get_rays(cam, px, py, (u - 0.5).T))
+    k = mk.TraceConsts.from_config(cfg)
+    secs = {}
+    for plain in (False, True):  # both warm from phase 10
+        t0 = time.perf_counter()
+        wf.trace(o, d, scene, k, B, 7, 1, tile_hint=(cam.height, cam.width), plain=plain)
+        torch.cuda.synchronize()
+        secs[plain] = time.perf_counter() - t0
+    dt, dt_plain = secs[False], secs[True]
+    print(f"  config 3 {cam.width}x{cam.height}, one sample's trace: kernels {1e3 * dt:.3f} ms, plain "
+          f"{1e3 * dt_plain:.1f} ms (host clock) [{card}]", flush=True)
+
+    mask_ms, mask_plain_ms, bounce_ms, bounce_plain_ms = times["config 4"]
+    return [{
+        "name": "wave_mask",
+        "route": "cuda",
+        "source": "ptre_tpu_torch/csrc/mask_kernel.cu",
+        "replaces": "ptre_tpu/ops/pallas/wavefront.py:102",
+        "launches": launches[0],
+        "max_abs_err": mask_err,
+        "ms": mask_ms,
+        "plain_ms": mask_plain_ms,
+    }, {
+        "name": "wave_bounce",
+        "route": "cuda",
+        "source": "ptre_tpu_torch/csrc/wave_kernel.cu",
+        "replaces": "ptre_tpu/ops/pallas/wavefront.py:209",
+        "launches": launches[1],
+        "max_abs_err": bounce_err,
+        "ms": bounce_ms,
+        "plain_ms": bounce_plain_ms,
     }]
 
 

@@ -66,10 +66,12 @@ def get_rays(cam: Camera, px, py, jitter):
     inv(proj) with w-divide, then inv(view); the ray runs near → far.
 
     px, py: (...,) pixel coordinates (x right, y down); jitter: (..., 2) in
-    [-0.5, 0.5). Returns (origins, unit directions), (..., 3) each.
+    [-0.5, 0.5). Returns (origins, unit directions), (..., 3) each, on the
+    device of ``px``: a camera of host tensors has its two 4x4 inverses made
+    on the host and moved there.
     """
-    inv_view = vm.inverse(cam.view_matrix())
-    inv_proj = vm.inverse(cam.projection_matrix())
+    inv_view = vm.inverse(cam.view_matrix()).to(px.device)
+    inv_proj = vm.inverse(cam.projection_matrix()).to(px.device)
 
     x_ndc = ((px + jitter[..., 0]) / cam.width) * 2.0 - 1.0
     y_ndc = 1.0 - ((py + jitter[..., 1]) / cam.height) * 2.0

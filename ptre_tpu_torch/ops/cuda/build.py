@@ -30,9 +30,10 @@ DEFAULT_CUDA_HOME = "/usr/local/cuda"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas=-v")
 #: the kernel translation units, each compiled by its own nvcc process
-KERNEL_UNITS = ("render_kernel.cu", "record_kernel.cu", "fused_grad_kernel.cu")
+KERNEL_UNITS = ("render_kernel.cu", "record_kernel.cu", "fused_grad_kernel.cu",
+                "mask_kernel.cu", "wave_kernel.cu")
 #: every source the library is built from: the units and their headers
-SOURCES = KERNEL_UNITS + ("trace.cuh", "philox.cuh", "replay.cuh")
+SOURCES = KERNEL_UNITS + ("trace.cuh", "philox.cuh", "replay.cuh", "wave.cuh")
 
 #: (seconds, ptxas report) of the build this process ran, or None if the
 #: library was already built
@@ -123,6 +124,13 @@ def load_library() -> ctypes.CDLL:
     # (params, table, sky, o, d, sel, urand, dcol, d_o, d_d, dtab_part,
     #  dsky_part, n_blocks, stream)
     lib.ptre_fused_bwd.argtypes = [ptr] * 12 + [ctypes.c_int, ptr]
+    lib.ptre_wave_mask.restype = ctypes.c_int
+    # (params, state, boxes, mask, lanes, stream)
+    lib.ptre_wave_mask.argtypes = [ptr] * 4 + [ctypes.c_int, ptr]
+    lib.ptre_wave_bounce.restype = ctypes.c_int
+    # (params, state, ids, shortlist, counts, tris, sphs, mats, sky, urand, out,
+    #  lanes, stream)
+    lib.ptre_wave_bounce.argtypes = [ptr] * 11 + [ctypes.c_int, ptr]
     lib.ptre_cuda_error_string.restype = ctypes.c_char_p
     lib.ptre_cuda_error_string.argtypes = [ctypes.c_int]
     return lib

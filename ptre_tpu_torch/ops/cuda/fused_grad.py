@@ -117,8 +117,10 @@ def require_dense(packet) -> None:
             f"{mk.DENSE_MAX_TRI} triangles, <= {mk.DENSE_MAX_SPH} spheres, <= "
             f"{mk.MAX_MATS} materials); this packet has {packet.num_triangles} "
             f"triangles, {packet.num_spheres} spheres, {packet.num_materials} "
-            "materials. Larger scenes need the staged trace and the "
-            "triangle-scale kernels still to be ported (ROADMAP A5, A9, B6, B7, B11).")
+            "materials. Larger scenes need the staged trace or the triangle-scale "
+            "gradient path (the wavefront's record mode, the culled megakernel, a "
+            "backward with its table in global memory), still to be ported "
+            "(ROADMAP A5, A14, B11).")
 
 
 @dataclasses.dataclass

@@ -88,6 +88,65 @@ def pack_mats(kind, albedo, param):
     return out
 
 
+#: sentinel magnitude of an empty box (`megakernel.py:61`): lo > hi, finite
+BOX_INF = 1e30
+
+
+def morton_order(v0, v1, v2, valid):
+    """(T,) int64 permutation sorting triangles along a Z-curve of their
+    centroids, invalid rows last (`megakernel.py:73-105`). The 30-bit codes
+    are built in int64 (torch has no uint32) and sorted STABLY, as
+    `jnp.argsort` sorts, so equal codes keep row order."""
+    c = (v0 + v1 + v2) * (1.0 / 3.0)
+    vf = valid.to(torch.float32)[:, None]
+    big = torch.where(vf > 0.5, c, torch.zeros_like(c))
+    n_valid = torch.clamp(torch.sum(vf), min=1.0)
+    mean = torch.sum(big, dim=0) / n_valid
+    lo = torch.amin(torch.where(vf > 0.5, c, mean), dim=0)
+    hi = torch.amax(torch.where(vf > 0.5, c, mean), dim=0)
+    span = torch.clamp(hi - lo, min=1e-12)
+    q = torch.clamp((c - lo) / span * 1023.0, 0.0, 1023.0).to(torch.int64)
+
+    def spread(x):  # interleave 10 bits with 2-bit gaps
+        x = (x | (x << 16)) & 0x030000FF
+        x = (x | (x << 8)) & 0x0300F00F
+        x = (x | (x << 4)) & 0x030C30C3
+        x = (x | (x << 2)) & 0x09249249
+        return x
+
+    code = spread(q[:, 0]) | (spread(q[:, 1]) << 1) | (spread(q[:, 2]) << 2)
+    key = torch.where(valid.bool(), code, 0xFFFFFFFF)
+    return torch.argsort(key, stable=True)
+
+
+def empty_boxes(n: int, device=None):
+    """(n, 8) always-miss box rows: lo = +BOX_INF > hi = -BOX_INF
+    (`megakernel.py:132-136`)."""
+    row = torch.tensor([BOX_INF] * 3 + [-BOX_INF] * 3 + [0.0, 0.0],
+                       dtype=torch.float32, device=device)
+    return row.expand(n, 8).contiguous()
+
+
+def pack_tile_boxes(v0, v1, v2, valid, tile: int):
+    """(ceil(T / tile), 8) per-tile AABBs of Morton-ordered triangle rows:
+    lo.xyz hi.xyz 0 0 (`megakernel.py:108-129`). Invalid rows and the
+    padding of the last tile contribute an empty box."""
+    T = v0.shape[0]
+    pad = (-T) % tile
+    vf = valid.to(torch.float32)[:, None]
+    lo = torch.minimum(torch.minimum(v0, v1), v2)
+    hi = torch.maximum(torch.maximum(v0, v1), v2)
+    lo = torch.where(vf > 0.5, lo, BOX_INF)
+    hi = torch.where(vf > 0.5, hi, -BOX_INF)
+    if pad:
+        lo = torch.cat([lo, lo.new_full((pad, 3), BOX_INF)])
+        hi = torch.cat([hi, hi.new_full((pad, 3), -BOX_INF)])
+    n_tiles = lo.shape[0] // tile
+    tlo = torch.amin(lo.reshape(n_tiles, tile, 3), dim=1)
+    thi = torch.amax(hi.reshape(n_tiles, tile, 3), dim=1)
+    return torch.cat([tlo, thi, tlo.new_zeros((n_tiles, 2))], dim=1)
+
+
 @dataclasses.dataclass
 class PackedScene:
     """The kernel's view of a packet: world-space tables, on the packet's

@@ -1,0 +1,714 @@
+"""Wavefront path tracing for triangle-scale scenes: sorted ray blocks, a
+per-bounce cull mask compacted into leaf shortlists, and a shortlist sweep.
+
+Port of `ptre_tpu/ops/pallas/wavefront.py`. Per bounce:
+
+  1. after bounce 0, the live rays are sorted by `coherence_key` (stable
+     argsort; dead rays sink to the back, where whole blocks pass through);
+  2. bounce 0 culls by screen-space binning (`leaf_screen_boxes`,
+     `screen_block_mask`: the rays of a pixel-tile block can only hit leaves
+     whose projected box overlaps the tile); later bounces run the MASK
+     kernel, the slab verdict of every (ray block, leaf box) ORed over the
+     block's live rays;
+  3. PyTorch compacts the (nb, n_leaf) mask into ascending leaf shortlists
+     (`shortlists_from_mask`);
+  4. the BOUNCE kernel sweeps each block's shortlist, tests the spheres,
+     re-derives the winner and shades it, and writes the next state.
+
+A final scatter puts the colours back in ray order.
+
+  * `wave_mask` / `wave_bounce` are the wrappers of `csrc/mask_kernel.cu` and
+    `csrc/wave_kernel.cu` (launches counted in ``mask_launches`` and
+    ``bounce_launches``); on CPU tensors they run `wave_mask_reference` /
+    `wave_bounce_reference`, the plain versions, vectorised over (rays x one
+    64-row leaf). Anything else raises; nothing falls back.
+  * `trace` runs the bounce loop (`wavefront.py:709-871`); `prepare_scene` packs a
+    packet once, so a caller can reuse it for every sample.
+
+The state is (10, r_pad) float32 rows o.xyz d.xyz rgb active, and an int32
+original ray id per column. The TPU carried 2B rows of uniforms through every
+sort because its kernel could not regenerate them (`:747-770`); here the
+kernel draws bounce b's pair from Philox keyed by (seed, id, sample), pair
+1 + b, as the dense render kernel keys it, or reads rows 2 + 2b and 3 + 2b
+of an external (2 + 2 * max_depth, R) uniform tensor at the id.
+
+The image does not depend on the culling, the binning, the sort or the lane
+count: culling is conservative, and a ray's closest hit is the lowest-index
+minimum over its candidates, ties to the lowest Morton row. Like the
+reference, `trace` skips the sort when fewer than ``SORT_MIN_LIVE`` of the
+rays live, and every bounce once none does; both cost one host read of the
+live count per bounce.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import ctypes
+import dataclasses
+
+import torch
+
+from ptre_tpu.utils.errors import RendererError
+from ptre_tpu_torch.ops import rng
+from ptre_tpu_torch.ops import vecmat as vm
+from ptre_tpu_torch.ops.cuda import build
+from ptre_tpu_torch.ops.cuda import megakernel as mk
+
+#: the reference's caps (`wavefront.py:70-71`) and material limit
+MAX_WAVE_TRIS = 49152
+MAX_WAVE_SPHS = 4096
+#: triangle rows per leaf: the sweep and cull granularity
+LEAF = 64
+#: rays per block, one CUDA thread each; at bounce 0 a TILE_ROWS x
+#: (LANES // TILE_ROWS) pixel tile
+LANES = 256
+TILE_ROWS = 8
+#: the sort is skipped below this live-ray fraction (`wavefront.py:91`)
+SORT_MIN_LIVE = 0.125
+#: rows of the ray state: o.xyz d.xyz rgb active
+STATE_ROWS = 10
+#: dilation in pixels of the leaf screen boxes beyond the jitter range, and
+#: the clip w at or below which a triangle's box is the whole screen
+#: (`wavefront.py:557-561`)
+SCREEN_DILATE = 1.0
+W_EPS = 1e-6
+_SCREEN_BIG = mk.f32(3e38)
+
+#: kernel launches made by `wave_mask` and `wave_bounce` in this process
+mask_launches = 0
+bounce_launches = 0
+
+
+def supports(packet) -> bool:
+    """Whether the wavefront path takes the packet (`wavefront.py:74-79`)."""
+    return (packet.num_materials <= mk.MAX_MATS
+            and packet.tri_valid.shape[0] <= MAX_WAVE_TRIS
+            and packet.sph_center.shape[0] <= MAX_WAVE_SPHS)
+
+
+# ---- glue: sort keys, shortlists, screen binning, packing ------------------
+
+def coherence_key(state, lo, hi):
+    """(r_pad,) int32 sort key of one bounce's rays (`wavefront.py:513-535`):
+    direction octant, 6-bit xy direction bins and a 15-bit Morton cell of
+    the origin in the scene box; dead rays get 0x40000000 and sort last."""
+    o = state[0:3]
+    d = state[3:6]
+    act = state[9] > 0.5
+    span = torch.clamp(hi - lo, min=1e-9)
+    q = torch.clamp((o - lo[:, None]) / span[:, None] * 31.0, 0.0, 31.0).to(torch.int32)
+
+    def spread(x):
+        x = (x | (x << 8)) & 0x0300F00F
+        x = (x | (x << 4)) & 0x030C30C3
+        x = (x | (x << 2)) & 0x09249249
+        return x
+
+    mo = spread(q[0]) | (spread(q[1]) << 1) | (spread(q[2]) << 2)
+    oct_ = ((d[0] >= 0).to(torch.int32) * 4 + (d[1] >= 0).to(torch.int32) * 2
+            + (d[2] >= 0).to(torch.int32))
+    db = torch.clamp(((d[0:2] + 1.0) * 3.99).to(torch.int32), 0, 7)
+    key = (oct_ << 21) | ((db[0] * 8 + db[1]) << 15) | mo
+    return torch.where(act, key, 0x40000000).to(torch.int32)
+
+
+def shortlists_from_mask(mask):
+    """(nb, n_leaf) bool survival mask → (shortlists (nb, n_leaf) int32,
+    counts (nb,) int32). Row b lists the surviving leaves of block b in
+    ascending order (the Morton tie-break order, as `top_k` gives it in
+    `wavefront.py:180-201`), then n_leaf. The reference also pads its
+    counts to whole sweep groups and appends a group of pad entries; the
+    kernel here needs neither."""
+    nb, n_leaf = mask.shape
+    cnt = mask.sum(dim=1, dtype=torch.int32)
+    order = torch.argsort((~mask).to(torch.uint8), dim=1, stable=True)
+    idx = torch.arange(n_leaf, device=mask.device)[None, :]
+    short = torch.where(idx < cnt[:, None], order, n_leaf).to(torch.int32)
+    return short.contiguous(), cnt
+
+
+def leaf_screen_boxes(v0, v1, v2, tri_valid, cam, leaf: int, n_leaf: int):
+    """(n_leaf, 4) screen boxes (minx, maxx, miny, maxy) of the leaves in the
+    continuous pixel coordinates of ``cam``'s primary rays
+    (`wavefront.py:564-615`). Conservative: a triangle with a vertex at or
+    behind the eye plane (w <= W_EPS) covers the whole screen, an invalid
+    row nothing; each box is dilated by SCREEN_DILATE pixels."""
+    W, H = float(cam.width), float(cam.height)
+    vp = (cam.view_matrix() @ cam.projection_matrix()).to(v0.device)
+    big = _SCREEN_BIG
+    sxs, sys_, ws = [], [], []
+    for v in (v0, v1, v2):
+        ndc, w = vm.project_points(v, vp)
+        sxs.append((ndc[:, 0] + 1.0) * 0.5 * W)
+        sys_.append((1.0 - ndc[:, 1]) * 0.5 * H)
+        ws.append(w)
+    sx = torch.stack(sxs, dim=1)
+    sy = torch.stack(sys_, dim=1)
+    wmin = torch.minimum(torch.minimum(ws[0], ws[1]), ws[2])
+    safe = wmin > W_EPS
+    minx = torch.where(safe, torch.amin(sx, dim=1) - SCREEN_DILATE, -big)
+    maxx = torch.where(safe, torch.amax(sx, dim=1) + SCREEN_DILATE, big)
+    miny = torch.where(safe, torch.amin(sy, dim=1) - SCREEN_DILATE, -big)
+    maxy = torch.where(safe, torch.amax(sy, dim=1) + SCREEN_DILATE, big)
+    valid = tri_valid.bool()
+    boxes = torch.stack([torch.where(valid, minx, big), torch.where(valid, maxx, -big),
+                         torch.where(valid, miny, big), torch.where(valid, maxy, -big)],
+                        dim=1)
+    pad = n_leaf * leaf - boxes.shape[0]
+    empty = boxes.new_tensor([big, -big, big, -big]).expand(pad, 4)
+    boxes = torch.cat([boxes, empty]).reshape(n_leaf, leaf, 4)
+    return torch.stack([torch.amin(boxes[:, :, 0], dim=1), torch.amax(boxes[:, :, 1], dim=1),
+                        torch.amin(boxes[:, :, 2], dim=1), torch.amax(boxes[:, :, 3], dim=1)],
+                       dim=1)
+
+
+def screen_block_mask(leaf_screen, height: int, width: int, rows: int, cols: int):
+    """(nb, n_leaf) bool: does a leaf's screen box overlap the pixel tile of
+    each block of the `tile_order` layout (`wavefront.py:618-635`)? Tile
+    (ti, tj) spans [tj*cols - 0.5, (tj+1)*cols - 0.5) in x, likewise in y:
+    the ±0.5 px jitter range around its pixels."""
+    n_ti, n_tj = height // rows, width // cols
+    dev = leaf_screen.device
+    ty0 = torch.arange(n_ti, dtype=torch.float32, device=dev)[:, None, None] * rows - 0.5
+    tx0 = torch.arange(n_tj, dtype=torch.float32, device=dev)[None, :, None] * cols - 0.5
+    hit = ((leaf_screen[None, None, :, 0] <= tx0 + cols)
+           & (leaf_screen[None, None, :, 1] >= tx0)
+           & (leaf_screen[None, None, :, 2] <= ty0 + rows)
+           & (leaf_screen[None, None, :, 3] >= ty0))
+    return hit.reshape(n_ti * n_tj, -1)
+
+
+def tile_order(height: int, width: int, rows: int = TILE_ROWS,
+               cols: int = LANES // TILE_ROWS, device=None):
+    """Primary-ray permutation, row-major pixels → (rows x cols) pixel tiles,
+    one ray block each (`wavefront.py:697-706`); None if the image does not
+    tile evenly."""
+    if height % rows or width % cols:
+        return None
+    ids = torch.arange(height * width, dtype=torch.int64, device=device)
+    t = ids.reshape(height // rows, rows, width // cols, cols)
+    return t.permute(0, 2, 1, 3).reshape(-1)
+
+
+@dataclasses.dataclass
+class WaveScene:
+    """A packet packed for `trace` (`wavefront.py:538-550, 638-694`), on the
+    packet's device. Built once per `render_step`, reused by every sample."""
+
+    tris: torch.Tensor  # (n_leaf * LEAF, 32) Morton-ordered pack_tri32 rows
+    boxes: torch.Tensor  # (n_leaf, 8) leaf boxes, pack_tile_boxes
+    sphs: torch.Tensor  # (S, 16) pack_sph16
+    mats: torch.Tensor  # (8, 8)
+    sky: torch.Tensor  # (8,): bottom rgb, top rgb, 0, 0
+    scene_lo: torch.Tensor  # (3,) bounds of the valid triangles: the
+    scene_hi: torch.Tensor  # (3,) coherence key's Morton cells
+    n_leaf: int
+    n_sph: int
+    num_mats: int
+    perm_tri: torch.Tensor = None  # (T,) Morton permutation of packet rows
+    leaf_screen: torch.Tensor = None  # (n_leaf, 4) with a screen camera
+
+
+def prepare_scene(packet, screen_cam=None, leaf: int = LEAF) -> WaveScene:
+    """Pack ``packet`` for `trace`: world-space triangles in Morton order, in
+    whole leaves of ``leaf`` rows (the last one padded with invalid rows),
+    their boxes, the spheres, materials and sky, the scene bounds, and with
+    ``screen_cam`` the leaves' screen boxes for bounce-0 binning. Unlike the
+    reference, no leaf is added for shortlist padding and the leaf count is
+    not rounded up to 128."""
+    v0, v1, v2, n0, n1, n2 = packet.world_triangles()
+    dev = packet.device
+    tri_valid, tri_mat = packet.tri_valid, packet.tri_mat
+    T = v0.shape[0]
+    perm = None
+    if T:
+        perm = mk.morton_order(v0, v1, v2, tri_valid)
+        v0, v1, v2, n0, n1, n2 = (x[perm] for x in (v0, v1, v2, n0, n1, n2))
+        tri_valid, tri_mat = tri_valid[perm], tri_mat[perm]
+    n_leaf = -(-T // leaf)
+    tris = mk.pack_tri32(v0, v1, v2, n0, n1, n2, tri_valid, tri_mat)
+    tris = torch.cat([tris, tris.new_zeros((n_leaf * leaf - T, 32))])
+    if n_leaf:
+        boxes = mk.pack_tile_boxes(v0, v1, v2, tri_valid, leaf)
+        pts_lo = torch.minimum(torch.minimum(v0, v1), v2)
+        pts_hi = torch.maximum(torch.maximum(v0, v1), v2)
+        vf = tri_valid.to(torch.float32)[:, None]
+        scene_lo = torch.amin(torch.where(vf > 0.5, pts_lo, 1e30), dim=0)
+        scene_hi = torch.amax(torch.where(vf > 0.5, pts_hi, -1e30), dim=0)
+    else:
+        tris = tris.new_zeros((leaf, 32))  # one invalid leaf: a non-empty table
+        boxes = mk.empty_boxes(1, dev)
+        scene_lo = torch.zeros(3, device=dev)
+        scene_hi = torch.ones(3, device=dev)
+    leaf_screen = None
+    if screen_cam is not None and n_leaf:
+        leaf_screen = leaf_screen_boxes(v0, v1, v2, tri_valid, screen_cam, leaf, n_leaf)
+    sky = torch.cat([packet.sky_bottom, packet.sky_top, torch.zeros(2, device=dev)])
+    sphs = mk.pack_sph16(packet.sph_center, packet.sph_radius, packet.sph_valid,
+                         packet.sph_mat)
+    if sphs.shape[0] == 0:
+        sphs = sphs.new_zeros((1, 16))  # one invalid row: the winner gather has a row
+    return WaveScene(
+        tris=tris.contiguous(), boxes=boxes.contiguous(), sphs=sphs.contiguous(),
+        mats=mk.pack_mats(packet.mat_kind, packet.mat_albedo, packet.mat_param),
+        sky=sky.to(torch.float32).contiguous(), scene_lo=scene_lo, scene_hi=scene_hi,
+        n_leaf=n_leaf, n_sph=sphs.shape[0], num_mats=int(packet.num_materials),
+        perm_tri=perm, leaf_screen=leaf_screen)
+
+
+# ---- the mask kernel (B7) ----------------------------------------------------
+
+class MaskParams(ctypes.Structure):
+    """Field for field `ptre::MaskParams` (wave.cuh)."""
+
+    _fields_ = [("t_min", ctypes.c_float), ("r_pad", ctypes.c_int32),
+                ("n_leaf", ctypes.c_int32)]
+
+
+def _slab_inv(c):
+    """Direction reciprocal clamped away from 0 (`wavefront.py:138-141`)."""
+    return 1.0 / torch.where(torch.abs(c) < 1e-12,
+                             torch.where(c >= 0.0, 1e-12, -1e-12), c)
+
+
+def wave_mask_reference(state, boxes, t_min: float, lanes: int = LANES):
+    """Plain version of the mask kernel: (nb, n_leaf) bool, True where some
+    live ray of the block passes leaf l's slab test ``tn <= tf and tf >=
+    t_min`` (`wavefront.py:102-157`). Loops over leaves."""
+    r_pad = state.shape[1]
+    nb = r_pad // lanes
+    o = state[0:3]
+    iv = [_slab_inv(state[3 + k]) for k in range(3)]
+    live = state[9] > 0.5
+    t_min = mk.f32(t_min)
+    mask = torch.zeros((nb, boxes.shape[0]), dtype=torch.bool, device=state.device)
+    for l, box in enumerate(boxes[:, :6].tolist()):
+        tn = tf = None
+        for k in range(3):
+            lo, hi = box[k], box[3 + k]
+            pos = iv[k] >= 0.0
+            tnk = (torch.where(pos, lo, hi) - o[k]) * iv[k]
+            tfk = (torch.where(pos, hi, lo) - o[k]) * iv[k]
+            tn = tnk if tn is None else torch.maximum(tn, tnk)
+            tf = tfk if tf is None else torch.minimum(tf, tfk)
+        ok = (tn <= tf) & (tf >= t_min) & live
+        mask[:, l] = ok.view(nb, lanes).any(dim=1)
+    return mask
+
+
+def _check_lanes(r_pad: int, lanes: int):
+    if not (32 <= lanes <= 256 and lanes % 32 == 0 and r_pad % lanes == 0):
+        raise RendererError(f"the wavefront kernels take 32 <= lanes <= 256, a multiple "
+                            f"of 32 dividing the {r_pad} state columns; got {lanes}")
+
+
+def wave_mask(state, boxes, t_min: float, lanes: int = LANES):
+    """The (nb, n_leaf) bool cull mask of one bounce. CUDA tensors launch
+    `csrc/mask_kernel.cu` (counted in ``mask_launches``); CPU tensors run
+    `wave_mask_reference`; anything else raises."""
+    global mask_launches
+    if state.device.type == "cpu":
+        return wave_mask_reference(state, boxes, t_min, lanes)
+    if state.device.type != "cuda":
+        raise RendererError(f"wave_mask runs on cuda or cpu, not {state.device}")
+    r_pad, n_leaf = state.shape[1], boxes.shape[0]
+    mk.check_tensors("state", state.device, [
+        ("state", state, (STATE_ROWS, r_pad), torch.float32),
+        ("boxes", boxes, (n_leaf, 8), torch.float32)])
+    _check_lanes(r_pad, lanes)
+    if not 1 <= n_leaf <= MAX_WAVE_TRIS // LEAF:
+        raise RendererError(f"the mask kernel takes 1 to {MAX_WAVE_TRIS // LEAF} leaves, "
+                            f"got {n_leaf}")
+    mask = torch.empty((r_pad // lanes, n_leaf), dtype=torch.bool, device=state.device)
+    p = MaskParams(t_min=mk.f32(t_min), r_pad=r_pad, n_leaf=n_leaf)
+    lib = build.load_library()
+    with torch.cuda.device(state.device):
+        stream = torch.cuda.current_stream(state.device).cuda_stream
+        rc = lib.ptre_wave_mask(ctypes.addressof(p), state.data_ptr(), boxes.data_ptr(),
+                                mask.data_ptr(), lanes, stream)
+    if rc != 0:
+        raise RendererError(
+            f"mask kernel launch failed: {lib.ptre_cuda_error_string(rc).decode()}")
+    mask_launches += 1
+    return mask
+
+
+# ---- the bounce kernel (B6) ----------------------------------------------------
+
+class WaveParams(ctypes.Structure):
+    """Field for field `ptre::WaveParams` (wave.cuh), every field 4 bytes."""
+
+    _fields_ = [
+        ("t_min", ctypes.c_float), ("t_max", ctypes.c_float),
+        ("det_eps", ctypes.c_float), ("shadow_eps", ctypes.c_float),
+        ("pdf_eps", ctypes.c_float),
+        ("seed_lo", ctypes.c_uint32), ("seed_hi", ctypes.c_uint32),
+        ("sample", ctypes.c_uint32),
+        ("n_rays", ctypes.c_int32), ("r_pad", ctypes.c_int32),
+        ("n_leaf", ctypes.c_int32), ("list_stride", ctypes.c_int32),
+        ("n_sph", ctypes.c_int32), ("num_mats", ctypes.c_int32),
+        ("bounce", ctypes.c_int32), ("external_rng", ctypes.c_int32),
+    ]
+
+
+def _bounce_uniforms(ids, bounce: int, seed: int, sample: int, urand=None):
+    """(u1, u2) of bounce ``bounce`` for the rays numbered ``ids``: rows 2 + 2b
+    and 3 + 2b of ``urand`` (2 + 2 * max_depth, R) at the ids (ids past R
+    belong to padding rays, which are dead: they read column 0), or the
+    Philox pair 1 + b keyed by (seed, id, sample)."""
+    if urand is None:
+        return rng.pair_uniforms(seed, sample, ids, 1 + bounce)
+    col = torch.where(ids < urand.shape[1], ids, 0).long()
+    return urand[2 + 2 * bounce][col], urand[3 + 2 * bounce][col]
+
+
+def _listed(short, cnt, n_leaf: int):
+    """(nb, n_leaf) bool: which leaves each block's shortlist holds."""
+    nb, width = short.shape
+    on = torch.arange(width, device=short.device)[None, :] < cnt[:, None]
+    listed = torch.zeros((nb, n_leaf + 1), dtype=torch.bool, device=short.device)
+    listed.scatter_(1, torch.where(on, short, n_leaf).long(), on)
+    return listed[:, :n_leaf]
+
+
+def wave_bounce_reference(state, ids, short, cnt, scene: WaveScene, consts, bounce: int,
+                          seed: int = 0, sample: int = 0, urand=None, lanes: int = LANES):
+    """Plain version of the bounce kernel: the next (10, r_pad) state (a new
+    tensor). Loops over leaves; each leaf's 64 rows are tested against the
+    live rays of the blocks that list it (`wavefront.py:209-466`)."""
+    k = consts
+    r_pad = state.shape[1]
+    ox, oy, oz, dx, dy, dz = state[0:6]
+    active = state[9] > 0.5
+    listed = _listed(short, cnt, scene.n_leaf)
+    best_t = torch.full_like(ox, mk._BIG)
+    best_i = torch.zeros(r_pad, dtype=torch.int64, device=state.device)
+    tri_hit = torch.zeros_like(active)
+    for leaf in range(scene.n_leaf):
+        ray = (listed[:, leaf].repeat_interleave(lanes) & active).nonzero().squeeze(1)
+        if ray.numel() == 0:
+            continue
+        blk = scene.tris[leaf * LEAF:(leaf + 1) * LEAF]
+        v0x, v0y, v0z = (blk[None, :, c] for c in range(3))
+        e1x, e1y, e1z = (blk[None, :, 3 + c] - blk[None, :, c] for c in range(3))
+        e2x, e2y, e2z = (blk[None, :, 6 + c] - blk[None, :, c] for c in range(3))
+        valid = blk[None, :, 18] > 0.5
+        rox, roy, roz, rdx, rdy, rdz = (x[ray][:, None] for x in (ox, oy, oz, dx, dy, dz))
+        pvx = rdy * e2z - rdz * e2y
+        pvy = rdz * e2x - rdx * e2z
+        pvz = rdx * e2y - rdy * e2x
+        det = e1x * pvx + e1y * pvy + e1z * pvz
+        inv_det = 1.0 / torch.where(torch.abs(det) < k.det_eps, 1.0, det)
+        tvx, tvy, tvz = rox - v0x, roy - v0y, roz - v0z
+        u = (tvx * pvx + tvy * pvy + tvz * pvz) * inv_det
+        qvx = tvy * e1z - tvz * e1y
+        qvy = tvz * e1x - tvx * e1z
+        qvz = tvx * e1y - tvy * e1x
+        v = (rdx * qvx + rdy * qvy + rdz * qvz) * inv_det
+        t = (e2x * qvx + e2y * qvy + e2z * qvz) * inv_det
+        acc = ((torch.abs(det) >= k.det_eps) & (u >= 0.0) & (u <= 1.0) & (v >= 0.0)
+               & (u + v <= 1.0) & (t >= k.t_min) & (t <= k.t_max) & valid)
+        tm = torch.where(acc, t, mk._BIG)
+        gmin = torch.amin(tm, dim=1)
+        garg = torch.argmin(tm, dim=1)  # the first minimum: the lowest row
+        upd = gmin < best_t[ray]  # strict: an earlier (lower) leaf keeps a tie
+        best_i[ray] = torch.where(upd, garg + leaf * LEAF, best_i[ray])
+        best_t[ray] = torch.where(upd, gmin, best_t[ray])
+        tri_hit[ray] |= acc.any(dim=1)
+    tri_best = torch.where(tri_hit, best_t, k.t_max)
+
+    # spheres bounded by the closest triangle, far-root quirk (:316-340)
+    def sphere_root(sp):
+        ocx, ocy, ocz = sp[..., 0] - ox[:, None], sp[..., 1] - oy[:, None], sp[..., 2] - oz[:, None]
+        halfb = dx[:, None] * ocx + dy[:, None] * ocy + dz[:, None] * ocz
+        c = ocx * ocx + ocy * ocy + ocz * ocz - sp[..., 3] * sp[..., 3]
+        delta = halfb * halfb - c
+        sq = torch.sqrt(torch.clamp(delta, min=0.0))
+        t_near = halfb - sq
+        return torch.where(t_near >= k.t_min, t_near, halfb + sq), delta, t_near
+
+    sph_t = torch.full_like(ox, mk._BIG)
+    sph_i = torch.zeros(r_pad, dtype=torch.int64, device=state.device)
+    sph_hit = torch.zeros_like(active)
+    for js in range(0, scene.n_sph, LEAF):
+        sp = scene.sphs[None, js:js + LEAF]
+        t, delta, t_near = sphere_root(sp)
+        acc = ((delta >= 0.0) & (t_near <= tri_best[:, None]) & (t >= k.t_min)
+               & (sp[..., 4] > 0.5))
+        tm = torch.where(acc, t, mk._BIG)
+        tile_min = torch.amin(tm, dim=1)
+        upd = tile_min < sph_t
+        sph_i = torch.where(upd, js + torch.argmin(tm, dim=1), sph_i)
+        sph_t = torch.where(upd, tile_min, sph_t)
+        sph_hit = sph_hit | acc.any(dim=1)
+    hit = tri_hit | sph_hit
+    use_sph = sph_hit
+
+    # the winner's attributes, re-derived from its row (:388-447)
+    tr = scene.tris[best_i]
+    g = [tr[:, c] for c in range(20)]
+    e1x, e1y, e1z = g[3] - g[0], g[4] - g[1], g[5] - g[2]
+    e2x, e2y, e2z = g[6] - g[0], g[7] - g[1], g[8] - g[2]
+    pvx = dy * e2z - dz * e2y
+    pvy = dz * e2x - dx * e2z
+    pvz = dx * e2y - dy * e2x
+    det = e1x * pvx + e1y * pvy + e1z * pvz
+    inv_det = 1.0 / torch.where(det == 0.0, 1.0, det)
+    tvx, tvy, tvz = ox - g[0], oy - g[1], oz - g[2]
+    u = (tvx * pvx + tvy * pvy + tvz * pvz) * inv_det
+    qvx = tvy * e1z - tvz * e1y
+    qvy = tvz * e1x - tvx * e1z
+    qvz = tvx * e1y - tvy * e1x
+    v = (dx * qvx + dy * qvy + dz * qvz) * inv_det
+    t_tri = (e2x * qvx + e2y * qvy + e2z * qvz) * inv_det
+    w_ = 1.0 - u - v
+    tnx = w_ * g[9] + u * g[12] + v * g[15]
+    tny = w_ * g[10] + u * g[13] + v * g[16]
+    tnz = w_ * g[11] + u * g[14] + v * g[17]
+    tlen = torch.sqrt(tnx * tnx + tny * tny + tnz * tnz)
+    tinv = torch.where(tlen > 0.0, 1.0 / torch.where(tlen > 0.0, tlen, 1.0), 0.0)
+    gnx = e1y * e2z - e1z * e2y
+    gny = e1z * e2x - e1x * e2z
+    gnz = e1x * e2y - e1y * e2x
+    tsign = torch.where(dx * gnx + dy * gny + dz * gnz < 0.0, 1.0, -1.0)
+    tnx, tny, tnz = tnx * tinv * tsign, tny * tinv * tsign, tnz * tinv * tsign
+
+    sp = scene.sphs[sph_i]
+    t_s = sphere_root(sp[:, None])[0][:, 0]
+    inv_r = 1.0 / torch.where(sp[:, 3] == 0.0, 1.0, sp[:, 3])
+    spx, spy, spz = ox + t_s * dx, oy + t_s * dy, oz + t_s * dz
+    snx, sny, snz = (spx - sp[:, 0]) * inv_r, (spy - sp[:, 1]) * inv_r, (spz - sp[:, 2]) * inv_r
+    ssign = torch.where(dx * snx + dy * sny + dz * snz < 0.0, 1.0, -1.0)
+    snx, sny, snz = snx * ssign, sny * ssign, snz * ssign
+
+    px = torch.where(use_sph, spx, ox + t_tri * dx)
+    py = torch.where(use_sph, spy, oy + t_tri * dy)
+    pz = torch.where(use_sph, spz, oz + t_tri * dz)
+    nx = torch.where(use_sph, snx, tnx)
+    ny = torch.where(use_sph, sny, tny)
+    nz = torch.where(use_sph, snz, tnz)
+    mat_id = torch.where(use_sph, sp[:, 5], g[19])
+
+    u1, u2 = _bounce_uniforms(ids, bounce, seed, sample, urand)
+    f_r, f_g, f_b, wix, wiy, wiz, is_emissive = mk.scatter_shade(
+        nx, ny, nz, dx, dy, dz, mat_id, u1, u2, scene.mats.tolist(), scene.num_mats,
+        k.pdf_eps)
+    sky = mk.sky_color(dy, scene.sky.tolist())
+    f = [torch.where(hit, fc, sc) for fc, sc in zip((f_r, f_g, f_b), sky)]
+    nxt = active & hit & ~is_emissive
+    rows = [torch.where(nxt, px + k.shadow_eps * nx, ox),
+            torch.where(nxt, py + k.shadow_eps * ny, oy),
+            torch.where(nxt, pz + k.shadow_eps * nz, oz),
+            torch.where(nxt, wix, dx), torch.where(nxt, wiy, dy),
+            torch.where(nxt, wiz, dz)]
+    rows += [state[6 + c] * fc for c, fc in enumerate(f)]
+    rows.append(nxt.to(torch.float32))
+    return torch.where(active[None, :], torch.stack(rows), state)
+
+
+def _check_bounce_inputs(state, ids, short, cnt, scene: WaveScene, urand, lanes):
+    dev = state.device
+    r_pad = state.shape[1]
+    nb = r_pad // lanes
+    expected = [("state", state, (STATE_ROWS, r_pad), torch.float32),
+                ("ids", ids, (r_pad,), torch.int32),
+                ("short", short, (nb, short.shape[1] if short.dim() == 2 else -1),
+                 torch.int32),
+                ("cnt", cnt, (nb,), torch.int32),
+                ("tris", scene.tris, (scene.tris.shape[0], 32), torch.float32),
+                ("sphs", scene.sphs, (scene.n_sph, 16), torch.float32),
+                ("mats", scene.mats, (mk.MAX_MATS, 8), torch.float32),
+                ("sky", scene.sky, (8,), torch.float32)]
+    if urand is not None:
+        expected.append(("urand", urand, (urand.shape[0], urand.shape[1]), torch.float32))
+    mk.check_tensors("state", dev, expected)
+    _check_lanes(r_pad, lanes)
+    if scene.tris.shape[0] < max(scene.n_leaf, 1) * LEAF or scene.tris.data_ptr() % 16:
+        raise RendererError("tris must hold n_leaf whole 64-row leaves, 16-byte aligned")
+    if scene.num_mats > mk.MAX_MATS:
+        raise RendererError(f"the bounce kernel takes <= {mk.MAX_MATS} materials")
+
+
+def wave_bounce(state, ids, short, cnt, scene: WaveScene, consts, bounce: int,
+                seed: int = 0, sample: int = 0, urand=None, lanes: int = LANES):
+    """One bounce of the sorted state: the next (10, r_pad) state (a new
+    tensor). ``ids`` (r_pad,) int32 are the original ray ids; ``short`` /
+    ``cnt`` the blocks' shortlists (`shortlists_from_mask`); ``urand`` None
+    (Philox keyed by (seed, id, sample)) or (2 + 2 * max_depth, R) external
+    uniforms. CUDA tensors launch `csrc/wave_kernel.cu` (counted in
+    ``bounce_launches``); CPU tensors run `wave_bounce_reference`; anything
+    else raises."""
+    global bounce_launches
+    if state.device.type == "cpu":
+        return wave_bounce_reference(state, ids, short, cnt, scene, consts, bounce,
+                                     seed, sample, urand, lanes)
+    if state.device.type != "cuda":
+        raise RendererError(f"wave_bounce runs on cuda or cpu, not {state.device}")
+    _check_bounce_inputs(state, ids, short, cnt, scene, urand, lanes)
+    r_pad = state.shape[1]
+    out = torch.empty_like(state)
+    k = consts
+    p = WaveParams(
+        t_min=k.t_min, t_max=k.t_max, det_eps=k.det_eps, shadow_eps=k.shadow_eps,
+        pdf_eps=k.pdf_eps, seed_lo=seed & 0xFFFFFFFF, seed_hi=(seed >> 32) & 0xFFFFFFFF,
+        sample=sample & 0xFFFFFFFF, n_rays=0 if urand is None else urand.shape[1],
+        r_pad=r_pad, n_leaf=scene.n_leaf, list_stride=short.shape[1], n_sph=scene.n_sph,
+        num_mats=scene.num_mats, bounce=bounce, external_rng=int(urand is not None))
+    lib = build.load_library()
+    with torch.cuda.device(state.device):
+        stream = torch.cuda.current_stream(state.device).cuda_stream
+        rc = lib.ptre_wave_bounce(
+            ctypes.addressof(p), state.data_ptr(), ids.data_ptr(), short.data_ptr(),
+            cnt.data_ptr(), scene.tris.data_ptr(), scene.sphs.data_ptr(),
+            scene.mats.data_ptr(), scene.sky.data_ptr(),
+            None if urand is None else urand.data_ptr(), out.data_ptr(), lanes, stream)
+    if rc != 0:
+        raise RendererError(
+            f"bounce kernel launch failed: {lib.ptre_cuda_error_string(rc).decode()}")
+    bounce_launches += 1
+    return out
+
+
+# ---- the bounce loop ------------------------------------------------------------
+
+#: bounces `trace` ran (each with live rays), and bounce-0 passes it culled
+#: by screen binning instead of the mask kernel, in this process: with
+#: ``cull`` a traced sample launches the bounce kernel ``live_bounces``
+#: times and the mask kernel ``live_bounces - binned_bounces`` times
+live_bounces = 0
+binned_bounces = 0
+
+
+class StageTimer:
+    """Device time of `trace`'s stages by CUDA events, summed by stage name:
+    mask (kernel), compact (shortlists), sort (coherence key + argsort),
+    gather (state permutations and the final scatter), bounce (kernel)."""
+
+    def __init__(self):
+        self._events = []
+
+    @contextlib.contextmanager
+    def __call__(self, name: str):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        yield
+        end.record()
+        self._events.append((name, start, end))
+
+    def totals(self):
+        """{stage: (ms, calls)}; synchronises."""
+        torch.cuda.synchronize()
+        out = {}
+        for name, start, end in self._events:
+            ms, n = out.get(name, (0.0, 0))
+            out[name] = (ms + start.elapsed_time(end), n + 1)
+        return out
+
+
+def _no_stage(name: str):
+    return contextlib.nullcontext()
+
+
+def all_leaves(nb: int, n_leaf: int, device=None):
+    """Shortlists that sweep every leaf (``cull=False``, the brute A/B)."""
+    short = torch.arange(n_leaf, dtype=torch.int32, device=device).expand(nb, n_leaf)
+    return short.contiguous(), torch.full((nb,), n_leaf, dtype=torch.int32, device=device)
+
+
+def initial_state(o, d, lanes: int = LANES):
+    """(10, r_pad) state of fresh rays (colour 1, live) padded with dead
+    columns to whole blocks, and their ids 0..r_pad-1."""
+    R = o.shape[0]
+    r_pad = -(-R // lanes) * lanes
+    state = torch.zeros((STATE_ROWS, r_pad), dtype=torch.float32, device=o.device)
+    state[0:3, :R] = o.T
+    state[3:6, :R] = d.T
+    state[6:10, :R] = 1.0
+    return state, torch.arange(r_pad, dtype=torch.int32, device=o.device)
+
+
+def primary_state(o, d, scene: WaveScene, tile_hint=None, cull: bool = True,
+                  lanes: int = LANES):
+    """The bounce-0 state and ids, in pixel-tile order when ``tile_hint``
+    (H, W) tiles the R rays, and then — with ``cull`` and the scene's screen
+    boxes, and no padding — the screen-binned bounce-0 shortlists (else
+    None) (`wavefront.py:747-785`)."""
+    R = o.shape[0]
+    state, ids = initial_state(o, d, lanes)
+    r_pad = state.shape[1]
+    if tile_hint is None:
+        return state, ids, None
+    t_ord = tile_order(tile_hint[0], tile_hint[1], TILE_ROWS, lanes // TILE_ROWS, o.device)
+    if t_ord is None or t_ord.shape[0] != R:
+        return state, ids, None
+    perm0 = torch.cat([t_ord, torch.arange(R, r_pad, device=o.device)])
+    state, ids = state[:, perm0], ids[perm0]
+    short0 = None
+    if cull and scene.leaf_screen is not None and r_pad == R:
+        short0 = shortlists_from_mask(screen_block_mask(
+            scene.leaf_screen, tile_hint[0], tile_hint[1], TILE_ROWS, lanes // TILE_ROWS))
+    return state, ids, short0
+
+
+def coherence_order(state, scene: WaveScene):
+    """The stable permutation that sorts the rays by `coherence_key`."""
+    return torch.argsort(coherence_key(state, scene.scene_lo, scene.scene_hi), stable=True)
+
+
+def trace(o, d, scene: WaveScene, consts, max_depth: int, seed: int = 0,
+          sample: int = 0, urand=None, cull: bool = True, tile_hint=None,
+          sort_min_live=SORT_MIN_LIVE, lanes: int = LANES, plain: bool = False,
+          timer: StageTimer = None):
+    """Wavefront trace, one sample per ray: (R, 3) rays → (R, 3) float32
+    linear colour, unclamped (`wavefront.py:709-871`).
+
+    ``urand`` None draws Philox keyed by (seed, ray, sample); else the (2 + 2
+    * max_depth, R) external uniforms. ``tile_hint`` (H, W): the rays are a
+    camera's per-pixel rays in row-major order; bounce 0 then runs them as
+    pixel tiles, and with ``cull`` and the scene's ``leaf_screen`` (a
+    `prepare_scene` with ``screen_cam``) bins them in screen space instead
+    of running the mask. ``cull=False`` sweeps every leaf. Before bounce b >
+    0 the rays are sorted unless fewer than ``sort_min_live`` of the columns
+    live (None: never sort), and the trace stops at the first bounce with no
+    live ray. None of these options changes a pixel. ``plain`` runs the
+    plain versions on any device (comparisons); ``timer`` (a `StageTimer`,
+    CUDA only) times the stages."""
+    global live_bounces, binned_bounces
+    R = o.shape[0]
+    dev = o.device
+    stage = timer or _no_stage
+    mask_fn = wave_mask_reference if plain else wave_mask
+    bounce_fn = wave_bounce_reference if plain else wave_bounce
+    with stage("gather"):
+        state, ids, short0 = primary_state(o, d, scene, tile_hint, cull, lanes)
+    nb = state.shape[1] // lanes
+    for b in range(max_depth):
+        if b > 0:
+            n_live = int((state[9] > 0.5).sum())
+            if n_live == 0:
+                break  # every later bounce would pass every ray through
+            if sort_min_live is not None and n_live >= max(
+                    int(sort_min_live * state.shape[1]), 1):
+                with stage("sort"):
+                    perm = coherence_order(state, scene)
+                with stage("gather"):
+                    state, ids = state[:, perm], ids[perm]
+        live_bounces += 1
+        if b == 0 and short0 is not None:
+            short, cnt = short0
+            binned_bounces += 1
+        elif cull and scene.n_leaf:
+            with stage("mask"):
+                mask = mask_fn(state, scene.boxes, consts.t_min, lanes)
+            with stage("compact"):
+                short, cnt = shortlists_from_mask(mask)
+        else:
+            short, cnt = all_leaves(nb, scene.n_leaf, dev)
+        with stage("bounce"):
+            state = bounce_fn(state, ids, short, cnt, scene, consts, b, seed, sample,
+                              urand, lanes)
+    with stage("gather"):
+        color = torch.empty((state.shape[1], 3), dtype=torch.float32, device=dev)
+        color[ids.long()] = state[6:9].T
+    return color[:R]

@@ -78,6 +78,17 @@ def ray_uniforms(seed: int, sample: int, n_rays: int, n_pairs: int,
     return torch.stack([u01(w) for w in rows[: 2 * n_pairs]])
 
 
+def pair_uniforms(seed: int, sample: int, ids, k: int):
+    """Draw pair k, (u1, u2), of the rays numbered ``ids`` (an int tensor on
+    any device): the bits `ray_uniforms` gives in rows 2k and 2k+1 of those
+    columns, which the wavefront kernel regenerates from a ray's id."""
+    ray = ids.to(torch.int64)
+    smp = torch.tensor(sample & _MASK, dtype=torch.int64, device=ray.device)
+    blk = torch.tensor(k >> 1, dtype=torch.int64, device=ray.device)
+    w = philox4x32(ray, smp, blk, torch.zeros_like(smp), seed & _MASK, seed >> 32)
+    return (u01(w[2]), u01(w[3])) if k & 1 else (u01(w[0]), u01(w[1]))
+
+
 def render_uniforms(seed: int, sample: int, height: int, width: int,
                     max_depth: int, device=None):
     """The (2 + 2*max_depth, H, W) uniforms the render kernel draws in-kernel

@@ -119,6 +119,13 @@ def transform_points_h(p, m):
     return xyz, w[..., 0]
 
 
+def project_points(p, m):
+    """Homogeneous transform + w-divide (the rasterizer's clip → NDC step):
+    returns (xyz / w, w)."""
+    xyz, w = transform_points_h(p, m)
+    return xyz / w[..., None], w
+
+
 def normal_matrix(m):
     """3x3 normal matrix ``inv(M3x3).T``, applied as row-vector ``n @ N``.
     A truly singular input gives LAPACK's inf/nan garbage, as in the

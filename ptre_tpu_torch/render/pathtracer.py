@@ -1,8 +1,16 @@
 """Progressive path-tracer frame pipeline.
 
-PyTorch port of `ptre_tpu/render/pathtracer.py`'s forward path. Each sample
-is one launch of the hand-written render kernel (`ops/cuda/render_kernel.py`)
-on CUDA tensors, or its plain PyTorch version on CPU tensors. The
+PyTorch port of `ptre_tpu/render/pathtracer.py`'s forward path. Two routes,
+chosen per packet (`route`):
+
+  * dense packets (<= 64 triangles, <= 64 spheres): each sample is one
+    launch of the whole-sample render kernel (`ops/cuda/render_kernel.py`);
+  * larger packets the wavefront takes (`ops/cuda/wavefront.supports`): each
+    sample is `sample_image` — Philox jitter, `camera.get_rays`, the sorted
+    wavefront (mask and bounce kernels), clamp and scrub — then the running
+    average, with the packing done once per step.
+
+CUDA tensors run the kernels; CPU tensors their plain PyTorch versions. The
 accumulation reproduces the reference render kernel (`path_tracer.cu:330-366`):
 per-sample clamp to [0, 1], running average lin = c/n + lin*(n-1)/n, sqrt
 display gamma with a truncating uint8 cast. Reset only zeroes the sample
@@ -15,8 +23,12 @@ import dataclasses
 
 import torch
 
+from ptre_tpu_torch.ops import camera as cam_ops
+from ptre_tpu_torch.ops import rng
 from ptre_tpu_torch.ops.cuda import megakernel as mk
 from ptre_tpu_torch.ops.cuda import render_kernel as rk
+from ptre_tpu_torch.ops.cuda import wavefront as wf
+from ptre_tpu_torch.ops.integrator import postprocess_sample
 
 
 @dataclasses.dataclass
@@ -50,31 +62,68 @@ def pixel_grid(height: int, width: int, device=None):
     return px.reshape(-1), py.reshape(-1)
 
 
+def route(packet) -> str:
+    """The route of a packet: "dense" (the render kernel), "wavefront" (the
+    mask and bounce kernels) or "none" when neither takes it."""
+    if mk.dense_supported(packet):
+        return "dense"
+    if wf.supports(packet):
+        return "wavefront"
+    return "none"
+
+
 def check_dispatch(packet, device) -> None:
     """Raise unless ``render_step`` has a path for this packet on ``device``:
-    on CUDA that is the dense kernel only — larger scenes wait for the
-    wavefront kernels, and nothing runs plain PyTorch on the card instead."""
+    on CUDA the dense kernel or the wavefront kernels — nothing runs plain
+    PyTorch on the card instead. On the CPU every packet has a path (a
+    packet neither route takes runs the dense plain version)."""
     device = torch.device(device)
     if device.type == "cuda":
-        if not mk.dense_supported(packet):
+        if route(packet) == "none":
             raise NotImplementedError(
-                "render_step on CUDA runs the dense kernel only (<= "
-                f"{mk.DENSE_MAX_TRI} triangles, <= {mk.DENSE_MAX_SPH} spheres, "
-                f"<= {mk.MAX_MATS} materials); this packet has "
-                f"{packet.num_triangles} triangles, {packet.num_spheres} "
-                f"spheres, {packet.num_materials} materials. Larger scenes "
-                "need the triangle-scale path still to be ported (ROADMAP "
-                "A9, B6, B7).")
+                "render_step on CUDA takes a dense packet (<= "
+                f"{mk.DENSE_MAX_TRI} triangles, <= {mk.DENSE_MAX_SPH} spheres) or "
+                f"one the wavefront takes (<= {wf.MAX_WAVE_TRIS} triangle rows, <= "
+                f"{wf.MAX_WAVE_SPHS} sphere rows), with <= {mk.MAX_MATS} materials; "
+                f"this packet has {packet.tri_valid.shape[0]} triangle rows, "
+                f"{packet.sph_center.shape[0]} sphere rows, {packet.num_materials} "
+                "materials.")
     elif device.type != "cpu":
         raise NotImplementedError(f"render_step runs on cuda or cpu, not {device}")
+
+
+def sample_image(scene: wf.WaveScene, cam, config, seed: int, n: int, urand=None,
+                 timer=None):
+    """One jittered sample per pixel through the wavefront → clamped linear
+    colour (H*W, 3) (`pathtracer.py:74-121`, triangle-scale branch).
+
+    The draws are keyed as the render kernel keys them: pair 0 (the jitter)
+    and pair 1 + b (bounce b) by (seed, pixel, n); or ``urand`` (2 + 2 *
+    max_depth, H, W), rows 0-1 the jitter plus 0.5. ``timer``: a
+    `wavefront.StageTimer` for the trace's stages."""
+    H, W = cam.height, cam.width
+    dev = scene.tris.device
+    px, py = pixel_grid(H, W, dev)
+    if urand is None:
+        u = rng.ray_uniforms(seed, n, H * W, 1, dev)
+    else:
+        urand = urand.reshape(urand.shape[0], H * W)
+        u = urand[0:2]
+    o, d = cam_ops.get_rays(cam, px, py, (u - 0.5).T)
+    color = wf.trace(o.contiguous(), d.contiguous(), scene,
+                     mk.TraceConsts.from_config(config), config.max_depth, seed, n,
+                     urand, tile_hint=(H, W), timer=timer)
+    return postprocess_sample(color, config.clamp_samples)
 
 
 def render_step(packet, cam, accum: AccumState, seed_or_generator, config,
                 spp: int = 1, urand=None) -> AccumState:
     """Accumulate ``spp`` progressive samples into the running average.
 
-    Sample s uses running-average index n = frame + s + 1. On CUDA each
-    sample is one kernel launch; ``accum.linear`` is updated IN PLACE (the
+    Sample s uses running-average index n = frame + s + 1. On CUDA a dense
+    sample is one kernel launch, a wavefront sample one mask and one bounce
+    launch per live bounce (bounce 0 bins in screen space instead of the
+    mask when the image tiles); ``accum.linear`` is updated IN PLACE (the
     port's answer to JAX buffer donation) and the returned state shares it.
 
     Args:
@@ -101,6 +150,18 @@ def render_step(packet, cam, accum: AccumState, seed_or_generator, config,
         gen = seed_or_generator
     else:
         gen = torch.Generator().manual_seed(int(seed_or_generator))
+
+    if route(packet) == "wavefront":
+        # world-space triangles, Morton sort and packing once per step
+        scene = wf.prepare_scene(packet, screen_cam=cam)
+        for s in range(spp):
+            seed = int(torch.randint(0, 2**31 - 1, (1,), generator=gen).item())
+            n = accum.frame + s + 1
+            img = sample_image(scene, cam, config, seed, n,
+                               None if urand is None else urand[s])
+            inv_n, w_old = rk._average_weights(n)
+            accum.linear.mul_(w_old).add_(img.reshape(H, W, 3) * inv_n)
+        return AccumState(linear=accum.linear, frame=accum.frame + spp)
 
     scene = mk.pack_scene(packet)
     rows = rk.camera_rows(cam)

@@ -6,7 +6,7 @@ runs inside a fixture, never at import). On a machine with the card:
     python -m pytest -p no:cacheprovider --noconftest -m cuda tests/test_torch_cuda.py
 
 (``--noconftest``: the suite's conftest sets up JAX, which that machine
-need not have.) Tolerance, as in chip_smoke.py: the kernel contracts a*b+c
+need not have.) Tolerance of the render kernel, as in chip_smoke.py: the kernel contracts a*b+c
 into FMAs inside the bounce loop, so a grazing ray can take another
 primitive: >= 99.9 % of channels within 1e-4, and channels beyond 0.05 (a
 flipped path) on at most 1e-5 of the pixels, rounded up.
@@ -28,6 +28,7 @@ from ptre_tpu_torch.ops import path_replay
 from ptre_tpu_torch.ops.cuda import fused_grad as fg
 from ptre_tpu_torch.ops.cuda import megakernel as mk
 from ptre_tpu_torch.ops.cuda import render_kernel as rk
+from ptre_tpu_torch.ops.cuda import wavefront as wf
 from ptre_tpu_torch.parallel import sharding as sh
 from ptre_tpu_torch.render import pathtracer as pt
 from ptre_tpu_torch.render import train
@@ -196,3 +197,92 @@ def test_gradient_wrappers_reject_bad_inputs(cuda):
         fg.fused_bwd(table.cpu(), sky6, o, d, sel, dcol, k, 5, T)
     with pytest.raises(RendererError, match="table rows"):
         fg.fused_bwd(torch.zeros((200, 27), device=cuda), sky6, o, d, sel, dcol, k, 5, T)
+
+
+# ---- the wavefront kernels (triangle-scale scenes) --------------------------------
+# Tolerances as in chip_smoke.py phases 9-10: the slab test has no a*b+c, so
+# the verdicts are equal; the bounce kernel contracts FMAs, so a grazing ray
+# can take another primitive: >= 99.9 % of the next-state values within
+# 1e-4, at most 1e-5 of the rays (rounded up) beyond it, dead rays bit for bit.
+
+
+def _wave_setup(dev, W=256, H=128, B=5):
+    cfg = RenderConfig(width=W, height=H, max_depth=B)
+    pkt = demo.config4_mixed_scene(64, 32).build_packet().to(dev)
+    cam = cam_ops.Camera.create(width=W, height=H)
+    scene = wf.prepare_scene(pkt, screen_cam=cam)
+    px, py = pt.pixel_grid(H, W, dev)
+    jit = torch.rand((H * W, 2), device=dev, generator=torch.Generator(dev).manual_seed(2))
+    o, d = (x.contiguous() for x in cam_ops.get_rays(cam, px, py, jit - 0.5))
+    k = mk.TraceConsts.from_config(cfg)
+    state, ids, short0 = wf.primary_state(o, d, scene, (H, W))
+    assert short0 is not None
+    state = wf.wave_bounce(state, ids, *short0, scene, k, 0, 9, 1)
+    perm = wf.coherence_order(state, scene)
+    return cfg, pkt, cam, scene, k, state[:, perm].contiguous(), ids[perm].contiguous()
+
+
+def test_wave_mask_kernel_matches_plain_version(cuda):
+    _, _, _, scene, k, state, _ = _wave_setup(cuda)
+    before = wf.mask_launches
+    got = wf.wave_mask(state, scene.boxes, k.t_min)
+    want = wf.wave_mask_reference(state, scene.boxes, k.t_min)
+    torch.cuda.synchronize()
+    assert wf.mask_launches == before + 1
+    assert torch.equal(got, want) and bool(got.any()) and not bool(got.all())
+
+
+@pytest.mark.parametrize("external", [True, False])
+def test_wave_bounce_kernel_matches_plain_version(cuda, external):
+    cfg, _, _, scene, k, state, ids = _wave_setup(cuda)
+    R = state.shape[1]
+    urand = torch.rand((2 + 2 * cfg.max_depth, R), device=cuda) if external else None
+    short, cnt = wf.shortlists_from_mask(wf.wave_mask(state, scene.boxes, k.t_min))
+    before = wf.bounce_launches
+    got = wf.wave_bounce(state, ids, short, cnt, scene, k, 1, 9, 1, urand)
+    want = wf.wave_bounce_reference(state, ids, short, cnt, scene, k, 1, 9, 1, urand)
+    torch.cuda.synchronize()
+    assert wf.bounce_launches == before + 1
+    err = (got - want).abs()
+    assert float((err <= 1e-4).float().mean()) >= 0.999
+    assert int((err > 1e-4).any(dim=0).sum()) <= math.ceil(1e-5 * R)
+    dead = state[9] < 0.5
+    assert bool(dead.any()) and torch.equal(got[:, dead], state[:, dead])
+
+
+def test_render_step_triangle_scene_goes_through_wavefront_kernels(cuda):
+    W, H = 256, 128
+    cfg = RenderConfig(width=W, height=H, max_depth=5)
+    pkt = demo.config4_mixed_scene(64, 32).build_packet().to(cuda)
+    cam = cam_ops.Camera.create(width=W, height=H)
+    before = (wf.mask_launches, wf.bounce_launches, wf.live_bounces, wf.binned_bounces,
+              rk.launches)
+    acc = pt.render_step(pkt, cam, pt.AccumState.create(H, W, cuda), 3, cfg, spp=2)
+    torch.cuda.synchronize()
+    masks, bounces, live, binned, renders = (
+        a - b for a, b in zip((wf.mask_launches, wf.bounce_launches, wf.live_bounces,
+                               wf.binned_bounces, rk.launches), before))
+    assert renders == 0 and binned == 2 and 2 < live <= 2 * cfg.max_depth
+    assert bounces == live and masks == live - binned
+    lin = acc.linear
+    assert bool(torch.isfinite(lin).all()) and 0.0 <= float(lin.min()) <= float(lin.max()) <= 1.0 + 1e-6
+    # the same step with the plain versions on the CPU, same seed and draws
+    ref = pt.render_step(pkt.to("cpu"), cam, pt.AccumState.create(H, W), 3, cfg, spp=2)
+    d = (lin.cpu() - ref.linear).abs()
+    assert float((d <= 1e-4).float().mean()) >= 0.999
+    assert int((d > 0.05).any(dim=-1).sum()) <= math.ceil(1e-5 * W * H * 2)
+
+
+def test_wavefront_wrappers_reject_bad_inputs(cuda):
+    _, _, _, scene, k, state, ids = _wave_setup(cuda, W=64, H=32)
+    with pytest.raises(RendererError, match="contiguous"):
+        wf.wave_mask(state.double(), scene.boxes, k.t_min)
+    with pytest.raises(RendererError, match="lanes"):
+        wf.wave_mask(state, scene.boxes, k.t_min, lanes=512)
+    short, cnt = wf.all_leaves(state.shape[1] // wf.LANES, scene.n_leaf, cuda)
+    with pytest.raises(RendererError, match="contiguous"):
+        wf.wave_bounce(state, ids.long(), short, cnt, scene, k, 0)
+    with pytest.raises(RendererError, match="shape"):
+        wf.wave_bounce(state, ids, short, cnt[:1], scene, k, 0)
+    with pytest.raises(RendererError, match="state on cuda"):
+        wf.wave_bounce(state, ids.cpu(), short, cnt, scene, k, 0)

@@ -1,9 +1,10 @@
 """Package rules of the PyTorch port: no jax, no hidden fallback.
 
-The port may import only the jax-free reference modules; its CUDA wrapper
-runs the plain version only for CPU tensors; a missing nvcc raises; and
-render_step refuses, before any CUDA call, a packet the CUDA path cannot
-take instead of running plain PyTorch on the card.
+The port may import only the jax-free reference modules; its CUDA wrappers
+run the plain versions only for CPU tensors; a missing nvcc raises; and
+render_step refuses, before any CUDA call, a packet neither CUDA route (the
+dense render kernel, the wavefront kernels) can take instead of running
+plain PyTorch on the card.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ from ptre_tpu_torch.ops import integrator
 from ptre_tpu_torch.ops.cuda import fused_grad
 from ptre_tpu_torch.ops.cuda import megakernel as mk
 from ptre_tpu_torch.ops.cuda import render_kernel as rk
+from ptre_tpu_torch.ops.cuda import wavefront as wf
 from ptre_tpu_torch.parallel import sharding as sh
 from ptre_tpu_torch.render import pathtracer as pt
 from ptre_tpu_torch.render import train
@@ -44,6 +46,7 @@ SLICE_MODULES = [
     "ptre_tpu_torch.ops.cuda.build",
     "ptre_tpu_torch.ops.cuda.megakernel",
     "ptre_tpu_torch.ops.cuda.render_kernel",
+    "ptre_tpu_torch.ops.cuda.wavefront",
     "ptre_tpu_torch.models.scene",
     "ptre_tpu_torch.models.demo",
     "ptre_tpu_torch.render.pathtracer",
@@ -119,10 +122,18 @@ def test_build_raises_clearly_without_nvcc(tmp_path, monkeypatch):
 
 
 def test_render_step_refuses_non_dense_packet_on_cuda():
-    big = demo.config3_scene(segments=24, rings=12).build_packet()
-    assert big.num_triangles > mk.DENSE_MAX_TRI
-    with pytest.raises(NotImplementedError, match="A9, B6, B7"):
-        pt.check_dispatch(big, torch.device("cuda"))
+    """A packet past the dense class has the wavefront's CUDA path when the
+    wavefront takes it; any other packet is refused on CUDA."""
+    tri = demo.config3_scene(segments=24, rings=12).build_packet()
+    assert tri.num_triangles > mk.DENSE_MAX_TRI
+    assert pt.route(tri) == "wavefront"
+    pt.check_dispatch(tri, torch.device("cuda"))
+
+    too_big = dataclasses.replace(
+        tri, tri_valid=torch.zeros(wf.MAX_WAVE_TRIS + 128, dtype=torch.bool))
+    assert pt.route(too_big) == "none"
+    with pytest.raises(NotImplementedError, match="triangle rows"):
+        pt.check_dispatch(too_big, torch.device("cuda"))
 
     many_mats = demo.reference_demo_scene(8, 4)
     for i in range(mk.MAX_MATS):
@@ -131,10 +142,37 @@ def test_render_step_refuses_non_dense_packet_on_cuda():
         pt.check_dispatch(many_mats.build_packet(), "cuda")
 
     # the dense demo packet has its CUDA path; any packet has the CPU one
+    assert pt.route(demo.reference_demo_scene(8, 4).build_packet()) == "dense"
     pt.check_dispatch(demo.reference_demo_scene(8, 4).build_packet(), "cuda")
-    pt.check_dispatch(big, "cpu")
+    pt.check_dispatch(too_big, "cpu")
     with pytest.raises(NotImplementedError):
-        pt.check_dispatch(big, "meta")
+        pt.check_dispatch(tri, "meta")
+
+
+def test_wavefront_wrappers_on_cpu_run_plain_versions_without_launch():
+    torch.set_num_threads(1)
+    W, H = 16, 8
+    cfg = RenderConfig(width=W, height=H, max_depth=3)
+    pkt = demo.config4_mixed_scene(12, 6).build_packet()
+    cam = cam_ops.Camera.create(width=W, height=H)
+    before = (wf.mask_launches, wf.bounce_launches, rk.launches)
+    acc = pt.render_step(pkt, cam, pt.AccumState.create(H, W), 3, cfg, spp=2)
+    assert (wf.mask_launches, wf.bounce_launches, rk.launches) == before
+    assert acc.frame == 2 and bool(torch.isfinite(acc.linear).all())
+    scene = wf.prepare_scene(pkt)
+    k = mk.TraceConsts.from_config(cfg)
+    state = torch.zeros((wf.STATE_ROWS, 64))
+    state[9] = 1.0
+    assert torch.equal(wf.wave_mask(state, scene.boxes, k.t_min, 32),
+                       wf.wave_mask_reference(state, scene.boxes, k.t_min, 32))
+    meta = torch.empty((wf.STATE_ROWS, 64), device="meta")
+    with pytest.raises(RendererError, match="cuda or cpu"):
+        wf.wave_mask(meta, scene.boxes, k.t_min, 32)
+    short, cnt = wf.all_leaves(2, scene.n_leaf)
+    ids = torch.arange(64, dtype=torch.int32)
+    with pytest.raises(RendererError, match="cuda or cpu"):
+        wf.wave_bounce(meta, ids, short, cnt, scene, k, 0)
+    assert (wf.mask_launches, wf.bounce_launches) == before[:2]
 
 
 
@@ -163,11 +201,11 @@ def test_training_refuses_non_dense_packet_on_cuda_before_any_cuda_call(monkeypa
         params = {k: torch.empty_like(v, device="cuda")
                   for k, v in sh.differentiable_params(big, cam).items()}
         for step in (train.mse_step, train.two_pass_mse_step):
-            with pytest.raises(NotImplementedError, match="A5, A9, B6, B7, B11"):
+            with pytest.raises(NotImplementedError, match="A5, A14, B11"):
                 step(params, pkt, cam, target, cfg, seed=1, spp=2)
-        with pytest.raises(NotImplementedError, match="A5, A9, B6, B7, B11"):
+        with pytest.raises(NotImplementedError, match="A5, A14, B11"):
             fused_grad.trace_grad(o, o, pkt, cfg)
-        with pytest.raises(NotImplementedError, match="A5, A9, B6, B7, B11"):
+        with pytest.raises(NotImplementedError, match="A5, A14, B11"):
             integrator.trace(o, o, pkt, cfg)
     with pytest.raises(NotImplementedError, match="cuda or cpu"):
         integrator.check_grad_dispatch(demo.reference_demo_scene(8, 4).build_packet(),

@@ -1,4 +1,6 @@
-"""The port's progressive render loop vs the JAX package's.
+"""The port's progressive render loop vs the JAX package's, on both of its
+routes: dense packets (the render kernel's plain version) and triangle-scale
+packets (the wavefront's plain versions, BASELINE configs 3 and 4).
 
 The JAX `render_step` on the CPU takes its staged route (`integrator.trace`)
 with threefry keys. The port takes the very draws that route makes, through
@@ -156,6 +158,67 @@ def test_renders_dense_goldens(name):
     assert (diff <= 2).mean() >= 0.995, (diff <= 2).mean()
     bad_pixels = int(np.any(diff > 8, axis=-1).sum())
     assert bad_pixels <= outliers, (bad_pixels, diff.max())
+
+
+# the triangle-scale scenes: BASELINE configs 3 and 4 at test scale. The
+# port takes the wavefront route, JAX's render_step on the CPU its staged
+# route (`pathtracer.py:151-164`), with the same draws.
+TRI_SCENES = {
+    "config3": lambda m: m.config3_scene(segments=24, rings=12, diffuse=True),
+    "config4": lambda m: m.config4_mixed_scene(segments=24, rings=12),
+}
+
+
+@pytest.mark.parametrize("name", list(TRI_SCENES))
+def test_render_step_triangle_scene_matches_jax_staged_route(name):
+    torch.set_num_threads(1)
+    W, H, spp = 32, 24, 2
+    cfg = RenderConfig(width=W, height=H, max_depth=4)
+    root = jrng.key_for(77)
+    jp = TRI_SCENES[name](jdemo).build_packet()
+    pkt = TRI_SCENES[name](demo).build_packet()
+    assert pt.route(pkt) == "wavefront"
+    jc = jcam.Camera.create(width=W, height=H)
+    cam = cam_ops.Camera.create(width=W, height=H)
+    jacc, acc = jpt.AccumState.create(H, W), pt.AccumState.create(H, W)
+    for step in range(2):
+        key = jrng.fold(root, step)
+        urand = jax_urand(key, acc.frame, spp, H, W, cfg.max_depth)
+        jacc = jpt.render_step(jp, jc, jacc, key, cfg, spp=spp)
+        acc = pt.render_step(pkt, cam, acc, 0, cfg, spp=spp, urand=urand)
+    assert acc.frame == int(jacc.frame) == 2 * spp
+    _assert_staged_close(acc.linear.numpy(), np.asarray(jacc.linear))
+
+
+# the four triangle-scale goldens (`scripts/make_goldens.py:78-96`)
+TRI_GOLDENS = {
+    "config3_trimesh_smooth.ppm": (
+        "config3_scene", dict(flat=False, segments=24, rings=12, diffuse=True), {}, 33),
+    "config3_trimesh_flat.ppm": (
+        "config3_scene", dict(flat=True, segments=24, rings=12, diffuse=True), {}, 33),
+    "config4_mixed_persp.ppm": ("config4_mixed_scene", dict(segments=24, rings=12), {}, 44),
+    "config4_mixed_ortho.ppm": ("config4_mixed_scene", dict(segments=24, rings=12),
+                                dict(projection=cam_ops.ORTHOGRAPHIC), 44),
+}
+
+
+@pytest.mark.parametrize("name", list(TRI_GOLDENS))
+def test_renders_triangle_goldens(name):
+    torch.set_num_threads(1)
+    scene_fn, scene_kw, cam_kw, seed = TRI_GOLDENS[name]
+    W = H = 64
+    cfg = RenderConfig(width=W, height=H, max_depth=5)
+    pkt = getattr(demo, scene_fn)(**scene_kw).build_packet()
+    assert pt.route(pkt) == "wavefront"
+    cam = cam_ops.Camera.create(width=W, height=H, **cam_kw)
+    urand = jax_urand(jrng.key_for(seed), 0, 4, H, W, cfg.max_depth)
+    acc = pt.render_step(pkt, cam, pt.AccumState.create(H, W), 0, cfg, spp=4, urand=urand)
+    got = pt.to_display(acc.linear).numpy().astype(np.int16)
+    want = read_ppm(os.path.join(GOLDEN_DIR, name)).astype(np.int16)
+    assert got.shape == want.shape
+    diff = np.abs(got - want)
+    assert (diff <= 2).mean() >= 0.995, (diff <= 2).mean()
+    assert diff.max() <= 8, diff.max()
 
 
 def test_to_display_and_bgra8_bit_equal_to_jax():
