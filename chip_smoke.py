@@ -23,7 +23,17 @@ source, all at once), then:
   11.  drives the triangle-scale main path — ``render_step`` on config 3 at
        512x512 and config 4 at 1920x1080, spp 4 (1 + 8 steps) — checking
        that every live bounce went through the kernels, and prints where a
-       bounce's time goes.
+       bounce's time goes;
+  12-14. the rasterizer on the demo scene with spheres as triangles (1,932
+       triangles) at 1280x720, supersample 2 (2560x1440 samples): holds the
+       hard kernel, the SoftRas forward and the SoftRas backward kernels
+       against their plain versions, then drives ``rasterize`` (1 + 8
+       frames), ``rasterize_frames`` (K = 4), ``rasterize(soft=True)`` and
+       ``train.raster_mse_step`` (1 + 8 steps), checking that every frame or
+       step went through the kernels; a ragged size, a strided window, an
+       empty scene and tests/goldens/demo_raster.ppm check the image; a
+       torch.profiler window splits a frame's and a step's time between
+       the host and the device.
 
 Any failed check raises and the script exits non-zero; it prints its result
 lines only after every phase passed:
@@ -31,8 +41,10 @@ lines only after every phase passed:
   * a JSON line ``{"kernels": [...]}``: per kernel its launches on its main
     path, its largest error against the plain version (for the gradient
     kernels outside the rays whose path flipped, which are counted and
-    bounded on their own), and its and the plain version's time per call at
-    the main path's shape;
+    bounded on their own), its and the plain version's time per call at
+    the main path's shape, and its bound: the larger of the bytes it must
+    move over the card's memory rate and its float32 operations on this
+    run's inputs over the card's float32 rate (`bound`);
   * last, ``{"ok": true, "device": {...}}``.
 
 Every time printed is beside the card's name and power limit as
@@ -89,6 +101,96 @@ SPP_TRAIN = 64  # bench.py's 64-spp step
 TWO_PASS_RTOL, TWO_PASS_ATOL = 2e-4, 1e-5
 
 
+# The bound of a kernel (the H100's peak rates below): the larger
+# of the bytes it must move (each input read once, each output written once)
+# over HBM3's 3.35 TB/s and its float32 operations on this run's inputs over
+# the 67 TFLOP/s of the CUDA cores (H100 SXM data sheet, at 700 W). The
+# operation counts are hand counts of the CUDA sources, per unit of work
+# (each add, multiply, divide, compare, select, sqrt, exp, sin or cos counts
+# one; integer work such as Philox is not counted, so the bound errs low).
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+OPS_TRI_TEST = 64     # trace.cuh / wave.cuh: one Moller-Trumbore test
+OPS_SPH_TEST = 27     # trace.cuh / wave.cuh: one sphere's roots and test
+OPS_SHADE = 150       # a hit's attributes and scatter_shade (rough count)
+OPS_BWD_BOUNCE = 800  # replay.cuh: one hit bounce's chain and adjoint (rough count)
+OPS_SLAB = 30         # wave.cuh slab_pass
+OPS_HARD_PAIR = 30    # raster.cuh covers + the z test
+OPS_HARD_SAMPLE = 76  # raster.cuh shade_winner
+OPS_SOFT_PAIR = 168   # raster.cuh pair_forward + its share of soft_group
+OPS_SOFT_ADJ = 270    # pair_backward's cotangents + pair_adjoint + warp sums
+
+
+def bound(nbytes, ops):
+    """(bound_ms, bound_by) of moving ``nbytes`` and doing ``ops``."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def with_bound(entry, nbytes, ops):
+    """``entry`` with its bound_ms, bound_by and library_ms (no single
+    PyTorch call computes any of these kernels' functions: null)."""
+    bound_ms, bound_by = bound(nbytes, ops)
+    print(f"  {entry['name']}: bound {bound_ms:.4f} ms by {bound_by} ({nbytes / 1e6:.1f} MB, "
+          f"{ops / 1e9:.3f} GFLOP) against {entry['ms']:.4f} ms", flush=True)
+    return dict(entry, bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+
+
+def cuda_events(fn, reps):
+    """ms per call of ``fn`` by CUDA events over ``reps`` calls, after one."""
+    import torch
+
+    fn()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(reps):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / reps
+
+
+def device_share(fn, reps, what, card):
+    """Where ``reps`` steady calls of ``fn`` spend their time, by
+    torch.profiler: host-clock ms per call (the window ends in a
+    synchronize), device-busy ms per call (the union of the kernels'
+    intervals), the device's idle share, and the four kernels that take most
+    of the device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us, end, by_name = 0.0, -math.inf, {}
+    for e in sorted(kernels, key=lambda e: e.time_range.start):
+        a, b = e.time_range.start, e.time_range.end
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+        by_name[e.name] = by_name.get(e.name, 0.0) + b - a
+    if not kernels:
+        print(f"  {what}: the profiler saw no device events: idle share not measured", flush=True)
+        return
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+    host = sorted((e for e in prof.key_averages() if e.self_cpu_time_total > 0),
+                  key=lambda e: -e.self_cpu_time_total)[:4]
+    print(f"  {what} (torch.profiler, {reps} calls): {wall_us / reps / 1e3:.3f} ms/call host "
+          f"clock, device busy {busy_us / reps / 1e3:.3f} ms/call, idle "
+          f"{100 * (1 - busy_us / wall_us):.1f} %, {len(kernels) / reps:.0f} device events/call; "
+          "device: " + "; ".join(f"{n[:48]} {t / reps / 1e3:.3f} ms" for n, t in top)
+          + "; host (self CPU): " + "; ".join(
+              f"{e.key[:32]} {e.self_cpu_time_total / reps / 1e3:.3f} ms x{e.count // reps}"
+              for e in host) + f" [{card}]", flush=True)
+
+
 class SmokeFailure(AssertionError):
     pass
 
@@ -130,7 +232,7 @@ def main():
     import numpy as np
     import torch
 
-    from ptre_tpu.utils.config import RenderConfig
+    from ptre_tpu_torch.utils.config import RenderConfig
     from ptre_tpu_torch.models import demo
     from ptre_tpu_torch.models.scene import Scene
     from ptre_tpu_torch.ops import camera as cam_ops
@@ -307,7 +409,7 @@ def main():
               f"Mrays/s [{card}]", flush=True)
 
     launches, k_ms, p_ms = results[(W_MAIN, H_MAIN)]
-    kernels = [{
+    render = {
         "name": "render_sample",
         "route": "cuda",
         "source": "ptre_tpu_torch/csrc/render_kernel.cu",
@@ -316,11 +418,18 @@ def main():
         "max_abs_err": max(err_ext, err_philox),
         "ms": k_ms,
         "plain_ms": p_ms,
-    }]
-    kernels += gradient_phases(dev, card, rs)
+    }
+    grad_kernels, (sweeps, hits, per_sweep) = gradient_phases(dev, card, rs)
+    # one sample: the accumulator read and written; every live ray-bounce
+    # sweeps the scene, every hit shades (counted on the recording kernel's
+    # 1080p sample of the same scene: the render kernel's paths are alike)
+    kernels = [with_bound(render, 2 * W_MAIN * H_MAIN * 12, sweeps * per_sweep + hits * OPS_SHADE)]
+    kernels += grad_kernels
     kernels += wavefront_phases(dev, card, rs)
+    kernels += raster_phases(dev, card, rs)
 
     # ---- result --------------------------------------------------------------------
+    print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -334,7 +443,7 @@ def gradient_phases(dev, card, rs):
     import numpy as np
     import torch
 
-    from ptre_tpu.utils.config import RenderConfig
+    from ptre_tpu_torch.utils.config import RenderConfig
     from ptre_tpu_torch.models import demo
     from ptre_tpu_torch.ops import camera as cam_ops
     from ptre_tpu_torch.ops import path_replay, rng
@@ -456,23 +565,23 @@ def gradient_phases(dev, card, rs):
         del got, want, exact
 
     # kernel times at the main shape (CUDA events) and the plain versions'
-    def events(fn, reps):
-        fn()
-        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        e0.record()
-        for _ in range(reps):
-            fn()
-        e1.record()
-        torch.cuda.synchronize()
-        return e0.elapsed_time(e1) / reps
-
     sel_p, _ = recorded["philox"]
-    rec_ms = events(lambda: mk.trace_fused_sel(o, d, scene, k, B, GRAD_SEED, 0), 20)
-    bwd_ms = events(lambda: fg.fused_bwd(table, sky6, o, d, sel_p, dcol, k, B, T,
-                                         GRAD_SEED, 0), 10)
-    rec_plain_ms = events(lambda: mk.trace_record_reference(o, d, scene, k, B,
-                                                            GRAD_SEED, 0), 2)
-    bwd_plain_ms = events(lambda: fg.fused_bwd_reference(
+    # this sample's work: a ray sweeps the scene at bounce 0 and after every
+    # hit on a non-emissive surface; hits are the recorded rows
+    kind = pkt.mat_kind.long()
+    emissive = torch.cat([kind[pkt.tri_mat.long()] == 1, kind[pkt.sph_mat.long()] == 1])
+    hit = sel_p >= 0
+    go_on = hit & ~emissive[sel_p.clamp(min=0).long()]
+    sweeps, hits = R + int(go_on[:-1].sum()), int(hit.sum())
+    per_sweep = int(pkt.num_triangles) * OPS_TRI_TEST + int(pkt.num_spheres) * OPS_SPH_TEST
+    print(f"  philox sample: {sweeps} ray-bounce sweeps ({sweeps / R:.3f} a ray), {hits} hits",
+          flush=True)
+    rec_ms = cuda_events(lambda: mk.trace_fused_sel(o, d, scene, k, B, GRAD_SEED, 0), 20)
+    bwd_ms = cuda_events(lambda: fg.fused_bwd(table, sky6, o, d, sel_p, dcol, k, B, T,
+                                              GRAD_SEED, 0), 10)
+    rec_plain_ms = cuda_events(lambda: mk.trace_record_reference(o, d, scene, k, B,
+                                                                 GRAD_SEED, 0), 2)
+    bwd_plain_ms = cuda_events(lambda: fg.fused_bwd_reference(
         table, sky6, o, d, sel_p, dcol, k, B, T, GRAD_SEED, 0), 2)
     print(f"  record kernel {rec_ms:.4f} ms, plain {rec_plain_ms:.3f} ms; backward "
           f"kernel {bwd_ms:.4f} ms, plain {bwd_plain_ms:.3f} ms (CUDA events, "
@@ -590,7 +699,10 @@ def gradient_phases(dev, card, rs):
           f"loss {float(l1):.6f} vs {float(l2):.6f}, worst excess over rtol "
           f"{worst:.2e} of the leaf's largest", flush=True)
 
-    return [{
+    # record: rays in (o, d), colour and B int32 selections out; backward:
+    # rays, selections and d(colour) in, d(o) and d(d) out, a chain and its
+    # adjoint per recorded hit (the small table and d(table) not counted)
+    return [with_bound({
         "name": "trace_record",
         "route": "cuda",
         "source": "ptre_tpu_torch/csrc/record_kernel.cu",
@@ -599,7 +711,7 @@ def gradient_phases(dev, card, rs):
         "max_abs_err": rec_err,
         "ms": rec_ms,
         "plain_ms": rec_plain_ms,
-    }, {
+    }, R * (24 + 12 + 4 * B), sweeps * per_sweep + hits * OPS_SHADE), with_bound({
         "name": "fused_bwd",
         "route": "cuda",
         "source": "ptre_tpu_torch/csrc/fused_grad_kernel.cu",
@@ -608,7 +720,7 @@ def gradient_phases(dev, card, rs):
         "max_abs_err": bwd_err,
         "ms": bwd_ms,
         "plain_ms": bwd_plain_ms,
-    }]
+    }, R * (24 + 4 * B + 12 + 24), hits * OPS_BWD_BOUNCE)], (sweeps, hits, per_sweep)
 
 
 # Wavefront kernels vs plain versions (phases 9-10). The slab test has no
@@ -630,7 +742,7 @@ def wavefront_phases(dev, card, rs):
     import numpy as np
     import torch
 
-    from ptre_tpu.utils.config import RenderConfig
+    from ptre_tpu_torch.utils.config import RenderConfig
     from ptre_tpu_torch.models import demo
     from ptre_tpu_torch.ops import camera as cam_ops
     from ptre_tpu_torch.ops import rng
@@ -639,16 +751,6 @@ def wavefront_phases(dev, card, rs):
     from ptre_tpu_torch.ops.cuda import wavefront as wf
     from ptre_tpu_torch.ops.integrator import postprocess_sample
     from ptre_tpu_torch.render import pathtracer as pt
-
-    def events(fn, reps):
-        fn()
-        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        e0.record()
-        for _ in range(reps):
-            fn()
-        e1.record()
-        torch.cuda.synchronize()
-        return e0.elapsed_time(e1) / reps
 
     B = 5
     setups, times = {}, {}
@@ -686,8 +788,9 @@ def wavefront_phases(dev, card, rs):
               f"leaf) pairs {100 * float(got.float().mean()):.3f} % at bounce 1 "
               f"(screen binning at bounce 0: {100 * share0:.3f} %)", flush=True)
         check(n_diff == 0, f"{name}: {n_diff} mask verdicts differ from the plain version")
-        mask_ms = events(lambda: wf.wave_mask(state1, scene.boxes, k.t_min), 20)
-        mask_plain_ms = events(lambda: wf.wave_mask_reference(state1, scene.boxes, k.t_min), 1)
+        mask_ms = cuda_events(lambda: wf.wave_mask(state1, scene.boxes, k.t_min), 20)
+        mask_plain_ms = cuda_events(
+            lambda: wf.wave_mask_reference(state1, scene.boxes, k.t_min), 1)
 
         print(f"phase 10: bounce kernel vs plain, {name} at {W}x{H}, same state and "
               "shortlists", flush=True)
@@ -713,14 +816,29 @@ def wavefront_phases(dev, card, rs):
             check(tight >= TIGHT_FRAC, f"{name} {mode}: only {tight:.6f} within {TIGHT}")
             check(int(flip.sum()) <= allowed, f"{name} {mode}: {int(flip.sum())} flipped")
             check(torch.equal(bk[:, dead], state1[:, dead]), f"{name} {mode}: dead rays changed")
-        bounce_ms = events(lambda: wf.wave_bounce(state1, ids1, short, cnt, scene, k, 1,
-                                                  WAVE_SEED, 1), 10)
-        bounce_plain_ms = events(lambda: wf.wave_bounce_reference(
+        bounce_ms = cuda_events(lambda: wf.wave_bounce(state1, ids1, short, cnt, scene, k, 1,
+                                                       WAVE_SEED, 1), 10)
+        bounce_plain_ms = cuda_events(lambda: wf.wave_bounce_reference(
             state1, ids1, short, cnt, scene, k, 1, WAVE_SEED, 1), 1)
         print(f"  mask kernel {mask_ms:.4f} ms, plain {mask_plain_ms:.3f} ms; bounce kernel "
               f"{bounce_ms:.4f} ms, plain {bounce_plain_ms:.3f} ms (CUDA events, bounce 1, "
               f"{name} {W}x{H}) [{card}]", flush=True)
-        times[name] = (mask_ms, mask_plain_ms, bounce_ms, bounce_plain_ms)
+        # this state's work: live rays x leaves for the mask; per block its
+        # live rays x its listed leaves x 64 rows for the bounce, then the
+        # spheres and the shading per live ray
+        live = state1[9] > 0.5
+        n_live = int(live.sum())
+        lb = live.view(-1, wf.LANES).sum(dim=1)
+        pairs = int((lb * cnt).sum()) * wf.LEAF
+        r_pad = state1.shape[1]
+        work = {
+            "mask": (r_pad * 40 + got.numel() + scene.boxes.numel() * 4,
+                     n_live * scene.n_leaf * OPS_SLAB),
+            "bounce": (r_pad * (80 + 4) + short.numel() * 4 + cnt.numel() * 4,
+                       pairs * OPS_TRI_TEST
+                       + n_live * (int(pkt.num_spheres) * OPS_SPH_TEST + OPS_SHADE)),
+        }
+        times[name] = (mask_ms, mask_plain_ms, bounce_ms, bounce_plain_ms, work)
 
         # the whole trace, kernels vs plain versions, same Philox draws
         t0 = time.perf_counter()
@@ -817,8 +935,8 @@ def wavefront_phases(dev, card, rs):
     print(f"  config 3 {cam.width}x{cam.height}, one sample's trace: kernels {1e3 * dt:.3f} ms, plain "
           f"{1e3 * dt_plain:.1f} ms (host clock) [{card}]", flush=True)
 
-    mask_ms, mask_plain_ms, bounce_ms, bounce_plain_ms = times["config 4"]
-    return [{
+    mask_ms, mask_plain_ms, bounce_ms, bounce_plain_ms, work = times["config 4"]
+    return [with_bound({
         "name": "wave_mask",
         "route": "cuda",
         "source": "ptre_tpu_torch/csrc/mask_kernel.cu",
@@ -827,7 +945,7 @@ def wavefront_phases(dev, card, rs):
         "max_abs_err": mask_err,
         "ms": mask_ms,
         "plain_ms": mask_plain_ms,
-    }, {
+    }, *work["mask"]), with_bound({
         "name": "wave_bounce",
         "route": "cuda",
         "source": "ptre_tpu_torch/csrc/wave_kernel.cu",
@@ -836,7 +954,396 @@ def wavefront_phases(dev, card, rs):
         "max_abs_err": bounce_err,
         "ms": bounce_ms,
         "plain_ms": bounce_plain_ms,
-    }]
+    }, *work["bounce"])]
+
+
+
+
+# Raster kernels vs plain versions (phases 12-14). Coverage, z and the hard
+# shading are never contracted (raster.cuh), so the hard image must equal the
+# plain version's bit for bit; a sample that differs counts as an edge flip,
+# allowed on at most FLIP_FRAC of the samples. The soft unit is built without
+# FMA contraction, but a group is summed in another order and the
+# stable sigmoid takes its other branch for negative arguments: the soft
+# image within SOFT_ATOL (tests/test_dual_pipeline.py's kernel-vs-XLA bound)
+# and the residuals' content (coverage share W/D, colour N/D) within it, the
+# max logit m equal on >= TIGHT_FRAC of the samples. d(table) is summed by
+# float atomics in no fixed order: within DTAB_REL relative L2 of the plain
+# version, and d(transforms), d(camera position) within GRAD_REL. The column
+# groups of d(table) (soft_raster.GRAD_GROUPS) span norms from ~1e-15 (1/w,
+# whose exact gradient is zero: the normal is normalised) to ~1e4, and the
+# inverse squared edge lengths of sliver triangles are ill-conditioned in
+# float32, so each group is held on its own against the plain version in
+# float64 on the same inputs: no further from it than DTAB_FACTOR times the
+# plain float32 version, or DTAB_REL of the group's norm.
+SOFT_ATOL, DTAB_REL, GRAD_REL, DTAB_FACTOR = 3e-5, 1e-4, 1e-3, 2.0
+RASTER_W, RASTER_H, RASTER_SS, SIGMA = 1280, 720, 2, 0.5
+FRAMES_K = 4
+
+
+def read_ppm(path):
+    """(H, W, 3) uint8 of a binary P6 PPM as tests/goldens holds them."""
+    import numpy as np
+
+    with open(path, "rb") as f:
+        magic, dims, maxval, data = f.read().split(b"\n", 3)
+    w, h = (int(v) for v in dims.split())
+    if magic != b"P6" or int(maxval) != 255:
+        raise SmokeFailure(f"{path}: not a P6 PPM")
+    return np.frombuffer(data, np.uint8).reshape(h, w, 3)
+
+
+def box_pairs(tris, ys, width_ss, grow=0.0):
+    """The (sample, row) pairs of the kept rows whose sample lies inside the
+    row's own screen box (cols 23-26) grown by ``grow`` on every side: the
+    pairs that can cover (hard), or reach the coverage threshold (soft,
+    grown by 14 sigma). The work these inputs need, for the bound."""
+    import torch
+
+    keep = tris[:, 12] > 0.5
+    b = tris[keep][:, 23:27].double()
+    lo = torch.clamp(torch.ceil(b[:, 0] - grow - 0.5), min=0)  # column c samples x = c + 0.5
+    hi = torch.clamp(torch.floor(b[:, 1] + grow - 0.5), max=width_ss - 1)
+    ysd = ys.double().contiguous()
+    ny = (torch.searchsorted(ysd, (b[:, 3] + grow).contiguous(), right=True)
+          - torch.searchsorted(ysd, (b[:, 2] - grow).contiguous())).clamp(min=0)
+    return int((torch.clamp(hi - lo + 1, min=0) * ny).sum())
+
+
+def included_pairs(tris, cbox, scal, rows_ss, width_ss, ss):
+    """The soft pairs above the coverage threshold: the pairs whose adjoint
+    the backward kernel runs (the plain backward's first pass)."""
+    import torch
+
+    from ptre_tpu_torch.ops.cuda import raster_kernel as rast
+    from ptre_tpu_torch.ops.cuda import soft_raster as sr
+
+    s = [float(v) for v in scal.tolist()]
+    ys = rast.sample_ys(rows_ss, ss, s[13], s[14], tris.device)
+    xs = torch.arange(width_ss, device=tris.device, dtype=torch.float32) + 0.5
+    n = 0
+    with torch.no_grad():
+        for k, r0, r1, c0, c1 in rast.chunk_windows(cbox, ys, width_ss):
+            blk = tris[k * rast.CHUNK:(k + 1) * rast.CHUNK]
+            for a, b in rast.slabs(r0, r1, c1 - c0, rast.CHUNK):
+                cov = sr.pair_terms(blk, xs[None, c0:c1, None], ys[a:b, None, None], s)[0]
+                n += int((cov > sr.COV_MIN).sum())
+    return n
+
+
+def raster_phases(dev, card, rs):
+    """Phases 12-14: the hard raster, SoftRas forward and SoftRas backward
+    kernels against their plain versions, then the rasterizer's serving and
+    training main paths at 1280x720 ss 2. Returns the three kernels' entries
+    of the ``kernels`` line."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from ptre_tpu_torch.models import demo
+    from ptre_tpu_torch.models.scene import Scene
+    from ptre_tpu_torch.ops import camera as cam_ops
+    from ptre_tpu_torch.ops.cuda import raster_kernel as rast
+    from ptre_tpu_torch.ops.cuda import soft_raster as sr
+    from ptre_tpu_torch.parallel import sharding as sh
+    from ptre_tpu_torch.render import rasterizer as ras
+    from ptre_tpu_torch.render import train
+    from ptre_tpu_torch.utils.config import RasterConfig
+
+    W, H, ss = RASTER_W, RASTER_H, RASTER_SS
+    Hs, Ws = H * ss, W * ss
+    n_samples = Hs * Ws
+    cfg = RasterConfig(width=W, height=H, supersample=ss)
+    cam = cam_ops.Camera.create(width=W, height=H)
+    pkt = demo.reference_demo_scene(32, 16).build_packet(spheres_as_triangles=True).to(dev)
+    with torch.no_grad():
+        tris, cbox = rast.pack_raster_tris(pkt, cam, cfg)
+        soft_tris, _ = sr._soft_cols(pkt, cam, cfg)
+    n_live = int((tris[:, 12] > 0.5).sum())
+    print(f"phase 12: hard raster kernel vs plain, demo scene ({pkt.num_triangles} triangles, "
+          f"{n_live} kept, {cbox.shape[0]} chunks of 64) at {W}x{H} ss {ss} "
+          f"({Ws}x{Hs} samples)", flush=True)
+    scal = rast.raster_scalars(cfg)
+    got = rast.raster_tiles(tris, cbox, scal, Hs, Ws, ss)
+    want = rast.raster_reference(tris, cbox, scal, Hs, Ws, ss)
+    torch.cuda.synchronize()
+    ys = rast.sample_ys(Hs, ss, 0.0, 1.0, dev)
+    hard_visits = rast.visited_pairs(cbox, Hs, Ws, ss)
+    hard_pairs = box_pairs(tris, ys, Ws)
+    swept = hard_visits * rast.TILE * rast.TILE * rast.CHUNK
+    flips = int((got != want).any(dim=0).sum())
+    hard_err = float((got - want).abs().max())
+    allowed = math.ceil(FLIP_FRAC * n_samples)
+    n_blocks = -(-Hs // rast.TILE) * -(-Ws // rast.TILE)
+    print(f"  max_abs_err {hard_err:.3e}; {flips} samples differ (edge flips allowed: "
+          f"{allowed}); visited (block, chunk) pairs {hard_visits} of "
+          f"{n_blocks * int((cbox[:, 4] > 0.5).sum())} (blocks x live chunks): {swept} "
+          f"(sample, row) pairs swept, {hard_pairs} of them ({100 * hard_pairs / swept:.2f} %) "
+          "with the sample inside the row's box", flush=True)
+    check(bool(torch.isfinite(got).all()), "hard kernel: non-finite image")
+    check(flips <= allowed, f"hard kernel: {flips} samples differ from the plain version")
+    geo = float((got - scal[9:12].to(dev)[:, None, None]).abs().amax(dim=0).gt(1e-3).float().mean())
+    check(0.05 < geo < 0.95, f"hard kernel: {100 * geo:.1f} % of the samples show geometry")
+
+    # ragged size + strided window, then an empty scene, against the plain versions
+    for (Wr, Hr, ssr, y0, rows, stride) in ((999, 537, 2, 5.0, 150, 3), (333, 200, 3, 0.0, 200, 1)):
+        cfg_r = RasterConfig(width=Wr, height=Hr, supersample=ssr)
+        cam_r = cam_ops.Camera.create(width=Wr, height=Hr)
+        with torch.no_grad():
+            t_r, b_r = rast.pack_raster_tris(pkt, cam_r, cfg_r)
+        sc_r = rast.raster_scalars(cfg_r, 0.0, y0, stride)
+        g_r = rast.raster_tiles(t_r, b_r, sc_r, rows * ssr, Wr * ssr, ssr)
+        w_r = rast.raster_reference(t_r, b_r, sc_r, rows * ssr, Wr * ssr, ssr)
+        torch.cuda.synchronize()
+        n_diff = int((g_r != w_r).any(dim=0).sum())
+        print(f"  {Wr}x{Hr} ss {ssr}, rows y0={y0:g} stride {stride} x {rows}: {n_diff} samples "
+              "differ", flush=True)
+        check(n_diff <= math.ceil(FLIP_FRAC * g_r[0].numel()), f"{Wr}x{Hr}: {n_diff} differ")
+    empty = Scene().build_packet(spheres_as_triangles=True).to(dev)
+    for soft in (False, True):
+        with torch.no_grad():
+            e_img = ras.rasterize(empty, cam, cfg, soft=soft)
+        e_err = float((e_img - torch.tensor(cfg.clear_color, device=dev)).abs().max())
+        check(e_err <= 1e-7, f"empty scene (soft={soft}): {e_err} off the clear colour")
+    print("  empty scene: the clear colour everywhere (hard and soft)", flush=True)
+    # the repo's golden: demo scene (16, 8) at 64x36 ss 2 (scripts/make_goldens.py)
+    golden = read_ppm(os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                                   "goldens", "demo_raster.ppm")).astype(np.int16)
+    g_pkt = demo.reference_demo_scene(16, 8).build_packet(spheres_as_triangles=True).to(dev)
+    with torch.no_grad():
+        g_img = ras.rasterize(g_pkt, cam_ops.Camera.create(width=64, height=36),
+                              RasterConfig(width=64, height=36, supersample=2))
+    g_u8 = (g_img.clamp(0, 1) * 255).to(torch.uint8).cpu().numpy().astype(np.int16)
+    gd = np.abs(g_u8 - golden)
+    print(f"  demo_raster.ppm: {100 * (gd <= 2).mean():.2f} % within 2 steps, max {gd.max()}",
+          flush=True)
+    check((gd <= 2).mean() >= DISPLAY_FRAC and gd.max() <= DISPLAY_MAX,
+          "the kernel's image is outside the golden bound")
+
+    hard_ms = cuda_events(lambda: rast.raster_tiles(tris, cbox, scal, Hs, Ws, ss), 20)
+    hard_plain_ms = cuda_events(lambda: rast.raster_reference(tris, cbox, scal, Hs, Ws, ss), 1)
+    print(f"  hard kernel {hard_ms:.4f} ms, plain {hard_plain_ms:.3f} ms (CUDA events, "
+          f"{Ws}x{Hs} samples) [{card}]", flush=True)
+
+    # ---- the serving main path: rasterize, rasterize_frames ----------------------------
+    print(f"phase 12: main path rasterize {W}x{H} ss {ss}, 1 + {STEPS} frames; "
+          f"rasterize_frames K = {FRAMES_K}", flush=True)
+    rast.launches = 0
+    with torch.no_grad():
+        img = ras.rasterize(pkt, cam, cfg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(STEPS):
+            img = ras.rasterize(pkt, cam, cfg)
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / STEPS
+        frame_launches = rast.launches
+        check(frame_launches == STEPS + 1, f"rasterize: {frame_launches} kernel launches for "
+              f"{STEPS + 1} frames")
+        check(img.shape == (H, W, 3) and bool(torch.isfinite(img).all()), "rasterize: image")
+        frames = pkt.transforms[None].repeat(FRAMES_K, 1, 1, 1).clone()
+        frames[:, :, 3, 1] += torch.linspace(0.0, 0.3, FRAMES_K, device=dev)[:, None]
+        rast.launches = 0
+        t0 = time.perf_counter()
+        imgs = ras.rasterize_frames(pkt, cam, frames, cfg)
+        torch.cuda.synchronize()
+        dt_k = (time.perf_counter() - t0) / FRAMES_K
+        frames_launches = rast.launches
+        check(frames_launches == FRAMES_K, f"rasterize_frames: {frames_launches} launches")
+        check(torch.equal(imgs[0], img) and torch.equal(imgs[-1], ras.rasterize(
+            dataclasses.replace(pkt, transforms=frames[-1]), cam, cfg)),
+            "rasterize_frames differs from per-frame rasterize")
+        check(not torch.equal(imgs[0], imgs[-1]), "rasterize_frames: the frames do not move")
+    print(f"  rasterize: {dt * 1e3:.3f} ms/frame, {W * H / dt / 1e6:.2f} Mpixels/s (host clock); "
+          f"rasterize_frames: {dt_k * 1e3:.3f} ms/frame; launches {frame_launches} and "
+          f"{frames_launches} [{card}]", flush=True)
+
+    # ---- 13. the soft forward kernel vs its plain version -----------------------------
+    print(f"phase 13: SoftRas forward kernel vs plain, {Ws}x{Hs} samples, sigma {SIGMA}",
+          flush=True)
+    dbox = sr.dilate(cbox, SIGMA)
+    sscal = rast.raster_scalars(cfg, 1.0 / SIGMA)
+    s_img, s_res = sr.soft_forward(soft_tris, dbox, sscal, Hs, Ws, ss)
+    w_img, w_res = sr.soft_forward_reference(soft_tris, dbox, sscal, Hs, Ws, ss)
+    torch.cuda.synchronize()
+    soft_visits = rast.visited_pairs(dbox, Hs, Ws, ss)
+    soft_pairs = box_pairs(soft_tris, ys, Ws, sr.DILATE_SIGMA * SIGMA)
+    fwd_err = float((s_img - w_img).abs().max())
+    live = w_res[1] > 0
+    check(torch.equal(s_res[1] > 0, live), "soft forward: other samples reached by geometry")
+    share_err = 0.0
+    for k in (2, 3, 4, 5):
+        a = torch.where(live, s_res[k] / s_res[1].clamp_min(1e-30), 0.0)
+        b = torch.where(live, w_res[k] / w_res[1].clamp_min(1e-30), 0.0)
+        share_err = max(share_err, float((a - b).abs().max()))
+    m_equal = float((s_res[0] == w_res[0]).float().mean())
+    print(f"  image max_abs_err {fwd_err:.3e}; W/D, N/D max_abs_err {share_err:.3e}; max logit "
+          f"equal on {100 * m_equal:.4f} % of the samples; {100 * float(live.float().mean()):.2f} % "
+          f"of the samples reached; visited (block, chunk) pairs {soft_visits}: "
+          f"{soft_visits * rast.TILE * rast.TILE * rast.CHUNK} (sample, row) pairs swept, "
+          f"{soft_pairs} with the sample inside the row's dilated box", flush=True)
+    check(bool(torch.isfinite(s_img).all() and torch.isfinite(s_res).all()),
+          "soft forward: non-finite output")
+    check(fwd_err <= SOFT_ATOL and share_err <= SOFT_ATOL, "soft forward differs")
+    check(m_equal >= TIGHT_FRAC, f"soft forward: max logit equal on only {m_equal:.6f}")
+    fwd_ms = cuda_events(lambda: sr.soft_forward(soft_tris, dbox, sscal, Hs, Ws, ss), 10)
+    fwd_plain_ms = cuda_events(
+        lambda: sr.soft_forward_reference(soft_tris, dbox, sscal, Hs, Ws, ss), 1)
+    print(f"  forward kernel {fwd_ms:.4f} ms, plain {fwd_plain_ms:.3f} ms (CUDA events) "
+          f"[{card}]", flush=True)
+
+    # ---- 14. the soft backward kernel vs its plain version ---------------------------
+    print("phase 14: SoftRas backward kernel vs plain, same table, residuals and a random "
+          "image cotangent", flush=True)
+    dimg = torch.from_numpy(rs.standard_normal((3, Hs, Ws), dtype=np.float32)).to(dev)
+    got_d = sr.soft_backward(soft_tris, dbox, sscal, w_res, dimg, Hs, Ws, ss)
+    want_d = sr.soft_backward_reference(soft_tris, dbox, sscal, w_res, dimg, Hs, Ws, ss)
+    torch.cuda.synchronize()
+    exact = sr.soft_backward_reference(soft_tris.double(), dbox, sscal, w_res.double(),
+                                       dimg.double(), Hs, Ws, ss)
+    dtab_rel = float((got_d - want_d).norm() / want_d.norm())
+    bwd_err = float((got_d - want_d).abs().max())
+    print(f"  d(table): relative L2 {dtab_rel:.3e}, max_abs_err {bwd_err:.3e} (largest "
+          f"{float(want_d.abs().max()):.3e})", flush=True)
+    check(bool(torch.isfinite(got_d).all()), "soft backward: non-finite d(table)")
+    check(dtab_rel <= DTAB_REL, f"soft backward: d(table) relative L2 {dtab_rel}")
+    groups = {}
+    for group, c in sr.GRAD_GROUPS.items():
+        norm = float(exact[:, c].norm())
+        groups[group] = (float((got_d.double() - exact)[:, c].norm()),
+                         float((want_d.double() - exact)[:, c].norm()), norm)
+    print("  d(table) by column group, L2 off float64 of kernel / plain float32 (float64 "
+          "norm): " + "; ".join(f"{g} {k:.3e} / {p:.3e} ({n:.3e})"
+                                for g, (k, p, n) in groups.items()), flush=True)
+    for group, (e_k, e_p, norm) in groups.items():
+        check(e_k <= max(DTAB_FACTOR * e_p, DTAB_REL * norm),
+              f"soft backward: d(table) {group} {e_k} off float64, plain float32 {e_p}")
+    del exact
+    n_inc = included_pairs(soft_tris, dbox, sscal, Hs, Ws, ss)
+    bwd_ms = cuda_events(lambda: sr.soft_backward(soft_tris, dbox, sscal, w_res, dimg, Hs, Ws,
+                                                  ss), 5)
+    bwd_plain_ms = cuda_events(lambda: sr.soft_backward_reference(
+        soft_tris, dbox, sscal, w_res, dimg, Hs, Ws, ss), 1)
+    print(f"  backward kernel {bwd_ms:.4f} ms, plain {bwd_plain_ms:.3f} ms (CUDA events); "
+          f"{n_inc} pairs above the coverage threshold [{card}]", flush=True)
+    del got_d, want_d, s_img, s_res, w_img, w_res, dimg
+
+    # the gradient w.r.t. transforms and camera: kernels vs plain versions
+    target = torch.zeros((H, W, 3), device=dev)
+    params = sh.differentiable_params(pkt, cam)
+
+    class PlainSoft(torch.autograd.Function):
+        """SoftRaster with the plain versions, on the card."""
+
+        @staticmethod
+        def forward(ctx, t, b, sc):
+            im, rs_ = sr.soft_forward_reference(t.detach(), b, sc, Hs, Ws, ss)
+            ctx.save_for_backward(t, b, sc, rs_)
+            return im
+
+        @staticmethod
+        def backward(ctx, g):
+            t, b, sc, rs_ = ctx.saved_tensors
+            return sr.soft_backward_reference(t.detach(), b, sc, rs_, g.contiguous(), Hs, Ws,
+                                              ss), None, None
+
+    def plain_step():
+        leaves = {k: params[k].detach().requires_grad_(True) for k in train.RASTER_PARAM_KEYS}
+        pk, cm = sh.apply_params({**params, **leaves}, pkt, cam)
+        cols, cb = sr._soft_cols(pk, cm, cfg)
+        im = rast.resolve(PlainSoft.apply(cols, sr.dilate(cb, SIGMA), sscal), H, W, ss)
+        loss = torch.mean((im - target) ** 2)
+        return loss.detach(), dict(zip(train.RASTER_PARAM_KEYS,
+                                       torch.autograd.grad(loss, list(leaves.values()))))
+
+    loss_k, grads_k = train.raster_mse_step(params, pkt, cam, target, cfg, SIGMA)
+    loss_p, grads_p = plain_step()
+    torch.cuda.synchronize()
+    check(abs(float(loss_k) - float(loss_p)) <= 1e-5 * float(loss_p),
+          f"raster_mse_step loss {float(loss_k)} vs plain {float(loss_p)}")
+    for key in ("transforms", "cam_position"):
+        rel = float((grads_k[key] - grads_p[key]).norm() / grads_p[key].norm())
+        print(f"  d({key}): relative L2 kernels-plain {rel:.3e}", flush=True)
+        check(rel <= GRAD_REL, f"raster_mse_step d({key}) relative L2 {rel}")
+
+    # ---- the training main path: raster_mse_step; the soft forward alone ---------------
+    print(f"phase 14: main path train.raster_mse_step {W}x{H} ss {ss}, 1 + {STEPS} steps; "
+          f"rasterize(soft=True) 1 + {STEPS} frames", flush=True)
+    sr.fwd_launches = sr.bwd_launches = 0
+    train.raster_mse_step(params, pkt, cam, target, cfg, SIGMA)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(STEPS):
+        loss, grads = train.raster_mse_step(params, pkt, cam, target, cfg, SIGMA)
+    torch.cuda.synchronize()
+    dt_step = (time.perf_counter() - t0) / STEPS
+    peak_step = torch.cuda.max_memory_allocated()
+    step_launches = (sr.fwd_launches, sr.bwd_launches)
+    check(step_launches == (STEPS + 1, STEPS + 1), f"raster_mse_step: launches {step_launches}")
+    check(math.isfinite(float(loss)) and all(bool(torch.isfinite(g).all())
+                                             for g in grads.values()),
+          "raster_mse_step: non-finite loss or gradient")
+    check(float(grads["transforms"].abs().max()) > 0 and
+          float(grads["cam_position"].abs().max()) > 0, "raster_mse_step: zero gradients")
+    sr.fwd_launches = 0
+    with torch.no_grad():
+        ras.rasterize(pkt, cam, cfg, soft=True, sigma=SIGMA)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(STEPS):
+            s_frame = ras.rasterize(pkt, cam, cfg, soft=True, sigma=SIGMA)
+        torch.cuda.synchronize()
+    dt_soft = (time.perf_counter() - t0) / STEPS
+    peak_soft = torch.cuda.max_memory_allocated()
+    check(sr.fwd_launches == STEPS + 1, f"rasterize(soft): {sr.fwd_launches} launches")
+    check(bool(torch.isfinite(s_frame).all()), "rasterize(soft): non-finite image")
+    print(f"  raster_mse_step: {dt_step * 1e3:.3f} ms/step (soft forward + backward, host "
+          f"clock), loss {float(loss):.6f}, peak {peak_step / 2**20:.1f} MiB; "
+          f"rasterize(soft=True): {dt_soft * 1e3:.3f} ms/frame, peak {peak_soft / 2**20:.1f} "
+          f"MiB; launches fwd {step_launches[0]}, bwd {step_launches[1]} and "
+          f"{sr.fwd_launches} [{card}]", flush=True)
+    with torch.no_grad():
+        device_share(lambda: ras.rasterize(pkt, cam, cfg), 8, "rasterize", card)
+    device_share(lambda: train.raster_mse_step(params, pkt, cam, target, cfg, SIGMA), 4,
+                 "raster_mse_step", card)
+
+    # the bounds count the pairs these inputs need (box_pairs, and for the
+    # adjoint the pairs above the coverage threshold), not the kernels' sweep
+    table_bytes = tris.numel() * 4 + cbox.numel() * 4
+    return [with_bound({
+        "name": "raster_hard",
+        "route": "cuda",
+        "source": "ptre_tpu_torch/csrc/raster_kernel.cu",
+        "replaces": "ptre_tpu/ops/pallas/raster_kernel.py:255",
+        "launches": frame_launches,
+        "max_abs_err": hard_err,
+        "ms": hard_ms,
+        "plain_ms": hard_plain_ms,
+    }, table_bytes + 3 * n_samples * 4,
+        hard_pairs * OPS_HARD_PAIR + n_samples * OPS_HARD_SAMPLE), with_bound({
+        "name": "soft_raster_fwd",
+        "route": "cuda",
+        "source": "ptre_tpu_torch/csrc/soft_raster_kernel.cu",
+        "replaces": "ptre_tpu/ops/pallas/soft_raster.py:144",
+        "launches": step_launches[0],
+        "max_abs_err": fwd_err,
+        "ms": fwd_ms,
+        "plain_ms": fwd_plain_ms,
+    }, table_bytes + (3 + sr.RES_PLANES) * n_samples * 4,
+        soft_pairs * OPS_SOFT_PAIR), with_bound({
+        "name": "soft_raster_bwd",
+        "route": "cuda",
+        "source": "ptre_tpu_torch/csrc/soft_raster_kernel.cu",
+        "replaces": "ptre_tpu/ops/pallas/soft_raster.py:251",
+        "launches": step_launches[1],
+        "max_abs_err": bwd_err,
+        "ms": bwd_ms,
+        "plain_ms": bwd_plain_ms,
+    }, 2 * table_bytes + (3 + sr.RES_PLANES) * n_samples * 4,
+        soft_pairs * OPS_SOFT_PAIR + n_inc * OPS_SOFT_ADJ)]
 
 
 if __name__ == "__main__":

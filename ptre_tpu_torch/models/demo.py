@@ -6,7 +6,7 @@ from __future__ import annotations
 
 import math
 
-from ptre_tpu.models import mesh as mesh_gen
+from ptre_tpu_torch.models import mesh as mesh_gen
 from ptre_tpu_torch.models.scene import Model, Scene
 
 

@@ -5,7 +5,9 @@ numpy graph (name → mesh and name → model maps, models walked sorted by mesh
 name with insertion-order tie-break, a ``modified`` flag). ``ScenePacket`` is
 a dataclass of tensors with the reference packet's leaves, padding
 (``tri_pad`` 128, ``sph_pad`` 8, pad radius 1) and static counts, so both
-packages build bit-identical geometry from one scene description.
+packages build bit-identical geometry from one scene description. Meshes
+are the port's own (`ptre_tpu_torch/models/mesh.py`, a numpy copy of the
+reference generators), and errors the port's `SceneError`.
 
 Sphere models ignore rotation and non-uniform scale: radius = scale.x and
 center = translation (`scene.cu:176-177`).
@@ -21,8 +23,8 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ptre_tpu.models.mesh import Mesh, MeshType
-from ptre_tpu.utils.errors import SceneError
+from ptre_tpu_torch.models.mesh import Mesh, MeshType
+from ptre_tpu_torch.utils.errors import SceneError
 from ptre_tpu_torch.ops import vecmat as vm
 
 

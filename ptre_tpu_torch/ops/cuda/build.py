@@ -21,7 +21,7 @@ import shutil
 import subprocess
 import time
 
-from ptre_tpu.utils.errors import RendererError
+from ptre_tpu_torch.utils.errors import RendererError
 
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
@@ -31,9 +31,16 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas=-v")
 #: the kernel translation units, each compiled by its own nvcc process
 KERNEL_UNITS = ("render_kernel.cu", "record_kernel.cu", "fused_grad_kernel.cu",
-                "mask_kernel.cu", "wave_kernel.cu")
+                "mask_kernel.cu", "wave_kernel.cu", "raster_kernel.cu",
+                "soft_raster_kernel.cu")
 #: every source the library is built from: the units and their headers
-SOURCES = KERNEL_UNITS + ("trace.cuh", "philox.cuh", "replay.cuh", "wave.cuh")
+SOURCES = KERNEL_UNITS + ("trace.cuh", "philox.cuh", "replay.cuh", "wave.cuh",
+                          "raster.cuh")
+#: flags of single units on top of NVCC_FLAGS. The SoftRas pair terms are
+#: built without FMA contraction: a contracted edge distance or barycentric
+#: moves a near-degenerate triangle's d(inverse squared edge length) by far
+#: more than float rounding, against the plain version's separate roundings.
+UNIT_FLAGS = {"soft_raster_kernel.cu": ("-fmad=false",)}
 
 #: (seconds, ptxas report) of the build this process ran, or None if the
 #: library was already built
@@ -60,7 +67,7 @@ def find_nvcc() -> str:
 
 
 def _source_hash() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256((" ".join(NVCC_FLAGS) + repr(sorted(UNIT_FLAGS.items()))).encode())
     for name in SOURCES:
         with open(os.path.join(CSRC_DIR, name), "rb") as f:
             h.update(name.encode() + b"\0" + f.read())
@@ -72,7 +79,7 @@ def _compile_all(nvcc: str, tmp_dir: str):
     together; returns the concatenated ptxas reports."""
     procs = []
     for unit in KERNEL_UNITS:
-        cmd = [nvcc, *NVCC_FLAGS, "-I", CSRC_DIR, "-c", "-o",
+        cmd = [nvcc, *NVCC_FLAGS, *UNIT_FLAGS.get(unit, ()), "-I", CSRC_DIR, "-c", "-o",
                os.path.join(tmp_dir, unit + ".o"), os.path.join(CSRC_DIR, unit)]
         procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                             stderr=subprocess.PIPE, text=True)))
@@ -131,6 +138,15 @@ def load_library() -> ctypes.CDLL:
     # (params, state, ids, shortlist, counts, tris, sphs, mats, sky, urand, out,
     #  lanes, stream)
     lib.ptre_wave_bounce.argtypes = [ptr] * 11 + [ctypes.c_int, ptr]
+    lib.ptre_raster_hard.restype = ctypes.c_int
+    # (params, tris, cbox, out, stream)
+    lib.ptre_raster_hard.argtypes = [ptr] * 5
+    lib.ptre_soft_fwd.restype = ctypes.c_int
+    # (params, tris, cbox, img, res, stream)
+    lib.ptre_soft_fwd.argtypes = [ptr] * 6
+    lib.ptre_soft_bwd.restype = ctypes.c_int
+    # (params, tris, cbox, res, dimg, dtab, stream)
+    lib.ptre_soft_bwd.argtypes = [ptr] * 7
     lib.ptre_cuda_error_string.restype = ctypes.c_char_p
     lib.ptre_cuda_error_string.argtypes = [ctypes.c_int]
     return lib

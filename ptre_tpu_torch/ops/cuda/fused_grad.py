@@ -35,7 +35,7 @@ from typing import Optional
 
 import torch
 
-from ptre_tpu.utils.errors import RendererError
+from ptre_tpu_torch.utils.errors import RendererError
 from ptre_tpu_torch.ops import path_replay
 from ptre_tpu_torch.ops.cuda import build
 from ptre_tpu_torch.ops.cuda import megakernel as mk

@@ -33,7 +33,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from ptre_tpu.utils.errors import RendererError
+from ptre_tpu_torch.utils.errors import RendererError
 from ptre_tpu_torch.ops import rng
 from ptre_tpu_torch.ops.cuda import build
 

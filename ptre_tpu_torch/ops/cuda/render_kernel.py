@@ -28,7 +28,7 @@ import ctypes
 import numpy as np
 import torch
 
-from ptre_tpu.utils.errors import RendererError
+from ptre_tpu_torch.utils.errors import RendererError
 from ptre_tpu_torch.ops import rng
 from ptre_tpu_torch.ops import vecmat as vm
 from ptre_tpu_torch.ops.camera import PERSPECTIVE

@@ -48,7 +48,7 @@ import dataclasses
 
 import torch
 
-from ptre_tpu.utils.errors import RendererError
+from ptre_tpu_torch.utils.errors import RendererError
 from ptre_tpu_torch.ops import rng
 from ptre_tpu_torch.ops import vecmat as vm
 from ptre_tpu_torch.ops.cuda import build

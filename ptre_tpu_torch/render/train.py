@@ -17,6 +17,9 @@ mean image M = (1/S) sum_s I_s over S samples per pixel:
   The exact gradient: dM/dI_s = 1/S does not depend on s, so the cotangent
   factors out of the sum (validated against `mse_step`).
 
+`raster_mse_step` is the rasterizer's counterpart: the image MSE of the
+SoftRas path, one launch each of its forward and backward kernels.
+
 On CUDA tensors every sample is one launch of the recording kernel and one
 of the fused backward kernel (`ops/cuda/fused_grad`); on CPU tensors their
 plain versions run. Random numbers: per sample s, the port's Philox keyed by
@@ -39,6 +42,7 @@ from ptre_tpu_torch.ops import camera as cam_ops
 from ptre_tpu_torch.ops import integrator, rng
 from ptre_tpu_torch.parallel import sharding as sh
 from ptre_tpu_torch.render import pathtracer as pt
+from ptre_tpu_torch.render import rasterizer
 
 
 def sample_color(params, packet, cam, config, seed: int, sample: int,
@@ -125,3 +129,24 @@ def two_pass_mse_step(params, packet, cam, target, config, seed: int,
         g = _grad_dict(part, leaves)
         grads = g if grads is None else {k: grads[k] + g[k] for k in grads}
     return loss, grads
+
+
+#: the parameters the rasterizer reads: the drawcall transforms and the camera
+RASTER_PARAM_KEYS = ("transforms", "cam_position", "cam_forward", "cam_fov")
+
+
+def raster_mse_step(params, raster_packet, cam, target, raster_config, sigma: float = 0.5):
+    """(loss, grads) of the soft rasterizer's image MSE,
+    mean((rasterize(soft=True) - target)^2), with ``target`` (H, W, 3): the
+    raster term of the reference's ``dual_train_step``
+    (`ptre_tpu/parallel/sharding.py:377-445`) on one device. ``params``
+    (`sharding.differentiable_params`) override the raster packet's
+    transforms (it shares them with the path-traced packet) and the camera;
+    ``grads`` holds the RASTER_PARAM_KEYS. On CUDA tensors one launch each
+    of the soft forward and backward kernels."""
+    leaves = {k: params[k].detach().requires_grad_(True) for k in RASTER_PARAM_KEYS}
+    pkt, cm = sh.apply_params({**params, **leaves}, raster_packet, cam)
+    img = rasterizer.rasterize(pkt, cm, raster_config, soft=True, sigma=sigma)
+    loss = torch.mean((img - target) ** 2)
+    grads = torch.autograd.grad(loss, list(leaves.values()))
+    return loss.detach(), dict(zip(RASTER_PARAM_KEYS, grads))

@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-from ptre_tpu.utils.errors import RendererError
+from ptre_tpu_torch.utils.errors import RendererError
 
 
 def require_cuda() -> torch.device:

@@ -1,22 +1,27 @@
 """Carry the JAX package's state across into the port.
 
-The JAX package's pytrees (ScenePacket, Camera, AccumState, the
+The JAX package's pytrees (ScenePacket — path-traced or raster, the latter
+built with ``spheres_as_triangles=True`` — Camera, AccumState, the
 differentiable parameters) cross as numpy arrays — ``np.asarray`` on each
-leaf — so both packages render the same scene, from the same pose, onto the
-same history, and differentiate the same parameters. Nothing here imports
-jax.
+leaf — and its frozen configs (RenderConfig, RasterConfig) field by field,
+so both packages render the same scene, from the same pose, onto the same
+history, with the same settings, and differentiate the same parameters.
+Nothing here imports jax or the JAX package: its objects are read by their
+field names.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict
 
 import numpy as np
 import torch
 
-from ptre_tpu_torch.models.scene import ScenePacket
+from ptre_tpu_torch.models.scene import PACKET_COUNTS, PACKET_LEAVES, ScenePacket
 from ptre_tpu_torch.ops.camera import Camera
 from ptre_tpu_torch.render.pathtracer import AccumState
+from ptre_tpu_torch.utils.config import RasterConfig, RenderConfig
 
 
 def packet_from_numpy(arrays: Dict[str, np.ndarray], counts: Dict[str, int],
@@ -26,6 +31,21 @@ def packet_from_numpy(arrays: Dict[str, np.ndarray], counts: Dict[str, int],
     ``num_spheres``, ``num_drawcalls``, ``num_materials``)."""
     pkt = ScenePacket.from_numpy(arrays, **counts)
     return pkt if device is None else pkt.to(device)
+
+
+def packet_from_reference(packet, device=None) -> ScenePacket:
+    """A ScenePacket from any packet object with the reference's leaves and
+    counts as attributes (the JAX package's ScenePacket, path-traced or
+    raster): ``np.asarray`` of each leaf, ``int`` of each count."""
+    return packet_from_numpy({k: np.asarray(getattr(packet, k)) for k in PACKET_LEAVES},
+                             {k: int(getattr(packet, k)) for k in PACKET_COUNTS}, device)
+
+
+def config_from_reference(config):
+    """The port's RenderConfig or RasterConfig with the fields of the
+    reference config of the same class name (the field sets are the same)."""
+    cls = {"RenderConfig": RenderConfig, "RasterConfig": RasterConfig}[type(config).__name__]
+    return cls(**{f.name: getattr(config, f.name) for f in dataclasses.fields(cls)})
 
 
 def camera_from_numpy(position, forward, fov_degrees, znear, zfar, width: int,

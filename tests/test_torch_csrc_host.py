@@ -1,12 +1,16 @@
 """The CUDA kernels' math, checked on the CPU.
 
-`csrc/trace.cuh`, `csrc/wave.cuh` and `csrc/philox.cuh` are written
-``__host__ __device__`` behind a macro, so `csrc/host_render.cpp` compiles the
-render kernel's per-pixel body with g++, and `csrc/host_wave.cpp` the mask and
-bounce kernels' per-ray bodies. Run over a 32x16 image the render body must
-agree with the plain PyTorch version (`sample_accum_reference`), in
-external-uniform and in Philox mode; the wavefront bodies with
-`wave_mask_reference` (equal verdicts) and `wave_bounce_reference`.
+`csrc/trace.cuh`, `csrc/wave.cuh`, `csrc/raster.cuh` and `csrc/philox.cuh`
+are written ``__host__ __device__`` behind a macro, so `csrc/host_render.cpp`
+compiles the render kernel's per-pixel body with g++, `csrc/host_wave.cpp`
+the mask and bounce kernels' per-ray bodies, and `csrc/host_raster.cpp` the
+rasterizer kernels' per-sample bodies and the SoftRas adjoint. Run over a
+32x16 image the render body must agree with the plain PyTorch version
+(`sample_accum_reference`), in external-uniform and in Philox mode; the
+wavefront bodies with `wave_mask_reference` (equal verdicts) and
+`wave_bounce_reference`; the raster bodies with the raster plain versions,
+and the adjoint with torch float64 autograd (1e-10, each test states its
+own tolerance).
 
 Tolerance 1e-5: g++ on x86-64 without -mfma does not contract a*b+c, so the
 arithmetic is the plain version's; only cos/sin come from other libraries
@@ -195,3 +199,212 @@ def test_host_wave_build_matches_plain_versions(wave_lib, name, external):
         perm = torch.argsort(wf.coherence_key(want, scene.scene_lo, scene.scene_hi),
                              stable=True)
         state, ids = want[:, perm].contiguous(), ids[perm].contiguous()
+
+
+# ---- the rasterizer kernels' per-sample code (csrc/raster.cuh) ----------------
+
+
+@pytest.fixture(scope="module")
+def raster_lib(tmp_path_factory):
+    lib = _build_host(tmp_path_factory, "host_raster.cpp")
+    ptr = ctypes.c_void_p
+    lib.ptre_soft_pair_host_d.restype = None
+    lib.ptre_soft_pair_host_d.argtypes = [ctypes.c_int] + [ptr] * 5
+    lib.ptre_soft_pair_adjoint_host_d.restype = None
+    lib.ptre_soft_pair_adjoint_host_d.argtypes = [ctypes.c_int] + [ptr] * 6
+    for name, n in (("ptre_raster_hard_host", 4), ("ptre_soft_fwd_host", 5),
+                    ("ptre_soft_bwd_host", 6)):
+        getattr(lib, name).restype = ctypes.c_longlong
+        getattr(lib, name).argtypes = [ptr] * n
+    return lib
+
+
+def _soft_rows(rs, n):
+    """(n, 32) float64 soft-table rows: random screen triangles (both
+    windings), depths, 1/w, normals * 1/w, keep flags, 1/area and inverse
+    squared edge lengths as pack_raster_tris / _soft_cols make them; and a
+    sample near each."""
+    rows = np.zeros((n, 32))
+    v = rs.uniform(0.0, 20.0, (n, 3, 2))
+    rows[:, 0:6] = v.reshape(n, 6)
+    rows[:, 6:9] = rs.uniform(-0.2, 1.2, (n, 3))
+    rows[:, 9:12] = rs.uniform(0.2, 2.0, (n, 3))
+    rows[:, 12] = rs.random(n) > 0.1
+    rows[:, 13:22] = rs.standard_normal((n, 9)) * np.repeat(rows[:, 9:12], 3, axis=1)
+    x, y = v[..., 0], v[..., 1]
+    area = (x[:, 1] - x[:, 0]) * (y[:, 2] - y[:, 0]) - (x[:, 2] - x[:, 0]) * (y[:, 1] - y[:, 0])
+    rows[:, 22] = 1.0 / area
+    for j, (a, b) in enumerate(((0, 1), (1, 2), (2, 0))):
+        rows[:, 27 + j] = 1.0 / ((x[:, b] - x[:, a]) ** 2 + (y[:, b] - y[:, a]) ** 2 + 1e-12)
+    px = v[:, :, 0].mean(1) + rs.uniform(-6.0, 6.0, n)
+    py = v[:, :, 1].mean(1) + rs.uniform(-6.0, 6.0, n)
+    return rows, px, py
+
+
+def _tie_rows():
+    """Rows whose samples sit exactly on the ties JAX splits in half: the
+    diffuse max(-(n.l), 0) at 0 (a normal with ny = 0 under the light
+    (0, -1, 0), like the demo cube's side faces), min(d01, min(d12, d20))
+    with two and three equal edge distances, the edge clip at t = 0 and
+    t = 1, and the depth clip at z = 0 and z = 1. Coordinates are small
+    dyadic numbers, so every tie is exact in float64."""
+    tri = np.array([0.0, 0.0, 0.0, 4.0, 4.0, 0.0])  # (0,0) (0,4) (4,0): CW, area 16
+    rows, pts = [], []
+    for (px, py), z, n in [
+        ((1.0, 1.0), (0.5, 0.5, 0.5), (1.0, 0.0, 0.0)),   # diffuse tie, inside
+        ((-2.0, 6.0), (0.5, 0.5, 0.5), (0.0, 1.0, 0.0)),  # past (0,4): d01 == d12
+        ((-2.0, -2.0), (0.5, 0.5, 0.5), (0.0, 1.0, 0.0)), # past (0,0): d01 == d20
+        ((-3.0, 0.0), (0.5, 0.5, 0.5), (0.0, -1.0, 0.0)), # edge 01's clip at t = 0
+        ((-3.0, 4.0), (0.5, 0.5, 0.5), (0.0, 1.0, 1.0)),  # edge 01's clip at t = 1
+        ((1.0, 1.0), (0.0, 0.0, 0.0), (0.0, 1.0, 0.0)),   # z = 0: logit clip tie
+        ((1.0, 1.0), (1.0, 1.0, 1.0), (0.0, 1.0, 0.0)),   # z = 1
+    ]:
+        r = np.zeros(32)
+        r[0:6] = tri
+        r[6:9] = z
+        r[9:12] = 1.0
+        r[12] = 1.0
+        r[13:22] = np.tile(n, 3)
+        r[22] = 1.0 / 16.0
+        r[27:30] = (1.0 / 16.0, 1.0 / 32.0, 1.0 / 16.0)
+        rows.append(r)
+        pts.append((px, py))
+    pts = np.array(pts)
+    return np.array(rows), pts[:, 0].copy(), pts[:, 1].copy()
+
+
+def test_host_soft_pair_adjoint_matches_float64_autograd(raster_lib):
+    """The hand adjoint of pair_terms (raster.cuh) in double against torch
+    float64 autograd of the plain `soft_raster.pair_terms` (written with
+    gradsafe's half-at-a-tie forms), random rows plus exact ties: 1e-10."""
+    from ptre_tpu_torch.ops.cuda import raster_kernel as rk
+    from ptre_tpu_torch.ops.cuda import soft_raster as sr
+    from ptre_tpu_torch.utils.config import RasterConfig
+
+    torch.set_num_threads(1)
+    rs = np.random.default_rng(17)
+    rows_r, px_r, py_r = _soft_rows(rs, 400)
+    rows_t, px_t, py_t = _tie_rows()
+    rows = np.ascontiguousarray(np.concatenate([rows_r, rows_t]))
+    px, py = np.concatenate([px_r, px_t]), np.concatenate([py_r, py_t])
+    n = rows.shape[0]
+    scal = rk.raster_scalars(RasterConfig(), 1.0 / 0.7).numpy()
+    gout = rs.standard_normal((n, 5))
+
+    got_f = np.zeros((n, 5))
+    raster_lib.ptre_soft_pair_host_d(n, rows.ctypes.data, px.ctypes.data, py.ctypes.data,
+                                     scal.ctypes.data, got_f.ctypes.data)
+    got_g = np.zeros((n, 32))
+    raster_lib.ptre_soft_pair_adjoint_host_d(n, rows.ctypes.data, px.ctypes.data,
+                                             py.ctypes.data, scal.ctypes.data,
+                                             gout.ctypes.data, got_g.ctypes.data)
+
+    t_rows = torch.from_numpy(rows).requires_grad_(True)
+    outs = sr.pair_terms(t_rows, torch.from_numpy(px), torch.from_numpy(py),
+                         [float(s) for s in scal])
+    want_f = torch.stack(outs, dim=1)
+    (want_g,) = torch.autograd.grad(outs, t_rows, tuple(torch.from_numpy(gout[:, k])
+                                                        for k in range(5)))
+    np.testing.assert_allclose(got_f, want_f.detach().numpy(), rtol=1e-12, atol=1e-12)
+    np.testing.assert_allclose(got_g, want_g.numpy(), rtol=1e-10, atol=1e-10)
+    # the ties are really hit, and the half rule is what both computed
+    tf = want_f.detach().numpy()[-7:]
+    assert tf[0, 2] == scal[0] * scal[3]  # diffuse exactly 0 at the tie
+    assert float(want_g[-7:].abs().max()) > 0.0
+
+
+def test_host_soft_pair_ties_match_jax_vjp(raster_lib):
+    """The tie rows through JAX's own `_pair_terms` and `jax.vjp` (float32):
+    the adjoint's half-at-a-tie rule is JAX's (relative 1e-4)."""
+    import jax
+    import jax.numpy as jnp
+
+    from ptre_tpu.ops.pallas import soft_raster as jsr
+    from ptre_tpu_torch.ops.cuda import raster_kernel as rk
+    from ptre_tpu_torch.utils.config import RasterConfig
+
+    rows, px, py = _tie_rows()
+    scal = rk.raster_scalars(RasterConfig(), 1.0 / 0.7).numpy()
+    rs = np.random.default_rng(5)
+    for i in range(rows.shape[0]):
+        blk = np.repeat(rows[i:i + 1], 8, axis=0).astype(np.float32)
+        go = rs.standard_normal(5)
+        f = lambda b: jsr._pair_terms(b, jnp.full((1, 1), px[i], jnp.float32),  # noqa: E731
+                                      jnp.float32(py[i]), [jnp.float32(s) for s in scal])
+        _, vjp = jax.vjp(f, jnp.asarray(blk))
+        cot = tuple(jnp.zeros((8, 1), jnp.float32).at[0, 0].set(go[k]) for k in range(5))
+        (want,) = vjp(cot)
+        got = np.zeros((1, 32))
+        r = np.ascontiguousarray(rows[i:i + 1])
+        raster_lib.ptre_soft_pair_adjoint_host_d(
+            1, r.ctypes.data, px[i:i + 1].ctypes.data, py[i:i + 1].ctypes.data,
+            scal.ctypes.data, np.ascontiguousarray(go[None]).ctypes.data, got.ctypes.data)
+        want = np.asarray(want)[0]
+        np.testing.assert_allclose(got[0], want, rtol=1e-4, atol=1e-4 * np.abs(want).max(),
+                                   err_msg=f"tie row {i}")
+
+
+def _raster_host_inputs(ss=2, W=40, H=24, y0=1.0, rows=9, stride=2):
+    from ptre_tpu_torch.ops.cuda import raster_kernel as rk
+    from ptre_tpu_torch.ops.cuda import soft_raster as sr
+    from ptre_tpu_torch.utils.config import RasterConfig
+
+    torch.set_num_threads(1)
+    cfg = RasterConfig(width=W, height=H, supersample=ss)
+    pkt = demo.reference_demo_scene(8, 4).build_packet(spheres_as_triangles=True)
+    cam = cam_ops.Camera.create(width=W, height=H)
+    cols, cbox = sr._soft_cols(pkt, cam, cfg)
+    scal = rk.raster_scalars(cfg, 1.0 / 0.5, y0, stride)
+    p = rk.raster_params(scal, rows * ss, W * ss, ss, cbox.shape[0])
+    return cols.detach().contiguous(), cbox, scal, p, rows * ss, W * ss, ss
+
+
+def test_host_raster_kernel_bodies_match_plain_versions(raster_lib):
+    """The three kernels' bodies (their tiles, chunk gate and per-sample
+    code, built with g++) against the plain versions on a strided ss-2
+    window of the demo scene: the hard image to 1e-6 (libm's vs PyTorch's
+    sqrt, an ulp), the visited (block, chunk) pairs equal; the soft image
+    and residuals to 1e-5 relative (exp and sqrt from other libraries);
+    d(table) to 1e-4 of its largest entry (sums in another order), and each
+    column group no further from float64 than twice the plain float32
+    version (or 1e-4 of the group's norm)."""
+    from ptre_tpu_torch.ops.cuda import raster_kernel as rk
+    from ptre_tpu_torch.ops.cuda import soft_raster as sr
+
+    cols, cbox, scal, p, R, Wss, ss = _raster_host_inputs()
+    out = torch.empty((3, R, Wss))
+    n_hard = raster_lib.ptre_raster_hard_host(ctypes.addressof(p), cols.data_ptr(),
+                                              cbox.data_ptr(), out.data_ptr())
+    want = rk.raster_reference(cols, cbox, scal, R, Wss, ss)
+    np.testing.assert_allclose(out.numpy(), want.numpy(), rtol=0, atol=1e-6)
+    assert n_hard == rk.visited_pairs(cbox, R, Wss, ss, 1.0, 2.0) > 0
+    assert float((want - scal[9:12][:, None, None]).abs().max()) > 0.1
+
+    dbox = sr.dilate(cbox, 0.5)
+    img, res = torch.empty((3, R, Wss)), torch.empty((6, R, Wss))
+    n_soft = raster_lib.ptre_soft_fwd_host(ctypes.addressof(p), cols.data_ptr(),
+                                           dbox.data_ptr(), img.data_ptr(), res.data_ptr())
+    want_img, want_res = sr.soft_forward_reference(cols, dbox, scal, R, Wss, ss)
+    assert n_soft == rk.visited_pairs(dbox, R, Wss, ss, 1.0, 2.0) >= n_hard
+    np.testing.assert_allclose(img.numpy(), want_img.numpy(), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(res.numpy(), want_res.numpy(), rtol=1e-5, atol=1e-6)
+
+    dimg = torch.from_numpy(np.random.default_rng(3).standard_normal((3, R, Wss))
+                            .astype(np.float32))
+    dtab = torch.zeros_like(cols)
+    raster_lib.ptre_soft_bwd_host(ctypes.addressof(p), cols.data_ptr(), dbox.data_ptr(),
+                                  res.data_ptr(), dimg.data_ptr(), dtab.data_ptr())
+    want_d = sr.soft_backward_reference(cols, dbox, scal, res, dimg, R, Wss, ss)
+    scale = float(want_d.abs().max())
+    assert scale > 0.0
+    np.testing.assert_allclose(dtab.numpy(), want_d.numpy(), rtol=0, atol=1e-4 * scale)
+    # each column group on its own: its norms span 1e-15 (1/w, whose exact
+    # gradient is zero) to 1e4, so one norm over the table cannot see a
+    # group; the yardstick is the plain float32 version's own distance from
+    # its float64 evaluation on the same inputs
+    exact = sr.soft_backward_reference(cols.double(), dbox, scal, res.double(), dimg.double(),
+                                       R, Wss, ss)
+    for group, c in sr.GRAD_GROUPS.items():
+        e_host = float((dtab.double() - exact)[:, c].norm())
+        e_plain = float((want_d.double() - exact)[:, c].norm())
+        assert e_host <= max(2.0 * e_plain, 1e-4 * float(exact[:, c].norm())), group

@@ -20,18 +20,22 @@ import numpy as np
 import pytest
 import torch
 
-from ptre_tpu.utils.config import RenderConfig
-from ptre_tpu.utils.errors import RendererError
+from ptre_tpu_torch.utils.config import RenderConfig
+from ptre_tpu_torch.utils.errors import RendererError
 from ptre_tpu_torch.models import demo
 from ptre_tpu_torch.ops import camera as cam_ops
 from ptre_tpu_torch.ops import path_replay
 from ptre_tpu_torch.ops.cuda import fused_grad as fg
 from ptre_tpu_torch.ops.cuda import megakernel as mk
+from ptre_tpu_torch.ops.cuda import raster_kernel as rast
 from ptre_tpu_torch.ops.cuda import render_kernel as rk
+from ptre_tpu_torch.ops.cuda import soft_raster as sr
 from ptre_tpu_torch.ops.cuda import wavefront as wf
 from ptre_tpu_torch.parallel import sharding as sh
 from ptre_tpu_torch.render import pathtracer as pt
+from ptre_tpu_torch.render import rasterizer as ras
 from ptre_tpu_torch.render import train
+from ptre_tpu_torch.utils.config import RasterConfig
 
 pytestmark = pytest.mark.cuda
 
@@ -286,3 +290,94 @@ def test_wavefront_wrappers_reject_bad_inputs(cuda):
         wf.wave_bounce(state, ids, short, cnt[:1], scene, k, 0)
     with pytest.raises(RendererError, match="state on cuda"):
         wf.wave_bounce(state, ids.cpu(), short, cnt, scene, k, 0)
+
+
+# ---- the rasterizer kernels -------------------------------------------------------
+# Tolerances as in chip_smoke.py phases 12-14: coverage, z and the hard
+# shading are never contracted, so the hard image equals the plain version's
+# bit for bit; the soft terms past the barycentrics may contract, and the
+# kernel sums a group in another order and takes the other branch of the
+# stable sigmoid, so the soft image and residual content within 3e-5 (the
+# kernel-vs-XLA bound of tests/test_dual_pipeline.py; measured 1.4e-5 at
+# 300x180), and d(table), summed by float atomics in no fixed order, within
+# 1e-4 relative L2, and each column group (soft_raster.GRAD_GROUPS) no
+# further from the float64 plain version than twice the float32 plain
+# version (or 1e-4 of the group's norm).
+
+
+def _raster_setup(dev, W=200, H=120, ss=2, y0=0.0, stride=1, rows=None):
+    cfg = RasterConfig(width=W, height=H, supersample=ss)
+    pkt = demo.reference_demo_scene(16, 8).build_packet(spheres_as_triangles=True).to(dev)
+    cam = cam_ops.Camera.create(width=W, height=H)
+    rows = H if rows is None else rows
+    cols, cbox = sr._soft_cols(pkt, cam, cfg)
+    return cfg, pkt, cam, cols.detach().contiguous(), cbox, rows * ss, W * ss, ss
+
+
+@pytest.mark.parametrize("y0,stride,rows", [(0.0, 1, None), (3.0, 5, 23)])
+def test_raster_kernel_matches_plain_version(cuda, y0, stride, rows):
+    cfg, pkt, cam, cols, cbox, R, Wss, ss = _raster_setup(cuda, rows=rows)
+    scal = rast.raster_scalars(cfg, 0.0, y0, stride)
+    before = rast.launches
+    got = rast.raster_tiles(cols, cbox, scal, R, Wss, ss)
+    want = rast.raster_reference(cols, cbox, scal, R, Wss, ss)
+    torch.cuda.synchronize()
+    assert rast.launches == before + 1
+    assert torch.equal(got, want)
+    assert rast.visited_pairs(cbox, R, Wss, ss, y0, stride) > 0
+    img = ras.rasterize(pkt, cam, cfg)
+    assert img.shape == (cfg.height, cfg.width, 3) and rast.launches == before + 2
+
+
+def test_soft_kernels_match_plain_versions(cuda):
+    cfg, pkt, cam, cols, cbox, R, Wss, ss = _raster_setup(cuda, W=150, H=90)
+    box = sr.dilate(cbox, 0.5)
+    scal = rast.raster_scalars(cfg, 2.0)
+    before = (sr.fwd_launches, sr.bwd_launches)
+    img, res = sr.soft_forward(cols, box, scal, R, Wss, ss)
+    want_img, want_res = sr.soft_forward_reference(cols, box, scal, R, Wss, ss)
+    torch.cuda.synchronize()
+    assert float((img - want_img).abs().max()) <= 3e-5
+    live = want_res[1] > 0
+    assert torch.equal(res[1] > 0, live) and bool(live.any())
+    for k in (2, 3, 4, 5):
+        a = torch.where(live, res[k] / res[1].clamp_min(1e-30), 0.0)
+        b = torch.where(live, want_res[k] / want_res[1].clamp_min(1e-30), 0.0)
+        assert float((a - b).abs().max()) <= 3e-5
+    dimg = torch.randn((3, R, Wss), device=cuda, generator=torch.Generator(cuda).manual_seed(4))
+    got = sr.soft_backward(cols, box, scal, want_res, dimg, R, Wss, ss)
+    want = sr.soft_backward_reference(cols, box, scal, want_res, dimg, R, Wss, ss)
+    torch.cuda.synchronize()
+    assert (sr.fwd_launches, sr.bwd_launches) == (before[0] + 1, before[1] + 1)
+    assert float((got - want).norm() / want.norm()) <= 1e-4
+    exact = sr.soft_backward_reference(cols.double(), box, scal, want_res.double(),
+                                       dimg.double(), R, Wss, ss)
+    for group, c in sr.GRAD_GROUPS.items():
+        e_kernel = float((got.double() - exact)[:, c].norm())
+        e_plain = float((want.double() - exact)[:, c].norm())
+        assert e_kernel <= max(2.0 * e_plain, 1e-4 * float(exact[:, c].norm())), group
+
+
+def test_raster_mse_step_goes_through_soft_kernels(cuda):
+    cfg, pkt, cam, _, _, _, _, _ = _raster_setup(cuda, W=96, H=64)
+    params = sh.differentiable_params(pkt, cam)
+    target = torch.zeros((64, 96, 3), device=cuda)
+    before = (sr.fwd_launches, sr.bwd_launches)
+    loss, grads = train.raster_mse_step(params, pkt, cam, target, cfg)
+    torch.cuda.synchronize()
+    assert (sr.fwd_launches, sr.bwd_launches) == (before[0] + 1, before[1] + 1)
+    assert math.isfinite(float(loss)) and float(grads["transforms"].abs().max()) > 0
+    cpu = {k: v.cpu() for k, v in params.items()}
+    loss_c, grads_c = train.raster_mse_step(cpu, pkt.to("cpu"), cam, target.cpu(), cfg)
+    assert abs(float(loss) - float(loss_c)) <= 1e-5 * float(loss_c)
+    for key in ("transforms", "cam_position"):
+        a, b = grads[key].cpu(), grads_c[key]
+        assert float((a - b).norm() / b.norm()) <= 1e-3, key
+
+
+def test_hard_raster_refuses_autograd_on_cuda(cuda):
+    cfg, pkt, cam, cols, cbox, R, Wss, ss = _raster_setup(cuda, W=32, H=16)
+    with pytest.raises(RendererError, match="forward-only"):
+        rast.raster_tiles(cols.requires_grad_(True), cbox, rast.raster_scalars(cfg), R, Wss, ss)
+    with pytest.raises(RendererError, match="shape"):
+        rast.raster_tiles(cols[:-1].detach(), cbox, rast.raster_scalars(cfg), R, Wss, ss)

@@ -1,6 +1,8 @@
 """Package rules of the PyTorch port: no jax, no hidden fallback.
 
-The port may import only the jax-free reference modules; its CUDA wrappers
+The port imports neither jax nor any module of the JAX package ``ptre_tpu``
+(it has its own copies of the mesh generators, the configs and the errors),
+and chip_smoke.py names none of them either; the port's CUDA wrappers
 run the plain versions only for CPU tensors; a missing nvcc raises; and
 render_step refuses, before any CUDA call, a packet neither CUDA route (the
 dense render kernel, the wavefront kernels) can take instead of running
@@ -9,6 +11,7 @@ plain PyTorch on the card.
 
 from __future__ import annotations
 
+import ast
 import dataclasses
 import os
 import subprocess
@@ -18,8 +21,8 @@ import numpy as np
 import pytest
 import torch
 
-from ptre_tpu.utils.config import RenderConfig
-from ptre_tpu.utils.errors import RendererError
+from ptre_tpu_torch.utils.config import RenderConfig
+from ptre_tpu_torch.utils.errors import RendererError
 from ptre_tpu_torch.models import demo
 from ptre_tpu_torch.models.scene import PACKET_LEAVES, Material, MaterialKind
 from ptre_tpu_torch.ops import camera as cam_ops
@@ -35,38 +38,31 @@ from ptre_tpu_torch.render import train
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-SLICE_MODULES = [
-    "ptre_tpu_torch",
-    "ptre_tpu_torch.utils.device",
-    "ptre_tpu_torch.utils.interop",
-    "ptre_tpu_torch.ops.vecmat",
-    "ptre_tpu_torch.ops.camera",
-    "ptre_tpu_torch.ops.rng",
-    "ptre_tpu_torch.ops.integrator",
-    "ptre_tpu_torch.ops.cuda.build",
-    "ptre_tpu_torch.ops.cuda.megakernel",
-    "ptre_tpu_torch.ops.cuda.render_kernel",
-    "ptre_tpu_torch.ops.cuda.wavefront",
-    "ptre_tpu_torch.models.scene",
-    "ptre_tpu_torch.models.demo",
-    "ptre_tpu_torch.render.pathtracer",
-    "ptre_tpu_torch.ops.gradsafe",
-    "ptre_tpu_torch.ops.path_replay",
-    "ptre_tpu_torch.ops.cuda.replay_kernel",
-    "ptre_tpu_torch.ops.cuda.fused_grad",
-    "ptre_tpu_torch.parallel.sharding",
-    "ptre_tpu_torch.render.train",
-]
-#: the reference modules the port may import: all jax-free
-ALLOWED_REFERENCE = {"ptre_tpu", "ptre_tpu.models", "ptre_tpu.models.mesh",
-                     "ptre_tpu.utils", "ptre_tpu.utils.config",
-                     "ptre_tpu.utils.errors", "ptre_tpu.utils.image"}
+PORT_DIR = os.path.join(REPO, "ptre_tpu_torch")
+
+
+def _port_modules():
+    """Every module of the port, found on disk (new modules included)."""
+    mods = []
+    for root, dirs, files in os.walk(PORT_DIR):
+        dirs[:] = sorted(d for d in dirs if not d.startswith(("_", ".")))
+        rel = os.path.relpath(root, REPO).replace(os.sep, ".")
+        for f in sorted(files):
+            if f == "__init__.py":
+                mods.append(rel)
+            elif f.endswith(".py"):
+                mods.append(f"{rel}.{f[:-3]}")
+    return mods
 
 
 def test_port_imports_no_jax():
+    """Importing every module of the port loads neither jax nor any module
+    of the JAX package ``ptre_tpu``: the allowed set is empty."""
+    mods = _port_modules()
+    assert "ptre_tpu_torch.render.rasterizer" in mods and len(mods) > 25, mods
     code = (
         "import sys\n"
-        f"for m in {SLICE_MODULES!r}: __import__(m)\n"
+        f"for m in {mods!r}: __import__(m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax'))\n"
         "ref = sorted(m for m in sys.modules if m.split('.')[0] == 'ptre_tpu')\n"
@@ -78,7 +74,41 @@ def test_port_imports_no_jax():
     assert out.returncode == 0, out.stderr
     bad, ref = eval(out.stdout.strip().splitlines()[-1])
     assert bad == [], bad
-    assert set(ref) <= ALLOWED_REFERENCE, set(ref) - ALLOWED_REFERENCE
+    assert ref == [], ref
+
+
+def _imported_modules(path):
+    """Every module an ``import`` or ``from ... import`` in the file names,
+    at any depth (top level or inside functions)."""
+    tree = ast.parse(open(path).read(), filename=path)
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            names.add(node.module)
+            names.update(f"{node.module}.{a.name}" for a in node.names)
+    return names
+
+
+@pytest.mark.parametrize("path", ["chip_smoke.py", "ptre_tpu_torch"])
+def test_sources_name_no_jax_and_no_reference_module(path):
+    """No import statement of chip_smoke.py or of any port source names jax or
+    a ``ptre_tpu`` module (read with ast: importing chip_smoke runs nothing,
+    so its imports inside functions must be read, not executed)."""
+    full = os.path.join(REPO, path)
+    files = [full] if full.endswith(".py") else [
+        os.path.join(r, f) for r, _, fs in os.walk(full) for f in fs if f.endswith(".py")]
+    found = {}
+    for f in files:
+        for name in _imported_modules(f):
+            if name.split(".")[0] in ("jax", "jaxlib", "flax", "ptre_tpu"):
+                found.setdefault(os.path.relpath(f, REPO), []).append(name)
+    assert found == {}, found
+    if path == "chip_smoke.py":
+        names = _imported_modules(full)
+        assert "ptre_tpu_torch.utils.config" in names
+        assert "ptre_tpu_torch.render.rasterizer" in names
 
 
 def _small_inputs(H=8, W=16):
@@ -228,3 +258,48 @@ def test_gradient_wrappers_on_cpu_run_plain_versions_without_launch():
         mk.trace_fused_sel(torch.empty((4, 3), device="meta"),
                            torch.empty((4, 3), device="meta"),
                            mk.pack_scene(pkt), mk.TraceConsts.from_config(cfg), 3)
+
+
+def test_raster_wrappers_on_cpu_run_plain_versions_and_refuse_other_devices(monkeypatch):
+    """The three raster wrappers run their plain versions for CPU tensors
+    without a launch, raise for other devices, and the hard kernel refuses a
+    table that needs a gradient on CUDA before any CUDA call (fake CUDA
+    tensors: nothing may touch them)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from ptre_tpu_torch.ops.cuda import raster_kernel as rast
+    from ptre_tpu_torch.ops.cuda import soft_raster as sr
+    from ptre_tpu_torch.render import rasterizer as ras
+    from ptre_tpu_torch.utils.config import RasterConfig
+
+    torch.set_num_threads(1)
+    cfg = RasterConfig(width=16, height=8, supersample=2)
+    pkt = demo.reference_demo_scene(8, 4).build_packet(spheres_as_triangles=True)
+    cam = cam_ops.Camera.create(width=16, height=8)
+    before = (rast.launches, sr.fwd_launches, sr.bwd_launches)
+    params = sh.differentiable_params(pkt, cam)
+    loss, grads = train.raster_mse_step(params, pkt, cam, torch.zeros((8, 16, 3)), cfg)
+    img = ras.rasterize(pkt, cam, cfg)
+    assert (rast.launches, sr.fwd_launches, sr.bwd_launches) == before
+    assert float(loss) > 0 and img.shape == (8, 16, 3)
+    assert all(bool(torch.isfinite(g).all()) for g in grads.values())
+
+    cols, cbox = sr._soft_cols(pkt, cam, cfg)
+    scal = rast.raster_scalars(cfg)
+    meta = torch.empty(cols.shape, device="meta")
+    with pytest.raises(RendererError, match="cuda or cpu"):
+        rast.raster_tiles(meta, cbox, scal, 16, 32, 2)
+    with pytest.raises(RendererError, match="cuda or cpu"):
+        sr.soft_forward(meta, cbox, scal, 16, 32, 2)
+    with pytest.raises(RendererError, match="cuda or cpu"):
+        sr.soft_backward(meta, cbox, scal, meta, meta, 16, 32, 2)
+
+    def no_cuda(*args, **kwargs):
+        raise AssertionError("a CUDA call was made")
+
+    monkeypatch.setattr(build, "load_library", no_cuda)
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        tris = torch.empty(cols.shape, device="cuda").requires_grad_(True)
+        box = torch.empty(cbox.shape, device="cuda")
+        with pytest.raises(RendererError, match="forward-only"):
+            rast.raster_tiles(tris, box, scal, 16, 32, 2)

@@ -41,6 +41,7 @@ from ptre_tpu.ops.pallas import wavefront as jwf
 from ptre_tpu.render import pathtracer as jpt
 from ptre_tpu.utils.config import RenderConfig
 from ptre_tpu_torch.models import demo
+from ptre_tpu_torch.models import mesh as pmg
 from ptre_tpu_torch.models.scene import Model, Scene
 from ptre_tpu_torch.ops import camera as cam_ops
 from ptre_tpu_torch.ops.cuda import megakernel as mk
@@ -165,10 +166,13 @@ def test_leaf_screen_boxes_and_block_mask_match_jax(name):
 
 
 def _ball(scene_cls, model_cls, diffuse=True):
-    """The ball scene of tests/test_wavefront.py:29-47 (tri_pad 64)."""
+    """The ball scene of tests/test_wavefront.py:29-47 (tri_pad 64), its
+    meshes made by the scene's own package."""
+    meshes = pmg if scene_cls is Scene else mg
     scn = scene_cls()
-    scn.add_mesh("ball", mg.uv_sphere(False, 12, 6, mesh_type=mg.MeshType.TRIANGLES))
-    scn.add_mesh("ground", mg.uv_sphere(False, 8, 4))
+    scn.add_mesh("ball", meshes.uv_sphere(False, 12, 6,
+                                          mesh_type=meshes.MeshType.TRIANGLES))
+    scn.add_mesh("ground", meshes.uv_sphere(False, 8, 4))
     scn.add_model("b", model_cls("ball"))
     scn.get_model("b").set_transforms(1.0, 0.0, (0.0, 0.5, 0.0))
     if diffuse:
@@ -362,7 +366,7 @@ def test_empty_and_sphere_only_scenes():
     px, py = pt.pixel_grid(H, W)
     o, d = cam_ops.get_rays(cam, px, py, jit)
     sphere_only = Scene()
-    sphere_only.add_mesh("s", mg.uv_sphere(False, 8, 4))
+    sphere_only.add_mesh("s", pmg.uv_sphere(False, 8, 4))
     sphere_only.add_model("m", Model("s"))
     sphere_only.get_model("m").set_transforms(1.0, 0.0, (0.0, 0.5, 4.0))
     for name, scn, atol in (("empty", Scene(), 0.0), ("sphere_only", sphere_only, 3e-5)):
