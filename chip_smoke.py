@@ -33,7 +33,25 @@ source, all at once), then:
        step went through the kernels; a ragged size, a strided window, an
        empty scene and tests/goldens/demo_raster.ppm check the image; a
        torch.profiler window splits a frame's and a step's time between
-       the host and the device.
+       the host and the device;
+  15-17. triangle-scale training's kernels on BASELINE config 4 at 1920x1080
+       and config 3 at 512x512: holds the culled megakernel against its
+       plain version (external uniforms and in-kernel Philox), culling on
+       against culling off and against the wavefront's kernels on the same
+       rays and draws; the wavefront's record mode against record=False
+       (bit-equal colour), its plain version and the megakernel's
+       selections, the recording bounce kernel beside the non-recording
+       one; the backward kernel's global-table instantiation against its
+       plain version on config 4's recorded selections, and two runs of it
+       against each other;
+  18.  drives the triangle-scale training path — ``differentiable_params``
+       → ``mse_step`` on config 4 at 1920x1080 and config 3 at 512x512, spp
+       1 (1 + 8 steps), one ``two_pass_mse_step`` at spp 64 on config 4, one
+       step forced through the culled megakernel — checking that every
+       sample went through the mask, recording bounce and global-table
+       backward kernels, that the gradients are finite and d(transforms)
+       non-zero, and that ``two_pass_mse_step`` equals ``mse_step`` on a
+       triangle packet; a torch.profiler window splits a step's time.
 
 Any failed check raises and the script exits non-zero; it prints its result
 lines only after every phase passed:
@@ -191,6 +209,38 @@ def device_share(fn, reps, what, card):
               for e in host) + f" [{card}]", flush=True)
 
 
+def ptxas_summary(report):
+    """["kernel: N registers, S B spill stores, L B spill loads, M B smem"]
+    from nvcc's ``-Xptxas=-v`` output, one entry per kernel, by its mangled
+    name's identifier and template arguments."""
+    import re
+
+    out, name = [], None
+    spills = ""
+    for ln in report.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            # _ZN4ptre[4rast]11mega_kernelILb1EEE...: the last name of the
+            # nested-name prefix, and a bool template argument after it
+            name, rest = m.group(1), m.group(1)[3:] if m.group(1).startswith("_ZN") else ""
+            while rest[:1].isdigit():
+                n = int(re.match(r"\d+", rest).group())
+                start = len(str(n))
+                name, rest = rest[start:start + n], rest[start + n:]
+            name += {"ILb1EE": "<true>", "ILb0EE": "<false>"}.get(rest[:6], "")
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            spills = f"{m.group(1)} B spill stores, {m.group(2)} B spill loads"
+        m = re.search(r"Used (\d+) registers.*?(?:(\d+) bytes smem)?$", ln)
+        if m and name:
+            smem = re.search(r"(\d+) bytes smem", ln)
+            out.append(f"{name}: {m.group(1)} registers, {spills}, "
+                       f"{smem.group(1) if smem else 0} B smem")
+            name = None
+    return out
+
+
 class SmokeFailure(AssertionError):
     pass
 
@@ -254,9 +304,9 @@ def main():
     build.load_library()
     build_s = time.perf_counter() - t0
     if build.last_build is not None:
-        regs = [ln.strip() for ln in build.last_build[1].splitlines() if "registers" in ln]
-        print(f"kernel build {build.last_build[0]:.2f} s (nvcc, sm_90a); "
-              f"{'; '.join(regs)} [{card}]", flush=True)
+        print(f"kernel build {build.last_build[0]:.2f} s (nvcc, sm_90a, "
+              f"{len(build.KERNEL_UNITS)} units); " + "; ".join(
+                  ptxas_summary(build.last_build[1])) + f" [{card}]", flush=True)
     else:
         print(f"kernel library already built; load {build_s:.2f} s", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -427,6 +477,7 @@ def main():
     kernels += grad_kernels
     kernels += wavefront_phases(dev, card, rs)
     kernels += raster_phases(dev, card, rs)
+    kernels += triangle_training_phases(dev, card, rs, dense_bwd_ms=grad_kernels[1]["ms"])
 
     # ---- result --------------------------------------------------------------------
     print(card, flush=True)
@@ -434,6 +485,81 @@ def main():
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
+
+
+BWD_GEOMETRY = ("v0-v2", "n0-n2", "center", "radius")
+
+
+def hold_backward(fg, mk, what, table, sky6, o, d, sel, dcol, k, B, T, seed, ur, groups):
+    """The backward kernel against `fused_bwd_reference` on one recorded
+    trace, under the tolerances stated at RAY_TIGHT above; returns the
+    largest absolute error outside the flipped rays. ``groups`` names column
+    slices of the table."""
+    import torch
+
+    f64 = torch.float64
+    R = o.shape[0]
+    ur64 = mk.trace_uniforms(o, B, seed, 0, ur).to(f64)
+
+    def three(cot):
+        """kernel, plain float32, plain float64 — the same inputs."""
+        out = (fg.fused_bwd(table, sky6, o, d, sel, cot, k, B, T, seed, 0, ur),
+               fg.fused_bwd_reference(table, sky6, o, d, sel, cot, k, B, T, seed, 0, ur),
+               fg.fused_bwd_reference(table.to(f64), sky6.to(f64), o.to(f64), d.to(f64), sel,
+                                      cot.to(f64), k, B, T, seed, 0, ur64))
+        torch.cuda.synchronize()
+        return out
+
+    def flipped(a, b, mag):
+        err = ((a[2].to(f64) - b[2].to(f64)).abs()
+               + (a[3].to(f64) - b[3].to(f64)).abs()).amax(dim=1)
+        return err > FLIP_REL * mag + RAY_ATOL
+
+    bwd_err = 0.0
+    got, want, exact = three(dcol)
+    mag = (exact[2].abs() + exact[3].abs()).amax(dim=1)
+    flip_k, flip_p = flipped(got, want, mag), flipped(want, exact, mag)
+    for name, a, b in (("d(o)", got[2], want[2]), ("d(d)", got[3], want[3])):
+        top = float(b.abs().max())
+        err = (a - b).abs()
+        frac = float((err <= RAY_TIGHT * top).float().mean())
+        bwd_err = max(bwd_err, float(err[~flip_k].max()))
+        print(f"  {what} {name}: max_abs_err {float(err.max()):.3e}, "
+              f"{float(err[~flip_k].max()):.3e} outside flipped rays (largest "
+              f"{top:.3e}); {100 * frac:.4f}% within {RAY_TIGHT:g} of the largest",
+              flush=True)
+        check(bool(torch.isfinite(a).all()), f"{what}: non-finite {name}")
+        check(frac >= TIGHT_FRAC, f"{what}: only {frac:.6f} of {name} within")
+    allowed = math.ceil(BWD_FLIP_FRAC * R)
+    print(f"  {what}: {int(flip_k.sum())} rays flipped between kernel and plain "
+          f"(allowed {allowed}); {int(flip_p.sum())} between plain float32 and "
+          f"float64", flush=True)
+    check(int(flip_k.sum()) <= allowed, f"{what}: {int(flip_k.sum())} flipped")
+    del got, want, exact
+    # the summed gradients, without the flipped rays' cotangents
+    got, want, exact = three(torch.where((flip_k | flip_p)[:, None], 0.0, dcol))
+    named = [(n, sl) for n, sl in groups.items()] + [("sky", None)]
+    for name, sl in named:
+        a, b, e = ((x[1] if sl is None else x[0][:, sl]).to(f64)
+                   for x in (got, want, exact))
+        if float(e.norm()) == 0.0:  # no gradient reaches it (emissive cube)
+            check(float(a.norm()) == 0.0, f"{what}: d(table) {name} not zero")
+            continue
+        rel_p = float((a - b).norm() / b.norm())
+        rel_k64 = float((a - e).norm() / e.norm())
+        rel_p64 = float((b - e).norm() / e.norm())
+        bwd_err = max(bwd_err, float((a - b).abs().max()))
+        print(f"  {what} d({'sky' if sl is None else 'table ' + name}): relative L2 "
+              f"kernel-plain {rel_p:.3e}, kernel-float64 {rel_k64:.3e}, "
+              f"plain-float64 {rel_p64:.3e}", flush=True)
+        if name in BWD_GEOMETRY:
+            check(rel_k64 <= max(SUM_REL, GEOM_FACTOR * rel_p64),
+                  f"{what}: d(table) {name} off float64 by {rel_k64}")
+        else:
+            check(rel_p <= SUM_REL, f"{what}: d({name}) relative L2 {rel_p}")
+    check(bool(torch.isfinite(got[0]).all() and torch.isfinite(got[1]).all()),
+          f"{what}: non-finite d(table) or d(sky)")
+    return bwd_err
 
 
 def gradient_phases(dev, card, rs):
@@ -499,70 +625,9 @@ def gradient_phases(dev, card, rs):
     bwd_err = 0.0
     groups = {"v0-v2": slice(0, 9), "n0-n2": slice(9, 18), "center": slice(18, 21),
               "radius": slice(21, 22), "albedo": slice(23, 26), "param": slice(26, 27)}
-    geometry = ("v0-v2", "n0-n2", "center", "radius")
-    f64 = torch.float64
     for mode, (sel, ur) in recorded.items():
-        ur64 = mk.trace_uniforms(o, B, GRAD_SEED, 0, ur).to(f64)
-
-        def three(cot):
-            """kernel, plain float32, plain float64 — the same inputs."""
-            out = (fg.fused_bwd(table, sky6, o, d, sel, cot, k, B, T, GRAD_SEED, 0, ur),
-                   fg.fused_bwd_reference(table, sky6, o, d, sel, cot, k, B, T,
-                                          GRAD_SEED, 0, ur),
-                   fg.fused_bwd_reference(table.to(f64), sky6.to(f64), o.to(f64),
-                                          d.to(f64), sel, cot.to(f64), k, B, T,
-                                          GRAD_SEED, 0, ur64))
-            torch.cuda.synchronize()
-            return out
-
-        def flipped(a, b, mag):
-            err = ((a[2].to(f64) - b[2].to(f64)).abs()
-                   + (a[3].to(f64) - b[3].to(f64)).abs()).amax(dim=1)
-            return err > FLIP_REL * mag + RAY_ATOL
-
-        got, want, exact = three(dcol)
-        mag = (exact[2].abs() + exact[3].abs()).amax(dim=1)
-        flip_k, flip_p = flipped(got, want, mag), flipped(want, exact, mag)
-        for name, a, b in (("d(o)", got[2], want[2]), ("d(d)", got[3], want[3])):
-            top = float(b.abs().max())
-            err = (a - b).abs()
-            frac = float((err <= RAY_TIGHT * top).float().mean())
-            bwd_err = max(bwd_err, float(err[~flip_k].max()))
-            print(f"  {mode} {name}: max_abs_err {float(err.max()):.3e}, "
-                  f"{float(err[~flip_k].max()):.3e} outside flipped rays (largest "
-                  f"{top:.3e}); {100 * frac:.4f}% within {RAY_TIGHT:g} of the largest",
-                  flush=True)
-            check(bool(torch.isfinite(a).all()), f"bwd {mode}: non-finite {name}")
-            check(frac >= TIGHT_FRAC, f"bwd {mode}: only {frac:.6f} of {name} within")
-        allowed = math.ceil(BWD_FLIP_FRAC * R)
-        print(f"  {mode}: {int(flip_k.sum())} rays flipped between kernel and plain "
-              f"(allowed {allowed}); {int(flip_p.sum())} between plain float32 and "
-              f"float64", flush=True)
-        check(int(flip_k.sum()) <= allowed, f"bwd {mode}: {int(flip_k.sum())} flipped")
-        # the summed gradients, without the flipped rays' cotangents
-        got, want, exact = three(torch.where((flip_k | flip_p)[:, None], 0.0, dcol))
-        named = [(n, sl) for n, sl in groups.items()] + [("sky", None)]
-        for name, sl in named:
-            a, b, e = ((x[1] if sl is None else x[0][:, sl]).to(f64)
-                       for x in (got, want, exact))
-            if float(e.norm()) == 0.0:  # no gradient reaches it (emissive cube)
-                check(float(a.norm()) == 0.0, f"bwd {mode}: d(table) {name} not zero")
-                continue
-            rel_p = float((a - b).norm() / b.norm())
-            rel_k64 = float((a - e).norm() / e.norm())
-            rel_p64 = float((b - e).norm() / e.norm())
-            bwd_err = max(bwd_err, float((a - b).abs().max()))
-            print(f"  {mode} d({'sky' if sl is None else 'table ' + name}): relative L2 "
-                  f"kernel-plain {rel_p:.3e}, kernel-float64 {rel_k64:.3e}, "
-                  f"plain-float64 {rel_p64:.3e}", flush=True)
-            if name in geometry:
-                check(rel_k64 <= max(SUM_REL, GEOM_FACTOR * rel_p64),
-                      f"bwd {mode}: d(table) {name} off float64 by {rel_k64}")
-            else:
-                check(rel_p <= SUM_REL, f"bwd {mode}: d({name}) relative L2 {rel_p}")
-        check(bool(torch.isfinite(got[0]).all() and torch.isfinite(got[1]).all()),
-              f"bwd {mode}: non-finite d(table) or d(sky)")
-        del got, want, exact
+        bwd_err = max(bwd_err, hold_backward(fg, mk, f"bwd {mode}", table, sky6, o, d, sel,
+                                             dcol, k, B, T, GRAD_SEED, ur, groups))
 
     # kernel times at the main shape (CUDA events) and the plain versions'
     sel_p, _ = recorded["philox"]
@@ -957,6 +1022,436 @@ def wavefront_phases(dev, card, rs):
     }, *work["bounce"])]
 
 
+# Triangle-scale training (phases 15-18). The culled megakernel against its
+# plain version: as the record kernel (phase 6), per ray over the whole
+# trace: >= TIGHT_FRAC of the rays' colours within TIGHT (relative above 1),
+# a flipped ray (colour beyond 5 %, or another selection at some bounce) on at
+# most FLIP_FRAC of the rays, selections equal outside them. Culling on,
+# culling off and the wavefront run the same device functions on
+# conservative candidate sets: a ray may differ only where rounding puts a
+# hit on the edge of a box, on at most FLIP_FRAC of the rays. The recording
+# bounce kernel's state must equal the non-recording one's bit for bit.
+TRAIN_SEED = 0x7EA1
+SPP_TWO_PASS = 64  # bench.py --mixed-scene's 64-spp two-pass step
+OPS_MISS = 10  # a miss: the sky gradient
+
+
+def triangle_training_phases(dev, card, rs, dense_bwd_ms):
+    """Phases 15-18: the culled megakernel, the wavefront's record mode and
+    the global-table backward against their plain versions on BASELINE
+    configs 4 and 3, then the triangle-scale training path. Returns the
+    three kernels' entries of the ``kernels`` line."""
+    import numpy as np
+    import torch
+
+    from ptre_tpu_torch.utils.config import RenderConfig
+    from ptre_tpu_torch.models import demo
+    from ptre_tpu_torch.ops import camera as cam_ops
+    from ptre_tpu_torch.ops import path_replay, rng
+    from ptre_tpu_torch.ops.cuda import fused_grad as fg
+    from ptre_tpu_torch.ops.cuda import megakernel as mk
+    from ptre_tpu_torch.ops.cuda import wavefront as wf
+    from ptre_tpu_torch.parallel import sharding as sh
+    from ptre_tpu_torch.render import pathtracer as pt
+    from ptre_tpu_torch.render import train
+
+    B = 5
+    setups, mega, rec = {}, {}, {}
+    mega_err = 0.0
+    for name, (fn, kw), W, H in reversed(TRI_CONFIGS):  # config 4 first
+        R = W * H
+        cfg = RenderConfig(width=W, height=H, max_depth=B)
+        k = mk.TraceConsts.from_config(cfg)
+        pkt = getattr(demo, fn)(**kw).build_packet().to(dev)
+        cam = cam_ops.Camera.create(width=W, height=H)
+        scene = wf.prepare_scene(pkt, screen_cam=cam)
+        px, py = pt.pixel_grid(H, W, dev)
+        u = rng.ray_uniforms(TRAIN_SEED, 0, R, 1, dev)
+        o, d = (x.contiguous() for x in cam_ops.get_rays(cam, px, py, (u - 0.5).T))
+        urand = torch.from_numpy(rs.random((2 + 2 * B, R), dtype=np.float32)).to(dev)
+        n_rows = scene.tri_rows + scene.n_sph
+
+        # ---- 15. the culled megakernel vs its plain version ---------------------------
+        print(f"phase 15: culled megakernel vs plain, {name} ({pkt.num_triangles} triangles, "
+              f"{scene.n_leaf} leaves, {scene.super_boxes.shape[0]} supertiles) at {W}x{H}, "
+              f"max_depth {B}", flush=True)
+        allowed = math.ceil(FLIP_FRAC * R)
+        stats, kept = {}, {}
+        for mode, ur in (("external uniforms", urand), ("philox", None)):
+            color, sel = mk.trace_culled(o, d, scene, k, B, TRAIN_SEED, 0, ur, record=True)
+            want_c, want_s = mk.trace_culled_reference(
+                o, d, scene, k, B, TRAIN_SEED, 0, ur, record=True,
+                stats=stats if ur is None else None)
+            torch.cuda.synchronize()
+            diff = (color - want_c).abs()
+            scale = want_c.abs().clamp_min(1.0)
+            tight = float((diff <= TIGHT * scale).all(dim=1).float().mean())
+            other = (sel != want_s).any(dim=0)
+            flip = (diff > 0.05 * scale).any(dim=1) | other
+            mega_err = max(mega_err, float(diff[~flip].max()))
+            print(f"  {mode}: colour max_abs_err {float(diff.max()):.3e} "
+                  f"({float(diff[~flip].max()):.3e} outside flipped rays), {100 * tight:.4f}% "
+                  f"of the rays within {TIGHT:g} (relative above 1); {int(other.sum())} rays "
+                  f"with other selections, {int(flip.sum())} flipped rays (allowed "
+                  f"{allowed}); {int((sel >= 0).sum())} hits recorded", flush=True)
+            check(bool(torch.isfinite(color).all()), f"culled {name} {mode}: non-finite")
+            check(tight >= TIGHT_FRAC, f"culled {name} {mode}: only {tight:.6f} within {TIGHT}")
+            check(int(flip.sum()) <= allowed, f"culled {name} {mode}: {int(flip.sum())} flipped")
+            check(bool(((sel >= -1) & (sel < n_rows)).all()), f"culled {name} {mode}: bad rows")
+            check(torch.equal(mk.trace_culled(o, d, scene, k, B, TRAIN_SEED, 0, ur), color),
+                  f"culled {name} {mode}: recording changed the colour")
+            kept[mode] = (color, sel, ur)
+            del want_c, want_s, diff
+        # culling on vs off vs the wavefront's kernels, same rays and draws
+        for mode, (color, sel, ur) in kept.items():
+            bc, bs = mk.trace_culled(o, d, scene, k, B, TRAIN_SEED, 0, ur, cull=False,
+                                     record=True)
+            wc, ws, _ = wf.trace(o, d, scene, k, B, TRAIN_SEED, 0, ur, tile_hint=(H, W),
+                                 record=True)
+            torch.cuda.synchronize()
+            n_brute = int(((bc != color).any(dim=1) | (bs != sel).any(dim=0)).sum())
+            n_wave = int(((wc != color).any(dim=1) | (ws != sel).any(dim=0)).sum())
+            print(f"  {mode}: rays whose colour or selections differ from cull on: cull off "
+                  f"{n_brute}, wavefront {n_wave} of {R} (allowed {allowed} each)", flush=True)
+            check(n_brute <= allowed, f"{name} {mode}: cull off differs on {n_brute} rays")
+            check(n_wave <= allowed, f"{name} {mode}: the wavefront differs on {n_wave} rays")
+            if ur is None:
+                rec[name] = (wc, ws)
+            del bc, bs
+        m_ms = cuda_events(lambda: mk.trace_culled(o, d, scene, k, B, TRAIN_SEED, 0), 5)
+        m_rec_ms = cuda_events(lambda: mk.trace_culled(o, d, scene, k, B, TRAIN_SEED, 0,
+                                                       record=True), 5)
+        m_brute_ms = cuda_events(lambda: mk.trace_culled(o, d, scene, k, B, TRAIN_SEED, 0,
+                                                         cull=False), 1)
+        m_plain_ms = cuda_events(lambda: mk.trace_culled_reference(o, d, scene, k, B,
+                                                                   TRAIN_SEED, 0), 1)
+        t0 = time.perf_counter()
+        wf.trace(o, d, scene, k, B, TRAIN_SEED, 0, tile_hint=(H, W))
+        torch.cuda.synchronize()
+        wave_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        mk.trace_culled(o, d, scene, k, B, TRAIN_SEED, 0)
+        torch.cuda.synchronize()
+        mega_host_ms = (time.perf_counter() - t0) * 1e3
+        sel_p = kept["philox"][1]
+        hits = int((sel_p >= 0).sum())
+        print(f"  philox sample: {stats['ray_bounces']} live ray-bounces "
+              f"({stats['ray_bounces'] / R:.3f} a ray), {hits} hits; (ray, leaf) pairs: "
+              f"{stats['own_pairs']} whose box the ray itself passes, {stats['swept_pairs']} "
+              f"swept after the blocks' votes, {stats['ray_bounces'] * scene.n_leaf} without "
+              "culling", flush=True)
+        print(f"  culled megakernel {m_ms:.4f} ms ({m_rec_ms:.4f} ms recording, {m_brute_ms:.3f} "
+              f"ms with culling off), plain {m_plain_ms:.1f} ms (CUDA events); one sample as "
+              f"a forward, host clock: culled megakernel {mega_host_ms:.3f} ms, wavefront "
+              f"trace {wave_ms:.3f} ms ({name} {W}x{H}) [{card}]", flush=True)
+        # rays in, colour and B selections out; every live ray-bounce tests the
+        # supertile boxes, the leaf boxes of the supertiles it needs (counted
+        # as its own leaf pairs' supertiles, at least one box a pair), 64 rows
+        # per own pair, the spheres, and shades or takes the sky
+        mega[name] = (m_rec_ms, m_plain_ms, R * (24 + 12 + 4 * B), (
+            stats["ray_bounces"] * (scene.super_boxes.shape[0] * OPS_SLAB
+                                    + scene.n_sph * OPS_SPH_TEST + OPS_MISS)
+            + stats["own_pairs"] * (OPS_SLAB + wf.LEAF * OPS_TRI_TEST) + hits * OPS_SHADE))
+        setups[name] = (pkt, cam, cfg, scene, k, o, d)
+        del kept, urand
+
+    # ---- 16. the wavefront's record mode ---------------------------------------------------
+    rec_err = 0.0
+    for name, _, W, H in reversed(TRI_CONFIGS):
+        pkt, cam, cfg, scene, k, o, d = setups[name]
+        R = W * H
+        print(f"phase 16: the wavefront's record mode, {name} at {W}x{H}", flush=True)
+        wc, ws = rec[name]
+        plain_c = wf.trace(o, d, scene, k, B, TRAIN_SEED, 0, tile_hint=(H, W))
+        pc, ps, _ = wf.trace(o, d, scene, k, B, TRAIN_SEED, 0, tile_hint=(H, W), plain=True,
+                             record=True)
+        torch.cuda.synchronize()
+        check(torch.equal(wc, plain_c), f"{name}: trace(record=True) changed the colour")
+        other = (ws != ps).any(dim=0)
+        flip = ((wc - pc).abs() > 0.05 * pc.abs().clamp_min(1.0)).any(dim=1) | other
+        allowed = math.ceil(FLIP_FRAC * R)
+        print(f"  colour bit-equal to record=False; against the plain versions: "
+              f"{int(other.sum())} rays with other selections, {int(flip.sum())} flipped "
+              f"(allowed {allowed}); {int((ws >= 0).sum())} hits recorded, "
+              f"{int((ws[B - 1] >= 0).sum())} at the last bounce", flush=True)
+        check(int(flip.sum()) <= allowed, f"{name}: record mode flipped {int(flip.sum())} rays")
+        check(bool(((ws >= -1) & (ws < scene.tri_rows + scene.n_sph)).all()),
+              f"{name}: bad selection rows")
+        del pc, ps, plain_c
+        if name != "config 4":
+            continue
+        # the recording bounce kernel beside the non-recording one: bounce 1
+        state0, ids0, short0 = wf.primary_state(o, d, scene, (H, W))
+        state1 = wf.wave_bounce(state0, ids0, *short0, scene, k, 0, TRAIN_SEED, 0)
+        perm = wf.coherence_order(state1, scene)
+        state1, ids1 = state1[:, perm].contiguous(), ids0[perm].contiguous()
+        short, cnt = wf.shortlists_from_mask(wf.wave_mask(state1, scene.boxes, k.t_min))
+        sel_k = torch.full((B, R), -1, dtype=torch.int32, device=dev)
+        sel_r = sel_k.clone()
+        got = wf.wave_bounce(state1, ids1, short, cnt, scene, k, 1, TRAIN_SEED, 0, sel=sel_k)
+        same = wf.wave_bounce(state1, ids1, short, cnt, scene, k, 1, TRAIN_SEED, 0)
+        want = wf.wave_bounce_reference(state1, ids1, short, cnt, scene, k, 1, TRAIN_SEED, 0,
+                                        sel=sel_r)
+        torch.cuda.synchronize()
+        check(torch.equal(got, same), "the recording bounce kernel's state differs")
+        err = (got - want).abs()
+        flip = (err > WAVE_FLIP).any(dim=0)
+        flip_ids = ids1[flip].long()
+        ok = sel_k == sel_r
+        ok[:, flip_ids] = True
+        rec_err = float(err[:, ~flip].max())
+        print(f"  bounce 1, recording kernel: state bit-equal to the non-recording kernel's; "
+              f"against plain max_abs_err {rec_err:.3e} outside {int(flip.sum())} flipped rays; "
+              f"{int((~ok).any(dim=0).sum())} rays with another winner outside them; "
+              f"{int((sel_k[1] >= 0).sum())} winners written", flush=True)
+        check(int(flip.sum()) <= allowed and int((~ok).any(dim=0).sum()) <= allowed,
+              "the recording bounce kernel disagrees with its plain version")
+        check(bool((sel_k[[0, 2, 3, 4]] == -1).all()), "recording wrote another bounce's row")
+        b_ms = cuda_events(lambda: wf.wave_bounce(state1, ids1, short, cnt, scene, k, 1,
+                                                  TRAIN_SEED, 0), 10)
+        b_rec_ms = cuda_events(lambda: wf.wave_bounce(state1, ids1, short, cnt, scene, k, 1,
+                                                      TRAIN_SEED, 0, sel=sel_k), 10)
+        b_ms2 = cuda_events(lambda: wf.wave_bounce(state1, ids1, short, cnt, scene, k, 1,
+                                                   TRAIN_SEED, 0), 10)
+        b_plain_ms = cuda_events(lambda: wf.wave_bounce_reference(
+            state1, ids1, short, cnt, scene, k, 1, TRAIN_SEED, 0, sel=sel_r), 1)
+        print(f"  bounce kernel {b_ms:.4f} / {b_ms2:.4f} ms, recording {b_rec_ms:.4f} ms, plain "
+              f"recording {b_plain_ms:.3f} ms (CUDA events, bounce 1, {name} {W}x{H}) "
+              f"[{card}]", flush=True)
+        live = state1[9] > 0.5
+        n_live = int(live.sum())
+        pairs = int((live.view(-1, wf.LANES).sum(dim=1) * cnt).sum()) * wf.LEAF
+        r_pad = state1.shape[1]
+        rec_work = (r_pad * (80 + 4) + short.numel() * 4 + cnt.numel() * 4 + n_live * 4,
+                    pairs * OPS_TRI_TEST
+                    + n_live * (int(pkt.num_spheres) * OPS_SPH_TEST + OPS_SHADE))
+        rec_times = (b_rec_ms, b_plain_ms)
+        del state0, state1, got, same, want, sel_k, sel_r, err
+
+    # ---- 17. the global-table backward vs its plain version ------------------------------------
+    pkt, cam, cfg, scene, k, o, d = setups["config 4"]
+    W, H = cfg.width, cfg.height
+    R = W * H
+    print(f"phase 17: global-table backward vs plain, config 4 at {W}x{H}, the wavefront's "
+          "recorded selections", flush=True)
+    sel = rec["config 4"][1]
+    table, T, sky6 = path_replay.build_table(pkt)
+    table = torch.cat([table[:T][scene.perm_tri], table[T:]]).contiguous()
+    check(table.shape[0] > fg.MAX_ROWS, "config 4's table fits the staged instantiation")
+    dcol = torch.from_numpy(rs.standard_normal((R, 3), dtype=np.float32)).to(dev)
+    groups = {"v0-v2": slice(0, 9), "n0-n2": slice(9, 18), "center": slice(18, 21),
+              "radius": slice(21, 22), "albedo": slice(23, 26), "param": slice(26, 27)}
+    fg.launches = 0
+    gbwd_err = hold_backward(fg, mk, "global bwd philox", table, sky6, o, d, sel, dcol, k, B, T,
+                             TRAIN_SEED, None, groups)
+    check(fg.launches == 2, f"the backward kernel was launched {fg.launches} times")
+    run_a = fg.fused_bwd(table, sky6, o, d, sel, dcol, k, B, T, TRAIN_SEED, 0)
+    run_b = fg.fused_bwd(table, sky6, o, d, sel, dcol, k, B, T, TRAIN_SEED, 0)
+    torch.cuda.synchronize()
+    rr_tab = float((run_a[0] - run_b[0]).norm() / run_a[0].norm())
+    rr_sky = float((run_a[1] - run_b[1]).norm() / run_a[1].norm())
+    check(torch.equal(run_a[2], run_b[2]) and torch.equal(run_a[3], run_b[3]),
+          "d(o), d(d) differ between two runs")
+    hits = int((sel >= 0).sum())
+    rows_hit = int(torch.unique(sel[sel >= 0]).numel())
+    sph_share = float((sel >= T).sum()) / max(hits, 1)
+    print(f"  two runs of the kernel: d(table) relative L2 {rr_tab:.3e}, d(sky) {rr_sky:.3e} "
+          f"apart (atomics in no fixed order); d(o), d(d) bit-equal; {hits} hits on "
+          f"{rows_hit} of {table.shape[0]} rows, {100 * sph_share:.1f} % of them on the "
+          f"{scene.n_sph} sphere rows", flush=True)
+    g_ms = cuda_events(lambda: fg.fused_bwd(table, sky6, o, d, sel, dcol, k, B, T,
+                                            TRAIN_SEED, 0), 10)
+    g_plain_ms = cuda_events(lambda: fg.fused_bwd_reference(table, sky6, o, d, sel, dcol, k, B,
+                                                            T, TRAIN_SEED, 0), 1)
+    print(f"  global-table backward {g_ms:.4f} ms, plain {g_plain_ms:.1f} ms; the staged "
+          f"(dense) instantiation on the demo scene in this run (phase 7) {dense_bwd_ms:.4f} "
+          f"ms (CUDA events, {W}x{H}) [{card}]", flush=True)
+    # rays, selections and d(colour) in, d(o), d(d) out, the table read and
+    # d(table) written once (the per-hit row reads and atomics stay in L2), a
+    # chain and its adjoint per recorded hit
+    gbwd_work = (R * (24 + 4 * B + 12 + 24) + 2 * table.numel() * 4, hits * OPS_BWD_BOUNCE)
+    del run_a, run_b, dcol, table, rec
+
+    # ---- 18. the triangle-scale training path ---------------------------------------------------
+    def counters():
+        return (wf.mask_launches, wf.bounce_launches, wf.live_bounces, wf.binned_bounces,
+                fg.launches, mk.record_launches, mk.culled_launches)
+
+    def reset():
+        wf.mask_launches = wf.bounce_launches = wf.live_bounces = wf.binned_bounces = 0
+        fg.launches = mk.record_launches = mk.culled_launches = 0
+
+    def check_counts(what, samples, backwards, binned=True):
+        masks, bounces, live, bins, bwd, recs, culled = counters()
+        print(f"  {what}: launches: mask {masks}, bounce {bounces} (live bounces {live} of "
+              f"{samples * B}, bounce 0 binned {bins} times), backward {bwd}; dense record "
+              f"kernel {recs}, culled megakernel {culled}", flush=True)
+        check(bounces == live and samples < live <= samples * B,
+              f"{what}: {bounces} bounce launches for {live} live bounces")
+        check(bins == (samples if binned else 0) and masks == live - bins,
+              f"{what}: {masks} mask launches, {bins} binned bounces")
+        check(bwd == backwards and recs == 0 and culled == 0,
+              f"{what}: backward {bwd}, record {recs}, culled {culled}")
+        return masks, bounces, bwd
+
+    path_launches = [0, 0, 0, 0]  # mask, bounce, backward, culled
+    for name, _, W, H in reversed(TRI_CONFIGS):
+        pkt, cam, cfg, scene, k, o, d = setups[name]
+        R = W * H
+        print(f"phase 18: triangle training path, {name} at {W}x{H}: mse_step spp 1 (1 + "
+              f"{STEPS} steps)", flush=True)
+        params = sh.differentiable_params(pkt, cam)
+        target = torch.zeros((R, 3), device=dev)
+
+        def step(seed, spp=1):
+            loss, grads = train.mse_step(params, pkt, cam, target, cfg, seed, spp=spp)
+            torch.cuda.synchronize()
+            check(math.isfinite(float(loss)), f"{name} mse_step: loss {float(loss)}")
+            for key, g in grads.items():
+                check(bool(torch.isfinite(g).all()), f"{name} mse_step: non-finite d{key}")
+            return loss, grads
+
+        reset()  # every count to 0 just before the main path
+        step(100)
+        t0 = time.perf_counter()
+        for i in range(STEPS):
+            loss, grads = step(101 + i)
+        dt = (time.perf_counter() - t0) / STEPS
+        got = check_counts(f"{name} spp 1", STEPS + 1, STEPS + 1)
+        for i in range(3):
+            path_launches[i] += got[i]
+        if name == "config 4":  # config 3's triangles are emissive: no geometry gradient
+            check(float(grads["transforms"].abs().max()) > 0, "config 4: d(transforms) is zero")
+        check(float(grads["mat_albedo"].abs().max()) > 0
+              and float(grads["cam_position"].abs().max()) > 0, f"{name}: zero gradients")
+        torch.cuda.reset_peak_memory_stats()
+        step(200)
+        peak = torch.cuda.max_memory_allocated()
+        print(f"  {name} spp 1: {dt * 1e3:.3f} ms/step, {R * B / dt / 1e6:.2f} Mrays/s fwd+bwd "
+              f"(W*H*max_depth/s, host clock), loss {float(loss):.6f}, |d(transforms)| max "
+              f"{float(grads['transforms'].abs().max()):.3e}, peak {peak / 2**20:.1f} MiB "
+              f"[{card}]", flush=True)
+        device_share(lambda: train.mse_step(params, pkt, cam, target, cfg, 300), 2,
+                     f"{name} mse_step spp 1", card)
+        reset()
+        if name != "config 4":
+            continue
+
+        # the reference's bench_py_mixed shape: 64-spp two-pass, constant memory
+        reset()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loss2, grads2 = train.two_pass_mse_step(params, pkt, cam, target, cfg, 400,
+                                                spp=SPP_TWO_PASS)
+        torch.cuda.synchronize()
+        dt2 = time.perf_counter() - t0
+        peak2 = torch.cuda.max_memory_allocated()
+        got = check_counts(f"two_pass_mse_step spp {SPP_TWO_PASS}", 2 * SPP_TWO_PASS,
+                           SPP_TWO_PASS)
+        for i in range(3):
+            path_launches[i] += got[i]
+        check(math.isfinite(float(loss2)) and all(
+            bool(torch.isfinite(g).all()) for g in grads2.values()), "two-pass: non-finite")
+        print(f"  two_pass_mse_step spp {SPP_TWO_PASS}: {dt2 * 1e3:.1f} ms/step, "
+              f"{R * SPP_TWO_PASS * B / dt2 / 1e6:.2f} Mrays/s (W*H*spp*max_depth/s), loss "
+              f"{float(loss2):.6f}, peak {peak2 / 2**30:.2f} GiB [{card}]", flush=True)
+        del grads2
+        reset()
+
+        # one step through the culled megakernel (force="culled"), by hand:
+        # the A/B partner of the production forward
+        def culled_step(force):
+            leaves = {key: v.detach().requires_grad_(True) for key, v in params.items()}
+            pk, cm = sh.apply_params(leaves, pkt, cam)
+            jit = rng.ray_uniforms(500, 0, R, 1, dev)
+            oo, dd = cam_ops.get_rays(cm, *pt.pixel_grid(H, W, dev), (jit - 0.5).T)
+            color = fg.trace_grad(oo, dd, pk, cfg, 500, 0, force=force, screen_cam=cm)
+            loss = torch.mean((color - target) ** 2)
+            out = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
+            torch.cuda.synchronize()
+            return loss.detach(), dict(zip(leaves, out))
+
+        culled_step("culled")  # warm
+        reset()
+        t0 = time.perf_counter()
+        loss_c, grads_c = culled_step("culled")
+        dt_c = time.perf_counter() - t0
+        check(counters() == (0, 0, 0, 0, 1, 0, 1), f"culled step: counts {counters()}")
+        path_launches[2] += 1
+        path_launches[3] += 1
+        reset()
+        t0 = time.perf_counter()
+        loss_w, grads_w = culled_step("wavefront")
+        dt_w = time.perf_counter() - t0
+        worst = max(float((grads_c[key] - grads_w[key]).abs().max()
+                          / grads_w[key].abs().max().clamp_min(1e-30))
+                    for key in grads_w if grads_w[key] is not None)
+        print(f"  one step with force='culled': {dt_c * 1e3:.3f} ms, with force='wavefront' "
+              f"{dt_w * 1e3:.3f} ms (host clock); loss {float(loss_c):.6f} vs "
+              f"{float(loss_w):.6f}; largest gradient difference {worst:.2e} of the leaf's "
+              f"largest [{card}]", flush=True)
+        check(abs(float(loss_c) - float(loss_w)) <= 1e-5 * abs(float(loss_w)),
+              "culled and wavefront steps disagree on the loss")
+        check(worst <= 1e-3, f"culled and wavefront gradients differ by {worst}")
+        reset()
+
+    # the two-pass schedule equals the monolithic step on a triangle packet
+    Ws, Hs, spp_s = 320, 180, 4
+    cfg_s = RenderConfig(width=Ws, height=Hs, max_depth=B)
+    cam_s = cam_ops.Camera.create(width=Ws, height=Hs)
+    pkt_s = demo.config4_mixed_scene(32, 16).build_packet().to(dev)
+    par_s = sh.differentiable_params(pkt_s, cam_s)
+    tgt_s = torch.from_numpy(rs.uniform(0.0, 0.5, (Ws * Hs, 3)).astype(np.float32)).to(dev)
+    l1, g1 = train.mse_step(par_s, pkt_s, cam_s, tgt_s, cfg_s, 7, spp=spp_s)
+    l2, g2 = train.two_pass_mse_step(par_s, pkt_s, cam_s, tgt_s, cfg_s, 7, spp=spp_s,
+                                     samples_per_call=3)
+    torch.cuda.synchronize()
+    worst = 0.0
+    for key in g1:
+        a, b = g2[key], g1[key]
+        excess = float(((a - b).abs() - TWO_PASS_RTOL * b.abs()).max())
+        worst = max(worst, excess / max(float(b.abs().max()), 1e-30))
+        check(bool(torch.allclose(a, b, rtol=TWO_PASS_RTOL,
+                                  atol=TWO_PASS_ATOL * float(b.abs().max()))),
+              f"two_pass d{key} differs from mse_step: {float((a - b).abs().max())}")
+    check(abs(float(l1) - float(l2)) <= 1e-6 * abs(float(l1)), f"two_pass loss {l1} {l2}")
+    print(f"  two_pass_mse_step == mse_step on a {pkt_s.num_triangles}-triangle packet at "
+          f"{Ws}x{Hs}, spp {spp_s} (chunks of 3): loss {float(l1):.6f} vs {float(l2):.6f}, "
+          f"worst excess over rtol {worst:.2e} of the leaf's largest", flush=True)
+    print(f"  main path launches: mask {path_launches[0]}, bounce (recording) "
+          f"{path_launches[1]}, global-table backward {path_launches[2]}, culled megakernel "
+          f"{path_launches[3]}", flush=True)
+    check(all(n > 0 for n in path_launches), f"a kernel never ran: {path_launches}")
+
+    m_ms, m_plain_ms, m_bytes, m_ops = mega["config 4"]
+    return [with_bound({
+        "name": "trace_culled",
+        "route": "cuda",
+        "source": "ptre_tpu_torch/csrc/mega_kernel.cu",
+        "replaces": "ptre_tpu/ops/pallas/megakernel.py:237",
+        "launches": path_launches[3],
+        "max_abs_err": mega_err,
+        "ms": m_ms,
+        "plain_ms": m_plain_ms,
+    }, m_bytes, m_ops), with_bound({
+        "name": "wave_bounce_record",
+        "route": "cuda",
+        "source": "ptre_tpu_torch/csrc/wave_kernel.cu",
+        "replaces": "ptre_tpu/ops/pallas/wavefront.py:209",
+        "launches": path_launches[1],
+        "max_abs_err": rec_err,
+        "ms": rec_times[0],
+        "plain_ms": rec_times[1],
+    }, *rec_work), with_bound({
+        "name": "fused_bwd_global",
+        "route": "cuda",
+        "source": "ptre_tpu_torch/csrc/fused_grad_kernel.cu",
+        "replaces": "ptre_tpu/ops/pallas/fused_grad.py:112",
+        "launches": path_launches[2],
+        "max_abs_err": gbwd_err,
+        "ms": g_ms,
+        "plain_ms": g_plain_ms,
+    }, *gbwd_work)]
 
 
 # Raster kernels vs plain versions (phases 12-14). Coverage, z and the hard

@@ -103,15 +103,16 @@ extern "C" void ptre_fused_bwd_host(const ptre::TraceParams* params,
   const ptre::TraceParams& p = *params;
   const ptre::ChainConsts<float> k = {p.t_min, p.shadow_eps, p.pdf_eps};
   HostRowAccumulator acc = {dtable};
+  const ptre::PointerTable tab = {table};
   for (int64_t r = 0; r < p.n_rays; ++r) {
     if (p.external_rng) {
       ptre::ExternalUniforms un = {urand, r, p.n_rays};
-      ptre::ray_backward(p.max_depth, p.sph_offset, p.n_rows, table, sky, k,
+      ptre::ray_backward(p.max_depth, p.sph_offset, p.n_rows, tab, sky, k,
                          true, o + 3 * r, d + 3 * r, sel + r, p.n_rays, un,
                          dcol + 3 * r, d_o + 3 * r, d_d + 3 * r, dsky, acc);
     } else {
       ptre::PhiloxUniforms un(p.seed_lo, p.seed_hi, (uint32_t)r, p.sample);
-      ptre::ray_backward(p.max_depth, p.sph_offset, p.n_rows, table, sky, k,
+      ptre::ray_backward(p.max_depth, p.sph_offset, p.n_rows, tab, sky, k,
                          true, o + 3 * r, d + 3 * r, sel + r, p.n_rays, un,
                          dcol + 3 * r, d_o + 3 * r, d_d + 3 * r, dsky, acc);
     }

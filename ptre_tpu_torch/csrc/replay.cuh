@@ -588,6 +588,15 @@ PTRE_HD void chain_bounce_adjoint(const T o[3], const T d[3], const T c[3],
   for (int i = 0; i < 3; ++i) dD[i] = dDir[i];
 }
 
+// Table source of ray_backward for a table the thread addresses directly
+// (shared memory, or host memory in the host build): row idx in place.
+struct PointerTable {
+  const float* rows;  // (n_rows, 27)
+  PTRE_HD const float* row(int idx, float*) const {
+    return rows + idx * kRowStride;
+  }
+};
+
 // The whole backward of one ray (fused_grad._fused_bwd_kernel per lane):
 // recompute the chain forward from the primary ray, keeping the state at
 // each bounce boundary (fused_grad.py:227-236), then reverse the bounces
@@ -596,9 +605,11 @@ PTRE_HD void chain_bounce_adjoint(const T o[3], const T d[3], const T c[3],
 // with idx = -1 where nothing was hit, so a warp-level accumulator may
 // synchronise inside it. Uniforms are those the forward drew: the
 // external rows, or Philox regenerated from (seed, ray, sample, draw).
-template <class Uniforms, class Acc>
+// `table.row(idx, buf)` gives the 27 floats of row idx, in place or copied
+// into `buf`.
+template <class Table, class Uniforms, class Acc>
 PTRE_HD void ray_backward(int max_depth, int sph_offset, int n_rows,
-                          const float* table, const float sky[6],
+                          const Table& table, const float sky[6],
                           const ChainConsts<float>& k, bool valid,
                           const float o[3], const float d[3],
                           const int32_t* sel, int64_t sel_stride,
@@ -628,7 +639,8 @@ PTRE_HD void ray_backward(int max_depth, int sph_offset, int n_rows,
     su[b][1] = u2;
     sidx[b] = idx;
     sact[b] = act;
-    const float* g = idx >= 0 ? table + idx * kRowStride : nullptr;
+    float row[kRowStride];
+    const float* g = idx >= 0 ? table.row(idx, row) : nullptr;
     float O2[3], D2[3], C2[3];
     act = chain_bounce(O, D, C, act, g, idx >= sph_offset, idx >= 0, u1, u2,
                        sky, k, O2, D2, C2);
@@ -642,7 +654,8 @@ PTRE_HD void ray_backward(int max_depth, int sph_offset, int n_rows,
   for (int i = 0; i < 3; ++i) gC[i] = valid ? dcol[i] : 0.0f;
   for (int b = max_depth - 1; b >= 0; --b) {
     const int idx = sidx[b];
-    const float* g = idx >= 0 ? table + idx * kRowStride : nullptr;
+    float row[kRowStride];
+    const float* g = idx >= 0 ? table.row(idx, row) : nullptr;
     float dO[3], dD[3], dC[3], dg[kRowStride], ds[6];
     chain_bounce_adjoint(so[b], sd[b], sc[b], sact[b], g, idx >= sph_offset,
                          idx >= 0, su[b][0], su[b][1], sky, k, gO, gD, gC, dO,

@@ -1,11 +1,13 @@
-// Per-ray bodies of the wavefront path, shared by the CUDA mask and bounce
-// kernels (mask_kernel.cu, wave_kernel.cu) and their host build
-// (host_wave.cpp).
+// Per-ray bodies of the wavefront path and of the culled megakernel, shared
+// by the CUDA mask, bounce and culled kernels (mask_kernel.cu,
+// wave_kernel.cu, mega_kernel.cu) and their host build (host_wave.cpp).
 //
 // These are the one-ray forms of ptre_tpu/ops/pallas/wavefront.py
-// _mask_kernel (:102) and _wave_kernel (:209). Their plain PyTorch twins are
-// wave_mask_reference / wave_bounce_reference in ops/cuda/wavefront.py; all
-// keep the reference's operation order, so they agree to float rounding.
+// _mask_kernel (:102) and _wave_kernel (:209), and of the sweep and finish
+// of megakernel.py _mega_kernel (:237), which is the same arithmetic. Their
+// plain PyTorch twins are wave_mask_reference / wave_bounce_reference in
+// ops/cuda/wavefront.py and trace_culled_reference in ops/cuda/megakernel.py;
+// all keep the reference's operation order, so they agree to float rounding.
 //
 // The state of a ray is 10 float32 rows of a (10, r_pad) array: o.xyz d.xyz
 // rgb active, plus an int32 original ray id beside it that keys the scatter
@@ -26,6 +28,7 @@ namespace ptre {
 constexpr int kLeaf = 64;       // triangle rows per leaf: the sweep and cull granularity
 constexpr int kBoxStride = 8;   // pack_tile_boxes row
 constexpr int kMaxLanes = 256;  // rays per block, at most: one thread each
+constexpr int kSuper = 8;       // leaves per supertile: the culled sweep's second level
 
 // Arguments of the mask kernel, passed by value. Mirrored field for field by
 // MaskParams in ops/cuda/wavefront.py (every field 4 bytes).
@@ -45,7 +48,21 @@ struct WaveParams {
       list_stride,      // shortlist row length
       n_sph, num_mats,
       bounce,           // uniforms: draw pair 1 + bounce
-      external_rng;
+      external_rng,
+      sph_offset,       // recording: unified-table row of sphere 0
+      n_sel;            // recording: selection row length, the original rays
+};
+
+// Arguments of the culled megakernel, passed by value. Mirrored field for
+// field by MegaParams in ops/cuda/megakernel.py. Of `w` the kernel reads the
+// scalars, the seed, n_rays (the ray count, with either uniform source),
+// n_leaf, n_sph, num_mats, external_rng, sph_offset and n_sel; it sets
+// `bounce` itself.
+struct MegaParams {
+  WaveParams w;
+  int32_t max_depth,
+      n_super,  // supertiles: the leaf boxes hold n_super * kSuper rows
+      cull;     // 0: sweep every leaf
 };
 
 struct WaveRay {
@@ -79,10 +96,10 @@ PTRE_HD float slab_inv(float c) {
   return 1.0f / (fabsf(c) < 1e-12f ? (c >= 0.0f ? 1e-12f : -1e-12f) : c);
 }
 
-// Slab test of one ray against one leaf box (wavefront.py:144-152). No
+// Entry and exit parameters of one ray through one box (lo.xyz hi.xyz). No
 // a*b+c appears, so FMA contraction cannot change a verdict.
-PTRE_HD bool slab_pass(const float* box, const float o[3], const float iv[3],
-                       float t_min) {
+PTRE_HD void slab_interval(const float* box, const float o[3],
+                           const float iv[3], float* t_near, float* t_far) {
   float tn = -kBig, tf = kBig;
   for (int k = 0; k < 3; ++k) {
     const float lo = box[k], hi = box[3 + k];
@@ -91,7 +108,25 @@ PTRE_HD bool slab_pass(const float* box, const float o[3], const float iv[3],
     tn = k == 0 ? tnk : fmaxf(tn, tnk);
     tf = k == 0 ? tfk : fminf(tf, tfk);
   }
+  *t_near = tn;
+  *t_far = tf;
+}
+
+// Slab test of one ray against one leaf box (wavefront.py:144-152).
+PTRE_HD bool slab_pass(const float* box, const float o[3], const float iv[3],
+                       float t_min) {
+  float tn, tf;
+  slab_interval(box, o, iv, &tn, &tf);
   return tn <= tf && tf >= t_min;
+}
+
+// The culled megakernel's slab test (megakernel.py:377-390): also bounded by
+// the closest hit so far, so found intersections cull later boxes.
+PTRE_HD bool slab_pass_within(const float* box, const float o[3],
+                              const float iv[3], float t_min, float best_t) {
+  float tn, tf;
+  slab_interval(box, o, iv, &tn, &tf);
+  return tn <= tf && tf >= t_min && tn <= best_t;
 }
 
 // The closest triangle so far: strict t < best in ascending row order keeps
@@ -152,13 +187,33 @@ PTRE_HD float sphere_root(const float* sp, const float o[3], const float d[3],
   return *t_near >= t_min ? *t_near : halfb + sq;
 }
 
+// Recorder policies of finish_bounce. NoWinner compiles to nothing, so the
+// non-recording kernels' code and registers are those of a bounce without
+// recording.
+struct NoWinner {
+  PTRE_HD void winner(int) const {}
+};
+
+// Writes a live ray's winner as a unified-table row (wavefront.py:345-349):
+// triangle row j -> j, sphere s -> sph_offset + s, a miss -> -1. `dst` is
+// the ray's slot of this bounce's selection row, or null for a ray past the
+// original ones.
+struct WinnerWriter {
+  int32_t* dst;
+  PTRE_HD void winner(int row) const {
+    if (dst != nullptr) *dst = row;
+  }
+};
+
 // The rest of one live ray's bounce after the triangle sweep
 // (wavefront.py:311-466): spheres bounded by the closest triangle (far-root
 // quirk: the acceptance bounds t_near), the winner's row read by index and
 // its attributes re-derived, shading, and the next state in place.
-template <class Uniforms>
+// ``rec.winner(row)`` sees the winner.
+template <class Uniforms, class Recorder>
 PTRE_HD void finish_bounce(const WaveParams& p, const SceneTables& sc,
-                           const TriBest& tb, const Uniforms& un, WaveRay& r) {
+                           const TriBest& tb, const Uniforms& un,
+                           const Recorder& rec, WaveRay& r) {
   const float ox = r.o[0], oy = r.o[1], oz = r.o[2];
   const float dx = r.d[0], dy = r.d[1], dz = r.d[2];
   const float tri_best = tb.hit ? tb.t : p.t_max;
@@ -181,6 +236,7 @@ PTRE_HD void finish_bounce(const WaveParams& p, const SceneTables& sc,
   }
 
   const bool hit = tb.hit || sph_hit;
+  rec.winner(!hit ? -1 : (sph_hit ? p.sph_offset + sph_i : tb.idx));
   float f[3], wi[3] = {dx, dy, dz};
   bool emissive = false;
   float px = 0.0f, py = 0.0f, pz = 0.0f, nx = 0.0f, ny = 0.0f, nz = 0.0f;
@@ -278,16 +334,24 @@ struct PhiloxPair {
 // finish_bounce with the uniform source the params select: Philox keyed by
 // (seed, original ray id, sample), or rows 2 + 2b and 3 + 2b of the external
 // (2 + 2 * max_depth, n_rays) uniforms at the ray's id.
+template <class Recorder>
 PTRE_HD void finish_bounce_at(const WaveParams& p, const SceneTables& sc,
                               const TriBest& tb, int32_t id, const float* urand,
-                              WaveRay& r) {
+                              const Recorder& rec, WaveRay& r) {
   if (p.external_rng) {
     const ExternalUniforms un = {urand, id, p.n_rays};
-    finish_bounce(p, sc, tb, un, r);
+    finish_bounce(p, sc, tb, un, rec, r);
   } else {
     const PhiloxPair un = {p.seed_lo, p.seed_hi, (uint32_t)id, p.sample};
-    finish_bounce(p, sc, tb, un, r);
+    finish_bounce(p, sc, tb, un, rec, r);
   }
+}
+
+// The selection slot of ray `id` at bounce `bounce` of a (B, n_sel) int32
+// array: null for a ray past the original ones (padding, always dead).
+PTRE_HD int32_t* sel_slot(int32_t* sel, const WaveParams& p, int bounce,
+                          int32_t id) {
+  return id < p.n_sel ? sel + (int64_t)bounce * p.n_sel + id : nullptr;
 }
 
 }  // namespace ptre

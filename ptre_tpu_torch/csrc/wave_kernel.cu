@@ -12,6 +12,11 @@
 // read by index from global memory, its attributes re-derived, shading
 // (trace.cuh scatter_shade / sky_color) and the next state. Dead rays pass
 // through unchanged; a block without a live ray copies its state and stops.
+// The recording instantiation (wavefront.py:345-349, `record_sel`) also
+// writes each live ray's winner, as a unified-table row or -1, straight to
+// the ray's slot of this bounce's selection row by its original id: the ids
+// already ride the sort, so nothing else has to (the TPU let four selection
+// rows per bounce ride every later sort and scattered once at the end).
 //
 // What bounds it on this card: divergent float32 ALU work in the sweep, not
 // bytes. A leaf costs each live ray 64 triangle tests (~40 flops each) for
@@ -37,6 +42,7 @@
 
 namespace ptre {
 
+template <bool kRecord>
 __global__ void __launch_bounds__(kMaxLanes)
     wave_bounce_kernel(const WaveParams p, const float* __restrict__ state,
                        const int32_t* __restrict__ ids,
@@ -46,7 +52,8 @@ __global__ void __launch_bounds__(kMaxLanes)
                        const float* __restrict__ sphs,
                        const float* __restrict__ mats,
                        const float* __restrict__ sky,
-                       const float* __restrict__ urand, float* __restrict__ out) {
+                       const float* __restrict__ urand, float* __restrict__ out,
+                       int32_t* __restrict__ sel) {
   __shared__ __align__(16) float s_leaf[kLeaf * kTriStride];
   __shared__ float s_mat[kMaxMats * kMatStride];
   __shared__ float s_sky[8];
@@ -80,7 +87,13 @@ __global__ void __launch_bounds__(kMaxLanes)
   if (live) {
     // the winner's row is read from the table in global memory (and L2)
     const SceneTables sc = {tris, sphs, s_mat, s_sky, 0, p.n_sph, p.num_mats};
-    finish_bounce_at(p, sc, best, ids[col], urand, r);
+    const int32_t id = ids[col];
+    if (kRecord) {
+      const WinnerWriter rec = {sel_slot(sel, p, p.bounce, id)};
+      finish_bounce_at(p, sc, best, id, urand, rec, r);
+    } else {
+      finish_bounce_at(p, sc, best, id, urand, NoWinner(), r);
+    }
   }
   store_ray(out, col, p.r_pad, r);
 }
@@ -89,22 +102,30 @@ __global__ void __launch_bounds__(kMaxLanes)
 
 // C interface for ctypes. Launches on the caller's stream, allocates
 // nothing, does not synchronise; returns cudaGetLastError() of the launch.
-// `lanes` rays per block; r_pad must be a whole number of blocks.
+// `lanes` rays per block; r_pad must be a whole number of blocks. With `sel`
+// (max_depth, n_sel) int32 the recording instantiation runs and writes row
+// `bounce` of it for the live rays.
 extern "C" int ptre_wave_bounce(const ptre::WaveParams* params,
                                 const float* state, const int32_t* ids,
                                 const int32_t* shortlist, const int32_t* counts,
                                 const float* tris, const float* sphs,
                                 const float* mats, const float* sky,
-                                const float* urand, float* out, int lanes,
-                                void* stream) {
+                                const float* urand, float* out, int32_t* sel,
+                                int lanes, void* stream) {
   const ptre::WaveParams p = *params;
   if (p.n_leaf < 0 || p.n_sph < 0 || p.num_mats > ptre::kMaxMats || lanes < 32 ||
       lanes > ptre::kMaxLanes || lanes % 32 != 0 || p.r_pad % lanes != 0 ||
       (p.external_rng && urand == nullptr) ||
+      (sel != nullptr && (p.n_sel < 1 || p.sph_offset < 0 || p.bounce < 0)) ||
       reinterpret_cast<uintptr_t>(tris) % 16 != 0) {
     return (int)cudaErrorInvalidValue;
   }
-  ptre::wave_bounce_kernel<<<p.r_pad / lanes, lanes, 0, (cudaStream_t)stream>>>(
-      p, state, ids, shortlist, counts, tris, sphs, mats, sky, urand, out);
+  if (sel != nullptr) {
+    ptre::wave_bounce_kernel<true><<<p.r_pad / lanes, lanes, 0, (cudaStream_t)stream>>>(
+        p, state, ids, shortlist, counts, tris, sphs, mats, sky, urand, out, sel);
+  } else {
+    ptre::wave_bounce_kernel<false><<<p.r_pad / lanes, lanes, 0, (cudaStream_t)stream>>>(
+        p, state, ids, shortlist, counts, tris, sphs, mats, sky, urand, out, sel);
+  }
   return (int)cudaGetLastError();
 }

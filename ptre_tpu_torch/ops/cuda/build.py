@@ -32,7 +32,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 #: the kernel translation units, each compiled by its own nvcc process
 KERNEL_UNITS = ("render_kernel.cu", "record_kernel.cu", "fused_grad_kernel.cu",
                 "mask_kernel.cu", "wave_kernel.cu", "raster_kernel.cu",
-                "soft_raster_kernel.cu")
+                "soft_raster_kernel.cu", "mega_kernel.cu")
 #: every source the library is built from: the units and their headers
 SOURCES = KERNEL_UNITS + ("trace.cuh", "philox.cuh", "replay.cuh", "wave.cuh",
                           "raster.cuh")
@@ -126,18 +126,27 @@ def load_library() -> ctypes.CDLL:
     # (params, o, d, urand, tris, sphs, mats, sky, color, sel, stream)
     lib.ptre_trace_record.argtypes = [ptr] * 11
     lib.ptre_fused_bwd_blocks.restype = ctypes.c_int
-    lib.ptre_fused_bwd_blocks.argtypes = [ctypes.c_int]
+    # (n_rays, global_table)
+    lib.ptre_fused_bwd_blocks.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.ptre_fused_bwd.restype = ctypes.c_int
     # (params, table, sky, o, d, sel, urand, dcol, d_o, d_d, dtab_part,
     #  dsky_part, n_blocks, stream)
     lib.ptre_fused_bwd.argtypes = [ptr] * 12 + [ctypes.c_int, ptr]
+    lib.ptre_fused_bwd_global.restype = ctypes.c_int
+    # (params, table, sky, o, d, sel, urand, dcol, d_o, d_d, dtable, dsph_part,
+    #  dsky_part, n_blocks, n_sph_acc, stream)
+    lib.ptre_fused_bwd_global.argtypes = [ptr] * 13 + [ctypes.c_int, ctypes.c_int, ptr]
     lib.ptre_wave_mask.restype = ctypes.c_int
     # (params, state, boxes, mask, lanes, stream)
     lib.ptre_wave_mask.argtypes = [ptr] * 4 + [ctypes.c_int, ptr]
     lib.ptre_wave_bounce.restype = ctypes.c_int
     # (params, state, ids, shortlist, counts, tris, sphs, mats, sky, urand, out,
+    #  sel, lanes, stream)
+    lib.ptre_wave_bounce.argtypes = [ptr] * 12 + [ctypes.c_int, ptr]
+    lib.ptre_trace_culled.restype = ctypes.c_int
+    # (params, o, d, urand, tris, boxes, boxes2, sphs, mats, sky, color, sel,
     #  lanes, stream)
-    lib.ptre_wave_bounce.argtypes = [ptr] * 11 + [ctypes.c_int, ptr]
+    lib.ptre_trace_culled.argtypes = [ptr] * 12 + [ctypes.c_int, ptr]
     lib.ptre_raster_hard.restype = ctypes.c_int
     # (params, tris, cbox, out, stream)
     lib.ptre_raster_hard.argtypes = [ptr] * 5

@@ -1,6 +1,7 @@
-"""Scene packing for the dense render kernel + the plain PyTorch bounce loop.
+"""Scene packing, the plain PyTorch bounce loops, the recording forward of
+the dense class and the culled megakernel of triangle-scale scenes.
 
-Port of the dense-class pieces of `ptre_tpu/ops/pallas/megakernel.py`:
+Port of `ptre_tpu/ops/pallas/megakernel.py`:
 
   * `pack_tri32` / `pack_sph16` / `pack_mats` (`megakernel.py:169-223`) —
     the flat tables the kernel stages into shared memory;
@@ -16,7 +17,16 @@ Port of the dense-class pieces of `ptre_tpu/ops/pallas/megakernel.py`:
     (`_mega_kernel_dense` with ``record_sel``, `megakernel.py:734`): the
     wrapper of `csrc/record_kernel.cu` (counted in ``record_launches``),
     with `trace_record_reference` (``trace_block(record=True)``) as its
-    plain version, and the argument checks shared by the CUDA wrappers.
+    plain version, and the argument checks shared by the CUDA wrappers;
+  * `trace_culled` / `trace_culled_sel` — the culled megakernel
+    (`_mega_kernel`, `megakernel.py:237`): the whole bounce loop of one
+    sample over Morton-ordered 64-row leaves with a two-level slab cull
+    bounded by the best hit, in one launch of `csrc/mega_kernel.cu` (counted
+    in ``culled_launches``), with `trace_culled_reference` as its plain
+    version. Its sweep and finish (`sweep_leaf_reference`,
+    `finish_bounce_reference`) are the wavefront bounce's
+    (`ops/cuda/wavefront.py`), so the two forwards agree bit for bit in
+    their plain versions.
 
 Integrator semantics are the reference's: closest hit with triangles first
 and spheres bounded by the closest triangle (including the far-root quirk),
@@ -122,9 +132,10 @@ def morton_order(v0, v1, v2, valid):
 def empty_boxes(n: int, device=None):
     """(n, 8) always-miss box rows: lo = +BOX_INF > hi = -BOX_INF
     (`megakernel.py:132-136`)."""
-    row = torch.tensor([BOX_INF] * 3 + [-BOX_INF] * 3 + [0.0, 0.0],
-                       dtype=torch.float32, device=device)
-    return row.expand(n, 8).contiguous()
+    boxes = torch.zeros((n, 8), dtype=torch.float32, device=device)
+    boxes[:, 0:3] = BOX_INF  # filled on the device: no host copy, no sync
+    boxes[:, 3:6] = -BOX_INF
+    return boxes
 
 
 def pack_tile_boxes(v0, v1, v2, valid, tile: int):
@@ -606,3 +617,400 @@ def trace_fused_sel(o, d, scene: PackedScene, consts: TraceConsts,
             f"record kernel launch failed: {lib.ptre_cuda_error_string(rc).decode()}")
     record_launches += 1
     return color, sel
+
+
+# ---- one bounce over 64-row leaves: the pieces the wavefront's bounce and the
+# ---- culled megakernel share (csrc/wave.cuh) -----------------------------------
+
+#: triangle rows per leaf: the sweep and cull granularity (`_CULL_TILE`)
+LEAF = 64
+#: leaves per supertile, the culled sweep's second level (`_SUPER_TILE`)
+SUPER = 8
+
+
+class WaveParams(ctypes.Structure):
+    """Field for field `ptre::WaveParams` (wave.cuh), every field 4 bytes."""
+
+    _fields_ = [
+        ("t_min", ctypes.c_float), ("t_max", ctypes.c_float),
+        ("det_eps", ctypes.c_float), ("shadow_eps", ctypes.c_float),
+        ("pdf_eps", ctypes.c_float),
+        ("seed_lo", ctypes.c_uint32), ("seed_hi", ctypes.c_uint32),
+        ("sample", ctypes.c_uint32),
+        ("n_rays", ctypes.c_int32), ("r_pad", ctypes.c_int32),
+        ("n_leaf", ctypes.c_int32), ("list_stride", ctypes.c_int32),
+        ("n_sph", ctypes.c_int32), ("num_mats", ctypes.c_int32),
+        ("bounce", ctypes.c_int32), ("external_rng", ctypes.c_int32),
+        ("sph_offset", ctypes.c_int32), ("n_sel", ctypes.c_int32),
+    ]
+
+
+class MegaParams(ctypes.Structure):
+    """Field for field `ptre::MegaParams` (wave.cuh)."""
+
+    _fields_ = [("w", WaveParams), ("max_depth", ctypes.c_int32),
+                ("n_super", ctypes.c_int32), ("cull", ctypes.c_int32)]
+
+
+def wave_params(consts: TraceConsts, seed: int, sample: int, scene, **fields) -> WaveParams:
+    """The scalars, the seed and the scene's counts; ``fields`` the rest."""
+    k = consts
+    return WaveParams(
+        t_min=k.t_min, t_max=k.t_max, det_eps=k.det_eps, shadow_eps=k.shadow_eps,
+        pdf_eps=k.pdf_eps, seed_lo=seed & 0xFFFFFFFF, seed_hi=(seed >> 32) & 0xFFFFFFFF,
+        sample=sample & 0xFFFFFFFF, n_leaf=scene.n_leaf, n_sph=scene.n_sph,
+        num_mats=scene.num_mats, sph_offset=scene.tri_rows, **fields)
+
+
+def pack_super_boxes(boxes, sup: int = SUPER):
+    """(n_tiles, 8) tile boxes → (ceil(n_tiles / sup), 8) supertile union
+    boxes, lo.xyz hi.xyz 0 0; padding tiles are empty
+    (`megakernel.py:139-150`)."""
+    pad = (-boxes.shape[0]) % sup
+    if pad:
+        boxes = torch.cat([boxes, empty_boxes(pad, boxes.device)])
+    m = boxes.reshape(-1, sup, 8)
+    lo = torch.amin(m[:, :, 0:3], dim=1)
+    hi = torch.amax(m[:, :, 3:6], dim=1)
+    return torch.cat([lo, hi, lo.new_zeros((lo.shape[0], 2))], dim=1)
+
+
+def slab_inv(c):
+    """Direction reciprocal clamped away from 0 (`wavefront.py:138-141`)."""
+    return 1.0 / torch.where(torch.abs(c) < 1e-12,
+                             torch.where(c >= 0.0, 1e-12, -1e-12), c)
+
+
+def slab_interval(box, o, iv):
+    """(t_near, t_far) of rays ``o`` (3 rows), inverse directions ``iv``
+    through one box, six Python floats lo.xyz hi.xyz (wave.cuh
+    slab_interval)."""
+    tn = tf = None
+    for c in range(3):
+        lo, hi = box[c], box[3 + c]
+        pos = iv[c] >= 0.0
+        tnk = (torch.where(pos, lo, hi) - o[c]) * iv[c]
+        tfk = (torch.where(pos, hi, lo) - o[c]) * iv[c]
+        tn = tnk if tn is None else torch.maximum(tn, tnk)
+        tf = tfk if tf is None else torch.minimum(tf, tfk)
+    return tn, tf
+
+
+def bounce_uniforms(ids, bounce: int, seed: int, sample: int, urand=None):
+    """(u1, u2) of bounce ``bounce`` for the rays numbered ``ids``: rows 2 + 2b
+    and 3 + 2b of ``urand`` (2 + 2 * max_depth, R) at the ids (ids past R
+    belong to padding rays, which are dead: they read column 0), or the
+    Philox pair 1 + b keyed by (seed, id, sample)."""
+    if urand is None:
+        return rng.pair_uniforms(seed, sample, ids, 1 + bounce)
+    col = torch.where(ids < urand.shape[1], ids, 0).long()
+    return urand[2 + 2 * bounce][col], urand[3 + 2 * bounce][col]
+
+
+class TriBest:
+    """The closest triangle so far of every ray of a state (wave.cuh
+    TriBest): t, row and whether any row was accepted."""
+
+    def __init__(self, state):
+        r_pad, device = state.shape[1], state.device
+        self.t = torch.full((r_pad,), _BIG, dtype=state.dtype, device=device)
+        self.idx = torch.zeros(r_pad, dtype=torch.int64, device=device)
+        self.hit = torch.zeros(r_pad, dtype=torch.bool, device=device)
+
+
+def sweep_leaf_reference(tris, leaf: int, ray, state, k: TraceConsts, best: TriBest):
+    """Plain version of wave.cuh sweep_leaf for the rays ``ray`` (indices
+    into the state's columns): Moller-Trumbore against leaf ``leaf``'s 64
+    rows, strict ``t < best`` with the first minimum of the leaf, so a tie
+    keeps the lowest row (`wavefront.py:261-303`). Updates ``best``."""
+    blk = tris[leaf * LEAF:(leaf + 1) * LEAF]
+    v0x, v0y, v0z = (blk[None, :, c] for c in range(3))
+    e1x, e1y, e1z = (blk[None, :, 3 + c] - blk[None, :, c] for c in range(3))
+    e2x, e2y, e2z = (blk[None, :, 6 + c] - blk[None, :, c] for c in range(3))
+    valid = blk[None, :, 18] > 0.5
+    rox, roy, roz, rdx, rdy, rdz = (state[c][ray][:, None] for c in range(6))
+    pvx = rdy * e2z - rdz * e2y
+    pvy = rdz * e2x - rdx * e2z
+    pvz = rdx * e2y - rdy * e2x
+    det = e1x * pvx + e1y * pvy + e1z * pvz
+    inv_det = 1.0 / torch.where(torch.abs(det) < k.det_eps, 1.0, det)
+    tvx, tvy, tvz = rox - v0x, roy - v0y, roz - v0z
+    u = (tvx * pvx + tvy * pvy + tvz * pvz) * inv_det
+    qvx = tvy * e1z - tvz * e1y
+    qvy = tvz * e1x - tvx * e1z
+    qvz = tvx * e1y - tvy * e1x
+    v = (rdx * qvx + rdy * qvy + rdz * qvz) * inv_det
+    t = (e2x * qvx + e2y * qvy + e2z * qvz) * inv_det
+    acc = ((torch.abs(det) >= k.det_eps) & (u >= 0.0) & (u <= 1.0) & (v >= 0.0)
+           & (u + v <= 1.0) & (t >= k.t_min) & (t <= k.t_max) & valid)
+    tm = torch.where(acc, t, _BIG)
+    gmin = torch.amin(tm, dim=1)
+    garg = torch.argmin(tm, dim=1)  # the first minimum: the lowest row
+    upd = gmin < best.t[ray]  # strict: an earlier (lower) leaf keeps a tie
+    best.idx[ray] = torch.where(upd, garg + leaf * LEAF, best.idx[ray])
+    best.t[ray] = torch.where(upd, gmin, best.t[ray])
+    best.hit[ray] |= acc.any(dim=1)
+
+
+def finish_bounce_reference(state, ids, best: TriBest, scene, k: TraceConsts, bounce: int,
+                            seed: int = 0, sample: int = 0, urand=None):
+    """Plain version of wave.cuh finish_bounce over a whole (10, r_pad)
+    state after the triangle sweep (`wavefront.py:311-466`): spheres bounded
+    by the closest triangle (far-root quirk), the winner's attributes
+    re-derived from its row, shading, the next state. ``scene`` gives tris,
+    sphs, n_sph, mats, sky, num_mats and tri_rows. Returns (next state, a new
+    tensor; winners (r_pad,) int32: the unified-table row ``j`` for triangle
+    row j, ``tri_rows + s`` for sphere s, -1 where the ray missed or was not
+    live)."""
+    r_pad = state.shape[1]
+    ox, oy, oz, dx, dy, dz = state[0:6]
+    active = state[9] > 0.5
+    best_i, tri_hit = best.idx, best.hit
+    tri_best = torch.where(tri_hit, best.t, k.t_max)
+
+    # spheres bounded by the closest triangle, far-root quirk (:316-340)
+    def sphere_root(sp):
+        ocx, ocy, ocz = sp[..., 0] - ox[:, None], sp[..., 1] - oy[:, None], sp[..., 2] - oz[:, None]
+        halfb = dx[:, None] * ocx + dy[:, None] * ocy + dz[:, None] * ocz
+        c = ocx * ocx + ocy * ocy + ocz * ocz - sp[..., 3] * sp[..., 3]
+        delta = halfb * halfb - c
+        sq = torch.sqrt(torch.clamp(delta, min=0.0))
+        t_near = halfb - sq
+        return torch.where(t_near >= k.t_min, t_near, halfb + sq), delta, t_near
+
+    sph_t = torch.full_like(ox, _BIG)
+    sph_i = torch.zeros(r_pad, dtype=torch.int64, device=state.device)
+    sph_hit = torch.zeros_like(active)
+    for js in range(0, scene.n_sph, LEAF):
+        sp = scene.sphs[None, js:js + LEAF]
+        t, delta, t_near = sphere_root(sp)
+        acc = ((delta >= 0.0) & (t_near <= tri_best[:, None]) & (t >= k.t_min)
+               & (sp[..., 4] > 0.5))
+        tm = torch.where(acc, t, _BIG)
+        tile_min = torch.amin(tm, dim=1)
+        upd = tile_min < sph_t
+        sph_i = torch.where(upd, js + torch.argmin(tm, dim=1), sph_i)
+        sph_t = torch.where(upd, tile_min, sph_t)
+        sph_hit = sph_hit | acc.any(dim=1)
+    hit = tri_hit | sph_hit
+    use_sph = sph_hit
+    winners = torch.where(active & hit,
+                          torch.where(use_sph, sph_i + scene.tri_rows, best_i),
+                          -1).to(torch.int32)
+
+    # the winner's attributes, re-derived from its row (:388-447)
+    tr = scene.tris[best_i]
+    g = [tr[:, c] for c in range(20)]
+    e1x, e1y, e1z = g[3] - g[0], g[4] - g[1], g[5] - g[2]
+    e2x, e2y, e2z = g[6] - g[0], g[7] - g[1], g[8] - g[2]
+    pvx = dy * e2z - dz * e2y
+    pvy = dz * e2x - dx * e2z
+    pvz = dx * e2y - dy * e2x
+    det = e1x * pvx + e1y * pvy + e1z * pvz
+    inv_det = 1.0 / torch.where(det == 0.0, 1.0, det)
+    tvx, tvy, tvz = ox - g[0], oy - g[1], oz - g[2]
+    u = (tvx * pvx + tvy * pvy + tvz * pvz) * inv_det
+    qvx = tvy * e1z - tvz * e1y
+    qvy = tvz * e1x - tvx * e1z
+    qvz = tvx * e1y - tvy * e1x
+    v = (dx * qvx + dy * qvy + dz * qvz) * inv_det
+    t_tri = (e2x * qvx + e2y * qvy + e2z * qvz) * inv_det
+    w_ = 1.0 - u - v
+    tnx = w_ * g[9] + u * g[12] + v * g[15]
+    tny = w_ * g[10] + u * g[13] + v * g[16]
+    tnz = w_ * g[11] + u * g[14] + v * g[17]
+    tlen = torch.sqrt(tnx * tnx + tny * tny + tnz * tnz)
+    tinv = torch.where(tlen > 0.0, 1.0 / torch.where(tlen > 0.0, tlen, 1.0), 0.0)
+    gnx = e1y * e2z - e1z * e2y
+    gny = e1z * e2x - e1x * e2z
+    gnz = e1x * e2y - e1y * e2x
+    tsign = torch.where(dx * gnx + dy * gny + dz * gnz < 0.0, 1.0, -1.0)
+    tnx, tny, tnz = tnx * tinv * tsign, tny * tinv * tsign, tnz * tinv * tsign
+
+    sp = scene.sphs[sph_i]
+    t_s = sphere_root(sp[:, None])[0][:, 0]
+    inv_r = 1.0 / torch.where(sp[:, 3] == 0.0, 1.0, sp[:, 3])
+    spx, spy, spz = ox + t_s * dx, oy + t_s * dy, oz + t_s * dz
+    snx, sny, snz = (spx - sp[:, 0]) * inv_r, (spy - sp[:, 1]) * inv_r, (spz - sp[:, 2]) * inv_r
+    ssign = torch.where(dx * snx + dy * sny + dz * snz < 0.0, 1.0, -1.0)
+    snx, sny, snz = snx * ssign, sny * ssign, snz * ssign
+
+    px = torch.where(use_sph, spx, ox + t_tri * dx)
+    py = torch.where(use_sph, spy, oy + t_tri * dy)
+    pz = torch.where(use_sph, spz, oz + t_tri * dz)
+    nx = torch.where(use_sph, snx, tnx)
+    ny = torch.where(use_sph, sny, tny)
+    nz = torch.where(use_sph, snz, tnz)
+    mat_id = torch.where(use_sph, sp[:, 5], g[19])
+
+    u1, u2 = bounce_uniforms(ids, bounce, seed, sample, urand)
+    f_r, f_g, f_b, wix, wiy, wiz, is_emissive = scatter_shade(
+        nx, ny, nz, dx, dy, dz, mat_id, u1, u2, scene.mats.tolist(), scene.num_mats,
+        k.pdf_eps)
+    sky = sky_color(dy, scene.sky.tolist())
+    f = [torch.where(hit, fc, sc) for fc, sc in zip((f_r, f_g, f_b), sky)]
+    nxt = active & hit & ~is_emissive
+    rows = [torch.where(nxt, px + k.shadow_eps * nx, ox),
+            torch.where(nxt, py + k.shadow_eps * ny, oy),
+            torch.where(nxt, pz + k.shadow_eps * nz, oz),
+            torch.where(nxt, wix, dx), torch.where(nxt, wiy, dy),
+            torch.where(nxt, wiz, dz)]
+    rows += [state[6 + c] * fc for c, fc in enumerate(f)]
+    rows.append(nxt.to(torch.float32))
+    return torch.where(active[None, :], torch.stack(rows), state), winners
+
+
+# ---- the culled megakernel (B11) ---------------------------------------------------
+
+#: kernel launches made by `trace_culled` in this process
+culled_launches = 0
+#: rays per block of the culled megakernel, one CUDA thread each
+CULLED_LANES = 256
+
+
+def trace_culled_reference(o, d, scene, consts: TraceConsts, max_depth: int,
+                           seed: int = 0, sample: int = 0, urand=None, cull: bool = True,
+                           record: bool = False, lanes: int = CULLED_LANES,
+                           stats: dict = None):
+    """Plain version of the culled megakernel: (R, 3) rays → colour (R, 3)
+    unclamped, with ``record`` also the selections (max_depth, R) int32.
+
+    Per bounce and per block of ``lanes`` rays the supertiles are walked in
+    ascending order; a supertile, and then each of its leaves, is swept when
+    some live ray of the block passes its box's slab test bounded by that
+    ray's closest hit so far (`megakernel.py:365-401`), and every live ray
+    of the block then sweeps the leaf. ``cull=False`` sweeps every leaf.
+    Loops over leaves and reads the votes on the host. ``stats`` (with
+    ``cull``) receives the work this run's rays needed: ``ray_bounces`` (live
+    rays summed over the bounces), ``own_pairs`` ((ray, leaf) pairs whose
+    leaf box the ray itself passed before its closest hit so far) and
+    ``swept_pairs`` ((ray, leaf) pairs swept after the blocks' votes)."""
+    R = o.shape[0]
+    dev = o.device
+    r_pad = -(-R // lanes) * lanes
+    nb = r_pad // lanes
+    state = torch.zeros((10, r_pad), dtype=torch.float32, device=dev)
+    state[0:3, :R] = o.T
+    state[3:6, :R] = d.T
+    state[6:10, :R] = 1.0
+    ids = torch.arange(r_pad, dtype=torch.int32, device=dev)
+    sel = torch.full((max_depth, R), -1, dtype=torch.int32, device=dev)
+    box_rows = scene.cull_boxes[:, :6].tolist()
+    super_rows = scene.super_boxes[:, :6].tolist()
+
+    count = dict(ray_bounces=0, own_pairs=0, swept_pairs=0)
+
+    def block_vote(box, best, live, iv, among=None):
+        """(nb,) bool: some live ray of the block passes ``box``."""
+        tn, tf = slab_interval(box, state[0:3], iv)
+        ok = (tn <= tf) & (tf >= consts.t_min) & (tn <= best.t) & live
+        vote = ok.view(nb, lanes).any(dim=1)
+        if among is None:
+            return vote
+        if stats is not None:
+            count["own_pairs"] += int(ok.sum())
+        return vote & among
+
+    for b in range(max_depth):
+        live = state[9] > 0.5
+        if not bool(live.any()):
+            break  # the kernel's all-dead exit, for every block at once
+        best = TriBest(state)
+        count["ray_bounces"] += int(live.sum()) if stats is not None else 0
+        if cull:
+            iv = [slab_inv(state[3 + c]) for c in range(3)]
+            for js, sbox in enumerate(super_rows):
+                passed = block_vote(sbox, best, live, iv)
+                if not bool(passed.any()):
+                    continue
+                for leaf in range(js * SUPER, min((js + 1) * SUPER, scene.n_leaf)):
+                    vote = block_vote(box_rows[leaf], best, live, iv, among=passed)
+                    ray = (vote.repeat_interleave(lanes) & live).nonzero().squeeze(1)
+                    if ray.numel():
+                        count["swept_pairs"] += ray.numel()
+                        sweep_leaf_reference(scene.tris, leaf, ray, state, consts, best)
+        else:
+            ray = live.nonzero().squeeze(1)
+            for leaf in range(scene.n_leaf):
+                sweep_leaf_reference(scene.tris, leaf, ray, state, consts, best)
+        state, winners = finish_bounce_reference(state, ids, best, scene, consts, b, seed,
+                                                 sample, urand)
+        sel[b] = winners[:R]
+    if stats is not None:
+        stats.update(count)
+    color = state[6:9, :R].T.contiguous()
+    return (color, sel) if record else color
+
+
+def trace_culled(o, d, scene, consts: TraceConsts, max_depth: int, seed: int = 0,
+                 sample: int = 0, urand=None, cull: bool = True, record: bool = False,
+                 lanes: int = CULLED_LANES):
+    """Trace one sample per ray through the culled megakernel: (R, 3) rays →
+    colour (R, 3) float32 unclamped, with ``record`` also the selections
+    (max_depth, R) int32 (rows of ``scene.tris`` order, ``scene.tri_rows +
+    s`` for sphere s, -1 for a miss or an ended path).
+
+    ``scene``: a `wavefront.WaveScene` (`wavefront.prepare_scene`).
+    ``urand`` (2 + 2*max_depth, R) or None for Philox draws keyed by (seed,
+    ray, sample, draw). ``cull=False`` sweeps every leaf (the brute A/B).
+    CUDA tensors launch `csrc/mega_kernel.cu` once (counted in
+    ``culled_launches``); CPU tensors run `trace_culled_reference`; anything
+    else raises."""
+    global culled_launches
+    if o.device.type == "cpu":
+        return trace_culled_reference(o, d, scene, consts, max_depth, seed, sample, urand,
+                                      cull, record, lanes)
+    if o.device.type != "cuda":
+        raise RendererError(f"trace_culled runs on cuda or cpu, not {o.device}")
+    R = o.shape[0] if o.dim() == 2 else -1
+    n_super = scene.super_boxes.shape[0]
+    expected = [("o", o, (R, 3), torch.float32), ("d", d, (R, 3), torch.float32),
+                ("tris", scene.tris, (scene.tris.shape[0], 32), torch.float32),
+                ("cull_boxes", scene.cull_boxes, (n_super * SUPER, 8), torch.float32),
+                ("super_boxes", scene.super_boxes, (n_super, 8), torch.float32),
+                ("sphs", scene.sphs, (scene.n_sph, 16), torch.float32),
+                ("mats", scene.mats, (MAX_MATS, 8), torch.float32),
+                ("sky", scene.sky, (8,), torch.float32)]
+    if urand is not None:
+        expected.append(("urand", urand, (2 + 2 * max_depth, R), torch.float32))
+    check_tensors("o", o.device, expected)
+    if not (R >= 1 and max_depth >= 1 and 32 <= lanes <= 256 and lanes % 32 == 0):
+        raise RendererError(f"the culled megakernel takes >= 1 ray, max_depth >= 1 and 32 "
+                            f"<= lanes <= 256, a multiple of 32; got {R}, {max_depth}, {lanes}")
+    if (scene.tris.shape[0] < scene.n_leaf * LEAF or n_super * SUPER < scene.n_leaf
+            or scene.tris.data_ptr() % 16 or scene.num_mats > MAX_MATS):
+        raise RendererError("the culled megakernel takes n_leaf whole 64-row leaves, 16-byte "
+                            f"aligned, their boxes in whole supertiles and <= {MAX_MATS} "
+                            "materials")
+    color = torch.empty((R, 3), dtype=torch.float32, device=o.device)
+    sel = torch.empty((max_depth, R), dtype=torch.int32, device=o.device) if record else None
+    p = MegaParams(
+        w=wave_params(consts, seed, sample, scene, n_rays=R, n_sel=R,
+                      external_rng=int(urand is not None)),
+        max_depth=max_depth, n_super=n_super, cull=int(cull))
+    lib = build.load_library()
+    with torch.cuda.device(o.device):
+        stream = torch.cuda.current_stream(o.device).cuda_stream
+        rc = lib.ptre_trace_culled(
+            ctypes.addressof(p), o.data_ptr(), d.data_ptr(),
+            None if urand is None else urand.data_ptr(), scene.tris.data_ptr(),
+            scene.cull_boxes.data_ptr(), scene.super_boxes.data_ptr(),
+            scene.sphs.data_ptr(), scene.mats.data_ptr(), scene.sky.data_ptr(),
+            color.data_ptr(), None if sel is None else sel.data_ptr(), lanes, stream)
+    if rc != 0:
+        raise RendererError(
+            f"culled megakernel launch failed: {lib.ptre_cuda_error_string(rc).decode()}")
+    culled_launches += 1
+    return (color, sel) if record else color
+
+
+def trace_culled_sel(o, d, scene, consts: TraceConsts, max_depth: int, seed: int = 0,
+                     sample: int = 0, urand=None, cull: bool = True):
+    """The recording forward of the triangle-scale gradient path on the
+    culled megakernel (`megakernel.py:1225-1297`): (colour, selections
+    (max_depth, R) int32, perm). ``perm`` is the scene's Morton permutation
+    of the packet's triangle rows, which the recorded rows index, or None
+    for a scene packed in the packet's own order."""
+    color, sel = trace_culled(o, d, scene, consts, max_depth, seed, sample, urand, cull,
+                              record=True)
+    return color, sel, scene.perm_tri

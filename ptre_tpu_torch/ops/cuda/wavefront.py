@@ -15,7 +15,10 @@ Port of `ptre_tpu/ops/pallas/wavefront.py`. Per bounce:
   4. the BOUNCE kernel sweeps each block's shortlist, tests the spheres,
      re-derives the winner and shades it, and writes the next state.
 
-A final scatter puts the colours back in ray order.
+A final scatter puts the colours back in ray order. With ``record`` the
+bounce also writes every live ray's winner into a (B, R) int32 selection
+array by the ray's original id: the forward of the triangle-scale gradient
+path (`ops/cuda/fused_grad.trace_grad`).
 
   * `wave_mask` / `wave_bounce` are the wrappers of `csrc/mask_kernel.cu` and
     `csrc/wave_kernel.cu` (launches counted in ``mask_launches`` and
@@ -49,7 +52,6 @@ import dataclasses
 import torch
 
 from ptre_tpu_torch.utils.errors import RendererError
-from ptre_tpu_torch.ops import rng
 from ptre_tpu_torch.ops import vecmat as vm
 from ptre_tpu_torch.ops.cuda import build
 from ptre_tpu_torch.ops.cuda import megakernel as mk
@@ -58,7 +60,7 @@ from ptre_tpu_torch.ops.cuda import megakernel as mk
 MAX_WAVE_TRIS = 49152
 MAX_WAVE_SPHS = 4096
 #: triangle rows per leaf: the sweep and cull granularity
-LEAF = 64
+LEAF = mk.LEAF
 #: rays per block, one CUDA thread each; at bounce 0 a TILE_ROWS x
 #: (LANES // TILE_ROWS) pixel tile
 LANES = 256
@@ -205,23 +207,32 @@ class WaveScene:
     n_leaf: int
     n_sph: int
     num_mats: int
+    tri_rows: int  # T, the packet's padded triangle rows: rows >= T of `tris`
+    #               are dead, and sphere s is row T + s of the unified table
+    cull_boxes: torch.Tensor  # (n_super * 8, 8) `boxes` in whole supertiles
+    super_boxes: torch.Tensor  # (n_super, 8) their unions, pack_super_boxes
     perm_tri: torch.Tensor = None  # (T,) Morton permutation of packet rows
     leaf_screen: torch.Tensor = None  # (n_leaf, 4) with a screen camera
 
 
-def prepare_scene(packet, screen_cam=None, leaf: int = LEAF) -> WaveScene:
-    """Pack ``packet`` for `trace`: world-space triangles in Morton order, in
-    whole leaves of ``leaf`` rows (the last one padded with invalid rows),
-    their boxes, the spheres, materials and sky, the scene bounds, and with
-    ``screen_cam`` the leaves' screen boxes for bounce-0 binning. Unlike the
-    reference, no leaf is added for shortlist padding and the leaf count is
-    not rounded up to 128."""
+def prepare_scene(packet, screen_cam=None, leaf: int = LEAF,
+                  morton: bool = True) -> WaveScene:
+    """Pack ``packet`` for `trace` and `megakernel.trace_culled`: world-space
+    triangles in Morton order, in whole leaves of ``leaf`` rows (the last
+    one padded with invalid rows), their boxes (also padded to whole
+    supertiles with empty boxes, and the supertiles' union boxes), the
+    spheres, materials and sky, the scene bounds, and with ``screen_cam``
+    the leaves' screen boxes for bounce-0 binning. ``morton=False`` keeps
+    the packet's own row order (``perm_tri`` None): the unculled megakernel
+    of `megakernel.py:1255-1267`. Unlike the reference, no leaf is added for
+    shortlist padding, the leaf count is not rounded up to 128, and the
+    triangle table is not padded to whole supertiles."""
     v0, v1, v2, n0, n1, n2 = packet.world_triangles()
     dev = packet.device
     tri_valid, tri_mat = packet.tri_valid, packet.tri_mat
     T = v0.shape[0]
     perm = None
-    if T:
+    if T and morton:
         perm = mk.morton_order(v0, v1, v2, tri_valid)
         v0, v1, v2, n0, n1, n2 = (x[perm] for x in (v0, v1, v2, n0, n1, n2))
         tri_valid, tri_mat = tri_valid[perm], tri_mat[perm]
@@ -248,12 +259,15 @@ def prepare_scene(packet, screen_cam=None, leaf: int = LEAF) -> WaveScene:
                          packet.sph_mat)
     if sphs.shape[0] == 0:
         sphs = sphs.new_zeros((1, 16))  # one invalid row: the winner gather has a row
+    cull_boxes = torch.cat([boxes, mk.empty_boxes((-boxes.shape[0]) % mk.SUPER, dev)])
+    super_boxes = mk.pack_super_boxes(cull_boxes)
     return WaveScene(
         tris=tris.contiguous(), boxes=boxes.contiguous(), sphs=sphs.contiguous(),
         mats=mk.pack_mats(packet.mat_kind, packet.mat_albedo, packet.mat_param),
         sky=sky.to(torch.float32).contiguous(), scene_lo=scene_lo, scene_hi=scene_hi,
         n_leaf=n_leaf, n_sph=sphs.shape[0], num_mats=int(packet.num_materials),
-        perm_tri=perm, leaf_screen=leaf_screen)
+        tri_rows=T, cull_boxes=cull_boxes.contiguous(),
+        super_boxes=super_boxes.contiguous(), perm_tri=perm, leaf_screen=leaf_screen)
 
 
 # ---- the mask kernel (B7) ----------------------------------------------------
@@ -265,12 +279,6 @@ class MaskParams(ctypes.Structure):
                 ("n_leaf", ctypes.c_int32)]
 
 
-def _slab_inv(c):
-    """Direction reciprocal clamped away from 0 (`wavefront.py:138-141`)."""
-    return 1.0 / torch.where(torch.abs(c) < 1e-12,
-                             torch.where(c >= 0.0, 1e-12, -1e-12), c)
-
-
 def wave_mask_reference(state, boxes, t_min: float, lanes: int = LANES):
     """Plain version of the mask kernel: (nb, n_leaf) bool, True where some
     live ray of the block passes leaf l's slab test ``tn <= tf and tf >=
@@ -278,19 +286,12 @@ def wave_mask_reference(state, boxes, t_min: float, lanes: int = LANES):
     r_pad = state.shape[1]
     nb = r_pad // lanes
     o = state[0:3]
-    iv = [_slab_inv(state[3 + k]) for k in range(3)]
+    iv = [mk.slab_inv(state[3 + k]) for k in range(3)]
     live = state[9] > 0.5
     t_min = mk.f32(t_min)
     mask = torch.zeros((nb, boxes.shape[0]), dtype=torch.bool, device=state.device)
     for l, box in enumerate(boxes[:, :6].tolist()):
-        tn = tf = None
-        for k in range(3):
-            lo, hi = box[k], box[3 + k]
-            pos = iv[k] >= 0.0
-            tnk = (torch.where(pos, lo, hi) - o[k]) * iv[k]
-            tfk = (torch.where(pos, hi, lo) - o[k]) * iv[k]
-            tn = tnk if tn is None else torch.maximum(tn, tnk)
-            tf = tfk if tf is None else torch.minimum(tf, tfk)
+        tn, tf = mk.slab_interval(box, o, iv)
         ok = (tn <= tf) & (tf >= t_min) & live
         mask[:, l] = ok.view(nb, lanes).any(dim=1)
     return mask
@@ -335,33 +336,6 @@ def wave_mask(state, boxes, t_min: float, lanes: int = LANES):
 
 # ---- the bounce kernel (B6) ----------------------------------------------------
 
-class WaveParams(ctypes.Structure):
-    """Field for field `ptre::WaveParams` (wave.cuh), every field 4 bytes."""
-
-    _fields_ = [
-        ("t_min", ctypes.c_float), ("t_max", ctypes.c_float),
-        ("det_eps", ctypes.c_float), ("shadow_eps", ctypes.c_float),
-        ("pdf_eps", ctypes.c_float),
-        ("seed_lo", ctypes.c_uint32), ("seed_hi", ctypes.c_uint32),
-        ("sample", ctypes.c_uint32),
-        ("n_rays", ctypes.c_int32), ("r_pad", ctypes.c_int32),
-        ("n_leaf", ctypes.c_int32), ("list_stride", ctypes.c_int32),
-        ("n_sph", ctypes.c_int32), ("num_mats", ctypes.c_int32),
-        ("bounce", ctypes.c_int32), ("external_rng", ctypes.c_int32),
-    ]
-
-
-def _bounce_uniforms(ids, bounce: int, seed: int, sample: int, urand=None):
-    """(u1, u2) of bounce ``bounce`` for the rays numbered ``ids``: rows 2 + 2b
-    and 3 + 2b of ``urand`` (2 + 2 * max_depth, R) at the ids (ids past R
-    belong to padding rays, which are dead: they read column 0), or the
-    Philox pair 1 + b keyed by (seed, id, sample)."""
-    if urand is None:
-        return rng.pair_uniforms(seed, sample, ids, 1 + bounce)
-    col = torch.where(ids < urand.shape[1], ids, 0).long()
-    return urand[2 + 2 * bounce][col], urand[3 + 2 * bounce][col]
-
-
 def _listed(short, cnt, n_leaf: int):
     """(nb, n_leaf) bool: which leaves each block's shortlist holds."""
     nb, width = short.shape
@@ -372,141 +346,30 @@ def _listed(short, cnt, n_leaf: int):
 
 
 def wave_bounce_reference(state, ids, short, cnt, scene: WaveScene, consts, bounce: int,
-                          seed: int = 0, sample: int = 0, urand=None, lanes: int = LANES):
+                          seed: int = 0, sample: int = 0, urand=None, lanes: int = LANES,
+                          sel=None):
     """Plain version of the bounce kernel: the next (10, r_pad) state (a new
     tensor). Loops over leaves; each leaf's 64 rows are tested against the
-    live rays of the blocks that list it (`wavefront.py:209-466`)."""
-    k = consts
-    r_pad = state.shape[1]
-    ox, oy, oz, dx, dy, dz = state[0:6]
+    live rays of the blocks that list it (`wavefront.py:209-466`). With
+    ``sel`` (B, R) int32 the live rays' winners are written into row
+    ``bounce`` at their ids, in place (`record_sel`, `:345-349`)."""
     active = state[9] > 0.5
     listed = _listed(short, cnt, scene.n_leaf)
-    best_t = torch.full_like(ox, mk._BIG)
-    best_i = torch.zeros(r_pad, dtype=torch.int64, device=state.device)
-    tri_hit = torch.zeros_like(active)
+    best = mk.TriBest(state)
     for leaf in range(scene.n_leaf):
         ray = (listed[:, leaf].repeat_interleave(lanes) & active).nonzero().squeeze(1)
-        if ray.numel() == 0:
-            continue
-        blk = scene.tris[leaf * LEAF:(leaf + 1) * LEAF]
-        v0x, v0y, v0z = (blk[None, :, c] for c in range(3))
-        e1x, e1y, e1z = (blk[None, :, 3 + c] - blk[None, :, c] for c in range(3))
-        e2x, e2y, e2z = (blk[None, :, 6 + c] - blk[None, :, c] for c in range(3))
-        valid = blk[None, :, 18] > 0.5
-        rox, roy, roz, rdx, rdy, rdz = (x[ray][:, None] for x in (ox, oy, oz, dx, dy, dz))
-        pvx = rdy * e2z - rdz * e2y
-        pvy = rdz * e2x - rdx * e2z
-        pvz = rdx * e2y - rdy * e2x
-        det = e1x * pvx + e1y * pvy + e1z * pvz
-        inv_det = 1.0 / torch.where(torch.abs(det) < k.det_eps, 1.0, det)
-        tvx, tvy, tvz = rox - v0x, roy - v0y, roz - v0z
-        u = (tvx * pvx + tvy * pvy + tvz * pvz) * inv_det
-        qvx = tvy * e1z - tvz * e1y
-        qvy = tvz * e1x - tvx * e1z
-        qvz = tvx * e1y - tvy * e1x
-        v = (rdx * qvx + rdy * qvy + rdz * qvz) * inv_det
-        t = (e2x * qvx + e2y * qvy + e2z * qvz) * inv_det
-        acc = ((torch.abs(det) >= k.det_eps) & (u >= 0.0) & (u <= 1.0) & (v >= 0.0)
-               & (u + v <= 1.0) & (t >= k.t_min) & (t <= k.t_max) & valid)
-        tm = torch.where(acc, t, mk._BIG)
-        gmin = torch.amin(tm, dim=1)
-        garg = torch.argmin(tm, dim=1)  # the first minimum: the lowest row
-        upd = gmin < best_t[ray]  # strict: an earlier (lower) leaf keeps a tie
-        best_i[ray] = torch.where(upd, garg + leaf * LEAF, best_i[ray])
-        best_t[ray] = torch.where(upd, gmin, best_t[ray])
-        tri_hit[ray] |= acc.any(dim=1)
-    tri_best = torch.where(tri_hit, best_t, k.t_max)
-
-    # spheres bounded by the closest triangle, far-root quirk (:316-340)
-    def sphere_root(sp):
-        ocx, ocy, ocz = sp[..., 0] - ox[:, None], sp[..., 1] - oy[:, None], sp[..., 2] - oz[:, None]
-        halfb = dx[:, None] * ocx + dy[:, None] * ocy + dz[:, None] * ocz
-        c = ocx * ocx + ocy * ocy + ocz * ocz - sp[..., 3] * sp[..., 3]
-        delta = halfb * halfb - c
-        sq = torch.sqrt(torch.clamp(delta, min=0.0))
-        t_near = halfb - sq
-        return torch.where(t_near >= k.t_min, t_near, halfb + sq), delta, t_near
-
-    sph_t = torch.full_like(ox, mk._BIG)
-    sph_i = torch.zeros(r_pad, dtype=torch.int64, device=state.device)
-    sph_hit = torch.zeros_like(active)
-    for js in range(0, scene.n_sph, LEAF):
-        sp = scene.sphs[None, js:js + LEAF]
-        t, delta, t_near = sphere_root(sp)
-        acc = ((delta >= 0.0) & (t_near <= tri_best[:, None]) & (t >= k.t_min)
-               & (sp[..., 4] > 0.5))
-        tm = torch.where(acc, t, mk._BIG)
-        tile_min = torch.amin(tm, dim=1)
-        upd = tile_min < sph_t
-        sph_i = torch.where(upd, js + torch.argmin(tm, dim=1), sph_i)
-        sph_t = torch.where(upd, tile_min, sph_t)
-        sph_hit = sph_hit | acc.any(dim=1)
-    hit = tri_hit | sph_hit
-    use_sph = sph_hit
-
-    # the winner's attributes, re-derived from its row (:388-447)
-    tr = scene.tris[best_i]
-    g = [tr[:, c] for c in range(20)]
-    e1x, e1y, e1z = g[3] - g[0], g[4] - g[1], g[5] - g[2]
-    e2x, e2y, e2z = g[6] - g[0], g[7] - g[1], g[8] - g[2]
-    pvx = dy * e2z - dz * e2y
-    pvy = dz * e2x - dx * e2z
-    pvz = dx * e2y - dy * e2x
-    det = e1x * pvx + e1y * pvy + e1z * pvz
-    inv_det = 1.0 / torch.where(det == 0.0, 1.0, det)
-    tvx, tvy, tvz = ox - g[0], oy - g[1], oz - g[2]
-    u = (tvx * pvx + tvy * pvy + tvz * pvz) * inv_det
-    qvx = tvy * e1z - tvz * e1y
-    qvy = tvz * e1x - tvx * e1z
-    qvz = tvx * e1y - tvy * e1x
-    v = (dx * qvx + dy * qvy + dz * qvz) * inv_det
-    t_tri = (e2x * qvx + e2y * qvy + e2z * qvz) * inv_det
-    w_ = 1.0 - u - v
-    tnx = w_ * g[9] + u * g[12] + v * g[15]
-    tny = w_ * g[10] + u * g[13] + v * g[16]
-    tnz = w_ * g[11] + u * g[14] + v * g[17]
-    tlen = torch.sqrt(tnx * tnx + tny * tny + tnz * tnz)
-    tinv = torch.where(tlen > 0.0, 1.0 / torch.where(tlen > 0.0, tlen, 1.0), 0.0)
-    gnx = e1y * e2z - e1z * e2y
-    gny = e1z * e2x - e1x * e2z
-    gnz = e1x * e2y - e1y * e2x
-    tsign = torch.where(dx * gnx + dy * gny + dz * gnz < 0.0, 1.0, -1.0)
-    tnx, tny, tnz = tnx * tinv * tsign, tny * tinv * tsign, tnz * tinv * tsign
-
-    sp = scene.sphs[sph_i]
-    t_s = sphere_root(sp[:, None])[0][:, 0]
-    inv_r = 1.0 / torch.where(sp[:, 3] == 0.0, 1.0, sp[:, 3])
-    spx, spy, spz = ox + t_s * dx, oy + t_s * dy, oz + t_s * dz
-    snx, sny, snz = (spx - sp[:, 0]) * inv_r, (spy - sp[:, 1]) * inv_r, (spz - sp[:, 2]) * inv_r
-    ssign = torch.where(dx * snx + dy * sny + dz * snz < 0.0, 1.0, -1.0)
-    snx, sny, snz = snx * ssign, sny * ssign, snz * ssign
-
-    px = torch.where(use_sph, spx, ox + t_tri * dx)
-    py = torch.where(use_sph, spy, oy + t_tri * dy)
-    pz = torch.where(use_sph, spz, oz + t_tri * dz)
-    nx = torch.where(use_sph, snx, tnx)
-    ny = torch.where(use_sph, sny, tny)
-    nz = torch.where(use_sph, snz, tnz)
-    mat_id = torch.where(use_sph, sp[:, 5], g[19])
-
-    u1, u2 = _bounce_uniforms(ids, bounce, seed, sample, urand)
-    f_r, f_g, f_b, wix, wiy, wiz, is_emissive = mk.scatter_shade(
-        nx, ny, nz, dx, dy, dz, mat_id, u1, u2, scene.mats.tolist(), scene.num_mats,
-        k.pdf_eps)
-    sky = mk.sky_color(dy, scene.sky.tolist())
-    f = [torch.where(hit, fc, sc) for fc, sc in zip((f_r, f_g, f_b), sky)]
-    nxt = active & hit & ~is_emissive
-    rows = [torch.where(nxt, px + k.shadow_eps * nx, ox),
-            torch.where(nxt, py + k.shadow_eps * ny, oy),
-            torch.where(nxt, pz + k.shadow_eps * nz, oz),
-            torch.where(nxt, wix, dx), torch.where(nxt, wiy, dy),
-            torch.where(nxt, wiz, dz)]
-    rows += [state[6 + c] * fc for c, fc in enumerate(f)]
-    rows.append(nxt.to(torch.float32))
-    return torch.where(active[None, :], torch.stack(rows), state)
+        if ray.numel():
+            mk.sweep_leaf_reference(scene.tris, leaf, ray, state, consts, best)
+    out, winners = mk.finish_bounce_reference(state, ids, best, scene, consts, bounce, seed,
+                                              sample, urand)
+    if sel is not None:
+        keep = active & (ids < sel.shape[1])
+        sel[bounce, ids[keep].long()] = winners[keep]
+    return out
 
 
-def _check_bounce_inputs(state, ids, short, cnt, scene: WaveScene, urand, lanes):
+def _check_bounce_inputs(state, ids, short, cnt, scene: WaveScene, urand, lanes, sel,
+                         bounce):
     dev = state.device
     r_pad = state.shape[1]
     nb = r_pad // lanes
@@ -521,7 +384,12 @@ def _check_bounce_inputs(state, ids, short, cnt, scene: WaveScene, urand, lanes)
                 ("sky", scene.sky, (8,), torch.float32)]
     if urand is not None:
         expected.append(("urand", urand, (urand.shape[0], urand.shape[1]), torch.float32))
+    if sel is not None:
+        expected.append(("sel", sel, (sel.shape[0], sel.shape[1] if sel.dim() == 2 else -1),
+                         torch.int32))
     mk.check_tensors("state", dev, expected)
+    if sel is not None and not (0 <= bounce < sel.shape[0] and sel.shape[1] >= 1):
+        raise RendererError(f"sel has {sel.shape[0]} bounce rows, bounce is {bounce}")
     _check_lanes(r_pad, lanes)
     if scene.tris.shape[0] < max(scene.n_leaf, 1) * LEAF or scene.tris.data_ptr() % 16:
         raise RendererError("tris must hold n_leaf whole 64-row leaves, 16-byte aligned")
@@ -530,30 +398,29 @@ def _check_bounce_inputs(state, ids, short, cnt, scene: WaveScene, urand, lanes)
 
 
 def wave_bounce(state, ids, short, cnt, scene: WaveScene, consts, bounce: int,
-                seed: int = 0, sample: int = 0, urand=None, lanes: int = LANES):
+                seed: int = 0, sample: int = 0, urand=None, lanes: int = LANES, sel=None):
     """One bounce of the sorted state: the next (10, r_pad) state (a new
     tensor). ``ids`` (r_pad,) int32 are the original ray ids; ``short`` /
     ``cnt`` the blocks' shortlists (`shortlists_from_mask`); ``urand`` None
     (Philox keyed by (seed, id, sample)) or (2 + 2 * max_depth, R) external
-    uniforms. CUDA tensors launch `csrc/wave_kernel.cu` (counted in
-    ``bounce_launches``); CPU tensors run `wave_bounce_reference`; anything
-    else raises."""
+    uniforms. With ``sel`` (B, R) int32 the recording instantiation runs: it
+    writes each live ray's winner (a unified-table row, -1 for a miss) into
+    ``sel[bounce, id]`` in place; ids >= R are dropped. CUDA tensors launch
+    `csrc/wave_kernel.cu` (counted in ``bounce_launches``); CPU tensors run
+    `wave_bounce_reference`; anything else raises."""
     global bounce_launches
     if state.device.type == "cpu":
         return wave_bounce_reference(state, ids, short, cnt, scene, consts, bounce,
-                                     seed, sample, urand, lanes)
+                                     seed, sample, urand, lanes, sel)
     if state.device.type != "cuda":
         raise RendererError(f"wave_bounce runs on cuda or cpu, not {state.device}")
-    _check_bounce_inputs(state, ids, short, cnt, scene, urand, lanes)
+    _check_bounce_inputs(state, ids, short, cnt, scene, urand, lanes, sel, bounce)
     r_pad = state.shape[1]
     out = torch.empty_like(state)
-    k = consts
-    p = WaveParams(
-        t_min=k.t_min, t_max=k.t_max, det_eps=k.det_eps, shadow_eps=k.shadow_eps,
-        pdf_eps=k.pdf_eps, seed_lo=seed & 0xFFFFFFFF, seed_hi=(seed >> 32) & 0xFFFFFFFF,
-        sample=sample & 0xFFFFFFFF, n_rays=0 if urand is None else urand.shape[1],
-        r_pad=r_pad, n_leaf=scene.n_leaf, list_stride=short.shape[1], n_sph=scene.n_sph,
-        num_mats=scene.num_mats, bounce=bounce, external_rng=int(urand is not None))
+    p = mk.wave_params(
+        consts, seed, sample, scene, n_rays=0 if urand is None else urand.shape[1],
+        r_pad=r_pad, list_stride=short.shape[1], bounce=bounce,
+        external_rng=int(urand is not None), n_sel=0 if sel is None else sel.shape[1])
     lib = build.load_library()
     with torch.cuda.device(state.device):
         stream = torch.cuda.current_stream(state.device).cuda_stream
@@ -561,7 +428,8 @@ def wave_bounce(state, ids, short, cnt, scene: WaveScene, consts, bounce: int,
             ctypes.addressof(p), state.data_ptr(), ids.data_ptr(), short.data_ptr(),
             cnt.data_ptr(), scene.tris.data_ptr(), scene.sphs.data_ptr(),
             scene.mats.data_ptr(), scene.sky.data_ptr(),
-            None if urand is None else urand.data_ptr(), out.data_ptr(), lanes, stream)
+            None if urand is None else urand.data_ptr(), out.data_ptr(),
+            None if sel is None else sel.data_ptr(), lanes, stream)
     if rc != 0:
         raise RendererError(
             f"bounce kernel launch failed: {lib.ptre_cuda_error_string(rc).decode()}")
@@ -659,9 +527,14 @@ def coherence_order(state, scene: WaveScene):
 def trace(o, d, scene: WaveScene, consts, max_depth: int, seed: int = 0,
           sample: int = 0, urand=None, cull: bool = True, tile_hint=None,
           sort_min_live=SORT_MIN_LIVE, lanes: int = LANES, plain: bool = False,
-          timer: StageTimer = None):
+          timer: StageTimer = None, record: bool = False):
     """Wavefront trace, one sample per ray: (R, 3) rays → (R, 3) float32
-    linear colour, unclamped (`wavefront.py:709-871`).
+    linear colour, unclamped (`wavefront.py:709-871`). With ``record`` it
+    returns (colour, selections (max_depth, R) int32, ``scene.perm_tri``):
+    per bounce each ray's winner as a row of the Morton-permuted unified
+    table (``j`` for triangle row j of ``scene.tris``, ``scene.tri_rows + s``
+    for sphere s), -1 where the ray missed, had ended, or the bounce was cut
+    by the dead-wavefront stop (`:853-857`).
 
     ``urand`` None draws Philox keyed by (seed, ray, sample); else the (2 + 2
     * max_depth, R) external uniforms. ``tile_hint`` (H, W): the rays are a
@@ -683,6 +556,7 @@ def trace(o, d, scene: WaveScene, consts, max_depth: int, seed: int = 0,
     with stage("gather"):
         state, ids, short0 = primary_state(o, d, scene, tile_hint, cull, lanes)
     nb = state.shape[1] // lanes
+    sel = torch.full((max_depth, R), -1, dtype=torch.int32, device=dev) if record else None
     for b in range(max_depth):
         if b > 0:
             n_live = int((state[9] > 0.5).sum())
@@ -707,8 +581,10 @@ def trace(o, d, scene: WaveScene, consts, max_depth: int, seed: int = 0,
             short, cnt = all_leaves(nb, scene.n_leaf, dev)
         with stage("bounce"):
             state = bounce_fn(state, ids, short, cnt, scene, consts, b, seed, sample,
-                              urand, lanes)
+                              urand, lanes, sel)
     with stage("gather"):
         color = torch.empty((state.shape[1], 3), dtype=torch.float32, device=dev)
         color[ids.long()] = state[6:9].T
+    if record:
+        return color[:R], sel, scene.perm_tri
     return color[:R]

@@ -20,9 +20,13 @@ mean image M = (1/S) sum_s I_s over S samples per pixel:
 `raster_mse_step` is the rasterizer's counterpart: the image MSE of the
 SoftRas path, one launch each of its forward and backward kernels.
 
-On CUDA tensors every sample is one launch of the recording kernel and one
-of the fused backward kernel (`ops/cuda/fused_grad`); on CPU tensors their
-plain versions run. Random numbers: per sample s, the port's Philox keyed by
+On CUDA tensors a sample of a dense-class packet is one launch of the
+recording kernel and one of the fused backward kernel (`ops/cuda/fused_grad`);
+a sample of a triangle-scale packet runs the wavefront in record mode (a mask
+and a bounce launch per live bounce) and one launch of the backward kernel's
+global-table instantiation. On CPU tensors their plain versions run. The
+scene is packed (world-space triangles, Morton sort, boxes) once per step,
+without a graph: only the unified table carries gradients to the packet. Random numbers: per sample s, the port's Philox keyed by
 (seed, pixel, s, draw) — draw 0 the pixel jitter, draw 1 + b bounce b — or
 given uniforms ``urand`` (S, 2 + 2*max_depth, H, W), the layout of
 `render/pathtracer.render_step`.
@@ -40,20 +44,29 @@ import torch
 
 from ptre_tpu_torch.ops import camera as cam_ops
 from ptre_tpu_torch.ops import integrator, rng
+from ptre_tpu_torch.ops.cuda import fused_grad
 from ptre_tpu_torch.parallel import sharding as sh
 from ptre_tpu_torch.render import pathtracer as pt
 from ptre_tpu_torch.render import rasterizer
 
 
+def pack_forward(params, packet, cam):
+    """The step's packed forward (`fused_grad.prepare_forward`) of the packet
+    and camera with ``params`` applied: every sample of a step shares it."""
+    pk, cm = sh.apply_params(params, packet, cam)
+    return fused_grad.prepare_forward(pk, screen_cam=cm)
+
+
 def sample_color(params, packet, cam, config, seed: int, sample: int,
-                 urand=None):
+                 urand=None, forward=None):
     """One jittered sample per pixel → RAW linear color (H*W, 3), row-major.
 
     ``params`` (`sharding.differentiable_params`) override the packet's and
     camera's leaves; the color is unclamped (training integrates in linear
     space). ``urand``: this sample's (2 + 2*max_depth, H, W) uniforms, rows
     0-1 the pixel jitter + 0.5; None draws Philox keyed by (seed, pixel,
-    sample, draw).
+    sample, draw). ``forward``: `pack_forward` of the same ``params``, when a
+    caller renders several samples of them.
     """
     pk, cm = sh.apply_params(params, packet, cam)
     dev = packet.device
@@ -65,7 +78,8 @@ def sample_color(params, packet, cam, config, seed: int, sample: int,
         urand = urand.reshape(2 + 2 * config.max_depth, R)
         jit = urand[:2]
     o, d = cam_ops.get_rays(cm, px, py, (jit - 0.5).T)
-    return integrator.trace(o, d, pk, config, seed, sample, urand)
+    return integrator.trace(o, d, pk, config, seed, sample, urand, screen_cam=cm,
+                            forward=forward)
 
 
 def _leaves(params):
@@ -88,10 +102,11 @@ def mse_step(params, packet, cam, target, config, seed: int, spp: int = 1,
     """
     integrator.check_grad_dispatch(packet, target.device)
     leaves = _leaves(params)
+    forward = pack_forward(leaves, packet, cam)
     acc = torch.zeros_like(target)
     for s in range(spp):
         acc = acc + sample_color(leaves, packet, cam, config, seed, s,
-                                 None if urand is None else urand[s])
+                                 None if urand is None else urand[s], forward)
     loss = torch.mean((acc / spp - target) ** 2)
     return loss.detach(), _grad_dict(loss, leaves)
 
@@ -107,6 +122,7 @@ def two_pass_mse_step(params, packet, cam, target, config, seed: int,
     """
     integrator.check_grad_dispatch(packet, target.device)
     c = max(1, min(samples_per_call, spp))
+    forward = pack_forward(params, packet, cam)
 
     def urand_of(s):
         return None if urand is None else urand[s]
@@ -115,7 +131,7 @@ def two_pass_mse_step(params, packet, cam, target, config, seed: int,
         acc = torch.zeros_like(target)
         for s in range(spp):
             acc = acc + sample_color(params, packet, cam, config, seed, s,
-                                     urand_of(s))
+                                     urand_of(s), forward)
         mean_img = acc / spp
         loss = torch.mean((mean_img - target) ** 2)
         cot = 2.0 * (mean_img - target) / (target.numel() * spp)
@@ -124,7 +140,7 @@ def two_pass_mse_step(params, packet, cam, target, config, seed: int,
     for s0 in range(0, spp, c):
         leaves = _leaves(params)
         part = sum(torch.sum(sample_color(leaves, packet, cam, config, seed, s,
-                                          urand_of(s)) * cot)
+                                          urand_of(s), forward) * cot)
                    for s in range(s0, min(s0 + c, spp)))
         g = _grad_dict(part, leaves)
         grads = g if grads is None else {k: grads[k] + g[k] for k in grads}

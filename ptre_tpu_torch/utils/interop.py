@@ -73,11 +73,26 @@ def params_from_numpy(arrays: Dict[str, np.ndarray], device=None) -> Dict[str, t
             for k, v in arrays.items()}
 
 
-def selections_from_jax(sel, tri_rows: int) -> torch.Tensor:
-    """JAX's (B, 4, R) float selection rows (tri index, sphere index,
-    use_sph, hit & active) → the port's (B, R) int32 unified-table rows:
-    ``tri`` or ``tri_rows + sph`` where the bounce hit, else -1."""
+def selections_from_jax(sel, tri_rows: int, n_rays: int = None) -> torch.Tensor:
+    """JAX's float selection rows (tri index, sphere index, use_sph, hit &
+    active per bounce) → the port's (B, R) int32 unified-table rows: ``tri``
+    or ``tri_rows + sph`` where the bounce hit, else -1. Two layouts:
+
+    * (B, 4, R), ray order: `megakernel.trace_fused_sel` and
+      `wavefront.trace(record=True)`;
+    * planar (4B, 8, L), ray r at (r // L, r % L), zero-padded past
+      ``n_rays`` (required): `megakernel.trace_culled_sel` and the dense
+      kernel's ``planar`` forms.
+
+    The triangle index is a row of the order the forward swept (Morton-
+    permuted where it returns a permutation)."""
     sel = np.asarray(sel)
+    if sel.shape[1] == 8 and sel.shape[0] % 4 == 0:
+        if n_rays is None:
+            raise ValueError("the planar (4B, 8, L) layout needs n_rays")
+        sel = sel.reshape(sel.shape[0] // 4, 4, -1)[:, :, :n_rays]
+    elif sel.shape[1] != 4:
+        raise ValueError(f"selections of shape {sel.shape}: expected (B, 4, R) or (4B, 8, L)")
     tri = sel[:, 0].astype(np.int64)
     sph = sel[:, 1].astype(np.int64) + tri_rows
     rows = np.where(sel[:, 2] > 0.5, sph, tri)

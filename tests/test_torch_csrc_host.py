@@ -132,7 +132,9 @@ def wave_lib(tmp_path_factory):
     lib.ptre_wave_mask_host.restype = None
     lib.ptre_wave_mask_host.argtypes = [ptr] * 4 + [ctypes.c_int]
     lib.ptre_wave_bounce_host.restype = None
-    lib.ptre_wave_bounce_host.argtypes = [ptr] * 11 + [ctypes.c_int]
+    lib.ptre_wave_bounce_host.argtypes = [ptr] * 12 + [ctypes.c_int]
+    lib.ptre_trace_culled_host.restype = None
+    lib.ptre_trace_culled_host.argtypes = [ptr] * 12 + [ctypes.c_int]
     return lib
 
 
@@ -152,7 +154,10 @@ def test_host_wave_build_matches_plain_versions(wave_lib, name, external):
     version's but for libm's cos/sin and PyTorch's vectorised sqrt (an ulp
     apart); a ray leaving the r = 10 ground sphere turns an ulp into ~1e-5
     (see test_torch_wavefront._assert_state_close): >= 99 % of the values
-    within 1e-6, all within 1e-4; dead rays bit for bit."""
+    within 1e-6, all within 1e-4; dead rays bit for bit. The recording
+    finish writes the plain version's winners (integers: equal, but for a
+    ray whose state is beyond 1e-6, which may sit on a tie) and touches no
+    other bounce's row."""
     torch.set_num_threads(1)
     build_scene, cam_kw = WAVE_CASES[name]
     lanes, B = 64, 3
@@ -168,6 +173,8 @@ def test_host_wave_build_matches_plain_versions(wave_lib, name, external):
     state[9, ::9] = 0.0  # some dead rays
     urand = (torch.from_numpy(rs.random((2 + 2 * B, W * H), dtype=np.float32))
              if external else None)
+    sel = torch.full((B, W * H), -1, dtype=torch.int32)
+    want_sel = sel.clone()
     for b in range(2):
         mask = torch.empty((state.shape[1] // lanes, scene.n_leaf), dtype=torch.uint8)
         mp = wf.MaskParams(t_min=k.t_min, r_pad=state.shape[1], n_leaf=scene.n_leaf)
@@ -177,20 +184,28 @@ def test_host_wave_build_matches_plain_versions(wave_lib, name, external):
         np.testing.assert_array_equal(mask.bool().numpy(), want_mask.numpy())
         short, cnt = wf.shortlists_from_mask(want_mask)
         got = torch.empty_like(state)
-        p = wf.WaveParams(
-            t_min=k.t_min, t_max=k.t_max, det_eps=k.det_eps, shadow_eps=k.shadow_eps,
-            pdf_eps=k.pdf_eps, seed_lo=0xBEEF, seed_hi=0, sample=5,
-            n_rays=0 if urand is None else urand.shape[1], r_pad=state.shape[1],
-            n_leaf=scene.n_leaf, list_stride=short.shape[1], n_sph=scene.n_sph,
-            num_mats=scene.num_mats, bounce=b, external_rng=int(external))
-        wave_lib.ptre_wave_bounce_host(
-            ctypes.addressof(p), state.data_ptr(), ids.data_ptr(), short.data_ptr(),
-            cnt.data_ptr(), scene.tris.data_ptr(), scene.sphs.data_ptr(),
-            scene.mats.data_ptr(), scene.sky.data_ptr(),
-            None if urand is None else urand.data_ptr(), got.data_ptr(), lanes)
+        p = mk.wave_params(
+            k, 0xBEEF, 5, scene, n_rays=0 if urand is None else urand.shape[1],
+            r_pad=state.shape[1], list_stride=short.shape[1], bounce=b,
+            external_rng=int(external), n_sel=sel.shape[1])
+        plain_state = torch.empty_like(state)
+        for out, rec in ((got, sel), (plain_state, None)):
+            wave_lib.ptre_wave_bounce_host(
+                ctypes.addressof(p), state.data_ptr(), ids.data_ptr(), short.data_ptr(),
+                cnt.data_ptr(), scene.tris.data_ptr(), scene.sphs.data_ptr(),
+                scene.mats.data_ptr(), scene.sky.data_ptr(),
+                None if urand is None else urand.data_ptr(), out.data_ptr(),
+                None if rec is None else rec.data_ptr(), lanes)
+        assert torch.equal(got, plain_state)  # recording changes no state
         want = wf.wave_bounce_reference(state, ids, short, cnt, scene, k, b, 0xBEEF, 5,
-                                        urand, lanes)
+                                        urand, lanes, sel=want_sel)
         err = (got - want).abs()
+        loose = ids[(err > 1e-6).any(dim=0)].long()
+        same = sel == want_sel
+        same[:, loose] = True
+        assert bool(same.all()) and bool((sel[b + 1:] == -1).all())
+        assert int((sel[b] >= scene.tri_rows).sum()) > 0
+        assert int(((sel[b] >= 0) & (sel[b] < scene.tri_rows)).sum()) > 0
         assert float((err <= 1e-6).float().mean()) >= 0.99, (b, float(err.max()))
         np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=1e-4)
         dead = state[9] < 0.5
@@ -199,6 +214,54 @@ def test_host_wave_build_matches_plain_versions(wave_lib, name, external):
         perm = torch.argsort(wf.coherence_key(want, scene.scene_lo, scene.scene_hi),
                              stable=True)
         state, ids = want[:, perm].contiguous(), ids[perm].contiguous()
+
+
+@pytest.mark.parametrize("name", list(WAVE_CASES))
+@pytest.mark.parametrize("external", [True, False])
+@pytest.mark.parametrize("cull", [True, False])
+def test_host_culled_megakernel_matches_plain_version(wave_lib, name, external, cull):
+    """mega_kernel.cu's block — the two-level walk with the block's votes
+    bounded by each ray's best hit, the sweep, the recording finish, the
+    all-dead exit — over a ragged ray count in 64-ray blocks. Tolerance as
+    above: the selections equal and the colour within 1e-5 on >= 99 % of the
+    rays, all colours within 2e-4 (three bounces of the ground sphere's
+    1e-5), and rays that agree on every selection within 1e-4."""
+    torch.set_num_threads(1)
+    build_scene, cam_kw = WAVE_CASES[name]
+    lanes, B = 64, 3
+    cfg = RenderConfig(width=W, height=H, max_depth=B)
+    k = mk.TraceConsts.from_config(cfg)
+    scene = wf.prepare_scene(build_scene().build_packet())
+    cam = cam_ops.Camera.create(width=W, height=H, **cam_kw)
+    px, py = pt.pixel_grid(H, W)
+    rs = np.random.default_rng(len(name) + cull)
+    R = W * H - 13  # a ragged last block
+    jit = torch.from_numpy(rs.uniform(-0.5, 0.5, (W * H, 2)).astype(np.float32))
+    o, d = (x[:R].contiguous() for x in cam_ops.get_rays(cam, px, py, jit))
+    urand = torch.from_numpy(rs.random((2 + 2 * B, R), dtype=np.float32)) if external else None
+    p = mk.MegaParams(
+        w=mk.wave_params(k, 0xBEEF, 5, scene, n_rays=R, n_sel=R, external_rng=int(external)),
+        max_depth=B, n_super=scene.super_boxes.shape[0], cull=int(cull))
+    color = torch.empty((R, 3))
+    sel = torch.full((B, R), -7, dtype=torch.int32)  # every slot must be written
+    plain_color = torch.empty((R, 3))
+    for out, rec in ((color, sel), (plain_color, None)):
+        wave_lib.ptre_trace_culled_host(
+            ctypes.addressof(p), o.data_ptr(), d.data_ptr(),
+            None if urand is None else urand.data_ptr(), scene.tris.data_ptr(),
+            scene.cull_boxes.data_ptr(), scene.super_boxes.data_ptr(), scene.sphs.data_ptr(),
+            scene.mats.data_ptr(), scene.sky.data_ptr(), out.data_ptr(),
+            None if rec is None else rec.data_ptr(), lanes)
+    assert torch.equal(color, plain_color)
+    want, want_sel = mk.trace_culled_reference(o, d, scene, k, B, 0xBEEF, 5, urand, cull=cull,
+                                               record=True, lanes=lanes)
+    assert bool((sel >= -1).all())
+    agree = (sel == want_sel).all(dim=0)
+    err = (color - want).abs().amax(dim=1)
+    assert float((agree & (err <= 1e-5)).float().mean()) >= 0.99
+    np.testing.assert_allclose(color.numpy(), want.numpy(), rtol=0, atol=2e-4)
+    assert float(err[agree].max()) <= 1e-4
+    assert int((want_sel[B - 1] >= 0).sum()) > 0 and int((want_sel == -1).sum()) > 0
 
 
 # ---- the rasterizer kernels' per-sample code (csrc/raster.cuh) ----------------

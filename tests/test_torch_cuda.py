@@ -199,8 +199,8 @@ def test_gradient_wrappers_reject_bad_inputs(cuda):
         fg.fused_bwd(table, sky6, o, d, sel[:3], dcol, k, 5, T)
     with pytest.raises(RendererError, match="o on cuda"):
         fg.fused_bwd(table.cpu(), sky6, o, d, sel, dcol, k, 5, T)
-    with pytest.raises(RendererError, match="table rows"):
-        fg.fused_bwd(torch.zeros((200, 27), device=cuda), sky6, o, d, sel, dcol, k, 5, T)
+    with pytest.raises(RendererError, match="sph_offset"):
+        fg.fused_bwd(torch.zeros((200, 27), device=cuda), sky6, o, d, sel, dcol, k, 5, 201)
 
 
 # ---- the wavefront kernels (triangle-scale scenes) --------------------------------
@@ -290,6 +290,134 @@ def test_wavefront_wrappers_reject_bad_inputs(cuda):
         wf.wave_bounce(state, ids, short, cnt[:1], scene, k, 0)
     with pytest.raises(RendererError, match="state on cuda"):
         wf.wave_bounce(state, ids.cpu(), short, cnt, scene, k, 0)
+
+
+# ---- triangle-scale training: culled megakernel, record mode, global-table backward --
+# Tolerances as in chip_smoke.py phases 15-17. The culled megakernel and the
+# wavefront run the same device functions, and culling is conservative, so
+# they agree except where float rounding puts a hit on the edge of a leaf's
+# box; against the plain version FMA contraction can flip a grazing ray as
+# in the bounce kernel. The recording bounce kernel's state is the
+# non-recording one's bit for bit. The global-table backward is held as the
+# dense one is. A whole multi-bounce trace is held per ray (colour within 1e-4
+# relative and every bounce's selection equal); at 32,768 rays chip_smoke.py's
+# 1e-5 of the rays rounds to one ray, so these tests allow 1e-4 of them.
+
+
+def _tri_rays(dev, W=256, H=128, B=4):
+    cfg = RenderConfig(width=W, height=H, max_depth=B)
+    pkt = demo.config4_mixed_scene(64, 32).build_packet().to(dev)
+    cam = cam_ops.Camera.create(width=W, height=H)
+    scene = wf.prepare_scene(pkt, screen_cam=cam)
+    px, py = pt.pixel_grid(H, W, dev)
+    jit = torch.rand((H * W, 2), device=dev, generator=torch.Generator(dev).manual_seed(2))
+    o, d = (x.contiguous() for x in cam_ops.get_rays(cam, px, py, jit - 0.5))
+    return cfg, pkt, cam, scene, mk.TraceConsts.from_config(cfg), o, d
+
+
+def _flipped(color, want, sel=None, want_sel=None):
+    flip = ((color - want).abs() > 1e-4 * want.abs().clamp_min(1.0)).any(dim=1)
+    if sel is not None:
+        flip |= (sel != want_sel).any(dim=0)
+    return flip
+
+
+@pytest.mark.parametrize("external", [True, False])
+@pytest.mark.parametrize("cull", [True, False])
+def test_culled_megakernel_matches_plain_version(cuda, external, cull):
+    cfg, pkt, _, scene, k, o, d = _tri_rays(cuda)
+    R, B = o.shape[0], cfg.max_depth
+    urand = torch.rand((2 + 2 * B, R), device=cuda) if external else None
+    before = mk.culled_launches
+    color, sel = mk.trace_culled(o, d, scene, k, B, 9, 1, urand, cull=cull, record=True)
+    plain = mk.trace_culled(o, d, scene, k, B, 9, 1, urand, cull=cull)
+    want, want_sel = mk.trace_culled_reference(o, d, scene, k, B, 9, 1, urand, cull=cull,
+                                               record=True)
+    torch.cuda.synchronize()
+    assert mk.culled_launches == before + 2
+    assert torch.equal(plain, color)  # recording changes no colour
+    assert bool(torch.isfinite(color).all())
+    assert bool(((sel >= -1) & (sel < scene.tri_rows + scene.n_sph)).all())
+    assert int((sel >= 0).sum()) > R // 4
+    assert int(_flipped(color, want, sel, want_sel).sum()) <= math.ceil(1e-4 * R)
+    # the same rays through the wavefront kernels
+    wcol, wsel, _ = wf.trace(o, d, scene, k, B, 9, 1, urand,
+                             tile_hint=(cfg.height, cfg.width), record=True)
+    assert int(_flipped(color, wcol, sel, wsel).sum()) <= math.ceil(1e-4 * R)
+
+
+def test_wave_record_mode_matches_plain_and_leaves_state_alone(cuda):
+    cfg, _, _, scene, k, state, ids = _wave_setup(cuda)
+    R = state.shape[1]
+    short, cnt = wf.shortlists_from_mask(wf.wave_mask(state, scene.boxes, k.t_min))
+    sel = torch.full((cfg.max_depth, R), -1, dtype=torch.int32, device=cuda)
+    want_sel = sel.clone()
+    got = wf.wave_bounce(state, ids, short, cnt, scene, k, 1, 9, 1, sel=sel)
+    same = wf.wave_bounce(state, ids, short, cnt, scene, k, 1, 9, 1)
+    wf.wave_bounce_reference(state, ids, short, cnt, scene, k, 1, 9, 1, sel=want_sel)
+    torch.cuda.synchronize()
+    assert torch.equal(got, same)
+    assert bool((sel[[0, 2, 3, 4]] == -1).all()) and int((sel[1] >= 0).sum()) > 0
+    assert int((sel != want_sel).any(dim=0).sum()) <= math.ceil(1e-5 * R)
+    dead = ids[state[9] < 0.5].long()
+    assert bool((sel[1, dead] == -1).all())
+
+
+def test_global_table_backward_matches_plain_version(cuda):
+    cfg, pkt, _, scene, k, o, d = _tri_rays(cuda)
+    R, B = o.shape[0], cfg.max_depth
+    color, sel, perm = wf.trace(o, d, scene, k, B, 9, 1, tile_hint=(cfg.height, cfg.width),
+                                record=True)
+    table, T, sky6 = path_replay.build_table(pkt)
+    table = torch.cat([table[:T][perm], table[T:]]).contiguous()
+    assert table.shape[0] > fg.MAX_ROWS
+    dcol = torch.randn((R, 3), device=cuda, generator=torch.Generator(cuda).manual_seed(8))
+    before = fg.launches
+    got = fg.fused_bwd(table, sky6, o, d, sel, dcol, k, B, T, 9, 1)
+    want = fg.fused_bwd_reference(table, sky6, o, d, sel, dcol, k, B, T, 9, 1)
+    torch.cuda.synchronize()
+    assert fg.launches == before + 1
+    for g in got:
+        assert bool(torch.isfinite(g).all())
+    mag = (want[2].abs() + want[3].abs()).amax(dim=1)
+    err = ((got[2] - want[2]).abs() + (got[3] - want[3]).abs()).amax(dim=1)
+    flip = err > 1e-2 * mag + 1e-3
+    assert int(flip.sum()) <= math.ceil(1e-4 * R)
+    top = float(want[2].abs().max())
+    assert float(((got[2] - want[2]).abs() <= 1e-4 * top).float().mean()) >= 0.999
+    # summed gradients without the flipped rays: materials and sky tight
+    # (the geometry columns carry float32 noise, chip_smoke.py holds them to
+    # the float64 evaluation)
+    cot = torch.where(flip[:, None], 0.0, dcol)
+    got = fg.fused_bwd(table, sky6, o, d, sel, cot, k, B, T, 9, 1)
+    want = fg.fused_bwd_reference(table, sky6, o, d, sel, cot, k, B, T, 9, 1)
+    for a, b in ((got[0][:, 23:27], want[0][:, 23:27]), (got[1], want[1])):
+        assert float((a - b).norm() / b.norm()) <= 1e-4
+    assert float(got[0][:T, :9].abs().max()) > 0 and float(got[0][T:, 18:22].abs().max()) > 0
+
+
+def test_mse_step_triangle_scene_goes_through_the_kernels(cuda):
+    W, H = 256, 128
+    cfg = RenderConfig(width=W, height=H, max_depth=4)
+    pkt = demo.config4_mixed_scene(64, 32).build_packet().to(cuda)
+    cam = cam_ops.Camera.create(width=W, height=H)
+    params = sh.differentiable_params(pkt, cam)
+    target = torch.zeros((W * H, 3), device=cuda)
+    before = (wf.bounce_launches, wf.live_bounces, fg.launches, mk.record_launches)
+    loss, grads = train.mse_step(params, pkt, cam, target, cfg, seed=4, spp=2)
+    torch.cuda.synchronize()
+    bounces, live, bwd, rec = (a - b for a, b in zip(
+        (wf.bounce_launches, wf.live_bounces, fg.launches, mk.record_launches), before))
+    assert bounces == live and 2 < live <= 2 * cfg.max_depth and bwd == 2 and rec == 0
+    assert math.isfinite(float(loss))
+    assert all(bool(torch.isfinite(g).all()) for g in grads.values())
+    assert float(grads["transforms"].abs().max()) > 0
+    cpu = {key: v.cpu() for key, v in params.items()}
+    loss_c, grads_c = train.mse_step(cpu, pkt.to("cpu"), cam, target.cpu(), cfg, seed=4, spp=2)
+    assert abs(float(loss) - float(loss_c)) <= 1e-4 * float(loss_c)
+    for key in ("mat_albedo", "sky_top", "cam_position"):
+        a, b = grads[key].cpu(), grads_c[key]
+        assert float((a - b).norm() / b.norm()) <= 1e-2, key  # a flipped ray in 32,768
 
 
 # ---- the rasterizer kernels -------------------------------------------------------

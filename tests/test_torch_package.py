@@ -6,7 +6,8 @@ and chip_smoke.py names none of them either; the port's CUDA wrappers
 run the plain versions only for CPU tensors; a missing nvcc raises; and
 render_step refuses, before any CUDA call, a packet neither CUDA route (the
 dense render kernel, the wavefront kernels) can take instead of running
-plain PyTorch on the card.
+plain PyTorch on the card; the training steps likewise refuse a packet past
+the wavefront's caps.
 """
 
 from __future__ import annotations
@@ -207,10 +208,13 @@ def test_wavefront_wrappers_on_cpu_run_plain_versions_without_launch():
 
 
 def test_training_refuses_non_dense_packet_on_cuda_before_any_cuda_call(monkeypatch):
-    """mse_step, two_pass_mse_step and trace_grad raise NotImplementedError
-    for a packet the dense kernels refuse, before building or launching
-    anything. The CUDA tensors are fake ones (no card here): nothing may
-    touch them."""
+    """A triangle-scale packet the wavefront supports now dispatches: the
+    decision is made from the packet's counts, before the kernel library is
+    loaded. A packet past the wavefront's caps is still refused by mse_step,
+    two_pass_mse_step, trace_grad and integrator.trace with
+    NotImplementedError naming the staged trace (ROADMAP A5), before
+    building or launching anything. The CUDA tensors are fake ones (no card
+    here): nothing may touch them."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     def no_cuda(*args, **kwargs):
@@ -218,7 +222,7 @@ def test_training_refuses_non_dense_packet_on_cuda_before_any_cuda_call(monkeypa
 
     monkeypatch.setattr(build, "load_library", no_cuda)
     big = demo.config3_scene(segments=24, rings=12).build_packet()
-    assert not mk.dense_supported(big)
+    assert not mk.dense_supported(big) and wf.supports(big)
     W, H = 16, 8
     cfg = RenderConfig(width=W, height=H)
     cam = cam_ops.Camera.create(width=W, height=H)
@@ -228,18 +232,54 @@ def test_training_refuses_non_dense_packet_on_cuda_before_any_cuda_call(monkeypa
         target = torch.zeros((W * H, 3), device="cuda")
         o = torch.zeros((W * H, 3), device="cuda")
         assert target.device.type == "cuda" and pkt.device.type == "cuda"
+        integrator.check_grad_dispatch(pkt, target.device)
+        for force in (None,) + fused_grad.FORWARDS[1:]:
+            fused_grad.check_supported(pkt, force)
+        with pytest.raises(RendererError, match="dense-class"):
+            fused_grad.check_supported(pkt, "dense")
+        too_big = dataclasses.replace(pkt, tri_valid=torch.zeros(
+            wf.MAX_WAVE_TRIS + 128, dtype=torch.bool, device="cuda"))
         params = {k: torch.empty_like(v, device="cuda")
                   for k, v in sh.differentiable_params(big, cam).items()}
         for step in (train.mse_step, train.two_pass_mse_step):
-            with pytest.raises(NotImplementedError, match="A5, A14, B11"):
-                step(params, pkt, cam, target, cfg, seed=1, spp=2)
-        with pytest.raises(NotImplementedError, match="A5, A14, B11"):
-            fused_grad.trace_grad(o, o, pkt, cfg)
-        with pytest.raises(NotImplementedError, match="A5, A14, B11"):
-            integrator.trace(o, o, pkt, cfg)
+            with pytest.raises(NotImplementedError, match="ROADMAP A5"):
+                step(params, too_big, cam, target, cfg, seed=1, spp=2)
+        for force in (None, "wavefront", "culled", "uncull"):
+            with pytest.raises(NotImplementedError, match="ROADMAP A5"):
+                fused_grad.trace_grad(o, o, too_big, cfg, force=force)
+        with pytest.raises(NotImplementedError, match="ROADMAP A5"):
+            integrator.trace(o, o, too_big, cfg)
     with pytest.raises(NotImplementedError, match="cuda or cpu"):
         integrator.check_grad_dispatch(demo.reference_demo_scene(8, 4).build_packet(),
                                        "meta")
+
+
+def test_triangle_gradient_wrappers_on_cpu_run_plain_versions_without_launch():
+    """Triangle-scale training on CPU tensors runs the plain versions: no
+    kernel is launched, and the wrappers refuse other devices."""
+    torch.set_num_threads(1)
+    W, H = 16, 8
+    cfg = RenderConfig(width=W, height=H, max_depth=3)
+    pkt = demo.config4_mixed_scene(12, 6).build_packet()
+    cam = cam_ops.Camera.create(width=W, height=H)
+    before = (wf.mask_launches, wf.bounce_launches, mk.culled_launches, mk.record_launches,
+              fused_grad.launches)
+    loss, grads = train.mse_step(sh.differentiable_params(pkt, cam), pkt, cam,
+                                 torch.zeros((W * H, 3)), cfg, seed=2)
+    o = torch.zeros((4, 3))
+    d = torch.tensor([[0.0, -0.3, 1.0]] * 4)
+    d = d / d.norm(dim=1, keepdim=True)
+    fused_grad.trace_grad(o, d, pkt, cfg, force="culled")
+    assert (wf.mask_launches, wf.bounce_launches, mk.culled_launches, mk.record_launches,
+            fused_grad.launches) == before
+    assert set(grads) == set(sh.PARAM_KEYS) and float(loss) > 0
+    assert all(bool(torch.isfinite(g).all()) for g in grads.values())
+    assert float(grads["transforms"].abs().max()) > 0
+    table = torch.zeros((300, 27), device="meta")
+    meta = torch.empty((4, 3), device="meta")
+    with pytest.raises(RendererError, match="cuda or cpu"):
+        fused_grad.fused_bwd(table, table, meta, meta, meta, meta,
+                             mk.TraceConsts.from_config(cfg), 3, 256)
 
 
 def test_gradient_wrappers_on_cpu_run_plain_versions_without_launch():

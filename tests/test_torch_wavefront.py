@@ -17,8 +17,11 @@ shortlists and uniforms: the verdicts must be equal, the next state within
 (interpret mode, once) within 1e-6 — JAX's own contract against its
 megakernel — and against the staged `integrator.trace` with the same draws;
 and it must be bit-identical across its own modes (cull, screen binning,
-sort, block size). Interpret-mode calls cost seconds each
-here, so there are five.
+sort, block size). Record mode (`trace(record=True)`) must leave the colour
+bit-identical, give JAX's recorded winners exactly (through
+`interop.selections_from_jax`; a selection is an integer, and ties go to the
+lowest Morton row on both sides) and the same selections in every mode.
+Interpret-mode calls cost seconds each here, so there are six.
 """
 
 from __future__ import annotations
@@ -47,6 +50,7 @@ from ptre_tpu_torch.ops import camera as cam_ops
 from ptre_tpu_torch.ops.cuda import megakernel as mk
 from ptre_tpu_torch.ops.cuda import wavefront as wf
 from ptre_tpu_torch.render import pathtracer as pt
+from ptre_tpu_torch.utils import interop
 
 
 def t(x):
@@ -208,12 +212,17 @@ def test_prepare_scene_matches_jax():
 def _scene_from_jax(jp, cfg):
     """The port's WaveScene holding exactly the JAX package's packed arrays."""
     prep = jwf._prepare_scene(jp, cfg, 64)
-    n_leaf = -(-jp.tri_valid.shape[0] // 64)
+    T = jp.tri_valid.shape[0]
+    n_leaf = -(-T // 64)
+    boxes = t(np.asarray(prep.boxT8).T[:n_leaf])
+    super_boxes = mk.pack_super_boxes(boxes)
+    cull_boxes = torch.cat([boxes, mk.empty_boxes(super_boxes.shape[0] * 8 - n_leaf)])
     sky = np.concatenate([np.asarray(jp.sky_bottom), np.asarray(jp.sky_top),
                           np.zeros(2, np.float32)])
     mats = np.asarray(jmk.pack_mats(jp.mat_kind, jp.mat_albedo, jp.mat_param))
     scene = wf.WaveScene(
-        tris=t(np.asarray(prep.tris)[:n_leaf * 64]), boxes=t(np.asarray(prep.boxT8).T[:n_leaf]),
+        tris=t(np.asarray(prep.tris)[:n_leaf * 64]), boxes=boxes, tri_rows=T,
+        cull_boxes=cull_boxes, super_boxes=super_boxes,
         sphs=t(np.asarray(prep.sphs)), mats=t(mats), sky=t(sky.astype(np.float32)),
         scene_lo=t(np.asarray(prep.scene_lo)), scene_hi=t(np.asarray(prep.scene_hi)),
         n_leaf=n_leaf, n_sph=np.asarray(prep.sphs).shape[0], num_mats=jp.num_materials)
@@ -313,6 +322,37 @@ def test_trace_matches_jax_wavefront_and_staged_route():
     np.testing.assert_allclose(got, staged, rtol=0, atol=2e-6)
 
 
+def test_trace_record_matches_jax_selections():
+    """`trace(record=True)`: the colour of `record=False` bit for bit, the
+    Morton permutation and every bounce's winner as JAX's wavefront records
+    them (interpret mode), and -1 exactly where JAX's hit row is 0."""
+    torch.set_num_threads(1)
+    W = H = 8
+    cfg = RenderConfig(width=W, height=H, max_depth=3)
+    jp, tp = _ball(JScene, JModel, diffuse=True), _ball(Scene, Model, diffuse=True)
+    key = jrng.key_for(5)
+    cam, o, d = _rays(W, H, key)
+    R = W * H
+    jcol, jsel, jur, jperm = jwf.trace(key, o, d, jp, cfg, record=True, interpret=True,
+                                       tile_hint=(H, W), screen_cam=cam)
+    urand = t(np.concatenate([np.zeros((2, R), np.float32), np.asarray(jur)]))
+    scene = wf.prepare_scene(tp, screen_cam=cam_ops.Camera.create(width=W, height=H))
+    k = mk.TraceConsts.from_config(cfg)
+    args = (t(o), t(d), scene, k, cfg.max_depth)
+    color, sel, perm = wf.trace(*args, urand=urand, tile_hint=(H, W), record=True)
+    plain = wf.trace(*args, urand=urand, tile_hint=(H, W))
+    assert torch.equal(color, plain)
+    np.testing.assert_allclose(color.numpy(), np.asarray(jcol), rtol=0, atol=1e-6)
+    np.testing.assert_array_equal(perm.numpy(), np.asarray(jperm))
+    assert sel.shape == (cfg.max_depth, R) and sel.dtype == torch.int32
+    want = interop.selections_from_jax(jsel, scene.tri_rows)
+    np.testing.assert_array_equal(sel.numpy(), want.numpy())
+    hits = sel >= 0
+    assert bool(hits[0].any()) and bool(hits[2].any()) and not bool(hits.all())
+    assert bool((sel[hits] < scene.tri_rows + scene.n_sph).all())
+    assert bool((sel >= scene.tri_rows).any()) and bool(((sel >= 0) & (sel < scene.tri_rows)).any())
+
+
 def _mode_image(tp, W, H, cfg, screen=True, tile_hint=True, **kw):
     cam = cam_ops.Camera.create(width=W, height=H)
     scene = wf.prepare_scene(tp, screen_cam=cam if screen else None)
@@ -349,6 +389,22 @@ def test_trace_bit_identical_across_modes(mode):
     got = _mode_image(tp, W, H, cfg, **{"lanes": 64, **MODES[mode]})
     assert torch.isfinite(ref).all() and float(ref.max()) > 0.05
     assert torch.equal(got, ref), float((got - ref).abs().max())
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+def test_trace_record_invariant_across_modes(mode):
+    """The recorded selections do not depend on the culling, the binning,
+    the sort or the block size either, and recording changes no pixel."""
+    torch.set_num_threads(1)
+    W, H = 32, 16
+    cfg = RenderConfig(width=W, height=H, max_depth=4)
+    tp = demo.config4_mixed_scene(12, 6).build_packet()
+    ref = _mode_image(tp, W, H, cfg, lanes=64)
+    color, sel, perm = _mode_image(tp, W, H, cfg, **{"lanes": 64, **MODES[mode]}, record=True)
+    base = _mode_image(tp, W, H, cfg, lanes=64, record=True)
+    assert torch.equal(color, ref)
+    assert torch.equal(sel, base[1]) and torch.equal(perm, base[2])
+    assert int((sel[-1] >= 0).sum()) > 0 and int((sel == -1).sum()) > 0
 
 
 def test_empty_and_sphere_only_scenes():
