@@ -51,7 +51,17 @@ source, all at once), then:
        sample went through the mask, recording bounce and global-table
        backward kernels, that the gradients are finite and d(transforms)
        non-zero, and that ``two_pass_mse_step`` equals ``mse_step`` on a
-       triangle packet; a torch.profiler window splits a step's time.
+       triangle packet; a torch.profiler window splits a step's time;
+  19.  holds the staged route's sweep kernel against the plain sweep, exactly,
+       on the demo scene, config 4 and a 65,024-row uv-sphere mesh at
+       1920x1080, primary and bounce-1 rays, and times it with and without
+       FMA contraction;
+  20.  drives the staged main path — ``render_step`` and ``mse_step`` (spp
+       1, 1 + 2 steps each) on that mesh, past every fused route's cap —
+       checking that every bounce went through the sweep kernel, profiles a
+       staged step, holds the staged route's gradients against the fused
+       route's on the demo scene, and times the staged step with its
+       winners' rows gathered by ``embedding`` and by ``table[idx]``.
 
 Any failed check raises and the script exits non-zero; it prints its result
 lines only after every phase passed:
@@ -478,6 +488,7 @@ def main():
     kernels += wavefront_phases(dev, card, rs)
     kernels += raster_phases(dev, card, rs)
     kernels += triangle_training_phases(dev, card, rs, dense_bwd_ms=grad_kernels[1]["ms"])
+    kernels.append(staged_phases(dev, card, rs, build.last_build and build.last_build[1]))
 
     # ---- result --------------------------------------------------------------------
     print(card, flush=True)
@@ -1452,6 +1463,301 @@ def triangle_training_phases(dev, card, rs, dense_bwd_ms):
         "ms": g_ms,
         "plain_ms": g_plain_ms,
     }, *gbwd_work)]
+
+
+# The staged route (phases 19-20). The sweep kernel is built without FMA
+# contraction (build.UNIT_FLAGS) and its selections are integers: they must
+# EQUAL the plain sweep's on every ray compared. The plain sweep is O(R * T)
+# in memory, so it runs over chunks of at most PLAIN_PAIRS (ray, row) pairs
+# (512 MB a float32 temporary); on config 4 and the 65,024-row mesh it is
+# compared on SWEEP_SUBSET rays (every ray's selection is independent of the
+# others), on all rays of the main path's primary set, which also times it.
+# Staged against fused gradients (demo scene, 1920x1080, spp 1, the same
+# Philox draws): both are float32 evaluations of the same estimator in other
+# operation orders, and the fused kernels contract FMAs (ROADMAP C2: 8-63
+# rays of 2,073,600 flip a path; geometry gradients of a float32 evaluation
+# sit 8e-4 to 9.5e-4 relative L2 from float64). Each parameter's gradient is
+# a float32 sum of ~2e6 per-ray terms of both signs: two summation orders of
+# the SAME staged gradient (index_put vs embedding backward) differed by up
+# to 3.1e-3 relative L2 (d(mat_param), NVIDIA H100 80GB HBM3, 700.00 W).
+# Hence every gradient group within STAGED_REL relative L2.
+OPS_SWEEP_TRI = 46    # sweep.cuh test_triangle as written
+OPS_SWEEP_SPH = 20    # sweep.cuh test_sphere as written
+PLAIN_PAIRS = 2 ** 27
+SWEEP_SUBSET = 262144
+STAGED_SCENE = ("config3_scene", dict(flat=False, segments=256, rings=128, diffuse=True))
+STAGED_STEPS = 2
+STAGED_REL = 1e-2
+
+
+def start_fma_build():
+    """Start nvcc on the sweep unit WITH FMA contraction (the shipped build
+    has -fmad=false), into its own library: (process, library path)."""
+    from ptre_tpu_torch.ops.cuda import build
+
+    fma_dir = os.path.join(build.BUILD_DIR, f"fma.{os.getpid()}")
+    os.makedirs(fma_dir, exist_ok=True)
+    path = os.path.join(fma_dir, "libptre_sweep_fma.so")
+    proc = subprocess.Popen(
+        [build.find_nvcc(), *build.NVCC_FLAGS, "-shared", "-I", build.CSRC_DIR, "-o", path,
+         os.path.join(build.CSRC_DIR, "sweep_kernel.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return proc, path
+
+
+def fma_compare(fma_build, o, d, tables, k, dev):
+    """(ms with FMA, ms without, rays whose selection differs): the FMA
+    build and the shipped one on the same rays, timed in turns."""
+    import ctypes
+
+    import torch
+
+    from ptre_tpu_torch.ops.cuda import sweep_kernel as sk
+
+    proc, path = fma_build
+    out, err = proc.communicate()
+    check(proc.returncode == 0, f"nvcc (FMA sweep) failed:\n{out}\n{err}")
+    lib = ctypes.CDLL(path)
+    lib.ptre_sweep.restype = ctypes.c_int
+    lib.ptre_sweep.argtypes = [ctypes.c_void_p] * 7
+    sel = torch.empty((4, o.shape[0]), dtype=torch.int32, device=dev)
+    par = sk.SweepParams(t_min=k.t_min, t_max=k.t_max, det_eps=k.det_eps, n_rays=o.shape[0],
+                         n_tri=tables.tris.shape[0], n_sph=tables.sphs.shape[0])
+
+    def fma_sweep():
+        rc = lib.ptre_sweep(ctypes.addressof(par), o.data_ptr(), d.data_ptr(),
+                            tables.tris.data_ptr(), tables.sphs.data_ptr(), sel.data_ptr(),
+                            torch.cuda.current_stream(dev).cuda_stream)
+        check(rc == 0, f"FMA sweep launch failed ({rc})")
+
+    def exact_sweep():
+        return sk.sweep_packed(o, d, tables, k.t_min, k.t_max, k.det_eps)
+
+    exact = exact_sweep()
+    fma_ms = cuda_events(fma_sweep, 3)
+    exact_ms = cuda_events(exact_sweep, 3)
+    flips = int(((sel[0] != exact[0]) | (sel[1] != exact[1].int()) | (sel[2] != exact[2])
+                 | (sel[3] != exact[3].int())).sum())
+    return fma_ms, exact_ms, flips
+
+
+def staged_phases(dev, card, rs, report):
+    """Phases 19-20: the sweep kernel against the plain sweep on three
+    scenes at 1920x1080, with and without FMA contraction; then the staged
+    main path (render_step and mse_step on a 65,024-row mesh, past every
+    fused route's cap) and the staged route's gradients against the fused
+    route's. ``report``: the build's ptxas report. Returns the sweep's entry
+    of the ``kernels`` line."""
+    import numpy as np
+    import torch
+
+    from ptre_tpu_torch.utils.config import RenderConfig
+    from ptre_tpu_torch.models import demo
+    from ptre_tpu_torch.ops import camera as cam_ops
+    from ptre_tpu_torch.ops import intersect, materials, rng
+    from ptre_tpu_torch.ops.cuda import megakernel as mk
+    from ptre_tpu_torch.ops.cuda import sweep_kernel as sk
+    from ptre_tpu_torch.parallel import sharding as sh
+    from ptre_tpu_torch.render import pathtracer as pt
+    from ptre_tpu_torch.render import train
+
+    W, H, B = W_MAIN, H_MAIN, 5
+    R = W * H
+    cfg = RenderConfig(width=W, height=H, max_depth=B)
+    k = mk.TraceConsts.from_config(cfg)
+    cam = cam_ops.Camera.create(width=W, height=H)
+    px, py = pt.pixel_grid(H, W, dev)
+
+    fma_build = start_fma_build()  # compiles while the plain sweeps run
+    regs = [x for x in ptxas_summary(report) if x.startswith("sweep_kernel")] if report else []
+    print(f"phase 19: sweep kernel vs plain sweep at {W}x{H}; "
+          f"{'; '.join(regs) or 'library built earlier: registers not reported'} [{card}]",
+          flush=True)
+
+    def plain(o, d, tables):
+        T = max(tables.tris.shape[0], 1)
+        step = max(1, PLAIN_PAIRS // T)
+        parts = [sk.sweep_packed_reference(o[i:i + step], d[i:i + step], tables, k.t_min,
+                                           k.t_max, k.det_eps) for i in range(0, o.shape[0], step)]
+        return tuple(torch.cat(x) for x in zip(*parts))
+
+    def bounce1(o, d, pkt, tables):
+        """The rays that hit and scatter at bounce 0 (kernel sweep, Philox
+        draws), leaving their surfaces: t_min self-hits are exercised."""
+        def fn(oo, dd, *args):
+            return sk.sweep_packed(oo.contiguous(), dd.contiguous(), tables, k.t_min, k.t_max,
+                                   k.det_eps)
+        with torch.no_grad():
+            hit = intersect.closest_hit(o, d, pkt, pkt.world_triangles(), k.t_min, k.t_max,
+                                        k.det_eps, sweep_fn=fn)
+            u = rng.ray_uniforms(19, 1, o.shape[0], 2, dev)
+            sc = materials.scatter(u[2], u[3], d, hit.position, hit.normal,
+                                   pkt.mat_kind.long()[hit.mat_id], pkt.mat_albedo[hit.mat_id],
+                                   pkt.mat_param[hit.mat_id], k.shadow_eps, k.pdf_eps)
+            live = hit.hit & ~sc.terminated
+        return sc.next_origin[live].contiguous(), sc.next_dir[live].contiguous()
+
+    scenes = (("demo", demo.reference_demo_scene(32, 16), None),
+              ("config 4", demo.config4_mixed_scene(128, 64), SWEEP_SUBSET),
+              ("65,024-row mesh", getattr(demo, STAGED_SCENE[0])(**STAGED_SCENE[1]), SWEEP_SUBSET))
+    jit = rng.ray_uniforms(0x5EE9, 0, R, 1, dev)
+    o0, d0 = (x.contiguous() for x in cam_ops.get_rays(cam, px, py, (jit - 0.5).T))
+    timing = {}
+    for name, scn, subset in scenes:
+        pkt = scn.build_packet().to(dev)
+        tables = sk.prepare(pkt, pkt.world_triangles())
+        t_valid, s_valid = int(pkt.tri_valid.sum()), int(pkt.sph_valid.sum())
+        for what, (o, d) in (("primary", (o0, d0)), ("bounce 1", bounce1(o0, d0, pkt, tables))):
+            n = o.shape[0]
+            got = sk.sweep_packed(o, d, tables, k.t_min, k.t_max, k.det_eps)
+            idx = (torch.arange(n, device=dev) if subset is None or n <= subset else
+                   torch.randperm(n, device=dev, generator=torch.Generator(dev).manual_seed(5))[
+                       :subset])
+            full = main_primary = name == scenes[-1][0] and what == "primary"
+            if full:
+                idx = torch.arange(n, device=dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            want = plain(o[idx], d[idx], tables)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            diff = sum(int((g[idx].long() != w.long()).sum()) for g, w in zip(got, want))
+            hits = (int(got[1].sum()), int(got[3].sum()))
+            ms = cuda_events(lambda: sk.sweep_packed(o, d, tables, k.t_min, k.t_max, k.det_eps),
+                             3 if t_valid > 1000 else 20)
+            ops = n * (t_valid * OPS_SWEEP_TRI + s_valid * OPS_SWEEP_SPH)
+            nbytes = n * 40 + tables.tris.numel() * 4 + tables.sphs.numel() * 4
+            b_ms, b_by = bound(nbytes, ops)
+            print(f"  {name} ({t_valid} valid of {tables.tris.shape[0]} triangle rows, {s_valid} "
+                  f"spheres), {what}: {n} rays, {idx.numel()} compared, {diff} selections "
+                  f"differ; triangle hits {hits[0]}, sphere hits {hits[1]}; kernel {ms:.4f} ms "
+                  f"(CUDA events), plain {plain_ms:.1f} ms on the compared rays; bound "
+                  f"{b_ms:.4f} ms by {b_by} ({ops / 1e9:.1f} GFLOP) [{card}]", flush=True)
+            check(diff == 0, f"sweep {name} {what}: {diff} selections differ from the plain sweep")
+            check(hits[0] > 0 and hits[1] > 0, f"sweep {name} {what}: no hits")
+            if main_primary:
+                timing = dict(ms=ms, plain_ms=plain_ms, nbytes=nbytes, ops=ops, o=o, d=d,
+                              tables=tables)
+
+    o, d, tables = timing["o"], timing["d"], timing["tables"]
+    fma_ms, exact_ms, flips = fma_compare(fma_build, o, d, tables, k, dev)
+    print(f"  {scenes[-1][0]} primary: with FMA contraction {fma_ms:.4f} ms, without "
+          f"{exact_ms:.4f} ms (the shipped build), in turns; {flips} of {o.shape[0]} rays select "
+          f"otherwise with FMA [{card}]", flush=True)
+    del timing["o"], timing["d"], timing["tables"], o, d, tables
+
+    # ---- 20. the staged main path at full width --------------------------------------
+    pkt = getattr(demo, STAGED_SCENE[0])(**STAGED_SCENE[1]).build_packet().to(dev)
+    check(pt.route(pkt, cfg) == "staged", f"route {pt.route(pkt, cfg)}, expected staged")
+    print(f"phase 20: staged main path, {STAGED_SCENE[0]}({STAGED_SCENE[1]}) ({pkt.num_triangles} "
+          f"triangles in {pkt.tri_valid.shape[0]} rows; route {pt.route(pkt, cfg)}) at {W}x{H}, "
+          f"max_depth {B}: render_step and mse_step spp 1, 1 + {STAGED_STEPS} steps", flush=True)
+    sk.launches = 0  # every count to 0 just before the main path
+    acc = pt.AccumState.create(H, W, dev)
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator().manual_seed(cfg.seed)
+    acc = pt.render_step(pkt, cam, acc, gen, cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(STAGED_STEPS):
+        acc = pt.render_step(pkt, cam, acc, gen, cfg)
+    torch.cuda.synchronize()
+    r_ms = (time.perf_counter() - t0) * 1e3 / STAGED_STEPS
+    r_peak = torch.cuda.max_memory_allocated()
+    r_launches = sk.launches
+    lin = acc.linear
+    check(r_launches == B * (STAGED_STEPS + 1), f"render_step: {r_launches} sweep launches")
+    check(bool(torch.isfinite(lin).all()) and float(lin.min()) >= 0.0
+          and float(lin.max()) <= 1.0 + 1e-6 and float(lin.mean()) > 0.0, "render_step: image")
+    print(f"  render_step: {r_ms:.1f} ms/step (host clock), peak {r_peak / 2**30:.2f} GiB, "
+          f"sweep launches {r_launches} = max_depth x {STAGED_STEPS + 1} samples, image mean "
+          f"{float(lin.mean()):.4f} [{card}]", flush=True)
+
+    params = sh.differentiable_params(pkt, cam)
+    target = torch.zeros((R, 3), device=dev)
+    sk.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    train.mse_step(params, pkt, cam, target, cfg, 1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(STAGED_STEPS):
+        loss, grads = train.mse_step(params, pkt, cam, target, cfg, 2 + i)
+    torch.cuda.synchronize()
+    m_ms = (time.perf_counter() - t0) * 1e3 / STAGED_STEPS
+    m_peak = torch.cuda.max_memory_allocated()
+    m_launches = sk.launches
+    check(m_launches == B * (STAGED_STEPS + 1), f"mse_step: {m_launches} sweep launches")
+    check(math.isfinite(float(loss)) and all(bool(torch.isfinite(g).all())
+                                             for g in grads.values()), "mse_step: non-finite")
+    check(float(grads["transforms"].abs().max()) > 0 and float(grads["cam_position"].abs().max())
+          > 0, "mse_step: zero geometry gradients")
+    print(f"  mse_step: {m_ms:.1f} ms/step (host clock), {R * B / (m_ms / 1e3) / 1e6:.2f} Mrays/s "
+          f"fwd+bwd (W*H*max_depth/s), peak {m_peak / 2**30:.2f} GiB, sweep launches "
+          f"{m_launches}, loss {float(loss):.6f}, |d(transforms)| max "
+          f"{float(grads['transforms'].abs().max()):.3e} [{card}]", flush=True)
+    launches = r_launches + m_launches
+    del grads, acc, lin
+    device_share(lambda: train.mse_step(params, pkt, cam, target, cfg, 9), 1,
+                 "staged mse_step", card)
+
+    # staged against fused, demo scene, same Philox seed
+    dpkt = demo.reference_demo_scene(32, 16).build_packet().to(dev)
+    dparams = sh.differentiable_params(dpkt, cam)
+    res = {}
+    for sweep in ("fused", "staged"):
+        c = RenderConfig(width=W, height=H, max_depth=B, grad_sweep=sweep)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res[sweep] = train.mse_step(dparams, dpkt, cam, target, c, GRAD_SEED)
+        torch.cuda.synchronize()
+        res[sweep] += ((time.perf_counter() - t0) * 1e3,)
+    (lf, gf, tf), (ls, gs, ts) = res["fused"], res["staged"]
+    # the staged route gathers its winners' rows through embedding
+    # (intersect.gather_rows); table[idx], whose backward accumulates the
+    # duplicates of an index one after another, for comparison
+    c = RenderConfig(width=W, height=H, max_depth=B, grad_sweep="staged")
+    gather_ms, embedding = {}, intersect.gather_rows
+    try:
+        for name, fn in (("embedding", embedding), ("table[idx]", lambda t, i: t[i]),
+                         ("embedding", embedding)):
+            intersect.gather_rows = fn
+            train.mse_step(dparams, dpkt, cam, target, c, GRAD_SEED)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            train.mse_step(dparams, dpkt, cam, target, c, GRAD_SEED)
+            torch.cuda.synchronize()
+            gather_ms.setdefault(name, []).append((time.perf_counter() - t0) * 1e3)
+            if len(gather_ms[name]) == 1:
+                device_share(lambda: train.mse_step(dparams, dpkt, cam, target, c, GRAD_SEED),
+                             1, f"staged mse_step, demo scene, gathers by {name}", card)
+    finally:
+        intersect.gather_rows = embedding
+    print(f"  staged mse_step, demo scene at {W}x{H}: gathers by embedding "
+          f"{', '.join(f'{x:.1f}' for x in gather_ms['embedding'])} ms/step, by table[idx] "
+          f"{gather_ms['table[idx]'][0]:.1f} ms/step (host clock, in turns) [{card}]", flush=True)
+    worst = []
+    for key in gf:
+        nf = float(gf[key].norm())
+        rel = float((gs[key] - gf[key]).norm()) / max(nf, 1e-30)
+        if nf == 0.0:
+            check(float(gs[key].abs().max()) <= 1e-6, f"staged d{key} should be zero")
+            continue
+        worst.append(f"{key} {rel:.2e}")
+        check(rel <= STAGED_REL, f"staged vs fused d{key}: relative L2 {rel:.3e} > {STAGED_REL}")
+    print(f"  grad_sweep 'staged' vs 'fused', demo scene at {W}x{H}, spp 1: loss {float(ls):.7f} "
+          f"vs {float(lf):.7f}; gradient relative L2: {', '.join(worst)}; one step {ts:.1f} ms "
+          f"vs {tf:.1f} ms (host clock, first call) [{card}]", flush=True)
+    check(abs(float(ls) - float(lf)) <= 1e-4 * abs(float(lf)), "staged vs fused loss")
+    return with_bound({
+        "name": "sweep",
+        "route": "cuda",
+        "source": "ptre_tpu_torch/csrc/sweep_kernel.cu",
+        "replaces": "ptre_tpu/ops/pallas/intersect_kernel.py:95",
+        "launches": launches,
+        "max_abs_err": 0.0,
+        "ms": timing["ms"],
+        "plain_ms": timing["plain_ms"],
+    }, timing["nbytes"], timing["ops"])
 
 
 # Raster kernels vs plain versions (phases 12-14). Coverage, z and the hard

@@ -32,15 +32,17 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 #: the kernel translation units, each compiled by its own nvcc process
 KERNEL_UNITS = ("render_kernel.cu", "record_kernel.cu", "fused_grad_kernel.cu",
                 "mask_kernel.cu", "wave_kernel.cu", "raster_kernel.cu",
-                "soft_raster_kernel.cu", "mega_kernel.cu")
+                "soft_raster_kernel.cu", "mega_kernel.cu", "sweep_kernel.cu")
 #: every source the library is built from: the units and their headers
 SOURCES = KERNEL_UNITS + ("trace.cuh", "philox.cuh", "replay.cuh", "wave.cuh",
-                          "raster.cuh")
-#: flags of single units on top of NVCC_FLAGS. The SoftRas pair terms are
-#: built without FMA contraction: a contracted edge distance or barycentric
-#: moves a near-degenerate triangle's d(inverse squared edge length) by far
-#: more than float rounding, against the plain version's separate roundings.
-UNIT_FLAGS = {"soft_raster_kernel.cu": ("-fmad=false",)}
+                          "raster.cuh", "sweep.cuh")
+#: flags of single units on top of NVCC_FLAGS, both without FMA contraction.
+#: The SoftRas pair terms: a contracted edge distance or barycentric moves a
+#: near-degenerate triangle's d(inverse squared edge length) by far more than
+#: float rounding, against the plain version's separate roundings. The sweep:
+#: its selections are integers, held exactly against the plain version.
+UNIT_FLAGS = {"soft_raster_kernel.cu": ("-fmad=false",),
+              "sweep_kernel.cu": ("-fmad=false",)}
 
 #: (seconds, ptxas report) of the build this process ran, or None if the
 #: library was already built
@@ -156,6 +158,9 @@ def load_library() -> ctypes.CDLL:
     lib.ptre_soft_bwd.restype = ctypes.c_int
     # (params, tris, cbox, res, dimg, dtab, stream)
     lib.ptre_soft_bwd.argtypes = [ptr] * 7
+    lib.ptre_sweep.restype = ctypes.c_int
+    # (params, o, d, tris, sphs, out, stream)
+    lib.ptre_sweep.argtypes = [ptr] * 7
     lib.ptre_cuda_error_string.restype = ctypes.c_char_p
     lib.ptre_cuda_error_string.argtypes = [ctypes.c_int]
     return lib

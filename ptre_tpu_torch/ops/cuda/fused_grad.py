@@ -144,6 +144,13 @@ def fused_bwd(table, sky6, o, d, sel, dcol, consts, max_depth: int,
     return dtable, dsky_part[:, :6].sum(dim=0), d_o, d_d
 
 
+def supported(packet) -> bool:
+    """Whether `trace_grad` has a forward for the packet by default: the
+    dense recording kernel, or the wavefront for everything it supports.
+    From the packet's counts alone."""
+    return mk.dense_supported(packet) or wf.supports(packet)
+
+
 def check_supported(packet, force: Optional[str] = None) -> None:
     """Raise unless `trace_grad` has a forward for the packet: the dense
     recording kernel, or the wavefront / culled megakernel for everything
@@ -159,12 +166,12 @@ def check_supported(packet, force: Optional[str] = None) -> None:
     if wf.supports(packet) or (force is None and mk.dense_supported(packet)):
         return
     raise NotImplementedError(
-        "the differentiable trace takes dense-class packets and packets the wavefront "
+        "the fused gradient kernels take dense-class packets and packets the wavefront "
         f"supports (<= {wf.MAX_WAVE_TRIS} triangle rows, <= {wf.MAX_WAVE_SPHS} sphere "
         f"rows, <= {mk.MAX_MATS} materials); this packet has "
         f"{packet.tri_valid.shape[0]} triangle rows, {packet.sph_center.shape[0]} sphere "
-        f"rows, {packet.num_materials} materials. Larger scenes need the staged trace, "
-        "still to be ported (ROADMAP A5).")
+        f"rows, {packet.num_materials} materials. It takes the staged trace: "
+        "integrator.trace routes it there (grad_sweep 'auto' or 'staged').")
 
 
 @dataclasses.dataclass

@@ -1,21 +1,42 @@
 """Path-tracing integrator: per-sample post-processing and the
 differentiable trace (`ptre_tpu/ops/integrator.py`).
 
-``trace`` routes every packet to the fused gradient path
-(`ops/cuda/fused_grad.trace_grad`), as the reference's ``_grad_route`` does
-on the TPU (`integrator.py:49-79`): a recording forward — the dense
-recording kernel, or for triangle-scale packets the wavefront in record
-mode — and the fused backward kernel on the card, their plain versions on
-the CPU. The staged, autograd-capable trace of the reference (ROADMAP A5) is
-not ported, so a packet past the wavefront's caps raises instead of falling
-back.
+`trace` routes a packet as the reference's ``_grad_route`` does
+(`integrator.py:49-79`, `RenderConfig.grad_sweep`):
+
+  * "fused": the fused gradient path (`ops/cuda/fused_grad.trace_grad`), a
+    recording forward — the dense recording kernel, or for triangle-scale
+    packets the wavefront in record mode — and the fused backward kernel;
+    taken by "auto" and "fused" for every packet it supports;
+  * "staged": `trace_staged`, the per-bounce sweep plus autograd
+    (`integrator.py:110-168`), always available: every packet past the
+    fused kernels' caps, and every packet under ``grad_sweep="staged"``.
+
+The staged route's sweep is the sweep kernel (`ops/cuda/sweep_kernel.py`)
+on CUDA tensors and its plain version on CPU tensors
+(``intersect_backend`` "auto", "pallas", "fused"); "xla" asks for the plain
+sweep, which on the card would be a hidden fallback with (R, T)
+temporaries, so it raises there. CUDA tensors run kernels, CPU tensors
+their plain versions, for both routes.
+
+Random numbers of the staged route, bounce b's scatter pair: with a
+threefry ``key`` (`rng.Key`) exactly the reference's draws,
+``cosine_weighted(fold(key, b), (R,))``; else the port's Philox pair 1 + b
+keyed by (seed, ray, sample), or rows 2 + 2b and 3 + 2b of ``urand`` — the
+draws of the fused route, so on one packet both routes trace the same
+paths. The staged route keeps every bounce's residuals for autograd (~20
+(R, 3) tensors a bounce): no rematerialisation, as the card holds them.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ptre_tpu_torch.ops import gradsafe, intersect, materials, rng
 from ptre_tpu_torch.ops.cuda import fused_grad
+from ptre_tpu_torch.ops.cuda import megakernel as mk
+from ptre_tpu_torch.ops.cuda import sweep_kernel
+from ptre_tpu_torch.utils.errors import ConfigError
 
 
 def postprocess_sample(color, clamp: bool = True):
@@ -27,28 +48,111 @@ def postprocess_sample(color, clamp: bool = True):
     return torch.where(torch.isfinite(color), color, torch.zeros_like(color))
 
 
-def check_grad_dispatch(packet, device) -> None:
-    """Raise unless `trace` has a path for this packet on ``device``: the
-    fused gradient kernels (or their plain versions on the CPU) for a
-    dense-class packet or one the wavefront supports. Touches no tensor."""
+def grad_route(config, packet) -> str:
+    """"fused" or "staged" for a differentiable trace of ``packet``
+    (`integrator.py:49-79`), from the packet's counts alone. "replay" raises
+    until the planar replay pair is ported (ROADMAP A15)."""
+    mode = config.grad_sweep
+    if mode == "replay":
+        raise NotImplementedError(
+            "grad_sweep='replay' (the planar replay route) is not ported yet "
+            "(ROADMAP A15); use 'auto', 'fused' or 'staged'")
+    if mode == "staged" or not fused_grad.supported(packet):
+        return "staged"
+    return "fused"
+
+
+def check_staged_sweep(config, device) -> None:
+    """Raise ConfigError where the staged route has no sweep for
+    ``config.intersect_backend`` on ``device``: "xla" (the plain sweep) on
+    CUDA tensors."""
+    if torch.device(device).type == "cuda" and config.intersect_backend == "xla":
+        raise ConfigError(
+            "intersect_backend='xla' runs the plain sweep, with (rays x triangles) "
+            "temporaries, and is refused on CUDA tensors; use 'auto' or 'pallas' "
+            "(the sweep kernel)")
+
+
+def check_grad_dispatch(packet, device, config=None) -> None:
+    """Raise unless `trace` has a path for this packet on ``device`` under
+    ``config`` (None: the defaults). Touches no tensor."""
     device = torch.device(device)
     if device.type not in ("cuda", "cpu"):
         raise NotImplementedError(f"trace runs on cuda or cpu, not {device}")
-    fused_grad.check_supported(packet)
+    if config is not None and grad_route(config, packet) == "staged":
+        check_staged_sweep(config, device)
+
+
+def _sweep_fn(tables, consts):
+    """``closest_hit``'s sweep over the tables packed once per trace."""
+    def fn(o, d, packet, world_tris, t_min, t_max, det_eps):
+        return sweep_kernel.sweep_packed(o.contiguous(), d.contiguous(), tables,
+                                         consts.t_min, consts.t_max, consts.det_eps)
+    return fn
+
+
+def trace_staged(origins, directions, packet, config, seed: int = 0, sample: int = 0,
+                 urand=None, key=None):
+    """The staged trace (`integrator.py:110-168`): per bounce the detached
+    sweep, the differentiable closest-hit recompute, the scatter and the
+    sky, as a masked loop over ``max_depth`` bounces → linear colour (R, 3),
+    differentiable w.r.t. the rays and the packet's float leaves. Draws:
+    ``key`` (`rng.Key`), else ``urand`` (2 + 2*max_depth, R), else Philox
+    keyed by (seed, ray, sample) (module docstring)."""
+    check_staged_sweep(config, origins.device)
+    consts = mk.TraceConsts.from_config(config)
+    R = origins.shape[0]
+    world_tris = packet.world_triangles()  # hoisted: shared by every bounce
+    tables = sweep_kernel.prepare(packet, world_tris)
+    sweep_fn = _sweep_fn(tables, consts)
+    if key is None:
+        ur = mk.trace_uniforms(origins, config.max_depth, seed, sample, urand)
+    mat_kind = packet.mat_kind.long()
+    mat_table = torch.cat([packet.mat_albedo, packet.mat_param[:, None]], dim=1)
+    o, d = origins, directions
+    color = torch.ones((R, 3), dtype=torch.float32, device=origins.device)
+    active = torch.ones((R,), dtype=torch.bool, device=origins.device)
+    for b in range(config.max_depth):
+        hit = intersect.closest_hit(o, d, packet, world_tris, consts.t_min, consts.t_max,
+                                    consts.det_eps, sweep_fn=sweep_fn)
+        if key is not None:
+            u1, u2 = rng.cosine_uniforms(rng.fold(key, b), (R,), origins.device)
+        else:
+            u1, u2 = ur[2 + 2 * b], ur[3 + 2 * b]
+        mat = intersect.gather_rows(mat_table, hit.mat_id)
+        srec = materials.scatter(u1, u2, d, hit.position, hit.normal, mat_kind[hit.mat_id],
+                                 mat[:, 0:3], mat[:, 3], consts.shadow_eps, consts.pdf_eps)
+        sky = materials.sky_attenuation(d, packet.sky_bottom, packet.sky_top)
+        # cos/pdf is the constant pi in every branch: its exact gradient is 0
+        hit_factor = gradsafe.cosine_ratio(srec.cos_weight, srec.pdf)[:, None] * srec.attenuation
+        factor = torch.where(hit.hit[:, None], hit_factor, sky)
+        color = color * torch.where(active[:, None], factor, torch.ones_like(factor))
+        next_active = active & hit.hit & ~srec.terminated
+        o = torch.where(next_active[:, None], srec.next_origin, o)
+        d = torch.where(next_active[:, None], srec.next_dir, d)
+        active = next_active
+    return color
 
 
 def trace(origins, directions, packet, config, seed: int = 0, sample: int = 0,
-          urand=None, screen_cam=None, forward=None):
+          urand=None, screen_cam=None, forward=None, key=None):
     """Trace one sample per ray → linear color (R, 3), differentiable
-    w.r.t. the rays and the packet's float leaves.
+    w.r.t. the rays and the packet's float leaves, by `grad_route`.
 
     ``seed``/``sample`` key the Philox draws (seed, ray, sample, draw);
-    ``urand`` (2 + 2*max_depth, R) replaces them (parity runs).
-    ``screen_cam``: the camera whose jittered per-pixel rays (origins,
-    directions) are, in row-major order; lets the triangle-scale forward bin
-    bounce 0 in screen space, the image is unchanged. ``forward``: the
-    packet packed once by `fused_grad.prepare_forward` for many samples.
+    ``urand`` (2 + 2*max_depth, R) replaces them (parity runs); ``key``, an
+    `rng.Key`, makes the staged route draw as the reference does (the fused
+    kernels draw Philox: a key there raises). ``screen_cam``: the camera
+    whose jittered per-pixel rays (origins, directions) are, in row-major
+    order; lets the triangle-scale fused forward bin bounce 0 in screen
+    space, the image is unchanged. ``forward``: the packet packed once by
+    `fused_grad.prepare_forward` for many samples (fused route only).
     """
-    check_grad_dispatch(packet, origins.device)
+    check_grad_dispatch(packet, origins.device, config)
+    if grad_route(config, packet) == "staged":
+        return trace_staged(origins, directions, packet, config, seed, sample, urand, key)
+    if key is not None:
+        raise ConfigError("a threefry key keys the staged route only: the fused kernels "
+                          "draw Philox (pass an int seed, or grad_sweep='staged')")
     return fused_grad.trace_grad(origins, directions, packet, config, seed,
                                  sample, urand, screen_cam=screen_cam, forward=forward)

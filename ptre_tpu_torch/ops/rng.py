@@ -1,6 +1,8 @@
-"""Counter-based Philox4x32-10 RNG, bit-identical to `csrc/philox.cuh`.
+"""Counter-based RNGs: Philox4x32-10, bit-identical to `csrc/philox.cuh`,
+the generator of every kernel; and threefry2x32, a bit-exact twin of
+`jax.random` for the staged route's JAX-keyed mode (end of the module).
 
-Replaces the TPU hardware PRNG of the fused render kernel
+Philox replaces the TPU hardware PRNG of the fused render kernel
 (`ptre_tpu/ops/pallas/render_kernel.py:111-128`, mapped by
 `megakernel._u01` at `megakernel.py:226`). The TPU streams cannot be
 reproduced off the TPU; this generator is the port's own, and the plain
@@ -26,7 +28,13 @@ still extracts its high word.
 
 from __future__ import annotations
 
+import dataclasses
+import math
+
+import numpy as np
 import torch
+
+from ptre_tpu_torch.ops import vecmat as vm
 
 _MASK = 0xFFFFFFFF
 PHILOX_M0 = 0xD2511F53
@@ -96,3 +104,170 @@ def render_uniforms(seed: int, sample: int, height: int, width: int,
     2b+3 bounce b's scatter pair — the layout of the external ``urand``."""
     return ray_uniforms(seed, sample, height * width, 1 + max_depth,
                         device).reshape(2 + 2 * max_depth, height, width)
+
+
+# ---- threefry2x32: a bit-exact twin of jax.random ---------------------------
+#
+# The staged route's JAX-keyed mode (`ptre_tpu/ops/rng.py:26-107`). JAX's
+# default PRNG with ``jax_threefry_partitionable=True``: a key is two 32-bit
+# words; ``fold_in``, ``split`` and the random bits are each one threefry2x32
+# hash of a (hi, lo) counter pair. Keys are small host values (`Key`, Python
+# ints), so deriving one never touches a device; only the random bits of a
+# tensor are hashed on the caller's device, in int64 with masks like Philox.
+
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+_THREEFRY_PARITY = 0x1BD11BDA
+
+
+@dataclasses.dataclass(frozen=True)
+class Key:
+    """A threefry2x32 key, ``jax.random.PRNGKey``'s two uint32 words."""
+
+    k0: int
+    k1: int
+
+
+def threefry2x32(k0, k1, x0, x1):
+    """Threefry-2x32, 20 rounds (Salmon et al., SC'11), as JAX lowers it
+    (`jax/_src/prng.py` ``_threefry2x32_lowering``). Works on Python ints
+    and on int64 tensors of 32-bit words alike; returns the two words."""
+    ks = (k0 & _MASK, k1 & _MASK, (k0 ^ k1 ^ _THREEFRY_PARITY) & _MASK)
+    x0 = (x0 + ks[0]) & _MASK
+    x1 = (x1 + ks[1]) & _MASK
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x0 = (x0 + x1) & _MASK
+            x1 = ((x1 << r) | (x1 >> (32 - r))) & _MASK
+            x1 = x0 ^ x1
+        x0 = (x0 + ks[(i + 1) % 3]) & _MASK
+        x1 = (x1 + ks[(i + 2) % 3] + i + 1) & _MASK
+    return x0, x1
+
+
+def key_for(seed: int) -> Key:
+    """``jax.random.PRNGKey(seed)``: the high and low words of the seed (a
+    negative 32-bit seed is its two's complement, high word 0)."""
+    seed = int(seed)
+    if seed < 0:
+        return Key(0, seed & _MASK)
+    return Key((seed >> 32) & _MASK, seed & _MASK)
+
+
+def fold(key: Key, *ids) -> Key:
+    """Fold integer identifiers into a key, one ``jax.random.fold_in`` each."""
+    for i in ids:
+        key = Key(*threefry2x32(key.k0, key.k1, 0, int(i) & _MASK))
+    return key
+
+
+def split(key: Key, num: int = 2):
+    """``jax.random.split(key, num)`` as a tuple of keys."""
+    return tuple(Key(*threefry2x32(key.k0, key.k1, 0, i)) for i in range(num))
+
+
+def random_bits(key: Key, shape, device=None):
+    """32 random bits per element of ``shape`` (int64 tensor): the hash of
+    the element's row-major index as a (hi, lo) counter, the two output
+    words xor-ed (``_threefry_random_bits_partitionable``)."""
+    n = math.prod(shape)
+    idx = torch.arange(n, dtype=torch.int64, device=device)
+    b0, b1 = threefry2x32(key.k0, key.k1, idx >> 32, idx & _MASK)
+    return (b0 ^ b1).reshape(tuple(shape))
+
+
+def _f32(x) -> float:
+    return float(np.float32(x))
+
+
+def uniform(key: Key, shape=(), minval: float = 0.0, maxval: float = 1.0,
+            device=None):
+    """``jax.random.uniform``: float32 in [minval, maxval). The top 23 bits
+    become the mantissa of a float in [1, 2); minus 1, times (maxval -
+    minval), plus minval, floored at minval. XLA contracts the multiply and
+    add into one fused multiply-add: the float64 product (exact) and sum,
+    rounded once to float32, reproduce it."""
+    lo = _f32(minval)
+    span = _f32(np.float32(maxval) - np.float32(lo))
+    mant = (random_bits(key, shape, device) >> 9) | 0x3F800000
+    floats = mant.to(torch.int32).view(torch.float32) - 1.0
+    return torch.clamp((floats.double() * span + lo).float(), min=lo)
+
+
+def uint(key: Key, shape=(), minval: int = 0, maxval: int = 2**31 - 1,
+         device=None):
+    """``jax.random.randint(key, shape, minval, maxval + 1, uint32)``:
+    integers in [minval, maxval] (int64 tensor), the reference's inclusive
+    `random::uint`. JAX's two-word remainder scheme, in wrapped uint32
+    arithmetic."""
+    if not 0 <= minval <= maxval < _MASK:
+        raise ValueError(f"uint takes 0 <= minval <= maxval < 2**32 - 1, got "
+                         f"[{minval}, {maxval}]")
+    span = maxval + 1 - minval
+    k1, k2 = split(key)
+    higher, lower = random_bits(k1, shape, device), random_bits(k2, shape, device)
+    mult = (((2**16 % span) ** 2) & _MASK) % span
+    off = (((higher % span) * mult) & _MASK) + lower % span
+    return minval + (off & _MASK) % span
+
+
+def pixel_jitter(key: Key, shape, device=None):
+    """Sub-pixel jitter in [-0.5, 0.5), (*shape, 2) (`camera.cu:24-25`)."""
+    return uniform(key, tuple(shape) + (2,), -0.5, 0.5, device)
+
+
+def on_unit_sphere(key: Key, shape=(), device=None):
+    """Uniform direction on the unit sphere (`random.cu:72-84`): azimuth
+    uniform in [0, tau), z uniform in [-1, 1); (*shape, 3)."""
+    k1, k2 = split(key)
+    phi = uniform(k1, shape, 0.0, 2.0 * math.pi, device)
+    z = uniform(k2, shape, -1.0, 1.0, device)
+    sin_theta = torch.sqrt(1.0 - z * z)
+    return torch.stack([sin_theta * torch.cos(phi), sin_theta * torch.sin(phi), z],
+                       dim=-1)
+
+
+def on_unit_hemisphere(key: Key, normal):
+    """Uniform direction on the hemisphere around ``normal`` (`random.cu:86-94`)."""
+    d = on_unit_sphere(key, normal.shape[:-1], normal.device)
+    flip = torch.sum(d * normal, dim=-1, keepdim=True) > 0.0
+    return torch.where(flip, d, -d)
+
+
+def cosine_from_uniforms(u1, u2):
+    """Cosine-weighted hemisphere direction, local z-up, from two uniforms
+    (`random.cu:96-107`): phi = tau u1, (x, y) = (cos phi, sin phi) sqrt(u2),
+    z = sqrt(1 - u2)."""
+    phi = _f32(2.0 * math.pi) * u1
+    r = torch.sqrt(u2)
+    return torch.stack([torch.cos(phi) * r, torch.sin(phi) * r, torch.sqrt(1.0 - u2)],
+                       dim=-1)
+
+
+def cosine_uniforms(key: Key, shape=(), device=None):
+    """The two uniforms `cosine_weighted` draws, from ``split(key)``."""
+    k1, k2 = split(key)
+    return uniform(k1, shape, device=device), uniform(k2, shape, device=device)
+
+
+def cosine_weighted(key: Key, shape=(), device=None):
+    """Cosine-weighted hemisphere sample, local z-up, (*shape, 3)."""
+    return cosine_from_uniforms(*cosine_uniforms(key, shape, device))
+
+
+def onb_from_normal(n):
+    """Orthonormal basis with w = normalize(n) (`onb.h:7-12`), as a (..., 3,
+    3) matrix whose ROWS are (u, v, w). The helper axis is y where |w.x| >
+    0.9, else x, as in the reference."""
+    len_sq = torch.sum(n * n, dim=-1, keepdim=True)
+    pos = len_sq > 0
+    w = n * torch.where(pos, torch.rsqrt(torch.where(pos, len_sq, torch.ones_like(len_sq))),
+                        torch.zeros_like(len_sq))
+    big_x = (torch.abs(w[..., 0]) > 0.9)[..., None]
+    e_y = torch.tensor([0.0, 1.0, 0.0], dtype=n.dtype, device=n.device)
+    e_x = torch.tensor([1.0, 0.0, 0.0], dtype=n.dtype, device=n.device)
+    a = torch.where(big_x, e_y, e_x)
+    v = vm.cross(w, a)
+    v_len = torch.sqrt(torch.sum(v * v, dim=-1, keepdim=True))
+    v = v / torch.where(v_len > 0, v_len, torch.ones_like(v_len))
+    u = vm.cross(v, w)
+    return torch.stack([u, v, w], dim=-2)

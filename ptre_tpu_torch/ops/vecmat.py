@@ -29,6 +29,19 @@ def dot(a, b):
     return torch.sum(a * b, dim=-1)
 
 
+def dot3(a, b):
+    """Dot over a trailing axis of 3, summed left to right as the kernels
+    sum it: a.x*b.x + a.y*b.y + a.z*b.z."""
+    return a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1] + a[..., 2] * b[..., 2]
+
+
+def cross(a, b):
+    """3D cross product in ``jnp.cross``'s operation order (`vector.h:219-224`)."""
+    a0, a1, a2 = a.unbind(dim=-1)
+    b0, b1, b2 = b.unbind(dim=-1)
+    return torch.stack([a1 * b2 - a2 * b1, a2 * b0 - a0 * b2, a0 * b1 - a1 * b0], dim=-1)
+
+
 def normalize(v, eps: float = 0.0):
     """Zero-safe normalize: zero vectors stay zero (`vector.h:239-244`)."""
     len_sq = torch.sum(v * v, dim=-1, keepdim=True)

@@ -1,14 +1,21 @@
 """Progressive path-tracer frame pipeline.
 
-PyTorch port of `ptre_tpu/render/pathtracer.py`'s forward path. Two routes,
-chosen per packet (`route`):
+PyTorch port of `ptre_tpu/render/pathtracer.py`. Three routes, chosen per
+packet and config (`route`):
 
   * dense packets (<= 64 triangles, <= 64 spheres): each sample is one
     launch of the whole-sample render kernel (`ops/cuda/render_kernel.py`);
   * larger packets the wavefront takes (`ops/cuda/wavefront.supports`): each
     sample is `sample_image` — Philox jitter, `camera.get_rays`, the sorted
     wavefront (mask and bounce kernels), clamp and scrub — then the running
-    average, with the packing done once per step.
+    average, with the packing done once per step;
+  * every other packet (past the wavefront's caps: > 49,152 triangle rows,
+    > 4,096 sphere rows or > 8 materials), and every packet under
+    ``intersect_backend`` "pallas" or "xla": the staged route,
+    `sample_image_staged` — `ops/integrator.trace_staged`, whose sweep is one
+    launch of the sweep kernel a bounce (`ops/cuda/sweep_kernel.py`)
+    (`pathtracer.py:101-121`: the reference falls back to it "rather than
+    crash").
 
 CUDA tensors run the kernels; CPU tensors their plain PyTorch versions. The
 accumulation reproduces the reference render kernel (`path_tracer.cu:330-366`):
@@ -24,11 +31,12 @@ import dataclasses
 import torch
 
 from ptre_tpu_torch.ops import camera as cam_ops
-from ptre_tpu_torch.ops import rng
+from ptre_tpu_torch.ops import integrator, rng
 from ptre_tpu_torch.ops.cuda import megakernel as mk
 from ptre_tpu_torch.ops.cuda import render_kernel as rk
 from ptre_tpu_torch.ops.cuda import wavefront as wf
 from ptre_tpu_torch.ops.integrator import postprocess_sample
+from ptre_tpu_torch.utils.errors import ConfigError
 
 
 @dataclasses.dataclass
@@ -62,34 +70,31 @@ def pixel_grid(height: int, width: int, device=None):
     return px.reshape(-1), py.reshape(-1)
 
 
-def route(packet) -> str:
-    """The route of a packet: "dense" (the render kernel), "wavefront" (the
-    mask and bounce kernels) or "none" when neither takes it."""
+def route(packet, config=None) -> str:
+    """The route of a packet under ``config`` (None: the defaults): "dense"
+    (the render kernel), "wavefront" (the mask and bounce kernels) or
+    "staged" (the sweep kernel), from the packet's counts alone.
+    ``intersect_backend`` "pallas" or "xla" forces "staged"; otherwise it is
+    taken when neither fused route takes the packet (`pathtracer.py:62-121`)."""
+    if config is not None and config.intersect_backend in ("pallas", "xla"):
+        return "staged"
     if mk.dense_supported(packet):
         return "dense"
     if wf.supports(packet):
         return "wavefront"
-    return "none"
+    return "staged"
 
 
-def check_dispatch(packet, device) -> None:
-    """Raise unless ``render_step`` has a path for this packet on ``device``:
-    on CUDA the dense kernel or the wavefront kernels — nothing runs plain
-    PyTorch on the card instead. On the CPU every packet has a path (a
-    packet neither route takes runs the dense plain version)."""
+def check_dispatch(packet, device, config=None) -> None:
+    """Raise unless ``render_step`` has a path for this packet on ``device``
+    under ``config``: every packet has one on CUDA and on the CPU, except
+    that the staged route refuses ``intersect_backend="xla"`` on CUDA (the
+    plain sweep on the card would be a hidden fallback)."""
     device = torch.device(device)
-    if device.type == "cuda":
-        if route(packet) == "none":
-            raise NotImplementedError(
-                "render_step on CUDA takes a dense packet (<= "
-                f"{mk.DENSE_MAX_TRI} triangles, <= {mk.DENSE_MAX_SPH} spheres) or "
-                f"one the wavefront takes (<= {wf.MAX_WAVE_TRIS} triangle rows, <= "
-                f"{wf.MAX_WAVE_SPHS} sphere rows), with <= {mk.MAX_MATS} materials; "
-                f"this packet has {packet.tri_valid.shape[0]} triangle rows, "
-                f"{packet.sph_center.shape[0]} sphere rows, {packet.num_materials} "
-                "materials.")
-    elif device.type != "cpu":
+    if device.type not in ("cuda", "cpu"):
         raise NotImplementedError(f"render_step runs on cuda or cpu, not {device}")
+    if config is not None and route(packet, config) == "staged":
+        integrator.check_staged_sweep(config, device)
 
 
 def sample_image(scene: wf.WaveScene, cam, config, seed: int, n: int, urand=None,
@@ -116,15 +121,53 @@ def sample_image(scene: wf.WaveScene, cam, config, seed: int, n: int, urand=None
     return postprocess_sample(color, config.clamp_samples)
 
 
+def sample_image_staged(packet, cam, config, seed: int = 0, n: int = 0, urand=None,
+                        key=None, ray_chunk: int = 0):
+    """One jittered sample per pixel through the staged route → clamped
+    linear colour (H*W, 3) (`pathtracer.py:74-121`, staged branch).
+
+    Draws: with ``key`` (`rng.Key`) the reference's, the jitter
+    ``pixel_jitter(fold(key, 0x9E37))`` and the bounces keyed from ``key``;
+    else as the other routes draw them, pair 0 (the jitter) and pair 1 + b
+    (bounce b) by (seed, pixel, n), or ``urand`` (2 + 2*max_depth, H, W).
+    ``ray_chunk`` > 0 traces the pixels in chunks of that many rays (the last
+    may be shorter), each keyed ``fold(key, chunk)`` in key mode as the
+    reference keys them; without a key chunking changes nothing."""
+    H, W = cam.height, cam.width
+    R = H * W
+    dev = packet.device
+    px, py = pixel_grid(H, W, dev)
+    ur = None
+    if key is not None:
+        jitter = rng.pixel_jitter(rng.fold(key, 0x9E37), (R,), dev)
+    else:
+        ur = (rng.ray_uniforms(seed, n, R, 1 + config.max_depth, dev) if urand is None
+              else urand.reshape(2 + 2 * config.max_depth, R))
+        jitter = (ur[0:2] - 0.5).T
+    o, d = cam_ops.get_rays(cam, px, py, jitter)
+    chunk = ray_chunk if 0 < ray_chunk < R else R
+    parts = []
+    for cid, c0 in enumerate(range(0, R, chunk)):
+        sl = slice(c0, c0 + chunk)
+        if key is not None:
+            parts.append(integrator.trace_staged(
+                o[sl], d[sl], packet, config, key=key if chunk == R else rng.fold(key, cid)))
+        else:
+            parts.append(integrator.trace_staged(o[sl], d[sl], packet, config,
+                                                 urand=ur[:, sl].contiguous()))
+    return postprocess_sample(torch.cat(parts), config.clamp_samples)
+
+
 def render_step(packet, cam, accum: AccumState, seed_or_generator, config,
-                spp: int = 1, urand=None) -> AccumState:
+                spp: int = 1, urand=None, ray_chunk: int = 0) -> AccumState:
     """Accumulate ``spp`` progressive samples into the running average.
 
     Sample s uses running-average index n = frame + s + 1. On CUDA a dense
     sample is one kernel launch, a wavefront sample one mask and one bounce
     launch per live bounce (bounce 0 bins in screen space instead of the
-    mask when the image tiles); ``accum.linear`` is updated IN PLACE (the
-    port's answer to JAX buffer donation) and the returned state shares it.
+    mask when the image tiles), a staged sample one sweep launch per bounce;
+    ``accum.linear`` is updated IN PLACE (the port's answer to JAX buffer
+    donation) and the returned state shares it.
 
     Args:
       packet: ScenePacket on the accumulator's device.
@@ -132,13 +175,18 @@ def render_step(packet, cam, accum: AccumState, seed_or_generator, config,
       accum: AccumState; its ``linear`` device picks the path.
       seed_or_generator: an int seed or a CPU ``torch.Generator``; it gives
         each sample a Python-int Philox seed, so no step reads the device.
-      config: RenderConfig.
+        On the staged route it may be an `rng.Key`: sample s is then keyed
+        ``fold(fold(key, s), n)`` and draws as the reference does
+        (`pathtracer.py:151-159`); the fused routes draw Philox and refuse
+        a key.
+      config: RenderConfig; ``intersect_backend`` takes part in `route`.
       spp: samples in this step.
       urand: optional (spp, 2 + 2*max_depth, H, W) float32 uniforms in
         [0, 1) to use instead of Philox draws (parity runs).
+      ray_chunk: rays per chunk of the staged route (0: all at once).
     """
     device = accum.linear.device
-    check_dispatch(packet, device)
+    check_dispatch(packet, device, config)
     if packet.device != device:
         raise ValueError(f"packet is on {packet.device}, accum on {device}")
     H, W = accum.linear.shape[:2]
@@ -146,12 +194,34 @@ def render_step(packet, cam, accum: AccumState, seed_or_generator, config,
         raise ValueError(f"accum is {H}x{W}, camera {cam.height}x{cam.width}")
     if urand is not None and tuple(urand.shape) != (spp, 2 + 2 * config.max_depth, H, W):
         raise ValueError(f"urand has shape {tuple(urand.shape)}")
-    if isinstance(seed_or_generator, torch.Generator):
-        gen = seed_or_generator
-    else:
-        gen = torch.Generator().manual_seed(int(seed_or_generator))
+    r = route(packet, config)
+    key = seed_or_generator if isinstance(seed_or_generator, rng.Key) else None
+    if key is not None and r != "staged":
+        raise ConfigError(
+            f"a threefry key keys the staged route only, and this packet takes the {r} "
+            "route, whose kernels draw Philox: pass an int seed or a generator, or set "
+            "intersect_backend='pallas'")
+    if key is None:
+        gen = (seed_or_generator if isinstance(seed_or_generator, torch.Generator)
+               else torch.Generator().manual_seed(int(seed_or_generator)))
 
-    if route(packet) == "wavefront":
+    if r == "staged":
+        with torch.no_grad():
+            for s in range(spp):
+                n = accum.frame + s + 1
+                if key is not None:
+                    img = sample_image_staged(packet, cam, config, key=rng.fold(key, s, n),
+                                              ray_chunk=ray_chunk)
+                else:
+                    seed = int(torch.randint(0, 2**31 - 1, (1,), generator=gen).item())
+                    img = sample_image_staged(packet, cam, config, seed, n,
+                                              None if urand is None else urand[s],
+                                              ray_chunk=ray_chunk)
+                inv_n, w_old = rk._average_weights(n)
+                accum.linear.mul_(w_old).add_(img.reshape(H, W, 3) * inv_n)
+        return AccumState(linear=accum.linear, frame=accum.frame + spp)
+
+    if r == "wavefront":
         # world-space triangles, Morton sort and packing once per step
         scene = wf.prepare_scene(packet, screen_cam=cam)
         for s in range(spp):

@@ -20,16 +20,23 @@ mean image M = (1/S) sum_s I_s over S samples per pixel:
 `raster_mse_step` is the rasterizer's counterpart: the image MSE of the
 SoftRas path, one launch each of its forward and backward kernels.
 
-On CUDA tensors a sample of a dense-class packet is one launch of the
-recording kernel and one of the fused backward kernel (`ops/cuda/fused_grad`);
-a sample of a triangle-scale packet runs the wavefront in record mode (a mask
+Each step routes its packet once (`integrator.grad_route`, by
+``config.grad_sweep`` and the packet's counts). On the fused route, on CUDA
+tensors, a sample of a dense-class packet is one launch of the recording
+kernel and one of the fused backward kernel (`ops/cuda/fused_grad`); a
+sample of a triangle-scale packet runs the wavefront in record mode (a mask
 and a bounce launch per live bounce) and one launch of the backward kernel's
-global-table instantiation. On CPU tensors their plain versions run. The
-scene is packed (world-space triangles, Morton sort, boxes) once per step,
-without a graph: only the unified table carries gradients to the packet. Random numbers: per sample s, the port's Philox keyed by
-(seed, pixel, s, draw) — draw 0 the pixel jitter, draw 1 + b bounce b — or
-given uniforms ``urand`` (S, 2 + 2*max_depth, H, W), the layout of
-`render/pathtracer.render_step`.
+global-table instantiation; the scene is packed (world-space triangles,
+Morton sort, boxes) once per step, without a graph: only the unified table
+carries gradients to the packet. On the staged route — every packet past the
+fused kernels' caps, or ``grad_sweep="staged"`` — a sample is
+`integrator.trace_staged`, one sweep launch a bounce and autograd through the
+rest. On CPU tensors the plain versions run. Random numbers: per sample s,
+the port's Philox keyed by (seed, pixel, s, draw) — draw 0 the pixel jitter,
+draw 1 + b bounce b — or given uniforms ``urand`` (S, 2 + 2*max_depth, H, W),
+the layout of `render/pathtracer.render_step`; or, on the staged route, a
+threefry ``seed`` (`rng.Key`), which keys sample s ``fold(key, s)`` and
+draws as the reference does (`train.py:56-126`).
 
 Not carried over from the reference: the dead ``n = target.size`` of
 ``mse_step``, the ``spp % samples_per_call`` assert (a ragged last chunk
@@ -57,21 +64,34 @@ def pack_forward(params, packet, cam):
     return fused_grad.prepare_forward(pk, screen_cam=cm)
 
 
-def sample_color(params, packet, cam, config, seed: int, sample: int,
+def _forward_of(params, packet, cam, config):
+    """`pack_forward` where the step takes the fused route, else None."""
+    if integrator.grad_route(config, packet) == "fused":
+        return pack_forward(params, packet, cam)
+    return None
+
+
+def sample_color(params, packet, cam, config, seed, sample: int,
                  urand=None, forward=None):
     """One jittered sample per pixel → RAW linear color (H*W, 3), row-major.
 
     ``params`` (`sharding.differentiable_params`) override the packet's and
     camera's leaves; the color is unclamped (training integrates in linear
-    space). ``urand``: this sample's (2 + 2*max_depth, H, W) uniforms, rows
-    0-1 the pixel jitter + 0.5; None draws Philox keyed by (seed, pixel,
-    sample, draw). ``forward``: `pack_forward` of the same ``params``, when a
-    caller renders several samples of them.
+    space). ``seed``: an int, or an `rng.Key` (staged route: this sample is
+    keyed ``fold(seed, sample)``, the jitter ``pixel_jitter(fold(., 0x9E37))``
+    as in `train.py:56-70`). ``urand``: this sample's (2 + 2*max_depth, H,
+    W) uniforms, rows 0-1 the pixel jitter + 0.5; None draws Philox keyed by
+    (seed, pixel, sample, draw). ``forward``: `pack_forward` of the same
+    ``params``, when a caller renders several samples of them.
     """
     pk, cm = sh.apply_params(params, packet, cam)
     dev = packet.device
     R = cm.height * cm.width
     px, py = pt.pixel_grid(cm.height, cm.width, dev)
+    if isinstance(seed, rng.Key):
+        key = rng.fold(seed, sample)
+        o, d = cam_ops.get_rays(cm, px, py, rng.pixel_jitter(rng.fold(key, 0x9E37), (R,), dev))
+        return integrator.trace(o, d, pk, config, key=key)
     if urand is None:
         jit = rng.ray_uniforms(seed, sample, R, 1, dev)
     else:
@@ -92,17 +112,18 @@ def _grad_dict(out, leaves):
             for (k, v), g in zip(leaves.items(), grads)}
 
 
-def mse_step(params, packet, cam, target, config, seed: int, spp: int = 1,
+def mse_step(params, packet, cam, target, config, seed, spp: int = 1,
              urand=None):
     """(loss, grads) of the image MSE at ``spp`` samples, one graph.
 
-    ``target``: (H*W, 3) linear, row-major. ``urand``: optional
-    (spp, 2 + 2*max_depth, H, W) uniforms. Returns the loss as a 0-d tensor
-    and a dict of gradients with ``params``' keys.
+    ``target``: (H*W, 3) linear, row-major. ``seed``: an int or an
+    `rng.Key` (`sample_color`). ``urand``: optional (spp, 2 + 2*max_depth,
+    H, W) uniforms. Returns the loss as a 0-d tensor and a dict of gradients
+    with ``params``' keys.
     """
-    integrator.check_grad_dispatch(packet, target.device)
+    integrator.check_grad_dispatch(packet, target.device, config)
     leaves = _leaves(params)
-    forward = pack_forward(leaves, packet, cam)
+    forward = _forward_of(leaves, packet, cam, config)
     acc = torch.zeros_like(target)
     for s in range(spp):
         acc = acc + sample_color(leaves, packet, cam, config, seed, s,
@@ -111,7 +132,7 @@ def mse_step(params, packet, cam, target, config, seed: int, spp: int = 1,
     return loss.detach(), _grad_dict(loss, leaves)
 
 
-def two_pass_mse_step(params, packet, cam, target, config, seed: int,
+def two_pass_mse_step(params, packet, cam, target, config, seed,
                       spp: int = 64, samples_per_call: int = 1, urand=None):
     """Exact (loss, grads) of the image MSE with memory independent of spp.
 
@@ -120,9 +141,9 @@ def two_pass_mse_step(params, packet, cam, target, config, seed: int,
     a time (the last chunk may be shorter). One sample per backward keeps
     the memory at one sample's graph, the point of this schedule.
     """
-    integrator.check_grad_dispatch(packet, target.device)
+    integrator.check_grad_dispatch(packet, target.device, config)
     c = max(1, min(samples_per_call, spp))
-    forward = pack_forward(params, packet, cam)
+    forward = _forward_of(params, packet, cam, config)
 
     def urand_of(s):
         return None if urand is None else urand[s]

@@ -6,9 +6,10 @@ config system — every knob is a compile-time constant (window 1280x720
 `window.h:40-41`, RNG seed 1984 `path_tracer.cu:45`, max_depth 5 and t-range
 `path_tracer.cu:240-241`, MSAA 4x `rasterizer.cu:31`, camera pose/fov
 `camera.h:11,26-27`, materials `path_tracer.cu:248-249`); defaults reproduce
-the reference. Fields that pick a JAX backend (``intersect_backend``,
-``grad_sweep``, ``remat_*``) are carried so a configuration crosses between
-the packages unchanged; the port's routes do not read them.
+the reference. The route fields (``intersect_backend``, ``grad_sweep``)
+are checked and read as the docstrings below say; ``remat_*`` are carried
+so that a configuration crosses between the packages unchanged, and are not
+read (see there).
 """
 
 from __future__ import annotations
@@ -16,6 +17,11 @@ from __future__ import annotations
 import dataclasses
 
 from ptre_tpu_torch.utils.errors import ConfigError
+
+
+#: the values of RenderConfig.intersect_backend and RenderConfig.grad_sweep
+INTERSECT_BACKENDS = ("auto", "xla", "pallas", "fused")
+GRAD_SWEEPS = ("auto", "fused", "replay", "staged")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,30 +52,31 @@ class RenderConfig:
     #: (ghosting; manual right-click reset — `application.cu:87-89`), so the
     #: flag-compatible default is False.
     reset_on_edit: bool = False
-    #: closest-hit sweep backend: "auto" (Pallas kernel on TPU, XLA
-    #: elsewhere), "xla", or "pallas"
+    #: the route of `render/pathtracer.render_step` and the staged sweep.
+    #: "auto" and "fused": the fused kernels (dense render kernel or the
+    #: wavefront) for every packet they take, else the staged route; the
+    #: staged route's sweep is the sweep kernel on CUDA tensors, its plain
+    #: version on CPU tensors. "pallas": the staged route for every packet,
+    #: with that sweep. "xla": the staged route with the plain sweep, CPU
+    #: tensors only (on the card it would be a hidden fallback with (R, T)
+    #: temporaries): on CUDA tensors it raises ConfigError.
     intersect_backend: str = "auto"
-    #: sweep backend for DIFFERENTIABLE traces (`integrator.trace`):
-    #: "auto" (fully-fused custom-VJP path on TPU whenever the megakernel
-    #: supports the scene — `ops.pallas.fused_grad`; staged per-bounce sweep
-    #: elsewhere), "fused" (force the fused path), "replay" (round-2 planar
-    #: replay, dense scenes only, kept for A/B), or "staged". The sweep is
-    #: stop-gradient every way (detached visibility); "fused" keeps its
-    #: O(R*P) cost AND the whole backward chain on-chip.
+    #: the route of DIFFERENTIABLE traces (`ops/integrator.trace`, the
+    #: training steps): "auto" and "fused" take the fused recording forward
+    #: and backward kernels for every packet `fused_grad.check_supported`
+    #: takes, else the staged route (per-bounce sweep plus autograd);
+    #: "staged" takes the staged route for every packet; "replay" (the
+    #: reference's round-2 planar replay, A/B only) is not ported yet and
+    #: raises NotImplementedError. The sweep is detached every way.
     grad_sweep: str = "auto"
-    #: rematerialize the bounce body in the backward pass (`jax.checkpoint`).
-    #: Without it, autodiff of the bounce scan stores every per-bounce
-    #: intermediate — ~20 (R, 3) arrays per bounce, which at 1080p overflows
-    #: a v5e chip's HBM; with it, only the small scan carry is saved and the
-    #: bounce recomputes on the way back (the SURVEY §7 "re-intersect instead
-    #: of storing hits" design). Identical values either way.
+    #: rematerialise the bounce body in the reference's backward
+    #: (`jax.checkpoint`). It changes only memory there ("Identical values
+    #: either way"); the port keeps every bounce's residuals (~20 (R, 3)
+    #: tensors a bounce, some 2.5 GB a sample at 1920x1080, which the card
+    #: holds) and does not read it.
     remat_bounces: bool = True
-    #: rematerialize the bounce body in the REPLAY backward (`ops.path_replay`).
-    #: Off by default: the replay's residuals are O(R) per bounce (~40 MB per
-    #: 1080p bounce), small enough to store, and measured on the v5e the
-    #: unrolled no-remat replay is 1.45x faster fwd+bwd than the remat'd scan
-    #: (83 ms vs 120 ms at 1080p; docs/PERF.md). The 64-spp sample scan keeps
-    #: its own `jax.checkpoint` at the sample level regardless.
+    #: rematerialise the reference's replay backward; memory only there, not
+    #: read by the port.
     remat_replay: bool = False
 
     def __post_init__(self):
@@ -79,6 +86,12 @@ class RenderConfig:
             raise ConfigError("max_depth must be >= 1")
         if self.samples_per_launch < 1:
             raise ConfigError("samples_per_launch must be >= 1")
+        if self.intersect_backend not in INTERSECT_BACKENDS:
+            raise ConfigError(f"intersect_backend must be one of {INTERSECT_BACKENDS}, "
+                              f"got {self.intersect_backend!r}")
+        if self.grad_sweep not in GRAD_SWEEPS:
+            raise ConfigError(f"grad_sweep must be one of {GRAD_SWEEPS}, "
+                              f"got {self.grad_sweep!r}")
 
 
 @dataclasses.dataclass(frozen=True)

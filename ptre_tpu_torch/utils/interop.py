@@ -5,7 +5,8 @@ built with ``spheres_as_triangles=True`` — Camera, AccumState, the
 differentiable parameters) cross as numpy arrays — ``np.asarray`` on each
 leaf — and its frozen configs (RenderConfig, RasterConfig) field by field,
 so both packages render the same scene, from the same pose, onto the same
-history, with the same settings, and differentiate the same parameters.
+history, with the same settings, and differentiate the same parameters; a
+raw threefry key crosses as its two words (`key_from_jax`).
 Nothing here imports jax or the JAX package: its objects are read by their
 field names.
 """
@@ -19,6 +20,7 @@ import numpy as np
 import torch
 
 from ptre_tpu_torch.models.scene import PACKET_COUNTS, PACKET_LEAVES, ScenePacket
+from ptre_tpu_torch.ops import rng
 from ptre_tpu_torch.ops.camera import Camera
 from ptre_tpu_torch.render.pathtracer import AccumState
 from ptre_tpu_torch.utils.config import RasterConfig, RenderConfig
@@ -39,6 +41,17 @@ def packet_from_reference(packet, device=None) -> ScenePacket:
     raster): ``np.asarray`` of each leaf, ``int`` of each count."""
     return packet_from_numpy({k: np.asarray(getattr(packet, k)) for k in PACKET_LEAVES},
                              {k: int(getattr(packet, k)) for k in PACKET_COUNTS}, device)
+
+
+def key_from_jax(words) -> rng.Key:
+    """The port's threefry key (`rng.Key`) from a raw JAX key's two uint32
+    words, ``np.asarray(key)`` of ``jax.random.PRNGKey(...)`` or of any key
+    folded or split from one: the staged route then draws exactly what the
+    reference's draws from that key."""
+    words = np.asarray(words).reshape(-1)
+    if words.shape != (2,):
+        raise ValueError(f"a threefry key has two uint32 words, got shape {words.shape}")
+    return rng.Key(int(words[0]), int(words[1]))
 
 
 def config_from_reference(config):

@@ -509,3 +509,89 @@ def test_hard_raster_refuses_autograd_on_cuda(cuda):
         rast.raster_tiles(cols.requires_grad_(True), cbox, rast.raster_scalars(cfg), R, Wss, ss)
     with pytest.raises(RendererError, match="shape"):
         rast.raster_tiles(cols[:-1].detach(), cbox, rast.raster_scalars(cfg), R, Wss, ss)
+
+
+def _nine_material_packet():
+    """The demo scene with 7 added materials (9 in all): past the fused
+    kernels' 8-material cap, so every route takes it staged."""
+    from ptre_tpu_torch.models.scene import Material, MaterialKind
+
+    scn = demo.reference_demo_scene(8, 4)
+    for i in range(7):
+        scn.add_material(Material(MaterialKind.OREN_NAYAR, (0.1 * i, 0.5, 0.3), 0.5))
+    scn.set_model_material("ground", 8)
+    return scn.build_packet()
+
+
+def _bounce1_rays(o, d, pkt, cfg, seed=3):
+    """Bounce-1 rays of the staged route (the rays that hit and scatter),
+    leaving from surfaces: their t_min self-hits exercise the sweep."""
+    from ptre_tpu_torch.ops import intersect, materials, rng
+
+    k = mk.TraceConsts.from_config(cfg)
+    wt = pkt.world_triangles()
+    hit = intersect.closest_hit(o, d, pkt, wt, k.t_min, k.t_max, k.det_eps)
+    u = rng.ray_uniforms(seed, 1, o.shape[0], 2, o.device)
+    s = materials.scatter(u[2], u[3], d, hit.position, hit.normal,
+                          pkt.mat_kind.long()[hit.mat_id], pkt.mat_albedo[hit.mat_id],
+                          pkt.mat_param[hit.mat_id], k.shadow_eps, k.pdf_eps)
+    live = hit.hit & ~s.terminated
+    return s.next_origin[live].contiguous(), s.next_dir[live].contiguous()
+
+
+@pytest.mark.parametrize("scene", ["demo", "config4", "nine"])
+def test_sweep_kernel_equals_plain_version(cuda, scene):
+    # selections are integers: the kernel (built without FMA contraction)
+    # and the plain sweep must agree exactly, primary and bounce-1 rays
+    from ptre_tpu_torch.ops.cuda import sweep_kernel as sk
+
+    pkt = {"demo": lambda: demo.reference_demo_scene(16, 8).build_packet(),
+           "config4": lambda: demo.config4_mixed_scene(24, 12).build_packet(),
+           "nine": _nine_material_packet}[scene]().to(cuda)
+    W, H = 160, 90
+    cfg = RenderConfig(width=W, height=H)
+    cam = cam_ops.Camera.create(width=W, height=H)
+    px, py = pt.pixel_grid(H, W, cuda)
+    jit = torch.rand((W * H, 2), device=cuda, generator=torch.Generator(cuda).manual_seed(2)) - 0.5
+    o, d = cam_ops.get_rays(cam, px, py, jit)
+    k = mk.TraceConsts.from_config(cfg)
+    tables = sk.prepare(pkt, pkt.world_triangles())
+    for ro, rd in ((o.contiguous(), d.contiguous()), _bounce1_rays(o, d, pkt, cfg)):
+        before = sk.launches
+        got = sk.sweep_packed(ro, rd, tables, k.t_min, k.t_max, k.det_eps)
+        want = sk.sweep_packed_reference(ro, rd, tables, k.t_min, k.t_max, k.det_eps)
+        torch.cuda.synchronize()
+        assert sk.launches == before + 1
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+        assert bool(got[1].any() | got[3].any())
+
+
+def test_staged_render_and_training_go_through_the_sweep_kernel(cuda):
+    from ptre_tpu_torch.ops.cuda import sweep_kernel as sk
+    from ptre_tpu_torch.utils.errors import ConfigError
+
+    pkt_cpu = _nine_material_packet()
+    pkt = pkt_cpu.to(cuda)
+    W, H = 64, 32
+    cfg = RenderConfig(width=W, height=H, max_depth=4)
+    cam = cam_ops.Camera.create(width=W, height=H)
+    assert pt.route(pkt, cfg) == "staged"
+    before = sk.launches
+    acc = pt.render_step(pkt, cam, pt.AccumState.create(H, W, cuda), 5, cfg, spp=2)
+    torch.cuda.synchronize()
+    assert sk.launches == before + 2 * cfg.max_depth
+    ref = pt.render_step(pkt_cpu, cam, pt.AccumState.create(H, W), 5, cfg, spp=2)
+    d = (acc.linear.cpu() - ref.linear).abs()
+    assert bool(torch.isfinite(acc.linear).all()) and float(d.max()) < 1e-4, float(d.max())
+    params = sh.differentiable_params(pkt, cam)
+    before = sk.launches
+    loss, grads = train.mse_step(params, pkt, cam, torch.zeros((W * H, 3), device=cuda), cfg,
+                                 seed=1, spp=1)
+    torch.cuda.synchronize()
+    assert sk.launches == before + cfg.max_depth
+    assert bool(torch.isfinite(loss)) and all(bool(torch.isfinite(g).all())
+                                               for g in grads.values())
+    with pytest.raises(ConfigError, match="xla"):
+        pt.render_step(pkt, cam, acc, 5, RenderConfig(width=W, height=H,
+                                                      intersect_backend="xla"))

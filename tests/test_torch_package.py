@@ -4,10 +4,10 @@ The port imports neither jax nor any module of the JAX package ``ptre_tpu``
 (it has its own copies of the mesh generators, the configs and the errors),
 and chip_smoke.py names none of them either; the port's CUDA wrappers
 run the plain versions only for CPU tensors; a missing nvcc raises; and
-render_step refuses, before any CUDA call, a packet neither CUDA route (the
-dense render kernel, the wavefront kernels) can take instead of running
-plain PyTorch on the card; the training steps likewise refuse a packet past
-the wavefront's caps.
+render_step and the training steps route, before any CUDA call, a packet
+neither fused route (the dense kernels, the wavefront kernels) takes to the
+staged route and its sweep kernel, and refuse the plain sweep on the card
+instead of running plain PyTorch there.
 """
 
 from __future__ import annotations
@@ -23,7 +23,7 @@ import pytest
 import torch
 
 from ptre_tpu_torch.utils.config import RenderConfig
-from ptre_tpu_torch.utils.errors import RendererError
+from ptre_tpu_torch.utils.errors import ConfigError, RendererError
 from ptre_tpu_torch.models import demo
 from ptre_tpu_torch.models.scene import PACKET_LEAVES, Material, MaterialKind
 from ptre_tpu_torch.ops import camera as cam_ops
@@ -154,7 +154,9 @@ def test_build_raises_clearly_without_nvcc(tmp_path, monkeypatch):
 
 def test_render_step_refuses_non_dense_packet_on_cuda():
     """A packet past the dense class has the wavefront's CUDA path when the
-    wavefront takes it; any other packet is refused on CUDA."""
+    wavefront takes it; any other packet takes the staged route (the sweep
+    kernel), decided from its counts. On CUDA only the plain sweep
+    (``intersect_backend="xla"``) is refused."""
     tri = demo.config3_scene(segments=24, rings=12).build_packet()
     assert tri.num_triangles > mk.DENSE_MAX_TRI
     assert pt.route(tri) == "wavefront"
@@ -162,15 +164,16 @@ def test_render_step_refuses_non_dense_packet_on_cuda():
 
     too_big = dataclasses.replace(
         tri, tri_valid=torch.zeros(wf.MAX_WAVE_TRIS + 128, dtype=torch.bool))
-    assert pt.route(too_big) == "none"
-    with pytest.raises(NotImplementedError, match="triangle rows"):
-        pt.check_dispatch(too_big, torch.device("cuda"))
-
     many_mats = demo.reference_demo_scene(8, 4)
     for i in range(mk.MAX_MATS):
         many_mats.add_material(Material(MaterialKind.OREN_NAYAR, (0.1 * i,) * 3, 0.5))
-    with pytest.raises(NotImplementedError):
-        pt.check_dispatch(many_mats.build_packet(), "cuda")
+    xla = RenderConfig(intersect_backend="xla")
+    for pkt in (too_big, many_mats.build_packet()):
+        assert pt.route(pkt) == "staged"
+        pt.check_dispatch(pkt, torch.device("cuda"), RenderConfig())
+        with pytest.raises(ConfigError, match="xla"):
+            pt.check_dispatch(pkt, torch.device("cuda"), xla)
+        pt.check_dispatch(pkt, "cpu", xla)
 
     # the dense demo packet has its CUDA path; any packet has the CPU one
     assert pt.route(demo.reference_demo_scene(8, 4).build_packet()) == "dense"
@@ -208,13 +211,13 @@ def test_wavefront_wrappers_on_cpu_run_plain_versions_without_launch():
 
 
 def test_training_refuses_non_dense_packet_on_cuda_before_any_cuda_call(monkeypatch):
-    """A triangle-scale packet the wavefront supports now dispatches: the
-    decision is made from the packet's counts, before the kernel library is
-    loaded. A packet past the wavefront's caps is still refused by mse_step,
-    two_pass_mse_step, trace_grad and integrator.trace with
-    NotImplementedError naming the staged trace (ROADMAP A5), before
-    building or launching anything. The CUDA tensors are fake ones (no card
-    here): nothing may touch them."""
+    """A triangle-scale packet the wavefront supports takes the fused route,
+    a packet past the wavefront's caps the staged route: both decided from
+    the packet's counts, before the kernel library is loaded. Forcing a
+    fused forward on the over-cap packet still raises, naming the staged
+    trace; integrator.trace routes it there, and the training steps pack no
+    fused forward for it. The CUDA tensors are fake ones (no card here):
+    nothing may touch them."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     def no_cuda(*args, **kwargs):
@@ -232,23 +235,27 @@ def test_training_refuses_non_dense_packet_on_cuda_before_any_cuda_call(monkeypa
         target = torch.zeros((W * H, 3), device="cuda")
         o = torch.zeros((W * H, 3), device="cuda")
         assert target.device.type == "cuda" and pkt.device.type == "cuda"
-        integrator.check_grad_dispatch(pkt, target.device)
+        integrator.check_grad_dispatch(pkt, target.device, cfg)
+        assert integrator.grad_route(cfg, pkt) == "fused"
         for force in (None,) + fused_grad.FORWARDS[1:]:
             fused_grad.check_supported(pkt, force)
         with pytest.raises(RendererError, match="dense-class"):
             fused_grad.check_supported(pkt, "dense")
         too_big = dataclasses.replace(pkt, tri_valid=torch.zeros(
             wf.MAX_WAVE_TRIS + 128, dtype=torch.bool, device="cuda"))
+        assert integrator.grad_route(cfg, too_big) == "staged"
+        assert integrator.grad_route(dataclasses.replace(cfg, grad_sweep="fused"),
+                                     too_big) == "staged"
+        integrator.check_grad_dispatch(too_big, target.device, cfg)
         params = {k: torch.empty_like(v, device="cuda")
                   for k, v in sh.differentiable_params(big, cam).items()}
-        for step in (train.mse_step, train.two_pass_mse_step):
-            with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-                step(params, too_big, cam, target, cfg, seed=1, spp=2)
+        # the steps pack no fused forward for it (prepare_forward would raise)
+        assert train._forward_of(params, too_big, cam, cfg) is None
         for force in (None, "wavefront", "culled", "uncull"):
-            with pytest.raises(NotImplementedError, match="ROADMAP A5"):
+            with pytest.raises(NotImplementedError, match="staged trace"):
                 fused_grad.trace_grad(o, o, too_big, cfg, force=force)
-        with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-            integrator.trace(o, o, too_big, cfg)
+        monkeypatch.setattr(integrator, "trace_staged", lambda *a, **k: "staged")
+        assert integrator.trace(o, o, too_big, cfg) == "staged"
     with pytest.raises(NotImplementedError, match="cuda or cpu"):
         integrator.check_grad_dispatch(demo.reference_demo_scene(8, 4).build_packet(),
                                        "meta")
