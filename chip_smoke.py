@@ -61,7 +61,15 @@ source, all at once), then:
        checking that every bounce went through the sweep kernel, profiles a
        staged step, holds the staged route's gradients against the fused
        route's on the demo scene, and times the staged step with its
-       winners' rows gathered by ``embedding`` and by ``table[idx]``.
+       winners' rows gathered by ``embedding`` and by ``table[idx]``;
+  21.  the replay route (``grad_sweep="replay"``) on the demo scene at
+       1920x1080: holds the replay forward and backward kernels against
+       their plain versions on the recording kernel's selections (the
+       backward by column group, against float64 too), the route's loss and
+       gradients against the fused route's on the same seed, and drives
+       ``mse_step`` (spp 1, 1 + 8 steps) and ``two_pass_mse_step`` (spp 64)
+       on it — checking one record, one replay forward and one replay
+       backward launch a sample — with a device profile of a step.
 
 Any failed check raises and the script exits non-zero; it prints its result
 lines only after every phase passed:
@@ -324,7 +332,7 @@ def main():
 
     def inputs(scene, W, H, max_depth=5, cam_kw=None):
         cfg = RenderConfig(width=W, height=H, max_depth=max_depth)
-        packed = mk.pack_scene(scene.build_packet().to(dev))
+        packed = mk.pack_scene(scene.build_packet(device=dev))
         rows = rk.camera_rows(cam_ops.Camera.create(width=W, height=H, **(cam_kw or {})))
         return cfg, packed, rows
 
@@ -373,7 +381,7 @@ def main():
     compare(*kernel_and_plain(prev_o, packed_o, rows_o, 4, cfg_o, 12, None), pt,
             "orthographic 320x180")
 
-    pkt_small = demo_scene.build_packet().to(dev)
+    pkt_small = demo_scene.build_packet(device=dev)
     cam_small = cam_ops.Camera.create(width=320, height=180)
     acc = pt.render_step(pkt_small, cam_small, pt.AccumState.create(180, 320, dev), 1,
                          cfg_o, spp=2)
@@ -391,7 +399,7 @@ def main():
         """Demo scene → render_step (1 warm-up + STEPS timed steps, spp SPP)
         → to_display. Returns (launches, seconds of the timed steps, image)."""
         cfg = RenderConfig(width=W, height=H)
-        pkt = demo.reference_demo_scene(32, 16).build_packet().to(dev)
+        pkt = demo.reference_demo_scene(32, 16).build_packet(device=dev)
         cam = cam_ops.Camera.create(width=W, height=H)
         gen = torch.Generator().manual_seed(cfg.seed)
         rk.launches = 0
@@ -489,6 +497,7 @@ def main():
     kernels += raster_phases(dev, card, rs)
     kernels += triangle_training_phases(dev, card, rs, dense_bwd_ms=grad_kernels[1]["ms"])
     kernels.append(staged_phases(dev, card, rs, build.last_build and build.last_build[1]))
+    kernels += replay_phases(dev, card, rs)
 
     # ---- result --------------------------------------------------------------------
     print(card, flush=True)
@@ -501,23 +510,30 @@ def main():
 BWD_GEOMETRY = ("v0-v2", "n0-n2", "center", "radius")
 
 
-def hold_backward(fg, mk, what, table, sky6, o, d, sel, dcol, k, B, T, seed, ur, groups):
-    """The backward kernel against `fused_bwd_reference` on one recorded
-    trace, under the tolerances stated at RAY_TIGHT above; returns the
-    largest absolute error outside the flipped rays. ``groups`` names column
-    slices of the table."""
+def hold_backward(fg, mk, what, table, sky6, o, d, sel, dcol, k, B, T, seed, ur, groups,
+                  kernel=None, plain=None, read=None):
+    """A backward kernel against its plain version on one recorded trace,
+    under the tolerances stated at RAY_TIGHT above; returns the largest
+    absolute error outside the flipped rays. ``groups`` names column slices
+    of the table. ``kernel``, ``plain``: functions of `fused_bwd`'s
+    arguments that return (d table, d sky6, d o, d d); None: `fused_bwd`
+    and `fused_bwd_reference`. ``read``: {label: such a function} whose
+    geometry sums are printed against float64 beside the kernel's, on the
+    same cotangent, and not held."""
     import torch
 
     f64 = torch.float64
     R = o.shape[0]
     ur64 = mk.trace_uniforms(o, B, seed, 0, ur).to(f64)
+    kernel = kernel or fg.fused_bwd
+    plain = plain or fg.fused_bwd_reference
 
     def three(cot):
         """kernel, plain float32, plain float64 — the same inputs."""
-        out = (fg.fused_bwd(table, sky6, o, d, sel, cot, k, B, T, seed, 0, ur),
-               fg.fused_bwd_reference(table, sky6, o, d, sel, cot, k, B, T, seed, 0, ur),
-               fg.fused_bwd_reference(table.to(f64), sky6.to(f64), o.to(f64), d.to(f64), sel,
-                                      cot.to(f64), k, B, T, seed, 0, ur64))
+        out = (kernel(table, sky6, o, d, sel, cot, k, B, T, seed, 0, ur),
+               plain(table, sky6, o, d, sel, cot, k, B, T, seed, 0, ur),
+               plain(table.to(f64), sky6.to(f64), o.to(f64), d.to(f64), sel, cot.to(f64), k,
+                     B, T, seed, 0, ur64))
         torch.cuda.synchronize()
         return out
 
@@ -548,7 +564,10 @@ def hold_backward(fg, mk, what, table, sky6, o, d, sel, dcol, k, B, T, seed, ur,
     check(int(flip_k.sum()) <= allowed, f"{what}: {int(flip_k.sum())} flipped")
     del got, want, exact
     # the summed gradients, without the flipped rays' cotangents
-    got, want, exact = three(torch.where((flip_k | flip_p)[:, None], 0.0, dcol))
+    cot = torch.where((flip_k | flip_p)[:, None], 0.0, dcol)
+    got, want, exact = three(cot)
+    others = {label: fn(table, sky6, o, d, sel, cot, k, B, T, seed, 0, ur)[0].to(f64)
+              for label, fn in (read or {}).items()}
     named = [(n, sl) for n, sl in groups.items()] + [("sky", None)]
     for name, sl in named:
         a, b, e = ((x[1] if sl is None else x[0][:, sl]).to(f64)
@@ -560,9 +579,12 @@ def hold_backward(fg, mk, what, table, sky6, o, d, sel, dcol, k, B, T, seed, ur,
         rel_k64 = float((a - e).norm() / e.norm())
         rel_p64 = float((b - e).norm() / e.norm())
         bwd_err = max(bwd_err, float((a - b).abs().max()))
+        read_line = "".join(
+            f", {label}-float64 {float((x[:, sl] - e).norm() / e.norm()):.3e}"
+            for label, x in others.items() if name in BWD_GEOMETRY)
         print(f"  {what} d({'sky' if sl is None else 'table ' + name}): relative L2 "
               f"kernel-plain {rel_p:.3e}, kernel-float64 {rel_k64:.3e}, "
-              f"plain-float64 {rel_p64:.3e}", flush=True)
+              f"plain-float64 {rel_p64:.3e}{read_line}", flush=True)
         if name in BWD_GEOMETRY:
             check(rel_k64 <= max(SUM_REL, GEOM_FACTOR * rel_p64),
                   f"{what}: d(table) {name} off float64 by {rel_k64}")
@@ -593,7 +615,7 @@ def gradient_phases(dev, card, rs):
     W, H, B = W_MAIN, H_MAIN, 5
     R = W * H
     cfg = RenderConfig(width=W, height=H, max_depth=B)
-    pkt = demo.reference_demo_scene(32, 16).build_packet().to(dev)
+    pkt = demo.reference_demo_scene(32, 16).build_packet(device=dev)
     cam = cam_ops.Camera.create(width=W, height=H)
     params = sh.differentiable_params(pkt, cam)
     _, cam_dev = sh.apply_params(params, pkt, cam)
@@ -836,7 +858,7 @@ def wavefront_phases(dev, card, rs):
         cfg = RenderConfig(width=W, height=H, max_depth=B)
         k = mk.TraceConsts.from_config(cfg)
         t0 = time.perf_counter()
-        pkt = getattr(demo, fn)(**kw).build_packet().to(dev)
+        pkt = getattr(demo, fn)(**kw).build_packet(device=dev)
         cam = cam_ops.Camera.create(width=W, height=H)
         scene = wf.prepare_scene(pkt, screen_cam=cam)
         torch.cuda.synchronize()
@@ -1073,7 +1095,7 @@ def triangle_training_phases(dev, card, rs, dense_bwd_ms):
         R = W * H
         cfg = RenderConfig(width=W, height=H, max_depth=B)
         k = mk.TraceConsts.from_config(cfg)
-        pkt = getattr(demo, fn)(**kw).build_packet().to(dev)
+        pkt = getattr(demo, fn)(**kw).build_packet(device=dev)
         cam = cam_ops.Camera.create(width=W, height=H)
         scene = wf.prepare_scene(pkt, screen_cam=cam)
         px, py = pt.pixel_grid(H, W, dev)
@@ -1410,7 +1432,7 @@ def triangle_training_phases(dev, card, rs, dense_bwd_ms):
     Ws, Hs, spp_s = 320, 180, 4
     cfg_s = RenderConfig(width=Ws, height=Hs, max_depth=B)
     cam_s = cam_ops.Camera.create(width=Ws, height=Hs)
-    pkt_s = demo.config4_mixed_scene(32, 16).build_packet().to(dev)
+    pkt_s = demo.config4_mixed_scene(32, 16).build_packet(device=dev)
     par_s = sh.differentiable_params(pkt_s, cam_s)
     tgt_s = torch.from_numpy(rs.uniform(0.0, 0.5, (Ws * Hs, 3)).astype(np.float32)).to(dev)
     l1, g1 = train.mse_step(par_s, pkt_s, cam_s, tgt_s, cfg_s, 7, spp=spp_s)
@@ -1490,19 +1512,29 @@ STAGED_STEPS = 2
 STAGED_REL = 1e-2
 
 
-def start_fma_build():
-    """Start nvcc on the sweep unit WITH FMA contraction (the shipped build
-    has -fmad=false), into its own library: (process, library path)."""
+def start_fma_build(unit):
+    """Start nvcc on one unit WITH FMA contraction (the shipped build has
+    -fmad=false), into a library of its own: (process, library path)."""
     from ptre_tpu_torch.ops.cuda import build
 
     fma_dir = os.path.join(build.BUILD_DIR, f"fma.{os.getpid()}")
     os.makedirs(fma_dir, exist_ok=True)
-    path = os.path.join(fma_dir, "libptre_sweep_fma.so")
+    path = os.path.join(fma_dir, f"lib{unit.replace('.cu', '')}_fma.so")
     proc = subprocess.Popen(
         [build.find_nvcc(), *build.NVCC_FLAGS, "-shared", "-I", build.CSRC_DIR, "-o", path,
-         os.path.join(build.CSRC_DIR, "sweep_kernel.cu")],
+         os.path.join(build.CSRC_DIR, unit)],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     return proc, path
+
+
+def finish_fma_build(fma_build):
+    """Wait for `start_fma_build`'s nvcc and load its library."""
+    import ctypes
+
+    proc, path = fma_build
+    out, err = proc.communicate()
+    check(proc.returncode == 0, f"nvcc (FMA build of {path}) failed:\n{out}\n{err}")
+    return ctypes.CDLL(path)
 
 
 def fma_compare(fma_build, o, d, tables, k, dev):
@@ -1514,10 +1546,7 @@ def fma_compare(fma_build, o, d, tables, k, dev):
 
     from ptre_tpu_torch.ops.cuda import sweep_kernel as sk
 
-    proc, path = fma_build
-    out, err = proc.communicate()
-    check(proc.returncode == 0, f"nvcc (FMA sweep) failed:\n{out}\n{err}")
-    lib = ctypes.CDLL(path)
+    lib = finish_fma_build(fma_build)
     lib.ptre_sweep.restype = ctypes.c_int
     lib.ptre_sweep.argtypes = [ctypes.c_void_p] * 7
     sel = torch.empty((4, o.shape[0]), dtype=torch.int32, device=dev)
@@ -1568,7 +1597,7 @@ def staged_phases(dev, card, rs, report):
     cam = cam_ops.Camera.create(width=W, height=H)
     px, py = pt.pixel_grid(H, W, dev)
 
-    fma_build = start_fma_build()  # compiles while the plain sweeps run
+    fma_build = start_fma_build("sweep_kernel.cu")  # compiles while the plain sweeps run
     regs = [x for x in ptxas_summary(report) if x.startswith("sweep_kernel")] if report else []
     print(f"phase 19: sweep kernel vs plain sweep at {W}x{H}; "
           f"{'; '.join(regs) or 'library built earlier: registers not reported'} [{card}]",
@@ -1604,7 +1633,7 @@ def staged_phases(dev, card, rs, report):
     o0, d0 = (x.contiguous() for x in cam_ops.get_rays(cam, px, py, (jit - 0.5).T))
     timing = {}
     for name, scn, subset in scenes:
-        pkt = scn.build_packet().to(dev)
+        pkt = scn.build_packet(device=dev)
         tables = sk.prepare(pkt, pkt.world_triangles())
         t_valid, s_valid = int(pkt.tri_valid.sum()), int(pkt.sph_valid.sum())
         for what, (o, d) in (("primary", (o0, d0)), ("bounce 1", bounce1(o0, d0, pkt, tables))):
@@ -1647,7 +1676,7 @@ def staged_phases(dev, card, rs, report):
     del timing["o"], timing["d"], timing["tables"], o, d, tables
 
     # ---- 20. the staged main path at full width --------------------------------------
-    pkt = getattr(demo, STAGED_SCENE[0])(**STAGED_SCENE[1]).build_packet().to(dev)
+    pkt = getattr(demo, STAGED_SCENE[0])(**STAGED_SCENE[1]).build_packet(device=dev)
     check(pt.route(pkt, cfg) == "staged", f"route {pt.route(pkt, cfg)}, expected staged")
     print(f"phase 20: staged main path, {STAGED_SCENE[0]}({STAGED_SCENE[1]}) ({pkt.num_triangles} "
           f"triangles in {pkt.tri_valid.shape[0]} rows; route {pt.route(pkt, cfg)}) at {W}x{H}, "
@@ -1701,7 +1730,7 @@ def staged_phases(dev, card, rs, report):
                  "staged mse_step", card)
 
     # staged against fused, demo scene, same Philox seed
-    dpkt = demo.reference_demo_scene(32, 16).build_packet().to(dev)
+    dpkt = demo.reference_demo_scene(32, 16).build_packet(device=dev)
     dparams = sh.differentiable_params(dpkt, cam)
     res = {}
     for sweep in ("fused", "staged"):
@@ -1758,6 +1787,389 @@ def staged_phases(dev, card, rs, report):
         "ms": timing["ms"],
         "plain_ms": timing["plain_ms"],
     }, timing["nbytes"], timing["ops"])
+
+
+# The replay route (phase 21): grad_sweep="replay", the reference's A/B
+# partner of the fused route. The replay kernels run the chain over rows
+# gathered outside them, on the recording kernel's selections, and the unit
+# is built without FMA contraction, so they round as the plain version
+# does: the forward's colour within REPLAY_FWD_ATOL of it on every ray
+# (measured bit-equal); the backward held by column group against float32
+# and float64 as phase 7 holds the fused backward (`hold_backward`), d(g)
+# summed to d(table) through the gather's backward. The unit built WITH
+# contraction (the alternative not shipped) and the fused backward (built
+# with it) are read beside them against float64, and not held. Replay
+# against fused on the same seed: the same selections and adjoint, but
+# d(table) summed in another order (the gather's float64 backward against
+# shared-memory atomics), the primal from another chain (the replay chain
+# against the recording kernel's formulas) and the fused backward
+# contracted: loss within REPLAY_LOSS_REL, material and sky gradients within
+# REPLAY_GRAD_REL relative L2. The geometry and camera gradients are sums
+# dominated by rays grazing the ground sphere's horizon, where two float32
+# evaluations in other operation orders part (ROADMAP C2): measured
+# 4.79e-4 to 1.459e-3 (relative L2) in three runs of this phase at 1920x1080
+# (NVIDIA H100 80GB HBM3, 700.00 W); within REPLAY_GEOM_REL, twice the
+# largest reading.
+REPLAY_SEED = 0x2E91A
+REPLAY_FWD_ATOL = 1e-4
+REPLAY_LOSS_REL, REPLAY_GRAD_REL, REPLAY_GEOM_REL = 1e-5, 1e-4, 3e-3
+REPLAY_GEOMETRY = ("transforms", "sph_center", "sph_radius", "cam_position", "cam_forward",
+                   "cam_fov")
+OPS_REPLAY_FWD = 250  # replay.cuh: one hit bounce's chain forward (rough count)
+ROW_BYTES = 27 * 4    # a unified-table row (d(g) is written whole)
+# the columns chain_bounce reads of a hit's row (replay.cuh): an emitter's
+# kind, albedo and param; a sphere's centre, radius and those five; a
+# triangle's vertices, normals and those five
+EMITTER_ROW_BYTES, SPHERE_ROW_BYTES, TRIANGLE_ROW_BYTES = 5 * 4, 9 * 4, 23 * 4
+
+
+def rel_l2(a, b):
+    """Relative L2 distance of ``a`` from ``b``, a float."""
+    return float((a - b).norm() / b.norm())
+
+
+def fma_replay_pair(lib, rpk, mk):
+    """The replay forward and backward of the unit built WITH FMA
+    contraction (`start_fma_build`), as functions of `replay_fwd`'s and
+    `replay_bwd`'s arguments; they launch straight from ``lib`` and count
+    nothing."""
+    import ctypes
+
+    import torch
+
+    ptr = ctypes.c_void_p
+    lib.ptre_replay_blocks.restype = ctypes.c_int
+    lib.ptre_replay_blocks.argtypes = [ctypes.c_int]
+    for fn, n in ((lib.ptre_replay_fwd, 9), (lib.ptre_replay_bwd, 13)):
+        fn.restype, fn.argtypes = ctypes.c_int, [ptr] * n
+
+    def params(o, k, B, T, seed, sample, ur):
+        return mk.trace_params(o.shape[0], k, B, seed, sample, ur is not None, sph_offset=T,
+                               n_rows=rpk._ANY_ROW)
+
+    def stream(o):
+        return torch.cuda.current_stream(o.device).cuda_stream
+
+    def fwd(o, d, g, sel, sky6, T, k, B, seed, sample, ur=None):
+        p = params(o, k, B, T, seed, sample, ur)
+        color = torch.empty_like(o)
+        rc = lib.ptre_replay_fwd(ctypes.addressof(p), g.data_ptr(), sky6.data_ptr(),
+                                 o.data_ptr(), d.data_ptr(), sel.data_ptr(),
+                                 None if ur is None else ur.data_ptr(), color.data_ptr(),
+                                 stream(o))
+        check(rc == 0, f"FMA replay forward launch failed ({rc})")
+        return color
+
+    def bwd(o, d, g, sel, sky6, dcol, T, k, B, seed, sample, ur=None):
+        p = params(o, k, B, T, seed, sample, ur)
+        d_o, d_d, d_g = torch.empty_like(o), torch.empty_like(d), torch.empty_like(g)
+        part = torch.empty((lib.ptre_replay_blocks(o.shape[0]), 8), device=o.device)
+        rc = lib.ptre_replay_bwd(ctypes.addressof(p), g.data_ptr(), sky6.data_ptr(),
+                                 o.data_ptr(), d.data_ptr(), sel.data_ptr(),
+                                 None if ur is None else ur.data_ptr(), dcol.data_ptr(),
+                                 d_o.data_ptr(), d_d.data_ptr(), d_g.data_ptr(),
+                                 part.data_ptr(), stream(o))
+        check(rc == 0, f"FMA replay backward launch failed ({rc})")
+        return d_o, d_d, d_g, part[:, :6].sum(dim=0)
+
+    return fwd, bwd
+
+
+def replay_as_table(bwd, path_replay):
+    """A replay backward (`replay_bwd` or `replay_bwd_reference`) as a
+    function of `fused_bwd`'s arguments: the rows gathered from ``table``
+    (`gather_rows`), d(g) summed into d(table) by the gather's backward.
+    Returns (d table, d sky6, d o, d d)."""
+    import torch
+
+    def fn(table, sky6, o, d, sel, dcol, k, B, T, seed, sample, ur):
+        leaf = table.detach().requires_grad_(True)
+        with torch.enable_grad():
+            g = path_replay.gather_rows(leaf, sel)
+        d_o, d_d, d_g, dsky = bwd(o, d, g.detach(), sel, sky6, dcol, T, k, B, seed, sample, ur)
+        (dtable,) = torch.autograd.grad(g, leaf, d_g)
+        return dtable, dsky, d_o, d_d
+
+    return fn
+
+
+def replay_phases(dev, card, rs):
+    """Phase 21: the replay forward and backward kernels against their
+    plain versions at 1920x1080 on the recording kernel's selections, the
+    replay route against the fused route on the same seed, and the replay
+    route's main path (`mse_step` spp 1, 1 + STEPS steps; one
+    `two_pass_mse_step` at spp SPP_TRAIN) with its launches, times, peak
+    memory and a device profile. Returns the two kernels' entries of the
+    ``kernels`` line."""
+    import numpy as np
+    import torch
+
+    from ptre_tpu_torch.models import demo
+    from ptre_tpu_torch.ops import camera as cam_ops
+    from ptre_tpu_torch.ops import integrator, path_replay, rng
+    from ptre_tpu_torch.ops.cuda import fused_grad as fg
+    from ptre_tpu_torch.ops.cuda import megakernel as mk
+    from ptre_tpu_torch.ops.cuda import replay_kernel as rpk
+    from ptre_tpu_torch.parallel import sharding as sh
+    from ptre_tpu_torch.render import train
+    from ptre_tpu_torch.render import pathtracer as pt
+    from ptre_tpu_torch.utils.config import RenderConfig
+
+    W, H, B = W_MAIN, H_MAIN, 5
+    R = W * H
+    cfg = RenderConfig(width=W, height=H, max_depth=B)
+    pkt = demo.reference_demo_scene(32, 16).build_packet(device=dev)
+    cam = cam_ops.Camera.create(width=W, height=H)
+    params = sh.differentiable_params(pkt, cam)
+    _, cam_dev = sh.apply_params(params, pkt, cam)
+    px, py = pt.pixel_grid(H, W, dev)
+    jit = rng.ray_uniforms(REPLAY_SEED, 0, R, 1, dev) - 0.5
+    o, d = (t.contiguous() for t in cam_ops.get_rays(cam_dev, px, py, jit.T))
+    scene = mk.pack_scene(pkt)
+    k = mk.TraceConsts.from_config(cfg)
+    table, T, sky6 = path_replay.build_table(pkt)
+    P = table.shape[0]
+    urand_ext = torch.from_numpy(rs.random((2 + 2 * B, R), dtype=np.float32)).to(dev)
+    fma_build = start_fma_build("replay_kernel.cu")  # compiles while (a) runs
+    print(f"phase 21: the replay route at {W}x{H}, max_depth {B}: replay kernels vs plain on "
+          "the recording kernel's selections, replay vs fused, mse_step spp 1 (1 + "
+          f"{STEPS} steps), two_pass_mse_step spp {SPP_TRAIN}", flush=True)
+
+    # (a) the forward on the same gathered rows
+    fwd_err, recorded = 0.0, {}
+    for mode, ur in (("external uniforms", urand_ext), ("philox", None)):
+        _, sel = mk.trace_fused_sel(o, d, scene, k, B, REPLAY_SEED, 0, ur)
+        g = path_replay.gather_rows(table, sel)
+        got = rpk.replay_fwd(o, d, g, sel, sky6, T, k, B, REPLAY_SEED, 0, ur)
+        want = rpk.replay_fwd_reference(o, d, g, sel, sky6, T, k, B, REPLAY_SEED, 0, ur)
+        torch.cuda.synchronize()
+        err = (got - want).abs().amax(dim=1)
+        worst = int(err.argmax())
+        print(f"  replay forward, {mode}: colour max_abs_err {float(err.max()):.3e} over {R} "
+              f"rays, {int((err > REPLAY_FWD_ATOL).sum())} beyond {REPLAY_FWD_ATOL:g}, "
+              f"{int((err == 0).sum())} bit-equal (worst ray {worst}: selections "
+              f"{sel[:, worst].tolist()})", flush=True)
+        check(bool(torch.isfinite(got).all()), f"replay forward {mode}: non-finite colour")
+        check(float(err.max()) <= REPLAY_FWD_ATOL, f"replay forward {mode}: colour off by "
+              f"{float(err.max())}")
+        fwd_err = max(fwd_err, float(err.max()))
+        recorded[mode] = (sel, ur)
+        del g, got, want
+
+    # the unit built with FMA contraction, the alternative not shipped: read
+    fma_fwd, fma_bwd = fma_replay_pair(finish_fma_build(fma_build), rpk, mk)
+    for mode, (sel, ur) in recorded.items():
+        g = path_replay.gather_rows(table, sel)
+        want = rpk.replay_fwd_reference(o, d, g, sel, sky6, T, k, B, REPLAY_SEED, 0, ur)
+        err = (fma_fwd(o, d, g, sel, sky6, T, k, B, REPLAY_SEED, 0, ur) - want).abs()
+        scale = want.abs().clamp_min(1.0)
+        fma_ms = cuda_events(lambda: fma_fwd(o, d, g, sel, sky6, T, k, B, REPLAY_SEED, 0, ur),
+                             20)
+        ms = cuda_events(lambda: rpk.replay_fwd(o, d, g, sel, sky6, T, k, B, REPLAY_SEED, 0,
+                                                ur), 20)
+        print(f"  replay forward built with FMA contraction, {mode}: colour max_abs_err "
+              f"{float(err.max()):.3e}, {int((err > REPLAY_FWD_ATOL).any(1).sum())} of {R} rays "
+              f"beyond {REPLAY_FWD_ATOL:g}, {int((err > 0.05 * scale).any(1).sum())} beyond 5 %; "
+              f"{fma_ms:.4f} ms against {ms:.4f} ms shipped (CUDA events) [{card}]", flush=True)
+        del g, want, err, scale
+
+    # (b) the backward, by column group, against float32 and float64
+    dcol = torch.from_numpy(rs.standard_normal((R, 3), dtype=np.float32)).to(dev)
+    groups = {"v0-v2": slice(0, 9), "n0-n2": slice(9, 18), "center": slice(18, 21),
+              "radius": slice(21, 22), "albedo": slice(23, 26), "param": slice(26, 27)}
+    kernel = replay_as_table(rpk.replay_bwd, path_replay)
+    plain = replay_as_table(rpk.replay_bwd_reference, path_replay)
+    read = {"replay with FMA": replay_as_table(fma_bwd, path_replay),
+            "fused (FMA)": fg.fused_bwd}
+    bwd_err = 0.0
+    for mode, (sel, ur) in recorded.items():
+        bwd_err = max(bwd_err, hold_backward(fg, mk, f"replay bwd {mode}", table, sky6, o, d,
+                                             sel, dcol, k, B, T, REPLAY_SEED, ur, groups,
+                                             kernel=kernel, plain=plain, read=read))
+        # d(g) of a bounce that was not live or did not hit is exactly zero
+        g = path_replay.gather_rows(table, sel)
+        d_g = rpk.replay_bwd(o, d, g, sel, sky6, dcol, T, k, B, REPLAY_SEED, 0, ur)[2]
+        check(bool((d_g[sel < 0] == 0).all()), f"replay bwd {mode}: d(g) not zero on misses")
+        # the gather's backward on a training step's cotangent (the MSE's
+        # against a zero target: one sign, so a hot row's sum never cancels):
+        # embedding's own float32 sums against gather_rows' float64 ones,
+        # each against a float64 sum of the same terms
+        col = rpk.replay_fwd(o, d, g, sel, sky6, T, k, B, REPLAY_SEED, 0, ur)
+        d_g = rpk.replay_bwd(o, d, g, sel, sky6, (2.0 * col / col.numel()).contiguous(), T, k,
+                             B, REPLAY_SEED, 0, ur)[2]
+        hit = sel >= 0
+        exact = torch.zeros(table.shape, dtype=torch.float64, device=dev).index_add_(
+            0, sel[hit].long(), d_g[hit].to(torch.float64))
+        idx = torch.where(hit, sel, P).long()
+        emb32 = torch.ops.aten.embedding_dense_backward(
+            d_g.reshape(-1, 27), idx.reshape(-1), P + 1, P, False)[:P].to(torch.float64)
+        leaf = table.detach().requires_grad_(True)
+        with torch.enable_grad():
+            (emb64,) = torch.autograd.grad(path_replay.gather_rows(leaf, sel), leaf, d_g)
+        print(f"  replay bwd {mode}, MSE cotangent: d(table) from d(g) against a float64 sum, "
+              "relative L2: "
+              + "; ".join(f"{name} embedding float32 {rel_l2(emb32[:, sl], exact[:, sl]):.3e}, "
+                          f"gather_rows {rel_l2(emb64[:, sl].to(torch.float64), exact[:, sl]):.3e}"
+                          for name, sl in (("albedo", groups["albedo"]),
+                                           ("param", groups["param"]))), flush=True)
+        del g, d_g, col, exact, emb32, emb64
+
+    # kernel times at the main shape, the plain versions', and this run's work
+    sel_p, _ = recorded["philox"]
+    g_p = path_replay.gather_rows(table, sel_p)
+    kind = pkt.mat_kind.long()
+    emissive = torch.cat([kind[pkt.tri_mat.long()] == 1, kind[pkt.sph_mat.long()] == 1])
+    hit = sel_p >= 0
+    lit = hit & emissive[sel_p.clamp(min=0).long()]
+    hits, n_lit = int(hit.sum()), int(lit.sum())
+    n_sph = int((hit & ~lit & (sel_p >= T)).sum())
+    rows_read = (n_lit * EMITTER_ROW_BYTES + n_sph * SPHERE_ROW_BYTES
+                 + (hits - n_lit - n_sph) * TRIANGLE_ROW_BYTES)
+    fwd_ms = cuda_events(lambda: rpk.replay_fwd(o, d, g_p, sel_p, sky6, T, k, B,
+                                                REPLAY_SEED, 0), 20)
+    bwd_ms = cuda_events(lambda: rpk.replay_bwd(o, d, g_p, sel_p, sky6, dcol, T, k, B,
+                                                REPLAY_SEED, 0), 10)
+    fwd_plain_ms = cuda_events(lambda: rpk.replay_fwd_reference(
+        o, d, g_p, sel_p, sky6, T, k, B, REPLAY_SEED, 0), 2)
+    bwd_plain_ms = cuda_events(lambda: rpk.replay_bwd_reference(
+        o, d, g_p, sel_p, sky6, dcol, T, k, B, REPLAY_SEED, 0), 2)
+    gather_ms = cuda_events(lambda: path_replay.gather_rows(table, sel_p), 10)
+    print(f"  philox sample: {hits} hits ({n_lit} on emitters, {n_sph} on other spheres); "
+          f"replay forward kernel "
+          f"{fwd_ms:.4f} ms, plain {fwd_plain_ms:.3f} ms; replay backward kernel {bwd_ms:.4f} "
+          f"ms, plain {bwd_plain_ms:.3f} ms; gather_rows (embedding) {gather_ms:.4f} ms (CUDA "
+          f"events, {W}x{H}) [{card}]", flush=True)
+    del recorded, g_p, urand_ext
+
+    # (c) replay against fused, the reference's own purpose for the route
+    target = torch.zeros((R, 3), device=dev)
+    ab = {}
+    for sweep in ("fused", "replay"):
+        c = RenderConfig(width=W, height=H, max_depth=B, grad_sweep=sweep)
+        ab[sweep] = train.mse_step(params, pkt, cam, target, c, REPLAY_SEED)
+    (lf, gf), (lr, gr) = ab["fused"], ab["replay"]
+    loss_rel = abs(float(lr) - float(lf)) / abs(float(lf))
+    rels = {}
+    for key in gf:
+        nf = float(gf[key].norm())
+        if nf == 0.0:  # no gradient reaches it (the emissive cube's transform)
+            check(float(gr[key].abs().max()) == 0.0, f"replay d{key} should be zero")
+            continue
+        rels[key] = float((gr[key] - gf[key]).norm()) / nf
+    print(f"  grad_sweep 'replay' vs 'fused', {W}x{H}, spp 1, seed {REPLAY_SEED}: loss "
+          f"{float(lr):.8f} vs {float(lf):.8f} (relative {loss_rel:.3e}); gradient relative L2: "
+          + ", ".join(f"{key} {v:.3e}" for key, v in rels.items()), flush=True)
+    check(loss_rel <= REPLAY_LOSS_REL, f"replay vs fused loss: relative {loss_rel:.3e}")
+    for key, v in rels.items():
+        bound = REPLAY_GEOM_REL if key in REPLAY_GEOMETRY else REPLAY_GRAD_REL
+        check(v <= bound, f"replay vs fused d{key}: relative L2 {v:.3e} > {bound}")
+    del ab, gf, gr
+
+    # (d) the main path: mse_step on the replay route, counted
+    cfg_r = RenderConfig(width=W, height=H, max_depth=B, grad_sweep="replay")
+    check(integrator.grad_route(cfg_r, pkt) == "replay", "the demo packet is not routed replay")
+
+    def step(c, seed, spp=1):
+        loss, grads = train.mse_step(params, pkt, cam, target, c, seed, spp=spp)
+        torch.cuda.synchronize()
+        check(math.isfinite(float(loss)) and all(bool(torch.isfinite(g).all())
+                                                 for g in grads.values()),
+              f"{c.grad_sweep} mse_step: non-finite")
+        return loss, grads
+
+    mk.record_launches = rpk.fwd_launches = rpk.bwd_launches = fg.launches = 0
+    step(cfg_r, 100)
+    t0 = time.perf_counter()
+    for i in range(STEPS):
+        loss, grads = step(cfg_r, 101 + i)
+    r_ms = (time.perf_counter() - t0) * 1e3 / STEPS
+    launches = (mk.record_launches, rpk.fwd_launches, rpk.bwd_launches, fg.launches)
+    check(launches == (STEPS + 1,) * 3 + (0,), f"replay mse_step: launches (record, replay "
+          f"forward, replay backward, fused backward) {launches}, expected one each of the "
+          f"first three a sample")
+    check(float(grads["mat_albedo"].abs().max()) > 0 and
+          float(grads["sph_radius"].abs().max()) > 0 and
+          float(grads["cam_position"].abs().max()) > 0, "replay mse_step: zero gradients")
+    torch.cuda.reset_peak_memory_stats()
+    step(cfg_r, 200)
+    r_peak = torch.cuda.max_memory_allocated()
+    step(cfg, 100)
+    t0 = time.perf_counter()
+    for i in range(STEPS):
+        step(cfg, 101 + i)
+    f_ms = (time.perf_counter() - t0) * 1e3 / STEPS
+    torch.cuda.reset_peak_memory_stats()
+    step(cfg, 200)
+    f_peak = torch.cuda.max_memory_allocated()
+    print(f"  replay mse_step spp 1: {r_ms:.3f} ms/step, {R * B / r_ms / 1e3:.2f} Mrays/s "
+          f"fwd+bwd (W*H*max_depth/s, host clock), peak {r_peak / 2**30:.2f} GiB, loss "
+          f"{float(loss):.6f}; launches a sample: record {launches[0] / (STEPS + 1):g}, replay "
+          f"forward {launches[1] / (STEPS + 1):g}, replay backward "
+          f"{launches[2] / (STEPS + 1):g}; fused mse_step in this phase {f_ms:.3f} ms/step, "
+          f"peak {f_peak / 2**30:.2f} GiB [{card}]", flush=True)
+    device_share(lambda: step(cfg_r, 300), 3, "replay mse_step", card)
+
+    # the constant-memory schedule on the replay route at spp SPP_TRAIN
+    mk.record_launches = rpk.fwd_launches = rpk.bwd_launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loss2p, grads2p = train.two_pass_mse_step(params, pkt, cam, target, cfg_r, 400,
+                                              spp=SPP_TRAIN)
+    torch.cuda.synchronize()
+    dt2p = (time.perf_counter() - t0) * 1e3
+    peak2p = torch.cuda.max_memory_allocated()
+    l2p = (mk.record_launches, rpk.fwd_launches, rpk.bwd_launches)
+    check(l2p == (2 * SPP_TRAIN, 2 * SPP_TRAIN, SPP_TRAIN),
+          f"replay two-pass spp {SPP_TRAIN}: launches {l2p}")
+    check(math.isfinite(float(loss2p)) and all(bool(torch.isfinite(g).all())
+                                               for g in grads2p.values()),
+          "replay two-pass: non-finite")
+    print(f"  replay two_pass_mse_step spp {SPP_TRAIN}: {dt2p:.1f} ms/step, peak "
+          f"{peak2p / 2**30:.2f} GiB, launches (record, forward, backward) {l2p} [{card}]",
+          flush=True)
+    del grads2p
+
+    # the two-pass schedule equals the monolithic step (smaller shape)
+    Ws, Hs, spp_s = 320, 180, 8
+    cfg_s = RenderConfig(width=Ws, height=Hs, max_depth=B, grad_sweep="replay")
+    cam_s = cam_ops.Camera.create(width=Ws, height=Hs)
+    par_s = sh.differentiable_params(pkt, cam_s)
+    tgt_s = torch.from_numpy(rs.uniform(0.0, 0.5, (Ws * Hs, 3)).astype(np.float32)).to(dev)
+    l1, g1 = train.mse_step(par_s, pkt, cam_s, tgt_s, cfg_s, 7, spp=spp_s)
+    l2, g2 = train.two_pass_mse_step(par_s, pkt, cam_s, tgt_s, cfg_s, 7, spp=spp_s,
+                                     samples_per_call=3)
+    torch.cuda.synchronize()
+    for key in g1:
+        a, b = g2[key], g1[key]
+        check(bool(torch.allclose(a, b, rtol=TWO_PASS_RTOL,
+                                  atol=TWO_PASS_ATOL * float(b.abs().max()))),
+              f"replay two_pass d{key} differs from mse_step: {float((a - b).abs().max())}")
+    check(abs(float(l1) - float(l2)) <= 1e-6 * abs(float(l1)), f"replay two_pass loss {l1} {l2}")
+    print(f"  replay two_pass_mse_step == mse_step at {Ws}x{Hs}, spp {spp_s} (chunks of 3): "
+          f"loss {float(l1):.6f} vs {float(l2):.6f}", flush=True)
+
+    # forward: rays, selections in, the rows of the hits read, colour out;
+    # backward: the same and d(colour) in, d(o), d(d) and every d(g) row out
+    return [with_bound({
+        "name": "replay_fwd",
+        "route": "cuda",
+        "source": "ptre_tpu_torch/csrc/replay_kernel.cu",
+        "replaces": "ptre_tpu/ops/pallas/replay_kernel.py:277",
+        "launches": launches[1],
+        "max_abs_err": fwd_err,
+        "ms": fwd_ms,
+        "plain_ms": fwd_plain_ms,
+    }, R * (24 + 4 * B + 12) + rows_read, (hits - n_lit) * OPS_REPLAY_FWD), with_bound({
+        "name": "replay_bwd",
+        "route": "cuda",
+        "source": "ptre_tpu_torch/csrc/replay_kernel.cu",
+        "replaces": "ptre_tpu/ops/pallas/replay_kernel.py:289",
+        "launches": launches[2],
+        "max_abs_err": bwd_err,
+        "ms": bwd_ms,
+        "plain_ms": bwd_plain_ms,
+    }, R * (24 + 4 * B + 12 + 24 + ROW_BYTES * B) + rows_read,
+        (hits - n_lit) * OPS_BWD_BOUNCE)]
 
 
 # Raster kernels vs plain versions (phases 12-14). Coverage, z and the hard
@@ -1857,7 +2269,7 @@ def raster_phases(dev, card, rs):
     n_samples = Hs * Ws
     cfg = RasterConfig(width=W, height=H, supersample=ss)
     cam = cam_ops.Camera.create(width=W, height=H)
-    pkt = demo.reference_demo_scene(32, 16).build_packet(spheres_as_triangles=True).to(dev)
+    pkt = demo.reference_demo_scene(32, 16).build_packet(spheres_as_triangles=True, device=dev)
     with torch.no_grad():
         tris, cbox = rast.pack_raster_tris(pkt, cam, cfg)
         soft_tris, _ = sr._soft_cols(pkt, cam, cfg)
@@ -1901,7 +2313,7 @@ def raster_phases(dev, card, rs):
         print(f"  {Wr}x{Hr} ss {ssr}, rows y0={y0:g} stride {stride} x {rows}: {n_diff} samples "
               "differ", flush=True)
         check(n_diff <= math.ceil(FLIP_FRAC * g_r[0].numel()), f"{Wr}x{Hr}: {n_diff} differ")
-    empty = Scene().build_packet(spheres_as_triangles=True).to(dev)
+    empty = Scene().build_packet(spheres_as_triangles=True, device=dev)
     for soft in (False, True):
         with torch.no_grad():
             e_img = ras.rasterize(empty, cam, cfg, soft=soft)
@@ -1911,7 +2323,7 @@ def raster_phases(dev, card, rs):
     # the repo's golden: demo scene (16, 8) at 64x36 ss 2 (scripts/make_goldens.py)
     golden = read_ppm(os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
                                    "goldens", "demo_raster.ppm")).astype(np.int16)
-    g_pkt = demo.reference_demo_scene(16, 8).build_packet(spheres_as_triangles=True).to(dev)
+    g_pkt = demo.reference_demo_scene(16, 8).build_packet(spheres_as_triangles=True, device=dev)
     with torch.no_grad():
         g_img = ras.rasterize(g_pkt, cam_ops.Camera.create(width=64, height=36),
                               RasterConfig(width=64, height=36, supersample=2))

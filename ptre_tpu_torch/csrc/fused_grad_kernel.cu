@@ -84,21 +84,22 @@ struct GlobalRows {
 // The table read from global memory through the read-only path.
 struct GlobalTable {
   const float* rows;  // (n_rows, 27)
-  __device__ const float* row(int idx, float* buf) const {
+  __device__ const float* row(int idx, int, float* buf) const {
     const float* src = rows + (int64_t)idx * kRowStride;
     for (int i = 0; i < kRowStride; ++i) buf[i] = __ldg(src + i);
     return buf;
   }
 };
 
-// Warp-aggregated accumulation of one bounce's row cotangent.
+// Warp-aggregated accumulation of one bounce's row cotangent (the bounce
+// itself is not needed: rows are addressed by index).
 // Every lane of the warp calls add_row the same number of times (the bounce
 // loop is uniform, idle lanes pass idx = -1), so the warp may synchronise.
 template <class Rows>
 struct WarpRowAccumulator {
   Rows rows;
 
-  __device__ void add_row(int idx, const float dg[kRowStride]) {
+  __device__ void add_row(int idx, int, const float dg[kRowStride]) {
     const unsigned full = 0xffffffffu;
     const unsigned live = __ballot_sync(full, idx >= 0);
     if (live == 0u) return;

@@ -41,7 +41,7 @@ void chain_batch(int n, const T* o, const T* d, const T* c,
 // Adds every row cotangent straight into the (n_rows, 27) table gradient.
 struct HostRowAccumulator {
   float* dtable;
-  void add_row(int idx, const float dg[ptre::kRowStride]) {
+  void add_row(int idx, int, const float dg[ptre::kRowStride]) {
     if (idx < 0) return;
     for (int i = 0; i < ptre::kRowStride; ++i)
       dtable[idx * ptre::kRowStride + i] += dg[i];

@@ -588,41 +588,71 @@ PTRE_HD void chain_bounce_adjoint(const T o[3], const T d[3], const T c[3],
   for (int i = 0; i < 3; ++i) dD[i] = dDir[i];
 }
 
-// Table source of ray_backward for a table the thread addresses directly
-// (shared memory, or host memory in the host build): row idx in place.
+// Table sources of ray_forward / ray_backward: `row(idx, b, buf)` gives the
+// 27 values of table row idx, the winner of bounce b, in place or copied
+// into `buf`. PointerTable: a table the thread addresses directly (shared
+// memory, or host memory in the host build), read in place; the bounce is
+// not needed.
 struct PointerTable {
   const float* rows;  // (n_rows, 27)
-  PTRE_HD const float* row(int idx, float*) const {
+  PTRE_HD const float* row(int idx, int, float*) const {
     return rows + idx * kRowStride;
   }
 };
 
-// The whole backward of one ray (fused_grad._fused_bwd_kernel per lane):
-// recompute the chain forward from the primary ray, keeping the state at
-// each bounce boundary (fused_grad.py:227-236), then reverse the bounces
-// from the last to the first. `acc.add_row(idx, dg)` receives every
-// bounce's row cotangent — called the same number of times by every thread,
-// with idx = -1 where nothing was hit, so a warp-level accumulator may
-// synchronise inside it. Uniforms are those the forward drew: the
-// external rows, or Philox regenerated from (seed, ray, sample, draw).
-// `table.row(idx, buf)` gives the 27 floats of row idx, in place or copied
-// into `buf`.
-template <class Table, class Uniforms, class Acc>
-PTRE_HD void ray_backward(int max_depth, int sph_offset, int n_rows,
-                          const Table& table, const float sky[6],
-                          const ChainConsts<float>& k, bool valid,
-                          const float o[3], const float d[3],
-                          const int32_t* sel, int64_t sel_stride,
-                          Uniforms& un, const float dcol[3], float d_o[3],
-                          float d_d[3], float dsky[6], Acc& acc) {
-  float so[kMaxDepth][3], sd[kMaxDepth][3], sc[kMaxDepth][3];
-  float su[kMaxDepth][2];
-  int sidx[kMaxDepth];
-  bool sact[kMaxDepth];
-  float O[3], D[3], C[3] = {1.0f, 1.0f, 1.0f};
+// GatheredRows: the winners' rows gathered outside the kernel, (B, R, 27):
+// ray `ray`'s row of bounce b, whatever its index (the replay kernels,
+// replay_kernel.py _split_inputs). The row index only says which class was
+// hit (idx >= sph_offset) and whether anything was (idx >= 0).
+template <typename T>
+struct GatheredRows {
+  const T* g;  // (B, n_rays, 27)
+  int64_t ray, n_rays;
+  PTRE_HD const T* row(int, int b, T*) const {
+    return g + ((int64_t)b * n_rays + ray) * kRowStride;
+  }
+};
+
+// Accumulator of ray_backward that writes ray `ray`'s row cotangent of each
+// bounce into d(g) (B, R, 27), in place of adding it into d(table): the
+// gather's own backward sums them into d(table) outside (replay_kernel.py
+// _bwd_kernel's dg rows). A bounce that was not live or did not hit writes
+// zeros, so nothing but zeros reaches the gather's backward from it.
+template <typename T>
+struct GatheredRowsGrad {
+  T* dg;  // (B, n_rays, 27)
+  int64_t ray, n_rays;
+  PTRE_HD void add_row(int idx, int b, const T v[kRowStride]) const {
+    T* dst = dg + ((int64_t)b * n_rays + ray) * kRowStride;
+    for (int i = 0; i < kRowStride; ++i) dst[i] = idx >= 0 ? v[i] : T(0);
+  }
+};
+
+// The chain's state entering one bounce: what ray_backward keeps of the
+// forward to reverse that bounce (fused_grad.py:227-236).
+template <typename T>
+struct BounceState {
+  T o[3], d[3], c[3], u[2];
+  int idx;
+  bool act;
+};
+
+// The whole chain of one ray from its primary ray (replay_kernel._chain,
+// :241): max_depth bounces over the recorded selections `sel` (bounce b at
+// sel[b * sel_stride]; -1 where nothing was hit or the path had ended) ->
+// the colour. With `saved` (kMaxDepth entries) it keeps the state entering
+// each bounce. Uniforms are those the recording forward drew: the external
+// rows, or Philox regenerated from (seed, ray, sample, draw).
+template <typename T, class Table, class Uniforms>
+PTRE_HD void ray_forward(int max_depth, int sph_offset, int n_rows,
+                         const Table& table, const T sky[6],
+                         const ChainConsts<T>& k, bool valid, const T o[3],
+                         const T d[3], const int32_t* sel, int64_t sel_stride,
+                         Uniforms& un, T color[3], BounceState<T>* saved) {
+  T O[3], D[3], C[3] = {T(1), T(1), T(1)};
   for (int i = 0; i < 3; ++i) {
-    O[i] = valid ? o[i] : 0.0f;
-    D[i] = valid ? d[i] : 0.0f;
+    O[i] = valid ? o[i] : T(0);
+    D[i] = valid ? d[i] : T(0);
   }
   bool act = valid;
   for (int b = 0; b < max_depth; ++b) {
@@ -630,35 +660,59 @@ PTRE_HD void ray_backward(int max_depth, int sph_offset, int n_rows,
     if (idx >= n_rows) idx = -1;  // never read outside the table
     float u1 = 0.0f, u2 = 0.0f;
     if (act) un.pair(1 + b, &u1, &u2);
-    for (int i = 0; i < 3; ++i) {
-      so[b][i] = O[i];
-      sd[b][i] = D[i];
-      sc[b][i] = C[i];
+    if (saved != nullptr) {
+      BounceState<T>& s = saved[b];
+      for (int i = 0; i < 3; ++i) {
+        s.o[i] = O[i];
+        s.d[i] = D[i];
+        s.c[i] = C[i];
+      }
+      s.u[0] = T(u1);
+      s.u[1] = T(u2);
+      s.idx = idx;
+      s.act = act;
     }
-    su[b][0] = u1;
-    su[b][1] = u2;
-    sidx[b] = idx;
-    sact[b] = act;
-    float row[kRowStride];
-    const float* g = idx >= 0 ? table.row(idx, row) : nullptr;
-    float O2[3], D2[3], C2[3];
-    act = chain_bounce(O, D, C, act, g, idx >= sph_offset, idx >= 0, u1, u2,
-                       sky, k, O2, D2, C2);
+    T row[kRowStride];
+    const T* g = idx >= 0 ? table.row(idx, b, row) : nullptr;
+    T O2[3], D2[3], C2[3];
+    act = chain_bounce(O, D, C, act, g, idx >= sph_offset, idx >= 0, T(u1),
+                       T(u2), sky, k, O2, D2, C2);
     for (int i = 0; i < 3; ++i) {
       O[i] = O2[i];
       D[i] = D2[i];
       C[i] = C2[i];
     }
   }
-  float gO[3] = {0.0f, 0.0f, 0.0f}, gD[3] = {0.0f, 0.0f, 0.0f}, gC[3];
-  for (int i = 0; i < 3; ++i) gC[i] = valid ? dcol[i] : 0.0f;
+  for (int i = 0; i < 3; ++i) color[i] = C[i];
+}
+
+// The whole backward of one ray (fused_grad._fused_bwd_kernel per lane, and
+// replay_kernel._bwd_kernel's in-kernel vjp): recompute the chain forward
+// (ray_forward), keeping the state at each bounce boundary, then reverse the
+// bounces from the last to the first. `acc.add_row(idx, b, dg)` receives
+// every bounce's row cotangent — called the same number of times by every
+// thread, with idx = -1 where nothing was hit, so a warp-level accumulator
+// may synchronise inside it.
+template <typename T, class Table, class Uniforms, class Acc>
+PTRE_HD void ray_backward(int max_depth, int sph_offset, int n_rows,
+                          const Table& table, const T sky[6],
+                          const ChainConsts<T>& k, bool valid, const T o[3],
+                          const T d[3], const int32_t* sel, int64_t sel_stride,
+                          Uniforms& un, const T dcol[3], T d_o[3], T d_d[3],
+                          T dsky[6], Acc& acc) {
+  BounceState<T> st[kMaxDepth];
+  T color[3];
+  ray_forward(max_depth, sph_offset, n_rows, table, sky, k, valid, o, d, sel,
+              sel_stride, un, color, st);
+  T gO[3] = {T(0), T(0), T(0)}, gD[3] = {T(0), T(0), T(0)}, gC[3];
+  for (int i = 0; i < 3; ++i) gC[i] = valid ? dcol[i] : T(0);
   for (int b = max_depth - 1; b >= 0; --b) {
-    const int idx = sidx[b];
-    float row[kRowStride];
-    const float* g = idx >= 0 ? table.row(idx, row) : nullptr;
-    float dO[3], dD[3], dC[3], dg[kRowStride], ds[6];
-    chain_bounce_adjoint(so[b], sd[b], sc[b], sact[b], g, idx >= sph_offset,
-                         idx >= 0, su[b][0], su[b][1], sky, k, gO, gD, gC, dO,
+    const BounceState<T>& s = st[b];
+    T row[kRowStride];
+    const T* g = s.idx >= 0 ? table.row(s.idx, b, row) : nullptr;
+    T dO[3], dD[3], dC[3], dg[kRowStride], ds[6];
+    chain_bounce_adjoint(s.o, s.d, s.c, s.act, g, s.idx >= sph_offset,
+                         s.idx >= 0, s.u[0], s.u[1], sky, k, gO, gD, gC, dO,
                          dD, dC, dg, ds);
     for (int i = 0; i < 3; ++i) {
       gO[i] = dO[i];
@@ -666,11 +720,61 @@ PTRE_HD void ray_backward(int max_depth, int sph_offset, int n_rows,
       gC[i] = dC[i];
     }
     for (int i = 0; i < 6; ++i) dsky[i] += ds[i];
-    acc.add_row(idx, dg);
+    acc.add_row(s.idx, b, dg);
   }
   for (int i = 0; i < 3; ++i) {
     d_o[i] = gO[i];
     d_d[i] = gD[i];
+  }
+}
+
+// The replay pair's per-ray bodies (replay_kernel.cu's kernels, and
+// host_replay.cpp's loops): ray `ray` of R rays over the gathered rows g
+// (B, R, 27), with the uniform source the params select. p.n_rows bounds
+// the selections only: every row index addresses g by (bounce, ray).
+// Forward: colour (R, 3). Backward: d(o), d(d) (R, 3), the ray's d(g) rows,
+// and its d(sky) added into dsky.
+template <typename T>
+PTRE_HD void replay_ray_forward(const TraceParams& p, const T* g,
+                                const T sky[6], const T* o, const T* d,
+                                const int32_t* sel, const float* urand,
+                                int64_t ray, T* color) {
+  const ChainConsts<T> k = {T(p.t_min), T(p.shadow_eps), T(p.pdf_eps)};
+  const GatheredRows<T> rows = {g, ray, p.n_rays};
+  BounceState<T>* none = nullptr;
+  if (p.external_rng) {
+    ExternalUniforms un = {urand, ray, p.n_rays};
+    ray_forward(p.max_depth, p.sph_offset, p.n_rows, rows, sky, k, true,
+                o + 3 * ray, d + 3 * ray, sel + ray, p.n_rays, un,
+                color + 3 * ray, none);
+  } else {
+    PhiloxUniforms un(p.seed_lo, p.seed_hi, (uint32_t)ray, p.sample);
+    ray_forward(p.max_depth, p.sph_offset, p.n_rows, rows, sky, k, true,
+                o + 3 * ray, d + 3 * ray, sel + ray, p.n_rays, un,
+                color + 3 * ray, none);
+  }
+}
+
+template <typename T>
+PTRE_HD void replay_ray_backward(const TraceParams& p, const T* g,
+                                 const T sky[6], const T* o, const T* d,
+                                 const int32_t* sel, const float* urand,
+                                 const T* dcol, int64_t ray, T* d_o, T* d_d,
+                                 T* d_g, T dsky[6]) {
+  const ChainConsts<T> k = {T(p.t_min), T(p.shadow_eps), T(p.pdf_eps)};
+  const GatheredRows<T> rows = {g, ray, p.n_rays};
+  GatheredRowsGrad<T> acc = {d_g, ray, p.n_rays};
+  const int64_t v = 3 * ray;
+  if (p.external_rng) {
+    ExternalUniforms un = {urand, ray, p.n_rays};
+    ray_backward(p.max_depth, p.sph_offset, p.n_rows, rows, sky, k, true,
+                 o + v, d + v, sel + ray, p.n_rays, un, dcol + v, d_o + v,
+                 d_d + v, dsky, acc);
+  } else {
+    PhiloxUniforms un(p.seed_lo, p.seed_hi, (uint32_t)ray, p.sample);
+    ray_backward(p.max_depth, p.sph_offset, p.n_rows, rows, sky, k, true,
+                 o + v, d + v, sel + ray, p.n_rays, un, dcol + v, d_o + v,
+                 d_d + v, dsky, acc);
   }
 }
 

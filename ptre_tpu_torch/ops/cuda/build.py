@@ -32,17 +32,24 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 #: the kernel translation units, each compiled by its own nvcc process
 KERNEL_UNITS = ("render_kernel.cu", "record_kernel.cu", "fused_grad_kernel.cu",
                 "mask_kernel.cu", "wave_kernel.cu", "raster_kernel.cu",
-                "soft_raster_kernel.cu", "mega_kernel.cu", "sweep_kernel.cu")
+                "soft_raster_kernel.cu", "mega_kernel.cu", "sweep_kernel.cu",
+                "replay_kernel.cu")
 #: every source the library is built from: the units and their headers
 SOURCES = KERNEL_UNITS + ("trace.cuh", "philox.cuh", "replay.cuh", "wave.cuh",
                           "raster.cuh", "sweep.cuh")
-#: flags of single units on top of NVCC_FLAGS, both without FMA contraction.
+#: flags of single units on top of NVCC_FLAGS, all without FMA contraction.
 #: The SoftRas pair terms: a contracted edge distance or barycentric moves a
 #: near-degenerate triangle's d(inverse squared edge length) by far more than
 #: float rounding, against the plain version's separate roundings. The sweep:
-#: its selections are integers, held exactly against the plain version.
+#: its selections are integers, held exactly against the plain version. The
+#: replay pair: contracted, the chain's near-singular terms (Oren-Nayar's tan
+#: at grazing incidence, the ground sphere's horizon) put colours beyond 1e-4
+#: of the plain version and its geometry gradients further from float64;
+#: uncontracted it is bit-equal to the plain version (chip_smoke.py phase 21
+#: reads both builds).
 UNIT_FLAGS = {"soft_raster_kernel.cu": ("-fmad=false",),
-              "sweep_kernel.cu": ("-fmad=false",)}
+              "sweep_kernel.cu": ("-fmad=false",),
+              "replay_kernel.cu": ("-fmad=false",)}
 
 #: (seconds, ptxas report) of the build this process ran, or None if the
 #: library was already built
@@ -161,6 +168,14 @@ def load_library() -> ctypes.CDLL:
     lib.ptre_sweep.restype = ctypes.c_int
     # (params, o, d, tris, sphs, out, stream)
     lib.ptre_sweep.argtypes = [ptr] * 7
+    lib.ptre_replay_blocks.restype = ctypes.c_int
+    lib.ptre_replay_blocks.argtypes = [ctypes.c_int]
+    lib.ptre_replay_fwd.restype = ctypes.c_int
+    # (params, g, sky, o, d, sel, urand, color, stream)
+    lib.ptre_replay_fwd.argtypes = [ptr] * 9
+    lib.ptre_replay_bwd.restype = ctypes.c_int
+    # (params, g, sky, o, d, sel, urand, dcol, d_o, d_d, d_g, dsky_part, stream)
+    lib.ptre_replay_bwd.argtypes = [ptr] * 13
     lib.ptre_cuda_error_string.restype = ctypes.c_char_p
     lib.ptre_cuda_error_string.argtypes = [ctypes.c_int]
     return lib

@@ -1,4 +1,4 @@
-"""The differentiable bounce chain of the path replay, plain PyTorch.
+"""The differentiable bounce chain of the path replay and the replay pair.
 
 Port of `ptre_tpu/ops/pallas/replay_kernel.py` `_chain_bounce` (:54-238) and
 `_chain` (:241): ONE bounce re-derived from the recorded winner's row of the
@@ -7,27 +7,55 @@ or emissive weight, sky on a miss, throughput product — written formula for
 formula as the reference writes it, with the `gradsafe` forms and JAX's
 gradient rules (``where`` routes the gradient to the branch taken; a max,
 min or clip tie splits it). This is the one copy of the chain in the port:
-`ops/path_replay.replay` loops it, and autograd through it is the plain
-version of the fused backward kernel (`csrc/fused_grad_kernel.cu`), whose
-hand-written adjoint `csrc/replay.cuh` is checked against it.
+`ops/path_replay.replay_table` and `replay_fwd_reference` loop it, and
+autograd through it is the plain version of the fused backward kernel
+(`csrc/fused_grad_kernel.cu`) and of the replay kernels
+(`csrc/replay_kernel.cu`), whose hand-written adjoint `csrc/replay.cuh` is
+checked against it.
 
 Row layout (``G_ROWS`` = 27): v0 v1 v2 n0 n1 n2 (0-17) | center (18-20),
 radius (21) | kind (22), albedo (23-25), param (26).
 
 Every scalar constant is a float32 value (`gradsafe.f32`), so the chain runs
 in float32 as the reference does and in float64 with the CUDA adjoint's
-constants. The TPU kernels `_fwd_kernel` / `_bwd_kernel` (ROADMAP B13) are
-not ported here.
+constants.
+
+The replay pair (`_fwd_kernel` :277 / `_bwd_kernel` :289, tied together by
+`_make_core` :383 and called as `replay_core` :408) is `replay_core` here:
+the chain over winner rows gathered outside the kernels, ``g`` (B, R, 27),
+ray r's row of bounce b at ``g[b, r]``. `replay_fwd` and `replay_bwd` launch
+`csrc/replay_kernel.cu` on CUDA tensors and run their plain versions
+(`replay_fwd_reference`, `replay_bwd_reference`: this module's chain, and
+autograd through it) on CPU tensors; `ReplayCore` ties them together as the
+reference's ``custom_vjp`` does. The selections (B, R) int32 give each
+bounce's class and hit flags (``idx >= sph_offset``, ``idx >= 0``), the
+reference's flags rows; its planar (8, 8, L) blocks, lane padding and
+padded-lane masking are TPU layout matters and have no counterpart.
+Uniforms: ``urand`` (2 + 2B, R), or Philox keyed by (seed, ray, sample,
+draw), as the recording kernel drew them.
 """
 
 from __future__ import annotations
 
+import ctypes
+import dataclasses
+from typing import Optional
+
 import torch
 
 from ptre_tpu_torch.ops import gradsafe as gs
+from ptre_tpu_torch.ops.cuda import build
+from ptre_tpu_torch.ops.cuda import megakernel as mk
 from ptre_tpu_torch.ops.gradsafe import f32
+from ptre_tpu_torch.utils.errors import RendererError
 
 G_ROWS = 27
+#: kernel launches made by `replay_fwd` and `replay_bwd` in this process
+fwd_launches = 0
+bwd_launches = 0
+#: the replay kernels' row bound on a selection (`TraceParams.n_rows`): their
+#: rows are addressed by (bounce, ray), so no index reads outside them
+_ANY_ROW = 2 ** 31 - 1
 _PI = 3.14159265358979
 _TAU = f32(2.0 * _PI)
 _INV_PI = f32(1.0 / _PI)
@@ -211,3 +239,164 @@ def chain_bounce(o, d, c, active, g, use_sph, hit, u1, u2, sky, consts):
               torch.where(next_active, wiy, dy),
               torch.where(next_active, wiz, dz))
     return o_next, d_next, (cr, cg, cb), next_active
+
+
+# ---- the replay pair: chain over gathered rows, forward and backward ---------------
+
+
+def replay_fwd_reference(o, d, g, sel, sky6, sph_offset: int, consts, max_depth: int,
+                         seed: int = 0, sample: int = 0, urand=None):
+    """Plain version of the replay forward kernel: `chain_bounce` over the
+    gathered rows ``g`` (B, R, 27) from the primary rays → colour (R, 3), in
+    the dtype of the inputs, differentiable w.r.t. ``o``, ``d``, ``g`` and
+    ``sky6`` (the reference's ``_chain``)."""
+    ur = mk.trace_uniforms(o, max_depth, seed, sample, urand).to(o.dtype)
+    sky = tuple(sky6[i] for i in range(6))
+    o_, d_ = o.unbind(dim=1), d.unbind(dim=1)
+    one = torch.ones_like(o_[0])
+    c_ = (one, one, one)
+    active = torch.ones_like(one, dtype=torch.bool)
+    for b in range(max_depth):
+        idx = sel[b]
+        o_, d_, c_, active = chain_bounce(
+            o_, d_, c_, active, g[b].unbind(dim=1), idx >= sph_offset, idx >= 0,
+            ur[2 + 2 * b], ur[3 + 2 * b], sky, consts)
+    return torch.stack(c_, dim=1)
+
+
+def replay_bwd_reference(o, d, g, sel, sky6, dcol, sph_offset: int, consts,
+                         max_depth: int, seed: int = 0, sample: int = 0, urand=None):
+    """Plain version of the replay backward kernel: autograd of
+    `replay_fwd_reference` with the colour cotangent ``dcol`` (R, 3).
+    Returns (d o (R, 3), d d (R, 3), d g (B, R, 27), d sky6 (6,)); d(g) is
+    zero where a bounce was not live or did not hit."""
+    leaves = [t.detach().requires_grad_(True) for t in (o, d, g, sky6)]
+    with torch.enable_grad():
+        color = replay_fwd_reference(*leaves[:3], sel, leaves[3], sph_offset, consts,
+                                     max_depth, seed, sample, urand)
+        return tuple(torch.autograd.grad(color, leaves, grad_outputs=dcol))
+
+
+def _replay_args(kernel, o, d, g, sel, sky6, max_depth, urand, extra=()):
+    """Check the replay kernels' inputs on ``o``'s CUDA device; returns R."""
+    if o.device.type != "cuda":
+        raise RendererError(f"{kernel} runs on cuda or cpu, not {o.device}")
+    R = o.shape[0] if o.dim() == 2 else -1
+    mk.check_rays(o, d, max_depth, urand, [
+        ("g", g, (max_depth, R, G_ROWS), torch.float32),
+        ("sel", sel, (max_depth, R), torch.int32),
+        ("sky6", sky6, (6,), torch.float32)] + list(extra))
+    return R
+
+
+def replay_fwd(o, d, g, sel, sky6, sph_offset: int, consts, max_depth: int,
+               seed: int = 0, sample: int = 0, urand=None):
+    """The replay forward: colour (R, 3) of the chain over the gathered rows
+    ``g`` (B, R, 27). CUDA tensors launch the forward kernel once (counted in
+    ``fwd_launches``); CPU tensors run `replay_fwd_reference`; anything else
+    raises."""
+    global fwd_launches
+    if o.device.type == "cpu":
+        return replay_fwd_reference(o, d, g, sel, sky6, sph_offset, consts, max_depth,
+                                    seed, sample, urand)
+    R = _replay_args("replay_fwd", o, d, g, sel, sky6, max_depth, urand)
+    params = mk.trace_params(R, consts, max_depth, seed, sample, urand is not None,
+                             sph_offset=sph_offset, n_rows=_ANY_ROW)
+    color = torch.empty((R, 3), dtype=torch.float32, device=o.device)
+    lib = build.load_library()
+    with torch.cuda.device(o.device):
+        stream = torch.cuda.current_stream(o.device).cuda_stream
+        rc = lib.ptre_replay_fwd(ctypes.addressof(params), g.data_ptr(), sky6.data_ptr(),
+                                 o.data_ptr(), d.data_ptr(), sel.data_ptr(),
+                                 None if urand is None else urand.data_ptr(),
+                                 color.data_ptr(), stream)
+    if rc != 0:
+        raise RendererError(f"replay forward kernel launch failed: "
+                            f"{lib.ptre_cuda_error_string(rc).decode()}")
+    fwd_launches += 1
+    return color
+
+
+def replay_bwd(o, d, g, sel, sky6, dcol, sph_offset: int, consts, max_depth: int,
+               seed: int = 0, sample: int = 0, urand=None):
+    """The replay backward: (d o, d d (R, 3), d g (B, R, 27), d sky6 (6,))
+    for the colour cotangent ``dcol`` (R, 3). CUDA tensors launch the
+    backward kernel once (counted in ``bwd_launches``) and sum its per-block
+    d(sky) partials; CPU tensors run `replay_bwd_reference`; anything else
+    raises. Deterministic: nothing is summed by atomics."""
+    global bwd_launches
+    if o.device.type == "cpu":
+        return replay_bwd_reference(o, d, g, sel, sky6, dcol, sph_offset, consts,
+                                    max_depth, seed, sample, urand)
+    R = _replay_args("replay_bwd", o, d, g, sel, sky6, max_depth, urand,
+                     [("dcol", dcol, (o.shape[0], 3), torch.float32)])
+    params = mk.trace_params(R, consts, max_depth, seed, sample, urand is not None,
+                             sph_offset=sph_offset, n_rows=_ANY_ROW)
+    lib = build.load_library()
+    d_o, d_d, d_g = torch.empty_like(o), torch.empty_like(d), torch.empty_like(g)
+    dsky_part = torch.empty((lib.ptre_replay_blocks(R), 8), dtype=torch.float32,
+                            device=o.device)
+    with torch.cuda.device(o.device):
+        stream = torch.cuda.current_stream(o.device).cuda_stream
+        rc = lib.ptre_replay_bwd(ctypes.addressof(params), g.data_ptr(), sky6.data_ptr(),
+                                 o.data_ptr(), d.data_ptr(), sel.data_ptr(),
+                                 None if urand is None else urand.data_ptr(),
+                                 dcol.data_ptr(), d_o.data_ptr(), d_d.data_ptr(),
+                                 d_g.data_ptr(), dsky_part.data_ptr(), stream)
+    if rc != 0:
+        raise RendererError(f"replay backward kernel launch failed: "
+                            f"{lib.ptre_cuda_error_string(rc).decode()}")
+    bwd_launches += 1
+    return d_o, d_d, d_g, dsky_part[:, :6].sum(dim=0)
+
+
+@dataclasses.dataclass
+class _ReplaySpec:
+    """Non-tensor arguments of `ReplayCore`, and the tensors that get no
+    gradient (the selections, the uniforms)."""
+
+    sel: torch.Tensor
+    sph_offset: int
+    consts: object
+    max_depth: int
+    seed: int
+    sample: int
+    urand: Optional[torch.Tensor]
+
+
+class ReplayCore(torch.autograd.Function):
+    """`replay_fwd` forward, `replay_bwd` backward (the reference's
+    ``_make_core`` custom_vjp): gradients reach ``o``, ``d``, ``g`` and
+    ``sky6``."""
+
+    @staticmethod
+    def forward(ctx, o, d, g, sky6, spec: _ReplaySpec):
+        ctx.save_for_backward(o, d, g, sky6)
+        ctx.spec = spec
+        return replay_fwd(o, d, g, spec.sel, sky6, spec.sph_offset, spec.consts,
+                          spec.max_depth, spec.seed, spec.sample, spec.urand)
+
+    @staticmethod
+    def backward(ctx, dcolor):
+        o, d, g, sky6 = ctx.saved_tensors
+        s = ctx.spec
+        d_o, d_d, d_g, dsky6 = replay_bwd(o, d, g, s.sel, sky6, dcolor.contiguous(),
+                                          s.sph_offset, s.consts, s.max_depth, s.seed,
+                                          s.sample, s.urand)
+        return d_o, d_d, d_g, dsky6, None
+
+
+def replay_core(o, d, g, sel, sky6, sph_offset: int, consts, max_depth: int,
+                seed: int = 0, sample: int = 0, urand=None):
+    """Differentiable replay chain over gathered rows → colour (R, 3)
+    (`replay_kernel.replay_core`, :408). ``o``, ``d``: (R, 3) primary rays;
+    ``g``: (B, R, 27) winner rows (`path_replay.gather_rows`); ``sel``: (B,
+    R) int32 selections; ``sky6``: (6,); ``sph_offset``: the table's sphere
+    offset T; ``consts``: `TraceConsts`. Gradients flow to ``o``, ``d``,
+    ``g`` and ``sky6``. CUDA tensors run the two kernels, CPU tensors their
+    plain versions; any other device raises."""
+    if o.device.type not in ("cuda", "cpu"):
+        raise RendererError(f"replay_core runs on cuda or cpu, not {o.device}")
+    spec = _ReplaySpec(sel, sph_offset, consts, max_depth, seed, sample, urand)
+    return ReplayCore.apply(o.contiguous(), d.contiguous(), g.contiguous(),
+                            sky6.contiguous(), spec)

@@ -8,9 +8,15 @@ differentiable trace (`ptre_tpu/ops/integrator.py`).
     recording forward — the dense recording kernel, or for triangle-scale
     packets the wavefront in record mode — and the fused backward kernel;
     taken by "auto" and "fused" for every packet it supports;
+  * "replay": the planar replay route (`ops/path_replay.trace_fused_grad`),
+    the dense recording kernel's selections replayed over winner rows
+    gathered outside the replay kernels (`ops/cuda/replay_kernel`); taken by
+    ``grad_sweep="replay"`` for dense-class packets only, as the reference
+    keeps it for A/B checks of the fused route (`integrator.py:69-73`);
   * "staged": `trace_staged`, the per-bounce sweep plus autograd
     (`integrator.py:110-168`), always available: every packet past the
-    fused kernels' caps, and every packet under ``grad_sweep="staged"``.
+    fused kernels' caps, every packet under ``grad_sweep="staged"``, and
+    every packet past the dense class under ``grad_sweep="replay"``.
 
 The staged route's sweep is the sweep kernel (`ops/cuda/sweep_kernel.py`)
 on CUDA tensors and its plain version on CPU tensors
@@ -32,7 +38,7 @@ from __future__ import annotations
 
 import torch
 
-from ptre_tpu_torch.ops import gradsafe, intersect, materials, rng
+from ptre_tpu_torch.ops import gradsafe, intersect, materials, path_replay, rng
 from ptre_tpu_torch.ops.cuda import fused_grad
 from ptre_tpu_torch.ops.cuda import megakernel as mk
 from ptre_tpu_torch.ops.cuda import sweep_kernel
@@ -49,14 +55,11 @@ def postprocess_sample(color, clamp: bool = True):
 
 
 def grad_route(config, packet) -> str:
-    """"fused" or "staged" for a differentiable trace of ``packet``
-    (`integrator.py:49-79`), from the packet's counts alone. "replay" raises
-    until the planar replay pair is ported (ROADMAP A15)."""
+    """"fused", "replay" or "staged" for a differentiable trace of
+    ``packet`` (`integrator.py:49-79`), from the packet's counts alone."""
     mode = config.grad_sweep
     if mode == "replay":
-        raise NotImplementedError(
-            "grad_sweep='replay' (the planar replay route) is not ported yet "
-            "(ROADMAP A15); use 'auto', 'fused' or 'staged'")
+        return "replay" if mk.dense_supported(packet) else "staged"
     if mode == "staged" or not fused_grad.supported(packet):
         return "staged"
     return "fused"
@@ -142,17 +145,22 @@ def trace(origins, directions, packet, config, seed: int = 0, sample: int = 0,
     ``seed``/``sample`` key the Philox draws (seed, ray, sample, draw);
     ``urand`` (2 + 2*max_depth, R) replaces them (parity runs); ``key``, an
     `rng.Key`, makes the staged route draw as the reference does (the fused
-    kernels draw Philox: a key there raises). ``screen_cam``: the camera
-    whose jittered per-pixel rays (origins, directions) are, in row-major
-    order; lets the triangle-scale fused forward bin bounce 0 in screen
-    space, the image is unchanged. ``forward``: the packet packed once by
-    `fused_grad.prepare_forward` for many samples (fused route only).
+    and replay kernels draw Philox: a key there raises). ``screen_cam``: the
+    camera whose jittered per-pixel rays (origins, directions) are, in
+    row-major order; lets the triangle-scale fused forward bin bounce 0 in
+    screen space, the image is unchanged. ``forward``: the packet packed once by
+    `fused_grad.prepare_forward` for many samples (fused and replay routes).
     """
     check_grad_dispatch(packet, origins.device, config)
-    if grad_route(config, packet) == "staged":
+    route = grad_route(config, packet)
+    if route == "staged":
         return trace_staged(origins, directions, packet, config, seed, sample, urand, key)
     if key is not None:
-        raise ConfigError("a threefry key keys the staged route only: the fused kernels "
-                          "draw Philox (pass an int seed, or grad_sweep='staged')")
+        raise ConfigError(f"a threefry key keys the staged route only: the {route} "
+                          "route's kernels draw Philox (pass an int seed, or "
+                          "grad_sweep='staged')")
+    if route == "replay":
+        return path_replay.trace_fused_grad(origins, directions, packet, config, seed,
+                                            sample, urand, forward=forward)
     return fused_grad.trace_grad(origins, directions, packet, config, seed,
                                  sample, urand, screen_cam=screen_cam, forward=forward)

@@ -11,9 +11,22 @@ it is the plain version of the fused backward kernel
 (`ops/cuda/fused_grad.fused_bwd_reference`).
 
 Both primitive classes live in one unified (P, 27) table (`build_table`),
-so each bounce gathers one row per ray. The gather is an indexed load
-``table[idx]``: the reference's one-hot matmul (`path_replay.py:125-135`) is
-a TPU workaround for slow dynamic gathers.
+so each bounce gathers one row per ray. The plain replay (`replay_table`)
+gathers by an indexed load; the replay route gathers every bounce's rows
+once through ``embedding`` (`gather_rows`), whose backward is d(table). The
+reference's one-hot matmul (`path_replay.py:125-135`) is a TPU workaround
+for slow dynamic gathers.
+
+The replay route (`trace_fused_grad`, `path_replay.py:364-394`): the
+recording kernel's selections, the winners' rows gathered outside, and the
+replay pair inside (`replay_kernel.replay_core`: the chain over the gathered
+rows, forward and backward, one kernel each on the card). The reference
+keeps it to check the fused route against (`integrator.py:72-73`): the
+same estimator and adjoint, with d(table) summed in another order and the
+replay chain's colour as the primal (the fused route returns the recording
+kernel's). The two agree to float rounding except on rays grazing a large
+sphere's horizon, whose float32 conditioning sets how far the routes' geometry
+and camera gradients part (`PERF.md`).
 
 Selections, in the port's layout: (B, R) int32 unified row indices — ``j``
 for triangle j, ``T + s`` for sphere s (``T`` = the packet's padded triangle
@@ -25,6 +38,7 @@ pair (rows 0-1, the pixel jitter, are not read here).
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from ptre_tpu_torch.ops.cuda import megakernel as mk
 from ptre_tpu_torch.ops.cuda import replay_kernel as rpk
@@ -81,6 +95,46 @@ def replay_table(o, d, sel, urand, table, sky6, sph_offset: int, consts,
     return torch.stack(c_, dim=1)
 
 
+class _GatherRows(torch.autograd.Function):
+    """``embedding`` of the padded table by ``idx`` (B, R), with its
+    backward summed in float64, one bounce at a time. ``embedding``'s own
+    backward sums each row's cotangents by sorted segments, fast where
+    ``table[idx]``'s adds an index's duplicates one after another (2,073,600
+    rays on a few rows: seconds a step on an H100); but in float32 it adds a
+    hot row's million cotangents in long sequential runs, and on the demo
+    scene at 1920x1080 that moved its material gradients out of the 1e-4
+    at which ``chip_smoke.py`` phase 21 holds them to the fused route's
+    (that phase reads both sums against float64)."""
+
+    @staticmethod
+    def forward(ctx, padded, idx, pad_row: int):
+        ctx.save_for_backward(idx)
+        ctx.n_rows, ctx.pad_row = padded.shape[0], pad_row
+        return F.embedding(idx, padded, padding_idx=pad_row)
+
+    @staticmethod
+    def backward(ctx, dg):
+        (idx,) = ctx.saved_tensors
+        dtable = sum(torch.ops.aten.embedding_dense_backward(
+            dg[b].to(torch.float64), idx[b], ctx.n_rows, ctx.pad_row, False)
+            for b in range(idx.shape[0]))
+        return dtable.to(dg.dtype), None, None
+
+
+def gather_rows(table, sel):
+    """Every bounce's winner rows, (B, R, 27): row ``sel[b, r]`` of the
+    (P, 27) table, zeros where it is -1 (`path_replay.py:231-249`), through
+    ``embedding`` on the table padded with one zero row. Differentiable
+    w.r.t. the table: its backward, d(table), is summed in float64
+    (`_GatherRows`). The staged route's `intersect.gather_rows` keeps
+    ``embedding``'s float32 backward: it gathers only rows that were hit,
+    and its gradients are held to the fused route's at 1e-2, not 1e-4."""
+    P = table.shape[0]
+    padded = torch.cat([table, table.new_zeros((1, table.shape[1]))], dim=0)
+    idx = torch.where(sel >= 0, sel, P).long()
+    return _GatherRows.apply(padded, idx, P)
+
+
 def replay(o, d, sel, urand, packet, config):
     """Differentiable replay of recorded paths → linear color (R, 3)
     (`path_replay.py:271-361`). Gradients flow to ``o``, ``d`` and the
@@ -88,3 +142,29 @@ def replay(o, d, sel, urand, packet, config):
     table, T, sky6 = build_table(packet)
     return replay_table(o, d, sel, urand, table, sky6, T,
                         mk.TraceConsts.from_config(config), config.max_depth)
+
+
+def trace_fused_grad(o, d, packet, config, seed: int = 0, sample: int = 0, urand=None,
+                     forward=None):
+    """The replay route's differentiable trace → linear color (R, 3)
+    (`path_replay.py:364-394`), for dense-class packets: the recording
+    kernel (`megakernel.trace_fused_sel`) traces the rays without a graph
+    and records the selections; the unified table's winner rows are
+    gathered (`gather_rows`) and replayed by `replay_kernel.replay_core`,
+    whose colour is the primal. Gradients reach ``o``, ``d`` and the
+    packet's float leaves through the table. ``seed``, ``sample``,
+    ``urand``: the draws, as for `fused_grad.trace_grad`; ``forward``: the
+    packet packed by `fused_grad.prepare_forward` (kind "dense"), once for
+    every sample of a step."""
+    from ptre_tpu_torch.ops.cuda import fused_grad
+
+    if forward is None:
+        forward = fused_grad.prepare_forward(packet, "dense")
+    consts = mk.TraceConsts.from_config(config)
+    B = config.max_depth
+    with torch.no_grad():
+        _, sel = mk.trace_fused_sel(o.detach().contiguous(), d.detach().contiguous(),
+                                    forward.scene, consts, B, seed, sample, urand)
+    table, T, sky6 = build_table(packet)
+    return rpk.replay_core(o, d, gather_rows(table, sel), sel, sky6, T, consts, B,
+                           seed, sample, urand)

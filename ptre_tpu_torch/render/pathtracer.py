@@ -36,6 +36,7 @@ from ptre_tpu_torch.ops.cuda import megakernel as mk
 from ptre_tpu_torch.ops.cuda import render_kernel as rk
 from ptre_tpu_torch.ops.cuda import wavefront as wf
 from ptre_tpu_torch.ops.integrator import postprocess_sample
+from ptre_tpu_torch.utils.device import resolve
 from ptre_tpu_torch.utils.errors import ConfigError
 
 
@@ -51,8 +52,10 @@ class AccumState:
 
     @classmethod
     def create(cls, height: int, width: int, device=None) -> "AccumState":
+        """A zeroed (H, W, 3) accumulator on ``device``: None means the card
+        (RendererError where there is none), ``"cpu"`` the host."""
         return cls(linear=torch.zeros((height, width, 3), dtype=torch.float32,
-                                      device=device), frame=0)
+                                      device=resolve(device)), frame=0)
 
     def reset(self) -> "AccumState":
         """Restart accumulation by zeroing only the counter; the buffer is

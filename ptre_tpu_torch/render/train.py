@@ -28,10 +28,14 @@ sample of a triangle-scale packet runs the wavefront in record mode (a mask
 and a bounce launch per live bounce) and one launch of the backward kernel's
 global-table instantiation; the scene is packed (world-space triangles,
 Morton sort, boxes) once per step, without a graph: only the unified table
-carries gradients to the packet. On the staged route — every packet past the
-fused kernels' caps, or ``grad_sweep="staged"`` — a sample is
-`integrator.trace_staged`, one sweep launch a bounce and autograd through the
-rest. On CPU tensors the plain versions run. Random numbers: per sample s,
+carries gradients to the packet. On the replay route
+(``grad_sweep="replay"``, dense-class packets) a sample is one launch each
+of the recording kernel, the replay forward and the replay backward kernels
+(`ops/cuda/replay_kernel`), with the winners' rows gathered between them
+(`path_replay.gather_rows`); the scene is packed once per step as on the
+fused route. On the staged route — every packet past the fused kernels'
+caps, or ``grad_sweep="staged"`` — a sample is `integrator.trace_staged`,
+one sweep launch a bounce and autograd through the rest. On CPU tensors the plain versions run. Random numbers: per sample s,
 the port's Philox keyed by (seed, pixel, s, draw) — draw 0 the pixel jitter,
 draw 1 + b bounce b — or given uniforms ``urand`` (S, 2 + 2*max_depth, H, W),
 the layout of `render/pathtracer.render_step`; or, on the staged route, a
@@ -65,8 +69,9 @@ def pack_forward(params, packet, cam):
 
 
 def _forward_of(params, packet, cam, config):
-    """`pack_forward` where the step takes the fused route, else None."""
-    if integrator.grad_route(config, packet) == "fused":
+    """`pack_forward` where the step takes the fused or the replay route
+    (both record with a packed forward), else None."""
+    if integrator.grad_route(config, packet) in ("fused", "replay"):
         return pack_forward(params, packet, cam)
     return None
 

@@ -66,8 +66,11 @@ class RenderConfig:
     #: and backward kernels for every packet `fused_grad.check_supported`
     #: takes, else the staged route (per-bounce sweep plus autograd);
     #: "staged" takes the staged route for every packet; "replay" (the
-    #: reference's round-2 planar replay, A/B only) is not ported yet and
-    #: raises NotImplementedError. The sweep is detached every way.
+    #: reference's round-2 planar replay, kept for A/B checks of the fused
+    #: route) takes the replay route (`path_replay.trace_fused_grad`: the
+    #: dense recording kernel, then the replay kernels over gathered winner
+    #: rows) for dense-class packets, else the staged route. The sweep is
+    #: detached every way.
     grad_sweep: str = "auto"
     #: rematerialise the bounce body in the reference's backward
     #: (`jax.checkpoint`). It changes only memory there ("Identical values

@@ -89,7 +89,7 @@ CASES = {
 def test_host_build_matches_plain_version(host_lib, name, external):
     torch.set_num_threads(1)
     build_scene, cam_kw, cfg_kw = CASES[name]
-    pkt = build_scene().build_packet()
+    pkt = build_scene().build_packet(device="cpu")
     assert mk.dense_supported(pkt)
     cfg = RenderConfig(width=W, height=H, **cfg_kw)
     scene = mk.pack_scene(pkt)
@@ -110,7 +110,7 @@ def test_host_build_empty_scene_is_pure_sky(host_lib):
     # but PyTorch's CPU sqrt is not always correctly rounded (measured: one
     # ulp off libm's for some ray lengths), so allow 2 ulp of values <= 1
     cfg = RenderConfig(width=W, height=H)
-    scene = mk.pack_scene(Scene().build_packet())
+    scene = mk.pack_scene(Scene().build_packet(device="cpu"))
     assert scene.n_tri == 1 and float(scene.tris[0, 18]) == 0.0  # one invalid row
     rows = rk.camera_rows(cam_ops.Camera.create(width=W, height=H))
     zero = torch.zeros((H, W, 3))
@@ -163,7 +163,7 @@ def test_host_wave_build_matches_plain_versions(wave_lib, name, external):
     lanes, B = 64, 3
     cfg = RenderConfig(width=W, height=H, max_depth=B)
     k = mk.TraceConsts.from_config(cfg)
-    scene = wf.prepare_scene(build_scene().build_packet())
+    scene = wf.prepare_scene(build_scene().build_packet(device="cpu"))
     cam = cam_ops.Camera.create(width=W, height=H, **cam_kw)
     px, py = pt.pixel_grid(H, W)
     rs = np.random.default_rng(len(name))
@@ -231,7 +231,7 @@ def test_host_culled_megakernel_matches_plain_version(wave_lib, name, external, 
     lanes, B = 64, 3
     cfg = RenderConfig(width=W, height=H, max_depth=B)
     k = mk.TraceConsts.from_config(cfg)
-    scene = wf.prepare_scene(build_scene().build_packet())
+    scene = wf.prepare_scene(build_scene().build_packet(device="cpu"))
     cam = cam_ops.Camera.create(width=W, height=H, **cam_kw)
     px, py = pt.pixel_grid(H, W)
     rs = np.random.default_rng(len(name) + cull)
@@ -414,7 +414,7 @@ def _raster_host_inputs(ss=2, W=40, H=24, y0=1.0, rows=9, stride=2):
 
     torch.set_num_threads(1)
     cfg = RasterConfig(width=W, height=H, supersample=ss)
-    pkt = demo.reference_demo_scene(8, 4).build_packet(spheres_as_triangles=True)
+    pkt = demo.reference_demo_scene(8, 4).build_packet(spheres_as_triangles=True, device="cpu")
     cam = cam_ops.Camera.create(width=W, height=H)
     cols, cbox = sr._soft_cols(pkt, cam, cfg)
     scal = rk.raster_scalars(cfg, 1.0 / 0.5, y0, stride)

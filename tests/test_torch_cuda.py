@@ -14,6 +14,7 @@ flipped path) on at most 1e-5 of the pixels, rounded up.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import numpy as np
@@ -29,6 +30,7 @@ from ptre_tpu_torch.ops.cuda import fused_grad as fg
 from ptre_tpu_torch.ops.cuda import megakernel as mk
 from ptre_tpu_torch.ops.cuda import raster_kernel as rast
 from ptre_tpu_torch.ops.cuda import render_kernel as rk
+from ptre_tpu_torch.ops.cuda import replay_kernel as rpk
 from ptre_tpu_torch.ops.cuda import soft_raster as sr
 from ptre_tpu_torch.ops.cuda import wavefront as wf
 from ptre_tpu_torch.parallel import sharding as sh
@@ -49,7 +51,7 @@ def cuda():
 
 def _setup(dev, W, H, max_depth=5):
     cfg = RenderConfig(width=W, height=H, max_depth=max_depth)
-    packed = mk.pack_scene(demo.reference_demo_scene(16, 8).build_packet().to(dev))
+    packed = mk.pack_scene(demo.reference_demo_scene(16, 8).build_packet(device=dev))
     rows = rk.camera_rows(cam_ops.Camera.create(width=W, height=H))
     prev = torch.from_numpy(np.random.default_rng(W).random((H, W, 3), np.float32)).to(dev)
     return cfg, packed, rows, prev
@@ -81,7 +83,7 @@ def test_kernel_matches_plain_version(cuda, W, H, external):
 def test_render_step_goes_through_kernel(cuda):
     W, H = 160, 90
     cfg = RenderConfig(width=W, height=H)
-    pkt = demo.reference_demo_scene(16, 8).build_packet().to(cuda)
+    pkt = demo.reference_demo_scene(16, 8).build_packet(device=cuda)
     cam = cam_ops.Camera.create(width=W, height=H)
     before = rk.launches
     acc = pt.render_step(pkt, cam, pt.AccumState.create(H, W, cuda), 3, cfg, spp=3)
@@ -111,7 +113,7 @@ def test_wrapper_rejects_bad_inputs(cuda):
 
 def _grad_setup(dev, W=256, H=128, B=5):
     cfg = RenderConfig(width=W, height=H, max_depth=B)
-    pkt = demo.reference_demo_scene(16, 8).build_packet().to(dev)
+    pkt = demo.reference_demo_scene(16, 8).build_packet(device=dev)
     cam = cam_ops.Camera.create(width=W, height=H)
     params = sh.differentiable_params(pkt, cam)
     _, cam_dev = sh.apply_params(params, pkt, cam)
@@ -203,6 +205,93 @@ def test_gradient_wrappers_reject_bad_inputs(cuda):
         fg.fused_bwd(torch.zeros((200, 27), device=cuda), sky6, o, d, sel, dcol, k, 5, 201)
 
 
+# ---- the replay route's kernels (grad_sweep="replay") ---------------------------
+# Tolerances as in chip_smoke.py phase 21: the kernels replay fixed
+# selections and are built without FMA contraction, so the forward's colour
+# is within 1e-4 of the plain version on every ray (measured bit-equal); the
+# backward's adjoint rounds otherwise than autograd: held as the fused
+# backward above.
+
+
+def _replay_setup(dev, external):
+    cfg, pkt, cam, params, o, d, scene, k = _grad_setup(dev)
+    R = o.shape[0]
+    urand = (torch.rand((12, R), device=dev, generator=torch.Generator(dev).manual_seed(6))
+             if external else None)
+    _, sel = mk.trace_fused_sel(o, d, scene, k, 5, 9, 1, urand)
+    table, T, sky6 = path_replay.build_table(pkt)
+    return o, d, sel, urand, table, T, sky6, k
+
+
+@pytest.mark.parametrize("external", [True, False])
+def test_replay_kernels_match_plain_versions(cuda, external):
+    o, d, sel, urand, table, T, sky6, k = _replay_setup(cuda, external)
+    R = o.shape[0]
+    g = path_replay.gather_rows(table, sel)
+    before = (rpk.fwd_launches, rpk.bwd_launches)
+    color = rpk.replay_fwd(o, d, g, sel, sky6, T, k, 5, 9, 1, urand)
+    want = rpk.replay_fwd_reference(o, d, g, sel, sky6, T, k, 5, 9, 1, urand)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(color).all()) and float((color - want).abs().max()) <= 1e-4
+    dcol = torch.randn((R, 3), device=cuda, generator=torch.Generator(cuda).manual_seed(5))
+    got = rpk.replay_bwd(o, d, g, sel, sky6, dcol, T, k, 5, 9, 1, urand)
+    ref = rpk.replay_bwd_reference(o, d, g, sel, sky6, dcol, T, k, 5, 9, 1, urand)
+    torch.cuda.synchronize()
+    assert (rpk.fwd_launches, rpk.bwd_launches) == (before[0] + 1, before[1] + 1)
+    assert bool((got[2][sel < 0] == 0).all())  # nothing reaches the gather from a miss
+    ray_err = ((got[0] - ref[0]).abs() + (got[1] - ref[1]).abs()).amax(dim=1)
+    ray_mag = (ref[0].abs() + ref[1].abs()).amax(dim=1)
+    flip = ray_err > 1e-2 * ray_mag + 1e-3
+    assert int(flip.sum()) <= math.ceil(1e-4 * R)
+    for a, b in ((got[0], ref[0]), (got[1], ref[1])):
+        assert float(((a - b).abs() <= 1e-4 * b.abs().max()).float().mean()) >= 0.999
+    # material and sky gradients, d(g) summed to d(table), without the flipped rays
+    cot = torch.where(flip[:, None], 0.0, dcol)
+    got = rpk.replay_bwd(o, d, g, sel, sky6, cot, T, k, 5, 9, 1, urand)
+    ref = rpk.replay_bwd_reference(o, d, g, sel, sky6, cot, T, k, 5, 9, 1, urand)
+    hit = sel >= 0
+    dtab = [torch.zeros_like(table).index_add_(0, sel[hit].long(), x[2][hit])
+            for x in (got, ref)]
+    for a, b in ((dtab[0][:, 23:27], dtab[1][:, 23:27]), (got[3], ref[3])):
+        assert float((a - b).norm() / b.norm()) <= 1e-4
+
+
+def test_replay_route_goes_through_the_replay_kernels(cuda):
+    cfg, pkt, cam, params, _, _, _, _ = _grad_setup(cuda, W=160, H=90)
+    cfg = dataclasses.replace(cfg, grad_sweep="replay")
+    target = torch.zeros((160 * 90, 3), device=cuda)
+    before = (mk.record_launches, rpk.fwd_launches, rpk.bwd_launches, fg.launches)
+    loss, grads = train.mse_step(params, pkt, cam, target, cfg, seed=4, spp=3)
+    torch.cuda.synchronize()
+    after = (mk.record_launches, rpk.fwd_launches, rpk.bwd_launches, fg.launches)
+    assert tuple(a - b for a, b in zip(after, before)) == (3, 3, 3, 0)
+    assert math.isfinite(float(loss)) and float(loss) > 0
+    assert all(bool(torch.isfinite(g).all()) for g in grads.values())
+    assert float(grads["mat_albedo"].abs().max()) > 0
+
+
+def test_replay_core_on_cuda_launches_or_raises_never_the_plain_chain(cuda, monkeypatch):
+    o, d, sel, _, table, T, sky6, k = _replay_setup(cuda, False)
+    g = path_replay.gather_rows(table.detach().requires_grad_(True), sel)
+
+    def no_plain(*args, **kwargs):
+        raise AssertionError("the plain chain ran on CUDA tensors")
+
+    monkeypatch.setattr(rpk, "replay_fwd_reference", no_plain)
+    monkeypatch.setattr(rpk, "replay_bwd_reference", no_plain)
+    before = (rpk.fwd_launches, rpk.bwd_launches)
+    color = rpk.replay_core(o, d, g, sel, sky6, T, k, 5, 9, 1)
+    color.sum().backward()
+    torch.cuda.synchronize()
+    assert (rpk.fwd_launches, rpk.bwd_launches) == (before[0] + 1, before[1] + 1)
+    with pytest.raises(RendererError, match="contiguous"):
+        rpk.replay_fwd(o, d, g.detach(), sel.long(), sky6, T, k, 5)
+    with pytest.raises(RendererError, match="shape"):
+        rpk.replay_fwd(o, d, g.detach()[:3], sel, sky6, T, k, 5)
+    with pytest.raises(RendererError, match="o on cuda"):
+        rpk.replay_bwd(o, d, g.detach(), sel, sky6, torch.ones((o.shape[0], 3)), T, k, 5)
+
+
 # ---- the wavefront kernels (triangle-scale scenes) --------------------------------
 # Tolerances as in chip_smoke.py phases 9-10: the slab test has no a*b+c, so
 # the verdicts are equal; the bounce kernel contracts FMAs, so a grazing ray
@@ -212,7 +301,7 @@ def test_gradient_wrappers_reject_bad_inputs(cuda):
 
 def _wave_setup(dev, W=256, H=128, B=5):
     cfg = RenderConfig(width=W, height=H, max_depth=B)
-    pkt = demo.config4_mixed_scene(64, 32).build_packet().to(dev)
+    pkt = demo.config4_mixed_scene(64, 32).build_packet(device=dev)
     cam = cam_ops.Camera.create(width=W, height=H)
     scene = wf.prepare_scene(pkt, screen_cam=cam)
     px, py = pt.pixel_grid(H, W, dev)
@@ -257,7 +346,7 @@ def test_wave_bounce_kernel_matches_plain_version(cuda, external):
 def test_render_step_triangle_scene_goes_through_wavefront_kernels(cuda):
     W, H = 256, 128
     cfg = RenderConfig(width=W, height=H, max_depth=5)
-    pkt = demo.config4_mixed_scene(64, 32).build_packet().to(cuda)
+    pkt = demo.config4_mixed_scene(64, 32).build_packet(device=cuda)
     cam = cam_ops.Camera.create(width=W, height=H)
     before = (wf.mask_launches, wf.bounce_launches, wf.live_bounces, wf.binned_bounces,
               rk.launches)
@@ -271,7 +360,7 @@ def test_render_step_triangle_scene_goes_through_wavefront_kernels(cuda):
     lin = acc.linear
     assert bool(torch.isfinite(lin).all()) and 0.0 <= float(lin.min()) <= float(lin.max()) <= 1.0 + 1e-6
     # the same step with the plain versions on the CPU, same seed and draws
-    ref = pt.render_step(pkt.to("cpu"), cam, pt.AccumState.create(H, W), 3, cfg, spp=2)
+    ref = pt.render_step(pkt.to("cpu"), cam, pt.AccumState.create(H, W, device="cpu"), 3, cfg, spp=2)
     d = (lin.cpu() - ref.linear).abs()
     assert float((d <= 1e-4).float().mean()) >= 0.999
     assert int((d > 0.05).any(dim=-1).sum()) <= math.ceil(1e-5 * W * H * 2)
@@ -306,7 +395,7 @@ def test_wavefront_wrappers_reject_bad_inputs(cuda):
 
 def _tri_rays(dev, W=256, H=128, B=4):
     cfg = RenderConfig(width=W, height=H, max_depth=B)
-    pkt = demo.config4_mixed_scene(64, 32).build_packet().to(dev)
+    pkt = demo.config4_mixed_scene(64, 32).build_packet(device=dev)
     cam = cam_ops.Camera.create(width=W, height=H)
     scene = wf.prepare_scene(pkt, screen_cam=cam)
     px, py = pt.pixel_grid(H, W, dev)
@@ -399,7 +488,7 @@ def test_global_table_backward_matches_plain_version(cuda):
 def test_mse_step_triangle_scene_goes_through_the_kernels(cuda):
     W, H = 256, 128
     cfg = RenderConfig(width=W, height=H, max_depth=4)
-    pkt = demo.config4_mixed_scene(64, 32).build_packet().to(cuda)
+    pkt = demo.config4_mixed_scene(64, 32).build_packet(device=cuda)
     cam = cam_ops.Camera.create(width=W, height=H)
     params = sh.differentiable_params(pkt, cam)
     target = torch.zeros((W * H, 3), device=cuda)
@@ -435,7 +524,7 @@ def test_mse_step_triangle_scene_goes_through_the_kernels(cuda):
 
 def _raster_setup(dev, W=200, H=120, ss=2, y0=0.0, stride=1, rows=None):
     cfg = RasterConfig(width=W, height=H, supersample=ss)
-    pkt = demo.reference_demo_scene(16, 8).build_packet(spheres_as_triangles=True).to(dev)
+    pkt = demo.reference_demo_scene(16, 8).build_packet(spheres_as_triangles=True, device=dev)
     cam = cam_ops.Camera.create(width=W, height=H)
     rows = H if rows is None else rows
     cols, cbox = sr._soft_cols(pkt, cam, cfg)
@@ -520,7 +609,7 @@ def _nine_material_packet():
     for i in range(7):
         scn.add_material(Material(MaterialKind.OREN_NAYAR, (0.1 * i, 0.5, 0.3), 0.5))
     scn.set_model_material("ground", 8)
-    return scn.build_packet()
+    return scn.build_packet(device="cpu")
 
 
 def _bounce1_rays(o, d, pkt, cfg, seed=3):
@@ -545,8 +634,8 @@ def test_sweep_kernel_equals_plain_version(cuda, scene):
     # and the plain sweep must agree exactly, primary and bounce-1 rays
     from ptre_tpu_torch.ops.cuda import sweep_kernel as sk
 
-    pkt = {"demo": lambda: demo.reference_demo_scene(16, 8).build_packet(),
-           "config4": lambda: demo.config4_mixed_scene(24, 12).build_packet(),
+    pkt = {"demo": lambda: demo.reference_demo_scene(16, 8).build_packet(device="cpu"),
+           "config4": lambda: demo.config4_mixed_scene(24, 12).build_packet(device="cpu"),
            "nine": _nine_material_packet}[scene]().to(cuda)
     W, H = 160, 90
     cfg = RenderConfig(width=W, height=H)
@@ -581,7 +670,7 @@ def test_staged_render_and_training_go_through_the_sweep_kernel(cuda):
     acc = pt.render_step(pkt, cam, pt.AccumState.create(H, W, cuda), 5, cfg, spp=2)
     torch.cuda.synchronize()
     assert sk.launches == before + 2 * cfg.max_depth
-    ref = pt.render_step(pkt_cpu, cam, pt.AccumState.create(H, W), 5, cfg, spp=2)
+    ref = pt.render_step(pkt_cpu, cam, pt.AccumState.create(H, W, device="cpu"), 5, cfg, spp=2)
     d = (acc.linear.cpu() - ref.linear).abs()
     assert bool(torch.isfinite(acc.linear).all()) and float(d.max()) < 1e-4, float(d.max())
     params = sh.differentiable_params(pkt, cam)

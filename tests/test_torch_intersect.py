@@ -96,7 +96,7 @@ def _flips(got, want):
 @pytest.mark.parametrize("name", list(SCENES))
 def test_sweep_matches_jax_xla_sweep(name):
     torch.set_num_threads(1)
-    jp, pkt = SCENES[name][0]().build_packet(), SCENES[name][1]().build_packet()
+    jp, pkt = SCENES[name][0]().build_packet(), SCENES[name][1]().build_packet(device="cpu")
     wt = _world(jp)
     jwt = tuple(jnp.asarray(w.numpy()) for w in wt)
     for o, d in _rays(pkt):
@@ -110,7 +110,7 @@ def test_sweep_matches_jax_xla_sweep(name):
 
 
 def test_sweep_matches_tpu_kernel_in_interpret_mode():
-    jp, pkt = SCENES["demo"][0]().build_packet(), SCENES["demo"][1]().build_packet()
+    jp, pkt = SCENES["demo"][0]().build_packet(), SCENES["demo"][1]().build_packet(device="cpu")
     wt = _world(jp)
     o, d = _rays(pkt)[0]
     o, d = o[:384], d[:384]
@@ -150,7 +150,7 @@ def _host_sweep(lib, o, d, tables):
 @pytest.mark.parametrize("name", list(SCENES))
 def test_host_build_of_sweep_body_equals_plain_sweep(host_lib, name):
     torch.set_num_threads(1)
-    pkt = SCENES[name][1]().build_packet()
+    pkt = SCENES[name][1]().build_packet(device="cpu")
     wt = pkt.world_triangles()
     tables = sk.prepare(pkt, wt)
     assert tables.tris.shape[1] == sk.TRI_COLS and tables.sphs.shape[1] == sk.SPH_COLS
@@ -163,7 +163,7 @@ def test_host_build_of_sweep_body_equals_plain_sweep(host_lib, name):
 
 
 def test_sweep_of_empty_tables_misses_with_index_zero(host_lib):
-    pkt = Scene().build_packet()  # padding rows only: nothing valid
+    pkt = Scene().build_packet(device="cpu")  # padding rows only: nothing valid
     o = torch.zeros((5, 3))
     d = torch.tensor([[0.0, 0.0, 1.0]]).expand(5, 3).contiguous()
     tables = sk.prepare(pkt, pkt.world_triangles())
@@ -178,7 +178,7 @@ def test_every_copy_of_the_sweep_agrees_on_one_scene(host_lib):
     # the plain sweep, the kernel body's host build, and the dense bounce
     # loop's sweep (trace_block, the plain version of trace.cuh trace_path)
     torch.set_num_threads(1)
-    pkt = demo.reference_demo_scene(8, 4).build_packet()
+    pkt = demo.reference_demo_scene(8, 4).build_packet(device="cpu")
     assert mk.dense_supported(pkt)
     scene = mk.pack_scene(pkt)
     wt = pkt.world_triangles()
@@ -263,7 +263,7 @@ def test_hit_attrs_values_and_gradients_match_jax():
 
 def test_intersect_primitives_match_jax():
     jp = jdemo.config4_mixed_scene(12, 6).build_packet()
-    pkt = demo.config4_mixed_scene(12, 6).build_packet()
+    pkt = demo.config4_mixed_scene(12, 6).build_packet(device="cpu")
     wt = _world(jp)
     (o, d), (o1, d1) = _rays(pkt, seed=5)
     jo, jd = jnp.asarray(o.numpy()), jnp.asarray(d.numpy())
@@ -294,7 +294,7 @@ def test_intersect_primitives_match_jax():
 
 def test_closest_hit_values_and_gradients_match_jax():
     jp = jdemo.config4_mixed_scene(12, 6).build_packet()
-    pkt = demo.config4_mixed_scene(12, 6).build_packet()
+    pkt = demo.config4_mixed_scene(12, 6).build_packet(device="cpu")
     o, d = _rays(pkt, seed=6)[1]
     rs = np.random.default_rng(7)
     w = rs.normal(size=(o.shape[0], 3)).astype(np.float32)

@@ -115,7 +115,7 @@ def test_sources_name_no_jax_and_no_reference_module(path):
 def _small_inputs(H=8, W=16):
     torch.set_num_threads(1)
     cfg = RenderConfig(width=W, height=H, max_depth=2)
-    scene = mk.pack_scene(demo.reference_demo_scene(8, 4).build_packet())
+    scene = mk.pack_scene(demo.reference_demo_scene(8, 4).build_packet(device="cpu"))
     rows = rk.camera_rows(cam_ops.Camera.create(width=W, height=H))
     prev = torch.from_numpy(np.random.default_rng(5).random((H, W, 3), np.float32))
     return cfg, scene, rows, prev
@@ -157,7 +157,7 @@ def test_render_step_refuses_non_dense_packet_on_cuda():
     wavefront takes it; any other packet takes the staged route (the sweep
     kernel), decided from its counts. On CUDA only the plain sweep
     (``intersect_backend="xla"``) is refused."""
-    tri = demo.config3_scene(segments=24, rings=12).build_packet()
+    tri = demo.config3_scene(segments=24, rings=12).build_packet(device="cpu")
     assert tri.num_triangles > mk.DENSE_MAX_TRI
     assert pt.route(tri) == "wavefront"
     pt.check_dispatch(tri, torch.device("cuda"))
@@ -168,7 +168,7 @@ def test_render_step_refuses_non_dense_packet_on_cuda():
     for i in range(mk.MAX_MATS):
         many_mats.add_material(Material(MaterialKind.OREN_NAYAR, (0.1 * i,) * 3, 0.5))
     xla = RenderConfig(intersect_backend="xla")
-    for pkt in (too_big, many_mats.build_packet()):
+    for pkt in (too_big, many_mats.build_packet(device="cpu")):
         assert pt.route(pkt) == "staged"
         pt.check_dispatch(pkt, torch.device("cuda"), RenderConfig())
         with pytest.raises(ConfigError, match="xla"):
@@ -176,8 +176,8 @@ def test_render_step_refuses_non_dense_packet_on_cuda():
         pt.check_dispatch(pkt, "cpu", xla)
 
     # the dense demo packet has its CUDA path; any packet has the CPU one
-    assert pt.route(demo.reference_demo_scene(8, 4).build_packet()) == "dense"
-    pt.check_dispatch(demo.reference_demo_scene(8, 4).build_packet(), "cuda")
+    assert pt.route(demo.reference_demo_scene(8, 4).build_packet(device="cpu")) == "dense"
+    pt.check_dispatch(demo.reference_demo_scene(8, 4).build_packet(device="cpu"), "cuda")
     pt.check_dispatch(too_big, "cpu")
     with pytest.raises(NotImplementedError):
         pt.check_dispatch(tri, "meta")
@@ -187,10 +187,10 @@ def test_wavefront_wrappers_on_cpu_run_plain_versions_without_launch():
     torch.set_num_threads(1)
     W, H = 16, 8
     cfg = RenderConfig(width=W, height=H, max_depth=3)
-    pkt = demo.config4_mixed_scene(12, 6).build_packet()
+    pkt = demo.config4_mixed_scene(12, 6).build_packet(device="cpu")
     cam = cam_ops.Camera.create(width=W, height=H)
     before = (wf.mask_launches, wf.bounce_launches, rk.launches)
-    acc = pt.render_step(pkt, cam, pt.AccumState.create(H, W), 3, cfg, spp=2)
+    acc = pt.render_step(pkt, cam, pt.AccumState.create(H, W, device="cpu"), 3, cfg, spp=2)
     assert (wf.mask_launches, wf.bounce_launches, rk.launches) == before
     assert acc.frame == 2 and bool(torch.isfinite(acc.linear).all())
     scene = wf.prepare_scene(pkt)
@@ -224,7 +224,7 @@ def test_training_refuses_non_dense_packet_on_cuda_before_any_cuda_call(monkeypa
         raise AssertionError("a CUDA call was made")
 
     monkeypatch.setattr(build, "load_library", no_cuda)
-    big = demo.config3_scene(segments=24, rings=12).build_packet()
+    big = demo.config3_scene(segments=24, rings=12).build_packet(device="cpu")
     assert not mk.dense_supported(big) and wf.supports(big)
     W, H = 16, 8
     cfg = RenderConfig(width=W, height=H)
@@ -257,7 +257,7 @@ def test_training_refuses_non_dense_packet_on_cuda_before_any_cuda_call(monkeypa
         monkeypatch.setattr(integrator, "trace_staged", lambda *a, **k: "staged")
         assert integrator.trace(o, o, too_big, cfg) == "staged"
     with pytest.raises(NotImplementedError, match="cuda or cpu"):
-        integrator.check_grad_dispatch(demo.reference_demo_scene(8, 4).build_packet(),
+        integrator.check_grad_dispatch(demo.reference_demo_scene(8, 4).build_packet(device="cpu"),
                                        "meta")
 
 
@@ -267,7 +267,7 @@ def test_triangle_gradient_wrappers_on_cpu_run_plain_versions_without_launch():
     torch.set_num_threads(1)
     W, H = 16, 8
     cfg = RenderConfig(width=W, height=H, max_depth=3)
-    pkt = demo.config4_mixed_scene(12, 6).build_packet()
+    pkt = demo.config4_mixed_scene(12, 6).build_packet(device="cpu")
     cam = cam_ops.Camera.create(width=W, height=H)
     before = (wf.mask_launches, wf.bounce_launches, mk.culled_launches, mk.record_launches,
               fused_grad.launches)
@@ -293,7 +293,7 @@ def test_gradient_wrappers_on_cpu_run_plain_versions_without_launch():
     torch.set_num_threads(1)
     W, H = 16, 8
     cfg = RenderConfig(width=W, height=H, max_depth=3)
-    pkt = demo.reference_demo_scene(8, 4).build_packet()
+    pkt = demo.reference_demo_scene(8, 4).build_packet(device="cpu")
     cam = cam_ops.Camera.create(width=W, height=H)
     before = (mk.record_launches, fused_grad.launches)
     loss, grads = train.mse_step(sh.differentiable_params(pkt, cam), pkt, cam,
@@ -321,7 +321,7 @@ def test_raster_wrappers_on_cpu_run_plain_versions_and_refuse_other_devices(monk
 
     torch.set_num_threads(1)
     cfg = RasterConfig(width=16, height=8, supersample=2)
-    pkt = demo.reference_demo_scene(8, 4).build_packet(spheres_as_triangles=True)
+    pkt = demo.reference_demo_scene(8, 4).build_packet(spheres_as_triangles=True, device="cpu")
     cam = cam_ops.Camera.create(width=16, height=8)
     before = (rast.launches, sr.fwd_launches, sr.bwd_launches)
     params = sh.differentiable_params(pkt, cam)
@@ -350,3 +350,29 @@ def test_raster_wrappers_on_cpu_run_plain_versions_and_refuse_other_devices(monk
         box = torch.empty(cbox.shape, device="cuda")
         with pytest.raises(RendererError, match="forward-only"):
             rast.raster_tiles(tris, box, scal, 16, 32, 2)
+
+
+def test_packet_and_accumulator_default_to_the_card(monkeypatch):
+    """`build_packet()` and `AccumState.create()` without a device name the
+    card, as the reference's ``jnp.asarray`` names the accelerator: with no
+    card they raise RendererError — nothing falls back to the CPU — and the
+    scene stays marked modified."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    scn = demo.reference_demo_scene(8, 4)
+    for kw in ({}, {"spheres_as_triangles": True}):
+        with pytest.raises(RendererError, match="CUDA device is required"):
+            scn.build_packet(**kw)
+    assert scn.modified()
+    with pytest.raises(RendererError, match="CUDA device is required"):
+        pt.AccumState.create(4, 8)
+
+
+def test_packet_and_accumulator_on_the_cpu_when_asked():
+    scn = demo.reference_demo_scene(8, 4)
+    for dev in ("cpu", torch.device("cpu")):
+        pkt = scn.build_packet(device=dev)
+        assert {getattr(pkt, k).device.type for k in PACKET_LEAVES} == {"cpu"}
+        acc = pt.AccumState.create(4, 8, device=dev)
+        assert acc.linear.device.type == "cpu" and acc.linear.shape == (4, 8, 3)
+        assert acc.frame == 0 and not bool(acc.linear.any())
+    assert not scn.modified()

@@ -70,9 +70,9 @@ def test_render_step_matches_jax_staged_route():
     jp = jdemo.reference_demo_scene(16, 8).build_packet()
     jc = jcam.Camera.create(width=W, height=H)
     jacc = jpt.AccumState.create(H, W)
-    pkt = demo.reference_demo_scene(16, 8).build_packet()
+    pkt = demo.reference_demo_scene(16, 8).build_packet(device="cpu")
     cam = cam_ops.Camera.create(width=W, height=H)
-    acc = pt.AccumState.create(H, W)
+    acc = pt.AccumState.create(H, W, device="cpu")
     for step in range(2):
         key = jrng.fold(root, step)
         urand = jax_urand(key, acc.frame, spp, H, W, cfg.max_depth)
@@ -146,10 +146,10 @@ def test_renders_dense_goldens(name):
     scene_fn, args, cam_kw, cfg_kw, spp, seed, outliers = GOLDENS[name]
     W, H = cfg_kw["width"], cfg_kw["height"]
     cfg = RenderConfig(**cfg_kw)
-    pkt = getattr(demo, scene_fn)(*args).build_packet()
+    pkt = getattr(demo, scene_fn)(*args).build_packet(device="cpu")
     cam = cam_ops.Camera.create(width=W, height=H, **cam_kw)
     urand = jax_urand(jrng.key_for(seed), 0, spp, H, W, cfg.max_depth)
-    acc = pt.render_step(pkt, cam, pt.AccumState.create(H, W), 0, cfg, spp=spp,
+    acc = pt.render_step(pkt, cam, pt.AccumState.create(H, W, device="cpu"), 0, cfg, spp=spp,
                          urand=urand)
     got = pt.to_display(acc.linear).numpy().astype(np.int16)
     want = read_ppm(os.path.join(GOLDEN_DIR, name)).astype(np.int16)
@@ -176,11 +176,11 @@ def test_render_step_triangle_scene_matches_jax_staged_route(name):
     cfg = RenderConfig(width=W, height=H, max_depth=4)
     root = jrng.key_for(77)
     jp = TRI_SCENES[name](jdemo).build_packet()
-    pkt = TRI_SCENES[name](demo).build_packet()
+    pkt = TRI_SCENES[name](demo).build_packet(device="cpu")
     assert pt.route(pkt) == "wavefront"
     jc = jcam.Camera.create(width=W, height=H)
     cam = cam_ops.Camera.create(width=W, height=H)
-    jacc, acc = jpt.AccumState.create(H, W), pt.AccumState.create(H, W)
+    jacc, acc = jpt.AccumState.create(H, W), pt.AccumState.create(H, W, device="cpu")
     for step in range(2):
         key = jrng.fold(root, step)
         urand = jax_urand(key, acc.frame, spp, H, W, cfg.max_depth)
@@ -208,11 +208,11 @@ def test_renders_triangle_goldens(name):
     scene_fn, scene_kw, cam_kw, seed = TRI_GOLDENS[name]
     W = H = 64
     cfg = RenderConfig(width=W, height=H, max_depth=5)
-    pkt = getattr(demo, scene_fn)(**scene_kw).build_packet()
+    pkt = getattr(demo, scene_fn)(**scene_kw).build_packet(device="cpu")
     assert pt.route(pkt) == "wavefront"
     cam = cam_ops.Camera.create(width=W, height=H, **cam_kw)
     urand = jax_urand(jrng.key_for(seed), 0, 4, H, W, cfg.max_depth)
-    acc = pt.render_step(pkt, cam, pt.AccumState.create(H, W), 0, cfg, spp=4, urand=urand)
+    acc = pt.render_step(pkt, cam, pt.AccumState.create(H, W, device="cpu"), 0, cfg, spp=4, urand=urand)
     got = pt.to_display(acc.linear).numpy().astype(np.int16)
     want = read_ppm(os.path.join(GOLDEN_DIR, name)).astype(np.int16)
     assert got.shape == want.shape
@@ -240,9 +240,9 @@ def test_reset_overwrites_history_and_frame_is_host_int():
     torch.set_num_threads(1)
     W, H = 16, 8
     cfg = RenderConfig(width=W, height=H, max_depth=2)
-    pkt = demo.reference_demo_scene(8, 4).build_packet()
+    pkt = demo.reference_demo_scene(8, 4).build_packet(device="cpu")
     cam = cam_ops.Camera.create(width=W, height=H)
-    acc = pt.render_step(pkt, cam, pt.AccumState.create(H, W), 5, cfg, spp=3)
+    acc = pt.render_step(pkt, cam, pt.AccumState.create(H, W, device="cpu"), 5, cfg, spp=3)
     assert acc.frame == 3 and isinstance(acc.frame, int)
     before = acc.linear.clone()
     reset = acc.reset()
@@ -251,11 +251,11 @@ def test_reset_overwrites_history_and_frame_is_host_int():
     gen = torch.Generator().manual_seed(42)
     after = pt.render_step(pkt, cam, reset, gen, cfg, spp=1)
     assert after.linear is reset.linear  # updated in place
-    fresh = pt.render_step(pkt, cam, pt.AccumState.create(H, W),
+    fresh = pt.render_step(pkt, cam, pt.AccumState.create(H, W, device="cpu"),
                            torch.Generator().manual_seed(42), cfg, spp=1)
     assert torch.equal(after.linear, fresh.linear)  # n = 1 overwrote history
     # the same seed renders the same image; another seed another one
-    again = pt.render_step(pkt, cam, pt.AccumState.create(H, W), 5, cfg, spp=3)
+    again = pt.render_step(pkt, cam, pt.AccumState.create(H, W, device="cpu"), 5, cfg, spp=3)
     assert torch.equal(again.linear, before)
-    other = pt.render_step(pkt, cam, pt.AccumState.create(H, W), 6, cfg, spp=3)
+    other = pt.render_step(pkt, cam, pt.AccumState.create(H, W, device="cpu"), 6, cfg, spp=3)
     assert not torch.equal(other.linear, before)

@@ -54,13 +54,13 @@ def _cube(scene_cls, model_cls, meshes):
     scn.add_mesh("cube", meshes.cube())
     scn.add_model("c", model_cls("cube"))
     scn.get_model("c").set_transforms(1.0, 0.3, (0.0, 0.5, 0.0))
-    return scn.build_packet(tri_pad=16)
+    return scn.build_packet(tri_pad=16, **({"device": "cpu"} if scene_cls is Scene else {}))
 
 
 SCENES = {
     "cube": (lambda: _cube(JScene, JModel, jmg), lambda: _cube(Scene, Model, mg)),
     "demo": (lambda: jdemo.reference_demo_scene(16, 8).build_packet(spheres_as_triangles=True),
-             lambda: demo.reference_demo_scene(16, 8).build_packet(spheres_as_triangles=True)),
+             lambda: demo.reference_demo_scene(16, 8).build_packet(spheres_as_triangles=True, device="cpu")),
 }
 
 
@@ -209,7 +209,7 @@ def test_renders_demo_raster_golden():
     """scripts/make_goldens.py `render_raster`: demo scene (16, 8) at 64x36
     ss 2, within tests/test_goldens.py's bound."""
     torch.set_num_threads(1)
-    pkt = demo.reference_demo_scene(16, 8).build_packet(spheres_as_triangles=True)
+    pkt = demo.reference_demo_scene(16, 8).build_packet(spheres_as_triangles=True, device="cpu")
     img = ras.rasterize(pkt, cam_ops.Camera.create(width=64, height=36),
                         RasterConfig(width=64, height=36, supersample=2))
     _assert_golden_bound(img.numpy(), read_ppm(GOLDEN) / 255.0, "demo_raster")
@@ -221,7 +221,7 @@ def test_rasterize_frames_equals_per_frame_loop():
     torch.set_num_threads(1)
     W, H = 40, 24
     cfg = RasterConfig(width=W, height=H, supersample=2)
-    pkt = demo.reference_demo_scene(8, 4).build_packet(spheres_as_triangles=True)
+    pkt = demo.reference_demo_scene(8, 4).build_packet(spheres_as_triangles=True, device="cpu")
     cam = cam_ops.Camera.create(width=W, height=H)
     rs = np.random.default_rng(4)
     frames = pkt.transforms[None].repeat(3, 1, 1, 1).clone()
@@ -252,7 +252,7 @@ def test_backface_culling_matches_reference(cull):
 def test_empty_scene_is_clear_colour(soft):
     torch.set_num_threads(1)
     cfg = RasterConfig(width=20, height=12, supersample=2)
-    pkt = Scene().build_packet(spheres_as_triangles=True)
+    pkt = Scene().build_packet(spheres_as_triangles=True, device="cpu")
     img = ras.rasterize(pkt, cam_ops.Camera.create(width=20, height=12), cfg, soft=soft)
     clear = torch.tensor(cfg.clear_color, dtype=torch.float32)
     assert torch.equal(img, clear.expand(12, 20, 3))

@@ -35,7 +35,7 @@ def scenes():
     torch.set_num_threads(1)
     jp = jdemo.reference_demo_scene(8, 4).build_packet()
     jc = jcam.Camera.create(width=W, height=H)
-    tp = demo.reference_demo_scene(8, 4).build_packet()
+    tp = demo.reference_demo_scene(8, 4).build_packet(device="cpu")
     tc = cam_ops.Camera.create(width=W, height=H)
     return jp, jc, mk.pack_scene(tp), rk.camera_rows(tc)
 

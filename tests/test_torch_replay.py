@@ -108,7 +108,7 @@ TABLE_SCENES = {"reference_demo_scene": (12, 6), "sphere_light_scene": (),
 def test_build_table_equals_jax(scene):
     args = TABLE_SCENES[scene]
     jp = getattr(jdemo, scene)(*args).build_packet()
-    pkt = getattr(demo, scene)(*args).build_packet()
+    pkt = getattr(demo, scene)(*args).build_packet(device="cpu")
     table, T, sky6 = path_replay.build_table(pkt)
     jt, jT, jsky = jpr._build_table(jp)
     assert T == jT

@@ -29,7 +29,7 @@ CASES = [(name, sat) for name in SCENES for sat in (False, True)]
 
 def _packets(name, spheres_as_triangles):
     jp = SCENES[name](jdemo).build_packet(spheres_as_triangles=spheres_as_triangles)
-    tp = SCENES[name](demo).build_packet(spheres_as_triangles=spheres_as_triangles)
+    tp = SCENES[name](demo).build_packet(spheres_as_triangles=spheres_as_triangles, device="cpu")
     return jp, tp
 
 
@@ -69,7 +69,7 @@ def test_packet_from_numpy_of_reference_equals_port_packet(name):
 def test_scene_walk_flags_and_to():
     scn = demo.reference_demo_scene(8, 4)
     assert scn.modified()
-    pkt = scn.build_packet()
+    pkt = scn.build_packet(device="cpu")
     assert not scn.modified()
     scn.get_model("sph").set_transforms(0.25, 0.0, (0.0, 0.25, 0.0))
     assert scn.modified()  # setters dirty the scene, reads do not

@@ -42,7 +42,7 @@ SIGMA = 0.5
 def _demo(W, H, ss=1, segments=8, rings=4):
     torch.set_num_threads(1)
     jp = jdemo.reference_demo_scene(segments, rings).build_packet(spheres_as_triangles=True)
-    tp = demo.reference_demo_scene(segments, rings).build_packet(spheres_as_triangles=True)
+    tp = demo.reference_demo_scene(segments, rings).build_packet(spheres_as_triangles=True, device="cpu")
     jcfg = JRasterConfig(width=W, height=H, supersample=ss)
     return (jp, jcam.Camera.create(width=W, height=H), jcfg, tp,
             cam_ops.Camera.create(width=W, height=H), interop.config_from_reference(jcfg))

@@ -25,6 +25,7 @@ padded to 49,280 triangle rows (past the wavefront's 49,152).
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import jax
 import jax.numpy as jnp
@@ -45,7 +46,7 @@ from ptre_tpu_torch.models import demo
 from ptre_tpu_torch.models import scene as tscene
 from ptre_tpu_torch.models.scene import PACKET_LEAVES
 from ptre_tpu_torch.ops import camera as cam_ops
-from ptre_tpu_torch.ops import integrator, rng
+from ptre_tpu_torch.ops import integrator, path_replay, rng
 from ptre_tpu_torch.ops.cuda import build
 from ptre_tpu_torch.ops.cuda import fused_grad
 from ptre_tpu_torch.ops.cuda import wavefront as wf
@@ -68,7 +69,7 @@ def _nine(mod, dm, segments=8, rings=4):
                                       (0.1 * i, 0.5, 0.3), 0.4 + 0.1 * i))
     scn.set_model_material("ground", 8)
     scn.set_model_material("wall", 5)
-    return scn.build_packet()
+    return scn.build_packet(**({"device": "cpu"} if mod is tscene else {}))
 
 
 def _packets(kind):
@@ -77,12 +78,12 @@ def _packets(kind):
         return _nine(jscene, jdemo), _nine(tscene, demo)
     if kind == "over_rows":  # 120 triangles (past the dense class) in 49,280 rows
         return (jdemo.config3_scene(False, 12, 6, diffuse=True).build_packet(tri_pad=OVER_ROWS),
-                demo.config3_scene(False, 12, 6, diffuse=True).build_packet(tri_pad=OVER_ROWS))
+                demo.config3_scene(False, 12, 6, diffuse=True).build_packet(tri_pad=OVER_ROWS, device="cpu"))
     if kind == "config4":
         return (jdemo.config4_mixed_scene(12, 6).build_packet(),
-                demo.config4_mixed_scene(12, 6).build_packet())
+                demo.config4_mixed_scene(12, 6).build_packet(device="cpu"))
     return (jdemo.reference_demo_scene(8, 4).build_packet(),
-            demo.reference_demo_scene(8, 4).build_packet())
+            demo.reference_demo_scene(8, 4).build_packet(device="cpu"))
 
 
 def _cams(w=W, h=H):
@@ -138,7 +139,7 @@ def test_staged_trace_matches_jax_with_the_same_key(kind):
 def test_staged_route_matches_fused_route_with_the_same_urand():
     # the same packet, the same uniforms: the same paths through two routes
     torch.set_num_threads(1)
-    pkt = demo.reference_demo_scene(8, 4).build_packet()
+    pkt = demo.reference_demo_scene(8, 4).build_packet(device="cpu")
     cam = cam_ops.Camera.create(width=W, height=H)
     urand = torch.from_numpy(np.random.default_rng(3).random(
         (1, 12, H, W), dtype=np.float32))
@@ -175,7 +176,7 @@ def test_render_step_nine_materials_matches_jax_render_step():
     # ray_chunk: each chunk keyed fold(key, chunk), as JAX's lax.map keys it
     want = np.asarray(jpt.render_step(jp, jc, jpt.AccumState.create(H, W), key, jcfg, spp=1,
                                       ray_chunk=32).linear)
-    got = pt.render_step(pkt, cam, pt.AccumState.create(H, W),
+    got = pt.render_step(pkt, cam, pt.AccumState.create(H, W, device="cpu"),
                          interop.key_from_jax(np.asarray(key)), cfg, spp=1, ray_chunk=32)
     np.testing.assert_allclose(got.linear.numpy(), want, rtol=1e-5, atol=1e-5)
 
@@ -184,13 +185,13 @@ def test_ray_chunk_changes_nothing_without_a_key():
     pkt = _packets("nine")[1]
     cam = cam_ops.Camera.create(width=W, height=H)
     cfg = RenderConfig(width=W, height=H)
-    whole = pt.render_step(pkt, cam, pt.AccumState.create(H, W), 9, cfg, spp=2)
+    whole = pt.render_step(pkt, cam, pt.AccumState.create(H, W, device="cpu"), 9, cfg, spp=2)
     for chunk in (32, 50):  # 50: a ragged last chunk
-        part = pt.render_step(pkt, cam, pt.AccumState.create(H, W), 9, cfg, spp=2,
+        part = pt.render_step(pkt, cam, pt.AccumState.create(H, W, device="cpu"), 9, cfg, spp=2,
                               ray_chunk=chunk)
         assert torch.equal(part.linear, whole.linear)
     # Philox draws: the staged route traces the fused routes' paths
-    forced = pt.render_step(pkt, cam, pt.AccumState.create(H, W), 9,
+    forced = pt.render_step(pkt, cam, pt.AccumState.create(H, W, device="cpu"), 9,
                             dataclasses.replace(cfg, intersect_backend="xla"), spp=2)
     assert torch.equal(forced.linear, whole.linear)
 
@@ -201,7 +202,7 @@ def test_render_step_past_the_wavefront_row_cap_matches_jax():
     jcfg, cfg = JConfig(width=8, height=4), RenderConfig(width=8, height=4)
     key = jrng.key_for(5)
     want = np.asarray(jpt.render_step(jp, jc, jpt.AccumState.create(4, 8), key, jcfg).linear)
-    got = pt.render_step(pkt, cam, pt.AccumState.create(4, 8),
+    got = pt.render_step(pkt, cam, pt.AccumState.create(4, 8, device="cpu"),
                          interop.key_from_jax(np.asarray(key)), cfg)
     np.testing.assert_allclose(got.linear.numpy(), want, rtol=1e-5, atol=1e-5)
     assert float(got.linear.sum()) > 0
@@ -241,8 +242,8 @@ def test_route_fields_are_validated_and_read():
             RenderConfig(**{field: "bogus"})
     for b in ("auto", "xla", "pallas", "fused"):
         assert RenderConfig(intersect_backend=b).intersect_backend == b
-    dense = demo.reference_demo_scene(8, 4).build_packet()
-    tri = demo.config4_mixed_scene(12, 6).build_packet()
+    dense = demo.reference_demo_scene(8, 4).build_packet(device="cpu")
+    tri = demo.config4_mixed_scene(12, 6).build_packet(device="cpu")
     nine = _packets("nine")[1]
     table = {"auto": ("dense", "wavefront", "staged"), "fused": ("dense", "wavefront", "staged"),
              "pallas": ("staged",) * 3, "xla": ("staged",) * 3}
@@ -253,16 +254,21 @@ def test_route_fields_are_validated_and_read():
                         "staged": ("staged",) * 3}.items():
         cfg = RenderConfig(grad_sweep=sweep)
         assert tuple(integrator.grad_route(cfg, p) for p in (dense, tri, nine)) == want, sweep
+    # the replay route runs: dense-class packets only, the rest staged
     cfg = RenderConfig(width=W, height=H, grad_sweep="replay")
     cam = cam_ops.Camera.create(width=W, height=H)
-    with pytest.raises(NotImplementedError, match="ROADMAP A15"):
-        integrator.trace(torch.zeros((R, 3)), torch.ones((R, 3)), dense, cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP A15"):
-        train.mse_step(sh.differentiable_params(dense, cam), dense, cam, torch.zeros((R, 3)),
-                       cfg, seed=0)
+    assert tuple(integrator.grad_route(cfg, p) for p in (dense, tri, nine)) == (
+        "replay", "staged", "staged")
+    o, d = torch.zeros((R, 3)), torch.nn.functional.normalize(torch.ones((R, 3)), dim=1)
+    color = integrator.trace(o, d, dense, cfg, seed=3)
+    assert torch.equal(color, path_replay.trace_fused_grad(o, d, dense, cfg, seed=3))
+    loss, grads = train.mse_step(sh.differentiable_params(dense, cam), dense, cam,
+                                 torch.zeros((R, 3)), cfg, seed=0)
+    assert math.isfinite(float(loss)) and set(grads) == set(sh.PARAM_KEYS)
+    assert all(bool(torch.isfinite(g).all()) for g in grads.values())
     # a threefry key on a fused route: its kernels draw Philox
     with pytest.raises(ConfigError, match="staged route only"):
-        pt.render_step(dense, cam, pt.AccumState.create(H, W), rng.key_for(1),
+        pt.render_step(dense, cam, pt.AccumState.create(H, W, device="cpu"), rng.key_for(1),
                        RenderConfig(width=W, height=H))
     with pytest.raises(ConfigError, match="staged route only"):
         train.mse_step(sh.differentiable_params(dense, cam), dense, cam, torch.zeros((R, 3)),

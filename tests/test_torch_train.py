@@ -72,7 +72,7 @@ def setup():
     key = jrng.key_for(3)
     target = np.random.default_rng(0).uniform(0.0, 0.5, (R, 3)).astype(np.float32)
     params = {k: np.asarray(v) for k, v in jsh.differentiable_params(jp, jc).items()}
-    pkt = demo.reference_demo_scene(8, 4).build_packet()
+    pkt = demo.reference_demo_scene(8, 4).build_packet(device="cpu")
     cam = cam_ops.Camera.create(width=W, height=H)
     return dict(jp=jp, jc=jc, cfg=cfg, key=key, target=target, params=params,
                 pkt=pkt, cam=cam)

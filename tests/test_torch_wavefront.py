@@ -183,7 +183,7 @@ def _ball(scene_cls, model_cls, diffuse=True):
         scn.get_model("b").set_material(0)
     scn.add_model("g", model_cls("ground"))
     scn.get_model("g").set_transforms(10.0, 0.0, (0.0, -10.0, 0.0))
-    return scn.build_packet(tri_pad=64)
+    return scn.build_packet(tri_pad=64, **({"device": "cpu"} if scene_cls is Scene else {}))
 
 
 def _rays(W, H, key):
@@ -383,7 +383,7 @@ def test_trace_bit_identical_across_modes(mode):
     torch.set_num_threads(1)
     W, H = 32, 16
     cfg = RenderConfig(width=W, height=H, max_depth=5)
-    tp = demo.config4_mixed_scene(12, 6).build_packet()
+    tp = demo.config4_mixed_scene(12, 6).build_packet(device="cpu")
     assert wf.supports(tp) and not mk.dense_supported(tp)
     ref = _mode_image(tp, W, H, cfg, lanes=64)
     got = _mode_image(tp, W, H, cfg, **{"lanes": 64, **MODES[mode]})
@@ -398,7 +398,7 @@ def test_trace_record_invariant_across_modes(mode):
     torch.set_num_threads(1)
     W, H = 32, 16
     cfg = RenderConfig(width=W, height=H, max_depth=4)
-    tp = demo.config4_mixed_scene(12, 6).build_packet()
+    tp = demo.config4_mixed_scene(12, 6).build_packet(device="cpu")
     ref = _mode_image(tp, W, H, cfg, lanes=64)
     color, sel, perm = _mode_image(tp, W, H, cfg, **{"lanes": 64, **MODES[mode]}, record=True)
     base = _mode_image(tp, W, H, cfg, lanes=64, record=True)
@@ -426,7 +426,7 @@ def test_empty_and_sphere_only_scenes():
     sphere_only.add_model("m", Model("s"))
     sphere_only.get_model("m").set_transforms(1.0, 0.0, (0.0, 0.5, 4.0))
     for name, scn, atol in (("empty", Scene(), 0.0), ("sphere_only", sphere_only, 3e-5)):
-        pkt = scn.build_packet()
+        pkt = scn.build_packet(device="cpu")
         got = wf.trace(o, d, wf.prepare_scene(pkt, screen_cam=cam), k, cfg.max_depth,
                        seed=4, sample=2, tile_hint=(H, W))
         want, _ = mk.trace_record_reference(o, d, mk.pack_scene(pkt), k, cfg.max_depth,
@@ -438,7 +438,7 @@ def test_empty_and_sphere_only_scenes():
 
 def test_supports_gates():
     tp = _ball(Scene, Model)
-    assert wf.supports(tp) and wf.supports(demo.config3_scene(128, 64).build_packet())
+    assert wf.supports(tp) and wf.supports(demo.config3_scene(128, 64).build_packet(device="cpu"))
     big = dataclasses.replace(tp, tri_valid=torch.zeros(wf.MAX_WAVE_TRIS + 64, dtype=torch.bool))
     assert not wf.supports(big)
     assert not wf.supports(dataclasses.replace(tp, num_materials=mk.MAX_MATS + 1))
