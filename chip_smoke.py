@@ -11,7 +11,9 @@ source, all at once), then:
        ``to_display`` at 1920x1080 and 1280x720, spp 4 — checking that every
        sample went through the kernel;
   6-7. holds the recording forward and the fused backward kernels of the
-       gradient path against their plain versions at 1920x1080;
+       gradient path against their plain versions at 1920x1080, the
+       backward (built without FMA contraction) timed in turns against its
+       unit built with it;
   8.   drives the training main path — ``differentiable_params`` →
        ``mse_step`` at 1920x1080, spp 1 (1 + 8 steps) and one spp-64 step —
        checking that every sample went through both kernels, and that
@@ -19,7 +21,9 @@ source, all at once), then:
   9-10. holds the wavefront's mask and bounce kernels against their plain
        versions on the bounce-1 state of BASELINE config 3 (16,128
        triangles) at 512x512 and config 4 (16,140 triangles) at 1920x1080,
-       then the whole kernel ``wavefront.trace`` against the plain one;
+       with the (ray, leaf) pairs the shortlists list and those whose box
+       the ray itself passes, then the whole kernel ``wavefront.trace``
+       against the plain one;
   11.  drives the triangle-scale main path — ``render_step`` on config 3 at
        512x512 and config 4 at 1920x1080, spp 4 (1 + 8 steps) — checking
        that every live bounce went through the kernels, and prints where a
@@ -42,7 +46,8 @@ source, all at once), then:
        (bit-equal colour), its plain version and the megakernel's
        selections, the recording bounce kernel beside the non-recording
        one; the backward kernel's global-table instantiation against its
-       plain version on config 4's recorded selections, and two runs of it
+       plain version on config 4's recorded selections (timed in turns
+       against its unit built with FMA contraction), and two runs of it
        against each other;
   18.  drives the triangle-scale training path — ``differentiable_params``
        → ``mse_step`` on config 4 at 1920x1080 and config 3 at 512x512, spp
@@ -52,21 +57,24 @@ source, all at once), then:
        backward kernels, that the gradients are finite and d(transforms)
        non-zero, and that ``two_pass_mse_step`` equals ``mse_step`` on a
        triangle packet; a torch.profiler window splits a step's time;
-  19.  holds the staged route's sweep kernel against the plain sweep, exactly,
-       on the demo scene, config 4 and a 65,024-row uv-sphere mesh at
-       1920x1080, primary and bounce-1 rays, and times it with and without
-       FMA contraction;
+  19.  holds the staged route's culled sweep kernel against the brute-force
+       plain sweep, exactly, on the demo scene, config 4 and a 65,024-row
+       uv-sphere mesh at 1920x1080: primary and bounce-1 rays, and on the
+       mesh every bounce of one staged sample (dead rays masked), with the
+       (ray, leaf) pairs the rays pass and the warps sweep; times it in turns
+       against its unit built with FMA contraction;
   20.  drives the staged main path — ``render_step`` and ``mse_step`` (spp
        1, 1 + 2 steps each) on that mesh, past every fused route's cap —
        checking that every bounce went through the sweep kernel, profiles a
        staged step, holds the staged route's gradients against the fused
-       route's on the demo scene, and times the staged step with its
-       winners' rows gathered by ``embedding`` and by ``table[idx]``;
+       route's on the demo scene, with the staged gathers' float64 sums and,
+       beside them, ``embedding``'s float32 ones;
   21.  the replay route (``grad_sweep="replay"``) on the demo scene at
        1920x1080: holds the replay forward and backward kernels against
        their plain versions on the recording kernel's selections (the
-       backward by column group, against float64 too), the route's loss and
-       gradients against the fused route's on the same seed, and drives
+       backward by column group, against float64 too, the fused backward
+       held there beside it), the route's loss and gradients against the
+       fused route's on the same seed, and drives
        ``mse_step`` (spp 1, 1 + 8 steps) and ``two_pass_mse_step`` (spp 64)
        on it — checking one record, one replay forward and one replay
        backward launch a sample — with a device profile of a step.
@@ -113,8 +121,9 @@ DISPLAY_STEPS, DISPLAY_FRAC, DISPLAY_MAX = 2, 0.995, 8
 FLIP_FRAC = 1e-5
 # Gradient kernels vs plain versions (phases 6-7). The record kernel's color
 # is unclamped (an emitter gives 10): TIGHT is relative above 1. The
-# backward kernel recomputes the chain with FMAs, and float32 is too coarse
-# for some rays: a ray whose path flips (a near/far root or the
+# backward kernel recomputes the chain (built without FMA contraction, so in
+# the plain version's roundings but for its shared-memory sums), and float32
+# is too coarse for some rays: a ray whose path flips (a near/far root or the
 # degenerate-pdf test decided the other way) differs wholesale, and the
 # ground sphere (r = 10) computes |oc|^2 - r^2 ~ 2e-3 for rays leaving its
 # surface with an ulp of 7.6e-6, so its center and radius gradients carry
@@ -321,6 +330,10 @@ def main():
     t0 = time.perf_counter()
     build.load_library()
     build_s = time.perf_counter() - t0
+    # the fused backward built WITH FMA contraction, the variant not shipped
+    # (phases 7, 17 and 21 read it beside the shipped one); compiles while
+    # phases 1-6 run
+    fused_fma = start_unit_build("fused_grad_kernel.cu", "fma")
     if build.last_build is not None:
         print(f"kernel build {build.last_build[0]:.2f} s (nvcc, sm_90a, "
               f"{len(build.KERNEL_UNITS)} units); " + "; ".join(
@@ -487,7 +500,10 @@ def main():
         "ms": k_ms,
         "plain_ms": p_ms,
     }
-    grad_kernels, (sweeps, hits, per_sweep) = gradient_phases(dev, card, rs)
+    from ptre_tpu_torch.ops.cuda import fused_grad
+
+    fma_bwd = fma_fused_bwd(finish_unit_build(fused_fma), fused_grad)
+    grad_kernels, (sweeps, hits, per_sweep) = gradient_phases(dev, card, rs, fma_bwd)
     # one sample: the accumulator read and written; every live ray-bounce
     # sweeps the scene, every hit shades (counted on the recording kernel's
     # 1080p sample of the same scene: the render kernel's paths are alike)
@@ -495,9 +511,10 @@ def main():
     kernels += grad_kernels
     kernels += wavefront_phases(dev, card, rs)
     kernels += raster_phases(dev, card, rs)
-    kernels += triangle_training_phases(dev, card, rs, dense_bwd_ms=grad_kernels[1]["ms"])
+    kernels += triangle_training_phases(dev, card, rs, fma_bwd,
+                                        dense_bwd_ms=grad_kernels[1]["ms"])
     kernels.append(staged_phases(dev, card, rs, build.last_build and build.last_build[1]))
-    kernels += replay_phases(dev, card, rs)
+    kernels += replay_phases(dev, card, rs, fma_bwd)
 
     # ---- result --------------------------------------------------------------------
     print(card, flush=True)
@@ -517,9 +534,10 @@ def hold_backward(fg, mk, what, table, sky6, o, d, sel, dcol, k, B, T, seed, ur,
     absolute error outside the flipped rays. ``groups`` names column slices
     of the table. ``kernel``, ``plain``: functions of `fused_bwd`'s
     arguments that return (d table, d sky6, d o, d d); None: `fused_bwd`
-    and `fused_bwd_reference`. ``read``: {label: such a function} whose
-    geometry sums are printed against float64 beside the kernel's, on the
-    same cotangent, and not held."""
+    and `fused_bwd_reference`. ``read``: {label: (such a function, held)}
+    whose geometry sums are printed against float64 beside the kernel's, on
+    the same cotangent; those ``held`` are also held there as the kernel's,
+    at GEOM_FACTOR times the plain float32's distance."""
     import torch
 
     f64 = torch.float64
@@ -566,8 +584,8 @@ def hold_backward(fg, mk, what, table, sky6, o, d, sel, dcol, k, B, T, seed, ur,
     # the summed gradients, without the flipped rays' cotangents
     cot = torch.where((flip_k | flip_p)[:, None], 0.0, dcol)
     got, want, exact = three(cot)
-    others = {label: fn(table, sky6, o, d, sel, cot, k, B, T, seed, 0, ur)[0].to(f64)
-              for label, fn in (read or {}).items()}
+    others = {label: (fn(table, sky6, o, d, sel, cot, k, B, T, seed, 0, ur)[0].to(f64), held)
+              for label, (fn, held) in (read or {}).items()}
     named = [(n, sl) for n, sl in groups.items()] + [("sky", None)]
     for name, sl in named:
         a, b, e = ((x[1] if sl is None else x[0][:, sl]).to(f64)
@@ -579,15 +597,18 @@ def hold_backward(fg, mk, what, table, sky6, o, d, sel, dcol, k, B, T, seed, ur,
         rel_k64 = float((a - e).norm() / e.norm())
         rel_p64 = float((b - e).norm() / e.norm())
         bwd_err = max(bwd_err, float((a - b).abs().max()))
-        read_line = "".join(
-            f", {label}-float64 {float((x[:, sl] - e).norm() / e.norm()):.3e}"
-            for label, x in others.items() if name in BWD_GEOMETRY)
+        rel_read = {label: float((x[:, sl] - e).norm() / e.norm())
+                    for label, (x, _) in others.items() if name in BWD_GEOMETRY}
+        read_line = "".join(f", {label}-float64 {v:.3e}" for label, v in rel_read.items())
         print(f"  {what} d({'sky' if sl is None else 'table ' + name}): relative L2 "
               f"kernel-plain {rel_p:.3e}, kernel-float64 {rel_k64:.3e}, "
               f"plain-float64 {rel_p64:.3e}{read_line}", flush=True)
         if name in BWD_GEOMETRY:
             check(rel_k64 <= max(SUM_REL, GEOM_FACTOR * rel_p64),
                   f"{what}: d(table) {name} off float64 by {rel_k64}")
+            for label, v in rel_read.items():
+                check(not others[label][1] or v <= max(SUM_REL, GEOM_FACTOR * rel_p64),
+                      f"{what}: {label} d(table) {name} off float64 by {v}")
         else:
             check(rel_p <= SUM_REL, f"{what}: d({name}) relative L2 {rel_p}")
     check(bool(torch.isfinite(got[0]).all() and torch.isfinite(got[1]).all()),
@@ -595,10 +616,12 @@ def hold_backward(fg, mk, what, table, sky6, o, d, sel, dcol, k, B, T, seed, ur,
     return bwd_err
 
 
-def gradient_phases(dev, card, rs):
+def gradient_phases(dev, card, rs, fma_bwd):
     """Phases 6-8: the recording and fused backward kernels against their
     plain versions, then the training step (`mse_step`) at 1920x1080.
-    Returns the two kernels' entries of the ``kernels`` line."""
+    ``fma_bwd``: `fused_bwd` on the unit built with FMA contraction, read
+    and timed beside the shipped one. Returns the two kernels' entries of
+    the ``kernels`` line."""
     import numpy as np
     import torch
 
@@ -660,7 +683,8 @@ def gradient_phases(dev, card, rs):
               "radius": slice(21, 22), "albedo": slice(23, 26), "param": slice(26, 27)}
     for mode, (sel, ur) in recorded.items():
         bwd_err = max(bwd_err, hold_backward(fg, mk, f"bwd {mode}", table, sky6, o, d, sel,
-                                             dcol, k, B, T, GRAD_SEED, ur, groups))
+                                             dcol, k, B, T, GRAD_SEED, ur, groups,
+                                             read={"with FMA": (fma_bwd, False)}))
 
     # kernel times at the main shape (CUDA events) and the plain versions'
     sel_p, _ = recorded["philox"]
@@ -675,14 +699,17 @@ def gradient_phases(dev, card, rs):
     print(f"  philox sample: {sweeps} ray-bounce sweeps ({sweeps / R:.3f} a ray), {hits} hits",
           flush=True)
     rec_ms = cuda_events(lambda: mk.trace_fused_sel(o, d, scene, k, B, GRAD_SEED, 0), 20)
-    bwd_ms = cuda_events(lambda: fg.fused_bwd(table, sky6, o, d, sel_p, dcol, k, B, T,
-                                              GRAD_SEED, 0), 10)
+    bwd = in_turns({label: (lambda fn=fn: fn(table, sky6, o, d, sel_p, dcol, k, B, T,
+                                             GRAD_SEED, 0))
+                    for label, fn in (("shipped", fg.fused_bwd), ("with FMA", fma_bwd))}, 10)
+    bwd_ms = bwd["shipped"]
     rec_plain_ms = cuda_events(lambda: mk.trace_record_reference(o, d, scene, k, B,
                                                                  GRAD_SEED, 0), 2)
     bwd_plain_ms = cuda_events(lambda: fg.fused_bwd_reference(
         table, sky6, o, d, sel_p, dcol, k, B, T, GRAD_SEED, 0), 2)
     print(f"  record kernel {rec_ms:.4f} ms, plain {rec_plain_ms:.3f} ms; backward "
-          f"kernel {bwd_ms:.4f} ms, plain {bwd_plain_ms:.3f} ms (CUDA events, "
+          f"kernel {bwd_ms:.4f} ms (built without FMA contraction; with it "
+          f"{bwd['with FMA']:.4f} ms, in turns), plain {bwd_plain_ms:.3f} ms (CUDA events, "
           f"{W}x{H}) [{card}]", flush=True)
     del recorded, dcol, urand_ext
 
@@ -822,7 +849,11 @@ def gradient_phases(dev, card, rs):
 
 
 # Wavefront kernels vs plain versions (phases 9-10). The slab test has no
-# a*b+c: verdicts equal. The bounce kernel contracts FMAs: next-state values
+# a*b+c: verdicts equal. The bounce kernel culls each ray by its own box
+# test inside the block's shortlist; its plain version does not (every live
+# ray of a block sweeps every leaf the block lists, as the TPU kernel does),
+# so a cull that dropped a winning row would show as a flipped ray. The
+# bounce kernel contracts FMAs: next-state values
 # TIGHT_FRAC within TIGHT, a ray whose values differ beyond WAVE_FLIP (another
 # primitive or path) on at most FLIP_FRAC of the rays, dead rays bit for bit.
 WAVE_FLIP = 1e-2
@@ -895,10 +926,11 @@ def wavefront_phases(dev, card, rs):
         short, cnt = wf.shortlists_from_mask(got)
         urand = torch.from_numpy(rs.random((2 + 2 * B, R), dtype=np.float32)).to(dev)
         dead = state1[9] < 0.5
+        pairs = {}
         for mode, ur in (("philox", None), ("external uniforms", urand)):
             bk = wf.wave_bounce(state1, ids1, short, cnt, scene, k, 1, WAVE_SEED, 1, ur)
             bp = wf.wave_bounce_reference(state1, ids1, short, cnt, scene, k, 1, WAVE_SEED,
-                                          1, ur)
+                                          1, ur, stats=pairs)
             torch.cuda.synchronize()
             err = (bk - bp).abs()
             tight = float((err <= TIGHT).float().mean())
@@ -921,19 +953,23 @@ def wavefront_phases(dev, card, rs):
         print(f"  mask kernel {mask_ms:.4f} ms, plain {mask_plain_ms:.3f} ms; bounce kernel "
               f"{bounce_ms:.4f} ms, plain {bounce_plain_ms:.3f} ms (CUDA events, bounce 1, "
               f"{name} {W}x{H}) [{card}]", flush=True)
-        # this state's work: live rays x leaves for the mask; per block its
-        # live rays x its listed leaves x 64 rows for the bounce, then the
-        # spheres and the shading per live ray
+        # this state's work: live rays x leaves for the mask; for the bounce
+        # a slab test per (live ray, listed leaf) pair and 64 row tests per
+        # pair whose box the ray itself passes, then the spheres and the
+        # shading per live ray
         live = state1[9] > 0.5
         n_live = int(live.sum())
-        lb = live.view(-1, wf.LANES).sum(dim=1)
-        pairs = int((lb * cnt).sum()) * wf.LEAF
         r_pad = state1.shape[1]
+        print(f"  bounce 1's (live ray, leaf) pairs: {pairs['listed_pairs']} listed by the "
+              f"blocks' shortlists, {pairs['own_pairs']} of them "
+              f"({100 * pairs['own_pairs'] / max(pairs['listed_pairs'], 1):.2f} %) whose box "
+              f"the ray itself passes, {n_live * scene.n_leaf} without culling", flush=True)
         work = {
             "mask": (r_pad * 40 + got.numel() + scene.boxes.numel() * 4,
                      n_live * scene.n_leaf * OPS_SLAB),
             "bounce": (r_pad * (80 + 4) + short.numel() * 4 + cnt.numel() * 4,
-                       pairs * OPS_TRI_TEST
+                       pairs["listed_pairs"] * OPS_SLAB
+                       + pairs["own_pairs"] * wf.LEAF * OPS_TRI_TEST
                        + n_live * (int(pkt.num_spheres) * OPS_SPH_TEST + OPS_SHADE)),
         }
         times[name] = (mask_ms, mask_plain_ms, bounce_ms, bounce_plain_ms, work)
@@ -1069,7 +1105,7 @@ SPP_TWO_PASS = 64  # bench.py --mixed-scene's 64-spp two-pass step
 OPS_MISS = 10  # a miss: the sky gradient
 
 
-def triangle_training_phases(dev, card, rs, dense_bwd_ms):
+def triangle_training_phases(dev, card, rs, fma_bwd, dense_bwd_ms):
     """Phases 15-18: the culled megakernel, the wavefront's record mode and
     the global-table backward against their plain versions on BASELINE
     configs 4 and 3, then the triangle-scale training path. Returns the
@@ -1223,8 +1259,9 @@ def triangle_training_phases(dev, card, rs, dense_bwd_ms):
         sel_r = sel_k.clone()
         got = wf.wave_bounce(state1, ids1, short, cnt, scene, k, 1, TRAIN_SEED, 0, sel=sel_k)
         same = wf.wave_bounce(state1, ids1, short, cnt, scene, k, 1, TRAIN_SEED, 0)
+        pairs = {}
         want = wf.wave_bounce_reference(state1, ids1, short, cnt, scene, k, 1, TRAIN_SEED, 0,
-                                        sel=sel_r)
+                                        sel=sel_r, stats=pairs)
         torch.cuda.synchronize()
         check(torch.equal(got, same), "the recording bounce kernel's state differs")
         err = (got - want).abs()
@@ -1253,10 +1290,11 @@ def triangle_training_phases(dev, card, rs, dense_bwd_ms):
               f"[{card}]", flush=True)
         live = state1[9] > 0.5
         n_live = int(live.sum())
-        pairs = int((live.view(-1, wf.LANES).sum(dim=1) * cnt).sum()) * wf.LEAF
         r_pad = state1.shape[1]
+        print(f"  bounce 1's (live ray, leaf) pairs: {pairs['listed_pairs']} listed, "
+              f"{pairs['own_pairs']} whose box the ray itself passes", flush=True)
         rec_work = (r_pad * (80 + 4) + short.numel() * 4 + cnt.numel() * 4 + n_live * 4,
-                    pairs * OPS_TRI_TEST
+                    pairs["listed_pairs"] * OPS_SLAB + pairs["own_pairs"] * wf.LEAF * OPS_TRI_TEST
                     + n_live * (int(pkt.num_spheres) * OPS_SPH_TEST + OPS_SHADE))
         rec_times = (b_rec_ms, b_plain_ms)
         del state0, state1, got, same, want, sel_k, sel_r, err
@@ -1276,7 +1314,7 @@ def triangle_training_phases(dev, card, rs, dense_bwd_ms):
               "radius": slice(21, 22), "albedo": slice(23, 26), "param": slice(26, 27)}
     fg.launches = 0
     gbwd_err = hold_backward(fg, mk, "global bwd philox", table, sky6, o, d, sel, dcol, k, B, T,
-                             TRAIN_SEED, None, groups)
+                             TRAIN_SEED, None, groups, read={"with FMA": (fma_bwd, False)})
     check(fg.launches == 2, f"the backward kernel was launched {fg.launches} times")
     run_a = fg.fused_bwd(table, sky6, o, d, sel, dcol, k, B, T, TRAIN_SEED, 0)
     run_b = fg.fused_bwd(table, sky6, o, d, sel, dcol, k, B, T, TRAIN_SEED, 0)
@@ -1292,11 +1330,15 @@ def triangle_training_phases(dev, card, rs, dense_bwd_ms):
           f"apart (atomics in no fixed order); d(o), d(d) bit-equal; {hits} hits on "
           f"{rows_hit} of {table.shape[0]} rows, {100 * sph_share:.1f} % of them on the "
           f"{scene.n_sph} sphere rows", flush=True)
-    g_ms = cuda_events(lambda: fg.fused_bwd(table, sky6, o, d, sel, dcol, k, B, T,
-                                            TRAIN_SEED, 0), 10)
+    g_turns = in_turns({label: (lambda fn=fn: fn(table, sky6, o, d, sel, dcol, k, B, T,
+                                                 TRAIN_SEED, 0))
+                        for label, fn in (("shipped", fg.fused_bwd), ("with FMA", fma_bwd))},
+                       10)
+    g_ms = g_turns["shipped"]
     g_plain_ms = cuda_events(lambda: fg.fused_bwd_reference(table, sky6, o, d, sel, dcol, k, B,
                                                             T, TRAIN_SEED, 0), 1)
-    print(f"  global-table backward {g_ms:.4f} ms, plain {g_plain_ms:.1f} ms; the staged "
+    print(f"  global-table backward {g_ms:.4f} ms (with FMA contraction "
+          f"{g_turns['with FMA']:.4f} ms, in turns), plain {g_plain_ms:.1f} ms; the staged "
           f"(dense) instantiation on the demo scene in this run (phase 7) {dense_bwd_ms:.4f} "
           f"ms (CUDA events, {W}x{H}) [{card}]", flush=True)
     # rays, selections and d(colour) in, d(o), d(d) out, the table read and
@@ -1489,101 +1531,136 @@ def triangle_training_phases(dev, card, rs, dense_bwd_ms):
 
 # The staged route (phases 19-20). The sweep kernel is built without FMA
 # contraction (build.UNIT_FLAGS) and its selections are integers: they must
-# EQUAL the plain sweep's on every ray compared. The plain sweep is O(R * T)
-# in memory, so it runs over chunks of at most PLAIN_PAIRS (ray, row) pairs
-# (512 MB a float32 temporary); on config 4 and the 65,024-row mesh it is
-# compared on SWEEP_SUBSET rays (every ray's selection is independent of the
-# others), on all rays of the main path's primary set, which also times it.
+# EQUAL the plain sweep's on every ray compared. The plain sweep is the brute
+# force, O(R * T) in memory, so it runs over chunks of at most PLAIN_PAIRS
+# (ray, row) pairs (512 MB a float32 temporary); on config 4 and the
+# 65,024-row mesh it is compared on SWEEP_SUBSET of the live rays (every
+# ray's selection is independent of the others), on all rays of the main
+# path's primary set, which also times it. The kernel culls per ray over
+# boxes, so its bound counts what these rays need (OPS_SLAB a box test the
+# walk must make: every supertile, the leaves of the supertiles the ray
+# passes; 64 row tests a leaf the ray passes; the spheres), from the
+# kernel's own counters; the brute force's count is printed beside it.
 # Staged against fused gradients (demo scene, 1920x1080, spp 1, the same
 # Philox draws): both are float32 evaluations of the same estimator in other
-# operation orders, and the fused kernels contract FMAs (ROADMAP C2: 8-63
-# rays of 2,073,600 flip a path; geometry gradients of a float32 evaluation
-# sit 8e-4 to 9.5e-4 relative L2 from float64). Each parameter's gradient is
-# a float32 sum of ~2e6 per-ray terms of both signs: two summation orders of
-# the SAME staged gradient (index_put vs embedding backward) differed by up
-# to 3.1e-3 relative L2 (d(mat_param), NVIDIA H100 80GB HBM3, 700.00 W).
-# Hence every gradient group within STAGED_REL relative L2.
-OPS_SWEEP_TRI = 46    # sweep.cuh test_triangle as written
+# operation orders (geometry gradients of a float32 evaluation sit 8e-4 to
+# 9.5e-4 relative L2 from float64). The staged gathers sum d(table) in
+# float64, the fused backward by float32 atomics; with embedding's float32
+# sums the material gradients sat 2.6e-4 to 2.8e-4 apart, with float64 sums
+# below 1e-6, the geometry and camera gradients 2.4e-4 to 3.7e-4 (NVIDIA
+# H100 80GB HBM3, 700.00 W). Hence every gradient group within STAGED_REL
+# relative L2, about five times the largest reading.
+OPS_SWEEP_TRI = 46    # wave.cuh row_accepts as written
 OPS_SWEEP_SPH = 20    # sweep.cuh test_sphere as written
 PLAIN_PAIRS = 2 ** 27
 SWEEP_SUBSET = 262144
 STAGED_SCENE = ("config3_scene", dict(flat=False, segments=256, rings=128, diffuse=True))
 STAGED_STEPS = 2
-STAGED_REL = 1e-2
+STAGED_REL = 2e-3
 
 
-def start_fma_build(unit):
-    """Start nvcc on one unit WITH FMA contraction (the shipped build has
-    -fmad=false), into a library of its own: (process, library path)."""
+def start_unit_build(unit, tag, flags=()):
+    """Start nvcc on one unit with NVCC_FLAGS and ``flags`` in place of the
+    unit's UNIT_FLAGS (so with FMA contraction unless ``flags`` say
+    otherwise), into a library of its own: (process, library path). A
+    variant that is not shipped, built while other phases run."""
     from ptre_tpu_torch.ops.cuda import build
 
-    fma_dir = os.path.join(build.BUILD_DIR, f"fma.{os.getpid()}")
-    os.makedirs(fma_dir, exist_ok=True)
-    path = os.path.join(fma_dir, f"lib{unit.replace('.cu', '')}_fma.so")
+    out_dir = os.path.join(build.BUILD_DIR, f"{tag}.{os.getpid()}")
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, f"lib{unit.replace('.cu', '')}_{tag}.so")
     proc = subprocess.Popen(
-        [build.find_nvcc(), *build.NVCC_FLAGS, "-shared", "-I", build.CSRC_DIR, "-o", path,
-         os.path.join(build.CSRC_DIR, unit)],
+        [build.find_nvcc(), *build.NVCC_FLAGS, *flags, "-shared", "-I", build.CSRC_DIR, "-o",
+         path, os.path.join(build.CSRC_DIR, unit)],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     return proc, path
 
 
-def finish_fma_build(fma_build):
-    """Wait for `start_fma_build`'s nvcc and load its library."""
+def finish_unit_build(unit_build):
+    """Wait for `start_unit_build`'s nvcc and load its library."""
     import ctypes
 
-    proc, path = fma_build
+    proc, path = unit_build
     out, err = proc.communicate()
-    check(proc.returncode == 0, f"nvcc (FMA build of {path}) failed:\n{out}\n{err}")
+    check(proc.returncode == 0, f"nvcc (build of {path}) failed:\n{out}\n{err}")
     return ctypes.CDLL(path)
 
 
-def fma_compare(fma_build, o, d, tables, k, dev):
-    """(ms with FMA, ms without, rays whose selection differs): the FMA
-    build and the shipped one on the same rays, timed in turns."""
+def fma_fused_bwd(lib, fg):
+    """`fused_bwd` launching the fused backward unit built WITH FMA
+    contraction (`start_unit_build`) from ``lib``, both instantiations; it
+    counts nothing."""
+    import ctypes
+
+    ptr = ctypes.c_void_p
+    lib.ptre_fused_bwd_blocks.restype = ctypes.c_int
+    lib.ptre_fused_bwd_blocks.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.ptre_fused_bwd.restype = ctypes.c_int
+    lib.ptre_fused_bwd.argtypes = [ptr] * 12 + [ctypes.c_int, ptr]
+    lib.ptre_fused_bwd_global.restype = ctypes.c_int
+    lib.ptre_fused_bwd_global.argtypes = [ptr] * 13 + [ctypes.c_int, ctypes.c_int, ptr]
+
+    def fn(*args):
+        load, count = fg.build.load_library, fg.launches
+        fg.build.load_library = lambda: lib
+        try:
+            return fg.fused_bwd(*args)
+        finally:
+            fg.build.load_library, fg.launches = load, count
+
+    return fn
+
+
+def in_turns(fns, reps):
+    """{label: ms per call} of each function of ``fns`` ({label: function})
+    by CUDA events, timed in turns a, b, b, a: each label's mean of two."""
+    order = list(fns) + list(reversed(fns))
+    times = {}
+    for label in order:
+        times.setdefault(label, []).append(cuda_events(fns[label], reps))
+    return {label: sum(v) / len(v) for label, v in times.items()}
+
+
+def variant_sweep(lib, sk, k):
+    """The sweep of a separately built sweep unit (`start_unit_build`), as a
+    function of (o, d, scene, active); it counts nothing."""
     import ctypes
 
     import torch
 
-    from ptre_tpu_torch.ops.cuda import sweep_kernel as sk
-
-    lib = finish_fma_build(fma_build)
     lib.ptre_sweep.restype = ctypes.c_int
-    lib.ptre_sweep.argtypes = [ctypes.c_void_p] * 7
-    sel = torch.empty((4, o.shape[0]), dtype=torch.int32, device=dev)
-    par = sk.SweepParams(t_min=k.t_min, t_max=k.t_max, det_eps=k.det_eps, n_rays=o.shape[0],
-                         n_tri=tables.tris.shape[0], n_sph=tables.sphs.shape[0])
+    lib.ptre_sweep.argtypes = [ctypes.c_void_p] * 11
 
-    def fma_sweep():
-        rc = lib.ptre_sweep(ctypes.addressof(par), o.data_ptr(), d.data_ptr(),
-                            tables.tris.data_ptr(), tables.sphs.data_ptr(), sel.data_ptr(),
-                            torch.cuda.current_stream(dev).cuda_stream)
-        check(rc == 0, f"FMA sweep launch failed ({rc})")
+    def fn(o, d, scene, active=None):
+        out = torch.empty((4, o.shape[0]), dtype=torch.int32, device=o.device)
+        p = sk.sweep_params(scene, o.shape[0], k.t_min, k.t_max, k.det_eps)
+        rc = lib.ptre_sweep(ctypes.addressof(p), o.data_ptr(), d.data_ptr(),
+                            None if active is None else active.data_ptr(),
+                            scene.rows.data_ptr(), scene.cull_boxes.data_ptr(),
+                            scene.super_boxes.data_ptr(), scene.sphs.data_ptr(),
+                            out.data_ptr(), None, torch.cuda.current_stream(o.device).cuda_stream)
+        check(rc == 0, f"variant sweep launch failed ({rc})")
+        return out[0], out[1].bool(), out[2], out[3].bool()
 
-    def exact_sweep():
-        return sk.sweep_packed(o, d, tables, k.t_min, k.t_max, k.det_eps)
-
-    exact = exact_sweep()
-    fma_ms = cuda_events(fma_sweep, 3)
-    exact_ms = cuda_events(exact_sweep, 3)
-    flips = int(((sel[0] != exact[0]) | (sel[1] != exact[1].int()) | (sel[2] != exact[2])
-                 | (sel[3] != exact[3].int())).sum())
-    return fma_ms, exact_ms, flips
+    return fn
 
 
 def staged_phases(dev, card, rs, report):
     """Phases 19-20: the sweep kernel against the plain sweep on three
-    scenes at 1920x1080, with and without FMA contraction; then the staged
-    main path (render_step and mse_step on a 65,024-row mesh, past every
-    fused route's cap) and the staged route's gradients against the fused
-    route's. ``report``: the build's ptxas report. Returns the sweep's entry
-    of the ``kernels`` line."""
-    import numpy as np
+    scenes at 1920x1080 (on the 65,024-row mesh the primary rays and every
+    bounce of one staged sample), beside its unit built with FMA
+    contraction (not shipped); then the staged
+    main path (render_step and mse_step on that mesh, past every fused
+    route's cap) and the staged route's gradients against the fused route's.
+    ``report``: the build's ptxas report. Returns the sweep's entry of the
+    ``kernels`` line."""
     import torch
+    import torch.nn.functional as F
 
     from ptre_tpu_torch.utils.config import RenderConfig
     from ptre_tpu_torch.models import demo
     from ptre_tpu_torch.ops import camera as cam_ops
-    from ptre_tpu_torch.ops import intersect, materials, rng
+    from ptre_tpu_torch.ops import integrator, intersect, materials, rng
     from ptre_tpu_torch.ops.cuda import megakernel as mk
     from ptre_tpu_torch.ops.cuda import sweep_kernel as sk
     from ptre_tpu_torch.parallel import sharding as sh
@@ -1597,24 +1674,26 @@ def staged_phases(dev, card, rs, report):
     cam = cam_ops.Camera.create(width=W, height=H)
     px, py = pt.pixel_grid(H, W, dev)
 
-    fma_build = start_fma_build("sweep_kernel.cu")  # compiles while the plain sweeps run
+    # the shipped design with FMA contraction compiles while the plain sweeps run
+    fma_build = start_unit_build("sweep_kernel.cu", "fma")
     regs = [x for x in ptxas_summary(report) if x.startswith("sweep_kernel")] if report else []
     print(f"phase 19: sweep kernel vs plain sweep at {W}x{H}; "
           f"{'; '.join(regs) or 'library built earlier: registers not reported'} [{card}]",
           flush=True)
 
-    def plain(o, d, tables):
-        T = max(tables.tris.shape[0], 1)
+    def plain(o, d, scene):
+        T = max(scene.tri_rows, 1)
         step = max(1, PLAIN_PAIRS // T)
-        parts = [sk.sweep_packed_reference(o[i:i + step], d[i:i + step], tables, k.t_min,
-                                           k.t_max, k.det_eps) for i in range(0, o.shape[0], step)]
+        parts = [sk.sweep_packed_reference(o[i:i + step], d[i:i + step], scene, k.t_min,
+                                           k.t_max, k.det_eps)
+                 for i in range(0, o.shape[0], step)]
         return tuple(torch.cat(x) for x in zip(*parts))
 
-    def bounce1(o, d, pkt, tables):
+    def bounce1(o, d, pkt, scene):
         """The rays that hit and scatter at bounce 0 (kernel sweep, Philox
         draws), leaving their surfaces: t_min self-hits are exercised."""
         def fn(oo, dd, *args):
-            return sk.sweep_packed(oo.contiguous(), dd.contiguous(), tables, k.t_min, k.t_max,
+            return sk.sweep_packed(oo.contiguous(), dd.contiguous(), scene, k.t_min, k.t_max,
                                    k.det_eps)
         with torch.no_grad():
             hit = intersect.closest_hit(o, d, pkt, pkt.world_triangles(), k.t_min, k.t_max,
@@ -1624,56 +1703,112 @@ def staged_phases(dev, card, rs, report):
                                    pkt.mat_kind.long()[hit.mat_id], pkt.mat_albedo[hit.mat_id],
                                    pkt.mat_param[hit.mat_id], k.shadow_eps, k.pdf_eps)
             live = hit.hit & ~sc.terminated
-        return sc.next_origin[live].contiguous(), sc.next_dir[live].contiguous()
+        return sc.next_origin[live].contiguous(), sc.next_dir[live].contiguous(), None
 
-    scenes = (("demo", demo.reference_demo_scene(32, 16), None),
-              ("config 4", demo.config4_mixed_scene(128, 64), SWEEP_SUBSET),
-              ("65,024-row mesh", getattr(demo, STAGED_SCENE[0])(**STAGED_SCENE[1]), SWEEP_SUBSET))
+    def staged_sample(pkt, o, d):
+        """(o, d, active) of every bounce of one staged sample of the main
+        path (`integrator.trace_staged`, Philox draws), as its sweep sees
+        them."""
+        seen, make = [], integrator._sweep_fn
+
+        def spy(scene, consts, active):
+            fn = make(scene, consts, active)
+
+            def run(oo, dd, *args):
+                seen.append((oo.contiguous().clone(), dd.contiguous().clone(), active.clone()))
+                return fn(oo, dd, *args)
+            return run
+
+        integrator._sweep_fn = spy
+        try:
+            with torch.no_grad():
+                integrator.trace_staged(o, d, pkt, cfg, seed=19, sample=1)
+        finally:
+            integrator._sweep_fn = make
+        return seen
+
+    def hold(name, what, o, d, scene, active, t_valid, s_valid, compare_all=False):
+        """The kernel against the plain sweep on the live rays compared
+        (all with ``compare_all``, else at most SWEEP_SUBSET), its time, this
+        run's counts and bounds; returns its numbers."""
+        stats = torch.zeros(len(sk.STATS), dtype=torch.int64, device=dev)
+        got = sk.sweep_packed(o, d, scene, k.t_min, k.t_max, k.det_eps, active, stats)
+        live = (torch.arange(o.shape[0], device=dev) if active is None
+                else active.nonzero().squeeze(1))
+        idx = live
+        if not compare_all and live.numel() > SWEEP_SUBSET:
+            pick = torch.randperm(live.numel(), device=dev,
+                                  generator=torch.Generator(dev).manual_seed(5))
+            idx = live[pick[:SWEEP_SUBSET]]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = plain(o[idx], d[idx], scene)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        diff = sum(int((g[idx].long() != w.long()).sum()) for g, w in zip(got, want))
+        dead_ok = active is None or all(not bool(g[~active].any()) for g in got)
+        hits = (int(got[1].sum()), int(got[3].sum()))
+        ms = cuda_events(lambda: sk.sweep_packed(o, d, scene, k.t_min, k.t_max, k.det_eps,
+                                                 active), 3 if t_valid > 1000 else 20)
+        c = dict(zip(sk.STATS, stats.tolist()))
+        n_live, n_super = c["live_rays"], scene.super_boxes.shape[0]
+        ops = ((n_live * n_super + mk.SUPER * c["supers_passed"]) * OPS_SLAB
+               + c["pairs_passed"] * mk.LEAF * OPS_SWEEP_TRI + n_live * s_valid * OPS_SWEEP_SPH)
+        brute_ops = n_live * (t_valid * OPS_SWEEP_TRI + s_valid * OPS_SWEEP_SPH)
+        nbytes = (o.shape[0] * (24 + 16 + (active is not None))
+                  + (scene.rows.numel() + scene.cull_boxes.numel() + scene.super_boxes.numel()
+                     + scene.sphs.numel()) * 4)
+        b_ms, b_by = bound(nbytes, ops)
+        brute_ms, _ = bound(nbytes, brute_ops)
+        print(f"  {name}, {what}: {n_live} live rays of {o.shape[0]}, {idx.numel()} compared, "
+              f"{diff} selections differ; triangle hits {hits[0]}, sphere hits {hits[1]}; "
+              f"(ray, leaf) pairs: {c['pairs_passed']} whose box the ray itself passes, "
+              f"{c['pairs_swept']} swept by the warps, {n_live * scene.n_leaf} without culling; "
+              f"{c['box_tests']} box tests; kernel {ms:.4f} ms (CUDA events), plain "
+              f"{plain_ms:.1f} ms on the compared rays; bound {b_ms:.4f} ms by {b_by} "
+              f"({ops / 1e9:.2f} GFLOP), brute force's {brute_ms:.4f} ms "
+              f"({brute_ops / 1e9:.1f} GFLOP) [{card}]", flush=True)
+        check(diff == 0, f"sweep {name} {what}: {diff} selections differ from the plain sweep")
+        check(dead_ok, f"sweep {name} {what}: a dead ray selected something")
+        check(hits[0] > 0 and (hits[1] > 0 or what != "primary"), f"sweep {name} {what}: no hits")
+        return dict(ms=ms, plain_ms=plain_ms, nbytes=nbytes, ops=ops, stats=c)
+
+    scenes = (("demo", demo.reference_demo_scene(32, 16)),
+              ("config 4", demo.config4_mixed_scene(128, 64)),
+              ("65,024-row mesh", getattr(demo, STAGED_SCENE[0])(**STAGED_SCENE[1])))
     jit = rng.ray_uniforms(0x5EE9, 0, R, 1, dev)
     o0, d0 = (x.contiguous() for x in cam_ops.get_rays(cam, px, py, (jit - 0.5).T))
-    timing = {}
-    for name, scn, subset in scenes:
+    for name, scn in scenes:
         pkt = scn.build_packet(device=dev)
-        tables = sk.prepare(pkt, pkt.world_triangles())
+        scene = sk.prepare(pkt)
         t_valid, s_valid = int(pkt.tri_valid.sum()), int(pkt.sph_valid.sum())
-        for what, (o, d) in (("primary", (o0, d0)), ("bounce 1", bounce1(o0, d0, pkt, tables))):
-            n = o.shape[0]
-            got = sk.sweep_packed(o, d, tables, k.t_min, k.t_max, k.det_eps)
-            idx = (torch.arange(n, device=dev) if subset is None or n <= subset else
-                   torch.randperm(n, device=dev, generator=torch.Generator(dev).manual_seed(5))[
-                       :subset])
-            full = main_primary = name == scenes[-1][0] and what == "primary"
-            if full:
-                idx = torch.arange(n, device=dev)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            want = plain(o[idx], d[idx], tables)
-            torch.cuda.synchronize()
-            plain_ms = (time.perf_counter() - t0) * 1e3
-            diff = sum(int((g[idx].long() != w.long()).sum()) for g, w in zip(got, want))
-            hits = (int(got[1].sum()), int(got[3].sum()))
-            ms = cuda_events(lambda: sk.sweep_packed(o, d, tables, k.t_min, k.t_max, k.det_eps),
-                             3 if t_valid > 1000 else 20)
-            ops = n * (t_valid * OPS_SWEEP_TRI + s_valid * OPS_SWEEP_SPH)
-            nbytes = n * 40 + tables.tris.numel() * 4 + tables.sphs.numel() * 4
-            b_ms, b_by = bound(nbytes, ops)
-            print(f"  {name} ({t_valid} valid of {tables.tris.shape[0]} triangle rows, {s_valid} "
-                  f"spheres), {what}: {n} rays, {idx.numel()} compared, {diff} selections "
-                  f"differ; triangle hits {hits[0]}, sphere hits {hits[1]}; kernel {ms:.4f} ms "
-                  f"(CUDA events), plain {plain_ms:.1f} ms on the compared rays; bound "
-                  f"{b_ms:.4f} ms by {b_by} ({ops / 1e9:.1f} GFLOP) [{card}]", flush=True)
-            check(diff == 0, f"sweep {name} {what}: {diff} selections differ from the plain sweep")
-            check(hits[0] > 0 and hits[1] > 0, f"sweep {name} {what}: no hits")
-            if main_primary:
-                timing = dict(ms=ms, plain_ms=plain_ms, nbytes=nbytes, ops=ops, o=o, d=d,
-                              tables=tables)
-
-    o, d, tables = timing["o"], timing["d"], timing["tables"]
-    fma_ms, exact_ms, flips = fma_compare(fma_build, o, d, tables, k, dev)
-    print(f"  {scenes[-1][0]} primary: with FMA contraction {fma_ms:.4f} ms, without "
-          f"{exact_ms:.4f} ms (the shipped build), in turns; {flips} of {o.shape[0]} rays select "
-          f"otherwise with FMA [{card}]", flush=True)
-    del timing["o"], timing["d"], timing["tables"], o, d, tables
+        if name != scenes[-1][0]:
+            for what, (o, d, act) in (("primary", (o0, d0, None)),
+                                      ("bounce 1", bounce1(o0, d0, pkt, scene))):
+                hold(name, what, o, d, scene, act, t_valid, s_valid, compare_all=name == "demo")
+            continue
+        main = hold(name, "primary", o0, d0, scene, None, t_valid, s_valid, compare_all=True)
+        sample = staged_sample(pkt, o0, d0)
+        check(len(sample) == B, f"the staged sample swept {len(sample)} bounces")
+        per_bounce = [hold(name, f"staged sample, bounce {b}", o, d, scene, act, t_valid,
+                           s_valid) for b, (o, d, act) in enumerate(sample)]
+        print(f"  {name}, one staged sample: sweep {sum(x['ms'] for x in per_bounce):.4f} ms "
+              f"over {B} bounces, (ray, leaf) pairs passed "
+              f"{sum(x['stats']['pairs_passed'] for x in per_bounce)}, swept "
+              f"{sum(x['stats']['pairs_swept'] for x in per_bounce)} [{card}]", flush=True)
+        # the unit built with FMA contraction, not shipped, read in turns
+        fma = variant_sweep(finish_unit_build(fma_build), sk, k)
+        for what, (o, d, act) in (("primary", (o0, d0, None)), ("bounce 1", sample[1])):
+            fns = {"shipped": lambda o=o, d=d, act=act: sk.sweep_packed(
+                       o, d, scene, k.t_min, k.t_max, k.det_eps, act),
+                   "with FMA": lambda o=o, d=d, act=act: fma(o, d, scene, act)}
+            flips = int(sum((g != w) for g, w in zip(fns["with FMA"](), fns["shipped"]()))
+                        .bool().sum())
+            times = in_turns(fns, 3)
+            print(f"  {name}, {what}: shipped {times['shipped']:.4f} ms; with FMA "
+                  f"{times['with FMA']:.4f} ms ({flips} rays select otherwise) (CUDA events, "
+                  f"in turns) [{card}]", flush=True)
+        del sample, per_bounce
 
     # ---- 20. the staged main path at full width --------------------------------------
     pkt = getattr(demo, STAGED_SCENE[0])(**STAGED_SCENE[1]).build_packet(device=dev)
@@ -1701,6 +1836,8 @@ def staged_phases(dev, card, rs, report):
     print(f"  render_step: {r_ms:.1f} ms/step (host clock), peak {r_peak / 2**30:.2f} GiB, "
           f"sweep launches {r_launches} = max_depth x {STAGED_STEPS + 1} samples, image mean "
           f"{float(lin.mean()):.4f} [{card}]", flush=True)
+    device_share(lambda: pt.render_step(pkt, cam, acc, gen, cfg), 1, "staged render_step",
+                 card)
 
     params = sh.differentiable_params(pkt, cam)
     target = torch.zeros((R, 3), device=dev)
@@ -1729,54 +1866,52 @@ def staged_phases(dev, card, rs, report):
     device_share(lambda: train.mse_step(params, pkt, cam, target, cfg, 9), 1,
                  "staged mse_step", card)
 
-    # staged against fused, demo scene, same Philox seed
+    # staged against fused, demo scene, same Philox seed: the staged route's
+    # gathers (intersect.gather_rows) sum their backward in float64; beside
+    # them, embedding's own float32 sums (the gathers before), in turns
     dpkt = demo.reference_demo_scene(32, 16).build_packet(device=dev)
     dparams = sh.differentiable_params(dpkt, cam)
-    res = {}
-    for sweep in ("fused", "staged"):
-        c = RenderConfig(width=W, height=H, max_depth=B, grad_sweep=sweep)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        res[sweep] = train.mse_step(dparams, dpkt, cam, target, c, GRAD_SEED)
-        torch.cuda.synchronize()
-        res[sweep] += ((time.perf_counter() - t0) * 1e3,)
-    (lf, gf, tf), (ls, gs, ts) = res["fused"], res["staged"]
-    # the staged route gathers its winners' rows through embedding
-    # (intersect.gather_rows); table[idx], whose backward accumulates the
-    # duplicates of an index one after another, for comparison
+    c = RenderConfig(width=W, height=H, max_depth=B, grad_sweep="fused")
+    lf, gf = train.mse_step(dparams, dpkt, cam, target, c, GRAD_SEED)
     c = RenderConfig(width=W, height=H, max_depth=B, grad_sweep="staged")
-    gather_ms, embedding = {}, intersect.gather_rows
+    shipped = intersect.gather_rows
+    gathers = {"float64 sums": shipped,
+               "embedding's float32 sums": lambda t, i, pad_row=-1: F.embedding(i, t)}
+    res, step_ms = {}, {}
     try:
-        for name, fn in (("embedding", embedding), ("table[idx]", lambda t, i: t[i]),
-                         ("embedding", embedding)):
-            intersect.gather_rows = fn
+        for name in ("float64 sums", "embedding's float32 sums", "float64 sums"):
+            intersect.gather_rows = gathers[name]
             train.mse_step(dparams, dpkt, cam, target, c, GRAD_SEED)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            train.mse_step(dparams, dpkt, cam, target, c, GRAD_SEED)
+            res[name] = train.mse_step(dparams, dpkt, cam, target, c, GRAD_SEED)
             torch.cuda.synchronize()
-            gather_ms.setdefault(name, []).append((time.perf_counter() - t0) * 1e3)
-            if len(gather_ms[name]) == 1:
-                device_share(lambda: train.mse_step(dparams, dpkt, cam, target, c, GRAD_SEED),
-                             1, f"staged mse_step, demo scene, gathers by {name}", card)
+            step_ms.setdefault(name, []).append((time.perf_counter() - t0) * 1e3)
+        # the device time the float64 sums cost: one profiled step of each
+        for name in ("embedding's float32 sums", "float64 sums"):
+            intersect.gather_rows = gathers[name]
+            device_share(lambda: train.mse_step(dparams, dpkt, cam, target, c, GRAD_SEED), 1,
+                         f"staged mse_step, demo scene, {name} in its gathers", card)
     finally:
-        intersect.gather_rows = embedding
-    print(f"  staged mse_step, demo scene at {W}x{H}: gathers by embedding "
-          f"{', '.join(f'{x:.1f}' for x in gather_ms['embedding'])} ms/step, by table[idx] "
-          f"{gather_ms['table[idx]'][0]:.1f} ms/step (host clock, in turns) [{card}]", flush=True)
-    worst = []
-    for key in gf:
-        nf = float(gf[key].norm())
-        rel = float((gs[key] - gf[key]).norm()) / max(nf, 1e-30)
-        if nf == 0.0:
-            check(float(gs[key].abs().max()) <= 1e-6, f"staged d{key} should be zero")
-            continue
-        worst.append(f"{key} {rel:.2e}")
-        check(rel <= STAGED_REL, f"staged vs fused d{key}: relative L2 {rel:.3e} > {STAGED_REL}")
-    print(f"  grad_sweep 'staged' vs 'fused', demo scene at {W}x{H}, spp 1: loss {float(ls):.7f} "
-          f"vs {float(lf):.7f}; gradient relative L2: {', '.join(worst)}; one step {ts:.1f} ms "
-          f"vs {tf:.1f} ms (host clock, first call) [{card}]", flush=True)
-    check(abs(float(ls) - float(lf)) <= 1e-4 * abs(float(lf)), "staged vs fused loss")
+        intersect.gather_rows = shipped
+    for name, (ls, gs) in res.items():
+        rels = {}
+        for key in gf:
+            nf = float(gf[key].norm())
+            if nf == 0.0:
+                check(float(gs[key].abs().max()) <= 1e-6, f"staged d{key} should be zero")
+                continue
+            rels[key] = float((gs[key] - gf[key]).norm()) / nf
+        print(f"  grad_sweep 'staged' ({name} in its gathers) vs 'fused', demo scene at "
+              f"{W}x{H}, spp 1: loss {float(ls):.7f} vs {float(lf):.7f}; gradient relative L2: "
+              + ", ".join(f"{key} {v:.2e}" for key, v in rels.items())
+              + f"; {', '.join(f'{x:.1f}' for x in step_ms[name])} ms/step (host clock, in "
+              f"turns) [{card}]", flush=True)
+        if name == "float64 sums":
+            for key, v in rels.items():
+                check(v <= STAGED_REL, f"staged vs fused d{key}: relative L2 {v:.3e} > "
+                      f"{STAGED_REL}")
+            check(abs(float(ls) - float(lf)) <= 1e-4 * abs(float(lf)), "staged vs fused loss")
     return with_bound({
         "name": "sweep",
         "route": "cuda",
@@ -1784,9 +1919,9 @@ def staged_phases(dev, card, rs, report):
         "replaces": "ptre_tpu/ops/pallas/intersect_kernel.py:95",
         "launches": launches,
         "max_abs_err": 0.0,
-        "ms": timing["ms"],
-        "plain_ms": timing["plain_ms"],
-    }, timing["nbytes"], timing["ops"])
+        "ms": main["ms"],
+        "plain_ms": main["plain_ms"],
+    }, main["nbytes"], main["ops"])
 
 
 # The replay route (phase 21): grad_sweep="replay", the reference's A/B
@@ -1796,23 +1931,24 @@ def staged_phases(dev, card, rs, report):
 # does: the forward's colour within REPLAY_FWD_ATOL of it on every ray
 # (measured bit-equal); the backward held by column group against float32
 # and float64 as phase 7 holds the fused backward (`hold_backward`), d(g)
-# summed to d(table) through the gather's backward. The unit built WITH
-# contraction (the alternative not shipped) and the fused backward (built
-# with it) are read beside them against float64, and not held. Replay
-# against fused on the same seed: the same selections and adjoint, but
-# d(table) summed in another order (the gather's float64 backward against
-# shared-memory atomics), the primal from another chain (the replay chain
-# against the recording kernel's formulas) and the fused backward
-# contracted: loss within REPLAY_LOSS_REL, material and sky gradients within
+# summed to d(table) through the gather's backward. The fused backward,
+# also built without contraction, is held there beside it (its geometry
+# sums no further from float64 than GEOM_FACTOR times the plain float32's);
+# the replay and the fused units built WITH contraction (the variants not
+# shipped) are read beside them, and not held. Replay against fused on the
+# same seed: the same selections and adjoint, but d(table) summed in another
+# order (the gather's float64 backward against shared-memory atomics) and
+# the primal from another chain (the replay chain against the recording
+# kernel's formulas): loss within REPLAY_LOSS_REL, material and sky gradients within
 # REPLAY_GRAD_REL relative L2. The geometry and camera gradients are sums
 # dominated by rays grazing the ground sphere's horizon, where two float32
 # evaluations in other operation orders part (ROADMAP C2): measured
-# 4.79e-4 to 1.459e-3 (relative L2) in three runs of this phase at 1920x1080
-# (NVIDIA H100 80GB HBM3, 700.00 W); within REPLAY_GEOM_REL, twice the
-# largest reading.
+# 4.79e-4 to 1.459e-3 (relative L2) while the fused backward contracted
+# FMAs, 4.5e-5 to 1.1e-4 since it does not (NVIDIA H100 80GB HBM3, 700.00 W);
+# within REPLAY_GEOM_REL, about four times the largest reading.
 REPLAY_SEED = 0x2E91A
 REPLAY_FWD_ATOL = 1e-4
-REPLAY_LOSS_REL, REPLAY_GRAD_REL, REPLAY_GEOM_REL = 1e-5, 1e-4, 3e-3
+REPLAY_LOSS_REL, REPLAY_GRAD_REL, REPLAY_GEOM_REL = 1e-5, 1e-4, 5e-4
 REPLAY_GEOMETRY = ("transforms", "sph_center", "sph_radius", "cam_position", "cam_forward",
                    "cam_fov")
 OPS_REPLAY_FWD = 250  # replay.cuh: one hit bounce's chain forward (rough count)
@@ -1830,7 +1966,7 @@ def rel_l2(a, b):
 
 def fma_replay_pair(lib, rpk, mk):
     """The replay forward and backward of the unit built WITH FMA
-    contraction (`start_fma_build`), as functions of `replay_fwd`'s and
+    contraction (`start_unit_build`), as functions of `replay_fwd`'s and
     `replay_bwd`'s arguments; they launch straight from ``lib`` and count
     nothing."""
     import ctypes
@@ -1893,7 +2029,7 @@ def replay_as_table(bwd, path_replay):
     return fn
 
 
-def replay_phases(dev, card, rs):
+def replay_phases(dev, card, rs, fma_bwd):
     """Phase 21: the replay forward and backward kernels against their
     plain versions at 1920x1080 on the recording kernel's selections, the
     replay route against the fused route on the same seed, and the replay
@@ -1930,7 +2066,7 @@ def replay_phases(dev, card, rs):
     table, T, sky6 = path_replay.build_table(pkt)
     P = table.shape[0]
     urand_ext = torch.from_numpy(rs.random((2 + 2 * B, R), dtype=np.float32)).to(dev)
-    fma_build = start_fma_build("replay_kernel.cu")  # compiles while (a) runs
+    fma_build = start_unit_build("replay_kernel.cu", "fma")  # compiles while (a) runs
     print(f"phase 21: the replay route at {W}x{H}, max_depth {B}: replay kernels vs plain on "
           "the recording kernel's selections, replay vs fused, mse_step spp 1 (1 + "
           f"{STEPS} steps), two_pass_mse_step spp {SPP_TRAIN}", flush=True)
@@ -1957,7 +2093,7 @@ def replay_phases(dev, card, rs):
         del g, got, want
 
     # the unit built with FMA contraction, the alternative not shipped: read
-    fma_fwd, fma_bwd = fma_replay_pair(finish_fma_build(fma_build), rpk, mk)
+    fma_fwd, fma_bwd_replay = fma_replay_pair(finish_unit_build(fma_build), rpk, mk)
     for mode, (sel, ur) in recorded.items():
         g = path_replay.gather_rows(table, sel)
         want = rpk.replay_fwd_reference(o, d, g, sel, sky6, T, k, B, REPLAY_SEED, 0, ur)
@@ -1979,8 +2115,8 @@ def replay_phases(dev, card, rs):
               "radius": slice(21, 22), "albedo": slice(23, 26), "param": slice(26, 27)}
     kernel = replay_as_table(rpk.replay_bwd, path_replay)
     plain = replay_as_table(rpk.replay_bwd_reference, path_replay)
-    read = {"replay with FMA": replay_as_table(fma_bwd, path_replay),
-            "fused (FMA)": fg.fused_bwd}
+    read = {"replay with FMA": (replay_as_table(fma_bwd_replay, path_replay), False),
+            "fused": (fg.fused_bwd, True), "fused with FMA": (fma_bwd, False)}
     bwd_err = 0.0
     for mode, (sel, ur) in recorded.items():
         bwd_err = max(bwd_err, hold_backward(fg, mk, f"replay bwd {mode}", table, sky6, o, d,

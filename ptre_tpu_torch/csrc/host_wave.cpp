@@ -3,8 +3,8 @@
 // slab_pass_within, sweep_leaf and finish_bounce_at (wave.cuh, trace.cuh,
 // philox.cuh) that mask_kernel.cu, wave_kernel.cu and mega_kernel.cu run per
 // thread, looped over the ray blocks on the CPU, a block's votes taken by a
-// loop over its rays. The sweep reads each leaf straight from the table
-// instead of staging it.
+// loop over its rays. The sweep reads each leaf's compact rows straight from
+// the table instead of staging them.
 //
 //   g++ -std=c++17 -O2 -shared -fPIC -o libptre_host_wave.so host_wave.cpp
 //
@@ -40,6 +40,7 @@ extern "C" void ptre_wave_bounce_host(const ptre::WaveParams* params,
                                       const float* state, const int32_t* ids,
                                       const int32_t* shortlist,
                                       const int32_t* counts, const float* tris,
+                                      const float* rows, const float* boxes,
                                       const float* sphs, const float* mats,
                                       const float* sky, const float* urand,
                                       float* out, int32_t* sel, int lanes) {
@@ -50,10 +51,17 @@ extern "C" void ptre_wave_bounce_host(const ptre::WaveParams* params,
     ptre::WaveRay r = ptre::load_ray(state, col, p.r_pad);
     if (r.act > 0.5f) {
       ptre::TriBest best = {ptre::kBig, 0, false};
+      const float iv[3] = {ptre::slab_inv(r.d[0]), ptre::slab_inv(r.d[1]),
+                           ptre::slab_inv(r.d[2])};
       for (int k = 0; k < counts[b]; ++k) {
         const int leaf = shortlist[b * p.list_stride + k];
-        ptre::sweep_leaf(tris + (int64_t)leaf * ptre::kLeaf * ptre::kTriStride,
-                         leaf, r, p, best);
+        // the ray's own cull, bounded by its closest hit so far
+        if (!ptre::slab_pass_within(boxes + leaf * ptre::kBoxStride, r.o, iv, p.t_min,
+                                    best.t)) {
+          continue;
+        }
+        ptre::sweep_leaf(rows + (int64_t)leaf * ptre::kLeaf * ptre::kRowStride, leaf, r,
+                         p, best);
       }
       if (sel != nullptr) {
         const ptre::WinnerWriter rec = {ptre::sel_slot(sel, p, p.bounce, ids[col])};
@@ -72,7 +80,8 @@ extern "C" void ptre_wave_bounce_host(const ptre::WaveParams* params,
 extern "C" void ptre_trace_culled_host(const ptre::MegaParams* params,
                                        const float* o, const float* d,
                                        const float* urand, const float* tris,
-                                       const float* boxes, const float* boxes2,
+                                       const float* rows, const float* boxes,
+                                       const float* boxes2,
                                        const float* sphs, const float* mats,
                                        const float* sky, float* color,
                                        int32_t* sel, int lanes) {
@@ -105,9 +114,9 @@ extern "C" void ptre_trace_culled_host(const ptre::MegaParams* params,
       return false;
     };
     auto sweep = [&](int leaf) {
-      const float* rows = tris + (int64_t)leaf * ptre::kLeaf * ptre::kTriStride;
+      const float* leaf_rows = rows + (int64_t)leaf * ptre::kLeaf * ptre::kRowStride;
       for (int i = 0; i < m; ++i) {
-        if (live(i)) ptre::sweep_leaf(rows, leaf, rays[i], wp, best[i]);
+        if (live(i)) ptre::sweep_leaf(leaf_rows, leaf, rays[i], wp, best[i]);
       }
     };
     int bounce = 0;

@@ -8,10 +8,11 @@
 // order: every live thread tests the supertile's union box against its own
 // ray, bounded by its own closest hit so far (slab_pass_within), and
 // __syncthreads_or is the block's vote; a supertile that passes is walked
-// leaf by leaf with the same vote per leaf, and a passing leaf's 64 rows x
-// 32 floats (8 KB) are staged into shared memory with 16-byte loads and
-// swept by every live thread (wave.cuh sweep_leaf: strict t < best, so ties
-// go to the lowest Morton row within a leaf and across the ascending walk).
+// leaf by leaf with the same vote per leaf, and a passing leaf's 64 compact
+// intersection rows (3 KB, wave.cuh kRowStride) are staged into shared memory
+// with 16-byte loads and swept by every live thread (wave.cuh sweep_leaf:
+// strict t < best, so ties go to the lowest Morton row within a leaf and
+// across the ascending walk). The votes read the dilated cull boxes.
 // Then, per thread, wave.cuh finish_bounce: spheres bounded by the best
 // triangle, the winner's row read by index from global memory, its
 // attributes re-derived, shading, the next ray. A block stops at the first
@@ -28,7 +29,8 @@
 // and the block's vote passes many more leaves than a sorted wavefront
 // block's shortlist holds; every live thread sweeps each passing leaf. The
 // bytes are small: 24 B a ray in, 12 B (+ 4 B a bounce) out, and the leaf
-// table (2.1 MB at 16,256 rows) stays in the 50 MB L2. The design spends no
+// tables (0.8 MB of compact rows, 2.1 MB of 32-float rows at 16,256 rows)
+// stay in the 50 MB L2. The design spends no
 // launch, host read or sort between bounces, which is what the wavefront
 // pays for its tighter shortlists (measured, one sample at max_depth 5:
 // 24.3-25.3 ms on 16,140 triangles + 2 spheres at 1920x1080, the live
@@ -50,24 +52,25 @@
 
 namespace ptre {
 
-__device__ __forceinline__ void stage_leaf(float* s_leaf, const float* tris,
+__device__ __forceinline__ void stage_leaf(float* s_leaf, const float* rows,
                                            int leaf, int tid, int n_threads) {
   const float4* src =
-      reinterpret_cast<const float4*>(tris + (int64_t)leaf * kLeaf * kTriStride);
+      reinterpret_cast<const float4*>(rows + (int64_t)leaf * kLeaf * kRowStride);
   float4* dst = reinterpret_cast<float4*>(s_leaf);
-  for (int i = tid; i < kLeaf * kTriStride / 4; i += n_threads) dst[i] = __ldg(src + i);
+  for (int i = tid; i < kLeaf * kRowStride / 4; i += n_threads) dst[i] = __ldg(src + i);
 }
 
 template <bool kRecord>
 __global__ void __launch_bounds__(kMaxLanes)
     mega_kernel(const MegaParams p, const float* __restrict__ o,
                 const float* __restrict__ d, const float* __restrict__ urand,
-                const float* __restrict__ tris, const float* __restrict__ boxes,
+                const float* __restrict__ tris, const float* __restrict__ rows,
+                const float* __restrict__ boxes,
                 const float* __restrict__ boxes2,
                 const float* __restrict__ sphs, const float* __restrict__ mats,
                 const float* __restrict__ sky, float* __restrict__ color,
                 int32_t* __restrict__ sel) {
-  __shared__ __align__(16) float s_leaf[kLeaf * kTriStride];
+  __shared__ __align__(16) float s_leaf[kLeaf * kRowStride];
   __shared__ float s_mat[kMaxMats * kMatStride];
   __shared__ float s_sky[8];
 
@@ -109,7 +112,7 @@ __global__ void __launch_bounds__(kMaxLanes)
                                                          iv, wp.t_min, best.t))) {
             continue;
           }
-          stage_leaf(s_leaf, tris, leaf, tid, blockDim.x);
+          stage_leaf(s_leaf, rows, leaf, tid, blockDim.x);
           __syncthreads();
           if (live) sweep_leaf(s_leaf, leaf, r, wp, best);
         }
@@ -117,7 +120,7 @@ __global__ void __launch_bounds__(kMaxLanes)
     } else {
       for (int leaf = 0; leaf < wp.n_leaf; ++leaf) {
         __syncthreads();  // every thread is done with the previous leaf
-        stage_leaf(s_leaf, tris, leaf, tid, blockDim.x);
+        stage_leaf(s_leaf, rows, leaf, tid, blockDim.x);
         __syncthreads();
         if (live) sweep_leaf(s_leaf, leaf, r, wp, best);
       }
@@ -145,12 +148,14 @@ __global__ void __launch_bounds__(kMaxLanes)
 
 // C interface for ctypes. Launches on the caller's stream, allocates
 // nothing, does not synchronise; returns cudaGetLastError() of the launch.
-// o, d, color are (n_rays, 3); boxes (n_super * 8, 8) and boxes2 (n_super, 8)
+// o, d, color are (n_rays, 3); tris (n_leaf * 64, 32) and rows (n_leaf * 64,
+// 12) hold the same leaves; boxes (n_super * 8, 8) and boxes2 (n_super, 8)
 // are read only with `cull`; with `sel` (max_depth, n_rays) int32 the
 // recording instantiation runs. `lanes` rays per block.
 extern "C" int ptre_trace_culled(const ptre::MegaParams* params, const float* o,
                                  const float* d, const float* urand,
-                                 const float* tris, const float* boxes,
+                                 const float* tris, const float* rows,
+                                 const float* boxes,
                                  const float* boxes2, const float* sphs,
                                  const float* mats, const float* sky,
                                  float* color, int32_t* sel, int lanes,
@@ -163,16 +168,16 @@ extern "C" int ptre_trace_culled(const ptre::MegaParams* params, const float* o,
                   boxes2 == nullptr)) ||
       (p.w.external_rng && urand == nullptr) ||
       (sel != nullptr && (p.w.n_sel != p.w.n_rays || p.w.sph_offset < 0)) ||
-      reinterpret_cast<uintptr_t>(tris) % 16 != 0) {
+      reinterpret_cast<uintptr_t>(rows) % 16 != 0) {
     return (int)cudaErrorInvalidValue;
   }
   const int n_blocks = (p.w.n_rays + lanes - 1) / lanes;
   if (sel != nullptr) {
     ptre::mega_kernel<true><<<n_blocks, lanes, 0, (cudaStream_t)stream>>>(
-        p, o, d, urand, tris, boxes, boxes2, sphs, mats, sky, color, sel);
+        p, o, d, urand, tris, rows, boxes, boxes2, sphs, mats, sky, color, sel);
   } else {
     ptre::mega_kernel<false><<<n_blocks, lanes, 0, (cudaStream_t)stream>>>(
-        p, o, d, urand, tris, boxes, boxes2, sphs, mats, sky, color, sel);
+        p, o, d, urand, tris, rows, boxes, boxes2, sphs, mats, sky, color, sel);
   }
   return (int)cudaGetLastError();
 }

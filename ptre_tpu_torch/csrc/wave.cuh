@@ -11,8 +11,12 @@
 //
 // The state of a ray is 10 float32 rows of a (10, r_pad) array: o.xyz d.xyz
 // rgb active, plus an int32 original ray id beside it that keys the scatter
-// uniforms. Leaves are 64 Morton-consecutive rows of the (n_leaf * 64, 32)
-// triangle table; a leaf's box is a pack_tile_boxes row (lo.xyz hi.xyz pad).
+// uniforms. Leaves are 64 Morton-consecutive rows of the triangle tables:
+// the (n_leaf * 64, 32) pack_tri32 rows, which the finish reads by the
+// winner's index, and the (n_leaf * 64, 12) compact intersection rows that
+// the sweeps read (kRowStride). A leaf's box is a pack_tile_boxes row
+// (lo.xyz hi.xyz pad); the per-ray culls read the boxes dilated by
+// wavefront.CULL_PAD_REL (prepare_scene's cull_boxes and super_boxes).
 //
 // The winner's attributes follow the wave kernel, not trace_path: the
 // interpolated normal is normalised and then flipped by the geometric normal
@@ -29,6 +33,11 @@ constexpr int kLeaf = 64;       // triangle rows per leaf: the sweep and cull gr
 constexpr int kBoxStride = 8;   // pack_tile_boxes row
 constexpr int kMaxLanes = 256;  // rays per block, at most: one thread each
 constexpr int kSuper = 8;       // leaves per supertile: the culled sweep's second level
+// Compact intersection row: v0 (0-2), e1 = v1 - v0 (3-5), e2 = v2 - v0 (6-8),
+// valid (9), the packet's own row as int32 bits (10), 0 (11): 48 bytes,
+// three 16-byte loads. e1 and e2 are rounded once on the host, as one float32
+// subtraction rounds them in a kernel.
+constexpr int kRowStride = 12;
 
 // Arguments of the mask kernel, passed by value. Mirrored field for field by
 // MaskParams in ops/cuda/wavefront.py (every field 4 bytes).
@@ -137,34 +146,42 @@ struct TriBest {
   bool hit;
 };
 
-// Moller-Trumbore of one ray against the 64 rows of leaf `leaf`, whose rows
-// start at `rows` (wavefront.py:261-290).
+// Moller-Trumbore of one ray against one compact row: whether the row
+// accepts, and its t in *t_out (wavefront.py:261-290, intersect_kernel.py
+// :95-212). |det| < det_eps rejects; an invalid row accepts nothing.
+PTRE_HD bool row_accepts(const float* row, const float o[3], const float d[3],
+                         float t_min, float t_max, float det_eps, float* t_out) {
+  if (!(row[9] > 0.5f)) return false;
+  const float dx = d[0], dy = d[1], dz = d[2];
+  const float e1x = row[3], e1y = row[4], e1z = row[5];
+  const float e2x = row[6], e2y = row[7], e2z = row[8];
+  const float pvx = dy * e2z - dz * e2y;
+  const float pvy = dz * e2x - dx * e2z;
+  const float pvz = dx * e2y - dy * e2x;
+  const float det = e1x * pvx + e1y * pvy + e1z * pvz;
+  const float inv_det = 1.0f / (fabsf(det) < det_eps ? 1.0f : det);
+  const float tvx = o[0] - row[0], tvy = o[1] - row[1], tvz = o[2] - row[2];
+  const float u = (tvx * pvx + tvy * pvy + tvz * pvz) * inv_det;
+  const float qvx = tvy * e1z - tvz * e1y;
+  const float qvy = tvz * e1x - tvx * e1z;
+  const float qvz = tvx * e1y - tvy * e1x;
+  const float v = (dx * qvx + dy * qvy + dz * qvz) * inv_det;
+  const float t = (e2x * qvx + e2y * qvy + e2z * qvz) * inv_det;
+  *t_out = t;
+  return fabsf(det) >= det_eps && u >= 0.0f && u <= 1.0f && v >= 0.0f &&
+         u + v <= 1.0f && t >= t_min && t <= t_max;
+}
+
+// Moller-Trumbore of one ray against the 64 compact rows of leaf `leaf`,
+// which start at `rows` (wavefront.py:261-303): strict t < best in
+// ascending row order.
 PTRE_HD void sweep_leaf(const float* rows, int leaf, const WaveRay& r,
                         const WaveParams& p, TriBest& best) {
-  const float ox = r.o[0], oy = r.o[1], oz = r.o[2];
-  const float dx = r.d[0], dy = r.d[1], dz = r.d[2];
   for (int j = 0; j < kLeaf; ++j) {
-    const float* tr = rows + j * kTriStride;
-    if (!(tr[18] > 0.5f)) continue;  // invalid rows accept nothing
-    const float v0x = tr[0], v0y = tr[1], v0z = tr[2];
-    const float e1x = tr[3] - v0x, e1y = tr[4] - v0y, e1z = tr[5] - v0z;
-    const float e2x = tr[6] - v0x, e2y = tr[7] - v0y, e2z = tr[8] - v0z;
-    const float pvx = dy * e2z - dz * e2y;
-    const float pvy = dz * e2x - dx * e2z;
-    const float pvz = dx * e2y - dy * e2x;
-    const float det = e1x * pvx + e1y * pvy + e1z * pvz;
-    const float inv_det = 1.0f / (fabsf(det) < p.det_eps ? 1.0f : det);
-    const float tvx = ox - v0x, tvy = oy - v0y, tvz = oz - v0z;
-    const float u = (tvx * pvx + tvy * pvy + tvz * pvz) * inv_det;
-    const float qvx = tvy * e1z - tvz * e1y;
-    const float qvy = tvz * e1x - tvx * e1z;
-    const float qvz = tvx * e1y - tvy * e1x;
-    const float v = (dx * qvx + dy * qvy + dz * qvz) * inv_det;
-    const float t = (e2x * qvx + e2y * qvy + e2z * qvz) * inv_det;
-    const bool acc = fabsf(det) >= p.det_eps && u >= 0.0f && u <= 1.0f &&
-                     v >= 0.0f && u + v <= 1.0f && t >= p.t_min &&
-                     t <= p.t_max;
-    if (!acc) continue;
+    float t;
+    if (!row_accepts(rows + j * kRowStride, r.o, r.d, p.t_min, p.t_max, p.det_eps, &t)) {
+      continue;
+    }
     best.hit = true;
     if (t < best.t) {
       best.t = t;

@@ -42,14 +42,16 @@ SOURCES = KERNEL_UNITS + ("trace.cuh", "philox.cuh", "replay.cuh", "wave.cuh",
 #: near-degenerate triangle's d(inverse squared edge length) by far more than
 #: float rounding, against the plain version's separate roundings. The sweep:
 #: its selections are integers, held exactly against the plain version. The
-#: replay pair: contracted, the chain's near-singular terms (Oren-Nayar's tan
-#: at grazing incidence, the ground sphere's horizon) put colours beyond 1e-4
-#: of the plain version and its geometry gradients further from float64;
-#: uncontracted it is bit-equal to the plain version (chip_smoke.py phase 21
-#: reads both builds).
+#: replay pair and the fused backward, which share replay.cuh's chain:
+#: contracted, the chain's near-singular terms (Oren-Nayar's tan at grazing
+#: incidence, the ground sphere's horizon) put colours beyond 1e-4 of the
+#: plain version and summed geometry gradients 2-2.25x further from float64
+#: than the plain float32's; uncontracted the replay pair is bit-equal to the
+#: plain version (chip_smoke.py phases 7, 17 and 21 read both builds).
 UNIT_FLAGS = {"soft_raster_kernel.cu": ("-fmad=false",),
               "sweep_kernel.cu": ("-fmad=false",),
-              "replay_kernel.cu": ("-fmad=false",)}
+              "replay_kernel.cu": ("-fmad=false",),
+              "fused_grad_kernel.cu": ("-fmad=false",)}
 
 #: (seconds, ptxas report) of the build this process ran, or None if the
 #: library was already built
@@ -149,13 +151,13 @@ def load_library() -> ctypes.CDLL:
     # (params, state, boxes, mask, lanes, stream)
     lib.ptre_wave_mask.argtypes = [ptr] * 4 + [ctypes.c_int, ptr]
     lib.ptre_wave_bounce.restype = ctypes.c_int
-    # (params, state, ids, shortlist, counts, tris, sphs, mats, sky, urand, out,
-    #  sel, lanes, stream)
-    lib.ptre_wave_bounce.argtypes = [ptr] * 12 + [ctypes.c_int, ptr]
+    # (params, state, ids, shortlist, counts, tris, rows, boxes, sphs, mats,
+    #  sky, urand, out, sel, lanes, stream)
+    lib.ptre_wave_bounce.argtypes = [ptr] * 14 + [ctypes.c_int, ptr]
     lib.ptre_trace_culled.restype = ctypes.c_int
-    # (params, o, d, urand, tris, boxes, boxes2, sphs, mats, sky, color, sel,
-    #  lanes, stream)
-    lib.ptre_trace_culled.argtypes = [ptr] * 12 + [ctypes.c_int, ptr]
+    # (params, o, d, urand, tris, rows, boxes, boxes2, sphs, mats, sky, color,
+    #  sel, lanes, stream)
+    lib.ptre_trace_culled.argtypes = [ptr] * 13 + [ctypes.c_int, ptr]
     lib.ptre_raster_hard.restype = ctypes.c_int
     # (params, tris, cbox, out, stream)
     lib.ptre_raster_hard.argtypes = [ptr] * 5
@@ -166,8 +168,8 @@ def load_library() -> ctypes.CDLL:
     # (params, tris, cbox, res, dimg, dtab, stream)
     lib.ptre_soft_bwd.argtypes = [ptr] * 7
     lib.ptre_sweep.restype = ctypes.c_int
-    # (params, o, d, tris, sphs, out, stream)
-    lib.ptre_sweep.argtypes = [ptr] * 7
+    # (params, o, d, active, rows, boxes, boxes2, sphs, out, stats, stream)
+    lib.ptre_sweep.argtypes = [ptr] * 11
     lib.ptre_replay_blocks.restype = ctypes.c_int
     lib.ptre_replay_blocks.argtypes = [ctypes.c_int]
     lib.ptre_replay_fwd.restype = ctypes.c_int

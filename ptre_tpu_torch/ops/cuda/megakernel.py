@@ -966,6 +966,7 @@ def trace_culled(o, d, scene, consts: TraceConsts, max_depth: int, seed: int = 0
     n_super = scene.super_boxes.shape[0]
     expected = [("o", o, (R, 3), torch.float32), ("d", d, (R, 3), torch.float32),
                 ("tris", scene.tris, (scene.tris.shape[0], 32), torch.float32),
+                ("rows", scene.rows, (scene.tris.shape[0], 12), torch.float32),
                 ("cull_boxes", scene.cull_boxes, (n_super * SUPER, 8), torch.float32),
                 ("super_boxes", scene.super_boxes, (n_super, 8), torch.float32),
                 ("sphs", scene.sphs, (scene.n_sph, 16), torch.float32),
@@ -973,15 +974,16 @@ def trace_culled(o, d, scene, consts: TraceConsts, max_depth: int, seed: int = 0
                 ("sky", scene.sky, (8,), torch.float32)]
     if urand is not None:
         expected.append(("urand", urand, (2 + 2 * max_depth, R), torch.float32))
+    if scene.num_mats > MAX_MATS:
+        raise RendererError(f"the culled megakernel takes <= {MAX_MATS} materials")
     check_tensors("o", o.device, expected)
     if not (R >= 1 and max_depth >= 1 and 32 <= lanes <= 256 and lanes % 32 == 0):
         raise RendererError(f"the culled megakernel takes >= 1 ray, max_depth >= 1 and 32 "
                             f"<= lanes <= 256, a multiple of 32; got {R}, {max_depth}, {lanes}")
     if (scene.tris.shape[0] < scene.n_leaf * LEAF or n_super * SUPER < scene.n_leaf
-            or scene.tris.data_ptr() % 16 or scene.num_mats > MAX_MATS):
-        raise RendererError("the culled megakernel takes n_leaf whole 64-row leaves, 16-byte "
-                            f"aligned, their boxes in whole supertiles and <= {MAX_MATS} "
-                            "materials")
+            or scene.rows.data_ptr() % 16):
+        raise RendererError("the culled megakernel takes n_leaf whole 64-row leaves, rows "
+                            "16-byte aligned, and their boxes in whole supertiles")
     color = torch.empty((R, 3), dtype=torch.float32, device=o.device)
     sel = torch.empty((max_depth, R), dtype=torch.int32, device=o.device) if record else None
     p = MegaParams(
@@ -994,7 +996,7 @@ def trace_culled(o, d, scene, consts: TraceConsts, max_depth: int, seed: int = 0
         rc = lib.ptre_trace_culled(
             ctypes.addressof(p), o.data_ptr(), d.data_ptr(),
             None if urand is None else urand.data_ptr(), scene.tris.data_ptr(),
-            scene.cull_boxes.data_ptr(), scene.super_boxes.data_ptr(),
+            scene.rows.data_ptr(), scene.cull_boxes.data_ptr(), scene.super_boxes.data_ptr(),
             scene.sphs.data_ptr(), scene.mats.data_ptr(), scene.sky.data_ptr(),
             color.data_ptr(), None if sel is None else sel.data_ptr(), lanes, stream)
     if rc != 0:

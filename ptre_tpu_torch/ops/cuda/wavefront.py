@@ -12,8 +12,10 @@ Port of `ptre_tpu/ops/pallas/wavefront.py`. Per bounce:
      block's live rays;
   3. PyTorch compacts the (nb, n_leaf) mask into ascending leaf shortlists
      (`shortlists_from_mask`);
-  4. the BOUNCE kernel sweeps each block's shortlist, tests the spheres,
-     re-derives the winner and shades it, and writes the next state.
+  4. the BOUNCE kernel walks each block's shortlist; a ray sweeps a listed
+     leaf's rows only where it passes the leaf's box itself, bounded by its
+     closest hit so far; then it tests the spheres, re-derives the winner
+     and shades it, and writes the next state.
 
 A final scatter puts the colours back in ray order. With ``record`` the
 bounce also writes every live ray's winner into a (B, R) int32 selection
@@ -75,6 +77,15 @@ STATE_ROWS = 10
 SCREEN_DILATE = 1.0
 W_EPS = 1e-6
 _SCREEN_BIG = mk.f32(3e38)
+#: the per-ray culls (bounce kernel, culled megakernel, staged sweep) test the
+#: leaf and supertile boxes grown on every side by this share of the scene's
+#: largest vertex coordinate, so that a box never culls a row the
+#: Moller-Trumbore test accepts: a box edge, a flat axis-aligned leaf or a
+#: grazing ray, where the slab test and the triangle test round t apart by
+#: ulps of the coordinates involved (ray origins up to ~100x the scene's
+#: extent stay inside the margin). The mask kernel keeps the reference's
+#: exact boxes.
+CULL_PAD_REL = 1e-5
 
 #: kernel launches made by `wave_mask` and `wave_bounce` in this process
 mask_launches = 0
@@ -198,6 +209,8 @@ class WaveScene:
     packet's device. Built once per `render_step`, reused by every sample."""
 
     tris: torch.Tensor  # (n_leaf * LEAF, 32) Morton-ordered pack_tri32 rows
+    rows: torch.Tensor  # (n_leaf * LEAF, 12) the same leaves' compact
+    #                     intersection rows (`pack_rows`), which the sweeps read
     boxes: torch.Tensor  # (n_leaf, 8) leaf boxes, pack_tile_boxes
     sphs: torch.Tensor  # (S, 16) pack_sph16
     mats: torch.Tensor  # (8, 8)
@@ -209,24 +222,50 @@ class WaveScene:
     num_mats: int
     tri_rows: int  # T, the packet's padded triangle rows: rows >= T of `tris`
     #               are dead, and sphere s is row T + s of the unified table
-    cull_boxes: torch.Tensor  # (n_super * 8, 8) `boxes` in whole supertiles
+    cull_boxes: torch.Tensor  # (n_super * 8, 8) `boxes` dilated (CULL_PAD_REL),
+    #                           in whole supertiles
     super_boxes: torch.Tensor  # (n_super, 8) their unions, pack_super_boxes
     perm_tri: torch.Tensor = None  # (T,) Morton permutation of packet rows
     leaf_screen: torch.Tensor = None  # (n_leaf, 4) with a screen camera
 
 
+def pack_rows(tris, perm):
+    """(N, 12) compact intersection rows of (N, 32) float32 pack_tri32 rows
+    (wave.cuh kRowStride): v0, e1 = v1 - v0, e2 = v2 - v0 (each one float32
+    subtraction, the bits a kernel computes), valid, then row m's packet row
+    ``perm[m]`` as int32 bits, 0 past the packet's rows, and 0."""
+    v0 = tris[:, 0:3]
+    rows = torch.cat([v0, tris[:, 3:6] - v0, tris[:, 6:9] - v0, tris[:, 18:19],
+                      tris.new_zeros((tris.shape[0], 2))], dim=1).contiguous()
+    rows.view(torch.int32)[:perm.shape[0], 10] = perm.to(torch.int32)
+    return rows
+
+
+def cull_tables(boxes, scale):
+    """(cull_boxes, super_boxes) of the (n_leaf, 8) leaf boxes: grown by
+    CULL_PAD_REL * ``scale`` on every side (an empty box stays empty), padded
+    with empty boxes to whole supertiles, and the supertiles' unions."""
+    pad = CULL_PAD_REL * scale
+    grown = torch.cat([boxes[:, 0:3] - pad, boxes[:, 3:6] + pad, boxes[:, 6:]], dim=1)
+    cull = torch.cat([grown, mk.empty_boxes((-boxes.shape[0]) % mk.SUPER, boxes.device)])
+    return cull.contiguous(), mk.pack_super_boxes(cull).contiguous()
+
+
+@torch.no_grad()
 def prepare_scene(packet, screen_cam=None, leaf: int = LEAF,
                   morton: bool = True) -> WaveScene:
-    """Pack ``packet`` for `trace` and `megakernel.trace_culled`: world-space
-    triangles in Morton order, in whole leaves of ``leaf`` rows (the last
-    one padded with invalid rows), their boxes (also padded to whole
-    supertiles with empty boxes, and the supertiles' union boxes), the
-    spheres, materials and sky, the scene bounds, and with ``screen_cam``
-    the leaves' screen boxes for bounce-0 binning. ``morton=False`` keeps
-    the packet's own row order (``perm_tri`` None): the unculled megakernel
-    of `megakernel.py:1255-1267`. Unlike the reference, no leaf is added for
+    """Pack ``packet`` for `trace`, `megakernel.trace_culled` and the staged
+    sweep (`sweep_kernel`): world-space triangles in Morton order, in whole
+    leaves of ``leaf`` rows (the last one padded with invalid rows), as
+    32-float and compact rows, their boxes (also grown for the per-ray culls
+    and padded to whole supertiles with empty boxes, and the supertiles'
+    union boxes), the spheres, materials (None past mk.MAX_MATS: the staged
+    route's packets) and sky, the scene bounds, and with ``screen_cam`` the
+    leaves' screen boxes for bounce-0 binning. ``morton=False`` keeps the
+    packet's own row order (``perm_tri`` None): the unculled megakernel of
+    `megakernel.py:1255-1267`. Unlike the reference, no leaf is added for
     shortlist padding, the leaf count is not rounded up to 128, and the
-    triangle table is not padded to whole supertiles."""
+    triangle table is not padded to whole supertiles. Detached."""
     v0, v1, v2, n0, n1, n2 = packet.world_triangles()
     dev = packet.device
     tri_valid, tri_mat = packet.tri_valid, packet.tri_mat
@@ -251,6 +290,7 @@ def prepare_scene(packet, screen_cam=None, leaf: int = LEAF,
         boxes = mk.empty_boxes(1, dev)
         scene_lo = torch.zeros(3, device=dev)
         scene_hi = torch.ones(3, device=dev)
+    rows = pack_rows(tris, perm if perm is not None else torch.arange(T, device=dev))
     leaf_screen = None
     if screen_cam is not None and n_leaf:
         leaf_screen = leaf_screen_boxes(v0, v1, v2, tri_valid, screen_cam, leaf, n_leaf)
@@ -259,15 +299,16 @@ def prepare_scene(packet, screen_cam=None, leaf: int = LEAF,
                          packet.sph_mat)
     if sphs.shape[0] == 0:
         sphs = sphs.new_zeros((1, 16))  # one invalid row: the winner gather has a row
-    cull_boxes = torch.cat([boxes, mk.empty_boxes((-boxes.shape[0]) % mk.SUPER, dev)])
-    super_boxes = mk.pack_super_boxes(cull_boxes)
+    scale = torch.maximum(scene_lo.abs().amax(), scene_hi.abs().amax())
+    cull_boxes, super_boxes = cull_tables(boxes, scale)
+    mats = (mk.pack_mats(packet.mat_kind, packet.mat_albedo, packet.mat_param)
+            if packet.num_materials <= mk.MAX_MATS else None)
     return WaveScene(
-        tris=tris.contiguous(), boxes=boxes.contiguous(), sphs=sphs.contiguous(),
-        mats=mk.pack_mats(packet.mat_kind, packet.mat_albedo, packet.mat_param),
-        sky=sky.to(torch.float32).contiguous(), scene_lo=scene_lo, scene_hi=scene_hi,
-        n_leaf=n_leaf, n_sph=sphs.shape[0], num_mats=int(packet.num_materials),
-        tri_rows=T, cull_boxes=cull_boxes.contiguous(),
-        super_boxes=super_boxes.contiguous(), perm_tri=perm, leaf_screen=leaf_screen)
+        tris=tris.contiguous(), rows=rows, boxes=boxes.contiguous(), sphs=sphs.contiguous(),
+        mats=mats, sky=sky.to(torch.float32).contiguous(), scene_lo=scene_lo,
+        scene_hi=scene_hi, n_leaf=n_leaf, n_sph=sphs.shape[0],
+        num_mats=int(packet.num_materials), tri_rows=T, cull_boxes=cull_boxes,
+        super_boxes=super_boxes, perm_tri=perm, leaf_screen=leaf_screen)
 
 
 # ---- the mask kernel (B7) ----------------------------------------------------
@@ -347,17 +388,33 @@ def _listed(short, cnt, n_leaf: int):
 
 def wave_bounce_reference(state, ids, short, cnt, scene: WaveScene, consts, bounce: int,
                           seed: int = 0, sample: int = 0, urand=None, lanes: int = LANES,
-                          sel=None):
+                          sel=None, stats: dict = None):
     """Plain version of the bounce kernel: the next (10, r_pad) state (a new
-    tensor). Loops over leaves; each leaf's 64 rows are tested against the
-    live rays of the blocks that list it (`wavefront.py:209-466`). With
-    ``sel`` (B, R) int32 the live rays' winners are written into row
-    ``bounce`` at their ids, in place (`record_sel`, `:345-349`)."""
+    tensor). Loops over leaves; each leaf's 64 rows are tested against every
+    live ray of the blocks that list it, as the TPU kernel sweeps them
+    (`wavefront.py:209-466`): no per-ray cull. With ``sel`` (B, R) int32 the
+    live rays' winners are written into row ``bounce`` at their ids, in
+    place (`record_sel`, `:345-349`). ``stats`` receives the work the
+    kernel's per-ray cull leaves, without changing what is swept:
+    ``listed_pairs`` ((live ray, listed leaf) pairs, each one slab test) and
+    ``own_pairs`` (those whose cull box the ray itself passes before its
+    closest hit so far, each 64 row tests); leaves are visited in ascending
+    order, as the kernel walks a shortlist."""
     active = state[9] > 0.5
     listed = _listed(short, cnt, scene.n_leaf)
     best = mk.TriBest(state)
+    if stats is not None:
+        iv = [mk.slab_inv(state[3 + c]) for c in range(3)]
+        boxes = scene.cull_boxes[:scene.n_leaf, :6].tolist()
+        stats.update(listed_pairs=0, own_pairs=0)
     for leaf in range(scene.n_leaf):
-        ray = (listed[:, leaf].repeat_interleave(lanes) & active).nonzero().squeeze(1)
+        cand = listed[:, leaf].repeat_interleave(lanes) & active
+        if stats is not None:
+            tn, tf = mk.slab_interval(boxes[leaf], state[0:3], iv)
+            stats["listed_pairs"] += int(cand.sum())
+            stats["own_pairs"] += int((cand & (tn <= tf) & (tf >= consts.t_min)
+                                       & (tn <= best.t)).sum())
+        ray = cand.nonzero().squeeze(1)
         if ray.numel():
             mk.sweep_leaf_reference(scene.tris, leaf, ray, state, consts, best)
     out, winners = mk.finish_bounce_reference(state, ids, best, scene, consts, bounce, seed,
@@ -379,6 +436,9 @@ def _check_bounce_inputs(state, ids, short, cnt, scene: WaveScene, urand, lanes,
                  torch.int32),
                 ("cnt", cnt, (nb,), torch.int32),
                 ("tris", scene.tris, (scene.tris.shape[0], 32), torch.float32),
+                ("rows", scene.rows, (scene.tris.shape[0], 12), torch.float32),
+                ("cull_boxes", scene.cull_boxes, (scene.cull_boxes.shape[0], 8),
+                 torch.float32),
                 ("sphs", scene.sphs, (scene.n_sph, 16), torch.float32),
                 ("mats", scene.mats, (mk.MAX_MATS, 8), torch.float32),
                 ("sky", scene.sky, (8,), torch.float32)]
@@ -387,14 +447,16 @@ def _check_bounce_inputs(state, ids, short, cnt, scene: WaveScene, urand, lanes,
     if sel is not None:
         expected.append(("sel", sel, (sel.shape[0], sel.shape[1] if sel.dim() == 2 else -1),
                          torch.int32))
+    if scene.num_mats > mk.MAX_MATS:
+        raise RendererError(f"the bounce kernel takes <= {mk.MAX_MATS} materials")
     mk.check_tensors("state", dev, expected)
     if sel is not None and not (0 <= bounce < sel.shape[0] and sel.shape[1] >= 1):
         raise RendererError(f"sel has {sel.shape[0]} bounce rows, bounce is {bounce}")
     _check_lanes(r_pad, lanes)
-    if scene.tris.shape[0] < max(scene.n_leaf, 1) * LEAF or scene.tris.data_ptr() % 16:
-        raise RendererError("tris must hold n_leaf whole 64-row leaves, 16-byte aligned")
-    if scene.num_mats > mk.MAX_MATS:
-        raise RendererError(f"the bounce kernel takes <= {mk.MAX_MATS} materials")
+    if (scene.tris.shape[0] < max(scene.n_leaf, 1) * LEAF or scene.rows.data_ptr() % 16
+            or scene.cull_boxes.shape[0] < scene.n_leaf):
+        raise RendererError("tris and rows must hold n_leaf whole 64-row leaves, rows "
+                            "16-byte aligned, and cull_boxes n_leaf boxes")
 
 
 def wave_bounce(state, ids, short, cnt, scene: WaveScene, consts, bounce: int,
@@ -426,7 +488,8 @@ def wave_bounce(state, ids, short, cnt, scene: WaveScene, consts, bounce: int,
         stream = torch.cuda.current_stream(state.device).cuda_stream
         rc = lib.ptre_wave_bounce(
             ctypes.addressof(p), state.data_ptr(), ids.data_ptr(), short.data_ptr(),
-            cnt.data_ptr(), scene.tris.data_ptr(), scene.sphs.data_ptr(),
+            cnt.data_ptr(), scene.tris.data_ptr(), scene.rows.data_ptr(),
+            scene.cull_boxes.data_ptr(), scene.sphs.data_ptr(),
             scene.mats.data_ptr(), scene.sky.data_ptr(),
             None if urand is None else urand.data_ptr(), out.data_ptr(),
             None if sel is None else sel.data_ptr(), lanes, stream)

@@ -22,8 +22,10 @@ The staged route's sweep is the sweep kernel (`ops/cuda/sweep_kernel.py`)
 on CUDA tensors and its plain version on CPU tensors
 (``intersect_backend`` "auto", "pallas", "fused"); "xla" asks for the plain
 sweep, which on the card would be a hidden fallback with (R, T)
-temporaries, so it raises there. CUDA tensors run kernels, CPU tensors
-their plain versions, for both routes.
+temporaries, so it raises there. Each bounce sweeps only the rays still
+live: a dead ray's selection is never read, its factor being masked out.
+CUDA tensors run kernels, CPU tensors their plain versions, for both
+routes.
 
 Random numbers of the staged route, bounce b's scatter pair: with a
 threefry ``key`` (`rng.Key`) exactly the reference's draws,
@@ -86,11 +88,13 @@ def check_grad_dispatch(packet, device, config=None) -> None:
         check_staged_sweep(config, device)
 
 
-def _sweep_fn(tables, consts):
-    """``closest_hit``'s sweep over the tables packed once per trace."""
+def _sweep_fn(scene, consts, active):
+    """``closest_hit``'s sweep over the leaf table packed once per trace, of
+    the rays ``active`` at this bounce: a dead ray is not swept and selects
+    nothing (its factor is masked out of the colour)."""
     def fn(o, d, packet, world_tris, t_min, t_max, det_eps):
-        return sweep_kernel.sweep_packed(o.contiguous(), d.contiguous(), tables,
-                                         consts.t_min, consts.t_max, consts.det_eps)
+        return sweep_kernel.sweep_packed(o.contiguous(), d.contiguous(), scene,
+                                         consts.t_min, consts.t_max, consts.det_eps, active)
     return fn
 
 
@@ -106,8 +110,7 @@ def trace_staged(origins, directions, packet, config, seed: int = 0, sample: int
     consts = mk.TraceConsts.from_config(config)
     R = origins.shape[0]
     world_tris = packet.world_triangles()  # hoisted: shared by every bounce
-    tables = sweep_kernel.prepare(packet, world_tris)
-    sweep_fn = _sweep_fn(tables, consts)
+    scene = sweep_kernel.prepare(packet)
     if key is None:
         ur = mk.trace_uniforms(origins, config.max_depth, seed, sample, urand)
     mat_kind = packet.mat_kind.long()
@@ -117,7 +120,7 @@ def trace_staged(origins, directions, packet, config, seed: int = 0, sample: int
     active = torch.ones((R,), dtype=torch.bool, device=origins.device)
     for b in range(config.max_depth):
         hit = intersect.closest_hit(o, d, packet, world_tris, consts.t_min, consts.t_max,
-                                    consts.det_eps, sweep_fn=sweep_fn)
+                                    consts.det_eps, sweep_fn=_sweep_fn(scene, consts, active))
         if key is not None:
             u1, u2 = rng.cosine_uniforms(rng.fold(key, b), (R,), origins.device)
         else:

@@ -212,15 +212,43 @@ def sphere_hit_attrs_t(o, d, center, radius, t_min):
     return t, p, torch.where(front[:, None], n, -n), front
 
 
-def gather_rows(table, idx):
-    """``table[idx]`` of a (N, C) table by an int64 index, differentiable
-    w.r.t. the table. Through ``embedding``: its backward sums each row's
-    cotangents by sorted segments, where the backward of ``table[idx]``
-    accumulates every duplicate of an index one after another — with a few
-    sphere or material rows gathered by 2,073,600 rays that took 7.1 s of a
-    7.2 s staged training step on an H100 (chip_smoke.py phase 20 times
-    both)."""
-    return F.embedding(idx, table)
+class _GatherRows(torch.autograd.Function):
+    """``embedding`` of a (N, C) table by an int64 index, with its backward,
+    d(table), summed in float64 (one leading-axis slice at a time for a 2-D
+    index, which bounds the float64 temporaries). ``embedding``'s own
+    backward sums each row's cotangents by sorted segments, fast where
+    ``table[idx]``'s adds an index's duplicates one after another (a few
+    sphere or material rows gathered by 2,073,600 rays: 7.1 s of a 7.2 s
+    staged training step on an H100); but in float32 it adds a hot row's
+    million cotangents in long sequential runs: on a training step's
+    one-sign cotangent its d(albedo) sat 1.8e-4 from float64, where these
+    sums sit below 3e-8 (chip_smoke.py phase 21 reads both)."""
+
+    @staticmethod
+    def forward(ctx, table, idx, pad_row: int):
+        ctx.save_for_backward(idx)
+        ctx.n_rows, ctx.pad_row = table.shape[0], pad_row
+        return F.embedding(idx, table, padding_idx=None if pad_row < 0 else pad_row)
+
+    @staticmethod
+    def backward(ctx, dg):
+        (idx,) = ctx.saved_tensors
+
+        def part(g, i):
+            return torch.ops.aten.embedding_dense_backward(
+                g.to(torch.float64), i, ctx.n_rows, ctx.pad_row, False)
+
+        dtable = (sum(part(dg[b], idx[b]) for b in range(idx.shape[0])) if idx.dim() == 2
+                  else part(dg, idx))
+        return dtable.to(dg.dtype), None, None
+
+
+def gather_rows(table, idx, pad_row: int = -1):
+    """``table[idx]`` of a (N, C) table by an int64 index (any shape),
+    differentiable w.r.t. the table, d(table) summed in float64
+    (`_GatherRows`). ``pad_row`` >= 0 names a row whose cotangents are
+    dropped (``embedding``'s ``padding_idx``)."""
+    return _GatherRows.apply(table, idx, pad_row)
 
 
 def sweep_edges(o, d, v0, e1, e2, tri_valid, center, radius, sph_valid, t_min,

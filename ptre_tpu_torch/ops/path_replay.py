@@ -13,9 +13,9 @@ it is the plain version of the fused backward kernel
 Both primitive classes live in one unified (P, 27) table (`build_table`),
 so each bounce gathers one row per ray. The plain replay (`replay_table`)
 gathers by an indexed load; the replay route gathers every bounce's rows
-once through ``embedding`` (`gather_rows`), whose backward is d(table). The
-reference's one-hot matmul (`path_replay.py:125-135`) is a TPU workaround
-for slow dynamic gathers.
+once through `intersect.gather_rows` (`gather_rows`), whose backward,
+d(table), is summed in float64. The reference's one-hot matmul
+(`path_replay.py:125-135`) is a TPU workaround for slow dynamic gathers.
 
 The replay route (`trace_fused_grad`, `path_replay.py:364-394`): the
 recording kernel's selections, the winners' rows gathered outside, and the
@@ -38,8 +38,8 @@ pair (rows 0-1, the pixel jitter, are not read here).
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
+from ptre_tpu_torch.ops import intersect
 from ptre_tpu_torch.ops.cuda import megakernel as mk
 from ptre_tpu_torch.ops.cuda import replay_kernel as rpk
 
@@ -95,44 +95,16 @@ def replay_table(o, d, sel, urand, table, sky6, sph_offset: int, consts,
     return torch.stack(c_, dim=1)
 
 
-class _GatherRows(torch.autograd.Function):
-    """``embedding`` of the padded table by ``idx`` (B, R), with its
-    backward summed in float64, one bounce at a time. ``embedding``'s own
-    backward sums each row's cotangents by sorted segments, fast where
-    ``table[idx]``'s adds an index's duplicates one after another (2,073,600
-    rays on a few rows: seconds a step on an H100); but in float32 it adds a
-    hot row's million cotangents in long sequential runs, and on the demo
-    scene at 1920x1080 that moved its material gradients out of the 1e-4
-    at which ``chip_smoke.py`` phase 21 holds them to the fused route's
-    (that phase reads both sums against float64)."""
-
-    @staticmethod
-    def forward(ctx, padded, idx, pad_row: int):
-        ctx.save_for_backward(idx)
-        ctx.n_rows, ctx.pad_row = padded.shape[0], pad_row
-        return F.embedding(idx, padded, padding_idx=pad_row)
-
-    @staticmethod
-    def backward(ctx, dg):
-        (idx,) = ctx.saved_tensors
-        dtable = sum(torch.ops.aten.embedding_dense_backward(
-            dg[b].to(torch.float64), idx[b], ctx.n_rows, ctx.pad_row, False)
-            for b in range(idx.shape[0]))
-        return dtable.to(dg.dtype), None, None
-
-
 def gather_rows(table, sel):
     """Every bounce's winner rows, (B, R, 27): row ``sel[b, r]`` of the
     (P, 27) table, zeros where it is -1 (`path_replay.py:231-249`), through
-    ``embedding`` on the table padded with one zero row. Differentiable
-    w.r.t. the table: its backward, d(table), is summed in float64
-    (`_GatherRows`). The staged route's `intersect.gather_rows` keeps
-    ``embedding``'s float32 backward: it gathers only rows that were hit,
-    and its gradients are held to the fused route's at 1e-2, not 1e-4."""
+    `intersect.gather_rows` on the table padded with one zero row, whose
+    cotangents are dropped. Differentiable w.r.t. the table: its backward,
+    d(table), is summed in float64."""
     P = table.shape[0]
     padded = torch.cat([table, table.new_zeros((1, table.shape[1]))], dim=0)
     idx = torch.where(sel >= 0, sel, P).long()
-    return _GatherRows.apply(padded, idx, P)
+    return intersect.gather_rows(padded, idx, P)
 
 
 def replay(o, d, sel, urand, packet, config):

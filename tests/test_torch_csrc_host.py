@@ -132,9 +132,9 @@ def wave_lib(tmp_path_factory):
     lib.ptre_wave_mask_host.restype = None
     lib.ptre_wave_mask_host.argtypes = [ptr] * 4 + [ctypes.c_int]
     lib.ptre_wave_bounce_host.restype = None
-    lib.ptre_wave_bounce_host.argtypes = [ptr] * 12 + [ctypes.c_int]
+    lib.ptre_wave_bounce_host.argtypes = [ptr] * 14 + [ctypes.c_int]
     lib.ptre_trace_culled_host.restype = None
-    lib.ptre_trace_culled_host.argtypes = [ptr] * 12 + [ctypes.c_int]
+    lib.ptre_trace_culled_host.argtypes = [ptr] * 13 + [ctypes.c_int]
     return lib
 
 
@@ -192,7 +192,8 @@ def test_host_wave_build_matches_plain_versions(wave_lib, name, external):
         for out, rec in ((got, sel), (plain_state, None)):
             wave_lib.ptre_wave_bounce_host(
                 ctypes.addressof(p), state.data_ptr(), ids.data_ptr(), short.data_ptr(),
-                cnt.data_ptr(), scene.tris.data_ptr(), scene.sphs.data_ptr(),
+                cnt.data_ptr(), scene.tris.data_ptr(), scene.rows.data_ptr(),
+                scene.cull_boxes.data_ptr(), scene.sphs.data_ptr(),
                 scene.mats.data_ptr(), scene.sky.data_ptr(),
                 None if urand is None else urand.data_ptr(), out.data_ptr(),
                 None if rec is None else rec.data_ptr(), lanes)
@@ -249,7 +250,8 @@ def test_host_culled_megakernel_matches_plain_version(wave_lib, name, external, 
         wave_lib.ptre_trace_culled_host(
             ctypes.addressof(p), o.data_ptr(), d.data_ptr(),
             None if urand is None else urand.data_ptr(), scene.tris.data_ptr(),
-            scene.cull_boxes.data_ptr(), scene.super_boxes.data_ptr(), scene.sphs.data_ptr(),
+            scene.rows.data_ptr(), scene.cull_boxes.data_ptr(), scene.super_boxes.data_ptr(),
+            scene.sphs.data_ptr(),
             scene.mats.data_ptr(), scene.sky.data_ptr(), out.data_ptr(),
             None if rec is None else rec.data_ptr(), lanes)
     assert torch.equal(color, plain_color)

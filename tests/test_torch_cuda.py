@@ -631,7 +631,8 @@ def _bounce1_rays(o, d, pkt, cfg, seed=3):
 @pytest.mark.parametrize("scene", ["demo", "config4", "nine"])
 def test_sweep_kernel_equals_plain_version(cuda, scene):
     # selections are integers: the kernel (built without FMA contraction)
-    # and the plain sweep must agree exactly, primary and bounce-1 rays
+    # and the plain sweep must agree exactly, primary and bounce-1 rays, with
+    # and without the counters (two instantiations)
     from ptre_tpu_torch.ops.cuda import sweep_kernel as sk
 
     pkt = {"demo": lambda: demo.reference_demo_scene(16, 8).build_packet(device="cpu"),
@@ -644,16 +645,25 @@ def test_sweep_kernel_equals_plain_version(cuda, scene):
     jit = torch.rand((W * H, 2), device=cuda, generator=torch.Generator(cuda).manual_seed(2)) - 0.5
     o, d = cam_ops.get_rays(cam, px, py, jit)
     k = mk.TraceConsts.from_config(cfg)
-    tables = sk.prepare(pkt, pkt.world_triangles())
+    tables = sk.prepare(pkt)
     for ro, rd in ((o.contiguous(), d.contiguous()), _bounce1_rays(o, d, pkt, cfg)):
-        before = sk.launches
-        got = sk.sweep_packed(ro, rd, tables, k.t_min, k.t_max, k.det_eps)
-        want = sk.sweep_packed_reference(ro, rd, tables, k.t_min, k.t_max, k.det_eps)
-        torch.cuda.synchronize()
-        assert sk.launches == before + 1
-        for g, w in zip(got, want):
-            assert torch.equal(g, w)
-        assert bool(got[1].any() | got[3].any())
+        active = torch.arange(ro.shape[0], device=cuda) % 5 != 0
+        for mask in (None, active):
+            before = sk.launches
+            stats = torch.zeros(len(sk.STATS), dtype=torch.int64, device=cuda)
+            got = sk.sweep_packed(ro, rd, tables, k.t_min, k.t_max, k.det_eps, mask, stats)
+            want = sk.sweep_packed_reference(ro, rd, tables, k.t_min, k.t_max, k.det_eps,
+                                             mask)
+            uncounted = sk.sweep_packed(ro, rd, tables, k.t_min, k.t_max, k.det_eps, mask)
+            torch.cuda.synchronize()
+            assert sk.launches == before + 2
+            for g, u, w in zip(got, uncounted, want):
+                assert torch.equal(g, w) and torch.equal(u, w)
+            assert bool(got[1].any() | got[3].any())
+            n_live = ro.shape[0] if mask is None else int(mask.sum())
+            _, supers, passed, swept, live = stats.tolist()
+            assert live == n_live and 0 < passed <= swept <= n_live * tables.n_leaf
+            assert 0 < supers <= n_live * tables.super_boxes.shape[0]
 
 
 def test_staged_render_and_training_go_through_the_sweep_kernel(cuda):

@@ -182,9 +182,17 @@ def test_scene_boxes_for_the_culled_walk():
     assert scene.n_leaf % mk.SUPER != 0  # the last supertile is ragged
     assert scene.super_boxes.shape == (n_super, 8)
     assert scene.cull_boxes.shape == (n_super * mk.SUPER, 8)
-    assert torch.equal(scene.cull_boxes[:scene.n_leaf], scene.boxes)
+    # the leaf boxes grown by CULL_PAD_REL of the scene's largest coordinate
+    pad = wf.CULL_PAD_REL * torch.maximum(scene.scene_lo.abs().amax(),
+                                          scene.scene_hi.abs().amax())
+    assert torch.equal(scene.cull_boxes[:scene.n_leaf, 0:3], scene.boxes[:, 0:3] - pad)
+    assert torch.equal(scene.cull_boxes[:scene.n_leaf, 3:6], scene.boxes[:, 3:6] + pad)
+    full = scene.boxes[:, 0] <= scene.boxes[:, 3]  # an empty box stays empty
+    assert bool(full.any()) and not bool((scene.cull_boxes[:scene.n_leaf][~full, 0] <= 1e29).any())
+    assert bool((scene.cull_boxes[:scene.n_leaf][full, 0:3] < scene.boxes[full, 0:3]).all())
     assert torch.equal(scene.cull_boxes[scene.n_leaf:],
                        mk.empty_boxes(n_super * mk.SUPER - scene.n_leaf))
+    assert torch.equal(scene.super_boxes, mk.pack_super_boxes(scene.cull_boxes))
     assert scene.tri_rows == pkt.tri_valid.shape[0] <= scene.tris.shape[0]
     assert not bool((scene.tris[scene.tri_rows:, 18] > 0.5).any())  # dead rows
     meta = torch.empty((4, 3), device="meta")

@@ -31,6 +31,7 @@ import dataclasses
 import os
 import shutil
 import subprocess
+import types
 
 import jax
 import jax.numpy as jnp
@@ -132,19 +133,25 @@ def host_lib(tmp_path_factory):
                    check=True, capture_output=True, text=True)
     lib = ctypes.CDLL(out)
     lib.ptre_sweep_host.restype = None
-    lib.ptre_sweep_host.argtypes = [ctypes.c_void_p] * 6
+    lib.ptre_sweep_host.argtypes = [ctypes.c_void_p] * 9
     return lib
 
 
-def _host_sweep(lib, o, d, tables):
+def _host_sweep(lib, o, d, scene, active=None):
     R = o.shape[0]
     out = torch.full((4, R), -7, dtype=torch.int32)
-    p = sk.SweepParams(K.t_min, K.t_max, K.det_eps, R, tables.tris.shape[0],
-                       tables.sphs.shape[0])
+    p = sk.sweep_params(scene, R, K.t_min, K.t_max, K.det_eps)
     lib.ptre_sweep_host(ctypes.addressof(p), o.contiguous().data_ptr(),
-                        d.contiguous().data_ptr(), tables.tris.data_ptr(),
-                        tables.sphs.data_ptr(), out.data_ptr())
+                        d.contiguous().data_ptr(),
+                        None if active is None else active.contiguous().data_ptr(),
+                        scene.rows.data_ptr(), scene.cull_boxes.data_ptr(),
+                        scene.super_boxes.data_ptr(), scene.sphs.data_ptr(), out.data_ptr())
     return out[0], out[1].bool(), out[2], out[3].bool()
+
+
+def _assert_equal(got, want):
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
 
 
 @pytest.mark.parametrize("name", list(SCENES))
@@ -152,25 +159,44 @@ def test_host_build_of_sweep_body_equals_plain_sweep(host_lib, name):
     torch.set_num_threads(1)
     pkt = SCENES[name][1]().build_packet(device="cpu")
     wt = pkt.world_triangles()
-    tables = sk.prepare(pkt, wt)
-    assert tables.tris.shape[1] == sk.TRI_COLS and tables.sphs.shape[1] == sk.SPH_COLS
+    scene = sk.prepare(pkt)
+    assert scene.rows.shape == (scene.n_leaf * 64, 12)
     for o, d in _rays(pkt, seed=1):
         want = intersect.sweep(o, d, pkt, wt, K.t_min, K.t_max, K.det_eps)
-        for got in (_host_sweep(host_lib, o, d, tables),
-                    sk.sweep_packed(o, d, tables, K.t_min, K.t_max, K.det_eps)):
-            for g, w in zip(got, want):
-                assert torch.equal(g, w)
+        for got in (_host_sweep(host_lib, o, d, scene),
+                    sk.sweep_packed(o, d, scene, K.t_min, K.t_max, K.det_eps)):
+            _assert_equal(got, want)
+
+
+@pytest.mark.parametrize("name", list(SCENES))
+def test_compact_rows_equal_the_packet_rows_edges(name):
+    # prepare_scene's compact rows carry the bits of the sweep's former
+    # packing, [v0, v1 - v0, v2 - v0, valid] of the packet's rows (one
+    # float32 subtraction each), in Morton order, and perm_tri maps a Morton
+    # row back to its packet row, also stored in the row (column 10)
+    pkt = SCENES[name][1]().build_packet(device="cpu")
+    v0, v1, v2 = pkt.world_triangles()[:3]
+    old = torch.cat([v0, v1 - v0, v2 - v0, pkt.tri_valid.float()[:, None]], dim=1)
+    scene = sk.prepare(pkt)
+    T = scene.tri_rows
+    assert T == old.shape[0] and sorted(scene.perm_tri.tolist()) == list(range(T))
+    assert torch.equal(scene.rows[:T, :10], old[scene.perm_tri])
+    assert torch.equal(scene.rows.view(torch.int32)[:T, 10].long(), scene.perm_tri)
+    assert torch.equal(sk.packet_rows(scene)[:, :10], old)
+    assert not bool((scene.rows[T:, 9] > 0.5).any())  # padding rows are invalid
 
 
 def test_sweep_of_empty_tables_misses_with_index_zero(host_lib):
     pkt = Scene().build_packet(device="cpu")  # padding rows only: nothing valid
     o = torch.zeros((5, 3))
     d = torch.tensor([[0.0, 0.0, 1.0]]).expand(5, 3).contiguous()
-    tables = sk.prepare(pkt, pkt.world_triangles())
-    empty = sk.SweepTables(tables.tris[:0].contiguous(), tables.sphs[:0].contiguous())
-    for tabs in (tables, empty):
-        for got in (_host_sweep(host_lib, o, d, tabs),
-                    sk.sweep_packed_reference(o, d, tabs, K.t_min, K.t_max, K.det_eps)):
+    scene = sk.prepare(pkt)
+    # and no triangle or sphere row at all (T = 0)
+    empty = dataclasses.replace(scene, n_leaf=0, tri_rows=0, perm_tri=scene.perm_tri[:0],
+                                sphs=scene.sphs[:0].contiguous(), n_sph=0)
+    for sc in (scene, empty):
+        for got in (_host_sweep(host_lib, o, d, sc),
+                    sk.sweep_packed_reference(o, d, sc, K.t_min, K.t_max, K.det_eps)):
             assert [int(g.long().abs().sum()) for g in got] == [0, 0, 0, 0]
 
 
@@ -190,9 +216,153 @@ def test_every_copy_of_the_sweep_agrees_on_one_scene(host_lib):
         _, sel = mk.trace_record_reference(o.contiguous(), d.contiguous(), scene, K, 1,
                                            seed=4)
         assert torch.equal(sel[0], unified.to(torch.int32))
-        host = _host_sweep(host_lib, o, d, sk.prepare(pkt, wt))
+        host = _host_sweep(host_lib, o, d, sk.prepare(pkt))
         assert all(torch.equal(a, b) for a, b in zip(host, (i_tri, hit_tri, i_sph, hit_sph)))
         assert bool((unified >= T).any()) and bool(((unified >= 0) & (unified < T)).any())
+
+
+# ---- the culled sweep on adversarial geometry ----------------------------------------
+# The kernel culls by boxes; the plain version does not. A box that culled a
+# row the triangle test accepts would change a selection, so the host build
+# of the kernel's walk is held EQUAL to the brute force on the cases where
+# the slab test and Moller-Trumbore round apart: flat axis-aligned leaves
+# (zero-thickness boxes), rays with zero direction components (slab_inv's
+# 1e-12 path), origins inside boxes, hits on edges and vertices that
+# triangles share, duplicate triangles spread over two leaves (exact t ties,
+# the lowest packet row wins), invalid rows, T not a multiple of 64, T = 0,
+# and dead rays.
+
+
+def _stand_in_packet(v0, v1, v2, valid, center, radius):
+    """The fields `wavefront.prepare_scene` and the plain sweep read, for
+    world-space triangles given as they are (no model transforms)."""
+    T, S = v0.shape[0], center.shape[0]
+    n = torch.zeros((T, 3))
+    n[:, 1] = 1.0
+    return types.SimpleNamespace(
+        world_triangles=lambda: (v0, v1, v2, n, n, n), device=torch.device("cpu"),
+        tri_valid=valid, tri_mat=torch.zeros(T, dtype=torch.int32), sph_center=center,
+        sph_radius=radius, sph_valid=torch.ones(S, dtype=torch.bool),
+        sph_mat=torch.zeros(S, dtype=torch.int32), mat_kind=torch.zeros(1, dtype=torch.int32),
+        mat_albedo=torch.full((1, 3), 0.5), mat_param=torch.zeros(1), sky_bottom=torch.ones(3),
+        sky_top=torch.ones(3), num_materials=1)
+
+
+def _adversarial_scene(rs):
+    """A flat floor (y = 0) and a flat wall (x = 2.5) of unit-grid cells,
+    two triangles each, sharing edges and vertices; 70 copies of one tilted
+    triangle (equal centroids: Morton-adjacent, over two leaves); rows made
+    invalid, one of them in front of everything. 395 rows."""
+    tris = []
+    for i in range(12):
+        for j in range(12):
+            x0, z0 = -3.0 + 0.5 * i, -3.0 + 0.5 * j
+            a, b = (x0, 0.0, z0), (x0 + 0.5, 0.0, z0)
+            c, e = (x0 + 0.5, 0.0, z0 + 0.5), (x0, 0.0, z0 + 0.5)
+            tris += [(a, b, c), (a, c, e)]
+    for i in range(4):
+        for j in range(4):
+            y0, z0 = 0.25 * i, -0.5 + 0.25 * j
+            a, b = (2.5, y0, z0), (2.5, y0 + 0.25, z0)
+            c, e = (2.5, y0 + 0.25, z0 + 0.25), (2.5, y0, z0 + 0.25)
+            tris += [(a, b, c), (a, c, e)]
+    tris += [((-0.5, 0.5, -0.25), (0.5, 0.75, -0.25), (0.0, 0.625, 0.5))] * 70
+    tris += [((-9.0, 3.0, -9.0), (9.0, 3.0, -9.0), (0.0, 3.0, 9.0))]  # made invalid
+    tris += [tuple(tuple(rs.uniform(-2, 2, 3)) for _ in range(3)) for _ in range(4)]
+    v = torch.tensor(np.asarray(tris, np.float32))
+    valid = torch.ones(v.shape[0], dtype=torch.bool)
+    valid[-5:-2] = False  # the big one, two random ones
+    valid[7] = False  # a floor triangle: its rays fall through to the one below none
+    return _stand_in_packet(v[:, 0].contiguous(), v[:, 1].contiguous(), v[:, 2].contiguous(),
+                            valid, torch.tensor([[0.0, 0.5, -1.0], [1.0, 0.25, 1.0]]),
+                            torch.tensor([0.3, 0.2]))
+
+
+def _adversarial_rays(rs):
+    """(o, d): straight down onto grid vertices, edge midpoints and cell
+    centres (two zero direction components); along +x onto the wall's grid;
+    grazing the floor; from inside the floor's and the copies' boxes; random."""
+    g = np.arange(-3.0, 3.01, 0.25, dtype=np.float32)
+    xs, zs = np.meshgrid(g, g)
+    down_o = np.stack([xs.ravel(), np.full(xs.size, 1.0, np.float32), zs.ravel()], 1)
+    down_d = np.tile(np.float32([0.0, -1.0, 0.0]), (xs.size, 1))
+    gy, gz = np.meshgrid(np.arange(0.0, 1.01, 0.125, dtype=np.float32),
+                         np.arange(-0.5, 0.51, 0.125, dtype=np.float32))
+    side_o = np.stack([np.full(gy.size, -3.0, np.float32), gy.ravel(), gz.ravel()], 1)
+    side_d = np.tile(np.float32([1.0, 0.0, 0.0]), (gy.size, 1))
+    n = 256
+    graze_o = np.stack([np.full(n, -4.0), rs.uniform(1e-7, 1e-5, n), rs.uniform(-3, 3, n)], 1)
+    graze_d = np.stack([np.ones(n), -rs.uniform(0, 1e-5, n), rs.uniform(-1e-3, 1e-3, n)], 1)
+    inside_o = np.concatenate([
+        np.stack([rs.uniform(-3, 3, n), np.full(n, 1e-7), rs.uniform(-3, 3, n)], 1),
+        np.stack([rs.uniform(-0.4, 0.4, n), rs.uniform(0.5, 0.75, n),
+                  rs.uniform(-0.25, 0.5, n)], 1)])
+    inside_d = rs.normal(size=(2 * n, 3))
+    tie_o = np.stack([rs.uniform(-0.2, 0.2, n), np.full(n, 3.0), rs.uniform(-0.1, 0.3, n)], 1)
+    tie_d = np.stack([rs.uniform(-0.05, 0.05, n), -np.ones(n), rs.uniform(-0.05, 0.05, n)], 1)
+    rand_o = rs.uniform(-3, 3, (n, 3))
+    rand_d = rs.normal(size=(n, 3))
+    o = np.concatenate([down_o, side_o, graze_o, inside_o, tie_o, rand_o]).astype(np.float32)
+    d = np.concatenate([down_d, side_d, graze_d, inside_d, tie_d, rand_d])
+    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    return torch.from_numpy(o), torch.from_numpy(d)
+
+
+def _brute_force(o, d, pkt):
+    v0, v1, v2 = pkt.world_triangles()[:3]
+    return intersect.sweep_edges(o, d, v0, v1 - v0, v2 - v0, pkt.tri_valid, pkt.sph_center,
+                                 pkt.sph_radius, pkt.sph_valid, K.t_min, K.t_max, K.det_eps)
+
+
+def test_culled_sweep_equals_brute_force_on_adversarial_geometry(host_lib):
+    rs = np.random.default_rng(11)
+    pkt = _adversarial_scene(rs)
+    scene = sk.prepare(pkt)
+    T = pkt.tri_valid.shape[0]
+    assert T == 395 and scene.n_leaf == 7 and scene.rows.shape[0] == 448
+    flat = scene.boxes[:, 0:3] == scene.boxes[:, 3:6]
+    assert bool(flat.any(dim=1).any())  # zero-thickness leaves
+    o, d = _adversarial_rays(rs)
+    assert bool((d == 0).any())
+    want = _brute_force(o, d, pkt)
+    got = _host_sweep(host_lib, o, d, scene)
+    _assert_equal(got, want)
+    _assert_equal(sk.sweep_packed(o, d, scene, K.t_min, K.t_max, K.det_eps), want)
+    i_tri, hit_tri, _, hit_sph = want
+    copies = hit_tri & (i_tri >= 320) & (i_tri < 390)
+    assert int(copies.sum()) > 100 and bool((i_tri[copies] == 320).all())  # ties: row 320
+    morton_row = torch.empty(T, dtype=torch.int64)
+    morton_row[scene.perm_tri] = torch.arange(T)
+    assert len(set((morton_row[320:390] // 64).tolist())) >= 2  # copies over two leaves
+    assert int((hit_tri & (i_tri < 288)).sum()) > 100 and int(hit_sph.sum()) > 0
+    assert not bool((hit_tri & (i_tri == 7)).any()) and not bool((i_tri == 390).any())
+    # dead rays: not swept, selections (0, False, 0, False)
+    active = torch.from_numpy(rs.random(o.shape[0]) < 0.7)
+    got = _host_sweep(host_lib, o, d, scene, active.to(torch.uint8))
+    masked = sk.sweep_packed_reference(o, d, scene, K.t_min, K.t_max, K.det_eps, active)
+    _assert_equal(got, masked)
+    for g, w in zip(got, want):
+        assert torch.equal(g[active], w[active]) and not bool(g[~active].any())
+
+
+def test_gather_rows_sums_its_backward_in_float64():
+    # a training step's gather: a million winners on a few rows under a
+    # one-sign cotangent (an MSE against a zero target). Summed in float32,
+    # a hot row's million terms drift ~1e-5 from the exact sum; the gather's
+    # backward sums in float64 and rounds once to float32: each entry within
+    # 2^-23 of the float64 sum, relative
+    torch.set_num_threads(1)
+    rs = np.random.default_rng(6)
+    n = 1_000_000
+    idx = torch.from_numpy(rs.integers(0, 3, n)) + 2  # rows 2-4 of 6
+    table = torch.from_numpy(rs.random((6, 4), dtype=np.float32)).requires_grad_(True)
+    cot = torch.from_numpy(rs.random((n, 4), dtype=np.float32))
+    exact = torch.zeros((6, 4), dtype=torch.float64).index_add_(0, idx, cot.double())
+    (got,) = torch.autograd.grad(intersect.gather_rows(table, idx), table, cot)
+    assert got.dtype == torch.float32
+    rel = ((got.double() - exact).abs() / exact.abs().clamp_min(1e-300))[2:5]
+    assert float(rel.max()) <= 2.0 ** -23, float(rel.max())
+    assert not bool(got[[0, 1, 5]].any())
 
 
 def _aimed_batch(n=64, seed=3):

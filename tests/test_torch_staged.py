@@ -136,6 +136,41 @@ def test_staged_trace_matches_jax_with_the_same_key(kind):
         assert float(np.abs(np.asarray(jg[k])).max()) > 0, k
 
 
+@pytest.mark.parametrize("kind", ["config4", "nine"])
+def test_dead_ray_mask_changes_no_colour_or_gradient(kind, monkeypatch):
+    # trace_staged sweeps only the rays still live at each bounce; a dead
+    # ray's selection is never read (its factor is masked by `active`), so
+    # the colour is bit-equal and every gradient equal (a dead ray's
+    # cotangents are exact zeros on either selection: the float64 sums of
+    # the gathers do not move) with the sweep of every ray
+    torch.set_num_threads(1)
+    pkt = _packets(kind)[1]
+    cam = _cams(32, 16)[1]
+    cfg = RenderConfig(width=32, height=16, grad_sweep="staged", max_depth=4)
+    wts = torch.from_numpy(np.random.default_rng(2).normal(size=(512, 3)).astype(np.float32))
+    swept = []
+
+    def run():
+        leaves = {k: v.clone().requires_grad_(True)
+                  for k, v in sh.differentiable_params(pkt, cam).items()}
+        col = train.sample_color(leaves, pkt, cam, cfg, 7, 0)
+        return col.detach(), torch.autograd.grad(torch.sum(col * wts), list(leaves.values()))
+
+    masked = run()
+    unmasked_fn = integrator._sweep_fn
+
+    def every_ray(scene, consts, active):
+        swept.append(int(active.sum()))
+        return unmasked_fn(scene, consts, None)
+
+    monkeypatch.setattr(integrator, "_sweep_fn", every_ray)
+    full = run()
+    assert swept[0] == 512 and min(swept) < 512  # rays died before the last bounce
+    assert torch.equal(masked[0], full[0])
+    for a, b in zip(masked[1], full[1]):
+        assert torch.equal(a, b)
+
+
 def test_staged_route_matches_fused_route_with_the_same_urand():
     # the same packet, the same uniforms: the same paths through two routes
     torch.set_num_threads(1)

@@ -215,13 +215,16 @@ def _scene_from_jax(jp, cfg):
     T = jp.tri_valid.shape[0]
     n_leaf = -(-T // 64)
     boxes = t(np.asarray(prep.boxT8).T[:n_leaf])
-    super_boxes = mk.pack_super_boxes(boxes)
-    cull_boxes = torch.cat([boxes, mk.empty_boxes(super_boxes.shape[0] * 8 - n_leaf)])
+    cull_boxes, super_boxes = wf.cull_tables(
+        boxes, torch.maximum(t(np.asarray(prep.scene_lo)).abs().amax(),
+                             t(np.asarray(prep.scene_hi)).abs().amax()))
+    tris = t(np.asarray(prep.tris)[:n_leaf * 64])
     sky = np.concatenate([np.asarray(jp.sky_bottom), np.asarray(jp.sky_top),
                           np.zeros(2, np.float32)])
     mats = np.asarray(jmk.pack_mats(jp.mat_kind, jp.mat_albedo, jp.mat_param))
     scene = wf.WaveScene(
-        tris=t(np.asarray(prep.tris)[:n_leaf * 64]), boxes=boxes, tri_rows=T,
+        tris=tris, rows=wf.pack_rows(tris, t(np.asarray(prep.perm_tri))), boxes=boxes,
+        tri_rows=T,
         cull_boxes=cull_boxes, super_boxes=super_boxes,
         sphs=t(np.asarray(prep.sphs)), mats=t(mats), sky=t(sky.astype(np.float32)),
         scene_lo=t(np.asarray(prep.scene_lo)), scene_hi=t(np.asarray(prep.scene_hi)),
@@ -231,7 +234,8 @@ def _scene_from_jax(jp, cfg):
 
 def _double(scene):
     return dataclasses.replace(scene, **{f: getattr(scene, f).double() for f in (
-        "tris", "boxes", "sphs", "mats", "sky", "scene_lo", "scene_hi")})
+        "tris", "rows", "boxes", "cull_boxes", "sphs", "mats", "sky", "scene_lo",
+        "scene_hi")})
 
 
 def _assert_state_close(got, want, exact, what):
