@@ -31,13 +31,17 @@ source, all at once), then:
   12-14. the rasterizer on the demo scene with spheres as triangles (1,932
        triangles) at 1280x720, supersample 2 (2560x1440 samples): holds the
        hard kernel, the SoftRas forward and the SoftRas backward kernels
-       against their plain versions, then drives ``rasterize`` (1 + 8
-       frames), ``rasterize_frames`` (K = 4), ``rasterize(soft=True)`` and
-       ``train.raster_mse_step`` (1 + 8 steps), checking that every frame or
-       step went through the kernels; a ragged size, a strided window, an
-       empty scene and tests/goldens/demo_raster.ppm check the image; a
-       torch.profiler window splits a frame's and a step's time between
-       the host and the device;
+       against their plain versions, and the soft kernels' row gate by
+       their counting instantiations (pairs evaluated beside those an
+       ungated sweep takes and those in the rows' dilated boxes; pairs
+       above the coverage threshold equal to the plain version's), then
+       drives ``rasterize`` (1 + 8 frames), ``rasterize_frames`` (K = 4),
+       ``rasterize(soft=True)`` and ``train.raster_mse_step`` (1 + 8 steps),
+       checking that every frame or step went through the kernels; a ragged
+       size and a strided window (hard, and soft at sigma 2), an empty scene
+       and tests/goldens/demo_raster.ppm check the image; a torch.profiler
+       window splits a frame's and a step's time between the host and the
+       device;
   15-17. triangle-scale training's kernels on BASELINE config 4 at 1920x1080
        and config 3 at 512x512: holds the culled megakernel against its
        plain version (external uniforms and in-kernel Philox), culling on
@@ -2342,44 +2346,6 @@ def read_ppm(path):
     return np.frombuffer(data, np.uint8).reshape(h, w, 3)
 
 
-def box_pairs(tris, ys, width_ss, grow=0.0):
-    """The (sample, row) pairs of the kept rows whose sample lies inside the
-    row's own screen box (cols 23-26) grown by ``grow`` on every side: the
-    pairs that can cover (hard), or reach the coverage threshold (soft,
-    grown by 14 sigma). The work these inputs need, for the bound."""
-    import torch
-
-    keep = tris[:, 12] > 0.5
-    b = tris[keep][:, 23:27].double()
-    lo = torch.clamp(torch.ceil(b[:, 0] - grow - 0.5), min=0)  # column c samples x = c + 0.5
-    hi = torch.clamp(torch.floor(b[:, 1] + grow - 0.5), max=width_ss - 1)
-    ysd = ys.double().contiguous()
-    ny = (torch.searchsorted(ysd, (b[:, 3] + grow).contiguous(), right=True)
-          - torch.searchsorted(ysd, (b[:, 2] - grow).contiguous())).clamp(min=0)
-    return int((torch.clamp(hi - lo + 1, min=0) * ny).sum())
-
-
-def included_pairs(tris, cbox, scal, rows_ss, width_ss, ss):
-    """The soft pairs above the coverage threshold: the pairs whose adjoint
-    the backward kernel runs (the plain backward's first pass)."""
-    import torch
-
-    from ptre_tpu_torch.ops.cuda import raster_kernel as rast
-    from ptre_tpu_torch.ops.cuda import soft_raster as sr
-
-    s = [float(v) for v in scal.tolist()]
-    ys = rast.sample_ys(rows_ss, ss, s[13], s[14], tris.device)
-    xs = torch.arange(width_ss, device=tris.device, dtype=torch.float32) + 0.5
-    n = 0
-    with torch.no_grad():
-        for k, r0, r1, c0, c1 in rast.chunk_windows(cbox, ys, width_ss):
-            blk = tris[k * rast.CHUNK:(k + 1) * rast.CHUNK]
-            for a, b in rast.slabs(r0, r1, c1 - c0, rast.CHUNK):
-                cov = sr.pair_terms(blk, xs[None, c0:c1, None], ys[a:b, None, None], s)[0]
-                n += int((cov > sr.COV_MIN).sum())
-    return n
-
-
 def raster_phases(dev, card, rs):
     """Phases 12-14: the hard raster, SoftRas forward and SoftRas backward
     kernels against their plain versions, then the rasterizer's serving and
@@ -2393,6 +2359,7 @@ def raster_phases(dev, card, rs):
     from ptre_tpu_torch.models import demo
     from ptre_tpu_torch.models.scene import Scene
     from ptre_tpu_torch.ops import camera as cam_ops
+    from ptre_tpu_torch.ops.cuda import build
     from ptre_tpu_torch.ops.cuda import raster_kernel as rast
     from ptre_tpu_torch.ops.cuda import soft_raster as sr
     from ptre_tpu_torch.parallel import sharding as sh
@@ -2419,7 +2386,7 @@ def raster_phases(dev, card, rs):
     torch.cuda.synchronize()
     ys = rast.sample_ys(Hs, ss, 0.0, 1.0, dev)
     hard_visits = rast.visited_pairs(cbox, Hs, Ws, ss)
-    hard_pairs = box_pairs(tris, ys, Ws)
+    hard_pairs = rast.box_pairs(tris, ys, Ws)
     swept = hard_visits * rast.TILE * rast.TILE * rast.CHUNK
     flips = int((got != want).any(dim=0).sum())
     hard_err = float((got - want).abs().max())
@@ -2446,9 +2413,20 @@ def raster_phases(dev, card, rs):
         w_r = rast.raster_reference(t_r, b_r, sc_r, rows * ssr, Wr * ssr, ssr)
         torch.cuda.synchronize()
         n_diff = int((g_r != w_r).any(dim=0).sum())
+        # the soft forward there at sigma 2, and its row gate's included pairs
+        with torch.no_grad():
+            ts_r, _ = sr._soft_cols(pkt, cam_r, cfg_r)
+        db_r, ss_r = sr.dilate(b_r, 2.0), rast.raster_scalars(cfg_r, 1.0 / 2.0, y0, stride)
+        st_r = torch.zeros(len(sr.STATS), dtype=torch.int64, device=dev)
+        gs_r, _ = sr.soft_forward(ts_r, db_r, ss_r, rows * ssr, Wr * ssr, ssr, stats=st_r)
+        ws_r, _ = sr.soft_forward_reference(ts_r, db_r, ss_r, rows * ssr, Wr * ssr, ssr)
+        s_err = float((gs_r - ws_r).abs().max())
+        inc_r = sr.included_pairs(ts_r, db_r, ss_r, rows * ssr, Wr * ssr, ssr)
         print(f"  {Wr}x{Hr} ss {ssr}, rows y0={y0:g} stride {stride} x {rows}: {n_diff} samples "
-              "differ", flush=True)
+              f"differ; soft (sigma 2) max_abs_err {s_err:.3e}, {int(st_r[3])} pairs included "
+              f"by the row gate, {inc_r} by the plain version", flush=True)
         check(n_diff <= math.ceil(FLIP_FRAC * g_r[0].numel()), f"{Wr}x{Hr}: {n_diff} differ")
+        check(s_err <= SOFT_ATOL and int(st_r[3]) == inc_r, f"{Wr}x{Hr}: soft forward differs")
     empty = Scene().build_packet(spheres_as_triangles=True, device=dev)
     for soft in (False, True):
         with torch.no_grad():
@@ -2517,7 +2495,7 @@ def raster_phases(dev, card, rs):
     w_img, w_res = sr.soft_forward_reference(soft_tris, dbox, sscal, Hs, Ws, ss)
     torch.cuda.synchronize()
     soft_visits = rast.visited_pairs(dbox, Hs, Ws, ss)
-    soft_pairs = box_pairs(soft_tris, ys, Ws, sr.DILATE_SIGMA * SIGMA)
+    soft_pairs = rast.box_pairs(soft_tris, ys, Ws, sr.DILATE_SIGMA * SIGMA)
     fwd_err = float((s_img - w_img).abs().max())
     live = w_res[1] > 0
     check(torch.equal(s_res[1] > 0, live), "soft forward: other samples reached by geometry")
@@ -2536,6 +2514,23 @@ def raster_phases(dev, card, rs):
           "soft forward: non-finite output")
     check(fwd_err <= SOFT_ATOL and share_err <= SOFT_ATOL, "soft forward differs")
     check(m_equal >= TIGHT_FRAC, f"soft forward: max logit equal on only {m_equal:.6f}")
+    # the counting instantiation: same outputs; the gate's pairs against the sweep's
+    f_stats = torch.zeros(len(sr.STATS), dtype=torch.int64, device=dev)
+    c_img, c_res = sr.soft_forward(soft_tris, dbox, sscal, Hs, Ws, ss, stats=f_stats)
+    f_stats = dict(zip(sr.STATS, f_stats.tolist()))
+    check(torch.equal(c_img, s_img) and torch.equal(c_res, s_res),
+          "soft forward: the counting instantiation's outputs differ")
+    check(f_stats["visits"] == soft_visits, f"soft forward: {f_stats['visits']} visits")
+    swept = soft_visits * rast.TILE * rast.TILE * rast.CHUNK
+    print(f"  row gate: {f_stats['rows_passed']} rows passed of {soft_visits * rast.CHUNK} "
+          f"visited; {f_stats['pairs_evaluated']} (sample, row) pairs evaluated, against "
+          f"{swept} swept without the row gate and {soft_pairs} inside the row's dilated box; "
+          f"{f_stats['pairs_included']} above the coverage threshold", flush=True)
+    check(soft_pairs <= f_stats["pairs_evaluated"] <= swept,
+          "soft forward: pairs evaluated outside [in-box pairs, pairs swept]")
+    if build.last_build is not None:
+        print("  " + "; ".join(e for e in ptxas_summary(build.last_build[1])
+                               if e.startswith("soft_")), flush=True)
     fwd_ms = cuda_events(lambda: sr.soft_forward(soft_tris, dbox, sscal, Hs, Ws, ss), 10)
     fwd_plain_ms = cuda_events(
         lambda: sr.soft_forward_reference(soft_tris, dbox, sscal, Hs, Ws, ss), 1)
@@ -2569,13 +2564,22 @@ def raster_phases(dev, card, rs):
         check(e_k <= max(DTAB_FACTOR * e_p, DTAB_REL * norm),
               f"soft backward: d(table) {group} {e_k} off float64, plain float32 {e_p}")
     del exact
-    n_inc = included_pairs(soft_tris, dbox, sscal, Hs, Ws, ss)
+    n_inc = sr.included_pairs(soft_tris, dbox, sscal, Hs, Ws, ss)
+    b_stats = torch.zeros(len(sr.STATS), dtype=torch.int64, device=dev)
+    sr.soft_backward(soft_tris, dbox, sscal, w_res, dimg, Hs, Ws, ss, stats=b_stats)
+    b_stats = dict(zip(sr.STATS, b_stats.tolist()))
+    print(f"  row gate: {b_stats['pairs_evaluated']} pairs evaluated, "
+          f"{b_stats['pairs_included']} through the adjoint; the plain version's pairs above "
+          f"the coverage threshold (included_pairs) {n_inc}", flush=True)
+    check(b_stats == f_stats, f"soft backward: counters {b_stats} against the forward's")
+    check(b_stats["pairs_included"] == n_inc == f_stats["pairs_included"],
+          "soft kernels: the gate dropped or added a pair above the coverage threshold")
     bwd_ms = cuda_events(lambda: sr.soft_backward(soft_tris, dbox, sscal, w_res, dimg, Hs, Ws,
                                                   ss), 5)
     bwd_plain_ms = cuda_events(lambda: sr.soft_backward_reference(
         soft_tris, dbox, sscal, w_res, dimg, Hs, Ws, ss), 1)
-    print(f"  backward kernel {bwd_ms:.4f} ms, plain {bwd_plain_ms:.3f} ms (CUDA events); "
-          f"{n_inc} pairs above the coverage threshold [{card}]", flush=True)
+    print(f"  backward kernel {bwd_ms:.4f} ms, plain {bwd_plain_ms:.3f} ms (CUDA events) "
+          f"[{card}]", flush=True)
     del got_d, want_d, s_img, s_res, w_img, w_res, dimg
 
     # the gradient w.r.t. transforms and camera: kernels vs plain versions

@@ -2,9 +2,11 @@
 // machines without a GPU: the SoftRas pair terms and their hand-written
 // adjoint in double (raster.cuh), and the bodies of the three kernels
 // (raster_kernel.cu, soft_raster_kernel.cu) looped over the same sample
-// tiles with the same block-uniform chunk gate, reading each chunk straight
+// tiles with the same block-uniform chunk gate and, for the soft kernels,
+// the same row gate and per-sample box test, reading each chunk straight
 // from the table instead of staging it, and summing d(table) in order
-// instead of by atomics.
+// instead of by atomics. The soft bodies count what the kernels' stats
+// instantiation counts (soft_raster.STATS).
 //
 //   g++ -std=c++17 -O2 -shared -fPIC -o libptre_host_raster.so host_raster.cpp
 //
@@ -18,32 +20,65 @@ namespace {
 using ptre::rast::RasterParams;
 namespace r = ptre::rast;
 
-// Calls body(k, x, rr, px, py) for every sample of every block and every
-// chunk that passes the block's gate, chunks ascending per sample; returns
-// the visited (block, chunk) pairs.
-template <typename Body>
-long long for_each_visit(const RasterParams& p, const float* cbox, Body body) {
+// A block's sample tile: window rows r0..r1, columns x0..x1 - 1, and its
+// extent for the gates (raster.cuh block_tile).
+struct Tile {
+  int r0, r1, x0, x1;
+  float x_lo, x_hi, y_first, y_last;
+};
+
+// Calls visit(k, tile) for every block's tile and every chunk that passes its
+// gate, chunks ascending per tile; returns the visited (block, chunk) pairs.
+template <typename Visit>
+long long for_each_visit(const RasterParams& p, const float* cbox, Visit visit) {
   long long visited = 0;
   const int n_by = (p.rows_ss + r::kTile - 1) / r::kTile;
   const int n_bx = (p.width_ss + r::kTile - 1) / r::kTile;
   for (int by = 0; by < n_by; ++by) {
-    const int r0 = by * r::kTile;
-    const int r1 = r0 + r::kTile - 1 < p.rows_ss - 1 ? r0 + r::kTile - 1 : p.rows_ss - 1;
-    const float y_first = r::row_y(p, r0), y_last = r::row_y(p, r1);
+    Tile t;
+    t.r0 = by * r::kTile;
+    t.r1 = t.r0 + r::kTile - 1 < p.rows_ss - 1 ? t.r0 + r::kTile - 1 : p.rows_ss - 1;
+    t.y_first = r::row_y(p, t.r0);
+    t.y_last = r::row_y(p, t.r1);
     for (int bx = 0; bx < n_bx; ++bx) {
-      const float x_lo = (float)(bx * r::kTile), x_hi = x_lo + (float)r::kTile;
+      t.x0 = bx * r::kTile;
+      t.x1 = t.x0 + r::kTile < p.width_ss ? t.x0 + r::kTile : p.width_ss;
+      t.x_lo = (float)t.x0;
+      t.x_hi = t.x_lo + (float)r::kTile;
       for (int k = 0; k < p.n_chunks; ++k) {
-        if (!r::chunk_hits(cbox + k * r::kBoxStride, x_lo, x_hi, y_first, y_last)) continue;
-        ++visited;
-        for (int rr = r0; rr <= r1; ++rr) {
-          for (int x = bx * r::kTile; x < (bx + 1) * r::kTile && x < p.width_ss; ++x) {
-            body(k, x, rr, (float)x + 0.5f, r::row_y(p, rr));
-          }
+        if (!r::chunk_hits(cbox + k * r::kBoxStride, t.x_lo, t.x_hi, t.y_first, t.y_last)) {
+          continue;
         }
+        ++visited;
+        visit(k, t);
       }
     }
   }
   return visited;
+}
+
+// Calls body(x, rr, px, py) for every sample of tile t.
+template <typename Body>
+void for_each_sample(const RasterParams& p, const Tile& t, Body body) {
+  for (int rr = t.r0; rr <= t.r1; ++rr) {
+    for (int x = t.x0; x < t.x1; ++x) body(x, rr, (float)x + 0.5f, r::row_y(p, rr));
+  }
+}
+
+// The soft kernels' row gate (soft_raster_kernel.cu gate_rows) of chunk k
+// for tile t: the mask of the rows that pass, their gate boxes in `boxes`;
+// adds to the rows-passed counter.
+uint64_t gate_rows(const RasterParams& p, const float* tris, int k, const Tile& t,
+                   r::GateBox* boxes, long long* stats) {
+  const float dil = r::kDilateSigma / p.scal[12];
+  uint64_t mask = 0;
+  for (int i = 0; i < r::kChunk; ++i) {
+    const float* c = tris + ((int64_t)k * r::kChunk + i) * r::kRow;
+    boxes[i] = r::gate_box(c, dil);
+    if (r::row_hits(c, boxes[i], t.x_lo, t.x_hi, t.y_first, t.y_last)) mask |= 1ull << i;
+  }
+  stats[1] += __builtin_popcountll(mask);
+  return mask;
 }
 
 }  // namespace
@@ -77,6 +112,17 @@ extern "C" void ptre_soft_pair_adjoint_host_d(int n, const double* rows,
   }
 }
 
+// (n, 32) rows, samples (px, py) -> 1 where the soft kernels evaluate the
+// pair (the row kept and its gate box holding the sample), else 0
+extern "C" void ptre_soft_gate_host(int n, const float* rows, const float* px,
+                                    const float* py, float sigma_inv, int* out) {
+  const float dil = r::kDilateSigma / sigma_inv;
+  for (int i = 0; i < n; ++i) {
+    const float* c = rows + i * r::kRow;
+    out[i] = c[12] > 0.5f && r::box_holds(r::gate_box(c, dil), px[i], py[i]);
+  }
+}
+
 // The hard kernel's body: planar (3, rows_ss, width_ss) image
 extern "C" long long ptre_raster_hard_host(const RasterParams* params, const float* tris,
                                            const float* cbox, float* out) {
@@ -88,10 +134,12 @@ extern "C" long long ptre_raster_hard_host(const RasterParams* params, const flo
     best_z[i] = r::kFar;
     best_i[i] = -1;
   }
-  const long long visited = for_each_visit(p, cbox, [&](int k, int x, int rr, float px, float py) {
-    const int64_t s = (int64_t)rr * p.width_ss + x;
-    r::hard_sweep(tris + (int64_t)k * r::kChunk * r::kRow, k * r::kChunk, px, py, best_z[s],
-                  best_i[s]);
+  const long long visited = for_each_visit(p, cbox, [&](int k, const Tile& t) {
+    for_each_sample(p, t, [&](int x, int rr, float px, float py) {
+      const int64_t s = (int64_t)rr * p.width_ss + x;
+      r::hard_sweep(tris + (int64_t)k * r::kChunk * r::kRow, k * r::kChunk, px, py, best_z[s],
+                    best_i[s]);
+    });
   });
   for (int rr = 0; rr < p.rows_ss; ++rr) {
     for (int x = 0; x < p.width_ss; ++x) {
@@ -110,17 +158,28 @@ extern "C" long long ptre_raster_hard_host(const RasterParams* params, const flo
 }
 
 // The soft forward kernel's body: image (3, rows_ss, width_ss) and the
-// residual planes (6, rows_ss, width_ss): m, D, W, Nr, Ng, Nb
+// residual planes (6, rows_ss, width_ss): m, D, W, Nr, Ng, Nb; `stats` (4)
+// receives the counters of soft_raster.STATS. Returns the visited pairs.
 extern "C" long long ptre_soft_fwd_host(const RasterParams* params, const float* tris,
-                                        const float* cbox, float* img, float* res) {
+                                        const float* cbox, float* img, float* res,
+                                        long long* stats) {
   const RasterParams& p = *params;
   const int64_t plane = (int64_t)p.rows_ss * p.width_ss;
   const r::SoftScal<float> k = r::soft_scal<float>(p.scal);
   r::SoftState* st = new r::SoftState[plane];
   for (int64_t i = 0; i < plane; ++i) st[i] = r::soft_state_init();
-  const long long visited = for_each_visit(p, cbox, [&](int kc, int x, int rr, float px, float py) {
-    r::soft_sweep(tris + (int64_t)kc * r::kChunk * r::kRow, px, py, k,
-                  st[(int64_t)rr * p.width_ss + x]);
+  for (int i = 0; i < 4; ++i) stats[i] = 0;
+  stats[0] = for_each_visit(p, cbox, [&](int kc, const Tile& t) {
+    r::GateBox boxes[r::kChunk];
+    const uint64_t mask = gate_rows(p, tris, kc, t, boxes, stats);
+    if (mask == 0) return;
+    for_each_sample(p, t, [&](int x, int rr, float px, float py) {
+      uint32_t n_eval = 0, n_inc = 0;
+      r::soft_sweep(tris + (int64_t)kc * r::kChunk * r::kRow, boxes, mask, px, py, k,
+                    st[(int64_t)rr * p.width_ss + x], n_eval, n_inc);
+      stats[2] += n_eval;
+      stats[3] += n_inc;
+    });
   });
   for (int64_t s = 0; s < plane; ++s) {
     float rgb[3];
@@ -130,32 +189,41 @@ extern "C" long long ptre_soft_fwd_host(const RasterParams* params, const float*
     for (int c = 0; c < 6; ++c) res[c * plane + s] = v[c];
   }
   delete[] st;
-  return visited;
+  return stats[0];
 }
 
-// The soft backward kernel's body: d(table) (n_chunks * 64, 32), added into
+// The soft backward kernel's body: d(table) (n_chunks * 64, 32), added into;
+// `stats` (4) as the forward's. Returns the visited pairs.
 extern "C" long long ptre_soft_bwd_host(const RasterParams* params, const float* tris,
                                         const float* cbox, const float* res,
-                                        const float* dimg, float* dtab) {
+                                        const float* dimg, float* dtab, long long* stats) {
   const RasterParams& p = *params;
   const int64_t plane = (int64_t)p.rows_ss * p.width_ss;
   const r::SoftScal<float> k = r::soft_scal<float>(p.scal);
-  return for_each_visit(p, cbox, [&](int kc, int x, int rr, float px, float py) {
-    const int64_t s = (int64_t)rr * p.width_ss + x;
-    float rv[6], gv[3];
-    for (int c = 0; c < 6; ++c) rv[c] = res[c * plane + s];
-    for (int c = 0; c < 3; ++c) gv[c] = dimg[c * plane + s];
-    const r::SoftRowState<float> st = r::soft_row_state(rv, gv, p.scal);
-    for (int i = 0; i < r::kChunk; ++i) {
-      const int64_t row = (int64_t)kc * r::kChunk + i;
-      const float* c = tris + row * r::kRow;
-      if (!(c[12] > 0.5f)) continue;
-      float g[r::kRow] = {0.0f};
-      if (r::pair_backward(c, px, py, k, st, g)) {
-        for (int j = 0; j < r::kGradCols; ++j) {
-          dtab[row * r::kRow + r::grad_col(j)] += g[r::grad_col(j)];
+  for (int i = 0; i < 4; ++i) stats[i] = 0;
+  stats[0] = for_each_visit(p, cbox, [&](int kc, const Tile& t) {
+    r::GateBox boxes[r::kChunk];
+    const uint64_t mask = gate_rows(p, tris, kc, t, boxes, stats);
+    if (mask == 0) return;
+    for_each_sample(p, t, [&](int x, int rr, float px, float py) {
+      const int64_t s = (int64_t)rr * p.width_ss + x;
+      float rv[6], gv[3];
+      for (int c = 0; c < 6; ++c) rv[c] = res[c * plane + s];
+      for (int c = 0; c < 3; ++c) gv[c] = dimg[c * plane + s];
+      const r::SoftRowState<float> st = r::soft_row_state(rv, gv, p.scal);
+      for (int i = 0; i < r::kChunk; ++i) {
+        if (!(mask >> i & 1u) || !r::box_holds(boxes[i], px, py)) continue;
+        const int64_t row = (int64_t)kc * r::kChunk + i;
+        float g[r::kRow] = {0.0f};
+        ++stats[2];
+        if (r::pair_backward(tris + row * r::kRow, px, py, k, st, g)) {
+          ++stats[3];
+          for (int j = 0; j < r::kGradCols; ++j) {
+            dtab[row * r::kRow + r::grad_col(j)] += g[r::grad_col(j)];
+          }
         }
       }
-    }
+    });
   });
+  return stats[0];
 }

@@ -466,6 +466,45 @@ PTRE_HD bool pair_backward(const T* c, T px, T py, const SoftScal<T>& k,
   return true;
 }
 
+// ---- the soft kernels' row gate ------------------------------------------------
+//
+// A pair whose sample lies outside the row's screen box dilated by 14 sigma
+// has a signed distance below -14 sigma (outside the triangle, at least that
+// far from each edge), so its coverage is at most sigmoid(-14) = 8.3e-7, below
+// kCovMin: the plain version includes no such pair. The gate box grows the
+// dilated box by kGatePadRel of (the row's largest |coordinate| + 14 sigma):
+// the computed edge distance and the box's own rounding are off by a few
+// ulps of those magnitudes (~5e-7 of them), so rounding can never cull a
+// pair that counts; sigmoid(-13.8155) = 1e-6 leaves a further 0.18 sigma.
+
+constexpr float kDilateSigma = 14.0f;  // soft_raster.DILATE_SIGMA
+constexpr float kGatePadRel = 1e-5f;
+
+struct GateBox {
+  float x0, x1, y0, y1;
+};
+
+// Row c's gate box; dil = 14 sigma (kDilateSigma / the 1/sigma scalar).
+PTRE_HD GateBox gate_box(const float* c, float dil) {
+  const float m = fmaxf(fmaxf(fabsf(c[23]), fabsf(c[24])), fmaxf(fabsf(c[25]), fabsf(c[26])));
+  const float reach = add_rn(dil, mul_rn(kGatePadRel, add_rn(m, dil)));
+  return {sub_rn(c[23], reach), add_rn(c[24], reach), sub_rn(c[25], reach),
+          add_rn(c[26], reach)};
+}
+
+// Is kept row c's gate box b in reach of the sample tile? The tile's extent
+// as chunk_hits takes it: conservative by at least half a sample, so a row
+// whose gate box holds a sample of the tile always passes.
+PTRE_HD bool row_hits(const float* c, const GateBox& b, float x_lo, float x_hi,
+                      float y_first, float y_last) {
+  return c[12] > 0.5f && b.x0 < x_hi && b.x1 >= x_lo && b.y0 < add_rn(y_last, 1.0f) &&
+         b.y1 >= sub_rn(y_first, 0.5f);
+}
+
+PTRE_HD bool box_holds(const GateBox& b, float px, float py) {
+  return px >= b.x0 && px <= b.x1 && py >= b.y0 && py <= b.y1;
+}
+
 // Online-softmax state of one sample (soft_raster.py:191-226)
 struct SoftState {
   float m, D, W, N[3];
@@ -473,19 +512,35 @@ struct SoftState {
 
 PTRE_HD SoftState soft_state_init() { return {-kBig, 0.0f, 0.0f, {0.0f, 0.0f, 0.0f}}; }
 
-// One group of kGroup rows (c points at the group's first row) into the
-// state, with the reference's empty-state guards (soft_raster.py:199-220).
-PTRE_HD void soft_group(const float* c, float px, float py,
-                        const SoftScal<float>& k, SoftState& st) {
+// One group of kGroup rows (c points at the group's first row, b at their
+// gate boxes) into the state, with the reference's empty-state guards
+// (soft_raster.py:199-220). Only the rows of `bits` whose gate box holds the
+// sample are evaluated (n_eval counts them, n_inc those above kCovMin); every
+// other row enters as the plain version computes it, lm = -BIG and e = 0.
+// A group with no pair above kCovMin leaves the state bit for bit as it was
+// (gm = -BIG: m_new = m, and scale is 1, or 0 on the all-zero empty state).
+PTRE_HD void soft_group(const float* c, const GateBox* b, unsigned bits, float px, float py,
+                        const SoftScal<float>& k, SoftState& st, uint32_t& n_eval,
+                        uint32_t& n_inc) {
   float cov[kGroup], lm[kGroup], col[kGroup][3];
   float gm = -kBig;
   for (int j = 0; j < kGroup; ++j) {
-    const PairFwd<float> f = pair_forward(c + j * kRow, px, py, k);
-    cov[j] = f.cov;
-    lm[j] = f.cov > kCovMin ? f.logit : -kBig;
-    for (int i = 0; i < 3; ++i) col[j][i] = f.col[i];
+    cov[j] = 0.0f;
+    lm[j] = -kBig;
+    for (int i = 0; i < 3; ++i) col[j][i] = 0.0f;
+    if ((bits >> j & 1u) && box_holds(b[j], px, py)) {
+      const PairFwd<float> f = pair_forward(c + j * kRow, px, py, k);
+      ++n_eval;
+      if (f.cov > kCovMin) {
+        ++n_inc;
+        cov[j] = f.cov;
+        lm[j] = f.logit;
+        for (int i = 0; i < 3; ++i) col[j][i] = f.col[i];
+      }
+    }
     gm = gm > lm[j] ? gm : lm[j];
   }
+  if (!(gm > -kBig)) return;
   const float m_new = st.m > gm ? st.m : gm;
   const float dm = st.m - m_new;
   const float scale =
@@ -504,10 +559,18 @@ PTRE_HD void soft_group(const float* c, float px, float py,
   st.m = m_new;
 }
 
-// One chunk's rows into the state, group by group in ascending order.
-PTRE_HD void soft_sweep(const float* rows, float px, float py,
-                        const SoftScal<float>& k, SoftState& st) {
-  for (int g = 0; g < kChunk / kGroup; ++g) soft_group(rows + g * kGroup * kRow, px, py, k, st);
+// A chunk's rows into the state, group by group in ascending order; `mask`
+// holds the rows that passed the tile's gate (bit i: row i).
+PTRE_HD void soft_sweep(const float* rows, const GateBox* boxes, uint64_t mask, float px,
+                        float py, const SoftScal<float>& k, SoftState& st, uint32_t& n_eval,
+                        uint32_t& n_inc) {
+  for (int g = 0; g < kChunk / kGroup; ++g) {
+    const unsigned bits = (unsigned)(mask >> (g * kGroup)) & 0xffu;
+    if (bits != 0u) {
+      soft_group(rows + g * kGroup * kRow, boxes + g * kGroup, bits, px, py, k, st, n_eval,
+                 n_inc);
+    }
+  }
 }
 
 // The resolved soft colour of a finished state (soft_raster.py:232-240)

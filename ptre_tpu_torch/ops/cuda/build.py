@@ -162,11 +162,11 @@ def load_library() -> ctypes.CDLL:
     # (params, tris, cbox, out, stream)
     lib.ptre_raster_hard.argtypes = [ptr] * 5
     lib.ptre_soft_fwd.restype = ctypes.c_int
-    # (params, tris, cbox, img, res, stream)
-    lib.ptre_soft_fwd.argtypes = [ptr] * 6
+    # (params, tris, cbox, img, res, stats, stream)
+    lib.ptre_soft_fwd.argtypes = [ptr] * 7
     lib.ptre_soft_bwd.restype = ctypes.c_int
-    # (params, tris, cbox, res, dimg, dtab, stream)
-    lib.ptre_soft_bwd.argtypes = [ptr] * 7
+    # (params, tris, cbox, res, dimg, dtab, stats, stream)
+    lib.ptre_soft_bwd.argtypes = [ptr] * 8
     lib.ptre_sweep.restype = ctypes.c_int
     # (params, o, d, active, rows, boxes, boxes2, sphs, out, stats, stream)
     lib.ptre_sweep.argtypes = [ptr] * 11

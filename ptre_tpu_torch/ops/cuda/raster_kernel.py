@@ -163,16 +163,21 @@ def pack_raster_tris(packet, cam, config):
     if pad:
         cols = torch.cat([cols, cols.new_zeros((pad, 32))])
 
+    return cols, chunk_boxes(cols)
+
+
+def chunk_boxes(cols):
+    """(C, 8) boxes of a table's 64-row chunks, detached: (minx, maxx, miny,
+    maxy, any_keep, 0, 0, 0) over each chunk's kept rows."""
     ck = cols.detach().reshape(-1, CHUNK, 32)
     keep_c = ck[:, :, 12] > 0.5
-    zero = torch.zeros(ck.shape[0], dtype=torch.float32, device=dev)
-    cbox = torch.stack([
+    zero = torch.zeros(ck.shape[0], dtype=torch.float32, device=cols.device)
+    return torch.stack([
         torch.amin(torch.where(keep_c, ck[:, :, 23], BIG), dim=1),
         torch.amax(torch.where(keep_c, ck[:, :, 24], -BIG), dim=1),
         torch.amin(torch.where(keep_c, ck[:, :, 25], BIG), dim=1),
         torch.amax(torch.where(keep_c, ck[:, :, 26], -BIG), dim=1),
         keep_c.any(dim=1).to(torch.float32), zero, zero, zero], dim=1)
-    return cols, cbox
 
 
 def sample_ys(rows_ss: int, ss: int, y0: float, stride: float, device=None):
@@ -201,6 +206,22 @@ def visited_pairs(cbox, rows_ss: int, width_ss: int, ss: int, y0: float = 0.0,
            & (b[..., 2] < (y_last + 1.0)[:, None, None])
            & (b[..., 3] >= (y_first - 0.5)[:, None, None]))
     return int(hit.sum())
+
+
+def box_pairs(tris, ys, width_ss: int, grow: float = 0.0) -> int:
+    """The (sample, row) pairs of the kept rows whose sample lies inside the
+    row's own screen box (cols 23-26) grown by ``grow`` on every side: the
+    pairs that can cover (hard), or reach the coverage threshold (soft,
+    grown by 14 sigma). ``ys``: the window rows' sample y (`sample_ys`),
+    ascending. One host read."""
+    keep = tris[:, 12] > 0.5
+    b = tris[keep][:, 23:27].double()
+    lo = torch.clamp(torch.ceil(b[:, 0] - grow - 0.5), min=0)  # column c samples x = c + 0.5
+    hi = torch.clamp(torch.floor(b[:, 1] + grow - 0.5), max=width_ss - 1)
+    ysd = ys.double().contiguous()
+    ny = (torch.searchsorted(ysd, (b[:, 3] + grow).contiguous(), right=True)
+          - torch.searchsorted(ysd, (b[:, 2] - grow).contiguous())).clamp(min=0)
+    return int((torch.clamp(hi - lo + 1, min=0) * ny).sum())
 
 
 def chunk_windows(cbox, ys, width_ss: int, margin: float = 1.0):

@@ -11,10 +11,11 @@ this module streams the same math over 64-row chunks of the
     over the chunks, groups of 8 rows at a time, carrying (max logit m,
     denominator D, coverage weight W, colour numerator N); out come the
     planar image and the six residual planes (m, D, W, Nr, Ng, Nb). A chunk
-    is skipped where its box, dilated by 14 sigma, misses the samples:
-    beyond 14 sigma a pair's coverage is below the 1e-6 threshold, so it
-    adds exactly nothing, and a group that adds nothing leaves the state bit
-    for bit as it was.
+    is skipped where its box, dilated by 14 sigma, misses the samples, and
+    the kernels evaluate a row only for the samples inside its own box so
+    dilated (`csrc/raster.cuh` gate_box): beyond 14 sigma a pair's coverage
+    is below the 1e-6 threshold, so it adds exactly nothing, and a group
+    that adds nothing leaves the state bit for bit as it was.
   * backward (`soft_backward`, the same unit, replacing `_soft_bwd_kernel`,
     `soft_raster.py:251`): the same chunks again; per pair the cotangents of
     (coverage, logit, colour) from the saved residuals
@@ -27,8 +28,9 @@ this module streams the same math over 64-row chunks of the
     through `pack_raster_tris`.
 
 CUDA tensors launch the kernels (counted in ``fwd_launches`` and
-``bwd_launches``); CPU tensors run `soft_forward_reference` /
-`soft_backward_reference`; anything else raises.
+``bwd_launches``; with ``stats``, their counting instantiations); CPU
+tensors run `soft_forward_reference` / `soft_backward_reference`; anything
+else raises.
 """
 
 from __future__ import annotations
@@ -65,6 +67,11 @@ _EPS_N = gs.f32(1e-20)
 #: kernel launches made by `soft_forward` and `soft_backward` in this process
 fwd_launches = 0
 bwd_launches = 0
+#: the counters a launch with ``stats`` adds to: visited (block, chunk)
+#: pairs, rows that pass the row gate of a visit, (sample, row) pairs
+#: evaluated (the sample inside the row's gate box), and those above the
+#: coverage threshold
+STATS = ("visits", "rows_passed", "pairs_evaluated", "pairs_included")
 
 
 def _soft_cols(packet, cam, config):
@@ -228,6 +235,21 @@ def soft_backward_reference(tris, cbox, scal, res, dimg, rows_ss: int, width_ss:
     return dtab
 
 
+def included_pairs(tris, cbox, scal, rows_ss: int, width_ss: int, ss: int) -> int:
+    """The (sample, row) pairs above the coverage threshold: the pairs whose
+    adjoint the backward runs (the plain backward's first pass)."""
+    s = [mk.f32(v) for v in scal.tolist()]
+    ys, xs, wins = _windows(tris, cbox, s, rows_ss, width_ss, ss)
+    n = 0
+    with torch.no_grad():
+        for k, r0, r1, c0, c1 in wins:
+            blk = tris[k * rk.CHUNK:(k + 1) * rk.CHUNK]
+            for a, b in rk.slabs(r0, r1, c1 - c0, rk.CHUNK):
+                cov = pair_terms(blk, xs[None, c0:c1, None], ys[a:b, None, None], s)[0]
+                n += int((cov > COV_MIN).sum())
+    return n
+
+
 def _launch(fn_name: str, args, dev):
     lib = build.load_library()
     with torch.cuda.device(dev):
@@ -238,11 +260,20 @@ def _launch(fn_name: str, args, dev):
                             f"{lib.ptre_cuda_error_string(rc).decode()}")
 
 
-def soft_forward(tris, cbox, scal, rows_ss: int, width_ss: int, ss: int):
+def _stats_arg(stats, dev):
+    """The kernels' ``stats`` pointer: None, or (4,) int64 on the card."""
+    if stats is None:
+        return None
+    mk.check_tensors("tris", dev, [("stats", stats, (len(STATS),), torch.int64)])
+    return stats.data_ptr()
+
+
+def soft_forward(tris, cbox, scal, rows_ss: int, width_ss: int, ss: int, stats=None):
     """(image (3, rows_ss, width_ss), residuals (6, rows_ss, width_ss)) of
     the dilated-box soft table. CUDA tensors launch the forward kernel
-    (counted in ``fwd_launches``); CPU tensors run `soft_forward_reference`;
-    anything else raises."""
+    (counted in ``fwd_launches``); ``stats`` (4,) int64 on the card, or
+    None, receives the counters named in STATS. CPU tensors run
+    `soft_forward_reference`; anything else raises."""
     global fwd_launches
     if tris.device.type == "cpu":
         return soft_forward_reference(tris, cbox, scal, rows_ss, width_ss, ss)
@@ -254,17 +285,18 @@ def soft_forward(tris, cbox, scal, rows_ss: int, width_ss: int, ss: int):
     res = torch.empty((RES_PLANES, rows_ss, width_ss), dtype=torch.float32, device=dev)
     p = rk.raster_params(scal, rows_ss, width_ss, ss, cbox.shape[0])
     _launch("ptre_soft_fwd", (ctypes.addressof(p), tris.data_ptr(), cbox.data_ptr(),
-                              img.data_ptr(), res.data_ptr()), dev)
+                              img.data_ptr(), res.data_ptr(), _stats_arg(stats, dev)), dev)
     fwd_launches += 1
     return img, res
 
 
-def soft_backward(tris, cbox, scal, res, dimg, rows_ss: int, width_ss: int, ss: int):
+def soft_backward(tris, cbox, scal, res, dimg, rows_ss: int, width_ss: int, ss: int,
+                  stats=None):
     """d(table) of the soft image's cotangent ``dimg`` (3, rows_ss,
     width_ss). CUDA tensors launch the backward kernel (counted in
     ``bwd_launches``; d(table) is summed by float atomics, so it varies from
-    run to run at float rounding); CPU tensors run
-    `soft_backward_reference`; anything else raises."""
+    run to run at float rounding); ``stats`` as `soft_forward`'s. CPU
+    tensors run `soft_backward_reference`; anything else raises."""
     global bwd_launches
     if tris.device.type == "cpu":
         return soft_backward_reference(tris, cbox, scal, res, dimg, rows_ss, width_ss, ss)
@@ -277,7 +309,8 @@ def soft_backward(tris, cbox, scal, res, dimg, rows_ss: int, width_ss: int, ss: 
     dtab = torch.zeros_like(tris)
     p = rk.raster_params(scal, rows_ss, width_ss, ss, cbox.shape[0])
     _launch("ptre_soft_bwd", (ctypes.addressof(p), tris.data_ptr(), cbox.data_ptr(),
-                              res.data_ptr(), dimg.data_ptr(), dtab.data_ptr()), tris.device)
+                              res.data_ptr(), dimg.data_ptr(), dtab.data_ptr(),
+                              _stats_arg(stats, tris.device)), tris.device)
     bwd_launches += 1
     return dtab
 

@@ -277,10 +277,12 @@ def raster_lib(tmp_path_factory):
     lib.ptre_soft_pair_host_d.argtypes = [ctypes.c_int] + [ptr] * 5
     lib.ptre_soft_pair_adjoint_host_d.restype = None
     lib.ptre_soft_pair_adjoint_host_d.argtypes = [ctypes.c_int] + [ptr] * 6
-    for name, n in (("ptre_raster_hard_host", 4), ("ptre_soft_fwd_host", 5),
-                    ("ptre_soft_bwd_host", 6)):
+    for name, n in (("ptre_raster_hard_host", 4), ("ptre_soft_fwd_host", 6),
+                    ("ptre_soft_bwd_host", 7)):
         getattr(lib, name).restype = ctypes.c_longlong
         getattr(lib, name).argtypes = [ptr] * n
+    lib.ptre_soft_gate_host.restype = None
+    lib.ptre_soft_gate_host.argtypes = [ctypes.c_int] + [ptr] * 3 + [ctypes.c_float, ptr]
     return lib
 
 
@@ -447,18 +449,25 @@ def test_host_raster_kernel_bodies_match_plain_versions(raster_lib):
 
     dbox = sr.dilate(cbox, 0.5)
     img, res = torch.empty((3, R, Wss)), torch.empty((6, R, Wss))
+    f_stats = np.zeros(len(sr.STATS), np.int64)
     n_soft = raster_lib.ptre_soft_fwd_host(ctypes.addressof(p), cols.data_ptr(),
-                                           dbox.data_ptr(), img.data_ptr(), res.data_ptr())
+                                           dbox.data_ptr(), img.data_ptr(), res.data_ptr(),
+                                           f_stats.ctypes.data)
     want_img, want_res = sr.soft_forward_reference(cols, dbox, scal, R, Wss, ss)
-    assert n_soft == rk.visited_pairs(dbox, R, Wss, ss, 1.0, 2.0) >= n_hard
+    assert n_soft == f_stats[0] == rk.visited_pairs(dbox, R, Wss, ss, 1.0, 2.0) >= n_hard
     np.testing.assert_allclose(img.numpy(), want_img.numpy(), rtol=1e-5, atol=1e-6)
     np.testing.assert_allclose(res.numpy(), want_res.numpy(), rtol=1e-5, atol=1e-6)
 
     dimg = torch.from_numpy(np.random.default_rng(3).standard_normal((3, R, Wss))
                             .astype(np.float32))
     dtab = torch.zeros_like(cols)
+    b_stats = np.zeros(len(sr.STATS), np.int64)
     raster_lib.ptre_soft_bwd_host(ctypes.addressof(p), cols.data_ptr(), dbox.data_ptr(),
-                                  res.data_ptr(), dimg.data_ptr(), dtab.data_ptr())
+                                  res.data_ptr(), dimg.data_ptr(), dtab.data_ptr(),
+                                  b_stats.ctypes.data)
+    # both bodies walk the same gate; its included pairs are the plain version's
+    np.testing.assert_array_equal(b_stats, f_stats)
+    assert f_stats[3] == sr.included_pairs(cols, dbox, scal, R, Wss, ss) > 0
     want_d = sr.soft_backward_reference(cols, dbox, scal, res, dimg, R, Wss, ss)
     scale = float(want_d.abs().max())
     assert scale > 0.0
@@ -473,3 +482,186 @@ def test_host_raster_kernel_bodies_match_plain_versions(raster_lib):
         e_host = float((dtab.double() - exact)[:, c].norm())
         e_plain = float((want_d.double() - exact)[:, c].norm())
         assert e_host <= max(2.0 * e_plain, 1e-4 * float(exact[:, c].norm())), group
+
+
+# ---- the soft kernels' row gate (csrc/raster.cuh gate_box, soft_raster_kernel.cu) ----
+
+
+def _screen_rows(v):
+    """(n, 32) float32 soft-table rows of screen triangles ``v`` (n, 3, 2), as
+    pack_raster_tris and _soft_cols make them (area, box and edge lengths in
+    float32 from the corners), kept, at depths inside [0, 1]; rows of zero
+    area dropped, as the packing drops them."""
+    v = torch.as_tensor(v, dtype=torch.float32)
+    n = v.shape[0]
+    x, y = v[..., 0], v[..., 1]
+    area = (x[:, 1] - x[:, 0]) * (y[:, 2] - y[:, 0]) - (x[:, 2] - x[:, 0]) * (y[:, 1] - y[:, 0])
+    g = torch.Generator().manual_seed(n)
+    rows = torch.zeros((n, 32))
+    rows[:, 0:6] = v.reshape(n, 6)
+    rows[:, 6:9] = torch.rand((n, 3), generator=g) * 0.8 + 0.1
+    rows[:, 9:12] = 1.0
+    rows[:, 12] = 1.0
+    rows[:, 13:22] = torch.randn((n, 9), generator=g)
+    rows[:, 22] = 1.0 / area
+    rows[:, 23], rows[:, 24] = x.amin(1), x.amax(1)
+    rows[:, 25], rows[:, 26] = y.amin(1), y.amax(1)
+    for j, (a, b) in enumerate(((0, 1), (1, 2), (2, 0))):
+        ex, ey = x[:, b] - x[:, a], y[:, b] - y[:, a]
+        rows[:, 27 + j] = 1.0 / (ex * ex + ey * ey + 1e-12)
+    return rows[area != 0.0]
+
+
+def _boundary_triangles(px, py, d, sign):
+    """Per sample (px, py) four triangles whose nearest corner, the apex,
+    lies d (float32, 14 sigma) + sign ulps from it to the right, left, below
+    and above, the rest of the triangle beyond."""
+    px, py = np.float32(px), np.float32(py)
+    step = np.inf if sign > 0 else -np.inf
+    out = []
+    for ax, ay, ux, uy in ((np.nextafter(px + d, px + step), py, 1, 0),
+                           (np.nextafter(px - d, px - step), py, -1, 0),
+                           (px, np.nextafter(py + d, py + step), 0, 1),
+                           (px, np.nextafter(py - d, py - step), 0, -1)):
+        wx, wy = -uy * 6.0, ux * 6.0
+        out.append([(ax, ay), (ax + 20 * ux + wx, ay + 20 * uy + wy),
+                    (ax + 20 * ux - wx, ay + 20 * uy - wy)])
+    return np.asarray(out, np.float32)
+
+
+def _gate_table(rs, sigma, cfg, ys, Wss):
+    """The demo scene's soft rows plus adversarial ones over the window:
+    slivers (areas 1e-4 to 1 sample^2, both windings), triangles with an
+    edge through sample centres, and triangles whose nearest corner lies 14
+    sigma +- 1 ulp from a sample; padded to whole chunks, with the chunk
+    boxes."""
+    from ptre_tpu_torch.ops.cuda import raster_kernel as rk
+    from ptre_tpu_torch.ops.cuda import soft_raster as sr
+
+    pkt = demo.reference_demo_scene(8, 4).build_packet(spheres_as_triangles=True, device="cpu")
+    cam = cam_ops.Camera.create(width=cfg.width, height=cfg.height)
+    with torch.no_grad():
+        cols, _ = sr._soft_cols(pkt, cam, cfg)
+    cols = cols[cols[:, 12] > 0.5]
+    H = float(ys[-1]) + 1.0
+    n = 48
+    a = rs.uniform(0.0, 1.0, (n, 2)) * (Wss, H)
+    ang = rs.uniform(0.0, 2 * np.pi, n)
+    length = rs.uniform(4.0, 60.0, n)
+    b = a + length[:, None] * np.stack([np.cos(ang), np.sin(ang)], 1)
+    t = rs.uniform(0.0, 1.0, n)[:, None]
+    width = 10.0 ** rs.uniform(-4.0, 0.0, n) / length * rs.choice([-1.0, 1.0], n)
+    c = a + t * (b - a) + width[:, None] * np.stack([-np.sin(ang), np.cos(ang)], 1)
+    slivers = np.stack([a, b, c], 1)
+    # edges through sample centres: corners on the sample lattice
+    xs = rs.integers(0, Wss, (16, 3)) + 0.5
+    yi = rs.integers(0, len(ys), (16, 3))
+    lattice = np.stack([xs, ys.numpy()[yi]], -1)
+    d = np.float32(14.0 * sigma)
+    bound = np.concatenate([_boundary_triangles(Wss * f + 0.5, ys[len(ys) // 2], d, sign)
+                            for f in (0.25, 0.5) for sign in (-1, 1)])
+    extra = _screen_rows(np.concatenate([slivers, lattice, bound]).astype(np.float32))
+    table = torch.cat([cols, extra])
+    table = torch.cat([table, table.new_zeros(((-table.shape[0]) % rk.CHUNK, 32))])
+    return table.contiguous(), rk.chunk_boxes(table)
+
+
+@pytest.mark.parametrize("sigma", [0.5, 2.0])
+@pytest.mark.parametrize("ss", [1, 2, 3])
+@pytest.mark.parametrize("y0,stride,rows", [(0.0, 1, 32), (5.0, 3, 9)])
+def test_host_soft_row_gate_drops_no_pair_that_counts(raster_lib, sigma, ss, y0, stride, rows):
+    """The soft kernels' bodies with their row gate (tile row mask, then the
+    per-sample gate box) on the demo scene's rows plus slivers, lattice
+    edges and corners 14 sigma +- 1 ulp from a sample: every (sample, row)
+    pair whose plain coverage exceeds COV_MIN is evaluated and included (the
+    brute force over all pairs, and `soft_raster.included_pairs` over the
+    chunk windows, count the same), the pairs evaluated lie between those
+    inside the row's box dilated 14 sigma and those an ungated sweep takes,
+    and the forward and backward bodies count alike."""
+    from ptre_tpu_torch.ops.cuda import raster_kernel as rk
+    from ptre_tpu_torch.ops.cuda import soft_raster as sr
+    from ptre_tpu_torch.utils.config import RasterConfig
+
+    torch.set_num_threads(1)
+    W, H = 48, 32
+    cfg = RasterConfig(width=W, height=H, supersample=ss)
+    R, Wss = rows * ss, W * ss
+    ys = rk.sample_ys(R, ss, y0, stride)
+    rs = np.random.default_rng(int(100 * sigma) + 10 * ss + stride)
+    table, cbox = _gate_table(rs, sigma, cfg, ys, Wss)
+    dbox = sr.dilate(cbox, sigma)
+    scal = rk.raster_scalars(cfg, 1.0 / sigma, y0, stride)
+    p = rk.raster_params(scal, R, Wss, ss, cbox.shape[0])
+
+    img, res = torch.empty((3, R, Wss)), torch.empty((6, R, Wss))
+    f_stats = np.zeros(len(sr.STATS), np.int64)
+    raster_lib.ptre_soft_fwd_host(ctypes.addressof(p), table.data_ptr(), dbox.data_ptr(),
+                                  img.data_ptr(), res.data_ptr(), f_stats.ctypes.data)
+    dimg = torch.from_numpy(rs.standard_normal((3, R, Wss)).astype(np.float32))
+    dtab = torch.zeros_like(table)
+    b_stats = np.zeros(len(sr.STATS), np.int64)
+    raster_lib.ptre_soft_bwd_host(ctypes.addressof(p), table.data_ptr(), dbox.data_ptr(),
+                                  res.data_ptr(), dimg.data_ptr(), dtab.data_ptr(),
+                                  b_stats.ctypes.data)
+    np.testing.assert_array_equal(b_stats, f_stats)
+    visits, _, evaluated, included = (int(v) for v in f_stats)
+
+    s = [float(v) for v in scal.tolist()]
+    xs = torch.arange(Wss, dtype=torch.float32) + 0.5
+    brute = 0
+    with torch.no_grad():
+        for k in range(0, table.shape[0], 16):
+            cov = sr.pair_terms(table[k:k + 16], xs[None, :, None], ys[:, None, None], s)[0]
+            brute += int((cov > sr.COV_MIN).sum())
+    assert included == brute == sr.included_pairs(table, dbox, scal, R, Wss, ss) > 0
+    in_box = rk.box_pairs(table, ys, Wss, sr.DILATE_SIGMA * sigma)
+    assert in_box <= evaluated <= visits * rk.TILE * rk.TILE * rk.CHUNK
+    want_img, _ = sr.soft_forward_reference(table, dbox, scal, R, Wss, ss)
+    np.testing.assert_allclose(img.numpy(), want_img.numpy(), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("sigma", [0.5, 2.0])
+@pytest.mark.parametrize("sign", [-1, 1])
+def test_host_soft_gate_box_at_14_sigma_plus_minus_one_ulp(raster_lib, sigma, sign):
+    """A sample 14 sigma +- 1 ulp from a row's box, on each side: the gate
+    box (grown by kGatePadRel) holds it, so the pair is evaluated; its
+    plain coverage is below COV_MIN either way. A sample 14 sigma plus a
+    few pads away is culled, and its coverage is below COV_MIN too."""
+    from ptre_tpu_torch.ops.cuda import soft_raster as sr
+    from ptre_tpu_torch.utils.config import RasterConfig
+    from ptre_tpu_torch.ops.cuda import raster_kernel as rk
+
+    rs = np.random.default_rng(7)
+    pts = np.stack([rs.uniform(0.0, 2000.0, 8), rs.uniform(0.0, 1200.0, 8)], 1)
+    pts = np.floor(pts) + 0.5
+    d = np.float32(sr.DILATE_SIGMA * sigma)
+    tri, px, py = [], [], []
+    for x, y in pts:
+        tri.append(_boundary_triangles(x, y, d, sign))
+        px += [x] * 4
+        py += [y] * 4
+    rows = _screen_rows(np.concatenate(tri)).contiguous()
+    px, py = np.asarray(px, np.float32), np.asarray(py, np.float32)
+    assert rows.shape[0] == px.size
+    scal = rk.raster_scalars(RasterConfig(), 1.0 / sigma)
+
+    def gate(x, y):
+        out = np.zeros(px.size, np.int32)
+        raster_lib.ptre_soft_gate_host(px.size, rows.data_ptr(), x.ctypes.data, y.ctypes.data,
+                                       float(scal[12]), out.ctypes.data)
+        return out
+
+    def cov(x, y):
+        return sr.pair_terms(rows, torch.from_numpy(x), torch.from_numpy(y),
+                             [float(v) for v in scal.tolist()])[0]
+
+    assert gate(px, py).all()
+    assert bool((cov(px, py) <= sr.COV_MIN).all())
+    # a few pads further out along the apex's axis: culled, and not counting
+    far = np.float32(5e-5) * (rows[:, 23:27].abs().amax(1).numpy() + d)
+    ax = rows[:, 0].numpy() - px
+    ay = rows[:, 1].numpy() - py
+    fx = px - np.sign(ax) * np.where(np.abs(ax) > np.abs(ay), far, 0.0).astype(np.float32)
+    fy = py - np.sign(ay) * np.where(np.abs(ay) > np.abs(ax), far, 0.0).astype(np.float32)
+    assert not gate(fx, fy).any()
+    assert bool((cov(fx, fy) <= sr.COV_MIN).all())

@@ -546,10 +546,11 @@ def test_raster_kernel_matches_plain_version(cuda, y0, stride, rows):
     assert img.shape == (cfg.height, cfg.width, 3) and rast.launches == before + 2
 
 
-def test_soft_kernels_match_plain_versions(cuda):
-    cfg, pkt, cam, cols, cbox, R, Wss, ss = _raster_setup(cuda, W=150, H=90)
-    box = sr.dilate(cbox, 0.5)
-    scal = rast.raster_scalars(cfg, 2.0)
+@pytest.mark.parametrize("sigma,y0,stride,rows", [(0.5, 0.0, 1, None), (2.0, 5.0, 3, 23)])
+def test_soft_kernels_match_plain_versions(cuda, sigma, y0, stride, rows):
+    cfg, pkt, cam, cols, cbox, R, Wss, ss = _raster_setup(cuda, W=150, H=90, rows=rows)
+    box = sr.dilate(cbox, sigma)
+    scal = rast.raster_scalars(cfg, 1.0 / sigma, y0, stride)
     before = (sr.fwd_launches, sr.bwd_launches)
     img, res = sr.soft_forward(cols, box, scal, R, Wss, ss)
     want_img, want_res = sr.soft_forward_reference(cols, box, scal, R, Wss, ss)
@@ -573,6 +574,51 @@ def test_soft_kernels_match_plain_versions(cuda):
         e_kernel = float((got.double() - exact)[:, c].norm())
         e_plain = float((want.double() - exact)[:, c].norm())
         assert e_kernel <= max(2.0 * e_plain, 1e-4 * float(exact[:, c].norm())), group
+
+
+@pytest.mark.parametrize("sigma,y0,stride,rows", [(0.5, 0.0, 1, None), (2.0, 5.0, 3, 23)])
+def test_soft_kernel_counters_equal_the_host_twins(cuda, tmp_path, sigma, y0, stride, rows):
+    """The counting instantiations of both soft kernels against the g++ build
+    of their bodies (csrc/host_raster.cpp) on the same inputs: visits, rows
+    passing the row gate, pairs evaluated and pairs above the threshold
+    equal; the outputs equal the shipped instantiations'."""
+    import ctypes
+    import os
+    import shutil
+    import subprocess
+
+    from ptre_tpu_torch.ops.cuda import build
+
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        pytest.fail("no C++ compiler (g++) to build csrc/host_raster.cpp")
+    so = str(tmp_path / "libptre_host_raster.so")
+    subprocess.run([cxx, "-std=c++17", "-O2", "-shared", "-fPIC", "-o", so,
+                    os.path.join(build.CSRC_DIR, "host_raster.cpp")], check=True)
+    host = ctypes.CDLL(so)
+    host.ptre_soft_fwd_host.restype = ctypes.c_longlong
+    host.ptre_soft_fwd_host.argtypes = [ctypes.c_void_p] * 6
+
+    cfg, pkt, cam, cols, cbox, R, Wss, ss = _raster_setup(cuda, W=150, H=90, rows=rows)
+    box = sr.dilate(cbox, sigma)
+    scal = rast.raster_scalars(cfg, 1.0 / sigma, y0, stride)
+    f_stats = torch.zeros(len(sr.STATS), dtype=torch.int64, device=cuda)
+    img, res = sr.soft_forward(cols, box, scal, R, Wss, ss, stats=f_stats)
+    img0, res0 = sr.soft_forward(cols, box, scal, R, Wss, ss)
+    dimg = torch.randn((3, R, Wss), device=cuda, generator=torch.Generator(cuda).manual_seed(2))
+    b_stats = torch.zeros(len(sr.STATS), dtype=torch.int64, device=cuda)
+    sr.soft_backward(cols, box, scal, res, dimg, R, Wss, ss, stats=b_stats)
+    torch.cuda.synchronize()
+    assert torch.equal(img, img0) and torch.equal(res, res0)
+
+    t_cpu, b_cpu = cols.cpu(), box.cpu()
+    h_img, h_res = torch.empty((3, R, Wss)), torch.empty((6, R, Wss))
+    h_stats = np.zeros(len(sr.STATS), np.int64)
+    p = rast.raster_params(scal, R, Wss, ss, cbox.shape[0])
+    host.ptre_soft_fwd_host(ctypes.addressof(p), t_cpu.data_ptr(), b_cpu.data_ptr(),
+                            h_img.data_ptr(), h_res.data_ptr(), h_stats.ctypes.data)
+    assert f_stats.tolist() == b_stats.tolist() == h_stats.tolist()
+    assert h_stats[3] > 0
 
 
 def test_raster_mse_step_goes_through_soft_kernels(cuda):
