@@ -12,18 +12,24 @@ source, all at once), then:
        sample went through the kernel;
   6-7. holds the recording forward and the fused backward kernels of the
        gradient path against their plain versions at 1920x1080, the
-       backward (built without FMA contraction) timed in turns against its
-       unit built with it;
+       backward (built without FMA contraction) also bit for bit in d(o),
+       d(d) against its first design (``csrc/baseline/``) and timed in turns
+       against it and against its unit built with FMA contraction, with its
+       registers, spills and stack frame and a bound recounted from the
+       source by kind of bounce;
   8.   drives the training main path — ``differentiable_params`` →
        ``mse_step`` at 1920x1080, spp 1 (1 + 8 steps) and one spp-64 step —
        checking that every sample went through both kernels, and that
        ``two_pass_mse_step`` equals ``mse_step`` at 320x180;
-  9-10. holds the wavefront's mask and bounce kernels against their plain
-       versions on the bounce-1 state of BASELINE config 3 (16,128
-       triangles) at 512x512 and config 4 (16,140 triangles) at 1920x1080,
-       with the (ray, leaf) pairs the shortlists list and those whose box
-       the ray itself passes, then the whole kernel ``wavefront.trace``
-       against the plain one;
+  9-10. holds the wavefront's mask kernel against its plain version and
+       its first design (``csrc/baseline/``) at every live bounce after the
+       first of a sample of BASELINE config 3 (16,128 triangles) at 512x512
+       and config 4 (16,140 triangles) at 1920x1080, each bounce timed in
+       turns beside its bound and the supertile and leaf tests its counting
+       instantiation made; the bounce kernel against its plain version on
+       the bounce-1 state, with the (ray, leaf) pairs the shortlists list
+       and those whose box the ray itself passes, then the whole kernel
+       ``wavefront.trace`` against the plain one;
   11.  drives the triangle-scale main path — ``render_step`` on config 3 at
        512x512 and config 4 at 1920x1080, spp 4 (1 + 8 steps) — checking
        that every live bounce went through the kernels, and prints where a
@@ -50,7 +56,8 @@ source, all at once), then:
        (bit-equal colour), its plain version and the megakernel's
        selections, the recording bounce kernel beside the non-recording
        one; the backward kernel's global-table instantiation against its
-       plain version on config 4's recorded selections (timed in turns
+       plain version on config 4's recorded selections, and bit for bit in
+       d(o), d(d) against its first design (timed in turns against it and
        against its unit built with FMA contraction), and two runs of it
        against each other;
   18.  drives the triangle-scale training path — ``differentiable_params``
@@ -162,7 +169,18 @@ FP32_OPS_PER_S = 67e12
 OPS_TRI_TEST = 64     # trace.cuh / wave.cuh: one Moller-Trumbore test
 OPS_SPH_TEST = 27     # trace.cuh / wave.cuh: one sphere's roots and test
 OPS_SHADE = 150       # a hit's attributes and scatter_shade (rough count)
-OPS_BWD_BOUNCE = 800  # replay.cuh: one hit bounce's chain and adjoint (rough count)
+# replay.cuh, one bounce of ray_backward by kind, counted from the source:
+# the forward (ray_forward's chain_bounce), the recompute (hit_bounce_forward
+# again inside chain_bounce_adjoint) and the adjoint, and the row's 27
+# additions into d(table). hit_bounce_forward is 290 on a triangle (its
+# attributes 130) and 217 on a sphere (57), of which the ONB scatter 70 and
+# Oren-Nayar 90; chain_bounce's update 18; the adjoint 268 plus its geometry
+# part, 196 (triangle) or 84 (sphere).
+OPS_BWD_TRI = 290 + 18 + 290 + 268 + 196 + 27     # 1,089
+OPS_BWD_SPH = 217 + 18 + 217 + 268 + 84 + 27      # 831
+OPS_BWD_EMIT = 7 + 18 + 27                        # an emitter ends the path
+OPS_BWD_MISS = 17 + 37                            # the sky ends the path
+OPS_BWD_BOUNCE_OLD = 800  # the rough count these replace, a hit bounce
 OPS_SLAB = 30         # wave.cuh slab_pass
 OPS_HARD_PAIR = 30    # raster.cuh covers + the z test
 OPS_HARD_SAMPLE = 76  # raster.cuh shade_winner
@@ -241,7 +259,8 @@ def device_share(fn, reps, what, card):
 
 
 def ptxas_summary(report):
-    """["kernel: N registers, S B spill stores, L B spill loads, M B smem"]
+    """["kernel: N registers, F B stack frame, S B spill stores, L B spill
+    loads, M B smem"]
     from nvcc's ``-Xptxas=-v`` output, one entry per kernel, by its mangled
     name's identifier and template arguments."""
     import re
@@ -260,9 +279,11 @@ def ptxas_summary(report):
                 name, rest = rest[start:start + n], rest[start + n:]
             name += {"ILb1EE": "<true>", "ILb0EE": "<false>"}.get(rest[:6], "")
             continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
         if m:
-            spills = f"{m.group(1)} B spill stores, {m.group(2)} B spill loads"
+            spills = (f"{m.group(1)} B stack frame, {m.group(2)} B spill stores, "
+                      f"{m.group(3)} B spill loads")
         m = re.search(r"Used (\d+) registers.*?(?:(\d+) bytes smem)?$", ln)
         if m and name:
             smem = re.search(r"(\d+) bytes smem", ln)
@@ -338,6 +359,10 @@ def main():
     # (phases 7, 17 and 21 read it beside the shipped one); compiles while
     # phases 1-6 run
     fused_fma = start_unit_build("fused_grad_kernel.cu", "fma")
+    # the first designs of the fused backward and the mask kernel
+    # (csrc/baseline/): phases 7, 9 and 17 hold the shipped kernels to them bit
+    # for bit and time both in turns
+    first = {u: start_baseline_build(u) for u in ("fused_grad_kernel.cu", "mask_kernel.cu")}
     if build.last_build is not None:
         print(f"kernel build {build.last_build[0]:.2f} s (nvcc, sm_90a, "
               f"{len(build.KERNEL_UNITS)} units); " + "; ".join(
@@ -506,16 +531,25 @@ def main():
     }
     from ptre_tpu_torch.ops.cuda import fused_grad
 
-    fma_bwd = fma_fused_bwd(finish_unit_build(fused_fma), fused_grad)
-    grad_kernels, (sweeps, hits, per_sweep) = gradient_phases(dev, card, rs, fma_bwd)
+    fma_bwd = lib_fused_bwd(finish_unit_build(fused_fma), fused_grad)
+    report = []
+    first = {u: finish_unit_build(b, report) for u, b in first.items()}
+    print("first designs (csrc/baseline/, the shipped units' flags): " + "; ".join(report)
+          + f" [{card}]", flush=True)
+    first_bwd = baseline_fused_bwd(first["fused_grad_kernel.cu"], fused_grad, mk)
+    grad_kernels, (sweeps, hits, per_sweep) = gradient_phases(dev, card, rs, fma_bwd,
+                                                              first_bwd)
     # one sample: the accumulator read and written; every live ray-bounce
     # sweeps the scene, every hit shades (counted on the recording kernel's
     # 1080p sample of the same scene: the render kernel's paths are alike)
     kernels = [with_bound(render, 2 * W_MAIN * H_MAIN * 12, sweeps * per_sweep + hits * OPS_SHADE)]
     kernels += grad_kernels
-    kernels += wavefront_phases(dev, card, rs)
+    from ptre_tpu_torch.ops.cuda import wavefront
+
+    kernels += wavefront_phases(dev, card, rs,
+                                baseline_wave_mask(first["mask_kernel.cu"], wavefront, mk))
     kernels += raster_phases(dev, card, rs)
-    kernels += triangle_training_phases(dev, card, rs, fma_bwd,
+    kernels += triangle_training_phases(dev, card, rs, fma_bwd, first_bwd,
                                         dense_bwd_ms=grad_kernels[1]["ms"])
     kernels.append(staged_phases(dev, card, rs, build.last_build and build.last_build[1]))
     kernels += replay_phases(dev, card, rs, fma_bwd)
@@ -529,6 +563,79 @@ def main():
 
 
 BWD_GEOMETRY = ("v0-v2", "n0-n2", "center", "radius")
+
+
+def bwd_ops(sel, table, T):
+    """(operations, the old count, {kind: bounces}) of the fused backward on
+    recorded selections ``sel`` (B, R) over ``table`` (spheres from row T):
+    every bounce of a path by its kind (a triangle or sphere hit that goes
+    on, an emitter or a miss that ends it), at the OPS_BWD_* counts."""
+    import torch
+
+    emissive = table[:, 22] > 0.5
+    live = torch.ones(sel.shape[1], dtype=torch.bool, device=sel.device)
+    n = {"triangle": 0, "sphere": 0, "emitter": 0, "miss": 0}
+    for b in range(sel.shape[0]):
+        s = sel[b]
+        hit = s >= 0
+        emit = hit & emissive[s.clamp(min=0).long()]
+        n["miss"] += int((live & ~hit).sum())
+        n["emitter"] += int((live & emit).sum())
+        n["triangle"] += int((live & hit & ~emit & (s < T)).sum())
+        n["sphere"] += int((live & hit & ~emit & (s >= T)).sum())
+        live = live & hit & ~emit
+    ops = (n["triangle"] * OPS_BWD_TRI + n["sphere"] * OPS_BWD_SPH
+           + n["emitter"] * OPS_BWD_EMIT + n["miss"] * OPS_BWD_MISS)
+    return ops, int((sel >= 0).sum()) * OPS_BWD_BOUNCE_OLD, n
+
+
+def hold_first_design(what, fn, first_fn, args, reps, extra, card):
+    """The fused backward against its first design on one recorded trace:
+    d(o), d(d) bit for bit (the same chain and adjoint, no operation
+    reordered), d(table) and d(sky) summed in another order by atomics, their
+    distance printed beside each design's run-to-run spread; then both, and
+    ``extra`` ({label: function}), timed in turns. Returns {label: ms}."""
+    import torch
+
+    a, b = fn(*args), fn(*args)
+    fa, fb = first_fn(*args), first_fn(*args)
+    torch.cuda.synchronize()
+    check(torch.equal(a[2], fa[2]) and torch.equal(a[3], fa[3]),
+          f"{what}: d(o), d(d) differ from the first design's")
+    check(torch.equal(a[2], b[2]) and torch.equal(a[3], b[3]), f"{what}: d(o), d(d) differ "
+          "between two runs")
+
+    def rel(x, y):
+        return float((x - y).norm() / y.norm())
+
+    print(f"  {what}: d(o), d(d) bit-equal to the first design's (csrc/baseline/); relative "
+          f"L2 d(table) / d(sky): against the first design {rel(a[0], fa[0]):.3e} / "
+          f"{rel(a[1], fa[1]):.3e}, two runs {rel(a[0], b[0]):.3e} / {rel(a[1], b[1]):.3e}, "
+          f"two runs of the first design {rel(fa[0], fb[0]):.3e} / {rel(fa[1], fb[1]):.3e}",
+          flush=True)
+    del a, b, fa, fb
+    times = in_turns({"shipped": lambda: fn(*args), "first design": lambda: first_fn(*args),
+                      **{label: (lambda f=f: f(*args)) for label, f in extra.items()}}, reps)
+    if times:
+        print(f"  {what}, in turns: " + ", ".join(f"{label} {ms:.4f} ms"
+                                                 for label, ms in times.items())
+              + f" (CUDA events) [{card}]", flush=True)
+    return times
+
+
+def hold_deepest(what, fg, first_fn, record, rays, dcol, k, T, seed, card):
+    """`hold_first_design` at the wrapper's deepest max_depth (8, `kMaxDepth`),
+    where a block's saved states take 88 KB of shared memory and one block
+    fits an SM, on the selections ``record(8)`` records, with ``rays``
+    (table, sky6, o, d)."""
+    from ptre_tpu_torch.ops.cuda.megakernel import MAX_DEPTH
+
+    sel = record(MAX_DEPTH)
+    n = int((sel[MAX_DEPTH - 1] >= 0).sum())
+    print(f"  {what}, max_depth {MAX_DEPTH}: {int((sel >= 0).sum())} hits, {n} at the "
+          "last bounce", flush=True)
+    hold_first_design(f"{what} max_depth {MAX_DEPTH}", fg.fused_bwd, first_fn,
+                      (*rays, sel, dcol, k, MAX_DEPTH, T, seed, 0), 10, {}, card)
 
 
 def hold_backward(fg, mk, what, table, sky6, o, d, sel, dcol, k, B, T, seed, ur, groups,
@@ -620,12 +727,13 @@ def hold_backward(fg, mk, what, table, sky6, o, d, sel, dcol, k, B, T, seed, ur,
     return bwd_err
 
 
-def gradient_phases(dev, card, rs, fma_bwd):
+def gradient_phases(dev, card, rs, fma_bwd, first_bwd):
     """Phases 6-8: the recording and fused backward kernels against their
     plain versions, then the training step (`mse_step`) at 1920x1080.
     ``fma_bwd``: `fused_bwd` on the unit built with FMA contraction, read
-    and timed beside the shipped one. Returns the two kernels' entries of
-    the ``kernels`` line."""
+    and timed beside the shipped one; ``first_bwd``: the fused backward's
+    first design (`baseline_fused_bwd`), held bit for bit and timed beside
+    it. Returns the two kernels' entries of the ``kernels`` line."""
     import numpy as np
     import torch
 
@@ -633,6 +741,7 @@ def gradient_phases(dev, card, rs, fma_bwd):
     from ptre_tpu_torch.models import demo
     from ptre_tpu_torch.ops import camera as cam_ops
     from ptre_tpu_torch.ops import path_replay, rng
+    from ptre_tpu_torch.ops.cuda import build
     from ptre_tpu_torch.ops.cuda import fused_grad as fg
     from ptre_tpu_torch.ops.cuda import megakernel as mk
     from ptre_tpu_torch.parallel import sharding as sh
@@ -703,9 +812,17 @@ def gradient_phases(dev, card, rs, fma_bwd):
     print(f"  philox sample: {sweeps} ray-bounce sweeps ({sweeps / R:.3f} a ray), {hits} hits",
           flush=True)
     rec_ms = cuda_events(lambda: mk.trace_fused_sel(o, d, scene, k, B, GRAD_SEED, 0), 20)
-    bwd = in_turns({label: (lambda fn=fn: fn(table, sky6, o, d, sel_p, dcol, k, B, T,
-                                             GRAD_SEED, 0))
-                    for label, fn in (("shipped", fg.fused_bwd), ("with FMA", fma_bwd))}, 10)
+    print("  registers: " + "; ".join(
+        e for e in (ptxas_summary(build.last_build[1]) if build.last_build else
+                    ["library not built in this run"]) if e.startswith(("fused_bwd", "library"))),
+        flush=True)
+    sel_x, ur_x = recorded["external uniforms"]
+    hold_first_design("bwd external uniforms", fg.fused_bwd, first_bwd,
+                      (table, sky6, o, d, sel_x, dcol, k, B, T, GRAD_SEED, 0, ur_x), 0, {},
+                      card)
+    bwd = hold_first_design("bwd philox", fg.fused_bwd, first_bwd,
+                            (table, sky6, o, d, sel_p, dcol, k, B, T, GRAD_SEED, 0), 10,
+                            {"with FMA": fma_bwd}, card)
     bwd_ms = bwd["shipped"]
     rec_plain_ms = cuda_events(lambda: mk.trace_record_reference(o, d, scene, k, B,
                                                                  GRAD_SEED, 0), 2)
@@ -713,8 +830,14 @@ def gradient_phases(dev, card, rs, fma_bwd):
         table, sky6, o, d, sel_p, dcol, k, B, T, GRAD_SEED, 0), 2)
     print(f"  record kernel {rec_ms:.4f} ms, plain {rec_plain_ms:.3f} ms; backward "
           f"kernel {bwd_ms:.4f} ms (built without FMA contraction; with it "
-          f"{bwd['with FMA']:.4f} ms, in turns), plain {bwd_plain_ms:.3f} ms (CUDA events, "
-          f"{W}x{H}) [{card}]", flush=True)
+          f"{bwd['with FMA']:.4f} ms, the first design {bwd['first design']:.4f} ms, in "
+          f"turns), plain {bwd_plain_ms:.3f} ms (CUDA events, {W}x{H}) [{card}]", flush=True)
+    bwd_op, bwd_op_old, bwd_kinds = bwd_ops(sel_p, table, T)
+    print(f"  backward's bounces by kind {bwd_kinds}: {bwd_op / 1e9:.3f} GFLOP counted from "
+          f"replay.cuh (the old count, {OPS_BWD_BOUNCE_OLD} a hit, {bwd_op_old / 1e9:.3f})",
+          flush=True)
+    hold_deepest("bwd philox", fg, first_bwd, lambda b: mk.trace_fused_sel(
+        o, d, scene, k, b, GRAD_SEED, 0)[1], (table, sky6, o, d), dcol, k, T, GRAD_SEED, card)
     del recorded, dcol, urand_ext
 
     # ---- 8. the training main path ---------------------------------------------------
@@ -849,7 +972,7 @@ def gradient_phases(dev, card, rs, fma_bwd):
         "max_abs_err": bwd_err,
         "ms": bwd_ms,
         "plain_ms": bwd_plain_ms,
-    }, R * (24 + 4 * B + 12 + 24), hits * OPS_BWD_BOUNCE)], (sweeps, hits, per_sweep)
+    }, R * (24 + 4 * B + 12 + 24), bwd_op)], (sweeps, hits, per_sweep)
 
 
 # Wavefront kernels vs plain versions (phases 9-10). The slab test has no
@@ -868,15 +991,65 @@ TRI_CONFIGS = (  # (name, (scene function, kwargs), W, H): bench.py --tri-scene 
 )
 
 
-def wavefront_phases(dev, card, rs):
+def mask_states(dev, config, seed=WAVE_SEED, sample=1):
+    """One Philox sample of ``config`` (a `TRI_CONFIGS` entry) traced as
+    `wavefront.trace` traces it, by the shipped kernels: (pkt, cam, scene,
+    consts, o, d, bounce-0 shortlists, [(bounce, state, ids)]) with the
+    sorted state and ids that the mask gets at every live bounce after the
+    first."""
+    from ptre_tpu_torch.utils.config import RenderConfig
+    from ptre_tpu_torch.models import demo
+    from ptre_tpu_torch.ops import camera as cam_ops
+    from ptre_tpu_torch.ops import rng
+    from ptre_tpu_torch.ops.cuda import megakernel as mk
+    from ptre_tpu_torch.ops.cuda import wavefront as wf
+    from ptre_tpu_torch.render import pathtracer as pt
+
+    name, (fn, kw), W, H = config
+    R, B = W * H, 5
+    k = mk.TraceConsts.from_config(RenderConfig(width=W, height=H, max_depth=B))
+    pkt = getattr(demo, fn)(**kw).build_packet(device=dev)
+    cam = cam_ops.Camera.create(width=W, height=H)
+    scene = wf.prepare_scene(pkt, screen_cam=cam)
+    px, py = pt.pixel_grid(H, W, dev)
+    u = rng.ray_uniforms(seed, sample, R, 1, dev)
+    o, d = (x.contiguous() for x in cam_ops.get_rays(cam, px, py, (u - 0.5).T))
+    state, ids, short0 = wf.primary_state(o, d, scene, (H, W))
+    states = []
+    for b in range(B):
+        if b > 0:
+            n_live = int((state[9] > 0.5).sum())
+            if n_live == 0:
+                break
+            if n_live >= max(int(wf.SORT_MIN_LIVE * state.shape[1]), 1):
+                perm = wf.coherence_order(state, scene)
+                state, ids = state[:, perm].contiguous(), ids[perm].contiguous()
+            states.append((b, state, ids))
+            short, cnt = wf.shortlists_from_mask(wf.wave_mask(state, scene.boxes, k.t_min))
+        else:
+            short, cnt = short0
+        state = wf.wave_bounce(state, ids, short, cnt, scene, k, b, seed, sample)
+    return pkt, cam, scene, k, o, d, short0, states
+
+
+def mask_work(state, scene, mask, stats):
+    """(bytes, operations) of one mask call: o, d and active read, the
+    verdicts written, the leaf boxes read once; the slab tests the counting
+    instantiation made (supertiles and leaves, each for every live ray of
+    the warp that made it), OPS_SLAB each."""
+    nbytes = state.shape[1] * 28 + mask.numel() + scene.boxes.numel() * 4
+    return nbytes, (stats["supertile_tests"] + stats["leaf_tests"]) * OPS_SLAB
+
+
+def wavefront_phases(dev, card, rs, first_mask):
     """Phases 9-11: the wavefront's mask and bounce kernels against their
-    plain versions, then the triangle-scale render path. Returns the two
-    kernels' entries of the ``kernels`` line."""
+    plain versions (the mask also against its first design, ``first_mask``,
+    at every live bounce of a sample), then the triangle-scale render path.
+    Returns the two kernels' entries of the ``kernels`` line."""
     import numpy as np
     import torch
 
     from ptre_tpu_torch.utils.config import RenderConfig
-    from ptre_tpu_torch.models import demo
     from ptre_tpu_torch.ops import camera as cam_ops
     from ptre_tpu_torch.ops import rng
     from ptre_tpu_torch.ops.cuda import megakernel as mk
@@ -888,42 +1061,61 @@ def wavefront_phases(dev, card, rs):
     B = 5
     setups, times = {}, {}
     mask_err, bounce_err = 0.0, 0.0
-    for name, (fn, kw), W, H in TRI_CONFIGS:
+    for config in TRI_CONFIGS:
+        name, _, W, H = config
         R = W * H
-        cfg = RenderConfig(width=W, height=H, max_depth=B)
-        k = mk.TraceConsts.from_config(cfg)
         t0 = time.perf_counter()
-        pkt = getattr(demo, fn)(**kw).build_packet(device=dev)
-        cam = cam_ops.Camera.create(width=W, height=H)
-        scene = wf.prepare_scene(pkt, screen_cam=cam)
+        pkt, cam, scene, k, o, d, short0, states = mask_states(dev, config)
         torch.cuda.synchronize()
+        cfg = RenderConfig(width=W, height=H, max_depth=B)
         check(pt.route(pkt) == "wavefront", f"{name}: route {pt.route(pkt)}")
-        px, py = pt.pixel_grid(H, W, dev)
-        u = rng.ray_uniforms(WAVE_SEED, 1, R, 1, dev)
-        o, d = (x.contiguous() for x in cam_ops.get_rays(cam, px, py, (u - 0.5).T))
-        state0, ids0, short0 = wf.primary_state(o, d, scene, (H, W))
         check(short0 is not None, f"{name}: bounce 0 not screen-binned")
-        state1 = wf.wave_bounce(state0, ids0, *short0, scene, k, 0, WAVE_SEED, 1)
-        perm = wf.coherence_order(state1, scene)
-        state1, ids1 = state1[:, perm].contiguous(), ids0[perm].contiguous()
-        torch.cuda.synchronize()
-        print(f"phase 9: mask kernel vs plain, {name} ({pkt.num_triangles} triangles, "
-              f"{scene.n_leaf} leaves) at {W}x{H}, bounce-1 state "
-              f"({int((state1[9] > 0.5).sum())} live rays of {R}; scene packed in "
+        _, state1, ids1 = states[0]
+        print(f"phase 9: mask kernel vs plain and vs its first design, {name} "
+              f"({pkt.num_triangles} triangles, {scene.n_leaf} leaves) at {W}x{H}, every live "
+              f"bounce after the first of one sample ({len(states)}; traced in "
               f"{time.perf_counter() - t0:.2f} s)", flush=True)
-        got = wf.wave_mask(state1, scene.boxes, k.t_min)
-        want = wf.wave_mask_reference(state1, scene.boxes, k.t_min)
-        torch.cuda.synchronize()
-        n_diff = int((got != want).sum())
-        mask_err = max(mask_err, float((got.float() - want.float()).abs().max()))
+        for b, state, _ in states:
+            want = wf.wave_mask_reference(state, scene.boxes, k.t_min)
+            got = wf.wave_mask(state, scene.boxes, k.t_min)
+            first = first_mask(state, scene.boxes, k.t_min)
+            counts = torch.zeros(len(wf.MASK_STATS), dtype=torch.int64, device=dev)
+            counted = wf.wave_mask(state, scene.boxes, k.t_min, stats=counts)
+            torch.cuda.synchronize()
+            n_diff = int((got != want).sum())
+            mask_err = max(mask_err, float((got.float() - want.float()).abs().max()))
+            check(n_diff == 0, f"{name} bounce {b}: {n_diff} mask verdicts differ from the "
+                  "plain version")
+            check(torch.equal(got, first) and torch.equal(counted, got),
+                  f"{name} bounce {b}: verdicts differ from the first design's or the "
+                  "counting instantiation's")
+            counts = dict(zip(wf.MASK_STATS, counts.tolist()))
+            n_live = int((state[9] > 0.5).sum())
+            check(counts["live_rays"] == n_live, f"{name} bounce {b}: live rays {counts}")
+            turns = in_turns({"shipped": lambda: wf.wave_mask(state, scene.boxes, k.t_min),
+                              "first design": lambda: first_mask(state, scene.boxes,
+                                                                 k.t_min)}, 20)
+            nbytes, ops = mask_work(state, scene, got, counts)
+            b_ms, b_by = bound(nbytes, ops)
+            a_ms, a_by = bound(nbytes, n_live * scene.n_leaf * OPS_SLAB)
+            print(f"  bounce {b}: {n_live} live rays of {state.shape[1]}; verdicts equal to the "
+                  f"plain version's and the first design's; {100 * float(got.float().mean()):.3f}"
+                  f" % of (block, leaf) pairs pass; {counts['supertile_tests']} supertile and "
+                  f"{counts['leaf_tests']} leaf tests (live rays x the tests their warps made) "
+                  f"against {n_live * scene.n_leaf} (live ray, leaf) pairs; in turns: shipped "
+                  f"{turns['shipped']:.4f} ms, first design {turns['first design']:.4f} ms; "
+                  f"bound {b_ms:.4f} ms by {b_by} (every pair: {a_ms:.4f} ms by {a_by}) "
+                  f"[{card}]", flush=True)
+            if b == 1:
+                mask1, mask_ms, mask_work1 = got, turns["shipped"], (nbytes, ops)
+            del want, first, counted
         share0 = float(short0[1].float().sum()) / (short0[1].numel() * scene.n_leaf)
-        print(f"  verdicts: {n_diff} of {got.numel()} differ; survival share of (block, "
-              f"leaf) pairs {100 * float(got.float().mean()):.3f} % at bounce 1 "
-              f"(screen binning at bounce 0: {100 * share0:.3f} %)", flush=True)
-        check(n_diff == 0, f"{name}: {n_diff} mask verdicts differ from the plain version")
-        mask_ms = cuda_events(lambda: wf.wave_mask(state1, scene.boxes, k.t_min), 20)
+        print(f"  screen binning at bounce 0 lists {100 * share0:.3f} % of (block, leaf) "
+              "pairs", flush=True)
         mask_plain_ms = cuda_events(
             lambda: wf.wave_mask_reference(state1, scene.boxes, k.t_min), 1)
+        got = mask1
+        del states
 
         print(f"phase 10: bounce kernel vs plain, {name} at {W}x{H}, same state and "
               "shortlists", flush=True)
@@ -969,8 +1161,7 @@ def wavefront_phases(dev, card, rs):
               f"({100 * pairs['own_pairs'] / max(pairs['listed_pairs'], 1):.2f} %) whose box "
               f"the ray itself passes, {n_live * scene.n_leaf} without culling", flush=True)
         work = {
-            "mask": (r_pad * 40 + got.numel() + scene.boxes.numel() * 4,
-                     n_live * scene.n_leaf * OPS_SLAB),
+            "mask": mask_work1,
             "bounce": (r_pad * (80 + 4) + short.numel() * 4 + cnt.numel() * 4,
                        pairs["listed_pairs"] * OPS_SLAB
                        + pairs["own_pairs"] * wf.LEAF * OPS_TRI_TEST
@@ -992,7 +1183,7 @@ def wavefront_phases(dev, card, rs):
         img_p = postprocess_sample(cp, True).reshape(H, W, 3)
         compare(img_k, img_p, pt, f"{name} {W}x{H} trace, one sample")
         setups[name] = (pkt, cam, cfg)
-        del state0, state1, bk, bp, got, want, urand, ck, cp
+        del state1, bk, bp, got, mask1, urand, ck, cp
 
     # ---- 11. the triangle-scale main path ------------------------------------------------
     launches = [0, 0]
@@ -1109,11 +1300,13 @@ SPP_TWO_PASS = 64  # bench.py --mixed-scene's 64-spp two-pass step
 OPS_MISS = 10  # a miss: the sky gradient
 
 
-def triangle_training_phases(dev, card, rs, fma_bwd, dense_bwd_ms):
+def triangle_training_phases(dev, card, rs, fma_bwd, first_bwd, dense_bwd_ms):
     """Phases 15-18: the culled megakernel, the wavefront's record mode and
     the global-table backward against their plain versions on BASELINE
-    configs 4 and 3, then the triangle-scale training path. Returns the
-    three kernels' entries of the ``kernels`` line."""
+    configs 4 and 3 (the backward also against its first design,
+    ``first_bwd``, bit for bit and in turns), then the triangle-scale
+    training path. Returns the four kernels' entries of the ``kernels``
+    line (the culled megakernel's two instantiations)."""
     import numpy as np
     import torch
 
@@ -1221,7 +1414,7 @@ def triangle_training_phases(dev, card, rs, fma_bwd, dense_bwd_ms):
         # supertile boxes, the leaf boxes of the supertiles it needs (counted
         # as its own leaf pairs' supertiles, at least one box a pair), 64 rows
         # per own pair, the spheres, and shades or takes the sky
-        mega[name] = (m_rec_ms, m_plain_ms, R * (24 + 12 + 4 * B), (
+        mega[name] = (m_rec_ms, m_ms, m_plain_ms, R * (24 + 12 + 4 * B), (
             stats["ray_bounces"] * (scene.super_boxes.shape[0] * OPS_SLAB
                                     + scene.n_sph * OPS_SPH_TEST + OPS_MISS)
             + stats["own_pairs"] * (OPS_SLAB + wf.LEAF * OPS_TRI_TEST) + hits * OPS_SHADE))
@@ -1334,21 +1527,35 @@ def triangle_training_phases(dev, card, rs, fma_bwd, dense_bwd_ms):
           f"apart (atomics in no fixed order); d(o), d(d) bit-equal; {hits} hits on "
           f"{rows_hit} of {table.shape[0]} rows, {100 * sph_share:.1f} % of them on the "
           f"{scene.n_sph} sphere rows", flush=True)
-    g_turns = in_turns({label: (lambda fn=fn: fn(table, sky6, o, d, sel, dcol, k, B, T,
-                                                 TRAIN_SEED, 0))
-                        for label, fn in (("shipped", fg.fused_bwd), ("with FMA", fma_bwd))},
-                       10)
+    g_turns = hold_first_design("global bwd philox", fg.fused_bwd, first_bwd,
+                                (table, sky6, o, d, sel, dcol, k, B, T, TRAIN_SEED, 0), 10,
+                                {"with FMA": fma_bwd}, card)
     g_ms = g_turns["shipped"]
+    ur_x = torch.rand((2 + 2 * B, R), device=dev,
+                      generator=torch.Generator(dev).manual_seed(TRAIN_SEED))
+    sel_x = wf.trace(o, d, scene, k, B, TRAIN_SEED, 0, ur_x, tile_hint=(H, W), record=True)[1]
+    hold_first_design("global bwd external uniforms", fg.fused_bwd, first_bwd,
+                      (table, sky6, o, d, sel_x, dcol, k, B, T, TRAIN_SEED, 0, ur_x), 0, {},
+                      card)
+    del ur_x, sel_x
     g_plain_ms = cuda_events(lambda: fg.fused_bwd_reference(table, sky6, o, d, sel, dcol, k, B,
                                                             T, TRAIN_SEED, 0), 1)
     print(f"  global-table backward {g_ms:.4f} ms (with FMA contraction "
-          f"{g_turns['with FMA']:.4f} ms, in turns), plain {g_plain_ms:.1f} ms; the staged "
-          f"(dense) instantiation on the demo scene in this run (phase 7) {dense_bwd_ms:.4f} "
-          f"ms (CUDA events, {W}x{H}) [{card}]", flush=True)
+          f"{g_turns['with FMA']:.4f} ms, the first design {g_turns['first design']:.4f} ms, "
+          f"in turns), plain {g_plain_ms:.1f} ms; the staged (dense) instantiation on the "
+          f"demo scene in this run (phase 7) {dense_bwd_ms:.4f} ms (CUDA events, {W}x{H}) "
+          f"[{card}]", flush=True)
     # rays, selections and d(colour) in, d(o), d(d) out, the table read and
-    # d(table) written once (the per-hit row reads and atomics stay in L2), a
-    # chain and its adjoint per recorded hit
-    gbwd_work = (R * (24 + 4 * B + 12 + 24) + 2 * table.numel() * 4, hits * OPS_BWD_BOUNCE)
+    # d(table) written once (the per-hit row reads and atomics stay in L2),
+    # each bounce's chain, recompute and adjoint by its kind
+    g_ops, g_ops_old, g_kinds = bwd_ops(sel, table, T)
+    print(f"  backward's bounces by kind {g_kinds}: {g_ops / 1e9:.3f} GFLOP counted from "
+          f"replay.cuh (the old count, {OPS_BWD_BOUNCE_OLD} a hit, {g_ops_old / 1e9:.3f})",
+          flush=True)
+    gbwd_work = (R * (24 + 4 * B + 12 + 24) + 2 * table.numel() * 4, g_ops)
+    hold_deepest("global bwd philox", fg, first_bwd, lambda b: wf.trace(
+        o, d, scene, k, b, TRAIN_SEED, 0, tile_hint=(H, W), record=True)[1],
+        (table, sky6, o, d), dcol, k, T, TRAIN_SEED, card)
     del run_a, run_b, dcol, table, rec
 
     # ---- 18. the triangle-scale training path ---------------------------------------------------
@@ -1502,7 +1709,7 @@ def triangle_training_phases(dev, card, rs, fma_bwd, dense_bwd_ms):
           f"{path_launches[3]}", flush=True)
     check(all(n > 0 for n in path_launches), f"a kernel never ran: {path_launches}")
 
-    m_ms, m_plain_ms, m_bytes, m_ops = mega["config 4"]
+    m_ms, m_norec_ms, m_plain_ms, m_bytes, m_ops = mega["config 4"]
     return [with_bound({
         "name": "trace_culled",
         "route": "cuda",
@@ -1513,6 +1720,18 @@ def triangle_training_phases(dev, card, rs, fma_bwd, dense_bwd_ms):
         "ms": m_ms,
         "plain_ms": m_plain_ms,
     }, m_bytes, m_ops), with_bound({
+        # the instantiation that records no selection (mega_kernel<false>):
+        # bit-equal colour; no route launches it (the forced training step
+        # records), so 0 launches on the main path
+        "name": "trace_culled_norecord",
+        "route": "cuda",
+        "source": "ptre_tpu_torch/csrc/mega_kernel.cu",
+        "replaces": "ptre_tpu/ops/pallas/megakernel.py:237",
+        "launches": 0,
+        "max_abs_err": mega_err,
+        "ms": m_norec_ms,
+        "plain_ms": m_plain_ms,
+    }, m_bytes - R * 4 * B, m_ops), with_bound({
         "name": "wave_bounce_record",
         "route": "cuda",
         "source": "ptre_tpu_torch/csrc/wave_kernel.cu",
@@ -1563,10 +1782,11 @@ STAGED_STEPS = 2
 STAGED_REL = 2e-3
 
 
-def start_unit_build(unit, tag, flags=()):
-    """Start nvcc on one unit with NVCC_FLAGS and ``flags`` in place of the
-    unit's UNIT_FLAGS (so with FMA contraction unless ``flags`` say
-    otherwise), into a library of its own: (process, library path). A
+def start_unit_build(unit, tag, flags=(), src_dir=None):
+    """Start nvcc on one unit of ``src_dir`` (None: the shipped sources) with
+    NVCC_FLAGS and ``flags`` in place of the unit's UNIT_FLAGS (so with FMA
+    contraction unless ``flags`` say otherwise), against the headers of
+    ``src_dir``, into a library of its own: (process, library path). A
     variant that is not shipped, built while other phases run."""
     from ptre_tpu_torch.ops.cuda import build
 
@@ -1574,35 +1794,45 @@ def start_unit_build(unit, tag, flags=()):
     os.makedirs(out_dir, exist_ok=True)
     path = os.path.join(out_dir, f"lib{unit.replace('.cu', '')}_{tag}.so")
     proc = subprocess.Popen(
-        [build.find_nvcc(), *build.NVCC_FLAGS, *flags, "-shared", "-I", build.CSRC_DIR, "-o",
-         path, os.path.join(build.CSRC_DIR, unit)],
+        [build.find_nvcc(), *build.NVCC_FLAGS, *flags, "-shared", "-I", src_dir or build.CSRC_DIR,
+         "-o", path, os.path.join(src_dir or build.CSRC_DIR, unit)],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     return proc, path
 
 
-def finish_unit_build(unit_build):
-    """Wait for `start_unit_build`'s nvcc and load its library."""
+def start_baseline_build(unit):
+    """`start_unit_build` of the yardstick copy of ``unit`` (the kernel's
+    first design, ``csrc/baseline/``, against the frozen headers there) with
+    the shipped unit's flags."""
+    from ptre_tpu_torch.ops.cuda import build
+
+    return start_unit_build(unit, "baseline", build.UNIT_FLAGS.get(unit, ()),
+                            os.path.join(build.CSRC_DIR, "baseline"))
+
+
+def finish_unit_build(unit_build, report=None):
+    """Wait for `start_unit_build`'s nvcc and load its library; with
+    ``report`` (a list) append its `ptxas_summary`."""
     import ctypes
 
     proc, path = unit_build
     out, err = proc.communicate()
     check(proc.returncode == 0, f"nvcc (build of {path}) failed:\n{out}\n{err}")
+    if report is not None:
+        report.extend(ptxas_summary(err))
     return ctypes.CDLL(path)
 
 
-def fma_fused_bwd(lib, fg):
-    """`fused_bwd` launching the fused backward unit built WITH FMA
-    contraction (`start_unit_build`) from ``lib``, both instantiations; it
-    counts nothing."""
+def lib_fused_bwd(lib, fg):
+    """`fused_bwd` launching another build of the shipped fused backward
+    unit (`start_unit_build`: with FMA contraction, or a timing variant)
+    from ``lib``, both instantiations; it counts nothing."""
     import ctypes
 
-    ptr = ctypes.c_void_p
-    lib.ptre_fused_bwd_blocks.restype = ctypes.c_int
-    lib.ptre_fused_bwd_blocks.argtypes = [ctypes.c_int, ctypes.c_int]
-    lib.ptre_fused_bwd.restype = ctypes.c_int
-    lib.ptre_fused_bwd.argtypes = [ptr] * 12 + [ctypes.c_int, ptr]
-    lib.ptre_fused_bwd_global.restype = ctypes.c_int
-    lib.ptre_fused_bwd_global.argtypes = [ptr] * 13 + [ctypes.c_int, ctypes.c_int, ptr]
+    shipped = fg.build.load_library()
+    for name in ("ptre_fused_bwd_blocks", "ptre_fused_bwd", "ptre_fused_bwd_global"):
+        getattr(lib, name).restype = ctypes.c_int
+        getattr(lib, name).argtypes = getattr(shipped, name).argtypes
 
     def fn(*args):
         load, count = fg.build.load_library, fg.launches
@@ -1615,9 +1845,89 @@ def fma_fused_bwd(lib, fg):
     return fn
 
 
+
+def baseline_fused_bwd(lib, fg, mk):
+    """The fused backward's first design (``csrc/baseline/
+    fused_grad_kernel.cu``, built by `start_baseline_build`) through its own C
+    interface — (P, 27) table and d(table), the grid sized without the
+    depth — as a function of `fused_bwd`'s arguments; it counts nothing."""
+    import ctypes
+
+    import torch
+
+    ptr = ctypes.c_void_p
+    lib.ptre_fused_bwd_blocks.restype = ctypes.c_int
+    lib.ptre_fused_bwd_blocks.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.ptre_fused_bwd.restype = ctypes.c_int
+    lib.ptre_fused_bwd.argtypes = [ptr] * 12 + [ctypes.c_int, ptr]
+    lib.ptre_fused_bwd_global.restype = ctypes.c_int
+    lib.ptre_fused_bwd_global.argtypes = [ptr] * 13 + [ctypes.c_int, ctypes.c_int, ptr]
+
+    def fn(table, sky6, o, d, sel, dcol, consts, max_depth, sph_offset, seed=0, sample=0,
+           urand=None):
+        R, P = o.shape[0], table.shape[0]
+        staged = P <= fg.MAX_ROWS
+        params = mk.trace_params(R, consts, max_depth, seed, sample, urand is not None,
+                                 sph_offset=sph_offset, n_rows=P)
+        d_o, d_d = torch.empty_like(o), torch.empty_like(d)
+        n_blocks = lib.ptre_fused_bwd_blocks(R, int(not staged))
+        check(n_blocks >= 1, "baseline fused backward: no grid")
+        dsky_part = torch.empty((n_blocks, 8), dtype=torch.float32, device=o.device)
+        stream = torch.cuda.current_stream(o.device).cuda_stream
+        common = (ctypes.addressof(params), table.data_ptr(), sky6.data_ptr(), o.data_ptr(),
+                  d.data_ptr(), sel.data_ptr(), None if urand is None else urand.data_ptr(),
+                  dcol.data_ptr(), d_o.data_ptr(), d_d.data_ptr())
+        if staged:
+            part = torch.empty((n_blocks, P, 27), dtype=torch.float32, device=o.device)
+            rc = lib.ptre_fused_bwd(*common, part.data_ptr(), dsky_part.data_ptr(), n_blocks,
+                                    stream)
+            dtable = part.sum(dim=0)
+        else:
+            n_sph = P - sph_offset
+            n_acc = n_sph if n_sph <= fg.MAX_SPH_ACC else 0
+            dtable = torch.zeros((P, 27), dtype=torch.float32, device=o.device)
+            part = torch.empty((n_blocks, n_acc, 27), dtype=torch.float32, device=o.device)
+            rc = lib.ptre_fused_bwd_global(*common, dtable.data_ptr(), part.data_ptr(),
+                                           dsky_part.data_ptr(), n_blocks, n_acc, stream)
+            if n_acc:
+                dtable[sph_offset:sph_offset + n_acc] += part.sum(dim=0)
+        check(rc == 0, f"baseline fused backward launch failed ({rc})")
+        return dtable, dsky_part[:, :6].sum(dim=0), d_o, d_d
+
+    return fn
+
+
+def baseline_wave_mask(lib, wf, mk):
+    """The mask kernel's first design (``csrc/baseline/mask_kernel.cu``)
+    through its own C interface, as a function of `wave_mask`'s arguments;
+    it counts nothing."""
+    import ctypes
+
+    import torch
+
+    ptr = ctypes.c_void_p
+    lib.ptre_wave_mask.restype = ctypes.c_int
+    lib.ptre_wave_mask.argtypes = [ptr] * 4 + [ctypes.c_int, ptr]
+
+    def fn(state, boxes, t_min, lanes=wf.LANES):
+        r_pad, n_leaf = state.shape[1], boxes.shape[0]
+        mask = torch.empty((r_pad // lanes, n_leaf), dtype=torch.bool, device=state.device)
+        p = wf.MaskParams(t_min=mk.f32(t_min), r_pad=r_pad, n_leaf=n_leaf)
+        rc = lib.ptre_wave_mask(ctypes.addressof(p), state.data_ptr(), boxes.data_ptr(),
+                                mask.data_ptr(), lanes,
+                                torch.cuda.current_stream(state.device).cuda_stream)
+        check(rc == 0, f"baseline mask launch failed ({rc})")
+        return mask
+
+    return fn
+
+
 def in_turns(fns, reps):
     """{label: ms per call} of each function of ``fns`` ({label: function})
-    by CUDA events, timed in turns a, b, b, a: each label's mean of two."""
+    by CUDA events, timed in turns a, b, b, a: each label's mean of two;
+    {} for ``reps`` 0."""
+    if reps == 0:
+        return {}
     order = list(fns) + list(reversed(fns))
     times = {}
     for label in order:
@@ -2309,7 +2619,7 @@ def replay_phases(dev, card, rs, fma_bwd):
         "ms": bwd_ms,
         "plain_ms": bwd_plain_ms,
     }, R * (24 + 4 * B + 12 + 24 + ROW_BYTES * B) + rows_read,
-        (hits - n_lit) * OPS_BWD_BOUNCE)]
+        bwd_ops(sel_p, table, T)[0])]
 
 
 # Raster kernels vs plain versions (phases 12-14). Coverage, z and the hard

@@ -1,38 +1,68 @@
 // Host build of the wavefront kernels' and the culled megakernel's per-ray
 // bodies, for checks on machines without a GPU: the same slab_pass,
-// slab_pass_within, sweep_leaf and finish_bounce_at (wave.cuh, trace.cuh,
-// philox.cuh) that mask_kernel.cu, wave_kernel.cu and mega_kernel.cu run per
-// thread, looped over the ray blocks on the CPU, a block's votes taken by a
-// loop over its rays. The sweep reads each leaf's compact rows straight from
-// the table instead of staging them.
+// super_union, slab_pass_within, sweep_leaf and finish_bounce_at (wave.cuh,
+// trace.cuh, philox.cuh) that mask_kernel.cu, wave_kernel.cu and
+// mega_kernel.cu run per thread, looped over the ray blocks on the CPU, a
+// warp's or a block's votes taken by a loop over its rays. The sweep reads
+// each leaf's compact rows straight from the table instead of staging them.
 //
 //   g++ -std=c++17 -O2 -shared -fPIC -o libptre_host_wave.so host_wave.cpp
 //
 // tests/test_torch_csrc_host.py builds it this way and holds it against the
 // plain PyTorch versions.
 
+#include <algorithm>
 #include <vector>
 
 #include "wave.cuh"
 
+// mask_kernel.cu's block over every block of `lanes` rays: the supertile
+// union boxes (super_union), then per warp of 32 rays the two-level walk —
+// a supertile whose leaves are all listed is skipped, else its box is voted
+// on by the live lanes, and, where one passes, each leaf not yet listed —
+// into the block's bit mask, written as one byte a leaf. The kernel's warps
+// run at once and list leaves in another order; the verdict is an OR, so
+// the mask is the same.
 extern "C" void ptre_wave_mask_host(const ptre::MaskParams* params,
                                     const float* state, const float* boxes,
                                     uint8_t* mask, int lanes) {
   const ptre::MaskParams& p = *params;
+  const int n_super = (p.n_leaf + ptre::kSuper - 1) / ptre::kSuper;
+  std::vector<float> sup((size_t)n_super * 6);
+  for (int s = 0; s < n_super; ++s) ptre::super_union(boxes, p.n_leaf, s, &sup[s * 6]);
+  std::vector<uint8_t> listed(p.n_leaf);
   for (int64_t b = 0; b < p.r_pad / lanes; ++b) {
-    for (int l = 0; l < p.n_leaf; ++l) {
-      uint8_t any = 0;
-      for (int64_t col = b * lanes; col < (b + 1) * lanes; ++col) {
-        const ptre::WaveRay r = ptre::load_ray(state, col, p.r_pad);
-        const float iv[3] = {ptre::slab_inv(r.d[0]), ptre::slab_inv(r.d[1]),
-                             ptre::slab_inv(r.d[2])};
-        if (r.act > 0.5f &&
-            ptre::slab_pass(boxes + l * ptre::kBoxStride, r.o, iv, p.t_min)) {
-          any = 1;
+    std::fill(listed.begin(), listed.end(), 0);
+    for (int64_t w0 = b * lanes; w0 < (b + 1) * lanes; w0 += 32) {
+      bool live[32];
+      float o[32][3], iv[32][3];
+      bool any_live = false;
+      for (int l = 0; l < 32; ++l) {
+        const ptre::WaveRay r = ptre::load_ray(state, w0 + l, p.r_pad);
+        live[l] = r.act > 0.5f;
+        any_live = any_live || live[l];
+        for (int k = 0; k < 3; ++k) {
+          o[l][k] = r.o[k];
+          iv[l][k] = ptre::slab_inv(r.d[k]);
         }
       }
-      mask[b * p.n_leaf + l] = any;
+      if (!any_live) continue;
+      auto vote = [&](const float* box) {
+        for (int l = 0; l < 32; ++l)
+          if (live[l] && ptre::slab_pass(box, o[l], iv[l], p.t_min)) return true;
+        return false;
+      };
+      for (int s = 0; s < n_super; ++s) {
+        const int l0 = s * ptre::kSuper;
+        const int l1 = std::min(l0 + ptre::kSuper, (int)p.n_leaf);
+        bool all = true;
+        for (int l = l0; l < l1; ++l) all = all && listed[l];
+        if (all || !vote(&sup[s * 6])) continue;
+        for (int l = l0; l < l1; ++l)
+          if (!listed[l] && vote(boxes + l * ptre::kBoxStride)) listed[l] = 1;
+      }
     }
+    for (int l = 0; l < p.n_leaf; ++l) mask[b * p.n_leaf + l] = listed[l];
   }
 }
 

@@ -600,6 +600,76 @@ struct PointerTable {
   }
 };
 
+// PaddedTable: a (n_rows, kPadStride) copy of the table whose column 27 is
+// 0, so that a row is 112 bytes, 16-byte aligned: on the card one row is
+// seven 16-byte loads through the read-only path into `buf`.
+constexpr int kPadStride = 28;
+struct PaddedTable {
+  const float* rows;  // (n_rows, kPadStride)
+  PTRE_HD const float* row(int idx, int, float* buf) const {
+    const float* src = rows + (int64_t)idx * kPadStride;
+#ifdef __CUDA_ARCH__
+    const float4* q = reinterpret_cast<const float4*>(src);
+    for (int i = 0; i < 6; ++i) {
+      const float4 w = __ldg(q + i);
+      buf[4 * i] = w.x;
+      buf[4 * i + 1] = w.y;
+      buf[4 * i + 2] = w.z;
+      buf[4 * i + 3] = w.w;
+    }
+    const float4 w = __ldg(q + 6);
+    buf[24] = w.x;
+    buf[25] = w.y;
+    buf[26] = w.z;
+#else
+    for (int i = 0; i < kRowStride; ++i) buf[i] = src[i];
+#endif
+    return buf;
+  }
+};
+
+// The summing step of fused_grad_kernel.cu's row-grouped accumulation, the
+// same code in the kernel and its host build (host_grad.cpp). A grouped
+// lane puts its row cotangent into row `lane` of its warp's (32,
+// kPadStride) slice `red` (column 27 is 0); columns 4q .. 4q + 3 of a
+// group's sum are then the rows of the lanes in `group` added from 0,
+// lowest lane first.
+PTRE_HD int lowest_lane(unsigned m) {
+#ifdef __CUDA_ARCH__
+  return __ffs(m) - 1;
+#else
+  return __builtin_ctz(m);
+#endif
+}
+
+PTRE_HD void put_group_row(float* red, int lane, const float v[kRowStride]) {
+  float* dst = red + lane * kPadStride;
+#ifdef __CUDA_ARCH__
+  float4* q = reinterpret_cast<float4*>(dst);
+  for (int i = 0; i < 6; ++i) q[i] = make_float4(v[4 * i], v[4 * i + 1], v[4 * i + 2], v[4 * i + 3]);
+  q[6] = make_float4(v[24], v[25], v[26], 0.0f);
+#else
+  for (int i = 0; i < kRowStride; ++i) dst[i] = v[i];
+  dst[kRowStride] = 0.0f;
+#endif
+}
+
+PTRE_HD void group_sum4(const float* red, unsigned group, int q, float s[4]) {
+  s[0] = s[1] = s[2] = s[3] = 0.0f;
+  for (unsigned m = group; m != 0u; m &= m - 1u) {
+    const float* row = red + lowest_lane(m) * kPadStride + 4 * q;
+#ifdef __CUDA_ARCH__
+    const float4 v = *reinterpret_cast<const float4*>(row);
+    s[0] += v.x;
+    s[1] += v.y;
+    s[2] += v.z;
+    s[3] += v.w;
+#else
+    for (int j = 0; j < 4; ++j) s[j] += row[j];
+#endif
+  }
+}
+
 // GatheredRows: the winners' rows gathered outside the kernel, (B, R, 27):
 // ray `ray`'s row of bounce b, whatever its index (the replay kernels,
 // replay_kernel.py _split_inputs). The row index only says which class was
@@ -637,18 +707,86 @@ struct BounceState {
   bool act;
 };
 
+// Where ray_forward keeps the state entering each bounce and ray_backward
+// reads it back: `store(b, ...)` in the forward, `load(b)` in reverse.
+// LocalStates: the thread's own array of kMaxDepth states (indexed by the
+// runtime bounce, so it lives in the stack frame).
+template <typename T>
+struct LocalStates {
+  BounceState<T> st[kMaxDepth];
+  PTRE_HD void store(int b, const T o[3], const T d[3], const T c[3], float u1,
+                     float u2, int idx, bool act) {
+    BounceState<T>& s = st[b];
+    for (int i = 0; i < 3; ++i) {
+      s.o[i] = o[i];
+      s.d[i] = d[i];
+      s.c[i] = c[i];
+    }
+    s.u[0] = T(u1);
+    s.u[1] = T(u2);
+    s.idx = idx;
+    s.act = act;
+  }
+  PTRE_HD BounceState<T> load(int b) const { return st[b]; }
+};
+
+// StridedStates: the float32 fields o, d, c, u of each bounce in a
+// [bounce][field][thread] slice (thread t's field f of bounce b at
+// base[(b * kStateFields + f) * stride], base = slice + t: a block's threads
+// store and load neighbouring words); the row index read again from the
+// selections as ray_forward read it, `act` one bit a bounce in a register.
+constexpr int kStateFields = 11;
+struct StridedStates {
+  float* base;
+  int stride;
+  const int32_t* sel;  // the ray's selections, bounce b at sel[b * sel_stride]
+  int64_t sel_stride;
+  int n_rows;
+  bool valid;
+  unsigned act_bits;
+
+  PTRE_HD void store(int b, const float o[3], const float d[3],
+                     const float c[3], float u1, float u2, int, bool act) {
+    float* f = base + (int64_t)b * kStateFields * stride;
+    for (int i = 0; i < 3; ++i) {
+      f[i * stride] = o[i];
+      f[(3 + i) * stride] = d[i];
+      f[(6 + i) * stride] = c[i];
+    }
+    f[9 * stride] = u1;
+    f[10 * stride] = u2;
+    act_bits = (act_bits & ~(1u << b)) | ((act ? 1u : 0u) << b);
+  }
+  PTRE_HD BounceState<float> load(int b) const {
+    const float* f = base + (int64_t)b * kStateFields * stride;
+    BounceState<float> s;
+    for (int i = 0; i < 3; ++i) {
+      s.o[i] = f[i * stride];
+      s.d[i] = f[(3 + i) * stride];
+      s.c[i] = f[(6 + i) * stride];
+    }
+    s.u[0] = f[9 * stride];
+    s.u[1] = f[10 * stride];
+    int idx = valid ? sel[b * sel_stride] : -1;
+    if (idx >= n_rows) idx = -1;  // as ray_forward
+    s.idx = idx;
+    s.act = ((act_bits >> b) & 1u) != 0u;
+    return s;
+  }
+};
+
 // The whole chain of one ray from its primary ray (replay_kernel._chain,
 // :241): max_depth bounces over the recorded selections `sel` (bounce b at
 // sel[b * sel_stride]; -1 where nothing was hit or the path had ended) ->
-// the colour. With `saved` (kMaxDepth entries) it keeps the state entering
-// each bounce. Uniforms are those the recording forward drew: the external
-// rows, or Philox regenerated from (seed, ray, sample, draw).
-template <typename T, class Table, class Uniforms>
+// the colour. With `saved` (LocalStates or StridedStates) it keeps the
+// state entering each bounce. Uniforms are those the recording forward drew:
+// the external rows, or Philox regenerated from (seed, ray, sample, draw).
+template <typename T, class Table, class Uniforms, class Saved>
 PTRE_HD void ray_forward(int max_depth, int sph_offset, int n_rows,
                          const Table& table, const T sky[6],
                          const ChainConsts<T>& k, bool valid, const T o[3],
                          const T d[3], const int32_t* sel, int64_t sel_stride,
-                         Uniforms& un, T color[3], BounceState<T>* saved) {
+                         Uniforms& un, T color[3], Saved* saved) {
   T O[3], D[3], C[3] = {T(1), T(1), T(1)};
   for (int i = 0; i < 3; ++i) {
     O[i] = valid ? o[i] : T(0);
@@ -660,18 +798,7 @@ PTRE_HD void ray_forward(int max_depth, int sph_offset, int n_rows,
     if (idx >= n_rows) idx = -1;  // never read outside the table
     float u1 = 0.0f, u2 = 0.0f;
     if (act) un.pair(1 + b, &u1, &u2);
-    if (saved != nullptr) {
-      BounceState<T>& s = saved[b];
-      for (int i = 0; i < 3; ++i) {
-        s.o[i] = O[i];
-        s.d[i] = D[i];
-        s.c[i] = C[i];
-      }
-      s.u[0] = T(u1);
-      s.u[1] = T(u2);
-      s.idx = idx;
-      s.act = act;
-    }
+    if (saved != nullptr) saved->store(b, O, D, C, u1, u2, idx, act);
     T row[kRowStride];
     const T* g = idx >= 0 ? table.row(idx, b, row) : nullptr;
     T O2[3], D2[3], C2[3];
@@ -688,26 +815,25 @@ PTRE_HD void ray_forward(int max_depth, int sph_offset, int n_rows,
 
 // The whole backward of one ray (fused_grad._fused_bwd_kernel per lane, and
 // replay_kernel._bwd_kernel's in-kernel vjp): recompute the chain forward
-// (ray_forward), keeping the state at each bounce boundary, then reverse the
-// bounces from the last to the first. `acc.add_row(idx, b, dg)` receives
-// every bounce's row cotangent — called the same number of times by every
-// thread, with idx = -1 where nothing was hit, so a warp-level accumulator
-// may synchronise inside it.
-template <typename T, class Table, class Uniforms, class Acc>
+// (ray_forward), keeping the state at each bounce boundary in `saved`, then
+// reverse the bounces from the last to the first. `acc.add_row(idx, b, dg)`
+// receives every bounce's row cotangent — called the same number of times
+// by every thread, with idx = -1 where nothing was hit, so a warp-level
+// accumulator may synchronise inside it.
+template <typename T, class Table, class Uniforms, class Acc, class Saved>
 PTRE_HD void ray_backward(int max_depth, int sph_offset, int n_rows,
                           const Table& table, const T sky[6],
                           const ChainConsts<T>& k, bool valid, const T o[3],
                           const T d[3], const int32_t* sel, int64_t sel_stride,
                           Uniforms& un, const T dcol[3], T d_o[3], T d_d[3],
-                          T dsky[6], Acc& acc) {
-  BounceState<T> st[kMaxDepth];
+                          T dsky[6], Acc& acc, Saved& saved) {
   T color[3];
   ray_forward(max_depth, sph_offset, n_rows, table, sky, k, valid, o, d, sel,
-              sel_stride, un, color, st);
+              sel_stride, un, color, &saved);
   T gO[3] = {T(0), T(0), T(0)}, gD[3] = {T(0), T(0), T(0)}, gC[3];
   for (int i = 0; i < 3; ++i) gC[i] = valid ? dcol[i] : T(0);
   for (int b = max_depth - 1; b >= 0; --b) {
-    const BounceState<T>& s = st[b];
+    const BounceState<T> s = saved.load(b);
     T row[kRowStride];
     const T* g = s.idx >= 0 ? table.row(s.idx, b, row) : nullptr;
     T dO[3], dD[3], dC[3], dg[kRowStride], ds[6];
@@ -728,6 +854,19 @@ PTRE_HD void ray_backward(int max_depth, int sph_offset, int n_rows,
   }
 }
 
+// ray_backward with the states in the thread's own LocalStates.
+template <typename T, class Table, class Uniforms, class Acc>
+PTRE_HD void ray_backward(int max_depth, int sph_offset, int n_rows,
+                          const Table& table, const T sky[6],
+                          const ChainConsts<T>& k, bool valid, const T o[3],
+                          const T d[3], const int32_t* sel, int64_t sel_stride,
+                          Uniforms& un, const T dcol[3], T d_o[3], T d_d[3],
+                          T dsky[6], Acc& acc) {
+  LocalStates<T> saved;
+  ray_backward(max_depth, sph_offset, n_rows, table, sky, k, valid, o, d, sel,
+               sel_stride, un, dcol, d_o, d_d, dsky, acc, saved);
+}
+
 // The replay pair's per-ray bodies (replay_kernel.cu's kernels, and
 // host_replay.cpp's loops): ray `ray` of R rays over the gathered rows g
 // (B, R, 27), with the uniform source the params select. p.n_rows bounds
@@ -741,7 +880,7 @@ PTRE_HD void replay_ray_forward(const TraceParams& p, const T* g,
                                 int64_t ray, T* color) {
   const ChainConsts<T> k = {T(p.t_min), T(p.shadow_eps), T(p.pdf_eps)};
   const GatheredRows<T> rows = {g, ray, p.n_rays};
-  BounceState<T>* none = nullptr;
+  LocalStates<T>* none = nullptr;
   if (p.external_rng) {
     ExternalUniforms un = {urand, ray, p.n_rays};
     ray_forward(p.max_depth, p.sph_offset, p.n_rows, rows, sky, k, true,

@@ -129,6 +129,25 @@ PTRE_HD bool slab_pass(const float* box, const float o[3], const float iv[3],
   return tn <= tf && tf >= t_min;
 }
 
+// The union box (lo.xyz hi.xyz) of supertile s of `boxes`: its leaves s *
+// kSuper .. below n_leaf (at least one), taken with fminf / fmaxf, so it is
+// megakernel.pack_super_boxes of these boxes exactly (a padding leaf there is
+// an empty box, which no min or max takes). Each leaf box lies inside it, so
+// a ray that passes a leaf's slab test passes its supertile's: the test
+// subtracts and multiplies without a*b+c, and round-to-nearest is monotone,
+// so a wider box gives a t_near no later and a t_far no earlier on every
+// axis (slab_inv is finite and non-zero).
+PTRE_HD void super_union(const float* boxes, int n_leaf, int s, float out[6]) {
+  const int l0 = s * kSuper;
+  for (int k = 0; k < 6; ++k) out[k] = boxes[l0 * kBoxStride + k];
+  for (int l = l0 + 1; l < l0 + kSuper && l < n_leaf; ++l) {
+    for (int k = 0; k < 3; ++k) {
+      out[k] = fminf(out[k], boxes[l * kBoxStride + k]);
+      out[3 + k] = fmaxf(out[3 + k], boxes[l * kBoxStride + 3 + k]);
+    }
+  }
+}
+
 // The culled megakernel's slab test (megakernel.py:377-390): also bounded by
 // the closest hit so far, so found intersections cull later boxes.
 PTRE_HD bool slab_pass_within(const float* box, const float o[3],

@@ -137,19 +137,19 @@ def load_library() -> ctypes.CDLL:
     # (params, o, d, urand, tris, sphs, mats, sky, color, sel, stream)
     lib.ptre_trace_record.argtypes = [ptr] * 11
     lib.ptre_fused_bwd_blocks.restype = ctypes.c_int
-    # (n_rays, global_table)
-    lib.ptre_fused_bwd_blocks.argtypes = [ctypes.c_int, ctypes.c_int]
+    # (n_rays, global_table, max_depth, n_rows)
+    lib.ptre_fused_bwd_blocks.argtypes = [ctypes.c_int] * 4
     lib.ptre_fused_bwd.restype = ctypes.c_int
     # (params, table, sky, o, d, sel, urand, dcol, d_o, d_d, dtab_part,
     #  dsky_part, n_blocks, stream)
     lib.ptre_fused_bwd.argtypes = [ptr] * 12 + [ctypes.c_int, ptr]
     lib.ptre_fused_bwd_global.restype = ctypes.c_int
-    # (params, table, sky, o, d, sel, urand, dcol, d_o, d_d, dtable, dsph_part,
-    #  dsky_part, n_blocks, n_sph_acc, stream)
+    # (params, table (P, 28), sky, o, d, sel, urand, dcol, d_o, d_d,
+    #  dtable (P, 28), dsph_part, dsky_part, n_blocks, n_sph_acc, stream)
     lib.ptre_fused_bwd_global.argtypes = [ptr] * 13 + [ctypes.c_int, ctypes.c_int, ptr]
     lib.ptre_wave_mask.restype = ctypes.c_int
-    # (params, state, boxes, mask, lanes, stream)
-    lib.ptre_wave_mask.argtypes = [ptr] * 4 + [ctypes.c_int, ptr]
+    # (params, state, boxes, mask, stats, lanes, stream)
+    lib.ptre_wave_mask.argtypes = [ptr] * 5 + [ctypes.c_int, ptr]
     lib.ptre_wave_bounce.restype = ctypes.c_int
     # (params, state, ids, shortlist, counts, tris, rows, boxes, sphs, mats,
     #  sky, urand, out, sel, lanes, stream)

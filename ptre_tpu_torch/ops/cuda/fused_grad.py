@@ -14,8 +14,9 @@ Port of `ptre_tpu/ops/pallas/fused_grad.py`:
     the replay chain and reverses it with the hand-written adjoint
     (`csrc/replay.cuh`), and accumulates d(table), d(rays) and d(sky). A
     table of at most ``MAX_ROWS`` rows is staged in shared memory beside its
-    d(table) accumulator; a larger one stays in global memory and d(table)
-    is summed by global atomics (the sphere rows through shared memory);
+    d(table) accumulator; a larger one is read from a copy padded to 28
+    columns in global memory and d(table) is summed by global atomics into a
+    28-column buffer (the sphere rows through shared memory);
   * `TraceGrad` ties the two together as `_make_core` does (`:347-378`): the
     forward returns the recording forward's color as the primal, the
     backward runs `fused_bwd`. The triangle-scale forwards record rows of
@@ -112,7 +113,7 @@ def fused_bwd(table, sky6, o, d, sel, dcol, consts, max_depth: int,
     d_o = torch.empty_like(o)
     d_d = torch.empty_like(d)
     with torch.cuda.device(o.device):
-        n_blocks = lib.ptre_fused_bwd_blocks(R, int(not staged))
+        n_blocks = lib.ptre_fused_bwd_blocks(R, int(not staged), max_depth, P)
         if n_blocks < 1:
             raise RendererError("fused backward: could not size the persistent grid")
         dsky_part = torch.empty((n_blocks, 8), dtype=torch.float32, device=o.device)
@@ -128,19 +129,25 @@ def fused_bwd(table, sky6, o, d, sel, dcol, consts, max_depth: int,
         else:
             n_sph = P - sph_offset
             n_acc = n_sph if n_sph <= MAX_SPH_ACC else 0
-            dtable = torch.zeros((P, 27), dtype=torch.float32, device=o.device)
+            # rows of 28 floats: seven 16-byte loads and float4 atomics a row
+            padded = torch.nn.functional.pad(table, (0, 1)).contiguous()
+            dtable = torch.zeros((P, 28), dtype=torch.float32, device=o.device)
             dsph_part = torch.empty((n_blocks, n_acc, 27), dtype=torch.float32,
                                     device=o.device)
-            rc = lib.ptre_fused_bwd_global(*common, dtable.data_ptr(), dsph_part.data_ptr(),
-                                           dsky_part.data_ptr(), n_blocks, n_acc, stream)
+            rc = lib.ptre_fused_bwd_global(ctypes.addressof(params), padded.data_ptr(),
+                                           *common[2:], dtable.data_ptr(),
+                                           dsph_part.data_ptr(), dsky_part.data_ptr(),
+                                           n_blocks, n_acc, stream)
     if rc != 0:
         raise RendererError(
             f"fused backward launch failed: {lib.ptre_cuda_error_string(rc).decode()}")
     launches += 1
     if staged:
         dtable = dtab_part.sum(dim=0)
-    elif n_acc:
-        dtable[sph_offset:sph_offset + n_acc] += dsph_part.sum(dim=0)
+    else:
+        dtable = dtable[:, :27].contiguous()
+        if n_acc:
+            dtable[sph_offset:sph_offset + n_acc] += dsph_part.sum(dim=0)
     return dtable, dsky_part[:, :6].sum(dim=0), d_o, d_d
 
 

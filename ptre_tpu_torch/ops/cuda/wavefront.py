@@ -344,10 +344,18 @@ def _check_lanes(r_pad: int, lanes: int):
                             f"of 32 dividing the {r_pad} state columns; got {lanes}")
 
 
-def wave_mask(state, boxes, t_min: float, lanes: int = LANES):
+#: the mask kernel's counters (`wave_mask`'s ``stats``): slab tests of
+#: supertile boxes and of leaf boxes, each counted once for every live ray of
+#: the warp that made it, and the live rays
+MASK_STATS = ("supertile_tests", "leaf_tests", "live_rays")
+
+
+def wave_mask(state, boxes, t_min: float, lanes: int = LANES, stats=None):
     """The (nb, n_leaf) bool cull mask of one bounce. CUDA tensors launch
     `csrc/mask_kernel.cu` (counted in ``mask_launches``); CPU tensors run
-    `wave_mask_reference`; anything else raises."""
+    `wave_mask_reference`; anything else raises. ``stats``: None, or a
+    zeroed (3,) int64 CUDA tensor that the counting instantiation adds
+    `MASK_STATS` into (the verdicts are the same)."""
     global mask_launches
     if state.device.type == "cpu":
         return wave_mask_reference(state, boxes, t_min, lanes)
@@ -361,13 +369,17 @@ def wave_mask(state, boxes, t_min: float, lanes: int = LANES):
     if not 1 <= n_leaf <= MAX_WAVE_TRIS // LEAF:
         raise RendererError(f"the mask kernel takes 1 to {MAX_WAVE_TRIS // LEAF} leaves, "
                             f"got {n_leaf}")
+    if stats is not None:
+        mk.check_tensors("state", state.device, [
+            ("stats", stats, (len(MASK_STATS),), torch.int64)])
     mask = torch.empty((r_pad // lanes, n_leaf), dtype=torch.bool, device=state.device)
     p = MaskParams(t_min=mk.f32(t_min), r_pad=r_pad, n_leaf=n_leaf)
     lib = build.load_library()
     with torch.cuda.device(state.device):
         stream = torch.cuda.current_stream(state.device).cuda_stream
         rc = lib.ptre_wave_mask(ctypes.addressof(p), state.data_ptr(), boxes.data_ptr(),
-                                mask.data_ptr(), lanes, stream)
+                                mask.data_ptr(), None if stats is None else stats.data_ptr(),
+                                lanes, stream)
     if rc != 0:
         raise RendererError(
             f"mask kernel launch failed: {lib.ptre_cuda_error_string(rc).decode()}")

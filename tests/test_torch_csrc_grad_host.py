@@ -17,7 +17,12 @@ compiles them with g++.
 * The host recorder's selections equal the plain ``trace_block(record=True)``
   exactly, and its color matches to 1e-5 (cos/sin from libm vs PyTorch, as
   in `test_torch_csrc_host.py`).
-* The host fused backward of whole paths matches `fused_bwd_reference`.
+* The host fused backward of whole paths, as fused_grad_kernel.cu runs it
+  (saved states in a [bounce][field][thread] slice, the table in place or
+  padded to 28 columns), matches `fused_bwd_reference` at max_depth 1, 2, 5
+  and 8.
+* The kernel's row-grouped accumulation, replayed warp by warp, matches a
+  float64 `index_add_` of the same cotangents.
 """
 
 from __future__ import annotations
@@ -62,7 +67,10 @@ def lib(tmp_path_factory):
     lib.ptre_trace_record_host.restype = None
     lib.ptre_trace_record_host.argtypes = [ctypes.c_void_p] * 10
     lib.ptre_fused_bwd_host.restype = None
-    lib.ptre_fused_bwd_host.argtypes = [ctypes.c_void_p] * 12
+    lib.ptre_fused_bwd_host.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int]
+    lib.ptre_grouped_rows_host.restype = None
+    lib.ptre_grouped_rows_host.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 3
+                                           + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     return lib
 
 
@@ -237,36 +245,107 @@ def test_host_recorder_equals_plain_trace_block(lib, external):
     assert (want_s == -1).any()
 
 
-@pytest.mark.parametrize("external", [True, False])
-def test_host_fused_backward_matches_reference(lib, external):
+# (external uniforms, max_depth, table source): the dense instantiation's
+# table read in place ("pointer") or the global one's padded to 28 columns
+# ("padded"); the first two cases keep their original ids
+BWD_CASES = [pytest.param(True, 5, "pointer", id="True"),
+             pytest.param(False, 5, "pointer", id="False")] + [
+    pytest.param(ext, depth, src, id=f"{ext}-{depth}-{src}")
+    for src in ("pointer", "padded") for depth in (1, 2, 5, 8) for ext in (True, False)
+    if (depth, src) != (5, "pointer")]
+
+
+@pytest.mark.parametrize("external, max_depth, source", BWD_CASES)
+def test_host_fused_backward_matches_reference(lib, external, max_depth, source):
+    """Whole paths of a diffuse demo scene (triangle and sphere hits, misses,
+    paths ended early, the emissive cube); rtol 5e-4, atol 1e-5 of each
+    output's largest entry, as the float adjoint test. The padded table's
+    column 27 stays 0 in d(table)."""
     torch.set_num_threads(1)
     pkt, o, d = _demo_rays(seed=5)
     # a diffuse cube too, so triangle geometry gets gradient
     pkt.mat_kind = torch.zeros_like(pkt.mat_kind)
     pkt.mat_param = torch.tensor([1.0, 0.4])
-    cfg = RenderConfig(width=32, height=16, max_depth=5)
+    cfg = RenderConfig(width=32, height=16, max_depth=max_depth)
     scene = mk.pack_scene(pkt)
     k = mk.TraceConsts.from_config(cfg)
     R = o.shape[0]
-    urand = (torch.from_numpy(np.random.default_rng(6).random((12, R), np.float32))
+    B = max_depth
+    urand = (torch.from_numpy(np.random.default_rng(6).random((2 + 2 * B, R), np.float32))
              if external else None)
-    _, sel = mk.trace_record_reference(o, d, scene, k, 5, 99, 1, urand)
+    _, sel = mk.trace_record_reference(o, d, scene, k, B, 99, 1, urand)
     table, T, sky6 = path_replay.build_table(pkt)
     dcol = torch.from_numpy(np.random.default_rng(8).normal(size=(R, 3)).astype(np.float32))
-    want = fused_grad.fused_bwd_reference(table, sky6, o, d, sel, dcol, k, 5, T,
+    want = fused_grad.fused_bwd_reference(table, sky6, o, d, sel, dcol, k, B, T,
                                           99, 1, urand)
-    params = mk.trace_params(R, k, 5, 99, 1, external, sph_offset=T,
+    params = mk.trace_params(R, k, B, 99, 1, external, sph_offset=T,
                              n_rows=table.shape[0])
-    got = [torch.zeros_like(table), torch.zeros(6), torch.zeros_like(o),
+    width = 28 if source == "padded" else 27
+    tab = torch.nn.functional.pad(table.detach(), (0, width - 27)).contiguous()
+    got = [torch.zeros((table.shape[0], width)), torch.zeros(6), torch.zeros_like(o),
            torch.zeros_like(d)]
-    tab = table.detach().contiguous()
     lib.ptre_fused_bwd_host(
         ctypes.addressof(params), tab.data_ptr(), sky6.contiguous().data_ptr(),
         o.data_ptr(), d.data_ptr(), sel.data_ptr(),
         None if urand is None else urand.data_ptr(), dcol.data_ptr(),
-        got[2].data_ptr(), got[3].data_ptr(), got[0].data_ptr(), got[1].data_ptr())
+        got[2].data_ptr(), got[3].data_ptr(), got[0].data_ptr(), got[1].data_ptr(),
+        int(source == "padded"))
+    assert not got[0][:, 27:].any()
+    got[0] = got[0][:, :27]
     for name, a, b in zip(("dtable", "dsky", "do", "dd"), got, want):
         scale = float(b.abs().max())
         assert scale > 0, name
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=5e-4,
                                    atol=1e-5 * scale, err_msg=name)
+    # bounces beyond the first reach the adjoint
+    assert B == 1 or bool((sel[B - 1] >= 0).any()) or bool((sel[1] >= 0).any())
+
+
+def _grouped_rows(rs, n, n_rows, kind):
+    """Row indices of n rays: runs of one row (a warp's rays on one sphere),
+    every row distinct, or a mix with misses (-1)."""
+    if kind == "repeat":
+        return np.repeat(rs.integers(0, n_rows, -(-n // 8)), 8)[:n]
+    if kind == "distinct":
+        return rs.permutation(n_rows)[:n]
+    idx = np.where(rs.random(n) < 0.6, rs.integers(0, 4, n), rs.integers(0, n_rows, n))
+    return np.where(rs.random(n) < 0.2, -1, idx)
+
+
+@pytest.mark.parametrize("kind", ["repeat", "distinct", "mixed"])
+@pytest.mark.parametrize("padded", [False, True])
+def test_host_grouped_accumulation_matches_float64_index_add(lib, kind, padded):
+    """fused_grad_kernel.cu's row-grouped accumulation (lanes grouped by row,
+    a lane alone adding its own row, a group summed through the warp's slice
+    by the kernel's own code, replay.cuh group_sum4, and added once; the
+    sphere rows of the global instantiation through their own accumulator),
+    replayed over warps of 32 consecutive rays with a ragged last warp,
+    against float64 index_add_ of the same float32 cotangents: float32 sums
+    of at most a few hundred terms, so within 1e-5 of the largest entry and
+    2e-6 relative L2; rows never hit stay exactly 0."""
+    rs = np.random.default_rng({"repeat": 1, "distinct": 2, "mixed": 3}[kind])
+    n, n_rows, sph_offset, n_sph = 1000, 1200, 1100, 64
+    idx = _grouped_rows(rs, n, n_rows, kind).astype(np.int32)
+    if kind == "mixed":
+        idx[::7] = sph_offset + rs.integers(0, n_sph, idx[::7].shape[0])  # sphere rows
+    dg = rs.normal(size=(n, 27)).astype(np.float32)
+    stride = 28 if padded else 27
+    dtable = np.zeros((n_rows, stride), np.float32)
+    n_acc = n_sph if padded else 0
+    dsph = np.zeros((max(n_acc, 1), 27), np.float32)
+    lib.ptre_grouped_rows_host(n, idx.ctypes.data, dg.ctypes.data, dtable.ctypes.data,
+                               stride, sph_offset, n_acc, dsph.ctypes.data)
+    got = dtable[:, :27].astype(np.float64)
+    got[sph_offset:sph_offset + n_acc] += dsph[:n_acc]
+    want = torch.zeros((n_rows, 27), dtype=torch.float64)
+    live = idx >= 0
+    want.index_add_(0, torch.from_numpy(idx[live]).long(),
+                    torch.from_numpy(dg[live]).double())
+    want = want.numpy()
+    scale = float(np.abs(want).max())
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * scale)
+    assert np.linalg.norm(got - want) <= 2e-6 * np.linalg.norm(want)
+    never = np.setdiff1d(np.arange(n_rows), idx[live])
+    assert not got[never].any() and (padded is False or not dtable[:, 27].any())
+    if kind == "repeat":  # groups of several lanes did occur
+        assert (np.diff(idx[:32]) == 0).sum() >= 16

@@ -217,6 +217,131 @@ def test_host_wave_build_matches_plain_versions(wave_lib, name, external):
         state, ids = want[:, perm].contiguous(), ids[perm].contiguous()
 
 
+def _adversarial_mask_state(boxes, rs, lanes, t_min):
+    """(state, boxes) for the mask: ``boxes`` padded with empty leaves to
+    whole supertiles, then a supertile of eight boxes set apart along x (one
+    of zero thickness, one a point), then a ragged last supertile of one
+    such box and empty (padding) leaves; rays through every kind of trouble
+    — direction components of +0.0 and -0.0, origins on a box face and
+    inside a box, t_min exactly at a box's exit along an axis (and one ulp
+    past it), rays grazing every box at each of its corners, random rays —
+    some of them dead, with a whole dead warp and a dead block."""
+    lo, hi = boxes[:, 0:3], boxes[:, 3:6]
+    valid = (lo <= hi).all(dim=1)
+    base = lo[valid].amin(dim=0)
+    size = float((hi[valid] - lo[valid]).amax())
+    apart = []
+    for i in range(9):
+        blo = base + torch.tensor([3.0 * size * i, -2.0 * size, 0.0])
+        bhi = blo + torch.tensor([size, 0.0 if i == 2 else size, size])
+        if i == 5:
+            bhi = blo.clone()
+        apart.append(torch.cat([blo, bhi, torch.zeros(2)]))
+    pad = mk.empty_boxes((-boxes.shape[0]) % mk.SUPER)
+    boxes = torch.cat([boxes, pad, torch.stack(apart), mk.empty_boxes(3)]).contiguous()
+    lo, hi = boxes[:, 0:3], boxes[:, 3:6]
+    c = 0.5 * (lo + hi)
+    pick = torch.nonzero((lo <= hi).all(dim=1)).flatten()
+    axes = torch.eye(3)
+
+    def box_rays(j, axis_list):
+        o_j, d_j = [], []
+        for a in axis_list:
+            for sign in (1.0, -1.0):
+                dvec = axes[a] * sign
+                dneg = torch.where(dvec == 0, -0.0, dvec)  # -0.0 in the other components
+                on_face = c[j].clone()
+                on_face[a] = lo[j, a] if sign > 0 else hi[j, a]
+                o_j += [on_face, on_face, c[j], c[j]]
+                d_j += [dvec, dneg, dvec, dneg]
+                # t_min at the exit: (hi - o) * 1 == t_min exactly, and an ulp past
+                exit_o = c[j].clone()
+                exit_o[a] = hi[j, a] - t_min if sign > 0 else lo[j, a] + t_min
+                past = exit_o.clone()
+                past[a] = torch.nextafter(exit_o[a], torch.tensor(1e30 * sign))
+                o_j += [exit_o, past]
+                d_j += [dvec, dvec]
+        return o_j, d_j
+
+    # the boxes set apart first, one whole warp each, across y and z only:
+    # their rays pass no other box of the supertile
+    o_list, d_list = [], []
+    for j in pick[-9:].tolist():
+        o_j, d_j = box_rays(j, (1, 2))
+        o_list += (o_j * 2)[:32]
+        d_list += (d_j * 2)[:32]
+    for j in pick[torch.from_numpy(rs.permutation(pick.numel() - 9)[:40])].tolist():
+        o_j, d_j = box_rays(j, (0, 1, 2))
+        o_list += o_j
+        d_list += d_j
+    # every box's eight corners, each grazed by a ray from outside along the
+    # diagonal: such a ray touches the box only there
+    for j in pick.tolist():
+        for corner in range(8):
+            bits = torch.tensor([(corner >> a) & 1 for a in range(3)], dtype=torch.bool)
+            p = torch.where(bits, hi[j], lo[j])
+            out = torch.where(bits, 1.0, -1.0) / 3 ** 0.5
+            o_list.append(p + 2.0 * out)
+            d_list.append(-out)
+    n_rand = 512
+    span = (hi[pick] - lo[pick]).abs().amax()
+    o_r = torch.from_numpy(rs.uniform(-1.0, 1.0, (n_rand, 3)).astype(np.float32)) * span
+    d_r = torch.from_numpy(rs.normal(size=(n_rand, 3)).astype(np.float32))
+    d_r[::5, 1] = 0.0
+    d_r[1::5, 0] = -0.0
+    d_r = d_r / d_r.norm(dim=1, keepdim=True)
+    o = torch.cat([torch.stack(o_list), o_r])
+    d = torch.cat([torch.stack(d_list), d_r])
+    r = o.shape[0]
+    r_pad = -(-r // lanes) * lanes + 2 * lanes  # and a whole dead block
+    state = torch.zeros((wf.STATE_ROWS, r_pad))
+    state[0:3, :r] = o.T
+    state[3:6, :r] = d.T
+    state[6:9] = 1.0
+    state[9, :r] = 1.0
+    state[9, 9 * 32::7] = 0.0
+    state[9, 9 * 32:10 * 32] = 0.0  # a dead warp in a live block
+    return state.contiguous(), boxes
+
+
+@pytest.mark.parametrize("name", ["config3", "config4"])
+def test_host_mask_two_level_walk_matches_plain_on_adversarial_rays(wave_lib, name):
+    """csrc/host_wave.cpp's copy of the mask kernel's walk (supertile union
+    boxes, then the leaves of the supertiles a warp's live lanes pass)
+    equals wave_mask_reference, verdict for verdict, on configs 3's and 4's
+    leaf boxes and the adversarial rays of _adversarial_mask_state. And the
+    argument behind it, ray by ray: a ray that passes a leaf's slab test
+    passes its supertile's (the union box, megakernel.pack_super_boxes)."""
+    torch.set_num_threads(1)
+    build_scene = {"config3": lambda: demo.config3_scene(segments=24, rings=12),
+                   "config4": lambda: demo.config4_mixed_scene(24, 12)}[name]
+    scene = wf.prepare_scene(build_scene().build_packet(device="cpu"))
+    rs = np.random.default_rng(len(name))
+    lanes, t_min = 64, mk.f32(2.0 ** -10)
+    state, boxes = _adversarial_mask_state(scene.boxes, rs, lanes, t_min)
+    n_leaf = boxes.shape[0]
+    assert n_leaf % mk.SUPER != 0
+    mask = torch.full((state.shape[1] // lanes, n_leaf), 7, dtype=torch.uint8)
+    mp = wf.MaskParams(t_min=t_min, r_pad=state.shape[1], n_leaf=n_leaf)
+    wave_lib.ptre_wave_mask_host(ctypes.addressof(mp), state.data_ptr(), boxes.data_ptr(),
+                                 mask.data_ptr(), lanes)
+    want = wf.wave_mask_reference(state, boxes, t_min, lanes)
+    np.testing.assert_array_equal(mask.numpy(), want.numpy().astype(np.uint8))
+    assert bool(want.any()) and not bool(want.all()) and not bool(want[-1].any())
+    # per ray: leaf passes imply supertile passes
+    o = state[0:3]
+    iv = [mk.slab_inv(state[3 + k]) for k in range(3)]
+    sup = mk.pack_super_boxes(boxes)
+    n_pass = 0
+    for leaf in range(n_leaf):
+        tn, tf = mk.slab_interval(boxes[leaf, :6].tolist(), o, iv)
+        passes = (tn <= tf) & (tf >= t_min)
+        tn_s, tf_s = mk.slab_interval(sup[leaf // mk.SUPER, :6].tolist(), o, iv)
+        assert bool((~passes | ((tn_s <= tf_s) & (tf_s >= t_min))).all()), leaf
+        n_pass += int(passes.sum())
+    assert n_pass > 0
+
+
 @pytest.mark.parametrize("name", list(WAVE_CASES))
 @pytest.mark.parametrize("external", [True, False])
 @pytest.mark.parametrize("cull", [True, False])

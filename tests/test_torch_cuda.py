@@ -485,6 +485,83 @@ def test_global_table_backward_matches_plain_version(cuda):
     assert float(got[0][:T, :9].abs().max()) > 0 and float(got[0][T:, 18:22].abs().max()) > 0
 
 
+@pytest.fixture(scope="module")
+def first_designs():
+    """The first designs of the fused backward and the mask kernel
+    (csrc/baseline/), built by chip_smoke.py's yardstick builder and called
+    through their own C interfaces: (fused_bwd-like, wave_mask-like)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    import chip_smoke
+
+    libs = {u: chip_smoke.finish_unit_build(chip_smoke.start_baseline_build(u))
+            for u in ("fused_grad_kernel.cu", "mask_kernel.cu")}
+    return (chip_smoke.baseline_fused_bwd(libs["fused_grad_kernel.cu"], fg, mk),
+            chip_smoke.baseline_wave_mask(libs["mask_kernel.cu"], wf, mk))
+
+
+@pytest.mark.parametrize("max_depth", [5, 8])
+@pytest.mark.parametrize("table_kind", ["dense", "global"])
+@pytest.mark.parametrize("external", [True, False])
+def test_backward_kernel_equals_first_design_bit_for_bit(cuda, first_designs, table_kind,
+                                                         external, max_depth):
+    """d(o), d(d) of both instantiations equal the first design's bit for
+    bit (the same chain and adjoint, no operation reordered), at max_depth 5
+    and at the deepest the wrapper takes; d(table) and d(sky), summed by
+    atomics in another order, within 1e-5 relative L2."""
+    if table_kind == "dense":
+        cfg, pkt, _, _, o, d, scene, k = _grad_setup(cuda)
+        urand = (torch.rand((2 + 2 * max_depth, o.shape[0]), device=cuda)
+                 if external else None)
+        _, sel = mk.trace_fused_sel(o, d, scene, k, max_depth, 9, 1, urand)
+        table, T, sky6 = path_replay.build_table(pkt)
+    else:
+        cfg, pkt, _, scene, k, o, d = _tri_rays(cuda)
+        urand = (torch.rand((2 + 2 * max_depth, o.shape[0]), device=cuda)
+                 if external else None)
+        _, sel, perm = wf.trace(o, d, scene, k, max_depth, 9, 1, urand,
+                                tile_hint=(cfg.height, cfg.width), record=True)
+        table, T, sky6 = path_replay.build_table(pkt)
+        table = torch.cat([table[:T][perm], table[T:]]).contiguous()
+    assert (table.shape[0] > fg.MAX_ROWS) == (table_kind == "global")
+    dcol = torch.randn((o.shape[0], 3), device=cuda,
+                       generator=torch.Generator(cuda).manual_seed(4))
+    args = (table, sky6, o, d, sel, dcol, k, max_depth, T, 9, 1, urand)
+    got, first = fg.fused_bwd(*args), first_designs[0](*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got[2], first[2]) and torch.equal(got[3], first[3])
+    for a, b in ((got[0], first[0]), (got[1], first[1])):
+        assert got[0].shape == first[0].shape
+        assert float((a - b).norm() / b.norm()) <= 1e-5
+
+
+@pytest.mark.parametrize("scene_name", ["config3", "config4"])
+def test_wave_mask_every_bounce_equals_plain_and_first_design(cuda, first_designs, scene_name):
+    """Every live bounce after the first of a sample (the sorted states the
+    trace hands the mask): verdicts equal to the plain version's and the
+    first design's; the counting instantiation gives the same verdicts and
+    counts every live ray."""
+    import chip_smoke
+
+    config = {"config3": ("config 3", ("config3_scene", dict(segments=64, rings=32)), 128, 128),
+              "config4": ("config 4", ("config4_mixed_scene", dict(segments=64, rings=32)),
+                          256, 128)}[scene_name]
+    _, _, scene, k, _, _, _, states = chip_smoke.mask_states(cuda, config)
+    assert len(states) >= 1
+    for b, state, _ in states:
+        want = wf.wave_mask_reference(state, scene.boxes, k.t_min)
+        counts = torch.zeros(len(wf.MASK_STATS), dtype=torch.int64, device=cuda)
+        got = wf.wave_mask(state, scene.boxes, k.t_min)
+        counted = wf.wave_mask(state, scene.boxes, k.t_min, stats=counts)
+        first = first_designs[1](state, scene.boxes, k.t_min)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want) and torch.equal(first, want) and torch.equal(counted, want)
+        n_live = int((state[9] > 0.5).sum())
+        n_super = -(-scene.n_leaf // mk.SUPER)
+        assert int(counts[2]) == n_live and 0 < int(counts[0]) <= n_live * n_super
+        assert int(counts[1]) <= n_live * scene.n_leaf
+
+
 def test_mse_step_triangle_scene_goes_through_the_kernels(cuda):
     W, H = 256, 128
     cfg = RenderConfig(width=W, height=H, max_depth=4)
