@@ -6,21 +6,31 @@
 Builds the kernels from ``ptre_tpu_torch/csrc`` with nvcc (one process per
 source, all at once), then:
 
-  1-5. holds the render kernel against its plain PyTorch version and drives
+  1-5. holds the render kernel against its plain PyTorch version and, pixel
+       for pixel, against its first design (``csrc/baseline/``), and drives
        the progressive main path — demo scene → ``render_step`` →
        ``to_display`` at 1920x1080 and 1280x720, spp 4 — checking that every
-       sample went through the kernel;
+       sample went through the kernel; times the kernel in turns with its
+       first design, with the active-lane shares of both (its counting
+       instantiation: every pixel's path started once, and each path's
+       length, which gives the first design's warp-bounces), and counts the
+       render bound from the kernel's own live ray-bounces, triangle rows
+       tested and hits;
   6-7. holds the recording forward and the fused backward kernels of the
        gradient path against their plain versions at 1920x1080, the
-       backward (built without FMA contraction) also bit for bit in d(o),
-       d(d) against its first design (``csrc/baseline/``) and timed in turns
+       recording kernel also ray for ray against its first design and timed
+       in turns with it (active-lane shares of both, every ray started
+       once), the backward (built without FMA contraction) bit
+       for bit in d(o), d(d) against its first design and timed in turns
        against it and against its unit built with FMA contraction, with its
        registers, spills and stack frame and a bound recounted from the
        source by kind of bounce;
   8.   drives the training main path — ``differentiable_params`` →
        ``mse_step`` at 1920x1080, spp 1 (1 + 8 steps) and one spp-64 step —
        checking that every sample went through both kernels, and that
-       ``two_pass_mse_step`` equals ``mse_step`` at 320x180;
+       ``two_pass_mse_step`` equals ``mse_step`` at 320x180; then one
+       ``mse_step`` at max_depth 9, past the kernels' depth cap, through the
+       staged route (the sweep kernel, no record or backward launch);
   9-10. holds the wavefront's mask kernel against its plain version and
        its first design (``csrc/baseline/``) at every live bounce after the
        first of a sample of BASELINE config 3 (16,128 triangles) at 512x512
@@ -108,6 +118,7 @@ Every time printed is beside the card's name and power limit as
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -277,7 +288,24 @@ def ptxas_summary(report):
                 n = int(re.match(r"\d+", rest).group())
                 start = len(str(n))
                 name, rest = rest[start:start + n], rest[start + n:]
-            name += {"ILb1EE": "<true>", "ILb0EE": "<false>"}.get(rest[:6], "")
+            # template arguments: bools and the names of class arguments,
+            # e.g. dense_kernelILb1ENS_9RenderJobINS_12PhiloxSourceEEEEEv...
+            args, head, i = [], rest.split("Ev", 1)[0] if rest[:1] == "I" else "", 0
+            while i < len(head):
+                if head[i:i + 4] in ("Lb1E", "Lb0E"):
+                    args.append("true" if head[i + 2] == "1" else "false")
+                    i += 4
+                elif head[i].isdigit():
+                    n = re.match(r"\d+", head[i:]).group()
+                    i += len(n)
+                    args.append(head[i:i + int(n)])
+                    i += int(n)
+                else:
+                    i += 1
+            if len(args) == 3:  # <bool, Job<Source>>
+                name += f"<{args[0]}, {args[1]}<{args[2]}>>"
+            elif args:
+                name += "<" + ", ".join(args) + ">"
             continue
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
                       r"(\d+) bytes spill loads", ln)
@@ -352,6 +380,11 @@ def main():
     print(f"torch {torch.__version__}, device {torch.cuda.get_device_name(dev)}, "
           f"torch.version.cuda {torch.version.cuda}", flush=True)
     print(sh([build.find_nvcc(), "--version"]).splitlines()[-1], flush=True)
+    # the first designs of the render, recording, fused backward and mask
+    # kernels (csrc/baseline/): phases 2-7, 9 and 17 hold the shipped kernels
+    # to them and time both in turns, compiled beside the library
+    first = {u: start_baseline_build(u) for u in (
+        "render_kernel.cu", "record_kernel.cu", "fused_grad_kernel.cu", "mask_kernel.cu")}
     t0 = time.perf_counter()
     build.load_library()
     build_s = time.perf_counter() - t0
@@ -359,10 +392,6 @@ def main():
     # (phases 7, 17 and 21 read it beside the shipped one); compiles while
     # phases 1-6 run
     fused_fma = start_unit_build("fused_grad_kernel.cu", "fma")
-    # the first designs of the fused backward and the mask kernel
-    # (csrc/baseline/): phases 7, 9 and 17 hold the shipped kernels to them bit
-    # for bit and time both in turns
-    first = {u: start_baseline_build(u) for u in ("fused_grad_kernel.cu", "mask_kernel.cu")}
     if build.last_build is not None:
         print(f"kernel build {build.last_build[0]:.2f} s (nvcc, sm_90a, "
               f"{len(build.KERNEL_UNITS)} units); " + "; ".join(
@@ -371,6 +400,12 @@ def main():
         print(f"kernel library already built; load {build_s:.2f} s", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    report = []
+    first = {u: finish_unit_build(b, report) for u, b in first.items()}
+    print("first designs (csrc/baseline/, the shipped units' flags): " + "; ".join(report)
+          + f" [{card}]", flush=True)
+    first_render = baseline_render(first["render_kernel.cu"], rk)
+    first_record = baseline_record(first["record_kernel.cu"], mk)
 
     def inputs(scene, W, H, max_depth=5, cam_kw=None):
         cfg = RenderConfig(width=W, height=H, max_depth=max_depth)
@@ -379,10 +414,20 @@ def main():
         return cfg, packed, rows
 
     def kernel_and_plain(prev, packed, rows, n, cfg, seed, urand):
+        """The kernel's and the plain version's sample on ``prev``; the
+        kernel's image also against the first design's, pixel for pixel (the
+        same per-path arithmetic: a pixel may differ only where FMA
+        contraction, placed otherwise by nvcc, flipped a path)."""
         want = rk.sample_accum_reference(prev, packed, rows, n, cfg, seed, urand)
-        got = prev.clone()
+        got, fst = prev.clone(), prev.clone()
         rk.sample_accum(got, packed, rows, n, cfg, seed, urand)
+        first_render(fst, packed, rows, n, cfg, seed, urand)
         torch.cuda.synchronize()
+        H, W = prev.shape[:2]
+        differ, allowed = int((got != fst).any(dim=-1).sum()), math.ceil(FLIP_FRAC * W * H)
+        print(f"  {W}x{H}: {differ} pixels differ from the first design's (allowed {allowed})",
+              flush=True)
+        check(differ <= allowed, f"{W}x{H}: {differ} pixels differ from the first design's")
         return got, want
 
     rs = np.random.default_rng(2024)
@@ -473,22 +518,39 @@ def main():
         check(float((top[:, 2] - 1.0).abs().max()) < 1e-5, f"{W}x{H}: top row blue is not 1")
         check(float((a_r - a_g).abs().max()) < 1e-4 and float(a_r.min()) > 0.5,
               f"{W}x{H}: top row is not the sky gradient")
+        device_share(lambda: pt.render_step(pkt, cam, acc, gen, cfg, spp=SPP), 4,
+                     f"render_step {W}x{H} spp {SPP}", card)
         return launches, dt, img
 
     def time_kernel(W, H, reps=20):
-        """Kernel ms per sample (CUDA events over many launches)."""
+        """Kernel ms per sample (CUDA events), in turns with the first design
+        on one sample's inputs, and both designs' active-lane shares from the
+        counting instantiation (every pixel's path started once, the same
+        image as the first design's); returns (ms, first design ms, this
+        design's counts)."""
         cfg, packed, rows = inputs(demo_scene, W, H)
         acc = torch.zeros((H, W, 3), device=dev)
-        for i in range(3):
-            rk.sample_accum(acc, packed, rows, i + 1, cfg, i)
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        for i in range(reps):
-            rk.sample_accum(acc, packed, rows, 4 + i, cfg, 100 + i)
-        e1.record()
+        times = in_turns({"shipped": lambda: rk.sample_accum(acc, packed, rows, 4, cfg, 100),
+                          "first design": lambda: first_render(acc, packed, rows, 4, cfg, 100)},
+                         reps)
+        print(f"  render kernel {W}x{H}, in turns: " + ", ".join(
+            f"{label} {ms:.4f} ms" for label, ms in times.items()) + f" (CUDA events) [{card}]",
+            flush=True)
+        want = first_render(acc.clone(), packed, rows, 4, cfg, 100)
+        st = torch.zeros(len(mk.DENSE_STATS), dtype=torch.int64, device=dev)
+        lens = torch.zeros((H, W), dtype=torch.int32, device=dev)
+        got = rk.sample_accum(acc.clone(), packed, rows, 4, cfg, 100, stats=st, lens=lens)
         torch.cuda.synchronize()
-        return e0.elapsed_time(e1) / reps
+        st = st.tolist()
+        differ = int((got != want).any(dim=-1).sum())
+        check(st[0] == W * H, f"render: {st[0]} paths started, expected {W * H}")
+        check(int(lens.sum()) == st[1], f"render: path lengths sum to {int(lens.sum())}, "
+              f"{st[1]} live ray-bounces")
+        check(differ <= math.ceil(FLIP_FRAC * W * H),
+              f"render: {differ} pixels differ from the first design's")
+        lane_share(st, first_design_warp_bounces(lens), f"render {W}x{H} ({differ} pixels "
+                   "differ from the first design's)", card)
+        return times["shipped"], times["first design"], st
 
     def time_plain(W, H):
         """Plain version on the card, one step of SPP samples: ms per sample."""
@@ -508,17 +570,17 @@ def main():
         launches, dt, _ = drive(W, H)
         ms_step_sample = dt * 1e3 / (STEPS * SPP)
         mrays = W * H * SPP * STEPS * 5 / dt / 1e6
-        k_ms = time_kernel(W, H)
+        k_ms, first_ms, counts = time_kernel(W, H)
         p_ms = time_plain(W, H)
         p_mrays = W * H * 5 / (p_ms / 1e3) / 1e6
-        results[(W, H)] = (launches, k_ms, p_ms)
+        results[(W, H)] = (launches, k_ms, p_ms, first_ms, counts)
         print(f"  render_step: {ms_step_sample:.4f} ms/sample, {mrays:.2f} Mrays/s "
               f"(W*H*spp*steps*max_depth/s, host clock) [{card}]", flush=True)
         print(f"  kernel alone: {k_ms:.4f} ms/sample (CUDA events) [{card}]", flush=True)
         print(f"  plain PyTorch on the card: {p_ms:.3f} ms/sample, {p_mrays:.2f} "
               f"Mrays/s [{card}]", flush=True)
 
-    launches, k_ms, p_ms = results[(W_MAIN, H_MAIN)]
+    launches, k_ms, p_ms, first_ms, counts = results[(W_MAIN, H_MAIN)]
     render = {
         "name": "render_sample",
         "route": "cuda",
@@ -528,21 +590,18 @@ def main():
         "max_abs_err": max(err_ext, err_philox),
         "ms": k_ms,
         "plain_ms": p_ms,
+        "first_design_ms": first_ms,
+        "active_lane_share": counts[1] / (32 * counts[3]),
     }
     from ptre_tpu_torch.ops.cuda import fused_grad
 
     fma_bwd = lib_fused_bwd(finish_unit_build(fused_fma), fused_grad)
-    report = []
-    first = {u: finish_unit_build(b, report) for u, b in first.items()}
-    print("first designs (csrc/baseline/, the shipped units' flags): " + "; ".join(report)
-          + f" [{card}]", flush=True)
     first_bwd = baseline_fused_bwd(first["fused_grad_kernel.cu"], fused_grad, mk)
-    grad_kernels, (sweeps, hits, per_sweep) = gradient_phases(dev, card, rs, fma_bwd,
-                                                              first_bwd)
-    # one sample: the accumulator read and written; every live ray-bounce
-    # sweeps the scene, every hit shades (counted on the recording kernel's
-    # 1080p sample of the same scene: the render kernel's paths are alike)
-    kernels = [with_bound(render, 2 * W_MAIN * H_MAIN * 12, sweeps * per_sweep + hits * OPS_SHADE)]
+    grad_kernels = gradient_phases(dev, card, rs, fma_bwd, first_bwd, first_record)
+    # one sample: the accumulator read and written; the render kernel's own
+    # counts of its timed 1080p sample
+    kernels = [with_bound(render, 2 * W_MAIN * H_MAIN * 12,
+                          dense_ops(counts, demo_scene.build_packet(device=dev), "render"))]
     kernels += grad_kernels
     from ptre_tpu_torch.ops.cuda import wavefront
 
@@ -727,23 +786,26 @@ def hold_backward(fg, mk, what, table, sky6, o, d, sel, dcol, k, B, T, seed, ur,
     return bwd_err
 
 
-def gradient_phases(dev, card, rs, fma_bwd, first_bwd):
+def gradient_phases(dev, card, rs, fma_bwd, first_bwd, first_record):
     """Phases 6-8: the recording and fused backward kernels against their
     plain versions, then the training step (`mse_step`) at 1920x1080.
     ``fma_bwd``: `fused_bwd` on the unit built with FMA contraction, read
     and timed beside the shipped one; ``first_bwd``: the fused backward's
     first design (`baseline_fused_bwd`), held bit for bit and timed beside
-    it. Returns the two kernels' entries of the ``kernels`` line."""
+    it; ``first_record``: the recording kernel's first design
+    (`baseline_record`), held ray for ray and timed beside it.
+    Returns the two kernels' entries of the ``kernels`` line."""
     import numpy as np
     import torch
 
     from ptre_tpu_torch.utils.config import RenderConfig
     from ptre_tpu_torch.models import demo
     from ptre_tpu_torch.ops import camera as cam_ops
-    from ptre_tpu_torch.ops import path_replay, rng
+    from ptre_tpu_torch.ops import integrator, path_replay, rng
     from ptre_tpu_torch.ops.cuda import build
     from ptre_tpu_torch.ops.cuda import fused_grad as fg
     from ptre_tpu_torch.ops.cuda import megakernel as mk
+    from ptre_tpu_torch.ops.cuda import sweep_kernel as sk
     from ptre_tpu_torch.parallel import sharding as sh
     from ptre_tpu_torch.render import pathtracer as pt
     from ptre_tpu_torch.render import train
@@ -786,6 +848,16 @@ def gradient_phases(dev, card, rs, fma_bwd, first_bwd):
         check(tight >= TIGHT_FRAC, f"record {mode}: only {tight:.6f} within {TIGHT}")
         check(flipped <= allowed, f"record {mode}: {flipped} flipped rays")
         check(bool(((sel >= -1) & (sel < table.shape[0])).all()), f"record {mode}: bad rows")
+        # the first design: the same per-path arithmetic (a ray may differ
+        # only where FMA contraction, placed otherwise by nvcc, flipped it)
+        fc, fs = first_record(o, d, scene, k, B, GRAD_SEED, 0, ur)
+        torch.cuda.synchronize()
+        other_sel = int((sel != fs).any(dim=0).sum())
+        other_col = int((color != fc).any(dim=1).sum())
+        print(f"  {mode}: against the first design {other_sel} rays with other selections, "
+              f"{other_col} with another colour (allowed {allowed})", flush=True)
+        check(other_sel <= allowed and other_col <= allowed,
+              f"record {mode}: {other_sel} / {other_col} rays differ from the first design")
         recorded[mode] = (sel, ur)
 
     # ---- 7. backward kernel vs its plain version ----------------------------------
@@ -808,10 +880,34 @@ def gradient_phases(dev, card, rs, fma_bwd, first_bwd):
     hit = sel_p >= 0
     go_on = hit & ~emissive[sel_p.clamp(min=0).long()]
     sweeps, hits = R + int(go_on[:-1].sum()), int(hit.sum())
-    per_sweep = int(pkt.num_triangles) * OPS_TRI_TEST + int(pkt.num_spheres) * OPS_SPH_TEST
     print(f"  philox sample: {sweeps} ray-bounce sweeps ({sweeps / R:.3f} a ray), {hits} hits",
           flush=True)
-    rec_ms = cuda_events(lambda: mk.trace_fused_sel(o, d, scene, k, B, GRAD_SEED, 0), 20)
+    rec_times = in_turns(
+        {"shipped": lambda: mk.trace_fused_sel(o, d, scene, k, B, GRAD_SEED, 0),
+         "first design": lambda: first_record(o, d, scene, k, B, GRAD_SEED, 0)}, 20)
+    rec_ms = rec_times["shipped"]
+    print("  record kernel, in turns: " + ", ".join(
+        f"{label} {ms:.4f} ms" for label, ms in rec_times.items()) + f" (CUDA events) [{card}]",
+        flush=True)
+    fc, fs = first_record(o, d, scene, k, B, GRAD_SEED, 0)
+    counts = torch.zeros(len(mk.DENSE_STATS), dtype=torch.int64, device=dev)
+    lens = torch.zeros(R, dtype=torch.int32, device=dev)
+    c, s = mk.trace_fused_sel(o, d, scene, k, B, GRAD_SEED, 0, stats=counts, lens=lens)
+    torch.cuda.synchronize()
+    differ = int(((s != fs).any(dim=0) | (c != fc).any(dim=1)).sum())
+    check(differ <= math.ceil(FLIP_FRAC * R),
+          f"record: {differ} rays differ from the first design's")
+    counts = counts.tolist()
+    # the counting instantiation traces the same paths (but where FMA
+    # contraction, placed otherwise, flips one)
+    off = max(abs(counts[1] - sweeps), abs(counts[2] - hits))
+    check(counts[0] == R and off <= B * math.ceil(FLIP_FRAC * R),
+          f"record: counts {counts[:3]}, expected {[R, sweeps, hits]} (paths, live "
+          "ray-bounces, hits)")
+    check(int(lens.sum()) == counts[1], f"record: path lengths sum to {int(lens.sum())}, "
+          f"{counts[1]} live ray-bounces")
+    rec_share = lane_share(counts, first_design_warp_bounces(lens), f"record {W}x{H} "
+                           f"({differ} rays differ from the first design's)", card)
     print("  registers: " + "; ".join(
         e for e in (ptxas_summary(build.last_build[1]) if build.last_build else
                     ["library not built in this run"]) if e.startswith(("fused_bwd", "library"))),
@@ -828,6 +924,10 @@ def gradient_phases(dev, card, rs, fma_bwd, first_bwd):
                                                                  GRAD_SEED, 0), 2)
     bwd_plain_ms = cuda_events(lambda: fg.fused_bwd_reference(
         table, sky6, o, d, sel_p, dcol, k, B, T, GRAD_SEED, 0), 2)
+    print("  dense kernels' registers: " + "; ".join(
+        e for e in (ptxas_summary(build.last_build[1]) if build.last_build else
+                    ["library not built in this run"]) if e.startswith(("dense", "library"))),
+        flush=True)
     print(f"  record kernel {rec_ms:.4f} ms, plain {rec_plain_ms:.3f} ms; backward "
           f"kernel {bwd_ms:.4f} ms (built without FMA contraction; with it "
           f"{bwd['with FMA']:.4f} ms, the first design {bwd['first design']:.4f} ms, in "
@@ -951,6 +1051,26 @@ def gradient_phases(dev, card, rs, fma_bwd, first_bwd):
           f"loss {float(l1):.6f} vs {float(l2):.6f}, worst excess over rtol "
           f"{worst:.2e} of the leaf's largest", flush=True)
 
+    # past the kernels' depth cap (MAX_DEPTH bounces of saved state): the
+    # staged route, through the sweep kernel, on any device
+    cfg9 = dataclasses.replace(cfg, max_depth=mk.MAX_DEPTH + 1)
+    check(integrator.grad_route(cfg9, pkt) == "staged", "max_depth 9 is not routed staged")
+    sk.launches = mk.record_launches = fg.launches = 0
+    t0 = time.perf_counter()
+    loss9, grads9 = train.mse_step(params, pkt, cam, target, cfg9, 400, spp=1)
+    torch.cuda.synchronize()
+    dt9 = time.perf_counter() - t0
+    launches9 = (sk.launches, mk.record_launches, fg.launches)
+    check(launches9 == (cfg9.max_depth, 0, 0), f"max_depth 9 mse_step: sweep, record, backward "
+          f"launches {launches9}, expected ({cfg9.max_depth}, 0, 0)")
+    check(math.isfinite(float(loss9)) and all(bool(torch.isfinite(g).all())
+                                              for g in grads9.values()),
+          "max_depth 9 mse_step: non-finite loss or gradient")
+    print(f"  mse_step max_depth {cfg9.max_depth} spp 1 (staged route): {dt9 * 1e3:.1f} ms "
+          f"(host clock, first call), loss {float(loss9):.6f}, sweep launches {launches9[0]}, "
+          f"record and backward launches 0 [{card}]", flush=True)
+    del grads9
+
     # record: rays in (o, d), colour and B int32 selections out; backward:
     # rays, selections and d(colour) in, d(o) and d(d) out, a chain and its
     # adjoint per recorded hit (the small table and d(table) not counted)
@@ -963,7 +1083,9 @@ def gradient_phases(dev, card, rs, fma_bwd, first_bwd):
         "max_abs_err": rec_err,
         "ms": rec_ms,
         "plain_ms": rec_plain_ms,
-    }, R * (24 + 12 + 4 * B), sweeps * per_sweep + hits * OPS_SHADE), with_bound({
+        "first_design_ms": rec_times["first design"],
+        "active_lane_share": rec_share,
+    }, R * (24 + 12 + 4 * B), dense_ops(counts, pkt, "record")), with_bound({
         "name": "fused_bwd",
         "route": "cuda",
         "source": "ptre_tpu_torch/csrc/fused_grad_kernel.cu",
@@ -972,7 +1094,7 @@ def gradient_phases(dev, card, rs, fma_bwd, first_bwd):
         "max_abs_err": bwd_err,
         "ms": bwd_ms,
         "plain_ms": bwd_plain_ms,
-    }, R * (24 + 4 * B + 12 + 24), bwd_op)], (sweeps, hits, per_sweep)
+    }, R * (24 + 4 * B + 12 + 24), bwd_op)]
 
 
 # Wavefront kernels vs plain versions (phases 9-10). The slab test has no
@@ -1920,6 +2042,104 @@ def baseline_wave_mask(lib, wf, mk):
         return mask
 
     return fn
+
+
+def baseline_render(lib, rk):
+    """The render kernel's first design (``csrc/baseline/render_kernel.cu``)
+    through its own C interface, as a function of `sample_accum`'s
+    arguments (``accum`` updated in place); it counts nothing."""
+    import ctypes
+
+    import torch
+
+    lib.ptre_render_sample.restype = ctypes.c_int
+    lib.ptre_render_sample.argtypes = [ctypes.c_void_p] * 8
+
+    def fn(accum, scene, cam_rows, n, config, seed=0, urand=None):
+        H, W = accum.shape[:2]
+        p = rk.render_params(H, W, scene, cam_rows, n, config, seed,
+                             external_rng=urand is not None)
+        rc = lib.ptre_render_sample(
+            ctypes.addressof(p), accum.data_ptr(), None if urand is None else urand.data_ptr(),
+            scene.tris.data_ptr(), scene.sphs.data_ptr(), scene.mats.data_ptr(),
+            scene.sky.data_ptr(), torch.cuda.current_stream(accum.device).cuda_stream)
+        check(rc == 0, f"baseline render launch failed ({rc})")
+        return accum
+
+    return fn
+
+
+def baseline_record(lib, mk):
+    """The recording kernel's first design (``csrc/baseline/
+    record_kernel.cu``) through its own C interface, as a function of
+    `trace_fused_sel`'s arguments; it counts nothing."""
+    import ctypes
+
+    import torch
+
+    lib.ptre_trace_record.restype = ctypes.c_int
+    lib.ptre_trace_record.argtypes = [ctypes.c_void_p] * 11
+
+    def fn(o, d, scene, consts, max_depth, seed=0, sample=0, urand=None):
+        R = o.shape[0]
+        color = torch.empty((R, 3), dtype=torch.float32, device=o.device)
+        sel = torch.empty((max_depth, R), dtype=torch.int32, device=o.device)
+        p = mk.trace_params(R, consts, max_depth, seed, sample, urand is not None, scene=scene)
+        rc = lib.ptre_trace_record(
+            ctypes.addressof(p), o.data_ptr(), d.data_ptr(),
+            None if urand is None else urand.data_ptr(), scene.tris.data_ptr(),
+            scene.sphs.data_ptr(), scene.mats.data_ptr(), scene.sky.data_ptr(),
+            color.data_ptr(), sel.data_ptr(), torch.cuda.current_stream(o.device).cuda_stream)
+        check(rc == 0, f"baseline record launch failed ({rc})")
+        return color, sel
+
+    return fn
+
+
+def first_design_warp_bounces(lens):
+    """The warp-bounces the first design of the render or recording kernel
+    issues for paths of these lengths (``lens``, (H, W) pixels or (R,) rays,
+    as the counting instantiation writes them): one thread a path, each
+    warp (two rows of a 16x16 block, or 32 consecutive rays) running as
+    long as its longest path."""
+    import torch.nn.functional as F
+
+    if lens.dim() == 2:
+        H, W = lens.shape
+        tiles = F.pad(lens, (0, -W % 16, 0, -H % 2)).reshape((H + 1) // 2, 2, -1, 16)
+        return int(tiles.amax(dim=(1, 3)).sum())
+    return int(F.pad(lens, (0, -lens.shape[0] % 32)).reshape(-1, 32).amax(dim=1).sum())
+
+
+def lane_share(stats, issued_first, what, card):
+    """Print the active-lane shares of a dense kernel's counts
+    (`megakernel.DENSE_STATS`), live ray-bounces over 32 x the warp-bounces
+    issued, by this design and by the first design for the same paths
+    (``issued_first``, `first_design_warp_bounces`); return this design's."""
+    started, live, hits, issued, tested = (int(x) for x in stats)
+    share, share_first = live / (32 * issued), live / (32 * issued_first)
+    print(f"  {what}: {started} paths, {live} live ray-bounces, {hits} hits, {tested} "
+          f"triangle rows tested; warp-bounces {issued} (active lanes {100 * share:.2f} %), "
+          f"first design {issued_first} ({100 * share_first:.2f} %) [{card}]", flush=True)
+    return share
+
+
+def dense_ops(stats, pkt, what):
+    """Float32 operations a dense kernel's sample needs on this run's data,
+    from its counts (`megakernel.DENSE_STATS`): per live ray-bounce the
+    group boxes' slab tests and every sphere, a Moller-Trumbore test per
+    triangle row tested, a shading per hit. Prints it beside the count of a
+    sweep over every row."""
+    _, live, hits, _, tested = (int(x) for x in stats)
+    n_tri, n_sph = int(pkt.num_triangles), int(pkt.num_spheres)
+    groups = -(-n_tri // 8)  # trace.cuh kGroupRows
+    ops = live * (groups * OPS_SLAB + n_sph * OPS_SPH_TEST) + tested * OPS_TRI_TEST \
+        + hits * OPS_SHADE
+    every_row = live * (n_tri * OPS_TRI_TEST + n_sph * OPS_SPH_TEST) + hits * OPS_SHADE
+    print(f"  {what}: {ops / 1e9:.3f} GFLOP counted on the rows tested ({tested} of "
+          f"{live * n_tri} (live ray-bounce, row) pairs), {every_row / 1e9:.3f} on every row",
+          flush=True)
+    return ops
 
 
 def in_turns(fns, reps):

@@ -1,6 +1,7 @@
 // Host build of the gradient kernels' per-ray code, for checks on machines
 // without a GPU: the chain bounce and its hand-written adjoint (replay.cuh)
-// in float and in double, the recording trace (trace.cuh record_ray), the
+// in float and in double, the recording trace (trace.cuh RecordJob through
+// host_dense, the recording kernel's warp scheduler), the
 // fused backward of one ray (replay.cuh ray_backward) as fused_grad_kernel.cu
 // runs it — its states in a [bounce][field][thread] slice (StridedStates),
 // its table in place (PointerTable, the dense instantiation) or padded to
@@ -123,18 +124,27 @@ extern "C" void ptre_chain_host_d(int n, const double* o, const double* d,
               o2, d2, c2, next_active, dO, dD, dC, dg, dsky);
 }
 
-// record_kernel.cu's per-thread body over every ray.
+// record_kernel.cu over every ray: the same derived rows, RecordJob and
+// warp scheduler, each 64-ray tile's warp simulated lane by lane by
+// host_dense. `stats`: null, or ptre::kStats counters added to as the
+// counting instantiation adds to them; `lens`: null, or (R,) bounces a path.
 extern "C" void ptre_trace_record_host(const ptre::TraceParams* params,
                                        const float* o, const float* d,
                                        const float* urand, const float* tris,
                                        const float* sphs, const float* mats,
                                        const float* sky, float* color,
-                                       int32_t* sel) {
+                                       int32_t* sel, uint64_t* stats,
+                                       int32_t* lens) {
   const ptre::TraceParams& p = *params;
-  const ptre::SceneTables sc = {tris, sphs, mats, sky,
-                                p.n_tri, p.n_sph, p.num_mats};
-  for (int64_t ray = 0; ray < p.n_rays; ++ray)
-    ptre::record_ray(p, sc, ray, o, d, urand, color, sel);
+  const ptre::SceneTables tab = {tris, sphs, mats, sky, p.n_tri, p.n_sph, p.num_mats};
+  if (p.external_rng) {
+    const ptre::RecordJob<ptre::ExternalSource> job = {p, {urand, p.n_rays}, o, d, color, sel};
+    ptre::host_dense(job, tab, stats, lens);
+  } else {
+    const ptre::RecordJob<ptre::PhiloxSource> job = {
+        p, {p.seed_lo, p.seed_hi, p.sample}, o, d, color, sel};
+    ptre::host_dense(job, tab, stats, lens);
+  }
 }
 
 // fused_grad_kernel.cu's per-thread body over every ray; dtable and dsky (6)

@@ -75,6 +75,7 @@ struct PhiloxUniforms {
   int block_id;
   Philox4 block;
 
+  PTRE_HD PhiloxUniforms() {}  // a lane's slot, filled when it takes a path
   PTRE_HD PhiloxUniforms(uint32_t k0, uint32_t k1, uint32_t pix, uint32_t smp)
       : key0(k0), key1(k1), pixel(pix), sample(smp), block_id(-1) {}
 

@@ -4,9 +4,9 @@
 // Replaces the TPU kernel ptre_tpu/ops/pallas/megakernel.py
 // _mega_kernel_dense (:734, launched at :1025) in its recording mode
 // (record_sel, and record_ur for the hardware PRNG), as
-// trace_fused_sel(..., planar="color", hw_rng=True) calls it (:1132-1222).
-// One thread per ray over a 1-D grid: the bounce loop of trace.cuh with the
-// SelRecorder policy; no accumulation, no clamp.
+// trace_fused_sel(..., planar="color", hw_rng=True) calls it (:1132-1222):
+// the bounce loop of trace.cuh with the selection recorder; no
+// accumulation, no clamp.
 //
 // Selections are (max_depth, R) int32 unified-table rows: triangle j -> j,
 // sphere s -> T + s, -1 where the bounce did not hit or the path had ended.
@@ -18,55 +18,31 @@
 // hardware PRNG cannot be replayed.
 //
 // What bounds it on this card: as the render kernel, divergent float32 ALU
-// work in the serial primitive sweep; the bytes (24 in, 12 + 4B out a ray)
-// take microseconds. Scene tables are staged in shared memory once per block
-// and read as broadcasts; a path that ends breaks out per thread.
+// work in the primitive sweep; the bytes (24 in, 12 + 4B out a ray) take
+// microseconds. The design is the render kernel's (trace.cuh): a warp owns
+// 64 consecutive rays, each lane one path, and a lane whose path ended
+// writes its colour and the -1 selections after its last hit and takes the
+// next ray of the tile; the scene's valid triangle rows are derived once a
+// block into 16-byte vectors of shared memory, with a box a group of 8. The kernel is trace.cuh's
+// dense_kernel over RecordJob; with `stats` a separate instantiation counts
+// the scheduler's work (trace.cuh kStats) and, with `lens`, writes each ray's
+// path length.
 
 #include <cuda_runtime.h>
 
 #include "trace.cuh"
 
-namespace ptre {
-
-constexpr int kRecordBlock = 256;
-
-__global__ void __launch_bounds__(kRecordBlock)
-    trace_record_kernel(const TraceParams p, const float* __restrict__ o,
-                        const float* __restrict__ d,
-                        const float* __restrict__ urand,
-                        const float* __restrict__ tris,
-                        const float* __restrict__ sphs,
-                        const float* __restrict__ mats,
-                        const float* __restrict__ sky,
-                        float* __restrict__ color, int32_t* __restrict__ sel) {
-  __shared__ float s_tri[kMaxTri * kTriStride];
-  __shared__ float s_sph[kMaxSph * kSphStride];
-  __shared__ float s_mat[kMaxMats * kMatStride];
-  __shared__ float s_sky[8];
-
-  const int tid = threadIdx.x;
-  for (int i = tid; i < p.n_tri * kTriStride; i += blockDim.x) s_tri[i] = tris[i];
-  for (int i = tid; i < p.n_sph * kSphStride; i += blockDim.x) s_sph[i] = sphs[i];
-  for (int i = tid; i < kMaxMats * kMatStride; i += blockDim.x) s_mat[i] = mats[i];
-  if (tid < 8) s_sky[tid] = sky[tid];
-  __syncthreads();
-
-  const int64_t ray = (int64_t)blockIdx.x * blockDim.x + tid;
-  if (ray >= p.n_rays) return;  // ragged end
-  const SceneTables sc = {s_tri, s_sph, s_mat, s_sky,
-                          p.n_tri, p.n_sph, p.num_mats};
-  record_ray(p, sc, ray, o, d, urand, color, sel);
-}
-
-}  // namespace ptre
-
 // C interface for ctypes. Launches on the caller's stream, allocates
 // nothing, does not synchronise; returns cudaGetLastError() of the launch.
+// `stats`: null, or kStats uint64 counters the counting instantiation adds
+// to (trace.cuh); `lens`: null, or (R,) int32 bounces a path, written by the
+// counting instantiation.
 extern "C" int ptre_trace_record(const ptre::TraceParams* params,
                                  const float* o, const float* d,
                                  const float* urand, const float* tris,
                                  const float* sphs, const float* mats,
                                  const float* sky, float* color, int32_t* sel,
+                                 unsigned long long* stats, int32_t* lens,
                                  void* stream) {
   const ptre::TraceParams p = *params;
   if (p.n_rays < 1 || p.n_tri < 1 || p.n_tri > ptre::kMaxTri ||
@@ -75,9 +51,12 @@ extern "C" int ptre_trace_record(const ptre::TraceParams* params,
       (p.external_rng && urand == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
-  const int grid = (p.n_rays + ptre::kRecordBlock - 1) / ptre::kRecordBlock;
-  ptre::trace_record_kernel<<<grid, ptre::kRecordBlock, 0,
-                              (cudaStream_t)stream>>>(
-      p, o, d, urand, tris, sphs, mats, sky, color, sel);
-  return (int)cudaGetLastError();
+  const ptre::SceneTables tab = {tris, sphs, mats, sky, p.n_tri, p.n_sph, p.num_mats};
+  if (p.external_rng) {
+    const ptre::RecordJob<ptre::ExternalSource> job = {p, {urand, p.n_rays}, o, d, color, sel};
+    return ptre::launch_dense(job, tab, stats, lens, stream);
+  }
+  const ptre::RecordJob<ptre::PhiloxSource> job = {
+      p, {p.seed_lo, p.seed_hi, p.sample}, o, d, color, sel};
+  return ptre::launch_dense(job, tab, stats, lens, stream);
 }

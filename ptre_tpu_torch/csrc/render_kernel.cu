@@ -3,88 +3,68 @@
 //
 // Replaces the TPU kernel ptre_tpu/ops/pallas/render_kernel.py
 // _render_kernel (:79, launched at :192), which inlines megakernel.py
-// _trace_block (:811), _scatter_shade (:611) and _u01 (:226). Each thread
-// owns one pixel: jitter, closed-form camera ray, up to max_depth bounces
-// over the dense scene (<= 64 triangles, <= 64 spheres, <= 8 materials),
-// clamp + non-finite scrub, and the running average on the public (H, W, 3)
-// accumulator, updated in place.
+// _trace_block (:811), _scatter_shade (:611) and _u01 (:226): jitter,
+// closed-form camera ray, up to max_depth bounces over the dense scene
+// (<= 64 triangles, <= 64 spheres, <= 8 materials), clamp + non-finite
+// scrub, and the running average on the public (H, W, 3) accumulator,
+// updated in place.
 //
-// What bounds it on this card: divergent float32 ALU work, not bytes. For
-// the demo scene a sample reads and writes the 25 MB accumulator at 1080p
-// once (microseconds at 3.35 TB/s), while every bounce runs a serial sweep
-// of ~14 primitives per ray, and paths end at different bounces. The design:
-//   * the scene tables (8 KB of triangles, the spheres, 8x8 materials, sky)
-//     are staged into shared memory at block start; every thread of a warp
-//     then reads triangle j at the same address, a broadcast — what the TPU
-//     got from SMEM scalars;
-//   * 16x16 pixel blocks keep a warp's rays spatially coherent (similar
-//     primitives, similar path lengths), and a dead path leaves the loop
-//     with a per-thread break instead of the TPU's per-block skip;
-//   * the ragged image edge is masked (1080 is not a multiple of 16); no
-//     tile-size gate as on the TPU;
+// What bounds it on this card: divergent float32 ALU work, not bytes. A
+// sample reads and writes the 25 MB accumulator at 1080p once (microseconds
+// at 3.35 TB/s), while every live ray-bounce sweeps the scene, and paths end
+// at different bounces: most after one or two, against max_depth 5. The
+// design (trace.cuh):
+//   * lanes refilled with new paths: a warp owns a 16x4 pixel tile and
+//     each lane one path, advanced a bounce at a time; a lane whose path
+//     ended writes its pixel's running average, once, and takes the tile's
+//     next pixel (a warp-uniform cursor, __ballot_sync / __popc), so a warp
+//     no longer runs as many bounces as its longest path with its finished
+//     lanes idle. No global atomics, no extra launch;
+//   * scene rows derived once a block: warp 0 writes each valid triangle's
+//     v0, edges, normals, material and index as five 16-byte vectors in
+//     shared memory, ascending; the sweep skips a group of 8 rows whose
+//     box the ray misses, reads three vectors a row, every lane of a warp
+//     at the same address (a broadcast), and leaves a candidate as soon as
+//     |det| or u decides it;
+//   * the ragged image edge shrinks the edge tiles (1080 is not a multiple
+//     of 16): no lane takes a pixel outside the image;
 //   * random numbers come from Philox keyed by (seed, pixel, sample, draw),
 //     or from an external uniform tensor for parity runs.
-// No wgmma/TMA: there is no matrix product here. Making it fast is later work.
+// The kernel is trace.cuh's dense_kernel over RenderJob; with `stats` a
+// separate instantiation counts the scheduler's work (trace.cuh kStats) and,
+// with `lens`, writes each pixel's path length.
+// No wgmma/TMA: there is no matrix product here.
 
 #include <cuda_runtime.h>
 
 #include "trace.cuh"
 
-namespace ptre {
-
-constexpr int kBlockX = 16;
-constexpr int kBlockY = 16;
-
-__global__ void __launch_bounds__(kBlockX* kBlockY)
-    render_sample_kernel(const RenderParams p, float* __restrict__ accum,
-                         const float* __restrict__ urand,
-                         const float* __restrict__ tris,
-                         const float* __restrict__ sphs,
-                         const float* __restrict__ mats,
-                         const float* __restrict__ sky) {
-  __shared__ float s_tri[kMaxTri * kTriStride];
-  __shared__ float s_sph[kMaxSph * kSphStride];
-  __shared__ float s_mat[kMaxMats * kMatStride];
-  __shared__ float s_sky[8];
-
-  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-  const int nthr = blockDim.x * blockDim.y;
-  for (int i = tid; i < p.n_tri * kTriStride; i += nthr) s_tri[i] = tris[i];
-  for (int i = tid; i < p.n_sph * kSphStride; i += nthr) s_sph[i] = sphs[i];
-  for (int i = tid; i < kMaxMats * kMatStride; i += nthr) s_mat[i] = mats[i];
-  if (tid < 8) s_sky[tid] = sky[tid];
-  __syncthreads();
-
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  const int y = blockIdx.y * blockDim.y + threadIdx.y;
-  if (x >= p.width || y >= p.height) return;  // ragged edge
-
-  const SceneTables sc = {s_tri, s_sph, s_mat, s_sky,
-                          p.n_tri, p.n_sph, p.num_mats};
-  render_pixel_at(p, sc, x, y, urand, accum);
-}
-
-}  // namespace ptre
-
 // C interface for ctypes. Launches on the caller's stream, allocates
 // nothing, does not synchronise; returns cudaGetLastError() of the launch.
+// `stats`: null, or kStats uint64 counters the counting instantiation adds
+// to (trace.cuh); `lens`: null, or (H, W) int32 bounces a path, written by
+// the counting instantiation.
 extern "C" int ptre_render_sample(const ptre::RenderParams* params,
                                   float* accum, const float* urand,
                                   const float* tris, const float* sphs,
                                   const float* mats, const float* sky,
+                                  unsigned long long* stats, int32_t* lens,
                                   void* stream) {
   const ptre::RenderParams p = *params;
   if (p.n_tri < 1 || p.n_tri > ptre::kMaxTri || p.n_sph < 1 ||
       p.n_sph > ptre::kMaxSph || p.num_mats > ptre::kMaxMats ||
-      (p.external_rng && urand == nullptr)) {
+      p.width < 1 || p.height < 1 || (p.external_rng && urand == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
-  const dim3 block(ptre::kBlockX, ptre::kBlockY);
-  const dim3 grid((p.width + ptre::kBlockX - 1) / ptre::kBlockX,
-                  (p.height + ptre::kBlockY - 1) / ptre::kBlockY);
-  ptre::render_sample_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-      p, accum, urand, tris, sphs, mats, sky);
-  return (int)cudaGetLastError();
+  const ptre::SceneTables tab = {tris, sphs, mats, sky, p.n_tri, p.n_sph, p.num_mats};
+  if (p.external_rng) {
+    const ptre::RenderJob<ptre::ExternalSource> job = {
+        p, {urand, (int64_t)p.height * p.width}, accum};
+    return ptre::launch_dense(job, tab, stats, lens, stream);
+  }
+  const ptre::RenderJob<ptre::PhiloxSource> job = {
+      p, {p.seed_lo, p.seed_hi, p.sample}, accum};
+  return ptre::launch_dense(job, tab, stats, lens, stream);
 }
 
 extern "C" const char* ptre_cuda_error_string(int code) {

@@ -1,8 +1,19 @@
-// Per-pixel path tracing, shared by the CUDA render and recording kernels
-// and their host builds: trace_path (the bounce loop, with an optional
-// selection recorder) and scatter_shade (material select, ONB cosine
-// scatter, Oren-Nayar / emissive weight), then render_pixel (ray generation,
-// clamp + scrub, running average).
+// Path tracing of the dense class, shared by the CUDA render and recording
+// kernels and their host builds:
+//   * scatter_shade (material select, ONB cosine scatter, Oren-Nayar /
+//     emissive weight) and sky_color, also read by wave.cuh and replay.cuh;
+//   * derive_row: a triangle row as the dense kernels stage it once a block
+//     (v0 and the edges e1 = v1 - v0, e2 = v2 - v0, the vertex normals, the
+//     material, the row's original index), valid rows only, ascending;
+//   * path_bounce: one bounce of one path over those rows (the sweep with an
+//     optional selection recorder, then the shading and the next ray);
+//   * RenderJob / RecordJob: what a lane does when it takes a pixel or a ray
+//     (camera ray, or the given ray), at each bounce, and when the path ends
+//     (clamp + scrub + running average, or colour and the -1 selections);
+//   * dense_kernel (the card) and host_dense (its twin on the host, each
+//     warp's 32 lanes simulated): a warp owns a tile of items, each lane one
+//     path, and a lane whose path ended takes the tile's next unstarted
+//     item.
 //
 // These are the one-ray forms of ptre_tpu/ops/pallas/megakernel.py
 // _trace_block (:811) and _scatter_shade (:611), and of the per-tile body of
@@ -20,6 +31,10 @@
 
 #include <math.h>
 #include <stdint.h>
+
+#ifndef __CUDACC__
+#include <vector>
+#endif
 
 #include "philox.cuh"
 
@@ -209,7 +224,7 @@ PTRE_HD void scatter_shade(float nx, float ny, float nz, float dx, float dy,
   *emissive = is_emissive;
 }
 
-// Recorder policies of trace_path. NoRecord compiles to nothing, so the
+// Recorder policies of path_bounce. NoRecord compiles to nothing, so the
 // render kernel's code and registers are those of a loop without recording.
 struct NoRecord {
   PTRE_HD void hit(int, int, int) {}
@@ -222,7 +237,7 @@ struct SelRecorder {
   int32_t* sel;  // (max_depth, n_rays)
   int64_t ray, n_rays;
   int sph_offset;
-  int n_hits = 0;
+  int n_hits;
 
   PTRE_HD void hit(int bounce, int tri_idx, int sph_idx) {
     sel[bounce * n_rays + ray] = sph_idx >= 0 ? sph_offset + sph_idx : tri_idx;
@@ -230,228 +245,696 @@ struct SelRecorder {
   }
 };
 
-// One path, up to max_depth bounces (megakernel.py:811-990). A path that
-// misses (sky) or hits an emitter ends with a per-thread break: the
-// reference's skipped bounces are no-ops, so the image is the same.
+// A 16-byte vector: one shared-memory load on the card.
+#ifdef __CUDACC__
+using Vec4 = float4;
+#else
+struct Vec4 {
+  float x, y, z, w;
+};
+#endif
+
+PTRE_HD Vec4 load4(const float* p) {  // p 16-byte aligned
+#ifdef __CUDA_ARCH__
+  return *reinterpret_cast<const float4*>(p);
+#else
+  const Vec4 v = {p[0], p[1], p[2], p[3]};
+  return v;
+#endif
+}
+
+// Direction reciprocal clamped away from 0 at +-1e-12 (wavefront.py:138-141).
+PTRE_HD float slab_inv(float c) {
+  return 1.0f / (fabsf(c) < 1e-12f ? (c >= 0.0f ? 1e-12f : -1e-12f) : c);
+}
+
+// Entry and exit parameters of one ray through one box (lo.xyz hi.xyz). No
+// a*b+c appears, so FMA contraction cannot change a verdict.
+PTRE_HD void slab_interval(const float* box, const float o[3],
+                           const float iv[3], float* t_near, float* t_far) {
+  float tn = -kBig, tf = kBig;
+  for (int k = 0; k < 3; ++k) {
+    const float lo = box[k], hi = box[3 + k];
+    const float tnk = ((iv[k] >= 0.0f ? lo : hi) - o[k]) * iv[k];
+    const float tfk = ((iv[k] >= 0.0f ? hi : lo) - o[k]) * iv[k];
+    tn = k == 0 ? tnk : fmaxf(tn, tnk);
+    tf = k == 0 ? tfk : fminf(tf, tfk);
+  }
+  *t_near = tn;
+  *t_far = tf;
+}
+
+// Slab test of one ray against one box (wavefront.py:144-152).
+PTRE_HD bool slab_pass(const float* box, const float o[3], const float iv[3],
+                       float t_min) {
+  float tn, tf;
+  slab_interval(box, o, iv, &tn, &tf);
+  return tn <= tf && tf >= t_min;
+}
+
+// A derived triangle row, five 16-byte vectors: v0 (0-2), e1 = v1 - v0
+// (3-5), e2 = v2 - v0 (6-8), n0 n1 n2 (9-17, at their pack_tri32 columns),
+// the material (18) and the row's original index (19). The edges are the
+// single float subtractions every ray used to make at every bounce, so the
+// sweep's arithmetic is unchanged.
+constexpr int kRowFloats = 20;
+
+PTRE_HD void derive_row(const float* tr, int idx, float* out) {
+  const float v0x = tr[0], v0y = tr[1], v0z = tr[2];
+  out[0] = v0x;
+  out[1] = v0y;
+  out[2] = v0z;
+  out[3] = tr[3] - v0x;
+  out[4] = tr[4] - v0y;
+  out[5] = tr[5] - v0z;
+  out[6] = tr[6] - v0x;
+  out[7] = tr[7] - v0y;
+  out[8] = tr[8] - v0z;
+  for (int i = 9; i < 18; ++i) out[i] = tr[i];
+  out[18] = tr[19];
+  out[19] = (float)idx;
+}
+
+PTRE_HD bool row_valid(const float* tr) { return tr[18] > 0.5f; }
+
+// Group boxes: the derived rows in groups of kGroupRows, each group's box
+// (lo.xyz hi.xyz 0 0) taken over its triangles' vertices and grown by
+// kCullPadRel x the largest |coordinate| of the valid triangles on every
+// side, as the wavefront grows its leaf boxes (wavefront.CULL_PAD_REL). A ray
+// that fails a group's slab test skips the group's rows: the box holds every
+// point the Moller-Trumbore test can accept, with a margin far wider than
+// its float rounding, so no hit is dropped (held against the first design,
+// which tests every row, bit for bit).
+constexpr int kGroupRows = 8;
+constexpr int kMaxGroups = kMaxTri / kGroupRows;
+constexpr int kBoxFloats = 8;
+constexpr float kCullPadRel = 1e-5f;
+
+PTRE_HD float row_extent(const float* tr) {  // the largest |coordinate|
+  float m = 0.0f;
+  for (int i = 0; i < 9; ++i) m = fmaxf(m, fabsf(tr[i]));
+  return m;
+}
+
+// Group g's box over the original rows (`tris`) of its derived rows.
+PTRE_HD void group_box(const float* tris, const float* rows, int n_valid, int g,
+                       float pad, float* box) {
+  float lo[3] = {kBig, kBig, kBig}, hi[3] = {-kBig, -kBig, -kBig};
+  const int j1 = (g + 1) * kGroupRows < n_valid ? (g + 1) * kGroupRows : n_valid;
+  for (int j = g * kGroupRows; j < j1; ++j) {
+    const float* tr = tris + (int)rows[j * kRowFloats + 19] * kTriStride;
+    for (int v = 0; v < 3; ++v) {
+      for (int k = 0; k < 3; ++k) {
+        lo[k] = fminf(lo[k], tr[3 * v + k]);
+        hi[k] = fmaxf(hi[k], tr[3 * v + k]);
+      }
+    }
+  }
+  for (int k = 0; k < 3; ++k) {
+    box[k] = sub_rn(lo[k], pad);
+    box[3 + k] = add_rn(hi[k], pad);
+  }
+  box[6] = box[7] = 0.0f;
+}
+
+// The valid rows of the (n_tri, 32) table, derived in ascending order into
+// `rows`, and their group boxes into `boxes`; returns their count. Ascending
+// order with the strict t < best keeps the lowest original index on a tie,
+// as the full table did.
+PTRE_HD int derive_rows(const float* tris, int n_tri, float* rows, float* boxes) {
+  int n = 0;
+  float scale = 0.0f;
+  for (int j = 0; j < n_tri; ++j) {
+    if (!row_valid(tris + j * kTriStride)) continue;
+    derive_row(tris + j * kTriStride, j, rows + kRowFloats * n++);
+    scale = fmaxf(scale, row_extent(tris + j * kTriStride));
+  }
+  for (int g = 0; g * kGroupRows < n; ++g)
+    group_box(tris, rows, n, g, mul_rn(kCullPadRel, scale), boxes + kBoxFloats * g);
+  return n;
+}
+
+// The dense scene as the redesigned kernels stage it.
+struct DenseScene {
+  const float* rows;   // (n_valid, kRowFloats), 16-byte aligned
+  const float* boxes;  // (ceil(n_valid / kGroupRows), kBoxFloats)
+  const float* sphs;   // (n_sph, kSphStride), 16-byte aligned
+  int n_valid, n_sph;
+  SceneTables shade;   // the materials and the sky
+};
+
+// One path between bounces: its next ray, its throughput and its bounce.
+struct PathState {
+  float ox, oy, oz, dx, dy, dz;
+  float cr, cg, cb;
+  int bounce;
+};
+
+// How a bounce ended: the path missed (the sky), hit and ended (an emitter
+// or max_depth), or hit and goes on.
+enum BounceEnd : int { kMissed = 0, kEnded = 1, kGoesOn = 2 };
+
+// One bounce of a live path (megakernel.py:811-990): closest hit over the
+// valid triangle rows (strict t < best: the lowest index on a tie), spheres
+// bounded by the closest triangle (the far-root quirk: the acceptance bounds
+// t_near, not t), then the sky on a miss, or the winner's normal (flipped
+// against the ray, then normalised), scatter_shade and the next ray.
 // ``rec.hit(bounce, tri, sph)`` sees each hit's winner (sph >= 0 when a
-// sphere won).
+// sphere won). A candidate is left as soon as its result is decided: |det|
+// below det_eps or u outside [0, 1] before qv, v and t; delta < 0 before
+// the root; a group of rows whose box the ray misses. The winner's
+// attributes are read once, after the sweep. `tested`, when given, counts
+// the rows of the groups the ray passes.
 template <class Params, class Uniforms, class Recorder>
-PTRE_HD void trace_path(float ox, float oy, float oz, float dx, float dy,
-                        float dz, const SceneTables& sc, const Params& p,
-                        Uniforms& un, Recorder& rec, float col[3]) {
-  float cr = 1.0f, cg = 1.0f, cb = 1.0f;
-  for (int bounce = 0; bounce < p.max_depth; ++bounce) {
-    // triangle sweep; strict t < best keeps the lowest index (:840-892)
-    float tri_t = kBig;
-    bool tri_hit = false;
-    int tri_idx = 0;
-    float bnx = 0.0f, bny = 0.0f, bnz = 0.0f, tri_mat = 0.0f;
-    for (int j = 0; j < sc.n_tri; ++j) {
-      const float* tr = sc.tris + j * kTriStride;
-      if (!(tr[18] > 0.5f)) continue;  // invalid rows accept nothing
-      const float v0x = tr[0], v0y = tr[1], v0z = tr[2];
-      const float e1x = tr[3] - v0x, e1y = tr[4] - v0y, e1z = tr[5] - v0z;
-      const float e2x = tr[6] - v0x, e2y = tr[7] - v0y, e2z = tr[8] - v0z;
+PTRE_HD int path_bounce(PathState& s, const DenseScene& sc, const Params& p,
+                        Uniforms& un, Recorder& rec, unsigned* tested) {
+  const float ox = s.ox, oy = s.oy, oz = s.oz;
+  const float dx = s.dx, dy = s.dy, dz = s.dz;
+
+  float tri_t = kBig, tri_u = 0.0f, tri_v = 0.0f;
+  bool tri_hit = false;
+  int tri_row = -1;
+  const float o3[3] = {ox, oy, oz};
+  const float iv[3] = {slab_inv(dx), slab_inv(dy), slab_inv(dz)};
+  for (int j0 = 0; j0 < sc.n_valid; j0 += kGroupRows) {
+    if (!slab_pass(sc.boxes + j0 / kGroupRows * kBoxFloats, o3, iv, p.t_min)) continue;
+    const int j1 = j0 + kGroupRows < sc.n_valid ? j0 + kGroupRows : sc.n_valid;
+    if (tested != nullptr) *tested += j1 - j0;
+    for (int j = j0; j < j1; ++j) {
+      const float* r = sc.rows + j * kRowFloats;
+      const Vec4 a = load4(r), b = load4(r + 4), c = load4(r + 8);
+      const float v0x = a.x, v0y = a.y, v0z = a.z;
+      const float e1x = a.w, e1y = b.x, e1z = b.y;
+      const float e2x = b.z, e2y = b.w, e2z = c.x;
       const float pvx = dy * e2z - dz * e2y;
       const float pvy = dz * e2x - dx * e2z;
       const float pvz = dx * e2y - dy * e2x;
       const float det = e1x * pvx + e1y * pvy + e1z * pvz;
-      const float inv_det = 1.0f / (fabsf(det) < p.det_eps ? 1.0f : det);
+      if (!(fabsf(det) >= p.det_eps)) continue;
+      const float inv_det = 1.0f / det;
       const float tvx = ox - v0x, tvy = oy - v0y, tvz = oz - v0z;
       const float u = (tvx * pvx + tvy * pvy + tvz * pvz) * inv_det;
+      if (!(u >= 0.0f && u <= 1.0f)) continue;
       const float qvx = tvy * e1z - tvz * e1y;
       const float qvy = tvz * e1x - tvx * e1z;
       const float qvz = tvx * e1y - tvy * e1x;
       const float v = (dx * qvx + dy * qvy + dz * qvz) * inv_det;
       const float t = (e2x * qvx + e2y * qvy + e2z * qvz) * inv_det;
-      const bool acc = fabsf(det) >= p.det_eps && u >= 0.0f && u <= 1.0f &&
-                       v >= 0.0f && u + v <= 1.0f && t >= p.t_min &&
-                       t <= p.t_max;
-      if (!acc) continue;
+      if (!(v >= 0.0f && u + v <= 1.0f && t >= p.t_min && t <= p.t_max)) continue;
       tri_hit = true;  // ORs acc, not upd (:892)
       if (t < tri_t) {
-        // interpolated normal, sign from the geometric normal, applied
-        // before normalising (:875-889)
-        const float w = 1.0f - u - v;
-        const float gnx = e1y * e2z - e1z * e2y;
-        const float gny = e1z * e2x - e1x * e2z;
-        const float gnz = e1x * e2y - e1y * e2x;
-        const float sign = dx * gnx + dy * gny + dz * gnz < 0.0f ? 1.0f : -1.0f;
         tri_t = t;
-        bnx = (w * tr[9] + u * tr[12] + v * tr[15]) * sign;
-        bny = (w * tr[10] + u * tr[13] + v * tr[16]) * sign;
-        bnz = (w * tr[11] + u * tr[14] + v * tr[17]) * sign;
-        tri_mat = tr[19];
-        tri_idx = j;
+        tri_u = u;
+        tri_v = v;
+        tri_row = j;
       }
     }
-    const float tri_best = tri_hit ? tri_t : p.t_max;
-
-    // spheres bounded by the closest triangle; far-root quirk: the
-    // acceptance bounds t_near, not t (:906-928)
-    float sph_t = kBig;
-    bool sph_hit = false;
-    int sph_idx = 0;
-    float s_cx = 0.0f, s_cy = 0.0f, s_cz = 0.0f, s_ir = 0.0f, sph_mat = 0.0f;
-    for (int s = 0; s < sc.n_sph; ++s) {
-      const float* sp = sc.sphs + s * kSphStride;
-      if (!(sp[4] > 0.5f)) continue;
-      const float cx = sp[0], cy = sp[1], cz = sp[2], r = sp[3];
-      const float ocx = cx - ox, ocy = cy - oy, ocz = cz - oz;
-      const float halfb = dx * ocx + dy * ocy + dz * ocz;
-      const float c = ocx * ocx + ocy * ocy + ocz * ocz - r * r;
-      const float delta = halfb * halfb - c;
-      const float sq = sqrtf(fmaxf(delta, 0.0f));
-      const float t_near = halfb - sq;
-      const float t = t_near >= p.t_min ? t_near : halfb + sq;
-      const bool acc = delta >= 0.0f && t_near <= tri_best && t >= p.t_min;
-      if (!acc) continue;
-      sph_hit = true;
-      if (t < sph_t) {
-        sph_t = t;
-        s_cx = cx;
-        s_cy = cy;
-        s_cz = cz;
-        s_ir = 1.0f / (r == 0.0f ? 1.0f : r);
-        sph_mat = sp[5];
-        sph_idx = s;
-      }
-    }
-
-    if (!(tri_hit || sph_hit)) {  // miss: sky factor, the path ends
-      float sr, sg, sb;
-      sky_color(dy, sc.sky, &sr, &sg, &sb);
-      cr *= sr;
-      cg *= sg;
-      cb *= sb;
-      break;
-    }
-
-    // merge the winner (a sphere candidate already beat the triangles)
-    const bool use_sph = sph_hit;
-    rec.hit(bounce, tri_idx, use_sph ? sph_idx : -1);
-    const float t_hit = use_sph ? sph_t : tri_t;
-    const float px = ox + t_hit * dx;
-    const float py = oy + t_hit * dy;
-    const float pz = oz + t_hit * dz;
-    float nx, ny, nz;
-    if (use_sph) {
-      const float snx = (px - s_cx) * s_ir;
-      const float sny = (py - s_cy) * s_ir;
-      const float snz = (pz - s_cz) * s_ir;
-      const float s_sign = dx * snx + dy * sny + dz * snz < 0.0f ? 1.0f : -1.0f;
-      nx = snx * s_sign;
-      ny = sny * s_sign;
-      nz = snz * s_sign;
-    } else {
-      nx = bnx;
-      ny = bny;
-      nz = bnz;
-    }
-    const float nlen = sqrtf(nx * nx + ny * ny + nz * nz);
-    const float ninv = nlen > 0.0f ? 1.0f / nlen : 0.0f;  // guarded (:951-953)
-    nx *= ninv;
-    ny *= ninv;
-    nz *= ninv;
-    const float mat_id = use_sph ? sph_mat : tri_mat;
-
-    float u1, u2;
-    un.pair(1 + bounce, &u1, &u2);
-    float f[3], wi[3];
-    bool emissive;
-    scatter_shade(nx, ny, nz, dx, dy, dz, mat_id, u1, u2, sc, p.pdf_eps, f,
-                  wi, &emissive);
-    cr *= f[0];
-    cg *= f[1];
-    cb *= f[2];
-    if (emissive) break;
-
-    // next ray: shadow-epsilon offset along the final normal (:967-977)
-    ox = px + p.shadow_eps * nx;
-    oy = py + p.shadow_eps * ny;
-    oz = pz + p.shadow_eps * nz;
-    dx = wi[0];
-    dy = wi[1];
-    dz = wi[2];
   }
-  col[0] = cr;
-  col[1] = cg;
-  col[2] = cb;
+  const float tri_best = tri_hit ? tri_t : p.t_max;
+
+  float sph_t = kBig;
+  bool sph_hit = false;
+  int sph_idx = -1;
+  for (int k = 0; k < sc.n_sph; ++k) {
+    const float* sp = sc.sphs + k * kSphStride;
+    const Vec4 a = load4(sp), b = load4(sp + 4);
+    if (!(b.x > 0.5f)) continue;
+    const float ocx = a.x - ox, ocy = a.y - oy, ocz = a.z - oz;
+    const float halfb = dx * ocx + dy * ocy + dz * ocz;
+    const float c = ocx * ocx + ocy * ocy + ocz * ocz - a.w * a.w;
+    const float delta = halfb * halfb - c;
+    if (!(delta >= 0.0f)) continue;
+    const float sq = sqrtf(fmaxf(delta, 0.0f));
+    const float t_near = halfb - sq;
+    const float t = t_near >= p.t_min ? t_near : halfb + sq;
+    if (!(t_near <= tri_best && t >= p.t_min)) continue;
+    sph_hit = true;
+    if (t < sph_t) {
+      sph_t = t;
+      sph_idx = k;
+    }
+  }
+
+  if (!(tri_hit || sph_hit)) {  // miss: sky factor, the path ends
+    float sr, sg, sb;
+    sky_color(dy, sc.shade.sky, &sr, &sg, &sb);
+    s.cr *= sr;
+    s.cg *= sg;
+    s.cb *= sb;
+    return kMissed;
+  }
+
+  // the winner (a sphere candidate already beat the triangles); a hit that
+  // never improved on kBig keeps the zero attributes it always had
+  const bool use_sph = sph_hit;
+  const float t_hit = use_sph ? sph_t : tri_t;
+  const float px = ox + t_hit * dx;
+  const float py = oy + t_hit * dy;
+  const float pz = oz + t_hit * dz;
+  float nx = 0.0f, ny = 0.0f, nz = 0.0f, mat_id = 0.0f;
+  int tri_idx = 0;
+  if (use_sph) {
+    float s_cx = 0.0f, s_cy = 0.0f, s_cz = 0.0f, s_ir = 0.0f;
+    if (sph_idx >= 0) {
+      const float* sp = sc.sphs + sph_idx * kSphStride;
+      s_cx = sp[0];
+      s_cy = sp[1];
+      s_cz = sp[2];
+      s_ir = 1.0f / (sp[3] == 0.0f ? 1.0f : sp[3]);
+      mat_id = sp[5];
+    }
+    const float snx = (px - s_cx) * s_ir;
+    const float sny = (py - s_cy) * s_ir;
+    const float snz = (pz - s_cz) * s_ir;
+    const float s_sign = dx * snx + dy * sny + dz * snz < 0.0f ? 1.0f : -1.0f;
+    nx = snx * s_sign;
+    ny = sny * s_sign;
+    nz = snz * s_sign;
+  } else if (tri_row >= 0) {
+    // interpolated normal, sign from the geometric normal, applied before
+    // normalising (:875-889)
+    const float* r = sc.rows + tri_row * kRowFloats;
+    const float e1x = r[3], e1y = r[4], e1z = r[5];
+    const float e2x = r[6], e2y = r[7], e2z = r[8];
+    const float u = tri_u, v = tri_v;
+    const float w = 1.0f - u - v;
+    const float gnx = e1y * e2z - e1z * e2y;
+    const float gny = e1z * e2x - e1x * e2z;
+    const float gnz = e1x * e2y - e1y * e2x;
+    const float sign = dx * gnx + dy * gny + dz * gnz < 0.0f ? 1.0f : -1.0f;
+    nx = (w * r[9] + u * r[12] + v * r[15]) * sign;
+    ny = (w * r[10] + u * r[13] + v * r[16]) * sign;
+    nz = (w * r[11] + u * r[14] + v * r[17]) * sign;
+    mat_id = r[18];
+    tri_idx = (int)r[19];
+  }
+  rec.hit(s.bounce, tri_idx, use_sph ? (sph_idx >= 0 ? sph_idx : 0) : -1);
+  const float nlen = sqrtf(nx * nx + ny * ny + nz * nz);
+  const float ninv = nlen > 0.0f ? 1.0f / nlen : 0.0f;  // guarded (:951-953)
+  nx *= ninv;
+  ny *= ninv;
+  nz *= ninv;
+
+  float u1, u2;
+  un.pair(1 + s.bounce, &u1, &u2);
+  float f[3], wi[3];
+  bool emissive;
+  scatter_shade(nx, ny, nz, dx, dy, dz, mat_id, u1, u2, sc.shade, p.pdf_eps, f,
+                wi, &emissive);
+  s.cr *= f[0];
+  s.cg *= f[1];
+  s.cb *= f[2];
+  if (emissive) return kEnded;
+
+  // next ray: shadow-epsilon offset along the final normal (:967-977)
+  s.ox = px + p.shadow_eps * nx;
+  s.oy = py + p.shadow_eps * ny;
+  s.oz = pz + p.shadow_eps * nz;
+  s.dx = wi[0];
+  s.dy = wi[1];
+  s.dz = wi[2];
+  return ++s.bounce < p.max_depth ? kGoesOn : kEnded;
 }
 
-// One progressive sample of pixel (x, y) (render_kernel.py:79-179): jitter,
-// closed-form camera ray, trace, clamp + non-finite scrub, then
-// lin = c/n + lin*(n-1)/n on the (H, W, 3) accumulator in place.
-template <class Uniforms>
-PTRE_HD void render_pixel(const RenderParams& p, const SceneTables& sc, int x,
-                          int y, Uniforms& un, float* accum) {
-  float ju, jv;
-  un.pair(0, &ju, &jv);
-  const float jx = sub_rn(ju, 0.5f);
-  const float jy = sub_rn(jv, 0.5f);
-  const float x_ndc =
-      sub_rn(mul_rn(add_rn((float)x, jx), mul_rn(2.0f, p.inv_w)), 1.0f);
-  const float y_ndc =
-      sub_rn(1.0f, mul_rn(add_rn((float)y, jy), mul_rn(2.0f, p.inv_h)));
-  const float* c = p.cam;
-  const float ox = lin2_rn(x_ndc, c[0], y_ndc, c[3], c[6]);
-  const float oy = lin2_rn(x_ndc, c[1], y_ndc, c[4], c[7]);
-  const float oz = lin2_rn(x_ndc, c[2], y_ndc, c[5], c[8]);
-  float dx = lin2_rn(x_ndc, c[9], y_ndc, c[12], c[15]);
-  float dy = lin2_rn(x_ndc, c[10], y_ndc, c[13], c[16]);
-  float dz = lin2_rn(x_ndc, c[11], y_ndc, c[14], c[17]);
-  const float dlen =
-      sqrtf(add_rn(add_rn(mul_rn(dx, dx), mul_rn(dy, dy)), mul_rn(dz, dz)));
-  const float dinv = dlen > 0.0f ? 1.0f / dlen : 0.0f;  // (:142-144)
-  dx = mul_rn(dx, dinv);
-  dy = mul_rn(dy, dinv);
-  dz = mul_rn(dz, dinv);
-
-  float col[3];
-  NoRecord rec;
-  trace_path(ox, oy, oz, dx, dy, dz, sc, p, un, rec, col);
-
-  for (int ch = 0; ch < 3; ++ch) {
-    float v = col[ch];
-    if (p.clamp) v = fminf(fmaxf(v, 0.0f), 1.0f);
-    if (!isfinite(v)) v = 0.0f;  // NaN and +-inf (integrator.py:188)
-    accum[ch] = add_rn(mul_rn(v, p.inv_n), mul_rn(accum[ch], p.w_old));
+// Uniform sources: a lane's uniforms for pixel or ray `id`.
+struct PhiloxSource {
+  uint32_t key0, key1, sample;
+  PTRE_HD PhiloxUniforms at(int64_t id) const {
+    return PhiloxUniforms(key0, key1, (uint32_t)id, sample);
   }
-}
+};
+
+struct ExternalSource {  // an external (2 + 2*max_depth, n) uniform tensor
+  const float* urand;
+  int64_t plane;
+  PTRE_HD ExternalUniforms at(int64_t id) const {
+    const ExternalUniforms un = {urand, id, plane};
+    return un;
+  }
+};
+
+// Items and lanes of the warp scheduler. A warp owns a tile: kRenderTileW x
+// kRenderTileH pixels of the image, or kRecordTile consecutive rays. A lane
+// whose path ended takes the tile's next unstarted item once at least
+// kRefillMin lanes of the warp are idle.
+constexpr int kLanes = 32;
+constexpr int kDenseWarps = 8;  // warps (tiles) a block of the dense kernels
+constexpr int kRenderTileW = 16;
+constexpr int kRenderTileH = 4;
+constexpr int kRecordTile = 64;
+constexpr int kRefillMin = 1;
+// The counting instantiation's counters: paths started, live ray-bounces
+// (sweeps), hits, warp-bounces issued, and the triangle rows tested (those
+// of the groups whose box the ray passes). It also writes each path's
+// bounces into `lens` (one int32 a pixel or ray) when that is given.
+constexpr int kStats = 5;
+
+// One progressive sample of one pixel (render_kernel.py:79-179): jitter,
+// closed-form camera ray, the bounces, clamp + non-finite scrub, then lin =
+// c/n + lin*(n-1)/n on the (H, W, 3) accumulator in place.
+template <class Source>
+struct RenderJob {
+  using Uniforms = decltype(Source().at(0));
+  struct Lane {
+    PathState s;
+    Uniforms un;
+    int64_t pix;
+  };
+
+  RenderParams p;
+  Source src;
+  float* accum;
+  DenseScene sc;   // the staged scene
+  int x0, y0, tw;  // the tile's corner and width (ragged at the edge)
+
+  PTRE_HD int n_tiles() const {
+    return ((p.width + kRenderTileW - 1) / kRenderTileW) *
+           ((p.height + kRenderTileH - 1) / kRenderTileH);
+  }
+
+  // Takes tile t (x-major); returns its pixels.
+  PTRE_HD int tile(int t) {
+    const int tiles_x = (p.width + kRenderTileW - 1) / kRenderTileW;
+    x0 = (t % tiles_x) * kRenderTileW;
+    y0 = (t / tiles_x) * kRenderTileH;
+    tw = p.width - x0 < kRenderTileW ? p.width - x0 : kRenderTileW;
+    const int th = p.height - y0 < kRenderTileH ? p.height - y0 : kRenderTileH;
+    return tw * th;
+  }
+
+  PTRE_HD void start(int item, Lane& l) const {
+    const int x = x0 + item % tw, y = y0 + item / tw;
+    l.pix = (int64_t)y * p.width + x;
+    l.un = src.at(l.pix);
+    float ju, jv;
+    l.un.pair(0, &ju, &jv);
+    const float jx = sub_rn(ju, 0.5f);
+    const float jy = sub_rn(jv, 0.5f);
+    const float x_ndc =
+        sub_rn(mul_rn(add_rn((float)x, jx), mul_rn(2.0f, p.inv_w)), 1.0f);
+    const float y_ndc =
+        sub_rn(1.0f, mul_rn(add_rn((float)y, jy), mul_rn(2.0f, p.inv_h)));
+    const float* c = p.cam;
+    l.s.ox = lin2_rn(x_ndc, c[0], y_ndc, c[3], c[6]);
+    l.s.oy = lin2_rn(x_ndc, c[1], y_ndc, c[4], c[7]);
+    l.s.oz = lin2_rn(x_ndc, c[2], y_ndc, c[5], c[8]);
+    const float dx = lin2_rn(x_ndc, c[9], y_ndc, c[12], c[15]);
+    const float dy = lin2_rn(x_ndc, c[10], y_ndc, c[13], c[16]);
+    const float dz = lin2_rn(x_ndc, c[11], y_ndc, c[14], c[17]);
+    const float dlen =
+        sqrtf(add_rn(add_rn(mul_rn(dx, dx), mul_rn(dy, dy)), mul_rn(dz, dz)));
+    const float dinv = dlen > 0.0f ? 1.0f / dlen : 0.0f;  // (:142-144)
+    l.s.dx = mul_rn(dx, dinv);
+    l.s.dy = mul_rn(dy, dinv);
+    l.s.dz = mul_rn(dz, dinv);
+    l.s.cr = l.s.cg = l.s.cb = 1.0f;
+    l.s.bounce = 0;
+  }
+
+  PTRE_HD int step(Lane& l, unsigned* tested) const {
+    NoRecord rec;
+    return path_bounce(l.s, sc, p, l.un, rec, tested);
+  }
+
+  PTRE_HD void finish(const Lane& l) const {
+    float* out = accum + 3 * l.pix;
+    const float col[3] = {l.s.cr, l.s.cg, l.s.cb};
+    for (int ch = 0; ch < 3; ++ch) {
+      float v = col[ch];
+      if (p.clamp) v = fminf(fmaxf(v, 0.0f), 1.0f);
+      if (!isfinite(v)) v = 0.0f;  // NaN and +-inf (integrator.py:188)
+      out[ch] = add_rn(mul_rn(v, p.inv_n), mul_rn(out[ch], p.w_old));
+    }
+  }
+
+  PTRE_HD int64_t path(const Lane& l) const { return l.pix; }
+};
 
 // Ray `ray` of a recording trace (megakernel.py:734-808 with record_sel):
-// (R, 3) rays in, the unclamped color and the per-bounce selections out —
+// (R, 3) rays in, the unclamped colour and the per-bounce selections out —
 // the unified-table row of each hit, -1 after the path ended.
-PTRE_HD void record_ray(const TraceParams& p, const SceneTables& sc,
-                        int64_t ray, const float* o, const float* d,
-                        const float* urand, float* color, int32_t* sel) {
-  SelRecorder rec = {sel, ray, p.n_rays, p.sph_offset};
-  const float* ro = o + 3 * ray;
-  const float* rd = d + 3 * ray;
-  float col[3];
-  if (p.external_rng) {
-    ExternalUniforms un = {urand, ray, p.n_rays};
-    trace_path(ro[0], ro[1], ro[2], rd[0], rd[1], rd[2], sc, p, un, rec, col);
-  } else {
-    PhiloxUniforms un(p.seed_lo, p.seed_hi, (uint32_t)ray, p.sample);
-    trace_path(ro[0], ro[1], ro[2], rd[0], rd[1], rd[2], sc, p, un, rec, col);
+template <class Source>
+struct RecordJob {
+  using Uniforms = decltype(Source().at(0));
+  struct Lane {
+    PathState s;
+    Uniforms un;
+    int64_t ray;
+    int n_hits;
+  };
+
+  TraceParams p;
+  Source src;
+  const float* o;
+  const float* d;
+  float* color;
+  int32_t* sel;
+  DenseScene sc;  // the staged scene
+  int64_t base;   // the tile's first ray
+
+  PTRE_HD int n_tiles() const {
+    return (int)(((int64_t)p.n_rays + kRecordTile - 1) / kRecordTile);
   }
-  for (int b = rec.n_hits; b < p.max_depth; ++b) sel[b * p.n_rays + ray] = -1;
-  for (int ch = 0; ch < 3; ++ch) color[3 * ray + ch] = col[ch];
+
+  // Takes tile t; returns its rays.
+  PTRE_HD int tile(int t) {
+    base = (int64_t)t * kRecordTile;
+    return (int)(p.n_rays - base < kRecordTile ? p.n_rays - base : kRecordTile);
+  }
+
+  PTRE_HD void start(int item, Lane& l) const {
+    l.ray = base + item;
+    l.un = src.at(l.ray);
+    l.n_hits = 0;
+    const float* ro = o + 3 * l.ray;
+    const float* rd = d + 3 * l.ray;
+    l.s.ox = ro[0];
+    l.s.oy = ro[1];
+    l.s.oz = ro[2];
+    l.s.dx = rd[0];
+    l.s.dy = rd[1];
+    l.s.dz = rd[2];
+    l.s.cr = l.s.cg = l.s.cb = 1.0f;
+    l.s.bounce = 0;
+  }
+
+  PTRE_HD int step(Lane& l, unsigned* tested) const {
+    SelRecorder rec = {sel, l.ray, p.n_rays, p.sph_offset, l.n_hits};
+    const int end = path_bounce(l.s, sc, p, l.un, rec, tested);
+    l.n_hits = rec.n_hits;
+    return end;
+  }
+
+  PTRE_HD void finish(const Lane& l) const {
+    for (int b = l.n_hits; b < p.max_depth; ++b) sel[b * p.n_rays + l.ray] = -1;
+    color[3 * l.ray] = l.s.cr;
+    color[3 * l.ray + 1] = l.s.cg;
+    color[3 * l.ray + 2] = l.s.cb;
+  }
+
+  PTRE_HD int64_t path(const Lane& l) const { return l.ray; }
+};
+
+#ifdef __CUDACC__
+// The dense kernels: kDenseWarps warps a block, each draining one tile of
+// `job` (a RenderJob or a RecordJob) with the warp scheduler below, over
+// the scene `tab` staged in shared memory; kCount adds the kStats counters
+// into `stats` and, with `lens`, writes each path's bounces there.
+//
+// Staging: warp 0 derives the valid triangle rows in ascending order (a
+// ballot per 32 rows) and the boxes' pad, the other threads copy the
+// spheres, materials and sky; then a thread a group takes its group's box.
+//
+// The scheduler: each lane carries one path, advanced one bounce at a time;
+// a lane whose path ended finishes it (one write) and, once at least
+// kRefillMin lanes are idle, takes the tile's next unstarted item through a
+// warp-uniform cursor. The warp leaves when its tile is drained. Every
+// bounce runs the same sweep whatever its index, so lanes at different
+// bounces share it. The loop is written in the kernel's body: written in a
+// function, even a forced-inline one, nvcc placed some FMA contractions of
+// the shading otherwise, and colours of sphere hits moved by an ulp from the
+// first design's.
+template <bool kCount, class Job>
+__global__ void __launch_bounds__(kDenseWarps* kLanes)
+    dense_kernel(Job job, const SceneTables tab,
+                 unsigned long long* __restrict__ stats, int32_t* __restrict__ lens) {
+  __shared__ __align__(16) float s_rows[kMaxTri * kRowFloats];
+  __shared__ __align__(16) float s_box[kMaxGroups * kBoxFloats];
+  __shared__ __align__(16) float s_sph[kMaxSph * kSphStride];
+  __shared__ float s_mat[kMaxMats * kMatStride];
+  __shared__ float s_sky[8];
+  __shared__ int s_n_valid;
+  __shared__ float s_pad;
+
+  const int tid = threadIdx.x;
+  const int warp = tid / kLanes;
+  const unsigned lane = tid % kLanes;
+  if (warp == 0) {
+    int n = 0;
+    float scale = 0.0f;
+    for (int j0 = 0; j0 < tab.n_tri; j0 += kLanes) {
+      const int j = j0 + lane;
+      const bool valid = j < tab.n_tri && row_valid(tab.tris + j * kTriStride);
+      const unsigned b = __ballot_sync(0xffffffffu, valid);
+      if (valid) {
+        derive_row(tab.tris + j * kTriStride, j,
+                   s_rows + kRowFloats * (n + __popc(b & ((1u << lane) - 1u))));
+        scale = fmaxf(scale, row_extent(tab.tris + j * kTriStride));
+      }
+      n += __popc(b);
+    }
+    // the largest of the lanes' extents: non-negative floats order as
+    // their bits do
+    scale = __uint_as_float(__reduce_max_sync(0xffffffffu, __float_as_uint(scale)));
+    if (lane == 0) {
+      s_n_valid = n;
+      s_pad = mul_rn(kCullPadRel, scale);
+    }
+  }
+  for (int i = tid; i < tab.n_sph * kSphStride; i += kDenseWarps * kLanes)
+    s_sph[i] = tab.sphs[i];
+  for (int i = tid; i < kMaxMats * kMatStride; i += kDenseWarps * kLanes)
+    s_mat[i] = tab.mats[i];
+  if (tid < 8) s_sky[tid] = tab.sky[tid];
+  __syncthreads();
+  if (tid * kGroupRows < s_n_valid)
+    group_box(tab.tris, s_rows, s_n_valid, tid, s_pad, s_box + kBoxFloats * tid);
+  __syncthreads();
+
+  const int t = blockIdx.x * kDenseWarps + warp;
+  if (t >= job.n_tiles()) return;
+  const int n_items = job.tile(t);
+  job.sc = {s_rows, s_box, s_sph, s_n_valid, tab.n_sph,
+            {nullptr, s_sph, s_mat, s_sky, 0, tab.n_sph, tab.num_mats}};
+
+  const unsigned below = (1u << lane) - 1u;
+  typename Job::Lane l;
+  bool live = false;
+  int item = 0, cursor = 0, len = 0;
+  unsigned started = 0, hits = 0, live_bounces = 0, issued = 0, tested = 0;
+  for (;;) {
+    const unsigned idle = __ballot_sync(0xffffffffu, !live);
+    if (cursor < n_items && __popc(idle) >= kRefillMin) {
+      if (!live) {
+        item = cursor + __popc(idle & below);
+        if (item < n_items) {
+          job.start(item, l);
+          live = true;
+          len = 0;
+          started += kCount;
+        }
+      }
+      cursor = min(cursor + __popc(idle), n_items);
+    }
+    const unsigned active = __ballot_sync(0xffffffffu, live);
+    if (active == 0u) break;
+    if (kCount) {
+      ++issued;
+      live_bounces += __popc(active);
+    }
+    if (live) {
+      const int end = job.step(l, kCount ? &tested : nullptr);
+      if (kCount) {
+        ++len;
+        hits += end != kMissed;
+      }
+      if (end != kGoesOn) {
+        job.finish(l);
+        live = false;
+        if (kCount && lens != nullptr) lens[job.path(l)] = len;
+      }
+    }
+  }
+  if (kCount) {
+    started = __reduce_add_sync(0xffffffffu, started);
+    hits = __reduce_add_sync(0xffffffffu, hits);
+    tested = __reduce_add_sync(0xffffffffu, tested);
+    if (lane == 0) {
+      atomicAdd(stats, (unsigned long long)started);
+      atomicAdd(stats + 1, (unsigned long long)live_bounces);
+      atomicAdd(stats + 2, (unsigned long long)hits);
+      atomicAdd(stats + 3, (unsigned long long)issued);
+      atomicAdd(stats + 4, (unsigned long long)tested);
+    }
+  }
 }
 
-// Pixel (x, y) with the uniform source the params select.
-PTRE_HD void render_pixel_at(const RenderParams& p, const SceneTables& sc,
-                             int x, int y, const float* urand, float* accum) {
-  const int64_t pix = (int64_t)y * p.width + x;
-  float* out = accum + 3 * pix;
-  if (p.external_rng) {
-    ExternalUniforms un = {urand, pix, (int64_t)p.height * p.width};
-    render_pixel(p, sc, x, y, un, out);
+// Launches dense_kernel over every tile of `job` on `stream`, the counting
+// instantiation when `stats` is given (`lens` as dense_kernel's); returns
+// cudaGetLastError().
+template <class Job>
+inline int launch_dense(const Job& job, const SceneTables& tab,
+                        unsigned long long* stats, int32_t* lens, void* stream) {
+  const int grid = (job.n_tiles() + kDenseWarps - 1) / kDenseWarps;
+  if (grid < 1) return (int)cudaErrorInvalidValue;
+  if (stats != nullptr) {
+    dense_kernel<true, Job><<<grid, kDenseWarps * kLanes, 0, (cudaStream_t)stream>>>(
+        job, tab, stats, lens);
   } else {
-    PhiloxUniforms un(p.seed_lo, p.seed_hi, (uint32_t)pix, p.sample);
-    render_pixel(p, sc, x, y, un, out);
+    dense_kernel<false, Job><<<grid, kDenseWarps * kLanes, 0, (cudaStream_t)stream>>>(
+        job, tab, nullptr, nullptr);
+  }
+  return (int)cudaGetLastError();
+}
+#else
+// dense_kernel on the host: the scene derived once, then the warp of every
+// tile simulated lane by lane in the kernel's order (a refill, then one
+// bounce of every live lane), with its counters added into `stats` and each
+// path's bounces written into `lens` when given.
+template <class Job>
+inline void host_dense(Job job, const SceneTables& tab, uint64_t* stats,
+                       int32_t* lens) {
+  std::vector<float> rows((size_t)tab.n_tri * kRowFloats);
+  std::vector<float> boxes((size_t)(tab.n_tri + kGroupRows - 1) / kGroupRows * kBoxFloats);
+  const int n_valid = derive_rows(tab.tris, tab.n_tri, rows.data(), boxes.data());
+  job.sc = {rows.data(), boxes.data(), tab.sphs, n_valid, tab.n_sph,
+            {nullptr, tab.sphs, tab.mats, tab.sky, 0, tab.n_sph, tab.num_mats}};
+  for (int t = 0; t < job.n_tiles(); ++t) {
+    const int n_items = job.tile(t);
+    typename Job::Lane l[kLanes];
+    bool live[kLanes] = {};
+    int item[kLanes] = {}, len[kLanes] = {};
+    int cursor = 0;
+    for (;;) {
+      int n_idle = 0;
+      for (int i = 0; i < kLanes; ++i) n_idle += !live[i];
+      if (cursor < n_items && n_idle >= kRefillMin) {
+        int rank = 0;
+        for (int i = 0; i < kLanes; ++i) {
+          if (live[i]) continue;
+          item[i] = cursor + rank++;
+          if (item[i] < n_items) {
+            job.start(item[i], l[i]);
+            live[i] = true;
+            len[i] = 0;
+            if (stats) ++stats[0];
+          }
+        }
+        cursor = cursor + n_idle < n_items ? cursor + n_idle : n_items;
+      }
+      int n_live = 0;
+      for (int i = 0; i < kLanes; ++i) n_live += live[i];
+      if (n_live == 0) break;
+      if (stats) {
+        ++stats[3];
+        stats[1] += n_live;
+      }
+      for (int i = 0; i < kLanes; ++i) {
+        if (!live[i]) continue;
+        unsigned tested = 0;
+        const int end = job.step(l[i], stats ? &tested : nullptr);
+        if (stats) stats[4] += tested;
+        ++len[i];
+        if (stats) stats[2] += end != kMissed;
+        if (end != kGoesOn) {
+          job.finish(l[i]);
+          live[i] = false;
+          if (lens) lens[job.path(l[i])] = len[i];
+        }
+      }
+    }
   }
 }
+#endif
 
 }  // namespace ptre

@@ -18,11 +18,11 @@
 // (lo.xyz hi.xyz pad); the per-ray culls read the boxes dilated by
 // wavefront.CULL_PAD_REL (prepare_scene's cull_boxes and super_boxes).
 //
-// The winner's attributes follow the wave kernel, not trace_path: the
+// The winner's attributes follow the wave kernel, not path_bounce: the
 // interpolated normal is normalised and then flipped by the geometric normal
 // (wavefront.py:404-417), and the sphere normal (p - c) * (1/r) is not
-// renormalised (:429-438). trace_path flips first and normalises the merged
-// normal afterwards (trace.cuh:338-355), which differs by ~1e-6.
+// renormalised (:429-438). path_bounce flips first and normalises the
+// merged normal afterwards (trace.cuh), which differs by ~1e-6.
 #pragma once
 
 #include "trace.cuh"
@@ -100,34 +100,8 @@ PTRE_HD void store_ray(float* state, int64_t col, int64_t r_pad,
   state[9 * r_pad + col] = r.act;
 }
 
-// Direction reciprocal clamped away from 0 at +-1e-12 (wavefront.py:138-141).
-PTRE_HD float slab_inv(float c) {
-  return 1.0f / (fabsf(c) < 1e-12f ? (c >= 0.0f ? 1e-12f : -1e-12f) : c);
-}
-
-// Entry and exit parameters of one ray through one box (lo.xyz hi.xyz). No
-// a*b+c appears, so FMA contraction cannot change a verdict.
-PTRE_HD void slab_interval(const float* box, const float o[3],
-                           const float iv[3], float* t_near, float* t_far) {
-  float tn = -kBig, tf = kBig;
-  for (int k = 0; k < 3; ++k) {
-    const float lo = box[k], hi = box[3 + k];
-    const float tnk = ((iv[k] >= 0.0f ? lo : hi) - o[k]) * iv[k];
-    const float tfk = ((iv[k] >= 0.0f ? hi : lo) - o[k]) * iv[k];
-    tn = k == 0 ? tnk : fmaxf(tn, tnk);
-    tf = k == 0 ? tfk : fminf(tf, tfk);
-  }
-  *t_near = tn;
-  *t_far = tf;
-}
-
-// Slab test of one ray against one leaf box (wavefront.py:144-152).
-PTRE_HD bool slab_pass(const float* box, const float o[3], const float iv[3],
-                       float t_min) {
-  float tn, tf;
-  slab_interval(box, o, iv, &tn, &tf);
-  return tn <= tf && tf >= t_min;
-}
+// slab_inv, slab_interval and slab_pass: trace.cuh (the dense kernels'
+// group boxes use them too).
 
 // The union box (lo.xyz hi.xyz) of supertile s of `boxes`: its leaves s *
 // kSuper .. below n_leaf (at least one), taken with fminf / fmaxf, so it is

@@ -131,11 +131,12 @@ def load_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(lib_path)
     ptr = ctypes.c_void_p
     lib.ptre_render_sample.restype = ctypes.c_int
-    # (params, accum, urand, tris, sphs, mats, sky, stream)
-    lib.ptre_render_sample.argtypes = [ptr] * 8
+    # (params, accum, urand, tris, sphs, mats, sky, stats, lens, stream)
+    lib.ptre_render_sample.argtypes = [ptr] * 10
     lib.ptre_trace_record.restype = ctypes.c_int
-    # (params, o, d, urand, tris, sphs, mats, sky, color, sel, stream)
-    lib.ptre_trace_record.argtypes = [ptr] * 11
+    # (params, o, d, urand, tris, sphs, mats, sky, color, sel, stats, lens,
+    #  stream)
+    lib.ptre_trace_record.argtypes = [ptr] * 13
     lib.ptre_fused_bwd_blocks.restype = ctypes.c_int
     # (n_rays, global_table, max_depth, n_rows)
     lib.ptre_fused_bwd_blocks.argtypes = [ctypes.c_int] * 4

@@ -10,7 +10,7 @@ Port of `ptre_tpu/ops/pallas/megakernel.py`:
   * `trace_block` + `scatter_shade` — the plain PyTorch version of
     `_trace_block` (`megakernel.py:811`) and `_scatter_shade`
     (`megakernel.py:611`), vectorised over rays and looping over
-    primitives. Their CUDA twins are `trace_path` / `scatter_shade` in
+    primitives. Their CUDA twins are `path_bounce` / `scatter_shade` in
     `csrc/trace.cuh`; the three are written in the same operation order so
     that they agree to float rounding;
   * `trace_fused_sel` — the recording forward of the gradient path
@@ -470,6 +470,11 @@ def trace_block(o, d, scene: PackedScene, consts: TraceConsts, get_uniforms,
 
 #: kernel launches made by `trace_fused_sel` in this process
 record_launches = 0
+#: the counters a launch of the render or recording kernel adds to
+#: ``stats`` (trace.cuh kStats): paths started, live ray-bounces (sweeps),
+#: hits, warp-bounces issued, and the triangle rows tested (those of the row
+#: groups whose box the ray passes)
+DENSE_STATS = ("paths_started", "live_bounces", "hits", "warp_bounces", "rows_tested")
 #: bounces the CUDA kernels keep per-thread state for (`kMaxDepth`, trace.cuh)
 MAX_DEPTH = 8
 
@@ -558,6 +563,16 @@ def check_rays(o, d, max_depth: int, urand=None, extra=()):
                             f"got {max_depth}")
 
 
+def check_stats(stats, lens, lens_shape):
+    """The `check_tensors` entries of a dense kernel's ``stats`` ((5,)
+    int64) and ``lens`` (``lens_shape`` int32, given only with ``stats``),
+    each or none."""
+    if lens is not None and stats is None:
+        raise RendererError("lens is written by the counting instantiation: give stats too")
+    return ([] if stats is None else [("stats", stats, (len(DENSE_STATS),), torch.int64)]) + (
+        [] if lens is None else [("lens", lens, lens_shape, torch.int32)])
+
+
 def check_scene(scene: PackedScene, ref: str, device):
     """Raise unless the packed scene lies on ``device`` (that of ``ref``) and
     is dense-class."""
@@ -575,7 +590,7 @@ def check_scene(scene: PackedScene, ref: str, device):
 
 def trace_fused_sel(o, d, scene: PackedScene, consts: TraceConsts,
                     max_depth: int, seed: int = 0, sample: int = 0,
-                    urand=None):
+                    urand=None, stats=None, lens=None):
     """Trace one sample per ray and record per-bounce selections: the
     forward half of the gradient path (`megakernel.trace_fused_sel` with
     ``planar="color"``). Returns (color (R, 3) float32 unclamped,
@@ -584,7 +599,10 @@ def trace_fused_sel(o, d, scene: PackedScene, consts: TraceConsts,
     CUDA tensors launch `csrc/record_kernel.cu` (counted in
     ``record_launches``); CPU tensors run `trace_record_reference`; anything
     else raises. Uniforms: ``urand`` (2 + 2*max_depth, R), or Philox draws
-    keyed by (seed, ray, sample, draw) when None.
+    keyed by (seed, ray, sample, draw) when None. ``stats`` (5,) int64 on
+    the card, or None, receives the counters named in DENSE_STATS (the
+    kernel's counting instantiation); ``lens`` (R,) int32, or None, each
+    ray's path length in bounces (given only with ``stats``).
 
     The reference's dead-ray rows differ by design: its kernel writes tri,
     sph and use_sph for every lane of a live block and masks only the hit
@@ -597,7 +615,7 @@ def trace_fused_sel(o, d, scene: PackedScene, consts: TraceConsts,
                                       sample, urand)
     if o.device.type != "cuda":
         raise RendererError(f"trace_fused_sel runs on cuda or cpu, not {o.device}")
-    check_rays(o, d, max_depth, urand)
+    check_rays(o, d, max_depth, urand, check_stats(stats, lens, (o.shape[0],)))
     check_scene(scene, "o", o.device)
     R = o.shape[0]
     color = torch.empty((R, 3), dtype=torch.float32, device=o.device)
@@ -611,7 +629,8 @@ def trace_fused_sel(o, d, scene: PackedScene, consts: TraceConsts,
             ctypes.addressof(params), o.data_ptr(), d.data_ptr(),
             None if urand is None else urand.data_ptr(), scene.tris.data_ptr(),
             scene.sphs.data_ptr(), scene.mats.data_ptr(), scene.sky.data_ptr(),
-            color.data_ptr(), sel.data_ptr(), stream)
+            color.data_ptr(), sel.data_ptr(), None if stats is None else stats.data_ptr(),
+            None if lens is None else lens.data_ptr(), stream)
     if rc != 0:
         raise RendererError(
             f"record kernel launch failed: {lib.ptre_cuda_error_string(rc).decode()}")

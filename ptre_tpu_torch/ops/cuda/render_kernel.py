@@ -147,9 +147,10 @@ def sample_accum_reference(accum, scene: mk.PackedScene, cam_rows, n: int,
     return col * inv_n + accum * w_old
 
 
-def _check_cuda_inputs(accum, scene, urand, max_depth):
+def _check_cuda_inputs(accum, scene, urand, max_depth, stats, lens):
     H, W = accum.shape[:2]
-    expected = [("accum", accum, (H, W, 3), torch.float32)]
+    expected = [("accum", accum, (H, W, 3), torch.float32)] + mk.check_stats(stats, lens,
+                                                                            (H, W))
     if urand is not None:
         expected.append(("urand", urand, (2 + 2 * max_depth, H, W), torch.float32))
     mk.check_tensors("accum", accum.device, expected)
@@ -157,12 +158,16 @@ def _check_cuda_inputs(accum, scene, urand, max_depth):
 
 
 def sample_accum(accum, scene: mk.PackedScene, cam_rows, n: int, config,
-                 seed: int = 0, urand=None):
+                 seed: int = 0, urand=None, stats=None, lens=None):
     """One progressive sample into ``accum`` (H, W, 3) in place; returns it.
 
     CUDA tensors launch the hand-written kernel; CPU tensors run
     `sample_accum_reference`. ``n`` is this sample's 1-based running-average
     index; ``seed`` keys the in-kernel Philox when ``urand`` is None.
+    ``stats`` (5,) int64 on the card, or None, receives the counters named
+    in `megakernel.DENSE_STATS` (the kernel's counting instantiation);
+    ``lens`` (H, W) int32, or None, each pixel's path length in bounces
+    (given only with ``stats``).
     """
     global launches
     if accum.device.type == "cpu":
@@ -171,7 +176,7 @@ def sample_accum(accum, scene: mk.PackedScene, cam_rows, n: int, config,
         return accum
     if accum.device.type != "cuda":
         raise RendererError(f"sample_accum runs on cuda or cpu, not {accum.device}")
-    _check_cuda_inputs(accum, scene, urand, config.max_depth)
+    _check_cuda_inputs(accum, scene, urand, config.max_depth, stats, lens)
     H, W = accum.shape[:2]
     params = render_params(H, W, scene, cam_rows, n, config, seed,
                            external_rng=urand is not None)
@@ -182,7 +187,9 @@ def sample_accum(accum, scene: mk.PackedScene, cam_rows, n: int, config,
             ctypes.addressof(params), accum.data_ptr(),
             None if urand is None else urand.data_ptr(),
             scene.tris.data_ptr(), scene.sphs.data_ptr(),
-            scene.mats.data_ptr(), scene.sky.data_ptr(), stream)
+            scene.mats.data_ptr(), scene.sky.data_ptr(),
+            None if stats is None else stats.data_ptr(),
+            None if lens is None else lens.data_ptr(), stream)
     if rc != 0:
         raise RendererError(
             f"render kernel launch failed: {lib.ptre_cuda_error_string(rc).decode()}")

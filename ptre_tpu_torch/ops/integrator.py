@@ -16,7 +16,9 @@ differentiable trace (`ptre_tpu/ops/integrator.py`).
   * "staged": `trace_staged`, the per-bounce sweep plus autograd
     (`integrator.py:110-168`), always available: every packet past the
     fused kernels' caps, every packet under ``grad_sweep="staged"``, and
-    every packet past the dense class under ``grad_sweep="replay"``.
+    every packet past the dense class under ``grad_sweep="replay"``, and
+    every trace deeper than the kernels' ``megakernel.MAX_DEPTH`` (8)
+    bounces under any ``grad_sweep``.
 
 The staged route's sweep is the sweep kernel (`ops/cuda/sweep_kernel.py`)
 on CUDA tensors and its plain version on CPU tensors
@@ -58,13 +60,17 @@ def postprocess_sample(color, clamp: bool = True):
 
 def grad_route(config, packet) -> str:
     """"fused", "replay" or "staged" for a differentiable trace of
-    ``packet`` (`integrator.py:49-79`), from the packet's counts alone."""
+    ``packet`` (`integrator.py:49-79`), from the config and the packet's
+    counts alone, on any device. The fused and replay kernels keep state for
+    at most `megakernel.MAX_DEPTH` bounces: deeper traces take "staged", as
+    the reference's ``fits(packet, max_depth)`` gate sends a packet whose
+    backward does not fit (`fused_grad.py:69-83`)."""
     mode = config.grad_sweep
+    if mode == "staged" or config.max_depth > mk.MAX_DEPTH:
+        return "staged"
     if mode == "replay":
         return "replay" if mk.dense_supported(packet) else "staged"
-    if mode == "staged" or not fused_grad.supported(packet):
-        return "staged"
-    return "fused"
+    return "fused" if fused_grad.supported(packet) else "staged"
 
 
 def check_staged_sweep(config, device) -> None:

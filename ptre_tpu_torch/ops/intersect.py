@@ -22,7 +22,7 @@ The sweep's dot and cross products are written out in the kernel's order
 the exact plain version of the sweep kernel (`ops/cuda/sweep_kernel.py`,
 `csrc/sweep.cuh`, built without FMA contraction). The same quirks exist in
 the dense bounce loops (`ops/cuda/megakernel.trace_block`,
-`csrc/trace.cuh` ``trace_path``); `tests/test_torch_intersect.py` holds
+`csrc/trace.cuh` ``path_bounce``); `tests/test_torch_intersect.py` holds
 them to one another. Its (R, T) temporaries make `sweep` an O(R·T)-memory
 function: callers on the card run it over chunks of rays.
 

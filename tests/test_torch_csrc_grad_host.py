@@ -65,7 +65,7 @@ def lib(tmp_path_factory):
         fn.restype = None
         fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 22
     lib.ptre_trace_record_host.restype = None
-    lib.ptre_trace_record_host.argtypes = [ctypes.c_void_p] * 10
+    lib.ptre_trace_record_host.argtypes = [ctypes.c_void_p] * 12
     lib.ptre_fused_bwd_host.restype = None
     lib.ptre_fused_bwd_host.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int]
     lib.ptre_grouped_rows_host.restype = None
@@ -238,7 +238,7 @@ def test_host_recorder_equals_plain_trace_block(lib, external):
         ctypes.addressof(params), o.data_ptr(), d.data_ptr(),
         None if urand is None else urand.data_ptr(), scene.tris.data_ptr(),
         scene.sphs.data_ptr(), scene.mats.data_ptr(), scene.sky.data_ptr(),
-        color.data_ptr(), sel.data_ptr())
+        color.data_ptr(), sel.data_ptr(), None, None)
     np.testing.assert_array_equal(sel.numpy(), want_s.numpy())
     np.testing.assert_allclose(color.numpy(), want_c.numpy(), rtol=1e-5, atol=1e-5)
     assert (want_s >= scene.tri_rows).any() and ((want_s >= 0) & (want_s < 12)).any()

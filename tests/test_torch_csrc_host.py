@@ -57,7 +57,7 @@ def _build_host(tmp_path_factory, source):
 def host_lib(tmp_path_factory):
     lib = _build_host(tmp_path_factory, "host_render.cpp")
     lib.ptre_render_sample_host.restype = None
-    lib.ptre_render_sample_host.argtypes = [ctypes.c_void_p] * 7
+    lib.ptre_render_sample_host.argtypes = [ctypes.c_void_p] * 9
     return lib
 
 
@@ -68,7 +68,7 @@ def _host_sample(lib, prev, scene, rows, n, cfg, seed, urand):
     lib.ptre_render_sample_host(
         ctypes.addressof(params), out.data_ptr(),
         None if urand is None else urand.data_ptr(), scene.tris.data_ptr(),
-        scene.sphs.data_ptr(), scene.mats.data_ptr(), scene.sky.data_ptr())
+        scene.sphs.data_ptr(), scene.mats.data_ptr(), scene.sky.data_ptr(), None, None)
     return out
 
 

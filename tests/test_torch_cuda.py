@@ -817,3 +817,119 @@ def test_staged_render_and_training_go_through_the_sweep_kernel(cuda):
     with pytest.raises(ConfigError, match="xla"):
         pt.render_step(pkt, cam, acc, 5, RenderConfig(width=W, height=H,
                                                       intersect_backend="xla"))
+
+
+# ---- the render and recording kernels against their first designs --------------
+
+
+@pytest.fixture(scope="module")
+def first_dense():
+    """The first designs of the render and recording kernels (csrc/baseline/),
+    built by chip_smoke.py's `start_baseline_build` and called through their own
+    C interfaces: (sample_accum-like, trace_fused_sel-like)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    import chip_smoke
+
+    libs = {u: chip_smoke.finish_unit_build(chip_smoke.start_baseline_build(u))
+            for u in ("render_kernel.cu", "record_kernel.cu")}
+    return (chip_smoke.baseline_render(libs["render_kernel.cu"], rk),
+            chip_smoke.baseline_record(libs["record_kernel.cu"], mk))
+
+
+@pytest.mark.parametrize("W,H", [(256, 128), (100, 37)])
+@pytest.mark.parametrize("max_depth", [1, 5, 8])
+@pytest.mark.parametrize("external", [True, False])
+def test_render_kernel_equals_first_design(cuda, first_dense, W, H, max_depth, external):
+    """The lane-refilling kernel's image equals the first design's pixel for
+    pixel, but where FMA contraction, placed otherwise by nvcc, flips a path
+    (at most 1e-5 of the pixels, rounded up); its counting instantiation
+    starts every pixel's path once, writes path lengths that sum to its live
+    ray-bounces, and issues no more warp-bounces than the first design did
+    for the same paths."""
+    import chip_smoke
+
+    cfg, packed, rows, prev = _setup(cuda, W, H, max_depth)
+    urand = (torch.rand((2 + 2 * max_depth, H, W), device=cuda,
+                        generator=torch.Generator(cuda).manual_seed(2)) if external else None)
+    got = rk.sample_accum(prev.clone(), packed, rows, 3, cfg, 21, urand)
+    first = first_dense[0](prev.clone(), packed, rows, 3, cfg, 21, urand)
+    stats = torch.zeros(len(mk.DENSE_STATS), dtype=torch.int64, device=cuda)
+    lens = torch.zeros((H, W), dtype=torch.int32, device=cuda)
+    counted = rk.sample_accum(prev.clone(), packed, rows, 3, cfg, 21, urand, stats=stats,
+                              lens=lens)
+    torch.cuda.synchronize()
+    allowed = math.ceil(1e-5 * W * H)
+    assert int((got != first).any(dim=-1).sum()) <= allowed
+    assert int((counted != got).any(dim=-1).sum()) <= allowed
+    started, live, hits, issued, tested = stats.tolist()
+    assert started == W * H and W * H <= live <= W * H * max_depth and hits <= live
+    assert tested <= live * packed.n_tri
+    assert int(lens.sum()) == live and 1 <= int(lens.min()) <= int(lens.max()) <= max_depth
+    assert live <= 32 * issued <= 32 * chip_smoke.first_design_warp_bounces(lens)
+
+
+@pytest.mark.parametrize("max_depth", [1, 5, 8])
+@pytest.mark.parametrize("external", [True, False])
+def test_record_kernel_equals_first_design(cuda, first_dense, max_depth, external):
+    """Selections row for row and colours equal the first design's, but for
+    rays that FMA contraction, placed otherwise by nvcc, flips (at most 1e-5
+    of the rays, rounded up); the counting instantiation's paths, hits and
+    live ray-bounces are those the selections imply, as are its path
+    lengths."""
+    cfg, pkt, _, _, o, d, scene, k = _grad_setup(cuda, W=200, H=111)
+    R = o.shape[0]
+    urand = torch.rand((2 + 2 * max_depth, R), device=cuda) if external else None
+    color, sel = mk.trace_fused_sel(o, d, scene, k, max_depth, 9, 1, urand)
+    fc, fs = first_dense[1](o, d, scene, k, max_depth, 9, 1, urand)
+    stats = torch.zeros(len(mk.DENSE_STATS), dtype=torch.int64, device=cuda)
+    lens = torch.zeros(R, dtype=torch.int32, device=cuda)
+    mk.trace_fused_sel(o, d, scene, k, max_depth, 9, 1, urand, stats=stats, lens=lens)
+    torch.cuda.synchronize()
+    allowed = math.ceil(1e-5 * R)
+    assert int(((sel != fs).any(dim=0) | (color != fc).any(dim=1)).sum()) <= allowed
+    table, T, _ = path_replay.build_table(pkt)
+    emissive = (table[:, 22] > 0.5)[sel.clamp(min=0).long()]
+    on = (sel >= 0) & ~emissive
+    length = 1 + on[:max_depth - 1].sum(dim=0)
+    sweeps, hits = int(length.sum()), int((sel >= 0).sum())
+    started, live, n_hits, issued, _ = stats.tolist()
+    assert started == R and int(lens.sum()) == live
+    assert abs(live - sweeps) <= max_depth * allowed and abs(n_hits - hits) <= max_depth * allowed
+    assert int((lens != length).sum()) <= allowed
+    assert live <= 32 * issued
+
+
+def test_mse_step_past_max_depth_runs_staged_through_the_sweep_kernel(cuda):
+    """max_depth 9, one past the fused kernels' saved state: the staged route
+    on the card (max_depth sweep launches, no record or backward launch),
+    its loss and gradients within chip_smoke.py's STAGED_REL (2e-3 relative
+    L2 by leaf) of the same step on the CPU (the sweep kernel is built
+    without FMA contraction; the rest is PyTorch on either device)."""
+    from ptre_tpu_torch.ops import integrator
+    from ptre_tpu_torch.ops.cuda import sweep_kernel as sk
+
+    W, H = 64, 32
+    cfg = RenderConfig(width=W, height=H, max_depth=mk.MAX_DEPTH + 1)
+    pkt_cpu = demo.reference_demo_scene(8, 4).build_packet(device="cpu")
+    pkt = pkt_cpu.to(cuda)
+    cam = cam_ops.Camera.create(width=W, height=H)
+    assert integrator.grad_route(cfg, pkt) == integrator.grad_route(cfg, pkt_cpu) == "staged"
+    target = torch.from_numpy(np.random.default_rng(6).uniform(0, 0.5, (W * H, 3))
+                              .astype(np.float32))
+    before = (sk.launches, mk.record_launches, fg.launches)
+    loss, grads = train.mse_step(sh.differentiable_params(pkt, cam), pkt, cam, target.to(cuda),
+                                 cfg, seed=5, spp=2)
+    torch.cuda.synchronize()
+    assert (sk.launches - before[0], mk.record_launches - before[1],
+            fg.launches - before[2]) == (2 * cfg.max_depth, 0, 0)
+    want_loss, want = train.mse_step(sh.differentiable_params(pkt_cpu, cam), pkt_cpu, cam,
+                                     target, cfg, seed=5, spp=2)
+    assert abs(float(loss) - float(want_loss)) <= 2e-3 * abs(float(want_loss))
+    for key, g in want.items():
+        got = grads[key].cpu()
+        assert bool(torch.isfinite(got).all()), key
+        if float(g.norm()) > 0:
+            assert float((got - g).norm() / g.norm()) <= 2e-3, key
+        else:
+            assert float(got.abs().max()) <= 1e-6, key
