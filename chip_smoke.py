@@ -47,10 +47,14 @@ source, all at once), then:
   12-14. the rasterizer on the demo scene with spheres as triangles (1,932
        triangles) at 1280x720, supersample 2 (2560x1440 samples): holds the
        hard kernel, the SoftRas forward and the SoftRas backward kernels
-       against their plain versions, and the soft kernels' row gate by
-       their counting instantiations (pairs evaluated beside those an
-       ungated sweep takes and those in the rows' dilated boxes; pairs
-       above the coverage threshold equal to the plain version's), then
+       against their plain versions, the hard kernel also sample for sample
+       against its first design (``csrc/baseline/raster_mega/``) there and
+       on a ragged and a strided window, timed in turns with it, and the
+       row gates by their counting instantiations (the hard kernel's pairs
+       evaluated between those in the rows' boxes and in their gate boxes;
+       the soft kernels' beside those an ungated sweep takes and those in
+       the rows' dilated boxes, pairs above the coverage threshold equal to
+       the plain version's), then
        drives ``rasterize`` (1 + 8 frames), ``rasterize_frames`` (K = 4),
        ``rasterize(soft=True)`` and ``train.raster_mse_step`` (1 + 8 steps),
        checking that every frame or step went through the kernels; a ragged
@@ -60,10 +64,14 @@ source, all at once), then:
        device;
   15-17. triangle-scale training's kernels on BASELINE config 4 at 1920x1080
        and config 3 at 512x512: holds the culled megakernel against its
-       plain version (external uniforms and in-kernel Philox), culling on
-       against culling off and against the wavefront's kernels on the same
-       rays and draws; the wavefront's record mode against record=False
-       (bit-equal colour), its plain version and the megakernel's
+       plain version (external uniforms and in-kernel Philox), against its
+       first design (``csrc/baseline/raster_mega/``) bit for bit, recording
+       and not, culling on against culling off and against the wavefront's
+       kernels on the same rays and draws, with its counting
+       instantiation's warp visits beside the (ray, leaf) pairs the rays
+       pass, timed in turns with the first design; the wavefront's record
+       mode against record=False (bit-equal colour), its plain version and
+       the megakernel's
        selections, the recording bounce kernel beside the non-recording
        one; the backward kernel's global-table instantiation against its
        plain version on config 4's recorded selections, and bit for bit in
@@ -373,6 +381,7 @@ def main():
     from ptre_tpu_torch.utils.device import require_cuda
 
     # ---- 1. environment ------------------------------------------------------
+    t_run = time.perf_counter()
     dev = require_cuda()
     card = sh(["nvidia-smi", "--query-gpu=name,power.limit",
                "--format=csv,noheader"])
@@ -381,10 +390,14 @@ def main():
           f"torch.version.cuda {torch.version.cuda}", flush=True)
     print(sh([build.find_nvcc(), "--version"]).splitlines()[-1], flush=True)
     # the first designs of the render, recording, fused backward and mask
-    # kernels (csrc/baseline/): phases 2-7, 9 and 17 hold the shipped kernels
-    # to them and time both in turns, compiled beside the library
+    # kernels (csrc/baseline/) and of the hard raster kernel and the culled
+    # megakernel (csrc/baseline/raster_mega/, against their own frozen
+    # headers): phases 2-7, 9, 12, 15 and 17 hold the shipped kernels to them
+    # and time both in turns, compiled beside the library
     first = {u: start_baseline_build(u) for u in (
         "render_kernel.cu", "record_kernel.cu", "fused_grad_kernel.cu", "mask_kernel.cu")}
+    first.update({u: start_baseline_build(u, "raster_mega")
+                  for u in ("raster_kernel.cu", "mega_kernel.cu")})
     t0 = time.perf_counter()
     build.load_library()
     build_s = time.perf_counter() - t0
@@ -607,13 +620,18 @@ def main():
 
     kernels += wavefront_phases(dev, card, rs,
                                 baseline_wave_mask(first["mask_kernel.cu"], wavefront, mk))
-    kernels += raster_phases(dev, card, rs)
+    from ptre_tpu_torch.ops.cuda import raster_kernel as rast
+
+    kernels += raster_phases(dev, card, rs, baseline_raster_hard(first["raster_kernel.cu"], rast))
     kernels += triangle_training_phases(dev, card, rs, fma_bwd, first_bwd,
+                                        baseline_trace_culled(first["mega_kernel.cu"], mk),
                                         dense_bwd_ms=grad_kernels[1]["ms"])
     kernels.append(staged_phases(dev, card, rs, build.last_build and build.last_build[1]))
     kernels += replay_phases(dev, card, rs, fma_bwd)
 
     # ---- result --------------------------------------------------------------------
+    print(f"chip_smoke.py: every phase passed in {time.perf_counter() - t_run:.1f} s, the "
+          f"kernels' builds included [{card}]", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -1409,6 +1427,9 @@ def wavefront_phases(dev, card, rs, first_mask):
 
 
 # Triangle-scale training (phases 15-18). The culled megakernel against its
+# first design (block votes, csrc/baseline/raster_mega/): colours and
+# selections EQUAL, both built with the same flags (the per-warp cull is
+# conservative, so every ray's winners are the same). Against its
 # plain version: as the record kernel (phase 6), per ray over the whole
 # trace: >= TIGHT_FRAC of the rays' colours within TIGHT (relative above 1),
 # a flipped ray (colour beyond 5 %, or another selection at some bounce) on at
@@ -1418,17 +1439,19 @@ def wavefront_phases(dev, card, rs, first_mask):
 # hit on the edge of a box, on at most FLIP_FRAC of the rays. The recording
 # bounce kernel's state must equal the non-recording one's bit for bit.
 TRAIN_SEED = 0x7EA1
+COUNT_REL = 1e-3  # the culled megakernel's counters against the plain version's
 SPP_TWO_PASS = 64  # bench.py --mixed-scene's 64-spp two-pass step
 OPS_MISS = 10  # a miss: the sky gradient
 
 
-def triangle_training_phases(dev, card, rs, fma_bwd, first_bwd, dense_bwd_ms):
+def triangle_training_phases(dev, card, rs, fma_bwd, first_bwd, first_culled, dense_bwd_ms):
     """Phases 15-18: the culled megakernel, the wavefront's record mode and
     the global-table backward against their plain versions on BASELINE
-    configs 4 and 3 (the backward also against its first design,
-    ``first_bwd``, bit for bit and in turns), then the triangle-scale
-    training path. Returns the four kernels' entries of the ``kernels``
-    line (the culled megakernel's two instantiations)."""
+    configs 4 and 3 (the megakernel and the backward also against their
+    first designs, ``first_culled`` and ``first_bwd``, bit for bit and in
+    turns), then the triangle-scale training path. Returns the four kernels'
+    entries of the ``kernels`` line (the culled megakernel's two
+    instantiations)."""
     import numpy as np
     import torch
 
@@ -1488,6 +1511,19 @@ def triangle_training_phases(dev, card, rs, fma_bwd, first_bwd, dense_bwd_ms):
             check(bool(((sel >= -1) & (sel < n_rows)).all()), f"culled {name} {mode}: bad rows")
             check(torch.equal(mk.trace_culled(o, d, scene, k, B, TRAIN_SEED, 0, ur), color),
                   f"culled {name} {mode}: recording changed the colour")
+            # the first design (block votes) on the same rays and draws: equal
+            fc, fs = first_culled(o, d, scene, k, B, TRAIN_SEED, 0, ur, record=True)
+            fc_n = first_culled(o, d, scene, k, B, TRAIN_SEED, 0, ur)
+            torch.cuda.synchronize()
+            n_first = int(((fc != color).any(dim=1) | (fs != sel).any(dim=0)).sum())
+            print(f"  {mode}: {n_first} rays whose colour or selections differ from the first "
+                  f"design's (recording); not recording, colour equal: "
+                  f"{torch.equal(fc_n, color)}", flush=True)
+            check(n_first == 0, f"culled {name} {mode}: {n_first} rays differ from the first "
+                  "design's")
+            check(torch.equal(fc_n, color), f"culled {name} {mode}: the non-recording colour "
+                  "differs from the first design's")
+            del fc, fs, fc_n
             kept[mode] = (color, sel, ur)
             del want_c, want_s, diff
         # culling on vs off vs the wavefront's kernels, same rays and draws
@@ -1506,9 +1542,43 @@ def triangle_training_phases(dev, card, rs, fma_bwd, first_bwd, dense_bwd_ms):
             if ur is None:
                 rec[name] = (wc, ws)
             del bc, bs
-        m_ms = cuda_events(lambda: mk.trace_culled(o, d, scene, k, B, TRAIN_SEED, 0), 5)
-        m_rec_ms = cuda_events(lambda: mk.trace_culled(o, d, scene, k, B, TRAIN_SEED, 0,
-                                                       record=True), 5)
+        # the counting instantiation: the same colour; the warps' visits
+        # against the pairs the rays pass themselves and the blocks' votes
+        c_stats = torch.zeros(len(mk.CULLED_STATS), dtype=torch.int64, device=dev)
+        counted = mk.trace_culled(o, d, scene, k, B, TRAIN_SEED, 0, stats=c_stats)
+        c_stats = dict(zip(mk.CULLED_STATS, c_stats.tolist()))
+        check(torch.equal(counted, kept["philox"][0]),
+              f"culled {name}: the counting instantiation's colour differs")
+        # the unit contracts a*b+c in the row tests, so a closest hit may sit
+        # an ulp from the plain version's and a box test bounded by it go the
+        # other way: live ray-bounces and pairs passed within COUNT_REL of the
+        # plain version's; the warps visit at least the pairs passed and at
+        # most what the first design's blocks swept (nearly, by COUNT_REL)
+        near = lambda a, b: abs(a - b) <= COUNT_REL * b  # noqa: E731
+        check(near(c_stats["ray_bounces"], stats["ray_bounces"])
+              and near(c_stats["own_pairs"], stats["own_pairs"])
+              and c_stats["own_pairs"] <= c_stats["warp_slots"]
+              <= (1 + COUNT_REL) * stats["swept_pairs"],
+              f"culled {name}: counters {c_stats} against the plain version's {stats}")
+        print(f"  philox sample, the kernel's counters: {c_stats['ray_bounces']} live "
+              f"ray-bounces, {c_stats['super_tests']} supertile and {c_stats['leaf_tests']} leaf "
+              f"box tests; (ray, leaf) pairs {c_stats['own_pairs']} passed by the ray itself, "
+              f"{c_stats['warp_slots']} (live lane, leaf) slots of the warps' visits "
+              f"({c_stats['warp_slots'] / max(c_stats['own_pairs'], 1):.2f}x), the first "
+              f"design's blocks {stats['swept_pairs']} "
+              f"({stats['swept_pairs'] / max(c_stats['own_pairs'], 1):.2f}x)", flush=True)
+        del counted
+        turns = in_turns({
+            "shipped": lambda: mk.trace_culled(o, d, scene, k, B, TRAIN_SEED, 0, record=True),
+            "first design": lambda: first_culled(o, d, scene, k, B, TRAIN_SEED, 0, record=True),
+        }, 5)
+        turns_n = in_turns({
+            "shipped": lambda: mk.trace_culled(o, d, scene, k, B, TRAIN_SEED, 0),
+            "first design": lambda: first_culled(o, d, scene, k, B, TRAIN_SEED, 0)}, 5)
+        m_rec_ms, m_ms = turns["shipped"], turns_n["shipped"]
+        print(f"  in turns (CUDA events, {name} {W}x{H}): recording {m_rec_ms:.4f} ms, the first "
+              f"design {turns['first design']:.4f} ms; not recording {m_ms:.4f} ms, the first "
+              f"design {turns_n['first design']:.4f} ms [{card}]", flush=True)
         m_brute_ms = cuda_events(lambda: mk.trace_culled(o, d, scene, k, B, TRAIN_SEED, 0,
                                                          cull=False), 1)
         m_plain_ms = cuda_events(lambda: mk.trace_culled_reference(o, d, scene, k, B,
@@ -1537,9 +1607,10 @@ def triangle_training_phases(dev, card, rs, fma_bwd, first_bwd, dense_bwd_ms):
         # as its own leaf pairs' supertiles, at least one box a pair), 64 rows
         # per own pair, the spheres, and shades or takes the sky
         mega[name] = (m_rec_ms, m_ms, m_plain_ms, R * (24 + 12 + 4 * B), (
-            stats["ray_bounces"] * (scene.super_boxes.shape[0] * OPS_SLAB
-                                    + scene.n_sph * OPS_SPH_TEST + OPS_MISS)
-            + stats["own_pairs"] * (OPS_SLAB + wf.LEAF * OPS_TRI_TEST) + hits * OPS_SHADE))
+            c_stats["ray_bounces"] * (scene.super_boxes.shape[0] * OPS_SLAB
+                                      + scene.n_sph * OPS_SPH_TEST + OPS_MISS)
+            + c_stats["own_pairs"] * (OPS_SLAB + wf.LEAF * OPS_TRI_TEST) + hits * OPS_SHADE),
+            turns["first design"], turns_n["first design"])
         setups[name] = (pkt, cam, cfg, scene, k, o, d)
         del kept, urand
 
@@ -1831,7 +1902,7 @@ def triangle_training_phases(dev, card, rs, fma_bwd, first_bwd, dense_bwd_ms):
           f"{path_launches[3]}", flush=True)
     check(all(n > 0 for n in path_launches), f"a kernel never ran: {path_launches}")
 
-    m_ms, m_norec_ms, m_plain_ms, m_bytes, m_ops = mega["config 4"]
+    m_ms, m_norec_ms, m_plain_ms, m_bytes, m_ops, m_first_ms, m_first_norec_ms = mega["config 4"]
     return [with_bound({
         "name": "trace_culled",
         "route": "cuda",
@@ -1841,6 +1912,7 @@ def triangle_training_phases(dev, card, rs, fma_bwd, first_bwd, dense_bwd_ms):
         "max_abs_err": mega_err,
         "ms": m_ms,
         "plain_ms": m_plain_ms,
+        "first_design_ms": m_first_ms,
     }, m_bytes, m_ops), with_bound({
         # the instantiation that records no selection (mega_kernel<false>):
         # bit-equal colour; no route launches it (the forced training step
@@ -1853,6 +1925,7 @@ def triangle_training_phases(dev, card, rs, fma_bwd, first_bwd, dense_bwd_ms):
         "max_abs_err": mega_err,
         "ms": m_norec_ms,
         "plain_ms": m_plain_ms,
+        "first_design_ms": m_first_norec_ms,
     }, m_bytes - R * 4 * B, m_ops), with_bound({
         "name": "wave_bounce_record",
         "route": "cuda",
@@ -1922,14 +1995,14 @@ def start_unit_build(unit, tag, flags=(), src_dir=None):
     return proc, path
 
 
-def start_baseline_build(unit):
+def start_baseline_build(unit, subdir=""):
     """`start_unit_build` of the yardstick copy of ``unit`` (the kernel's
-    first design, ``csrc/baseline/``, against the frozen headers there) with
-    the shipped unit's flags."""
+    first design, ``csrc/baseline/`` or its ``subdir``, against the frozen
+    headers there) with the shipped unit's flags."""
     from ptre_tpu_torch.ops.cuda import build
 
     return start_unit_build(unit, "baseline", build.UNIT_FLAGS.get(unit, ()),
-                            os.path.join(build.CSRC_DIR, "baseline"))
+                            os.path.join(build.CSRC_DIR, "baseline", subdir))
 
 
 def finish_unit_build(unit_build, report=None):
@@ -2092,6 +2165,62 @@ def baseline_record(lib, mk):
             color.data_ptr(), sel.data_ptr(), torch.cuda.current_stream(o.device).cuda_stream)
         check(rc == 0, f"baseline record launch failed ({rc})")
         return color, sel
+
+    return fn
+
+
+def baseline_raster_hard(lib, rast):
+    """The hard raster kernel's first design (``csrc/baseline/raster_mega/
+    raster_kernel.cu``) through its own C interface, as a function of
+    `raster_tiles`' arguments; it counts nothing."""
+    import ctypes
+
+    import torch
+
+    lib.ptre_raster_hard.restype = ctypes.c_int
+    lib.ptre_raster_hard.argtypes = [ctypes.c_void_p] * 5
+
+    def fn(tris, cbox, scal, rows_ss, width_ss, ss):
+        out = torch.empty((3, rows_ss, width_ss), dtype=torch.float32, device=tris.device)
+        p = rast.raster_params(scal, rows_ss, width_ss, ss, cbox.shape[0])
+        stream = torch.cuda.current_stream(tris.device).cuda_stream
+        rc = lib.ptre_raster_hard(ctypes.addressof(p), tris.data_ptr(), cbox.data_ptr(),
+                                  out.data_ptr(), stream)
+        check(rc == 0, f"baseline raster launch failed ({rc})")
+        return out
+
+    return fn
+
+
+def baseline_trace_culled(lib, mk):
+    """The culled megakernel's first design (``csrc/baseline/raster_mega/
+    mega_kernel.cu``) through its own C interface, as a function of
+    `trace_culled`'s arguments; it counts nothing."""
+    import ctypes
+
+    import torch
+
+    lib.ptre_trace_culled.restype = ctypes.c_int
+    lib.ptre_trace_culled.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int, ctypes.c_void_p]
+
+    def fn(o, d, scene, consts, max_depth, seed=0, sample=0, urand=None, cull=True,
+           record=False, lanes=mk.CULLED_LANES):
+        R = o.shape[0]
+        color = torch.empty((R, 3), dtype=torch.float32, device=o.device)
+        sel = torch.empty((max_depth, R), dtype=torch.int32, device=o.device) if record else None
+        p = mk.MegaParams(
+            w=mk.wave_params(consts, seed, sample, scene, n_rays=R, n_sel=R,
+                             external_rng=int(urand is not None)),
+            max_depth=max_depth, n_super=scene.super_boxes.shape[0], cull=int(cull))
+        rc = lib.ptre_trace_culled(
+            ctypes.addressof(p), o.data_ptr(), d.data_ptr(),
+            None if urand is None else urand.data_ptr(), scene.tris.data_ptr(),
+            scene.rows.data_ptr(), scene.cull_boxes.data_ptr(), scene.super_boxes.data_ptr(),
+            scene.sphs.data_ptr(), scene.mats.data_ptr(), scene.sky.data_ptr(),
+            color.data_ptr(), None if sel is None else sel.data_ptr(), lanes,
+            torch.cuda.current_stream(o.device).cuda_stream)
+        check(rc == 0, f"baseline culled megakernel launch failed ({rc})")
+        return (color, sel) if record else color
 
     return fn
 
@@ -2876,11 +3005,12 @@ def read_ppm(path):
     return np.frombuffer(data, np.uint8).reshape(h, w, 3)
 
 
-def raster_phases(dev, card, rs):
+def raster_phases(dev, card, rs, first_hard):
     """Phases 12-14: the hard raster, SoftRas forward and SoftRas backward
-    kernels against their plain versions, then the rasterizer's serving and
-    training main paths at 1280x720 ss 2. Returns the three kernels' entries
-    of the ``kernels`` line."""
+    kernels against their plain versions (the hard kernel also sample for
+    sample against its first design, ``first_hard``, and timed in turns with
+    it), then the rasterizer's serving and training main paths at 1280x720
+    ss 2. Returns the three kernels' entries of the ``kernels`` line."""
     import dataclasses
 
     import numpy as np
@@ -2913,6 +3043,7 @@ def raster_phases(dev, card, rs):
     scal = rast.raster_scalars(cfg)
     got = rast.raster_tiles(tris, cbox, scal, Hs, Ws, ss)
     want = rast.raster_reference(tris, cbox, scal, Hs, Ws, ss)
+    fst = first_hard(tris, cbox, scal, Hs, Ws, ss)
     torch.cuda.synchronize()
     ys = rast.sample_ys(Hs, ss, 0.0, 1.0, dev)
     hard_visits = rast.visited_pairs(cbox, Hs, Ws, ss)
@@ -2922,13 +3053,35 @@ def raster_phases(dev, card, rs):
     hard_err = float((got - want).abs().max())
     allowed = math.ceil(FLIP_FRAC * n_samples)
     n_blocks = -(-Hs // rast.TILE) * -(-Ws // rast.TILE)
+    n_first = int((got != fst).any(dim=0).sum())
     print(f"  max_abs_err {hard_err:.3e}; {flips} samples differ (edge flips allowed: "
-          f"{allowed}); visited (block, chunk) pairs {hard_visits} of "
-          f"{n_blocks * int((cbox[:, 4] > 0.5).sum())} (blocks x live chunks): {swept} "
-          f"(sample, row) pairs swept, {hard_pairs} of them ({100 * hard_pairs / swept:.2f} %) "
-          "with the sample inside the row's box", flush=True)
+          f"{allowed}); {n_first} differ from the first design's; visited (block, chunk) "
+          f"pairs {hard_visits} of {n_blocks * int((cbox[:, 4] > 0.5).sum())} (blocks x live "
+          f"chunks): {swept} (sample, row) pairs swept by the first design, {hard_pairs} of "
+          f"them ({100 * hard_pairs / swept:.2f} %) with the sample inside the row's box",
+          flush=True)
     check(bool(torch.isfinite(got).all()), "hard kernel: non-finite image")
     check(flips <= allowed, f"hard kernel: {flips} samples differ from the plain version")
+    check(n_first == 0, f"hard kernel: {n_first} samples differ from the first design's")
+    # the counting instantiation: the same image; the row gate's pairs against
+    # those in the rows' own boxes and in their gate boxes (hard_gate_boxes)
+    h_stats = torch.zeros(len(rast.STATS), dtype=torch.int64, device=dev)
+    counted = rast.raster_tiles(tris, cbox, scal, Hs, Ws, ss, stats=h_stats)
+    h_stats = dict(zip(rast.STATS, h_stats.tolist()))
+    gate = rast.hard_gate_boxes(tris, rast.window_span(Hs, Ws, ss))
+    keep = tris[:, 12] > 0.5
+    reach = (gate[:, 1] - tris[:, 24])[keep]
+    gate_pairs = rast.box_pairs(tris, ys, Ws, boxes=gate)
+    print(f"  row gate: {h_stats['rows_passed']} rows passed of {hard_visits * rast.CHUNK} "
+          f"visited; {h_stats['pairs_evaluated']} pairs evaluated (inside the rows' boxes "
+          f"{hard_pairs}, inside their gate boxes {gate_pairs}; the first design swept {swept}), "
+          f"{h_stats['pairs_covering']} covering; {int(torch.isinf(reach).sum())} of {n_live} kept "
+          f"rows ungated, the largest finite reach {float(reach[torch.isfinite(reach)].max()):.3e} "
+          "samples", flush=True)
+    check(torch.equal(counted, got), "hard kernel: the counting instantiation's image differs")
+    check(h_stats["visits"] == hard_visits, f"hard kernel: {h_stats['visits']} visits")
+    check(hard_pairs <= h_stats["pairs_evaluated"] <= gate_pairs,
+          "hard kernel: pairs evaluated outside [in-box pairs, in-gate-box pairs]")
     geo = float((got - scal[9:12].to(dev)[:, None, None]).abs().amax(dim=0).gt(1e-3).float().mean())
     check(0.05 < geo < 0.95, f"hard kernel: {100 * geo:.1f} % of the samples show geometry")
 
@@ -2941,8 +3094,11 @@ def raster_phases(dev, card, rs):
         sc_r = rast.raster_scalars(cfg_r, 0.0, y0, stride)
         g_r = rast.raster_tiles(t_r, b_r, sc_r, rows * ssr, Wr * ssr, ssr)
         w_r = rast.raster_reference(t_r, b_r, sc_r, rows * ssr, Wr * ssr, ssr)
+        f_r = first_hard(t_r, b_r, sc_r, rows * ssr, Wr * ssr, ssr)
         torch.cuda.synchronize()
         n_diff = int((g_r != w_r).any(dim=0).sum())
+        n_first_r = int((g_r != f_r).any(dim=0).sum())
+        check(n_first_r == 0, f"{Wr}x{Hr}: {n_first_r} samples differ from the first design's")
         # the soft forward there at sigma 2, and its row gate's included pairs
         with torch.no_grad():
             ts_r, _ = sr._soft_cols(pkt, cam_r, cfg_r)
@@ -2953,7 +3109,7 @@ def raster_phases(dev, card, rs):
         s_err = float((gs_r - ws_r).abs().max())
         inc_r = sr.included_pairs(ts_r, db_r, ss_r, rows * ssr, Wr * ssr, ssr)
         print(f"  {Wr}x{Hr} ss {ssr}, rows y0={y0:g} stride {stride} x {rows}: {n_diff} samples "
-              f"differ; soft (sigma 2) max_abs_err {s_err:.3e}, {int(st_r[3])} pairs included "
+              f"differ, {n_first_r} from the first design's; soft (sigma 2) max_abs_err {s_err:.3e}, {int(st_r[3])} pairs included "
               f"by the row gate, {inc_r} by the plain version", flush=True)
         check(n_diff <= math.ceil(FLIP_FRAC * g_r[0].numel()), f"{Wr}x{Hr}: {n_diff} differ")
         check(s_err <= SOFT_ATOL and int(st_r[3]) == inc_r, f"{Wr}x{Hr}: soft forward differs")
@@ -2978,10 +3134,17 @@ def raster_phases(dev, card, rs):
     check((gd <= 2).mean() >= DISPLAY_FRAC and gd.max() <= DISPLAY_MAX,
           "the kernel's image is outside the golden bound")
 
-    hard_ms = cuda_events(lambda: rast.raster_tiles(tris, cbox, scal, Hs, Ws, ss), 20)
+    hard_turns = in_turns({
+        "shipped": lambda: rast.raster_tiles(tris, cbox, scal, Hs, Ws, ss),
+        "first design": lambda: first_hard(tris, cbox, scal, Hs, Ws, ss)}, 20)
+    hard_ms = hard_turns["shipped"]
     hard_plain_ms = cuda_events(lambda: rast.raster_reference(tris, cbox, scal, Hs, Ws, ss), 1)
-    print(f"  hard kernel {hard_ms:.4f} ms, plain {hard_plain_ms:.3f} ms (CUDA events, "
-          f"{Ws}x{Hs} samples) [{card}]", flush=True)
+    print(f"  hard kernel {hard_ms:.4f} ms, the first design {hard_turns['first design']:.4f} ms "
+          f"(in turns), plain {hard_plain_ms:.3f} ms (CUDA events, {Ws}x{Hs} samples) [{card}]",
+          flush=True)
+    if build.last_build is not None:
+        print("  " + "; ".join(e for e in ptxas_summary(build.last_build[1])
+                               if e.startswith("raster_")), flush=True)
 
     # ---- the serving main path: rasterize, rasterize_frames ----------------------------
     print(f"phase 12: main path rasterize {W}x{H} ss {ss}, 1 + {STEPS} frames; "
@@ -3194,7 +3357,9 @@ def raster_phases(dev, card, rs):
                  "raster_mse_step", card)
 
     # the bounds count the pairs these inputs need (box_pairs, and for the
-    # adjoint the pairs above the coverage threshold), not the kernels' sweep
+    # adjoint the pairs above the coverage threshold), not the kernels' sweep;
+    # the hard kernel's, the pairs its row gate evaluated (its own counts: at
+    # least box_pairs, the rows' boxes grown by their rounding reach)
     table_bytes = tris.numel() * 4 + cbox.numel() * 4
     return [with_bound({
         "name": "raster_hard",
@@ -3205,8 +3370,9 @@ def raster_phases(dev, card, rs):
         "max_abs_err": hard_err,
         "ms": hard_ms,
         "plain_ms": hard_plain_ms,
+        "first_design_ms": hard_turns["first design"],
     }, table_bytes + 3 * n_samples * 4,
-        hard_pairs * OPS_HARD_PAIR + n_samples * OPS_HARD_SAMPLE), with_bound({
+        h_stats["pairs_evaluated"] * OPS_HARD_PAIR + n_samples * OPS_HARD_SAMPLE), with_bound({
         "name": "soft_raster_fwd",
         "route": "cuda",
         "source": "ptre_tpu_torch/csrc/soft_raster_kernel.cu",

@@ -2,16 +2,20 @@
 // machines without a GPU: the SoftRas pair terms and their hand-written
 // adjoint in double (raster.cuh), and the bodies of the three kernels
 // (raster_kernel.cu, soft_raster_kernel.cu) looped over the same sample
-// tiles with the same block-uniform chunk gate and, for the soft kernels,
-// the same row gate and per-sample box test, reading each chunk straight
-// from the table instead of staging it, and summing d(table) in order
-// instead of by atomics. The soft bodies count what the kernels' stats
-// instantiation counts (soft_raster.STATS).
+// tiles with the same block-uniform chunk gate, the same row gate (the hard
+// kernel's rounding reach, the soft kernels' 14-sigma dilation) and
+// per-sample box test, reading rows straight from the table, and summing
+// d(table) in order instead of by atomics. The bodies count what the
+// kernels' stats instantiations count (raster_kernel.STATS,
+// soft_raster.STATS).
 //
 //   g++ -std=c++17 -O2 -shared -fPIC -o libptre_host_raster.so host_raster.cpp
 //
-// tests/test_torch_csrc_host.py builds it this way and holds it against
-// torch float64 autograd and the plain PyTorch versions.
+// tests/test_torch_csrc_host.py and test_torch_raster_gate.py build it this
+// way and hold it against torch float64 autograd, the plain PyTorch versions
+// and the hard kernel's first design (csrc/baseline/raster_mega/).
+
+#include <vector>
 
 #include "raster.cuh"
 
@@ -65,20 +69,27 @@ void for_each_sample(const RasterParams& p, const Tile& t, Body body) {
   }
 }
 
-// The soft kernels' row gate (soft_raster_kernel.cu gate_rows) of chunk k
-// for tile t: the mask of the rows that pass, their gate boxes in `boxes`;
+// The kernels' row gate (raster.cuh gate_rows) of chunk k for tile t: the
+// mask of the rows that pass, their gate boxes (box_of(row)) in `boxes`;
 // adds to the rows-passed counter.
-uint64_t gate_rows(const RasterParams& p, const float* tris, int k, const Tile& t,
-                   r::GateBox* boxes, long long* stats) {
-  const float dil = r::kDilateSigma / p.scal[12];
+template <typename BoxOf>
+uint64_t gate_rows(const float* tris, int k, const Tile& t, r::GateBox* boxes,
+                   long long* stats, BoxOf box_of) {
   uint64_t mask = 0;
   for (int i = 0; i < r::kChunk; ++i) {
     const float* c = tris + ((int64_t)k * r::kChunk + i) * r::kRow;
-    boxes[i] = r::gate_box(c, dil);
+    boxes[i] = box_of(c);
     if (r::row_hits(c, boxes[i], t.x_lo, t.x_hi, t.y_first, t.y_last)) mask |= 1ull << i;
   }
   stats[1] += __builtin_popcountll(mask);
   return mask;
+}
+
+// The soft kernels' gate boxes: the screen box dilated by 14 sigma
+// (raster.cuh gate_box).
+auto soft_box(const RasterParams& p) {
+  const float dil = r::kDilateSigma / p.scal[12];
+  return [dil](const float* c) { return r::gate_box(c, dil); };
 }
 
 }  // namespace
@@ -123,22 +134,41 @@ extern "C" void ptre_soft_gate_host(int n, const float* rows, const float* px,
   }
 }
 
-// The hard kernel's body: planar (3, rows_ss, width_ss) image
+// (n, 32) rows, the window of `params` -> (n, 4) gate boxes of the hard
+// kernel's row gate (raster.cuh hard_gate_box): minx, maxx, miny, maxy
+extern "C" void ptre_hard_gate_host(int n, const float* rows, const RasterParams* params,
+                                    float* out) {
+  const float span = r::window_span(*params);
+  for (int i = 0; i < n; ++i) {
+    const r::GateBox b = r::hard_gate_box(rows + i * r::kRow, span);
+    const float v[4] = {b.x0, b.x1, b.y0, b.y1};
+    for (int k = 0; k < 4; ++k) out[4 * i + k] = v[k];
+  }
+}
+
+// The hard kernel's body: planar (3, rows_ss, width_ss) image; `stats` (4)
+// receives the counters of raster_kernel.STATS. Returns the visited pairs.
 extern "C" long long ptre_raster_hard_host(const RasterParams* params, const float* tris,
-                                           const float* cbox, float* out) {
+                                           const float* cbox, float* out, long long* stats) {
   const RasterParams& p = *params;
   const int64_t plane = (int64_t)p.rows_ss * p.width_ss;
-  float* best_z = new float[plane];
-  int* best_i = new int[plane];
-  for (int64_t i = 0; i < plane; ++i) {
-    best_z[i] = r::kFar;
-    best_i[i] = -1;
-  }
-  const long long visited = for_each_visit(p, cbox, [&](int k, const Tile& t) {
+  const float span = r::window_span(p);
+  std::vector<float> best_z(plane, r::kFar);
+  std::vector<int> best_i(plane, -1);
+  for (int i = 0; i < 4; ++i) stats[i] = 0;
+  stats[0] = for_each_visit(p, cbox, [&](int kc, const Tile& t) {
+    r::GateBox boxes[r::kChunk];
+    const uint64_t mask = gate_rows(tris, kc, t, boxes, stats, [&](const float* c) {
+      return r::hard_gate_box(c, span);
+    });
+    if (mask == 0) return;
     for_each_sample(p, t, [&](int x, int rr, float px, float py) {
       const int64_t s = (int64_t)rr * p.width_ss + x;
-      r::hard_sweep(tris + (int64_t)k * r::kChunk * r::kRow, k * r::kChunk, px, py, best_z[s],
-                    best_i[s]);
+      uint32_t n_test = 0, n_cover = 0;
+      r::hard_sweep_gated(tris + (int64_t)kc * r::kChunk * r::kRow, boxes, mask,
+                          kc * r::kChunk, px, py, best_z[s], best_i[s], n_test, n_cover);
+      stats[2] += n_test;
+      stats[3] += n_cover;
     });
   });
   for (int rr = 0; rr < p.rows_ss; ++rr) {
@@ -152,9 +182,7 @@ extern "C" long long ptre_raster_hard_host(const RasterParams* params, const flo
       for (int c = 0; c < 3; ++c) out[c * plane + s] = rgb[c];
     }
   }
-  delete[] best_z;
-  delete[] best_i;
-  return visited;
+  return stats[0];
 }
 
 // The soft forward kernel's body: image (3, rows_ss, width_ss) and the
@@ -171,7 +199,7 @@ extern "C" long long ptre_soft_fwd_host(const RasterParams* params, const float*
   for (int i = 0; i < 4; ++i) stats[i] = 0;
   stats[0] = for_each_visit(p, cbox, [&](int kc, const Tile& t) {
     r::GateBox boxes[r::kChunk];
-    const uint64_t mask = gate_rows(p, tris, kc, t, boxes, stats);
+    const uint64_t mask = gate_rows(tris, kc, t, boxes, stats, soft_box(p));
     if (mask == 0) return;
     for_each_sample(p, t, [&](int x, int rr, float px, float py) {
       uint32_t n_eval = 0, n_inc = 0;
@@ -203,7 +231,7 @@ extern "C" long long ptre_soft_bwd_host(const RasterParams* params, const float*
   for (int i = 0; i < 4; ++i) stats[i] = 0;
   stats[0] = for_each_visit(p, cbox, [&](int kc, const Tile& t) {
     r::GateBox boxes[r::kChunk];
-    const uint64_t mask = gate_rows(p, tris, kc, t, boxes, stats);
+    const uint64_t mask = gate_rows(tris, kc, t, boxes, stats, soft_box(p));
     if (mask == 0) return;
     for_each_sample(p, t, [&](int x, int rr, float px, float py) {
       const int64_t s = (int64_t)rr * p.width_ss + x;

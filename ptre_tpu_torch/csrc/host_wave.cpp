@@ -2,14 +2,15 @@
 // bodies, for checks on machines without a GPU: the same slab_pass,
 // super_union, slab_pass_within, sweep_leaf and finish_bounce_at (wave.cuh,
 // trace.cuh, philox.cuh) that mask_kernel.cu, wave_kernel.cu and
-// mega_kernel.cu run per thread, looped over the ray blocks on the CPU, a
-// warp's or a block's votes taken by a loop over its rays. The sweep reads
-// each leaf's compact rows straight from the table instead of staging them.
+// mega_kernel.cu run per thread, looped over the ray blocks or warps on the
+// CPU, a warp's votes taken by a loop over its rays. The sweeps read each
+// leaf's compact rows straight from the table instead of staging them.
 //
 //   g++ -std=c++17 -O2 -shared -fPIC -o libptre_host_wave.so host_wave.cpp
 //
-// tests/test_torch_csrc_host.py builds it this way and holds it against the
-// plain PyTorch versions.
+// tests/test_torch_csrc_host.py and test_torch_culled_walk.py build it this
+// way and hold it against the plain PyTorch versions and the culled
+// megakernel's first design (csrc/baseline/raster_mega/).
 
 #include <algorithm>
 #include <vector>
@@ -104,9 +105,69 @@ extern "C" void ptre_wave_bounce_host(const ptre::WaveParams* params,
   }
 }
 
-// mega_kernel.cu's block over every block of `lanes` rays: per bounce the
-// two-level walk with the block's votes, the sweep and the finish. `sel`
-// (max_depth, n_rays) int32 or null.
+namespace {
+
+// mega_kernel.cu sweep_leaf_warp: for each lane of `passed` in ascending
+// order, its ray against the leaf's 64 rows, the rows split between the 32
+// lanes (row j on lane j % 32), each lane's strict t < best over its two rows,
+// the lanes' (t, row) minimum by the kernel's butterfly, then merged into the
+// ray's best with strict t < best.
+void sweep_leaf_warp(const float* rows, int leaf, const bool* passed, int m,
+                     const ptre::WaveRay* rays, const ptre::WaveParams& wp,
+                     ptre::TriBest* best) {
+  const float* leaf_rows = rows + (int64_t)leaf * ptre::kLeaf * ptre::kRowStride;
+  for (int src = 0; src < m; ++src) {
+    if (!passed[src]) continue;
+    float t_min[32];
+    int j_min[32];
+    bool any = false;
+    for (int lane = 0; lane < 32; ++lane) {
+      t_min[lane] = ptre::kBig;
+      j_min[lane] = ptre::kLeaf;
+      for (int j = lane; j < ptre::kLeaf; j += 32) {
+        float t;
+        if (ptre::row_accepts(leaf_rows + j * ptre::kRowStride, rays[src].o, rays[src].d,
+                              wp.t_min, wp.t_max, wp.det_eps, &t)) {
+          any = true;
+          if (t < t_min[lane]) {
+            t_min[lane] = t;
+            j_min[lane] = j;
+          }
+        }
+      }
+    }
+    if (!any) continue;
+    for (int off = 16; off > 0; off >>= 1) {  // __shfl_xor_sync, all lanes at once
+      float t_o[32];
+      int j_o[32];
+      for (int lane = 0; lane < 32; ++lane) {
+        t_o[lane] = t_min[lane ^ off];
+        j_o[lane] = j_min[lane ^ off];
+      }
+      for (int lane = 0; lane < 32; ++lane) {
+        if (t_o[lane] < t_min[lane] || (t_o[lane] == t_min[lane] && j_o[lane] < j_min[lane])) {
+          t_min[lane] = t_o[lane];
+          j_min[lane] = j_o[lane];
+        }
+      }
+    }
+    best[src].hit = true;
+    if (t_min[src] < best[src].t) {
+      best[src].t = t_min[src];
+      best[src].idx = leaf * ptre::kLeaf + j_min[src];
+    }
+  }
+}
+
+}  // namespace
+
+// mega_kernel.cu's warp over every warp of 32 rays, lanes in the kernel's
+// order: per bounce the warp's walk — a supertile that no live lane passes
+// is skipped, else every live lane tests each of its leaves and the rays of
+// the lanes that pass are swept by the warp (sweep_leaf_warp) —, then each
+// lane's finish. `sel` (max_depth, n_rays)
+// int32 or null; `stats` (5) receives the counters of
+// megakernel.CULLED_STATS.
 extern "C" void ptre_trace_culled_host(const ptre::MegaParams* params,
                                        const float* o, const float* d,
                                        const float* urand, const float* tris,
@@ -114,16 +175,17 @@ extern "C" void ptre_trace_culled_host(const ptre::MegaParams* params,
                                        const float* boxes2,
                                        const float* sphs, const float* mats,
                                        const float* sky, float* color,
-                                       int32_t* sel, int lanes) {
+                                       int32_t* sel, long long* stats) {
   const ptre::MegaParams& p = *params;
   ptre::WaveParams wp = p.w;
   const ptre::SceneTables sc = {tris, sphs, mats, sky, 0, wp.n_sph, wp.num_mats};
   const int64_t n = wp.n_rays;
-  std::vector<ptre::WaveRay> rays(lanes);
-  std::vector<ptre::TriBest> best(lanes);
-  std::vector<float> iv(3 * lanes);
-  for (int64_t base = 0; base < n; base += lanes) {
-    const int m = (int)(n - base < lanes ? n - base : lanes);
+  for (int i = 0; i < 5; ++i) stats[i] = 0;
+  ptre::WaveRay rays[32];
+  ptre::TriBest best[32];
+  float iv[32][3];
+  for (int64_t base = 0; base < n; base += 32) {
+    const int m = (int)(n - base < 32 ? n - base : 32);  // a ragged warp's lanes past m are dead
     for (int i = 0; i < m; ++i) {
       for (int k = 0; k < 3; ++k) {
         rays[i].o[k] = o[3 * (base + i) + k];
@@ -133,42 +195,43 @@ extern "C" void ptre_trace_culled_host(const ptre::MegaParams* params,
       rays[i].act = 1.0f;
     }
     auto live = [&](int i) { return rays[i].act > 0.5f; };
-    // the block's vote on one box row: any live ray passes, bounded by its best
-    auto vote = [&](const float* box) {
-      for (int i = 0; i < m; ++i) {
-        if (live(i) && ptre::slab_pass_within(box, rays[i].o, &iv[3 * i], wp.t_min,
-                                              best[i].t)) {
-          return true;
-        }
-      }
-      return false;
-    };
-    auto sweep = [&](int leaf) {
-      const float* leaf_rows = rows + (int64_t)leaf * ptre::kLeaf * ptre::kRowStride;
-      for (int i = 0; i < m; ++i) {
-        if (live(i)) ptre::sweep_leaf(leaf_rows, leaf, rays[i], wp, best[i]);
-      }
+    auto pass = [&](const float* box, int i) {
+      return live(i) && ptre::slab_pass_within(box, rays[i].o, iv[i], wp.t_min, best[i].t);
     };
     int bounce = 0;
     for (; bounce < p.max_depth; ++bounce) {
-      bool any = false;
-      for (int i = 0; i < m; ++i) any = any || live(i);
-      if (!any) break;
+      int n_live = 0;
+      for (int i = 0; i < m; ++i) n_live += live(i);
+      if (n_live == 0) break;
       wp.bounce = bounce;
+      stats[0] += n_live;
       for (int i = 0; i < m; ++i) {
         best[i] = {ptre::kBig, 0, false};
-        for (int k = 0; k < 3; ++k) iv[3 * i + k] = ptre::slab_inv(rays[i].d[k]);
+        for (int k = 0; k < 3; ++k) iv[i][k] = ptre::slab_inv(rays[i].d[k]);
       }
       if (p.cull) {
         for (int js = 0; js < p.n_super; ++js) {
-          if (!vote(boxes2 + js * ptre::kBoxStride)) continue;
-          for (int jj = 0; jj < ptre::kSuper; ++jj) {
-            const int leaf = js * ptre::kSuper + jj;
-            if (vote(boxes + leaf * ptre::kBoxStride)) sweep(leaf);
+          stats[1] += n_live;
+          bool any = false;
+          for (int i = 0; i < m; ++i) any = any || pass(boxes2 + js * ptre::kBoxStride, i);
+          if (!any) continue;
+          const int end = std::min((js + 1) * ptre::kSuper, (int)wp.n_leaf);
+          for (int leaf = js * ptre::kSuper; leaf < end; ++leaf) {
+            bool own[32];
+            int n_pass = 0;
+            for (int i = 0; i < m; ++i) n_pass += own[i] = pass(boxes + leaf * ptre::kBoxStride, i);
+            stats[2] += n_live;
+            stats[3] += n_pass;
+            stats[4] += n_pass > 0 ? n_live : 0;
+            sweep_leaf_warp(rows, leaf, own, m, rays, wp, best);
           }
         }
       } else {
-        for (int leaf = 0; leaf < wp.n_leaf; ++leaf) sweep(leaf);
+        bool all[32];
+        for (int i = 0; i < m; ++i) all[i] = live(i);
+        for (int leaf = 0; leaf < wp.n_leaf; ++leaf) {
+          sweep_leaf_warp(rows, leaf, all, m, rays, wp, best);
+        }
       }
       for (int i = 0; i < m; ++i) {
         const int32_t id = (int32_t)(base + i);

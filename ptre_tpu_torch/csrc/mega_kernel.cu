@@ -2,49 +2,60 @@
 // over Morton-ordered 64-row leaves, in one launch.
 //
 // Replaces the TPU kernel ptre_tpu/ops/pallas/megakernel.py _mega_kernel
-// (:237, launched at :1079). One CUDA block per 256 rays, one thread per
-// ray, the path state (o, d, colour, live) in registers across all bounces.
-// Per bounce the block walks the supertiles (8 leaves each) in ascending
-// order: every live thread tests the supertile's union box against its own
-// ray, bounded by its own closest hit so far (slab_pass_within), and
-// __syncthreads_or is the block's vote; a supertile that passes is walked
-// leaf by leaf with the same vote per leaf, and a passing leaf's 64 compact
-// intersection rows (3 KB, wave.cuh kRowStride) are staged into shared memory
-// with 16-byte loads and swept by every live thread (wave.cuh sweep_leaf:
-// strict t < best, so ties go to the lowest Morton row within a leaf and
-// across the ascending walk). The votes read the dilated cull boxes.
-// Then, per thread, wave.cuh finish_bounce: spheres bounded by the best
-// triangle, the winner's row read by index from global memory, its
-// attributes re-derived, shading, the next ray. A block stops at the first
-// bounce none of its rays reaches (one vote per bounce). The recording
-// instantiation writes every bounce's winner as a unified-table row (-1 for
-// a miss, a dead ray or a bounce never reached) into sel (B, R) int32.
+// (:237, launched at :1079). One thread per ray, `lanes` rays a block, the
+// path state (o, d, colour, live) in registers across all bounces. The block
+// only stages the materials and the sky into shared memory; from then on
+// each warp runs on its own, with warp votes and no block barrier. Per
+// bounce a warp walks the supertiles (8 leaves each) in ascending order:
+// every live lane tests the supertile's union box against its own ray,
+// bounded by its own closest hit so far (wave.cuh slab_pass_within, on the
+// dilated cull boxes), and a supertile that no lane passes is skipped
+// (__any_sync). In a supertile that some lane passes, every live lane tests
+// each leaf's box the same way, and a ballot lists the lanes whose own ray
+// passes it: only those rays are tested against the leaf's 64 rows. The
+// warp tests them one ray at a time, two rows a lane, and a shuffle
+// reduction takes the lexicographic (t, row) minimum (sweep_leaf_warp: the
+// result of wave.cuh sweep_leaf, strict t < best over ascending Morton rows,
+// so ties go to the lowest row within a leaf and across the walk). A leaf
+// that no lane passes costs the warp one box test. The compact rows (48 B,
+// three 16-byte loads each) are read through L1/L2, not staged. Then, per
+// lane, wave.cuh finish_bounce: spheres bounded by the best triangle, the
+// winner's row read by index from global memory, its attributes re-derived,
+// shading, the next ray. A warp stops at the first bounce none of its lanes
+// reaches. The recording instantiation writes every bounce's winner as a
+// unified-table row (-1 for a miss, a dead ray or a bounce never reached)
+// into sel (B, R) int32.
 //
-// The sweep and the finish are the wavefront bounce kernel's device
-// functions, so this kernel and the wavefront compute the same arithmetic:
-// they differ only in which leaves a ray gets to see (both conservative).
+// The winners are the first design's (the block's votes: every live thread
+// of a block swept each leaf that some thread passed): the cull is
+// conservative (wavefront.CULL_PAD_REL), so a ray that fails a box test
+// bounded by its closest hit cannot find a closer accepted row in it. The
+// row test and the finish are the wavefront bounce kernel's device
+// functions, so this kernel and the wavefront compute the same arithmetic.
 //
-// What bounds it on this card: divergent float32 ALU work. Rays are not
-// re-sorted between bounces, so after bounce 0 the rays of a block diverge
-// and the block's vote passes many more leaves than a sorted wavefront
-// block's shortlist holds; every live thread sweeps each passing leaf. The
-// bytes are small: 24 B a ray in, 12 B (+ 4 B a bounce) out, and the leaf
-// tables (0.8 MB of compact rows, 2.1 MB of 32-float rows at 16,256 rows)
-// stay in the 50 MB L2. The design spends no
-// launch, host read or sort between bounces, which is what the wavefront
-// pays for its tighter shortlists (measured, one sample at max_depth 5:
-// 24.3-25.3 ms on 16,140 triangles + 2 spheres at 1920x1080, the live
-// threads sweeping 8.1x the (ray, leaf) pairs the rays themselves pass;
-// 1.78-1.87 ms on 16,128 triangles at 512x512; 48 registers, no spills;
-// NVIDIA H100 80GB HBM3, 700.00 W).
+// What bounds it on this card: float32 ALU work in the row tests (64 for each
+// (ray, leaf) pair the ray passes) and the walk's box tests. The bytes are
+// small: 24 B a ray in, 12 B (+ 4 B a bounce) out, and the leaf tables (0.8
+// MB of compact rows, 2.1 MB of 32-float rows at 16,256 rows) stay in the
+// 50 MB L2. On config 4 (16,140 triangles + 2 spheres, 1920x1080, max_depth
+// 5; NVIDIA H100 80GB HBM3, 700 W) the rays pass 9.8 M (ray, leaf) pairs.
+// The first design's block votes made all 256 threads sweep every leaf one
+// ray passed, 79.9 M pairs, 24.2-24.3 ms a recording sample. Sweeping each
+// passing ray on its own lane (the warp visits a leaf that any lane passes,
+// 30.5 M lane slots, a third of them busy) took 10.8-11.1 ms; spreading the
+// rows over the lanes keeps every lane busy in the row tests: 2.9 ms
+// (chip_ablations.py times both). With
+// `stats` given, a separate instantiation also counts the live ray-bounces,
+// the supertile and leaf box tests made, the (ray, leaf) pairs whose box the
+// ray itself passes and the (live lane, leaf) slots of the warps' visits; a
+// launch without `stats` counts nothing.
 //
 // Not carried over from the TPU kernel: the (56, lanes) VMEM scratch (the
 // state lives in registers), the one-hot MXU gathers of the winner (a direct
 // row read), f32 row indices (int32 here), the hardware PRNG (Philox keyed
 // (seed, ray, sample, draw), or external uniforms), the triangle table
-// padded to whole supertiles (only the box table is: an empty box never
-// passes, so its leaf is never staged) and the zero-initialised (4B, lanes)
-// selection block.
+// padded to whole supertiles (only the box table is) and the
+// zero-initialised (4B, lanes) selection block.
 
 #include <cuda_runtime.h>
 
@@ -52,15 +63,70 @@
 
 namespace ptre {
 
-__device__ __forceinline__ void stage_leaf(float* s_leaf, const float* rows,
-                                           int leaf, int tid, int n_threads) {
-  const float4* src =
-      reinterpret_cast<const float4*>(rows + (int64_t)leaf * kLeaf * kRowStride);
-  float4* dst = reinterpret_cast<float4*>(s_leaf);
-  for (int i = tid; i < kLeaf * kRowStride / 4; i += n_threads) dst[i] = __ldg(src + i);
+constexpr unsigned kMegaFull = 0xffffffffu;
+constexpr int kLeafFloats = kLeaf * kRowStride;  // 768 floats, 3 KB
+
+// The counters of the stats instantiation (megakernel.CULLED_STATS), in order.
+enum : int { kRayBounces, kSuperTests, kLeafTests, kPairsPassed, kPairsVisited };
+
+// The 64 rows of one leaf (compact rows in global memory, three 16-byte
+// loads each through the read-only path) against the ray of every lane of
+// `passed`, in ascending lane order: the warp tests one such ray at a time,
+// two rows a lane (rows lane and lane + 32, wave.cuh row_accepts), and a
+// shuffle reduction takes the lexicographic (t, row) minimum of the rows that
+// accept, which the ray's lane merges into its best with strict t < best.
+// That is sweep_leaf's result: strict t < best over ascending rows keeps the
+// smallest t at its lowest row, and a tie with an earlier leaf keeps the
+// earlier (lower) row. Every lane of the warp calls it with the same `passed`.
+__device__ __forceinline__ void sweep_leaf_warp(const float* rows, int leaf, unsigned passed,
+                                                const WaveRay& r, const WaveParams& p,
+                                                TriBest& best) {
+  const int lane = threadIdx.x & 31;
+  for (unsigned m = passed; m != 0; m &= m - 1) {
+    const int src = __ffs(m) - 1;
+    float o[3], d[3];
+    for (int k = 0; k < 3; ++k) {
+      o[k] = __shfl_sync(kMegaFull, r.o[k], src);
+      d[k] = __shfl_sync(kMegaFull, r.d[k], src);
+    }
+    float t_min = kBig;
+    int j_min = kLeaf;  // past every row: loses every tie
+    bool any = false;
+    for (int h = 0; h < 2; ++h) {
+      const int j = lane + 32 * h;
+      const float4* q = reinterpret_cast<const float4*>(rows + j * kRowStride);
+      const float4 a = __ldg(q), b = __ldg(q + 1), c = __ldg(q + 2);
+      const float row[kRowStride] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w,
+                                     c.x, c.y, c.z, c.w};
+      float t;
+      if (row_accepts(row, o, d, p.t_min, p.t_max, p.det_eps, &t)) {
+        any = true;
+        if (t < t_min) {
+          t_min = t;
+          j_min = j;
+        }
+      }
+    }
+    if (!__any_sync(kMegaFull, any)) continue;
+    for (int off = 16; off > 0; off >>= 1) {
+      const float t_o = __shfl_xor_sync(kMegaFull, t_min, off);
+      const int j_o = __shfl_xor_sync(kMegaFull, j_min, off);
+      if (t_o < t_min || (t_o == t_min && j_o < j_min)) {
+        t_min = t_o;
+        j_min = j_o;
+      }
+    }
+    if (lane == src) {
+      best.hit = true;
+      if (t_min < best.t) {
+        best.t = t_min;
+        best.idx = leaf * kLeaf + j_min;
+      }
+    }
+  }
 }
 
-template <bool kRecord>
+template <bool kRecord, bool kStats>
 __global__ void __launch_bounds__(kMaxLanes)
     mega_kernel(const MegaParams p, const float* __restrict__ o,
                 const float* __restrict__ d, const float* __restrict__ urand,
@@ -69,8 +135,7 @@ __global__ void __launch_bounds__(kMaxLanes)
                 const float* __restrict__ boxes2,
                 const float* __restrict__ sphs, const float* __restrict__ mats,
                 const float* __restrict__ sky, float* __restrict__ color,
-                int32_t* __restrict__ sel) {
-  __shared__ __align__(16) float s_leaf[kLeaf * kRowStride];
+                int32_t* __restrict__ sel, unsigned long long* __restrict__ stats) {
   __shared__ float s_mat[kMaxMats * kMatStride];
   __shared__ float s_sky[8];
 
@@ -86,43 +151,49 @@ __global__ void __launch_bounds__(kMaxLanes)
   r.act = valid ? 1.0f : 0.0f;
   for (int i = tid; i < kMaxMats * kMatStride; i += blockDim.x) s_mat[i] = mats[i];
   if (tid < 8) s_sky[tid] = sky[tid];
-  __syncthreads();
+  __syncthreads();  // the block's only barrier
 
   WaveParams wp = p.w;
   const SceneTables sc = {tris, sphs, s_mat, s_sky, 0, wp.n_sph, wp.num_mats};
+  // warp-uniform counts (kStats only), in the order of the enum above
+  unsigned long long n_bounces = 0, n_super = 0, n_leaf = 0, n_passed = 0, n_visited = 0;
   int bounce = 0;
-  // every thread, dead or ragged, reaches every vote and barrier below: the
-  // loop bounds and the votes' results are uniform over the block
+  // every lane of a warp, dead or ragged, reaches every vote below: the loop
+  // bounds and the votes' results are uniform over the warp
   for (; bounce < p.max_depth; ++bounce) {
     const bool live = r.act > 0.5f;
-    if (!__syncthreads_or(live)) break;  // no ray of the block goes on
+    const unsigned live_lanes = __ballot_sync(kMegaFull, live);
+    if (live_lanes == 0) break;  // no ray of the warp goes on
+    const int n_live = __popc(live_lanes);
     wp.bounce = bounce;
     TriBest best = {kBig, 0, false};
+    if (kStats) n_bounces += n_live;
     if (p.cull) {
       const float iv[3] = {slab_inv(r.d[0]), slab_inv(r.d[1]), slab_inv(r.d[2])};
       for (int js = 0; js < p.n_super; ++js) {
-        if (!__syncthreads_or(live && slab_pass_within(boxes2 + js * kBoxStride, r.o, iv,
-                                                       wp.t_min, best.t))) {
+        if (kStats) n_super += n_live;
+        if (!__any_sync(kMegaFull, live && slab_pass_within(boxes2 + js * kBoxStride, r.o, iv,
+                                                            wp.t_min, best.t))) {
           continue;
         }
-        for (int jj = 0; jj < kSuper; ++jj) {
-          const int leaf = js * kSuper + jj;
-          // the vote is also the barrier after the previous leaf's sweep
-          if (!__syncthreads_or(live && slab_pass_within(boxes + leaf * kBoxStride, r.o,
-                                                         iv, wp.t_min, best.t))) {
-            continue;
+        const int end = min((js + 1) * kSuper, wp.n_leaf);
+        for (int leaf = js * kSuper; leaf < end; ++leaf) {
+          const unsigned passed = __ballot_sync(
+              kMegaFull,
+              live && slab_pass_within(boxes + leaf * kBoxStride, r.o, iv, wp.t_min, best.t));
+          if (kStats) {
+            n_leaf += n_live;
+            n_passed += __popc(passed);
+            n_visited += passed != 0 ? n_live : 0;
           }
-          stage_leaf(s_leaf, rows, leaf, tid, blockDim.x);
-          __syncthreads();
-          if (live) sweep_leaf(s_leaf, leaf, r, wp, best);
+          if (passed != 0) {
+            sweep_leaf_warp(rows + (int64_t)leaf * kLeafFloats, leaf, passed, r, wp, best);
+          }
         }
       }
     } else {
       for (int leaf = 0; leaf < wp.n_leaf; ++leaf) {
-        __syncthreads();  // every thread is done with the previous leaf
-        stage_leaf(s_leaf, rows, leaf, tid, blockDim.x);
-        __syncthreads();
-        if (live) sweep_leaf(s_leaf, leaf, r, wp, best);
+        sweep_leaf_warp(rows + (int64_t)leaf * kLeafFloats, leaf, live_lanes, r, wp, best);
       }
     }
     if (live) {
@@ -136,11 +207,32 @@ __global__ void __launch_bounds__(kMaxLanes)
       *sel_slot(sel, wp, bounce, (int32_t)ray) = -1;
     }
   }
+  if (kStats && (tid & 31) == 0) {
+    atomicAdd(stats + kRayBounces, n_bounces);
+    atomicAdd(stats + kSuperTests, n_super);
+    atomicAdd(stats + kLeafTests, n_leaf);
+    atomicAdd(stats + kPairsPassed, n_passed);
+    atomicAdd(stats + kPairsVisited, n_visited);
+  }
   if (valid) {
     if (kRecord) {
       for (; bounce < p.max_depth; ++bounce) *sel_slot(sel, wp, bounce, (int32_t)ray) = -1;
     }
     for (int k = 0; k < 3; ++k) color[3 * ray + k] = r.c[k];
+  }
+}
+
+template <bool kRecord>
+void launch_mega(int n_blocks, int lanes, cudaStream_t st, const MegaParams& p, const float* o,
+                 const float* d, const float* urand, const float* tris, const float* rows,
+                 const float* boxes, const float* boxes2, const float* sphs, const float* mats,
+                 const float* sky, float* color, int32_t* sel, unsigned long long* stats) {
+  if (stats != nullptr) {
+    mega_kernel<kRecord, true><<<n_blocks, lanes, 0, st>>>(
+        p, o, d, urand, tris, rows, boxes, boxes2, sphs, mats, sky, color, sel, stats);
+  } else {
+    mega_kernel<kRecord, false><<<n_blocks, lanes, 0, st>>>(
+        p, o, d, urand, tris, rows, boxes, boxes2, sphs, mats, sky, color, sel, stats);
   }
 }
 
@@ -151,14 +243,17 @@ __global__ void __launch_bounds__(kMaxLanes)
 // o, d, color are (n_rays, 3); tris (n_leaf * 64, 32) and rows (n_leaf * 64,
 // 12) hold the same leaves; boxes (n_super * 8, 8) and boxes2 (n_super, 8)
 // are read only with `cull`; with `sel` (max_depth, n_rays) int32 the
-// recording instantiation runs. `lanes` rays per block.
+// recording instantiation runs; stats: null (nothing counted) or 5 uint64
+// counters that the launch adds to (megakernel.py CULLED_STATS). `lanes`
+// rays per block.
 extern "C" int ptre_trace_culled(const ptre::MegaParams* params, const float* o,
                                  const float* d, const float* urand,
                                  const float* tris, const float* rows,
                                  const float* boxes,
                                  const float* boxes2, const float* sphs,
                                  const float* mats, const float* sky,
-                                 float* color, int32_t* sel, int lanes,
+                                 float* color, int32_t* sel,
+                                 unsigned long long* stats, int lanes,
                                  void* stream) {
   const ptre::MegaParams p = *params;
   if (p.w.n_rays < 1 || p.w.n_leaf < 0 || p.w.n_sph < 0 ||
@@ -172,12 +267,13 @@ extern "C" int ptre_trace_culled(const ptre::MegaParams* params, const float* o,
     return (int)cudaErrorInvalidValue;
   }
   const int n_blocks = (p.w.n_rays + lanes - 1) / lanes;
+  const cudaStream_t st = (cudaStream_t)stream;
   if (sel != nullptr) {
-    ptre::mega_kernel<true><<<n_blocks, lanes, 0, (cudaStream_t)stream>>>(
-        p, o, d, urand, tris, rows, boxes, boxes2, sphs, mats, sky, color, sel);
+    ptre::launch_mega<true>(n_blocks, lanes, st, p, o, d, urand, tris, rows, boxes, boxes2,
+                            sphs, mats, sky, color, sel, stats);
   } else {
-    ptre::mega_kernel<false><<<n_blocks, lanes, 0, (cudaStream_t)stream>>>(
-        p, o, d, urand, tris, rows, boxes, boxes2, sphs, mats, sky, color, sel);
+    ptre::launch_mega<false>(n_blocks, lanes, st, p, o, d, urand, tris, rows, boxes, boxes2,
+                             sphs, mats, sky, color, sel, stats);
   }
   return (int)cudaGetLastError();
 }

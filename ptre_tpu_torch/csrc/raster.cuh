@@ -196,20 +196,6 @@ PTRE_HD bool covers(const float* c, float px, float py, float* z) {
          b.z <= 1.0f && c[12] > 0.5f;
 }
 
-// One chunk's rows (global ids base..base+63) into a sample's z-buffer: strict
-// z < best in ascending row order, so a z tie keeps the lowest sorted index,
-// within the chunk and across ascending chunks (raster_kernel.py:327-343).
-PTRE_HD void hard_sweep(const float* rows, int base, float px, float py,
-                        float& best_z, int& best_i) {
-  for (int i = 0; i < kChunk; ++i) {
-    float z;
-    if (covers(rows + i * kRow, px, py, &z) && z < best_z) {
-      best_z = z;
-      best_i = base + i;
-    }
-  }
-}
-
 // Shade the winner row c at (px, py): exact re-interpolation of the
 // perspective-correct normal, normalise (zero stays zero), HLSL ambient +
 // diffuse (raster_kernel.py:387-416). scal: the RasterParams scalars.
@@ -505,6 +491,88 @@ PTRE_HD bool box_holds(const GateBox& b, float px, float py) {
   return px >= b.x0 && px <= b.x1 && py >= b.y0 && py <= b.y1;
 }
 
+// ---- the hard kernel's row gate --------------------------------------------------
+//
+// A pair whose sample lies outside the row's screen box cannot cover in exact
+// arithmetic, but covers() rounds: for a row of tiny area the rounded
+// barycentrics of a sample beyond the box can all be >= 0. The gate box is the
+// screen box grown by `reach`, derived from the rounding of covers() (u =
+// 2^-24, Sb the box's larger side, A the row's exact area, alpha the stored
+// float32 area, 1/alpha its col 22, R the largest |corner - sample|
+// coordinate difference):
+//   * each edge function is off by at most 4u (|a b| + |c d|) <= 8u R^2, the
+//     stored area off the exact one by at most 8u Sb^2, |alpha| <= 2 Sb^2;
+//   * a pair that covers has w0, w1 >= 0 and w0 + w1 <= 1 + u, so every exact
+//     edge function is >= -E, E = 16.04u R^2 + 14.2u Sb^2, every exact
+//     barycentric >= -E / A, and the sample lies at most D = 2 Sb E / A
+//     outside the box on either axis; R <= Sb + D;
+//   * so a covering sample at distance D from the box needs
+//     f(D) = (2 Sb / A) u (16.04 (Sb + D)^2 + 14.2 Sb^2) - D >= 0. f is
+//     convex: f < 0 at D = reach and at the farthest sample of the window
+//     (span + the row's largest |coordinate|) puts every sample beyond the
+//     grown box out of reach.
+// With q = 2u Sb / alpha, reach = 64 q Sb^2 gives f(reach) < 0 (30.6 q Sb^2
+// of 64, for reach <= Sb / 100, a row of area >= 7.6e-4 Sb^2); the far end is
+// held at twice f's terms. Where either test fails (a sliver, or a row whose
+// arithmetic may overflow) the reach is infinite: the row is not gated and
+// every sample of a visited tile tests it, as the first design did. A
+// rounded bound never halves a margin of 2. Tests: tests/test_torch_raster_gate.py.
+
+constexpr float kRoundoff = 5.9604645e-8f;  // 2^-24, float32's unit roundoff
+
+// The largest |coordinate| of any sample of the window, plus a margin.
+PTRE_HD float window_span(const RasterParams& p) {
+  const float y = fmaxf(fabsf(row_y(p, 0)), fabsf(row_y(p, p.rows_ss - 1)));
+  return add_rn(fmaxf((float)p.width_ss, y), (float)(p.ss + 1));
+}
+
+// Kept row c's gate box for samples within `span` (window_span) of the origin.
+PTRE_HD GateBox hard_gate_box(const float* c, float span) {
+  const float sb = fmaxf(sub_rn(c[24], c[23]), sub_rn(c[26], c[25]));
+  const float m = fmaxf(fmaxf(fabsf(c[23]), fabsf(c[24])), fmaxf(fabsf(c[25]), fabsf(c[26])));
+  const float q = mul_rn(mul_rn(2.0f * kRoundoff, sb), fabsf(c[22]));
+  const float reach = mul_rn(mul_rn(64.0f, q), mul_rn(sb, sb));
+  const float dmax = add_rn(span, m);
+  const float sr = add_rn(sb, dmax);
+  const bool sound = reach <= mul_rn(0.01f, sb) &&
+                     mul_rn(mul_rn(32.0f, q), add_rn(mul_rn(sr, sr), mul_rn(sb, sb))) <= dmax;
+  const float r = sound ? reach : INFINITY;
+  return {sub_rn(c[23], r), add_rn(c[24], r), sub_rn(c[25], r), add_rn(c[26], r)};
+}
+
+PTRE_HD int lowest_bit(uint64_t m) {
+#ifdef __CUDA_ARCH__
+  return __ffsll((long long)m) - 1;
+#else
+  return __builtin_ctzll(m);
+#endif
+}
+
+// One chunk's rows (global ids base..base+63) into a sample's z-buffer: the
+// rows of `mask` (bit i: row base + i passed the tile's gate) whose gate box
+// holds the sample, with strict z < best in ascending row order, so a z tie
+// keeps the lowest sorted index, within the chunk and across ascending chunks
+// (raster_kernel.py:327-343). No other row of the chunk can cover the sample,
+// so the winner is that of a sweep over all 64. n_test counts the covers()
+// evaluated, n_cover those that cover.
+PTRE_HD void hard_sweep_gated(const float* rows, const GateBox* boxes, uint64_t mask, int base,
+                              float px, float py, float& best_z, int& best_i, uint32_t& n_test,
+                              uint32_t& n_cover) {
+  for (; mask != 0; mask &= mask - 1) {
+    const int i = lowest_bit(mask);
+    if (!box_holds(boxes[i], px, py)) continue;
+    ++n_test;
+    float z;
+    if (covers(rows + i * kRow, px, py, &z)) {
+      ++n_cover;
+      if (z < best_z) {
+        best_z = z;
+        best_i = base + i;
+      }
+    }
+  }
+}
+
 // Online-softmax state of one sample (soft_raster.py:191-226)
 struct SoftState {
   float m, D, W, N[3];
@@ -608,16 +676,71 @@ __device__ __forceinline__ BlockTile block_tile(const RasterParams& p) {
   return t;
 }
 
-// Every thread of the block copies part of chunk k's 64 x 32 floats (8 KB)
-// into shared memory, 16 bytes at a time (the table is 16-byte aligned).
-__device__ __forceinline__ void stage_chunk(float* dst, const float* tris, int k, int tid) {
-  const float4* src = reinterpret_cast<const float4*>(tris + (int64_t)k * kChunk * kRow);
-  float4* d = reinterpret_cast<float4*>(dst);
-  for (int i = tid; i < kChunk * kRow / 4; i += kTile * kTile) d[i] = __ldg(src + i);
+constexpr int kThreads = kTile * kTile;
+constexpr unsigned kFull = 0xffffffffu;
+
+// The counters of the kernels' stats instantiations (raster_kernel.STATS,
+// soft_raster.STATS), in order: visited (block, chunk) pairs, rows that pass
+// a visit's row gate, (sample, row) pairs evaluated (the sample inside the
+// row's gate box), and those that count (cover, or pass the coverage
+// threshold).
+enum : int { kVisits, kRowsPassed, kPairsEvaluated, kPairsCounted };
+
+// The row gate of chunk `rows` for this block's tile: the 64-bit mask of the
+// rows that pass (row_hits), their gate boxes (box_of(row)) left in s_box.
+// Every thread of the block calls it (two barriers); the first barrier also
+// tells that the previous chunk's readers of s_box and s_mask are done.
+template <typename BoxOf>
+__device__ __forceinline__ uint64_t gate_rows(const float* rows, const BlockTile& t, int tid,
+                                              GateBox* s_box, unsigned* s_mask, BoxOf box_of) {
+  __syncthreads();
+  if (tid < kChunk) {
+    const float* c = rows + tid * kRow;
+    const GateBox b = box_of(c);
+    s_box[tid] = b;
+    const unsigned m = __ballot_sync(kFull, row_hits(c, b, t.x_lo, t.x_hi, t.y_first,
+                                                     t.y_last));
+    if ((tid & 31) == 0) s_mask[tid >> 5] = m;
+  }
+  __syncthreads();
+  return (uint64_t)s_mask[1] << 32 | s_mask[0];
+}
+
+// Calls visit(kc) for every chunk whose box passes the tile's gate
+// (chunk_hits), ascending. Each warp's lanes test 32 chunks at once and a
+// ballot lists the hits; every warp tests the same chunks against the same
+// tile, so the list is block-uniform.
+template <typename Visit>
+__device__ __forceinline__ void for_each_chunk(const RasterParams& p, const float* cbox,
+                                               const BlockTile& t, int tid, Visit visit) {
+  for (int base = 0; base < p.n_chunks; base += 32) {
+    const int kl = base + (tid & 31);
+    unsigned hits = __ballot_sync(
+        kFull, kl < p.n_chunks &&
+                   chunk_hits(cbox + kl * kBoxStride, t.x_lo, t.x_hi, t.y_first, t.y_last));
+    for (; hits != 0; hits &= hits - 1) visit(base + __ffs(hits) - 1);
+  }
+}
+
+// Per-thread counts (evaluated, counted) summed over the warp, then added by
+// lane 0 with the block's visits and rows passed (thread 0's).
+__device__ __forceinline__ void add_stats(unsigned long long* stats, int tid,
+                                          unsigned long long visits,
+                                          unsigned long long rows_passed, uint32_t n_eval,
+                                          uint32_t n_count) {
+  n_eval = __reduce_add_sync(kFull, n_eval);
+  n_count = __reduce_add_sync(kFull, n_count);
+  if ((tid & 31) != 0) return;
+  if (tid == 0) {
+    atomicAdd(stats + kVisits, visits);
+    atomicAdd(stats + kRowsPassed, rows_passed);
+  }
+  atomicAdd(stats + kPairsEvaluated, (unsigned long long)n_eval);
+  atomicAdd(stats + kPairsCounted, (unsigned long long)n_count);
 }
 
 // The C interfaces' argument check (a non-empty window, whole chunks, a
-// 16-byte aligned table for stage_chunk) and the grid of sample tiles.
+// 16-byte aligned table) and the grid of sample tiles.
 inline int check_launch(const RasterParams& p, const float* tris) {
   if (p.rows_ss < 1 || p.width_ss < 1 || p.ss < 1 || p.n_chunks < 1 ||
       reinterpret_cast<uintptr_t>(tris) % 16 != 0) {

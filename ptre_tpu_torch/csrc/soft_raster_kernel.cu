@@ -71,64 +71,6 @@
 namespace ptre {
 namespace rast {
 
-constexpr int kThreads = kTile * kTile;
-constexpr unsigned kFull = 0xffffffffu;
-
-// The counters of the stats instantiation (soft_raster.STATS), in order.
-enum : int { kVisits, kRowsPassed, kPairsEvaluated, kPairsIncluded };
-
-// The row gate of chunk `rows` for this block's tile: the 64-bit mask of the
-// rows that pass (raster.cuh row_hits), their gate boxes left in s_box. Every
-// thread of the block calls it (two barriers); the first barrier also tells
-// that the previous chunk's readers of s_box, s_mask and s_acc are done.
-__device__ __forceinline__ uint64_t gate_rows(const float* rows, const BlockTile& t, float dil,
-                                              int tid, GateBox* s_box, unsigned* s_mask) {
-  __syncthreads();
-  if (tid < kChunk) {
-    const float* c = rows + tid * kRow;
-    const GateBox b = gate_box(c, dil);
-    s_box[tid] = b;
-    const unsigned m = __ballot_sync(kFull, row_hits(c, b, t.x_lo, t.x_hi, t.y_first,
-                                                     t.y_last));
-    if ((tid & 31) == 0) s_mask[tid >> 5] = m;
-  }
-  __syncthreads();
-  return (uint64_t)s_mask[1] << 32 | s_mask[0];
-}
-
-// Calls visit(kc) for every chunk whose box passes the tile's gate
-// (raster.cuh chunk_hits), ascending. Each warp's lanes test 32 chunks at
-// once and a ballot lists the hits; every warp tests the same chunks against
-// the same tile, so the list is block-uniform.
-template <typename Visit>
-__device__ __forceinline__ void for_each_chunk(const RasterParams& p, const float* cbox,
-                                               const BlockTile& t, int tid, Visit visit) {
-  for (int base = 0; base < p.n_chunks; base += 32) {
-    const int kl = base + (tid & 31);
-    unsigned hits = __ballot_sync(
-        kFull, kl < p.n_chunks &&
-                   chunk_hits(cbox + kl * kBoxStride, t.x_lo, t.x_hi, t.y_first, t.y_last));
-    for (; hits != 0; hits &= hits - 1) visit(base + __ffs(hits) - 1);
-  }
-}
-
-// Per-thread counts (evaluated, included) summed over the warp, then added
-// by lane 0 with the block's visits and rows passed (thread 0's).
-__device__ __forceinline__ void add_stats(unsigned long long* stats, int tid,
-                                          unsigned long long visits,
-                                          unsigned long long rows_passed, uint32_t n_eval,
-                                          uint32_t n_inc) {
-  n_eval = __reduce_add_sync(kFull, n_eval);
-  n_inc = __reduce_add_sync(kFull, n_inc);
-  if ((tid & 31) != 0) return;
-  if (tid == 0) {
-    atomicAdd(stats + kVisits, visits);
-    atomicAdd(stats + kRowsPassed, rows_passed);
-  }
-  atomicAdd(stats + kPairsEvaluated, (unsigned long long)n_eval);
-  atomicAdd(stats + kPairsIncluded, (unsigned long long)n_inc);
-}
-
 template <bool kStats>
 __global__ void __launch_bounds__(kThreads)
     soft_fwd_kernel(const RasterParams p, const float* __restrict__ tris,
@@ -146,7 +88,8 @@ __global__ void __launch_bounds__(kThreads)
   SoftState st = soft_state_init();
   for_each_chunk(p, cbox, t, tid, [&](int kc) {
     const float* rows = tris + (int64_t)kc * kChunk * kRow;
-    const uint64_t mask = gate_rows(rows, t, dil, tid, s_box, s_mask);
+    const uint64_t mask =
+        gate_rows(rows, t, tid, s_box, s_mask, [&](const float* c) { return gate_box(c, dil); });
     if (kStats) {
       ++visits;
       rows_passed += __popcll(mask);
@@ -205,7 +148,8 @@ __global__ void __launch_bounds__(kThreads, 3)
 
   for_each_chunk(p, cbox, t, tid, [&](int kc) {
     const float* rows = tris + (int64_t)kc * kChunk * kRow;
-    const uint64_t mask = gate_rows(rows, t, dil, tid, s_box, s_mask);
+    const uint64_t mask =
+        gate_rows(rows, t, tid, s_box, s_mask, [&](const float* c) { return gate_box(c, dil); });
     if (kStats) {
       ++visits;
       rows_passed += __popcll(mask);

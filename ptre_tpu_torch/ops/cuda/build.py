@@ -157,11 +157,11 @@ def load_library() -> ctypes.CDLL:
     lib.ptre_wave_bounce.argtypes = [ptr] * 14 + [ctypes.c_int, ptr]
     lib.ptre_trace_culled.restype = ctypes.c_int
     # (params, o, d, urand, tris, rows, boxes, boxes2, sphs, mats, sky, color,
-    #  sel, lanes, stream)
-    lib.ptre_trace_culled.argtypes = [ptr] * 13 + [ctypes.c_int, ptr]
+    #  sel, stats, lanes, stream)
+    lib.ptre_trace_culled.argtypes = [ptr] * 14 + [ctypes.c_int, ptr]
     lib.ptre_raster_hard.restype = ctypes.c_int
-    # (params, tris, cbox, out, stream)
-    lib.ptre_raster_hard.argtypes = [ptr] * 5
+    # (params, tris, cbox, out, stats, stream)
+    lib.ptre_raster_hard.argtypes = [ptr] * 6
     lib.ptre_soft_fwd.restype = ctypes.c_int
     # (params, tris, cbox, img, res, stats, stream)
     lib.ptre_soft_fwd.argtypes = [ptr] * 7

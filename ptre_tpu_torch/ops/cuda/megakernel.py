@@ -885,6 +885,11 @@ def finish_bounce_reference(state, ids, best: TriBest, scene, k: TraceConsts, bo
 culled_launches = 0
 #: rays per block of the culled megakernel, one CUDA thread each
 CULLED_LANES = 256
+#: the counters a launch of the culled megakernel adds to ``stats``: live
+#: ray-bounces, supertile and leaf box tests made, (ray, leaf) pairs whose
+#: leaf box the ray itself passes, and the (live lane, leaf) slots of the
+#: warps' visits (a warp visits a leaf that one of its lanes passes)
+CULLED_STATS = ("ray_bounces", "super_tests", "leaf_tests", "own_pairs", "warp_slots")
 
 
 def trace_culled_reference(o, d, scene, consts: TraceConsts, max_depth: int,
@@ -903,7 +908,13 @@ def trace_culled_reference(o, d, scene, consts: TraceConsts, max_depth: int,
     ``cull``) receives the work this run's rays needed: ``ray_bounces`` (live
     rays summed over the bounces), ``own_pairs`` ((ray, leaf) pairs whose
     leaf box the ray itself passed before its closest hit so far) and
-    ``swept_pairs`` ((ray, leaf) pairs swept after the blocks' votes)."""
+    ``swept_pairs`` ((ray, leaf) pairs swept after the blocks' votes). These
+    are the block votes of the kernel's first design; the kernel votes per
+    warp and only a lane whose own ray passes a leaf sweeps it, which gives
+    the same colours and selections (the cull is conservative). With
+    ``lanes=32`` a block is a warp, so ``ray_bounces``, ``own_pairs`` and
+    ``swept_pairs`` are the kernel's CULLED_STATS ``ray_bounces``,
+    ``own_pairs`` and ``warp_slots``."""
     R = o.shape[0]
     dev = o.device
     r_pad = -(-R // lanes) * lanes
@@ -963,7 +974,7 @@ def trace_culled_reference(o, d, scene, consts: TraceConsts, max_depth: int,
 
 def trace_culled(o, d, scene, consts: TraceConsts, max_depth: int, seed: int = 0,
                  sample: int = 0, urand=None, cull: bool = True, record: bool = False,
-                 lanes: int = CULLED_LANES):
+                 lanes: int = CULLED_LANES, stats=None):
     """Trace one sample per ray through the culled megakernel: (R, 3) rays →
     colour (R, 3) float32 unclamped, with ``record`` also the selections
     (max_depth, R) int32 (rows of ``scene.tris`` order, ``scene.tri_rows +
@@ -973,8 +984,9 @@ def trace_culled(o, d, scene, consts: TraceConsts, max_depth: int, seed: int = 0
     ``urand`` (2 + 2*max_depth, R) or None for Philox draws keyed by (seed,
     ray, sample, draw). ``cull=False`` sweeps every leaf (the brute A/B).
     CUDA tensors launch `csrc/mega_kernel.cu` once (counted in
-    ``culled_launches``); CPU tensors run `trace_culled_reference`; anything
-    else raises."""
+    ``culled_launches``); ``stats`` (5,) int64 on the card, or None,
+    receives the counters named in CULLED_STATS (with ``cull``). CPU tensors
+    run `trace_culled_reference`; anything else raises."""
     global culled_launches
     if o.device.type == "cpu":
         return trace_culled_reference(o, d, scene, consts, max_depth, seed, sample, urand,
@@ -993,6 +1005,8 @@ def trace_culled(o, d, scene, consts: TraceConsts, max_depth: int, seed: int = 0
                 ("sky", scene.sky, (8,), torch.float32)]
     if urand is not None:
         expected.append(("urand", urand, (2 + 2 * max_depth, R), torch.float32))
+    if stats is not None:
+        expected.append(("stats", stats, (len(CULLED_STATS),), torch.int64))
     if scene.num_mats > MAX_MATS:
         raise RendererError(f"the culled megakernel takes <= {MAX_MATS} materials")
     check_tensors("o", o.device, expected)
@@ -1017,7 +1031,8 @@ def trace_culled(o, d, scene, consts: TraceConsts, max_depth: int, seed: int = 0
             None if urand is None else urand.data_ptr(), scene.tris.data_ptr(),
             scene.rows.data_ptr(), scene.cull_boxes.data_ptr(), scene.super_boxes.data_ptr(),
             scene.sphs.data_ptr(), scene.mats.data_ptr(), scene.sky.data_ptr(),
-            color.data_ptr(), None if sel is None else sel.data_ptr(), lanes, stream)
+            color.data_ptr(), None if sel is None else sel.data_ptr(),
+            None if stats is None else stats.data_ptr(), lanes, stream)
     if rc != 0:
         raise RendererError(
             f"culled megakernel launch failed: {lib.ptre_cuda_error_string(rc).decode()}")

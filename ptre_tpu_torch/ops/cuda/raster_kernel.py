@@ -10,8 +10,11 @@ Port of `ptre_tpu/ops/pallas/raster_kernel.py`:
     SoftRas path takes its gradient through it.
   * `raster_tiles`: the wrapper of `csrc/raster_kernel.cu`, replacing
     `_raster_kernel` (`:255`), counted in ``launches``. CUDA tensors launch
-    the kernel (forward only: a table that needs a gradient raises); CPU
-    tensors run `raster_reference`, the plain version; anything else raises.
+    the kernel (forward only: a table that needs a gradient raises; with
+    ``stats`` its counting instantiation); CPU tensors run
+    `raster_reference`, the plain version; anything else raises.
+    `hard_gate_boxes` are the kernel's row gate (`csrc/raster.cuh`
+    hard_gate_box) in PyTorch, for counting the pairs it evaluates.
 
 The image is planar (3, rows * ss, width * ss) over a (y0, stride) window of
 output rows: window row r samples y = (y0 + stride * (r // ss)) * ss + r %
@@ -53,6 +56,12 @@ PLAIN_PAIRS = 1 << 22
 
 #: kernel launches made by `raster_tiles` in this process
 launches = 0
+#: the counters a launch with ``stats`` adds to: visited (block, chunk)
+#: pairs, rows that pass the row gate of a visit, (sample, row) pairs
+#: evaluated (the sample inside the row's gate box), and those that cover
+STATS = ("visits", "rows_passed", "pairs_evaluated", "pairs_covering")
+#: float32's unit roundoff, 2^-24 (`raster.cuh` kRoundoff)
+ROUNDOFF = mk.f32(5.9604645e-8)
 
 
 class RasterParams(ctypes.Structure):
@@ -208,20 +217,48 @@ def visited_pairs(cbox, rows_ss: int, width_ss: int, ss: int, y0: float = 0.0,
     return int(hit.sum())
 
 
-def box_pairs(tris, ys, width_ss: int, grow: float = 0.0) -> int:
+def box_pairs(tris, ys, width_ss: int, grow: float = 0.0, boxes=None) -> int:
     """The (sample, row) pairs of the kept rows whose sample lies inside the
-    row's own screen box (cols 23-26) grown by ``grow`` on every side: the
+    row's own screen box (cols 23-26) grown by ``grow`` on every side, or
+    inside ``boxes`` (T, 4) (minx, maxx, miny, maxy; `hard_gate_boxes`): the
     pairs that can cover (hard), or reach the coverage threshold (soft,
     grown by 14 sigma). ``ys``: the window rows' sample y (`sample_ys`),
     ascending. One host read."""
     keep = tris[:, 12] > 0.5
-    b = tris[keep][:, 23:27].double()
+    b = (tris[:, 23:27] if boxes is None else boxes)[keep].double()
     lo = torch.clamp(torch.ceil(b[:, 0] - grow - 0.5), min=0)  # column c samples x = c + 0.5
     hi = torch.clamp(torch.floor(b[:, 1] + grow - 0.5), max=width_ss - 1)
     ysd = ys.double().contiguous()
     ny = (torch.searchsorted(ysd, (b[:, 3] + grow).contiguous(), right=True)
           - torch.searchsorted(ysd, (b[:, 2] - grow).contiguous())).clamp(min=0)
     return int((torch.clamp(hi - lo + 1, min=0) * ny).sum())
+
+
+def window_span(rows_ss: int, width_ss: int, ss: int, y0: float = 0.0,
+                stride: float = 1.0) -> float:
+    """The largest |coordinate| of a sample of the window, plus ss + 1
+    (`raster.cuh` window_span), rounded as the kernel rounds it."""
+    ys = sample_ys(rows_ss, ss, y0, stride)
+    y = max(abs(float(ys[0])), abs(float(ys[-1])))
+    return mk.f32(mk.f32(max(float(width_ss), y)) + float(ss + 1))
+
+
+def hard_gate_boxes(tris, span: float):
+    """(T, 4) float32 gate boxes of the hard kernel's row gate (`raster.cuh`
+    hard_gate_box, the same float32 operations): each row's screen box grown
+    by the rounding reach of its coverage test, infinite where the reach
+    cannot be bounded (a sliver). Meaningful for kept rows only."""
+    c = tris.detach()
+    box = c[:, 23:27]
+    sb = torch.maximum(c[:, 24] - c[:, 23], c[:, 26] - c[:, 25])
+    m = box.abs().amax(dim=1)
+    q = (2.0 * ROUNDOFF * sb) * c[:, 22].abs()
+    reach = (64.0 * q) * (sb * sb)
+    dmax = span + m
+    sr = sb + dmax
+    sound = (reach <= 0.01 * sb) & ((32.0 * q) * (sr * sr + sb * sb) <= dmax)
+    r = torch.where(sound, reach, float("inf"))
+    return torch.stack([box[:, 0] - r, box[:, 1] + r, box[:, 2] - r, box[:, 3] + r], dim=1)
 
 
 def chunk_windows(cbox, ys, width_ss: int, margin: float = 1.0):
@@ -329,11 +366,12 @@ def check_launch(what: str, tris, cbox, rows_ss: int, width_ss: int, ss: int):
         raise RendererError(f"{what}: empty window {rows_ss}x{width_ss} (ss {ss})")
 
 
-def raster_tiles(tris, cbox, scal, rows_ss: int, width_ss: int, ss: int):
+def raster_tiles(tris, cbox, scal, rows_ss: int, width_ss: int, ss: int, stats=None):
     """The planar (3, rows_ss, width_ss) hard-rasterized window. CUDA
-    tensors launch `csrc/raster_kernel.cu` (counted in ``launches``); CPU
-    tensors run `raster_reference`; anything else raises. The kernel is
-    forward-only: a table that needs a gradient raises on CUDA."""
+    tensors launch `csrc/raster_kernel.cu` (counted in ``launches``);
+    ``stats`` (4,) int64 on the card, or None, receives the counters named
+    in STATS. CPU tensors run `raster_reference`; anything else raises. The
+    kernel is forward-only: a table that needs a gradient raises on CUDA."""
     global launches
     if tris.device.type == "cpu":
         return raster_reference(tris, cbox, scal, rows_ss, width_ss, ss)
@@ -343,13 +381,16 @@ def raster_tiles(tris, cbox, scal, rows_ss: int, width_ss: int, ss: int):
         raise RendererError("the hard raster kernel is forward-only: rasterize with "
                             "soft=True for gradients, or under torch.no_grad()")
     check_launch("raster_tiles", tris, cbox, rows_ss, width_ss, ss)
+    if stats is not None:
+        mk.check_tensors("tris", tris.device, [("stats", stats, (len(STATS),), torch.int64)])
     out = torch.empty((3, rows_ss, width_ss), dtype=torch.float32, device=tris.device)
     p = raster_params(scal, rows_ss, width_ss, ss, cbox.shape[0])
     lib = build.load_library()
     with torch.cuda.device(tris.device):
         stream = torch.cuda.current_stream(tris.device).cuda_stream
         rc = lib.ptre_raster_hard(ctypes.addressof(p), tris.data_ptr(), cbox.data_ptr(),
-                                  out.data_ptr(), stream)
+                                  out.data_ptr(), None if stats is None else stats.data_ptr(),
+                                  stream)
     if rc != 0:
         raise RendererError(
             f"raster kernel launch failed: {lib.ptre_cuda_error_string(rc).decode()}")

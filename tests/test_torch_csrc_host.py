@@ -134,7 +134,7 @@ def wave_lib(tmp_path_factory):
     lib.ptre_wave_bounce_host.restype = None
     lib.ptre_wave_bounce_host.argtypes = [ptr] * 14 + [ctypes.c_int]
     lib.ptre_trace_culled_host.restype = None
-    lib.ptre_trace_culled_host.argtypes = [ptr] * 13 + [ctypes.c_int]
+    lib.ptre_trace_culled_host.argtypes = [ptr] * 14
     return lib
 
 
@@ -346,9 +346,10 @@ def test_host_mask_two_level_walk_matches_plain_on_adversarial_rays(wave_lib, na
 @pytest.mark.parametrize("external", [True, False])
 @pytest.mark.parametrize("cull", [True, False])
 def test_host_culled_megakernel_matches_plain_version(wave_lib, name, external, cull):
-    """mega_kernel.cu's block — the two-level walk with the block's votes
-    bounded by each ray's best hit, the sweep, the recording finish, the
-    all-dead exit — over a ragged ray count in 64-ray blocks. Tolerance as
+    """mega_kernel.cu's warp — the two-level walk, each lane's box tests
+    bounded by its own best hit, the sweep of the leaves a lane passes, the
+    recording finish, the all-dead exit — over a ragged ray count, against
+    the plain version's 64-ray blocks. Tolerance as
     above: the selections equal and the colour within 1e-5 on >= 99 % of the
     rays, all colours within 2e-4 (three bounces of the ground sphere's
     1e-5), and rays that agree on every selection within 1e-4."""
@@ -371,6 +372,7 @@ def test_host_culled_megakernel_matches_plain_version(wave_lib, name, external, 
     color = torch.empty((R, 3))
     sel = torch.full((B, R), -7, dtype=torch.int32)  # every slot must be written
     plain_color = torch.empty((R, 3))
+    stats = np.zeros(len(mk.CULLED_STATS), np.int64)
     for out, rec in ((color, sel), (plain_color, None)):
         wave_lib.ptre_trace_culled_host(
             ctypes.addressof(p), o.data_ptr(), d.data_ptr(),
@@ -378,7 +380,7 @@ def test_host_culled_megakernel_matches_plain_version(wave_lib, name, external, 
             scene.rows.data_ptr(), scene.cull_boxes.data_ptr(), scene.super_boxes.data_ptr(),
             scene.sphs.data_ptr(),
             scene.mats.data_ptr(), scene.sky.data_ptr(), out.data_ptr(),
-            None if rec is None else rec.data_ptr(), lanes)
+            None if rec is None else rec.data_ptr(), stats.ctypes.data)
     assert torch.equal(color, plain_color)
     want, want_sel = mk.trace_culled_reference(o, d, scene, k, B, 0xBEEF, 5, urand, cull=cull,
                                                record=True, lanes=lanes)
@@ -402,7 +404,7 @@ def raster_lib(tmp_path_factory):
     lib.ptre_soft_pair_host_d.argtypes = [ctypes.c_int] + [ptr] * 5
     lib.ptre_soft_pair_adjoint_host_d.restype = None
     lib.ptre_soft_pair_adjoint_host_d.argtypes = [ctypes.c_int] + [ptr] * 6
-    for name, n in (("ptre_raster_hard_host", 4), ("ptre_soft_fwd_host", 6),
+    for name, n in (("ptre_raster_hard_host", 5), ("ptre_soft_fwd_host", 6),
                     ("ptre_soft_bwd_host", 7)):
         getattr(lib, name).restype = ctypes.c_longlong
         getattr(lib, name).argtypes = [ptr] * n
@@ -565,8 +567,10 @@ def test_host_raster_kernel_bodies_match_plain_versions(raster_lib):
 
     cols, cbox, scal, p, R, Wss, ss = _raster_host_inputs()
     out = torch.empty((3, R, Wss))
+    h_stats = np.zeros(len(rk.STATS), np.int64)
     n_hard = raster_lib.ptre_raster_hard_host(ctypes.addressof(p), cols.data_ptr(),
-                                              cbox.data_ptr(), out.data_ptr())
+                                              cbox.data_ptr(), out.data_ptr(),
+                                              h_stats.ctypes.data)
     want = rk.raster_reference(cols, cbox, scal, R, Wss, ss)
     np.testing.assert_allclose(out.numpy(), want.numpy(), rtol=0, atol=1e-6)
     assert n_hard == rk.visited_pairs(cbox, R, Wss, ss, 1.0, 2.0) > 0

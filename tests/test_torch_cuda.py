@@ -933,3 +933,129 @@ def test_mse_step_past_max_depth_runs_staged_through_the_sweep_kernel(cuda):
             assert float((got - g).norm() / g.norm()) <= 2e-3, key
         else:
             assert float(got.abs().max()) <= 1e-6, key
+
+
+# ---- the hard raster kernel and the culled megakernel against their first designs --
+
+
+@pytest.fixture(scope="module")
+def first_raster_mega():
+    """The first designs of the hard raster kernel and the culled megakernel
+    (csrc/baseline/raster_mega/, built against the frozen headers there by
+    chip_smoke.py's `start_baseline_build`) through their own C interfaces:
+    (raster_tiles-like, trace_culled-like)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    import chip_smoke
+
+    libs = {u: chip_smoke.finish_unit_build(chip_smoke.start_baseline_build(u, "raster_mega"))
+            for u in ("raster_kernel.cu", "mega_kernel.cu")}
+    return (chip_smoke.baseline_raster_hard(libs["raster_kernel.cu"], rast),
+            chip_smoke.baseline_trace_culled(libs["mega_kernel.cu"], mk))
+
+
+def _host_lib(tmp_path, source, name, argtypes, restype=None):
+    import ctypes
+    import os
+    import shutil
+    import subprocess
+
+    from ptre_tpu_torch.ops.cuda import build
+
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        pytest.fail(f"no C++ compiler (g++) to build csrc/{source}")
+    so = str(tmp_path / f"lib_{name}.so")
+    subprocess.run([cxx, "-std=c++17", "-O2", "-shared", "-fPIC", "-o", so,
+                    os.path.join(build.CSRC_DIR, source)], check=True)
+    lib = ctypes.CDLL(so)
+    getattr(lib, name).restype = restype
+    getattr(lib, name).argtypes = argtypes
+    return lib
+
+
+@pytest.mark.parametrize("W,H,ss,y0,stride,rows", [(200, 120, 2, 0.0, 1, None),
+                                                   (333, 200, 3, 0.0, 1, None),
+                                                   (999, 537, 2, 5.0, 3, 150)])
+def test_hard_raster_kernel_equals_first_design(cuda, first_raster_mega, tmp_path, W, H, ss,
+                                                y0, stride, rows):
+    """The row-gated kernel's image equals the first design's bit for bit
+    (and the plain version's); its counting instantiation gives the same
+    image and the g++ build's counters (csrc/host_raster.cpp)."""
+    import ctypes
+
+    cfg, pkt, cam, _, _, R, Wss, ss = _raster_setup(cuda, W=W, H=H, ss=ss, rows=rows)
+    with torch.no_grad():
+        tris, cbox = rast.pack_raster_tris(pkt, cam, cfg)
+    scal = rast.raster_scalars(cfg, 0.0, y0, stride)
+    got = rast.raster_tiles(tris, cbox, scal, R, Wss, ss)
+    first = first_raster_mega[0](tris, cbox, scal, R, Wss, ss)
+    stats = torch.zeros(len(rast.STATS), dtype=torch.int64, device=cuda)
+    counted = rast.raster_tiles(tris, cbox, scal, R, Wss, ss, stats=stats)
+    want = rast.raster_reference(tris, cbox, scal, R, Wss, ss)
+    torch.cuda.synchronize()
+    assert torch.equal(got, first) and torch.equal(counted, got) and torch.equal(got, want)
+    host = _host_lib(tmp_path, "host_raster.cpp", "ptre_raster_hard_host",
+                     [ctypes.c_void_p] * 5, ctypes.c_longlong)
+    h_img = torch.empty((3, R, Wss))
+    h_stats = np.zeros(len(rast.STATS), np.int64)
+    p = rast.raster_params(scal, R, Wss, ss, cbox.shape[0])
+    t_cpu, b_cpu = tris.cpu(), cbox.cpu()
+    host.ptre_raster_hard_host(ctypes.addressof(p), t_cpu.data_ptr(), b_cpu.data_ptr(),
+                               h_img.data_ptr(), h_stats.ctypes.data)
+    assert stats.tolist() == h_stats.tolist()
+    assert stats[0] == rast.visited_pairs(cbox, R, Wss, ss, y0, stride) and int(stats[3]) > 0
+
+
+@pytest.mark.parametrize("external", [True, False])
+@pytest.mark.parametrize("max_depth", [1, 4, 8])
+def test_culled_megakernel_equals_first_design(cuda, first_raster_mega, tmp_path, external,
+                                               max_depth):
+    """The per-warp walk's colours and selections equal the first design's
+    (block votes) bit for bit, recording and not, with culling on and off;
+    its counting instantiation gives the same colour and the g++ build's
+    counters (csrc/host_wave.cpp), with the warps' slots at least the pairs
+    the rays pass."""
+    import ctypes
+
+    cfg, _, _, scene, k, o, d = _tri_rays(cuda, W=200, H=111, B=max_depth)
+    R = o.shape[0]
+    urand = torch.rand((2 + 2 * max_depth, R), device=cuda) if external else None
+    for cull in (True, False):
+        color, sel = mk.trace_culled(o, d, scene, k, max_depth, 9, 1, urand, cull=cull,
+                                     record=True)
+        fc, fs = first_raster_mega[1](o, d, scene, k, max_depth, 9, 1, urand, cull=cull,
+                                      record=True)
+        plain = mk.trace_culled(o, d, scene, k, max_depth, 9, 1, urand, cull=cull)
+        f_plain = first_raster_mega[1](o, d, scene, k, max_depth, 9, 1, urand, cull=cull)
+        torch.cuda.synchronize()
+        assert torch.equal(color, fc) and torch.equal(sel, fs), cull
+        assert torch.equal(plain, f_plain) and torch.equal(plain, color), cull
+    stats = torch.zeros(len(mk.CULLED_STATS), dtype=torch.int64, device=cuda)
+    counted = mk.trace_culled(o, d, scene, k, max_depth, 9, 1, urand, stats=stats)
+    torch.cuda.synchronize()
+    assert torch.equal(counted, plain)
+    host = _host_lib(tmp_path, "host_wave.cpp", "ptre_trace_culled_host",
+                     [ctypes.c_void_p] * 14)
+    p = mk.MegaParams(
+        w=mk.wave_params(k, 9, 1, scene, n_rays=R, n_sel=R, external_rng=int(external)),
+        max_depth=max_depth, n_super=scene.super_boxes.shape[0], cull=1)
+    cpu = {f: getattr(scene, f).cpu().contiguous() for f in
+           ("tris", "rows", "cull_boxes", "super_boxes", "sphs", "mats", "sky")}
+    o_c, d_c = o.cpu(), d.cpu()
+    u_c = None if urand is None else urand.cpu()
+    h_col = torch.empty((R, 3))
+    h_stats = np.zeros(len(mk.CULLED_STATS), np.int64)
+    host.ptre_trace_culled_host(
+        ctypes.addressof(p), o_c.data_ptr(), d_c.data_ptr(),
+        None if u_c is None else u_c.data_ptr(), *(cpu[f].data_ptr() for f in (
+            "tris", "rows", "cull_boxes", "super_boxes", "sphs", "mats", "sky")),
+        h_col.data_ptr(), None, h_stats.ctypes.data)
+    st = dict(zip(mk.CULLED_STATS, stats.tolist()))
+    # the unit contracts a*b+c in the row tests (as the first design did), so
+    # a closest hit may sit an ulp from the g++ build's and a box test
+    # bounded by it go the other way: each counter within 1e-3
+    for got_n, want_n in zip(stats.tolist(), h_stats.tolist()):
+        assert abs(got_n - want_n) <= 1e-3 * want_n
+    assert 0 < st["own_pairs"] <= st["warp_slots"] <= st["leaf_tests"]
+    assert st["super_tests"] == st["ray_bounces"] * scene.super_boxes.shape[0]

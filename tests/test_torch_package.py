@@ -92,10 +92,10 @@ def _imported_modules(path):
     return names
 
 
-@pytest.mark.parametrize("path", ["chip_smoke.py", "ptre_tpu_torch"])
+@pytest.mark.parametrize("path", ["chip_smoke.py", "chip_ablations.py", "ptre_tpu_torch"])
 def test_sources_name_no_jax_and_no_reference_module(path):
-    """No import statement of chip_smoke.py or of any port source names jax or
-    a ``ptre_tpu`` module (read with ast: importing chip_smoke runs nothing,
+    """No import statement of chip_smoke.py, chip_ablations.py or of any port
+    source names jax or a ``ptre_tpu`` module (read with ast: importing chip_smoke runs nothing,
     so its imports inside functions must be read, not executed)."""
     full = os.path.join(REPO, path)
     files = [full] if full.endswith(".py") else [
