@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Ablations of the hard raster kernel and the culled megakernel on one GPU.
+"""Ablations of the hard raster kernel, the culled megakernel and the
+replay pair on one GPU.
 
-    python3 chip_ablations.py
+    python3 chip_ablations.py [raster_mega] [replay]   (no argument: both)
 
 Not a gate: ``chip_smoke.py`` holds the shipped kernels to their plain
 versions and first designs. This script measures what the designs' parts
@@ -27,6 +28,33 @@ one recording sample of 5 bounces:
   * "spread <= n": the warp sweeps a leaf's passing rays only where at most
     n lanes pass it, else per lane;
   * blocks of 128 and 64 rays instead of 256 (the wrapper's ``lanes``).
+
+Replay pair, the demo scene at 1920x1080, max_depth 5 and 8, the
+recording kernel's selections of one Philox sample (chip_smoke.py phase
+21's):
+  * "forward floor": the forward's chain step replaced by its loads alone
+    (the selection and the columns the chain reads of a hit's row, summed;
+    the same bounces entered), beside the bytes of the 32-byte sectors
+    the forward touches against those its bound counts (the colour is not
+    the shipped one; the backward is unchanged and must equal it);
+  * "slab rows": each bounce's 32 rows staged by the warp as a slab of
+    float4s in shared memory, where a lane needs one, instead of read as
+    each lane's own columns;
+  * "staged rays": o, d, d(colour) read and the colour, d(o), d(d) written
+    as a warp's 384 contiguous bytes through shared memory instead of by
+    each lane;
+  * "no dead tails": every bounce run, dead lanes or not (no vote);
+  * "scalar slabs": d(g) written by coalesced scalar stores from the slice
+    instead of float4s;
+  * "16 warps": the backward's launch bounds ask for 4 blocks of 128
+    threads an SM instead of 3 (128 registers, with spills);
+  * "forward 7 blocks", "forward 10 blocks": the forward's launch bounds
+    without a minimum (7 blocks an SM) or asking for 10, instead of 8;
+  * "8 warps": the backward's launch bounds ask for 2 blocks an SM;
+  * "with FMA": the unit built with FMA contraction (not shipped: its
+    colour is read against the plain version, not held);
+  beside the first design (``csrc/baseline/replay_pair/``), with the
+  shipped kernels' registers, shared memory and blocks an SM.
 
 Prints the card's name and power limit beside every time.
 """
@@ -93,6 +121,23 @@ def variant(build, unit, tag, edits, flags=()):
 
 
 def main():
+    from ptre_tpu_torch.utils.device import require_cuda
+
+    dev = require_cuda()
+    card = cs.sh(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
+    print(card, flush=True)
+    parts = sys.argv[1:] or ["raster_mega", "replay"]
+    for part in parts:
+        cs.check(part in ("raster_mega", "replay"), f"unknown part {part}")
+    if "raster_mega" in parts:
+        raster_mega(dev, card)
+    if "replay" in parts:
+        replay(dev, card)
+
+
+def raster_mega(dev, card):
+    """The hard raster kernel's and the culled megakernel's variants against
+    the shipped build, outputs compared, timed in turns."""
     import torch
 
     from ptre_tpu_torch.models import demo
@@ -104,11 +149,7 @@ def main():
     from ptre_tpu_torch.ops.cuda import wavefront as wf
     from ptre_tpu_torch.render import pathtracer as pt
     from ptre_tpu_torch.utils.config import RasterConfig, RenderConfig
-    from ptre_tpu_torch.utils.device import require_cuda
 
-    dev = require_cuda()
-    card = cs.sh(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
-    print(card, flush=True)
     hard_v = {
         "staged": variant(build, "raster_kernel.cu", "staged", [
             ("  __shared__ GateBox s_box[kChunk];",
@@ -223,6 +264,212 @@ def main():
               + ", ".join(f"{v} {ms:.4f} ms" for v, ms in times.items()) + f" [{card}]",
               flush=True)
 
+
+# replay_kernel.cu: the texts the replay variants edit. The shipped unit's
+# per-lane row pointer, and a warp's 32 rows staged in shared memory (as
+# float4s where the slab is whole and aligned) by warps where a lane needs
+# one; its per-lane loads and stores of o, d, d(colour), colour, d(o),
+# d(d), and the warp's 96 contiguous floats staged through shared memory.
+LANE_ROW = """__device__ __forceinline__ const float* bounce_row(const TraceParams& p, const float* g,
+                                                   int b, const WarpRays& w, bool need) {
+  return need ? g + ((int64_t)b * p.n_rays + w.r0 + w.lane) * kRowStride : nullptr;
+}"""
+SLAB_ROW = """__shared__ __align__(16) float s_rows[kReplayWarps][kSlab];
+__device__ __forceinline__ const float* bounce_row(const TraceParams& p, const float* g,
+                                                   int b, const WarpRays& w, bool need) {
+  float* slice = s_rows[threadIdx.x >> 5];
+  if (__ballot_sync(kFull, need) != 0u) {
+    __syncwarp();
+    const float* src = g + slab_offset(p, b, w);
+    if (w.n == 32 && p.n_rays % 4 == 0 && is16(g)) {
+      const float4* q = reinterpret_cast<const float4*>(src);
+      float4* s4 = reinterpret_cast<float4*>(slice);
+      for (int i = w.lane; i < kSlab / 4; i += 32) s4[i] = __ldg(q + i);
+    } else {
+      for (int i = w.lane; i < w.n * kRowStride; i += 32) slice[i] = __ldg(src + i);
+    }
+    __syncwarp();
+  }
+  return slice + w.lane * kRowStride;
+}"""
+LANE_RAYS = """__device__ __forceinline__ void load3(const float* __restrict__ v, const WarpRays& w,
+                                      float out[3]) {
+  for (int i = 0; i < 3; ++i) out[i] = w.lane < w.n ? __ldg(v + 3 * (w.r0 + w.lane) + i) : 0.0f;
+}
+
+__device__ __forceinline__ void store3(float* __restrict__ v, const WarpRays& w,
+                                       const float in[3]) {
+  if (w.lane < w.n)
+    for (int i = 0; i < 3; ++i) v[3 * (w.r0 + w.lane) + i] = in[i];
+}"""
+STAGED_RAYS = """__shared__ float s_rays[kReplayWarps][96];
+__device__ __forceinline__ void load3(const float* __restrict__ v, const WarpRays& w,
+                                      float out[3]) {
+  float* slice = s_rays[threadIdx.x >> 5];
+  __syncwarp();
+  for (int i = w.lane; i < 3 * w.n; i += 32) slice[i] = __ldg(v + 3 * w.r0 + i);
+  __syncwarp();
+  for (int i = 0; i < 3; ++i) out[i] = w.lane < w.n ? slice[3 * w.lane + i] : 0.0f;
+}
+
+__device__ __forceinline__ void store3(float* __restrict__ v, const WarpRays& w,
+                                       const float in[3]) {
+  float* slice = s_rays[threadIdx.x >> 5];
+  __syncwarp();
+  for (int i = 0; i < 3; ++i) slice[3 * w.lane + i] = in[i];
+  __syncwarp();
+  for (int i = w.lane; i < 3 * w.n; i += 32) v[3 * w.r0 + i] = slice[i];
+}"""
+# The forward's chain step, and the same loads without its arithmetic: the
+# selection, and the columns chain_bounce reads of a hit's row by its kind,
+# summed into the colour; the path ends where the chain ends it (a miss or
+# an emitter), so the same bounces are entered. Not equal to the shipped
+# colour: its time is the forward's memory floor on these inputs.
+CHAIN_STEP = "    replay_step(b, idx, row, p.sph_offset, un, sky, k, ln, none);"
+LOADS_ONLY = """    if (ln.act) {
+      if (idx < 0) {
+        ln.c[0] += sky[0] * ln.d[1];
+        ln.act = false;
+      } else {
+        float s = row[22] + row[23] + row[24] + row[25] + row[26];
+        if (row[22] > 0.5f) {
+          ln.act = false;
+        } else if (idx < p.sph_offset) {
+          for (int j = 0; j < 18; ++j) s += row[j];
+        } else {
+          for (int j = 18; j < 22; ++j) s += row[j];
+        }
+        ln.c[0] += s;
+      }
+    }"""
+REPLAY_EDITS = {
+    "forward floor": [(CHAIN_STEP, LOADS_ONLY)],
+    "slab rows": [(LANE_ROW, SLAB_ROW)],
+    "staged rays": [(LANE_RAYS, STAGED_RAYS)],
+    "no dead tails": [("__ballot_sync(kFull, ln.act) == 0u", "p.max_depth < 0")],
+    "scalar slabs": [("w.vec = w.n == 32 && p.n_rays % 4 == 0 && d_g != nullptr && is16(d_g);",
+                      "w.vec = false;")],
+    "16 warps": [("constexpr int kReplayMinBlocks = 3;", "constexpr int kReplayMinBlocks = 4;")],
+    "forward 7 blocks": [("constexpr int kFwdMinBlocks = 8;", "constexpr int kFwdMinBlocks = 1;")],
+    "forward 10 blocks": [("constexpr int kFwdMinBlocks = 8;",
+                           "constexpr int kFwdMinBlocks = 10;")],
+    "8 warps": [("constexpr int kReplayMinBlocks = 3;", "constexpr int kReplayMinBlocks = 2;")],
+}
+
+
+def forward_sectors(sel, table, T):
+    """Bytes of the distinct 32-byte sectors the replay forward touches on
+    recorded selections ``sel`` (B, R): o, d read and the colour written
+    whole; the selection of each bounce a live path enters; the columns
+    chain_bounce reads of each hit's row in g (B, R, 27) — an emitter's
+    22-26, a sphere's 18-26, a triangle's 0-17 and 22-26."""
+    import torch
+
+    B, R = sel.shape
+    emissive = table[:, 22] > 0.5
+    live = torch.ones(R, dtype=torch.bool, device=sel.device)
+    sel_at, spans = [], []
+    for b in range(B):
+        s = sel[b]
+        hit = s >= 0
+        emit = hit & emissive[s.clamp(min=0).long()]
+        ray = torch.nonzero(live).squeeze(1)
+        sel_at.append((b * R + ray) * 4)
+        base = (b * R + ray) * 108
+        tri, rest = (live & hit & ~emit & (s < T))[ray], (live & hit)[ray]
+        spans += [(base[tri], 0, 72), (base[rest & emit[ray]], 88, 108),
+                  (base[rest & ~emit[ray] & ~tri], 72, 108), (base[tri], 88, 108)]
+        live = live & hit & ~emit
+
+    def sectors(start, end):  # the sectors of byte ranges of at most 128 bytes
+        first, last = start // 32, (end - 1) // 32
+        span = first[:, None] + torch.arange(5, device=sel.device)
+        return span[span <= last[:, None]]
+
+    n_sel = sectors(torch.cat(sel_at), torch.cat(sel_at) + 4).unique().numel()
+    n_rows = torch.cat([sectors(b + lo, b + hi) for b, lo, hi in spans]).unique().numel()
+    return 32 * (n_sel + n_rows) + 3 * 32 * -(-R * 12 // 32)
+
+
+def replay(dev, card):
+    """The replay pair's variants (`REPLAY_EDITS`, the unit built with FMA
+    contraction, the first design) against the shipped build: outputs
+    compared, then timed in turns at max_depth 5 and 8."""
+    import torch
+
+    from ptre_tpu_torch.models import demo
+    from ptre_tpu_torch.ops import camera as cam_ops
+    from ptre_tpu_torch.ops import path_replay, rng
+    from ptre_tpu_torch.ops.cuda import build
+    from ptre_tpu_torch.ops.cuda import megakernel as mk
+    from ptre_tpu_torch.ops.cuda import replay_kernel as rpk
+    from ptre_tpu_torch.render import pathtracer as pt
+    from ptre_tpu_torch.utils.config import RenderConfig
+
+    builds = {name: variant(build, "replay_kernel.cu", name.replace(" ", "_"), edits,
+                            build.UNIT_FLAGS["replay_kernel.cu"])
+              for name, edits in REPLAY_EDITS.items()}
+    builds["with FMA"] = cs.start_unit_build("replay_kernel.cu", "replay_fma")
+    builds["first design"] = cs.start_baseline_build("replay_kernel.cu", "replay_pair")
+    build.load_library()
+    cs.replay_build_report(build, card)
+    pairs = {}
+    for name, b in builds.items():
+        report = []
+        pairs[name] = cs.lib_replay_pair(cs.finish_unit_build(b, report), rpk, mk)
+        print(f"  {name}: " + "; ".join(e for e in report if e.startswith("replay"))
+              + f" [{card}]", flush=True)
+
+    W, H, seed = cs.W_MAIN, cs.H_MAIN, cs.REPLAY_SEED
+    R = W * H
+    pkt = demo.reference_demo_scene(32, 16).build_packet(device=dev)
+    cam = cam_ops.Camera.create(width=W, height=H)
+    jit = rng.ray_uniforms(seed, 0, R, 1, dev) - 0.5
+    o, d = (t.contiguous() for t in cam_ops.get_rays(cam, *pt.pixel_grid(H, W, dev), jit.T))
+    table, T, sky6 = path_replay.build_table(pkt)
+    dcol = torch.randn((R, 3), device=dev, generator=torch.Generator(dev).manual_seed(5))
+    shipped = (rpk.replay_fwd, rpk.replay_bwd)
+    for B in (5, 8):
+        k = mk.TraceConsts.from_config(RenderConfig(width=W, height=H, max_depth=B))
+        _, sel = mk.trace_fused_sel(o, d, mk.pack_scene(pkt), k, B, seed, 0)
+        g = path_replay.gather_rows(table, sel)
+        fargs = (o, d, g, sel, sky6, T, k, B, seed, 0)
+        bargs = (o, d, g, sel, sky6, dcol, T, k, B, seed, 0)
+        col, grads = rpk.replay_fwd(*fargs), rpk.replay_bwd(*bargs)
+        print(f"max_depth {B}: {cs.warp_slabs(g, sel, B)}", flush=True)
+        fwd_bytes = cs.replay_work(sel, table, T)[0][0]
+        moved = forward_sectors(sel, table, T)
+        print(f"  forward: {fwd_bytes / 1e6:.1f} MB counted by the bound, {moved / 1e6:.1f} MB "
+              f"in the 32-byte sectors its loads and stores touch ({moved / fwd_bytes:.2f} "
+              f"times), {moved / cs.HBM_BYTES_PER_S * 1e3:.4f} ms at the bound's rate",
+              flush=True)
+        for name, (fwd, bwd) in pairs.items():
+            v_col, v_grads = fwd(*fargs), bwd(*bargs)
+            if name == "forward floor":
+                cs.check(all(torch.equal(a, b) for a, b in zip(v_grads[:3], grads[:3])),
+                         "replay forward floor: other gradients")
+                continue
+            if name == "with FMA":
+                want = rpk.replay_fwd_reference(*fargs)
+                err = (v_col - want).abs()
+                print(f"  with FMA: colour max_abs_err {float(err.max()):.3e} against the "
+                      f"plain version, {int((err > cs.REPLAY_FWD_ATOL).any(1).sum())} of {R} "
+                      f"rays beyond {cs.REPLAY_FWD_ATOL:g} (shipped: "
+                      f"{float((col - want).abs().max()):.3e})", flush=True)
+                continue
+            cs.check(torch.equal(v_col, col) and all(torch.equal(a, b) for a, b in
+                                                     zip(v_grads[:3], grads[:3])),
+                     f"replay {name}: other colour or gradients")
+        for kind, i, args, reps in (("forward", 0, fargs, 20), ("backward", 1, bargs, 10)):
+            fns = {"shipped": lambda i=i, args=args: shipped[i](*args)}
+            fns.update({name: (lambda f=pair[i], args=args: f(*args))
+                        for name, pair in pairs.items()})
+            for _ in range(2):
+                times = cs.in_turns(fns, reps)
+                print(f"replay {kind}, demo at {W}x{H}, max_depth {B}, in turns: " + ", ".join(
+                    f"{name} {ms:.4f} ms" for name, ms in times.items()) + f" [{card}]",
+                    flush=True)
+        del g, sel, grads, col
 
 if __name__ == "__main__":
     main()

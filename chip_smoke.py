@@ -102,8 +102,12 @@ source, all at once), then:
        1920x1080: holds the replay forward and backward kernels against
        their plain versions on the recording kernel's selections (the
        backward by column group, against float64 too, the fused backward
-       held there beside it), the route's loss and gradients against the
-       fused route's on the same seed, and drives
+       held there beside it) and bit for bit against their first designs
+       (``csrc/baseline/replay_pair/``) at max_depth 5 and 8, timed in turns
+       with them, with the registers, shared memory and blocks an SM of
+       both depths and the warps' dead tails and slabs
+       (`warp_slabs`), the route's loss and gradients
+       against the fused route's on the same seed, and drives
        ``mse_step`` (spp 1, 1 + 8 steps) and ``two_pass_mse_step`` (spp 64)
        on it — checking one record, one replay forward and one replay
        backward launch a sample — with a device profile of a step.
@@ -390,14 +394,16 @@ def main():
           f"torch.version.cuda {torch.version.cuda}", flush=True)
     print(sh([build.find_nvcc(), "--version"]).splitlines()[-1], flush=True)
     # the first designs of the render, recording, fused backward and mask
-    # kernels (csrc/baseline/) and of the hard raster kernel and the culled
-    # megakernel (csrc/baseline/raster_mega/, against their own frozen
-    # headers): phases 2-7, 9, 12, 15 and 17 hold the shipped kernels to them
-    # and time both in turns, compiled beside the library
+    # kernels (csrc/baseline/), of the hard raster kernel and the culled
+    # megakernel (csrc/baseline/raster_mega/) and of the replay pair
+    # (csrc/baseline/replay_pair/), each against its own frozen headers:
+    # phases 2-7, 9, 12, 15, 17 and 21 hold the shipped kernels to them and
+    # time both in turns, compiled beside the library
     first = {u: start_baseline_build(u) for u in (
         "render_kernel.cu", "record_kernel.cu", "fused_grad_kernel.cu", "mask_kernel.cu")}
     first.update({u: start_baseline_build(u, "raster_mega")
                   for u in ("raster_kernel.cu", "mega_kernel.cu")})
+    first["replay_kernel.cu"] = start_baseline_build("replay_kernel.cu", "replay_pair")
     t0 = time.perf_counter()
     build.load_library()
     build_s = time.perf_counter() - t0
@@ -627,7 +633,10 @@ def main():
                                         baseline_trace_culled(first["mega_kernel.cu"], mk),
                                         dense_bwd_ms=grad_kernels[1]["ms"])
     kernels.append(staged_phases(dev, card, rs, build.last_build and build.last_build[1]))
-    kernels += replay_phases(dev, card, rs, fma_bwd)
+    from ptre_tpu_torch.ops.cuda import replay_kernel as rpk
+
+    kernels += replay_phases(dev, card, rs, fma_bwd,
+                             lib_replay_pair(first["replay_kernel.cu"], rpk, mk))
 
     # ---- result --------------------------------------------------------------------
     print(f"chip_smoke.py: every phase passed in {time.perf_counter() - t_run:.1f} s, the "
@@ -2240,6 +2249,43 @@ def first_design_warp_bounces(lens):
     return int(F.pad(lens, (0, -lens.shape[0] % 32)).reshape(-1, 32).amax(dim=1).sum())
 
 
+def warp_slabs(g, sel, max_depth: int) -> dict:
+    """What the replay kernels' warps (``csrc/replay_kernel.cu``, 32
+    consecutive rays each) do on the gathered rows ``g`` (B, R, 27) and
+    selections ``sel`` (B, R): the warp-bounces (``warps`` x
+    ``max_depth``), those ``skipped`` past a warp's dead tail (no lane's
+    path alive entering the bounce: neither kernel runs it), and the
+    backward's d(g) slabs written as zeros without staging (``zero_slabs``,
+    the skipped ones included: no lane hit) against those ``staged`` in
+    shared memory; and the ``ray_bounces`` the paths enter, the lanes doing
+    work in the warp-bounces that are run (each reads its selection). A
+    path is alive entering bounce b + 1 if it was entering b, hit (``sel >=
+    0``) and its row is not an emitter (kind > 0.5)."""
+    import torch
+
+    R = sel.shape[1]
+    n_warps = -(-R // 32)
+
+    def by_warp(flags):
+        padded = torch.zeros(n_warps * 32, dtype=torch.bool, device=flags.device)
+        padded[:R] = flags
+        return padded.view(n_warps, 32).any(dim=1)
+
+    alive = torch.ones(R, dtype=torch.bool, device=sel.device)
+    entered, hit_any, ray_bounces = [], [], 0
+    for b in range(max_depth):
+        hit = sel[b] >= 0
+        ray_bounces += int(alive.sum())
+        entered.append(by_warp(alive))
+        hit_any.append(by_warp(hit))
+        alive = alive & hit & ~(g[b, :, 22] > 0.5)
+    entered, hit_any = torch.stack(entered), torch.stack(hit_any)
+    staged = int((entered & hit_any).sum())
+    return {"warps": n_warps, "warp_bounces": n_warps * max_depth,
+            "skipped": int((~entered).sum()), "zero_slabs": n_warps * max_depth - staged,
+            "staged": staged, "ray_bounces": ray_bounces}
+
+
 def lane_share(stats, issued_first, what, card):
     """Print the active-lane shares of a dense kernel's counts
     (`megakernel.DENSE_STATS`), live ray-bounces over 32 x the warp-bounces
@@ -2597,9 +2643,14 @@ def staged_phases(dev, card, rs, report):
 # summed to d(table) through the gather's backward. The fused backward,
 # also built without contraction, is held there beside it (its geometry
 # sums no further from float64 than GEOM_FACTOR times the plain float32's);
-# the replay and the fused units built WITH contraction (the variants not
-# shipped) are read beside them, and not held. Replay against fused on the
-# same seed: the same selections and adjoint, but d(table) summed in another
+# the fused unit built WITH contraction (the variant not shipped) is read
+# beside them, and not held (the replay unit built so is read by
+# chip_ablations.py). Against their first designs (csrc/baseline/
+# replay_pair/, the same chain and adjoint in the same order, built with
+# the same flags): colour, d(o), d(d) and d(g) EQUAL; d(sky), whose blocks
+# sum 4 warps instead of 8, within REPLAY_SKY_REL relative L2. Replay
+# against fused on the same seed: the same selections and adjoint, but
+# d(table) summed in another
 # order (the gather's float64 backward against shared-memory atomics) and
 # the primal from another chain (the replay chain against the recording
 # kernel's formulas): loss within REPLAY_LOSS_REL, material and sky gradients within
@@ -2612,6 +2663,7 @@ def staged_phases(dev, card, rs, report):
 REPLAY_SEED = 0x2E91A
 REPLAY_FWD_ATOL = 1e-4
 REPLAY_LOSS_REL, REPLAY_GRAD_REL, REPLAY_GEOM_REL = 1e-5, 1e-4, 5e-4
+REPLAY_SKY_REL = 1e-6
 REPLAY_GEOMETRY = ("transforms", "sph_center", "sph_radius", "cam_position", "cam_forward",
                    "cam_fov")
 OPS_REPLAY_FWD = 250  # replay.cuh: one hit bounce's chain forward (rough count)
@@ -2627,10 +2679,13 @@ def rel_l2(a, b):
     return float((a - b).norm() / b.norm())
 
 
-def fma_replay_pair(lib, rpk, mk):
-    """The replay forward and backward of the unit built WITH FMA
-    contraction (`start_unit_build`), as functions of `replay_fwd`'s and
-    `replay_bwd`'s arguments; they launch straight from ``lib`` and count
+def lib_replay_pair(lib, rpk, mk):
+    """The replay forward and backward of another build of the replay unit
+    (its first design, `start_baseline_build`; the unit built WITH FMA
+    contraction or an ablation's variant, `start_unit_build`), as functions
+    of `replay_fwd`'s and `replay_bwd`'s arguments (the backward also takes
+    ``d_g``, where to write d(g): by default a new tensor shaped as g); they
+    launch straight from ``lib`` through the shipped C interface and count
     nothing."""
     import ctypes
 
@@ -2649,29 +2704,72 @@ def fma_replay_pair(lib, rpk, mk):
     def stream(o):
         return torch.cuda.current_stream(o.device).cuda_stream
 
-    def fwd(o, d, g, sel, sky6, T, k, B, seed, sample, ur=None):
+    def fwd(o, d, g, sel, sky6, T, k, B, seed=0, sample=0, ur=None):
         p = params(o, k, B, T, seed, sample, ur)
         color = torch.empty_like(o)
         rc = lib.ptre_replay_fwd(ctypes.addressof(p), g.data_ptr(), sky6.data_ptr(),
                                  o.data_ptr(), d.data_ptr(), sel.data_ptr(),
                                  None if ur is None else ur.data_ptr(), color.data_ptr(),
                                  stream(o))
-        check(rc == 0, f"FMA replay forward launch failed ({rc})")
+        check(rc == 0, f"replay forward ({lib._name}) launch failed ({rc})")
         return color
 
-    def bwd(o, d, g, sel, sky6, dcol, T, k, B, seed, sample, ur=None):
+    def bwd(o, d, g, sel, sky6, dcol, T, k, B, seed=0, sample=0, ur=None, d_g=None):
         p = params(o, k, B, T, seed, sample, ur)
-        d_o, d_d, d_g = torch.empty_like(o), torch.empty_like(d), torch.empty_like(g)
+        d_o, d_d = torch.empty_like(o), torch.empty_like(d)
+        d_g = torch.empty_like(g) if d_g is None else d_g
         part = torch.empty((lib.ptre_replay_blocks(o.shape[0]), 8), device=o.device)
         rc = lib.ptre_replay_bwd(ctypes.addressof(p), g.data_ptr(), sky6.data_ptr(),
                                  o.data_ptr(), d.data_ptr(), sel.data_ptr(),
                                  None if ur is None else ur.data_ptr(), dcol.data_ptr(),
                                  d_o.data_ptr(), d_d.data_ptr(), d_g.data_ptr(),
                                  part.data_ptr(), stream(o))
-        check(rc == 0, f"FMA replay backward launch failed ({rc})")
+        check(rc == 0, f"replay backward ({lib._name}) launch failed ({rc})")
         return d_o, d_d, d_g, part[:, :6].sum(dim=0)
 
     return fwd, bwd
+
+
+def replay_work(sel, table, T):
+    """The bytes and operations of the replay forward and backward on
+    recorded selections ``sel`` (B, R) over ``table`` (spheres from row T):
+    each ray's o, d read and its colour written; the selection of every
+    bounce a live path enters (an ended path needs no later one); the
+    columns chain_bounce reads of each hit's row (*_ROW_BYTES); the
+    backward also d(colour) read and d(o), d(d) and the whole of d(g)
+    written, its operations `bwd_ops`'. Returns ((forward bytes, ops),
+    (backward bytes, ops), {kind: bounces entered})."""
+    B, R = sel.shape
+    ops, _, n = bwd_ops(sel, table, T)
+    rows = (n["emitter"] * EMITTER_ROW_BYTES + n["sphere"] * SPHERE_ROW_BYTES
+            + n["triangle"] * TRIANGLE_ROW_BYTES)
+    read = R * 24 + 4 * sum(n.values()) + rows
+    return ((read + R * 12, (n["triangle"] + n["sphere"]) * OPS_REPLAY_FWD),
+            (read + R * (12 + 24 + ROW_BYTES * B), ops), n)
+
+
+def hold_replay_first(what, shipped, first, args):
+    """The replay pair against its first design on one input (``args``:
+    `replay_fwd`'s, and for the backward the same with dcol after sky6):
+    ``shipped`` and ``first`` are (fwd, bwd) pairs. The colour, d(o), d(d)
+    and d(g) EQUAL; d(sky) within REPLAY_SKY_REL relative L2."""
+    import torch
+
+    o, d, g, sel, sky6, dcol, *rest = args
+    col, fcol = shipped[0](o, d, g, sel, sky6, *rest), first[0](o, d, g, sel, sky6, *rest)
+    got, want = shipped[1](*args), first[1](*args)
+    torch.cuda.synchronize()
+    sky = rel_l2(got[3], want[3])
+    equal = {name: torch.equal(a, b) for name, a, b in
+             (("colour", col, fcol), ("d(o)", got[0], want[0]), ("d(d)", got[1], want[1]),
+              ("d(g)", got[2], want[2]))}
+    print(f"  {what}: " + ", ".join(f"{name} {'bit-equal' if ok else 'DIFFERS'}"
+                                    for name, ok in equal.items())
+          + f" to the first design's (csrc/baseline/replay_pair/); d(sky) relative L2 {sky:.3e}",
+          flush=True)
+    check(all(equal.values()), f"{what}: differs from the first design: {equal}")
+    check(sky <= REPLAY_SKY_REL, f"{what}: d(sky) {sky:.3e} from the first design's")
+    check(bool((got[2][sel < 0] == 0).all()), f"{what}: d(g) not zero on misses")
 
 
 def replay_as_table(bwd, path_replay):
@@ -2692,9 +2790,33 @@ def replay_as_table(bwd, path_replay):
     return fn
 
 
-def replay_phases(dev, card, rs, fma_bwd):
+def replay_build_report(build, card):
+    """The shipped replay kernels' registers, spills and static shared
+    memory (`-Xptxas=-v` of this run's build), and at max_depth 5 and 8 the
+    backward's dynamic shared memory a block and both kernels' resident
+    blocks an SM (`ptre_replay_occupancy`)."""
+    import ctypes
+
+    print("  replay kernels: " + "; ".join(
+        e for e in (ptxas_summary(build.last_build[1]) if build.last_build else
+                    ["library not built in this run"]) if e.startswith(("replay", "library"))),
+        flush=True)
+    lib = build.load_library()
+    for depth in (5, 8):
+        fwd, bwd, dyn = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+        rc = lib.ptre_replay_occupancy(depth, ctypes.byref(fwd), ctypes.byref(bwd),
+                                       ctypes.byref(dyn))
+        check(rc == 0, f"ptre_replay_occupancy({depth}) failed ({rc})")
+        print(f"  max_depth {depth}: backward {dyn.value} B of dynamic shared memory a block, "
+              f"{bwd.value} blocks of 128 threads an SM ({4 * bwd.value} warps); forward "
+              f"{fwd.value} blocks an SM [{card}]", flush=True)
+
+
+def replay_phases(dev, card, rs, fma_bwd, first_pair):
     """Phase 21: the replay forward and backward kernels against their
-    plain versions at 1920x1080 on the recording kernel's selections, the
+    plain versions at 1920x1080 on the recording kernel's selections and
+    against their first designs (``first_pair``: `lib_replay_pair` of the
+    frozen unit) at max_depth 5 and 8, the
     replay route against the fused route on the same seed, and the replay
     route's main path (`mse_step` spp 1, 1 + STEPS steps; one
     `two_pass_mse_step` at spp SPP_TRAIN) with its launches, times, peak
@@ -2706,6 +2828,7 @@ def replay_phases(dev, card, rs, fma_bwd):
     from ptre_tpu_torch.models import demo
     from ptre_tpu_torch.ops import camera as cam_ops
     from ptre_tpu_torch.ops import integrator, path_replay, rng
+    from ptre_tpu_torch.ops.cuda import build
     from ptre_tpu_torch.ops.cuda import fused_grad as fg
     from ptre_tpu_torch.ops.cuda import megakernel as mk
     from ptre_tpu_torch.ops.cuda import replay_kernel as rpk
@@ -2729,9 +2852,10 @@ def replay_phases(dev, card, rs, fma_bwd):
     table, T, sky6 = path_replay.build_table(pkt)
     P = table.shape[0]
     urand_ext = torch.from_numpy(rs.random((2 + 2 * B, R), dtype=np.float32)).to(dev)
-    fma_build = start_unit_build("replay_kernel.cu", "fma")  # compiles while (a) runs
+    shipped = (rpk.replay_fwd, rpk.replay_bwd)
     print(f"phase 21: the replay route at {W}x{H}, max_depth {B}: replay kernels vs plain on "
-          "the recording kernel's selections, replay vs fused, mse_step spp 1 (1 + "
+          "the recording kernel's selections and vs their first designs, replay vs fused, "
+          "mse_step spp 1 (1 + "
           f"{STEPS} steps), two_pass_mse_step spp {SPP_TRAIN}", flush=True)
 
     # (a) the forward on the same gathered rows
@@ -2755,40 +2879,23 @@ def replay_phases(dev, card, rs, fma_bwd):
         recorded[mode] = (sel, ur)
         del g, got, want
 
-    # the unit built with FMA contraction, the alternative not shipped: read
-    fma_fwd, fma_bwd_replay = fma_replay_pair(finish_unit_build(fma_build), rpk, mk)
-    for mode, (sel, ur) in recorded.items():
-        g = path_replay.gather_rows(table, sel)
-        want = rpk.replay_fwd_reference(o, d, g, sel, sky6, T, k, B, REPLAY_SEED, 0, ur)
-        err = (fma_fwd(o, d, g, sel, sky6, T, k, B, REPLAY_SEED, 0, ur) - want).abs()
-        scale = want.abs().clamp_min(1.0)
-        fma_ms = cuda_events(lambda: fma_fwd(o, d, g, sel, sky6, T, k, B, REPLAY_SEED, 0, ur),
-                             20)
-        ms = cuda_events(lambda: rpk.replay_fwd(o, d, g, sel, sky6, T, k, B, REPLAY_SEED, 0,
-                                                ur), 20)
-        print(f"  replay forward built with FMA contraction, {mode}: colour max_abs_err "
-              f"{float(err.max()):.3e}, {int((err > REPLAY_FWD_ATOL).any(1).sum())} of {R} rays "
-              f"beyond {REPLAY_FWD_ATOL:g}, {int((err > 0.05 * scale).any(1).sum())} beyond 5 %; "
-              f"{fma_ms:.4f} ms against {ms:.4f} ms shipped (CUDA events) [{card}]", flush=True)
-        del g, want, err, scale
-
     # (b) the backward, by column group, against float32 and float64
     dcol = torch.from_numpy(rs.standard_normal((R, 3), dtype=np.float32)).to(dev)
     groups = {"v0-v2": slice(0, 9), "n0-n2": slice(9, 18), "center": slice(18, 21),
               "radius": slice(21, 22), "albedo": slice(23, 26), "param": slice(26, 27)}
     kernel = replay_as_table(rpk.replay_bwd, path_replay)
     plain = replay_as_table(rpk.replay_bwd_reference, path_replay)
-    read = {"replay with FMA": (replay_as_table(fma_bwd_replay, path_replay), False),
-            "fused": (fg.fused_bwd, True), "fused with FMA": (fma_bwd, False)}
+    read = {"fused": (fg.fused_bwd, True), "fused with FMA": (fma_bwd, False)}
     bwd_err = 0.0
     for mode, (sel, ur) in recorded.items():
         bwd_err = max(bwd_err, hold_backward(fg, mk, f"replay bwd {mode}", table, sky6, o, d,
                                              sel, dcol, k, B, T, REPLAY_SEED, ur, groups,
                                              kernel=kernel, plain=plain, read=read))
-        # d(g) of a bounce that was not live or did not hit is exactly zero
+        # bit for bit against the first design; d(g) of a bounce that was
+        # not live or did not hit exactly zero
         g = path_replay.gather_rows(table, sel)
-        d_g = rpk.replay_bwd(o, d, g, sel, sky6, dcol, T, k, B, REPLAY_SEED, 0, ur)[2]
-        check(bool((d_g[sel < 0] == 0).all()), f"replay bwd {mode}: d(g) not zero on misses")
+        hold_replay_first(f"replay pair {mode}", shipped, first_pair,
+                          (o, d, g, sel, sky6, dcol, T, k, B, REPLAY_SEED, 0, ur))
         # the gather's backward on a training step's cotangent (the MSE's
         # against a zero target: one sign, so a hot row's sum never cancels):
         # embedding's own float32 sums against gather_rows' float64 ones,
@@ -2816,27 +2923,66 @@ def replay_phases(dev, card, rs, fma_bwd):
     # kernel times at the main shape, the plain versions', and this run's work
     sel_p, _ = recorded["philox"]
     g_p = path_replay.gather_rows(table, sel_p)
-    kind = pkt.mat_kind.long()
-    emissive = torch.cat([kind[pkt.tri_mat.long()] == 1, kind[pkt.sph_mat.long()] == 1])
-    hit = sel_p >= 0
-    lit = hit & emissive[sel_p.clamp(min=0).long()]
-    hits, n_lit = int(hit.sum()), int(lit.sum())
-    n_sph = int((hit & ~lit & (sel_p >= T)).sum())
-    rows_read = (n_lit * EMITTER_ROW_BYTES + n_sph * SPHERE_ROW_BYTES
-                 + (hits - n_lit - n_sph) * TRIANGLE_ROW_BYTES)
-    fwd_ms = cuda_events(lambda: rpk.replay_fwd(o, d, g_p, sel_p, sky6, T, k, B,
-                                                REPLAY_SEED, 0), 20)
-    bwd_ms = cuda_events(lambda: rpk.replay_bwd(o, d, g_p, sel_p, sky6, dcol, T, k, B,
-                                                REPLAY_SEED, 0), 10)
-    fwd_plain_ms = cuda_events(lambda: rpk.replay_fwd_reference(
-        o, d, g_p, sel_p, sky6, T, k, B, REPLAY_SEED, 0), 2)
-    bwd_plain_ms = cuda_events(lambda: rpk.replay_bwd_reference(
-        o, d, g_p, sel_p, sky6, dcol, T, k, B, REPLAY_SEED, 0), 2)
+    work = replay_work(sel_p, table, T)
+    fwd_args = (o, d, g_p, sel_p, sky6, T, k, B, REPLAY_SEED, 0)
+    bwd_args = (o, d, g_p, sel_p, sky6, dcol, T, k, B, REPLAY_SEED, 0)
+    turns = {}
+    for run in (1, 2):
+        for name, args, reps in (("forward", fwd_args, 20), ("backward", bwd_args, 10)):
+            i = 0 if name == "forward" else 1
+            t = in_turns({"shipped": lambda: shipped[i](*args),
+                          "first design": lambda: first_pair[i](*args)}, reps)
+            turns.setdefault(name, []).append(t)
+            print(f"  replay {name} at max_depth {B}, in turns (run {run}): shipped "
+                  f"{t['shipped']:.4f} ms, first design {t['first design']:.4f} ms (CUDA "
+                  f"events, {W}x{H}) [{card}]", flush=True)
+    fwd_ms, bwd_ms, fwd_first_ms, bwd_first_ms = (
+        sum(t[label] for t in turns[name]) / len(turns[name])
+        for label in ("shipped", "first design") for name in ("forward", "backward"))
+    fwd_plain_ms = cuda_events(lambda: rpk.replay_fwd_reference(*fwd_args), 2)
+    bwd_plain_ms = cuda_events(lambda: rpk.replay_bwd_reference(*bwd_args), 2)
+    slabs = warp_slabs(g_p, sel_p, B)
+    check(sum(work[2].values()) == slabs["ray_bounces"],
+          f"bounces entered {work[2]} against {slabs['ray_bounces']}")
+    run = slabs["warp_bounces"] - slabs["skipped"]
+    print(f"  warps (philox sample): {slabs['skipped']} of {slabs['warp_bounces']} "
+          f"warp-bounces skipped past dead tails; d(g) slabs: {slabs['zero_slabs']} zeros "
+          f"unstaged, {slabs['staged']} staged; {slabs['ray_bounces']} ray-bounces in the "
+          f"{run} warp-bounces run: {100 * slabs['ray_bounces'] / (32 * run):.2f} % of their "
+          f"lanes alive ({100 * slabs['ray_bounces'] / (32 * slabs['warp_bounces']):.2f} % "
+          "were every bounce run)", flush=True)
+    replay_build_report(build, card)
+    # max_depth 8, the deepest the wrapper takes: fewer blocks an SM
+    _, sel8 = mk.trace_fused_sel(o, d, scene, k, 8, REPLAY_SEED, 0)
+    g8 = path_replay.gather_rows(table, sel8)
+    args8 = (o, d, g8, sel8, sky6, dcol, T, k, 8, REPLAY_SEED, 0)
+    hold_replay_first("replay pair philox, max_depth 8", shipped, first_pair, args8)
+    t8 = {name: in_turns({"shipped": lambda: shipped[i](*a),
+                          "first design": lambda: first_pair[i](*a)}, reps)
+          for name, i, a, reps in (("forward", 0, args8[:5] + args8[6:], 10),
+                                   ("backward", 1, args8, 5))}
+    slabs8 = warp_slabs(g8, sel8, 8)
+    print("  max_depth 8, in turns: " + "; ".join(
+        f"{name} shipped {t['shipped']:.4f} ms, first design {t['first design']:.4f} ms"
+        for name, t in t8.items()) + f"; {slabs8['skipped']} of {slabs8['warp_bounces']} "
+        f"warp-bounces skipped, {slabs8['zero_slabs']} zero slabs, {slabs8['staged']} staged "
+        f"(CUDA events, {W}x{H}) [{card}]", flush=True)
+    work8 = replay_work(sel8, table, T)
+    check(sum(work8[2].values()) == slabs8["ray_bounces"],
+          f"max_depth 8: bounces entered {work8[2]} against {slabs8['ray_bounces']}")
+    print("  max_depth 8 bounds: " + "; ".join(
+        f"{name} {ms:.4f} ms by {by} ({nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} GFLOP; shipped "
+        f"{t['shipped'] / ms:.2f} times it)"
+        for (name, t), (nbytes, ops) in zip(t8.items(), work8[:2])
+        for ms, by in [bound(nbytes, ops)]) + f"; bounces entered by kind {work8[2]}",
+        flush=True)
+    del g8, sel8, args8
     gather_ms = cuda_events(lambda: path_replay.gather_rows(table, sel_p), 10)
-    print(f"  philox sample: {hits} hits ({n_lit} on emitters, {n_sph} on other spheres); "
+    print(f"  philox sample, bounces entered by kind {work[2]}; "
           f"replay forward kernel "
-          f"{fwd_ms:.4f} ms, plain {fwd_plain_ms:.3f} ms; replay backward kernel {bwd_ms:.4f} "
-          f"ms, plain {bwd_plain_ms:.3f} ms; gather_rows (embedding) {gather_ms:.4f} ms (CUDA "
+          f"{fwd_ms:.4f} ms (first design {fwd_first_ms:.4f}), plain {fwd_plain_ms:.3f} ms; "
+          f"replay backward kernel {bwd_ms:.4f} ms (first design {bwd_first_ms:.4f}), plain "
+          f"{bwd_plain_ms:.3f} ms; gather_rows (embedding) {gather_ms:.4f} ms (CUDA "
           f"events, {W}x{H}) [{card}]", flush=True)
     del recorded, g_p, urand_ext
 
@@ -2860,8 +3006,8 @@ def replay_phases(dev, card, rs, fma_bwd):
           + ", ".join(f"{key} {v:.3e}" for key, v in rels.items()), flush=True)
     check(loss_rel <= REPLAY_LOSS_REL, f"replay vs fused loss: relative {loss_rel:.3e}")
     for key, v in rels.items():
-        bound = REPLAY_GEOM_REL if key in REPLAY_GEOMETRY else REPLAY_GRAD_REL
-        check(v <= bound, f"replay vs fused d{key}: relative L2 {v:.3e} > {bound}")
+        limit = REPLAY_GEOM_REL if key in REPLAY_GEOMETRY else REPLAY_GRAD_REL
+        check(v <= limit, f"replay vs fused d{key}: relative L2 {v:.3e} > {limit}")
     del ab, gf, gr
 
     # (d) the main path: mse_step on the replay route, counted
@@ -2947,8 +3093,6 @@ def replay_phases(dev, card, rs, fma_bwd):
     print(f"  replay two_pass_mse_step == mse_step at {Ws}x{Hs}, spp {spp_s} (chunks of 3): "
           f"loss {float(l1):.6f} vs {float(l2):.6f}", flush=True)
 
-    # forward: rays, selections in, the rows of the hits read, colour out;
-    # backward: the same and d(colour) in, d(o), d(d) and every d(g) row out
     return [with_bound({
         "name": "replay_fwd",
         "route": "cuda",
@@ -2958,7 +3102,8 @@ def replay_phases(dev, card, rs, fma_bwd):
         "max_abs_err": fwd_err,
         "ms": fwd_ms,
         "plain_ms": fwd_plain_ms,
-    }, R * (24 + 4 * B + 12) + rows_read, (hits - n_lit) * OPS_REPLAY_FWD), with_bound({
+        "first_design_ms": fwd_first_ms,
+    }, *work[0]), with_bound({
         "name": "replay_bwd",
         "route": "cuda",
         "source": "ptre_tpu_torch/csrc/replay_kernel.cu",
@@ -2967,8 +3112,8 @@ def replay_phases(dev, card, rs, fma_bwd):
         "max_abs_err": bwd_err,
         "ms": bwd_ms,
         "plain_ms": bwd_plain_ms,
-    }, R * (24 + 4 * B + 12 + 24 + ROW_BYTES * B) + rows_read,
-        bwd_ops(sel_p, table, T)[0])]
+        "first_design_ms": bwd_first_ms,
+    }, *work[1])]
 
 
 # Raster kernels vs plain versions (phases 12-14). Coverage, z and the hard

@@ -173,6 +173,9 @@ def load_library() -> ctypes.CDLL:
     lib.ptre_sweep.argtypes = [ptr] * 11
     lib.ptre_replay_blocks.restype = ctypes.c_int
     lib.ptre_replay_blocks.argtypes = [ctypes.c_int]
+    lib.ptre_replay_occupancy.restype = ctypes.c_int
+    # (max_depth, fwd blocks/SM *, bwd blocks/SM *, bwd dynamic smem bytes *)
+    lib.ptre_replay_occupancy.argtypes = [ctypes.c_int, ptr, ptr, ptr]
     lib.ptre_replay_fwd.restype = ctypes.c_int
     # (params, g, sky, o, d, sel, urand, color, stream)
     lib.ptre_replay_fwd.argtypes = [ptr] * 9

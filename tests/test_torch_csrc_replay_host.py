@@ -1,11 +1,12 @@
 """The replay kernels' per-ray bodies, checked on the CPU.
 
-`csrc/replay.cuh` writes the replay pair's per-thread code
-(``replay_ray_forward``, ``replay_ray_backward``: the chain over winner rows
-gathered outside the kernel, and its hand-written adjoint) ``__host__
-__device__``, templated on the scalar, so `csrc/host_replay.cpp` compiles
-exactly what `csrc/replay_kernel.cu` runs per thread with g++, in float and
-in double. Inputs: the demo scene with a diffuse cube at 32x16, max_depth
+`csrc/replay.cuh` writes the replay pair's per-lane code (``replay_step``,
+``replay_unstep``: one bounce of the chain over winner rows gathered outside
+the kernel, and of its hand-written adjoint) ``__host__ __device__``,
+templated on the scalar, so `csrc/host_replay.cpp` compiles what
+`csrc/replay_kernel.cu` runs per thread with g++, in float and in double,
+around an emulation of the kernel's warp (the dead-tail vote, d(g) written
+as slabs). Inputs: the demo scene with a diffuse cube at 32x16, max_depth
 5, the plain recording trace's selections, the rows gathered by
 `path_replay.gather_rows`; uniforms external or Philox.
 
@@ -57,7 +58,7 @@ def lib(tmp_path_factory):
                     "-o", out, os.path.join(build.CSRC_DIR, "host_replay.cpp")],
                    check=True, capture_output=True, text=True)
     lib = ctypes.CDLL(out)
-    for name, n in (("fwd", 8), ("bwd", 12)):
+    for name, n in (("fwd", 8), ("bwd", 13)):
         for dt in ("f", "d"):
             fn = getattr(lib, f"ptre_replay_{name}_host_{dt}")
             fn.restype = None
@@ -118,7 +119,7 @@ def _host_bwd(lib, p, dtype):
     fn = lib.ptre_replay_bwd_host_d if dtype == torch.float64 else lib.ptre_replay_bwd_host_f
     fn(ctypes.addressof(params), g.data_ptr(), sky6.data_ptr(), o.data_ptr(), d.data_ptr(),
        p["sel"].data_ptr(), None if p["urand"] is None else p["urand"].data_ptr(),
-       dcol.data_ptr(), *(x.data_ptr() for x in out))
+       dcol.data_ptr(), *(x.data_ptr() for x in out), None)
     return out
 
 

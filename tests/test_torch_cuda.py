@@ -223,6 +223,19 @@ def _replay_setup(dev, external):
     return o, d, sel, urand, table, T, sky6, k
 
 
+def _hold_replay_plain(got, ref, R):
+    """The replay backward's d(o), d(d) against the plain version's: at most
+    1e-4 of the rays (rounded up) flipped, >= 99.9 % of the entries within
+    1e-4 of the largest. Returns the flipped rays."""
+    ray_err = ((got[0] - ref[0]).abs() + (got[1] - ref[1]).abs()).amax(dim=1)
+    ray_mag = (ref[0].abs() + ref[1].abs()).amax(dim=1)
+    flip = ray_err > 1e-2 * ray_mag + 1e-3
+    assert int(flip.sum()) <= math.ceil(1e-4 * R)
+    for a, b in ((got[0], ref[0]), (got[1], ref[1])):
+        assert float(((a - b).abs() <= 1e-4 * b.abs().max()).float().mean()) >= 0.999
+    return flip
+
+
 @pytest.mark.parametrize("external", [True, False])
 def test_replay_kernels_match_plain_versions(cuda, external):
     o, d, sel, urand, table, T, sky6, k = _replay_setup(cuda, external)
@@ -239,12 +252,7 @@ def test_replay_kernels_match_plain_versions(cuda, external):
     torch.cuda.synchronize()
     assert (rpk.fwd_launches, rpk.bwd_launches) == (before[0] + 1, before[1] + 1)
     assert bool((got[2][sel < 0] == 0).all())  # nothing reaches the gather from a miss
-    ray_err = ((got[0] - ref[0]).abs() + (got[1] - ref[1]).abs()).amax(dim=1)
-    ray_mag = (ref[0].abs() + ref[1].abs()).amax(dim=1)
-    flip = ray_err > 1e-2 * ray_mag + 1e-3
-    assert int(flip.sum()) <= math.ceil(1e-4 * R)
-    for a, b in ((got[0], ref[0]), (got[1], ref[1])):
-        assert float(((a - b).abs() <= 1e-4 * b.abs().max()).float().mean()) >= 0.999
+    flip = _hold_replay_plain(got, ref, R)
     # material and sky gradients, d(g) summed to d(table), without the flipped rays
     cot = torch.where(flip[:, None], 0.0, dcol)
     got = rpk.replay_bwd(o, d, g, sel, sky6, cot, T, k, 5, 9, 1, urand)
@@ -290,6 +298,75 @@ def test_replay_core_on_cuda_launches_or_raises_never_the_plain_chain(cuda, monk
         rpk.replay_fwd(o, d, g.detach()[:3], sel, sky6, T, k, 5)
     with pytest.raises(RendererError, match="o on cuda"):
         rpk.replay_bwd(o, d, g.detach(), sel, sky6, torch.ones((o.shape[0], 3)), T, k, 5)
+
+
+@pytest.fixture(scope="module")
+def first_replay():
+    """The replay pair's first design (csrc/baseline/replay_pair/, built
+    against the frozen headers there by chip_smoke.py's
+    `start_baseline_build`) through the shipped C interface:
+    (replay_fwd-like, replay_bwd-like)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    import chip_smoke
+
+    lib = chip_smoke.finish_unit_build(
+        chip_smoke.start_baseline_build("replay_kernel.cu", "replay_pair"))
+    return chip_smoke.lib_replay_pair(lib, rpk, mk)
+
+
+@pytest.mark.parametrize("W,H", [(256, 128), (101, 37), (100, 37)])
+@pytest.mark.parametrize("max_depth", [5, 8])
+@pytest.mark.parametrize("external", [True, False])
+def test_replay_kernels_equal_first_design(cuda, first_replay, W, H, max_depth, external):
+    """The redesigned pair (warp slabs, dead tails skipped) equals the first
+    design bit for bit in the colour, d(o), d(d) and d(g), d(sky) within
+    1e-6 relative L2 (blocks of 4 warps, not 8), at R a multiple of 32, at
+    R = 3,737 (neither of 32 nor of 4: scalar slabs only) and at R = 3,700
+    (a multiple of 4 with a ragged last warp: float4 and scalar slabs in
+    one launch); the same with d(g) written one float off 16-byte alignment
+    (scalar slab stores, through the shipped C entry) and with g read one
+    float off it; one launch each; within the plain versions' tolerances;
+    d(g) zero where nothing was hit."""
+    cfg, pkt, _, _, o, d, scene, k = _grad_setup(cuda, W=W, H=H, B=max_depth)
+    R = o.shape[0]
+    urand = (torch.rand((2 + 2 * max_depth, R), device=cuda,
+                        generator=torch.Generator(cuda).manual_seed(2)) if external else None)
+    _, sel = mk.trace_fused_sel(o, d, scene, k, max_depth, 9, 1, urand)
+    table, T, sky6 = path_replay.build_table(pkt)
+    g = path_replay.gather_rows(table, sel).detach()
+    dcol = torch.randn((R, 3), device=cuda, generator=torch.Generator(cuda).manual_seed(3))
+    args = (o, d, g, sel, sky6, T, k, max_depth, 9, 1, urand)
+    bargs = (o, d, g, sel, sky6, dcol, T, k, max_depth, 9, 1, urand)
+    before = (rpk.fwd_launches, rpk.bwd_launches)
+    color, got = rpk.replay_fwd(*args), rpk.replay_bwd(*bargs)
+    assert (rpk.fwd_launches, rpk.bwd_launches) == (before[0] + 1, before[1] + 1)
+    fcol, first = first_replay[0](*args), first_replay[1](*bargs)
+    import chip_smoke
+    from ptre_tpu_torch.ops.cuda import build
+
+    def off16():  # a (B, R, 27) tensor 4 bytes off 16-byte alignment, NaN-filled
+        return torch.full((g.numel() + 1,), float("nan"), device=cuda)[1:].view(g.shape)
+
+    g_off = off16().copy_(g)
+    got_off = rpk.replay_bwd(o, d, g_off, *bargs[3:])
+    d_g_off = off16()
+    shipped = chip_smoke.lib_replay_pair(build.load_library(), rpk, mk)
+    got_dg_off = shipped[1](*bargs, d_g=d_g_off)
+    torch.cuda.synchronize()
+    assert torch.equal(color, fcol)
+    for a, b in zip(got[:3], first[:3]):
+        assert torch.equal(a, b)
+    for a, b in zip(got_off[:3], got[:3]):
+        assert torch.equal(a, b)
+    assert got_dg_off[2].data_ptr() % 16 == 4
+    for a, b in zip(got_dg_off[:3], got[:3]):
+        assert torch.equal(a, b)
+    assert float((got[3] - first[3]).norm() / first[3].norm()) <= 1e-6
+    assert bool((got[2][sel < 0] == 0).all())
+    want = rpk.replay_fwd_reference(*args)
+    assert float((color - want).abs().max()) <= 1e-4
+    _hold_replay_plain(got, rpk.replay_bwd_reference(*bargs), R)
 
 
 # ---- the wavefront kernels (triangle-scale scenes) --------------------------------
