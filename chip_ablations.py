@@ -2,7 +2,8 @@
 """Ablations of the hard raster kernel, the culled megakernel and the
 replay pair on one GPU.
 
-    python3 chip_ablations.py [raster_mega] [replay]   (no argument: both)
+    python3 chip_ablations.py [raster_mega] [replay] [present] [culled_flips]
+    (no argument: raster_mega and replay)
 
 Not a gate: ``chip_smoke.py`` holds the shipped kernels to their plain
 versions and first designs. This script measures what the designs' parts
@@ -55,6 +56,29 @@ recording kernel's selections of one Philox sample (chip_smoke.py phase
     colour is read against the plain version, not held);
   beside the first design (``csrc/baseline/replay_pair/``), with the
   shipped kernels' registers, shared memory and blocks an SM.
+
+Culled megakernel flips ("culled_flips", no variant built): the four cases
+of the card test ``test_culled_megakernel_matches_plain_version`` (culling
+on and off, external uniforms and in-kernel Philox; BASELINE config 4's
+mesh at 64x32 segments, 256x128 rays, max_depth 4, recording) over seeds
+0-199: the seed of a ``torch.Generator`` on the card that draws the external
+uniforms, or the kernel's Philox seed in place of the test's 9. For each
+seed the rays flipped (colour beyond 1e-4 relative or any selection
+differing) between the kernel and its plain version and between the culled
+kernel and the wavefront's kernels on the same rays and draws, and for each
+flipped ray the first bounce whose selection differs, the kinds of hit on
+both sides (triangle, sphere with its radius, miss) and the kind of the
+bounce before it; whether three launches of the kernel are bit-equal. The
+sweep runs in a fresh process, then again after the card suite
+(``tests/test_torch_cuda.py -m cuda``) has run in the same process, and
+every output of the two sweeps is compared bit for bit; last, 200 unseeded
+draws of the default generator after the suite, culling off, external
+uniforms, as the test drew before it was seeded.
+
+Presentation ("present", no variant built): `Renderer.draw_frame`'s
+path-traced frames with ``present_async`` on and off, timed in turns on the
+host clock at 1280x720 spp 1, 1920x1080 spp 1 and 1920x1080 spp 4, with
+each mode's device-busy time a frame.
 
 Prints the card's name and power limit beside every time.
 """
@@ -128,11 +152,202 @@ def main():
     print(card, flush=True)
     parts = sys.argv[1:] or ["raster_mega", "replay"]
     for part in parts:
-        cs.check(part in ("raster_mega", "replay"), f"unknown part {part}")
+        cs.check(part in ("raster_mega", "replay", "culled_flips", "present"),
+                 f"unknown part {part}")
     if "raster_mega" in parts:
         raster_mega(dev, card)
     if "replay" in parts:
         replay(dev, card)
+    if "present" in parts:
+        present(dev, card)
+    if "culled_flips" in parts:
+        culled_flips(dev, card)
+
+
+FLIP_SEEDS = range(200)
+#: kernel launches a (case, seed), compared bit for bit with the first
+FLIP_REPEATS = 3
+#: unseeded draws of the default generator after the card suite, as the card
+#: test drew before it was seeded
+FLIP_DRAWS = 200
+
+
+def culled_flips(dev, card, seeds=FLIP_SEEDS):
+    """The card test's four cases over ``seeds``, in a fresh process and
+    again after the card suite has run in this process: flips of the kernel
+    against its plain version and against the wavefront, with each flipped
+    ray's first differing bounce and the kinds of hit there; whether the
+    kernel's repeats are bit-equal; whether any (case, seed) differs bit for
+    bit between the two sweeps; then ``FLIP_DRAWS`` unseeded draws of the
+    default generator in the case that once failed on an unseeded draw
+    (culling off, external uniforms)."""
+    import collections
+    import hashlib
+    import math
+    import time
+
+    import pytest
+    import torch
+
+    from ptre_tpu_torch.models import demo
+    from ptre_tpu_torch.ops import camera as cam_ops
+    from ptre_tpu_torch.ops.cuda import megakernel as mk
+    from ptre_tpu_torch.ops.cuda import wavefront as wf
+    from ptre_tpu_torch.render import pathtracer as pt
+    from ptre_tpu_torch.utils.config import RenderConfig
+
+    W, H, B = 256, 128, 4
+    cfg = RenderConfig(width=W, height=H, max_depth=B)
+    pkt = demo.config4_mixed_scene(64, 32).build_packet(device=dev)
+    cam = cam_ops.Camera.create(width=W, height=H)
+    scene = wf.prepare_scene(pkt, screen_cam=cam)
+    px, py = pt.pixel_grid(H, W, dev)
+    jit = torch.rand((H * W, 2), device=dev, generator=torch.Generator(dev).manual_seed(2))
+    o, d = (x.contiguous() for x in cam_ops.get_rays(cam, px, py, jit - 0.5))
+    k = mk.TraceConsts.from_config(cfg)
+    R = o.shape[0]
+    radius = [float(r) for r in pkt.sph_radius.tolist()]
+    allowed = math.ceil(1e-4 * R)
+
+    def kind(row):
+        if row < 0:
+            return "miss"
+        if row < scene.tri_rows:
+            return "tri"
+        return f"sph r={radius[row - scene.tri_rows]:g}"
+
+    def flips(color, want, sel, want_sel):
+        """(count, Counter of (bounce, before, got -> want)) of flipped rays."""
+        flip = ((color - want).abs() > 1e-4 * want.abs().clamp_min(1.0)).any(dim=1)
+        differ = sel != want_sel
+        flip |= differ.any(dim=0)
+        where = collections.Counter()
+        sel_h, want_h, differ_h = sel.cpu(), want_sel.cpu(), differ.cpu()
+        for ray in torch.nonzero(flip).flatten().tolist():
+            rows = torch.nonzero(differ_h[:, ray]).flatten().tolist()
+            if not rows:
+                where["colour only"] += 1
+                continue
+            b = rows[0]
+            before = kind(int(sel_h[b - 1, ray])) if b else "camera"
+            where[(b, before, f"{kind(int(sel_h[b, ray]))} -> {kind(int(want_h[b, ray]))}")] += 1
+        return int(flip.sum()), where
+
+    def one(urand, seed, cull):
+        """Flips against the plain version and the wavefront, a digest of
+        every output, and whether the kernel's repeats are bit-equal."""
+        runs = [mk.trace_culled(o, d, scene, k, B, seed, 1, urand, cull=cull, record=True)
+                for _ in range(FLIP_REPEATS)]
+        color, sel = runs[0]
+        same = all(torch.equal(c, color) and torch.equal(s, sel) for c, s in runs[1:])
+        want, want_sel = mk.trace_culled_reference(o, d, scene, k, B, seed, 1, urand,
+                                                   cull=cull, record=True)
+        wcol, wsel, _ = wf.trace(o, d, scene, k, B, seed, 1, urand, tile_hint=(H, W),
+                                 record=True)
+        digest = hashlib.sha1()
+        for t in (color, sel, want, want_sel, wcol, wsel):
+            digest.update(t.cpu().numpy().tobytes())
+        return (flips(color, want, sel, want_sel), flips(color, wcol, sel, wsel),
+                digest.hexdigest(), same)
+
+    def report(label, case, draws, results, t0):
+        for i, name in enumerate(("plain", "wavefront")):
+            c = [r[i][0] for r in results]
+            where = collections.Counter()
+            for r in results:
+                where.update(r[i][1])
+            top = max(c)
+            print(f"  {label}: culled flips, {case}, against the {name}: {draws}: flipped "
+                  f"rays per draw {dict(sorted(collections.Counter(c).items()))} (count: "
+                  f"draws), max {top} (draws {[n for n, x in enumerate(c) if x == top][:8]}"
+                  f"), mean {sum(c) / len(c):.3f} of {R} rays (allowed {allowed}); where: "
+                  + "; ".join(f"{w}: {n}" for w, n in where.most_common()), flush=True)
+        same = sum(r[3] for r in results)
+        print(f"  {label}: {case}: kernel repeats ({FLIP_REPEATS} launches) bit-equal in "
+              f"{same} of {len(results)} draws; {time.perf_counter() - t0:.1f} s [{card}]",
+              flush=True)
+
+    def sweep(label):
+        """The four cases over ``seeds``: {(external, cull, seed): digest}."""
+        digests = {}
+        for external in (True, False):
+            for cull in (True, False):
+                t0, results = time.perf_counter(), []
+                for s in seeds:
+                    if external:
+                        urand = torch.rand((2 + 2 * B, R), device=dev,
+                                           generator=torch.Generator(dev).manual_seed(s))
+                        results.append(one(urand, 9, cull))
+                    else:
+                        results.append(one(None, s, cull))
+                    digests[(external, cull, s)] = results[-1][2]
+                case = (f"cull {'on' if cull else 'off'}, "
+                        f"{'external uniforms' if external else 'Philox'}")
+                report(label, case, f"seeds {seeds.start}-{seeds.stop - 1}", results, t0)
+        return digests
+
+    fresh = sweep("fresh process")
+    t0 = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    rc = pytest.main(["-p", "no:cacheprovider", "--noconftest", "-m", "cuda", "-q",
+                      os.path.join(root, "tests", "test_torch_cuda.py")])
+    print(f"  the card suite (tests/test_torch_cuda.py -m cuda) in this process: exit {int(rc)}, "
+          f"{time.perf_counter() - t0:.1f} s [{card}]", flush=True)
+    after = sweep("after the card suite")
+    differ = [key for key in fresh if fresh[key] != after[key]]
+    print(f"  after the card suite: {len(differ)} of {len(fresh)} (external, cull, seed) runs "
+          f"differ bit for bit from the fresh process's: {differ[:10]}", flush=True)
+    t0, results = time.perf_counter(), []
+    for _ in range(FLIP_DRAWS):
+        results.append(one(torch.rand((2 + 2 * B, R), device=dev), 9, False))
+    report("after the card suite", "cull off, external uniforms",
+           f"{FLIP_DRAWS} unseeded draws of the default generator", results, t0)
+
+
+PRESENT_SIZES = ((1280, 720, 1), (1920, 1080, 1), (1920, 1080, 4))
+PRESENT_FRAMES = 30
+
+
+def present(dev, card):
+    """`Renderer.draw_frame` of path-traced demo frames with ``present_async``
+    on and off at each of ``PRESENT_SIZES`` (width, height, spp a frame):
+    host-clock ms/frame over ``PRESENT_FRAMES`` frames, the two modes timed
+    in turns (a, b, b, a, a, b, b, a), each window ending in a synchronize,
+    then each mode's device-busy time and idle share a frame
+    (`chip_smoke.device_share`)."""
+    import time
+
+    import torch
+
+    from ptre_tpu_torch.models import demo
+    from ptre_tpu_torch.ops import camera as cam_ops
+    from ptre_tpu_torch.render import engine
+    from ptre_tpu_torch.utils.config import RasterConfig, RenderConfig
+
+    for W, H, spp in PRESENT_SIZES:
+        cam = cam_ops.Camera.create(width=W, height=H)
+        cfg, rcfg = RenderConfig(width=W, height=H), RasterConfig(width=W, height=H)
+        modes = {label: engine.Renderer(demo.reference_demo_scene(32, 16), cam, cfg, rcfg,
+                                        spp_per_frame=spp, present_async=on, device=dev)
+                 for label, on in (("dispatch-ahead", True), ("synchronous", False))}
+        for r in modes.values():
+            for _ in range(3):
+                r.draw_frame()
+        times = {label: [] for label in modes}
+        for label in [*modes, *reversed(modes)] * 2:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(PRESENT_FRAMES):
+                modes[label].draw_frame()
+            torch.cuda.synchronize()
+            times[label].append((time.perf_counter() - t0) * 1e3 / PRESENT_FRAMES)
+        print(f"  Renderer.draw_frame path-traced {W}x{H} spp {spp}, host ms/frame over "
+              f"{PRESENT_FRAMES} frames in turns: " + "; ".join(
+                  f"{label} {', '.join(f'{t:.3f}' for t in v)} (mean {sum(v) / len(v):.3f})"
+                  for label, v in times.items()) + f" [{card}]", flush=True)
+        for label, r in modes.items():
+            cs.device_share(r.draw_frame, PRESENT_FRAMES,
+                            f"Renderer.draw_frame {W}x{H} spp {spp} {label}", card)
 
 
 def raster_mega(dev, card):

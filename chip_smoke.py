@@ -110,7 +110,19 @@ source, all at once), then:
        against the fused route's on the same seed, and drives
        ``mse_step`` (spp 1, 1 + 8 steps) and ``two_pass_mse_step`` (spp 64)
        on it — checking one record, one replay forward and one replay
-       backward launch a sample — with a device profile of a step.
+       backward launch a sample — with a device profile of a step;
+  22.  the engine facade on the demo at 1280x720, spp 1: twelve
+       ``Renderer`` frames with the engine toggled before frames 4 and 8
+       and a reset before frame 6 — one render kernel launch a path-traced
+       frame, one hard raster launch a raster frame, every frame bit-equal
+       to the same seeds replayed through ``render_step`` / ``rasterize``
+       (dispatch-ahead frames one behind) — a resume from a checkpoint
+       bit-equal to an uninterrupted run, ``python -m ptre_tpu_torch.cli
+       render`` in a subprocess (its frames equal to the engine's),
+       ``cli info`` and ``cli bench``, ``NativeScene``'s demo packet against
+       ``Scene.build_packet`` on the card, and the host ms/frame of
+       path-traced frames with dispatch-ahead presentation on and off and
+       of raster frames.
 
 Any failed check raises and the script exits non-zero; it prints its result
 lines only after every phase passed:
@@ -637,6 +649,7 @@ def main():
 
     kernels += replay_phases(dev, card, rs, fma_bwd,
                              lib_replay_pair(first["replay_kernel.cu"], rpk, mk))
+    engine_phase(dev, card)
 
     # ---- result --------------------------------------------------------------------
     print(f"chip_smoke.py: every phase passed in {time.perf_counter() - t_run:.1f} s, the "
@@ -3164,6 +3177,7 @@ def raster_phases(dev, card, rs, first_hard):
     from ptre_tpu_torch.models import demo
     from ptre_tpu_torch.models.scene import Scene
     from ptre_tpu_torch.ops import camera as cam_ops
+    from ptre_tpu_torch.ops import rng
     from ptre_tpu_torch.ops.cuda import build
     from ptre_tpu_torch.ops.cuda import raster_kernel as rast
     from ptre_tpu_torch.ops.cuda import soft_raster as sr
@@ -3538,6 +3552,235 @@ def raster_phases(dev, card, rs, first_hard):
         "plain_ms": bwd_plain_ms,
     }, 2 * table_bytes + (3 + sr.RES_PLANES) * n_samples * 4,
         soft_pairs * OPS_SOFT_PAIR + n_inc * OPS_SOFT_ADJ)]
+
+
+ENGINE_W, ENGINE_H = 1280, 720  # the window's size (`app/window.py`)
+ENGINE_FRAMES = 12
+ENGINE_TOGGLES = (4, 8)  # the 'P' key before these frames
+ENGINE_RESET = 6  # the right button before this (raster) frame
+ENGINE_TIMED = 20  # frames timed a mode, after 2 warm-up frames
+CLI_FRAMES = ["render", "--frames", "4", "--toggle-every", "2", "--format", "npy"]
+
+
+def engine_phase(dev, card):
+    """Phase 22: the engine facade, its checkpoint, the CLI and the native
+    scene on the demo at 1280x720, spp 1. Twelve `Renderer` frames with the
+    engine toggled before frames 4 and 8 and a reset before frame 6: one
+    render kernel launch a path-traced frame and one hard raster launch a
+    raster frame, each frame bit-equal to the same seeds replayed through
+    `render_step` / `rasterize` directly (dispatch-ahead: frame i returns
+    frame i-1's display); a resume from a checkpoint after 3 frames
+    bit-equal to 6 uninterrupted frames; ``cli render`` in a subprocess
+    (its 4 frames equal to the same command run in this process, which
+    counts its launches), ``cli info`` and ``cli bench``; `NativeScene`'s
+    demo packets against `Scene.build_packet`; host ms/frame of path-traced
+    frames with ``present_async`` on and off and of raster frames."""
+    import contextlib
+    import io
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from ptre_tpu_torch import cli
+    from ptre_tpu_torch.models import demo
+    from ptre_tpu_torch.models.native_scene import NativeScene
+    from ptre_tpu_torch.models.scene import PACKET_COUNTS, PACKET_LEAVES
+    from ptre_tpu_torch.ops import camera as cam_ops
+    from ptre_tpu_torch.ops import rng
+    from ptre_tpu_torch.ops.cuda import build
+    from ptre_tpu_torch.ops.cuda import raster_kernel as rast
+    from ptre_tpu_torch.ops.cuda import render_kernel as rk
+    from ptre_tpu_torch.render import engine
+    from ptre_tpu_torch.render import pathtracer as pt
+    from ptre_tpu_torch.render import rasterizer as ras
+    from ptre_tpu_torch.utils import checkpoint as ckpt
+    from ptre_tpu_torch.utils.config import RasterConfig, RenderConfig
+
+    t_phase = time.perf_counter()
+    W, H = ENGINE_W, ENGINE_H
+    print(f"phase 22: engine, checkpoint, CLI and native scene, demo at {W}x{H}, spp 1",
+          flush=True)
+    work = os.path.join(build.BUILD_DIR, f"engine.{os.getpid()}")
+    os.makedirs(work, exist_ok=True)
+    root = os.path.dirname(os.path.abspath(__file__))
+    # the CLI in its own process, run while this one checks the engine
+    sub_out = os.path.join(work, "cli_sub")
+    sub = subprocess.Popen([sys.executable, "-m", "ptre_tpu_torch.cli", *CLI_FRAMES,
+                            "--out", sub_out], cwd=root, stdout=subprocess.PIPE,
+                           stderr=subprocess.PIPE, text=True)
+    try:
+        cam = cam_ops.Camera.create(width=W, height=H)
+        cfg, rcfg = RenderConfig(width=W, height=H), RasterConfig(width=W, height=H)
+
+        def renderer(**kw):
+            return engine.Renderer(demo.reference_demo_scene(32, 16), cam, cfg, rcfg,
+                                   device=dev, **kw)
+
+        def drive(r, frames, counts=None):
+            """The frames ``r`` returns, toggled and reset as the phase says;
+            with ``counts``, each frame's (render, raster) launches."""
+            out = []
+            for i in range(frames):
+                if i in ENGINE_TOGGLES:
+                    r.toggle_engine()
+                if i == ENGINE_RESET:
+                    r.reset()
+                before = (rk.launches, rast.launches)
+                img = r.draw_frame()  # applies a toggle queued before it
+                out.append((r.engine, img))
+                if counts is not None:
+                    counts.append((rk.launches - before[0], rast.launches - before[1]))
+            return out
+
+        # ---- launches and frames, against the seeds replayed directly ----
+        r = renderer()
+        counts = []
+        rk.launches = rast.launches = 0
+        frames = drive(r, ENGINE_FRAMES, counts)
+        torch.cuda.synchronize()
+        launches = (rk.launches, rast.launches)
+        kinds = [k for k, _ in frames]
+        n_pt = sum(k == engine.EngineKind.PATHTRACER for k in kinds)
+        for i, (k, c) in enumerate(zip(kinds, counts)):
+            check(c == ((1, 0) if k == engine.EngineKind.PATHTRACER else (0, 1)),
+                  f"engine frame {i} ({k.name}): (render, raster) launches {c}")
+        check(launches == (n_pt, ENGINE_FRAMES - n_pt), f"engine: launches {launches}")
+        check(r.accum.frame == ENGINE_FRAMES - max(ENGINE_TOGGLES),
+              f"engine: the reset left {r.accum.frame} samples")
+        print(f"  {ENGINE_FRAMES} frames (toggles before {ENGINE_TOGGLES}, reset before "
+              f"{ENGINE_RESET}): render kernel {launches[0]} launches for {n_pt} path-traced "
+              f"frames, hard raster kernel {launches[1]} for {ENGINE_FRAMES - n_pt} raster "
+              "frames, one a frame", flush=True)
+
+        pkt = demo.reference_demo_scene(32, 16).build_packet(device=dev)
+        rpkt = demo.reference_demo_scene(32, 16).build_packet(spheres_as_triangles=True,
+                                                              device=dev)
+        key = rng.key_for(cfg.seed)
+        acc = pt.AccumState.create(H, W, dev)
+        direct, pending_reset = [], False
+        for i, k in enumerate(kinds):
+            pending_reset |= i == ENGINE_RESET
+            if k == engine.EngineKind.PATHTRACER:
+                if pending_reset:
+                    acc, pending_reset = acc.reset(), False
+                acc = pt.render_step(pkt, cam, acc, rng.fold(key, i), cfg)
+                direct.append(pt.to_display(acc.linear).cpu().numpy())
+            else:
+                with torch.no_grad():
+                    img = ras.rasterize(rpkt, cam, rcfg)
+                direct.append((torch.clamp(img, 0.0, 1.0) * 255.0).to(torch.uint8).cpu().numpy())
+        zeros = np.zeros((H, W, 3), np.uint8)
+        for i, ((k, got), want) in enumerate(zip(frames, direct)):
+            if k == engine.EngineKind.PATHTRACER:  # dispatch-ahead: the previous frame
+                fresh = i == 0 or kinds[i - 1] != k
+                want = zeros if fresh else direct[i - 1]
+            check(np.array_equal(got, want), f"engine frame {i} differs from the direct replay")
+        sync_frames = drive(renderer(present_async=False), ENGINE_FRAMES)
+        for i, ((_, got), want) in enumerate(zip(sync_frames, direct)):
+            check(np.array_equal(got, want), f"synchronous frame {i} differs from the replay")
+        check(torch.equal(acc.linear, r.accum.linear), "engine: accumulator differs")
+        print(f"  every frame bit-equal to the direct replay ({n_pt} render_step, "
+              f"{ENGINE_FRAMES - n_pt} rasterize; dispatch-ahead frames one behind)", flush=True)
+
+        # ---- checkpoint and resume -------------------------------------------
+        whole, first = renderer(), renderer()
+        for _ in range(6):
+            whole.draw_frame()
+        for _ in range(3):
+            first.draw_frame()
+        path = os.path.join(work, "state.npz")
+        ckpt.save_render_state(path, first.accum, cfg.seed, first._frame_index)
+        resumed = renderer()
+        resumed.accum, _, resumed._frame_index, _ = ckpt.load_render_state(path)
+        for _ in range(3):
+            resumed.draw_frame()
+        torch.cuda.synchronize()
+        check(resumed.accum.frame == 6 and torch.equal(resumed.accum.linear, whole.accum.linear),
+              "resume: accumulator differs from 6 uninterrupted frames")
+        print("  resume after 3 frames: accum.linear bit-equal to 6 uninterrupted frames",
+              flush=True)
+
+        # ---- native scene ------------------------------------------------------
+        ns = NativeScene()
+        ns.add_mesh_tri("default")
+        ns.add_mesh_cube("cube")
+        ns.add_mesh_uv_sphere("sphere", False, 32, 16)
+        for name, mesh, (s, rot, t) in (
+                ("ground", "sphere", (10.0, (math.pi / 2, 0.0, 0.0), (0.0, -10.0, 0.0))),
+                ("sph", "sphere", (0.5, 0.0, (0.0, 0.5, 0.0))),
+                ("wall", "cube", (1.0, 0.0, (1.0, 0.5, 0.0)))):
+            check(ns.add_model(name, mesh), f"native scene: model {name}")
+            ns.set_transforms(name, s, rot, t)
+        nat = ns.build_packet(device=dev)
+        for leaf in PACKET_LEAVES:
+            a, b = getattr(nat, leaf), getattr(pkt, leaf)
+            check(a.device == b.device and a.dtype == b.dtype and torch.equal(a, b),
+                  f"native packet: {leaf} differs")
+        check(all(getattr(nat, c) == getattr(pkt, c) for c in PACKET_COUNTS),
+              "native packet: counts differ")
+        print(f"  NativeScene: the demo packet on {dev} equal to Scene.build_packet leaf for "
+              "leaf", flush=True)
+
+        # ---- the CLI -------------------------------------------------------------
+        in_out = os.path.join(work, "cli_in")
+        rk.launches = rast.launches = 0
+        check(cli.main([*CLI_FRAMES, "--out", in_out]) == 0, "cli render: exit code")
+        torch.cuda.synchronize()
+        check((rk.launches, rast.launches) == (2, 2),
+              f"cli render: (render, raster) launches {(rk.launches, rast.launches)}, "
+              "expected 2 path-traced and 2 raster frames, one launch each")
+        out, err = sub.communicate(timeout=300)
+        check(sub.returncode == 0, f"cli render subprocess exited {sub.returncode}:\n{err}")
+        names = sorted(os.listdir(sub_out))
+        check(names == [f"frame_{i:05d}.npy" for i in range(4)], f"cli render wrote {names}")
+        for n in names:
+            check(np.array_equal(np.load(os.path.join(sub_out, n)),
+                                 np.load(os.path.join(in_out, n))),
+                  f"cli render: {n} differs from the engine's in this process")
+        print("  cli render --frames 4 --toggle-every 2: subprocess exit 0, 4 frames equal "
+              "to the engine's, one launch a frame (2 render, 2 hard raster)", flush=True)
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            check(cli.main(["info"]) == 0, "cli info: exit code")
+        info = json.loads(buf.getvalue())
+        check(info["devices"][0] == torch.cuda.get_device_name(0) and info["backend"] == "cuda"
+              and info["card"]["name"] in card, f"cli info: {info}")
+        print(f"  cli info: {json.dumps(info)}", flush=True)
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            check(cli.main(["bench"]) == 0, "cli bench: exit code")
+        line = json.loads(buf.getvalue().strip().splitlines()[-1])
+        check(line["value"] > 0 and all(v > 0 for v in line["extra"].values())
+              and line["device"]["name"] == torch.cuda.get_device_name(0),
+              f"cli bench: {line}")
+        print(f"  cli bench: {json.dumps(line)} [{card}]", flush=True)
+
+        # ---- host ms/frame ------------------------------------------------------------
+        def ms_per_frame(r):
+            for _ in range(2):
+                r.draw_frame()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(ENGINE_TIMED):
+                r.draw_frame()
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3 / ENGINE_TIMED
+
+        pt_async = ms_per_frame(renderer())
+        pt_sync = ms_per_frame(renderer(present_async=False))
+        raster = ms_per_frame(renderer(engine=engine.EngineKind.RASTERIZER))
+        print(f"  Renderer.draw_frame {W}x{H}, host clock over {ENGINE_TIMED} frames: "
+              f"path-traced {pt_async:.3f} ms/frame dispatch-ahead, {pt_sync:.3f} "
+              f"synchronous; raster {raster:.3f} [{card}]", flush=True)
+        device_share(renderer().draw_frame, ENGINE_TIMED,
+                     f"Renderer.draw_frame path-traced {W}x{H} dispatch-ahead", card)
+    finally:
+        if sub.poll() is None:
+            sub.kill()
+            sub.communicate()
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"  phase 22 took {time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
 
 
 if __name__ == "__main__":

@@ -16,12 +16,15 @@ Layout:
   ops/cuda/  — kernel wrappers, their plain PyTorch versions, the nvcc build
                (path tracer, wavefront, hard and soft rasterizer)
   csrc/      — the CUDA C++ sources
-  models/    — meshes, scene graph, ScenePacket, demo scenes
+  models/    — meshes, scene graph, ScenePacket, demo scenes, the ctypes
+               binding of the native C++ scene core
   parallel/  — the differentiable parameter set (multi-GPU still to come)
   render/    — progressive path tracer, rasterizer (hard and SoftRas),
-               training steps
-  utils/     — configs, errors, device checks, interop with the JAX
-               package's pytrees
+               training steps, the engine facade (``Renderer``)
+  app/       — headless window, input queues, timer, ``Application``
+  utils/     — configs, errors, device checks, checkpoints, image IO,
+               metrics, interop with the JAX package's pytrees
+  cli.py     — ``python -m ptre_tpu_torch.cli render|bench|info``
 """
 
 __version__ = "0.1.0"

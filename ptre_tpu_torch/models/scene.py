@@ -48,6 +48,9 @@ class Material:
 DEFAULT_OREN_NAYAR = Material(MaterialKind.OREN_NAYAR, (0.5, 0.5, 0.5), 1.0)
 #: default triangle-mesh material (reference `path_tracer.cu:249`)
 DEFAULT_EMISSIVE = Material(MaterialKind.EMISSIVE, (1.0, 1.0, 1.0), 10.0)
+#: default sky gradient endpoints (`path_tracer.cu:307-316`)
+DEFAULT_SKY_BOTTOM = (1.0, 1.0, 1.0)
+DEFAULT_SKY_TOP = (0.5, 0.7, 1.0)
 
 
 @dataclasses.dataclass
@@ -198,8 +201,8 @@ class Scene:
         self._models: Dict[str, Model] = {}
         self._model_order: Dict[str, int] = {}
         self._materials: List[Material] = [DEFAULT_OREN_NAYAR, DEFAULT_EMISSIVE]
-        self._sky_bottom = (1.0, 1.0, 1.0)
-        self._sky_top = (0.5, 0.7, 1.0)
+        self._sky_bottom = DEFAULT_SKY_BOTTOM
+        self._sky_top = DEFAULT_SKY_TOP
         self._next_order = 0
         self._modified = True
 
@@ -215,8 +218,33 @@ class Scene:
         self._modified = True
         return True
 
+    def rename_mesh(self, old: str, new: str):
+        """Rename a mesh and repoint the models that use it; a missing
+        ``old`` or a taken ``new`` changes nothing."""
+        if old not in self._meshes or new in self._meshes:
+            return
+        self._meshes[new] = self._meshes.pop(old)
+        for mdl in self._models.values():
+            if mdl.mesh_name == old:
+                mdl.mesh_name = new
+        self._modified = True
+
+    def delete_mesh(self, name: str):
+        """Delete an unused mesh; SceneError while a model uses it."""
+        if name not in self._meshes:
+            return
+        in_use = [mn for mn, mdl in self._models.items() if mdl.mesh_name == name]
+        if in_use:
+            raise SceneError(f"mesh '{name}' still referenced by models {in_use}")
+        del self._meshes[name]
+        self._modified = True
+
     def get_mesh(self, name: str) -> Mesh:
         return self._meshes[name]
+
+    @property
+    def mesh_names(self) -> List[str]:
+        return sorted(self._meshes)
 
     def add_model(self, name: str, m: Model) -> bool:
         if name in self._models:
@@ -233,8 +261,30 @@ class Scene:
     def _mark_modified(self):
         self._modified = True
 
+    def rename_model(self, old: str, new: str):
+        """Rename a model, keeping its place in the walk; a missing ``old``
+        or a taken ``new`` changes nothing."""
+        if old not in self._models or new in self._models:
+            return
+        self._models[new] = self._models.pop(old)
+        self._model_order[new] = self._model_order.pop(old)
+        self._modified = True
+
+    def delete_model(self, name: str):
+        if name in self._models:
+            del self._models[name]
+            del self._model_order[name]
+            self._modified = True
+
     def get_model(self, name: str) -> Model:
+        """Read access does not dirty the scene; the Model's setters do."""
         return self._models[name]
+
+    def change_model_mesh(self, model_name: str, new_mesh_name: str):
+        if new_mesh_name not in self._meshes:
+            raise SceneError(f"unknown mesh '{new_mesh_name}'")
+        self._models[model_name].mesh_name = new_mesh_name
+        self._modified = True
 
     def add_material(self, m: Material) -> int:
         self._materials.append(m)
@@ -346,3 +396,10 @@ class Scene:
         return ScenePacket.from_numpy(
             arrays, num_triangles=num_tris, num_spheres=num_sph,
             num_drawcalls=num_dc, num_materials=len(mats)).to(device)
+
+    def raster_drawcalls(self):
+        """(model name, mesh, transform) per model in the walk's order, mesh
+        bind reuse left to the caller (reference `rasterizer.cu:157-169`).
+        SPHERES-type meshes rasterize their true geometry."""
+        return [(name, self._meshes[mdl.mesh_name], mdl.transform_matrix())
+                for name, mdl in self.sorted_models()]

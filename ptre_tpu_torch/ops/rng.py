@@ -199,12 +199,27 @@ def uint(key: Key, shape=(), minval: int = 0, maxval: int = 2**31 - 1,
     integers in [minval, maxval] (int64 tensor), the reference's inclusive
     `random::uint`. JAX's two-word remainder scheme, in wrapped uint32
     arithmetic."""
+    k1, k2 = split(key)
+    return _uint_of_bits(random_bits(k1, shape, device), random_bits(k2, shape, device),
+                         minval, maxval)
+
+
+def uint_scalar(key: Key, minval: int = 0, maxval: int = 2**31 - 1) -> int:
+    """``uint(key, (), minval, maxval)`` as a Python int, hashed on Python
+    ints: no tensor, so a per-frame seed costs microseconds on the host."""
+    k1, k2 = split(key)
+    return _uint_of_bits(*(k.k0 ^ k.k1 for k in (Key(*threefry2x32(k1.k0, k1.k1, 0, 0)),
+                                                  Key(*threefry2x32(k2.k0, k2.k1, 0, 0)))),
+                         minval, maxval)
+
+
+def _uint_of_bits(higher, lower, minval: int, maxval: int):
+    """JAX's two-word remainder scheme on two draws of 32 random bits (ints
+    or int64 tensors), in wrapped uint32 arithmetic."""
     if not 0 <= minval <= maxval < _MASK:
         raise ValueError(f"uint takes 0 <= minval <= maxval < 2**32 - 1, got "
                          f"[{minval}, {maxval}]")
     span = maxval + 1 - minval
-    k1, k2 = split(key)
-    higher, lower = random_bits(k1, shape, device), random_bits(k2, shape, device)
     mult = (((2**16 % span) ** 2) & _MASK) % span
     off = (((higher % span) * mult) & _MASK) + lower % span
     return minval + (off & _MASK) % span

@@ -37,7 +37,6 @@ from ptre_tpu_torch.ops.cuda import render_kernel as rk
 from ptre_tpu_torch.ops.cuda import wavefront as wf
 from ptre_tpu_torch.ops.integrator import postprocess_sample
 from ptre_tpu_torch.utils.device import resolve
-from ptre_tpu_torch.utils.errors import ConfigError
 
 
 @dataclasses.dataclass
@@ -161,6 +160,13 @@ def sample_image_staged(packet, cam, config, seed: int = 0, n: int = 0, urand=No
     return postprocess_sample(torch.cat(parts), config.clamp_samples)
 
 
+def fused_seed(key: rng.Key) -> int:
+    """The int seed that ``key`` gives the dense and wavefront routes: the
+    twin of the reference's ``randint(fold(key, 0x5EED), (), 0, 2**31 - 1)``
+    (`pathtracer.py:88`), whose bound is exclusive."""
+    return rng.uint_scalar(rng.fold(key, 0x5EED), maxval=2**31 - 2)
+
+
 def render_step(packet, cam, accum: AccumState, seed_or_generator, config,
                 spp: int = 1, urand=None, ray_chunk: int = 0) -> AccumState:
     """Accumulate ``spp`` progressive samples into the running average.
@@ -176,12 +182,13 @@ def render_step(packet, cam, accum: AccumState, seed_or_generator, config,
       packet: ScenePacket on the accumulator's device.
       cam: Camera (host tensors).
       accum: AccumState; its ``linear`` device picks the path.
-      seed_or_generator: an int seed or a CPU ``torch.Generator``; it gives
-        each sample a Python-int Philox seed, so no step reads the device.
-        On the staged route it may be an `rng.Key`: sample s is then keyed
-        ``fold(fold(key, s), n)`` and draws as the reference does
-        (`pathtracer.py:151-159`); the fused routes draw Philox and refuse
-        a key.
+      seed_or_generator: an int seed, a CPU ``torch.Generator`` or an
+        `rng.Key`. An int or a generator gives each sample a Python-int
+        Philox seed, so no step reads the device. A key on the staged route
+        keys sample s by ``fold(fold(key, s), n)`` and draws as the
+        reference does (`pathtracer.py:151-159`); on the dense and
+        wavefront routes, whose kernels draw Philox, it becomes the int
+        `fused_seed` (key), as the reference draws its fused seed.
       config: RenderConfig; ``intersect_backend`` takes part in `route`.
       spp: samples in this step.
       urand: optional (spp, 2 + 2*max_depth, H, W) float32 uniforms in
@@ -200,10 +207,7 @@ def render_step(packet, cam, accum: AccumState, seed_or_generator, config,
     r = route(packet, config)
     key = seed_or_generator if isinstance(seed_or_generator, rng.Key) else None
     if key is not None and r != "staged":
-        raise ConfigError(
-            f"a threefry key keys the staged route only, and this packet takes the {r} "
-            "route, whose kernels draw Philox: pass an int seed or a generator, or set "
-            "intersect_backend='pallas'")
+        seed_or_generator, key = fused_seed(key), None
     if key is None:
         gen = (seed_or_generator if isinstance(seed_or_generator, torch.Generator)
                else torch.Generator().manual_seed(int(seed_or_generator)))

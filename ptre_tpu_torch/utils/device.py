@@ -30,3 +30,21 @@ def resolve(device=None) -> torch.device:
     """``device`` as a torch.device; None means the card (`require_cuda`),
     which raises where there is none — never the CPU by default."""
     return require_cuda() if device is None else torch.device(device)
+
+
+def card_name_and_power_limit():
+    """(name, power limit) of the first card as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` prints them, or
+    None where there is no ``nvidia-smi`` or it fails."""
+    import shutil
+    import subprocess
+
+    smi = shutil.which("nvidia-smi")
+    if smi is None:
+        return None
+    out = subprocess.run([smi, "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    if out.returncode != 0 or not out.stdout.strip():
+        return None
+    name, _, limit = out.stdout.strip().splitlines()[0].rpartition(",")
+    return name.strip(), limit.strip()

@@ -376,3 +376,24 @@ def test_packet_and_accumulator_on_the_cpu_when_asked():
         assert acc.linear.device.type == "cpu" and acc.linear.shape == (4, 8, 3)
         assert acc.frame == 0 and not bool(acc.linear.any())
     assert not scn.modified()
+
+
+def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
+    """`Renderer(...)`, `Application()` and `cli render` without ``--device
+    cpu`` name the card and raise RendererError where there is none:
+    nothing carries on on the CPU by itself."""
+    from ptre_tpu_torch import cli
+    from ptre_tpu_torch.app.application import Application
+    from ptre_tpu_torch.app.window import Window
+    from ptre_tpu_torch.render.engine import Renderer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RendererError, match="CUDA device is required"):
+        Renderer(demo.reference_demo_scene(8, 4), cam_ops.Camera.create(width=8, height=4))
+    with pytest.raises(RendererError, match="CUDA device is required"):
+        Application(window=Window(8, 4))
+    for argv in (["render", "--width", "8", "--height", "4", "--out", str(tmp_path)],
+                 ["bench", "--width", "8", "--height", "4"], ["info"]):
+        with pytest.raises(RendererError, match="CUDA device is required"):
+            cli.main(argv)
+    assert os.listdir(tmp_path) == []

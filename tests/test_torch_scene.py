@@ -81,3 +81,79 @@ def test_scene_walk_flags_and_to():
     moved = pkt.to("cpu")
     assert moved.num_materials == pkt.num_materials
     assert all(torch.equal(getattr(moved, k), getattr(pkt, k)) for k in PACKET_LEAVES)
+
+
+def _crud_edits(pkg):
+    """The same CRUD sequence on a package's demo scene: returns the scene
+    and the modified flag after each edit (a packet is built first, which
+    clears it)."""
+    from importlib import import_module
+
+    mdemo = import_module(f"{pkg}.models.demo")
+    mesh = import_module(f"{pkg}.models.mesh")
+    scene_mod = import_module(f"{pkg}.models.scene")
+    scn = mdemo.reference_demo_scene(8, 4)
+    kw = {"device": "cpu"} if pkg == "ptre_tpu_torch" else {}
+    flags = []
+
+    def edit(fn, *args):
+        scn.build_packet(**kw)
+        fn(*args)
+        flags.append(scn.modified())
+
+    scn.build_packet(**kw)
+    scn.get_model("wall")  # a read does not dirty the scene
+    flags.append(scn.modified())
+    edit(scn.add_mesh, "quad", mesh.quad())
+    edit(scn.rename_mesh, "cube", "box")  # repoints "wall"
+    edit(scn.rename_mesh, "missing", "x")  # no-op
+    edit(scn.rename_mesh, "box", "quad")  # taken: no-op
+    edit(scn.add_model, "panel", scene_mod.Model("quad"))
+    edit(scn.rename_model, "sph", "ball")  # keeps its place in the walk
+    edit(scn.rename_model, "ball", "wall")  # taken: no-op
+    edit(scn.change_model_mesh, "panel", "box")
+    edit(scn.delete_mesh, "quad")  # now unused
+    edit(scn.delete_mesh, "missing")  # no-op
+    edit(scn.delete_model, "ground")
+    edit(scn.delete_model, "ground")  # no-op
+    edit(scn.delete_mesh, "default")
+    return scn, flags
+
+
+def test_scene_crud_matches_reference():
+    """The same edits on both packages' Scene: the same modified flags,
+    mesh names, walk, packets (leaf for leaf, exactly) and raster drawcalls
+    (names, meshes and transforms exactly); deleting a mesh a model uses
+    raises SceneError on both, and changing to an unknown mesh too."""
+    from ptre_tpu.utils.errors import SceneError as JSceneError
+    from ptre_tpu_torch.utils.errors import SceneError
+
+    js, jflags = _crud_edits("ptre_tpu")
+    ts, tflags = _crud_edits("ptre_tpu_torch")
+    assert tflags == jflags
+    assert jflags == [False, True, True, False, False, True, True, False, True, True, False,
+                      True, False, True]
+    assert ts.mesh_names == js.mesh_names == ["box", "sphere"]
+    assert [n for n, _ in ts.sorted_models()] == [n for n, _ in js.sorted_models()] == \
+        ["wall", "panel", "ball"]
+    for sat in (False, True):
+        jp = js.build_packet(spheres_as_triangles=sat)
+        tp = ts.build_packet(spheres_as_triangles=sat, device="cpu")
+        for leaf in PACKET_LEAVES:
+            np.testing.assert_array_equal(getattr(tp, leaf).numpy(),
+                                          np.asarray(getattr(jp, leaf)), err_msg=leaf)
+        for c in PACKET_COUNTS:
+            assert getattr(tp, c) == getattr(jp, c), c
+    jd, td = js.raster_drawcalls(), ts.raster_drawcalls()
+    assert [n for n, _, _ in td] == [n for n, _, _ in jd]
+    for (_, tm, tt), (_, jm, jt) in zip(td, jd):
+        np.testing.assert_array_equal(tm.positions, jm.positions)
+        np.testing.assert_array_equal(tm.indices, jm.indices)
+        np.testing.assert_array_equal(tt, np.asarray(jt))
+    for scn, err in ((js, JSceneError), (ts, SceneError)):
+        scn.build_packet(**({"device": "cpu"} if scn is ts else {}))
+        with pytest.raises(err, match="still referenced"):
+            scn.delete_mesh("box")
+        with pytest.raises(err, match="unknown mesh"):
+            scn.change_model_mesh("wall", "missing")
+        assert not scn.modified()

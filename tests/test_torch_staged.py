@@ -301,10 +301,14 @@ def test_route_fields_are_validated_and_read():
                                  torch.zeros((R, 3)), cfg, seed=0)
     assert math.isfinite(float(loss)) and set(grads) == set(sh.PARAM_KEYS)
     assert all(bool(torch.isfinite(g).all()) for g in grads.values())
-    # a threefry key on a fused route: its kernels draw Philox
-    with pytest.raises(ConfigError, match="staged route only"):
-        pt.render_step(dense, cam, pt.AccumState.create(H, W, device="cpu"), rng.key_for(1),
-                       RenderConfig(width=W, height=H))
+    # a threefry key on a fused route of render_step: its kernels draw Philox,
+    # seeded by `fused_seed` of the key as the reference seeds them; training's
+    # fused routes refuse a key
+    key, cfg = rng.key_for(1), RenderConfig(width=W, height=H)
+    keyed = pt.render_step(dense, cam, pt.AccumState.create(H, W, device="cpu"), key, cfg)
+    seeded = pt.render_step(dense, cam, pt.AccumState.create(H, W, device="cpu"),
+                            pt.fused_seed(key), cfg)
+    assert torch.equal(keyed.linear, seeded.linear)
     with pytest.raises(ConfigError, match="staged route only"):
         train.mse_step(sh.differentiable_params(dense, cam), dense, cam, torch.zeros((R, 3)),
                        RenderConfig(width=W, height=H), seed=rng.key_for(1))
