@@ -122,7 +122,16 @@ source, all at once), then:
        ``cli info`` and ``cli bench``, ``NativeScene``'s demo packet against
        ``Scene.build_packet`` on the card, and the host ms/frame of
        path-traced frames with dispatch-ahead presentation on and off and
-       of raster frames.
+       of raster frames;
+  23.  the sharded steps (``parallel/sharding.py``, ``parallel/distributed.py``)
+       on the demo at 1920x1080: a world of one over NCCL in this process
+       (mesh (1, 1): ``shard_render_step`` on the default and the staged
+       route, ``shard_train_step``, ``shard_raster_step`` hard and soft,
+       ``dual_train_step``, each held to a one-process replay of the shard's
+       maths with its launch counts and host ms/step), then four gloo ranks
+       sharing the card (``--shard-rank`` subprocesses, mesh (2, 2), and
+       (4, 1) at H = 1078), rank 0 holding the assembled results against the
+       replay of all shards.
 
 Any failed check raises and the script exits non-zero; it prints its result
 lines only after every phase passed:
@@ -650,6 +659,7 @@ def main():
     kernels += replay_phases(dev, card, rs, fma_bwd,
                              lib_replay_pair(first["replay_kernel.cu"], rpk, mk))
     engine_phase(dev, card)
+    sharding_phase(dev, card)
 
     # ---- result --------------------------------------------------------------------
     print(f"chip_smoke.py: every phase passed in {time.perf_counter() - t_run:.1f} s, the "
@@ -3783,5 +3793,418 @@ def engine_phase(dev, card):
     print(f"  phase 22 took {time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
 
 
+
+# ---- phase 23: the sharded steps (`parallel/sharding.py`, `parallel/distributed.py`) ----
+
+SHARD_W, SHARD_H, SHARD_RAGGED_H = 1920, 1080, 1078
+SHARD_SEED = 23
+SHARD_SPP, SHARD_STEPS = 4, 2  # render: 1 + 2 steps of spp 4
+SHARED_WORLD, SHARED_MESH, RAGGED_MESH = 4, (2, 2), (4, 1)
+SHARED_TRAIN_SPP = 2
+# The sharded gradients against the one-process replay: d(table) and d(sky)
+# are summed by atomics in no fixed order (the fused backward, the soft
+# backward), so per leaf rtol 1e-5 with atol 1e-5 of the leaf's largest
+# entry; images, losses aside, bit for bit.
+SHARD_GRAD_RTOL = 1e-5
+
+
+def shard_inputs(dev, height=SHARD_H):
+    """The demo at SHARD_W x height, max_depth 5, its raster packet and
+    config (ss 2, as `scripts/bench_dual.py`), and a target drawn from
+    SHARD_SEED."""
+    import numpy as np
+    import torch
+
+    from ptre_tpu_torch.models import demo
+    from ptre_tpu_torch.ops import camera as cam_ops
+    from ptre_tpu_torch.utils.config import RasterConfig, RenderConfig
+
+    scn = demo.reference_demo_scene(32, 16)
+    target = np.random.default_rng(SHARD_SEED).uniform(0.0, 0.5, (height, SHARD_W, 3))
+    return (scn.build_packet(device=dev), scn.build_packet(spheres_as_triangles=True, device=dev),
+            cam_ops.Camera.create(width=SHARD_W, height=height),
+            RenderConfig(width=SHARD_W, height=height),
+            RasterConfig(width=SHARD_W, height=height, supersample=2),
+            torch.from_numpy(target.astype(np.float32)).to(dev))
+
+
+def replay_render(pkt, cam, cfg, key, shape, spp, lin=None, frame=0, row_order="strided"):
+    """`shard_render_step` of a (dp, sp) mesh in one process: every shard's
+    running average over its samples from ``lin`` (the shard layout; zeros
+    if None), then the sp mean. Returns the shard-layout image."""
+    import torch
+
+    from ptre_tpu_torch.ops import rng
+    from ptre_tpu_torch.parallel import sharding as sh
+
+    dp, sp = shape
+    rows = sh.padded_height(cam.height, dp) // dp
+    dev = pkt.device
+    full = torch.zeros((dp * rows, cam.width, 3), device=dev) if lin is None else lin
+    out = torch.empty_like(full)
+    with torch.no_grad():
+        forward = sh._forward(pkt, cfg)
+        for dp_i in range(dp):
+            y0, stride = sh._row_start_stride(dp_i, rows, dp, row_order)
+            parts = []
+            for sp_i in range(sp):
+                lkey = rng.fold(key, dp_i * 131071 + sp_i)
+                acc, n = full[dp_i * rows:(dp_i + 1) * rows], frame
+                for s in range(spp // sp):
+                    n += 1
+                    img = sh._sample_rows(rng.fold(rng.fold(lkey, s), n), pkt, cam, cfg, y0, rows,
+                                          stride, forward).reshape(rows, cam.width, 3)
+                    nf = torch.tensor(float(n), dtype=torch.float32, device=dev)
+                    acc = img / nf + acc * ((nf - 1.0) / nf)
+                parts.append(acc)
+            mean = parts[0]
+            for x in parts[1:]:
+                mean = mean + x
+            out[dp_i * rows:(dp_i + 1) * rows] = mean / sp if sp > 1 else mean
+    return out
+
+
+def replay_loss(pkt, cam, cfg, key, shape, spp, target, rpkt=None, rcfg=None,
+                raster_weight=0.5, row_order="strided"):
+    """(loss, grads) of `shard_train_step` (or, with ``rpkt``,
+    `dual_train_step`) of a (dp, sp) mesh in one process: every shard's
+    samples and soft raster rows in one autograd graph."""
+    import dataclasses
+
+    import torch
+
+    from ptre_tpu_torch.ops import rng
+    from ptre_tpu_torch.parallel import sharding as sh
+    from ptre_tpu_torch.render import rasterizer as ras
+
+    dp, sp = shape
+    leaves = {k: v.detach().requires_grad_(True)
+              for k, v in sh.differentiable_params(pkt, cam).items()}
+    pk, cm = sh.apply_params(leaves, pkt, cam)
+    forward = sh._forward(pk, cfg)
+    rows = sh.padded_height(cam.height, dp) // dp
+    tgt = sh.to_shard_order(target, dp, row_order)
+    total = 0.0
+    for dp_i in range(dp):
+        y0, stride = sh._row_start_stride(dp_i, rows, dp, row_order)
+        imgs = []
+        for sp_i in range(sp):
+            lkey = rng.fold(key, dp_i * 131071 + sp_i)
+            acc = torch.zeros((rows, cam.width, 3), device=pkt.device)
+            for s in range(spp // sp):
+                acc = acc + sh._sample_rows(rng.fold(lkey, s), pk, cm, cfg, y0, rows, stride,
+                                            forward).reshape(rows, cam.width, 3)
+            imgs.append(acc / (spp // sp))
+        ys = y0 + stride * torch.arange(rows, dtype=torch.float32, device=pkt.device)
+        mask = (ys < cam.height).float()[:, None, None]
+        t = tgt[dp_i * rows:(dp_i + 1) * rows]
+        total = total + torch.sum(mask * (sum(imgs) / sp - t) ** 2)
+        if rpkt is not None:
+            rp = dataclasses.replace(rpkt, transforms=sh._shared_transforms(
+                leaves["transforms"], rpkt.transforms.shape[0]))
+            rz = ras.raster_rows(rp, cm, rcfg, y0, rows, soft=True, stride=stride)
+            total = total + raster_weight * torch.sum(mask * (rz - t) ** 2)
+    loss = total / (cam.height * cam.width * 3)
+    grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
+    return loss.detach(), {k: torch.zeros_like(v) if g is None else g
+                           for (k, v), g in zip(leaves.items(), grads)}
+
+
+def hold_grads(what, loss, grads, want_loss, want):
+    """The sharded (loss, grads) against the replay's: loss rtol 1e-5,
+    each leaf within SHARD_GRAD_RTOL; returns the largest error of a leaf
+    relative to its largest entry."""
+    import torch
+
+    worst = 0.0
+    check(abs(float(loss) - float(want_loss)) <= 1e-5 * abs(float(want_loss)),
+          f"{what}: loss {float(loss)} against the replay's {float(want_loss)}")
+    for k, w in want.items():
+        g = grads[k]
+        scale = max(float(w.abs().max()), 1e-30)
+        err = (g - w).abs()
+        check(bool(torch.isfinite(g).all()), f"{what}: d({k}) not finite")
+        check(bool((err <= SHARD_GRAD_RTOL * w.abs() + SHARD_GRAD_RTOL * scale).all()),
+              f"{what}: d({k}) differs from the replay's by {float(err.max())} "
+              f"(largest entry {scale})")
+        worst = max(worst, float(err.max()) / scale)
+    return worst
+
+
+def kernel_counts():
+    """The launch counters of every kernel the sharded steps may run."""
+    from ptre_tpu_torch.ops.cuda import fused_grad, raster_kernel, render_kernel, soft_raster
+    from ptre_tpu_torch.ops.cuda import megakernel as mk
+    from ptre_tpu_torch.ops.cuda import sweep_kernel
+
+    return {"record": mk.record_launches, "fused_bwd": fused_grad.launches,
+            "sweep": sweep_kernel.launches, "raster_hard": raster_kernel.launches,
+            "soft_fwd": soft_raster.fwd_launches, "soft_bwd": soft_raster.bwd_launches,
+            "render": render_kernel.launches}
+
+
+def reset_kernel_counts():
+    from ptre_tpu_torch.ops.cuda import fused_grad, raster_kernel, render_kernel, soft_raster
+    from ptre_tpu_torch.ops.cuda import megakernel as mk
+    from ptre_tpu_torch.ops.cuda import sweep_kernel
+
+    mk.record_launches = fused_grad.launches = sweep_kernel.launches = 0
+    raster_kernel.launches = soft_raster.fwd_launches = soft_raster.bwd_launches = 0
+    render_kernel.launches = 0
+
+
+def check_counts(what, want):
+    """The counters since `reset_kernel_counts` equal ``want`` (kernels not
+    named: 0): every sample went through its kernels, nothing else ran."""
+    got = kernel_counts()
+    full = {k: want.get(k, 0) for k in got}
+    check(got == full, f"{what}: kernel launches {got}, expected {full}")
+    return {k: v for k, v in got.items() if v}
+
+
+def timed_steps(fn, steps):
+    """Host ms per call of ``fn`` over ``steps`` calls after one warm-up,
+    each window ending in a synchronize; returns (ms, the last result)."""
+    import torch
+
+    out = fn(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(1, steps + 1):
+        out = fn(t)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / steps, out
+
+
+def sharding_phase(dev, card):
+    """Phase 23: the sharded steps at 1920x1080, max_depth 5 (raster ss 2).
+
+    1. A world of one over NCCL in this process, mesh (1, 1): the packet
+       replicated by broadcast; `shard_render_step` (spp 4, 1 + 2 steps) on
+       the default route (record kernel) and on the staged route with a key
+       (sweep kernel); `shard_train_step` (spp 1); `shard_raster_step` hard
+       and soft; `dual_train_step` (spp 1). Launch counts per step; images
+       bit-equal to the one-process replay, the hard raster to `rasterize`,
+       gradients within SHARD_GRAD_RTOL; host ms/step.
+    2. Four gloo ranks sharing the card (`shard_rank_main`, subprocesses,
+       mesh (2, 2), every rank on cuda:0): render spp 4, train and dual spp
+       2, and on a (4, 1) mesh at H = 1078 the render and the hard raster;
+       each rank checks its launch counts, rank 0 holds the assembled
+       results against the replay of all shards."""
+    import torch
+    import torch.distributed as dist
+
+    from ptre_tpu_torch.ops import rng
+    from ptre_tpu_torch.ops.cuda import build
+    from ptre_tpu_torch.parallel import sharding as sh
+    from ptre_tpu_torch.render import pathtracer as pt
+    from ptre_tpu_torch.render import rasterizer as ras
+
+    t_phase = time.perf_counter()
+    print(f"phase 23: sharded steps, demo at {SHARD_W}x{SHARD_H}, max_depth 5", flush=True)
+    work = os.path.join(build.BUILD_DIR, f"shard.{os.getpid()}")
+    os.makedirs(work, exist_ok=True)
+    root = os.path.dirname(os.path.abspath(__file__))
+    procs = []
+    try:
+        mesh = sh.make_mesh((1, 1))
+        print(f"  world of one: backend {dist.get_backend()}, device {sh.mesh_device(mesh)} "
+              f"({torch.cuda.get_device_name(sh.mesh_device(mesh))})", flush=True)
+        pkt, rpkt, cam, cfg, rcfg, target = shard_inputs(dev)
+        pkt, rpkt = sh.replicate(mesh, pkt), sh.replicate(mesh, rpkt)
+        staged = dataclasses.replace(cfg, grad_sweep="staged")
+        key = rng.key_for(SHARD_SEED)
+        times = {}
+
+        for name, c, kernel, per in (("render", cfg, "record", 1),
+                                     ("render staged", staged, "sweep", cfg.max_depth)):
+            lin = torch.zeros((SHARD_H, SHARD_W, 3), device=dev)
+            reset_kernel_counts()
+            state = {"acc": pt.AccumState(lin, 0)}
+
+            def render(t, c=c, state=state):
+                state["acc"] = sh.shard_render_step(mesh, pkt, cam, state["acc"],
+                                                    rng.fold(key, t), c, spp=SHARD_SPP)
+                return state["acc"]
+
+            times[name], acc = timed_steps(render, SHARD_STEPS)
+            counts = check_counts(name, {kernel: per * SHARD_SPP * (SHARD_STEPS + 1)})
+            want, frame = None, 0
+            for t in range(SHARD_STEPS + 1):
+                want = replay_render(pkt, cam, c, rng.fold(key, t), (1, 1), SHARD_SPP, want, frame)
+                frame += SHARD_SPP
+            torch.cuda.synchronize()
+            check(acc.frame == frame and torch.equal(acc.linear, want),
+                  f"{name}: the sharded image differs from the replay's")
+            print(f"  {name}: spp {SHARD_SPP}, 1 + {SHARD_STEPS} steps, launches {counts}; "
+                  "image bit-equal to the replay", flush=True)
+            device_share(lambda c=c: sh.shard_render_step(mesh, pkt, cam, acc, key, c,
+                                                          spp=SHARD_SPP), 2,
+                         f"shard_render_step ({name}) spp {SHARD_SPP}", card)
+
+        params = sh.differentiable_params(pkt, cam)
+        reset_kernel_counts()
+        times["train"], (loss, grads, _) = timed_steps(
+            lambda t: sh.shard_train_step(mesh, params, pkt, cam, target, rng.fold(key, t), cfg),
+            SHARD_STEPS)
+        counts = check_counts("train", {"record": SHARD_STEPS + 1, "fused_bwd": SHARD_STEPS + 1})
+        worst = hold_grads("train", loss, grads, *replay_loss(
+            pkt, cam, cfg, rng.fold(key, SHARD_STEPS), (1, 1), 1, target))
+        print(f"  shard_train_step spp 1: launches {counts} (1 + {SHARD_STEPS} steps); loss "
+              f"{float(loss):.6f}, gradients within {worst:.2e} of each leaf's largest entry "
+              "of the replay's", flush=True)
+        device_share(lambda: sh.shard_train_step(mesh, params, pkt, cam, target, key, cfg), 2,
+                     "shard_train_step spp 1", card)
+
+        for soft in (False, True):
+            name = "raster soft" if soft else "raster hard"
+            reset_kernel_counts()
+            times[name], img = timed_steps(
+                lambda t, soft=soft: sh.shard_raster_step(mesh, rpkt, cam, rcfg, soft=soft),
+                SHARD_STEPS)
+            counts = check_counts(name, {"soft_fwd" if soft else "raster_hard": SHARD_STEPS + 1})
+            with torch.no_grad():
+                want = ras.rasterize(rpkt, cam, rcfg, soft=soft)
+            torch.cuda.synchronize()
+            check(torch.equal(img.detach(), want), f"{name}: differs from rasterize")
+            print(f"  shard_raster_step {name[7:]}: launches {counts}; image bit-equal to "
+                  "rasterize", flush=True)
+
+        reset_kernel_counts()
+        times["dual train"], (loss, grads) = timed_steps(
+            lambda t: sh.dual_train_step(mesh, params, pkt, rpkt, cam, target, rng.fold(key, t),
+                                         cfg, rcfg), SHARD_STEPS)
+        n = SHARD_STEPS + 1
+        counts = check_counts("dual train", {"record": n, "fused_bwd": n, "soft_fwd": n,
+                                             "soft_bwd": n})
+        worst = hold_grads("dual train", loss, grads, *replay_loss(
+            pkt, cam, cfg, rng.fold(key, SHARD_STEPS), (1, 1), 1, target, rpkt, rcfg))
+        check(float(grads["transforms"].abs().max()) > 0, "dual train: d(transforms) is zero")
+        print(f"  dual_train_step spp 1: launches {counts}; gradients within {worst:.2e} of "
+              "each leaf's largest entry of the replay's", flush=True)
+        device_share(lambda: sh.dual_train_step(mesh, params, pkt, rpkt, cam, target, key, cfg,
+                                                rcfg), 2, "dual_train_step spp 1", card)
+        print("  world of one, host ms/step (1 warm-up, then " + str(SHARD_STEPS) + "): "
+              + ", ".join(f"{k} {v:.3f}" for k, v in times.items()) + f" [{card}]", flush=True)
+        dist.destroy_process_group()
+
+        # part 2, after part 1's timings: the shared-card world's ranks
+        procs += [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--shard-rank", str(r),
+             str(SHARED_WORLD), f"file://{os.path.join(work, 'store')}", work], cwd=root,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            env=dict(os.environ, LOCAL_RANK=str(r))) for r in range(SHARED_WORLD)]
+        outs = []
+        for p in procs:
+            outs.append(p.communicate(timeout=900)[0])
+        for r, (p, out) in enumerate(zip(procs, outs)):
+            for line in out.splitlines():
+                print(f"  [rank {r}] {line}", flush=True)
+            check(p.returncode == 0, f"shared-card rank {r} exited {p.returncode}")
+        with open(os.path.join(work, "shared.json")) as f:
+            shared = json.load(f)
+        print(f"  four gloo ranks on one card: {json.dumps(shared)} [{card}]", flush=True)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        import shutil
+
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"  phase 23 took {time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
+
+
+def shard_rank_main(argv):
+    """One rank of phase 23's shared-card world: ``chip_smoke.py
+    --shard-rank <rank> <world> <init_method> <out_dir>``. Fails (non-zero
+    exit) on any check; rank 0 writes ``shared.json`` to ``out_dir``."""
+    import torch
+    import torch.distributed as dist
+
+    from ptre_tpu_torch.ops import rng
+    from ptre_tpu_torch.parallel import distributed
+    from ptre_tpu_torch.parallel import sharding as sh
+    from ptre_tpu_torch.render import pathtracer as pt
+    from ptre_tpu_torch.render import rasterizer as ras
+
+    rank, world, init, out_dir = int(argv[0]), int(argv[1]), argv[2], argv[3]
+    t0 = time.perf_counter()
+    distributed.initialize(init, world, rank, backend="gloo", timeout=600)
+    mesh = sh.make_mesh(SHARED_MESH)
+    dev = sh.mesh_device(mesh)
+    print(f"backend {dist.get_backend()}, device {dev} ({torch.cuda.get_device_name(dev)}), "
+          f"mesh coordinates {sh._coords(mesh)}", flush=True)
+    pkt, rpkt, cam, cfg, rcfg, target = shard_inputs(dev)
+    pkt = sh.replicate(mesh, pkt)  # broadcast of CUDA tensors over gloo
+    key = rng.key_for(SHARD_SEED)
+    dp, sp = SHARED_MESH
+    local = {}
+
+    reset_kernel_counts()
+    zeros = sh.shard_rows(mesh, torch.zeros((SHARD_H, SHARD_W, 3)))
+    acc = sh.shard_render_step(mesh, pkt, cam, pt.AccumState(zeros, 0), key, cfg, spp=SHARD_SPP)
+    image = sh.gather_rows(mesh, acc.linear)
+    torch.cuda.synchronize()
+    local["render"] = check_counts("render", {"record": SHARD_SPP // sp})
+
+    params = sh.differentiable_params(pkt, cam)
+    tslab = sh.shard_rows(mesh, sh.to_shard_order(target, dp))
+    reset_kernel_counts()
+    loss, grads, _ = sh.shard_train_step(mesh, params, pkt, cam, tslab, key, cfg,
+                                         spp=SHARED_TRAIN_SPP)
+    torch.cuda.synchronize()
+    per = SHARED_TRAIN_SPP // sp
+    local["train"] = check_counts("train", {"record": per, "fused_bwd": per})
+    reset_kernel_counts()
+    dloss, dgrads = sh.dual_train_step(mesh, params, pkt, rpkt, cam, tslab, key, cfg, rcfg,
+                                       spp=SHARED_TRAIN_SPP)
+    torch.cuda.synchronize()
+    local["dual"] = check_counts("dual", {"record": per, "fused_bwd": per, "soft_fwd": 1,
+                                          "soft_bwd": 1})
+
+    ragged = sh.make_mesh(RAGGED_MESH)
+    rp_pkt, rr_pkt, r_cam, r_cfg, r_rcfg, _ = shard_inputs(dev, SHARD_RAGGED_H)
+    hp = sh.padded_height(SHARD_RAGGED_H, RAGGED_MESH[0])
+    reset_kernel_counts()
+    racc = sh.shard_render_step(ragged, rp_pkt, r_cam, pt.AccumState(
+        sh.shard_rows(ragged, torch.zeros((hp, SHARD_W, 3))), 0), key, r_cfg, spp=2)
+    rimage = sh.gather_rows(ragged, racc.linear)
+    rraster = sh.gather_rows(ragged, sh.shard_raster_step(ragged, rr_pkt, r_cam, r_rcfg))
+    torch.cuda.synchronize()
+    local["ragged"] = check_counts("ragged", {"record": 2, "raster_hard": 1})
+    print(f"launches {json.dumps(local)}; steps took {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    dist.destroy_process_group()
+    if rank != 0:
+        return
+
+    result = {"ranks": world, "mesh": list(SHARED_MESH), "backend": "gloo",
+              "device": str(dev), "launches_rank0": local}
+    want = replay_render(pkt, cam, cfg, key, SHARED_MESH, SHARD_SPP)
+    check(torch.equal(image, want), "shared card: render differs from the replay of all shards")
+    result["render"] = "bit-equal to the replay"
+    result["train_worst"] = hold_grads("shared card train", loss, grads, *replay_loss(
+        pkt, cam, cfg, key, SHARED_MESH, SHARED_TRAIN_SPP, target))
+    result["dual_worst"] = hold_grads("shared card dual", dloss, dgrads, *replay_loss(
+        pkt, cam, cfg, key, SHARED_MESH, SHARED_TRAIN_SPP, target, rpkt, rcfg))
+    want = replay_render(rp_pkt, r_cam, r_cfg, key, RAGGED_MESH, 2)
+    check(torch.equal(rimage, want), "ragged: render differs from the replay of all shards")
+    with torch.no_grad():
+        whole = ras.rasterize(rr_pkt, r_cam, r_rcfg)
+    got = sh.to_image_order(rraster, RAGGED_MESH[0], SHARD_RAGGED_H)
+    check(got.shape == whole.shape and torch.equal(got, whole),
+          "ragged: the hard raster shards differ from rasterize")
+    result["ragged"] = f"H {SHARD_RAGGED_H} on {list(RAGGED_MESH)}: render bit-equal to the " \
+                       "replay, hard raster to rasterize"
+    with open(os.path.join(out_dir, "shared.json"), "w") as f:
+        json.dump(result, f)
+
+
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--shard-rank"]:
+        shard_rank_main(sys.argv[2:])
+    else:
+        main()

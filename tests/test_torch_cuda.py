@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import sys
 
 import numpy as np
 import pytest
@@ -1251,3 +1252,119 @@ def test_engine_resume_is_bit_equal_on_the_card(cuda, tmp_path, backend):
         resumed.draw_frame()
     assert resumed.accum.frame == 6
     assert torch.equal(resumed.accum.linear, whole.accum.linear)
+
+
+# ---- the sharded steps (`parallel/sharding.py`) ---------------------------------------------
+
+SHARD_W, SHARD_H = 128, 64
+
+
+def _shard_replay_train(pkt, cam, cfg, key, sp, spp, target):
+    """(loss, grads) of `shard_train_step` on a (1, sp) mesh in one process:
+    the sp ranks' samples in one autograd graph."""
+    from ptre_tpu_torch.ops import rng
+
+    leaves = {k: v.detach().requires_grad_(True)
+              for k, v in sh.differentiable_params(pkt, cam).items()}
+    pk, cm = sh.apply_params(leaves, pkt, cam)
+    fwd = sh._forward(pk, cfg)
+    imgs = []
+    for sp_i in range(sp):
+        lkey = rng.fold(key, sp_i)
+        imgs.append(sum(sh._sample_rows(rng.fold(lkey, s), pk, cm, cfg, 0.0, cam.height, 1, fwd)
+                        .reshape(cam.height, cam.width, 3) for s in range(spp // sp))
+                    / (spp // sp))
+    loss = torch.mean((sum(imgs) / sp - target) ** 2)
+    grads = torch.autograd.grad(loss, list(leaves.values()))
+    return loss.detach(), dict(zip(leaves, grads))
+
+
+def test_shard_render_step_nccl_world_of_one_equals_replay(cuda):
+    """A (1, 1) mesh over NCCL in this process: every sample one record
+    launch, the image bit-equal to `_sample_rows` replayed by hand."""
+    import torch.distributed as dist
+
+    from ptre_tpu_torch.ops import rng
+
+    assert not dist.is_initialized()
+    try:
+        mesh = sh.make_mesh((1, 1))
+        assert dist.get_backend() == "nccl" and sh.mesh_device(mesh).type == "cuda"
+        pkt = sh.replicate(mesh, demo.reference_demo_scene(16, 8).build_packet(device=cuda))
+        cam = cam_ops.Camera.create(width=SHARD_W, height=SHARD_H)
+        cfg = RenderConfig(width=SHARD_W, height=SHARD_H)
+        key = rng.key_for(5)
+        before = mk.record_launches
+        out = sh.shard_render_step(mesh, pkt, cam, pt.AccumState.create(SHARD_H, SHARD_W), key,
+                                   cfg, spp=3)
+        torch.cuda.synchronize()
+        assert mk.record_launches == before + 3 and out.frame == 3
+        lin = torch.zeros((SHARD_H, SHARD_W, 3), device=cuda)
+        fwd = sh._forward(pkt, cfg)
+        for s in range(3):
+            img = sh._sample_rows(rng.fold(rng.fold(rng.fold(key, 0), s), s + 1), pkt, cam, cfg,
+                                  0.0, SHARD_H, 1, fwd).reshape(SHARD_H, SHARD_W, 3)
+            n = torch.tensor(float(s + 1), device=cuda)
+            lin = img / n + lin * ((n - 1.0) / n)
+        assert torch.equal(out.linear, lin)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def test_two_gloo_ranks_sharing_the_card_train_matches_replay(cuda, tmp_path):
+    """Two gloo ranks on the one card, mesh (1, 2): the sp mean's gradient
+    factor. `shard_train_step` (spp 2) against the replay within rtol 1e-5
+    and 1e-5 of each leaf's largest entry (d(table) and d(sky) are summed
+    by atomics)."""
+    import _torch_world
+
+    _torch_world.run(__file__, 2, tmp_path / "store", tmp_path, timeout=600)
+    got = np.load(tmp_path / "shared_r0.npz")
+    assert str(got["device"]).startswith("cuda") and str(got["backend"]) == "gloo"
+    assert int(got["record"]) == 1 and int(got["fused_bwd"]) == 1  # one sample a rank
+    from ptre_tpu_torch.ops import rng
+
+    pkt = demo.reference_demo_scene(16, 8).build_packet(device=cuda)
+    cam = cam_ops.Camera.create(width=SHARD_W, height=SHARD_H)
+    target = torch.from_numpy(got["target"]).to(cuda)
+    loss, grads = _shard_replay_train(pkt, cam, RenderConfig(width=SHARD_W, height=SHARD_H),
+                                      rng.key_for(6), 2, 2, target)
+    np.testing.assert_allclose(float(got["loss"]), float(loss), rtol=1e-5)
+    for k, w in grads.items():
+        w = w.cpu().numpy()
+        np.testing.assert_allclose(got[f"grad_{k}"], w, rtol=1e-5,
+                                   atol=1e-5 * max(float(np.abs(w).max()), 1e-30), err_msg=k)
+    np.testing.assert_array_equal(np.load(tmp_path / "shared_r1.npz")["loss"], got["loss"])
+
+
+def _shared_card_rank(argv):
+    """One rank of `test_two_gloo_ranks_sharing_the_card_train_matches_replay`."""
+    import _torch_world
+    import torch.distributed as dist
+
+    from ptre_tpu_torch.ops import rng
+    from ptre_tpu_torch.parallel import distributed
+
+    rank, world, init, (out_dir,) = _torch_world.worker_args(argv)
+    distributed.initialize(init, world, rank, backend="gloo", timeout=300)
+    mesh = sh.make_mesh((1, world))
+    dev = sh.mesh_device(mesh)
+    pkt = demo.reference_demo_scene(16, 8).build_packet(device=dev)
+    cam = cam_ops.Camera.create(width=SHARD_W, height=SHARD_H)
+    target = torch.from_numpy(np.random.default_rng(1).uniform(
+        0.0, 0.5, (SHARD_H, SHARD_W, 3)).astype(np.float32))
+    before = mk.record_launches, fg.launches
+    loss, grads, _ = sh.shard_train_step(mesh, sh.differentiable_params(pkt, cam), pkt, cam,
+                                         target.to(dev), rng.key_for(6),
+                                         RenderConfig(width=SHARD_W, height=SHARD_H), spp=2)
+    torch.cuda.synchronize()
+    np.savez(f"{out_dir}/shared_r{rank}.npz", loss=loss.cpu().numpy(), device=str(dev),
+             backend=dist.get_backend(), target=target.numpy(),
+             record=mk.record_launches - before[0], fused_bwd=fg.launches - before[1],
+             **{f"grad_{k}": v.cpu().numpy() for k, v in grads.items()})
+    dist.destroy_process_group()
+
+
+if __name__ == "__main__" and sys.argv[1:2] == ["worker"]:
+    _shared_card_rank(sys.argv)

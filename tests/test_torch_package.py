@@ -397,3 +397,25 @@ def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
         with pytest.raises(RendererError, match="CUDA device is required"):
             cli.main(argv)
     assert os.listdir(tmp_path) == []
+
+
+def _public_functions(path):
+    tree = ast.parse(open(path).read(), filename=path)
+    return {n.name for n in tree.body
+            if isinstance(n, ast.FunctionDef) and not n.name.startswith("_")}
+
+
+@pytest.mark.parametrize("module", ["sharding", "distributed"])
+def test_parallel_modules_port_every_public_function(module):
+    """`parallel/sharding.py` and `parallel/distributed.py` of the port have
+    every public function of the JAX package's modules of the same name (read
+    with ast from both sources: the JAX module is not imported), and name
+    neither jax nor a ``ptre_tpu`` module."""
+    port = os.path.join(PORT_DIR, "parallel", f"{module}.py")
+    ref = os.path.join(REPO, "ptre_tpu", "parallel", f"{module}.py")
+    missing = _public_functions(ref) - _public_functions(port)
+    assert missing == set(), missing
+    assert f"ptre_tpu_torch.parallel.{module}" in _port_modules()
+    names = _imported_modules(port)
+    assert not [n for n in names if n.split(".")[0] in ("jax", "jaxlib", "flax", "ptre_tpu")]
+    assert "torch.distributed" in names
