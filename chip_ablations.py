@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Ablations of the hard raster kernel, the culled megakernel and the
-replay pair on one GPU.
+"""Ablations of the hard raster kernel, the culled megakernel, the replay
+pair and the mask kernel on one GPU.
 
-    python3 chip_ablations.py [raster_mega] [replay] [present] [culled_flips]
+    python3 chip_ablations.py [raster_mega] [replay] [mask] [present] [culled_flips]
     (no argument: raster_mega and replay)
 
 Not a gate: ``chip_smoke.py`` holds the shipped kernels to their plain
@@ -56,6 +56,14 @@ recording kernel's selections of one Philox sample (chip_smoke.py phase
     colour is read against the plain version, not held);
   beside the first design (``csrc/baseline/replay_pair/``), with the
   shipped kernels' registers, shared memory and blocks an SM.
+
+Mask kernel ("mask"), its global instantiation (past 1,024 leaves) on
+every live bounce after the first of one 1920x1080 sample of BASELINE
+config 3's uv-sphere at 320x128 and 512x256 segments (1,270 and 4,080
+leaves; chip_smoke.py's `mask_states`):
+  * "dynamic shared": every block stages the leaf boxes and the supertile
+    boxes into dynamic shared memory (sized by n_leaf, opted in past 48 KB)
+    before the walk, instead of reading them through L1/L2 (verdicts equal).
 
 Culled megakernel flips ("culled_flips", no variant built): the four cases
 of the card test ``test_culled_megakernel_matches_plain_version`` (culling
@@ -152,16 +160,93 @@ def main():
     print(card, flush=True)
     parts = sys.argv[1:] or ["raster_mega", "replay"]
     for part in parts:
-        cs.check(part in ("raster_mega", "replay", "culled_flips", "present"),
+        cs.check(part in ("raster_mega", "replay", "mask", "culled_flips", "present"),
                  f"unknown part {part}")
     if "raster_mega" in parts:
         raster_mega(dev, card)
     if "replay" in parts:
         replay(dev, card)
+    if "mask" in parts:
+        mask(dev, card)
     if "present" in parts:
         present(dev, card)
     if "culled_flips" in parts:
         culled_flips(dev, card)
+
+
+# mask_kernel.cu: the global instantiation's walk on boxes in global memory,
+# and the boxes staged in dynamic shared memory that replace it
+MASK_GLOBAL_WALK = """  extern __shared__ unsigned s_words[];"""
+MASK_DYN_DECL = """  extern __shared__ __align__(16) unsigned s_words[];"""
+MASK_GLOBAL_CALL = """  for (int i = tid; i < n_words; i += blockDim.x) s_words[i] = 0u;
+  __syncthreads();
+
+  mask_walk<kStats>(p, n_super, boxes, supers, s_words, live, o, dir, stats);"""
+MASK_DYN_CALL = """  float* s_box = reinterpret_cast<float*>(s_words + ((n_words + 3) & ~3));
+  float* s_sup = s_box + (size_t)p.n_leaf * kBoxStride;
+  for (int i = tid; i < n_words; i += blockDim.x) s_words[i] = 0u;
+  for (int i = tid; i < p.n_leaf * kBoxStride; i += blockDim.x) s_box[i] = boxes[i];
+  for (int i = tid; i < n_super * kBoxStride; i += blockDim.x) s_sup[i] = supers[i];
+  __syncthreads();
+
+  mask_walk<kStats>(p, n_super, s_box, s_sup, s_words, live, o, dir, stats);"""
+MASK_GLOBAL_BYTES = """  const size_t bytes = sizeof(unsigned) * (size_t)((p.n_leaf + 31) / 32);"""
+MASK_DYN_BYTES = """  const size_t bytes = sizeof(unsigned) * (size_t)((((p.n_leaf + 31) / 32) + 3) & ~3) +
+                       sizeof(float) * kBoxStride *
+                           (size_t)(p.n_leaf + (p.n_leaf + kSuper - 1) / kSuper);"""
+MASK_MESHES = (
+    ("1,270 leaves", ("config3_scene", dict(flat=False, segments=320, rings=128, diffuse=True)),
+     cs.W_MAIN, cs.H_MAIN),
+    ("4,080 leaves", ("config3_scene", dict(flat=False, segments=512, rings=256, diffuse=True)),
+     cs.W_MAIN, cs.H_MAIN),
+)
+
+
+def mask(dev, card):
+    """The mask's global instantiation against the variant whose blocks stage
+    the boxes in dynamic shared memory, verdicts compared, timed in turns."""
+    import torch
+
+    from ptre_tpu_torch.ops.cuda import build
+    from ptre_tpu_torch.ops.cuda import megakernel as mk
+    from ptre_tpu_torch.ops.cuda import wavefront as wf
+
+    dyn = variant(build, "mask_kernel.cu", "maskdyn", [
+        (MASK_GLOBAL_WALK, MASK_DYN_DECL), (MASK_GLOBAL_CALL, MASK_DYN_CALL),
+        (MASK_GLOBAL_BYTES, MASK_DYN_BYTES)])
+    shipped = build.load_library()
+    report = []
+    lib = cs.finish_unit_build(dyn, report)
+    print("variant: " + "; ".join(x for x in report if "global" in x) + f" [{card}]",
+          flush=True)
+    lib.ptre_wave_mask.restype = ctypes.c_int
+    lib.ptre_wave_mask.argtypes = shipped.ptre_wave_mask.argtypes
+
+    def staged_in_shared(state, scene, t_min):
+        r_pad = state.shape[1]
+        out = torch.empty((r_pad // wf.LANES, scene.n_leaf), dtype=torch.bool, device=dev)
+        p = wf.MaskParams(t_min=mk.f32(t_min), r_pad=r_pad, n_leaf=scene.n_leaf)
+        rc = lib.ptre_wave_mask(ctypes.addressof(p), state.data_ptr(), scene.boxes.data_ptr(),
+                                scene.mask_supers.data_ptr(), out.data_ptr(), None, wf.LANES,
+                                torch.cuda.current_stream(dev).cuda_stream)
+        cs.check(rc == 0, f"dynamic shared variant: launch failed ({rc})")
+        return out
+
+    for config in MASK_MESHES:
+        name = config[0]
+        _, _, scene, k, _, _, _, states = cs.mask_states(dev, config)
+        for b, state, _ in states:
+            got = wf.wave_mask(state, scene.boxes, k.t_min, supers=scene.mask_supers)
+            cs.check(torch.equal(staged_in_shared(state, scene, k.t_min), got),
+                     f"{name} bounce {b}: the variant's verdicts differ")
+            times = cs.in_turns({
+                "shipped": lambda: wf.wave_mask(state, scene.boxes, k.t_min,
+                                                supers=scene.mask_supers),
+                "dynamic shared": lambda: staged_in_shared(state, scene, k.t_min)}, 10)
+            print(f"  mask, {name}, bounce {b} ({int((state[9] > 0.5).sum())} live rays): "
+                  + ", ".join(f"{label} {ms:.4f} ms" for label, ms in times.items())
+                  + f" (CUDA events, in turns; verdicts equal) [{card}]", flush=True)
+        del states
 
 
 FLIP_SEEDS = range(200)

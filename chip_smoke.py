@@ -31,8 +31,10 @@ source, all at once), then:
        ``two_pass_mse_step`` equals ``mse_step`` at 320x180; then one
        ``mse_step`` at max_depth 9, past the kernels' depth cap, through the
        staged route (the sweep kernel, no record or backward launch);
-  9-10. holds the wavefront's mask kernel against its plain version and
-       its first design (``csrc/baseline/``) at every live bounce after the
+  9-10. holds the wavefront's mask kernel against its plain version, its
+       first design (``csrc/baseline/``) and the unit shipped before it
+       took more than 1,024 leaves (``csrc/baseline/mask_static/``, timed
+       in turns beside the others) at every live bounce after the
        first of a sample of BASELINE config 3 (16,128 triangles) at 512x512
        and config 4 (16,140 triangles) at 1920x1080, each bounce timed in
        turns beside its bound and the supertile and leaf tests its counting
@@ -93,7 +95,8 @@ source, all at once), then:
        (ray, leaf) pairs the rays pass and the warps sweep; times it in turns
        against its unit built with FMA contraction;
   20.  drives the staged main path — ``render_step`` and ``mse_step`` (spp
-       1, 1 + 2 steps each) on that mesh, past every fused route's cap —
+       1, 1 + 2 steps each) on that mesh, the staged route forced
+       (``intersect_backend="pallas"``, ``grad_sweep="staged"``) —
        checking that every bounce went through the sweep kernel, profiles a
        staged step, holds the staged route's gradients against the fused
        route's on the demo scene, with the staged gathers' float64 sums and,
@@ -131,7 +134,21 @@ source, all at once), then:
        maths with its launch counts and host ms/step), then four gloo ranks
        sharing the card (``--shard-rank`` subprocesses, mesh (2, 2), and
        (4, 1) at H = 1078), rank 0 holding the assembled results against the
-       replay of all shards.
+       replay of all shards;
+  24.  meshes past the reference's 49,152-row cap, which the wavefront and
+       the fused route now take: the 65,024-row mesh (1,016 leaves) and
+       ``config3_scene(False, 512, 256, diffuse=True)`` (261,120 rows, 4,080
+       leaves: the mask's global instantiation) at 1920x1080 — the packing
+       against the CPU's, the screen binning (bounce 0 bit-equal to every
+       leaf listed), the mask at every live bounce (against the plain
+       version, with its counted bound; the staged instantiation in turns
+       with the parent's unit), the compaction against the CPU's, the bounce
+       kernel plain and recording, the whole trace on 8 rows of pixels, the
+       table and its Morton gather, the global backward (as phase 17) and
+       the culled megakernel on those rows against their plain versions;
+       then ``render_step`` and ``mse_step`` on the default route in turns
+       with the forced staged route, and a ``force="culled"`` step, with
+       their launches and device profiles, printed as a before/after table.
 
 Any failed check raises and the script exits non-zero; it prints its result
 lines only after every phase passed:
@@ -425,6 +442,12 @@ def main():
     first.update({u: start_baseline_build(u, "raster_mega")
                   for u in ("raster_kernel.cu", "mega_kernel.cu")})
     first["replay_kernel.cu"] = start_baseline_build("replay_kernel.cu", "replay_pair")
+    # the mask unit as shipped before it took more than 1,024 leaves
+    # (csrc/baseline/mask_static/, against the shipped headers): phases 9
+    # and 24 time the shipped staged instantiation in turns with it
+    first["mask_static"] = start_unit_build(
+        "mask_kernel.cu", "mask_static", ("-I", build.CSRC_DIR),
+        os.path.join(build.CSRC_DIR, "baseline", "mask_static"))
     t0 = time.perf_counter()
     build.load_library()
     build_s = time.perf_counter() - t0
@@ -645,8 +668,10 @@ def main():
     kernels += grad_kernels
     from ptre_tpu_torch.ops.cuda import wavefront
 
+    static_mask = lean_wave_mask(first["mask_static"], wavefront, mk)
     kernels += wavefront_phases(dev, card, rs,
-                                baseline_wave_mask(first["mask_kernel.cu"], wavefront, mk))
+                                baseline_wave_mask(first["mask_kernel.cu"], wavefront, mk),
+                                static_mask)
     from ptre_tpu_torch.ops.cuda import raster_kernel as rast
 
     kernels += raster_phases(dev, card, rs, baseline_raster_hard(first["raster_kernel.cu"], rast))
@@ -660,6 +685,7 @@ def main():
                              lib_replay_pair(first["replay_kernel.cu"], rpk, mk))
     engine_phase(dev, card)
     sharding_phase(dev, card)
+    kernels.append(past_cap_phase(dev, card, rs, static_mask))
 
     # ---- result --------------------------------------------------------------------
     print(f"chip_smoke.py: every phase passed in {time.perf_counter() - t_run:.1f} s, the "
@@ -1197,33 +1223,46 @@ def mask_states(dev, config, seed=WAVE_SEED, sample=1):
                 perm = wf.coherence_order(state, scene)
                 state, ids = state[:, perm].contiguous(), ids[perm].contiguous()
             states.append((b, state, ids))
-            short, cnt = wf.shortlists_from_mask(wf.wave_mask(state, scene.boxes, k.t_min))
+            short, cnt = wf.shortlists_from_mask(wf.wave_mask(state, scene.boxes, k.t_min,
+                                                              supers=scene.mask_supers))
         else:
             short, cnt = short0
         state = wf.wave_bounce(state, ids, short, cnt, scene, k, b, seed, sample)
     return pkt, cam, scene, k, o, d, short0, states
 
 
+#: leaves up to which the mask kernel stages the boxes in shared memory and
+#: forms the supertiles' boxes itself (csrc/mask_kernel.cu kMaxMaskLeaves);
+#: past it the global instantiation reads the scene's supertile table
+MASK_STAGED_LEAVES = 1024
+
+
 def mask_work(state, scene, mask, stats):
     """(bytes, operations) of one mask call: o, d and active read, the
-    verdicts written, the leaf boxes read once; the slab tests the counting
-    instantiation made (supertiles and leaves, each for every live ray of
-    the warp that made it), OPS_SLAB each."""
+    verdicts written, the leaf boxes (and past MASK_STAGED_LEAVES the
+    supertile boxes) read once; the slab tests the counting instantiation
+    made (supertiles and leaves, each for every live ray of the warp that
+    made it), OPS_SLAB each."""
     nbytes = state.shape[1] * 28 + mask.numel() + scene.boxes.numel() * 4
+    if scene.n_leaf > MASK_STAGED_LEAVES:
+        nbytes += scene.mask_supers.numel() * 4
     return nbytes, (stats["supertile_tests"] + stats["leaf_tests"]) * OPS_SLAB
 
 
-def wavefront_phases(dev, card, rs, first_mask):
+def wavefront_phases(dev, card, rs, first_mask, static_mask):
     """Phases 9-11: the wavefront's mask and bounce kernels against their
     plain versions (the mask also against its first design, ``first_mask``,
-    at every live bounce of a sample), then the triangle-scale render path.
-    Returns the two kernels' entries of the ``kernels`` line."""
+    and the unit shipped before it took more than 1,024 leaves,
+    ``static_mask``, at every live bounce of a sample), then the
+    triangle-scale render path. Returns the two kernels' entries of the
+    ``kernels`` line."""
     import numpy as np
     import torch
 
     from ptre_tpu_torch.utils.config import RenderConfig
     from ptre_tpu_torch.ops import camera as cam_ops
     from ptre_tpu_torch.ops import rng
+    from ptre_tpu_torch.ops.cuda import build
     from ptre_tpu_torch.ops.cuda import megakernel as mk
     from ptre_tpu_torch.ops.cuda import render_kernel as rk
     from ptre_tpu_torch.ops.cuda import wavefront as wf
@@ -1233,6 +1272,8 @@ def wavefront_phases(dev, card, rs, first_mask):
     B = 5
     setups, times = {}, {}
     mask_err, bounce_err = 0.0, 0.0
+    # the three units timed alike: through their C interfaces
+    shipped_mask = lean_wave_mask(build.load_library(), wf, mk, shipped=True)
     for config in TRI_CONFIGS:
         name, _, W, H = config
         R = W * H
@@ -1249,33 +1290,42 @@ def wavefront_phases(dev, card, rs, first_mask):
               f"{time.perf_counter() - t0:.2f} s)", flush=True)
         for b, state, _ in states:
             want = wf.wave_mask_reference(state, scene.boxes, k.t_min)
-            got = wf.wave_mask(state, scene.boxes, k.t_min)
+            got = wf.wave_mask(state, scene.boxes, k.t_min, supers=scene.mask_supers)
             first = first_mask(state, scene.boxes, k.t_min)
+            parent = static_mask(state, scene.boxes, k.t_min)
             counts = torch.zeros(len(wf.MASK_STATS), dtype=torch.int64, device=dev)
-            counted = wf.wave_mask(state, scene.boxes, k.t_min, stats=counts)
+            counted = wf.wave_mask(state, scene.boxes, k.t_min, stats=counts,
+                                   supers=scene.mask_supers)
             torch.cuda.synchronize()
             n_diff = int((got != want).sum())
             mask_err = max(mask_err, float((got.float() - want.float()).abs().max()))
             check(n_diff == 0, f"{name} bounce {b}: {n_diff} mask verdicts differ from the "
                   "plain version")
-            check(torch.equal(got, first) and torch.equal(counted, got),
-                  f"{name} bounce {b}: verdicts differ from the first design's or the "
-                  "counting instantiation's")
+            check(torch.equal(got, first) and torch.equal(got, parent)
+                  and torch.equal(counted, got),
+                  f"{name} bounce {b}: verdicts differ from the first design's, the parent "
+                  "unit's or the counting instantiation's")
             counts = dict(zip(wf.MASK_STATS, counts.tolist()))
             n_live = int((state[9] > 0.5).sum())
             check(counts["live_rays"] == n_live, f"{name} bounce {b}: live rays {counts}")
-            turns = in_turns({"shipped": lambda: wf.wave_mask(state, scene.boxes, k.t_min),
+            turns = in_turns({"shipped": lambda: shipped_mask(state, scene.boxes, k.t_min),
+                              "parent's unit": lambda: static_mask(state, scene.boxes,
+                                                                   k.t_min),
                               "first design": lambda: first_mask(state, scene.boxes,
                                                                  k.t_min)}, 20)
             nbytes, ops = mask_work(state, scene, got, counts)
             b_ms, b_by = bound(nbytes, ops)
             a_ms, a_by = bound(nbytes, n_live * scene.n_leaf * OPS_SLAB)
+            parent_ms = turns["parent's unit"]
             print(f"  bounce {b}: {n_live} live rays of {state.shape[1]}; verdicts equal to the "
-                  f"plain version's and the first design's; {100 * float(got.float().mean()):.3f}"
+                  f"plain version's, the parent unit's and the first design's; "
+                  f"{100 * float(got.float().mean()):.3f}"
                   f" % of (block, leaf) pairs pass; {counts['supertile_tests']} supertile and "
                   f"{counts['leaf_tests']} leaf tests (live rays x the tests their warps made) "
-                  f"against {n_live * scene.n_leaf} (live ray, leaf) pairs; in turns: shipped "
-                  f"{turns['shipped']:.4f} ms, first design {turns['first design']:.4f} ms; "
+                  f"against {n_live * scene.n_leaf} (live ray, leaf) pairs; in turns, through "
+                  f"their C interfaces: shipped "
+                  f"{turns['shipped']:.4f} ms, parent's unit {parent_ms:.4f} "
+                  f"ms, first design {turns['first design']:.4f} ms; "
                   f"bound {b_ms:.4f} ms by {b_by} (every pair: {a_ms:.4f} ms by {a_by}) "
                   f"[{card}]", flush=True)
             if b == 1:
@@ -2149,6 +2199,33 @@ def baseline_wave_mask(lib, wf, mk):
     return fn
 
 
+def lean_wave_mask(lib, wf, mk, shipped=False):
+    """The mask unit of ``lib`` through its own C interface, as a function of
+    `wave_mask`'s (state, boxes, t_min, lanes), with none of the wrapper's
+    checks: the unit shipped before it took more than 1,024 leaves
+    (``csrc/baseline/mask_static/``), or with ``shipped`` the shipped unit
+    (its staged instantiation: no supertile table). It counts nothing."""
+    import ctypes
+
+    import torch
+
+    ptr = ctypes.c_void_p
+    lib.ptre_wave_mask.restype = ctypes.c_int
+    lib.ptre_wave_mask.argtypes = [ptr] * (6 if shipped else 5) + [ctypes.c_int, ptr]
+
+    def fn(state, boxes, t_min, lanes=wf.LANES):
+        r_pad, n_leaf = state.shape[1], boxes.shape[0]
+        mask = torch.empty((r_pad // lanes, n_leaf), dtype=torch.bool, device=state.device)
+        p = wf.MaskParams(t_min=mk.f32(t_min), r_pad=r_pad, n_leaf=n_leaf)
+        args = (state.data_ptr(), boxes.data_ptr()) + ((None,) if shipped else ())
+        rc = lib.ptre_wave_mask(ctypes.addressof(p), *args, mask.data_ptr(), None, lanes,
+                                torch.cuda.current_stream(state.device).cuda_stream)
+        check(rc == 0, f"mask unit: launch failed ({rc})")
+        return mask
+
+    return fn
+
+
 def baseline_render(lib, rk):
     """The render kernel's first design (``csrc/baseline/render_kernel.cu``)
     through its own C interface, as a function of `sample_accum`'s
@@ -2382,8 +2459,9 @@ def staged_phases(dev, card, rs, report):
     scenes at 1920x1080 (on the 65,024-row mesh the primary rays and every
     bounce of one staged sample), beside its unit built with FMA
     contraction (not shipped); then the staged
-    main path (render_step and mse_step on that mesh, past every fused
-    route's cap) and the staged route's gradients against the fused route's.
+    main path (render_step and mse_step on that mesh, the staged route
+    forced: the mesh's default route is phase 24's) and the staged route's
+    gradients against the fused route's.
     ``report``: the build's ptxas report. Returns the sweep's entry of the
     ``kernels`` line."""
     import torch
@@ -2543,10 +2621,16 @@ def staged_phases(dev, card, rs, report):
         del sample, per_bounce
 
     # ---- 20. the staged main path at full width --------------------------------------
+    # the mesh's default route is the wavefront and the fused route (phase
+    # 24); the staged route is forced, as a user forces it
     pkt = getattr(demo, STAGED_SCENE[0])(**STAGED_SCENE[1]).build_packet(device=dev)
-    check(pt.route(pkt, cfg) == "staged", f"route {pt.route(pkt, cfg)}, expected staged")
-    print(f"phase 20: staged main path, {STAGED_SCENE[0]}({STAGED_SCENE[1]}) ({pkt.num_triangles} "
-          f"triangles in {pkt.tri_valid.shape[0]} rows; route {pt.route(pkt, cfg)}) at {W}x{H}, "
+    check(pt.route(pkt, cfg) == "wavefront", f"default route {pt.route(pkt, cfg)}")
+    cfg = dataclasses.replace(cfg, intersect_backend="pallas", grad_sweep="staged")
+    check(pt.route(pkt, cfg) == "staged" and integrator.grad_route(cfg, pkt) == "staged",
+          f"forced route {pt.route(pkt, cfg)}, {integrator.grad_route(cfg, pkt)}")
+    print(f"phase 20: staged main path, forced (intersect_backend 'pallas', grad_sweep "
+          f"'staged'), {STAGED_SCENE[0]}({STAGED_SCENE[1]}) ({pkt.num_triangles} "
+          f"triangles in {pkt.tri_valid.shape[0]} rows) at {W}x{H}, "
           f"max_depth {B}: render_step and mse_step spp 1, 1 + {STAGED_STEPS} steps", flush=True)
     sk.launches = 0  # every count to 0 just before the main path
     acc = pt.AccumState.create(H, W, dev)
@@ -2654,6 +2738,360 @@ def staged_phases(dev, card, rs, report):
         "ms": main["ms"],
         "plain_ms": main["plain_ms"],
     }, main["nbytes"], main["ops"])
+
+
+# Past the reference's row cap (phase 24). The port's routes take packets
+# by its own kernels' limits (wavefront.supports), so the 65,024-row mesh
+# of phases 19-20 and a 261,120-row one (4,080 leaves, the mask's global
+# instantiation) take the wavefront and the fused route. Every stage is
+# held against its plain version on the card: the packing (prepare_scene
+# on the card against the CPU: the Morton permutation equal but where a
+# float32 rounding of the world-space triangles moves a code, at most
+# PACK_PERM_FRAC of the rows, and the rows and leaf boxes that do not move
+# within PACK_REL of the scene's scale), the screen binning (the bounce-0
+# state equal bit for bit to the one with every leaf listed), the mask at
+# every live bounce (verdicts equal), the compaction (equal to the CPU's),
+# the bounce kernel plain and recording (as phase 10), the whole trace on
+# PAST_CAP_ROWS rows of pixels (as the card test: TIGHT_FRAC of the
+# channels within TIGHT, rays beyond it on at most 1e-4 of them), the table
+# and its Morton gather (against the CPU's build), the global backward (as
+# phase 17) and B11 on those rows (as phase 15). Then the default route,
+# the forced staged route and a force="culled" step at 1920x1080, timed in
+# turns.
+PAST_CAP_MESHES = (
+    ("65,024-row mesh", STAGED_SCENE),
+    ("4,080-leaf mesh", ("config3_scene", dict(flat=False, segments=512, rings=256,
+                                              diffuse=True))),
+)
+PAST_CAP_ROWS = 8
+PAST_CAP_STEPS = 2
+PACK_PERM_FRAC = 1e-3
+PACK_REL = 1e-5
+
+
+def past_cap_phase(dev, card, rs, static_mask):
+    """Phase 24: the default route on meshes past the reference's 49,152-row
+    cap, every stage held against its plain version, the mask's global
+    instantiation against the plain version with its counted bound, the
+    staged instantiation in turns with the parent's unit (``static_mask``),
+    and the before/after table: the forced staged route against the default
+    route and force="culled" at 1920x1080, spp 1, in turns. Returns the
+    global instantiation's entry of the ``kernels`` line."""
+    import numpy as np
+    import torch
+
+    from ptre_tpu_torch.models import demo
+    from ptre_tpu_torch.ops import camera as cam_ops
+    from ptre_tpu_torch.ops import integrator, path_replay, rng
+    from ptre_tpu_torch.ops.cuda import build
+    from ptre_tpu_torch.ops.cuda import fused_grad as fg
+    from ptre_tpu_torch.ops.cuda import megakernel as mk
+    from ptre_tpu_torch.ops.cuda import sweep_kernel as sk
+    from ptre_tpu_torch.ops.cuda import wavefront as wf
+    from ptre_tpu_torch.parallel import sharding as sh
+    from ptre_tpu_torch.render import pathtracer as pt
+    from ptre_tpu_torch.render import train
+    from ptre_tpu_torch.utils.config import RenderConfig
+
+    W, H, B = W_MAIN, H_MAIN, 5
+    shipped_mask = lean_wave_mask(build.load_library(), wf, mk, shipped=True)
+    R = W * H
+    cfg = RenderConfig(width=W, height=H, max_depth=B)
+    forced = dataclasses.replace(cfg, intersect_backend="pallas", grad_sweep="staged")
+    k = mk.TraceConsts.from_config(cfg)
+    cam = cam_ops.Camera.create(width=W, height=H)
+    px, py = pt.pixel_grid(H, W, dev)
+    seed = 0x24
+    u = rng.ray_uniforms(seed, 1, R, 1, dev)
+    o, d = (x.contiguous() for x in cam_ops.get_rays(cam, px, py, (u - 0.5).T))
+    rows = slice((H // 2) * W, (H // 2 + PAST_CAP_ROWS) * W)
+    o8, d8 = o[rows].contiguous(), d[rows].contiguous()
+    table_lines, mask_rows, global_launches = [], [], 0
+    for name, (fn, kw) in PAST_CAP_MESHES:
+        pkt = getattr(demo, fn)(**kw).build_packet(device=dev)
+        check(wf.supports(pkt) and pt.route(pkt, cfg) == "wavefront"
+              and integrator.grad_route(cfg, pkt) == "fused", f"{name}: default route")
+        fg.check_supported(pkt, "culled")
+        check(pt.route(pkt, forced) == "staged" and integrator.grad_route(forced, pkt) == "staged",
+              f"{name}: forced route")
+
+        # ---- the packing: prepare_scene on the card against the CPU ----------------
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        scene = wf.prepare_scene(pkt, screen_cam=cam)
+        torch.cuda.synchronize()
+        pack_ms = (time.perf_counter() - t0) * 1e3
+        cpu = wf.prepare_scene(pkt.to("cpu"), screen_cam=cam)
+        T, n_leaf = scene.tri_rows, scene.n_leaf
+        print(f"phase 24: past the reference's row cap, {name}: {pkt.num_triangles} triangles "
+              f"in {T} rows, {n_leaf} leaves ({'global' if n_leaf > MASK_STAGED_LEAVES else 'staged'}"
+              f" mask instantiation), {pkt.num_spheres} spheres; route {pt.route(pkt, cfg)} / "
+              f"{integrator.grad_route(cfg, pkt)}; prepare_scene {pack_ms:.1f} ms on the card "
+              f"(host clock) [{card}]", flush=True)
+        same = scene.perm_tri.cpu() == cpu.perm_tri
+        scale = float(torch.maximum(cpu.scene_lo.abs().amax(), cpu.scene_hi.abs().amax()))
+        tri_err = float((scene.tris[:T].cpu()[same] - cpu.tris[:T][same]).abs().max())
+        leaf_same = torch.nn.functional.pad(same, (0, n_leaf * wf.LEAF - T),
+                                            value=True).view(n_leaf, wf.LEAF).all(dim=1)
+        box_err = float((scene.boxes.cpu()[leaf_same] - cpu.boxes[leaf_same]).abs()
+                        .nan_to_num(0.0).max())
+        print(f"  packing against the CPU's: {int((~same).sum())} of {T} Morton positions "
+              f"differ, rows elsewhere within {tri_err:.3e}, the boxes of the {int(leaf_same.sum())}"
+              f" leaves they leave alone within {box_err:.3e} (scale {scale:.3f}); supertile "
+              f"table {tuple(scene.mask_supers.shape)}", flush=True)
+        check(cpu.n_leaf == n_leaf and int((~same).sum()) <= PACK_PERM_FRAC * T,
+              f"{name}: the packing differs from the CPU's")
+        check(tri_err <= PACK_REL * scale and box_err <= PACK_REL * scale,
+              f"{name}: packed rows or boxes differ from the CPU's")
+        check(torch.equal(scene.mask_supers, mk.pack_super_boxes(scene.boxes)),
+              f"{name}: the mask's supertile table")
+        del cpu
+
+        # ---- bounce 0: the screen binning is conservative --------------------------
+        state, ids, short0 = wf.primary_state(o, d, scene, (H, W))
+        check(short0 is not None, f"{name}: bounce 0 not screen-binned")
+        nb = state.shape[1] // wf.LANES
+        nxt = wf.wave_bounce(state, ids, *short0, scene, k, 0, seed, 1)
+        every = wf.wave_bounce(state, ids, *wf.all_leaves(nb, n_leaf, dev), scene, k, 0, seed, 1)
+        torch.cuda.synchronize()
+        share0 = float(short0[1].float().sum()) / (nb * n_leaf)
+        print(f"  bounce 0: screen binning lists {100 * share0:.3f} % of ({nb} blocks x "
+              f"{n_leaf} leaves); the next state bit-equal to every leaf listed", flush=True)
+        check(torch.equal(nxt, every), f"{name}: screen binning dropped a hit")
+        del every
+
+        # ---- later bounces: mask, compaction, bounce kernel -------------------------
+        state, bounce1 = nxt, None
+        for b in range(1, B):
+            n_live = int((state[9] > 0.5).sum())
+            if n_live == 0:
+                break
+            if n_live >= max(int(wf.SORT_MIN_LIVE * state.shape[1]), 1):
+                perm = wf.coherence_order(state, scene)
+                state, ids = state[:, perm].contiguous(), ids[perm].contiguous()
+            got = wf.wave_mask(state, scene.boxes, k.t_min, supers=scene.mask_supers)
+            want = wf.wave_mask_reference(state, scene.boxes, k.t_min)
+            counts = torch.zeros(len(wf.MASK_STATS), dtype=torch.int64, device=dev)
+            counted = wf.wave_mask(state, scene.boxes, k.t_min, stats=counts,
+                                   supers=scene.mask_supers)
+            torch.cuda.synchronize()
+            check(torch.equal(got, want) and torch.equal(counted, want),
+                  f"{name} bounce {b}: mask verdicts differ from the plain version's")
+            counts = dict(zip(wf.MASK_STATS, counts.tolist()))
+            check(counts["live_rays"] == n_live, f"{name} bounce {b}: live rays {counts}")
+            if n_leaf <= MASK_STAGED_LEAVES:  # both units through their C interfaces
+                check(torch.equal(static_mask(state, scene.boxes, k.t_min), got),
+                      f"{name} bounce {b}: verdicts differ from the parent unit's")
+                fns = {"shipped": lambda: shipped_mask(state, scene.boxes, k.t_min),
+                       "parent's unit": lambda: static_mask(state, scene.boxes, k.t_min)}
+            else:
+                fns = {"shipped": lambda: wf.wave_mask(state, scene.boxes, k.t_min,
+                                                       supers=scene.mask_supers)}
+            turns = in_turns(fns, 10)
+            nbytes, ops = mask_work(state, scene, got, counts)
+            b_ms, b_by = bound(nbytes, ops)
+            print(f"  bounce {b}: mask on {n_live} live rays, verdicts equal to the plain "
+                  f"version's and the counting instantiation's; {counts['supertile_tests']} "
+                  f"supertile and {counts['leaf_tests']} leaf tests against "
+                  f"{n_live * n_leaf} (live ray, leaf) pairs; in turns: " + ", ".join(
+                      f"{label} {ms:.4f} ms" for label, ms in turns.items())
+                  + f"; bound {b_ms:.4f} ms by {b_by} [{card}]", flush=True)
+            short, cnt = wf.shortlists_from_mask(got)
+            if b == 1:
+                plain_ms = cuda_events(lambda: wf.wave_mask_reference(state, scene.boxes,
+                                                                      k.t_min), 1)
+                mask_rows.append((n_leaf, turns["shipped"], plain_ms, nbytes, ops))
+                s_cpu, c_cpu = wf.shortlists_from_mask(got.cpu())
+                check(torch.equal(short.cpu(), s_cpu) and torch.equal(cnt.cpu(), c_cpu),
+                      f"{name}: the compaction differs from the CPU's")
+                compact_ms = cuda_events(lambda: wf.shortlists_from_mask(got), 3)
+                print(f"  bounce 1: compaction of the ({nb}, {n_leaf}) mask equal to the CPU's, "
+                      f"{compact_ms:.3f} ms on the card; shortlists of {float(cnt.float().mean()):.1f}"
+                      f" leaves a block on average, {int(cnt.max())} at most [{card}]", flush=True)
+                bounce1 = (state, ids, short, cnt)
+            state = wf.wave_bounce(state, ids, short, cnt, scene, k, b, seed, 1)
+        del got, want, counted
+
+        # the bounce kernel, plain and recording, against its plain version
+        state1, ids1, short, cnt = bounce1
+        pairs = {}
+        sel_k = torch.full((B, R), -1, dtype=torch.int32, device=dev)
+        sel_r = sel_k.clone()
+        bk = wf.wave_bounce(state1, ids1, short, cnt, scene, k, 1, seed, 1)
+        bk_rec = wf.wave_bounce(state1, ids1, short, cnt, scene, k, 1, seed, 1, sel=sel_k)
+        bp = wf.wave_bounce_reference(state1, ids1, short, cnt, scene, k, 1, seed, 1,
+                                      sel=sel_r, stats=pairs)
+        torch.cuda.synchronize()
+        err = (bk - bp).abs()
+        flip = (err > WAVE_FLIP).any(dim=0)
+        tight = float((err <= TIGHT).float().mean())
+        other = (sel_k != sel_r).any(dim=0)
+        other[ids1[flip].long()] = False
+        print(f"  bounce 1: bounce kernel against plain max_abs_err {float(err[:, ~flip].max()):.3e}"
+              f" outside {int(flip.sum())} flipped rays, {100 * tight:.4f} % within {TIGHT:g}; "
+              f"recording state bit-equal, {int(other.sum())} other winners outside flipped "
+              f"rays (allowed {math.ceil(FLIP_FRAC * R)}); (live ray, leaf) pairs {pairs['listed_pairs']} listed, "
+              f"{pairs['own_pairs']} whose box the ray passes", flush=True)
+        check(torch.equal(bk, bk_rec), f"{name}: the recording bounce kernel's state differs")
+        allowed = math.ceil(FLIP_FRAC * R)
+        check(tight >= TIGHT_FRAC and int(flip.sum()) <= allowed and int(other.sum()) <= allowed,
+              f"{name}: the bounce kernel disagrees with its plain version")
+        wave_ms = in_turns({"bounce": lambda: wf.wave_bounce(state1, ids1, short, cnt, scene, k,
+                                                             1, seed, 1),
+                            "recording": lambda: wf.wave_bounce(state1, ids1, short, cnt, scene,
+                                                                k, 1, seed, 1, sel=sel_k)}, 5)
+        print(f"  bounce 1: wave kernel {wave_ms['bounce']:.4f} ms, recording "
+              f"{wave_ms['recording']:.4f} ms (CUDA events, in turns) [{card}]", flush=True)
+        del state, state1, bk, bk_rec, bp, sel_k, sel_r, err, short, cnt, bounce1
+
+        # the whole trace on PAST_CAP_ROWS rows, kernels against plain versions
+        t0 = time.perf_counter()
+        ck = wf.trace(o8, d8, scene, k, B, seed, 1)
+        cp = wf.trace(o8, d8, scene, k, B, seed, 1, plain=True)
+        torch.cuda.synchronize()
+        err = (ck - cp).abs()
+        tight = float((err <= TIGHT).float().mean())
+        n_flip = int((err > TIGHT).any(dim=1).sum())
+        print(f"  whole trace, {PAST_CAP_ROWS} rows ({o8.shape[0]} rays): {100 * tight:.4f} % "
+              f"of the channels within {TIGHT:g}, {n_flip} rays beyond ({time.perf_counter() - t0:.1f}"
+              f" s, mostly the plain version)", flush=True)
+        check(bool(torch.isfinite(ck).all()) and tight >= TIGHT_FRAC
+              and n_flip <= math.ceil(1e-4 * o8.shape[0]), f"{name}: the trace disagrees")
+
+        # ---- training: the table, its Morton gather, the global backward, B11 -------------
+        col, sel, perm = wf.trace(o, d, scene, k, B, seed, 1, tile_hint=(H, W), record=True)
+        table, T_, sky6 = path_replay.build_table(pkt)
+        table_c, _, _ = path_replay.build_table(pkt.to("cpu"))
+        tab_err = float((table.cpu() - table_c).abs().max())
+        table = torch.cat([table[:T][perm], table[T:]]).contiguous()
+        gathered = torch.cat([table_c[:T][perm.cpu()], table_c[T:]])
+        check(T_ == T and tab_err <= PACK_REL * scale
+              and float((table.cpu() - gathered).abs().max()) <= tab_err,
+              f"{name}: the table or its Morton gather differs from the CPU's")
+        del table_c, gathered
+        dcol = torch.from_numpy(rs.standard_normal((R, 3), dtype=np.float32)).to(dev)
+        groups = {"v0-v2": slice(0, 9), "n0-n2": slice(9, 18), "center": slice(18, 21),
+                  "radius": slice(21, 22), "albedo": slice(23, 26), "param": slice(26, 27)}
+        print(f"  the table ({table.shape[0]} rows) within {tab_err:.3e} of the CPU's, its "
+              f"Morton gather equal; global backward on the recorded selections "
+              f"({int((sel >= 0).sum())} hits):", flush=True)
+        hold_backward(fg, mk, f"{name} global bwd", table, sky6, o, d, sel, dcol, k, B, T, seed,
+                      None, groups)
+        bwd_ms = cuda_events(lambda: fg.fused_bwd(table, sky6, o, d, sel, dcol, k, B, T, seed,
+                                                  1), 5)
+        cc, cs = mk.trace_culled(o8, d8, scene, k, B, seed, 1, record=True)
+        pc, ps = mk.trace_culled_reference(o8, d8, scene, k, B, seed, 1, record=True)
+        torch.cuda.synchronize()
+        flip = ((cc - pc).abs() > 0.05 * pc.abs().clamp_min(1.0)).any(dim=1) | (cs != ps).any(dim=0)
+        tight = float(((cc - pc).abs() <= TIGHT * pc.abs().clamp_min(1.0)).float().mean())
+        check(tight >= TIGHT_FRAC and int(flip.sum()) <= math.ceil(1e-4 * o8.shape[0]),
+              f"{name}: the culled megakernel disagrees with its plain version")
+        culled_ms = cuda_events(lambda: mk.trace_culled(o, d, scene, k, B, seed, 1, record=True),
+                                3)
+        print(f"  culled megakernel on {PAST_CAP_ROWS} rows: {100 * tight:.4f} % of the channels "
+              f"within {TIGHT:g}, {int(flip.sum())} rays flipped; global backward "
+              f"{bwd_ms:.4f} ms, culled megakernel {culled_ms:.4f} ms a recording sample at "
+              f"{W}x{H} (CUDA events) [{card}]", flush=True)
+        del col, sel, perm, table, dcol, cc, cs, pc, ps
+
+        # ---- the default route against the forced staged route, in turns --------------
+        params = sh.differentiable_params(pkt, cam)
+        target = torch.zeros((R, 3), device=dev)
+        acc = pt.AccumState.create(H, W, dev)
+
+        def render(c):
+            return lambda i: pt.render_step(pkt, cam, acc, 700 + i, c)
+
+        def mse(c):
+            return lambda i: train.mse_step(params, pkt, cam, target, c, 800 + i)
+
+        def culled(i):
+            leaves = {key: v.detach().requires_grad_(True) for key, v in params.items()}
+            pk, cm = sh.apply_params(leaves, pkt, cam)
+            jit = rng.ray_uniforms(900 + i, 0, R, 1, dev)
+            oo, dd = cam_ops.get_rays(cm, px, py, (jit - 0.5).T)
+            color = fg.trace_grad(oo, dd, pk, cfg, 900 + i, 0, force="culled", screen_cam=cm)
+            loss = torch.mean((color - target) ** 2)
+            return loss.detach(), torch.autograd.grad(loss, list(leaves.values()),
+                                                      allow_unused=True)
+
+        def steps(fn):
+            fn(0)  # warm
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(PAST_CAP_STEPS):
+                out = fn(1 + i)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3 / PAST_CAP_STEPS, out
+
+        def launches():
+            return (wf.mask_launches, wf.bounce_launches, fg.launches, mk.culled_launches,
+                    sk.launches)
+
+        times = {}
+        for label, fn, c in (("render_step staged", render, forced),
+                             ("render_step default", render, cfg),
+                             ("render_step default", render, cfg),
+                             ("render_step staged", render, forced),
+                             ("mse_step staged", mse, forced),
+                             ("mse_step default", mse, cfg),
+                             ("mse_step default", mse, cfg),
+                             ("mse_step staged", mse, forced),
+                             ("mse_step force='culled'", None, None)):
+            # every count to 0 just before a route is driven, read just after
+            wf.mask_launches = wf.bounce_launches = fg.launches = mk.culled_launches = 0
+            sk.launches = 0
+            ms, out = steps(culled if fn is None else fn(c))
+            n = launches()
+            samples = PAST_CAP_STEPS + 1
+            if label.endswith("staged"):
+                ok = n[:4] == (0, 0, 0, 0) and n[4] == B * samples
+            elif fn is None:
+                ok = n == (0, 0, samples, samples, 0)
+            else:
+                ok = n[3:] == (0, 0) and n[0] > 0 and samples < n[1] <= B * samples and (
+                    n[2] == (samples if fn is mse else 0))
+            check(ok, f"{name} {label}: launches (mask, bounce, backward, culled, sweep) {n}")
+            if isinstance(out, pt.AccumState):
+                check(bool(torch.isfinite(out.linear).all()), f"{name} {label}: image")
+            else:
+                check(math.isfinite(float(out[0])), f"{name} {label}: loss {float(out[0])}")
+            times.setdefault(label, []).append(ms)
+            if n_leaf > MASK_STAGED_LEAVES:
+                global_launches += n[0]
+            print(f"  {label}: {ms:.1f} ms/step (host clock, spp 1, {PAST_CAP_STEPS} steps "
+                  f"after one); launches mask {n[0]}, bounce {n[1]}, backward {n[2]}, culled "
+                  f"{n[3]}, sweep {n[4]} over {samples} steps [{card}]", flush=True)
+        device_share(lambda: pt.render_step(pkt, cam, acc, 1, cfg), 1,
+                     f"{name} default render_step", card)
+        device_share(lambda: train.mse_step(params, pkt, cam, target, cfg, 1), 1,
+                     f"{name} default mse_step", card)
+        table_lines.append((name, times))
+        del params, target, acc, scene, pkt
+        torch.cuda.empty_cache()
+
+    print(f"phase 24: before (the forced staged route) and after (the default route), "
+          f"1920x1080, spp 1, max_depth {B}, host clock ms/step, in turns [{card}]:", flush=True)
+    print("  | mesh | step | staged (before) | default (after) | force='culled' |", flush=True)
+    for name, times in table_lines:
+        for step in ("render_step", "mse_step"):
+            culled_ms = (", ".join(f"{x:.1f}" for x in times["mse_step force='culled'"])
+                         if step == "mse_step" else "-")
+            print(f"  | {name} | {step} | " + ", ".join(
+                f"{x:.1f}" for x in times[f"{step} staged"]) + " | " + ", ".join(
+                f"{x:.1f}" for x in times[f"{step} default"]) + f" | {culled_ms} |", flush=True)
+    # the global instantiation: bounce 1 of the 4,080-leaf mesh
+    _, ms, plain_ms, nbytes, ops = max(mask_rows)
+    return with_bound({
+        "name": "wave_mask_global",
+        "route": "cuda",
+        "source": "ptre_tpu_torch/csrc/mask_kernel.cu",
+        "replaces": "ptre_tpu/ops/pallas/wavefront.py:102",
+        "launches": global_launches,
+        "max_abs_err": 0.0,
+        "ms": ms,
+        "plain_ms": plain_ms,
+    }, nbytes, ops)
 
 
 # The replay route (phase 21): grad_sweep="replay", the reference's A/B

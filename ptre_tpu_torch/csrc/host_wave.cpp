@@ -18,19 +18,29 @@
 #include "wave.cuh"
 
 // mask_kernel.cu's block over every block of `lanes` rays: the supertile
-// union boxes (super_union), then per warp of 32 rays the two-level walk —
-// a supertile whose leaves are all listed is skipped, else its box is voted
-// on by the live lanes, and, where one passes, each leaf not yet listed —
-// into the block's bit mask, written as one byte a leaf. The kernel's warps
-// run at once and list leaves in another order; the verdict is an OR, so
-// the mask is the same.
+// union boxes — taken from `supers` (the global instantiation's table,
+// megakernel.pack_super_boxes) where it is given, else formed by
+// super_union as the staged instantiation forms them —, then per warp of 32
+// rays the two-level walk — a supertile whose leaves are all listed is
+// skipped, else its box is voted on by the live lanes, and, where one
+// passes, each leaf not yet listed — into the block's bit mask, written as
+// one byte a leaf. The kernel's warps run at once and list leaves in
+// another order; the verdict is an OR, so the mask is the same.
 extern "C" void ptre_wave_mask_host(const ptre::MaskParams* params,
                                     const float* state, const float* boxes,
-                                    uint8_t* mask, int lanes) {
+                                    const float* supers, uint8_t* mask, int lanes) {
   const ptre::MaskParams& p = *params;
   const int n_super = (p.n_leaf + ptre::kSuper - 1) / ptre::kSuper;
-  std::vector<float> sup((size_t)n_super * 6);
-  for (int s = 0; s < n_super; ++s) ptre::super_union(boxes, p.n_leaf, s, &sup[s * 6]);
+  std::vector<float> sup((size_t)n_super * ptre::kBoxStride);
+  for (int s = 0; s < n_super; ++s) {
+    float* dst = &sup[(size_t)s * ptre::kBoxStride];
+    if (supers != nullptr) {
+      std::copy(supers + (size_t)s * ptre::kBoxStride, supers + (size_t)(s + 1) * ptre::kBoxStride,
+                dst);
+    } else {
+      ptre::super_union(boxes, p.n_leaf, s, dst);
+    }
+  }
   std::vector<uint8_t> listed(p.n_leaf);
   for (int64_t b = 0; b < p.r_pad / lanes; ++b) {
     std::fill(listed.begin(), listed.end(), 0);
@@ -58,7 +68,7 @@ extern "C" void ptre_wave_mask_host(const ptre::MaskParams* params,
         const int l1 = std::min(l0 + ptre::kSuper, (int)p.n_leaf);
         bool all = true;
         for (int l = l0; l < l1; ++l) all = all && listed[l];
-        if (all || !vote(&sup[s * 6])) continue;
+        if (all || !vote(&sup[(size_t)s * ptre::kBoxStride])) continue;
         for (int l = l0; l < l1; ++l)
           if (!listed[l] && vote(boxes + l * ptre::kBoxStride)) listed[l] = 1;
       }

@@ -149,8 +149,8 @@ def load_library() -> ctypes.CDLL:
     #  dtable (P, 28), dsph_part, dsky_part, n_blocks, n_sph_acc, stream)
     lib.ptre_fused_bwd_global.argtypes = [ptr] * 13 + [ctypes.c_int, ctypes.c_int, ptr]
     lib.ptre_wave_mask.restype = ctypes.c_int
-    # (params, state, boxes, mask, stats, lanes, stream)
-    lib.ptre_wave_mask.argtypes = [ptr] * 5 + [ctypes.c_int, ptr]
+    # (params, state, boxes, supers, mask, stats, lanes, stream)
+    lib.ptre_wave_mask.argtypes = [ptr] * 6 + [ctypes.c_int, ptr]
     lib.ptre_wave_bounce.restype = ctypes.c_int
     # (params, state, ids, shortlist, counts, tris, rows, boxes, sphs, mats,
     #  sky, urand, out, sel, lanes, stream)

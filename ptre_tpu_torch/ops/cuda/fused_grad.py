@@ -174,8 +174,9 @@ def check_supported(packet, force: Optional[str] = None) -> None:
         return
     raise NotImplementedError(
         "the fused gradient kernels take dense-class packets and packets the wavefront "
-        f"supports (<= {wf.MAX_WAVE_TRIS} triangle rows, <= {wf.MAX_WAVE_SPHS} sphere "
-        f"rows, <= {mk.MAX_MATS} materials); this packet has "
+        f"supports (<= {mk.MAX_MATS} materials, the kernels' material table; <= "
+        f"{wf.MAX_MASK_LEAVES} leaves of {wf.LEAF} triangle rows, the mask kernel's "
+        "shared bit mask; any number of spheres); this packet has "
         f"{packet.tri_valid.shape[0]} triangle rows, {packet.sph_center.shape[0]} sphere "
         f"rows, {packet.num_materials} materials. It takes the staged trace: "
         "integrator.trace routes it there (grad_sweep 'auto' or 'staged').")

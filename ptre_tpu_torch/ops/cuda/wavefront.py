@@ -50,6 +50,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import dataclasses
+import functools
 
 import torch
 
@@ -58,11 +59,14 @@ from ptre_tpu_torch.ops import vecmat as vm
 from ptre_tpu_torch.ops.cuda import build
 from ptre_tpu_torch.ops.cuda import megakernel as mk
 
-#: the reference's caps (`wavefront.py:70-71`) and material limit
-MAX_WAVE_TRIS = 49152
-MAX_WAVE_SPHS = 4096
 #: triangle rows per leaf: the sweep and cull granularity
 LEAF = mk.LEAF
+#: leaves the mask kernel takes: its block keeps one verdict bit a leaf in
+#: shared memory, of which an sm_90 block may opt in to 227 KB
+#: (`csrc/mask_kernel.cu`; the boxes past 1,024 leaves are read from global
+#: memory). The bounce kernel, the culled megakernel and the fused backward
+#: read the triangle and sphere rows from global memory and take any count.
+MAX_MASK_LEAVES = 227 * 1024 * 8
 #: rays per block, one CUDA thread each; at bounce 0 a TILE_ROWS x
 #: (LANES // TILE_ROWS) pixel tile
 LANES = 256
@@ -93,10 +97,12 @@ bounce_launches = 0
 
 
 def supports(packet) -> bool:
-    """Whether the wavefront path takes the packet (`wavefront.py:74-79`)."""
+    """Whether the wavefront path takes the packet (`wavefront.py:74-79`),
+    by the port's own kernels' limits: at most `mk.MAX_MATS` materials (the
+    (8, 8) table every kernel holds) and `MAX_MASK_LEAVES` leaves. The
+    reference's VMEM caps on triangle and sphere rows are not carried over."""
     return (packet.num_materials <= mk.MAX_MATS
-            and packet.tri_valid.shape[0] <= MAX_WAVE_TRIS
-            and packet.sph_center.shape[0] <= MAX_WAVE_SPHS)
+            and -(-packet.tri_valid.shape[0] // LEAF) <= MAX_MASK_LEAVES)
 
 
 # ---- glue: sort keys, shortlists, screen binning, packing ------------------
@@ -225,6 +231,8 @@ class WaveScene:
     cull_boxes: torch.Tensor  # (n_super * 8, 8) `boxes` dilated (CULL_PAD_REL),
     #                           in whole supertiles
     super_boxes: torch.Tensor  # (n_super, 8) their unions, pack_super_boxes
+    mask_supers: torch.Tensor  # (n_super, 8) the unions of `boxes` themselves:
+    #                            the mask kernel's upper level past 1,024 leaves
     perm_tri: torch.Tensor = None  # (T,) Morton permutation of packet rows
     leaf_screen: torch.Tensor = None  # (n_leaf, 4) with a screen camera
 
@@ -261,7 +269,8 @@ def prepare_scene(packet, screen_cam=None, leaf: int = LEAF,
     and padded to whole supertiles with empty boxes, and the supertiles'
     union boxes), the spheres, materials (None past mk.MAX_MATS: the staged
     route's packets) and sky, the scene bounds, and with ``screen_cam`` the
-    leaves' screen boxes for bounce-0 binning. ``morton=False`` keeps the
+    leaves' screen boxes for bounce-0 binning; the union boxes of the
+    leaves' own boxes by supertile for the mask. ``morton=False`` keeps the
     packet's own row order (``perm_tri`` None): the unculled megakernel of
     `megakernel.py:1255-1267`. Unlike the reference, no leaf is added for
     shortlist padding, the leaf count is not rounded up to 128, and the
@@ -301,6 +310,7 @@ def prepare_scene(packet, screen_cam=None, leaf: int = LEAF,
         sphs = sphs.new_zeros((1, 16))  # one invalid row: the winner gather has a row
     scale = torch.maximum(scene_lo.abs().amax(), scene_hi.abs().amax())
     cull_boxes, super_boxes = cull_tables(boxes, scale)
+    mask_supers = mk.pack_super_boxes(boxes).contiguous()
     mats = (mk.pack_mats(packet.mat_kind, packet.mat_albedo, packet.mat_param)
             if packet.num_materials <= mk.MAX_MATS else None)
     return WaveScene(
@@ -308,7 +318,8 @@ def prepare_scene(packet, screen_cam=None, leaf: int = LEAF,
         mats=mats, sky=sky.to(torch.float32).contiguous(), scene_lo=scene_lo,
         scene_hi=scene_hi, n_leaf=n_leaf, n_sph=sphs.shape[0],
         num_mats=int(packet.num_materials), tri_rows=T, cull_boxes=cull_boxes,
-        super_boxes=super_boxes, perm_tri=perm, leaf_screen=leaf_screen)
+        super_boxes=super_boxes, mask_supers=mask_supers, perm_tri=perm,
+        leaf_screen=leaf_screen)
 
 
 # ---- the mask kernel (B7) ----------------------------------------------------
@@ -350,24 +361,30 @@ def _check_lanes(r_pad: int, lanes: int):
 MASK_STATS = ("supertile_tests", "leaf_tests", "live_rays")
 
 
-def wave_mask(state, boxes, t_min: float, lanes: int = LANES, stats=None):
+def wave_mask(state, boxes, t_min: float, lanes: int = LANES, stats=None, supers=None):
     """The (nb, n_leaf) bool cull mask of one bounce. CUDA tensors launch
     `csrc/mask_kernel.cu` (counted in ``mask_launches``); CPU tensors run
-    `wave_mask_reference`; anything else raises. ``stats``: None, or a
-    zeroed (3,) int64 CUDA tensor that the counting instantiation adds
-    `MASK_STATS` into (the verdicts are the same)."""
+    `wave_mask_reference`; anything else raises. Up to 1,024 leaves the
+    kernel stages the boxes in shared memory; past that it reads them and
+    ``supers``, their (ceil(n_leaf / 8), 8) supertile unions
+    (`WaveScene.mask_supers`; None: formed here), through L1/L2.
+    ``stats``: None, or a zeroed (3,) int64 CUDA tensor that the counting
+    instantiation adds `MASK_STATS` into (the verdicts are the same)."""
     global mask_launches
     if state.device.type == "cpu":
         return wave_mask_reference(state, boxes, t_min, lanes)
     if state.device.type != "cuda":
         raise RendererError(f"wave_mask runs on cuda or cpu, not {state.device}")
     r_pad, n_leaf = state.shape[1], boxes.shape[0]
+    if supers is None:
+        supers = mk.pack_super_boxes(boxes).contiguous()
     mk.check_tensors("state", state.device, [
         ("state", state, (STATE_ROWS, r_pad), torch.float32),
-        ("boxes", boxes, (n_leaf, 8), torch.float32)])
+        ("boxes", boxes, (n_leaf, 8), torch.float32),
+        ("supers", supers, (-(-n_leaf // mk.SUPER), 8), torch.float32)])
     _check_lanes(r_pad, lanes)
-    if not 1 <= n_leaf <= MAX_WAVE_TRIS // LEAF:
-        raise RendererError(f"the mask kernel takes 1 to {MAX_WAVE_TRIS // LEAF} leaves, "
+    if not 1 <= n_leaf <= MAX_MASK_LEAVES:
+        raise RendererError(f"the mask kernel takes 1 to {MAX_MASK_LEAVES} leaves, "
                             f"got {n_leaf}")
     if stats is not None:
         mk.check_tensors("state", state.device, [
@@ -378,8 +395,8 @@ def wave_mask(state, boxes, t_min: float, lanes: int = LANES, stats=None):
     with torch.cuda.device(state.device):
         stream = torch.cuda.current_stream(state.device).cuda_stream
         rc = lib.ptre_wave_mask(ctypes.addressof(p), state.data_ptr(), boxes.data_ptr(),
-                                mask.data_ptr(), None if stats is None else stats.data_ptr(),
-                                lanes, stream)
+                                supers.data_ptr(), mask.data_ptr(),
+                                None if stats is None else stats.data_ptr(), lanes, stream)
     if rc != 0:
         raise RendererError(
             f"mask kernel launch failed: {lib.ptre_cuda_error_string(rc).decode()}")
@@ -626,7 +643,8 @@ def trace(o, d, scene: WaveScene, consts, max_depth: int, seed: int = 0,
     R = o.shape[0]
     dev = o.device
     stage = timer or _no_stage
-    mask_fn = wave_mask_reference if plain else wave_mask
+    mask_fn = (wave_mask_reference if plain
+               else functools.partial(wave_mask, supers=scene.mask_supers))
     bounce_fn = wave_bounce_reference if plain else wave_bounce
     with stage("gather"):
         state, ids, short0 = primary_state(o, d, scene, tile_hint, cull, lanes)

@@ -34,7 +34,8 @@ of the recording kernel, the replay forward and the replay backward kernels
 (`ops/cuda/replay_kernel`), with the winners' rows gathered between them
 (`path_replay.gather_rows`); the scene is packed once per step as on the
 fused route. On the staged route — every packet past the fused kernels'
-caps, or ``grad_sweep="staged"`` — a sample is `integrator.trace_staged`,
+limits (`wavefront.supports`), max_depth past 8, or ``grad_sweep="staged"``
+— a sample is `integrator.trace_staged`,
 one sweep launch a bounce and autograd through the rest. On CPU tensors the plain versions run. Random numbers: per sample s,
 the port's Philox keyed by (seed, pixel, s, draw) — draw 0 the pixel jitter,
 draw 1 + b bounce b — or given uniforms ``urand`` (S, 2 + 2*max_depth, H, W),

@@ -130,7 +130,7 @@ def wave_lib(tmp_path_factory):
     lib = _build_host(tmp_path_factory, "host_wave.cpp")
     ptr = ctypes.c_void_p
     lib.ptre_wave_mask_host.restype = None
-    lib.ptre_wave_mask_host.argtypes = [ptr] * 4 + [ctypes.c_int]
+    lib.ptre_wave_mask_host.argtypes = [ptr] * 5 + [ctypes.c_int]
     lib.ptre_wave_bounce_host.restype = None
     lib.ptre_wave_bounce_host.argtypes = [ptr] * 14 + [ctypes.c_int]
     lib.ptre_trace_culled_host.restype = None
@@ -179,7 +179,7 @@ def test_host_wave_build_matches_plain_versions(wave_lib, name, external):
         mask = torch.empty((state.shape[1] // lanes, scene.n_leaf), dtype=torch.uint8)
         mp = wf.MaskParams(t_min=k.t_min, r_pad=state.shape[1], n_leaf=scene.n_leaf)
         wave_lib.ptre_wave_mask_host(ctypes.addressof(mp), state.data_ptr(),
-                                     scene.boxes.data_ptr(), mask.data_ptr(), lanes)
+                                     scene.boxes.data_ptr(), None, mask.data_ptr(), lanes)
         want_mask = wf.wave_mask_reference(state, scene.boxes, k.t_min, lanes)
         np.testing.assert_array_equal(mask.bool().numpy(), want_mask.numpy())
         short, cnt = wf.shortlists_from_mask(want_mask)
@@ -304,29 +304,40 @@ def _adversarial_mask_state(boxes, rs, lanes, t_min):
     return state.contiguous(), boxes
 
 
-@pytest.mark.parametrize("name", ["config3", "config4"])
+MASK_WALK_SCENES = {
+    "config3": lambda: demo.config3_scene(segments=24, rings=12),
+    "config4": lambda: demo.config4_mixed_scene(24, 12),
+    # 81,280 rows: 1,270 leaves, past the staged instantiation's 1,024
+    "past_1024": lambda: demo.config3_scene(False, 320, 128, diffuse=True),
+}
+
+
+@pytest.mark.parametrize("name", list(MASK_WALK_SCENES))
 def test_host_mask_two_level_walk_matches_plain_on_adversarial_rays(wave_lib, name):
     """csrc/host_wave.cpp's copy of the mask kernel's walk (supertile union
     boxes, then the leaves of the supertiles a warp's live lanes pass)
     equals wave_mask_reference, verdict for verdict, on configs 3's and 4's
-    leaf boxes and the adversarial rays of _adversarial_mask_state. And the
-    argument behind it, ray by ray: a ray that passes a leaf's slab test
-    passes its supertile's (the union box, megakernel.pack_super_boxes)."""
+    leaf boxes and on a mesh past 1,024 leaves, and the adversarial rays of
+    _adversarial_mask_state, with the supertile boxes from both sources:
+    formed by super_union (the staged instantiation) and read from the
+    megakernel.pack_super_boxes table (the global one). And the argument
+    behind it, ray by ray: a ray that passes a leaf's slab test passes its
+    supertile's (the union box, megakernel.pack_super_boxes)."""
     torch.set_num_threads(1)
-    build_scene = {"config3": lambda: demo.config3_scene(segments=24, rings=12),
-                   "config4": lambda: demo.config4_mixed_scene(24, 12)}[name]
-    scene = wf.prepare_scene(build_scene().build_packet(device="cpu"))
+    scene = wf.prepare_scene(MASK_WALK_SCENES[name]().build_packet(device="cpu"))
     rs = np.random.default_rng(len(name))
     lanes, t_min = 64, mk.f32(2.0 ** -10)
     state, boxes = _adversarial_mask_state(scene.boxes, rs, lanes, t_min)
     n_leaf = boxes.shape[0]
-    assert n_leaf % mk.SUPER != 0
-    mask = torch.full((state.shape[1] // lanes, n_leaf), 7, dtype=torch.uint8)
-    mp = wf.MaskParams(t_min=t_min, r_pad=state.shape[1], n_leaf=n_leaf)
-    wave_lib.ptre_wave_mask_host(ctypes.addressof(mp), state.data_ptr(), boxes.data_ptr(),
-                                 mask.data_ptr(), lanes)
+    assert n_leaf % mk.SUPER != 0 and (n_leaf > 1024) == (name == "past_1024")
     want = wf.wave_mask_reference(state, boxes, t_min, lanes)
-    np.testing.assert_array_equal(mask.numpy(), want.numpy().astype(np.uint8))
+    mp = wf.MaskParams(t_min=t_min, r_pad=state.shape[1], n_leaf=n_leaf)
+    for supers in (None, mk.pack_super_boxes(boxes).contiguous()):
+        mask = torch.full((state.shape[1] // lanes, n_leaf), 7, dtype=torch.uint8)
+        wave_lib.ptre_wave_mask_host(ctypes.addressof(mp), state.data_ptr(), boxes.data_ptr(),
+                                     None if supers is None else supers.data_ptr(),
+                                     mask.data_ptr(), lanes)
+        np.testing.assert_array_equal(mask.numpy(), want.numpy().astype(np.uint8))
     assert bool(want.any()) and not bool(want.all()) and not bool(want[-1].any())
     # per ray: leaf passes imply supertile passes
     o = state[0:3]

@@ -403,6 +403,77 @@ def test_wave_mask_kernel_matches_plain_version(cuda):
     assert torch.equal(got, want) and bool(got.any()) and not bool(got.all())
 
 
+#: meshes past the staged mask instantiation's 1,024 leaves: BASELINE config
+#: 3's uv-sphere at 320x128 (81,280 rows, 1,270 leaves) and 512x256
+#: (261,120 rows, 4,080 leaves)
+PAST_1024 = {"1270 leaves": (320, 128), "4080 leaves": (512, 256)}
+
+
+@pytest.mark.parametrize("mesh", list(PAST_1024))
+def test_wave_mask_past_1024_leaves_matches_plain_version(cuda, mesh):
+    """The global instantiation (boxes and supertile boxes read through
+    L1/L2) on the sorted bounce-1 state: verdicts equal to the plain
+    version's, with the scene's supertile table and with the wrapper's own,
+    and from the counting instantiation, which counts every live ray."""
+    segments, rings = PAST_1024[mesh]
+    W, H = 256, 128
+    k = mk.TraceConsts.from_config(RenderConfig(width=W, height=H))
+    pkt = demo.config3_scene(False, segments, rings, diffuse=True).build_packet(device=cuda)
+    cam = cam_ops.Camera.create(width=W, height=H)
+    scene = wf.prepare_scene(pkt, screen_cam=cam)
+    assert scene.n_leaf > 1024 and wf.supports(pkt)
+    px, py = pt.pixel_grid(H, W, cuda)
+    jit = torch.rand((H * W, 2), device=cuda, generator=torch.Generator(cuda).manual_seed(4))
+    o, d = (x.contiguous() for x in cam_ops.get_rays(cam, px, py, jit - 0.5))
+    state, ids, short0 = wf.primary_state(o, d, scene, (H, W))
+    state = wf.wave_bounce(state, ids, *short0, scene, k, 0, 9, 1)
+    state = state[:, wf.coherence_order(state, scene)].contiguous()
+    before = wf.mask_launches
+    got = wf.wave_mask(state, scene.boxes, k.t_min, supers=scene.mask_supers)
+    own = wf.wave_mask(state, scene.boxes, k.t_min)
+    stats = torch.zeros(len(wf.MASK_STATS), dtype=torch.int64, device=cuda)
+    counted = wf.wave_mask(state, scene.boxes, k.t_min, stats=stats, supers=scene.mask_supers)
+    want = wf.wave_mask_reference(state, scene.boxes, k.t_min)
+    torch.cuda.synchronize()
+    assert wf.mask_launches == before + 3
+    assert torch.equal(got, want) and torch.equal(own, want) and torch.equal(counted, want)
+    assert bool(got.any()) and not bool(got.all())
+    sup_tests, leaf_tests, live = stats.tolist()
+    n_live = int((state[9] > 0.5).sum())
+    assert live == n_live and 0 < sup_tests <= n_live * scene.mask_supers.shape[0]
+    assert 0 < leaf_tests <= n_live * scene.n_leaf
+
+
+def test_wavefront_trace_at_65024_rows_matches_plain_version(cuda):
+    """`wavefront.trace` with the kernels against its plain version, both on
+    the card, on the 65,024-row mesh (1,016 leaves, past the reference's
+    49,152-row cap): eight rows of a 1920x1080 camera's pixels, five
+    bounces, Philox draws; the mask runs at every bounce (no screen
+    binning). Tolerance as the bounce kernel's: >= 99.9 % of the colour
+    channels within 1e-4, rays beyond it on at most 1e-4 of them (rounded
+    up), which is where FMA contraction flipped a grazing ray."""
+    W, H, rows = 1920, 1080, slice(536 * 1920, 544 * 1920)
+    cfg = RenderConfig(width=W, height=H, max_depth=5)
+    k = mk.TraceConsts.from_config(cfg)
+    pkt = demo.config3_scene(False, 256, 128, diffuse=True).build_packet(device=cuda)
+    assert pkt.tri_valid.shape[0] == 65024 and pt.route(pkt, cfg) == "wavefront"
+    cam = cam_ops.Camera.create(width=W, height=H)
+    scene = wf.prepare_scene(pkt)
+    px, py = pt.pixel_grid(H, W, cuda)
+    o, d = (x[rows].contiguous() for x in cam_ops.get_rays(
+        cam, px, py, torch.zeros((W * H, 2), device=cuda)))
+    before = (wf.mask_launches, wf.bounce_launches)
+    got = wf.trace(o, d, scene, k, cfg.max_depth, seed=11, sample=2)
+    torch.cuda.synchronize()
+    masks, bounces = (a - b for a, b in zip((wf.mask_launches, wf.bounce_launches), before))
+    assert masks == bounces >= 2
+    want = wf.trace(o, d, scene, k, cfg.max_depth, seed=11, sample=2, plain=True)
+    err = (got - want).abs()
+    assert bool(torch.isfinite(got).all()) and float(got.max()) > 0.05
+    assert float((err <= 1e-4).float().mean()) >= 0.999
+    assert int((err > 1e-4).any(dim=1).sum()) <= math.ceil(1e-4 * o.shape[0])
+
+
 @pytest.mark.parametrize("external", [True, False])
 def test_wave_bounce_kernel_matches_plain_version(cuda, external):
     cfg, _, _, scene, k, state, ids = _wave_setup(cuda)

@@ -154,16 +154,20 @@ def test_build_raises_clearly_without_nvcc(tmp_path, monkeypatch):
 
 def test_render_step_refuses_non_dense_packet_on_cuda():
     """A packet past the dense class has the wavefront's CUDA path when the
-    wavefront takes it; any other packet takes the staged route (the sweep
-    kernel), decided from its counts. On CUDA only the plain sweep
-    (``intersect_backend="xla"``) is refused."""
+    wavefront takes it — past the reference's 49,152-row VMEM cap too; any
+    other packet (past the mask kernel's leaves, more than 8 materials)
+    takes the staged route (the sweep kernel), decided from its counts. On
+    CUDA only the plain sweep (``intersect_backend="xla"``) is refused."""
     tri = demo.config3_scene(segments=24, rings=12).build_packet(device="cpu")
     assert tri.num_triangles > mk.DENSE_MAX_TRI
     assert pt.route(tri) == "wavefront"
     pt.check_dispatch(tri, torch.device("cuda"))
+    past_tpu_rows = dataclasses.replace(tri, tri_valid=torch.zeros(49152 + 128, dtype=torch.bool))
+    assert pt.route(past_tpu_rows) == "wavefront"
+    pt.check_dispatch(past_tpu_rows, torch.device("cuda"))
 
-    too_big = dataclasses.replace(
-        tri, tri_valid=torch.zeros(wf.MAX_WAVE_TRIS + 128, dtype=torch.bool))
+    too_big = dataclasses.replace(tri, tri_valid=torch.zeros(1, dtype=torch.bool).expand(
+        wf.MAX_MASK_LEAVES * wf.LEAF + 1))
     many_mats = demo.reference_demo_scene(8, 4)
     for i in range(mk.MAX_MATS):
         many_mats.add_material(Material(MaterialKind.OREN_NAYAR, (0.1 * i,) * 3, 0.5))
@@ -211,13 +215,14 @@ def test_wavefront_wrappers_on_cpu_run_plain_versions_without_launch():
 
 
 def test_training_refuses_non_dense_packet_on_cuda_before_any_cuda_call(monkeypatch):
-    """A triangle-scale packet the wavefront supports takes the fused route,
-    a packet past the wavefront's caps the staged route: both decided from
-    the packet's counts, before the kernel library is loaded. Forcing a
-    fused forward on the over-cap packet still raises, naming the staged
-    trace; integrator.trace routes it there, and the training steps pack no
-    fused forward for it. The CUDA tensors are fake ones (no card here):
-    nothing may touch them."""
+    """A triangle-scale packet the wavefront supports takes the fused route
+    (past the reference's 49,152-row VMEM cap too), a packet past the mask
+    kernel's leaves the staged route: both decided from the packet's
+    counts, before the kernel library is loaded. Forcing a fused forward on
+    the over-limit packet still raises, naming the staged trace;
+    integrator.trace routes it there, and the training steps pack no fused
+    forward for it. The CUDA tensors are fake ones (no card needed): nothing
+    may touch them."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     def no_cuda(*args, **kwargs):
@@ -241,8 +246,13 @@ def test_training_refuses_non_dense_packet_on_cuda_before_any_cuda_call(monkeypa
             fused_grad.check_supported(pkt, force)
         with pytest.raises(RendererError, match="dense-class"):
             fused_grad.check_supported(pkt, "dense")
+        past_tpu_rows = dataclasses.replace(pkt, tri_valid=torch.zeros(
+            49152 + 128, dtype=torch.bool, device="cuda"))
+        assert integrator.grad_route(cfg, past_tpu_rows) == "fused"
+        for force in (None,) + fused_grad.FORWARDS[1:]:
+            fused_grad.check_supported(past_tpu_rows, force)
         too_big = dataclasses.replace(pkt, tri_valid=torch.zeros(
-            wf.MAX_WAVE_TRIS + 128, dtype=torch.bool, device="cuda"))
+            wf.MAX_MASK_LEAVES * wf.LEAF + 1, dtype=torch.bool, device="cuda"))
         assert integrator.grad_route(cfg, too_big) == "staged"
         assert integrator.grad_route(dataclasses.replace(cfg, grad_sweep="fused"),
                                      too_big) == "staged"

@@ -16,10 +16,13 @@ dense normal flipped before it is normalised, the replay chain's own
 recompute), so colour within 1e-5 and gradients within 1e-3 relative L2
 per leaf (rays near the gradsafe floors amplify rounding, ROADMAP C2).
 
-The packets past the fused kernels' caps: the demo scene with 7 more
-materials (9, past the 8-material cap; it used to die with a bare
-``ValueError`` on the CPU), and a 120-triangle uv-sphere over the ground
-padded to 49,280 triangle rows (past the wavefront's 49,152).
+The packets: the demo scene with 7 more materials (9, past the kernels'
+8-material table; it used to die with a bare ``ValueError`` on the CPU),
+which takes the staged route by itself; and a 120-triangle uv-sphere over
+the ground padded to 49,280 triangle rows, past the reference's 49,152-row
+VMEM cap, which the port's wavefront and fused route take and the staged
+route takes when forced (``intersect_backend="pallas"``,
+``grad_sweep="staged"``), as JAX's routes it there.
 """
 
 from __future__ import annotations
@@ -37,7 +40,10 @@ from torch._subclasses.fake_tensor import FakeTensorMode
 from ptre_tpu.models import demo as jdemo
 from ptre_tpu.models import scene as jscene
 from ptre_tpu.ops import camera as jcam
+from ptre_tpu.ops import path_replay as jpr
 from ptre_tpu.ops import rng as jrng
+from ptre_tpu.ops.pallas import megakernel as jmk
+from ptre_tpu.ops.pallas import wavefront as jwf
 from ptre_tpu.parallel import sharding as jsh
 from ptre_tpu.render import pathtracer as jpt
 from ptre_tpu.render import train as jtrain
@@ -49,6 +55,7 @@ from ptre_tpu_torch.ops import camera as cam_ops
 from ptre_tpu_torch.ops import integrator, path_replay, rng
 from ptre_tpu_torch.ops.cuda import build
 from ptre_tpu_torch.ops.cuda import fused_grad
+from ptre_tpu_torch.ops.cuda import megakernel as mk
 from ptre_tpu_torch.ops.cuda import wavefront as wf
 from ptre_tpu_torch.parallel import sharding as sh
 from ptre_tpu_torch.render import pathtracer as pt
@@ -96,14 +103,35 @@ def _rel(a, b):
 
 
 def test_over_cap_packets_take_the_staged_route():
+    """Nine materials take the staged route on both steps. The 49,280-row
+    packet and the 65,024-row mesh, past the reference's 49,152-row VMEM
+    cap, take the wavefront and the fused route (and the culled megakernel
+    when forced); the staged route under ``intersect_backend="pallas"``,
+    ``grad_sweep="staged"`` or max_depth 9. A packet past the mask kernel's
+    leaves takes the staged route."""
     cfg = RenderConfig(width=W, height=H)
-    for kind in ("nine", "over_rows"):
-        pkt = _packets(kind)[1]
-        assert not fused_grad.supported(pkt) and not wf.supports(pkt)
-        assert pt.route(pkt) == pt.route(pkt, cfg) == "staged"
-        assert integrator.grad_route(cfg, pkt) == "staged"
-        assert integrator.grad_route(dataclasses.replace(cfg, grad_sweep="fused"), pkt) == "staged"
-    assert _packets("over_rows")[1].tri_valid.shape[0] == OVER_ROWS > wf.MAX_WAVE_TRIS
+    nine = _packets("nine")[1]
+    assert not fused_grad.supported(nine) and not wf.supports(nine)
+    assert pt.route(nine) == pt.route(nine, cfg) == "staged"
+    assert integrator.grad_route(cfg, nine) == "staged"
+    assert integrator.grad_route(dataclasses.replace(cfg, grad_sweep="fused"), nine) == "staged"
+    over = _packets("over_rows")[1]
+    mesh = demo.config3_scene(False, 256, 128, diffuse=True).build_packet(device="cpu")
+    assert over.tri_valid.shape[0] == OVER_ROWS > 49152
+    assert mesh.tri_valid.shape[0] == 65024
+    for pkt in (over, mesh):
+        assert fused_grad.supported(pkt) and wf.supports(pkt)
+        assert pt.route(pkt) == pt.route(pkt, cfg) == "wavefront"
+        assert integrator.grad_route(cfg, pkt) == "fused"
+        fused_grad.check_supported(pkt, "culled")
+        assert pt.route(pkt, dataclasses.replace(cfg, intersect_backend="pallas")) == "staged"
+        assert integrator.grad_route(dataclasses.replace(cfg, grad_sweep="staged"),
+                                     pkt) == "staged"
+        assert integrator.grad_route(dataclasses.replace(cfg, max_depth=9), pkt) == "staged"
+    past = dataclasses.replace(over, tri_valid=torch.zeros(1, dtype=torch.bool).expand(
+        wf.MAX_MASK_LEAVES * wf.LEAF + 1))
+    assert not fused_grad.supported(past)
+    assert pt.route(past) == "staged" and integrator.grad_route(cfg, past) == "staged"
 
 
 @pytest.mark.parametrize("kind", ["config4", "nine"])
@@ -231,10 +259,110 @@ def test_ray_chunk_changes_nothing_without_a_key():
     assert torch.equal(forced.linear, whole.linear)
 
 
+def _jax_rays(key, w, h):
+    """JAX's camera, the (R, 2) jitter its training step draws from ``key``
+    (`train.py:56-70`) and the jittered primary rays."""
+    jc = jcam.Camera.create(width=w, height=h)
+    px, py = jpt.pixel_grid(h, w)
+    jit = jrng.pixel_jitter(jrng.fold(key, 0x9E37), (w * h,))
+    o, d = jcam.get_rays(jc, px, py, jit)
+    return jc, jit, o, d
+
+
+@pytest.fixture(scope="module")
+def over_rows_jax():
+    """JAX's wavefront trace of the 49,280-row packet at 8x4 in record mode
+    (interpret mode, ~25 s on a CPU): its colour, selections (B, 4, R),
+    uniforms (2B, R) and Morton permutation, with the key, the camera, the
+    jitter and the rays."""
+    jp, pkt = _packets("over_rows")
+    w, h = 8, 4
+    key = jrng.key_for(3)
+    jc, jit, o, d = _jax_rays(key, w, h)
+    jcfg = JConfig(width=w, height=h, remat_bounces=False)
+    col, sel, ur, perm = jwf.trace(key, o, d, jp, jcfg, record=True, interpret=True)
+    return dict(jp=jp, pkt=pkt, w=w, h=h, jcfg=jcfg, jc=jc, jit=jit, o=o, d=d, col=col,
+                sel=sel, ur=ur, perm=perm)
+
+
+def test_wavefront_trace_past_the_row_cap_matches_jax_wavefront(over_rows_jax):
+    """The port's wavefront trace (plain versions: CPU tensors) on the
+    49,280-row packet, which its route now takes, against JAX's
+    `wavefront.trace` in interpret mode (it takes any table; JAX's VMEM gate
+    is in its route) on the same uniforms, `megakernel._build_urand(key, R,
+    B)`: within 1e-6, `test_torch_wavefront`'s
+    test_trace_matches_jax_wavefront_and_staged_route bound."""
+    torch.set_num_threads(1)
+    j = over_rows_jax
+    R, cfg = j["w"] * j["h"], RenderConfig(width=j["w"], height=j["h"])
+    urand = torch.from_numpy(np.concatenate([np.zeros((2, R), np.float32), np.asarray(j["ur"])]))
+    before = wf.mask_launches, wf.bounce_launches
+    got = wf.trace(torch.from_numpy(np.array(j["o"])), torch.from_numpy(np.array(j["d"])),
+                   wf.prepare_scene(j["pkt"]), mk.TraceConsts.from_config(cfg), cfg.max_depth,
+                   urand=urand).numpy()
+    assert (wf.mask_launches, wf.bounce_launches) == before  # plain on the CPU
+    want = np.asarray(j["col"])
+    assert np.isfinite(got).all() and got.max() > 0.05
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+    np.testing.assert_array_equal(np.asarray(j["ur"]), np.asarray(
+        jmk._build_urand(jrng.key_for(3), R, cfg.max_depth)))
+
+
+def test_fused_route_gradients_past_the_row_cap_match_jax(over_rows_jax):
+    """`train.mse_step` on the default route — the fused route, which now
+    takes the 49,280-row packet: the wavefront in record mode and the
+    backward over the Morton-permuted table, plain versions on the CPU —
+    against JAX on the same uniforms (`megakernel._build_urand` and the
+    training step's jitter, passed as ``urand``). JAX's reference is the one
+    its own fused backward is held to (`test_fused_grad.py`, and
+    test_torch_culled.py): its wavefront's recorded selections
+    (`wavefront.trace(record=True)`, interpret mode) replayed by the XLA
+    replay under `jax.value_and_grad`. JAX's fused backward kernel itself,
+    in interpret mode, gathers each winner's row by a one-hot product over
+    the whole 49,280-row table and takes tens of minutes on a CPU. Tolerances
+    of test_torch_culled.py's fused route: the loss within 1e-5 relative,
+    every gradient within rtol 5e-4, atol 2e-5."""
+    torch.set_num_threads(1)
+    j = over_rows_jax
+    jp, pkt, w, h, jcfg, jc, jit = (j[k] for k in ("jp", "pkt", "w", "h", "jcfg", "jc", "jit"))
+    R = w * h
+    cfg = RenderConfig(width=w, height=h)
+    assert integrator.grad_route(cfg, pkt) == "fused"
+    jur = j["ur"]
+    sel = np.array(j["sel"])  # (B, 4, R): Morton rows -> the packet's own rows
+    sel[:, 0] = np.asarray(j["perm"])[sel[:, 0].astype(np.int64)]
+    target = np.random.default_rng(0).uniform(0, 0.5, (R, 3)).astype(np.float32)
+    px, py = jpt.pixel_grid(h, w)
+
+    def jloss(par):
+        pk, cm = jsh._apply_params(par, jp, jc)
+        oo, dd = jcam.get_rays(cm, px, py, jit)
+        c = jpr.replay(oo, dd, jnp.asarray(sel), jur, pk, jcfg, backend="xla")
+        return jnp.mean((c - jnp.asarray(target)) ** 2)
+
+    jl, jg = jax.value_and_grad(jloss)(jsh.differentiable_params(jp, jc))
+    urand = np.concatenate([np.asarray(jit).T + np.float32(0.5), np.asarray(jur)])
+    before = fused_grad.launches
+    loss, grads = train.mse_step(sh.differentiable_params(pkt, _cams(w, h)[1]), pkt,
+                                 _cams(w, h)[1], torch.from_numpy(target), cfg, seed=0,
+                                 urand=torch.from_numpy(urand.reshape(1, -1, h, w)))
+    assert fused_grad.launches == before  # plain versions on the CPU
+    np.testing.assert_allclose(float(loss), float(jl), rtol=1e-5)
+    assert set(grads) == set(jg)
+    for k, g in grads.items():
+        want = np.asarray(jg[k])
+        assert np.isfinite(g.numpy()).all(), k
+        np.testing.assert_allclose(g.numpy(), want, rtol=5e-4, atol=2e-5, err_msg=k)
+    assert float(np.abs(np.asarray(jg["transforms"])).max()) > 1e-4
+
+
 def test_render_step_past_the_wavefront_row_cap_matches_jax():
+    # JAX routes this packet to its staged route; the port's takes it forced
     jp, pkt = _packets("over_rows")
     jc, cam = _cams(8, 4)
-    jcfg, cfg = JConfig(width=8, height=4), RenderConfig(width=8, height=4)
+    jcfg = JConfig(width=8, height=4)
+    cfg = RenderConfig(width=8, height=4, intersect_backend="pallas")
+    assert pt.route(pkt, cfg) == "staged"
     key = jrng.key_for(5)
     want = np.asarray(jpt.render_step(jp, jc, jpt.AccumState.create(4, 8), key, jcfg).linear)
     got = pt.render_step(pkt, cam, pt.AccumState.create(4, 8, device="cpu"),
@@ -250,7 +378,10 @@ def test_training_steps_on_over_cap_packets_match_jax(kind):
     w, h = (W, H) if kind == "nine" else (8, 4)
     jc, cam = _cams(w, h)
     jcfg = JConfig(width=w, height=h, remat_bounces=False, grad_sweep="staged")
-    cfg = RenderConfig(width=w, height=h)
+    # nine materials route to the staged route by themselves; the over_rows
+    # packet, which the port's fused route takes, is forced onto it
+    cfg = RenderConfig(width=w, height=h, grad_sweep="auto" if kind == "nine" else "staged")
+    assert integrator.grad_route(cfg, pkt) == "staged"
     target = np.random.default_rng(0).uniform(0, 0.5, (w * h, 3)).astype(np.float32)
     key = jrng.key_for(3)
     tkey = interop.key_from_jax(np.asarray(key))

@@ -202,6 +202,8 @@ def test_prepare_scene_matches_jax():
     got = wf.prepare_scene(tp)
     assert got.n_leaf == 2 and jprep.n_leaf == 128  # JAX pads to 128 boxes
     np.testing.assert_array_equal(got.perm_tri.numpy(), np.asarray(jprep.perm_tri))
+    # the mask's supertile table: the exact unions of the leaf boxes
+    assert torch.equal(got.mask_supers, mk.pack_super_boxes(got.boxes))
     np.testing.assert_allclose(got.tris.numpy(), np.asarray(jprep.tris)[:128], atol=1e-6)
     np.testing.assert_allclose(got.boxes.numpy(), np.asarray(jprep.boxT8).T[:2], atol=1e-6)
     np.testing.assert_array_equal(got.sphs.numpy(), np.asarray(jprep.sphs)[:got.n_sph])
@@ -226,6 +228,7 @@ def _scene_from_jax(jp, cfg):
         tris=tris, rows=wf.pack_rows(tris, t(np.asarray(prep.perm_tri))), boxes=boxes,
         tri_rows=T,
         cull_boxes=cull_boxes, super_boxes=super_boxes,
+        mask_supers=mk.pack_super_boxes(boxes).contiguous(),
         sphs=t(np.asarray(prep.sphs)), mats=t(mats), sky=t(sky.astype(np.float32)),
         scene_lo=t(np.asarray(prep.scene_lo)), scene_hi=t(np.asarray(prep.scene_hi)),
         n_leaf=n_leaf, n_sph=np.asarray(prep.sphs).shape[0], num_mats=jp.num_materials)
@@ -303,6 +306,35 @@ def test_plain_kernels_match_jax_interpret_mode():
         order = np.argsort(np.asarray(jwf._coherence_key(jnp.asarray(state), prep.scene_lo,
                                                          prep.scene_hi)), kind="stable")
         state = state[:, order]
+
+
+def test_plain_mask_past_1024_leaves_matches_jax_interpret_mode():
+    """The mask's plain version against JAX's `_mask_call` (interpret mode)
+    past the staged instantiation's 1,024 leaves: BASELINE config 3's
+    uv-sphere at 320x128 segments (81,280 rows, 1,270 leaves), the same
+    leaf boxes (JAX's packing), 128-ray blocks of primary rays in a shuffled
+    order with dead rays: the verdicts must be equal."""
+    torch.set_num_threads(1)
+    W, H, lanes = 16, 16, 128
+    R = W * H
+    cfg = RenderConfig(width=W, height=H)
+    k = mk.TraceConsts.from_config(cfg)
+    jp = jdemo.config3_scene(False, 320, 128, diffuse=True).build_packet()
+    prep = jwf._prepare_scene(jp, cfg, 64)
+    n_leaf = -(-jp.tri_valid.shape[0] // 64)
+    assert n_leaf == 1270
+    boxes = t(np.asarray(prep.boxT8).T[:n_leaf])
+    _, o, d = _rays(W, H, jrng.key_for(6))
+    rs = np.random.default_rng(6)
+    state = np.concatenate([np.asarray(o).T, np.asarray(d).T, np.ones((3, R)),
+                            (np.arange(R) % 5 != 0)[None], np.arange(R)[None],
+                            np.zeros((1, R))]).astype(np.float32)
+    state = state[:, rs.permutation(R)]
+    stateT = jnp.pad(jnp.asarray(state).T, ((0, 0), (0, 4)))
+    verd = jwf._mask_call(prep.scalars, stateT, prep.boxT8, lanes=lanes, interpret=True)
+    mask = wf.wave_mask_reference(t(state[:10]), boxes, k.t_min, lanes)
+    np.testing.assert_array_equal(mask.numpy(), np.asarray(verd)[:, 0, :n_leaf] > 0.5)
+    assert mask.any() and not mask.all()
 
 
 def test_trace_matches_jax_wavefront_and_staged_route():
@@ -441,10 +473,19 @@ def test_empty_and_sphere_only_scenes():
 
 
 def test_supports_gates():
+    """The wavefront takes a packet by the port's kernels' own limits: <= 8
+    materials and <= MAX_MASK_LEAVES leaves (the mask kernel's shared bit
+    mask); any number of triangle rows below that and of spheres, past the
+    reference's VMEM caps (49,152 rows, 4,096 spheres) too."""
     tp = _ball(Scene, Model)
     assert wf.supports(tp) and wf.supports(demo.config3_scene(128, 64).build_packet(device="cpu"))
-    big = dataclasses.replace(tp, tri_valid=torch.zeros(wf.MAX_WAVE_TRIS + 64, dtype=torch.bool))
-    assert not wf.supports(big)
+    past_tpu_rows = dataclasses.replace(tp, tri_valid=torch.zeros(49152 + 64, dtype=torch.bool))
+    assert wf.supports(past_tpu_rows)
+    at_limit = dataclasses.replace(tp, tri_valid=torch.zeros(1, dtype=torch.bool).expand(
+        wf.MAX_MASK_LEAVES * wf.LEAF))
+    past_limit = dataclasses.replace(tp, tri_valid=torch.zeros(1, dtype=torch.bool).expand(
+        wf.MAX_MASK_LEAVES * wf.LEAF + 1))
+    assert wf.supports(at_limit) and not wf.supports(past_limit)
     assert not wf.supports(dataclasses.replace(tp, num_materials=mk.MAX_MATS + 1))
-    many_sph = dataclasses.replace(tp, sph_center=torch.zeros((wf.MAX_WAVE_SPHS + 8, 3)))
-    assert not wf.supports(many_sph)
+    many_sph = dataclasses.replace(tp, sph_center=torch.zeros((4096 + 8, 3)))
+    assert wf.supports(many_sph)
