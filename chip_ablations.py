@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Ablations of the hard raster kernel, the culled megakernel, the replay
-pair and the mask kernel on one GPU.
+pair, the mask kernel and the material select on one GPU.
 
-    python3 chip_ablations.py [raster_mega] [replay] [mask] [present] [culled_flips]
+    python3 chip_ablations.py [raster_mega] [replay] [mask] [materials] [present] [culled_flips]
     (no argument: raster_mega and replay)
 
 Not a gate: ``chip_smoke.py`` holds the shipped kernels to their plain
@@ -65,6 +65,26 @@ leaves; chip_smoke.py's `mask_states`):
     boxes into dynamic shared memory (sized by n_leaf, opted in past 48 KB)
     before the walk, instead of reading them through L1/L2 (verdicts equal).
 
+Material tables ("materials"): the render, record, wave and culled units
+as shipped, which read a hit's material row by index (the render, record
+and culled kernels from the table in place, the wave kernel from a copy in
+shared memory up to 8 materials), against the parent's units (variants of
+the shipped sources: the row scan of megakernel.py:625-631 in place of
+trace.cuh material_row, and the (8, 8) table staged by every block), on
+<= 8 materials: the demo at 1920x1080 (render kernel, spp 4's sample, and
+the recording kernel), BASELINE config 4 at 1920x1080 (the bounce kernel at
+bounces 1-4 of one sample, the culled megakernel recording one sample).
+Beside them, at each bounce, the wave kernel "in place" (no table staged,
+also timed against the shipped one in 10 pairs) and the shipped wave unit
+under launch bounds of "5 blocks an SM" (at most 51 registers: the parent's
+occupancy, so the select is told from the register budget); and the SASS
+of the shipped wave kernel against each of those builds (instructions by
+opcode, cuobjdump). Then, on config 4 with
+300 distinct materials (`chip_smoke.many_materials_scene`), the table read
+in place against the variant "dynamic shared": every block stages the
+whole table (num_mats x 32 B) in dynamic shared memory; bounce kernel at
+bounces 1-4 and culled megakernel. Every output equal bit for bit.
+
 Culled megakernel flips ("culled_flips", no variant built): the four cases
 of the card test ``test_culled_megakernel_matches_plain_version`` (culling
 on and off, external uniforms and in-kernel Philox; BASELINE config 4's
@@ -94,6 +114,7 @@ Prints the card's name and power limit beside every time.
 from __future__ import annotations
 
 import ctypes
+import math
 import os
 import shutil
 import sys
@@ -136,19 +157,21 @@ SPREAD_CALL = """          const float* leaf_rows = rows + (int64_t)leaf * kLeaf
 
 
 def variant(build, unit, tag, edits, flags=()):
-    """Start nvcc on a copy of csrc/ with ``edits`` ((old, new) pairs, each
-    old text present) made to ``unit``."""
+    """Start nvcc on ``unit`` of a copy of csrc/ with ``edits`` made: (old,
+    new) pairs, each old text present, to ``unit``, or {file: pairs} to the
+    files named (the unit or its headers)."""
     src = os.path.join(build.BUILD_DIR, f"{tag}_src.{os.getpid()}")
     shutil.rmtree(src, ignore_errors=True)
     shutil.copytree(build.CSRC_DIR, src, ignore=shutil.ignore_patterns("baseline"))
-    path = os.path.join(src, unit)
-    with open(path) as f:
-        text = f.read()
-    for old, new in edits:
-        cs.check(old in text, f"{tag}: the edited text is not in {unit}")
-        text = text.replace(old, new)
-    with open(path, "w") as f:
-        f.write(text)
+    for name, pairs in (edits if isinstance(edits, dict) else {unit: edits}).items():
+        path = os.path.join(src, name)
+        with open(path) as f:
+            text = f.read()
+        for old, new in pairs:
+            cs.check(old in text, f"{tag}: the edited text is not in {name}")
+            text = text.replace(old, new)
+        with open(path, "w") as f:
+            f.write(text)
     return cs.start_unit_build(unit, tag, flags, src)
 
 
@@ -160,14 +183,16 @@ def main():
     print(card, flush=True)
     parts = sys.argv[1:] or ["raster_mega", "replay"]
     for part in parts:
-        cs.check(part in ("raster_mega", "replay", "mask", "culled_flips", "present"),
-                 f"unknown part {part}")
+        cs.check(part in ("raster_mega", "replay", "mask", "materials", "culled_flips",
+                          "present"), f"unknown part {part}")
     if "raster_mega" in parts:
         raster_mega(dev, card)
     if "replay" in parts:
         replay(dev, card)
     if "mask" in parts:
         mask(dev, card)
+    if "materials" in parts:
+        materials(dev, card)
     if "present" in parts:
         present(dev, card)
     if "culled_flips" in parts:
@@ -247,6 +272,277 @@ def mask(dev, card):
                   + ", ".join(f"{label} {ms:.4f} ms" for label, ms in times.items())
                   + f" (CUDA events, in turns; verdicts equal) [{card}]", flush=True)
         del states
+
+
+# trace.cuh's select by index, and the parent's scan over every row
+MATS_INDEXED = """  const int m = material_row(mat_id, sc.num_mats);
+  if (m >= 0) {
+    const float* row = sc.mats + m * kMatStride;
+    m_kind = row[0];
+    m_ar = row[1];
+    m_ag = row[2];
+    m_ab = row[3];
+    m_param = row[4];
+  }"""
+MATS_SCAN = """  for (int m = 0; m < sc.num_mats; ++m) {
+    if (fabsf(mat_id - (float)m) < 0.5f) {
+      const float* row = sc.mats + m * kMatStride;
+      m_kind = row[0];
+      m_ar = row[1];
+      m_ag = row[2];
+      m_ab = row[3];
+      m_param = row[4];
+    }
+  }"""
+MATS_SKY = "  __shared__ float s_sky[8];\n"
+MATS_DECL = "  __shared__ float s_mat[kStagedMats * kMatStride];\n" + MATS_SKY
+MATS_DYN_DECL = "  extern __shared__ float s_mat[];  // max(num_mats, kStagedMats) rows\n" + MATS_SKY
+MATS_DENSE_SKY = "  if (tid < 8) s_sky[tid] = tab.sky[tid];"
+MATS_BLOCK_SKY = "  if (tid < 8) s_sky[tid] = sky[tid];"
+MATS_COPY = "  for (int i = tid; i < {n} * kMatStride; i += {step}) s_mat[i] = {src}[i];\n"
+MATS_N = "(p.w.num_mats > kStagedMats ? p.w.num_mats : kStagedMats)"
+#: the parent's units: the scan, and the (8, 8) table staged by every block
+MATS_PARENT = {
+    "render_kernel.cu": {"trace.cuh": [
+        (MATS_INDEXED, MATS_SCAN), (MATS_SKY, MATS_DECL),
+        (MATS_DENSE_SKY, MATS_COPY.format(n="kStagedMats", step="kDenseWarps * kLanes",
+                                          src="tab.mats") + MATS_DENSE_SKY),
+        ("{nullptr, s_sph, tab.mats, s_sky", "{nullptr, s_sph, s_mat, s_sky")]},
+    "wave_kernel.cu": {"trace.cuh": [(MATS_INDEXED, MATS_SCAN)], "wave_kernel.cu": [
+        ("  const bool staged = p.num_mats <= kStagedMats;", "  const bool staged = true;")]},
+    "mega_kernel.cu": {"trace.cuh": [(MATS_INDEXED, MATS_SCAN)], "mega_kernel.cu": [
+        (MATS_SKY, MATS_DECL),
+        (MATS_BLOCK_SKY, MATS_COPY.format(n="kStagedMats", step="blockDim.x", src="mats")
+         + MATS_BLOCK_SKY),
+        ("{tris, sphs, mats, s_sky", "{tris, sphs, s_mat, s_sky")]},
+}
+MATS_PARENT["record_kernel.cu"] = MATS_PARENT["render_kernel.cu"]
+#: the wave kernel reading even a table of <= 8 rows in place
+MATS_WAVE_IN_PLACE = [("  const bool staged = p.num_mats <= kStagedMats;",
+                       "  const bool staged = false;")]
+#: the wave and culled kernels staging the whole table in dynamic shared
+#: memory, whatever its size
+MATS_DYN = {
+    "wave_kernel.cu": [
+        ("  __shared__ float s_mat[kStagedMats * kMatStride];", MATS_DYN_DECL.splitlines()[0]),
+        ("""  const bool staged = p.num_mats <= kStagedMats;  // else read in place
+  if (staged) {
+    for (int i = tid; i < kStagedMats * kMatStride; i += blockDim.x) s_mat[i] = mats[i];
+  }""", "  const bool staged = true;\n"
+         + MATS_COPY.format(n=MATS_N.replace("p.w.", "p."), step="blockDim.x", src="mats")),
+        ("<<<p.r_pad / lanes, lanes, 0, (cudaStream_t)stream>>>",
+         "<<<p.r_pad / lanes, lanes, sizeof(float) * ptre::kMatStride * "
+         + MATS_N.replace("p.w.", "p.").replace("kStagedMats", "ptre::kStagedMats")
+         + ", (cudaStream_t)stream>>>")],
+    "mega_kernel.cu": [
+        (MATS_SKY, MATS_DYN_DECL),
+        (MATS_BLOCK_SKY, MATS_COPY.format(n=MATS_N, step="blockDim.x", src="mats")
+         + MATS_BLOCK_SKY),
+        ("{tris, sphs, mats, s_sky", "{tris, sphs, s_mat, s_sky"),
+        ("<<<n_blocks, lanes, 0, st>>>",
+         f"<<<n_blocks, lanes, sizeof(float) * kMatStride * {MATS_N}, st>>>")],
+}
+MATS_UNITS = {"render_kernel.cu": "ptre_render_sample", "record_kernel.cu": "ptre_trace_record",
+              "wave_kernel.cu": "ptre_wave_bounce", "mega_kernel.cu": "ptre_trace_culled"}
+#: blocks of 256 an SM that the parent's wave kernel (48 registers) runs;
+#: the shipped kernel under these launch bounds tells the select from the
+#: register budget and occupancy
+MATS_WAVE_BLOCKS = 5
+MATS_PAIRS = 10
+
+
+def sass_counts(lib_path, kernel):
+    """{function: {opcode: count}} of the SASS of every function of the
+    library whose name holds ``kernel`` (cuobjdump, predicates and
+    modifiers dropped)."""
+    import collections
+    import re
+
+    from ptre_tpu_torch.ops.cuda import build
+
+    tool = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
+    text = cs.sh([tool, "-sass", lib_path])
+    out, name = {}, None
+    for line in text.splitlines():
+        if "Function : " in line:
+            name = line.split("Function : ")[1].strip()
+            if kernel in name:
+                out[name] = collections.Counter()
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9]*)", line)
+        if m and name in out:
+            out[name][m.group(1)] += 1
+    return out
+
+
+def sass_report(label, shipped, other):
+    """One line a function: instructions in ``shipped`` and ``other``
+    (`sass_counts`) and the opcodes whose counts differ."""
+    for name in sorted(shipped):
+        a, b = shipped[name], other.get(name, {})
+        diff = {op: (a.get(op, 0), b.get(op, 0)) for op in sorted(set(a) | set(b))
+                if a.get(op, 0) != b.get(op, 0)}
+        print(f"  SASS {name}: shipped {sum(a.values())} instructions, {label} "
+              f"{sum(b.values())}; opcodes differing (shipped, {label}): {diff}", flush=True)
+
+
+def materials(dev, card):
+    """The four units against the parent's on <= 8 materials, the wave
+    kernel's staged table against the table read in place, and the table
+    read in place against the table staged in dynamic shared memory on 300
+    materials; outputs compared bit for bit, timed in turns (CUDA events)."""
+    import numpy as np
+    import torch
+
+    from ptre_tpu_torch.models import demo
+    from ptre_tpu_torch.ops import camera as cam_ops
+    from ptre_tpu_torch.ops import rng
+    from ptre_tpu_torch.ops.cuda import build
+    from ptre_tpu_torch.ops.cuda import megakernel as mk
+    from ptre_tpu_torch.ops.cuda import render_kernel as rk
+    from ptre_tpu_torch.ops.cuda import wavefront as wf
+    from ptre_tpu_torch.render import pathtracer as pt
+    from ptre_tpu_torch.utils.config import RenderConfig
+
+    parent_b = {u: variant(build, u, f"matsparent_{u[:4]}", e, build.UNIT_FLAGS.get(u, ()))
+                for u, e in MATS_PARENT.items()}
+    dyn_b = {u: variant(build, u, f"matsdyn_{u[:4]}", e) for u, e in MATS_DYN.items()}
+    wave_b = {"in place": variant(build, "wave_kernel.cu", "matsinplace", MATS_WAVE_IN_PLACE),
+              f"{MATS_WAVE_BLOCKS} blocks an SM": variant(
+                  build, "wave_kernel.cu", "matsblocks", [
+                      ("__launch_bounds__(kMaxLanes)",
+                       f"__launch_bounds__(kMaxLanes, {MATS_WAVE_BLOCKS})")])}
+    shipped = build.load_library()
+    if build.last_build is not None:
+        print("shipped: " + "; ".join(x for x in cs.ptxas_summary(build.last_build[1])
+                                      if any(k in x for k in ("dense", "wave_bounce", "mega")))
+              + f" [{card}]", flush=True)
+    libs = {}
+    for what, builds in (("parent's units", parent_b), ("dynamic shared variants", dyn_b),
+                         ("wave variants", wave_b)):
+        report = []
+        libs[what] = {u: cs.finish_unit_build(b, report) for u, b in builds.items()}
+        print(f"{what}: " + "; ".join(report) + f" [{card}]", flush=True)
+    parent, dyn, wave_v = (libs[w] for w in ("parent's units", "dynamic shared variants",
+                                             "wave variants"))
+    for table in (parent, dyn, wave_v):
+        for u, lib in table.items():
+            fn = MATS_UNITS.get(u, "ptre_wave_bounce")
+            getattr(lib, fn).restype = ctypes.c_int
+            getattr(lib, fn).argtypes = getattr(shipped, fn).argtypes
+
+    def through(lib, call):
+        """``call()`` with every wrapper launching from ``lib``; counts
+        restored."""
+        def fn():
+            load = build.load_library
+            counts = (rk.launches, mk.record_launches, wf.bounce_launches, mk.culled_launches)
+            build.load_library = lambda: lib
+            try:
+                return call()
+            finally:
+                build.load_library = load
+                (rk.launches, mk.record_launches, wf.bounce_launches,
+                 mk.culled_launches) = counts
+        return fn
+
+    def differ(a, b):
+        """Rays (or pixels, or state columns) on which two outputs differ."""
+        if a.dim() == 3:
+            return int((a != b).any(dim=-1).sum())
+        return int((a != b).any(dim=0 if a.shape[0] in (wf.STATE_ROWS, 5) else 1).sum())
+
+    def turns(what, fns, reps, n):
+        outs = {label: f() for label, f in fns.items()}
+        torch.cuda.synchronize()
+        first = next(iter(outs.values()))
+        first = first if isinstance(first, tuple) else (first,)
+        diffs = []
+        for label, out in list(outs.items())[1:]:
+            out = out if isinstance(out, tuple) else (out,)
+            diffs.append(max(differ(a, b) for a, b in zip(first, out)))
+        for _ in range(2):
+            times = cs.in_turns(fns, reps)
+            print(f"  {what}: " + ", ".join(f"{label} {ms:.4f} ms" for label, ms in times.items())
+                  + f" (CUDA events, in turns); {diffs} of {n} differ [{card}]", flush=True)
+        if any(diffs):
+            unequal.append(f"{what}: outputs differ on {diffs} of {n}")
+
+    def pairs(what, fns, reps):
+        """MATS_PAIRS turns of the two functions of ``fns``, each a, b, b, a."""
+        (la, lb), runs = fns, [cs.in_turns(fns, reps) for _ in range(MATS_PAIRS)]
+        wins = sum(r[la] < r[lb] for r in runs)
+        ratio = sum(r[lb] / r[la] for r in runs) / len(runs)
+        print(f"  {what}, {MATS_PAIRS} pairs ({la}, {lb}) ms: "
+              + "; ".join(f"{r[la]:.4f}, {r[lb]:.4f}" for r in runs)
+              + f"; {la} faster in {wins} of {MATS_PAIRS}, {lb} / {la} {ratio:.4f} on average"
+              f" [{card}]", flush=True)
+
+    unequal = []  # checked once every reading is printed
+    W, H, B, seed = cs.W_MAIN, cs.H_MAIN, 5, 0x17
+    R = W * H
+    cfg = RenderConfig(width=W, height=H, max_depth=B)
+    k = mk.TraceConsts.from_config(cfg)
+    cam = cam_ops.Camera.create(width=W, height=H)
+    px, py = pt.pixel_grid(H, W, dev)
+    o, d = (x.contiguous() for x in cam_ops.get_rays(
+        cam, px, py, (rng.ray_uniforms(seed, 1, R, 1, dev) - 0.5).T))
+
+    # ---- <= 8 materials: the shipped units against the parent's ------------------------
+    print(f"<= 8 materials, shipped against the parent's units, {W}x{H}, max_depth {B}:",
+          flush=True)
+    packed = mk.pack_scene(demo.reference_demo_scene(32, 16).build_packet(device=dev))
+    rows = rk.camera_rows(cam)
+    acc = torch.zeros((H, W, 3), device=dev)
+
+    def two(unit, call):
+        return {"shipped": call, "parent's unit": through(parent[unit], call)}
+
+    turns("demo render kernel (spp 4's fourth sample)", two(
+        "render_kernel.cu", lambda: rk.sample_accum(acc.clone(), packed, rows, 4, cfg, 100)),
+        20, R)
+    turns("demo recording kernel", two(
+        "record_kernel.cu", lambda: mk.trace_fused_sel(o, d, packed, k, B, seed, 0)), 20, R)
+    config4 = cs.TRI_CONFIGS[1]
+    for label, pkt in (("config 4", None),
+                       ("config 4, 300 materials", cs.many_materials_scene(
+                           dev, np.random.default_rng(300)))):
+        _, _, scene, kk, oo, dd, _, states = cs.mask_states(dev, config4, seed=seed, pkt=pkt)
+        if pkt is not None:
+            print(f"{label}: the table ({scene.num_mats} rows) read in place against staged in "
+                  f"dynamic shared memory, {W}x{H}, max_depth {B}:", flush=True)
+        for b, state, ids in states:
+            short, cnt = wf.shortlists_from_mask(wf.wave_mask(state, scene.boxes, kk.t_min,
+                                                              supers=scene.mask_supers))
+
+            def bounce(state=state, ids=ids, short=short, cnt=cnt, b=b):
+                return wf.wave_bounce(state, ids, short, cnt, scene, kk, b, seed, 1)
+
+            what = f"{label} bounce kernel, bounce {b} ({int((state[9] > 0.5).sum())} live rays)"
+            if pkt is not None:
+                turns(what, {"shipped": bounce,
+                             "dynamic shared": through(dyn["wave_kernel.cu"], bounce)}, 10,
+                      state.shape[1])
+                continue
+            turns(what, {**two("wave_kernel.cu", bounce),
+                         **{v: through(lib, bounce) for v, lib in wave_v.items()}},
+                  10, state.shape[1])
+            pairs(what, {"staged": bounce, "in place": through(wave_v["in place"], bounce)}, 10)
+
+        def culled():
+            return mk.trace_culled(oo, dd, scene, kk, B, seed, 0, record=True)
+
+        turns(f"{label} culled megakernel, one recording sample",
+              {"shipped": culled, "dynamic shared": through(dyn["mega_kernel.cu"], culled)}
+              if pkt is not None else two("mega_kernel.cu", culled), 5, oo.shape[0])
+        del states, scene
+        torch.cuda.empty_cache()
+
+    ship_sass = sass_counts(shipped._name, "wave_bounce_kernel")
+    for label, lib in (("parent's unit", parent["wave_kernel.cu"]),
+                       *((v, lib) for v, lib in wave_v.items())):
+        sass_report(label, ship_sass, sass_counts(lib._name, "wave_bounce_kernel"))
+    cs.check(not unequal, "; ".join(unequal))
 
 
 FLIP_SEEDS = range(200)

@@ -148,7 +148,18 @@ source, all at once), then:
        the culled megakernel on those rows against their plain versions;
        then ``render_step`` and ``mse_step`` on the default route in turns
        with the forced staged route, and a ``force="culled"`` step, with
-       their launches and device profiles, printed as a before/after table.
+       their launches and device profiles, printed as a before/after table;
+  25.  material tables past the reference's 8 rows (`materials_phase`): the
+       demo and config 4 with 8 materials (A) and with 16 decoy rows before
+       A's 8 (B, 24 materials, every model on its id + 16), at 1920x1080 —
+       the render and recording kernels (demo), the wave kernels and the
+       culled megakernel (config 4) on B against their plain versions and
+       bit for bit against A, ``render_step`` (spp 4), ``mse_step`` (spp 1)
+       and a force="culled" step on B through those kernels with no sweep
+       launch, B's image, loss and gradients A's; the default route in
+       turns with the forced staged route (the parent's route for B) and
+       with A's, as a table; config 4 with 300 distinct materials held to
+       the plain version on 8 rows of pixels and driven through both steps.
 
 Any failed check raises and the script exits non-zero; it prints its result
 lines only after every phase passed:
@@ -686,6 +697,7 @@ def main():
     engine_phase(dev, card)
     sharding_phase(dev, card)
     kernels.append(past_cap_phase(dev, card, rs, static_mask))
+    materials_phase(dev, card, rs)
 
     # ---- result --------------------------------------------------------------------
     print(f"chip_smoke.py: every phase passed in {time.perf_counter() - t_run:.1f} s, the "
@@ -1189,12 +1201,12 @@ TRI_CONFIGS = (  # (name, (scene function, kwargs), W, H): bench.py --tri-scene 
 )
 
 
-def mask_states(dev, config, seed=WAVE_SEED, sample=1):
-    """One Philox sample of ``config`` (a `TRI_CONFIGS` entry) traced as
-    `wavefront.trace` traces it, by the shipped kernels: (pkt, cam, scene,
-    consts, o, d, bounce-0 shortlists, [(bounce, state, ids)]) with the
-    sorted state and ids that the mask gets at every live bounce after the
-    first."""
+def mask_states(dev, config, seed=WAVE_SEED, sample=1, pkt=None):
+    """One Philox sample of ``config`` (a `TRI_CONFIGS` entry; ``pkt``, when
+    given, in place of its scene) traced as `wavefront.trace` traces it, by
+    the shipped kernels: (pkt, cam, scene, consts, o, d, bounce-0
+    shortlists, [(bounce, state, ids)]) with the sorted state and ids that
+    the mask gets at every live bounce after the first."""
     from ptre_tpu_torch.utils.config import RenderConfig
     from ptre_tpu_torch.models import demo
     from ptre_tpu_torch.ops import camera as cam_ops
@@ -1206,7 +1218,8 @@ def mask_states(dev, config, seed=WAVE_SEED, sample=1):
     name, (fn, kw), W, H = config
     R, B = W * H, 5
     k = mk.TraceConsts.from_config(RenderConfig(width=W, height=H, max_depth=B))
-    pkt = getattr(demo, fn)(**kw).build_packet(device=dev)
+    if pkt is None:
+        pkt = getattr(demo, fn)(**kw).build_packet(device=dev)
     cam = cam_ops.Camera.create(width=W, height=H)
     scene = wf.prepare_scene(pkt, screen_cam=cam)
     px, py = pt.pixel_grid(H, W, dev)
@@ -3092,6 +3105,330 @@ def past_cap_phase(dev, card, rs, static_mask):
         "ms": ms,
         "plain_ms": plain_ms,
     }, nbytes, ops)
+
+
+# Phase 25: material tables past the reference's 8 rows. Scene A is the demo
+# (`reference_demo_scene(32, 16)`) or config 4 (`config4_mixed_scene(128,
+# 64)`) with 8 materials, every model on an id of its own; scene B the same
+# geometry with MATS_DECOYS decoy rows (emissive, bright, odd albedo) before
+# A's 8 and every model on its id + MATS_DECOYS, 24 materials: the parent
+# sent B to the staged route. The wave kernel stages A's table in shared
+# memory and reads B's in place (the other kernels read both in place), with
+# the same arithmetic on the same rows, so B's
+# images, colours and selections equal A's bit for bit, and each kernel
+# holds to its plain version on B as the earlier phases hold it on A. A
+# 300-material config-4 scene (MATS_MANY distinct rows, models on ids past
+# 40) is held to the plain version on PAST_CAP_ROWS rows of pixels.
+MATS_DECOYS = 16
+MATS_MANY = 300
+MATS_SCENES = (("demo", "reference_demo_scene", (32, 16), {"ground": 2, "sph": 4, "wall": 3}),
+               ("config 4", "config4_mixed_scene", (128, 64),
+                {"b": 5, "c": 6, "s": 4, "g": 7}))
+MATS_EXTRA = ((False, (0.8, 0.35, 0.2), 0.6), (True, (1.0, 0.85, 0.6), 3.0),
+              (False, (0.2, 0.6, 0.9), 0.2), (False, (0.9, 0.9, 0.3), 1.0),
+              (True, (0.5, 0.7, 1.0), 6.0), (False, (0.4, 0.45, 0.5), 0.0))
+
+
+def decoy_pair(fn, args, ids, dev):
+    """(A, B) packets on ``dev``: demo.``fn(*args)`` with MATS_EXTRA added (8
+    materials) and its models on ``ids``, and the same packet with
+    MATS_DECOYS decoy rows before A's and every id shifted past them."""
+    import torch
+
+    from ptre_tpu_torch.models import demo
+    from ptre_tpu_torch.models.scene import Material, MaterialKind
+
+    scn = getattr(demo, fn)(*args)
+    for em, albedo, param in MATS_EXTRA:
+        scn.add_material(Material(MaterialKind.EMISSIVE if em else MaterialKind.OREN_NAYAR,
+                                  albedo, param))
+    for model, mid in ids.items():
+        scn.set_model_material(model, mid)
+    a = scn.build_packet(device=dev)
+    i = torch.arange(MATS_DECOYS, dtype=torch.float32, device=dev)
+    decoy_albedo = torch.stack([3.0 + i, torch.full_like(i, 0.01), 7.0 - 0.25 * i], dim=1)
+    b = dataclasses.replace(
+        a, mat_kind=torch.cat([(i.long() % 2 == 0).to(a.mat_kind.dtype), a.mat_kind]),
+        mat_albedo=torch.cat([decoy_albedo, a.mat_albedo]),
+        mat_param=torch.cat([25.0 + i, a.mat_param]),
+        tri_mat=a.tri_mat + MATS_DECOYS, sph_mat=a.sph_mat + MATS_DECOYS,
+        num_materials=a.num_materials + MATS_DECOYS)
+    return a, b
+
+
+def many_materials_scene(dev, rs):
+    """Config 4 at (128, 64) with MATS_MANY distinct materials (a seventh of
+    them emissive), its models on ids 40, 123, 206 and 289."""
+    from ptre_tpu_torch.models import demo
+    from ptre_tpu_torch.models.scene import Material, MaterialKind
+
+    scn = demo.config4_mixed_scene(128, 64)
+    for i in range(MATS_MANY - 2):
+        scn.add_material(Material(
+            MaterialKind.EMISSIVE if i % 7 == 0 else MaterialKind.OREN_NAYAR,
+            tuple(float(x) for x in rs.uniform(0.1, 0.9, 3)), float(rs.uniform(0.0, 1.5))))
+    for j, (model, _) in enumerate(scn.sorted_models()):
+        scn.set_model_material(model, 40 + 83 * j)
+    return scn.build_packet(device=dev)
+
+
+def materials_phase(dev, card, rs):
+    """Phase 25: the decoy pairs and the 300-material scene through the
+    render, record, wave and culled kernels (see MATS_SCENES above) at
+    1920x1080, max_depth 5: each kernel against its plain version and B's
+    output against A's, bit for bit; `render_step` (spp 4), `mse_step`
+    (spp 1) and a force="culled" step with their launches (no sweep
+    launch); the default route in turns with the forced staged route (the
+    parent's route for B) and with A's, as a table."""
+    import numpy as np
+    import torch
+
+    from ptre_tpu_torch.ops import camera as cam_ops
+    from ptre_tpu_torch.ops import integrator, rng
+    from ptre_tpu_torch.ops.cuda import fused_grad as fg
+    from ptre_tpu_torch.ops.cuda import megakernel as mk
+    from ptre_tpu_torch.ops.cuda import render_kernel as rk
+    from ptre_tpu_torch.ops.cuda import sweep_kernel as sk
+    from ptre_tpu_torch.ops.cuda import wavefront as wf
+    from ptre_tpu_torch.parallel import sharding as sh
+    from ptre_tpu_torch.render import pathtracer as pt
+    from ptre_tpu_torch.render import train
+    from ptre_tpu_torch.utils.config import RenderConfig
+
+    W, H, B = W_MAIN, H_MAIN, 5
+    R = W * H
+    cfg = RenderConfig(width=W, height=H, max_depth=B)
+    forced = dataclasses.replace(cfg, intersect_backend="pallas", grad_sweep="staged")
+    k = mk.TraceConsts.from_config(cfg)
+    cam = cam_ops.Camera.create(width=W, height=H)
+    rows = rk.camera_rows(cam)
+    px, py = pt.pixel_grid(H, W, dev)
+    seed = 0x25
+    o, d = (x.contiguous() for x in cam_ops.get_rays(
+        cam, px, py, (rng.ray_uniforms(seed, 1, R, 1, dev) - 0.5).T))
+    band = slice((H // 2) * W, (H // 2 + PAST_CAP_ROWS) * W)
+    o8, d8 = o[band].contiguous(), d[band].contiguous()
+    urand = torch.from_numpy(rs.random((2 + 2 * B, R), dtype=np.float32)).to(dev)
+
+    def counts():
+        return (rk.launches, mk.record_launches, wf.mask_launches, wf.bounce_launches,
+                fg.launches, mk.culled_launches, sk.launches)
+
+    def reset():
+        rk.launches = mk.record_launches = wf.mask_launches = wf.bounce_launches = 0
+        fg.launches = mk.culled_launches = sk.launches = 0
+
+    def hold_traced(what, got, want, got_sel=None, want_sel=None, n=R, flip_frac=1e-4):
+        """A trace's colour (and selections) against its plain version, as
+        phases 6 and 24 hold them: TIGHT (relative above 1) on TIGHT_FRAC of
+        the channels, at most ceil(flip_frac n) rays flipped."""
+        diff = (got - want).abs()
+        scale = want.abs().clamp_min(1.0)
+        tight = float((diff <= TIGHT * scale).float().mean())
+        flip = (diff > 0.05 * scale).any(dim=1)
+        if got_sel is not None:
+            flip |= (got_sel != want_sel).any(dim=0)
+        print(f"  {what}: {100 * tight:.4f} % of the channels within {TIGHT:g}, "
+              f"{int(flip.sum())} rays flipped of {n}", flush=True)
+        check(bool(torch.isfinite(got).all()) and tight >= TIGHT_FRAC
+              and int(flip.sum()) <= math.ceil(flip_frac * n), f"{what}: disagrees with plain")
+
+    def culled_step(pkt, i):
+        params = sh.differentiable_params(pkt, cam)
+        leaves = {key: v.detach().requires_grad_(True) for key, v in params.items()}
+        pk, cm = sh.apply_params(leaves, pkt, cam)
+        jit = rng.ray_uniforms(900 + i, 0, R, 1, dev)
+        oo, dd = cam_ops.get_rays(cm, px, py, (jit - 0.5).T)
+        color = fg.trace_grad(oo, dd, pk, cfg, 900 + i, 0, force="culled", screen_cam=cm)
+        loss = torch.mean(color ** 2)
+        return loss.detach(), torch.autograd.grad(loss, list(leaves.values()),
+                                                  allow_unused=True)
+
+    def steps(fn, n=PAST_CAP_STEPS):
+        fn(0)  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(n):
+            out = fn(1 + i)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / n, out
+
+    table_lines = []
+    for name, fn, args, ids in MATS_SCENES:
+        a, b = decoy_pair(fn, args, ids, dev)
+        route = "dense" if name == "demo" else "wavefront"
+        check(pt.route(b, cfg) == route and integrator.grad_route(cfg, b) == "fused"
+              and pt.route(b, forced) == "staged" and integrator.grad_route(forced, b) == "staged",
+              f"phase 25 {name}: routes")
+        print(f"phase 25: {name}, {b.num_materials} materials (A's 8 at rows {MATS_DECOYS}-"
+              f"{MATS_DECOYS + 7}, decoys before them), {b.num_triangles} triangles, "
+              f"{b.num_spheres} spheres; routes {pt.route(b, cfg)} / "
+              f"{integrator.grad_route(cfg, b)}, forced {pt.route(b, forced)}", flush=True)
+
+        # ---- each kernel on B: against its plain version, and equal to A's ----------
+        if name == "demo":
+            sa, sb = mk.pack_scene(a), mk.pack_scene(b)
+            check(tuple(sb.mats.shape) == (24, 8), "phase 25: B's table")
+            prev = torch.from_numpy(rs.random((H, W, 3), dtype=np.float32)).to(dev)
+            for mode, ur in (("external uniforms", urand.view(2 + 2 * B, H, W)),
+                             ("philox", None)):
+                got_a = rk.sample_accum(prev.clone(), sa, rows, 3, cfg, seed, ur)
+                got_b = rk.sample_accum(prev.clone(), sb, rows, 3, cfg, seed, ur)
+                want = rk.sample_accum_reference(prev, sb, rows, 3, cfg, seed, ur)
+                torch.cuda.synchronize()
+                check(torch.equal(got_a, got_b), f"phase 25 render {mode}: B differs from A")
+                compare(got_b, want, pt, f"render kernel on B, {mode} (B equal to A)")
+                ur2 = None if ur is None else urand
+                ca, sla = mk.trace_fused_sel(o, d, sa, k, B, seed, 0, ur2)
+                cb, slb = mk.trace_fused_sel(o, d, sb, k, B, seed, 0, ur2)
+                wc, ws = mk.trace_record_reference(o, d, sb, k, B, seed, 0, ur2)
+                torch.cuda.synchronize()
+                check(torch.equal(ca, cb) and torch.equal(sla, slb),
+                      f"phase 25 record {mode}: B differs from A")
+                hold_traced(f"record kernel on B, {mode} (B equal to A)", cb, wc, slb, ws,
+                            flip_frac=FLIP_FRAC)
+        else:
+            sa, sb = (wf.prepare_scene(p, screen_cam=cam) for p in (a, b))
+            check(tuple(sb.mats.shape) == (24, 8), "phase 25: B's table")
+            for mode, ur in (("external uniforms", urand), ("philox", None)):
+                ta = wf.trace(o, d, sa, k, B, seed, 1, ur, tile_hint=(H, W), record=True)
+                tb = wf.trace(o, d, sb, k, B, seed, 1, ur, tile_hint=(H, W), record=True)
+                ma = mk.trace_culled(o, d, sa, k, B, seed, 1, ur, record=True)
+                mb = mk.trace_culled(o, d, sb, k, B, seed, 1, ur, record=True)
+                torch.cuda.synchronize()
+                check(all(torch.equal(x, y) for x, y in zip(ta[:2] + ma, tb[:2] + mb)),
+                      f"phase 25 wave / culled {mode}: B differs from A")
+                ur8 = None if ur is None else ur[:, band].contiguous()
+                ck8 = wf.trace(o8, d8, sb, k, B, seed, 1, ur8, record=True)
+                cp8 = wf.trace(o8, d8, sb, k, B, seed, 1, ur8, record=True, plain=True)
+                mk8 = mk.trace_culled(o8, d8, sb, k, B, seed, 1, ur8, record=True)
+                mp8 = mk.trace_culled_reference(o8, d8, sb, k, B, seed, 1, ur8, record=True)
+                torch.cuda.synchronize()
+                hold_traced(f"wave kernels on B, {mode}, {PAST_CAP_ROWS} rows (B equal to A "
+                            f"at {W}x{H})", ck8[0], cp8[0], ck8[1], cp8[1], o8.shape[0])
+                hold_traced(f"culled megakernel on B, {mode}, {PAST_CAP_ROWS} rows (B equal "
+                            f"to A at {W}x{H})", mk8[0], mp8[0], mk8[1], mp8[1], o8.shape[0])
+            del ta, tb, ma, mb
+
+        # ---- the main path on B: launches, and B's image equal to A's -----------------
+        samples = PAST_CAP_STEPS + 1
+        target = torch.zeros((R, 3), device=dev)
+        reset()
+        acc_b = pt.render_step(b, cam, pt.AccumState.create(H, W, dev), seed, cfg, spp=SPP)
+        torch.cuda.synchronize()
+        n_render = counts()
+        acc_a = pt.render_step(a, cam, pt.AccumState.create(H, W, dev), seed, cfg, spp=SPP)
+        torch.cuda.synchronize()
+        check(torch.equal(acc_a.linear, acc_b.linear), f"phase 25 {name}: B's image differs")
+        reset()
+        loss_b, grads_b = train.mse_step(sh.differentiable_params(b, cam), b, cam, target, cfg,
+                                         seed, spp=1)
+        torch.cuda.synchronize()
+        n_mse = counts()
+        loss_a, grads_a = train.mse_step(sh.differentiable_params(a, cam), a, cam, target, cfg,
+                                         seed, spp=1)
+        reset()
+        culled = culled_step(b, 0)
+        torch.cuda.synchronize()
+        n_culled = counts()
+        # (render, record, mask, bounce, backward, culled, sweep)
+        if name == "demo":
+            ok = (n_render == (SPP, 0, 0, 0, 0, 0, 0) and n_mse == (0, 1, 0, 0, 1, 0, 0))
+        else:
+            ok = (n_render[:2] == (0, 0) and n_render[3] > SPP and n_render[4:] == (0, 0, 0)
+                  and n_mse[:2] == (0, 0) and n_mse[3] > 1 and n_mse[4:] == (1, 0, 0))
+        ok = ok and n_culled == (0, 0, 0, 0, 1, 1, 0)
+        print(f"  launches (render, record, mask, bounce, backward, culled, sweep): "
+              f"render_step spp {SPP} {n_render}, mse_step spp 1 {n_mse}, force='culled' "
+              f"{n_culled}; B's render_step image equal to A's; mse_step loss B {float(loss_b):.9g}"
+              f", A {float(loss_a):.9g}", flush=True)
+        check(ok, f"phase 25 {name}: launches")
+        check(float(loss_a) == float(loss_b), f"phase 25 {name}: B's loss differs from A's")
+        check(math.isfinite(float(culled[0])), f"phase 25 {name}: culled loss")
+        for key in grads_a:
+            ga, gb = grads_a[key], grads_b[key]
+            if key in ("mat_albedo", "mat_param"):
+                check(float(gb[:MATS_DECOYS].abs().max()) == 0.0,
+                      f"phase 25 {name}: a decoy row has a gradient")
+                gb = gb[MATS_DECOYS:]
+            err = float((gb - ga).norm() / ga.norm().clamp_min(1e-30))
+            check(err <= SUM_REL, f"phase 25 {name}: d({key}) of B {err:.3e} from A's")
+        print(f"  mse_step gradients of B within {SUM_REL:g} (relative L2, the backward's "
+              f"atomics) of A's, material rows {MATS_DECOYS}-{MATS_DECOYS + 7} carrying A's "
+              f"0-7, the decoys none", flush=True)
+        del acc_a, acc_b, grads_a, grads_b, culled
+
+        # ---- ms/step in turns: B default, B forced staged, A default ------------------
+        pa, pb = sh.differentiable_params(a, cam), sh.differentiable_params(b, cam)
+        acc = pt.AccumState.create(H, W, dev)
+        runs = {
+            "render_step B staged": lambda i: pt.render_step(b, cam, acc, 700 + i, forced),
+            "render_step B default": lambda i: pt.render_step(b, cam, acc, 700 + i, cfg),
+            "render_step A default": lambda i: pt.render_step(a, cam, acc, 700 + i, cfg),
+            "mse_step B staged": lambda i: train.mse_step(pb, b, cam, target, forced, 800 + i),
+            "mse_step B default": lambda i: train.mse_step(pb, b, cam, target, cfg, 800 + i),
+            "mse_step A default": lambda i: train.mse_step(pa, a, cam, target, cfg, 800 + i),
+        }
+        times = {}
+        for step in ("render_step", "mse_step"):
+            order = [f"{step} B staged", f"{step} B default", f"{step} A default"]
+            for label in order + order[::-1]:
+                reset()
+                ms, _ = steps(runs[label])
+                n = counts()
+                staged = label.endswith("staged")
+                check((n[6] > 0) == staged and (sum(n[:6]) == 0) == staged,
+                      f"phase 25 {name} {label}: launches {n}")
+                times.setdefault(label, []).append(ms)
+        table_lines.append((name, times))
+        print(f"  in turns, host clock ms/step (spp 1, {PAST_CAP_STEPS} steps after one): "
+              + "; ".join(f"{label} " + ", ".join(f"{x:.1f}" for x in v)
+                          for label, v in times.items()) + f" [{card}]", flush=True)
+        del pa, pb, acc, runs, a, b, sa, sb
+        torch.cuda.empty_cache()
+
+    # ---- 300 distinct materials: config 4 against the plain version ------------------
+    many = many_materials_scene(dev, rs)
+    scene = wf.prepare_scene(many, screen_cam=cam)
+    check(many.num_materials == MATS_MANY and tuple(scene.mats.shape) == (MATS_MANY, 8),
+          "phase 25: the 300-material table")
+    ur8 = urand[:, band].contiguous()
+    ck8 = wf.trace(o8, d8, scene, k, B, seed, 1, ur8, record=True)
+    cp8 = wf.trace(o8, d8, scene, k, B, seed, 1, ur8, record=True, plain=True)
+    mk8 = mk.trace_culled(o8, d8, scene, k, B, seed, 1, ur8, record=True)
+    mp8 = mk.trace_culled_reference(o8, d8, scene, k, B, seed, 1, ur8, record=True)
+    torch.cuda.synchronize()
+    print(f"phase 25: config 4 with {MATS_MANY} distinct materials, models on ids 40-289",
+          flush=True)
+    hold_traced(f"wave kernels, {PAST_CAP_ROWS} rows", ck8[0], cp8[0], ck8[1], cp8[1],
+                o8.shape[0])
+    hold_traced(f"culled megakernel, {PAST_CAP_ROWS} rows", mk8[0], mp8[0], mk8[1], mp8[1],
+                o8.shape[0])
+    reset()
+    acc = pt.render_step(many, cam, pt.AccumState.create(H, W, dev), seed, cfg, spp=SPP)
+    loss, grads = train.mse_step(sh.differentiable_params(many, cam), many, cam,
+                                 torch.zeros((R, 3), device=dev), cfg, seed, spp=1)
+    torch.cuda.synchronize()
+    n = counts()
+    print(f"  render_step spp {SPP} and mse_step spp 1: launches (render, record, mask, bounce, "
+          f"backward, culled, sweep) {n}; d(mat_albedo) non-zero on rows "
+          f"{sorted(set((grads['mat_albedo'].abs().sum(dim=1) > 0).nonzero().flatten().tolist()))}",
+          flush=True)
+    check(n[:2] == (0, 0) and n[3] > SPP and n[4:] == (1, 0, 0), "phase 25: 300 materials, launches")
+    check(bool(torch.isfinite(acc.linear).all()) and math.isfinite(float(loss)),
+          "phase 25: 300 materials, image or loss")
+    check(float(grads["mat_albedo"][:40].abs().max()) == 0.0
+          and float(grads["mat_albedo"][40:].abs().max()) > 0, "phase 25: 300 materials, grads")
+
+    print(f"phase 25: B (24 materials) on the default route against the forced staged route "
+          f"(the parent's route for it) and against A (8 materials), 1920x1080, max_depth {B}, "
+          f"host clock ms/step, in turns [{card}]:", flush=True)
+    print("  | scene | step | B staged (before) | B default (after) | A default |", flush=True)
+    for name, times in table_lines:
+        for step in ("render_step", "mse_step"):
+            print(f"  | {name} | {step} | " + " | ".join(
+                ", ".join(f"{x:.1f}" for x in times[f"{step} {which}"])
+                for which in ("B staged", "B default", "A default")) + " |", flush=True)
 
 
 # The replay route (phase 21): grad_sweep="replay", the reference's A/B

@@ -4,8 +4,9 @@
 // Replaces the TPU kernel ptre_tpu/ops/pallas/megakernel.py _mega_kernel
 // (:237, launched at :1079). One thread per ray, `lanes` rays a block, the
 // path state (o, d, colour, live) in registers across all bounces. The block
-// only stages the materials and the sky into shared memory; from then on
-// each warp runs on its own, with warp votes and no block barrier. Per
+// only stages the sky into shared memory (a hit's material row is read in
+// place, by index); from then on each warp runs on its own, with warp votes
+// and no block barrier. Per
 // bounce a warp walks the supertiles (8 leaves each) in ascending order:
 // every live lane tests the supertile's union box against its own ray,
 // bounded by its own closest hit so far (wave.cuh slab_pass_within, on the
@@ -136,7 +137,6 @@ __global__ void __launch_bounds__(kMaxLanes)
                 const float* __restrict__ sphs, const float* __restrict__ mats,
                 const float* __restrict__ sky, float* __restrict__ color,
                 int32_t* __restrict__ sel, unsigned long long* __restrict__ stats) {
-  __shared__ float s_mat[kMaxMats * kMatStride];
   __shared__ float s_sky[8];
 
   const int tid = threadIdx.x;
@@ -149,12 +149,11 @@ __global__ void __launch_bounds__(kMaxLanes)
     r.c[k] = 1.0f;
   }
   r.act = valid ? 1.0f : 0.0f;
-  for (int i = tid; i < kMaxMats * kMatStride; i += blockDim.x) s_mat[i] = mats[i];
   if (tid < 8) s_sky[tid] = sky[tid];
   __syncthreads();  // the block's only barrier
 
   WaveParams wp = p.w;
-  const SceneTables sc = {tris, sphs, s_mat, s_sky, 0, wp.n_sph, wp.num_mats};
+  const SceneTables sc = {tris, sphs, mats, s_sky, 0, wp.n_sph, wp.num_mats};
   // warp-uniform counts (kStats only), in the order of the enum above
   unsigned long long n_bounces = 0, n_super = 0, n_leaf = 0, n_passed = 0, n_visited = 0;
   int bounce = 0;
@@ -257,7 +256,7 @@ extern "C" int ptre_trace_culled(const ptre::MegaParams* params, const float* o,
                                  void* stream) {
   const ptre::MegaParams p = *params;
   if (p.w.n_rays < 1 || p.w.n_leaf < 0 || p.w.n_sph < 0 ||
-      p.w.num_mats > ptre::kMaxMats || p.max_depth < 1 || lanes < 32 ||
+      p.w.num_mats > ptre::kMaxMaterials || p.max_depth < 1 || lanes < 32 ||
       lanes > ptre::kMaxLanes || lanes % 32 != 0 ||
       (p.cull && (p.n_super * ptre::kSuper < p.w.n_leaf || boxes == nullptr ||
                   boxes2 == nullptr)) ||

@@ -46,7 +46,7 @@ extern "C" int ptre_trace_record(const ptre::TraceParams* params,
                                  void* stream) {
   const ptre::TraceParams p = *params;
   if (p.n_rays < 1 || p.n_tri < 1 || p.n_tri > ptre::kMaxTri ||
-      p.n_sph < 1 || p.n_sph > ptre::kMaxSph || p.num_mats > ptre::kMaxMats ||
+      p.n_sph < 1 || p.n_sph > ptre::kMaxSph || p.num_mats > ptre::kMaxMaterials ||
       p.max_depth < 1 || p.max_depth > ptre::kMaxDepth ||
       (p.external_rng && urand == nullptr)) {
     return (int)cudaErrorInvalidValue;

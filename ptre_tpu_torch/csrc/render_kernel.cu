@@ -5,9 +5,9 @@
 // _render_kernel (:79, launched at :192), which inlines megakernel.py
 // _trace_block (:811), _scatter_shade (:611) and _u01 (:226): jitter,
 // closed-form camera ray, up to max_depth bounces over the dense scene
-// (<= 64 triangles, <= 64 spheres, <= 8 materials), clamp + non-finite
-// scrub, and the running average on the public (H, W, 3) accumulator,
-// updated in place.
+// (<= 64 triangles, <= 64 spheres, any number of materials), clamp +
+// non-finite scrub, and the running average on the public (H, W, 3)
+// accumulator, updated in place.
 //
 // What bounds it on this card: divergent float32 ALU work, not bytes. A
 // sample reads and writes the 25 MB accumulator at 1080p once (microseconds
@@ -26,6 +26,9 @@
 //     box the ray misses, reads three vectors a row, every lane of a warp
 //     at the same address (a broadcast), and leaves a candidate as soon as
 //     |det| or u decides it;
+//   * a hit's material row is read by index (trace.cuh material_row) from
+//     the table in global memory (32 B a row, through L1/L2), whatever its
+//     size: no scan of the rows and no copy in shared memory;
 //   * the ragged image edge shrinks the edge tiles (1080 is not a multiple
 //     of 16): no lane takes a pixel outside the image;
 //   * random numbers come from Philox keyed by (seed, pixel, sample, draw),
@@ -52,7 +55,7 @@ extern "C" int ptre_render_sample(const ptre::RenderParams* params,
                                   void* stream) {
   const ptre::RenderParams p = *params;
   if (p.n_tri < 1 || p.n_tri > ptre::kMaxTri || p.n_sph < 1 ||
-      p.n_sph > ptre::kMaxSph || p.num_mats > ptre::kMaxMats ||
+      p.n_sph > ptre::kMaxSph || p.num_mats > ptre::kMaxMaterials ||
       p.width < 1 || p.height < 1 || (p.external_rng && urand == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }

@@ -1,7 +1,8 @@
 // Path tracing of the dense class, shared by the CUDA render and recording
 // kernels and their host builds:
-//   * scatter_shade (material select, ONB cosine scatter, Oren-Nayar /
-//     emissive weight) and sky_color, also read by wave.cuh and replay.cuh;
+//   * scatter_shade (material select by index, ONB cosine scatter,
+//     Oren-Nayar / emissive weight) and sky_color, also read by wave.cuh and
+//     replay.cuh;
 //   * derive_row: a triangle row as the dense kernels stage it once a block
 //     (v0 and the edges e1 = v1 - v0, e2 = v2 - v0, the vertex normals, the
 //     material, the row's original index), valid rows only, ascending;
@@ -42,7 +43,13 @@ namespace ptre {
 
 constexpr int kMaxTri = 64;  // dense class: triangle rows staged per block
 constexpr int kMaxSph = 64;
-constexpr int kMaxMats = 8;
+// Material tables: pack_mats rows (kind, albedo, param, 0, 0, 0), at least
+// kStagedMats of them. The dense and culled kernels read a hit's row in
+// place, through L1/L2; the wave kernel stages a table of at most
+// kStagedMats rows in shared memory and reads a larger one in place. Ids
+// are float32, which holds every index below kMaxMaterials exactly.
+constexpr int kStagedMats = 8;
+constexpr int kMaxMaterials = 1 << 24;
 constexpr int kTriStride = 32;  // pack_tri32 row
 constexpr int kSphStride = 16;  // pack_sph16 row
 constexpr int kMatStride = 8;   // pack_mats row
@@ -78,7 +85,7 @@ struct TraceParams {
 struct SceneTables {
   const float* tris;  // (n_tri, 32)
   const float* sphs;  // (n_sph, 16)
-  const float* mats;  // (8, 8)
+  const float* mats;  // (max(num_mats, kStagedMats), kMatStride)
   const float* sky;   // bottom rgb, top rgb
   int n_tri, n_sph, num_mats;
 };
@@ -133,23 +140,33 @@ PTRE_HD void sky_color(float dy, const float* sky, float* r, float* g,
   *b = add_rn(mul_rn(om, sky[2]), mul_rn(a, sky[5]));
 }
 
+// The material row of a float id, or -1 for the zero row. The reference
+// scans every row m < num_mats for |id - m| < 0.5, last match wins
+// (megakernel.py:625-631). At most one integer lies that close to id, the
+// nearest one, rintf(id), and id - m is exact there (Sterbenz), so one
+// comparison gives the scan's row for every float id: k + 0.5 (a tie, 0.5
+// away from both neighbours), NaN, ids below -0.5 and ids past num_mats -
+// 0.5 take no row. num_mats <= kMaxMaterials is exact as a float.
+PTRE_HD int material_row(float mat_id, int num_mats) {
+  const float m = rintf(mat_id);
+  return fabsf(mat_id - m) < 0.5f && m >= 0.0f && m < (float)num_mats ? (int)m : -1;
+}
+
 // Shading of a hit (megakernel.py:611-714): returns the bounce factor f and
 // the scattered direction wi; *emissive ends the path.
 PTRE_HD void scatter_shade(float nx, float ny, float nz, float dx, float dy,
                            float dz, float mat_id, float u1, float u2,
                            const SceneTables& sc, float pdf_eps, float f[3],
                            float wi[3], bool* emissive) {
-  // material row: float ids, |id - m| < 0.5, last match wins (:625-631)
   float m_kind = 0.0f, m_ar = 0.0f, m_ag = 0.0f, m_ab = 0.0f, m_param = 0.0f;
-  for (int m = 0; m < sc.num_mats; ++m) {
-    if (fabsf(mat_id - (float)m) < 0.5f) {
-      const float* row = sc.mats + m * kMatStride;
-      m_kind = row[0];
-      m_ar = row[1];
-      m_ag = row[2];
-      m_ab = row[3];
-      m_param = row[4];
-    }
+  const int m = material_row(mat_id, sc.num_mats);
+  if (m >= 0) {
+    const float* row = sc.mats + m * kMatStride;
+    m_kind = row[0];
+    m_ar = row[1];
+    m_ag = row[2];
+    m_ab = row[3];
+    m_param = row[4];
   }
   const bool is_emissive = m_kind > 0.5f;
 
@@ -743,7 +760,8 @@ struct RecordJob {
 //
 // Staging: warp 0 derives the valid triangle rows in ascending order (a
 // ballot per 32 rows) and the boxes' pad, the other threads copy the
-// spheres, materials and sky; then a thread a group takes its group's box.
+// spheres and the sky (a hit's material row is read in place); then a
+// thread a group takes its group's box.
 //
 // The scheduler: each lane carries one path, advanced one bounce at a time;
 // a lane whose path ended finishes it (one write) and, once at least
@@ -761,7 +779,6 @@ __global__ void __launch_bounds__(kDenseWarps* kLanes)
   __shared__ __align__(16) float s_rows[kMaxTri * kRowFloats];
   __shared__ __align__(16) float s_box[kMaxGroups * kBoxFloats];
   __shared__ __align__(16) float s_sph[kMaxSph * kSphStride];
-  __shared__ float s_mat[kMaxMats * kMatStride];
   __shared__ float s_sky[8];
   __shared__ int s_n_valid;
   __shared__ float s_pad;
@@ -793,8 +810,6 @@ __global__ void __launch_bounds__(kDenseWarps* kLanes)
   }
   for (int i = tid; i < tab.n_sph * kSphStride; i += kDenseWarps * kLanes)
     s_sph[i] = tab.sphs[i];
-  for (int i = tid; i < kMaxMats * kMatStride; i += kDenseWarps * kLanes)
-    s_mat[i] = tab.mats[i];
   if (tid < 8) s_sky[tid] = tab.sky[tid];
   __syncthreads();
   if (tid * kGroupRows < s_n_valid)
@@ -805,7 +820,7 @@ __global__ void __launch_bounds__(kDenseWarps* kLanes)
   if (t >= job.n_tiles()) return;
   const int n_items = job.tile(t);
   job.sc = {s_rows, s_box, s_sph, s_n_valid, tab.n_sph,
-            {nullptr, s_sph, s_mat, s_sky, 0, tab.n_sph, tab.num_mats}};
+            {nullptr, s_sph, tab.mats, s_sky, 0, tab.n_sph, tab.num_mats}};
 
   const unsigned below = (1u << lane) - 1u;
   typename Job::Lane l;

@@ -16,14 +16,15 @@
 // row, within a leaf and across the ascending list). Then, per thread
 // (wave.cuh finish_bounce): spheres bounded by the best triangle, the
 // winner's 32-float row read by index from global memory, its attributes
-// re-derived, shading (trace.cuh scatter_shade / sky_color) and the next
-// state. Dead rays pass through unchanged; a block without a live ray
-// copies its state and stops. The recording instantiation
-// (wavefront.py:345-349, `record_sel`) also writes each live ray's winner,
-// as a unified-table row or -1, straight to the ray's slot of this bounce's
-// selection row by its original id: the ids already ride the sort, so
-// nothing else has to (the TPU let four selection rows per bounce ride every
-// later sort and scattered once at the end).
+// re-derived, shading (trace.cuh scatter_shade / sky_color: the material
+// row by index, from shared memory up to 8 materials, else from the table
+// in global memory) and the next state. Dead rays pass through unchanged;
+// a block without a live ray copies its state and stops. The recording
+// instantiation (wavefront.py:345-349, `record_sel`) also writes each live
+// ray's winner, as a unified-table row or -1, straight to the ray's slot of
+// this bounce's selection row by its original id: the ids already ride the
+// sort, so nothing else has to (the TPU let four selection rows per bounce
+// ride every later sort and scattered once at the end).
 //
 // What bounds it on this card: divergent float32 ALU work in the sweep, not
 // bytes. The shortlist is a block verdict; the first design made every live
@@ -99,7 +100,7 @@ __global__ void __launch_bounds__(kMaxLanes)
                        int32_t* __restrict__ sel) {
   constexpr int kLeafFloats = kLeaf * kRowStride;
   __shared__ __align__(16) float s_rows[2][kLeafFloats];
-  __shared__ float s_mat[kMaxMats * kMatStride];
+  __shared__ float s_mat[kStagedMats * kMatStride];
   __shared__ float s_sky[8];
 
   const int tid = threadIdx.x;
@@ -110,7 +111,10 @@ __global__ void __launch_bounds__(kMaxLanes)
     store_ray(out, col, p.r_pad, r);
     return;
   }
-  for (int i = tid; i < kMaxMats * kMatStride; i += blockDim.x) s_mat[i] = mats[i];
+  const bool staged = p.num_mats <= kStagedMats;  // else read in place
+  if (staged) {
+    for (int i = tid; i < kStagedMats * kMatStride; i += blockDim.x) s_mat[i] = mats[i];
+  }
   if (tid < 8) s_sky[tid] = sky[tid];
 
   TriBest best = {kBig, 0, false};
@@ -140,7 +144,7 @@ __global__ void __launch_bounds__(kMaxLanes)
 
   if (live) {
     // the winner's row is read from the table in global memory (and L2)
-    const SceneTables sc = {tris, sphs, s_mat, s_sky, 0, p.n_sph, p.num_mats};
+    const SceneTables sc = {tris, sphs, staged ? s_mat : mats, s_sky, 0, p.n_sph, p.num_mats};
     const int32_t id = ids[col];
     if (kRecord) {
       const WinnerWriter rec = {sel_slot(sel, p, p.bounce, id)};
@@ -170,7 +174,7 @@ extern "C" int ptre_wave_bounce(const ptre::WaveParams* params,
                                 const float* urand, float* out, int32_t* sel,
                                 int lanes, void* stream) {
   const ptre::WaveParams p = *params;
-  if (p.n_leaf < 0 || p.n_sph < 0 || p.num_mats > ptre::kMaxMats || lanes < 32 ||
+  if (p.n_leaf < 0 || p.n_sph < 0 || p.num_mats > ptre::kMaxMaterials || lanes < 32 ||
       lanes > ptre::kMaxLanes || lanes % 32 != 0 || p.r_pad % lanes != 0 ||
       (p.external_rng && urand == nullptr) ||
       (sel != nullptr && (p.n_sel < 1 || p.sph_offset < 0 || p.bounce < 0)) ||

@@ -168,15 +168,16 @@ def check_supported(packet, force: Optional[str] = None) -> None:
         if not mk.dense_supported(packet):
             raise RendererError(
                 f"force='dense' needs a dense-class packet (<= {mk.DENSE_MAX_TRI} "
-                f"triangles, <= {mk.DENSE_MAX_SPH} spheres, <= {mk.MAX_MATS} materials)")
+                f"triangles, <= {mk.DENSE_MAX_SPH} spheres, <= {mk.MAX_MATERIALS} "
+                "materials)")
         return
     if wf.supports(packet) or (force is None and mk.dense_supported(packet)):
         return
     raise NotImplementedError(
         "the fused gradient kernels take dense-class packets and packets the wavefront "
-        f"supports (<= {mk.MAX_MATS} materials, the kernels' material table; <= "
-        f"{wf.MAX_MASK_LEAVES} leaves of {wf.LEAF} triangle rows, the mask kernel's "
-        "shared bit mask; any number of spheres); this packet has "
+        f"supports (<= {wf.MAX_MASK_LEAVES} leaves of {wf.LEAF} triangle rows, the mask "
+        f"kernel's shared bit mask; <= {mk.MAX_MATERIALS} materials, which float32 ids "
+        "hold exactly; any number of spheres); this packet has "
         f"{packet.tri_valid.shape[0]} triangle rows, {packet.sph_center.shape[0]} sphere "
         f"rows, {packet.num_materials} materials. It takes the staged trace: "
         "integrator.trace routes it there (grad_sweep 'auto' or 'staged').")

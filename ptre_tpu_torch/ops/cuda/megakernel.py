@@ -4,9 +4,13 @@ the dense class and the culled megakernel of triangle-scale scenes.
 Port of `ptre_tpu/ops/pallas/megakernel.py`:
 
   * `pack_tri32` / `pack_sph16` / `pack_mats` (`megakernel.py:169-223`) —
-    the flat tables the kernel stages into shared memory;
+    the flat tables the kernels read; a hit's material row is read by
+    index, in place (the wave kernel stages a table of at most
+    `STAGED_MATS` rows in shared memory); the reference's unrolled 8-row
+    SMEM select is not carried over;
   * `dense_supported` (`megakernel.py:1110`) — the ≤64-triangle,
-    ≤64-sphere, ≤8-material class the serial-sweep kernel takes;
+    ≤64-sphere class the serial-sweep kernel takes, with any number of
+    materials up to `MAX_MATERIALS`;
   * `trace_block` + `scatter_shade` — the plain PyTorch version of
     `_trace_block` (`megakernel.py:811`) and `_scatter_shade`
     (`megakernel.py:611`), vectorised over rays and looping over
@@ -50,7 +54,13 @@ from ptre_tpu_torch.ops.cuda import build
 _BIG = float(np.float32(3e38))
 _TAU = float(np.float32(2.0 * 3.14159265358979))
 _INV_PI = float(np.float32(1.0 / 3.14159265358979))
-MAX_MATS = 8
+#: material rows the wave kernel stages in shared memory (`csrc/trace.cuh`
+#: kStagedMats; a larger table it reads in place, as the dense and culled
+#: kernels read any table), and the rows `pack_mats` pads a smaller one to
+STAGED_MATS = 8
+#: materials a packet may have on the fused routes: float32 ids hold every
+#: row index below 2**24 exactly (`trace.cuh` kMaxMaterials)
+MAX_MATERIALS = 1 << 24
 DENSE_MAX_TRI = 64  # shared memory: 64 * 32 * 4 B = 8 KiB
 DENSE_MAX_SPH = 64
 
@@ -66,7 +76,7 @@ def dense_supported(packet) -> bool:
     return (
         max(int(packet.num_triangles), 1) <= DENSE_MAX_TRI
         and max(int(packet.num_spheres), 1) <= DENSE_MAX_SPH
-        and packet.num_materials <= MAX_MATS
+        and packet.num_materials <= MAX_MATERIALS
     )
 
 
@@ -87,11 +97,10 @@ def pack_sph16(center, radius, valid, mat):
 
 
 def pack_mats(kind, albedo, param):
-    """(8, 8): kind (0), albedo (1-3), param (4); rows zero-padded to 8."""
+    """(max(M, STAGED_MATS), 8): kind (0), albedo (1-3), param (4); zero
+    columns 5-7, and zero rows past M."""
     M = kind.shape[0]
-    if M > MAX_MATS:
-        raise ValueError(f"the dense kernel takes <= {MAX_MATS} materials, got {M}")
-    out = torch.zeros((MAX_MATS, 8), dtype=torch.float32, device=kind.device)
+    out = torch.zeros((max(M, STAGED_MATS), 8), dtype=torch.float32, device=kind.device)
     out[:M, 0] = kind.float()
     out[:M, 1:4] = albedo
     out[:M, 4] = param
@@ -165,7 +174,7 @@ class PackedScene:
 
     tris: torch.Tensor  # (n_tri, 32)
     sphs: torch.Tensor  # (n_sph, 16)
-    mats: torch.Tensor  # (8, 8)
+    mats: torch.Tensor  # (max(num_mats, STAGED_MATS), 8)
     sky: torch.Tensor  # (8,): bottom rgb, top rgb, 0, 0
     n_tri: int
     n_sph: int
@@ -225,22 +234,29 @@ def sky_color(dy, sky):
     return tuple((1.0 - a) * sky[c] + a * sky[3 + c] for c in range(3))
 
 
+def material_rows(mat_id, mats, num_mats: int):
+    """The `pack_mats` row of each float id, zeros where no row matches:
+    (*mat_id.shape, 8). The reference scans every row m < num_mats for
+    |id - m| < 0.5, last match wins (`megakernel.py:625-631`); at most the
+    nearest integer, ``round(id)`` (half to even: a tie k + 0.5 is 0.5 from
+    both neighbours and matches neither), lies that close, and ``id - m`` is
+    exact there, so one gather gives the scan's row for every float id,
+    NaN, negative ids and ids past the table included (`csrc/trace.cuh`
+    material_row)."""
+    m = torch.round(mat_id)
+    hit = (torch.abs(mat_id - m) < 0.5) & (m >= 0.0) & (m < float(num_mats))
+    rows = mats[torch.where(hit, m, 0.0).to(torch.int64)]
+    return torch.where(hit[..., None], rows, 0.0)
+
+
 def scatter_shade(nx, ny, nz, dx, dy, dz, mat_id, u1, u2, mats, num_mats,
                   pdf_eps):
     """Material select + ONB cosine scatter + Oren–Nayar / emissive weight
     for hit rays (`megakernel.py:611-714`; the sky-on-miss select is the
-    caller's). ``mats`` is the (8, 8) table as nested Python floats.
+    caller's). ``mats`` is the `pack_mats` table, on the rays' device.
     Returns (f_r, f_g, f_b, wix, wiy, wiz, is_emissive)."""
     zero = torch.zeros_like(nx)
-    m_kind, m_ar, m_ag, m_ab, m_param = zero, zero, zero, zero, zero
-    for m in range(num_mats):
-        is_m = torch.abs(mat_id - float(m)) < 0.5
-        row = mats[m]
-        m_kind = torch.where(is_m, row[0], m_kind)
-        m_ar = torch.where(is_m, row[1], m_ar)
-        m_ag = torch.where(is_m, row[2], m_ag)
-        m_ab = torch.where(is_m, row[3], m_ab)
-        m_param = torch.where(is_m, row[4], m_param)
+    m_kind, m_ar, m_ag, m_ab, m_param = material_rows(mat_id, mats, num_mats).unbind(-1)[:5]
     is_emissive = m_kind > 0.5
 
     # cosine-weighted sample in the ONB (onb.h + random.cu:96-107)
@@ -337,7 +353,6 @@ def trace_block(o, d, scene: PackedScene, consts: TraceConsts, get_uniforms,
     sph_rows = sp[:, 0:6].tolist()
     # inverse radius guarded against r = 0 (`megakernel.py:925`)
     inv_r = (1.0 / torch.where(sp[:, 3] == 0.0, 1.0, sp[:, 3])).tolist()
-    mats = scene.mats.float().tolist()
     sky = scene.sky.float().tolist()
 
     cr = torch.ones_like(ox)
@@ -445,7 +460,7 @@ def trace_block(o, d, scene: PackedScene, consts: TraceConsts, get_uniforms,
 
         u1, u2 = get_uniforms(bounce)
         f_r, f_g, f_b, wix, wiy, wiz, is_emissive = scatter_shade(
-            nx, ny, nz, dx, dy, dz, mat_id, u1, u2, mats, scene.num_mats,
+            nx, ny, nz, dx, dy, dz, mat_id, u1, u2, scene.mats, scene.num_mats,
             k.pdf_eps)
         sky_r, sky_g, sky_b = sky_color(dy, sky)
         cr = cr * torch.where(active, torch.where(hit, f_r, sky_r), 1.0 + zero)
@@ -573,19 +588,26 @@ def check_stats(stats, lens, lens_shape):
         [] if lens is None else [("lens", lens, lens_shape, torch.int32)])
 
 
+def mats_entry(num_mats: int, mats):
+    """The `check_tensors` entry of a `pack_mats` table of ``num_mats``
+    materials; raises RendererError past MAX_MATERIALS."""
+    if num_mats > MAX_MATERIALS:
+        raise RendererError(f"the kernels take <= {MAX_MATERIALS} materials (float32 "
+                            f"ids), got {num_mats}")
+    return ("mats", mats, (max(num_mats, STAGED_MATS), 8), torch.float32)
+
+
 def check_scene(scene: PackedScene, ref: str, device):
     """Raise unless the packed scene lies on ``device`` (that of ``ref``) and
     is dense-class."""
     check_tensors(ref, device, [("tris", scene.tris, (scene.n_tri, 32), torch.float32),
                            ("sphs", scene.sphs, (scene.n_sph, 16), torch.float32),
-                           ("mats", scene.mats, (MAX_MATS, 8), torch.float32),
+                           mats_entry(scene.num_mats, scene.mats),
                            ("sky", scene.sky, (8,), torch.float32)])
-    if not (1 <= scene.n_tri <= DENSE_MAX_TRI and 1 <= scene.n_sph <= DENSE_MAX_SPH
-            and scene.num_mats <= MAX_MATS):
+    if not (1 <= scene.n_tri <= DENSE_MAX_TRI and 1 <= scene.n_sph <= DENSE_MAX_SPH):
         raise RendererError(
             f"the dense kernels take <= {DENSE_MAX_TRI} triangles, <= "
-            f"{DENSE_MAX_SPH} spheres, <= {MAX_MATS} materials; got "
-            f"{scene.n_tri}, {scene.n_sph}, {scene.num_mats}")
+            f"{DENSE_MAX_SPH} spheres; got {scene.n_tri}, {scene.n_sph}")
 
 
 def trace_fused_sel(o, d, scene: PackedScene, consts: TraceConsts,
@@ -864,7 +886,7 @@ def finish_bounce_reference(state, ids, best: TriBest, scene, k: TraceConsts, bo
 
     u1, u2 = bounce_uniforms(ids, bounce, seed, sample, urand)
     f_r, f_g, f_b, wix, wiy, wiz, is_emissive = scatter_shade(
-        nx, ny, nz, dx, dy, dz, mat_id, u1, u2, scene.mats.tolist(), scene.num_mats,
+        nx, ny, nz, dx, dy, dz, mat_id, u1, u2, scene.mats, scene.num_mats,
         k.pdf_eps)
     sky = sky_color(dy, scene.sky.tolist())
     f = [torch.where(hit, fc, sc) for fc, sc in zip((f_r, f_g, f_b), sky)]
@@ -1001,14 +1023,12 @@ def trace_culled(o, d, scene, consts: TraceConsts, max_depth: int, seed: int = 0
                 ("cull_boxes", scene.cull_boxes, (n_super * SUPER, 8), torch.float32),
                 ("super_boxes", scene.super_boxes, (n_super, 8), torch.float32),
                 ("sphs", scene.sphs, (scene.n_sph, 16), torch.float32),
-                ("mats", scene.mats, (MAX_MATS, 8), torch.float32),
+                mats_entry(scene.num_mats, scene.mats),
                 ("sky", scene.sky, (8,), torch.float32)]
     if urand is not None:
         expected.append(("urand", urand, (2 + 2 * max_depth, R), torch.float32))
     if stats is not None:
         expected.append(("stats", stats, (len(CULLED_STATS),), torch.int64))
-    if scene.num_mats > MAX_MATS:
-        raise RendererError(f"the culled megakernel takes <= {MAX_MATS} materials")
     check_tensors("o", o.device, expected)
     if not (R >= 1 and max_depth >= 1 and 32 <= lanes <= 256 and lanes % 32 == 0):
         raise RendererError(f"the culled megakernel takes >= 1 ray, max_depth >= 1 and 32 "

@@ -98,10 +98,12 @@ bounce_launches = 0
 
 def supports(packet) -> bool:
     """Whether the wavefront path takes the packet (`wavefront.py:74-79`),
-    by the port's own kernels' limits: at most `mk.MAX_MATS` materials (the
-    (8, 8) table every kernel holds) and `MAX_MASK_LEAVES` leaves. The
-    reference's VMEM caps on triangle and sphere rows are not carried over."""
-    return (packet.num_materials <= mk.MAX_MATS
+    by the port's own kernels' limits: at most `MAX_MASK_LEAVES` leaves and
+    `mk.MAX_MATERIALS` materials (float32 ids). The reference's VMEM caps on
+    triangle and sphere rows and its 8-row SMEM material select
+    (`megakernel.py:59`) are not carried over: the kernels read a material
+    table of any size."""
+    return (packet.num_materials <= mk.MAX_MATERIALS
             and -(-packet.tri_valid.shape[0] // LEAF) <= MAX_MASK_LEAVES)
 
 
@@ -219,7 +221,7 @@ class WaveScene:
     #                     intersection rows (`pack_rows`), which the sweeps read
     boxes: torch.Tensor  # (n_leaf, 8) leaf boxes, pack_tile_boxes
     sphs: torch.Tensor  # (S, 16) pack_sph16
-    mats: torch.Tensor  # (8, 8)
+    mats: torch.Tensor  # (max(num_mats, mk.STAGED_MATS), 8) pack_mats
     sky: torch.Tensor  # (8,): bottom rgb, top rgb, 0, 0
     scene_lo: torch.Tensor  # (3,) bounds of the valid triangles: the
     scene_hi: torch.Tensor  # (3,) coherence key's Morton cells
@@ -267,10 +269,10 @@ def prepare_scene(packet, screen_cam=None, leaf: int = LEAF,
     leaves of ``leaf`` rows (the last one padded with invalid rows), as
     32-float and compact rows, their boxes (also grown for the per-ray culls
     and padded to whole supertiles with empty boxes, and the supertiles'
-    union boxes), the spheres, materials (None past mk.MAX_MATS: the staged
-    route's packets) and sky, the scene bounds, and with ``screen_cam`` the
-    leaves' screen boxes for bounce-0 binning; the union boxes of the
-    leaves' own boxes by supertile for the mask. ``morton=False`` keeps the
+    union boxes), the spheres, materials (`mk.pack_mats`) and sky, the
+    scene bounds, and with ``screen_cam`` the leaves' screen boxes for
+    bounce-0 binning; the union boxes of the leaves' own boxes by supertile
+    for the mask. ``morton=False`` keeps the
     packet's own row order (``perm_tri`` None): the unculled megakernel of
     `megakernel.py:1255-1267`. Unlike the reference, no leaf is added for
     shortlist padding, the leaf count is not rounded up to 128, and the
@@ -311,8 +313,7 @@ def prepare_scene(packet, screen_cam=None, leaf: int = LEAF,
     scale = torch.maximum(scene_lo.abs().amax(), scene_hi.abs().amax())
     cull_boxes, super_boxes = cull_tables(boxes, scale)
     mask_supers = mk.pack_super_boxes(boxes).contiguous()
-    mats = (mk.pack_mats(packet.mat_kind, packet.mat_albedo, packet.mat_param)
-            if packet.num_materials <= mk.MAX_MATS else None)
+    mats = mk.pack_mats(packet.mat_kind, packet.mat_albedo, packet.mat_param)
     return WaveScene(
         tris=tris.contiguous(), rows=rows, boxes=boxes.contiguous(), sphs=sphs.contiguous(),
         mats=mats, sky=sky.to(torch.float32).contiguous(), scene_lo=scene_lo,
@@ -469,15 +470,13 @@ def _check_bounce_inputs(state, ids, short, cnt, scene: WaveScene, urand, lanes,
                 ("cull_boxes", scene.cull_boxes, (scene.cull_boxes.shape[0], 8),
                  torch.float32),
                 ("sphs", scene.sphs, (scene.n_sph, 16), torch.float32),
-                ("mats", scene.mats, (mk.MAX_MATS, 8), torch.float32),
+                mk.mats_entry(scene.num_mats, scene.mats),
                 ("sky", scene.sky, (8,), torch.float32)]
     if urand is not None:
         expected.append(("urand", urand, (urand.shape[0], urand.shape[1]), torch.float32))
     if sel is not None:
         expected.append(("sel", sel, (sel.shape[0], sel.shape[1] if sel.dim() == 2 else -1),
                          torch.int32))
-    if scene.num_mats > mk.MAX_MATS:
-        raise RendererError(f"the bounce kernel takes <= {mk.MAX_MATS} materials")
     mk.check_tensors("state", dev, expected)
     if sel is not None and not (0 <= bounce < sel.shape[0] and sel.shape[1] >= 1):
         raise RendererError(f"sel has {sel.shape[0]} bounce rows, bounce is {bounce}")

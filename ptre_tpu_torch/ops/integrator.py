@@ -15,11 +15,10 @@ differentiable trace (`ptre_tpu/ops/integrator.py`).
     keeps it for A/B checks of the fused route (`integrator.py:69-73`);
   * "staged": `trace_staged`, the per-bounce sweep plus autograd
     (`integrator.py:110-168`), always available: every packet past the
-    fused kernels' limits (more than 8 materials, or more leaves than the
-    mask kernel takes, `wavefront.supports`), every packet under
-    ``grad_sweep="staged"``, and
-    every packet past the dense class under ``grad_sweep="replay"``, and
-    every trace deeper than the kernels' ``megakernel.MAX_DEPTH`` (8)
+    fused kernels' limits (more leaves than the mask kernel takes, or more
+    materials than float32 ids hold, `wavefront.supports`), every packet
+    under ``grad_sweep="staged"``, every packet past the dense class under
+    ``grad_sweep="replay"``, and every trace deeper than the kernels' ``megakernel.MAX_DEPTH`` (8)
     bounces under any ``grad_sweep``.
 
 The staged route's sweep is the sweep kernel (`ops/cuda/sweep_kernel.py`)

@@ -9,10 +9,11 @@ packet and config (`route`):
     sample is `sample_image` — Philox jitter, `camera.get_rays`, the sorted
     wavefront (mask and bounce kernels), clamp and scrub — then the running
     average, with the packing done once per step;
-  * every other packet (more than 8 materials, the kernels' material
-    table, or past the mask kernel's `wavefront.MAX_MASK_LEAVES` leaves),
-    and every packet under ``intersect_backend`` "pallas" or "xla": the
-    staged route,
+  * every other packet (past the mask kernel's `wavefront.MAX_MASK_LEAVES`
+    leaves, or past `megakernel.MAX_MATERIALS` materials, which float32 ids
+    hold exactly; the reference's 8-material SMEM select is not carried
+    over), and every packet under ``intersect_backend`` "pallas" or "xla":
+    the staged route,
     `sample_image_staged` — `ops/integrator.trace_staged`, whose sweep is one
     launch of the sweep kernel a bounce (`ops/cuda/sweep_kernel.py`)
     (`pathtracer.py:101-121`: the reference falls back to it "rather than

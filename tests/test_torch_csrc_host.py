@@ -21,6 +21,7 @@ integers and must be equal, which the Philox-mode case checks end to end.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import os
 import shutil
 import subprocess
@@ -805,3 +806,163 @@ def test_host_soft_gate_box_at_14_sigma_plus_minus_one_ulp(raster_lib, sigma, si
     fy = py - np.sign(ay) * np.where(np.abs(ay) > np.abs(ax), far, 0.0).astype(np.float32)
     assert not gate(fx, fy).any()
     assert bool((cov(fx, fy) <= sr.COV_MIN).all())
+
+
+# ---- the material select by index (trace.cuh material_row) in every body -----------
+
+#: table sizes past the reference's 8-row SMEM select
+MAT_COUNTS = (9, 40, 300)
+
+
+def _adversarial_ids(M):
+    """Float material ids on and between the rows of an M-row table: every
+    kind the reference's scan (|id - m| < 0.5, last match wins) decides, ties
+    at k + 0.5 (no row), just inside them, -0.4 (row 0), -0.0, -0.6, M - 0.5,
+    M, 2**24 - 1 and NaN (no row)."""
+    inside = float(np.nextafter(np.float32(0.5), np.float32(0.0)))
+    return torch.tensor([0.0, 1.0, M - 1.0, 0.5, 1.5, M - 1.5, 1.0 + inside, 2.0 - inside,
+                         -0.4, -0.0, -0.6, M - 0.5, float(M), float(M) - 1.0 + inside,
+                         2.0 ** 24 - 1.0, float("nan"), M // 2 + 0.5, float(M // 2)],
+                        dtype=torch.float32)
+
+
+def _mixed_table(M, rs):
+    """(max(M, 8), 8) pack_mats rows: M distinct materials, a fifth of them
+    emissive, Oren-Nayar roughness on and off clip's bounds."""
+    kind = torch.from_numpy((rs.random(M) < 0.2).astype(np.int32))
+    albedo = torch.from_numpy(rs.uniform(0.05, 1.0, (M, 3)).astype(np.float32))
+    param = torch.from_numpy(rs.choice(np.array([0.0, 0.3, 0.8, 1.0, 1.4, 3.0], np.float32), M))
+    return mk.pack_mats(kind, albedo, param)
+
+
+def _emissive_table(M):
+    """Every row emissive with strength 1 and an albedo that names it, so a
+    path ends at its first hit with that row's albedo as its colour; no row
+    (the zero row) gives 0."""
+    m = torch.arange(M, dtype=torch.float32)
+    albedo = torch.stack([(m + 1.0) / M, 1.0 - m / (2.0 * M), torch.full_like(m, 0.25)], dim=1)
+    return mk.pack_mats(torch.ones(M, dtype=torch.int32), albedo, torch.ones(M))
+
+
+def _set_ids(tris, sphs, n_tri, ids):
+    """Material ids ``ids`` (float) written cyclically into the valid triangle
+    rows (column 19) and the spheres (column 5) of packed tables, in place."""
+    j = 0
+    for i in range(n_tri):
+        if float(tris[i, 18]) > 0.5:
+            tris[i, 19] = ids[j % ids.numel()]
+            j += 1
+    for s in range(sphs.shape[0]):
+        sphs[s, 5] = ids[(j + s) % ids.numel()]
+
+
+@pytest.mark.parametrize("M", MAT_COUNTS)
+@pytest.mark.parametrize("adversarial", [False, True])
+def test_host_render_body_takes_any_material_table(host_lib, M, adversarial):
+    """The render kernel's body over an M-row table. Distinct Oren-Nayar and
+    emissive rows, ids over the table: >= 99 % of the values within 1e-6 of
+    the plain version, all within 1e-4 (the wave body's bound: four bounces
+    of libm's cos/sin against PyTorch's). Adversarial ids on an
+    all-emissive table: a path ends at its first hit with its row's albedo
+    (rows past the table give 0), the plain version's (whose select equals
+    the reference's scan, test_torch_materials_table.py) on >= 99 % of the
+    pixels and within 2 ulp of values <= 1 on all: a ray that misses takes
+    the sky of a primary ray that PyTorch's sqrt may round an ulp off libm's
+    (test_host_build_empty_scene_is_pure_sky)."""
+    torch.set_num_threads(1)
+    rs = np.random.default_rng(M)
+    cfg = RenderConfig(width=W, height=H, max_depth=4)
+    base = mk.pack_scene(demo.reference_demo_scene(8, 4).build_packet(device="cpu"))
+    if adversarial:
+        ids, mats = _adversarial_ids(M), _emissive_table(M)
+    else:
+        ids, mats = torch.from_numpy(rs.permutation(M).astype(np.float32)), _mixed_table(M, rs)
+    rows = rk.camera_rows(cam_ops.Camera.create(width=W, height=H))
+    prev = torch.zeros((H, W, 3))
+    for shift in range(0, ids.numel(), 7):  # every id on a visible face once
+        tris, sphs = base.tris.clone(), base.sphs.clone()
+        _set_ids(tris, sphs, base.n_tri, torch.roll(ids, -shift))
+        scene = dataclasses.replace(base, tris=tris, sphs=sphs, mats=mats, num_mats=M)
+        urand = torch.from_numpy(rs.random((2 + 2 * cfg.max_depth, H, W), dtype=np.float32))
+        got = _host_sample(host_lib, prev, scene, rows, 1, cfg, 0, urand)
+        want = rk.sample_accum_reference(prev, scene, rows, 1, cfg, 0, urand)
+        err = (got - want).abs()
+        if adversarial:
+            assert float((err == 0).all(dim=-1).float().mean()) >= 0.99
+            assert float(err.max()) <= 2.4e-7
+        else:
+            assert float((err <= 1e-6).float().mean()) >= 0.99
+            assert float(err.max()) <= 1e-4
+        assert float(want.max()) > 0
+
+
+@pytest.mark.parametrize("M", MAT_COUNTS)
+@pytest.mark.parametrize("adversarial", [False, True])
+def test_host_wave_and_culled_bodies_take_any_material_table(wave_lib, M, adversarial):
+    """The bounce kernel's and the culled megakernel's bodies over an M-row
+    table on config 4's mesh. Distinct rows, ids over the table: the bounce
+    within 1e-4 of the plain version (>= 99 % within 1e-6), the megakernel's
+    selections equal and colours within 2e-4, the bounds of the cases above.
+    Adversarial ids on an all-emissive table: the next state's colour and
+    live rows, and the megakernel's colours and first selections, bit for
+    bit the plain versions'."""
+    torch.set_num_threads(1)
+    rs = np.random.default_rng(M + 1)
+    lanes, B = 64, 3
+    cfg = RenderConfig(width=W, height=H, max_depth=B)
+    k = mk.TraceConsts.from_config(cfg)
+    scene = wf.prepare_scene(demo.config4_mixed_scene(12, 6).build_packet(device="cpu"))
+    n_valid = int((scene.tris[:, 18] > 0.5).sum())
+    if adversarial:
+        ids, mats = _adversarial_ids(M), _emissive_table(M)
+    else:
+        ids, mats = torch.from_numpy((np.arange(n_valid) % M).astype(np.float32)), \
+            _mixed_table(M, rs)
+    tris, sphs = scene.tris.clone(), scene.sphs.clone()
+    _set_ids(tris, sphs, tris.shape[0], ids)
+    scene = dataclasses.replace(scene, tris=tris, sphs=sphs, mats=mats, num_mats=M)
+    px, py = pt.pixel_grid(H, W)
+    jit = torch.from_numpy(rs.uniform(-0.5, 0.5, (W * H, 2)).astype(np.float32))
+    o, d = (x.contiguous() for x in cam_ops.get_rays(cam_ops.Camera.create(width=W, height=H),
+                                                      px, py, jit))
+    R = W * H
+    urand = torch.from_numpy(rs.random((2 + 2 * B, R), dtype=np.float32))
+
+    # one bounce of every ray over every leaf
+    state, ids_ = wf.initial_state(o, d, lanes)
+    short, cnt = wf.all_leaves(state.shape[1] // lanes, scene.n_leaf)
+    p = mk.wave_params(k, 0, 0, scene, n_rays=R, r_pad=state.shape[1],
+                       list_stride=short.shape[1], bounce=0, external_rng=1, n_sel=0)
+    got = torch.empty_like(state)
+    wave_lib.ptre_wave_bounce_host(
+        ctypes.addressof(p), state.data_ptr(), ids_.data_ptr(), short.data_ptr(),
+        cnt.data_ptr(), scene.tris.data_ptr(), scene.rows.data_ptr(),
+        scene.cull_boxes.data_ptr(), scene.sphs.data_ptr(), scene.mats.data_ptr(),
+        scene.sky.data_ptr(), urand.data_ptr(), got.data_ptr(), None, lanes)
+    want = wf.wave_bounce_reference(state, ids_, short, cnt, scene, k, 0, 0, 0, urand, lanes)
+    if adversarial:
+        assert torch.equal(got[6:10], want[6:10])
+    else:
+        err = (got - want).abs()
+        assert float((err <= 1e-6).float().mean()) >= 0.99
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=1e-4)
+
+    # the whole path through the culled megakernel's warp walk
+    mp = mk.MegaParams(w=mk.wave_params(k, 0, 0, scene, n_rays=R, n_sel=R, external_rng=1),
+                       max_depth=B, n_super=scene.super_boxes.shape[0], cull=1)
+    color = torch.empty((R, 3))
+    sel = torch.full((B, R), -7, dtype=torch.int32)
+    stats = np.zeros(len(mk.CULLED_STATS), np.int64)
+    wave_lib.ptre_trace_culled_host(
+        ctypes.addressof(mp), o.data_ptr(), d.data_ptr(), urand.data_ptr(),
+        scene.tris.data_ptr(), scene.rows.data_ptr(), scene.cull_boxes.data_ptr(),
+        scene.super_boxes.data_ptr(), scene.sphs.data_ptr(), scene.mats.data_ptr(),
+        scene.sky.data_ptr(), color.data_ptr(), sel.data_ptr(), stats.ctypes.data)
+    want_c, want_s = mk.trace_culled_reference(o, d, scene, k, B, 0, 0, urand, record=True,
+                                               lanes=lanes)
+    if adversarial:
+        assert torch.equal(color, want_c) and torch.equal(sel[0], want_s[0])
+    else:
+        assert torch.equal(sel, want_s)
+        np.testing.assert_allclose(color.numpy(), want_c.numpy(), rtol=0, atol=2e-4)
+    assert float(want_c.max()) > 0 and int((want_s[0] >= 0).sum()) > 0

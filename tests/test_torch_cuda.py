@@ -893,8 +893,9 @@ def test_hard_raster_refuses_autograd_on_cuda(cuda):
 
 
 def _nine_material_packet():
-    """The demo scene with 7 added materials (9 in all): past the fused
-    kernels' 8-material cap, so every route takes it staged."""
+    """The demo scene with 7 added materials (9 in all): the render kernel
+    and the fused route take it by default; the tests below that feed the
+    sweep force the staged route on it."""
     from ptre_tpu_torch.models.scene import Material, MaterialKind
 
     scn = demo.reference_demo_scene(8, 4)
@@ -965,7 +966,9 @@ def test_staged_render_and_training_go_through_the_sweep_kernel(cuda):
     pkt_cpu = _nine_material_packet()
     pkt = pkt_cpu.to(cuda)
     W, H = 64, 32
-    cfg = RenderConfig(width=W, height=H, max_depth=4)
+    # the packet's default route is the render kernel: the staged one is forced
+    cfg = RenderConfig(width=W, height=H, max_depth=4, intersect_backend="pallas",
+                       grad_sweep="staged")
     cam = cam_ops.Camera.create(width=W, height=H)
     assert pt.route(pkt, cfg) == "staged"
     before = sk.launches
@@ -1439,3 +1442,155 @@ def _shared_card_rank(argv):
 
 if __name__ == "__main__" and sys.argv[1:2] == ["worker"]:
     _shared_card_rank(sys.argv)
+
+
+# ---- material tables past the reference's 8 rows (trace.cuh material_row) --------
+# Scene A: the demo or config 4's mesh with 8 materials; scene B: the same
+# geometry with 16 decoy rows (emissive, bright, odd albedo) before A's 8
+# and every model on its id + 16. Up to 8 rows the wave kernel stages the
+# table in shared memory, past 8 it reads it in place, as the render, record
+# and culled kernels read every table: B's kernels must give
+# A's colours and selections bit for bit (the same arithmetic on the same
+# rows), and hold to their plain versions as on A.
+
+DECOY_ROWS = 16
+
+
+def _decoy_pair(kind, dev):
+    from ptre_tpu_torch.models.scene import Material, MaterialKind
+
+    scn = (demo.reference_demo_scene(16, 8) if kind == "demo"
+           else demo.config4_mixed_scene(64, 32))
+    for em, albedo, param in ((False, (0.8, 0.35, 0.2), 0.6), (True, (1.0, 0.85, 0.6), 3.0),
+                              (False, (0.2, 0.6, 0.9), 0.2), (False, (0.9, 0.9, 0.3), 1.0),
+                              (True, (0.5, 0.7, 1.0), 6.0), (False, (0.4, 0.45, 0.5), 0.0)):
+        scn.add_material(Material(MaterialKind.EMISSIVE if em else MaterialKind.OREN_NAYAR,
+                                  albedo, param))
+    ids = ({"ground": 2, "sph": 4, "wall": 3} if kind == "demo"
+           else {"b": 5, "c": 6, "s": 4, "g": 7})
+    for model, mid in ids.items():
+        scn.set_model_material(model, mid)
+    a = scn.build_packet(device=dev)
+    i = torch.arange(DECOY_ROWS, dtype=torch.float32, device=dev)
+    b = dataclasses.replace(
+        a, mat_kind=torch.cat([(i.long() % 2 == 0).to(a.mat_kind.dtype), a.mat_kind]),
+        mat_albedo=torch.cat([torch.stack([3.0 + i, torch.full_like(i, 0.01), 7.0 - 0.25 * i],
+                                          dim=1), a.mat_albedo]),
+        mat_param=torch.cat([25.0 + i, a.mat_param]),
+        tri_mat=a.tri_mat + DECOY_ROWS, sph_mat=a.sph_mat + DECOY_ROWS,
+        num_materials=a.num_materials + DECOY_ROWS)
+    assert a.num_materials == mk.STAGED_MATS and pt.route(b) == pt.route(a)
+    return a, b
+
+
+@pytest.mark.parametrize("external", [True, False])
+def test_dense_kernels_on_a_decoy_table_equal_scene_a(cuda, external):
+    W, H, B = 256, 128, 5
+    a, b = _decoy_pair("demo", cuda)
+    cfg = RenderConfig(width=W, height=H, max_depth=B)
+    cam = cam_ops.Camera.create(width=W, height=H)
+    rows = rk.camera_rows(cam)
+    prev = torch.from_numpy(np.random.default_rng(3).random((H, W, 3), np.float32)).to(cuda)
+    urand = (torch.rand((2 + 2 * B, H, W), device=cuda,
+                        generator=torch.Generator(cuda).manual_seed(1)) if external else None)
+    sa, sb = mk.pack_scene(a), mk.pack_scene(b)
+    assert sb.mats.shape == (24, 8)
+    before = rk.launches
+    img_a = rk.sample_accum(prev.clone(), sa, rows, 3, cfg, 77, urand)
+    img_b = rk.sample_accum(prev.clone(), sb, rows, 3, cfg, 77, urand)
+    want = rk.sample_accum_reference(prev, sb, rows, 3, cfg, 77, urand)
+    torch.cuda.synchronize()
+    assert rk.launches == before + 2 and torch.equal(img_a, img_b)
+    _assert_close(img_b, want)
+    _, _, _, _, o, d, _, k = _grad_setup(cuda, W, H, B)
+    ur = urand.reshape(2 + 2 * B, -1) if external else None
+    before = mk.record_launches
+    col_a, sel_a = mk.trace_fused_sel(o, d, sa, k, B, 9, 1, ur)
+    col_b, sel_b = mk.trace_fused_sel(o, d, sb, k, B, 9, 1, ur)
+    want_c, want_s = mk.trace_record_reference(o, d, sb, k, B, 9, 1, ur)
+    torch.cuda.synchronize()
+    assert mk.record_launches == before + 2
+    assert torch.equal(col_a, col_b) and torch.equal(sel_a, sel_b)
+    R = o.shape[0]
+    diff = (col_b - want_c).abs()
+    assert float((diff <= 1e-4 * want_c.abs().clamp_min(1.0)).float().mean()) >= 0.999
+    assert int((sel_b != want_s).any(dim=0).sum()) <= math.ceil(1e-4 * R)
+    assert float(col_b.max()) > 1.0  # an emitter of A (3 or 6) lit some rays
+
+
+@pytest.mark.parametrize("external", [True, False])
+def test_wave_and_culled_kernels_on_a_decoy_table_equal_scene_a(cuda, external):
+    a, b = _decoy_pair("config4", cuda)
+    cfg, _, cam, _, k, o, d = _tri_rays(cuda)
+    R, B = o.shape[0], cfg.max_depth
+    urand = (torch.rand((2 + 2 * B, R), device=cuda,
+                        generator=torch.Generator(cuda).manual_seed(CULLED_SEED))
+             if external else None)
+    sa, sb = (wf.prepare_scene(p, screen_cam=cam) for p in (a, b))
+    assert sb.mats.shape == (24, 8)
+    before = wf.bounce_launches, mk.culled_launches
+    out = {}
+    for name, scene in (("a", sa), ("b", sb)):
+        out[name] = (wf.trace(o, d, scene, k, B, 9, 1, urand, tile_hint=(cfg.height, cfg.width),
+                              record=True)[:2]
+                     + mk.trace_culled(o, d, scene, k, B, 9, 1, urand, record=True))
+    torch.cuda.synchronize()
+    assert wf.bounce_launches > before[0] and mk.culled_launches == before[1] + 2
+    for x, y in zip(out["a"], out["b"]):
+        assert torch.equal(x, y)
+    wcol, wsel, color, sel = out["b"]
+    want, want_sel = mk.trace_culled_reference(o, d, sb, k, B, 9, 1, urand, record=True)
+    assert int(_flipped(color, want, sel, want_sel).sum()) <= math.ceil(1e-4 * R)
+    assert int(_flipped(color, wcol, sel, wsel).sum()) <= math.ceil(1e-4 * R)
+    # one bounce of the wave kernel against its plain version on B
+    state, ids, short0 = wf.primary_state(o, d, sb, (cfg.height, cfg.width))
+    got = wf.wave_bounce(state, ids, *short0, sb, k, 0, 9, 1, urand)
+    plain = wf.wave_bounce_reference(state, ids, *short0, sb, k, 0, 9, 1, urand)
+    err = (got - plain).abs()
+    assert float((err <= 1e-4).float().mean()) >= 0.999
+    assert int((err > 1e-4).any(dim=0).sum()) <= math.ceil(1e-5 * state.shape[1])
+
+
+def test_many_materials_take_the_fused_kernels_never_the_sweep(cuda):
+    """A demo packet and config 4's mesh with 300 distinct materials run
+    `render_step` and `mse_step` through the render / wave kernels and the
+    recording / backward kernels, with no sweep launch, and match the plain
+    versions of the same steps."""
+    from ptre_tpu_torch.models.scene import Material, MaterialKind
+    from ptre_tpu_torch.ops.cuda import sweep_kernel as sk
+
+    W, H = 128, 64
+    cfg = RenderConfig(width=W, height=H, max_depth=4)
+    cam = cam_ops.Camera.create(width=W, height=H)
+    rs = np.random.default_rng(300)
+    for kind in ("demo", "config4"):
+        scn = demo.reference_demo_scene(16, 8) if kind == "demo" else demo.config4_mixed_scene(
+            32, 16)
+        for i in range(298):
+            scn.add_material(Material(MaterialKind.EMISSIVE if i % 7 == 0 else
+                                      MaterialKind.OREN_NAYAR,
+                                      tuple(float(x) for x in rs.uniform(0.1, 0.9, 3)),
+                                      float(rs.uniform(0.0, 1.5))))
+        for j, model in enumerate(scn.sorted_models()):
+            scn.set_model_material(model[0], 40 + 83 * j)
+        pkt = scn.build_packet(device=cuda)
+        assert pkt.num_materials == 300
+        before = (rk.launches, wf.bounce_launches, mk.record_launches, fg.launches, sk.launches)
+        acc = pt.render_step(pkt, cam, pt.AccumState.create(H, W, cuda), 3, cfg, spp=2)
+        loss, grads = train.mse_step(sh.differentiable_params(pkt, cam), pkt, cam,
+                                     torch.zeros((W * H, 3), device=cuda), cfg, seed=4, spp=1)
+        torch.cuda.synchronize()
+        n = [x - y for x, y in zip((rk.launches, wf.bounce_launches, mk.record_launches,
+                                     fg.launches, sk.launches), before)]
+        if kind == "demo":
+            assert n == [2, 0, 1, 1, 0], n
+        else:
+            assert n[0] == 0 and n[1] > 2 and n[2] == 0 and n[3] == 1 and n[4] == 0, n
+        ref = pt.render_step(pkt.to("cpu"), cam, pt.AccumState.create(H, W, device="cpu"), 3,
+                             cfg, spp=2)
+        d = (acc.linear.cpu() - ref.linear).abs()
+        assert float((d <= 1e-4).float().mean()) >= 0.999
+        assert int((d > 0.05).any(dim=-1).sum()) <= math.ceil(1e-5 * W * H * 2)
+        assert math.isfinite(float(loss))
+        assert float(grads["mat_albedo"][40:].abs().max()) > 0
+        assert float(grads["mat_albedo"][:40].abs().max()) == 0.0

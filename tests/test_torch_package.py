@@ -154,10 +154,12 @@ def test_build_raises_clearly_without_nvcc(tmp_path, monkeypatch):
 
 def test_render_step_refuses_non_dense_packet_on_cuda():
     """A packet past the dense class has the wavefront's CUDA path when the
-    wavefront takes it — past the reference's 49,152-row VMEM cap too; any
-    other packet (past the mask kernel's leaves, more than 8 materials)
-    takes the staged route (the sweep kernel), decided from its counts. On
-    CUDA only the plain sweep (``intersect_backend="xla"``) is refused."""
+    wavefront takes it — past the reference's 49,152-row VMEM cap too; a
+    dense packet with more than 8 materials keeps the render kernel (the
+    reference's 8-row SMEM select is not carried over); any other packet
+    (past the mask kernel's leaves, past 2**24 materials) takes the staged
+    route (the sweep kernel), decided from its counts. On CUDA only the
+    plain sweep (``intersect_backend="xla"``) is refused."""
     tri = demo.config3_scene(segments=24, rings=12).build_packet(device="cpu")
     assert tri.num_triangles > mk.DENSE_MAX_TRI
     assert pt.route(tri) == "wavefront"
@@ -169,10 +171,15 @@ def test_render_step_refuses_non_dense_packet_on_cuda():
     too_big = dataclasses.replace(tri, tri_valid=torch.zeros(1, dtype=torch.bool).expand(
         wf.MAX_MASK_LEAVES * wf.LEAF + 1))
     many_mats = demo.reference_demo_scene(8, 4)
-    for i in range(mk.MAX_MATS):
+    for i in range(mk.STAGED_MATS):
         many_mats.add_material(Material(MaterialKind.OREN_NAYAR, (0.1 * i,) * 3, 0.5))
+    many_mats = many_mats.build_packet(device="cpu")
+    assert many_mats.num_materials > mk.STAGED_MATS
+    assert pt.route(many_mats) == "dense"
+    pt.check_dispatch(many_mats, torch.device("cuda"), RenderConfig())
+    past_ids = dataclasses.replace(many_mats, num_materials=mk.MAX_MATERIALS + 1)
     xla = RenderConfig(intersect_backend="xla")
-    for pkt in (too_big, many_mats.build_packet(device="cpu")):
+    for pkt in (too_big, past_ids):
         assert pt.route(pkt) == "staged"
         pt.check_dispatch(pkt, torch.device("cuda"), RenderConfig())
         with pytest.raises(ConfigError, match="xla"):

@@ -21,7 +21,10 @@ uniforms), which the port receives as ``urand``.
   (interpret mode) with the same uniforms: colour and the ten parameter
   gradients of a weighted-sum loss, same bounds.
 * `integrator.grad_route` equals JAX's ``_grad_route`` under "replay" on a
-  dense, a triangle and a nine-material packet: replay, staged, staged.
+  dense and a triangle packet: replay, staged. A nine-material packet takes
+  the port's replay route (its recording kernel reads any material table)
+  where JAX's takes its staged route (its kernels hold 8 materials), and
+  both take the staged route under ``grad_sweep="staged"``.
 * `mse_step` and `two_pass_mse_step` on the replay route vs the fused route
   on the same seed: the same selections and the same adjoint, summed in
   another order, with the replay chain's colour as the primal: loss within
@@ -224,21 +227,27 @@ def _nine(mod, dm):
     return scn.build_packet(**({"device": "cpu"} if mod is tscene else {}))
 
 
+#: name: (JAX packet, port packet, grad_sweep, the port's route, JAX's route)
 ROUTE_PACKETS = {
     "dense": (lambda: jdemo.reference_demo_scene(8, 4).build_packet(),
-              lambda: demo.reference_demo_scene(8, 4).build_packet(device="cpu"), "replay"),
+              lambda: demo.reference_demo_scene(8, 4).build_packet(device="cpu"), "replay",
+              "replay", "replay"),
     "triangle": (lambda: jdemo.config4_mixed_scene(12, 6).build_packet(),
-                 lambda: demo.config4_mixed_scene(12, 6).build_packet(device="cpu"), "staged"),
-    "nine_materials": (lambda: _nine(jscene, jdemo), lambda: _nine(tscene, demo), "staged"),
+                 lambda: demo.config4_mixed_scene(12, 6).build_packet(device="cpu"), "replay",
+                 "staged", "staged"),
+    "nine_materials": (lambda: _nine(jscene, jdemo), lambda: _nine(tscene, demo), "replay",
+                       "replay", "staged"),
+    "nine_materials_staged": (lambda: _nine(jscene, jdemo), lambda: _nine(tscene, demo),
+                              "staged", "staged", "staged"),
 }
 
 
 @pytest.mark.parametrize("name", list(ROUTE_PACKETS))
 def test_grad_route_under_replay_equals_jax(name):
-    jfn, tfn, want = ROUTE_PACKETS[name]
+    jfn, tfn, sweep, want, jax_want = ROUTE_PACKETS[name]
     jp, pkt = jfn(), tfn()
-    got = integrator.grad_route(_port_cfg(grad_sweep="replay"), pkt)
-    assert got == jint._grad_route(JConfig(width=W, height=H, grad_sweep="replay"), jp) == want
+    assert integrator.grad_route(_port_cfg(grad_sweep=sweep), pkt) == want
+    assert jint._grad_route(JConfig(width=W, height=H, grad_sweep=sweep), jp) == jax_want
 
 
 def _diffuse_demo():

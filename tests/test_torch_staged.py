@@ -16,9 +16,12 @@ dense normal flipped before it is normalised, the replay chain's own
 recompute), so colour within 1e-5 and gradients within 1e-3 relative L2
 per leaf (rays near the gradsafe floors amplify rounding, ROADMAP C2).
 
-The packets: the demo scene with 7 more materials (9, past the kernels'
-8-material table; it used to die with a bare ``ValueError`` on the CPU),
-which takes the staged route by itself; and a 120-triangle uv-sphere over
+The packets: the demo scene with 7 more materials (9: past the JAX
+kernels' 8-row SMEM select, so JAX routes it to its staged route; the
+port's render kernel and fused route take it, so the tests here force it
+onto the staged route with ``intersect_backend="pallas"`` and
+``grad_sweep="staged"``, and hold its default route to JAX's staged route
+under JAX's draws); and a 120-triangle uv-sphere over
 the ground padded to 49,280 triangle rows, past the reference's 49,152-row
 VMEM cap, which the port's wavefront and fused route take and the staged
 route takes when forced (``intersect_backend="pallas"``,
@@ -56,6 +59,7 @@ from ptre_tpu_torch.ops import integrator, path_replay, rng
 from ptre_tpu_torch.ops.cuda import build
 from ptre_tpu_torch.ops.cuda import fused_grad
 from ptre_tpu_torch.ops.cuda import megakernel as mk
+from ptre_tpu_torch.ops.cuda import render_kernel as rk
 from ptre_tpu_torch.ops.cuda import wavefront as wf
 from ptre_tpu_torch.parallel import sharding as sh
 from ptre_tpu_torch.render import pathtracer as pt
@@ -103,7 +107,8 @@ def _rel(a, b):
 
 
 def test_over_cap_packets_take_the_staged_route():
-    """Nine materials take the staged route on both steps. The 49,280-row
+    """Nine materials take the render kernel and the fused route, and the
+    staged route when forced (JAX's kernels take at most 8). The 49,280-row
     packet and the 65,024-row mesh, past the reference's 49,152-row VMEM
     cap, take the wavefront and the fused route (and the culled megakernel
     when forced); the staged route under ``intersect_backend="pallas"``,
@@ -111,10 +116,13 @@ def test_over_cap_packets_take_the_staged_route():
     leaves takes the staged route."""
     cfg = RenderConfig(width=W, height=H)
     nine = _packets("nine")[1]
-    assert not fused_grad.supported(nine) and not wf.supports(nine)
-    assert pt.route(nine) == pt.route(nine, cfg) == "staged"
-    assert integrator.grad_route(cfg, nine) == "staged"
-    assert integrator.grad_route(dataclasses.replace(cfg, grad_sweep="fused"), nine) == "staged"
+    assert nine.num_materials == 9 and mk.dense_supported(nine)
+    assert fused_grad.supported(nine) and wf.supports(nine)
+    assert pt.route(nine) == pt.route(nine, cfg) == "dense"
+    assert integrator.grad_route(cfg, nine) == "fused"
+    assert integrator.grad_route(dataclasses.replace(cfg, grad_sweep="fused"), nine) == "fused"
+    assert pt.route(nine, dataclasses.replace(cfg, intersect_backend="pallas")) == "staged"
+    assert integrator.grad_route(dataclasses.replace(cfg, grad_sweep="staged"), nine) == "staged"
     over = _packets("over_rows")[1]
     mesh = demo.config3_scene(False, 256, 128, diffuse=True).build_packet(device="cpu")
     assert over.tri_valid.shape[0] == OVER_ROWS > 49152
@@ -223,11 +231,13 @@ def test_staged_route_matches_fused_route_with_the_same_urand():
 
 
 def test_render_step_nine_materials_matches_jax_render_step():
-    # before the staged route this packet died with a bare ValueError on the CPU
+    # JAX's route for this packet is its staged route; the port's is the
+    # render kernel, so the staged route is forced to hold it to JAX's draws
     jp, pkt = _packets("nine")
     jc, cam = _cams()
     jcfg = JConfig(width=W, height=H)
-    cfg = RenderConfig(width=W, height=H)
+    cfg = RenderConfig(width=W, height=H, intersect_backend="pallas")
+    assert pt.route(pkt, cfg) == "staged"
     key = jrng.key_for(11)
     prev = np.random.default_rng(2).random((H, W, 3), dtype=np.float32)
     jacc = jpt.AccumState(linear=jnp.asarray(prev), frame=jnp.asarray(3, jnp.int32))
@@ -244,10 +254,48 @@ def test_render_step_nine_materials_matches_jax_render_step():
     np.testing.assert_allclose(got.linear.numpy(), want, rtol=1e-5, atol=1e-5)
 
 
+def _jax_render_urand(key, frame, spp, w=W, h=H, depth=5):
+    """(spp, 2 + 2*depth, h, w): the draws of JAX's staged `render_step`
+    (`test_torch_pathtracer.jax_urand`)."""
+    out = []
+    for s in range(spp):
+        skey = jrng.fold(jrng.fold(key, s), frame + s + 1)
+        jit = np.asarray(jrng.pixel_jitter(jrng.fold(skey, 0x9E37), (w * h,)))
+        ur = np.asarray(jmk._build_urand(skey, w * h, depth))
+        out.append(np.concatenate([jit.T + np.float32(0.5), ur]).reshape(-1, h, w))
+    return torch.from_numpy(np.stack(out).astype(np.float32))
+
+
+def test_render_step_nine_materials_default_route_matches_jax_render_step():
+    """The twin of the test above on the port's default route, the render
+    kernel (its plain version here), fed JAX's staged draws: within
+    `test_torch_pathtracer`'s staged-vs-fused bound (atol = rtol = 2e-3,
+    >= 95 % of pixels within 1e-4), since the render kernel builds its
+    primary rays in closed form."""
+    torch.set_num_threads(1)
+    jp, pkt = _packets("nine")
+    jc, cam = _cams()
+    cfg = RenderConfig(width=W, height=H)
+    assert pt.route(pkt, cfg) == "dense"
+    key = jrng.key_for(11)
+    prev = np.random.default_rng(2).random((H, W, 3), dtype=np.float32)
+    jacc = jpt.AccumState(linear=jnp.asarray(prev), frame=jnp.asarray(3, jnp.int32))
+    want = np.asarray(jpt.render_step(jp, jc, jacc, key, JConfig(width=W, height=H),
+                                      spp=2).linear)
+    before = rk.launches
+    acc = pt.render_step(pkt, cam, pt.AccumState(torch.from_numpy(prev.copy()), 3), 0, cfg,
+                         spp=2, urand=_jax_render_urand(key, 3, 2))
+    assert acc.frame == 5 and rk.launches == before  # plain on the CPU
+    got = acc.linear.numpy()
+    np.testing.assert_allclose(got, want, atol=2e-3, rtol=2e-3)
+    assert np.all(np.abs(got - want) < 1e-4, axis=-1).mean() > 0.95
+
+
 def test_ray_chunk_changes_nothing_without_a_key():
+    # ray_chunk splits the staged route's rays, which this test forces
     pkt = _packets("nine")[1]
     cam = cam_ops.Camera.create(width=W, height=H)
-    cfg = RenderConfig(width=W, height=H)
+    cfg = RenderConfig(width=W, height=H, intersect_backend="pallas")
     whole = pt.render_step(pkt, cam, pt.AccumState.create(H, W, device="cpu"), 9, cfg, spp=2)
     for chunk in (32, 50):  # 50: a ragged last chunk
         part = pt.render_step(pkt, cam, pt.AccumState.create(H, W, device="cpu"), 9, cfg, spp=2,
@@ -378,9 +426,9 @@ def test_training_steps_on_over_cap_packets_match_jax(kind):
     w, h = (W, H) if kind == "nine" else (8, 4)
     jc, cam = _cams(w, h)
     jcfg = JConfig(width=w, height=h, remat_bounces=False, grad_sweep="staged")
-    # nine materials route to the staged route by themselves; the over_rows
-    # packet, which the port's fused route takes, is forced onto it
-    cfg = RenderConfig(width=w, height=h, grad_sweep="auto" if kind == "nine" else "staged")
+    # both packets take the port's fused route by default (JAX's staged
+    # route: its kernels take neither) and are forced onto the staged route
+    cfg = RenderConfig(width=w, height=h, grad_sweep="staged")
     assert integrator.grad_route(cfg, pkt) == "staged"
     target = np.random.default_rng(0).uniform(0, 0.5, (w * h, 3)).astype(np.float32)
     key = jrng.key_for(3)
@@ -402,6 +450,48 @@ def test_training_steps_on_over_cap_packets_match_jax(kind):
         assert all(bool(torch.isfinite(g).all()) for g in grads.values())
 
 
+def _jax_train_urand(key, spp, w=W, h=H, depth=5):
+    """(spp, 2 + 2*depth, h, w): the draws of JAX's staged `mse_step`
+    (`test_torch_train.jax_urand`)."""
+    out = []
+    for s in range(spp):
+        skey = jrng.fold(key, s)
+        jit = np.asarray(jrng.pixel_jitter(jrng.fold(skey, 0x9E37), (w * h,)))
+        ur = np.asarray(jmk._build_urand(skey, w * h, depth))
+        out.append(np.concatenate([jit.T + np.float32(0.5), ur]).reshape(-1, h, w))
+    return torch.from_numpy(np.stack(out).astype(np.float32))
+
+
+def test_training_step_nine_materials_default_route_matches_jax():
+    """The twin of the "nine" case above on the port's default route, the
+    fused route (the recording kernel and the fused backward, plain
+    versions here), fed JAX's staged draws: `test_torch_train`'s bound (loss
+    within 1e-5 relative, gradients rtol 2e-3 with atol 1e-4 of the leaf's
+    largest entry); the material gradients reach row 8."""
+    torch.set_num_threads(1)
+    jp, pkt = _packets("nine")
+    jc, cam = _cams()
+    jcfg = JConfig(width=W, height=H, remat_bounces=False)
+    cfg = RenderConfig(width=W, height=H)
+    assert integrator.grad_route(cfg, pkt) == "fused"
+    target = np.random.default_rng(0).uniform(0, 0.5, (R, 3)).astype(np.float32)
+    key = jrng.key_for(3)
+    jl, jg = jtrain.mse_step(jsh.differentiable_params(jp, jc), jp, jc, jnp.asarray(target),
+                             key, jcfg, spp=2)
+    before = mk.record_launches, fused_grad.launches
+    loss, grads = train.mse_step(sh.differentiable_params(pkt, cam), pkt, cam,
+                                 torch.from_numpy(target), cfg, seed=0, spp=2,
+                                 urand=_jax_train_urand(key, 2))
+    assert (mk.record_launches, fused_grad.launches) == before  # plain on the CPU
+    np.testing.assert_allclose(float(loss), float(jl), rtol=1e-5)
+    for k, g in grads.items():
+        want = np.asarray(jg[k])
+        assert np.isfinite(g.numpy()).all(), k
+        np.testing.assert_allclose(g.numpy(), want, rtol=2e-3,
+                                   atol=1e-4 * max(float(np.abs(want).max()), 1e-30), err_msg=k)
+    assert float(grads["mat_albedo"][8].abs().max()) > 0
+
+
 def test_route_fields_are_validated_and_read():
     for field in ("intersect_backend", "grad_sweep"):
         with pytest.raises(ConfigError, match=field):
@@ -411,12 +501,12 @@ def test_route_fields_are_validated_and_read():
     dense = demo.reference_demo_scene(8, 4).build_packet(device="cpu")
     tri = demo.config4_mixed_scene(12, 6).build_packet(device="cpu")
     nine = _packets("nine")[1]
-    table = {"auto": ("dense", "wavefront", "staged"), "fused": ("dense", "wavefront", "staged"),
+    table = {"auto": ("dense", "wavefront", "dense"), "fused": ("dense", "wavefront", "dense"),
              "pallas": ("staged",) * 3, "xla": ("staged",) * 3}
     for backend, want in table.items():
         cfg = RenderConfig(intersect_backend=backend)
         assert tuple(pt.route(p, cfg) for p in (dense, tri, nine)) == want, backend
-    for sweep, want in {"auto": ("fused", "fused", "staged"), "fused": ("fused", "fused", "staged"),
+    for sweep, want in {"auto": ("fused",) * 3, "fused": ("fused",) * 3,
                         "staged": ("staged",) * 3}.items():
         cfg = RenderConfig(grad_sweep=sweep)
         assert tuple(integrator.grad_route(cfg, p) for p in (dense, tri, nine)) == want, sweep
@@ -424,7 +514,7 @@ def test_route_fields_are_validated_and_read():
     cfg = RenderConfig(width=W, height=H, grad_sweep="replay")
     cam = cam_ops.Camera.create(width=W, height=H)
     assert tuple(integrator.grad_route(cfg, p) for p in (dense, tri, nine)) == (
-        "replay", "staged", "staged")
+        "replay", "staged", "replay")
     o, d = torch.zeros((R, 3)), torch.nn.functional.normalize(torch.ones((R, 3)), dim=1)
     color = integrator.trace(o, d, dense, cfg, seed=3)
     assert torch.equal(color, path_replay.trace_fused_grad(o, d, dense, cfg, seed=3))
@@ -452,7 +542,8 @@ def test_xla_sweep_on_cuda_tensors_raises_before_any_library_load(monkeypatch):
     monkeypatch.setattr(build, "load_library", no_cuda)
     host = _packets("nine")[1]
     cam = cam_ops.Camera.create(width=W, height=H)
-    cfg = RenderConfig(width=W, height=H, intersect_backend="xla")
+    # the packet's default routes are fused: the staged one is forced
+    cfg = RenderConfig(width=W, height=H, intersect_backend="xla", grad_sweep="staged")
     with FakeTensorMode(allow_non_fake_inputs=True):
         pkt = dataclasses.replace(host, **{
             k: torch.empty_like(getattr(host, k), device="cuda") for k in PACKET_LEAVES})
@@ -467,4 +558,5 @@ def test_xla_sweep_on_cuda_tensors_raises_before_any_library_load(monkeypatch):
         for step in (train.mse_step, train.two_pass_mse_step):
             with pytest.raises(ConfigError, match="xla"):
                 step(params, pkt, cam, o, cfg, seed=1, spp=1)
-        pt.check_dispatch(pkt, "cuda", RenderConfig())  # the sweep kernel: accepted
+        pt.check_dispatch(pkt, "cuda", RenderConfig())  # the render kernel: accepted
+        pt.check_dispatch(pkt, "cuda", RenderConfig(intersect_backend="pallas"))  # the sweep

@@ -473,10 +473,11 @@ def test_empty_and_sphere_only_scenes():
 
 
 def test_supports_gates():
-    """The wavefront takes a packet by the port's kernels' own limits: <= 8
-    materials and <= MAX_MASK_LEAVES leaves (the mask kernel's shared bit
-    mask); any number of triangle rows below that and of spheres, past the
-    reference's VMEM caps (49,152 rows, 4,096 spheres) too."""
+    """The wavefront takes a packet by the port's kernels' own limits: <=
+    MAX_MASK_LEAVES leaves (the mask kernel's shared bit mask) and <= 2**24
+    materials (float32 ids); any number of triangle rows below that and of
+    spheres, past the reference's VMEM caps (49,152 rows, 4,096 spheres)
+    too, and more than the reference's 8 materials (its SMEM select)."""
     tp = _ball(Scene, Model)
     assert wf.supports(tp) and wf.supports(demo.config3_scene(128, 64).build_packet(device="cpu"))
     past_tpu_rows = dataclasses.replace(tp, tri_valid=torch.zeros(49152 + 64, dtype=torch.bool))
@@ -486,6 +487,9 @@ def test_supports_gates():
     past_limit = dataclasses.replace(tp, tri_valid=torch.zeros(1, dtype=torch.bool).expand(
         wf.MAX_MASK_LEAVES * wf.LEAF + 1))
     assert wf.supports(at_limit) and not wf.supports(past_limit)
-    assert not wf.supports(dataclasses.replace(tp, num_materials=mk.MAX_MATS + 1))
+    assert wf.supports(dataclasses.replace(tp, num_materials=mk.STAGED_MATS + 1))
+    assert wf.supports(dataclasses.replace(tp, num_materials=mk.MAX_MATERIALS))
+    assert not wf.supports(dataclasses.replace(tp, num_materials=mk.MAX_MATERIALS + 1))
+    assert not wf.supports(dataclasses.replace(past_limit, num_materials=mk.STAGED_MATS + 1))
     many_sph = dataclasses.replace(tp, sph_center=torch.zeros((4096 + 8, 3)))
     assert wf.supports(many_sph)
