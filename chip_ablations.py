@@ -3,6 +3,7 @@
 pair, the mask kernel and the material select on one GPU.
 
     python3 chip_ablations.py [raster_mega] [replay] [mask] [materials] [present] [culled_flips]
+                              [syncs [--root DIR]]
     (no argument: raster_mega and replay)
 
 Not a gate: ``chip_smoke.py`` holds the shipped kernels to their plain
@@ -108,6 +109,26 @@ path-traced frames with ``present_async`` on and off, timed in turns on the
 host clock at 1280x720 spp 1, 1920x1080 spp 1 and 1920x1080 spp 4, with
 each mode's device-busy time a frame.
 
+Host round trips ("syncs", no variant built): one call each of the paths
+that should make no synchronizing call, with every camera left at its
+default device: a dense `render_step` (the demo at 1920x1080, spp 4, keyed
+as the engine keys its frames), a dispatch-ahead `Renderer.draw_frame`
+(1280x720, spp 1), `shard_render_step` on a world of one over NCCL (the demo
+at 1920x1080, spp 4), `rasterize` hard and soft (1280x720 ss 2, no graph),
+`raster_mse_step`, the dense `mse_step` (1920x1080, spp 1),
+`shard_train_step` and `dual_train_step` (1920x1080, spp 1). For each, the
+synchronizing calls of one call under torch's CUDA sync debug mode, by the
+line of the port that made them (`chip_smoke.sync_sites`), host ms a call
+over five windows without the profiler (the calls queued, then each call
+followed by a synchronize), then the profile of a few calls
+(`chip_smoke.device_share`: host and device ms a call, idle share,
+synchronizes, event waits and copies a call). ``--root
+DIR`` imports ``ptre_tpu_torch`` from DIR instead (a checkout of another
+commit, unpacked in a git-ignored directory): the same calls, so two
+commits are compared in one machine. Then, sites only, the routes that keep
+data-dependent reads: config 4 `render_step` and `mse_step` (the
+wavefront) and the demo's `mse_step` on the replay route.
+
 Prints the card's name and power limit beside every time.
 """
 
@@ -176,15 +197,20 @@ def variant(build, unit, tag, edits, flags=()):
 
 
 def main():
+    args = sys.argv[1:]
+    if "--root" in args:
+        i = args.index("--root")
+        sys.path.insert(0, os.path.abspath(args[i + 1]))
+        del args[i:i + 2]
     from ptre_tpu_torch.utils.device import require_cuda
 
     dev = require_cuda()
     card = cs.sh(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
     print(card, flush=True)
-    parts = sys.argv[1:] or ["raster_mega", "replay"]
+    parts = args or ["raster_mega", "replay"]
     for part in parts:
         cs.check(part in ("raster_mega", "replay", "mask", "materials", "culled_flips",
-                          "present"), f"unknown part {part}")
+                          "present", "syncs"), f"unknown part {part}")
     if "raster_mega" in parts:
         raster_mega(dev, card)
     if "replay" in parts:
@@ -197,6 +223,8 @@ def main():
         present(dev, card)
     if "culled_flips" in parts:
         culled_flips(dev, card)
+    if "syncs" in parts:
+        syncs(dev, card)
 
 
 # mask_kernel.cu: the global instantiation's walk on boxes in global memory,
@@ -729,6 +757,132 @@ def present(dev, card):
         for label, r in modes.items():
             cs.device_share(r.draw_frame, PRESENT_FRAMES,
                             f"Renderer.draw_frame {W}x{H} spp {spp} {label}", card)
+
+
+SYNC_REPS = 4
+SYNC_WINDOWS = 5
+
+
+def syncs(dev, card):
+    """The host round trips of each path of the module docstring's "syncs"
+    part: the synchronizing calls of one call by their lines, then the
+    profile of SYNC_REPS calls."""
+    import dataclasses
+    import time
+
+    import torch
+    import torch.distributed as dist
+
+    import ptre_tpu_torch
+    from ptre_tpu_torch.models import demo
+    from ptre_tpu_torch.ops import camera as cam_ops
+    from ptre_tpu_torch.ops import rng
+    from ptre_tpu_torch.parallel import sharding as sh
+    from ptre_tpu_torch.render import engine, train
+    from ptre_tpu_torch.render import pathtracer as pt
+    from ptre_tpu_torch.render import rasterizer as ras
+    from ptre_tpu_torch.utils.config import RasterConfig, RenderConfig
+
+    print(f"syncs: ptre_tpu_torch from {os.path.dirname(ptre_tpu_torch.__file__)}", flush=True)
+    scn = demo.reference_demo_scene(32, 16)
+    key = rng.key_for(5)
+    step = iter(range(10**6))
+
+    def read(name, fn, reps=SYNC_REPS):
+        for _ in range(2):
+            fn()
+        torch.cuda.synchronize()
+        sites = cs.sync_sites(fn)
+        print(f"  {name}: {sum(sites.values())} synchronizing calls in one call"
+              + "".join(f"; {n} at {site}" for site, n in sorted(sites.items())), flush=True)
+        for each_call in (False, True):
+            times = []
+            for _ in range(SYNC_WINDOWS):
+                t0 = time.perf_counter()
+                for _ in range(reps):
+                    fn()
+                    if each_call:
+                        torch.cuda.synchronize()
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3 / reps)
+            print(f"  {name}: host ms/call over {SYNC_WINDOWS} windows of {reps} calls, "
+                  + ("a synchronize after every call" if each_call else
+                     "each ending in a synchronize") + ", no profiler: "
+                  + ", ".join(f"{t:.3f}" for t in times)
+                  + f" (median {sorted(times)[len(times) // 2]:.3f}) [{card}]", flush=True)
+        cs.device_share(fn, reps, name, card)
+
+    W, H = cs.W_MAIN, cs.H_MAIN
+    pkt = scn.build_packet(device=dev)
+    cam = cam_ops.Camera.create(width=W, height=H)
+    print(f"  the camera's leaves lie on {cam.position.device}", flush=True)
+    cfg = RenderConfig(width=W, height=H)
+    acc = pt.AccumState.create(H, W, dev)
+    read(f"render_step {W}x{H} spp 4", lambda: pt.render_step(
+        pkt, cam, acc, rng.fold(key, next(step)), cfg, spp=4))
+    params = sh.differentiable_params(pkt, cam)
+    target = torch.zeros((W * H, 3), device=dev)
+    read(f"mse_step {W}x{H} spp 1", lambda: train.mse_step(params, pkt, cam, target, cfg,
+                                                            next(step)))
+
+    EW, EH = 1280, 720
+    r = engine.Renderer(scn, cam_ops.Camera.create(width=EW, height=EH),
+                        RenderConfig(width=EW, height=EH), RasterConfig(width=EW, height=EH),
+                        device=dev)
+    read(f"Renderer.draw_frame {EW}x{EH} spp 1 dispatch-ahead", r.draw_frame, 20)
+
+    RW, RH, ss, sigma = cs.RASTER_W, cs.RASTER_H, cs.RASTER_SS, cs.SIGMA
+    rpkt = scn.build_packet(spheres_as_triangles=True, device=dev)
+    rcam = cam_ops.Camera.create(width=RW, height=RH)
+    rcfg = RasterConfig(width=RW, height=RH, supersample=ss)
+    for soft in (False, True):
+        def frame(soft=soft):
+            with torch.no_grad():
+                return ras.rasterize(rpkt, rcam, rcfg, soft=soft, sigma=sigma)
+        read(f"rasterize {'soft' if soft else 'hard'} {RW}x{RH} ss {ss}", frame, 8)
+    rparams = sh.differentiable_params(rpkt, rcam)
+    rtarget = torch.zeros((RH, RW, 3), device=dev)
+    read(f"raster_mse_step {RW}x{RH} ss {ss}",
+         lambda: train.raster_mse_step(rparams, rpkt, rcam, rtarget, rcfg, sigma), 8)
+
+    # the routes that keep data-dependent reads (ROADMAP A17): their sites
+    # only, one call each, after a warm-up call
+    tpkt = demo.config4_mixed_scene(128, 64).build_packet(device=dev)
+    tparams = sh.differentiable_params(tpkt, cam)
+    kept = {
+        f"config 4 render_step {W}x{H} spp 1 (wavefront)": lambda: pt.render_step(
+            tpkt, cam, acc, rng.fold(key, next(step)), cfg),
+        f"config 4 mse_step {W}x{H} spp 1 (wavefront record, fused backward)":
+            lambda: train.mse_step(tparams, tpkt, cam, target, cfg, next(step)),
+        f"mse_step {W}x{H} spp 1, grad_sweep replay": lambda: train.mse_step(
+            params, pkt, cam, target, dataclasses.replace(cfg, grad_sweep="replay"),
+            next(step)),
+    }
+    for name, fn in kept.items():
+        fn()
+        sites = cs.sync_sites(fn)
+        print(f"  {name}: {sum(sites.values())} synchronizing calls in one call (kept)"
+              + "".join(f"; {n} at {site}" for site, n in sorted(sites.items())), flush=True)
+
+    mesh = sh.make_mesh((1, 1))
+    try:
+        print(f"  world of one: backend {dist.get_backend()}", flush=True)
+        spkt, srpkt = sh.replicate(mesh, pkt), sh.replicate(mesh, rpkt)
+        scfg = RasterConfig(width=W, height=H, supersample=2)
+        slab = torch.zeros((H, W, 3), device=dev)
+        state = {"acc": pt.AccumState(torch.zeros((H, W, 3), device=dev), 0)}
+
+        def render():
+            state["acc"] = sh.shard_render_step(mesh, spkt, cam, state["acc"],
+                                                rng.fold(key, next(step)), cfg, spp=4)
+
+        read(f"shard_render_step {W}x{H} spp 4", render, 2)
+        read(f"shard_train_step {W}x{H} spp 1", lambda: sh.shard_train_step(
+            mesh, params, spkt, cam, slab, rng.fold(key, next(step)), cfg), 2)
+        read(f"dual_train_step {W}x{H} spp 1", lambda: sh.dual_train_step(
+            mesh, params, spkt, srpkt, cam, slab, rng.fold(key, next(step)), cfg, scfg), 2)
+    finally:
+        dist.destroy_process_group()
 
 
 def raster_mega(dev, card):

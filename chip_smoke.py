@@ -180,6 +180,7 @@ Every time printed is beside the card's name and power limit as
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -290,12 +291,75 @@ def cuda_events(fn, reps):
     return e0.elapsed_time(e1) / reps
 
 
+#: the CUDA runtime calls that block the host until the stream or device
+#: drains, and the event wait (the engine's dispatch-ahead read of the
+#: previous frame), as the profiler names them
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize")
+EVENT_WAITS = ("cudaEventSynchronize",)
+
+
+def sync_counts(prof, reps):
+    """(stream or device synchronizes, event waits, host-to-device copies,
+    device-to-host copies) per call in a profile of ``reps`` calls, less
+    the two device synchronizes of the window itself: its closing
+    ``torch.cuda.synchronize`` and the profiler's own when it stops."""
+    names = [e.name for e in prof.events()]
+    syncs = sum(n in SYNC_CALLS for n in names) - 2
+    waits = sum(n in EVENT_WAITS for n in names)
+    h2d = sum(n.startswith("Memcpy HtoD") for n in names)
+    d2h = sum(n.startswith("Memcpy DtoH") for n in names)
+    return tuple(x / reps for x in (syncs, waits, h2d, d2h))
+
+
+def sync_sites(fn):
+    """The synchronizing calls of one call of ``fn()``, with torch's CUDA
+    sync debug mode set to warn: {site: count}, a site the innermost frame
+    of the port (``ptre_tpu_torch/...``) that made the call, as
+    "path:line (function)", or the caller's frame where the port made
+    none."""
+    import collections
+    import traceback
+    import warnings
+
+    import torch
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    sites = collections.Counter()
+
+    def hook(message, category, filename, lineno, file=None, line=None):
+        if "synchronizing CUDA operation" not in str(message):
+            return
+        stack = traceback.extract_stack()[:-1]
+        port = [f for f in stack if f"{os.sep}ptre_tpu_torch{os.sep}" in f.filename]
+        f = (port or [f for f in stack if f.name != "sync_sites"])[-1]
+        path = f.filename
+        if f"{os.sep}ptre_tpu_torch{os.sep}" in path:
+            path = path[path.rindex(f"{os.sep}ptre_tpu_torch{os.sep}") + 1:]
+        else:
+            path = os.path.relpath(path, root)
+        sites[f"{path}:{f.lineno} ({f.name})"] += 1
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = hook
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return dict(sites)
+
+
 def device_share(fn, reps, what, card):
     """Where ``reps`` steady calls of ``fn`` spend their time, by
     torch.profiler: host-clock ms per call (the window ends in a
     synchronize), device-busy ms per call (the union of the kernels'
-    intervals), the device's idle share, and the four kernels that take most
-    of the device time."""
+    intervals), the device's idle share, the four kernels that take most
+    of the device time, and per call the stream or device synchronizes,
+    event waits and host-to-device / device-to-host copies
+    (`sync_counts`). Returns those four counts."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -315,9 +379,13 @@ def device_share(fn, reps, what, card):
             busy_us += b - max(a, end)
             end = b
         by_name[e.name] = by_name.get(e.name, 0.0) + b - a
+    counts = sync_counts(prof, reps)
+    syncs = (f"{counts[0]:g} synchronizes, {counts[1]:g} event waits, {counts[2]:g} "
+             f"host-to-device and {counts[3]:g} device-to-host copies a call")
     if not kernels:
-        print(f"  {what}: the profiler saw no device events: idle share not measured", flush=True)
-        return
+        print(f"  {what}: the profiler saw no device events: idle share not measured; "
+              f"{syncs}", flush=True)
+        return counts
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
     host = sorted((e for e in prof.key_averages() if e.self_cpu_time_total > 0),
                   key=lambda e: -e.self_cpu_time_total)[:4]
@@ -327,7 +395,8 @@ def device_share(fn, reps, what, card):
           "device: " + "; ".join(f"{n[:48]} {t / reps / 1e3:.3f} ms" for n, t in top)
           + "; host (self CPU): " + "; ".join(
               f"{e.key[:32]} {e.self_cpu_time_total / reps / 1e3:.3f} ms x{e.count // reps}"
-              for e in host) + f" [{card}]", flush=True)
+              for e in host) + f"; {syncs} [{card}]", flush=True)
+    return counts
 
 
 def ptxas_summary(report):
@@ -603,9 +672,11 @@ def main():
         image as the first design's); returns (ms, first design ms, this
         design's counts)."""
         cfg, packed, rows = inputs(demo_scene, W, H)
+        host_rows = rows.tolist()  # the first design's by-value camera, read before timing
         acc = torch.zeros((H, W, 3), device=dev)
         times = in_turns({"shipped": lambda: rk.sample_accum(acc, packed, rows, 4, cfg, 100),
-                          "first design": lambda: first_render(acc, packed, rows, 4, cfg, 100)},
+                          "first design": lambda: first_render(acc, packed, host_rows, 4, cfg,
+                                                               100)},
                          reps)
         print(f"  render kernel {W}x{H}, in turns: " + ", ".join(
             f"{label} {ms:.4f} ms" for label, ms in times.items()) + f" (CUDA events) [{card}]",
@@ -2239,10 +2310,40 @@ def lean_wave_mask(lib, wf, mk, shipped=False):
     return fn
 
 
+@functools.lru_cache(maxsize=None)
+def _first_render_params_type():
+    """The first designs' by-value render arguments (``csrc/baseline/
+    trace.cuh`` RenderParams): the 18 camera rows, then the shipped
+    kernel's fields (`render_kernel.RenderParams`)."""
+    import ctypes
+
+    from ptre_tpu_torch.ops.cuda import render_kernel as rk
+
+    class FirstRenderParams(ctypes.Structure):
+        _fields_ = [("cam", ctypes.c_float * 18)] + rk.RenderParams._fields_
+
+    return FirstRenderParams
+
+
+def first_render_params(params, cam_rows):
+    """The first designs' by-value render arguments from the shipped
+    arguments ``params`` and ``cam_rows``: host floats, or a tensor read
+    here."""
+    rows = cam_rows.tolist() if hasattr(cam_rows, "tolist") else list(cam_rows)
+    p = _first_render_params_type()()
+    p.cam[:] = rows[:18]
+    for name, _ in type(params)._fields_:
+        setattr(p, name, getattr(params, name))
+    return p
+
+
 def baseline_render(lib, rk):
     """The render kernel's first design (``csrc/baseline/render_kernel.cu``)
     through its own C interface, as a function of `sample_accum`'s
-    arguments (``accum`` updated in place); it counts nothing."""
+    arguments (``accum`` updated in place); it counts nothing. The first
+    design takes the camera by value: ``cam_rows`` are host floats (a
+    list), or a tensor read on the host at every call, so a timed caller
+    gives it a list made before the timing."""
     import ctypes
 
     import torch
@@ -2252,8 +2353,8 @@ def baseline_render(lib, rk):
 
     def fn(accum, scene, cam_rows, n, config, seed=0, urand=None):
         H, W = accum.shape[:2]
-        p = rk.render_params(H, W, scene, cam_rows, n, config, seed,
-                             external_rng=urand is not None)
+        p = first_render_params(rk.render_params(H, W, scene, n, config, seed,
+                                                 external_rng=urand is not None), cam_rows)
         rc = lib.ptre_render_sample(
             ctypes.addressof(p), accum.data_ptr(), None if urand is None else urand.data_ptr(),
             scene.tris.data_ptr(), scene.sphs.data_ptr(), scene.mats.data_ptr(),
@@ -2834,7 +2935,7 @@ def past_cap_phase(dev, card, rs, static_mask):
         scene = wf.prepare_scene(pkt, screen_cam=cam)
         torch.cuda.synchronize()
         pack_ms = (time.perf_counter() - t0) * 1e3
-        cpu = wf.prepare_scene(pkt.to("cpu"), screen_cam=cam)
+        cpu = wf.prepare_scene(pkt.to("cpu"), screen_cam=cam.to("cpu"))
         T, n_leaf = scene.tri_rows, scene.n_leaf
         print(f"phase 24: past the reference's row cap, {name}: {pkt.num_triangles} triangles "
               f"in {T} rows, {n_leaf} leaves ({'global' if n_leaf > MASK_STAGED_LEAVES else 'staged'}"
@@ -2865,7 +2966,8 @@ def past_cap_phase(dev, card, rs, static_mask):
         check(short0 is not None, f"{name}: bounce 0 not screen-binned")
         nb = state.shape[1] // wf.LANES
         nxt = wf.wave_bounce(state, ids, *short0, scene, k, 0, seed, 1)
-        every = wf.wave_bounce(state, ids, *wf.all_leaves(nb, n_leaf, dev), scene, k, 0, seed, 1)
+        every = wf.wave_bounce(state, ids, *wf.all_leaves(nb, n_leaf, device=dev), scene, k, 0,
+                               seed, 1)
         torch.cuda.synchronize()
         share0 = float(short0[1].float().sum()) / (nb * n_leaf)
         print(f"  bounce 0: screen binning lists {100 * share0:.3f} % of ({nb} blocks x "
@@ -3989,7 +4091,7 @@ def raster_phases(dev, card, rs, first_hard):
     want = rast.raster_reference(tris, cbox, scal, Hs, Ws, ss)
     fst = first_hard(tris, cbox, scal, Hs, Ws, ss)
     torch.cuda.synchronize()
-    ys = rast.sample_ys(Hs, ss, 0.0, 1.0, dev)
+    ys = rast.sample_ys(Hs, ss, 0.0, 1.0, device=dev)
     hard_visits = rast.visited_pairs(cbox, Hs, Ws, ss)
     hard_pairs = rast.box_pairs(tris, ys, Ws)
     swept = hard_visits * rast.TILE * rast.TILE * rast.CHUNK

@@ -53,7 +53,7 @@ class Application:
             # (`application.cu:16-34`)
             scene = demo.reference_demo_scene()
             cam = cam_ops.Camera.create(
-                width=self.window.width, height=self.window.height
+                width=self.window.width, height=self.window.height, device=device
             )
             renderer = Renderer(scene, cam, spp_per_frame=spp_per_frame, device=device)
         self.renderer = renderer

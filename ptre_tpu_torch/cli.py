@@ -49,10 +49,12 @@ SPP_BENCH, SPP_TRAIN, STEPS = 4, 64, 8  # bench.py's defaults
 
 def _build_renderer(args) -> Renderer:
     scene = SCENES[args.scene]()
+    dev = _device(args)
     cam = cam_ops.Camera.create(
         width=args.width,
         height=args.height,
         projection=cam_ops.ORTHOGRAPHIC if args.orthographic else cam_ops.PERSPECTIVE,
+        device=dev,
     )
     cfg = RenderConfig(
         width=args.width, height=args.height, max_depth=args.max_depth,
@@ -63,7 +65,7 @@ def _build_renderer(args) -> Renderer:
         scene, cam, cfg,
         RasterConfig(width=args.width, height=args.height),
         engine=engine, spp_per_frame=args.spp, ray_chunk=args.ray_chunk,
-        device=_device(args),
+        device=dev,
     )
 
 
@@ -113,7 +115,7 @@ def _bench_forward(dev, W, H, steps):
     from ptre_tpu_torch.render import pathtracer as pt
 
     pkt = demo.reference_demo_scene(32, 16).build_packet(device=dev)
-    cam = cam_ops.Camera.create(width=W, height=H)
+    cam = cam_ops.Camera.create(width=W, height=H, device=dev)
     cfg = RenderConfig(width=W, height=H)
     key = rng.key_for(cfg.seed)
     accum = pt.render_step(pkt, cam, pt.AccumState.create(H, W, dev), rng.fold(key, 0), cfg,
@@ -137,7 +139,7 @@ def _bench_fwdbwd(dev, W, H, steps):
     from ptre_tpu_torch.render import train
 
     pkt = demo.reference_demo_scene(32, 16).build_packet(device=dev)
-    cam = cam_ops.Camera.create(width=W, height=H)
+    cam = cam_ops.Camera.create(width=W, height=H, device=dev)
     cfg = RenderConfig(width=W, height=H)
     params = sh.differentiable_params(pkt, cam)
     target = torch.zeros((W * H, 3), dtype=torch.float32, device=dev)

@@ -12,9 +12,10 @@
 #include "trace.cuh"
 
 // `stats`: null, or ptre::kStats counters added to as the counting
-// instantiation adds to them; `lens`: null, or (H, W) bounces a path.
+// instantiation adds to them; `lens`: null, or (H, W) bounces a path;
+// `cam`: the camera's 18 rows, as the kernel takes them.
 extern "C" void ptre_render_sample_host(const ptre::RenderParams* params,
-                                        float* accum, const float* urand,
+                                        const float* cam, float* accum, const float* urand,
                                         const float* tris, const float* sphs,
                                         const float* mats, const float* sky,
                                         uint64_t* stats, int32_t* lens) {
@@ -22,10 +23,11 @@ extern "C" void ptre_render_sample_host(const ptre::RenderParams* params,
   const ptre::SceneTables tab = {tris, sphs, mats, sky, p.n_tri, p.n_sph, p.num_mats};
   if (p.external_rng) {
     const ptre::RenderJob<ptre::ExternalSource> job = {
-        p, {urand, (int64_t)p.height * p.width}, accum};
+        p, {urand, (int64_t)p.height * p.width}, accum, cam};
     ptre::host_dense(job, tab, stats, lens);
   } else {
-    const ptre::RenderJob<ptre::PhiloxSource> job = {p, {p.seed_lo, p.seed_hi, p.sample}, accum};
+    const ptre::RenderJob<ptre::PhiloxSource> job = {p, {p.seed_lo, p.seed_hi, p.sample},
+                                                     accum, cam};
     ptre::host_dense(job, tab, stats, lens);
   }
 }

@@ -44,11 +44,12 @@
 
 // C interface for ctypes. Launches on the caller's stream, allocates
 // nothing, does not synchronise; returns cudaGetLastError() of the launch.
+// `cam`: the camera's 18 rows (render_kernel.camera_rows) on the card.
 // `stats`: null, or kStats uint64 counters the counting instantiation adds
 // to (trace.cuh); `lens`: null, or (H, W) int32 bounces a path, written by
 // the counting instantiation.
 extern "C" int ptre_render_sample(const ptre::RenderParams* params,
-                                  float* accum, const float* urand,
+                                  const float* cam, float* accum, const float* urand,
                                   const float* tris, const float* sphs,
                                   const float* mats, const float* sky,
                                   unsigned long long* stats, int32_t* lens,
@@ -56,17 +57,18 @@ extern "C" int ptre_render_sample(const ptre::RenderParams* params,
   const ptre::RenderParams p = *params;
   if (p.n_tri < 1 || p.n_tri > ptre::kMaxTri || p.n_sph < 1 ||
       p.n_sph > ptre::kMaxSph || p.num_mats > ptre::kMaxMaterials ||
-      p.width < 1 || p.height < 1 || (p.external_rng && urand == nullptr)) {
+      p.width < 1 || p.height < 1 || cam == nullptr ||
+      (p.external_rng && urand == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
   const ptre::SceneTables tab = {tris, sphs, mats, sky, p.n_tri, p.n_sph, p.num_mats};
   if (p.external_rng) {
     const ptre::RenderJob<ptre::ExternalSource> job = {
-        p, {urand, (int64_t)p.height * p.width}, accum};
+        p, {urand, (int64_t)p.height * p.width}, accum, cam};
     return ptre::launch_dense(job, tab, stats, lens, stream);
   }
   const ptre::RenderJob<ptre::PhiloxSource> job = {
-      p, {p.seed_lo, p.seed_hi, p.sample}, accum};
+      p, {p.seed_lo, p.seed_hi, p.sample}, accum, cam};
   return ptre::launch_dense(job, tab, stats, lens, stream);
 }
 

@@ -60,9 +60,10 @@ constexpr float kTau = 6.28318548f;     // float32(2 * 3.14159265358979)
 constexpr float kInvPi = 0.318309873f;  // float32(1 / 3.14159265358979)
 
 // Kernel arguments, passed by value. Mirrored field for field by
-// RenderParams in ops/cuda/render_kernel.py (every field is 4 bytes).
+// RenderParams in ops/cuda/render_kernel.py (every field is 4 bytes). The
+// camera is not among them: the kernel reads its rows where they live
+// (RenderJob::cam), so the host never reads a camera made on the card.
 struct RenderParams {
-  float cam[18];  // camera_rows: A B C DA DB DC (x, y, z each)
   float t_min, t_max, det_eps, shadow_eps, pdf_eps;
   float inv_w, inv_h;  // 1/W, 1/H
   float inv_n, w_old;  // running average: 1/n and (n-1)/n
@@ -608,7 +609,10 @@ constexpr int kStats = 5;
 
 // One progressive sample of one pixel (render_kernel.py:79-179): jitter,
 // closed-form camera ray, the bounces, clamp + non-finite scrub, then lin =
-// c/n + lin*(n-1)/n on the (H, W, 3) accumulator in place.
+// c/n + lin*(n-1)/n on the (H, W, 3) accumulator in place. `cam` points at
+// the 18 camera rows (render_kernel.camera_rows: A B C DA DB DC, x y z
+// each) in the kernel's own memory space: global memory on the card, every
+// lane of a warp reading the same address.
 template <class Source>
 struct RenderJob {
   using Uniforms = decltype(Source().at(0));
@@ -621,6 +625,7 @@ struct RenderJob {
   RenderParams p;
   Source src;
   float* accum;
+  const float* cam;
   DenseScene sc;   // the staged scene
   int x0, y0, tw;  // the tile's corner and width (ragged at the edge)
 
@@ -651,7 +656,7 @@ struct RenderJob {
         sub_rn(mul_rn(add_rn((float)x, jx), mul_rn(2.0f, p.inv_w)), 1.0f);
     const float y_ndc =
         sub_rn(1.0f, mul_rn(add_rn((float)y, jy), mul_rn(2.0f, p.inv_h)));
-    const float* c = p.cam;
+    const float* c = cam;
     l.s.ox = lin2_rn(x_ndc, c[0], y_ndc, c[3], c[6]);
     l.s.oy = lin2_rn(x_ndc, c[1], y_ndc, c[4], c[7]);
     l.s.oz = lin2_rn(x_ndc, c[2], y_ndc, c[5], c[8]);

@@ -2,8 +2,11 @@
 
 PyTorch port of `ptre_tpu/ops/camera.py`. Defaults mirror `camera.h:11,26-27`:
 position (0, 0.5, -3), forward (0, -0.5, 3), vertical fov 45 deg, znear 0.01,
-zfar 100. The pose leaves are small float32 tensors; width, height and
-projection are plain ints.
+zfar 100. The pose leaves are small float32 tensors on the camera's device
+(the card unless the caller names another, as the reference's
+``jnp.asarray`` places them on the accelerator); width, height and
+projection are plain ints. Every consumer reads the camera where it lives
+and none moves it: a camera on another device than the image raises.
 """
 
 from __future__ import annotations
@@ -13,9 +16,12 @@ import dataclasses
 import torch
 
 from ptre_tpu_torch.ops import vecmat as vm
+from ptre_tpu_torch.utils.device import resolve
 
 PERSPECTIVE = 0
 ORTHOGRAPHIC = 1
+#: the camera's tensor leaves
+_LEAVES = ("position", "forward", "fov_degrees", "znear", "zfar")
 
 
 @dataclasses.dataclass
@@ -35,14 +41,29 @@ class Camera:
     def create(cls, width: int = 1280, height: int = 720,
                position=(0.0, 0.5, -3.0), forward=(0.0, -0.5, 3.0),
                fov_degrees: float = 45.0, znear: float = 0.01,
-               zfar: float = 100.0, projection: int = PERSPECTIVE) -> "Camera":
+               zfar: float = 100.0, projection: int = PERSPECTIVE,
+               device=None) -> "Camera":
+        """A camera whose pose leaves lie on ``device``: None means the card
+        (RendererError where there is none), ``"cpu"`` the host."""
+        device = resolve(device)
+
         def f32(x):
-            return torch.as_tensor(x, dtype=torch.float32)
+            return torch.as_tensor(x, dtype=torch.float32, device=device)
 
         return cls(position=f32(position), forward=f32(forward),
                    fov_degrees=f32(fov_degrees), znear=f32(znear),
                    zfar=f32(zfar), width=width, height=height,
                    projection=projection)
+
+    @property
+    def device(self) -> torch.device:
+        return self.position.device
+
+    def to(self, device) -> "Camera":
+        """This camera with its pose leaves on ``device`` (one copy each,
+        none where they are there already)."""
+        return dataclasses.replace(
+            self, **{f: getattr(self, f).to(device) for f in _LEAVES})
 
     @property
     def aspect(self) -> float:
@@ -60,18 +81,57 @@ class Camera:
                               self.znear, self.zfar)
 
 
+#: (what, width, height, projection, leaf ids) -> (leaves, versions, value)
+_DERIVED = {}
+_DERIVED_KEEP = 16
+
+
+def derived(cam: Camera, what: str, fn):
+    """``fn(cam)``, made once and reused while the camera's leaves are the
+    same tensors, unmodified (their version counters) and not differentiated
+    (a leaf that needs a gradient with grad mode on makes it anew every
+    call): the matrices and rows of a still camera cost a frame no launch.
+    The value is shared: read it only."""
+    leaves = tuple(getattr(cam, f) for f in _LEAVES)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in leaves):
+        return fn(cam)
+    key = (what, cam.width, cam.height, cam.projection) + tuple(id(t) for t in leaves)
+    versions = tuple(t._version for t in leaves)
+    hit = _DERIVED.get(key)
+    if hit is not None and hit[1] == versions and all(a is b for a, b in zip(hit[0], leaves)):
+        return hit[2]
+    value = fn(cam)
+    _DERIVED.pop(key, None)
+    _DERIVED[key] = (leaves, versions, value)
+    while len(_DERIVED) > _DERIVED_KEEP:
+        _DERIVED.pop(next(iter(_DERIVED)))
+    return value
+
+
+def check_device(cam: Camera, device, what: str = "the rays") -> None:
+    """Raise unless the camera lies on ``device``: its consumers build its
+    matrices where it lives, and a copy made every frame is what this
+    refuses to hide (`Camera.to` moves it once)."""
+    device = torch.device(device)
+    if cam.device.type != device.type or (
+            device.index is not None and cam.device.index not in (None, device.index)):
+        raise ValueError(f"the camera is on {cam.device}, {what} on {device}: create it "
+                         f"there (Camera.create(device=...)) or move it once (Camera.to)")
+
+
 def get_rays(cam: Camera, px, py, jitter):
     """World-space rays through pixel (px, py) + jitter (`camera.cu:20-43`):
     screen → NDC, unproject the near (z=0) and far (z=1) points through
     inv(proj) with w-divide, then inv(view); the ray runs near → far.
 
     px, py: (...,) pixel coordinates (x right, y down); jitter: (..., 2) in
-    [-0.5, 0.5). Returns (origins, unit directions), (..., 3) each, on the
-    device of ``px``: a camera of host tensors has its two 4x4 inverses made
-    on the host and moved there.
+    [-0.5, 0.5). Returns (origins, unit directions), (..., 3) each. The
+    camera's two 4x4 inverses are made on its device, which must be that of
+    ``px`` (`check_device`), once for a still camera (`derived`).
     """
-    inv_view = vm.inverse(cam.view_matrix()).to(px.device)
-    inv_proj = vm.inverse(cam.projection_matrix()).to(px.device)
+    check_device(cam, px.device)
+    inv_view, inv_proj = derived(cam, "inverses", lambda c: (
+        vm.inverse(c.view_matrix()), vm.inverse(c.projection_matrix())))
 
     x_ndc = ((px + jitter[..., 0]) / cam.width) * 2.0 - 1.0
     y_ndc = 1.0 - ((py + jitter[..., 1]) / cam.height) * 2.0

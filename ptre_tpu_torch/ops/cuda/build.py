@@ -131,8 +131,8 @@ def load_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(lib_path)
     ptr = ctypes.c_void_p
     lib.ptre_render_sample.restype = ctypes.c_int
-    # (params, accum, urand, tris, sphs, mats, sky, stats, lens, stream)
-    lib.ptre_render_sample.argtypes = [ptr] * 10
+    # (params, cam, accum, urand, tris, sphs, mats, sky, stats, lens, stream)
+    lib.ptre_render_sample.argtypes = [ptr] * 11
     lib.ptre_trace_record.restype = ctypes.c_int
     # (params, o, d, urand, tris, sphs, mats, sky, color, sel, stats, lens,
     #  stream)

@@ -138,12 +138,13 @@ def morton_order(v0, v1, v2, valid):
     return torch.argsort(key, stable=True)
 
 
-def empty_boxes(n: int, device=None):
+def empty_boxes(n: int, *, device):
     """(n, 8) always-miss box rows: lo = +BOX_INF > hi = -BOX_INF
     (`megakernel.py:132-136`)."""
     boxes = torch.zeros((n, 8), dtype=torch.float32, device=device)
-    boxes[:, 0:3] = BOX_INF  # filled on the device: no host copy, no sync
-    boxes[:, 3:6] = -BOX_INF
+    # filled on the device: a Python value set by index would be a host copy
+    boxes[:, 0:3].fill_(BOX_INF)
+    boxes[:, 3:6].fill_(-BOX_INF)
     return boxes
 
 
@@ -709,7 +710,7 @@ def pack_super_boxes(boxes, sup: int = SUPER):
     (`megakernel.py:139-150`)."""
     pad = (-boxes.shape[0]) % sup
     if pad:
-        boxes = torch.cat([boxes, empty_boxes(pad, boxes.device)])
+        boxes = torch.cat([boxes, empty_boxes(pad, device=boxes.device)])
     m = boxes.reshape(-1, sup, 8)
     lo = torch.amin(m[:, :, 0:3], dim=1)
     hi = torch.amax(m[:, :, 3:6], dim=1)

@@ -33,14 +33,17 @@ from __future__ import annotations
 
 import bisect
 import ctypes
+import functools
 import math
 
 import torch
 
+from ptre_tpu_torch.ops import camera as cam_ops
 from ptre_tpu_torch.ops import vecmat as vm
 from ptre_tpu_torch.ops.cuda import build
 from ptre_tpu_torch.ops.cuda import megakernel as mk
 from ptre_tpu_torch.render.rasterizer import transform_vertices
+from ptre_tpu_torch.utils.device import constant
 from ptre_tpu_torch.utils.errors import RendererError
 
 #: triangle rows per chunk: the cull and staging unit (`raster_kernel.py:41`)
@@ -81,12 +84,19 @@ def raster_params(scal, rows_ss: int, width_ss: int, ss: int, n_chunks: int) -> 
 def raster_scalars(config, sigma_inv: float = 0.0, y0: float = 0.0, stride: int = 1):
     """(16,) float32 CPU scalars: ambient rgb, albedo rgb, normalised light,
     clear rgb, 1/sigma (soft only), y0, stride, 0 (`raster_kernel.py:472-481`,
-    `soft_raster.py:445-457`; the hard kernel reads y0 and stride too)."""
+    `soft_raster.py:445-457`; the hard kernel reads y0 and stride too). Made
+    once per shading, sigma and window, and shared: read it only."""
+    return _scalars(tuple(config.clear_color), float(config.ambient_strength),
+                    tuple(config.light_dir), tuple(config.albedo), float(sigma_inv),
+                    float(y0), float(stride))
+
+
+@functools.lru_cache(maxsize=64)
+def _scalars(clear, ambient, light_dir, albedo, sigma_inv, y0, stride):
     f32 = torch.float32
-    light = vm.normalize(torch.tensor(config.light_dir, dtype=f32))
-    ambient = config.ambient_strength * torch.tensor(config.clear_color, dtype=f32)
-    return torch.cat([ambient, torch.tensor(config.albedo, dtype=f32), light,
-                      torch.tensor(config.clear_color, dtype=f32),
+    light = vm.normalize(torch.tensor(light_dir, dtype=f32))
+    return torch.cat([ambient * torch.tensor(clear, dtype=f32), torch.tensor(albedo, dtype=f32),
+                      light, torch.tensor(clear, dtype=f32),
                       torch.tensor([sigma_inv, y0, stride, 0.0], dtype=f32)])
 
 
@@ -132,8 +142,9 @@ def pack_raster_tris(packet, cam, config):
     ss = config.supersample
     Ws, Hs = config.width * ss, config.height * ss
     dev = packet.device
-    view = cam.view_matrix().to(dev)
-    proj = cam.projection_matrix().to(dev)
+    cam_ops.check_device(cam, dev, "the packet")
+    view, proj = cam_ops.derived(cam, "matrices",
+                                 lambda c: (c.view_matrix(), c.projection_matrix()))
     tri_v = torch.stack([packet.tri_v0, packet.tri_v1, packet.tri_v2], dim=1)
     tri_n = torch.stack([packet.tri_n0, packet.tri_n1, packet.tri_n2], dim=1)
     ndc, w, n_world = transform_vertices(tri_v, tri_n, packet.tri_dc, packet.transforms,
@@ -161,8 +172,7 @@ def pack_raster_tris(packet, cam, config):
     # dropped rows can carry NaN/inf from the w-divide, which poisons even
     # masked arithmetic (0 * NaN): zero them, with a never-hit box
     keep_rows = cols[:, 12] > 0.5
-    safe = torch.zeros(32, dtype=torch.float32, device=dev)
-    safe[23], safe[24], safe[25], safe[26] = BIG, -BIG, BIG, -BIG
+    safe = constant((0.0,) * 23 + (BIG, -BIG, BIG, -BIG) + (0.0,) * 5, dev)
     cols = torch.where(keep_rows[:, None], cols, safe)
 
     perm = _morton2_order((cols[:, 23] + cols[:, 24]) * 0.5,
@@ -189,7 +199,7 @@ def chunk_boxes(cols):
         keep_c.any(dim=1).to(torch.float32), zero, zero, zero], dim=1)
 
 
-def sample_ys(rows_ss: int, ss: int, y0: float, stride: float, device=None):
+def sample_ys(rows_ss: int, ss: int, y0: float, stride: float, *, device):
     """(rows_ss,) float32 sample y of each window row, rounded as the kernel
     rounds it (`raster.cuh` row_y)."""
     r = torch.arange(rows_ss, device=device)
@@ -204,7 +214,7 @@ def visited_pairs(cbox, rows_ss: int, width_ss: int, ss: int, y0: float = 0.0,
     chunk_hits). One host read."""
     dev = cbox.device
     n_by, n_bx = -(-rows_ss // TILE), -(-width_ss // TILE)
-    ys = sample_ys(rows_ss, ss, y0, stride, dev)
+    ys = sample_ys(rows_ss, ss, y0, stride, device=dev)
     r0 = torch.arange(n_by, device=dev) * TILE
     y_first = ys[r0]
     y_last = ys[torch.clamp(r0 + TILE - 1, max=rows_ss - 1)]
@@ -238,7 +248,7 @@ def window_span(rows_ss: int, width_ss: int, ss: int, y0: float = 0.0,
                 stride: float = 1.0) -> float:
     """The largest |coordinate| of a sample of the window, plus ss + 1
     (`raster.cuh` window_span), rounded as the kernel rounds it."""
-    ys = sample_ys(rows_ss, ss, y0, stride)
+    ys = sample_ys(rows_ss, ss, y0, stride, device="cpu")  # host arithmetic
     y = max(abs(float(ys[0])), abs(float(ys[-1])))
     return mk.f32(mk.f32(max(float(width_ss), y)) + float(ss + 1))
 
@@ -324,7 +334,7 @@ def raster_reference(tris, cbox, scal, rows_ss: int, width_ss: int, ss: int):
     sample with no winner takes the clear colour."""
     s = [mk.f32(v) for v in scal.tolist()]
     dev = tris.device
-    ys = sample_ys(rows_ss, ss, s[13], s[14], dev)
+    ys = sample_ys(rows_ss, ss, s[13], s[14], device=dev)
     xs = torch.arange(width_ss, device=dev, dtype=torch.float32) + 0.5
     best_z = torch.full((rows_ss, width_ss), FAR, device=dev)
     best_i = torch.full((rows_ss, width_ss), -1, dtype=torch.int64, device=dev)
@@ -346,7 +356,7 @@ def raster_reference(tris, cbox, scal, rows_ss: int, width_ss: int, ss: int):
     py = ys[:, None].expand(rows_ss, width_ss).reshape(-1)
     px = xs[None, :].expand(rows_ss, width_ss).reshape(-1)
     rgb = shade_winner(tris[best_i.reshape(-1).clamp(min=0)], px, py, s)
-    clear = torch.tensor(s[9:12], device=dev)
+    clear = constant(s[9:12], dev)
     out = torch.where(hit[:, None], rgb, clear)
     return out.T.reshape(3, rows_ss, width_ss)
 

@@ -29,9 +29,9 @@ import numpy as np
 import torch
 
 from ptre_tpu_torch.utils.errors import RendererError
+from ptre_tpu_torch.ops import camera as cam_ops
 from ptre_tpu_torch.ops import rng
 from ptre_tpu_torch.ops import vecmat as vm
-from ptre_tpu_torch.ops.camera import PERSPECTIVE
 from ptre_tpu_torch.ops.cuda import build
 from ptre_tpu_torch.ops.cuda import megakernel as mk
 from ptre_tpu_torch.ops.integrator import postprocess_sample
@@ -43,7 +43,13 @@ launches = 0
 def camera_rows(cam):
     """(24,) float32 ray rows over NDC (x, y): origin = x·A + y·B + C,
     direction ∝ x·DA + y·DB + DC, then 6 zeros (`render_kernel.py:224-260`).
-    The closed form of the near/far unproject of `camera.get_rays`."""
+    The closed form of the near/far unproject of `camera.get_rays`, made on
+    the camera's device, once for a still camera (`camera.derived`): the
+    kernel reads the first 18 where they lie. Shared: read it only."""
+    return cam_ops.derived(cam, "rows", _camera_rows)
+
+
+def _camera_rows(cam):
     inv_view = vm.inverse(cam.view_matrix())
     rot = inv_view[:3, :3]  # row-vector: world = v @ rot + t
     t = inv_view[3, :3]
@@ -52,7 +58,7 @@ def camera_rows(cam):
     m11 = proj[1, 1]
     n = cam.znear
     zeros3 = torch.zeros(3, dtype=torch.float32, device=rot.device)
-    if cam.projection == PERSPECTIVE:
+    if cam.projection == cam_ops.PERSPECTIVE:
         a = (n / m00) * rot[0]
         b = (n / m11) * rot[1]
         da = rot[0] / m00
@@ -67,10 +73,10 @@ def camera_rows(cam):
 
 
 class RenderParams(ctypes.Structure):
-    """Kernel arguments; field for field `ptre::RenderParams` (trace.cuh)."""
+    """Kernel arguments; field for field `ptre::RenderParams` (trace.cuh).
+    The camera rows are not among them: the kernel takes a pointer to them."""
 
     _fields_ = [
-        ("cam", ctypes.c_float * 18),
         ("t_min", ctypes.c_float), ("t_max", ctypes.c_float),
         ("det_eps", ctypes.c_float), ("shadow_eps", ctypes.c_float),
         ("pdf_eps", ctypes.c_float),
@@ -93,14 +99,13 @@ def _average_weights(n: int):
     return float(inv_n), float((nf - np.float32(1.0)) * inv_n)
 
 
-def render_params(height: int, width: int, scene: mk.PackedScene, cam_rows,
-                  n: int, config, seed: int = 0,
-                  external_rng: bool = False) -> RenderParams:
-    """The kernel arguments for one sample with running-average index n."""
+def render_params(height: int, width: int, scene: mk.PackedScene, n: int, config,
+                  seed: int = 0, external_rng: bool = False) -> RenderParams:
+    """The kernel arguments for one sample with running-average index n:
+    host values only, so building them reads nothing from the card."""
     k = mk.TraceConsts.from_config(config)
     inv_n, w_old = _average_weights(n)
     p = RenderParams()
-    p.cam[:] = cam_rows.tolist()[:18]
     p.t_min, p.t_max, p.det_eps = k.t_min, k.t_max, k.det_eps
     p.shadow_eps, p.pdf_eps = k.shadow_eps, k.pdf_eps
     p.inv_w, p.inv_h = mk.f32(1.0 / width), mk.f32(1.0 / height)
@@ -118,12 +123,13 @@ def render_params(height: int, width: int, scene: mk.PackedScene, cam_rows,
 def sample_accum_reference(accum, scene: mk.PackedScene, cam_rows, n: int,
                            config, seed: int = 0, urand=None):
     """Plain PyTorch version of the kernel: returns the updated (H, W, 3)
-    accumulator as a new tensor (``accum`` is not modified)."""
+    accumulator as a new tensor (``accum`` is not modified). The camera
+    rows are read as 0-d tensors on their device, as the kernel reads them."""
     H, W = accum.shape[:2]
     dev = accum.device
     if urand is None:
         urand = rng.render_uniforms(seed, n, H, W, config.max_depth, device=dev)
-    c = cam_rows.tolist()
+    c = cam_rows.to(torch.float32).unbind()
     sx = mk.f32(2.0 * mk.f32(1.0 / W))
     sy = mk.f32(2.0 * mk.f32(1.0 / H))
 
@@ -147,10 +153,11 @@ def sample_accum_reference(accum, scene: mk.PackedScene, cam_rows, n: int,
     return col * inv_n + accum * w_old
 
 
-def _check_cuda_inputs(accum, scene, urand, max_depth, stats, lens):
+def _check_cuda_inputs(accum, scene, cam_rows, urand, max_depth, stats, lens):
     H, W = accum.shape[:2]
-    expected = [("accum", accum, (H, W, 3), torch.float32)] + mk.check_stats(stats, lens,
-                                                                            (H, W))
+    expected = [("accum", accum, (H, W, 3), torch.float32),
+                ("cam_rows", cam_rows, (24,), torch.float32)] + mk.check_stats(stats, lens,
+                                                                                (H, W))
     if urand is not None:
         expected.append(("urand", urand, (2 + 2 * max_depth, H, W), torch.float32))
     mk.check_tensors("accum", accum.device, expected)
@@ -164,6 +171,8 @@ def sample_accum(accum, scene: mk.PackedScene, cam_rows, n: int, config,
     CUDA tensors launch the hand-written kernel; CPU tensors run
     `sample_accum_reference`. ``n`` is this sample's 1-based running-average
     index; ``seed`` keys the in-kernel Philox when ``urand`` is None.
+    ``cam_rows``: `camera_rows` on the accumulator's device; the kernel
+    reads them there, so no launch reads the card from the host.
     ``stats`` (5,) int64 on the card, or None, receives the counters named
     in `megakernel.DENSE_STATS` (the kernel's counting instantiation);
     ``lens`` (H, W) int32, or None, each pixel's path length in bounces
@@ -176,15 +185,14 @@ def sample_accum(accum, scene: mk.PackedScene, cam_rows, n: int, config,
         return accum
     if accum.device.type != "cuda":
         raise RendererError(f"sample_accum runs on cuda or cpu, not {accum.device}")
-    _check_cuda_inputs(accum, scene, urand, config.max_depth, stats, lens)
+    _check_cuda_inputs(accum, scene, cam_rows, urand, config.max_depth, stats, lens)
     H, W = accum.shape[:2]
-    params = render_params(H, W, scene, cam_rows, n, config, seed,
-                           external_rng=urand is not None)
+    params = render_params(H, W, scene, n, config, seed, external_rng=urand is not None)
     lib = build.load_library()
     with torch.cuda.device(accum.device):
         stream = torch.cuda.current_stream(accum.device).cuda_stream
         rc = lib.ptre_render_sample(
-            ctypes.addressof(params), accum.data_ptr(),
+            ctypes.addressof(params), cam_rows.data_ptr(), accum.data_ptr(),
             None if urand is None else urand.data_ptr(),
             scene.tris.data_ptr(), scene.sphs.data_ptr(),
             scene.mats.data_ptr(), scene.sky.data_ptr(),

@@ -43,6 +43,7 @@ from ptre_tpu_torch.ops import gradsafe as gs
 from ptre_tpu_torch.ops.cuda import build
 from ptre_tpu_torch.ops.cuda import megakernel as mk
 from ptre_tpu_torch.ops.cuda import raster_kernel as rk
+from ptre_tpu_torch.utils.device import constant
 from ptre_tpu_torch.utils.errors import RendererError
 
 #: box dilation in sigmas: sigmoid(-14) < 1e-6, the coverage threshold
@@ -92,7 +93,7 @@ def _soft_cols(packet, cam, config):
 def dilate(cbox, sigma: float):
     """Chunk boxes grown by 14 sigma on every side (`soft_raster.py:439-443`)."""
     d = DILATE_SIGMA * float(sigma)
-    return cbox + torch.tensor([-d, d, -d, d, 0.0, 0.0, 0.0, 0.0], device=cbox.device)
+    return cbox + constant((-d, d, -d, d, 0.0, 0.0, 0.0, 0.0), cbox.device)
 
 
 def pair_terms(blk, px, py, scal):
@@ -134,7 +135,7 @@ def pair_terms(blk, px, py, scal):
 def _windows(tris, cbox, scal, rows_ss: int, width_ss: int, ss: int):
     """Sample coordinates and the live chunks' windows of the plain versions."""
     dev = tris.device
-    ys = rk.sample_ys(rows_ss, ss, scal[13], scal[14], dev)
+    ys = rk.sample_ys(rows_ss, ss, scal[13], scal[14], device=dev)
     xs = torch.arange(width_ss, device=dev, dtype=torch.float32) + 0.5
     return ys, xs, rk.chunk_windows(cbox, ys, width_ss)
 

@@ -54,7 +54,9 @@ import functools
 
 import torch
 
+from ptre_tpu_torch.utils.device import constant
 from ptre_tpu_torch.utils.errors import RendererError
+from ptre_tpu_torch.ops import camera as cam_ops
 from ptre_tpu_torch.ops import vecmat as vm
 from ptre_tpu_torch.ops.cuda import build
 from ptre_tpu_torch.ops.cuda import megakernel as mk
@@ -155,7 +157,9 @@ def leaf_screen_boxes(v0, v1, v2, tri_valid, cam, leaf: int, n_leaf: int):
     behind the eye plane (w <= W_EPS) covers the whole screen, an invalid
     row nothing; each box is dilated by SCREEN_DILATE pixels."""
     W, H = float(cam.width), float(cam.height)
-    vp = (cam.view_matrix() @ cam.projection_matrix()).to(v0.device)
+    cam_ops.check_device(cam, v0.device, "the triangles")
+    vp = cam_ops.derived(cam, "view_projection",
+                         lambda c: c.view_matrix() @ c.projection_matrix())
     big = _SCREEN_BIG
     sxs, sys_, ws = [], [], []
     for v in (v0, v1, v2):
@@ -176,7 +180,7 @@ def leaf_screen_boxes(v0, v1, v2, tri_valid, cam, leaf: int, n_leaf: int):
                          torch.where(valid, miny, big), torch.where(valid, maxy, -big)],
                         dim=1)
     pad = n_leaf * leaf - boxes.shape[0]
-    empty = boxes.new_tensor([big, -big, big, -big]).expand(pad, 4)
+    empty = constant((big, -big, big, -big), boxes.device).expand(pad, 4)
     boxes = torch.cat([boxes, empty]).reshape(n_leaf, leaf, 4)
     return torch.stack([torch.amin(boxes[:, :, 0], dim=1), torch.amax(boxes[:, :, 1], dim=1),
                         torch.amin(boxes[:, :, 2], dim=1), torch.amax(boxes[:, :, 3], dim=1)],
@@ -200,7 +204,7 @@ def screen_block_mask(leaf_screen, height: int, width: int, rows: int, cols: int
 
 
 def tile_order(height: int, width: int, rows: int = TILE_ROWS,
-               cols: int = LANES // TILE_ROWS, device=None):
+               cols: int = LANES // TILE_ROWS, *, device):
     """Primary-ray permutation, row-major pixels → (rows x cols) pixel tiles,
     one ray block each (`wavefront.py:697-706`); None if the image does not
     tile evenly."""
@@ -257,7 +261,8 @@ def cull_tables(boxes, scale):
     with empty boxes to whole supertiles, and the supertiles' unions."""
     pad = CULL_PAD_REL * scale
     grown = torch.cat([boxes[:, 0:3] - pad, boxes[:, 3:6] + pad, boxes[:, 6:]], dim=1)
-    cull = torch.cat([grown, mk.empty_boxes((-boxes.shape[0]) % mk.SUPER, boxes.device)])
+    cull = torch.cat([grown, mk.empty_boxes((-boxes.shape[0]) % mk.SUPER,
+                                            device=boxes.device)])
     return cull.contiguous(), mk.pack_super_boxes(cull).contiguous()
 
 
@@ -298,7 +303,7 @@ def prepare_scene(packet, screen_cam=None, leaf: int = LEAF,
         scene_hi = torch.amax(torch.where(vf > 0.5, pts_hi, -1e30), dim=0)
     else:
         tris = tris.new_zeros((leaf, 32))  # one invalid leaf: a non-empty table
-        boxes = mk.empty_boxes(1, dev)
+        boxes = mk.empty_boxes(1, device=dev)
         scene_lo = torch.zeros(3, device=dev)
         scene_hi = torch.ones(3, device=dev)
     rows = pack_rows(tris, perm if perm is not None else torch.arange(T, device=dev))
@@ -569,7 +574,7 @@ def _no_stage(name: str):
     return contextlib.nullcontext()
 
 
-def all_leaves(nb: int, n_leaf: int, device=None):
+def all_leaves(nb: int, n_leaf: int, *, device):
     """Shortlists that sweep every leaf (``cull=False``, the brute A/B)."""
     short = torch.arange(n_leaf, dtype=torch.int32, device=device).expand(nb, n_leaf)
     return short.contiguous(), torch.full((nb,), n_leaf, dtype=torch.int32, device=device)
@@ -583,7 +588,7 @@ def initial_state(o, d, lanes: int = LANES):
     state = torch.zeros((STATE_ROWS, r_pad), dtype=torch.float32, device=o.device)
     state[0:3, :R] = o.T
     state[3:6, :R] = d.T
-    state[6:10, :R] = 1.0
+    state[6:10, :R].fill_(1.0)  # on the device: no host copy
     return state, torch.arange(r_pad, dtype=torch.int32, device=o.device)
 
 
@@ -598,7 +603,8 @@ def primary_state(o, d, scene: WaveScene, tile_hint=None, cull: bool = True,
     r_pad = state.shape[1]
     if tile_hint is None:
         return state, ids, None
-    t_ord = tile_order(tile_hint[0], tile_hint[1], TILE_ROWS, lanes // TILE_ROWS, o.device)
+    t_ord = tile_order(tile_hint[0], tile_hint[1], TILE_ROWS, lanes // TILE_ROWS,
+                       device=o.device)
     if t_ord is None or t_ord.shape[0] != R:
         return state, ids, None
     perm0 = torch.cat([t_ord, torch.arange(R, r_pad, device=o.device)])
@@ -670,7 +676,7 @@ def trace(o, d, scene: WaveScene, consts, max_depth: int, seed: int = 0,
             with stage("compact"):
                 short, cnt = shortlists_from_mask(mask)
         else:
-            short, cnt = all_leaves(nb, scene.n_leaf, dev)
+            short, cnt = all_leaves(nb, scene.n_leaf, device=dev)
         with stage("bounce"):
             state = bounce_fn(state, ids, short, cnt, scene, consts, b, seed, sample,
                               urand, lanes, sel)

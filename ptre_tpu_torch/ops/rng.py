@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from ptre_tpu_torch.ops import vecmat as vm
+from ptre_tpu_torch.utils.device import resolve
 
 _MASK = 0xFFFFFFFF
 PHILOX_M0 = 0xD2511F53
@@ -65,6 +66,11 @@ def philox4x32(c0, c1, c2, c3, k0: int, k1: int, rounds: int = ROUNDS):
     return c0, c1, c2, c3
 
 
+def _word(v: int, device):
+    """A 0-d int64 counter word on ``device``, filled there (no host copy)."""
+    return torch.full((), v & _MASK, dtype=torch.int64, device=device)
+
+
 def u01(words):
     """32-bit words → float32 uniforms in [0, 1): ``(w >> 8) * 2**-24``."""
     return (words >> 8).to(torch.float32) * (2.0 ** -24)
@@ -74,14 +80,15 @@ def ray_uniforms(seed: int, sample: int, n_rays: int, n_pairs: int,
                  device=None):
     """(2 * n_pairs, n_rays) uniforms: rows 2k and 2k+1 are draw pair k of
     each ray (pixel), keyed by (seed, ray, sample, k) as the kernels key
-    them. ``n_pairs = 1`` gives only the pixel jitter (+0.5)."""
+    them. ``n_pairs = 1`` gives only the pixel jitter (+0.5). ``device``:
+    None means the card (RendererError where there is none)."""
+    device = resolve(device)
     pix = torch.arange(n_rays, dtype=torch.int64, device=device)
-    smp = torch.tensor(sample & _MASK, dtype=torch.int64, device=device)
-    zero = torch.zeros((), dtype=torch.int64, device=device)
+    smp = _word(sample, device)
+    zero = _word(0, device)
     rows = []
     for block in range((n_pairs + 1) // 2):
-        blk = torch.tensor(block, dtype=torch.int64, device=device)
-        words = philox4x32(pix, smp, blk, zero, seed & _MASK, seed >> 32)
+        words = philox4x32(pix, smp, _word(block, device), zero, seed & _MASK, seed >> 32)
         rows.extend(words)
     return torch.stack([u01(w) for w in rows[: 2 * n_pairs]])
 
@@ -91,9 +98,9 @@ def pair_uniforms(seed: int, sample: int, ids, k: int):
     any device): the bits `ray_uniforms` gives in rows 2k and 2k+1 of those
     columns, which the wavefront kernel regenerates from a ray's id."""
     ray = ids.to(torch.int64)
-    smp = torch.tensor(sample & _MASK, dtype=torch.int64, device=ray.device)
-    blk = torch.tensor(k >> 1, dtype=torch.int64, device=ray.device)
-    w = philox4x32(ray, smp, blk, torch.zeros_like(smp), seed & _MASK, seed >> 32)
+    smp = _word(sample, ray.device)
+    w = philox4x32(ray, smp, _word(k >> 1, ray.device), torch.zeros_like(smp),
+                   seed & _MASK, seed >> 32)
     return (u01(w[2]), u01(w[3])) if k & 1 else (u01(w[0]), u01(w[1]))
 
 
@@ -101,7 +108,8 @@ def render_uniforms(seed: int, sample: int, height: int, width: int,
                     max_depth: int, device=None):
     """The (2 + 2*max_depth, H, W) uniforms the render kernel draws in-kernel
     for one sample: rows 0-1 are the pixel jitter (+0.5), rows 2b+2 and
-    2b+3 bounce b's scatter pair — the layout of the external ``urand``."""
+    2b+3 bounce b's scatter pair — the layout of the external ``urand``.
+    ``device``: None means the card."""
     return ray_uniforms(seed, sample, height * width, 1 + max_depth,
                         device).reshape(2 + 2 * max_depth, height, width)
 
@@ -168,9 +176,11 @@ def split(key: Key, num: int = 2):
 def random_bits(key: Key, shape, device=None):
     """32 random bits per element of ``shape`` (int64 tensor): the hash of
     the element's row-major index as a (hi, lo) counter, the two output
-    words xor-ed (``_threefry_random_bits_partitionable``)."""
+    words xor-ed (``_threefry_random_bits_partitionable``). ``device``:
+    None means the card (RendererError where there is none), as for every
+    draw below."""
     n = math.prod(shape)
-    idx = torch.arange(n, dtype=torch.int64, device=device)
+    idx = torch.arange(n, dtype=torch.int64, device=resolve(device))
     b0, b1 = threefry2x32(key.k0, key.k1, idx >> 32, idx & _MASK)
     return (b0 ^ b1).reshape(tuple(shape))
 
@@ -278,9 +288,9 @@ def onb_from_normal(n):
     w = n * torch.where(pos, torch.rsqrt(torch.where(pos, len_sq, torch.ones_like(len_sq))),
                         torch.zeros_like(len_sq))
     big_x = (torch.abs(w[..., 0]) > 0.9)[..., None]
-    e_y = torch.tensor([0.0, 1.0, 0.0], dtype=n.dtype, device=n.device)
-    e_x = torch.tensor([1.0, 0.0, 0.0], dtype=n.dtype, device=n.device)
-    a = torch.where(big_x, e_y, e_x)
+    zero, one = torch.zeros_like(w[..., :1]), torch.ones_like(w[..., :1])
+    a = torch.where(big_x, torch.cat([zero, one, zero], dim=-1),
+                    torch.cat([one, zero, zero], dim=-1))  # no host-made axes
     v = vm.cross(w, a)
     v_len = torch.sqrt(torch.sum(v * v, dim=-1, keepdim=True))
     v = v / torch.where(v_len > 0, v_len, torch.ones_like(v_len))

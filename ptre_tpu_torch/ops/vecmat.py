@@ -223,8 +223,9 @@ def look_at(eye, focus):
     eye = torch.as_tensor(eye, dtype=torch.float32)
     focus = torch.as_tensor(focus, dtype=torch.float32)
     forward = normalize(focus - eye)
-    aux = torch.tensor([0.0, 1.0, 0.0], dtype=torch.float32, device=forward.device)
-    right = torch.linalg.cross(aux.expand_as(forward), forward)
+    aux = torch.zeros_like(forward)
+    aux[..., 1].fill_(1.0)  # filled where forward lives: no host-made copy
+    right = torch.linalg.cross(aux, forward)
     up = torch.linalg.cross(forward, right)
     m = torch.zeros(forward.shape[:-1] + (4, 4), dtype=torch.float32,
                     device=forward.device)
@@ -234,8 +235,17 @@ def look_at(eye, focus):
     m[..., 3, 0] = -dot(right, eye)
     m[..., 3, 1] = -dot(up, eye)
     m[..., 3, 2] = -dot(forward, eye)
-    m[..., 3, 3] = 1.0
+    m[..., 3, 3].fill_(1.0)  # a Python value set by index is a host copy on CUDA
     return m
+
+
+def _on(x, ref):
+    """``x`` as a float32 tensor: a tensor where it lies, a Python number
+    filled on ``ref``'s device (no host copy; and on CUDA a division by a
+    host scalar would be a product with its reciprocal, not the division)."""
+    if isinstance(x, torch.Tensor):
+        return x.to(torch.float32)
+    return torch.full((), float(x), dtype=torch.float32, device=ref.device)
 
 
 def _bad_planes(znear, zfar):
@@ -245,33 +255,30 @@ def _bad_planes(znear, zfar):
 def perspective(aspect_ratio, fovh, znear, zfar):
     """D3D LH perspective, clip z in [0, 1] (`matrix.cu:342-357`). ``fovh`` is
     the vertical fov in radians; degenerate planes give an INFINITY matrix."""
-    aspect_ratio = torch.as_tensor(aspect_ratio, dtype=torch.float32)
     fovh = torch.as_tensor(fovh, dtype=torch.float32)
-    znear = torch.as_tensor(znear, dtype=torch.float32)
-    zfar = torch.as_tensor(zfar, dtype=torch.float32)
+    aspect_ratio, znear, zfar = (_on(x, fovh) for x in (aspect_ratio, znear, zfar))
     y_scale = 1.0 / torch.tan(fovh * 0.5)
     x_scale = y_scale / aspect_ratio
     m = torch.zeros((4, 4), dtype=torch.float32, device=fovh.device)
     m[0, 0] = x_scale
     m[1, 1] = y_scale
     m[2, 2] = zfar / (zfar - znear)
-    m[2, 3] = 1.0
+    m[2, 3].fill_(1.0)
     m[3, 2] = -znear * zfar / (zfar - znear)
     return torch.where(_bad_planes(znear, zfar), torch.full_like(m, math.inf), m)
 
 
 def orthographic(aspect_ratio, znear, zfar):
     """D3D orthographic, 2 world units tall (`matrix.cu:325-341`)."""
-    aspect_ratio = torch.as_tensor(aspect_ratio, dtype=torch.float32)
     znear = torch.as_tensor(znear, dtype=torch.float32)
-    zfar = torch.as_tensor(zfar, dtype=torch.float32)
+    aspect_ratio, zfar = (_on(x, znear) for x in (aspect_ratio, zfar))
     height = 2.0
     width = aspect_ratio * height
     m = torch.zeros((4, 4), dtype=torch.float32, device=znear.device)
     m[0, 0] = 2.0 / width
-    m[1, 1] = 2.0 / height
+    m[1, 1].fill_(2.0 / height)
     m[2, 2] = 1.0 / (zfar - znear)
-    m[3, 3] = 1.0
+    m[3, 3].fill_(1.0)
     m[3, 2] = znear / (znear - zfar)
     return torch.where(_bad_planes(znear, zfar), torch.full_like(m, math.inf), m)
 
@@ -279,11 +286,13 @@ def orthographic(aspect_ratio, znear, zfar):
 def inverse(m):
     """4x4 inverse; |det| < 1e-5 returns an INFINITY-filled matrix
     (`matrix.cu:141-145`). The singular input is swapped for identity before
-    inverting so the unselected branch never raises or makes NaNs."""
+    inverting so the unselected branch never raises or makes NaNs; so
+    ``inv_ex`` checks nothing, and on CUDA no read of its ``info`` stalls the
+    host (``linalg.inv`` reads it)."""
     det = torch.linalg.det(m)
     bad = (torch.abs(det) < 1e-5)[..., None, None]
     eye = torch.eye(m.shape[-1], dtype=m.dtype, device=m.device).expand_as(m)
-    inv = torch.linalg.inv(torch.where(bad, eye, m))
+    inv = torch.linalg.inv_ex(torch.where(bad, eye, m)).inverse
     return torch.where(bad, torch.full_like(m, math.inf), inv)
 
 

@@ -78,15 +78,19 @@ def _local_rows(cam, dp_size: int) -> int:
     return padded_height(cam.height, dp_size) // dp_size
 
 
-def shard_row_ids(dp_i: int, rows: int, dp_size: int, row_order: str):
-    """Image-row indices owned by dp rank ``dp_i`` (float32 (rows,)):
-    strided → dp_i, dp_i + dp, ...; block → dp_i * rows .. dp_i * rows +
-    rows - 1. Indices >= H are padding (rendered, then masked or dropped)."""
-    ar = torch.arange(rows, dtype=torch.float32)
-    dp_f = torch.tensor(float(dp_i), dtype=torch.float32)
-    if row_order == "strided":
-        return dp_f + float(dp_size) * ar
-    return dp_f * float(rows) + ar
+def shard_row_ids(dp_i: int, rows: int, dp_size: int, row_order: str, *, device):
+    """Image-row indices owned by dp rank ``dp_i`` (float32 (rows,) on
+    ``device``): strided → dp_i, dp_i + dp, ...; block → dp_i * rows ..
+    dp_i * rows + rows - 1. Indices >= H are padding (rendered, then masked
+    or dropped)."""
+    y0, stride = _row_start_stride(dp_i, rows, dp_size, row_order)
+    return _row_ys(y0, stride, rows, device)
+
+
+def _row_ys(y0, stride, rows: int, device):
+    """(rows,) float32 y0, y0 + stride, ... made on ``device`` (integers
+    below 2^24: exact, whatever the order of the float32 operations)."""
+    return float(y0) + float(stride) * torch.arange(rows, dtype=torch.float32, device=device)
 
 
 def to_image_order(arr, dp_size: int, height: int, row_order: str = ROW_ORDER_DEFAULT):
@@ -289,10 +293,9 @@ def _sample_rows(key, packet, cam, config, y0, rows: int, stride: int = 1, forwa
     ``pathtracer.fused_seed(key)`` on the fused and replay routes.
     ``forward``: `_forward` of the packet, shared by a step's samples."""
     dev = packet.device
-    ys = torch.tensor(float(y0), dtype=torch.float32) + float(stride) * torch.arange(
-        rows, dtype=torch.float32)
-    py, px = torch.meshgrid(ys.to(dev), torch.arange(cam.width, dtype=torch.float32,
-                                                     device=dev), indexing="ij")
+    py, px = torch.meshgrid(_row_ys(y0, stride, rows, dev),
+                            torch.arange(cam.width, dtype=torch.float32, device=dev),
+                            indexing="ij")
     px, py = px.reshape(-1), py.reshape(-1)
     jitter = rng.pixel_jitter(rng.fold(key, 0x9E37), (px.shape[0],), dev)
     o, d = cam_ops.get_rays(cam, px, py, jitter)
@@ -321,8 +324,7 @@ def _local_spp(mesh, spp: int) -> int:
 
 
 def _row_mask(y0, stride, rows: int, height: int, device):
-    ys = y0 + float(stride) * torch.arange(rows, dtype=torch.float32)
-    return (ys < float(height)).to(torch.float32).to(device)[:, None, None]
+    return (_row_ys(y0, stride, rows, device) < float(height)).to(torch.float32)[:, None, None]
 
 
 def _check_slab(what, t, rows: int, width: int):
@@ -357,8 +359,13 @@ def shard_render_step(mesh, packet, cam, accum: pt.AccumState, key, config, spp:
             n += 1
             img = _sample_rows(rng.fold(rng.fold(lkey, s), n), packet, cam, config, y0, rows,
                                stride, forward).reshape(rows, cam.width, 3)
-            nf = torch.tensor(float(n), dtype=torch.float32, device=dev)
-            lin = img / nf + lin * ((nf - 1.0) / nf)
+            # the reference's img / n + lin * ((n - 1) / n): (n - 1) / n
+            # divided in numpy float32, n filled on the card; a Python n
+            # would not do, since CUDA divides by a host scalar as a product
+            # with its reciprocal
+            nf = np.float32(n)
+            lin = (img / torch.full((), n, dtype=torch.float32, device=dev)
+                   + lin * float((nf - np.float32(1.0)) / nf))
         lin = _sp_mean(mesh, lin)
     return pt.AccumState(linear=lin, frame=accum.frame + spp)
 

@@ -106,7 +106,7 @@ class Renderer:
     ):
         self.device = resolve(device)
         self.scene = scene
-        self.camera = camera
+        self.camera = camera.to(self.device)  # once: no frame copies it
         self.config = config or RenderConfig(width=camera.width, height=camera.height)
         self.raster_config = raster_config or RasterConfig(
             width=camera.width, height=camera.height

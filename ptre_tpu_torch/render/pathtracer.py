@@ -65,7 +65,9 @@ class AccumState:
 
 
 def pixel_grid(height: int, width: int, device=None):
-    """Flattened pixel coordinates: x right, y down (pixelid = y*W + x)."""
+    """Flattened pixel coordinates: x right, y down (pixelid = y*W + x), on
+    ``device`` (None: the card, RendererError where there is none)."""
+    device = resolve(device)
     py, px = torch.meshgrid(
         torch.arange(height, dtype=torch.float32, device=device),
         torch.arange(width, dtype=torch.float32, device=device),
@@ -182,7 +184,8 @@ def render_step(packet, cam, accum: AccumState, seed_or_generator, config,
 
     Args:
       packet: ScenePacket on the accumulator's device.
-      cam: Camera (host tensors).
+      cam: Camera on the accumulator's device (its rows or rays are made
+        there, once a step on the dense route).
       accum: AccumState; its ``linear`` device picks the path.
       seed_or_generator: an int seed, a CPU ``torch.Generator`` or an
         `rng.Key`. An int or a generator gives each sample a Python-int
@@ -201,6 +204,7 @@ def render_step(packet, cam, accum: AccumState, seed_or_generator, config,
     check_dispatch(packet, device, config)
     if packet.device != device:
         raise ValueError(f"packet is on {packet.device}, accum on {device}")
+    cam_ops.check_device(cam, device, "the accumulator")
     H, W = accum.linear.shape[:2]
     if (H, W) != (cam.height, cam.width):
         raise ValueError(f"accum is {H}x{W}, camera {cam.height}x{cam.width}")

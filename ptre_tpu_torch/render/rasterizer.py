@@ -32,8 +32,10 @@ import dataclasses
 
 import torch
 
+from ptre_tpu_torch.ops import camera as cam_ops
 from ptre_tpu_torch.ops import gradsafe as gs
 from ptre_tpu_torch.ops import vecmat as vm
+from ptre_tpu_torch.utils.device import constant
 from ptre_tpu_torch.utils.errors import ConfigError
 
 BACKENDS = ("auto", "oneshot")
@@ -54,13 +56,15 @@ def transform_vertices(tri_v, tri_n, tri_dc, transforms, view, proj):
 
 
 def shade(normals, config):
-    """Pixel stage (pixel_shader.hlsl): ambient + directional diffuse."""
-    f32 = torch.float32
-    dev = normals.device
-    light = vm.normalize(torch.tensor(config.light_dir, dtype=f32)).to(dev)
-    ambient = (config.ambient_strength * torch.tensor(config.clear_color, dtype=f32)).to(dev)
+    """Pixel stage (pixel_shader.hlsl): ambient + directional diffuse. The
+    shading constants are the kernels' (`raster_kernel.raster_scalars`),
+    copied to the device once per config and device (`constant`)."""
+    from ptre_tpu_torch.ops.cuda import raster_kernel  # it imports this module
+
+    s = raster_kernel.raster_scalars(config).tolist()
+    ambient, albedo, light = (constant(s[i:i + 3], normals.device) for i in (0, 3, 6))
     diffuse = gs.maximum(-torch.einsum("...k,k->...", normals, light), 0.0)
-    return (ambient + diffuse[..., None]) * torch.tensor(config.albedo, dtype=f32, device=dev)
+    return (ambient + diffuse[..., None]) * albedo
 
 
 def _raster_tile(sx, sy, screen, depth01, w, normals, valid, config, soft, sigma):
@@ -104,7 +108,7 @@ def _raster_tile(sx, sy, screen, depth01, w, normals, valid, config, soft, sigma
                 + w1[..., None] * (normals[:, 1] * iw[:, 1, None])[None]
                 + w2[..., None] * (normals[:, 2] * iw[:, 2, None])[None]) / denom[..., None]
     color = shade(vm.normalize(n_interp), config)  # (P, T, 3)
-    clear = torch.tensor(config.clear_color, dtype=torch.float32, device=sx.device)
+    clear = constant(config.clear_color, sx.device)
 
     if not soft:
         inside = (w0 >= 0.0) & (w1 >= 0.0) & (w2 >= 0.0)
@@ -174,8 +178,9 @@ def raster_rows(packet, cam, config, y0, rows: int, soft: bool = False,
     ss = config.supersample
     W, H = config.width * ss, config.height * ss
     dev = packet.device
-    view = cam.view_matrix().to(dev)
-    proj = cam.projection_matrix().to(dev)
+    cam_ops.check_device(cam, dev, "the packet")
+    view, proj = cam_ops.derived(cam, "matrices",
+                                 lambda c: (c.view_matrix(), c.projection_matrix()))
     tri_v = torch.stack([packet.tri_v0, packet.tri_v1, packet.tri_v2], dim=1)
     tri_n = torch.stack([packet.tri_n0, packet.tri_n1, packet.tri_n2], dim=1)
     ndc, w, n_world = transform_vertices(tri_v, tri_n, packet.tri_dc, packet.transforms,

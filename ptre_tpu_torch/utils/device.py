@@ -6,10 +6,13 @@ an error — there is no fallback to the CPU. The public constructors that
 allocate without an input tensor (`Scene.build_packet`,
 `AccumState.create`) place it on the card unless the caller names another
 device (`resolve`), as the reference's ``jnp.asarray`` places it on the
-accelerator.
+accelerator. A constant that a frame needs on the card (`constant`) is copied
+there once and reused, never rebuilt from Python values every frame.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -30,6 +33,18 @@ def resolve(device=None) -> torch.device:
     """``device`` as a torch.device; None means the card (`require_cuda`),
     which raises where there is none — never the CPU by default."""
     return require_cuda() if device is None else torch.device(device)
+
+
+def constant(values, device) -> torch.Tensor:
+    """A float32 tensor of the Python floats ``values`` on ``device``: made,
+    with one copy, at the first call for these values and device, and the
+    same tensor after that. Read it only: it is shared."""
+    return _constant(tuple(float(v) for v in values), torch.device(device))
+
+
+@functools.lru_cache(maxsize=256)
+def _constant(values, device):
+    return torch.tensor(values, dtype=torch.float32).to(device)
 
 
 def card_name_and_power_limit():

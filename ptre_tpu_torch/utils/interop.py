@@ -8,7 +8,8 @@ so both packages render the same scene, from the same pose, onto the same
 history, with the same settings, and differentiate the same parameters; a
 raw threefry key crosses as its two words (`key_from_jax`).
 Nothing here imports jax or the JAX package: its objects are read by their
-field names.
+field names. Every constructor places what it carries on ``device``: None
+means the card (RendererError where there is none), ``"cpu"`` the host.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from ptre_tpu_torch.ops import rng
 from ptre_tpu_torch.ops.camera import Camera
 from ptre_tpu_torch.render.pathtracer import AccumState
 from ptre_tpu_torch.utils.config import RasterConfig, RenderConfig
+from ptre_tpu_torch.utils.device import resolve
 
 
 def packet_from_numpy(arrays: Dict[str, np.ndarray], counts: Dict[str, int],
@@ -31,8 +33,7 @@ def packet_from_numpy(arrays: Dict[str, np.ndarray], counts: Dict[str, int],
     """A ScenePacket from the reference packet's leaves by field name
     (``tri_v0`` … ``sky_top``) and its static counts (``num_triangles``,
     ``num_spheres``, ``num_drawcalls``, ``num_materials``)."""
-    pkt = ScenePacket.from_numpy(arrays, **counts)
-    return pkt if device is None else pkt.to(device)
+    return ScenePacket.from_numpy(arrays, **counts).to(resolve(device))
 
 
 def packet_from_reference(packet, device=None) -> ScenePacket:
@@ -62,10 +63,12 @@ def config_from_reference(config):
 
 
 def camera_from_numpy(position, forward, fov_degrees, znear, zfar, width: int,
-                      height: int, projection: int) -> Camera:
+                      height: int, projection: int, device=None) -> Camera:
     """A Camera from the reference camera's leaves and static fields."""
+    device = resolve(device)
+
     def f32(x):
-        return torch.from_numpy(np.array(x, dtype=np.float32))
+        return torch.from_numpy(np.array(x, dtype=np.float32)).to(device)
 
     return Camera(position=f32(position), forward=f32(forward),
                   fov_degrees=f32(fov_degrees), znear=f32(znear), zfar=f32(zfar),
@@ -75,13 +78,13 @@ def camera_from_numpy(position, forward, fov_degrees, znear, zfar, width: int,
 def accum_from_numpy(linear, frame, device=None) -> AccumState:
     """An AccumState from an (H, W, 3) linear buffer and the sample count."""
     lin = torch.from_numpy(np.array(linear, dtype=np.float32))
-    return AccumState(linear=lin if device is None else lin.to(device),
-                      frame=int(frame))
+    return AccumState(linear=lin.to(resolve(device)), frame=int(frame))
 
 
 def params_from_numpy(arrays: Dict[str, np.ndarray], device=None) -> Dict[str, torch.Tensor]:
     """The port's parameter dict from the JAX ``differentiable_params``
     leaves (``np.asarray`` of each), as float32 tensors."""
+    device = resolve(device)
     return {k: torch.from_numpy(np.array(v, dtype=np.float32)).to(device)
             for k, v in arrays.items()}
 

@@ -213,7 +213,7 @@ def tiny_renderer():
     from ptre_tpu_torch.utils.config import RasterConfig, RenderConfig
 
     scene = demo.reference_demo_scene(8, 4)
-    cam = cam_ops.Camera.create(width=16, height=12)
+    cam = cam_ops.Camera.create(width=16, height=12, device="cpu")
     return Renderer(
         scene,
         cam,

@@ -122,11 +122,11 @@ CAMS = {
 def test_get_rays_match_reference(name):
     torch.set_num_threads(1)
     kw = CAMS[name]
-    cam = cam_ops.Camera.create(**kw)
+    cam = cam_ops.Camera.create(**kw, device="cpu")
     jc = jcam.Camera.create(**kw)
     rs = np.random.default_rng(3)
     jit = rs.uniform(-0.5, 0.5, (cam.height * cam.width, 2)).astype(np.float32)
-    px, py = pt.pixel_grid(cam.height, cam.width)
+    px, py = pt.pixel_grid(cam.height, cam.width, device="cpu")
     jpx, jpy = jpt.pixel_grid(cam.height, cam.width)
     np.testing.assert_array_equal(px.numpy(), np.asarray(jpx))
     np.testing.assert_array_equal(py.numpy(), np.asarray(jpy))
@@ -139,6 +139,54 @@ def test_get_rays_match_reference(name):
 @pytest.mark.parametrize("name", list(CAMS))
 def test_camera_rows_match_reference(name):
     kw = CAMS[name]
-    rows = rk.camera_rows(cam_ops.Camera.create(**kw))
+    rows = rk.camera_rows(cam_ops.Camera.create(**kw, device="cpu"))
     assert rows.shape == (24,) and rows.dtype == torch.float32
     _close(rows, jrk.camera_rows(jcam.Camera.create(**kw)), atol=1e-5)
+
+
+@pytest.mark.parametrize("name", list(CAMS))
+def test_carried_camera_rows_and_rays_match_reference(name):
+    """A camera carried across from the reference's leaves
+    (`interop.camera_from_numpy`, on the CPU when asked) and moved with
+    `Camera.to` gives the reference's ray rows and rays as before; a camera
+    on another device than the rays is refused, not copied."""
+    from ptre_tpu_torch.utils import interop
+
+    kw = CAMS[name]
+    jc = jcam.Camera.create(**kw)
+    cam = interop.camera_from_numpy(
+        np.asarray(jc.position), np.asarray(jc.forward), np.asarray(jc.fov_degrees),
+        np.asarray(jc.znear), np.asarray(jc.zfar), jc.width, jc.height, jc.projection,
+        device="cpu").to("cpu")
+    assert cam.device.type == "cpu"
+    _close(rk.camera_rows(cam), jrk.camera_rows(jc), atol=1e-5)
+    jit = np.random.default_rng(5).uniform(-0.5, 0.5, (cam.height * cam.width, 2))
+    px, py = pt.pixel_grid(cam.height, cam.width, device="cpu")
+    o, d = cam_ops.get_rays(cam, px, py, torch.from_numpy(jit.astype(np.float32)))
+    jo, jd = jcam.get_rays(jc, *jpt.pixel_grid(cam.height, cam.width),
+                           jnp.asarray(jit, jnp.float32))
+    _close(o, jo, atol=1e-5)
+    _close(d, jd, atol=1e-5)
+    with pytest.raises(ValueError, match="the camera is on meta"):
+        cam_ops.get_rays(cam.to("meta"), px, py, torch.from_numpy(jit.astype(np.float32)))
+
+
+def test_still_camera_rows_are_made_once():
+    """`camera_rows` of a still camera is made once and shared; a leaf
+    changed in place, a new leaf, or a leaf that needs a gradient (grad
+    mode on) makes it anew, equal to the rows made from scratch."""
+    cam = cam_ops.Camera.create(width=64, height=32, device="cpu")
+    rows = rk.camera_rows(cam)
+    assert rk.camera_rows(cam) is rows
+    cam.position.add_(torch.tensor([0.25, 0.0, 0.0]))
+    moved = rk.camera_rows(cam)
+    assert moved is not rows
+    fresh = cam_ops.Camera.create(width=64, height=32, position=(0.25, 0.5, -3.0),
+                                  device="cpu")
+    assert torch.equal(moved, rk.camera_rows(fresh))
+    cam.fov_degrees.requires_grad_(True)
+    grad_rows = rk.camera_rows(cam)
+    assert grad_rows is not moved and grad_rows.requires_grad
+    assert rk.camera_rows(cam) is not grad_rows
+    with torch.no_grad():
+        assert torch.equal(rk.camera_rows(cam), moved)

@@ -213,8 +213,8 @@ def test_adjoint_in_float_within_fused_backward_bound(lib):
 
 def _demo_rays(W=32, H=16, seed=3):
     pkt = demo.reference_demo_scene(8, 4).build_packet(device="cpu")
-    cam = cam_ops.Camera.create(width=W, height=H)
-    px, py = pt.pixel_grid(H, W)
+    cam = cam_ops.Camera.create(width=W, height=H, device="cpu")
+    px, py = pt.pixel_grid(H, W, device="cpu")
     jit = torch.from_numpy(np.random.default_rng(seed).random((H * W, 2), np.float32)) - 0.5
     o, d = cam_ops.get_rays(cam, px, py, jit)
     return pkt, o.contiguous(), d.contiguous()

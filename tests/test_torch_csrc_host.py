@@ -58,16 +58,15 @@ def _build_host(tmp_path_factory, source):
 def host_lib(tmp_path_factory):
     lib = _build_host(tmp_path_factory, "host_render.cpp")
     lib.ptre_render_sample_host.restype = None
-    lib.ptre_render_sample_host.argtypes = [ctypes.c_void_p] * 9
+    lib.ptre_render_sample_host.argtypes = [ctypes.c_void_p] * 10
     return lib
 
 
 def _host_sample(lib, prev, scene, rows, n, cfg, seed, urand):
     out = prev.clone()
-    params = rk.render_params(H, W, scene, rows, n, cfg, seed,
-                              external_rng=urand is not None)
+    params = rk.render_params(H, W, scene, n, cfg, seed, external_rng=urand is not None)
     lib.ptre_render_sample_host(
-        ctypes.addressof(params), out.data_ptr(),
+        ctypes.addressof(params), rows.data_ptr(), out.data_ptr(),
         None if urand is None else urand.data_ptr(), scene.tris.data_ptr(),
         scene.sphs.data_ptr(), scene.mats.data_ptr(), scene.sky.data_ptr(), None, None)
     return out
@@ -94,7 +93,7 @@ def test_host_build_matches_plain_version(host_lib, name, external):
     assert mk.dense_supported(pkt)
     cfg = RenderConfig(width=W, height=H, **cfg_kw)
     scene = mk.pack_scene(pkt)
-    rows = rk.camera_rows(cam_ops.Camera.create(width=W, height=H, **cam_kw))
+    rows = rk.camera_rows(cam_ops.Camera.create(width=W, height=H, **cam_kw, device="cpu"))
     rs = np.random.default_rng(len(name))
     prev = torch.from_numpy(rs.random((H, W, 3), dtype=np.float32))
     urand = (torch.from_numpy(rs.random((2 + 2 * cfg.max_depth, H, W), dtype=np.float32))
@@ -113,7 +112,7 @@ def test_host_build_empty_scene_is_pure_sky(host_lib):
     cfg = RenderConfig(width=W, height=H)
     scene = mk.pack_scene(Scene().build_packet(device="cpu"))
     assert scene.n_tri == 1 and float(scene.tris[0, 18]) == 0.0  # one invalid row
-    rows = rk.camera_rows(cam_ops.Camera.create(width=W, height=H))
+    rows = rk.camera_rows(cam_ops.Camera.create(width=W, height=H, device="cpu"))
     zero = torch.zeros((H, W, 3))
     got = _host_sample(host_lib, zero, scene, rows, 1, cfg, 3, None)
     want = rk.sample_accum_reference(zero, scene, rows, 1, cfg, 3)
@@ -165,8 +164,8 @@ def test_host_wave_build_matches_plain_versions(wave_lib, name, external):
     cfg = RenderConfig(width=W, height=H, max_depth=B)
     k = mk.TraceConsts.from_config(cfg)
     scene = wf.prepare_scene(build_scene().build_packet(device="cpu"))
-    cam = cam_ops.Camera.create(width=W, height=H, **cam_kw)
-    px, py = pt.pixel_grid(H, W)
+    cam = cam_ops.Camera.create(width=W, height=H, **cam_kw, device="cpu")
+    px, py = pt.pixel_grid(H, W, device="cpu")
     rs = np.random.default_rng(len(name))
     jit = torch.from_numpy(rs.uniform(-0.5, 0.5, (W * H, 2)).astype(np.float32))
     o, d = cam_ops.get_rays(cam, px, py, jit)
@@ -238,8 +237,9 @@ def _adversarial_mask_state(boxes, rs, lanes, t_min):
         if i == 5:
             bhi = blo.clone()
         apart.append(torch.cat([blo, bhi, torch.zeros(2)]))
-    pad = mk.empty_boxes((-boxes.shape[0]) % mk.SUPER)
-    boxes = torch.cat([boxes, pad, torch.stack(apart), mk.empty_boxes(3)]).contiguous()
+    pad = mk.empty_boxes((-boxes.shape[0]) % mk.SUPER, device="cpu")
+    boxes = torch.cat([boxes, pad, torch.stack(apart),
+                       mk.empty_boxes(3, device="cpu")]).contiguous()
     lo, hi = boxes[:, 0:3], boxes[:, 3:6]
     c = 0.5 * (lo + hi)
     pick = torch.nonzero((lo <= hi).all(dim=1)).flatten()
@@ -371,8 +371,8 @@ def test_host_culled_megakernel_matches_plain_version(wave_lib, name, external, 
     cfg = RenderConfig(width=W, height=H, max_depth=B)
     k = mk.TraceConsts.from_config(cfg)
     scene = wf.prepare_scene(build_scene().build_packet(device="cpu"))
-    cam = cam_ops.Camera.create(width=W, height=H, **cam_kw)
-    px, py = pt.pixel_grid(H, W)
+    cam = cam_ops.Camera.create(width=W, height=H, **cam_kw, device="cpu")
+    px, py = pt.pixel_grid(H, W, device="cpu")
     rs = np.random.default_rng(len(name) + cull)
     R = W * H - 13  # a ragged last block
     jit = torch.from_numpy(rs.uniform(-0.5, 0.5, (W * H, 2)).astype(np.float32))
@@ -558,7 +558,7 @@ def _raster_host_inputs(ss=2, W=40, H=24, y0=1.0, rows=9, stride=2):
     torch.set_num_threads(1)
     cfg = RasterConfig(width=W, height=H, supersample=ss)
     pkt = demo.reference_demo_scene(8, 4).build_packet(spheres_as_triangles=True, device="cpu")
-    cam = cam_ops.Camera.create(width=W, height=H)
+    cam = cam_ops.Camera.create(width=W, height=H, device="cpu")
     cols, cbox = sr._soft_cols(pkt, cam, cfg)
     scal = rk.raster_scalars(cfg, 1.0 / 0.5, y0, stride)
     p = rk.raster_params(scal, rows * ss, W * ss, ss, cbox.shape[0])
@@ -680,7 +680,7 @@ def _gate_table(rs, sigma, cfg, ys, Wss):
     from ptre_tpu_torch.ops.cuda import soft_raster as sr
 
     pkt = demo.reference_demo_scene(8, 4).build_packet(spheres_as_triangles=True, device="cpu")
-    cam = cam_ops.Camera.create(width=cfg.width, height=cfg.height)
+    cam = cam_ops.Camera.create(width=cfg.width, height=cfg.height, device="cpu")
     with torch.no_grad():
         cols, _ = sr._soft_cols(pkt, cam, cfg)
     cols = cols[cols[:, 12] > 0.5]
@@ -727,7 +727,7 @@ def test_host_soft_row_gate_drops_no_pair_that_counts(raster_lib, sigma, ss, y0,
     W, H = 48, 32
     cfg = RasterConfig(width=W, height=H, supersample=ss)
     R, Wss = rows * ss, W * ss
-    ys = rk.sample_ys(R, ss, y0, stride)
+    ys = rk.sample_ys(R, ss, y0, stride, device="cpu")
     rs = np.random.default_rng(int(100 * sigma) + 10 * ss + stride)
     table, cbox = _gate_table(rs, sigma, cfg, ys, Wss)
     dbox = sr.dilate(cbox, sigma)
@@ -877,7 +877,7 @@ def test_host_render_body_takes_any_material_table(host_lib, M, adversarial):
         ids, mats = _adversarial_ids(M), _emissive_table(M)
     else:
         ids, mats = torch.from_numpy(rs.permutation(M).astype(np.float32)), _mixed_table(M, rs)
-    rows = rk.camera_rows(cam_ops.Camera.create(width=W, height=H))
+    rows = rk.camera_rows(cam_ops.Camera.create(width=W, height=H, device="cpu"))
     prev = torch.zeros((H, W, 3))
     for shift in range(0, ids.numel(), 7):  # every id on a visible face once
         tris, sphs = base.tris.clone(), base.sphs.clone()
@@ -921,16 +921,16 @@ def test_host_wave_and_culled_bodies_take_any_material_table(wave_lib, M, advers
     tris, sphs = scene.tris.clone(), scene.sphs.clone()
     _set_ids(tris, sphs, tris.shape[0], ids)
     scene = dataclasses.replace(scene, tris=tris, sphs=sphs, mats=mats, num_mats=M)
-    px, py = pt.pixel_grid(H, W)
+    px, py = pt.pixel_grid(H, W, device="cpu")
     jit = torch.from_numpy(rs.uniform(-0.5, 0.5, (W * H, 2)).astype(np.float32))
-    o, d = (x.contiguous() for x in cam_ops.get_rays(cam_ops.Camera.create(width=W, height=H),
-                                                      px, py, jit))
+    cam = cam_ops.Camera.create(width=W, height=H, device="cpu")
+    o, d = (x.contiguous() for x in cam_ops.get_rays(cam, px, py, jit))
     R = W * H
     urand = torch.from_numpy(rs.random((2 + 2 * B, R), dtype=np.float32))
 
     # one bounce of every ray over every leaf
     state, ids_ = wf.initial_state(o, d, lanes)
-    short, cnt = wf.all_leaves(state.shape[1] // lanes, scene.n_leaf)
+    short, cnt = wf.all_leaves(state.shape[1] // lanes, scene.n_leaf, device="cpu")
     p = mk.wave_params(k, 0, 0, scene, n_rays=R, r_pad=state.shape[1],
                        list_stride=short.shape[1], bounce=0, external_rng=1, n_sel=0)
     got = torch.empty_like(state)

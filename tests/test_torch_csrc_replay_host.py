@@ -74,8 +74,8 @@ def paths(request):
     pkt = demo.reference_demo_scene(8, 4).build_packet(device="cpu")
     pkt = dataclasses.replace(pkt, mat_kind=torch.zeros_like(pkt.mat_kind),
                               mat_param=torch.tensor([1.0, 0.4]))
-    cam = cam_ops.Camera.create(width=W, height=H)
-    px, py = pt.pixel_grid(H, W)
+    cam = cam_ops.Camera.create(width=W, height=H, device="cpu")
+    px, py = pt.pixel_grid(H, W, device="cpu")
     jit = torch.from_numpy(np.random.default_rng(3).random((R, 2), np.float32)) - 0.5
     o, d = (t.contiguous() for t in cam_ops.get_rays(cam, px, py, jit))
     k = mk.TraceConsts.from_config(RenderConfig(width=W, height=H, max_depth=B))

@@ -509,7 +509,8 @@ def test_render_step_triangle_scene_goes_through_wavefront_kernels(cuda):
     lin = acc.linear
     assert bool(torch.isfinite(lin).all()) and 0.0 <= float(lin.min()) <= float(lin.max()) <= 1.0 + 1e-6
     # the same step with the plain versions on the CPU, same seed and draws
-    ref = pt.render_step(pkt.to("cpu"), cam, pt.AccumState.create(H, W, device="cpu"), 3, cfg, spp=2)
+    ref = pt.render_step(pkt.to("cpu"), cam.to("cpu"), pt.AccumState.create(H, W, device="cpu"),
+                         3, cfg, spp=2)
     d = (lin.cpu() - ref.linear).abs()
     assert float((d <= 1e-4).float().mean()) >= 0.999
     assert int((d > 0.05).any(dim=-1).sum()) <= math.ceil(1e-5 * W * H * 2)
@@ -521,7 +522,7 @@ def test_wavefront_wrappers_reject_bad_inputs(cuda):
         wf.wave_mask(state.double(), scene.boxes, k.t_min)
     with pytest.raises(RendererError, match="lanes"):
         wf.wave_mask(state, scene.boxes, k.t_min, lanes=512)
-    short, cnt = wf.all_leaves(state.shape[1] // wf.LANES, scene.n_leaf, cuda)
+    short, cnt = wf.all_leaves(state.shape[1] // wf.LANES, scene.n_leaf, device=cuda)
     with pytest.raises(RendererError, match="contiguous"):
         wf.wave_bounce(state, ids.long(), short, cnt, scene, k, 0)
     with pytest.raises(RendererError, match="shape"):
@@ -975,7 +976,8 @@ def test_staged_render_and_training_go_through_the_sweep_kernel(cuda):
     acc = pt.render_step(pkt, cam, pt.AccumState.create(H, W, cuda), 5, cfg, spp=2)
     torch.cuda.synchronize()
     assert sk.launches == before + 2 * cfg.max_depth
-    ref = pt.render_step(pkt_cpu, cam, pt.AccumState.create(H, W, device="cpu"), 5, cfg, spp=2)
+    ref = pt.render_step(pkt_cpu, cam.to("cpu"), pt.AccumState.create(H, W, device="cpu"), 5,
+                         cfg, spp=2)
     d = (acc.linear.cpu() - ref.linear).abs()
     assert bool(torch.isfinite(acc.linear).all()) and float(d.max()) < 1e-4, float(d.max())
     params = sh.differentiable_params(pkt, cam)
@@ -1262,26 +1264,93 @@ def test_engine_launches_one_kernel_a_frame(cuda):
     assert r.accum.frame == 5
 
 
-def test_dispatch_ahead_frame_performs_no_synchronize(cuda, monkeypatch):
-    """With present_async a path-traced frame makes no device or stream
-    synchronize and nothing that syncs implicitly (torch's sync debug mode
-    set to error): it waits on the previous frame's copy event only."""
-    r = _engine(cuda)
-    r.draw_frame()  # builds the packets (host-to-device copies) and buffers
-    r.draw_frame()
-
+def _without_synchronize(monkeypatch, fn, what):
+    """``fn()`` with torch's CUDA sync debug mode set to error (a
+    synchronizing call raises) and ``torch.cuda.synchronize`` refused."""
     def refuse(*args, **kwargs):
-        raise AssertionError("a path-traced frame synchronized")
+        raise AssertionError(f"{what} synchronized")
 
     monkeypatch.setattr(torch.cuda, "synchronize", refuse)
     monkeypatch.setattr(torch.cuda.Stream, "synchronize", refuse)
     torch.cuda.set_sync_debug_mode("error")
     try:
-        img = r.draw_frame()
+        return fn()
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    monkeypatch.undo()
+        monkeypatch.undo()
+
+
+def test_dispatch_ahead_frame_performs_no_synchronize(cuda, monkeypatch):
+    """With present_async a path-traced frame makes no device or stream
+    synchronize and nothing that syncs implicitly (torch's sync debug mode
+    set to error): it waits on the previous frame's copy event only. The
+    camera, left at its default, lies on the card."""
+    r = _engine(cuda)
+    assert r.camera.position.device.type == "cuda"
+    r.draw_frame()  # builds the packets (host-to-device copies) and buffers
+    r.draw_frame()
+    img = _without_synchronize(monkeypatch, r.draw_frame, "a path-traced frame")
     assert img.shape == (54, 96, 3) and int(img.max()) > 0
+
+
+def _one_device_steps(dev):
+    """{name: step} of the one-device paths that make no synchronizing
+    call: the rasterizer hard and soft, `raster_mse_step` and the dense
+    `mse_step`, on the demo with cameras at their default (the card)."""
+    W, H = 96, 54
+    scn = demo.reference_demo_scene(16, 8)
+    pkt = scn.build_packet(device=dev)
+    rpkt = scn.build_packet(spheres_as_triangles=True, device=dev)
+    cam = cam_ops.Camera.create(width=W, height=H)
+    assert cam.position.device.type == "cuda"
+    cfg = RenderConfig(width=W, height=H)
+    rcfg = RasterConfig(width=W, height=H, supersample=2)
+    params = sh.differentiable_params(rpkt, cam)
+
+    def frame(soft):
+        with torch.no_grad():
+            return ras.rasterize(rpkt, cam, rcfg, soft=soft)
+
+    return {
+        "rasterize": lambda: frame(False),
+        "rasterize soft": lambda: frame(True),
+        "raster_mse_step": lambda: train.raster_mse_step(
+            params, rpkt, cam, torch.zeros((H, W, 3), device=dev), rcfg)[1],
+        "mse_step": lambda: train.mse_step(
+            sh.differentiable_params(pkt, cam), pkt, cam, torch.zeros((W * H, 3), device=dev),
+            cfg, seed=3)[1],
+    }
+
+
+@pytest.mark.parametrize("name", ["rasterize", "rasterize soft", "raster_mse_step", "mse_step"])
+def test_one_device_steps_make_no_synchronizing_call(cuda, monkeypatch, name):
+    """The rasterizer's frames and steps and the dense `mse_step` with the
+    camera at its default: no synchronizing call (the shading constants are
+    made once per config and device, the camera's matrices on the card)."""
+    step = _one_device_steps(cuda)[name]
+    step()
+    out = _without_synchronize(monkeypatch, step, name)
+    outs = out.values() if isinstance(out, dict) else [out]
+    assert all(bool(torch.isfinite(t).all()) for t in outs), name
+
+
+def test_dense_render_step_makes_no_synchronizing_call(cuda, monkeypatch):
+    """A dense `render_step` with the camera of ``Camera.create()`` left at
+    its default (the card): the camera rows are made there once a step and
+    the kernel reads them there, so no launch reads the card from the host."""
+    from ptre_tpu_torch.ops import rng
+
+    W, H = 96, 54
+    pkt = demo.reference_demo_scene(16, 8).build_packet(device=cuda)
+    cam = cam_ops.Camera.create(width=W, height=H)
+    assert cam.position.device.type == "cuda"
+    cfg = RenderConfig(width=W, height=H)
+    acc = pt.render_step(pkt, cam, pt.AccumState.create(H, W), rng.key_for(1), cfg)
+    before = rk.launches
+    acc = _without_synchronize(monkeypatch, lambda: pt.render_step(
+        pkt, cam, acc, rng.fold(rng.key_for(1), 1), cfg, spp=2), "render_step")
+    assert rk.launches == before + 2 and acc.frame == 3
+    assert bool(torch.isfinite(acc.linear).all())
 
 
 def test_returned_frame_stays_intact_across_two_later_frames(cuda):
@@ -1381,6 +1450,67 @@ def test_shard_render_step_nccl_world_of_one_equals_replay(cuda):
             n = torch.tensor(float(s + 1), device=cuda)
             lin = img / n + lin * ((n - 1.0) / n)
         assert torch.equal(out.linear, lin)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def test_shard_render_step_makes_no_synchronizing_call(cuda, monkeypatch):
+    """`shard_render_step` on the dense route, a world of one over NCCL,
+    the camera at its default (the card): the rows, the row mask and the
+    running average's weights are made on the card or as host floats, so a
+    step makes no synchronizing call."""
+    import torch.distributed as dist
+
+    from ptre_tpu_torch.ops import rng
+
+    assert not dist.is_initialized()
+    try:
+        mesh = sh.make_mesh((1, 1))
+        pkt = sh.replicate(mesh, demo.reference_demo_scene(16, 8).build_packet(device=cuda))
+        cam = cam_ops.Camera.create(width=SHARD_W, height=SHARD_H)
+        assert cam.position.device.type == "cuda"
+        cfg = RenderConfig(width=SHARD_W, height=SHARD_H)
+        acc = sh.shard_render_step(mesh, pkt, cam, pt.AccumState.create(SHARD_H, SHARD_W),
+                                   rng.key_for(5), cfg, spp=1)
+        before = mk.record_launches
+        out = _without_synchronize(monkeypatch, lambda: sh.shard_render_step(
+            mesh, pkt, cam, acc, rng.key_for(6), cfg, spp=4), "shard_render_step")
+        assert mk.record_launches == before + 4 and out.frame == 5
+        assert bool(torch.isfinite(out.linear).all())
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def test_sharded_train_steps_make_no_synchronizing_call(cuda, monkeypatch):
+    """`shard_train_step` and `dual_train_step` (spp 1) on a world of one
+    over NCCL, the camera at its default (the card): no synchronizing call
+    in a step, forward or backward."""
+    import torch.distributed as dist
+
+    from ptre_tpu_torch.ops import rng
+
+    assert not dist.is_initialized()
+    try:
+        mesh = sh.make_mesh((1, 1))
+        scn = demo.reference_demo_scene(16, 8)
+        pkt = sh.replicate(mesh, scn.build_packet(device=cuda))
+        rpkt = sh.replicate(mesh, scn.build_packet(spheres_as_triangles=True, device=cuda))
+        cam = cam_ops.Camera.create(width=SHARD_W, height=SHARD_H)
+        cfg = RenderConfig(width=SHARD_W, height=SHARD_H)
+        rcfg = RasterConfig(width=SHARD_W, height=SHARD_H, supersample=2)
+        params = sh.differentiable_params(pkt, cam)
+        target = torch.zeros((SHARD_H, SHARD_W, 3), device=cuda)
+        steps = {
+            "shard_train_step": lambda k: sh.shard_train_step(mesh, params, pkt, cam, target,
+                                                              rng.key_for(k), cfg)[1],
+            "dual_train_step": lambda k: sh.dual_train_step(mesh, params, pkt, rpkt, cam, target,
+                                                            rng.key_for(k), cfg, rcfg)[1]}
+        for name, step in steps.items():
+            step(1)
+            grads = _without_synchronize(monkeypatch, lambda: step(2), name)
+            assert all(bool(torch.isfinite(g).all()) for g in grads.values()), name
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
@@ -1586,8 +1716,8 @@ def test_many_materials_take_the_fused_kernels_never_the_sweep(cuda):
             assert n == [2, 0, 1, 1, 0], n
         else:
             assert n[0] == 0 and n[1] > 2 and n[2] == 0 and n[3] == 1 and n[4] == 0, n
-        ref = pt.render_step(pkt.to("cpu"), cam, pt.AccumState.create(H, W, device="cpu"), 3,
-                             cfg, spp=2)
+        ref = pt.render_step(pkt.to("cpu"), cam.to("cpu"),
+                             pt.AccumState.create(H, W, device="cpu"), 3, cfg, spp=2)
         d = (acc.linear.cpu() - ref.linear).abs()
         assert float((d <= 1e-4).float().mean()) >= 0.999
         assert int((d > 0.05).any(dim=-1).sum()) <= math.ceil(1e-5 * W * H * 2)

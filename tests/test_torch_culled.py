@@ -95,7 +95,7 @@ def _port_case(jp, cfg, o, d, ur_p):
     R = o.shape[0]
     ur = np.asarray(ur_p).reshape(2 * cfg.max_depth, -1)[:, :R]
     urand = t(np.concatenate([np.zeros((2, R), np.float32), ur]).astype(np.float32))
-    return interop.packet_from_reference(jp), t(o), t(d), urand
+    return interop.packet_from_reference(jp, device="cpu"), t(o), t(d), urand
 
 
 @pytest.fixture(scope="module", params=list(SCENES))
@@ -176,7 +176,8 @@ def test_cull_uncull_and_wavefront_bit_identical(culled_case, lanes):
 
 
 def test_scene_boxes_for_the_culled_walk():
-    pkt = interop.packet_from_reference(jdemo.config4_mixed_scene(24, 12).build_packet())
+    pkt = interop.packet_from_reference(jdemo.config4_mixed_scene(24, 12).build_packet(),
+                                        device="cpu")
     scene = wf.prepare_scene(pkt)
     n_super = -(-scene.n_leaf // mk.SUPER)
     assert scene.n_leaf % mk.SUPER != 0  # the last supertile is ragged
@@ -191,7 +192,7 @@ def test_scene_boxes_for_the_culled_walk():
     assert bool(full.any()) and not bool((scene.cull_boxes[:scene.n_leaf][~full, 0] <= 1e29).any())
     assert bool((scene.cull_boxes[:scene.n_leaf][full, 0:3] < scene.boxes[full, 0:3]).all())
     assert torch.equal(scene.cull_boxes[scene.n_leaf:],
-                       mk.empty_boxes(n_super * mk.SUPER - scene.n_leaf))
+                       mk.empty_boxes(n_super * mk.SUPER - scene.n_leaf, device="cpu"))
     assert torch.equal(scene.super_boxes, mk.pack_super_boxes(scene.cull_boxes))
     assert scene.tri_rows == pkt.tri_valid.shape[0] <= scene.tris.shape[0]
     assert not bool((scene.tris[scene.tri_rows:, 18] > 0.5).any())  # dead rows
@@ -238,10 +239,10 @@ def grad_case():
 def _port_grads(case, force):
     cfg = case["cfg"]
     leaves = {k: v.requires_grad_(True)
-              for k, v in interop.params_from_numpy(case["params"]).items()}
+              for k, v in interop.params_from_numpy(case["params"], device="cpu").items()}
     o = case["o"].clone().requires_grad_(True)
     d = case["d"].clone().requires_grad_(True)
-    cam = cam_ops.Camera.create(width=cfg.width, height=cfg.height)
+    cam = cam_ops.Camera.create(width=cfg.width, height=cfg.height, device="cpu")
     pk, _ = sh.apply_params(leaves, case["pkt"], cam)
     color = fg.trace_grad(o, d, pk, cfg, urand=case["urand"], force=force)
     loss = torch.sum(color * t(_weights(tuple(color.shape))))
@@ -282,7 +283,8 @@ def test_trace_grad_routes_agree(grad_case):
 
 
 def test_force_values_and_packing_once():
-    pkt = interop.packet_from_reference(jdemo.config4_mixed_scene(12, 6).build_packet())
+    pkt = interop.packet_from_reference(jdemo.config4_mixed_scene(12, 6).build_packet(),
+                                        device="cpu")
     assert not mk.dense_supported(pkt)
     cfg = RenderConfig(width=4, height=2, max_depth=2)
     o = torch.zeros((8, 3))
@@ -294,7 +296,8 @@ def test_force_values_and_packing_once():
     kinds = {f: fg.prepare_forward(pkt, f).kind for f in (None,) + fg.FORWARDS[1:]}
     assert kinds == {None: "wavefront", "wavefront": "wavefront", "culled": "culled",
                      "uncull": "uncull"}
-    ball = interop.packet_from_reference(_ball_over_ground())  # 48 triangles: dense-class
+    # 48 triangles: dense-class
+    ball = interop.packet_from_reference(_ball_over_ground(), device="cpu")
     assert fg.prepare_forward(ball).kind == fg.prepare_forward(ball, "dense").kind == "dense"
     assert fg.prepare_forward(ball, "wavefront").kind == "wavefront"
     fwd = fg.prepare_forward(pkt)

@@ -80,8 +80,8 @@ def scenes():
 
 
 def _camera_rays(R, seed):
-    cam = cam_ops.Camera.create(width=W, height=H)
-    px, py = pt.pixel_grid(H, W)
+    cam = cam_ops.Camera.create(width=W, height=H, device="cpu")
+    px, py = pt.pixel_grid(H, W, device="cpu")
     jit = torch.from_numpy(np.random.default_rng(seed).uniform(-0.5, 0.5, (W * H, 2))
                            .astype(np.float32))
     o, d = cam_ops.get_rays(cam, px, py, jit)

@@ -87,7 +87,7 @@ def test_mse_step_past_max_depth_matches_jax(jax_deep_step, sweep):
     torch.set_num_threads(1)
     target, key, jloss, jgrads, jcolor = jax_deep_step
     pkt = PACKETS["demo"]()
-    cam = cam_ops.Camera.create(width=W, height=H)
+    cam = cam_ops.Camera.create(width=W, height=H, device="cpu")
     cfg = RenderConfig(width=W, height=H, max_depth=DEEP, grad_sweep=sweep)
     tkey = interop.key_from_jax(np.asarray(key))
     params = sh.differentiable_params(pkt, cam)

@@ -37,7 +37,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import first_design_warp_bounces
+from chip_smoke import first_design_warp_bounces, first_render_params
 from ptre_tpu_torch.models import demo
 from ptre_tpu_torch.models.scene import Scene
 from ptre_tpu_torch.ops import camera as cam_ops
@@ -65,7 +65,7 @@ def _build(tmp_path_factory, source):
 def libs(tmp_path_factory):
     render = _build(tmp_path_factory, "host_render.cpp")
     render.ptre_render_sample_host.restype = None
-    render.ptre_render_sample_host.argtypes = [PTR] * 9
+    render.ptre_render_sample_host.argtypes = [PTR] * 10
     grad = _build(tmp_path_factory, "host_grad.cpp")
     grad.ptre_trace_record_host.restype = None
     grad.ptre_trace_record_host.argtypes = [PTR] * 12
@@ -128,20 +128,23 @@ def test_render_scheduler_equals_first_design_bit_for_bit(libs, name, external):
     make_scene, cam_kw, W, H, B = CASES[name]
     scene = make_scene()
     cfg = RenderConfig(width=W, height=H, max_depth=B)
-    rows = rk.camera_rows(cam_ops.Camera.create(width=W, height=H, **cam_kw))
+    rows = rk.camera_rows(cam_ops.Camera.create(width=W, height=H, **cam_kw, device="cpu"))
     rs = np.random.default_rng(len(name) + 11 * B)
     prev = torch.from_numpy(rs.random((H, W, 3), dtype=np.float32))
     urand = _urand(rs, external, (2 + 2 * B, H, W))
-    params = rk.render_params(H, W, scene, rows, 3, cfg, 0xC0FFEE, external_rng=external)
+    params = rk.render_params(H, W, scene, 3, cfg, 0xC0FFEE, external_rng=external)
     tables = (scene.tris.data_ptr(), scene.sphs.data_ptr(), scene.mats.data_ptr(),
               scene.sky.data_ptr())
     ur = None if urand is None else urand.data_ptr()
     got, want_first = prev.clone(), prev.clone()
     stats = np.zeros(len(mk.DENSE_STATS), dtype=np.uint64)
     lens = torch.zeros((H, W), dtype=torch.int32)
-    render.ptre_render_sample_host(ctypes.addressof(params), got.data_ptr(), ur, *tables,
-                                   stats.ctypes.data, lens.data_ptr())
-    first.ptre_render_sample_first(ctypes.addressof(params), want_first.data_ptr(), ur, *tables)
+    render.ptre_render_sample_host(ctypes.addressof(params), rows.data_ptr(), got.data_ptr(),
+                                   ur, *tables, stats.ctypes.data, lens.data_ptr())
+    # the first design takes the camera rows by value (`first_render_params`)
+    first_params = first_render_params(params, rows)
+    first.ptre_render_sample_first(ctypes.addressof(first_params), want_first.data_ptr(), ur,
+                                   *tables)
     assert torch.equal(got, want_first)
     want = rk.sample_accum_reference(prev, scene, rows, 3, cfg, 0xC0FFEE, urand)
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5, atol=1e-5)
@@ -185,8 +188,8 @@ def test_record_scheduler_equals_first_design_bit_for_bit(libs, name, external):
     scene = make_scene()
     cfg = RenderConfig(width=W, height=H, max_depth=B)
     k = mk.TraceConsts.from_config(cfg)
-    cam = cam_ops.Camera.create(width=W, height=H, **cam_kw)
-    px, py = pt.pixel_grid(H, W)
+    cam = cam_ops.Camera.create(width=W, height=H, **cam_kw, device="cpu")
+    px, py = pt.pixel_grid(H, W, device="cpu")
     rs = np.random.default_rng(len(name) + 7 * B)
     jit = torch.from_numpy(rs.random((H * W, 2), dtype=np.float32)) - 0.5
     o, d = (t.contiguous() for t in cam_ops.get_rays(cam, px, py, jit))

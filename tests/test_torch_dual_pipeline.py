@@ -71,7 +71,7 @@ def _port(height=H, clamp=False):
     scn = demo.reference_demo_scene(8, 4)
     return (scn.build_packet(device="cpu"),
             scn.build_packet(spheres_as_triangles=True, device="cpu"),
-            cam_ops.Camera.create(width=W, height=height),
+            cam_ops.Camera.create(width=W, height=height, device="cpu"),
             RenderConfig(width=W, height=height, clamp_samples=clamp, grad_sweep="staged"),
             RasterConfig(width=W, height=height, supersample=2))
 

@@ -54,7 +54,7 @@ def _one_thread():
 
 def _renderer(w=24, h=16, config=None, **kw):
     scn = demo.reference_demo_scene(8, 4)
-    cam = cam_ops.Camera.create(width=w, height=h)
+    cam = cam_ops.Camera.create(width=w, height=h, device="cpu")
     return Renderer(
         scn, cam, config or RenderConfig(width=w, height=h),
         RasterConfig(width=w, height=h, supersample=1), device="cpu", **kw,
@@ -244,7 +244,8 @@ def test_fused_seed_matches_jax(seed, frames):
         tk = rng.fold(rng.key_for(seed), i)
         assert tk == rng.Key(*(int(w) for w in np.asarray(k)))
         assert pt.fused_seed(tk) == want
-        assert int(rng.uint(rng.fold(tk, 0x5EED), maxval=2**31 - 2)) == want  # tensor form
+        # tensor form
+        assert int(rng.uint(rng.fold(tk, 0x5EED), maxval=2**31 - 2, device="cpu")) == want
 
 
 def _within_display_step(got, want, steps=1):

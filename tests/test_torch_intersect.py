@@ -71,8 +71,8 @@ def _rays(pkt, seed=0):
     """Jittered primary rays, and bounce-1 rays leaving the surfaces they hit
     (offset by shadow_eps along the normal, a random outward direction)."""
     rs = np.random.default_rng(seed)
-    cam = cam_ops.Camera.create(width=W, height=H)
-    px, py = pt.pixel_grid(H, W)
+    cam = cam_ops.Camera.create(width=W, height=H, device="cpu")
+    px, py = pt.pixel_grid(H, W, device="cpu")
     jit = torch.from_numpy(rs.uniform(-0.5, 0.5, (W * H, 2)).astype(np.float32))
     o, d = cam_ops.get_rays(cam, px, py, jit)
     hit = intersect.closest_hit(o, d, pkt, pkt.world_triangles(), K.t_min, K.t_max, K.det_eps)

@@ -49,7 +49,7 @@ def _batch(seed):
 def test_scatter_values_and_gradients_match_jax(seed):
     b = _batch(seed)
     jkey = jrng.fold(jrng.key_for(seed), 3)
-    u1, u2 = rng.cosine_uniforms(rng.fold(rng.key_for(seed), 3), (N,))
+    u1, u2 = rng.cosine_uniforms(rng.fold(rng.key_for(seed), 3), (N,), device="cpu")
     rs = np.random.default_rng(seed + 10)
     w = [rs.normal(size=(N, 3)).astype(np.float32) for _ in range(3)] + [
         rs.normal(size=N).astype(np.float32) for _ in range(2)]

@@ -229,7 +229,7 @@ def test_distinct_materials_mse_step_matches_jax_staged(kind):
     jp, pkt = distinct_scene(jscene, jdemo, kind), distinct_scene(tscene, demo, kind)
     assert jp.num_materials == pkt.num_materials == 24
     jc = jcam.Camera.create(width=W, height=H)
-    cam = cam_ops.Camera.create(width=W, height=H)
+    cam = cam_ops.Camera.create(width=W, height=H, device="cpu")
     jcfg = JConfig(width=W, height=H, max_depth=DEPTH[kind], remat_bounces=False)
     cfg = RenderConfig(width=W, height=H, max_depth=DEPTH[kind])
     assert integrator.grad_route(cfg, pkt) == "fused"
@@ -257,7 +257,7 @@ def test_distinct_materials_render_step_matches_jax_staged(kind):
     torch.set_num_threads(1)
     jp, pkt = distinct_scene(jscene, jdemo, kind), distinct_scene(tscene, demo, kind)
     jc = jcam.Camera.create(width=W, height=H)
-    cam = cam_ops.Camera.create(width=W, height=H)
+    cam = cam_ops.Camera.create(width=W, height=H, device="cpu")
     cfg = RenderConfig(width=W, height=H, max_depth=DEPTH[kind])
     jcfg = JConfig(width=W, height=H, max_depth=DEPTH[kind])
     key, spp = jrng.key_for(29), 2
@@ -301,7 +301,7 @@ def test_decoy_dense_render_and_record_match_jax_fused_kernels():
     want = np.asarray(jrk.sample_accum_fused(
         0, jp, jc, jnp.asarray(prev.transpose(2, 0, 1)), 3.0, cfg, urand=jnp.asarray(urand),
         interpret=True)).transpose(1, 2, 0)
-    rows = rk.camera_rows(cam_ops.Camera.create(width=W, height=H))
+    rows = rk.camera_rows(cam_ops.Camera.create(width=W, height=H, device="cpu"))
     got = rk.sample_accum_reference(torch.from_numpy(prev), scene, rows, 3, cfg,
                                     urand=torch.from_numpy(urand)).numpy()
     np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5)
@@ -335,7 +335,7 @@ def test_decoy_wavefront_matches_jax_wavefront():
     jc, o, d = _jax_rays(key)
     jcol, jsel, jur, jperm = jwf.trace(key, o, d, jp, cfg, record=True, interpret=True,
                                        tile_hint=(H, W), screen_cam=jc)
-    cam = cam_ops.Camera.create(width=W, height=H)
+    cam = cam_ops.Camera.create(width=W, height=H, device="cpu")
     scene = wf.prepare_scene(scene_b("config4"), screen_cam=cam)
     assert scene.num_mats == 24 and tuple(scene.mats.shape) == (24, 8)
     urand = torch.from_numpy(np.concatenate([np.zeros((2, R), np.float32), np.asarray(jur)]))
@@ -363,7 +363,7 @@ def test_decoy_training_step_equals_scene_a(kind):
     none."""
     torch.set_num_threads(1)
     cfg = RenderConfig(width=W, height=H, max_depth=DEPTH[kind])
-    cam = cam_ops.Camera.create(width=W, height=H)
+    cam = cam_ops.Camera.create(width=W, height=H, device="cpu")
     target = torch.from_numpy(np.random.default_rng(6).uniform(0.0, 0.5, (R, 3))
                               .astype(np.float32))
     urand = _jax_train_urand(jrng.key_for(47), 1, DEPTH[kind])
@@ -391,7 +391,7 @@ def test_a_select_shifted_by_eight_rows_hits_a_decoy():
     plain dense route's image is far from A's, which B's own equals."""
     torch.set_num_threads(1)
     cfg = RenderConfig(width=W, height=H, max_depth=DEPTH["demo"])
-    rows = rk.camera_rows(cam_ops.Camera.create(width=W, height=H))
+    rows = rk.camera_rows(cam_ops.Camera.create(width=W, height=H, device="cpu"))
     urand = torch.from_numpy(np.random.default_rng(9).random((2 + 2 * cfg.max_depth, H, W),
                                                              dtype=np.float32))
     b = scene_b("demo")
@@ -500,7 +500,7 @@ def test_select_and_shade_match_jax_scatter_on_valid_ids(M):
     nrm, d, p = _hits(n, rs)
     seed = M
     jkey = jrng.fold(jrng.key_for(seed), 3)
-    u1, u2 = rng.cosine_uniforms(rng.fold(rng.key_for(seed), 3), (n,))
+    u1, u2 = rng.cosine_uniforms(rng.fold(rng.key_for(seed), 3), (n,), device="cpu")
     table = mats.numpy()
     jr = jmat.scatter(jkey, jnp.asarray(d), jnp.asarray(p), jnp.asarray(nrm),
                       jnp.asarray(table[row, 0].astype(np.int32)), jnp.asarray(table[row, 1:4]),

@@ -206,7 +206,7 @@ def _drill_rank(rank, world_size, init, out_dir, tag, die_rank, die_after, resum
     distributed.initialize(init, world_size, rank, backend="gloo", timeout=DRILL_TIMEOUT_S)
     mesh = sh.make_mesh((world_size, 1), device_type="cpu")
     pkt = demo.reference_demo_scene(8, 4).build_packet(device="cpu")
-    cam = cam_ops.Camera.create(width=W, height=H)
+    cam = cam_ops.Camera.create(width=W, height=H, device="cpu")
     step = sh.make_render_step(mesh, cam, RenderConfig(width=W, height=H), spp=DRILL_SPP)
     key = rng.key_for(DRILL_SEED)
     path = os.path.join(out_dir, f"rank{rank}.npz")

@@ -144,7 +144,7 @@ def test_native_packet_renders():
     from ptre_tpu_torch.utils.config import RenderConfig
 
     torch.set_num_threads(1)
-    cam = cam_ops.Camera.create(width=16, height=16)
+    cam = cam_ops.Camera.create(width=16, height=16, device="cpu")
     cfg = RenderConfig(width=16, height=16)
     imgs = [pt.render_step(p, cam, pt.AccumState.create(16, 16, device="cpu"), 3, cfg).linear
             for p in (_native_demo().build_packet(device="cpu"),

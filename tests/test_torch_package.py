@@ -28,7 +28,7 @@ from ptre_tpu_torch.models import demo
 from ptre_tpu_torch.models.scene import PACKET_LEAVES, Material, MaterialKind
 from ptre_tpu_torch.ops import camera as cam_ops
 from ptre_tpu_torch.ops.cuda import build
-from ptre_tpu_torch.ops import integrator
+from ptre_tpu_torch.ops import integrator, rng
 from ptre_tpu_torch.ops.cuda import fused_grad
 from ptre_tpu_torch.ops.cuda import megakernel as mk
 from ptre_tpu_torch.ops.cuda import render_kernel as rk
@@ -36,6 +36,7 @@ from ptre_tpu_torch.ops.cuda import wavefront as wf
 from ptre_tpu_torch.parallel import sharding as sh
 from ptre_tpu_torch.render import pathtracer as pt
 from ptre_tpu_torch.render import train
+from ptre_tpu_torch.utils import interop
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -116,7 +117,7 @@ def _small_inputs(H=8, W=16):
     torch.set_num_threads(1)
     cfg = RenderConfig(width=W, height=H, max_depth=2)
     scene = mk.pack_scene(demo.reference_demo_scene(8, 4).build_packet(device="cpu"))
-    rows = rk.camera_rows(cam_ops.Camera.create(width=W, height=H))
+    rows = rk.camera_rows(cam_ops.Camera.create(width=W, height=H, device="cpu"))
     prev = torch.from_numpy(np.random.default_rng(5).random((H, W, 3), np.float32))
     return cfg, scene, rows, prev
 
@@ -199,7 +200,7 @@ def test_wavefront_wrappers_on_cpu_run_plain_versions_without_launch():
     W, H = 16, 8
     cfg = RenderConfig(width=W, height=H, max_depth=3)
     pkt = demo.config4_mixed_scene(12, 6).build_packet(device="cpu")
-    cam = cam_ops.Camera.create(width=W, height=H)
+    cam = cam_ops.Camera.create(width=W, height=H, device="cpu")
     before = (wf.mask_launches, wf.bounce_launches, rk.launches)
     acc = pt.render_step(pkt, cam, pt.AccumState.create(H, W, device="cpu"), 3, cfg, spp=2)
     assert (wf.mask_launches, wf.bounce_launches, rk.launches) == before
@@ -213,7 +214,7 @@ def test_wavefront_wrappers_on_cpu_run_plain_versions_without_launch():
     meta = torch.empty((wf.STATE_ROWS, 64), device="meta")
     with pytest.raises(RendererError, match="cuda or cpu"):
         wf.wave_mask(meta, scene.boxes, k.t_min, 32)
-    short, cnt = wf.all_leaves(2, scene.n_leaf)
+    short, cnt = wf.all_leaves(2, scene.n_leaf, device="cpu")
     ids = torch.arange(64, dtype=torch.int32)
     with pytest.raises(RendererError, match="cuda or cpu"):
         wf.wave_bounce(meta, ids, short, cnt, scene, k, 0)
@@ -240,7 +241,7 @@ def test_training_refuses_non_dense_packet_on_cuda_before_any_cuda_call(monkeypa
     assert not mk.dense_supported(big) and wf.supports(big)
     W, H = 16, 8
     cfg = RenderConfig(width=W, height=H)
-    cam = cam_ops.Camera.create(width=W, height=H)
+    cam = cam_ops.Camera.create(width=W, height=H, device="cpu")
     with FakeTensorMode(allow_non_fake_inputs=True):
         pkt = dataclasses.replace(big, **{
             k: torch.empty_like(getattr(big, k), device="cuda") for k in PACKET_LEAVES})
@@ -285,7 +286,7 @@ def test_triangle_gradient_wrappers_on_cpu_run_plain_versions_without_launch():
     W, H = 16, 8
     cfg = RenderConfig(width=W, height=H, max_depth=3)
     pkt = demo.config4_mixed_scene(12, 6).build_packet(device="cpu")
-    cam = cam_ops.Camera.create(width=W, height=H)
+    cam = cam_ops.Camera.create(width=W, height=H, device="cpu")
     before = (wf.mask_launches, wf.bounce_launches, mk.culled_launches, mk.record_launches,
               fused_grad.launches)
     loss, grads = train.mse_step(sh.differentiable_params(pkt, cam), pkt, cam,
@@ -311,7 +312,7 @@ def test_gradient_wrappers_on_cpu_run_plain_versions_without_launch():
     W, H = 16, 8
     cfg = RenderConfig(width=W, height=H, max_depth=3)
     pkt = demo.reference_demo_scene(8, 4).build_packet(device="cpu")
-    cam = cam_ops.Camera.create(width=W, height=H)
+    cam = cam_ops.Camera.create(width=W, height=H, device="cpu")
     before = (mk.record_launches, fused_grad.launches)
     loss, grads = train.mse_step(sh.differentiable_params(pkt, cam), pkt, cam,
                                  torch.zeros((W * H, 3)), cfg, seed=2)
@@ -339,7 +340,7 @@ def test_raster_wrappers_on_cpu_run_plain_versions_and_refuse_other_devices(monk
     torch.set_num_threads(1)
     cfg = RasterConfig(width=16, height=8, supersample=2)
     pkt = demo.reference_demo_scene(8, 4).build_packet(spheres_as_triangles=True, device="cpu")
-    cam = cam_ops.Camera.create(width=16, height=8)
+    cam = cam_ops.Camera.create(width=16, height=8, device="cpu")
     before = (rast.launches, sr.fwd_launches, sr.bwd_launches)
     params = sh.differentiable_params(pkt, cam)
     loss, grads = train.raster_mse_step(params, pkt, cam, torch.zeros((8, 16, 3)), cfg)
@@ -395,6 +396,66 @@ def test_packet_and_accumulator_on_the_cpu_when_asked():
     assert not scn.modified()
 
 
+def _packet_arrays():
+    pkt = demo.reference_demo_scene(8, 4).build_packet(device="cpu")
+    return pkt, {k: getattr(pkt, k).numpy() for k in PACKET_LEAVES}
+
+
+def _counts(pkt):
+    return {k: getattr(pkt, k) for k in ("num_triangles", "num_spheres", "num_drawcalls",
+                                         "num_materials")}
+
+
+#: every public function of the port that allocates without an input tensor:
+#: its call, to which a test adds ``device`` or not
+DEFAULT_CARD = {
+    "Camera.create": lambda **d: cam_ops.Camera.create(width=8, height=4, **d),
+    "pixel_grid": lambda **d: pt.pixel_grid(4, 8, **d),
+    "rng.ray_uniforms": lambda **d: rng.ray_uniforms(3, 1, 16, 2, **d),
+    "rng.render_uniforms": lambda **d: rng.render_uniforms(3, 1, 4, 8, 2, **d),
+    "rng.random_bits": lambda **d: rng.random_bits(rng.key_for(1), (5,), **d),
+    "rng.uniform": lambda **d: rng.uniform(rng.key_for(1), (5,), **d),
+    "rng.uint": lambda **d: rng.uint(rng.key_for(1), (5,), 0, 9, **d),
+    "rng.pixel_jitter": lambda **d: rng.pixel_jitter(rng.key_for(1), (5,), **d),
+    "rng.on_unit_sphere": lambda **d: rng.on_unit_sphere(rng.key_for(1), (5,), **d),
+    "rng.cosine_uniforms": lambda **d: rng.cosine_uniforms(rng.key_for(1), (5,), **d),
+    "rng.cosine_weighted": lambda **d: rng.cosine_weighted(rng.key_for(1), (5,), **d),
+    "interop.packet_from_numpy": lambda **d: interop.packet_from_numpy(
+        _packet_arrays()[1], _counts(_packet_arrays()[0]), **d),
+    "interop.packet_from_reference": lambda **d: interop.packet_from_reference(
+        _packet_arrays()[0], **d),
+    "interop.camera_from_numpy": lambda **d: interop.camera_from_numpy(
+        (0.0, 0.5, -3.0), (0.0, -0.5, 3.0), 45.0, 0.01, 100.0, 8, 4, 0, **d),
+    "interop.accum_from_numpy": lambda **d: interop.accum_from_numpy(
+        np.zeros((4, 8, 3), np.float32), 2, **d),
+    "interop.params_from_numpy": lambda **d: interop.params_from_numpy(
+        {"cam_fov": np.float32(45.0), "sky_top": np.ones(3, np.float32)}, **d),
+}
+
+
+def _tensors(x):
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if dataclasses.is_dataclass(x):
+        x = [getattr(x, f.name) for f in dataclasses.fields(x)]
+    elif isinstance(x, dict):
+        x = list(x.values())
+    return [t for v in x for t in _tensors(v)] if isinstance(x, (list, tuple)) else []
+
+
+@pytest.mark.parametrize("name", list(DEFAULT_CARD))
+def test_constructor_defaults_to_the_card(monkeypatch, name):
+    """Each public function that allocates without an input tensor resolves
+    ``device=None`` to the card: with no card it raises RendererError and
+    never returns CPU tensors; ``device="cpu"`` gives CPU tensors."""
+    call = DEFAULT_CARD[name]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RendererError, match="CUDA device is required"):
+        call()
+    tensors = _tensors(call(device="cpu"))
+    assert tensors and {t.device.type for t in tensors} == {"cpu"}, name
+
+
 def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
     """`Renderer(...)`, `Application()` and `cli render` without ``--device
     cpu`` name the card and raise RendererError where there is none:
@@ -406,7 +467,8 @@ def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RendererError, match="CUDA device is required"):
-        Renderer(demo.reference_demo_scene(8, 4), cam_ops.Camera.create(width=8, height=4))
+        Renderer(demo.reference_demo_scene(8, 4),
+                 cam_ops.Camera.create(width=8, height=4, device="cpu"))
     with pytest.raises(RendererError, match="CUDA device is required"):
         Application(window=Window(8, 4))
     for argv in (["render", "--width", "8", "--height", "4", "--out", str(tmp_path)],
@@ -414,6 +476,19 @@ def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
         with pytest.raises(RendererError, match="CUDA device is required"):
             cli.main(argv)
     assert os.listdir(tmp_path) == []
+
+
+def test_console_script_names_the_port_cli():
+    """``pyproject.toml`` installs the port's CLI as ``ptre-torch``: the
+    entry names a callable that exists, `ptre_tpu_torch.cli.main`."""
+    import importlib
+    import tomllib
+
+    with open(os.path.join(REPO, "pyproject.toml"), "rb") as f:
+        scripts = tomllib.load(f)["project"]["scripts"]
+    module, _, attr = scripts["ptre-torch"].partition(":")
+    assert (module, attr) == ("ptre_tpu_torch.cli", "main")
+    assert callable(getattr(importlib.import_module(module), attr))
 
 
 def _public_functions(path):

@@ -76,7 +76,7 @@ def _port_scene(height=H):
     from ptre_tpu_torch.ops import camera as cam_ops
 
     return (demo.reference_demo_scene(8, 4).build_packet(device="cpu"),
-            cam_ops.Camera.create(width=W, height=height))
+            cam_ops.Camera.create(width=W, height=height, device="cpu"))
 
 
 # ---- the port's replay of each shard's maths, in one process ------------------------
@@ -233,7 +233,7 @@ def test_row_maps_match_jax_exactly(jx, dp, row_order, height):
     np.testing.assert_array_equal(back.numpy(), img)  # the round trip
     rows = sh.padded_height(height, dp) // dp
     for dp_i in range(dp):
-        ids = sh.shard_row_ids(dp_i, rows, dp, row_order)
+        ids = sh.shard_row_ids(dp_i, rows, dp, row_order, device="cpu")
         np.testing.assert_array_equal(ids.numpy(), np.asarray(
             jx.sh.shard_row_ids(dp_i, rows, dp, row_order)))
         y0, stride = sh._row_start_stride(dp_i, rows, dp, row_order)
@@ -375,6 +375,23 @@ def test_world_of_one_render_equals_replay_and_jax(world_of_one, jx):
                                    jx.pt.AccumState.create(H, W), jx.rng.key_for(9),
                                    jx.Config(width=W, height=H), spp=2)
     np.testing.assert_allclose(out.linear.numpy(), np.asarray(jout.linear), rtol=0, atol=1e-5)
+
+
+def test_world_of_one_running_average_is_the_reference_expression(world_of_one):
+    """Six samples in one step: the running average is the reference's
+    img / n + lin * ((n - 1) / n) in float32 bit for bit, at n = 6 too,
+    where (n - 1) * (1 / n) rounds otherwise."""
+    from ptre_tpu_torch.ops import rng
+    from ptre_tpu_torch.parallel import sharding as sh
+    from ptre_tpu_torch.render import pathtracer as pt
+
+    torch.set_num_threads(1)
+    pkt, cam = _port_scene()
+    cfg = _port_config(H)
+    out = sh.shard_render_step(world_of_one, pkt, cam, pt.AccumState.create(H, W, "cpu"),
+                               rng.key_for(12), cfg, spp=6)
+    want = replay_render(pkt, cam, cfg, rng.key_for(12), 1, 1, 6)
+    np.testing.assert_array_equal(out.linear.numpy(), want.numpy())
 
 
 def test_world_of_one_train_equals_replay(world_of_one):

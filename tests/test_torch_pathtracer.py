@@ -71,7 +71,7 @@ def test_render_step_matches_jax_staged_route():
     jc = jcam.Camera.create(width=W, height=H)
     jacc = jpt.AccumState.create(H, W)
     pkt = demo.reference_demo_scene(16, 8).build_packet(device="cpu")
-    cam = cam_ops.Camera.create(width=W, height=H)
+    cam = cam_ops.Camera.create(width=W, height=H, device="cpu")
     acc = pt.AccumState.create(H, W, device="cpu")
     for step in range(2):
         key = jrng.fold(root, step)
@@ -103,12 +103,12 @@ def test_interop_continues_a_jax_render():
 
     pkt = interop.packet_from_numpy(
         {k: np.asarray(getattr(jp, k)) for k in PACKET_LEAVES},
-        {k: getattr(jp, k) for k in PACKET_COUNTS})
+        {k: getattr(jp, k) for k in PACKET_COUNTS}, device="cpu")
     cam = interop.camera_from_numpy(
         *(np.asarray(getattr(jc, f)) for f in
           ("position", "forward", "fov_degrees", "znear", "zfar")),
-        jc.width, jc.height, jc.projection)
-    acc = interop.accum_from_numpy(np.asarray(jacc.linear), np.asarray(jacc.frame))
+        jc.width, jc.height, jc.projection, device="cpu")
+    acc = interop.accum_from_numpy(np.asarray(jacc.linear), np.asarray(jacc.frame), device="cpu")
     assert acc.frame == 1
     np.testing.assert_array_equal(acc.linear.numpy(), np.asarray(jacc.linear))
     np.testing.assert_allclose(rk.camera_rows(cam).numpy(),
@@ -147,7 +147,7 @@ def test_renders_dense_goldens(name):
     W, H = cfg_kw["width"], cfg_kw["height"]
     cfg = RenderConfig(**cfg_kw)
     pkt = getattr(demo, scene_fn)(*args).build_packet(device="cpu")
-    cam = cam_ops.Camera.create(width=W, height=H, **cam_kw)
+    cam = cam_ops.Camera.create(width=W, height=H, **cam_kw, device="cpu")
     urand = jax_urand(jrng.key_for(seed), 0, spp, H, W, cfg.max_depth)
     acc = pt.render_step(pkt, cam, pt.AccumState.create(H, W, device="cpu"), 0, cfg, spp=spp,
                          urand=urand)
@@ -179,7 +179,7 @@ def test_render_step_triangle_scene_matches_jax_staged_route(name):
     pkt = TRI_SCENES[name](demo).build_packet(device="cpu")
     assert pt.route(pkt) == "wavefront"
     jc = jcam.Camera.create(width=W, height=H)
-    cam = cam_ops.Camera.create(width=W, height=H)
+    cam = cam_ops.Camera.create(width=W, height=H, device="cpu")
     jacc, acc = jpt.AccumState.create(H, W), pt.AccumState.create(H, W, device="cpu")
     for step in range(2):
         key = jrng.fold(root, step)
@@ -210,7 +210,7 @@ def test_renders_triangle_goldens(name):
     cfg = RenderConfig(width=W, height=H, max_depth=5)
     pkt = getattr(demo, scene_fn)(**scene_kw).build_packet(device="cpu")
     assert pt.route(pkt) == "wavefront"
-    cam = cam_ops.Camera.create(width=W, height=H, **cam_kw)
+    cam = cam_ops.Camera.create(width=W, height=H, **cam_kw, device="cpu")
     urand = jax_urand(jrng.key_for(seed), 0, 4, H, W, cfg.max_depth)
     acc = pt.render_step(pkt, cam, pt.AccumState.create(H, W, device="cpu"), 0, cfg, spp=4, urand=urand)
     got = pt.to_display(acc.linear).numpy().astype(np.int16)
@@ -241,7 +241,7 @@ def test_reset_overwrites_history_and_frame_is_host_int():
     W, H = 16, 8
     cfg = RenderConfig(width=W, height=H, max_depth=2)
     pkt = demo.reference_demo_scene(8, 4).build_packet(device="cpu")
-    cam = cam_ops.Camera.create(width=W, height=H)
+    cam = cam_ops.Camera.create(width=W, height=H, device="cpu")
     acc = pt.render_step(pkt, cam, pt.AccumState.create(H, W, device="cpu"), 5, cfg, spp=3)
     assert acc.frame == 3 and isinstance(acc.frame, int)
     before = acc.linear.clone()

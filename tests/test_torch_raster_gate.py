@@ -90,7 +90,7 @@ def _check(libs, tris, cbox, scal, rows_ss, width_ss, ss, y0=0.0, stride=1.0):
     assert torch.equal(got, fst)
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=ULP_ONE)
     assert st["visits"] == rk.visited_pairs(cbox, rows_ss, width_ss, ss, y0, stride)
-    ys = rk.sample_ys(rows_ss, ss, y0, stride)
+    ys = rk.sample_ys(rows_ss, ss, y0, stride, device="cpu")
     span = rk.window_span(rows_ss, width_ss, ss, y0, stride)
     boxes = rk.hard_gate_boxes(tris, span)
     # the PyTorch gate boxes that count the pairs are the kernel's, bit for bit
@@ -115,7 +115,8 @@ def _demo(W, H, ss, y0=0.0, stride=1, rows=None, scene=None):
     scene = demo.reference_demo_scene(16, 8) if scene is None else scene
     pkt = scene.build_packet(spheres_as_triangles=True, device="cpu")
     with torch.no_grad():
-        tris, cbox = rk.pack_raster_tris(pkt, cam_ops.Camera.create(width=W, height=H), cfg)
+        tris, cbox = rk.pack_raster_tris(
+            pkt, cam_ops.Camera.create(width=W, height=H, device="cpu"), cfg)
     rows = H if rows is None else rows
     return tris, cbox, rk.raster_scalars(cfg, 0.0, y0, stride), rows * ss, W * ss, ss
 
@@ -226,7 +227,7 @@ def test_slivers_near_an_ulp_of_area(libs):
     keep = tris[:, 12] > 0.5
     area = 1.0 / tris[keep, 22].abs()
     assert float(area.min()) < 1e-4  # a few ulps of the corners' products
-    ys = rk.sample_ys(H, 1, 0.0, 1.0)
+    ys = rk.sample_ys(H, 1, 0.0, 1.0, device="cpu")
     xs = torch.arange(W, dtype=torch.float32) + 0.5
     assert _covering_outside_box(tris, ys, xs) > 0
     scal = rk.raster_scalars(RasterConfig(width=W, height=H, supersample=1))

@@ -69,7 +69,8 @@ def _pair(name, W, H, ss=1, **cfg_kw):
     jp, tp = SCENES[name][0](), SCENES[name][1]()
     jcfg = JRasterConfig(width=W, height=H, supersample=ss, **cfg_kw)
     return (jp, jcam.Camera.create(width=W, height=H), jcfg, tp,
-            cam_ops.Camera.create(width=W, height=H), interop.config_from_reference(jcfg))
+            cam_ops.Camera.create(width=W, height=H, device="cpu"),
+            interop.config_from_reference(jcfg))
 
 
 def _to_uint8(img):
@@ -210,7 +211,7 @@ def test_renders_demo_raster_golden():
     ss 2, within tests/test_goldens.py's bound."""
     torch.set_num_threads(1)
     pkt = demo.reference_demo_scene(16, 8).build_packet(spheres_as_triangles=True, device="cpu")
-    img = ras.rasterize(pkt, cam_ops.Camera.create(width=64, height=36),
+    img = ras.rasterize(pkt, cam_ops.Camera.create(width=64, height=36, device="cpu"),
                         RasterConfig(width=64, height=36, supersample=2))
     _assert_golden_bound(img.numpy(), read_ppm(GOLDEN) / 255.0, "demo_raster")
     want = read_ppm(GOLDEN).astype(np.int16)
@@ -222,7 +223,7 @@ def test_rasterize_frames_equals_per_frame_loop():
     W, H = 40, 24
     cfg = RasterConfig(width=W, height=H, supersample=2)
     pkt = demo.reference_demo_scene(8, 4).build_packet(spheres_as_triangles=True, device="cpu")
-    cam = cam_ops.Camera.create(width=W, height=H)
+    cam = cam_ops.Camera.create(width=W, height=H, device="cpu")
     rs = np.random.default_rng(4)
     frames = pkt.transforms[None].repeat(3, 1, 1, 1).clone()
     frames[:, :, 3, :3] += torch.from_numpy(rs.uniform(-0.3, 0.3, (3, frames.shape[1], 3))
@@ -253,7 +254,8 @@ def test_empty_scene_is_clear_colour(soft):
     torch.set_num_threads(1)
     cfg = RasterConfig(width=20, height=12, supersample=2)
     pkt = Scene().build_packet(spheres_as_triangles=True, device="cpu")
-    img = ras.rasterize(pkt, cam_ops.Camera.create(width=20, height=12), cfg, soft=soft)
+    img = ras.rasterize(pkt, cam_ops.Camera.create(width=20, height=12, device="cpu"), cfg,
+                        soft=soft)
     clear = torch.tensor(cfg.clear_color, dtype=torch.float32)
     assert torch.equal(img, clear.expand(12, 20, 3))
 

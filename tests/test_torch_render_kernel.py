@@ -36,7 +36,7 @@ def scenes():
     jp = jdemo.reference_demo_scene(8, 4).build_packet()
     jc = jcam.Camera.create(width=W, height=H)
     tp = demo.reference_demo_scene(8, 4).build_packet(device="cpu")
-    tc = cam_ops.Camera.create(width=W, height=H)
+    tc = cam_ops.Camera.create(width=W, height=H, device="cpu")
     return jp, jc, mk.pack_scene(tp), rk.camera_rows(tc)
 
 
@@ -78,7 +78,7 @@ def test_philox_draws_through_jax_render_kernel(scenes):
     _, _, scene, rows = scenes
     prev = _history("random", np.random.default_rng(4))
     seed, n = 0xC0FFEE, 2
-    urand = rng.render_uniforms(seed, n, H, W, CFG.max_depth).numpy()
+    urand = rng.render_uniforms(seed, n, H, W, CFG.max_depth, device="cpu").numpy()
     _, want = _both(scenes, prev, urand, n)
     got = rk.sample_accum_reference(torch.from_numpy(prev), scene, rows, n, CFG,
                                     seed=seed).numpy()

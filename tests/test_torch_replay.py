@@ -84,7 +84,7 @@ def case(request):
 
     (_, c_x), g = jax.value_and_grad(loss, (0, 1, 2), has_aux=True)(params, o, d)
     pkt = interop.packet_from_numpy({k: np.asarray(getattr(jp, k)) for k in PACKET_LEAVES},
-                                    {k: getattr(jp, k) for k in PACKET_COUNTS})
+                                    {k: getattr(jp, k) for k in PACKET_COUNTS}, device="cpu")
     return dict(
         jp=jp, pkt=pkt, cfg=cfg, o=np.asarray(o), d=np.asarray(d),
         color=np.asarray(color), sel=sel, ur=ur, replay_color=np.asarray(c_x),
@@ -142,10 +142,10 @@ def test_recording_trace_matches_jax_kernel(case):
 def test_replay_matches_jax_replay(case):
     torch.set_num_threads(1)
     leaves = {k: v.requires_grad_(True)
-              for k, v in interop.params_from_numpy(case["params"]).items()}
+              for k, v in interop.params_from_numpy(case["params"], device="cpu").items()}
     o = torch.tensor(case["o"], requires_grad=True)
     d = torch.tensor(case["d"], requires_grad=True)
-    cam = cam_ops.Camera.create(width=W, height=H)
+    cam = cam_ops.Camera.create(width=W, height=H, device="cpu")
     pk, _ = sh.apply_params(leaves, case["pkt"], cam)
     sel = interop.selections_from_jax(case["sel"], pk.tri_v0.shape[0])
     color = path_replay.replay(o, d, sel, _urand(case), pk, case["cfg"])

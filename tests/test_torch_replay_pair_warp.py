@@ -85,8 +85,8 @@ def _paths(scene, external, max_depth, case="recorded"):
         pkt = demo.config4_mixed_scene(8, 4).build_packet(device="cpu")
     if case == "emissive":  # every material an emitter: every path ends at its first hit
         pkt = dataclasses.replace(pkt, mat_kind=torch.ones_like(pkt.mat_kind))
-    cam = cam_ops.Camera.create(width=W, height=H)
-    px, py = pt.pixel_grid(H, W)
+    cam = cam_ops.Camera.create(width=W, height=H, device="cpu")
+    px, py = pt.pixel_grid(H, W, device="cpu")
     rs = np.random.default_rng(max_depth + 10 * external)
     jit = torch.from_numpy(rs.random((R, 2), np.float32)) - 0.5
     o, d = (t.contiguous() for t in cam_ops.get_rays(cam, px, py, jit))

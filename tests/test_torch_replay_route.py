@@ -136,7 +136,7 @@ def case():
     (_, c_route), g = jax.value_and_grad(loss, (0, 1, 2), has_aux=True)(params, o, d)
     o, d = np.asarray(o), np.asarray(d)
     return dict(
-        jp=jp, pkt=interop.packet_from_reference(jp), o=o, d=d, sel=jsel, ur=jur,
+        jp=jp, pkt=interop.packet_from_reference(jp, device="cpu"), o=o, d=d, sel=jsel, ur=jur,
         pair=_jax_pair(jp, cfg, o, d, jsel, jur), route_color=np.asarray(c_route),
         route_grads=({k: np.asarray(v) for k, v in g[0].items()}, np.asarray(g[1]),
                      np.asarray(g[2])),
@@ -195,10 +195,10 @@ def test_plain_replay_pair_vjp_matches_jax_kernel(case):
 def test_replay_route_matches_jax_trace_fused_grad(case):
     torch.set_num_threads(1)
     leaves = {k: v.requires_grad_(True)
-              for k, v in interop.params_from_numpy(case["params"]).items()}
+              for k, v in interop.params_from_numpy(case["params"], device="cpu").items()}
     o = torch.tensor(case["o"], requires_grad=True)
     d = torch.tensor(case["d"], requires_grad=True)
-    cam = cam_ops.Camera.create(width=W, height=H)
+    cam = cam_ops.Camera.create(width=W, height=H, device="cpu")
     pk, _ = sh.apply_params(leaves, case["pkt"], cam)
     cfg = _port_cfg(grad_sweep="replay")
     assert integrator.grad_route(cfg, pk) == "replay"
@@ -264,7 +264,7 @@ def _rel(a, b):
 def test_replay_step_equals_fused_step(step):
     torch.set_num_threads(1)
     pkt = _diffuse_demo()
-    cam = cam_ops.Camera.create(width=W, height=H)
+    cam = cam_ops.Camera.create(width=W, height=H, device="cpu")
     params = sh.differentiable_params(pkt, cam)
     target = torch.from_numpy(np.random.default_rng(4).uniform(0.0, 0.3, (R, 3))
                               .astype(np.float32))

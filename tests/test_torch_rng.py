@@ -68,7 +68,7 @@ def test_uniform_statistics():
 
 def test_render_uniforms_layout_and_determinism():
     H, W, B, seed, sample = 3, 5, 3, (7 << 32) | 99, 4
-    u = rng.render_uniforms(seed, sample, H, W, B)
+    u = rng.render_uniforms(seed, sample, H, W, B, device="cpu")
     assert u.shape == (2 + 2 * B, H, W)
     pix = torch.arange(H * W, dtype=torch.int64)
     for k in range(1 + B):  # draw pair k: block k >> 1, words 0-1 or 2-3
@@ -77,9 +77,9 @@ def test_render_uniforms_layout_and_determinism():
         w = 2 * (k & 1)
         assert torch.equal(u[2 * k].reshape(-1), rng.u01(blk[w]))
         assert torch.equal(u[2 * k + 1].reshape(-1), rng.u01(blk[w + 1]))
-    assert torch.equal(u, rng.render_uniforms(seed, sample, H, W, B))
-    assert not torch.equal(u, rng.render_uniforms(seed + 1, sample, H, W, B))
-    assert not torch.equal(u, rng.render_uniforms(seed, sample + 1, H, W, B))
+    assert torch.equal(u, rng.render_uniforms(seed, sample, H, W, B, device="cpu"))
+    assert not torch.equal(u, rng.render_uniforms(seed + 1, sample, H, W, B, device="cpu"))
+    assert not torch.equal(u, rng.render_uniforms(seed, sample + 1, H, W, B, device="cpu"))
     # fewer bounces draw a prefix of the same uniforms
-    assert torch.equal(rng.render_uniforms(seed, sample, H, W, 1), u[:4])
+    assert torch.equal(rng.render_uniforms(seed, sample, H, W, 1, device="cpu"), u[:4])
     assert np.all(np.isfinite(u.numpy()))

@@ -59,7 +59,7 @@ def test_packet_from_numpy_of_reference_equals_port_packet(name):
     jp, tp = _packets(name, False)
     arrays = {leaf: np.asarray(getattr(jp, leaf)) for leaf in PACKET_LEAVES}
     counts = {c: getattr(jp, c) for c in PACKET_COUNTS}
-    carried = interop.packet_from_numpy(arrays, counts)
+    carried = interop.packet_from_numpy(arrays, counts, device="cpu")
     for leaf in PACKET_LEAVES:
         assert torch.equal(getattr(carried, leaf), getattr(tp, leaf)), leaf
     for c in PACKET_COUNTS:

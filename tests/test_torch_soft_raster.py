@@ -45,7 +45,8 @@ def _demo(W, H, ss=1, segments=8, rings=4):
     tp = demo.reference_demo_scene(segments, rings).build_packet(spheres_as_triangles=True, device="cpu")
     jcfg = JRasterConfig(width=W, height=H, supersample=ss)
     return (jp, jcam.Camera.create(width=W, height=H), jcfg, tp,
-            cam_ops.Camera.create(width=W, height=H), interop.config_from_reference(jcfg))
+            cam_ops.Camera.create(width=W, height=H, device="cpu"),
+            interop.config_from_reference(jcfg))
 
 
 @pytest.fixture(scope="module")

@@ -98,7 +98,8 @@ def _packets(kind):
 
 
 def _cams(w=W, h=H):
-    return jcam.Camera.create(width=w, height=h), cam_ops.Camera.create(width=w, height=h)
+    return (jcam.Camera.create(width=w, height=h),
+            cam_ops.Camera.create(width=w, height=h, device="cpu"))
 
 
 def _rel(a, b):
@@ -211,7 +212,7 @@ def test_staged_route_matches_fused_route_with_the_same_urand():
     # the same packet, the same uniforms: the same paths through two routes
     torch.set_num_threads(1)
     pkt = demo.reference_demo_scene(8, 4).build_packet(device="cpu")
-    cam = cam_ops.Camera.create(width=W, height=H)
+    cam = cam_ops.Camera.create(width=W, height=H, device="cpu")
     urand = torch.from_numpy(np.random.default_rng(3).random(
         (1, 12, H, W), dtype=np.float32))
     target = torch.from_numpy(np.random.default_rng(4).uniform(0, 0.5, (R, 3)).astype(np.float32))
@@ -294,7 +295,7 @@ def test_render_step_nine_materials_default_route_matches_jax_render_step():
 def test_ray_chunk_changes_nothing_without_a_key():
     # ray_chunk splits the staged route's rays, which this test forces
     pkt = _packets("nine")[1]
-    cam = cam_ops.Camera.create(width=W, height=H)
+    cam = cam_ops.Camera.create(width=W, height=H, device="cpu")
     cfg = RenderConfig(width=W, height=H, intersect_backend="pallas")
     whole = pt.render_step(pkt, cam, pt.AccumState.create(H, W, device="cpu"), 9, cfg, spp=2)
     for chunk in (32, 50):  # 50: a ragged last chunk
@@ -512,7 +513,7 @@ def test_route_fields_are_validated_and_read():
         assert tuple(integrator.grad_route(cfg, p) for p in (dense, tri, nine)) == want, sweep
     # the replay route runs: dense-class packets only, the rest staged
     cfg = RenderConfig(width=W, height=H, grad_sweep="replay")
-    cam = cam_ops.Camera.create(width=W, height=H)
+    cam = cam_ops.Camera.create(width=W, height=H, device="cpu")
     assert tuple(integrator.grad_route(cfg, p) for p in (dense, tri, nine)) == (
         "replay", "staged", "replay")
     o, d = torch.zeros((R, 3)), torch.nn.functional.normalize(torch.ones((R, 3)), dim=1)
@@ -541,7 +542,7 @@ def test_xla_sweep_on_cuda_tensors_raises_before_any_library_load(monkeypatch):
 
     monkeypatch.setattr(build, "load_library", no_cuda)
     host = _packets("nine")[1]
-    cam = cam_ops.Camera.create(width=W, height=H)
+    cam = cam_ops.Camera.create(width=W, height=H, device="cpu")
     # the packet's default routes are fused: the staged one is forced
     cfg = RenderConfig(width=W, height=H, intersect_backend="xla", grad_sweep="staged")
     with FakeTensorMode(allow_non_fake_inputs=True):

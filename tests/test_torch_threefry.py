@@ -60,7 +60,7 @@ def test_keys_fold_and_split_are_bit_equal(seed):
 def test_uniform_is_bit_equal(seed, shape, lo, hi):
     jk = jrng.fold(jrng.key_for(seed), 5)
     want = np.asarray(jrng.uniform(jk, shape, lo, hi))
-    got = rng.uniform(rng.fold(rng.key_for(seed), 5), shape, lo, hi).numpy()
+    got = rng.uniform(rng.fold(rng.key_for(seed), 5), shape, lo, hi, device="cpu").numpy()
     assert got.dtype == np.float32 and got.shape == want.shape
     assert np.array_equal(got.view(np.uint32), want.view(np.uint32))
     assert got.min() >= np.float32(lo) and got.max() < np.float32(hi)
@@ -71,25 +71,25 @@ def test_uint_and_pixel_jitter_are_bit_equal(seed):
     jk, k = jrng.key_for(seed), rng.key_for(seed)
     for lo, hi in ((0, 2**31 - 2), (3, 1000), (0, 0), (7, 8)):
         want = np.asarray(jrng.uint(jk, (11,), lo, hi)).astype(np.int64)
-        assert np.array_equal(rng.uint(k, (11,), lo, hi).numpy(), want)
+        assert np.array_equal(rng.uint(k, (11,), lo, hi, device="cpu").numpy(), want)
     want = np.asarray(jrng.pixel_jitter(jrng.fold(jk, 0x9E37), (37,)))
-    got = rng.pixel_jitter(rng.fold(k, 0x9E37), (37,)).numpy()
+    got = rng.pixel_jitter(rng.fold(k, 0x9E37), (37,), device="cpu").numpy()
     assert got.shape == (37, 2) and np.array_equal(got, want)
     with pytest.raises(ValueError, match="uint takes"):
-        rng.uint(k, (2,), 5, 4)
+        rng.uint(k, (2,), 5, 4, device="cpu")
 
 
 @pytest.mark.parametrize("seed", SEEDS[:4])
 def test_distributions_within_two_ulp(seed):
     jk, k = jrng.fold(jrng.key_for(seed), 11), rng.fold(rng.key_for(seed), 11)
     n = 2000
-    cos_w = rng.cosine_weighted(k, (n,)).numpy()
+    cos_w = rng.cosine_weighted(k, (n,), device="cpu").numpy()
     np.testing.assert_allclose(cos_w, np.asarray(jrng.cosine_weighted(jk, (n,))),
                                rtol=0, atol=ULP2)
     assert cos_w[:, 2].min() >= 0.0
-    u1, u2 = rng.cosine_uniforms(k, (n,))
+    u1, u2 = rng.cosine_uniforms(k, (n,), device="cpu")
     assert torch.equal(rng.cosine_from_uniforms(u1, u2), torch.from_numpy(cos_w))
-    sph = rng.on_unit_sphere(k, (n,)).numpy()
+    sph = rng.on_unit_sphere(k, (n,), device="cpu").numpy()
     np.testing.assert_allclose(sph, np.asarray(jrng.on_unit_sphere(jk, (n,))),
                                rtol=0, atol=ULP2)
     normal = np.random.default_rng(seed).normal(size=(n, 3)).astype(np.float32)

@@ -73,7 +73,7 @@ def setup():
     target = np.random.default_rng(0).uniform(0.0, 0.5, (R, 3)).astype(np.float32)
     params = {k: np.asarray(v) for k, v in jsh.differentiable_params(jp, jc).items()}
     pkt = demo.reference_demo_scene(8, 4).build_packet(device="cpu")
-    cam = cam_ops.Camera.create(width=W, height=H)
+    cam = cam_ops.Camera.create(width=W, height=H, device="cpu")
     return dict(jp=jp, jc=jc, cfg=cfg, key=key, target=target, params=params,
                 pkt=pkt, cam=cam)
 
@@ -85,7 +85,7 @@ def test_mse_step_matches_jax_staged(setup, spp):
     jl, jg = jtrain.mse_step(jsh.differentiable_params(s["jp"], s["jc"]), s["jp"],
                              s["jc"], jnp.asarray(s["target"]), s["key"], s["cfg"],
                              spp=spp)
-    loss, grads = train.mse_step(interop.params_from_numpy(s["params"]), s["pkt"],
+    loss, grads = train.mse_step(interop.params_from_numpy(s["params"], device="cpu"), s["pkt"],
                                  s["cam"], torch.from_numpy(s["target"]), s["cfg"],
                                  seed=0, spp=spp, urand=jax_urand(s["key"], spp))
     np.testing.assert_allclose(float(loss), float(jl), rtol=1e-5)
@@ -101,7 +101,7 @@ def test_mse_step_matches_jax_staged(setup, spp):
 
 def _port_inputs(setup):
     s = setup
-    return (interop.params_from_numpy(s["params"]), s["pkt"], s["cam"],
+    return (interop.params_from_numpy(s["params"], device="cpu"), s["pkt"], s["cam"],
             torch.from_numpy(s["target"]), s["cfg"])
 
 
@@ -146,10 +146,10 @@ def tri_setup():
     cfg = RenderConfig(width=W, height=H, max_depth=TRI_DEPTH, remat_bounces=False)
     target = np.random.default_rng(1).uniform(0.0, 0.5, (R, 3)).astype(np.float32)
     params = {k: np.asarray(v) for k, v in jsh.differentiable_params(jp, jc).items()}
-    pkt = interop.packet_from_reference(jp)
+    pkt = interop.packet_from_reference(jp, device="cpu")
     assert not mk.dense_supported(pkt)
     return dict(jp=jp, jc=jc, cfg=cfg, key=jrng.key_for(5), target=target, params=params,
-                pkt=pkt, cam=cam_ops.Camera.create(width=W, height=H))
+                pkt=pkt, cam=cam_ops.Camera.create(width=W, height=H, device="cpu"))
 
 
 def test_mse_step_triangle_packet_matches_jax_staged(tri_setup):
@@ -160,7 +160,7 @@ def test_mse_step_triangle_packet_matches_jax_staged(tri_setup):
                              s["jc"], jnp.asarray(s["target"]), s["key"], s["cfg"],
                              spp=spp)
     before = mk.record_launches, fused_grad.launches
-    loss, grads = train.mse_step(interop.params_from_numpy(s["params"]), s["pkt"],
+    loss, grads = train.mse_step(interop.params_from_numpy(s["params"], device="cpu"), s["pkt"],
                                  s["cam"], torch.from_numpy(s["target"]), s["cfg"],
                                  seed=0, spp=spp, urand=jax_urand(s["key"], spp, TRI_DEPTH))
     assert (mk.record_launches, fused_grad.launches) == before  # plain on the CPU

@@ -83,7 +83,8 @@ def test_pack_tile_boxes_and_empty_boxes_match_jax(T):
                                           jnp.asarray(valid), 64))
     got = mk.pack_tile_boxes(t(v0), t(v1), t(v2), t(valid), 64)
     np.testing.assert_array_equal(got.numpy(), want)
-    np.testing.assert_array_equal(mk.empty_boxes(3).numpy(), np.asarray(jmk._empty_boxes(3)))
+    np.testing.assert_array_equal(mk.empty_boxes(3, device="cpu").numpy(),
+                                  np.asarray(jmk._empty_boxes(3)))
 
 
 def _state(rs, R, dead_every=5):
@@ -128,7 +129,7 @@ def test_shortlists_from_mask_match_jax():
                                            (16, 48, 8, 32)])
 def test_tile_order_matches_jax(H, W, rows, cols):
     want = jwf.tile_order(H, W, rows, cols)
-    got = wf.tile_order(H, W, rows, cols)
+    got = wf.tile_order(H, W, rows, cols, device="cpu")
     if want is None:
         assert got is None
     else:
@@ -152,7 +153,7 @@ def test_leaf_screen_boxes_and_block_mask_match_jax(name):
     v0[7] = [0.2, 0.4, -3.5]  # behind the eye: crosses the near plane
     n_leaf = 6
     jc = jcam.Camera.create(width=W, height=H, **cam_kw)
-    tc = cam_ops.Camera.create(width=W, height=H, **cam_kw)
+    tc = cam_ops.Camera.create(width=W, height=H, **cam_kw, device="cpu")
     want = np.asarray(jwf._leaf_screen_boxes(jnp.asarray(v0), jnp.asarray(v1),
                                              jnp.asarray(v2), jnp.asarray(valid), jc, 64,
                                              n_leaf))
@@ -347,7 +348,7 @@ def test_trace_matches_jax_wavefront_and_staged_route():
     R = W * H
     ur = np.asarray(jmk._build_urand(key, R, cfg.max_depth))
     urand = t(np.concatenate([np.zeros((2, R), np.float32), ur]))
-    scene = wf.prepare_scene(tp, screen_cam=cam_ops.Camera.create(width=W, height=H))
+    scene = wf.prepare_scene(tp, screen_cam=cam_ops.Camera.create(width=W, height=H, device="cpu"))
     got = wf.trace(t(o), t(d), scene, mk.TraceConsts.from_config(cfg), cfg.max_depth,
                    urand=urand, tile_hint=(H, W)).numpy()
     want = np.asarray(jwf.trace(key, o, d, jp, cfg, interpret=True, tile_hint=(H, W),
@@ -372,7 +373,7 @@ def test_trace_record_matches_jax_selections():
     jcol, jsel, jur, jperm = jwf.trace(key, o, d, jp, cfg, record=True, interpret=True,
                                        tile_hint=(H, W), screen_cam=cam)
     urand = t(np.concatenate([np.zeros((2, R), np.float32), np.asarray(jur)]))
-    scene = wf.prepare_scene(tp, screen_cam=cam_ops.Camera.create(width=W, height=H))
+    scene = wf.prepare_scene(tp, screen_cam=cam_ops.Camera.create(width=W, height=H, device="cpu"))
     k = mk.TraceConsts.from_config(cfg)
     args = (t(o), t(d), scene, k, cfg.max_depth)
     color, sel, perm = wf.trace(*args, urand=urand, tile_hint=(H, W), record=True)
@@ -390,9 +391,9 @@ def test_trace_record_matches_jax_selections():
 
 
 def _mode_image(tp, W, H, cfg, screen=True, tile_hint=True, **kw):
-    cam = cam_ops.Camera.create(width=W, height=H)
+    cam = cam_ops.Camera.create(width=W, height=H, device="cpu")
     scene = wf.prepare_scene(tp, screen_cam=cam if screen else None)
-    px, py = pt.pixel_grid(H, W)
+    px, py = pt.pixel_grid(H, W, device="cpu")
     jit = torch.from_numpy(np.random.default_rng(1).uniform(-0.5, 0.5, (H * W, 2))
                            .astype(np.float32))
     o, d = cam_ops.get_rays(cam, px, py, jit)
@@ -452,10 +453,10 @@ def test_empty_and_sphere_only_scenes():
     W = H = 8
     cfg = RenderConfig(width=W, height=H)
     k = mk.TraceConsts.from_config(cfg)
-    cam = cam_ops.Camera.create(width=W, height=H)
+    cam = cam_ops.Camera.create(width=W, height=H, device="cpu")
     jit = torch.from_numpy(np.random.default_rng(5).uniform(-0.5, 0.5, (W * H, 2))
                            .astype(np.float32))
-    px, py = pt.pixel_grid(H, W)
+    px, py = pt.pixel_grid(H, W, device="cpu")
     o, d = cam_ops.get_rays(cam, px, py, jit)
     sphere_only = Scene()
     sphere_only.add_mesh("s", pmg.uv_sphere(False, 8, 4))
