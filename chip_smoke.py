@@ -26,7 +26,8 @@ source, all at once), then:
        registers, spills and stack frame and a bound recounted from the
        source by kind of bounce;
   8.   drives the training main path — ``differentiable_params`` →
-       ``mse_step`` at 1920x1080, spp 1 (1 + 8 steps) and one spp-64 step —
+       ``mse_step`` at 1920x1080, spp 1 (1 + 8 steps) and one spp-64 step
+       (its samples rematerialised: two record launches a sample) —
        checking that every sample went through both kernels, and that
        ``two_pass_mse_step`` equals ``mse_step`` at 320x180; then one
        ``mse_step`` at max_depth 9, past the kernels' depth cap, through the
@@ -159,7 +160,17 @@ source, all at once), then:
        launch, B's image, loss and gradients A's; the default route in
        turns with the forced staged route (the parent's route for B) and
        with A's, as a table; config 4 with 300 distinct materials held to
-       the plain version on 8 rows of pixels and driven through both steps.
+       the plain version on 8 rows of pixels and driven through both steps;
+  26.  rematerialisation (`remat_phase`): ``mse_step`` on the demo at
+       1920x1080 (spp 1, 4, 16), on the 65,024-row mesh with the staged
+       route forced (spp 1 and 4, and spp 12 with remat only) and
+       ``shard_train_step`` in a world of one over NCCL (local spp 1 and 4),
+       each with ``remat_bounces`` on and off in turns: peak memory, host
+       ms/step, launches (a sample's forward again in the backward past
+       spp 1; the staged bounces' sweeps not again), the camera's gradients
+       bit for bit and the table's and sky's within REMAT_GRAD_REL, the
+       peak at the largest spp within REMAT_PEAK_RATIO of spp 1's; the
+       synchronizing calls of a dense and a config-4 step at spp 2 by line.
 
 Any failed check raises and the script exits non-zero; it prints its result
 lines only after every phase passed:
@@ -769,6 +780,7 @@ def main():
     sharding_phase(dev, card)
     kernels.append(past_cap_phase(dev, card, rs, static_mask))
     materials_phase(dev, card, rs)
+    remat_phase(dev, card)
 
     # ---- result --------------------------------------------------------------------
     print(f"chip_smoke.py: every phase passed in {time.perf_counter() - t_run:.1f} s, the "
@@ -1131,8 +1143,10 @@ def gradient_phases(dev, card, rs, fma_bwd, first_bwd, first_record):
           f"(W*H*max_depth/s, host clock), loss {float(loss):.6f}, peak "
           f"{peak1 / 2**20:.1f} MiB [{card}]", flush=True)
 
-    # the first spp-64 step grows the caching allocator by ~19 GiB (measured
-    # 1.9 s against ~1.0 s for the next ones): one warm-up step first
+    # the first spp-64 step grows the caching allocator (before its samples
+    # were rematerialised, by ~19 GiB: 1.9 s against ~1.0 s for the next
+    # ones): one warm-up step first. Each sample's forward runs again in the
+    # backward: two record launches a sample, one backward
     step(SPP_TRAIN, 299)
     mk.record_launches = fg.launches = 0
     torch.cuda.reset_peak_memory_stats()
@@ -1140,7 +1154,7 @@ def gradient_phases(dev, card, rs, fma_bwd, first_bwd, first_record):
     loss64, _ = step(SPP_TRAIN, 300)
     dt64 = time.perf_counter() - t0
     peak64 = torch.cuda.max_memory_allocated()
-    check((mk.record_launches, fg.launches) == (SPP_TRAIN, SPP_TRAIN),
+    check((mk.record_launches, fg.launches) == (2 * SPP_TRAIN, SPP_TRAIN),
           f"spp-{SPP_TRAIN} step: launches {(mk.record_launches, fg.launches)}")
     print(f"  spp {SPP_TRAIN}: {dt64 * 1e3:.1f} ms/step, "
           f"{R * SPP_TRAIN * B / dt64 / 1e6:.2f} Mrays/s (W*H*spp*max_depth/s), loss "
@@ -4992,6 +5006,209 @@ def sharding_phase(dev, card):
 
         shutil.rmtree(work, ignore_errors=True)
     print(f"  phase 23 took {time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
+
+
+# Rematerialisation (phase 26). With remat_bounces (the default) mse_step and
+# the sharded train step recompute each sample in the backward past spp 1,
+# and the staged trace each bounce from its sweep's winners; without it they
+# keep every residual. The same operations on the same inputs and draws: the
+# loss and the camera's gradients (fed by d(o), d(d), deterministic) equal
+# bit for bit; the table's and the sky's, which the fused backward sums by
+# atomics in no fixed order (run to run 1.1e-7 to 1.6e-6, ROADMAP C2), within
+# REMAT_GRAD_REL of each leaf's largest entry. Memory: the peak at the
+# largest spp with remat within REMAT_PEAK_RATIO of spp 1's.
+REMAT_DEMO_SPP = (1, 4, 16)
+REMAT_STAGED_SPP = (1, 4)
+REMAT_STAGED_DEEP = 12  # remat only: without it, ~12 times spp 1's residuals
+REMAT_SHARD_SPP = (1, 4)
+REMAT_PEAK_RATIO = 1.25
+REMAT_GRAD_REL = 1e-5
+REMAT_CAMERA_LEAVES = ("cam_position", "cam_forward", "cam_fov")
+
+
+def hold_remat_grads(what, on, off):
+    """Loss and the camera's gradients of ``on`` equal to ``off``'s bit for
+    bit, the other leaves within REMAT_GRAD_REL of their largest entry;
+    returns the largest such distance."""
+    import torch
+
+    (l_on, g_on), (l_off, g_off) = on, off
+    check(float(l_on) == float(l_off), f"{what}: loss {float(l_on)} against {float(l_off)}")
+    worst = 0.0
+    for k, a in g_on.items():
+        b = g_off[k]
+        check(bool(torch.isfinite(a).all()), f"{what}: d({k}) not finite")
+        if k in REMAT_CAMERA_LEAVES:
+            check(torch.equal(a, b), f"{what}: d({k}) differs with remat")
+            continue
+        rel = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+        check(rel <= REMAT_GRAD_REL, f"{what}: d({k}) {rel:.2e} of its largest entry apart")
+        worst = max(worst, rel)
+    return worst
+
+
+def remat_phase(dev, card):
+    """Phase 26: ``remat_bounces`` on and off, in turns, on the three cells
+    whose memory grew with spp before the port rematerialised (module
+    docstring, item 26)."""
+    import torch
+    import torch.distributed as dist
+
+    from ptre_tpu_torch.models import demo
+    from ptre_tpu_torch.ops import camera as cam_ops
+    from ptre_tpu_torch.ops import integrator, rng
+    from ptre_tpu_torch.ops.cuda import wavefront as wf
+    from ptre_tpu_torch.parallel import sharding as sh
+    from ptre_tpu_torch.render import train
+    from ptre_tpu_torch.utils.config import RenderConfig
+
+    t_phase = time.perf_counter()
+    W, H, B = W_MAIN, H_MAIN, 5
+    R = W * H
+    print(f"phase 26: rematerialisation at {W}x{H}, max_depth {B}: remat_bounces on and off "
+          "in turns", flush=True)
+    cam = cam_ops.Camera.create(width=W, height=H)
+    target = torch.zeros((R, 3), device=dev)
+    rows = []  # (cell, spp, remat, ms/step, peak GiB, launches)
+
+    def cell(name, step, spp, remat, want, calls=3):
+        """``calls`` steps (the first a warm-up, then the peak reset), the
+        counts set to 0 just before and read just after: (host ms of a
+        timed step, peak bytes, the last (loss, grads))."""
+        reset_kernel_counts()
+        out = step(0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for t in range(1, calls):
+            out = step(t)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / (calls - 1)
+        peak = torch.cuda.max_memory_allocated()
+        got = check_counts(f"{name} spp {spp} remat {remat}",
+                           {k: v * calls for k, v in want.items()})
+        rows.append((name, spp, remat, ms, peak / 2**30, got))
+        return ms, peak, out
+
+    def drive(name, pkt, c, spps, want, calls=3, grad_spp=4, remat_only=()):
+        """Each spp with remat on and off in turns (on alone at the spps in
+        ``remat_only``); the gradients at ``grad_spp`` held on against off.
+        Returns {(spp, remat): peak}."""
+        params = sh.differentiable_params(pkt, cam)
+        peaks, outs = {}, {}
+        for spp in spps + remat_only:
+            order = (True, False) if spp % 2 else (False, True)
+            for remat in (True,) if spp in remat_only else order:
+                cfg = dataclasses.replace(c, remat_bounces=remat)
+                _, peaks[spp, remat], outs[spp, remat] = cell(
+                    name, lambda t: train.mse_step(params, pkt, cam, target, cfg, 900 + t,
+                                                   spp=spp),
+                    spp, remat, want(spp, remat), calls)
+        worst = hold_remat_grads(f"{name} spp {grad_spp}", outs[grad_spp, True],
+                                 outs[grad_spp, False])
+        print(f"  {name}: spp {grad_spp} gradients with remat on against off: loss and the "
+              f"camera's bit for bit, the others within {worst:.2e} of their largest entry",
+              flush=True)
+        return peaks
+
+    # ---- the demo, fused route: a record launch a sample, again past spp 1
+    demo_pkt = demo.reference_demo_scene(32, 16).build_packet(device=dev)
+    fused = RenderConfig(width=W, height=H, max_depth=B)
+    check(integrator.grad_route(fused, demo_pkt) == "fused", "the demo is not routed fused")
+    peaks = drive("demo", demo_pkt, fused, REMAT_DEMO_SPP, lambda spp, remat: {
+        "record": spp * (2 if remat and spp > 1 else 1), "fused_bwd": spp})
+    big = REMAT_DEMO_SPP[-1]
+    check(peaks[big, True] <= REMAT_PEAK_RATIO * peaks[1, True],
+          f"demo: spp {big} peaks at {peaks[big, True]} B, spp 1 at {peaks[1, True]} B")
+    params = sh.differentiable_params(demo_pkt, cam)
+    for remat in (True, False):
+        cfg = dataclasses.replace(fused, remat_bounces=remat)
+        device_share(lambda: train.mse_step(params, demo_pkt, cam, target, cfg, 5, spp=4), 2,
+                     f"demo mse_step spp 4 remat {remat}", card)
+    sites = sync_sites(lambda: train.mse_step(params, demo_pkt, cam, target, fused, 6, spp=2))
+    print(f"  demo mse_step spp 2 (remat): synchronizing calls {sites or 'none'}", flush=True)
+    check(not sites, f"demo mse_step spp 2: synchronizing calls {sites}")
+    del demo_pkt, params
+
+    # ---- config 4, wavefront in record mode: its live-count reads (kept,
+    # A17) repeat in each sample's recompute
+    name, (fn, kw), _, _ = TRI_CONFIGS[1]
+    c4 = getattr(demo, fn)(**kw).build_packet(device=dev)
+    c4_params = sh.differentiable_params(c4, cam)
+    reads = {}
+    for remat in (True, False):
+        cfg = dataclasses.replace(fused, remat_bounces=remat)
+        train.mse_step(c4_params, c4, cam, target, cfg, 7, spp=2)
+        sites = sync_sites(lambda: train.mse_step(c4_params, c4, cam, target, cfg, 8, spp=2))
+        check(all("ops/cuda/wavefront.py" in k and "(trace)" in k for k in sites),
+              f"{name} mse_step spp 2 remat {remat}: synchronizing calls {sites}")
+        reads[remat] = sum(sites.values())
+        print(f"  {name} mse_step spp 2 remat {remat}: synchronizing calls {sites}", flush=True)
+    check(reads[True] == 2 * reads[False],
+          f"{name}: {reads[True]} live-count reads with remat, {reads[False]} without")
+    del c4, c4_params
+    torch.cuda.empty_cache()
+
+    # ---- the 65,024-row mesh, staged route forced: sweeps once a bounce,
+    # again only in a sample's recompute
+    mesh_pkt = getattr(demo, STAGED_SCENE[0])(**STAGED_SCENE[1]).build_packet(device=dev)
+    staged = dataclasses.replace(fused, grad_sweep="staged")
+    check(integrator.grad_route(staged, mesh_pkt) == "staged", "the mesh is not routed staged")
+    peaks = drive("staged mesh", mesh_pkt, staged, REMAT_STAGED_SPP,
+                  lambda spp, remat: {"sweep": B * spp * (2 if remat and spp > 1 else 1)},
+                  calls=2, remat_only=(REMAT_STAGED_DEEP,))
+    check(peaks[1, True] < peaks[1, False],
+          f"staged mesh spp 1: {peaks[1, True]} B with remat, {peaks[1, False]} B without")
+    check(peaks[REMAT_STAGED_DEEP, True] <= REMAT_PEAK_RATIO * peaks[1, True],
+          f"staged mesh: spp {REMAT_STAGED_DEEP} peaks at {peaks[REMAT_STAGED_DEEP, True]} B, "
+          f"spp 1 at {peaks[1, True]} B")
+    del mesh_pkt
+    torch.cuda.empty_cache()
+
+    # ---- the sharded train step, a world of one over NCCL
+    try:
+        mesh = sh.make_mesh((1, 1))
+        pkt, _, scam, cfg, _, starget = shard_inputs(dev)
+        pkt = sh.replicate(mesh, pkt)
+        sparams = sh.differentiable_params(pkt, scam)
+        key = rng.key_for(SHARD_SEED)
+        peaks, outs = {}, {}
+        for spp in REMAT_SHARD_SPP:
+            for remat in ((True, False) if spp % 2 else (False, True)):
+                c = dataclasses.replace(cfg, remat_bounces=remat)
+                _, peaks[spp, remat], out = cell(
+                    "shard_train_step", lambda t: sh.shard_train_step(
+                        mesh, sparams, pkt, scam, starget, rng.fold(key, t), c, spp=spp),
+                    spp, remat, {"record": spp * (2 if remat and spp > 1 else 1),
+                                 "fused_bwd": spp})
+                outs[spp, remat] = out[:2]
+        big = REMAT_SHARD_SPP[-1]
+        worst = hold_remat_grads(f"shard_train_step spp {big}", outs[big, True],
+                                 outs[big, False])
+        print(f"  shard_train_step: spp {big} gradients with remat on against off: loss and the "
+              f"camera's bit for bit, the others within {worst:.2e}", flush=True)
+        check(peaks[big, True] <= REMAT_PEAK_RATIO * peaks[1, True],
+              f"shard_train_step: spp {big} peaks at {peaks[big, True]} B, spp 1 at "
+              f"{peaks[1, True]} B")
+        c = dataclasses.replace(cfg, remat_bounces=True)
+        sites = sync_sites(lambda: sh.shard_train_step(mesh, sparams, pkt, scam, starget, key, c,
+                                                       spp=2))
+        print(f"  shard_train_step spp 2 (remat): synchronizing calls {sites or 'none'}",
+              flush=True)
+        check(not sites, f"shard_train_step spp 2: synchronizing calls {sites}")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    torch.cuda.empty_cache()
+
+    print(f"  {'cell':<17} {'spp':>4} {'remat':>6} {'ms/step':>10} {'peak GiB':>9}  launches",
+          flush=True)
+    for name, spp, remat, ms, gib, got in rows:
+        print(f"  {name:<17} {spp:>4} {str(remat):>6} {ms:>10.3f} {gib:>9.3f}  {got}",
+              flush=True)
+    print(f"  (host clock, one warm-up step then 2 timed, or 1 on the staged mesh; peak: "
+          f"torch.cuda.max_memory_allocated over the timed steps) [{card}]", flush=True)
+    print(f"  phase 26 took {time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
 
 
 def shard_rank_main(argv):

@@ -16,9 +16,14 @@ so a port written with it would get twice the reference's d(mat_param) for
 every default Oren-Nayar material, whose roughness sits at clip's upper
 bound 1.0.
 
-Not ported: ``remat_pin`` / ``remat_policy``. They pin branch decisions for
-``jax.checkpoint``; the port rematerialises nothing, and its backward replays
-fixed recorded selections, so there is no recompute that could flip a branch.
+`remat` is the port's counterpart of ``jax.checkpoint(..., policy=
+remat_policy)``: a region whose residuals are recomputed in the backward
+instead of kept. The reference pins its branch decisions (``remat_pin``) so
+that a recompute compiled in another fusion context cannot flip them; here
+the recompute runs the same operations on the same inputs, and the one
+decision that is not a deterministic elementwise function of them, a
+bounce's sweep winners, is computed outside the region and passed in
+(`ops/integrator.trace_staged`).
 
 Every scalar constant is a float32 value held in a Python float: float32
 tensors see JAX's weakly typed float32 constants, and float64 tensors (the
@@ -29,6 +34,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.utils import checkpoint as _checkpoint
 
 
 def f32(x) -> float:
@@ -103,3 +109,14 @@ def stable_sqrt_delta(delta, radius):
     fwd = torch.sqrt(torch.where(pos, delta, torch.ones_like(delta))) * posf
     stable = torch.sqrt(torch.maximum(delta, floor)) * posf
     return value_with_stable_grad(fwd, stable)
+
+
+def remat(fn, *args):
+    """``fn(*args)`` with its residuals recomputed in the backward, not kept:
+    a non-reentrant checkpoint, so only the saved tensors' metadata is
+    checked against the recompute (the callers' tests compare values). The
+    device RNG state is not stashed: no region the port checkpoints draws
+    from torch's generators (its draws are Philox keyed by (seed, ray,
+    sample, draw), threefry keyed by Python ints, or uniforms passed in), and
+    stashing it would read every device's generator state at each call."""
+    return _checkpoint.checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)

@@ -35,8 +35,18 @@ threefry ``key`` (`rng.Key`) exactly the reference's draws,
 ``cosine_weighted(fold(key, b), (R,))``; else the port's Philox pair 1 + b
 keyed by (seed, ray, sample), or rows 2 + 2b and 3 + 2b of ``urand`` — the
 draws of the fused route, so on one packet both routes trace the same
-paths. The staged route keeps every bounce's residuals for autograd (~20
-(R, 3) tensors a bounce): no rematerialisation, as the card holds them.
+paths.
+
+Rematerialisation (``config.remat_bounces``, default True, as in the
+reference's `integrator.py:149-156`): under autograd each staged bounce is
+split in two. Its sweep and its draws run outside, without a graph; the
+differentiable rest — the closest-hit recompute from the sweep's winners,
+the material gather, the scatter, the sky and the next (o, d, colour,
+active) — runs in a `gradsafe.remat` region. The backward then keeps a
+bounce's inputs (about 60 bytes a ray) instead of its ~20 (R, 3)
+residuals (about 6.6 KB a ray a sample at max_depth 5), and recomputes the
+region from the same winners: the sweep kernel is not run again. With
+``remat_bounces=False`` every bounce's residuals are kept.
 """
 
 from __future__ import annotations
@@ -105,6 +115,33 @@ def _sweep_fn(scene, consts, active):
     return fn
 
 
+def _bounce(o, d, color, active, i_tri, hit_tri, i_sph, hit_sph, u1, u2, v0, v1, v2, n0,
+            n1, n2, mat_table, mat_kind, packet, consts):
+    """The differentiable part of one staged bounce, from the sweep's
+    winners (``i_tri`` .. ``hit_sph``) and the scatter pair ``u1``, ``u2``:
+    the closest-hit recompute on the world-space triangles ``v0`` .. ``n2``,
+    the material gather, the scatter and the sky → the next (o, d, colour,
+    active). Every per-sample tensor comes in as an argument of its own: a
+    `gradsafe.remat` region keeps its tensor arguments as saved tensors,
+    which an enclosing region (a sample's) drops and recomputes, but holds
+    any other argument (a tuple) until the backward."""
+    winners = (i_tri, hit_tri, i_sph, hit_sph)
+    hit = intersect.closest_hit(o, d, packet, (v0, v1, v2, n0, n1, n2), consts.t_min,
+                                consts.t_max, consts.det_eps, sweep_fn=lambda *_: winners)
+    mat = intersect.gather_rows(mat_table, hit.mat_id)
+    srec = materials.scatter(u1, u2, d, hit.position, hit.normal, mat_kind[hit.mat_id],
+                             mat[:, 0:3], mat[:, 3], consts.shadow_eps, consts.pdf_eps)
+    sky = materials.sky_attenuation(d, packet.sky_bottom, packet.sky_top)
+    # cos/pdf is the constant pi in every branch: its exact gradient is 0
+    hit_factor = gradsafe.cosine_ratio(srec.cos_weight, srec.pdf)[:, None] * srec.attenuation
+    factor = torch.where(hit.hit[:, None], hit_factor, sky)
+    color = color * torch.where(active[:, None], factor, torch.ones_like(factor))
+    next_active = active & hit.hit & ~srec.terminated
+    o = torch.where(next_active[:, None], srec.next_origin, o)
+    d = torch.where(next_active[:, None], srec.next_dir, d)
+    return o, d, color, next_active
+
+
 def trace_staged(origins, directions, packet, config, seed: int = 0, sample: int = 0,
                  urand=None, key=None):
     """The staged trace (`integrator.py:110-168`): per bounce the detached
@@ -112,38 +149,35 @@ def trace_staged(origins, directions, packet, config, seed: int = 0, sample: int
     sky, as a masked loop over ``max_depth`` bounces → linear colour (R, 3),
     differentiable w.r.t. the rays and the packet's float leaves. Draws:
     ``key`` (`rng.Key`), else ``urand`` (2 + 2*max_depth, R), else Philox
-    keyed by (seed, ray, sample) (module docstring)."""
+    keyed by (seed, ray, sample) (module docstring). Under autograd and
+    ``config.remat_bounces`` each bounce's differentiable part is a
+    `gradsafe.remat` region (module docstring)."""
     check_staged_sweep(config, origins.device)
     consts = mk.TraceConsts.from_config(config)
     R = origins.shape[0]
     world_tris = packet.world_triangles()  # hoisted: shared by every bounce
+    detached_tris = tuple(w.detach() for w in world_tris)
     scene = sweep_kernel.prepare(packet)
     if key is None:
         ur = mk.trace_uniforms(origins, config.max_depth, seed, sample, urand)
     mat_kind = packet.mat_kind.long()
     mat_table = torch.cat([packet.mat_albedo, packet.mat_param[:, None]], dim=1)
+    remat = config.remat_bounces and torch.is_grad_enabled()
     o, d = origins, directions
     color = torch.ones((R, 3), dtype=torch.float32, device=origins.device)
     active = torch.ones((R,), dtype=torch.bool, device=origins.device)
     for b in range(config.max_depth):
-        hit = intersect.closest_hit(o, d, packet, world_tris, consts.t_min, consts.t_max,
-                                    consts.det_eps, sweep_fn=_sweep_fn(scene, consts, active))
+        with torch.no_grad():
+            winners = _sweep_fn(scene, consts, active)(
+                o.detach(), d.detach(), packet, detached_tris, consts.t_min, consts.t_max,
+                consts.det_eps)
         if key is not None:
             u1, u2 = rng.cosine_uniforms(rng.fold(key, b), (R,), origins.device)
         else:
             u1, u2 = ur[2 + 2 * b], ur[3 + 2 * b]
-        mat = intersect.gather_rows(mat_table, hit.mat_id)
-        srec = materials.scatter(u1, u2, d, hit.position, hit.normal, mat_kind[hit.mat_id],
-                                 mat[:, 0:3], mat[:, 3], consts.shadow_eps, consts.pdf_eps)
-        sky = materials.sky_attenuation(d, packet.sky_bottom, packet.sky_top)
-        # cos/pdf is the constant pi in every branch: its exact gradient is 0
-        hit_factor = gradsafe.cosine_ratio(srec.cos_weight, srec.pdf)[:, None] * srec.attenuation
-        factor = torch.where(hit.hit[:, None], hit_factor, sky)
-        color = color * torch.where(active[:, None], factor, torch.ones_like(factor))
-        next_active = active & hit.hit & ~srec.terminated
-        o = torch.where(next_active[:, None], srec.next_origin, o)
-        d = torch.where(next_active[:, None], srec.next_dir, d)
-        active = next_active
+        args = (o, d, color, active, *winners, u1, u2, *world_tris, mat_table, mat_kind,
+                packet, consts)
+        o, d, color, active = gradsafe.remat(_bounce, *args) if remat else _bounce(*args)
     return color
 
 

@@ -26,8 +26,10 @@ the dense bounce loops (`ops/cuda/megakernel.trace_block`,
 them to one another. Its (R, T) temporaries make `sweep` an O(R·T)-memory
 function: callers on the card run it over chunks of rays.
 
-Not ported: ``remat_pin`` (identity in value; the port rematerialises
-nothing).
+Not ported: ``remat_pin`` (identity in value). Under rematerialisation
+(`integrator.trace_staged`) the sweep runs outside the recomputed region and
+its winners are passed in through ``sweep_fn``; the O(R) recompute repeats
+the same operations on the same inputs (`gradsafe.remat`).
 """
 
 from __future__ import annotations

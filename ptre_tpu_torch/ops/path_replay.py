@@ -39,7 +39,7 @@ from __future__ import annotations
 
 import torch
 
-from ptre_tpu_torch.ops import intersect
+from ptre_tpu_torch.ops import gradsafe, intersect
 from ptre_tpu_torch.ops.cuda import megakernel as mk
 from ptre_tpu_torch.ops.cuda import replay_kernel as rpk
 
@@ -67,13 +67,15 @@ def build_table(packet):
 
 
 def replay_table(o, d, sel, urand, table, sky6, sph_offset: int, consts,
-                 max_depth: int):
+                 max_depth: int, remat: bool = False):
     """`replay` on a prepared table: (R, 3) linear color.
 
     ``o``, ``d``: (R, 3) primary rays; ``sel``: (B, R) int32 selections;
     ``urand``: (2 + 2B, R) uniforms; ``table``: (P, 27); ``sky6``: (6,);
     ``sph_offset``: the sphere rows' offset T; ``consts``: `TraceConsts`.
-    Gradients flow to ``o``, ``d``, ``table`` and ``sky6``.
+    Gradients flow to ``o``, ``d``, ``table`` and ``sky6``. ``remat``: each
+    bounce of the chain is a `gradsafe.remat` region (recomputed in the
+    backward, not kept).
     """
     P = table.shape[0]
     # a miss or an ended path gathers the zero row P: it is never read by the
@@ -89,9 +91,10 @@ def replay_table(o, d, sel, urand, table, sky6, sph_offset: int, consts,
         hit = idx >= 0
         use_sph = idx >= sph_offset
         g = padded[torch.where(hit, idx, P)].unbind(dim=1)
-        o_, d_, c_, active = rpk.chain_bounce(
-            o_, d_, c_, active, g, use_sph, hit, urand[2 + 2 * b],
-            urand[3 + 2 * b], sky, consts)
+        args = (o_, d_, c_, active, g, use_sph, hit, urand[2 + 2 * b], urand[3 + 2 * b],
+                sky, consts)
+        o_, d_, c_, active = (gradsafe.remat(rpk.chain_bounce, *args) if remat
+                              else rpk.chain_bounce(*args))
     return torch.stack(c_, dim=1)
 
 
@@ -110,10 +113,13 @@ def gather_rows(table, sel):
 def replay(o, d, sel, urand, packet, config):
     """Differentiable replay of recorded paths → linear color (R, 3)
     (`path_replay.py:271-361`). Gradients flow to ``o``, ``d`` and the
-    packet's float leaves."""
+    packet's float leaves. Under autograd each bounce keeps its residuals,
+    or with ``config.remat_replay`` is recomputed in the backward
+    (`path_replay.py:353`)."""
     table, T, sky6 = build_table(packet)
     return replay_table(o, d, sel, urand, table, sky6, T,
-                        mk.TraceConsts.from_config(config), config.max_depth)
+                        mk.TraceConsts.from_config(config), config.max_depth,
+                        config.remat_replay and torch.is_grad_enabled())
 
 
 def trace_fused_grad(o, d, packet, config, seed: int = 0, sample: int = 0, urand=None,

@@ -46,7 +46,7 @@ import torch
 import torch.distributed as dist
 
 from ptre_tpu_torch.ops import camera as cam_ops
-from ptre_tpu_torch.ops import integrator, rng
+from ptre_tpu_torch.ops import gradsafe, integrator, rng
 from ptre_tpu_torch.ops.cuda import fused_grad
 from ptre_tpu_torch.render import pathtracer as pt
 from ptre_tpu_torch.render import rasterizer
@@ -416,14 +416,19 @@ def apply_params(params, packet, cam):
 
 def _pt_image(mesh, leaves, packet, cam, key, config, local_spp, rows, y0, stride, kid):
     """(camera with ``leaves`` applied, the sp mean of this rank's
-    ``local_spp`` samples (rows, W, 3)), differentiable."""
+    ``local_spp`` samples (rows, W, 3)), differentiable. Past one sample,
+    under ``config.remat_bounces``, each sample is a `gradsafe.remat` region
+    (`sharding.py:278-282`, `:418-419`): the backward recomputes it instead
+    of keeping every sample's residuals."""
     pkt, lcam = apply_params(leaves, packet, cam)
     lkey = rng.fold(key, kid)
     forward = _forward(pkt, config)
+    remat = local_spp > 1 and config.remat_bounces
     acc = torch.zeros((rows, cam.width, 3), dtype=torch.float32, device=pkt.device)
     for s in range(local_spp):
-        acc = acc + _sample_rows(rng.fold(lkey, s), pkt, lcam, config, y0, rows, stride,
-                                 forward).reshape(rows, cam.width, 3)
+        args = (rng.fold(lkey, s), pkt, lcam, config, y0, rows, stride, forward)
+        img = gradsafe.remat(_sample_rows, *args) if remat else _sample_rows(*args)
+        acc = acc + img.reshape(rows, cam.width, 3)
     return lcam, _sp_mean(mesh, acc / local_spp)
 
 

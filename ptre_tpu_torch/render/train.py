@@ -3,10 +3,17 @@
 Two exact schedules for the image-MSE loss L = mean((M - T)^2), with the
 mean image M = (1/S) sum_s I_s over S samples per pixel:
 
-* `mse_step` — one autograd graph over all samples. Each sample keeps its
-  recorded selections (20 bytes a ray at max_depth 5) and the ray-generation
-  residuals until the backward; at 1920x1080 and 64 spp that is some
-  gigabytes, which an 80 GB card holds (`PERF.md` gives the measured peak).
+* `mse_step` — one autograd graph over all samples. At spp > 1 each
+  sample is a `gradsafe.remat` region, as the reference checkpoints its
+  sample scan's body (`train.py:94-96`): the forward keeps no sample's
+  residuals, and the backward recomputes one sample at a time (one more
+  forward a sample: a recording launch on the fused route, the staged
+  route's sweeps and bounces), so the memory does not grow with spp. At spp
+  1 the sample is a direct call (`train.py:91-93`). The reference
+  checkpoints whatever its config says; here ``remat_bounces=False`` keeps
+  every sample's residuals instead, as it does in the sharded steps
+  (`sharding.py:278-282`): memory that grows with spp for one forward a
+  sample less.
 
 * `two_pass_mse_step` — constant memory in the sample count:
 
@@ -55,7 +62,7 @@ from __future__ import annotations
 import torch
 
 from ptre_tpu_torch.ops import camera as cam_ops
-from ptre_tpu_torch.ops import integrator, rng
+from ptre_tpu_torch.ops import gradsafe, integrator, rng
 from ptre_tpu_torch.ops.cuda import fused_grad
 from ptre_tpu_torch.parallel import sharding as sh
 from ptre_tpu_torch.render import pathtracer as pt
@@ -125,15 +132,19 @@ def mse_step(params, packet, cam, target, config, seed, spp: int = 1,
     ``target``: (H*W, 3) linear, row-major. ``seed``: an int or an
     `rng.Key` (`sample_color`). ``urand``: optional (spp, 2 + 2*max_depth,
     H, W) uniforms. Returns the loss as a 0-d tensor and a dict of gradients
-    with ``params``' keys.
+    with ``params``' keys. At spp > 1, under ``config.remat_bounces``,
+    every sample is rematerialised (module docstring); the packed forward
+    is made once, outside.
     """
     integrator.check_grad_dispatch(packet, target.device, config)
     leaves = _leaves(params)
     forward = _forward_of(leaves, packet, cam, config)
+    remat = spp > 1 and config.remat_bounces
     acc = torch.zeros_like(target)
     for s in range(spp):
-        acc = acc + sample_color(leaves, packet, cam, config, seed, s,
-                                 None if urand is None else urand[s], forward)
+        args = (leaves, packet, cam, config, seed, s, None if urand is None else urand[s],
+                forward)
+        acc = acc + (gradsafe.remat(sample_color, *args) if remat else sample_color(*args))
     loss = torch.mean((acc / spp - target) ** 2)
     return loss.detach(), _grad_dict(loss, leaves)
 

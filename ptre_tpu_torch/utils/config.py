@@ -7,9 +7,8 @@ config system — every knob is a compile-time constant (window 1280x720
 `path_tracer.cu:240-241`, MSAA 4x `rasterizer.cu:31`, camera pose/fov
 `camera.h:11,26-27`, materials `path_tracer.cu:248-249`); defaults reproduce
 the reference. The route fields (``intersect_backend``, ``grad_sweep``)
-are checked and read as the docstrings below say; ``remat_*`` are carried
-so that a configuration crosses between the packages unchanged, and are not
-read (see there).
+and the rematerialisation fields (``remat_bounces``, ``remat_replay``) are
+checked and read as the docstrings below say.
 """
 
 from __future__ import annotations
@@ -72,14 +71,21 @@ class RenderConfig:
     #: rows) for dense-class packets, else the staged route. The sweep is
     #: detached every way.
     grad_sweep: str = "auto"
-    #: rematerialise the bounce body in the reference's backward
-    #: (`jax.checkpoint`). It changes only memory there ("Identical values
-    #: either way"); the port keeps every bounce's residuals (~20 (R, 3)
-    #: tensors a bounce, some 2.5 GB a sample at 1920x1080, which the card
-    #: holds) and does not read it.
+    #: rematerialise in the training backward (`ops/gradsafe.remat`, the
+    #: reference's `jax.checkpoint`): each sample of `train.mse_step` and of
+    #: the sharded train and dual steps past one sample, and each bounce of
+    #: the staged trace (`integrator.trace_staged`, its sweep winners passed
+    #: in), are recomputed in the backward instead of kept. The values are
+    #: the same bit for bit; the memory no longer grows with spp (without
+    #: it, ~20 (R, 3) tensors a staged bounce and a sample's residuals on
+    #: every route, for every sample), for one more forward a sample.
     remat_bounces: bool = True
-    #: rematerialise the reference's replay backward; memory only there, not
-    #: read by the port.
+    #: rematerialise each bounce of the plain replay chain
+    #: (`path_replay.replay`, `path_replay.py:353`). Off by default, as in the
+    #: reference. The replay route does not read it: its pair recomputes the
+    #: chain inside the backward on both devices (on the card inside the
+    #: backward kernel, as the TPU's does, `replay_kernel.py:18-22`; on the
+    #: CPU its plain version), so no bounce's residuals outlive the forward.
     remat_replay: bool = False
 
     def __post_init__(self):

@@ -176,7 +176,8 @@ def test_mse_step_goes_through_both_kernels(cuda):
     before = (mk.record_launches, fg.launches)
     loss, grads = train.mse_step(params, pkt, cam, target, cfg, seed=4, spp=3)
     torch.cuda.synchronize()
-    assert (mk.record_launches, fg.launches) == (before[0] + 3, before[1] + 3)
+    # each sample's forward runs again in its recompute (remat_bounces)
+    assert (mk.record_launches, fg.launches) == (before[0] + 6, before[1] + 3)
     assert math.isfinite(float(loss)) and float(loss) > 0
     assert all(bool(torch.isfinite(g).all()) for g in grads.values())
     assert float(grads["mat_albedo"].abs().max()) > 0
@@ -273,7 +274,8 @@ def test_replay_route_goes_through_the_replay_kernels(cuda):
     loss, grads = train.mse_step(params, pkt, cam, target, cfg, seed=4, spp=3)
     torch.cuda.synchronize()
     after = (mk.record_launches, rpk.fwd_launches, rpk.bwd_launches, fg.launches)
-    assert tuple(a - b for a, b in zip(after, before)) == (3, 3, 3, 0)
+    # each sample's forward, record and replay forward, again in its recompute
+    assert tuple(a - b for a, b in zip(after, before)) == (6, 6, 3, 0)
     assert math.isfinite(float(loss)) and float(loss) > 0
     assert all(bool(torch.isfinite(g).all()) for g in grads.values())
     assert float(grads["mat_albedo"].abs().max()) > 0
@@ -744,7 +746,8 @@ def test_mse_step_triangle_scene_goes_through_the_kernels(cuda):
     torch.cuda.synchronize()
     bounces, live, bwd, rec = (a - b for a, b in zip(
         (wf.bounce_launches, wf.live_bounces, fg.launches, mk.record_launches), before))
-    assert bounces == live and 2 < live <= 2 * cfg.max_depth and bwd == 2 and rec == 0
+    # each sample's bounces again in its recompute (remat_bounces)
+    assert bounces == live and 4 < live <= 4 * cfg.max_depth and bwd == 2 and rec == 0
     assert math.isfinite(float(loss))
     assert all(bool(torch.isfinite(g).all()) for g in grads.values())
     assert float(grads["transforms"].abs().max()) > 0
@@ -1095,8 +1098,9 @@ def test_mse_step_past_max_depth_runs_staged_through_the_sweep_kernel(cuda):
     loss, grads = train.mse_step(sh.differentiable_params(pkt, cam), pkt, cam, target.to(cuda),
                                  cfg, seed=5, spp=2)
     torch.cuda.synchronize()
+    # each sample's sweeps again in its recompute, not in a bounce's
     assert (sk.launches - before[0], mk.record_launches - before[1],
-            fg.launches - before[2]) == (2 * cfg.max_depth, 0, 0)
+            fg.launches - before[2]) == (2 * 2 * cfg.max_depth, 0, 0)
     want_loss, want = train.mse_step(sh.differentiable_params(pkt_cpu, cam), pkt_cpu, cam,
                                      target, cfg, seed=5, spp=2)
     assert abs(float(loss) - float(want_loss)) <= 2e-3 * abs(float(want_loss))
@@ -1319,14 +1323,20 @@ def _one_device_steps(dev):
         "mse_step": lambda: train.mse_step(
             sh.differentiable_params(pkt, cam), pkt, cam, torch.zeros((W * H, 3), device=dev),
             cfg, seed=3)[1],
+        # spp 2: each sample a remat region, recomputed in the backward
+        "mse_step spp 2": lambda: train.mse_step(
+            sh.differentiable_params(pkt, cam), pkt, cam, torch.zeros((W * H, 3), device=dev),
+            cfg, seed=3, spp=2)[1],
     }
 
 
-@pytest.mark.parametrize("name", ["rasterize", "rasterize soft", "raster_mse_step", "mse_step"])
+@pytest.mark.parametrize("name", ["rasterize", "rasterize soft", "raster_mse_step", "mse_step",
+                                  "mse_step spp 2"])
 def test_one_device_steps_make_no_synchronizing_call(cuda, monkeypatch, name):
-    """The rasterizer's frames and steps and the dense `mse_step` with the
-    camera at its default: no synchronizing call (the shading constants are
-    made once per config and device, the camera's matrices on the card)."""
+    """The rasterizer's frames and steps and the dense `mse_step` (spp 1,
+    and spp 2 with its samples rematerialised) with the camera at its
+    default: no synchronizing call (the shading constants are made once per
+    config and device, the camera's matrices on the card)."""
     step = _one_device_steps(cuda)[name]
     step()
     out = _without_synchronize(monkeypatch, step, name)
@@ -1484,9 +1494,10 @@ def test_shard_render_step_makes_no_synchronizing_call(cuda, monkeypatch):
 
 
 def test_sharded_train_steps_make_no_synchronizing_call(cuda, monkeypatch):
-    """`shard_train_step` and `dual_train_step` (spp 1) on a world of one
-    over NCCL, the camera at its default (the card): no synchronizing call
-    in a step, forward or backward."""
+    """`shard_train_step` and `dual_train_step` (spp 1, and spp 2 with
+    their samples rematerialised) on a world of one over NCCL, the camera at
+    its default (the card): no synchronizing call in a step, forward or
+    backward."""
     import torch.distributed as dist
 
     from ptre_tpu_torch.ops import rng
@@ -1503,14 +1514,15 @@ def test_sharded_train_steps_make_no_synchronizing_call(cuda, monkeypatch):
         params = sh.differentiable_params(pkt, cam)
         target = torch.zeros((SHARD_H, SHARD_W, 3), device=cuda)
         steps = {
-            "shard_train_step": lambda k: sh.shard_train_step(mesh, params, pkt, cam, target,
-                                                              rng.key_for(k), cfg)[1],
-            "dual_train_step": lambda k: sh.dual_train_step(mesh, params, pkt, rpkt, cam, target,
-                                                            rng.key_for(k), cfg, rcfg)[1]}
-        for name, step in steps.items():
-            step(1)
-            grads = _without_synchronize(monkeypatch, lambda: step(2), name)
-            assert all(bool(torch.isfinite(g).all()) for g in grads.values()), name
+            "shard_train_step": lambda k, spp: sh.shard_train_step(
+                mesh, params, pkt, cam, target, rng.key_for(k), cfg, spp=spp)[1],
+            "dual_train_step": lambda k, spp: sh.dual_train_step(
+                mesh, params, pkt, rpkt, cam, target, rng.key_for(k), cfg, rcfg, spp=spp)[1]}
+        for spp in (1, 2):
+            for name, step in steps.items():
+                step(1, spp)
+                grads = _without_synchronize(monkeypatch, lambda: step(2, spp), name)
+                assert all(bool(torch.isfinite(g).all()) for g in grads.values()), (name, spp)
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
@@ -1724,3 +1736,81 @@ def test_many_materials_take_the_fused_kernels_never_the_sweep(cuda):
         assert math.isfinite(float(loss))
         assert float(grads["mat_albedo"][40:].abs().max()) > 0
         assert float(grads["mat_albedo"][:40].abs().max()) == 0.0
+
+
+# ---- rematerialisation (`ops/gradsafe.remat`) ----------------------------------------------
+
+#: d(table)- and d(sky)-fed leaves of the fused backward, summed by atomics in
+#: no fixed order: remat on and off within REMAT_GRAD_REL of the leaf's
+#: largest entry (about six times the largest run-to-run reading, ROADMAP C2);
+#: the camera's leaves, fed by d(o) and d(d), bit for bit
+REMAT_GRAD_REL = 1e-5
+CAMERA_LEAVES = ("cam_position", "cam_forward", "cam_fov")
+
+
+def _hold_remat_grads(on, off, what):
+    (l_on, g_on), (l_off, g_off) = on, off
+    assert float(l_on) == float(l_off), what
+    for k, a in g_on.items():
+        b = g_off[k]
+        assert bool(torch.isfinite(a).all()), (what, k)
+        if k in CAMERA_LEAVES:
+            assert torch.equal(a, b), (what, k)
+        else:
+            scale = max(float(b.abs().max()), 1e-30)
+            assert float((a - b).abs().max()) <= REMAT_GRAD_REL * scale, (what, k)
+
+
+@pytest.mark.parametrize("sweep", ["auto", "staged"])
+def test_mse_step_remat_matches_no_remat_on_the_card(cuda, sweep):
+    """The demo's `mse_step` at spp 3 with its regions on (the default)
+    and with ``remat_bounces=False``: the same loss, the camera's gradients
+    bit for bit, the table's and the sky's within REMAT_GRAD_REL. Per
+    sample the fused route launches the record kernel twice (forward and
+    recompute) and the backward once; the staged route sweeps max_depth
+    times forward and again in the sample's recompute, never in a
+    bounce's."""
+    from ptre_tpu_torch.ops.cuda import sweep_kernel as sk
+
+    W, H, spp = 256, 128, 3
+    pkt = demo.reference_demo_scene(16, 8).build_packet(device=cuda)
+    cam = cam_ops.Camera.create(width=W, height=H)
+    target = torch.zeros((W * H, 3), device=cuda)
+    out, launches = {}, {}
+    for remat in (True, False):
+        cfg = RenderConfig(width=W, height=H, grad_sweep=sweep, remat_bounces=remat)
+        before = (mk.record_launches, fg.launches, sk.launches)
+        out[remat] = train.mse_step(sh.differentiable_params(pkt, cam), pkt, cam, target, cfg,
+                                    seed=7, spp=spp)
+        torch.cuda.synchronize()
+        launches[remat] = tuple(a - b for a, b in zip(
+            (mk.record_launches, fg.launches, sk.launches), before))
+    _hold_remat_grads(out[True], out[False], sweep)
+    B = 5
+    if sweep == "auto":
+        assert launches == {True: (2 * spp, spp, 0), False: (spp, spp, 0)}, launches
+    else:
+        assert launches == {True: (0, 0, 2 * spp * B), False: (0, 0, spp * B)}, launches
+
+
+def test_mse_step_peak_memory_does_not_grow_with_spp(cuda):
+    """The demo's fused `mse_step` at 512x256: the peak at spp 8 within
+    1.25x of spp 1's with remat on, and under the peak without it, where
+    every sample's residuals are kept until the backward."""
+    W, H = 512, 256
+    pkt = demo.reference_demo_scene(16, 8).build_packet(device=cuda)
+    cam = cam_ops.Camera.create(width=W, height=H)
+    params = sh.differentiable_params(pkt, cam)
+    target = torch.zeros((W * H, 3), device=cuda)
+    peak = {}
+    for remat in (True, False):
+        cfg = RenderConfig(width=W, height=H, remat_bounces=remat)
+        for spp in (1, 8):
+            train.mse_step(params, pkt, cam, target, cfg, seed=1, spp=spp)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            train.mse_step(params, pkt, cam, target, cfg, seed=2, spp=spp)
+            torch.cuda.synchronize()
+            peak[remat, spp] = torch.cuda.max_memory_allocated()
+    assert peak[True, 8] <= 1.25 * peak[True, 1], peak
+    assert peak[True, 8] < peak[False, 8], peak

@@ -99,6 +99,34 @@ def test_mse_step_matches_jax_staged(setup, spp):
     assert float(np.abs(np.asarray(jg["mat_param"])).max()) > 0
 
 
+def test_remat_staged_mse_step_matches_jax_staged(setup):
+    """The port's staged step with its sample and bounce regions on (the
+    default, `gradsafe.remat`) against JAX's staged step without remat, the
+    same threefry key drawing the same paths: the tolerances above."""
+    from ptre_tpu_torch.utils.config import RenderConfig as PortConfig
+
+    torch.set_num_threads(1)
+    s = setup
+    spp = 2
+    jl, jg = jtrain.mse_step(jsh.differentiable_params(s["jp"], s["jc"]), s["jp"],
+                             s["jc"], jnp.asarray(s["target"]), s["key"], s["cfg"],
+                             spp=spp)
+    cfg = PortConfig(width=W, height=H, max_depth=DEPTH, grad_sweep="staged")
+    assert cfg.remat_bounces and not s["cfg"].remat_bounces
+    loss, grads = train.mse_step(interop.params_from_numpy(s["params"], device="cpu"), s["pkt"],
+                                 s["cam"], torch.from_numpy(s["target"]), cfg,
+                                 seed=interop.key_from_jax(np.asarray(s["key"])), spp=spp)
+    np.testing.assert_allclose(float(loss), float(jl), rtol=1e-5)
+    assert set(grads) == set(jg)
+    for k, g in grads.items():
+        want = np.asarray(jg[k])
+        assert np.isfinite(g.numpy()).all(), k
+        np.testing.assert_allclose(g.numpy(), want, rtol=2e-3,
+                                   atol=1e-4 * max(float(np.abs(want).max()), 1e-30),
+                                   err_msg=k)
+    assert float(np.abs(np.asarray(jg["sph_radius"])).max()) > 0
+
+
 def _port_inputs(setup):
     s = setup
     return (interop.params_from_numpy(s["params"], device="cpu"), s["pkt"], s["cam"],
