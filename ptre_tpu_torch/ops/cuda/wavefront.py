@@ -56,6 +56,7 @@ import torch
 
 from ptre_tpu_torch.utils.device import constant
 from ptre_tpu_torch.utils.errors import RendererError
+from ptre_tpu_torch.utils.metrics import span
 from ptre_tpu_torch.ops import camera as cam_ops
 from ptre_tpu_torch.ops import vecmat as vm
 from ptre_tpu_torch.ops.cuda import build
@@ -543,10 +544,16 @@ live_bounces = 0
 binned_bounces = 0
 
 
+#: the span of each of `trace`'s stages
+STAGE_SPANS = {name: "ptre.wave." + name for name in ("gather", "sort", "mask", "compact",
+                                                       "bounce")}
+
+
 class StageTimer:
     """Device time of `trace`'s stages by CUDA events, summed by stage name:
     mask (kernel), compact (shortlists), sort (coherence key + argsort),
-    gather (state permutations and the final scatter), bounce (kernel)."""
+    gather (state permutations and the final scatter), bounce (kernel).
+    Each stage opens its span (`STAGE_SPANS`) as it does without a timer."""
 
     def __init__(self):
         self._events = []
@@ -555,9 +562,10 @@ class StageTimer:
     def __call__(self, name: str):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        yield
-        end.record()
+        with span(STAGE_SPANS[name]):
+            start.record()
+            yield
+            end.record()
         self._events.append((name, start, end))
 
     def totals(self):
@@ -570,8 +578,8 @@ class StageTimer:
         return out
 
 
-def _no_stage(name: str):
-    return contextlib.nullcontext()
+def _stage_span(name: str):
+    return span(STAGE_SPANS[name])
 
 
 def all_leaves(nb: int, n_leaf: int, *, device):
@@ -642,12 +650,14 @@ def trace(o, d, scene: WaveScene, consts, max_depth: int, seed: int = 0,
     0 the rays are sorted unless fewer than ``sort_min_live`` of the columns
     live (None: never sort), and the trace stops at the first bounce with no
     live ray. None of these options changes a pixel. ``plain`` runs the
-    plain versions on any device (comparisons); ``timer`` (a `StageTimer`,
-    CUDA only) times the stages."""
+    plain versions on any device (comparisons). Each stage is a span
+    (`STAGE_SPANS`), and each read of the live count, where the host waits
+    for the card, is the span ``ptre.wave.live_count``; ``timer`` (a
+    `StageTimer`, CUDA only) also times the stages."""
     global live_bounces, binned_bounces
     R = o.shape[0]
     dev = o.device
-    stage = timer or _no_stage
+    stage = timer or _stage_span
     mask_fn = (wave_mask_reference if plain
                else functools.partial(wave_mask, supers=scene.mask_supers))
     bounce_fn = wave_bounce_reference if plain else wave_bounce
@@ -657,7 +667,8 @@ def trace(o, d, scene: WaveScene, consts, max_depth: int, seed: int = 0,
     sel = torch.full((max_depth, R), -1, dtype=torch.int32, device=dev) if record else None
     for b in range(max_depth):
         if b > 0:
-            n_live = int((state[9] > 0.5).sum())
+            with span("ptre.wave.live_count"):
+                n_live = int((state[9] > 0.5).sum())
             if n_live == 0:
                 break  # every later bounce would pass every ray through
             if sort_min_live is not None and n_live >= max(

@@ -39,6 +39,7 @@ from ptre_tpu_torch.ops.cuda import render_kernel as rk
 from ptre_tpu_torch.ops.cuda import wavefront as wf
 from ptre_tpu_torch.ops.integrator import postprocess_sample
 from ptre_tpu_torch.utils.device import resolve
+from ptre_tpu_torch.utils.metrics import span
 
 
 @dataclasses.dataclass
@@ -180,7 +181,9 @@ def render_step(packet, cam, accum: AccumState, seed_or_generator, config,
     launch per live bounce (bounce 0 bins in screen space instead of the
     mask when the image tiles), a staged sample one sweep launch per bounce;
     ``accum.linear`` is updated IN PLACE (the port's answer to JAX buffer
-    donation) and the returned state shares it.
+    donation) and the returned state shares it. Under a profiler the step
+    is the span ``ptre.render.step``, its packing ``ptre.render.pack`` and
+    each sample ``ptre.render.sample`` (`utils.metrics.span`).
 
     Args:
       packet: ScenePacket on the accumulator's device.
@@ -200,59 +203,66 @@ def render_step(packet, cam, accum: AccumState, seed_or_generator, config,
         [0, 1) to use instead of Philox draws (parity runs).
       ray_chunk: rays per chunk of the staged route (0: all at once).
     """
-    device = accum.linear.device
-    check_dispatch(packet, device, config)
-    if packet.device != device:
-        raise ValueError(f"packet is on {packet.device}, accum on {device}")
-    cam_ops.check_device(cam, device, "the accumulator")
-    H, W = accum.linear.shape[:2]
-    if (H, W) != (cam.height, cam.width):
-        raise ValueError(f"accum is {H}x{W}, camera {cam.height}x{cam.width}")
-    if urand is not None and tuple(urand.shape) != (spp, 2 + 2 * config.max_depth, H, W):
-        raise ValueError(f"urand has shape {tuple(urand.shape)}")
-    r = route(packet, config)
-    key = seed_or_generator if isinstance(seed_or_generator, rng.Key) else None
-    if key is not None and r != "staged":
-        seed_or_generator, key = fused_seed(key), None
-    if key is None:
-        gen = (seed_or_generator if isinstance(seed_or_generator, torch.Generator)
-               else torch.Generator().manual_seed(int(seed_or_generator)))
+    with span("ptre.render.step"):
+        device = accum.linear.device
+        check_dispatch(packet, device, config)
+        if packet.device != device:
+            raise ValueError(f"packet is on {packet.device}, accum on {device}")
+        cam_ops.check_device(cam, device, "the accumulator")
+        H, W = accum.linear.shape[:2]
+        if (H, W) != (cam.height, cam.width):
+            raise ValueError(f"accum is {H}x{W}, camera {cam.height}x{cam.width}")
+        if urand is not None and tuple(urand.shape) != (spp, 2 + 2 * config.max_depth, H, W):
+            raise ValueError(f"urand has shape {tuple(urand.shape)}")
+        r = route(packet, config)
+        key = seed_or_generator if isinstance(seed_or_generator, rng.Key) else None
+        if key is not None and r != "staged":
+            seed_or_generator, key = fused_seed(key), None
+        if key is None:
+            gen = (seed_or_generator if isinstance(seed_or_generator, torch.Generator)
+                   else torch.Generator().manual_seed(int(seed_or_generator)))
 
-    if r == "staged":
-        with torch.no_grad():
+        if r == "staged":
+            with torch.no_grad():
+                for s in range(spp):
+                    with span("ptre.render.sample"):
+                        n = accum.frame + s + 1
+                        if key is not None:
+                            img = sample_image_staged(packet, cam, config,
+                                                      key=rng.fold(key, s, n),
+                                                      ray_chunk=ray_chunk)
+                        else:
+                            seed = int(torch.randint(0, 2**31 - 1, (1,), generator=gen).item())
+                            img = sample_image_staged(packet, cam, config, seed, n,
+                                                      None if urand is None else urand[s],
+                                                      ray_chunk=ray_chunk)
+                        inv_n, w_old = rk._average_weights(n)
+                        accum.linear.mul_(w_old).add_(img.reshape(H, W, 3) * inv_n)
+            return AccumState(linear=accum.linear, frame=accum.frame + spp)
+
+        if r == "wavefront":
+            # world-space triangles, Morton sort and packing once per step
+            with span("ptre.render.pack"):
+                scene = wf.prepare_scene(packet, screen_cam=cam)
             for s in range(spp):
-                n = accum.frame + s + 1
-                if key is not None:
-                    img = sample_image_staged(packet, cam, config, key=rng.fold(key, s, n),
-                                              ray_chunk=ray_chunk)
-                else:
+                with span("ptre.render.sample"):
                     seed = int(torch.randint(0, 2**31 - 1, (1,), generator=gen).item())
-                    img = sample_image_staged(packet, cam, config, seed, n,
-                                              None if urand is None else urand[s],
-                                              ray_chunk=ray_chunk)
-                inv_n, w_old = rk._average_weights(n)
-                accum.linear.mul_(w_old).add_(img.reshape(H, W, 3) * inv_n)
-        return AccumState(linear=accum.linear, frame=accum.frame + spp)
+                    n = accum.frame + s + 1
+                    img = sample_image(scene, cam, config, seed, n,
+                                       None if urand is None else urand[s])
+                    inv_n, w_old = rk._average_weights(n)
+                    accum.linear.mul_(w_old).add_(img.reshape(H, W, 3) * inv_n)
+            return AccumState(linear=accum.linear, frame=accum.frame + spp)
 
-    if r == "wavefront":
-        # world-space triangles, Morton sort and packing once per step
-        scene = wf.prepare_scene(packet, screen_cam=cam)
+        with span("ptre.render.pack"):
+            scene = mk.pack_scene(packet)
+            rows = rk.camera_rows(cam)
         for s in range(spp):
-            seed = int(torch.randint(0, 2**31 - 1, (1,), generator=gen).item())
-            n = accum.frame + s + 1
-            img = sample_image(scene, cam, config, seed, n,
-                               None if urand is None else urand[s])
-            inv_n, w_old = rk._average_weights(n)
-            accum.linear.mul_(w_old).add_(img.reshape(H, W, 3) * inv_n)
+            with span("ptre.render.sample"):
+                seed = int(torch.randint(0, 2**31 - 1, (1,), generator=gen).item())
+                rk.sample_accum(accum.linear, scene, rows, accum.frame + s + 1, config,
+                                seed, None if urand is None else urand[s])
         return AccumState(linear=accum.linear, frame=accum.frame + spp)
-
-    scene = mk.pack_scene(packet)
-    rows = rk.camera_rows(cam)
-    for s in range(spp):
-        seed = int(torch.randint(0, 2**31 - 1, (1,), generator=gen).item())
-        rk.sample_accum(accum.linear, scene, rows, accum.frame + s + 1, config,
-                        seed, None if urand is None else urand[s])
-    return AccumState(linear=accum.linear, frame=accum.frame + spp)
 
 
 def to_display(linear, sqrt_gamma: bool = True):

@@ -67,6 +67,7 @@ from ptre_tpu_torch.ops.cuda import fused_grad
 from ptre_tpu_torch.parallel import sharding as sh
 from ptre_tpu_torch.render import pathtracer as pt
 from ptre_tpu_torch.render import rasterizer
+from ptre_tpu_torch.utils.metrics import span
 
 
 def pack_forward(params, packet, cam):
@@ -80,7 +81,8 @@ def _forward_of(params, packet, cam, config):
     """`pack_forward` where the step takes the fused or the replay route
     (both record with a packed forward), else None."""
     if integrator.grad_route(config, packet) in ("fused", "replay"):
-        return pack_forward(params, packet, cam)
+        with span("ptre.train.pack"):
+            return pack_forward(params, packet, cam)
     return None
 
 
@@ -96,23 +98,29 @@ def sample_color(params, packet, cam, config, seed, sample: int,
     W) uniforms, rows 0-1 the pixel jitter + 0.5; None draws Philox keyed by
     (seed, pixel, sample, draw). ``forward``: `pack_forward` of the same
     ``params``, when a caller renders several samples of them.
+
+    The sample is the span ``ptre.train.sample``, inside the function, so
+    that a `gradsafe.remat` region's recompute in the backward opens it
+    again.
     """
-    pk, cm = sh.apply_params(params, packet, cam)
-    dev = packet.device
-    R = cm.height * cm.width
-    px, py = pt.pixel_grid(cm.height, cm.width, dev)
-    if isinstance(seed, rng.Key):
-        key = rng.fold(seed, sample)
-        o, d = cam_ops.get_rays(cm, px, py, rng.pixel_jitter(rng.fold(key, 0x9E37), (R,), dev))
-        return integrator.trace(o, d, pk, config, key=key)
-    if urand is None:
-        jit = rng.ray_uniforms(seed, sample, R, 1, dev)
-    else:
-        urand = urand.reshape(2 + 2 * config.max_depth, R)
-        jit = urand[:2]
-    o, d = cam_ops.get_rays(cm, px, py, (jit - 0.5).T)
-    return integrator.trace(o, d, pk, config, seed, sample, urand, screen_cam=cm,
-                            forward=forward)
+    with span("ptre.train.sample"):
+        pk, cm = sh.apply_params(params, packet, cam)
+        dev = packet.device
+        R = cm.height * cm.width
+        px, py = pt.pixel_grid(cm.height, cm.width, dev)
+        if isinstance(seed, rng.Key):
+            key = rng.fold(seed, sample)
+            o, d = cam_ops.get_rays(cm, px, py,
+                                    rng.pixel_jitter(rng.fold(key, 0x9E37), (R,), dev))
+            return integrator.trace(o, d, pk, config, key=key)
+        if urand is None:
+            jit = rng.ray_uniforms(seed, sample, R, 1, dev)
+        else:
+            urand = urand.reshape(2 + 2 * config.max_depth, R)
+            jit = urand[:2]
+        o, d = cam_ops.get_rays(cm, px, py, (jit - 0.5).T)
+        return integrator.trace(o, d, pk, config, seed, sample, urand, screen_cam=cm,
+                                forward=forward)
 
 
 def _leaves(params):
@@ -120,7 +128,8 @@ def _leaves(params):
 
 
 def _grad_dict(out, leaves):
-    grads = torch.autograd.grad(out, list(leaves.values()), allow_unused=True)
+    with span("ptre.train.backward"):
+        grads = torch.autograd.grad(out, list(leaves.values()), allow_unused=True)
     return {k: torch.zeros_like(v) if g is None else g
             for (k, v), g in zip(leaves.items(), grads)}
 
@@ -134,19 +143,26 @@ def mse_step(params, packet, cam, target, config, seed, spp: int = 1,
     H, W) uniforms. Returns the loss as a 0-d tensor and a dict of gradients
     with ``params``' keys. At spp > 1, under ``config.remat_bounces``,
     every sample is rematerialised (module docstring); the packed forward
-    is made once, outside.
+    is made once, outside. Under a profiler the step is the span
+    ``ptre.train.step``, and in it ``ptre.train.pack`` (the packed
+    forward), ``ptre.train.forward`` (the samples and the loss) and
+    ``ptre.train.backward``, in which a rematerialised sample's recompute
+    opens ``ptre.train.sample`` again.
     """
-    integrator.check_grad_dispatch(packet, target.device, config)
-    leaves = _leaves(params)
-    forward = _forward_of(leaves, packet, cam, config)
-    remat = spp > 1 and config.remat_bounces
-    acc = torch.zeros_like(target)
-    for s in range(spp):
-        args = (leaves, packet, cam, config, seed, s, None if urand is None else urand[s],
-                forward)
-        acc = acc + (gradsafe.remat(sample_color, *args) if remat else sample_color(*args))
-    loss = torch.mean((acc / spp - target) ** 2)
-    return loss.detach(), _grad_dict(loss, leaves)
+    with span("ptre.train.step"):
+        integrator.check_grad_dispatch(packet, target.device, config)
+        leaves = _leaves(params)
+        forward = _forward_of(leaves, packet, cam, config)
+        remat = spp > 1 and config.remat_bounces
+        with span("ptre.train.forward"):
+            acc = torch.zeros_like(target)
+            for s in range(spp):
+                args = (leaves, packet, cam, config, seed, s,
+                        None if urand is None else urand[s], forward)
+                acc = acc + (gradsafe.remat(sample_color, *args) if remat
+                             else sample_color(*args))
+            loss = torch.mean((acc / spp - target) ** 2)
+        return loss.detach(), _grad_dict(loss, leaves)
 
 
 def two_pass_mse_step(params, packet, cam, target, config, seed,

@@ -4,6 +4,10 @@ The port's own copy of `ptre_tpu/utils/metrics.py`: per-frame timings,
 rays/s and accumulated-sample counters with the same rolling window and the
 same ``summary()`` string, a structured logger (named ``ptre_tpu_torch``),
 and `profile_trace` over ``torch.profiler`` in place of ``jax.profiler``.
+
+`span` marks a phase of the program's own work (``ptre.render.*``,
+``ptre.wave.*``, ``ptre.train.*``) on the profiler's timeline while a
+profiler records, and costs one attribute read while none does.
 """
 
 from __future__ import annotations
@@ -14,6 +18,8 @@ import logging
 import os
 import time
 from typing import List, Optional
+
+import torch
 
 logger = logging.getLogger("ptre_tpu_torch")
 
@@ -76,15 +82,40 @@ class Metrics:
         )
 
 
+#: what `span` returns while no profiler records: one shared no-op
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context manager that marks ``name`` on the profiler's timeline.
+
+    While a ``torch.profiler`` records (`profile_trace`, a benchmark's
+    traced stretch), the span is an operator-scope host event on the
+    profiler's own clock, which is the clock of the device trace. It is not
+    a user annotation, so the device trace gets no copy of it and the
+    device's event count stays that of the work. While no profiler
+    records, it is one shared no-op and no ``RecordFunction`` is built;
+    where this torch lacks the fast event, spans are off."""
+    if not torch.autograd.profiler._is_profiler_enabled:
+        return _NO_SPAN
+    fast = getattr(torch._C._profiler, "_RecordFunctionFast", None)
+    return _NO_SPAN if fast is None else fast(name)
+
+
 @contextlib.contextmanager
 def profile_trace(log_dir: Optional[str]):
     """torch.profiler trace scope (host and, where there is a card, device
     activity) that writes a Chrome trace into ``log_dir``; no-op when
-    ``log_dir`` is None."""
+    ``log_dir`` is None. The operator's way to see the program's spans
+    (`span`): inside it they are recorded, named ``ptre.*``, around the
+    host's phases of each render and training step.
+
+        with profile_trace("traces"):
+            accum = render_step(packet, cam, accum, seed, config, spp=4)
+    """
     if not log_dir:
         yield
         return
-    import torch
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
@@ -94,11 +125,3 @@ def profile_trace(log_dir: Optional[str]):
     with profile(activities=activities) as prof:
         yield
     prof.export_chrome_trace(os.path.join(log_dir, f"trace_{os.getpid()}.json"))
-
-
-@contextlib.contextmanager
-def timed(name: str, sink=None):
-    t0 = time.perf_counter()
-    yield
-    dt = time.perf_counter() - t0
-    (sink or logger.info)("%s: %.3fs" % (name, dt))
