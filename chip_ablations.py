@@ -845,8 +845,9 @@ def syncs(dev, card):
     read(f"raster_mse_step {RW}x{RH} ss {ss}",
          lambda: train.raster_mse_step(rparams, rpkt, rcam, rtarget, rcfg, sigma), 8)
 
-    # the routes that keep data-dependent reads (ROADMAP A17): their sites
-    # only, one call each, after a warm-up call
+    # the triangle-scale and replay routes (the wavefront takes its sort
+    # decision on the card and should read nothing back): their sites only,
+    # one call each, after a warm-up call
     tpkt = demo.config4_mixed_scene(128, 64).build_packet(device=dev)
     tparams = sh.differentiable_params(tpkt, cam)
     kept = {
@@ -861,7 +862,7 @@ def syncs(dev, card):
     for name, fn in kept.items():
         fn()
         sites = cs.sync_sites(fn)
-        print(f"  {name}: {sum(sites.values())} synchronizing calls in one call (kept)"
+        print(f"  {name}: {sum(sites.values())} synchronizing calls in one call"
               + "".join(f"; {n} at {site}" for site, n in sorted(sites.items())), flush=True)
 
     mesh = sh.make_mesh((1, 1))

@@ -5130,22 +5130,18 @@ def remat_phase(dev, card):
     check(not sites, f"demo mse_step spp 2: synchronizing calls {sites}")
     del demo_pkt, params
 
-    # ---- config 4, wavefront in record mode: its live-count reads (kept,
-    # A17) repeat in each sample's recompute
+    # ---- config 4, wavefront in record mode: the live count stays on the
+    # card (the sort decision is taken there), forward and recompute alike
     name, (fn, kw), _, _ = TRI_CONFIGS[1]
     c4 = getattr(demo, fn)(**kw).build_packet(device=dev)
     c4_params = sh.differentiable_params(c4, cam)
-    reads = {}
     for remat in (True, False):
         cfg = dataclasses.replace(fused, remat_bounces=remat)
         train.mse_step(c4_params, c4, cam, target, cfg, 7, spp=2)
         sites = sync_sites(lambda: train.mse_step(c4_params, c4, cam, target, cfg, 8, spp=2))
-        check(all("ops/cuda/wavefront.py" in k and "(trace)" in k for k in sites),
-              f"{name} mse_step spp 2 remat {remat}: synchronizing calls {sites}")
-        reads[remat] = sum(sites.values())
-        print(f"  {name} mse_step spp 2 remat {remat}: synchronizing calls {sites}", flush=True)
-    check(reads[True] == 2 * reads[False],
-          f"{name}: {reads[True]} live-count reads with remat, {reads[False]} without")
+        print(f"  {name} mse_step spp 2 remat {remat}: synchronizing calls {sites or 'none'}",
+              flush=True)
+        check(not sites, f"{name} mse_step spp 2 remat {remat}: synchronizing calls {sites}")
     del c4, c4_params
     torch.cuda.empty_cache()
 

@@ -40,9 +40,11 @@ of an external (2 + 2 * max_depth, R) uniform tensor at the id.
 The image does not depend on the culling, the binning, the sort or the lane
 count: culling is conservative, and a ray's closest hit is the lowest-index
 minimum over its candidates, ties to the lowest Morton row. Like the
-reference, `trace` skips the sort when fewer than ``SORT_MIN_LIVE`` of the
-rays live, and every bounce once none does; both cost one host read of the
-live count per bounce.
+reference, `trace` leaves the rays in order when fewer than
+``SORT_MIN_LIVE`` of them live. The live count stays on the device: the
+choice between the sorted order and the identity is taken there, and a
+bounce with no live ray is launched like any other (its dead blocks pass
+through), so a trace enqueues all its bounces without waiting for the card.
 """
 
 from __future__ import annotations
@@ -112,28 +114,50 @@ def supports(packet) -> bool:
 
 # ---- glue: sort keys, shortlists, screen binning, packing ------------------
 
+def _spread5(x: int) -> int:
+    """The 5 bits of ``x`` spread to every third bit (a 3-D Morton axis)."""
+    x = (x | (x << 8)) & 0x0300F00F
+    x = (x | (x << 4)) & 0x030C30C3
+    return (x | (x << 2)) & 0x09249249
+
+
+#: `coherence_key`'s bits of each axis a (row a, 512 entries) for its Morton
+#: cell q (0-31), direction sign s (1 where d >= 0) and direction bin b (0-7;
+#: x and y only), at entry q + 32 s + 64 b: the cell spread and shifted by
+#: a, the octant bit 23 - a and the bin at bit 18 - 3 a. The fields hold
+#: disjoint bits, so the key is the sum of the three rows' entries.
+_KEY_BITS = [[_spread5(q) << a | s << (23 - a) | (b << (18 - 3 * a) if a < 2 else 0)
+              for b in range(8) for s in range(2) for q in range(32)] for a in range(3)]
+
+
+@functools.lru_cache(maxsize=16)
+def _key_table(device):
+    """(`_KEY_BITS` flattened, the row offsets (3, 1)) as int32 on
+    ``device``: made with one copy at the first call there."""
+    table = torch.tensor(_KEY_BITS, dtype=torch.int32).reshape(-1).to(device)
+    return table, torch.arange(0, 3 * 512, 512, dtype=torch.int32, device=device)[:, None]
+
+
 def coherence_key(state, lo, hi):
     """(r_pad,) int32 sort key of one bounce's rays (`wavefront.py:513-535`):
     direction octant, 6-bit xy direction bins and a 15-bit Morton cell of
-    the origin in the scene box; dead rays get 0x40000000 and sort last."""
+    the origin in the scene box; dead rays get 0x40000000 and sort last.
+    Each axis's cell, sign and bin index a table of its bits
+    (`_KEY_BITS`): a few passes over the state instead of one for each bit
+    operation."""
     o = state[0:3]
     d = state[3:6]
     act = state[9] > 0.5
     span = torch.clamp(hi - lo, min=1e-9)
-    q = torch.clamp((o - lo[:, None]) / span[:, None] * 31.0, 0.0, 31.0).to(torch.int32)
-
-    def spread(x):
-        x = (x | (x << 8)) & 0x0300F00F
-        x = (x | (x << 4)) & 0x030C30C3
-        x = (x | (x << 2)) & 0x09249249
-        return x
-
-    mo = spread(q[0]) | (spread(q[1]) << 1) | (spread(q[2]) << 2)
-    oct_ = ((d[0] >= 0).to(torch.int32) * 4 + (d[1] >= 0).to(torch.int32) * 2
-            + (d[2] >= 0).to(torch.int32))
-    db = torch.clamp(((d[0:2] + 1.0) * 3.99).to(torch.int32), 0, 7)
-    key = (oct_ << 21) | ((db[0] * 8 + db[1]) << 15) | mo
-    return torch.where(act, key, 0x40000000).to(torch.int32)
+    table, rows = _key_table(state.device)
+    # one (3, r_pad) index, updated in place: the cell, then the sign, the
+    # bin and the row's offset
+    idx = torch.clamp((o - lo[:, None]) / span[:, None] * 31.0, 0.0, 31.0).to(torch.int32)
+    idx.add_(d >= 0, alpha=32)
+    idx[0:2] += torch.clamp(((d[0:2] + 1.0) * 3.99).to(torch.int32), 0, 7) * 64
+    idx += rows
+    key = table.index_select(0, idx.view(-1)).view(3, -1).sum(0, dtype=torch.int32)
+    return torch.where(act, key, 0x40000000)
 
 
 def shortlists_from_mask(mask):
@@ -143,12 +167,12 @@ def shortlists_from_mask(mask):
     `wavefront.py:180-201`), then n_leaf. The reference also pads its
     counts to whole sweep groups and appends a group of pad entries; the
     kernel here needs neither."""
-    nb, n_leaf = mask.shape
+    n_leaf = mask.shape[1]
     cnt = mask.sum(dim=1, dtype=torch.int32)
-    order = torch.argsort((~mask).to(torch.uint8), dim=1, stable=True)
-    idx = torch.arange(n_leaf, device=mask.device)[None, :]
-    short = torch.where(idx < cnt[:, None], order, n_leaf).to(torch.int32)
-    return short.contiguous(), cnt
+    dropped, order = torch.sort(torch.logical_not(mask).view(torch.uint8), dim=1,
+                                stable=True)
+    short = order.to(torch.int32).masked_fill_(dropped.view(torch.bool), n_leaf)
+    return short, cnt
 
 
 def leaf_screen_boxes(v0, v1, v2, tri_valid, cam, leaf: int, n_leaf: int):
@@ -536,12 +560,18 @@ def wave_bounce(state, ids, short, cnt, scene: WaveScene, consts, bounce: int,
 
 # ---- the bounce loop ------------------------------------------------------------
 
-#: bounces `trace` ran (each with live rays), and bounce-0 passes it culled
-#: by screen binning instead of the mask kernel, in this process: with
+#: bounces `trace` launched (``max_depth`` a sample), and bounce-0 passes it
+#: culled by screen binning instead of the mask kernel, in this process: with
 #: ``cull`` a traced sample launches the bounce kernel ``live_bounces``
 #: times and the mask kernel ``live_bounces - binned_bounces`` times
 live_bounces = 0
 binned_bounces = 0
+
+#: the counters `trace`'s ``stats`` adds, on the device: bounces past 0
+#: sorted by `coherence_key`, left in order with live rays (fewer than
+#: ``sort_min_live`` of the columns live, or ``sort_min_live`` None), and
+#: entered with no live ray; ``max_depth - 1`` in all a sample
+TRACE_STATS = ("sorted", "in_order", "no_live")
 
 
 #: the span of each of `trace`'s stages
@@ -624,22 +654,26 @@ def primary_state(o, d, scene: WaveScene, tile_hint=None, cull: bool = True,
     return state, ids, short0
 
 
-def coherence_order(state, scene: WaveScene):
-    """The stable permutation that sorts the rays by `coherence_key`."""
-    return torch.argsort(coherence_key(state, scene.scene_lo, scene.scene_hi), stable=True)
+def coherence_order(state, scene: WaveScene, do_sort=None):
+    """The stable permutation that sorts the rays by `coherence_key`; with
+    ``do_sort`` (a bool tensor) the identity where it is False: the keys
+    are all 0 then, and a stable sort keeps equal keys in order."""
+    key = coherence_key(state, scene.scene_lo, scene.scene_hi)
+    if do_sort is not None:
+        key = torch.where(do_sort, key, 0)
+    return torch.argsort(key, stable=True)
 
 
 def trace(o, d, scene: WaveScene, consts, max_depth: int, seed: int = 0,
           sample: int = 0, urand=None, cull: bool = True, tile_hint=None,
           sort_min_live=SORT_MIN_LIVE, lanes: int = LANES, plain: bool = False,
-          timer: StageTimer = None, record: bool = False):
+          timer: StageTimer = None, record: bool = False, stats=None):
     """Wavefront trace, one sample per ray: (R, 3) rays → (R, 3) float32
     linear colour, unclamped (`wavefront.py:709-871`). With ``record`` it
     returns (colour, selections (max_depth, R) int32, ``scene.perm_tri``):
     per bounce each ray's winner as a row of the Morton-permuted unified
     table (``j`` for triangle row j of ``scene.tris``, ``scene.tri_rows + s``
-    for sphere s), -1 where the ray missed, had ended, or the bounce was cut
-    by the dead-wavefront stop (`:853-857`).
+    for sphere s), -1 where the ray missed or its path had ended.
 
     ``urand`` None draws Philox keyed by (seed, ray, sample); else the (2 + 2
     * max_depth, R) external uniforms. ``tile_hint`` (H, W): the rays are a
@@ -648,35 +682,39 @@ def trace(o, d, scene: WaveScene, consts, max_depth: int, seed: int = 0,
     `prepare_scene` with ``screen_cam``) bins them in screen space instead
     of running the mask. ``cull=False`` sweeps every leaf. Before bounce b >
     0 the rays are sorted unless fewer than ``sort_min_live`` of the columns
-    live (None: never sort), and the trace stops at the first bounce with no
-    live ray. None of these options changes a pixel. ``plain`` runs the
-    plain versions on any device (comparisons). Each stage is a span
-    (`STAGE_SPANS`), and each read of the live count, where the host waits
-    for the card, is the span ``ptre.wave.live_count``; ``timer`` (a
-    `StageTimer`, CUDA only) also times the stages."""
+    live (None: never sort); the count is compared on the device, which
+    picks the sorted order or the identity, and all ``max_depth`` bounces
+    are launched, so the host never waits for the card. None of these
+    options changes a pixel. ``plain`` runs the plain versions on any device
+    (comparisons). Each stage is a span (`STAGE_SPANS`); ``timer`` (a
+    `StageTimer`, CUDA only) also times the stages. ``stats``: None, or a
+    zeroed (3,) int64 tensor on the rays' device that the trace adds
+    `TRACE_STATS` into, on the device."""
     global live_bounces, binned_bounces
     R = o.shape[0]
     dev = o.device
+    if stats is not None:
+        mk.check_tensors("o", dev, [("stats", stats, (len(TRACE_STATS),), torch.int64)])
     stage = timer or _stage_span
     mask_fn = (wave_mask_reference if plain
                else functools.partial(wave_mask, supers=scene.mask_supers))
     bounce_fn = wave_bounce_reference if plain else wave_bounce
     with stage("gather"):
         state, ids, short0 = primary_state(o, d, scene, tile_hint, cull, lanes)
-    nb = state.shape[1] // lanes
+    r_pad = state.shape[1]
+    nb = r_pad // lanes
     sel = torch.full((max_depth, R), -1, dtype=torch.int32, device=dev) if record else None
     for b in range(max_depth):
-        if b > 0:
-            with span("ptre.wave.live_count"):
-                n_live = int((state[9] > 0.5).sum())
-            if n_live == 0:
-                break  # every later bounce would pass every ray through
-            if sort_min_live is not None and n_live >= max(
-                    int(sort_min_live * state.shape[1]), 1):
-                with stage("sort"):
-                    perm = coherence_order(state, scene)
-                with stage("gather"):
-                    state, ids = state[:, perm], ids[perm]
+        if b > 0 and sort_min_live is not None:
+            with stage("sort"):
+                do_sort = (state[9] > 0.5).sum() >= max(int(sort_min_live * r_pad), 1)
+                perm = coherence_order(state, scene, do_sort)
+            with stage("gather"):
+                state, ids = state.index_select(1, perm), ids.index_select(0, perm)
+        if b > 0 and stats is not None:
+            live = (state[9] > 0.5).any()
+            done = do_sort if sort_min_live is not None else torch.zeros_like(live)
+            stats += torch.stack([done, live & ~done, ~live])
         live_bounces += 1
         if b == 0 and short0 is not None:
             short, cnt = short0

@@ -45,25 +45,34 @@ PHILOX_W1 = 0xBB67AE85
 ROUNDS = 10
 
 
-def philox4x32(c0, c1, c2, c3, k0: int, k1: int, rounds: int = ROUNDS):
+def philox4x32(c0, c1, c2, c3, k0, k1, rounds: int = ROUNDS):
     """Philox4x32-R block (Salmon et al., SC'11; Random123's
     ``philox4x32_R``). Counter words are int64 tensors (broadcastable) with
-    values in [0, 2**32); key words are Python ints. Returns four int64
-    tensors of 32-bit words."""
+    values in [0, 2**32); key words are Python ints, or int64 tensors that
+    broadcast with the counters (a key for each of several samples).
+    Returns four int64 tensors of 32-bit words.
+
+    A round's low product words are carried unmasked: each is used once,
+    XORed into a word that is masked there, so only that word and the last
+    round's low words take a mask."""
     c0, c1, c2, c3 = torch.broadcast_tensors(c0, c1, c2, c3)
-    k0 &= _MASK
-    k1 &= _MASK
+    k0 = _round_keys(k0, PHILOX_W0, rounds)
+    k1 = _round_keys(k1, PHILOX_W1, rounds)
     for r in range(rounds):
-        if r:
-            k0 = (k0 + PHILOX_W0) & _MASK
-            k1 = (k1 + PHILOX_W1) & _MASK
         p0 = c0 * PHILOX_M0
         p1 = c2 * PHILOX_M1
-        hi0 = (p0 >> 32) & _MASK
-        hi1 = (p1 >> 32) & _MASK
-        c0, c1, c2, c3 = (hi1 ^ c1 ^ k0, p1 & _MASK,
-                          hi0 ^ c3 ^ k1, p0 & _MASK)
-    return c0, c1, c2, c3
+        c0, c1, c2, c3 = (((p1 >> 32) ^ c1 ^ k0[r]) & _MASK, p1,
+                          ((p0 >> 32) ^ c3 ^ k1[r]) & _MASK, p0)
+    return c0, c1 & _MASK, c2, c3 & _MASK
+
+
+def _round_keys(k, w: int, rounds: int):
+    """Key word ``k`` of each round, (k + r * w) mod 2**32: Python ints, or
+    for a tensor one (rounds, *k.shape) tensor made in a few operations."""
+    if isinstance(k, int):
+        return [(k + r * w) & _MASK for r in range(rounds)]
+    r = torch.arange(rounds, dtype=torch.int64, device=k.device).view(-1, *(1,) * k.dim())
+    return (k + r * w) & _MASK
 
 
 def _word(v: int, device):
@@ -91,6 +100,25 @@ def ray_uniforms(seed: int, sample: int, n_rays: int, n_pairs: int,
         words = philox4x32(pix, smp, _word(block, device), zero, seed & _MASK, seed >> 32)
         rows.extend(words)
     return torch.stack([u01(w) for w in rows[: 2 * n_pairs]])
+
+
+def sample_jitters(seeds, first: int, n_rays: int, device=None):
+    """(len(seeds), 2, n_rays) float32: the pixel jitter (+0.5) of the
+    consecutive samples ``first``, ``first + 1``, ..., sample ``first + s``
+    keyed by ``seeds[s]``. Row s equals ``ray_uniforms(seeds[s], first + s,
+    n_rays, 1)`` bit for bit; all the samples are drawn in one pass.
+    ``device``: None means the card."""
+    device = resolve(device)
+    pix = torch.arange(n_rays, dtype=torch.int64, device=device)
+    smp = torch.arange(first, first + len(seeds), dtype=torch.int64, device=device) & _MASK
+    zero = _word(0, device)
+
+    def keys(words):
+        return torch.stack([_word(w, device) for w in words])[:, None]
+
+    words = philox4x32(pix, smp[:, None], zero, zero, keys(seeds),
+                       keys([s >> 32 for s in seeds]))
+    return torch.stack([u01(words[0]), u01(words[1])], dim=1)
 
 
 def pair_uniforms(seed: int, sample: int, ids, k: int):

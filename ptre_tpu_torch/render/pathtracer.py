@@ -104,6 +104,13 @@ def check_dispatch(packet, device, config=None) -> None:
         integrator.check_staged_sweep(config, device)
 
 
+#: rays whose pixel jitter the wavefront route of `render_step` draws in one
+#: pass, for as many samples as fit (four at 1920x1080): one pass of
+#: launches in place of one a sample, its int64 words (~0.5 GB at this
+#: size) bounded whatever the spp
+JITTER_RAYS = 1 << 23
+
+
 def sample_image(scene: wf.WaveScene, cam, config, seed: int, n: int, urand=None,
                  timer=None):
     """One jittered sample per pixel through the wavefront → clamped linear
@@ -114,14 +121,21 @@ def sample_image(scene: wf.WaveScene, cam, config, seed: int, n: int, urand=None
     max_depth, H, W), rows 0-1 the jitter plus 0.5. ``timer``: a
     `wavefront.StageTimer` for the trace's stages."""
     H, W = cam.height, cam.width
-    dev = scene.tris.device
-    px, py = pixel_grid(H, W, dev)
     if urand is None:
-        u = rng.ray_uniforms(seed, n, H * W, 1, dev)
+        u = rng.ray_uniforms(seed, n, H * W, 1, scene.tris.device)
     else:
         urand = urand.reshape(urand.shape[0], H * W)
         u = urand[0:2]
-    o, d = cam_ops.get_rays(cam, px, py, (u - 0.5).T)
+    return _trace_sample(scene, cam, config, seed, n, u, urand, timer)
+
+
+def _trace_sample(scene: wf.WaveScene, cam, config, seed: int, n: int, jitter, urand=None,
+                  timer=None):
+    """`sample_image` past its draws: ``jitter`` (2, H*W) is the pixel
+    jitter plus 0.5, ``urand`` None or (2 + 2 * max_depth, H*W)."""
+    H, W = cam.height, cam.width
+    px, py = pixel_grid(H, W, scene.tris.device)
+    o, d = cam_ops.get_rays(cam, px, py, (jitter - 0.5).T)
     color = wf.trace(o.contiguous(), d.contiguous(), scene,
                      mk.TraceConsts.from_config(config), config.max_depth, seed, n,
                      urand, tile_hint=(H, W), timer=timer)
@@ -244,12 +258,20 @@ def render_step(packet, cam, accum: AccumState, seed_or_generator, config,
             # world-space triangles, Morton sort and packing once per step
             with span("ptre.render.pack"):
                 scene = wf.prepare_scene(packet, screen_cam=cam)
+            seeds = [int(torch.randint(0, 2**31 - 1, (1,), generator=gen).item())
+                     for _ in range(spp)]
+            per_pass = max(1, JITTER_RAYS // (H * W))
             for s in range(spp):
+                if urand is None and s % per_pass == 0:
+                    jitters = rng.sample_jitters(seeds[s:s + per_pass], accum.frame + s + 1,
+                                                 H * W, device)
                 with span("ptre.render.sample"):
-                    seed = int(torch.randint(0, 2**31 - 1, (1,), generator=gen).item())
                     n = accum.frame + s + 1
-                    img = sample_image(scene, cam, config, seed, n,
-                                       None if urand is None else urand[s])
+                    if urand is None:
+                        img = _trace_sample(scene, cam, config, seeds[s], n,
+                                            jitters[s % per_pass])
+                    else:
+                        img = sample_image(scene, cam, config, seeds[s], n, urand[s])
                     inv_n, w_old = rk._average_weights(n)
                     accum.linear.mul_(w_old).add_(img.reshape(H, W, 3) * inv_n)
             return AccumState(linear=accum.linear, frame=accum.frame + spp)

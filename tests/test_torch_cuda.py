@@ -506,7 +506,8 @@ def test_render_step_triangle_scene_goes_through_wavefront_kernels(cuda):
     masks, bounces, live, binned, renders = (
         a - b for a, b in zip((wf.mask_launches, wf.bounce_launches, wf.live_bounces,
                                wf.binned_bounces, rk.launches), before))
-    assert renders == 0 and binned == 2 and 2 < live <= 2 * cfg.max_depth
+    # every bounce is launched, with live rays or not (no host read decides)
+    assert renders == 0 and binned == 2 and live == 2 * cfg.max_depth
     assert bounces == live and masks == live - binned
     lin = acc.linear
     assert bool(torch.isfinite(lin).all()) and 0.0 <= float(lin.min()) <= float(lin.max()) <= 1.0 + 1e-6
@@ -746,8 +747,9 @@ def test_mse_step_triangle_scene_goes_through_the_kernels(cuda):
     torch.cuda.synchronize()
     bounces, live, bwd, rec = (a - b for a, b in zip(
         (wf.bounce_launches, wf.live_bounces, fg.launches, mk.record_launches), before))
-    # each sample's bounces again in its recompute (remat_bounces)
-    assert bounces == live and 4 < live <= 4 * cfg.max_depth and bwd == 2 and rec == 0
+    # each sample's bounces again in its recompute (remat_bounces), every
+    # bounce launched
+    assert bounces == live == 4 * cfg.max_depth and bwd == 2 and rec == 0
     assert math.isfinite(float(loss))
     assert all(bool(torch.isfinite(g).all()) for g in grads.values())
     assert float(grads["transforms"].abs().max()) > 0
@@ -1361,6 +1363,37 @@ def test_dense_render_step_makes_no_synchronizing_call(cuda, monkeypatch):
         pkt, cam, acc, rng.fold(rng.key_for(1), 1), cfg, spp=2), "render_step")
     assert rk.launches == before + 2 and acc.frame == 3
     assert bool(torch.isfinite(acc.linear).all())
+
+
+@pytest.mark.parametrize("name", ["render_step", "mse_step"])
+def test_wavefront_steps_make_no_synchronizing_call(cuda, monkeypatch, name):
+    """A wavefront-class `render_step` and `mse_step` (spp 2: the recording
+    forward and each sample's remat recompute) after a warm-up: the live
+    count stays on the card, the sort decision is taken there, and no call
+    synchronizes."""
+    W, H = 96, 54
+    pkt = demo.config4_mixed_scene(64, 32).build_packet(device=cuda)
+    cam = cam_ops.Camera.create(width=W, height=H)
+    cfg = RenderConfig(width=W, height=H)
+    assert pt.route(pkt, cfg) == "wavefront"
+    if name == "render_step":
+        acc = pt.AccumState.create(H, W)
+
+        def step():
+            return pt.render_step(pkt, cam, acc, 3, cfg, spp=2).linear
+    else:
+        target = torch.zeros((W * H, 3), device=cuda)
+
+        def step():
+            return train.mse_step(sh.differentiable_params(pkt, cam), pkt, cam, target, cfg,
+                                  seed=3, spp=2)[1]
+    step()
+    before = wf.bounce_launches
+    out = _without_synchronize(monkeypatch, step, name)
+    samples = 2 if name == "render_step" else 4
+    assert wf.bounce_launches - before == samples * cfg.max_depth
+    outs = out.values() if isinstance(out, dict) else [out]
+    assert all(bool(torch.isfinite(t).all()) for t in outs), name
 
 
 def test_returned_frame_stays_intact_across_two_later_frames(cuda):

@@ -83,3 +83,32 @@ def test_render_uniforms_layout_and_determinism():
     # fewer bounces draw a prefix of the same uniforms
     assert torch.equal(rng.render_uniforms(seed, sample, H, W, 1, device="cpu"), u[:4])
     assert np.all(np.isfinite(u.numpy()))
+
+
+def test_philox_tensor_keys_match_int_keys():
+    # a key for each row (the samples of a step drawn in one pass) gives each
+    # row what that row's key as Python ints gives, the known answers included
+    ctr = [torch.tensor([c[i] for c, _, _ in KAT], dtype=torch.int64)[:, None]
+           for i in range(4)]
+    keys = [torch.tensor([k[i] for _, k, _ in KAT], dtype=torch.int64)[:, None]
+            for i in range(2)]
+    words = rng.philox4x32(*ctr, *keys)
+    for row, (_, _, expected) in enumerate(KAT):
+        assert [int(w[row, 0]) for w in words] == list(expected)
+    pix = torch.arange(33, dtype=torch.int64)
+    k0 = torch.tensor([[0x1234], [0xFFFFFFFF], [0]], dtype=torch.int64)
+    words = rng.philox4x32(pix, torch.tensor(3), torch.tensor(1), torch.tensor(0), k0, 0x5678)
+    for row in range(3):
+        one = rng.philox4x32(pix, torch.tensor(3), torch.tensor(1), torch.tensor(0),
+                             int(k0[row]), 0x5678)
+        assert all(torch.equal(w[row], o) for w, o in zip(words, one))
+
+
+@pytest.mark.parametrize("seeds", [[1984, 2**31 - 2, 0, 77], [(7 << 32) | 99, 5]])
+def test_sample_jitters_equal_ray_uniforms(seeds):
+    # one pass over consecutive samples, each keyed by its own seed (one
+    # high key word for all, or one a sample), equals a pass a sample
+    got = rng.sample_jitters(seeds, 41, 1000, device="cpu")
+    assert got.shape == (len(seeds), 2, 1000) and got.dtype == torch.float32
+    for s, seed in enumerate(seeds):
+        assert torch.equal(got[s], rng.ray_uniforms(seed, 41 + s, 1000, 1, device="cpu"))

@@ -1,7 +1,7 @@
 """The port's spans (`utils/metrics.span`) on the CPU, at 24x16 on the
 mixed-mesh scene (BASELINE config 4, the wavefront route): the names and the
 nesting that `render_step` and `mse_step` record under ``torch.profiler``,
-one live-count span for each bounce past 0 that the wavefront reached, the
+one sort span for each bounce past 0 and no live-count read, the
 rematerialised samples' spans inside the backward, no ``RecordFunction``
 built while no profiler records, and images and gradients that a profiler
 does not change. The ``cuda``-marked test checks on the card that no span
@@ -26,7 +26,7 @@ from ptre_tpu_torch.utils.config import RenderConfig
 W, H = 24, 16
 SPP = 2
 SEED = 11
-STAGES = tuple(wf.STAGE_SPANS.values()) + ("ptre.wave.live_count",)
+STAGES = tuple(wf.STAGE_SPANS.values())
 
 
 def _setup(device="cpu", width=W, height=H):
@@ -102,30 +102,32 @@ def test_render_step_spans_nest(scene, rendered):
     assert all(_inside(s, step) for s in samples)
     assert samples[0][1] <= samples[1][0]
     names = {n for n, *_ in events if n.startswith("ptre.")}
-    assert {"ptre.wave.gather", "ptre.wave.mask", "ptre.wave.compact", "ptre.wave.bounce",
-            "ptre.wave.live_count"} <= names <= {"ptre.render.step", "ptre.render.pack",
-                                                 "ptre.render.sample", *STAGES}
+    assert {"ptre.wave.gather", "ptre.wave.sort", "ptre.wave.mask", "ptre.wave.compact",
+            "ptre.wave.bounce"} <= names <= {"ptre.render.step", "ptre.render.pack",
+                                             "ptre.render.sample", *STAGES}
+    assert "ptre.wave.live_count" not in names
     for name in STAGES:
         for sp in _spans(events, name):
             assert sum(_inside(sp, s) for s in samples) == 1, name
 
 
 def test_one_live_count_span_per_bounce_past_zero(scene, rendered):
+    """The live count is not read on the host: no sample opens
+    ``ptre.wave.live_count``. Every bounce is launched, and each bounce past
+    0 opens one ``ptre.wave.sort`` (the key, the device's choice of order
+    and the argsort)."""
     _, events, bounces = rendered
     max_depth = scene[2].max_depth
     samples = _spans(events, "ptre.render.sample")
-    traced = 0
+    assert not _spans(events, "ptre.wave.live_count")
     for s in samples:
         n_bounce = sum(_inside(b, s) for b in _spans(events, "ptre.wave.bounce"))
-        n_wait = sum(_inside(w, s) for w in _spans(events, "ptre.wave.live_count"))
-        # a bounce past 0 reads the live count first; a trace that found no
-        # live ray stopped after that read, one bounce short
-        assert n_wait == (n_bounce - 1 if n_bounce == max_depth else n_bounce), s
-        traced += n_bounce
-    assert traced == bounces > SPP
+        n_sort = sum(_inside(w, s) for w in _spans(events, "ptre.wave.sort"))
+        assert n_bounce == max_depth and n_sort == max_depth - 1, s
+    assert bounces == SPP * max_depth
 
 
-def test_mse_step_remat_samples_open_spans_in_the_backward(trained):
+def test_mse_step_remat_samples_open_spans_in_the_backward(scene, trained):
     _, events = trained
     (step,) = _spans(events, "ptre.train.step")
     (pack,) = _spans(events, "ptre.train.pack")
@@ -138,9 +140,15 @@ def test_mse_step_remat_samples_open_spans_in_the_backward(trained):
     assert sum(_starts_in(s, forward) for s in samples) == SPP
     assert sum(_starts_in(s, backward) for s in samples) == SPP
     assert len(samples) == 2 * SPP
-    waits = _spans(events, "ptre.wave.live_count")
-    assert waits and all(sum(_inside(w, s) for s in samples) == 1 for w in waits)
-    assert sum(_starts_in(w, backward) for w in waits) == len(waits) // 2
+    # no host read of the live count, forward or recompute; each sample, in
+    # either, sorts before every bounce past 0
+    assert not _spans(events, "ptre.wave.live_count")
+    sorts = _spans(events, "ptre.wave.sort")
+    assert all(sum(_inside(w, s) for s in samples) == 1 for w in sorts)
+    max_depth = scene[2].max_depth
+    for s in samples:
+        assert sum(_inside(w, s) for w in sorts) == max_depth - 1, s
+    assert sum(_starts_in(w, backward) for w in sorts) == len(sorts) // 2 == SPP * (max_depth - 1)
 
 
 def test_span_builds_no_record_function_without_a_profiler(scene, monkeypatch):
