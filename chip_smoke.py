@@ -4791,8 +4791,7 @@ def replay_loss(pkt, cam, cfg, key, shape, spp, target, rpkt=None, rcfg=None,
         t = tgt[dp_i * rows:(dp_i + 1) * rows]
         total = total + torch.sum(mask * (sum(imgs) / sp - t) ** 2)
         if rpkt is not None:
-            rp = dataclasses.replace(rpkt, transforms=sh._shared_transforms(
-                leaves["transforms"], rpkt.transforms.shape[0]))
+            rp = dataclasses.replace(rpkt, transforms=sh.raster_transforms(leaves, pkt, rpkt))
             rz = ras.raster_rows(rp, cm, rcfg, y0, rows, soft=True, stride=stride)
             total = total + raster_weight * torch.sum(mask * (rz - t) ** 2)
     loss = total / (cam.height * cam.width * 3)

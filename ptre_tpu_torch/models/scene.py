@@ -128,6 +128,9 @@ PACKET_LEAVES = (
 #: static (host int) counts of a ScenePacket
 PACKET_COUNTS = ("num_triangles", "num_spheres", "num_drawcalls",
                  "num_materials")
+#: the kinds of `ScenePacket.drawcall_params`: a drawcall whose model is a row
+#: of the path-traced packet's ``transforms``, or one of its analytic spheres
+DC_TRANSFORM, DC_SPHERE = 0, 1
 
 
 @dataclasses.dataclass
@@ -160,12 +163,19 @@ class ScenePacket:
     num_spheres: int = 0
     num_drawcalls: int = 0
     num_materials: int = 0
+    #: per drawcall, whose parameters its model has in the path-traced packet
+    #: of the same scene: (DC_TRANSFORM, row of ``transforms``) or
+    #: (DC_SPHERE, index into ``sph_center`` and ``sph_radius``); empty for
+    #: packets made elsewhere (`native_scene`, `interop`)
+    drawcall_params: Tuple[Tuple[int, int], ...] = ()
 
     @classmethod
-    def from_numpy(cls, arrays: Dict[str, np.ndarray], **counts) -> "ScenePacket":
+    def from_numpy(cls, arrays: Dict[str, np.ndarray], drawcall_params=(),
+                   **counts) -> "ScenePacket":
         """Packet from numpy leaves (``PACKET_LEAVES``) + static counts."""
         leaves = {k: torch.from_numpy(np.array(arrays[k])) for k in PACKET_LEAVES}
-        return cls(**leaves, **{k: int(counts[k]) for k in PACKET_COUNTS})
+        return cls(**leaves, **{k: int(counts[k]) for k in PACKET_COUNTS},
+                   drawcall_params=tuple(drawcall_params))
 
     @property
     def device(self) -> torch.device:
@@ -317,23 +327,31 @@ class Scene:
         models exactly like `scene.cu:156-181`. ``device`` None means the
         card (`utils.device.resolve`: RendererError where there is none);
         ``"cpu"`` builds it on the host. With ``spheres_as_triangles`` every
-        model emits its mesh as triangles (the rasterizer's view). Clears the
-        modified flag."""
+        model emits its mesh as triangles (the rasterizer's view), and
+        ``drawcall_params`` says which of them are the path-traced view's
+        analytic spheres. Clears the modified flag."""
         device = resolve(device)
         self._modified = False
 
         tv0, tv1, tv2, tn0, tn1, tn2 = [], [], [], [], [], []
-        tdc, tmat, transforms = [], [], []
+        tdc, tmat, transforms, dc_params = [], [], [], []
         sph_c, sph_r, sph_m = [], [], []
+        n_tri_models = n_sph_models = 0
         for _, mdl in self.sorted_models():
             mesh = self._meshes[mdl.mesh_name]
-            if mesh.mesh_type == MeshType.SPHERES and not spheres_as_triangles:
+            is_sphere = mesh.mesh_type == MeshType.SPHERES
+            source = ((DC_SPHERE, n_sph_models) if is_sphere
+                      else (DC_TRANSFORM, n_tri_models))
+            n_sph_models += is_sphere
+            n_tri_models += not is_sphere
+            if is_sphere and not spheres_as_triangles:
                 sph_c.append(mdl.translation)
                 sph_r.append(mdl.scale[0])
                 sph_m.append(mdl.material if mdl.material is not None
                              else int(MaterialKind.OREN_NAYAR))
             else:
                 dc = len(transforms)
+                dc_params.append(source)
                 transforms.append(mdl.transform_matrix())
                 idx = mesh.indices.reshape(-1, 3)
                 for corner, (vs, ns) in enumerate(((tv0, tn0), (tv1, tn1),
@@ -394,7 +412,7 @@ class Scene:
             sky_top=np.asarray(self._sky_top, np.float32),
         )
         return ScenePacket.from_numpy(
-            arrays, num_triangles=num_tris, num_spheres=num_sph,
+            arrays, drawcall_params=dc_params, num_triangles=num_tris, num_spheres=num_sph,
             num_drawcalls=num_dc, num_materials=len(mats)).to(device)
 
     def raster_drawcalls(self):

@@ -45,6 +45,7 @@ from ptre_tpu_torch.ops.cuda import megakernel as mk
 from ptre_tpu_torch.ops.cuda import raster_kernel as rk
 from ptre_tpu_torch.utils.device import constant
 from ptre_tpu_torch.utils.errors import RendererError
+from ptre_tpu_torch.utils.metrics import span
 
 #: box dilation in sigmas: sigmoid(-14) < 1e-6, the coverage threshold
 DILATE_SIGMA = 14.0
@@ -319,7 +320,7 @@ def soft_backward(tris, cbox, scal, res, dimg, rows_ss: int, width_ss: int, ss: 
 class SoftRaster(torch.autograd.Function):
     """img_p (3, rows_ss, width_ss) = core(table, boxes, scalars): the
     forward kernel, and the backward kernel as its VJP (`soft_raster.py
-    :393-416`)."""
+    :393-416`), the span ``ptre.raster.soft_backward`` under a profiler."""
 
     @staticmethod
     def forward(ctx, tris, cbox, scal, rows_ss, width_ss, ss):
@@ -330,8 +331,10 @@ class SoftRaster(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dimg):
-        tris, cbox, scal, res = ctx.saved_tensors
-        dtab = soft_backward(tris.detach(), cbox, scal, res, dimg.contiguous(), *ctx.window)
+        with span("ptre.raster.soft_backward"):
+            tris, cbox, scal, res = ctx.saved_tensors
+            dtab = soft_backward(tris.detach(), cbox, scal, res, dimg.contiguous(),
+                                 *ctx.window)
         return dtab, None, None, None, None, None
 
 

@@ -40,16 +40,20 @@ seed from ``pathtracer.fused_seed(key)``.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
+from ptre_tpu_torch.models import scene
 from ptre_tpu_torch.ops import camera as cam_ops
 from ptre_tpu_torch.ops import gradsafe, integrator, rng
 from ptre_tpu_torch.ops.cuda import fused_grad
 from ptre_tpu_torch.render import pathtracer as pt
 from ptre_tpu_torch.render import rasterizer
+from ptre_tpu_torch.utils.errors import ConfigError
+from ptre_tpu_torch.utils.metrics import span
 
 #: the mesh axes, in the reference's order
 MESH_AXES = ("dp", "sp")
@@ -297,7 +301,8 @@ def _sample_rows(key, packet, cam, config, y0, rows: int, stride: int = 1, forwa
                             torch.arange(cam.width, dtype=torch.float32, device=dev),
                             indexing="ij")
     px, py = px.reshape(-1), py.reshape(-1)
-    jitter = rng.pixel_jitter(rng.fold(key, 0x9E37), (px.shape[0],), dev)
+    with span("ptre.shard.jitter"):
+        jitter = rng.pixel_jitter(rng.fold(key, 0x9E37), (px.shape[0],), dev)
     o, d = cam_ops.get_rays(cam, px, py, jitter)
     if integrator.grad_route(config, packet) == "staged":
         color = integrator.trace(o, d, packet, config, key=key)
@@ -502,18 +507,47 @@ def dual_pipeline_step(mesh, packet, raster_packet, cam, accum: pt.AccumState, k
     return accum, raster
 
 
-def _shared_transforms(transforms, n_raster: int):
-    """The path-traced packet's drawcall table as the raster packet reads it
-    in the reference (`sharding.py:404`). Where the raster packet has more
-    drawcalls (analytic spheres drawn as triangles: the demo's 3 against 1),
-    the reference's gather ``transforms[tri_dc]`` clamps the indices past
-    the table to its last row, and its transpose drops their cotangents.
-    Rows past the table are detached copies of the last row: the same
-    image, the same gradient."""
-    extra = n_raster - transforms.shape[0]
-    if extra <= 0:
-        return transforms
-    return torch.cat([transforms, transforms[-1:].detach().expand(extra, -1, -1)])
+def sphere_transforms(center, radius):
+    """(S, 4, 4) drawcall transforms of analytic spheres as the rasterizer
+    draws their meshes: scale ``radius``, then translate to ``center``
+    (row vectors; `Model.transform_matrix` of an unrotated, uniformly scaled
+    model, which is all the path tracer reads of a sphere's model)."""
+    eye = torch.eye(4, dtype=radius.dtype, device=radius.device)
+    rows = torch.cat([center, torch.ones_like(radius)[:, None]], dim=1)[:, None]
+    return torch.cat([radius[:, None, None] * eye[:3], rows], dim=1)
+
+
+@functools.lru_cache(maxsize=64)
+def _drawcall_rows(params, n_transforms: int, device):
+    """The (D,) rows of ``cat([transforms, sphere_transforms])`` that the
+    drawcalls ``params`` take, made on ``device`` once."""
+    rows = [i if kind == scene.DC_TRANSFORM else n_transforms + i for kind, i in params]
+    return torch.tensor(rows, dtype=torch.int64).to(device)
+
+
+def raster_transforms(leaves, packet, raster_packet):
+    """The raster packet's (D, 4, 4) drawcall table made of the parameter
+    ``leaves`` of the path-traced ``packet`` (`differentiable_params`), so
+    that each raster drawcall draws its own model: a triangle model its row
+    of ``leaves["transforms"]``, an analytic sphere (a mesh here)
+    `sphere_transforms` of its ``sph_center`` and ``sph_radius``, and the
+    raster term's gradient reaches them. Where the two tables match (no
+    analytic sphere), ``leaves["transforms"]`` itself. Both packets come
+    from one `Scene.build_packet`, which records the mapping
+    (`ScenePacket.drawcall_params`)."""
+    tf = leaves["transforms"]
+    params = raster_packet.drawcall_params
+    if not raster_packet.num_drawcalls:  # nothing is drawn
+        return raster_packet.transforms
+    if not params:
+        if packet.num_spheres or raster_packet.num_drawcalls != packet.num_drawcalls:
+            raise ConfigError("the raster packet does not say which model each drawcall "
+                              "draws: build both packets with Scene.build_packet")
+        return tf
+    if params == tuple((scene.DC_TRANSFORM, i) for i in range(tf.shape[0])):
+        return tf
+    table = torch.cat([tf, sphere_transforms(leaves["sph_center"], leaves["sph_radius"])])
+    return table.index_select(0, _drawcall_rows(params, tf.shape[0], tf.device))
 
 
 def dual_train_step(mesh, params, packet, raster_packet, cam, target, key, config,
@@ -522,27 +556,35 @@ def dual_train_step(mesh, params, packet, raster_packet, cam, target, key, confi
     """The differentiable dual pipeline (`sharding.py:377-444`): the MSE of
     the path-traced image plus ``raster_weight`` times the MSE of the SoftRas
     image, both against this rank's ``target`` slab, with pad rows masked.
-    The raster packet shares ``params["transforms"]`` and the camera, so
-    both pipelines' gradients reach them. Returns (loss, grads)."""
+    Both pipelines draw the same scene: each raster drawcall takes its own
+    model's parameters (`raster_transforms`), and the camera is shared, so
+    both pipelines' gradients reach them. Under a profiler the call is the
+    span ``ptre.dual.step``, the path-traced image ``ptre.dual.trace``, the
+    raster packing and SoftRas ``ptre.dual.raster`` and the gradients and
+    their mean over ranks ``ptre.dual.backward``. Returns (loss, grads)."""
     if (config.width, config.height) != (raster_config.width, raster_config.height):
         raise ValueError("the render and raster configs differ in size")
-    local_spp = _local_spp(mesh, spp)
-    rows, y0, stride, kid = _rank_window(mesh, cam, row_order)
-    _check_slab("target", target, rows, cam.width)
-    dp, _ = _sizes(mesh)
-    n_valid = float(cam.height * cam.width * 3)
-    leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
-    lcam, pt_img = _pt_image(mesh, leaves, packet, cam, key, config, local_spp, rows, y0,
-                                stride, kid)
-    rpkt = dataclasses.replace(raster_packet, transforms=_shared_transforms(
-        leaves["transforms"], raster_packet.transforms.shape[0]))
-    rz_img = rasterizer.raster_rows(rpkt, lcam, raster_config, y0, rows, soft=True,
-                                    sigma=sigma, stride=stride)
-    mask = _row_mask(y0, stride, rows, cam.height, pt_img.device)
-    scale = float(dp) / n_valid
-    pt_loss = torch.sum(mask * (pt_img - target) ** 2) * scale
-    rz_loss = torch.sum(mask * (rz_img - target) ** 2) * scale
-    return _value_and_mean_grad(mesh, pt_loss + raster_weight * rz_loss, leaves)
+    with span("ptre.dual.step"):
+        local_spp = _local_spp(mesh, spp)
+        rows, y0, stride, kid = _rank_window(mesh, cam, row_order)
+        _check_slab("target", target, rows, cam.width)
+        dp, _ = _sizes(mesh)
+        n_valid = float(cam.height * cam.width * 3)
+        leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+        with span("ptre.dual.trace"):
+            lcam, pt_img = _pt_image(mesh, leaves, packet, cam, key, config, local_spp, rows,
+                                     y0, stride, kid)
+        with span("ptre.dual.raster"):
+            rpkt = dataclasses.replace(raster_packet, transforms=raster_transforms(
+                leaves, packet, raster_packet))
+            rz_img = rasterizer.raster_rows(rpkt, lcam, raster_config, y0, rows, soft=True,
+                                            sigma=sigma, stride=stride)
+        mask = _row_mask(y0, stride, rows, cam.height, pt_img.device)
+        scale = float(dp) / n_valid
+        pt_loss = torch.sum(mask * (pt_img - target) ** 2) * scale
+        rz_loss = torch.sum(mask * (rz_img - target) ** 2) * scale
+        with span("ptre.dual.backward"):
+            return _value_and_mean_grad(mesh, pt_loss + raster_weight * rz_loss, leaves)
 
 
 # ---- factories (`sharding.py:447-498`) --------------------------------------------------

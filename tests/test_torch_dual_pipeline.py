@@ -10,6 +10,14 @@ the image height, and `to_image_order` drops them. The path-traced terms
 take the staged route with the reference's threefry keys, as in
 `test_torch_parallel.py`.
 
+`dual_train_step` gives each raster drawcall its own model's parameters
+(`sharding.raster_transforms`), where JAX's step gives the raster packet
+the path-traced packet's table, so that its analytic spheres are drawn
+with the last triangle model's transform (ROADMAP C2). The two agree where
+the tables match: the comparison with JAX runs the demo without its
+analytic spheres; the spheres are held to the plain reference in
+`test_torch_dual_reference.py`.
+
 Tolerances, those of the single-device tests:
   * hard raster against JAX's one-shot path: every channel within 1e-5 on
     at least 99 % of the pixels (the kernel ties z by Morton order, the
@@ -63,12 +71,19 @@ def _target(height=H):
     return np.linspace(0.0, 1.0, height * W * 3, dtype=np.float32).reshape(height, W, 3)
 
 
-def _port(height=H, clamp=False):
+#: the demo's analytic spheres, left out where the tables must match
+SPHERE_MODELS = ("ground", "sph")
+
+
+def _port(height=H, clamp=False, spheres=True):
     from ptre_tpu_torch.models import demo
     from ptre_tpu_torch.ops import camera as cam_ops
     from ptre_tpu_torch.utils.config import RasterConfig, RenderConfig
 
     scn = demo.reference_demo_scene(8, 4)
+    if not spheres:
+        for name in SPHERE_MODELS:
+            scn.delete_model(name)
     return (scn.build_packet(device="cpu"),
             scn.build_packet(spheres_as_triangles=True, device="cpu"),
             cam_ops.Camera.create(width=W, height=height, device="cpu"),
@@ -100,6 +115,9 @@ def jx():
     from ptre_tpu.utils.config import RasterConfig, RenderConfig
 
     scn = jdemo.reference_demo_scene(8, 4)
+    bare = jdemo.reference_demo_scene(8, 4)
+    for name in SPHERE_MODELS:
+        bare.delete_model(name)
 
     def setup(height=H, clamp=False):
         return (jcam.Camera.create(width=W, height=height),
@@ -107,7 +125,8 @@ def jx():
                 RasterConfig(width=W, height=height, supersample=2))
 
     return dict(jit=jax.jit, jnp=jnp, rng=jrng, sh=jsh, pt=jpt, setup=setup, pkt=scn.build_packet(),
-                rpkt=scn.build_packet(spheres_as_triangles=True))
+                rpkt=scn.build_packet(spheres_as_triangles=True), bare_pkt=bare.build_packet(),
+                bare_rpkt=bare.build_packet(spheres_as_triangles=True))
 
 
 def _grads(r, prefix="grad_"):
@@ -181,19 +200,22 @@ def test_dual_pipeline_step_matches_jax(world, jx):
 
 
 def test_dual_train_step_matches_jax(world, jx):
+    """On the demo without its analytic spheres, where both packages give
+    the raster packet the path-traced packet's table."""
     jcam, jcfg, jrcfg = jx["setup"]()
     jsh = jx["sh"]
     dp = DUAL_MESH[0]
     loss, grads = jsh.dual_train_step(
-        jsh.make_mesh(DUAL_MESH), jsh.differentiable_params(jx["pkt"], jcam), jx["pkt"],
-        jx["rpkt"], jcam, jsh.to_shard_order(jx["jnp"].asarray(_target()), dp),
-        jx["rng"].key_for(DUAL_KEY), jcfg, jrcfg, spp=DUAL_SPP)
-    r = world("dual")
+        jsh.make_mesh(DUAL_MESH), jsh.differentiable_params(jx["bare_pkt"], jcam),
+        jx["bare_pkt"], jx["bare_rpkt"], jcam,
+        jsh.to_shard_order(jx["jnp"].asarray(_target()), dp), jx["rng"].key_for(DUAL_KEY),
+        jcfg, jrcfg, spp=DUAL_SPP)
+    r = world("dual_bare")
     np.testing.assert_allclose(float(r["loss"]), float(loss), rtol=1e-5)
     _assert_dual_grads(_grads(r), {k: np.asarray(v) for k, v in grads.items()}, "dual")
     assert float(np.abs(r["grad_transforms"]).max()) > 0  # the raster term reaches it
     for rank in range(1, WORLD):
-        rr = world("dual", rank)
+        rr = world("dual_bare", rank)
         assert float(rr["loss"]) == float(r["loss"])
         for k in _grads(r):
             np.testing.assert_array_equal(rr[f"grad_{k}"], r[f"grad_{k}"])
@@ -201,7 +223,9 @@ def test_dual_train_step_matches_jax(world, jx):
 
 def test_dual_train_step_equals_replay(world):
     """The sharded step against one autograd graph of every shard's path-
-    traced samples and soft raster rows (sp mean, pad mask, dp / n_valid)."""
+    traced samples and soft raster rows (sp mean, pad mask, dp / n_valid),
+    on the demo with its analytic spheres, each raster drawcall placed by
+    its own model's parameters."""
     from ptre_tpu_torch.ops import rng
     from ptre_tpu_torch.parallel import sharding as sh
     from ptre_tpu_torch.render import rasterizer as ras
@@ -213,8 +237,7 @@ def test_dual_train_step_equals_replay(world):
     leaves = {k: v.detach().requires_grad_(True)
               for k, v in sh.differentiable_params(pkt, cam).items()}
     pk, cm = sh.apply_params(leaves, pkt, cam)
-    rp = dataclasses.replace(rpkt, transforms=sh._shared_transforms(
-        leaves["transforms"], rpkt.transforms.shape[0]))
+    rp = dataclasses.replace(rpkt, transforms=sh.raster_transforms(leaves, pkt, rpkt))
     tgt = sh.to_shard_order(torch.from_numpy(_target()), dp)
     rows = H // dp
     total = 0.0
@@ -289,6 +312,10 @@ def _worker(argv):
     step = sh.make_dual_train_step(mesh, cam, cfg, rcfg, spp=DUAL_SPP)
     loss, grads = step(params, pkt, rpkt, target, rng.key_for(DUAL_KEY))
     save("dual_made", loss=loss, **{f"grad_{k}": v for k, v in grads.items()})
+    bare, rbare, *_ = _port(spheres=False)
+    loss, grads = step(sh.differentiable_params(bare, cam), bare, rbare, target,
+                       rng.key_for(DUAL_KEY))
+    save("dual_bare", loss=loss, **{f"grad_{k}": v for k, v in grads.items()})
     torch.distributed.destroy_process_group()
 
 

@@ -2,31 +2,39 @@
 mixed-mesh scene (BASELINE config 4, the wavefront route): the names and the
 nesting that `render_step` and `mse_step` record under ``torch.profiler``,
 one sort span for each bounce past 0 and no live-count read, the
-rematerialised samples' spans inside the backward, no ``RecordFunction``
-built while no profiler records, and images and gradients that a profiler
-does not change. The ``cuda``-marked test checks on the card that no span
-has a device-side copy and that the spans add no device event.
+rematerialised samples' spans inside the backward, the dual step's spans
+(BASELINE config 5, a gloo world of one) and the sharded steps' jitter span,
+no ``RecordFunction`` built while no profiler records, and images and
+gradients that a profiler does not change. The ``cuda``-marked tests check
+on the card that no span has a device-side copy, that the spans add no
+device event, and that the dual step makes no synchronizing call.
 """
 
 from __future__ import annotations
 
 import pytest
 import torch
+import torch.distributed as dist
 from torch.profiler import ProfilerActivity, profile
 
 from ptre_tpu_torch.models import demo
 from ptre_tpu_torch.ops import camera as cam_ops
+from ptre_tpu_torch.ops import rng
 from ptre_tpu_torch.ops.cuda import wavefront as wf
 from ptre_tpu_torch.parallel import sharding as sh
 from ptre_tpu_torch.render import pathtracer as pt
 from ptre_tpu_torch.render import train
 from ptre_tpu_torch.utils import metrics
-from ptre_tpu_torch.utils.config import RenderConfig
+from ptre_tpu_torch.utils.config import RasterConfig, RenderConfig
 
 W, H = 24, 16
 SPP = 2
 SEED = 11
 STAGES = tuple(wf.STAGE_SPANS.values())
+DUAL = ("ptre.dual.step", "ptre.dual.trace", "ptre.dual.raster", "ptre.dual.backward",
+        "ptre.shard.jitter", "ptre.raster.soft_backward")
+#: host calls that wait for the device (`benchmark/devtrace.py`'s)
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize")
 
 
 def _setup(device="cpu", width=W, height=H):
@@ -45,6 +53,15 @@ def _train(pkt, cam, cfg):
     target = torch.full((cam.height * cam.width, 3), 0.25, device=pkt.device)
     return train.mse_step(sh.differentiable_params(pkt, cam), pkt, cam, target, cfg,
                           seed=SEED, spp=SPP)
+
+
+def _dual(mesh, pkt, cam, cfg):
+    rpkt = demo.config4_mixed_scene(12, 6).build_packet(spheres_as_triangles=True,
+                                                        device=pkt.device)
+    rcfg = RasterConfig(width=cam.width, height=cam.height, supersample=2)
+    target = torch.full((cam.height, cam.width, 3), 0.25, device=pkt.device)
+    return sh.dual_train_step(mesh, sh.differentiable_params(pkt, cam), pkt, rpkt, cam, target,
+                              rng.key_for(SEED), cfg, rcfg, spp=SPP)
 
 
 def _profiled(fn, *args, cuda=False):
@@ -89,6 +106,20 @@ def rendered(scene):
 @pytest.fixture(scope="module")
 def trained(scene):
     return _profiled(_train, *scene)
+
+
+@pytest.fixture(scope="module")
+def world():
+    """A gloo world of one, left as it was found."""
+    started = not dist.is_initialized()
+    yield sh.make_mesh((1, 1), device_type="cpu")
+    if started:
+        dist.destroy_process_group()
+
+
+@pytest.fixture(scope="module")
+def dualed(scene, world):
+    return _profiled(_dual, world, *scene)
 
 
 def test_render_step_spans_nest(scene, rendered):
@@ -151,6 +182,37 @@ def test_mse_step_remat_samples_open_spans_in_the_backward(scene, trained):
     assert sum(_starts_in(w, backward) for w in sorts) == len(sorts) // 2 == SPP * (max_depth - 1)
 
 
+def test_dual_step_spans_nest(dualed):
+    (loss, grads), events = dualed
+    assert float(loss) > 0 and float(grads["sph_radius"].abs().max()) > 0
+    (step,) = _spans(events, "ptre.dual.step")
+    (trace,) = _spans(events, "ptre.dual.trace")
+    (raster,) = _spans(events, "ptre.dual.raster")
+    (backward,) = _spans(events, "ptre.dual.backward")
+    for sp in (trace, raster, backward):
+        assert _inside(sp, step)
+    assert trace[1] <= raster[0] and raster[1] <= backward[0]
+    # a jitter a sample, and again in each rematerialised sample's recompute
+    jitters = _spans(events, "ptre.shard.jitter")
+    assert sum(_inside(j, trace) for j in jitters) == SPP
+    assert sum(_starts_in(j, backward) for j in jitters) == SPP == len(jitters) - SPP
+    (soft,) = _spans(events, "ptre.raster.soft_backward")
+    assert _starts_in(soft, backward)
+    assert {n for n, *_ in events if n.startswith("ptre.")} >= set(DUAL)
+
+
+def test_sharded_steps_open_a_jitter_span_a_sample(scene, world):
+    pkt, cam, cfg = scene
+    accum = pt.AccumState.create(cam.height, cam.width, pkt.device)
+    _, events = _profiled(sh.shard_render_step, world, pkt, cam, accum, rng.key_for(SEED), cfg,
+                          SPP)
+    assert len(_spans(events, "ptre.shard.jitter")) == SPP
+    target = torch.full((cam.height, cam.width, 3), 0.25)
+    _, events = _profiled(sh.shard_train_step, world, sh.differentiable_params(pkt, cam), pkt,
+                          cam, target, rng.key_for(SEED), cfg, SPP)
+    assert len(_spans(events, "ptre.shard.jitter")) == 2 * SPP  # and the recompute's
+
+
 def test_span_builds_no_record_function_without_a_profiler(scene, monkeypatch):
     def refuse(name):
         raise AssertionError(f"a RecordFunction was built for {name}")
@@ -194,3 +256,19 @@ def test_spans_have_no_device_copy_on_the_card(monkeypatch):
         _, events = _profiled(fn, pkt, cam, cfg, cuda=True)
         assert not [e for e in events if e[0].startswith("ptre.")]
         assert sum(e[3] for e in events) == counts[fn], fn.__name__
+
+
+@pytest.mark.cuda
+def test_dual_step_makes_no_synchronizing_call_on_the_card(world):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the profiler's host calls into CUDA)")
+    pkt, cam, cfg = _setup("cuda", 64, 32)
+    _dual(world, pkt, cam, cfg)  # builds and warms the kernels
+    (loss, grads), events = _profiled(_dual, world, pkt, cam, cfg, cuda=True)
+    assert set(DUAL) <= {n for n, *_ in events}
+    assert not [e for e in events if e[0].startswith("ptre.") and e[3]]
+    (step,) = _spans(events, "ptre.dual.step")  # the profile ends in a synchronize
+    syncs = [(n, a) for n, a, _, dev in events if n in SYNC_CALLS and not dev
+             and _starts_in((a, a), step)]
+    assert not syncs, syncs
+    assert float(loss) > 0 and float(grads["sph_center"].abs().max()) > 0
