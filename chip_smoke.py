@@ -170,7 +170,20 @@ source, all at once), then:
        spp 1; the staged bounces' sweeps not again), the camera's gradients
        bit for bit and the table's and sky's within REMAT_GRAD_REL, the
        peak at the largest spp within REMAT_PEAK_RATIO of spp 1's; the
-       synchronizing calls of a dense and a config-4 step at spp 2 by line.
+       synchronizing calls of a dense and a config-4 step at spp 2 by line;
+  27.  the row gathers' backward (`take_rows_phase`): each of the six
+       differentiable gathers that build the path tracer's and the
+       rasterizer's tables (drawcall transforms, triangle and sphere
+       materials, the Morton permutation; the raster transforms and the
+       raster permutation) at BASELINE config 4's shapes, its backward
+       through `take_rows` timed in turns with ``table[idx]``'s, each held
+       within a float32 ulp of float64 ``index_add_`` and bit-equal across
+       runs, with the kernels' registers and shared memory and the bytes
+       bound (the cotangent read once); then the counters from 0 over one
+       config-4 ``mse_step`` (spp 2, as in phase 26) and one
+       ``dual_train_step`` at 1920x1080: backward calls (shared, global)
+       of (6, 2) and (4, 2), 2 launches a shared call and 3 a global one.
+       ``python3 chip_smoke.py take_rows`` runs this phase alone.
 
 Any failed check raises and the script exits non-zero; it prints its result
 lines only after every phase passed:
@@ -781,6 +794,7 @@ def main():
     kernels.append(past_cap_phase(dev, card, rs, static_mask))
     materials_phase(dev, card, rs)
     remat_phase(dev, card)
+    kernels.append(take_rows_phase(dev, card))
 
     # ---- result --------------------------------------------------------------------
     print(f"chip_smoke.py: every phase passed in {time.perf_counter() - t_run:.1f} s, the "
@@ -5292,8 +5306,238 @@ def shard_rank_main(argv):
         json.dump(result, f)
 
 
+# ---- phase 27: the row gathers' backward (`ops/cuda/take_rows.py`) ----------------------
+
+#: timed backward calls a site and side, each side twice (a, b, b, a)
+TAKE_ROWS_REPS = 20
+
+
+def device_events(fn, reps):
+    """(device ms, device events) per call of ``fn`` by the profiler over
+    ``reps`` calls, after one: the summed time of its kernels and
+    memsets."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    us = sum(e.time_range.end - e.time_range.start for e in dev)
+    return us / 1e3 / reps, len(dev) / reps
+
+
+def take_rows_sites(dev):
+    """{site: (table as (N, F), idx (M,) int64)}: the differentiable gathers of
+    a config-4 `mse_step` sample and of the dual step's raster packing at
+    1920x1080, captured from the port's own calls, detached."""
+    import torch
+
+    from ptre_tpu_torch.models import demo
+    from ptre_tpu_torch.models import scene as scene_mod
+    from ptre_tpu_torch.ops import camera as cam_ops
+    from ptre_tpu_torch.ops import path_replay
+    from ptre_tpu_torch.ops.cuda import fused_grad as fg
+    from ptre_tpu_torch.ops.cuda import raster_kernel as rast
+    from ptre_tpu_torch.ops.cuda import take_rows as tr
+    from ptre_tpu_torch.render import rasterizer as ras
+    from ptre_tpu_torch.utils.config import RasterConfig
+
+    names = {scene_mod: ["drawcall transforms"], path_replay: ["triangle materials",
+                                                                "sphere materials"],
+             ras: ["raster transforms"], rast: ["raster permutation"]}
+    sites = {}
+
+    def recorder(mod):
+        def take(table, idx):
+            sites[names[mod][sum(n in sites for n in names[mod])]] = (
+                table.detach().reshape(table.shape[0], -1).contiguous(),
+                idx.long().contiguous())
+            return tr.take_rows(table, idx)
+        return take
+
+    for mod in names:
+        mod.take_rows = recorder(mod)
+    try:
+        pkt = demo.config4_mixed_scene(128, 64).build_packet(device=dev)
+        rpkt = demo.config4_mixed_scene(128, 64).build_packet(spheres_as_triangles=True,
+                                                              device=dev)
+        cam = cam_ops.Camera.create(width=W_MAIN, height=H_MAIN, device=dev)
+        table, T, _ = path_replay.build_table(pkt)
+        rast.pack_raster_tris(rpkt, cam, RasterConfig(width=W_MAIN, height=H_MAIN,
+                                                      supersample=2))
+    finally:
+        for mod in names:
+            mod.take_rows = tr.take_rows
+    perm = fg.prepare_forward(pkt).scene.perm_tri
+    sites["Morton permutation"] = (table[:T].detach().contiguous(), perm.long().contiguous())
+    return sites
+
+
+def take_rows_launches(dev):
+    """{step: kernel launches of the rows backward}: the counters from 0
+    over one config-4 `mse_step` at spp 2 (phase 26's) and one
+    `dual_train_step` at 1920x1080, each call counted as its instantiation
+    launches (shared 2, global 3). A path-traced sample makes 3 shared
+    calls (transforms, triangle and sphere materials) and 1 global (the
+    Morton permutation); the dual step adds the raster transforms (shared)
+    and the raster permutation (global)."""
+    import torch
+    import torch.distributed as dist
+
+    from ptre_tpu_torch.models import demo
+    from ptre_tpu_torch.ops import camera as cam_ops
+    from ptre_tpu_torch.ops import rng
+    from ptre_tpu_torch.ops.cuda import take_rows as tr
+    from ptre_tpu_torch.parallel import sharding as sh
+    from ptre_tpu_torch.render import train
+    from ptre_tpu_torch.utils.config import RasterConfig, RenderConfig
+
+    started = not dist.is_initialized()
+    mesh = sh.make_mesh((1, 1))
+    try:
+        pkt = demo.config4_mixed_scene(128, 64).build_packet(device=dev)
+        rpkt = demo.config4_mixed_scene(128, 64).build_packet(spheres_as_triangles=True,
+                                                              device=dev)
+        cam = cam_ops.Camera.create(width=W_MAIN, height=H_MAIN, device=dev)
+        cfg = RenderConfig(width=W_MAIN, height=H_MAIN)
+        rcfg = RasterConfig(width=W_MAIN, height=H_MAIN, supersample=2)
+        target = torch.full((H_MAIN, W_MAIN, 3), 0.25, device=dev)
+        params = sh.differentiable_params(pkt, cam)
+        steps = {
+            "mse_step": (lambda: train.mse_step(params, pkt, cam, target.reshape(-1, 3), cfg,
+                                                seed=7, spp=2), (6, 2)),
+            "dual_train_step": (lambda: sh.dual_train_step(mesh, params, pkt, rpkt, cam, target,
+                                                           rng.key_for(7), cfg, rcfg), (4, 2)),
+        }
+        launched = {}
+        for name, (step, want) in steps.items():
+            tr.launches_shared = tr.launches_global = 0
+            step()
+            torch.cuda.synchronize()
+            got = (tr.launches_shared, tr.launches_global)
+            check(got == want, f"{name}: rows backward calls (shared, global) {got}, "
+                               f"expected {want}")
+            launched[name] = 2 * got[0] + 3 * got[1]
+            print(f"  {name} at {W_MAIN}x{H_MAIN}: rows backward calls (shared, global) {got}, "
+                  f"{launched[name]} launches", flush=True)
+    finally:
+        if started:
+            dist.destroy_process_group()
+    return launched
+
+
+def take_rows_phase(dev, card):
+    """Phase 27 (module docstring, item 27): per site the backward through
+    `take_rows` in turns with ``table[idx]``'s, its error against float64,
+    its bits across runs and its launches; the kernels' registers; a table
+    and the kernel entry of the site that takes most time."""
+    import torch
+
+    from ptre_tpu_torch.ops.cuda import build
+    from ptre_tpu_torch.ops.cuda import take_rows as tr
+
+    t_phase = time.perf_counter()
+    print("phase 27: the row gathers' backward at config 4's shapes, take_rows in turns with "
+          f"table[idx]'s [{card}]", flush=True)
+    if build.last_build is not None:
+        regs = [k for k in ptxas_summary(build.last_build[1]) if k.startswith("rows_")]
+        print("  take_rows_kernel.cu: " + "; ".join(regs) + f" [{card}]", flush=True)
+    else:
+        print("  take_rows_kernel.cu: library not built in this run", flush=True)
+    gen = torch.Generator(dev).manual_seed(27)
+    rows, entries = [], []
+    launched = take_rows_launches(dev)
+    for site, (table, idx) in take_rows_sites(dev).items():
+        (N, F), M = table.shape, idx.shape[0]
+        kind = tr.instantiation(N, F, build.load_library().ptre_take_rows_max_cells())
+        g = torch.randn((M, F), device=dev, generator=gen)
+        ours, plain = table.clone().requires_grad_(True), table.clone().requires_grad_(True)
+        out_ours, out_plain = tr.take_rows(ours, idx), plain[idx]
+        check(torch.equal(out_ours, out_plain), f"{site}: take_rows' forward differs")
+
+        def backward(out, leaf):
+            return lambda: torch.autograd.grad(out, leaf, g, retain_graph=True)[0]
+
+        before = (tr.launches_shared, tr.launches_global)
+        got = backward(out_ours, ours)()
+        check((tr.launches_shared - before[0], tr.launches_global - before[1])
+              == ((1, 0) if kind == "shared" else (0, 1)), f"{site}: launch counters")
+        again = backward(out_ours, ours)()
+        want64 = torch.zeros((N, F), dtype=torch.float64, device=dev).index_add_(
+            0, idx, g.double())
+        ref = backward(out_plain, plain)()
+        want = want64.to(torch.float32).abs()
+        ulp = (torch.nextafter(want, torch.full_like(want, math.inf)) - want).double()
+        err = (got.double() - want64).abs()
+        check(bool((err <= ulp).all()), f"{site}: beyond a float32 ulp of float64")
+        if kind == "shared" or N == M:
+            check(torch.equal(got, again), f"{site}: d(table) differs between runs")
+        ref_err = float(((ref.double() - want64).abs() / ulp.clamp_min(1e-45)).max())
+        sides = {"take_rows": backward(out_ours, ours), "table[idx]": backward(out_plain, plain)}
+        times = in_turns(sides, TAKE_ROWS_REPS)
+        dev_ms = {k: device_events(fn, TAKE_ROWS_REPS) for k, fn in sides.items()}
+        nbytes = M * F * 4 + M * 8 + N * F * 4
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        dups = M - int(torch.unique(idx).numel())
+        rows.append((site, N, F, M, dups, kind, times["take_rows"], times["table[idx]"],
+                     dev_ms["take_rows"], dev_ms["table[idx]"], bound_ms,
+                     float((err / ulp.clamp_min(1e-45)).max()), ref_err,
+                     torch.equal(got, again)))
+        entries.append(with_bound({
+            "name": f"take_rows_bwd ({site})", "route": "cuda",
+            "source": "ptre_tpu_torch/csrc/take_rows_kernel.cu",
+            "replaces": "torch index_put_(accumulate=True), the backward of table[idx]",
+            "launches": launched["mse_step"], "dual_launches": launched["dual_train_step"],
+            "ms": dev_ms["take_rows"][0], "plain_ms": dev_ms["table[idx]"][0],
+        }, nbytes, 0))
+    print("  a call's time: CUDA events over calls in turns (host-paced for short calls), and "
+          "the device time of its kernels by the profiler, with their count", flush=True)
+    print(f"  {'site':<20} {'N':>5} {'F':>2} {'M':>5} {'dups':>5} {'inst':<6} "
+          f"{'ours ms':>7} {'idx ms':>7} {'ours dev ms (n)':>16} {'idx dev ms (n)':>15} "
+          f"{'bound ms':>8} {'ulps':>4} {'idx ulps':>8} same bits", flush=True)
+    for r in rows:
+        print(f"  {r[0]:<20} {r[1]:>5} {r[2]:>2} {r[3]:>5} {r[4]:>5} {r[5]:<6} "
+              f"{r[6]:>7.4f} {r[7]:>7.4f} {r[8][0]:>12.5f} ({r[8][1]:g}) "
+              f"{r[9][0]:>11.5f} ({r[9][1]:g}) {r[10]:>8.5f} {r[11]:>4.2f} {r[12]:>8.3g} "
+              f"{r[13]}", flush=True)
+    path = ("drawcall transforms", "triangle materials", "sphere materials",
+            "Morton permutation")
+    raster = ("raster transforms", "raster permutation")
+    for what, names in (("a path-traced sample", path), ("the raster packing", raster)):
+        ours = sum(r[8][0] for r in rows if r[0] in names)
+        theirs = sum(r[9][0] for r in rows if r[0] in names)
+        print(f"  {what}: device {ours:.4f} ms through take_rows against {theirs:.4f} ms "
+              f"through table[idx]'s backward [{card}]", flush=True)
+    print(f"phase 27 done in {time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
+    return max(entries, key=lambda e: e["plain_ms"])
+
+
+def take_rows_main():
+    """``python3 chip_smoke.py take_rows``: the kernel library and phase 27
+    alone."""
+    import torch
+
+    from ptre_tpu_torch.ops.cuda import build
+    from ptre_tpu_torch.utils.device import require_cuda
+
+    dev = require_cuda()
+    card = sh(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
+    print(card, f"torch {torch.__version__}", flush=True)
+    build.load_library()
+    entry = take_rows_phase(dev, card)
+    print(json.dumps({"kernels": [entry]}), flush=True)
+    print(json.dumps({"ok": True, "device": {"kind": torch.cuda.get_device_name(0)}}),
+          flush=True)
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--shard-rank"]:
         shard_rank_main(sys.argv[2:])
+    elif sys.argv[1:2] == ["take_rows"]:
+        take_rows_main()
     else:
         main()

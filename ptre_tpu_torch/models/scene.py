@@ -27,6 +27,7 @@ from ptre_tpu_torch.models.mesh import Mesh, MeshType
 from ptre_tpu_torch.utils.device import resolve
 from ptre_tpu_torch.utils.errors import SceneError
 from ptre_tpu_torch.ops import vecmat as vm
+from ptre_tpu_torch.ops.cuda.take_rows import take_rows
 
 
 class MaterialKind(enum.IntEnum):
@@ -190,7 +191,7 @@ class ScenePacket:
         """World-space (v0, v1, v2, n0, n1, n2), each (T, 3): vertices by the
         drawcall transform (POINT), normals by its inverse-transpose 3x3
         (`ptre_tpu/models/scene.py:186-208`)."""
-        tf = self.transforms[self.tri_dc.long()]  # (T, 4, 4)
+        tf = take_rows(self.transforms, self.tri_dc)  # (T, 4, 4)
         nm = vm.normal_matrix(tf)
 
         def point(p):

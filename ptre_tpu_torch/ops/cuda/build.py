@@ -33,10 +33,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 KERNEL_UNITS = ("render_kernel.cu", "record_kernel.cu", "fused_grad_kernel.cu",
                 "mask_kernel.cu", "wave_kernel.cu", "raster_kernel.cu",
                 "soft_raster_kernel.cu", "mega_kernel.cu", "sweep_kernel.cu",
-                "replay_kernel.cu")
+                "replay_kernel.cu", "take_rows_kernel.cu")
 #: every source the library is built from: the units and their headers
 SOURCES = KERNEL_UNITS + ("trace.cuh", "philox.cuh", "replay.cuh", "wave.cuh",
-                          "raster.cuh", "sweep.cuh")
+                          "raster.cuh", "sweep.cuh", "take_rows.cuh")
 #: flags of single units on top of NVCC_FLAGS, all without FMA contraction.
 #: The SoftRas pair terms: a contracted edge distance or barycentric moves a
 #: near-degenerate triangle's d(inverse squared edge length) by far more than
@@ -182,6 +182,14 @@ def load_library() -> ctypes.CDLL:
     lib.ptre_replay_bwd.restype = ctypes.c_int
     # (params, g, sky, o, d, sel, urand, dcol, d_o, d_d, d_g, dsky_part, stream)
     lib.ptre_replay_bwd.argtypes = [ptr] * 13
+    lib.ptre_take_rows_max_cells.restype = ctypes.c_int
+    lib.ptre_take_rows_max_cells.argtypes = []
+    lib.ptre_take_rows_blocks.restype = ctypes.c_longlong
+    lib.ptre_take_rows_blocks.argtypes = [ctypes.c_longlong]
+    # (g, idx, m, n, f, part | acc, out, stream)
+    for fn in (lib.ptre_take_rows_shared, lib.ptre_take_rows_global):
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ptr, ptr, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ptr, ptr, ptr]
     lib.ptre_cuda_error_string.restype = ctypes.c_char_p
     lib.ptre_cuda_error_string.argtypes = [ctypes.c_int]
     return lib

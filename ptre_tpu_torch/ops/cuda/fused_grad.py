@@ -22,7 +22,7 @@ Port of `ptre_tpu/ops/pallas/fused_grad.py`:
     backward runs `fused_bwd`. The triangle-scale forwards record rows of
     the Morton-permuted table, so the differentiable table is permuted the
     same way before it enters and autograd carries d(table) back through
-    that gather (`:443-448`).
+    that gather (`:443-448`), `take_rows`, whose backward is a kernel.
 
 Gradient semantics are those of `ops/path_replay.replay` (detached
 visibility); `fused_bwd_reference`, autograd through it, is the plain
@@ -52,6 +52,7 @@ from ptre_tpu_torch.ops import path_replay
 from ptre_tpu_torch.ops.cuda import build
 from ptre_tpu_torch.ops.cuda import megakernel as mk
 from ptre_tpu_torch.ops.cuda import wavefront as wf
+from ptre_tpu_torch.ops.cuda.take_rows import take_rows
 
 #: kernel launches made by `fused_bwd` in this process
 launches = 0
@@ -278,9 +279,9 @@ def trace_grad(o, d, packet, config, seed: int = 0, sample: int = 0,
     table, T, sky6 = path_replay.build_table(packet)
     perm = getattr(forward.scene, "perm_tri", None)
     if perm is not None:
-        # the recorded triangle rows index the Morton-permuted table; autograd
-        # carries d(table) back through the gather
-        table = torch.cat([table[:T][perm], table[T:]])
+        # the recorded triangle rows index the Morton-permuted table; d(table)
+        # goes back through the gather's own backward (a permutation: exact)
+        table = torch.cat([take_rows(table[:T], perm), table[T:]])
     hint = None
     if screen_cam is not None and o.shape[0] == config.width * config.height:
         hint = (config.height, config.width)

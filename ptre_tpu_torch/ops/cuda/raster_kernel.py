@@ -42,6 +42,7 @@ from ptre_tpu_torch.ops import camera as cam_ops
 from ptre_tpu_torch.ops import vecmat as vm
 from ptre_tpu_torch.ops.cuda import build
 from ptre_tpu_torch.ops.cuda import megakernel as mk
+from ptre_tpu_torch.ops.cuda.take_rows import take_rows
 from ptre_tpu_torch.render.rasterizer import transform_vertices
 from ptre_tpu_torch.utils.device import constant
 from ptre_tpu_torch.utils.errors import RendererError
@@ -177,7 +178,7 @@ def pack_raster_tris(packet, cam, config):
 
     perm = _morton2_order((cols[:, 23] + cols[:, 24]) * 0.5,
                           (cols[:, 25] + cols[:, 26]) * 0.5, keep_rows)
-    cols = cols[perm]
+    cols = take_rows(cols, perm)
     pad = (-T) % CHUNK
     if pad:
         cols = torch.cat([cols, cols.new_zeros((pad, 32))])

@@ -42,6 +42,7 @@ import torch
 from ptre_tpu_torch.ops import gradsafe, intersect
 from ptre_tpu_torch.ops.cuda import megakernel as mk
 from ptre_tpu_torch.ops.cuda import replay_kernel as rpk
+from ptre_tpu_torch.ops.cuda.take_rows import take_rows
 
 
 def build_table(packet):
@@ -57,10 +58,10 @@ def build_table(packet):
          packet.mat_param[:, None]], dim=1)  # (M, 5): kind, albedo.rgb, param
     tri_rows = torch.cat(
         [v0, v1, v2, n0, n1, n2, torch.zeros((T, 4), dtype=torch.float32, device=dev),
-         mat_cols[packet.tri_mat.long()]], dim=1)
+         take_rows(mat_cols, packet.tri_mat)], dim=1)
     sph_rows = torch.cat(
         [torch.zeros((S, 18), dtype=torch.float32, device=dev), packet.sph_center,
-         packet.sph_radius[:, None], mat_cols[packet.sph_mat.long()]], dim=1)
+         packet.sph_radius[:, None], take_rows(mat_cols, packet.sph_mat)], dim=1)
     table = torch.cat([tri_rows, sph_rows], dim=0)
     sky6 = torch.cat([packet.sky_bottom, packet.sky_top]).to(torch.float32)
     return table, T, sky6

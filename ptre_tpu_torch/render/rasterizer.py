@@ -35,6 +35,7 @@ import torch
 from ptre_tpu_torch.ops import camera as cam_ops
 from ptre_tpu_torch.ops import gradsafe as gs
 from ptre_tpu_torch.ops import vecmat as vm
+from ptre_tpu_torch.ops.cuda.take_rows import take_rows
 from ptre_tpu_torch.utils.device import constant
 from ptre_tpu_torch.utils.errors import ConfigError
 
@@ -45,7 +46,7 @@ _EPS = gs.f32(1e-12)
 def transform_vertices(tri_v, tri_n, tri_dc, transforms, view, proj):
     """Vertex stage for (T, 3, 3) triangle corners (vertex_shader.hlsl):
     NDC xyz after the w-divide, clip w, unit world normals."""
-    tf = transforms[tri_dc.long()]  # (T, 4, 4)
+    tf = take_rows(transforms, tri_dc)  # (T, 4, 4)
     nm = vm.normal_matrix(tf)
     world = torch.einsum("tvi,tij->tvj", tri_v, tf[:, :3, :3]) + tf[:, None, 3, :3]
     n_world = vm.normalize(torch.einsum("tvi,tij->tvj", tri_n, nm))

@@ -7,7 +7,7 @@ and `profile_trace` over ``torch.profiler`` in place of ``jax.profiler``.
 
 `span` marks a phase of the program's own work (``ptre.render.*``,
 ``ptre.wave.*``, ``ptre.train.*``, ``ptre.dual.*``, ``ptre.shard.*``,
-``ptre.raster.*``) on the profiler's timeline while a profiler records, and costs one attribute read while none does.
+``ptre.raster.*``, ``ptre.rows.*``) on the profiler's timeline while a profiler records, and costs one attribute read while none does.
 """
 
 from __future__ import annotations
