@@ -180,9 +180,10 @@ source, all at once), then:
        within a float32 ulp of float64 ``index_add_`` and bit-equal across
        runs, with the kernels' registers and shared memory and the bytes
        bound (the cotangent read once); then the counters from 0 over one
-       config-4 ``mse_step`` (spp 2, as in phase 26) and one
-       ``dual_train_step`` at 1920x1080: backward calls (shared, global)
-       of (6, 2) and (4, 2), 2 launches a shared call and 3 a global one.
+       config-4 ``mse_step`` (spp 4, the ``mixed_mesh.train`` cell's step)
+       and one ``dual_train_step`` at 1920x1080: backward calls (shared,
+       global) of (12, 4) and (4, 2), 2 launches a shared call and 3 a
+       global one.
        ``python3 chip_smoke.py take_rows`` runs this phase alone.
 
 Any failed check raises and the script exits non-zero; it prints its result
@@ -2825,20 +2826,20 @@ def staged_phases(dev, card, rs, report):
                  "staged mse_step", card)
 
     # staged against fused, demo scene, same Philox seed: the staged route's
-    # gathers (intersect.gather_rows) sum their backward in float64; beside
-    # them, embedding's own float32 sums (the gathers before), in turns
+    # gathers (`take_rows` in intersect and integrator) sum their backward
+    # in float64; beside them, embedding's own float32 sums, in turns
     dpkt = demo.reference_demo_scene(32, 16).build_packet(device=dev)
     dparams = sh.differentiable_params(dpkt, cam)
     c = RenderConfig(width=W, height=H, max_depth=B, grad_sweep="fused")
     lf, gf = train.mse_step(dparams, dpkt, cam, target, c, GRAD_SEED)
     c = RenderConfig(width=W, height=H, max_depth=B, grad_sweep="staged")
-    shipped = intersect.gather_rows
+    shipped = intersect.take_rows
     gathers = {"float64 sums": shipped,
-               "embedding's float32 sums": lambda t, i, pad_row=-1: F.embedding(i, t)}
+               "embedding's float32 sums": lambda t, i, pad_row=-1: F.embedding(i.long(), t)}
     res, step_ms = {}, {}
     try:
         for name in ("float64 sums", "embedding's float32 sums", "float64 sums"):
-            intersect.gather_rows = gathers[name]
+            intersect.take_rows = integrator.take_rows = gathers[name]
             train.mse_step(dparams, dpkt, cam, target, c, GRAD_SEED)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -2847,11 +2848,11 @@ def staged_phases(dev, card, rs, report):
             step_ms.setdefault(name, []).append((time.perf_counter() - t0) * 1e3)
         # the device time the float64 sums cost: one profiled step of each
         for name in ("embedding's float32 sums", "float64 sums"):
-            intersect.gather_rows = gathers[name]
+            intersect.take_rows = integrator.take_rows = gathers[name]
             device_share(lambda: train.mse_step(dparams, dpkt, cam, target, c, GRAD_SEED), 1,
                          f"staged mse_step, demo scene, {name} in its gathers", card)
     finally:
-        intersect.gather_rows = shipped
+        intersect.take_rows = integrator.take_rows = shipped
     for name, (ls, gs) in res.items():
         rels = {}
         for key in gf:
@@ -3704,13 +3705,22 @@ def replay_as_table(bwd, path_replay):
     """A replay backward (`replay_bwd` or `replay_bwd_reference`) as a
     function of `fused_bwd`'s arguments: the rows gathered from ``table``
     (`gather_rows`), d(g) summed into d(table) by the gather's backward.
-    Returns (d table, d sky6, d o, d d)."""
+    Returns (d table, d sky6, d o, d d). The card's gather takes float32
+    tables: a float64 table (the plain float64 reference) is gathered by
+    ``embedding`` from the table padded with a zero row, its backward
+    ``embedding``'s float64 segment sums, the pad row's cotangents dropped."""
     import torch
+    import torch.nn.functional as F
 
     def fn(table, sky6, o, d, sel, dcol, k, B, T, seed, sample, ur):
         leaf = table.detach().requires_grad_(True)
         with torch.enable_grad():
-            g = path_replay.gather_rows(leaf, sel)
+            if table.dtype == torch.float32:
+                g = path_replay.gather_rows(leaf, sel)
+            else:
+                P = table.shape[0]
+                padded = torch.cat([leaf, leaf.new_zeros((1, leaf.shape[1]))])
+                g = F.embedding(torch.where(sel >= 0, sel, P).long(), padded, padding_idx=P)
         d_o, d_d, d_g, dsky = bwd(o, d, g.detach(), sel, sky6, dcol, T, k, B, seed, sample, ur)
         (dtable,) = torch.autograd.grad(g, leaf, d_g)
         return dtable, dsky, d_o, d_d
@@ -3826,7 +3836,7 @@ def replay_phases(dev, card, rs, fma_bwd, first_pair):
                           (o, d, g, sel, sky6, dcol, T, k, B, REPLAY_SEED, 0, ur))
         # the gather's backward on a training step's cotangent (the MSE's
         # against a zero target: one sign, so a hot row's sum never cancels):
-        # embedding's own float32 sums against gather_rows' float64 ones,
+        # embedding's own float32 sums against take_rows' float64 ones,
         # each against a float64 sum of the same terms
         col = rpk.replay_fwd(o, d, g, sel, sky6, T, k, B, REPLAY_SEED, 0, ur)
         d_g = rpk.replay_bwd(o, d, g, sel, sky6, (2.0 * col / col.numel()).contiguous(), T, k,
@@ -3843,7 +3853,7 @@ def replay_phases(dev, card, rs, fma_bwd, first_pair):
         print(f"  replay bwd {mode}, MSE cotangent: d(table) from d(g) against a float64 sum, "
               "relative L2: "
               + "; ".join(f"{name} embedding float32 {rel_l2(emb32[:, sl], exact[:, sl]):.3e}, "
-                          f"gather_rows {rel_l2(emb64[:, sl].to(torch.float64), exact[:, sl]):.3e}"
+                          f"take_rows {rel_l2(emb64[:, sl].to(torch.float64), exact[:, sl]):.3e}"
                           for name, sl in (("albedo", groups["albedo"]),
                                            ("param", groups["param"]))), flush=True)
         del g, d_g, col, exact, emb32, emb64
@@ -3910,7 +3920,7 @@ def replay_phases(dev, card, rs, fma_bwd, first_pair):
           f"replay forward kernel "
           f"{fwd_ms:.4f} ms (first design {fwd_first_ms:.4f}), plain {fwd_plain_ms:.3f} ms; "
           f"replay backward kernel {bwd_ms:.4f} ms (first design {bwd_first_ms:.4f}), plain "
-          f"{bwd_plain_ms:.3f} ms; gather_rows (embedding) {gather_ms:.4f} ms (CUDA "
+          f"{bwd_plain_ms:.3f} ms; gather_rows (take_rows) {gather_ms:.4f} ms (CUDA "
           f"events, {W}x{H}) [{card}]", flush=True)
     del recorded, g_p, urand_ext
 
@@ -5379,12 +5389,12 @@ def take_rows_sites(dev):
 
 def take_rows_launches(dev):
     """{step: kernel launches of the rows backward}: the counters from 0
-    over one config-4 `mse_step` at spp 2 (phase 26's) and one
-    `dual_train_step` at 1920x1080, each call counted as its instantiation
-    launches (shared 2, global 3). A path-traced sample makes 3 shared
-    calls (transforms, triangle and sphere materials) and 1 global (the
-    Morton permutation); the dual step adds the raster transforms (shared)
-    and the raster permutation (global)."""
+    over one config-4 `mse_step` at spp 4 (the `mixed_mesh.train` cell's)
+    and one `dual_train_step` at 1920x1080, each call counted as its
+    instantiation launches (shared 2, global 3). A path-traced sample
+    makes 3 shared calls (transforms, triangle and sphere materials) and 1
+    global (the Morton permutation); the dual step adds the raster
+    transforms (shared) and the raster permutation (global)."""
     import torch
     import torch.distributed as dist
 
@@ -5409,7 +5419,7 @@ def take_rows_launches(dev):
         params = sh.differentiable_params(pkt, cam)
         steps = {
             "mse_step": (lambda: train.mse_step(params, pkt, cam, target.reshape(-1, 3), cfg,
-                                                seed=7, spp=2), (6, 2)),
+                                                seed=7, spp=4), (12, 4)),
             "dual_train_step": (lambda: sh.dual_train_step(mesh, params, pkt, rpkt, cam, target,
                                                            rng.key_for(7), cfg, rcfg), (4, 2)),
         }
@@ -5453,7 +5463,7 @@ def take_rows_phase(dev, card):
     launched = take_rows_launches(dev)
     for site, (table, idx) in take_rows_sites(dev).items():
         (N, F), M = table.shape, idx.shape[0]
-        kind = tr.instantiation(N, F, build.load_library().ptre_take_rows_max_cells())
+        kind = tr.instantiation(N, F, M, build.load_library().ptre_take_rows_max_cells())
         g = torch.randn((M, F), device=dev, generator=gen)
         ours, plain = table.clone().requires_grad_(True), table.clone().requires_grad_(True)
         out_ours, out_plain = tr.take_rows(ours, idx), plain[idx]

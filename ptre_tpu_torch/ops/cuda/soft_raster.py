@@ -43,6 +43,7 @@ from ptre_tpu_torch.ops import gradsafe as gs
 from ptre_tpu_torch.ops.cuda import build
 from ptre_tpu_torch.ops.cuda import megakernel as mk
 from ptre_tpu_torch.ops.cuda import raster_kernel as rk
+from ptre_tpu_torch.ops.cuda.take_rows import take_rows
 from ptre_tpu_torch.utils.device import constant
 from ptre_tpu_torch.utils.errors import RendererError
 from ptre_tpu_torch.utils.metrics import span
@@ -220,7 +221,11 @@ def soft_backward_reference(tris, cbox, scal, res, dimg, rows_ss: int, width_ss:
                 continue
             leaf = blk.clone().requires_grad_(True)
             with torch.enable_grad():
-                cov, logit, cr, cg, cb = pair_terms(leaf[t_i], px[r_i, c_i], py[r_i, c_i], s)
+                # take_rows on the CPU, whose d(rows) has the same bits on any
+                # thread count; plain indexing on the card, where this is the
+                # kernel's plain version
+                rows = take_rows(leaf, t_i) if leaf.is_cpu else leaf[t_i]
+                cov, logit, cr, cg, cb = pair_terms(rows, px[r_i, c_i], py[r_i, c_i], s)
             rr, cc = r_i + a, c_i + c0
             gr, gg, gb = (dimg[i][rr, cc] for i in range(3))
             with torch.no_grad():

@@ -57,6 +57,7 @@ from ptre_tpu_torch.ops import gradsafe, intersect, materials, path_replay, rng
 from ptre_tpu_torch.ops.cuda import fused_grad
 from ptre_tpu_torch.ops.cuda import megakernel as mk
 from ptre_tpu_torch.ops.cuda import sweep_kernel
+from ptre_tpu_torch.ops.cuda.take_rows import take_rows
 from ptre_tpu_torch.utils.errors import ConfigError
 
 
@@ -128,7 +129,7 @@ def _bounce(o, d, color, active, i_tri, hit_tri, i_sph, hit_sph, u1, u2, v0, v1,
     winners = (i_tri, hit_tri, i_sph, hit_sph)
     hit = intersect.closest_hit(o, d, packet, (v0, v1, v2, n0, n1, n2), consts.t_min,
                                 consts.t_max, consts.det_eps, sweep_fn=lambda *_: winners)
-    mat = intersect.gather_rows(mat_table, hit.mat_id)
+    mat = take_rows(mat_table, hit.mat_id)
     srec = materials.scatter(u1, u2, d, hit.position, hit.normal, mat_kind[hit.mat_id],
                              mat[:, 0:3], mat[:, 3], consts.shadow_eps, consts.pdf_eps)
     sky = materials.sky_attenuation(d, packet.sky_bottom, packet.sky_top)

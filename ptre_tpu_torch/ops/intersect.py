@@ -37,10 +37,10 @@ from __future__ import annotations
 import dataclasses
 
 import torch
-import torch.nn.functional as F
 
 from ptre_tpu_torch.ops import gradsafe
 from ptre_tpu_torch.ops import vecmat as vm
+from ptre_tpu_torch.ops.cuda.take_rows import take_rows
 
 _BIG = 1e30
 
@@ -214,45 +214,6 @@ def sphere_hit_attrs_t(o, d, center, radius, t_min):
     return t, p, torch.where(front[:, None], n, -n), front
 
 
-class _GatherRows(torch.autograd.Function):
-    """``embedding`` of a (N, C) table by an int64 index, with its backward,
-    d(table), summed in float64 (one leading-axis slice at a time for a 2-D
-    index, which bounds the float64 temporaries). ``embedding``'s own
-    backward sums each row's cotangents by sorted segments, fast where
-    ``table[idx]``'s adds an index's duplicates one after another (a few
-    sphere or material rows gathered by 2,073,600 rays: 7.1 s of a 7.2 s
-    staged training step on an H100); but in float32 it adds a hot row's
-    million cotangents in long sequential runs: on a training step's
-    one-sign cotangent its d(albedo) sat 1.8e-4 from float64, where these
-    sums sit below 3e-8 (chip_smoke.py phase 21 reads both)."""
-
-    @staticmethod
-    def forward(ctx, table, idx, pad_row: int):
-        ctx.save_for_backward(idx)
-        ctx.n_rows, ctx.pad_row = table.shape[0], pad_row
-        return F.embedding(idx, table, padding_idx=None if pad_row < 0 else pad_row)
-
-    @staticmethod
-    def backward(ctx, dg):
-        (idx,) = ctx.saved_tensors
-
-        def part(g, i):
-            return torch.ops.aten.embedding_dense_backward(
-                g.to(torch.float64), i, ctx.n_rows, ctx.pad_row, False)
-
-        dtable = (sum(part(dg[b], idx[b]) for b in range(idx.shape[0])) if idx.dim() == 2
-                  else part(dg, idx))
-        return dtable.to(dg.dtype), None, None
-
-
-def gather_rows(table, idx, pad_row: int = -1):
-    """``table[idx]`` of a (N, C) table by an int64 index (any shape),
-    differentiable w.r.t. the table, d(table) summed in float64
-    (`_GatherRows`). ``pad_row`` >= 0 names a row whose cotangents are
-    dropped (``embedding``'s ``padding_idx``)."""
-    return _GatherRows.apply(table, idx, pad_row)
-
-
 def sweep_edges(o, d, v0, e1, e2, tri_valid, center, radius, sph_valid, t_min,
                 t_max, det_eps=1e-6):
     """The sweep on triangle rows (v0, e1, e2): (i_tri int32, hit_tri bool,
@@ -287,10 +248,10 @@ def closest_hit(o, d, packet, world_tris, t_min, t_max, det_eps=1e-6,
         o.detach(), d.detach(), packet, tuple(w.detach() for w in world_tris),
         t_min, t_max, det_eps)
     i_tri, i_sph = i_tri.long(), i_sph.long()
-    gt = gather_rows(torch.cat([v0, v1, v2, n0, n1, n2], dim=1), i_tri)
+    gt = take_rows(torch.cat([v0, v1, v2, n0, n1, n2], dim=1), i_tri)
     t_tri, p_tri, n_tri, f_tri = triangle_hit_attrs_t(
         o, d, gt[:, 0:3], gt[:, 3:6], gt[:, 6:9], gt[:, 9:12], gt[:, 12:15], gt[:, 15:18])
-    gs = gather_rows(torch.cat([packet.sph_center, packet.sph_radius[:, None]], dim=1), i_sph)
+    gs = take_rows(torch.cat([packet.sph_center, packet.sph_radius[:, None]], dim=1), i_sph)
     t_sph, p_sph, n_sph, f_sph = sphere_hit_attrs_t(o, d, gs[:, 0:3], gs[:, 3], t_min)
     use_sph = hit_sph
     sel = use_sph[:, None]

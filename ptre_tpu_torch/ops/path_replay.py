@@ -13,8 +13,8 @@ it is the plain version of the fused backward kernel
 Both primitive classes live in one unified (P, 27) table (`build_table`),
 so each bounce gathers one row per ray. The plain replay (`replay_table`)
 gathers by an indexed load; the replay route gathers every bounce's rows
-once through `intersect.gather_rows` (`gather_rows`), whose backward,
-d(table), is summed in float64. The reference's one-hot matmul
+once through `take_rows` (`gather_rows`), whose backward, d(table), is
+summed in float64. The reference's one-hot matmul
 (`path_replay.py:125-135`) is a TPU workaround for slow dynamic gathers.
 
 The replay route (`trace_fused_grad`, `path_replay.py:364-394`): the
@@ -39,7 +39,7 @@ from __future__ import annotations
 
 import torch
 
-from ptre_tpu_torch.ops import gradsafe, intersect
+from ptre_tpu_torch.ops import gradsafe
 from ptre_tpu_torch.ops.cuda import megakernel as mk
 from ptre_tpu_torch.ops.cuda import replay_kernel as rpk
 from ptre_tpu_torch.ops.cuda.take_rows import take_rows
@@ -102,13 +102,13 @@ def replay_table(o, d, sel, urand, table, sky6, sph_offset: int, consts,
 def gather_rows(table, sel):
     """Every bounce's winner rows, (B, R, 27): row ``sel[b, r]`` of the
     (P, 27) table, zeros where it is -1 (`path_replay.py:231-249`), through
-    `intersect.gather_rows` on the table padded with one zero row, whose
-    cotangents are dropped. Differentiable w.r.t. the table: its backward,
-    d(table), is summed in float64."""
+    `take_rows` on the table padded with one zero row, its pad row (whose
+    cotangents are never read). Differentiable w.r.t. the table: its
+    backward, d(table), is summed in float64."""
     P = table.shape[0]
     padded = torch.cat([table, table.new_zeros((1, table.shape[1]))], dim=0)
     idx = torch.where(sel >= 0, sel, P).long()
-    return intersect.gather_rows(padded, idx, P)
+    return take_rows(padded, idx, pad_row=P)
 
 
 def replay(o, d, sel, urand, packet, config):

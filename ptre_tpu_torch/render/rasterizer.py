@@ -52,7 +52,9 @@ def transform_vertices(tri_v, tri_n, tri_dc, transforms, view, proj):
     n_world = vm.normalize(torch.einsum("tvi,tij->tvj", tri_n, nm))
     vp = view @ proj
     clip = torch.einsum("tvi,ij->tvj", world, vp[:3, :3]) + vp[3, :3]
-    w = torch.einsum("tvi,i->tv", world, vp[:3, 3]) + vp[3, 3]
+    # written out, not a matrix-vector product: the CPU BLAS splits that
+    # product's backward sum by thread count
+    w = vm.dot3(world, vp[:3, 3]) + vp[3, 3]
     return clip / w[..., None], w, n_world
 
 

@@ -49,6 +49,7 @@ from ptre_tpu_torch.ops import intersect
 from ptre_tpu_torch.ops.cuda import build
 from ptre_tpu_torch.ops.cuda import megakernel as mk
 from ptre_tpu_torch.ops.cuda import sweep_kernel as sk
+from ptre_tpu_torch.ops.cuda.take_rows import take_rows
 from ptre_tpu_torch.render import pathtracer as pt
 from ptre_tpu_torch.utils.config import RenderConfig
 
@@ -351,14 +352,13 @@ def test_gather_rows_sums_its_backward_in_float64():
     # a hot row's million terms drift ~1e-5 from the exact sum; the gather's
     # backward sums in float64 and rounds once to float32: each entry within
     # 2^-23 of the float64 sum, relative
-    torch.set_num_threads(1)
     rs = np.random.default_rng(6)
     n = 1_000_000
     idx = torch.from_numpy(rs.integers(0, 3, n)) + 2  # rows 2-4 of 6
     table = torch.from_numpy(rs.random((6, 4), dtype=np.float32)).requires_grad_(True)
     cot = torch.from_numpy(rs.random((n, 4), dtype=np.float32))
     exact = torch.zeros((6, 4), dtype=torch.float64).index_add_(0, idx, cot.double())
-    (got,) = torch.autograd.grad(intersect.gather_rows(table, idx), table, cot)
+    (got,) = torch.autograd.grad(take_rows(table, idx), table, cot)
     assert got.dtype == torch.float32
     rel = ((got.double() - exact).abs() / exact.abs().clamp_min(1e-300))[2:5]
     assert float(rel.max()) <= 2.0 ** -23, float(rel.max())

@@ -1,30 +1,38 @@
-"""The row gather `take_rows` and its backward kernel.
+"""The port's one differentiable row gather `take_rows` and the rule of its
+backward: each cell of d(table) the float64 sum of its cotangents, rounded
+once, the row ``pad_row`` names zero.
 
 On the CPU: `csrc/host_take_rows.cpp`, built with g++, runs the backward
-kernel's summing code (`take_rows.cuh`): the shared instantiation block by
+kernels' summing code (`take_rows.cuh`): the shared instantiation block by
 block and warp by warp with the kernel's own span and cross-block order,
 the global one's float64 atomics in row order. Both are held against torch's
 float64 ``index_add_`` at the shapes the port gathers (BASELINE config 4:
 16,256 rows from 2 drawcall transforms or materials, the Morton and raster
-permutations) and on each side of the shared cap. Tolerance: one float32
-ulp of the float64 sum. Both round a float64 sum once, and their float64
-sums differ from index_add_'s only in the order of the adds, far below
-that.
+permutations), on each side of the shared cap, on a replay table padded
+with its zero row, and with a 2-D index of heavy duplicates. Tolerance: one float32 ulp of the float64
+sum. Both round a float64 sum once, and their float64 sums differ from
+index_add_'s only in the order of the adds, far below that.
 
-The instantiation is a function of the table's cells N * F alone, split at
-the cap the header sets (the largest table whose per-warp float64 slices
-fit a block's 48 KB of shared memory; the CUDA library exports the same
-constant), and
-`take_rows` on CPU tensors is ``table[idx]`` bit for bit, forward and
-backward; a CPU training step is bit-equal to the same step through
-``table[idx]``; the tables the kernels read hold no ``IndexBackward0``.
+The card's implementation is a function of the table's cells N * F and the
+gathered rows M alone, split at the cap the header sets (the largest table
+whose per-warp float64 slices fit a block's 48 KB of shared memory; the
+CUDA library exports the same constant). `take_rows` on CPU tensors
+gathers ``table[idx]``'s values, and its backward is float64
+``embedding_dense_backward`` cast once, bit for bit; a CPU training step
+holds to the same step through ``table[idx]``, and the config-4 training
+steps give the same bits on 1 and on 8 threads; the tables the kernels read
+and the staged and replay routes' gathers hold no ``IndexBackward0`` or
+``EmbeddingBackward0``; a pad row's d(table) is zero and every other row
+the same bits as without it, and the replay route's gather drops the
+cotangents of its -1 selections.
 
-Marked ``cuda`` (skip without a card): the kernel against float64
-``index_add_`` (same tolerance) and bit for bit against the host build,
-d(table) bit-equal across runs (the shared instantiation; the global one on
-a permutation), the library's cap the host build's, the launch counters,
-no ``indexing_backward`` kernel in a config-4 ``mse_step`` or
-``dual_train_step``, and those two steps at 1920x1080 against the same
+Marked ``cuda`` (skip without a card): the card's backward against float64
+``index_add_`` (same tolerance) and bit for bit against the host build
+(the shared instantiation, and the global one on a permutation), d(table)
+bit-equal across runs (the same), a pad row zero and the other rows
+unchanged, the library's cap the host build's, the
+launch counters, no ``indexing_backward`` kernel in a config-4 ``mse_step``
+or ``dual_train_step``, and those two steps at 1920x1080 against the same
 steps through ``table[idx]``: the loss the same bits, each of the ten
 gradient leaves within GRAD_ULPS float32 ulps of its largest entry.
 """
@@ -32,6 +40,7 @@ gradient leaves within GRAD_ULPS float32 ulps of its largest entry.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import os
 import shutil
 import subprocess
@@ -44,7 +53,7 @@ from torch.profiler import ProfilerActivity, profile
 from ptre_tpu_torch.models import demo
 from ptre_tpu_torch.models import scene as scene_mod
 from ptre_tpu_torch.ops import camera as cam_ops
-from ptre_tpu_torch.ops import path_replay
+from ptre_tpu_torch.ops import integrator, intersect, path_replay
 from ptre_tpu_torch.ops import rng
 from ptre_tpu_torch.ops.cuda import build
 from ptre_tpu_torch.ops.cuda import fused_grad as fg
@@ -56,7 +65,7 @@ from ptre_tpu_torch.render import train
 from ptre_tpu_torch.utils.config import RasterConfig, RenderConfig
 
 #: the modules whose gathers go through `take_rows`
-SITES = (scene_mod, path_replay, fg, ras, rk)
+SITES = (scene_mod, path_replay, fg, ras, rk, intersect, integrator)
 
 
 def _dup_index(m, n_other, seed):
@@ -76,8 +85,16 @@ def _random(m, n, seed):
     return torch.randint(0, n, (m,), generator=torch.Generator().manual_seed(seed))
 
 
+def _hot_2d(b, r, n, seed):
+    """(b, r) int64 into n rows, three in four naming row 7: a ray gather's
+    heavy duplicates (the staged triangle gather, the replay route's
+    winner rows), one leading slice a bounce."""
+    return torch.where(_random(b * r, 4, seed) > 0, 7, _random(b * r, n, seed + 1)).reshape(b, r)
+
+
 #: (name, N, F, index): the port's gathers at config 4's shapes, the cap's
-#: two sides, and an index that never names half the rows
+#: two sides, an index that never names half the rows, a small replay table
+#: of 8 rows and its zero row, and a 2-D index of heavy duplicates
 CASES = [
     ("drawcall_transforms", 2, 16, lambda: _dup_index(16256, 12, 1)),
     ("materials", 2, 5, lambda: _dup_index(16256, 12, 2)),
@@ -88,19 +105,23 @@ CASES = [
     ("at_cap", 47, 16, lambda: _random(5000, 47, 5)),
     ("past_cap", 48, 16, lambda: _random(5000, 48, 6)),
     ("unnamed_rows", 40, 7, lambda: _random(3000, 20, 7)),
+    ("padded_replay_table", 9, 27, lambda: _random(12000, 9, 8)),
+    ("hot_rows_2d", 64, 18, lambda: _hot_2d(3, 4000, 64, 9)),
 ]
 
 
 def _case(case, seed=11):
+    """(N, F, idx, g (*idx.shape, F)) of a case."""
     name, n, f, make = case
     idx = make()
-    g = torch.randn((idx.shape[0], f), generator=torch.Generator().manual_seed(seed))
+    g = torch.randn((*idx.shape, f), generator=torch.Generator().manual_seed(seed))
     return n, f, idx, g
 
 
 def _float64_sum(g, idx, n):
-    return torch.zeros((n, g.shape[1]), dtype=torch.float64).index_add_(
-        0, idx.cpu(), g.cpu().double())
+    """The float64 sum of each row's cotangents."""
+    idx, g = idx.cpu().reshape(-1), g.cpu().reshape(idx.numel(), -1).double()
+    return torch.zeros((n, g.shape[1]), dtype=torch.float64).index_add_(0, idx, g)
 
 
 def _assert_within_an_ulp(got, want64):
@@ -133,7 +154,8 @@ def host(tmp_path_factory):
 
 
 def _host_sum(host, kind, g, idx, n):
-    g, idx = g.cpu().contiguous(), idx.cpu().contiguous()
+    idx = idx.cpu().reshape(-1).contiguous()
+    g = g.cpu().reshape(idx.numel(), -1).contiguous()
     out = torch.empty((n, g.shape[1]), dtype=torch.float32)
     fn = host.ptre_take_rows_shared_host if kind == "shared" else host.ptre_take_rows_global_host
     fn(g.data_ptr(), idx.data_ptr(), g.shape[0], n, g.shape[1], out.data_ptr())
@@ -143,14 +165,22 @@ def _host_sum(host, kind, g, idx, n):
 # ---- on the CPU ----------------------------------------------------------------------
 
 
-def _kind(host, n, f):
-    return tr.instantiation(n, f, host.ptre_take_rows_max_cells_host())
+def _kind(host, n, f, m):
+    return tr.instantiation(n, f, m, host.ptre_take_rows_max_cells_host())
+
+
+def _host_kind(host, n, f, m):
+    """The kernel the host build runs for a case: the card's, and the
+    global one where the card sums by segments (``embedding``'s backward,
+    no kernel of the unit)."""
+    kind = _kind(host, n, f, m)
+    return "global" if kind == "segments" else kind
 
 
 @pytest.mark.parametrize("case", CASES, ids=[c[0] for c in CASES])
 def test_host_build_within_an_ulp_of_float64(host, case):
     n, f, idx, g = _case(case)
-    got = _host_sum(host, _kind(host, n, f), g, idx, n)
+    got = _host_sum(host, _host_kind(host, n, f, idx.numel()), g, idx, n)
     _assert_within_an_ulp(got, _float64_sum(g, idx, n))
     if case[0] == "unnamed_rows":
         assert bool((got[20:] == 0).all())
@@ -178,34 +208,89 @@ def test_host_constants_are_the_wrapper_s(host):
 
 
 def test_instantiation_is_a_function_of_the_cells_alone(host):
+    """The card's implementation from N * F and M alone: "shared" up to the
+    cap whatever M; past it "global" where M <= N, else "segments"."""
     cap = host.ptre_take_rows_max_cells_host()
     for cells in (1, 32, 10, cap - 1, cap, cap + 1, 16256 * 27):
-        kinds = {_kind(host, n, cells // n) for n in range(1, 17) if cells % n == 0}
-        assert kinds == {"shared" if cells <= cap else "global"}, cells
-    assert _kind(host, 2, 16) == "shared" and _kind(host, 16256, 27) == "global"
+        for n in (n for n in range(1, 17) if cells % n == 0):
+            for m in (1, n, n + 1, 2073600):
+                want = "shared" if cells <= cap else "global" if m <= n else "segments"
+                assert _kind(host, n, cells // n, m) == want, (cells, n, m)
+    # the port's sites at config 4's shapes: the drawcall transforms, the
+    # materials, the Morton and raster permutations, the staged sphere and
+    # triangle gathers at 1080p, the replay route's rows of a small table
+    assert _kind(host, 2, 16, 16256) == "shared" and _kind(host, 2, 5, 16256) == "shared"
+    assert _kind(host, 16256, 27, 16256) == "global"
+    assert _kind(host, 16640, 32, 16640) == "global"
+    assert _kind(host, 2, 4, 2073600) == "shared"
+    assert _kind(host, 16256, 18, 2073600) == "segments"
+    assert _kind(host, 27, 27, 5 * 2073600) == "shared"
+    assert _kind(host, 28, 27, 5 * 2073600) == "segments"
 
 
-@pytest.fixture
-def one_thread():
-    """torch's CPU ``index_put_`` with accumulate adds by atomics in
-    parallel past its grain, in no fixed order from run to run; on one
-    thread it adds in row order."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
+def _embedding64(g, idx, n):
+    """float64 ``embedding_dense_backward`` of each leading slice of a
+    multi-dimensional index, the slices summed in float64: the rule's CPU
+    sums, before the rounding."""
+    if idx.dim() > 1:
+        return sum(_embedding64(g[b], idx[b], n) for b in range(idx.shape[0]))
+    return torch.ops.aten.embedding_dense_backward(g.double(), idx, n, -1, False)
 
 
 @pytest.mark.parametrize("case", CASES, ids=[c[0] for c in CASES])
-def test_cpu_backward_equals_index_autograd(one_thread, case):
+def test_cpu_backward_equals_index_autograd(case):
+    """On CPU tensors: the forward ``table[idx]``'s values; d(table) float64
+    ``embedding_dense_backward`` cast once, bit for bit, and within a
+    float32 ulp of float64 ``index_add_``."""
     n, f, idx, g = _case(case, seed=13)
     table = torch.randn((n, f), generator=torch.Generator().manual_seed(14))
-    leaf_a, leaf_b = table.clone().requires_grad_(True), table.clone().requires_grad_(True)
-    out_a, out_b = leaf_a[idx], tr.take_rows(leaf_b, idx)
-    assert torch.equal(out_a, out_b)
-    (da,) = torch.autograd.grad(out_a, leaf_a, g)
-    (db,) = torch.autograd.grad(out_b, leaf_b, g)
-    assert torch.equal(da, db)
+    leaf = table.clone().requires_grad_(True)
+    out = tr.take_rows(leaf, idx)
+    assert torch.equal(out, table[idx])
+    (d,) = torch.autograd.grad(out, leaf, g)
+    assert d.dtype == torch.float32
+    assert torch.equal(d, _embedding64(g, idx, n).to(torch.float32))
+    _assert_within_an_ulp(d, _float64_sum(g, idx, n))
+
+
+def _pad_of(idx):
+    """The pad row of a case: the row its first index names."""
+    return int(idx.reshape(-1)[0])
+
+
+@pytest.mark.parametrize("case", CASES, ids=[c[0] for c in CASES])
+def test_cpu_pad_row_is_zero_and_the_rest_unchanged(case):
+    """``pad_row`` (``embedding``'s ``padding_idx``): the forward
+    ``table[idx]``'s values; d(table) zero in that row, every other row the
+    same bits as without a pad row."""
+    n, f, idx, g = _case(case, seed=18)
+    pad = _pad_of(idx)
+    table = torch.randn((n, f), generator=torch.Generator().manual_seed(19))
+    leaf = table.clone().requires_grad_(True)
+    out = tr.take_rows(leaf, idx, pad)
+    assert torch.equal(out, table[idx])
+    (d,) = torch.autograd.grad(out, leaf, g)
+    (d0,) = torch.autograd.grad(tr.take_rows(leaf, idx), leaf, g)
+    assert bool((d[pad] == 0).all())
+    keep = torch.arange(n) != pad
+    assert torch.equal(d[keep], d0[keep])
+
+
+def test_replay_gather_drops_the_cotangents_of_unselected_rows():
+    """`path_replay.gather_rows` of a (P, 27) table by a (B, R) selection
+    with -1 where a ray has no winner: zeros there, and d(table) the float64
+    sum of the selected rows' cotangents alone, cast once."""
+    P, B, R = 8, 3, 4000
+    table = torch.randn((P, 27), generator=torch.Generator().manual_seed(15))
+    sel = _random(B * R, P + 1, 16).reshape(B, R) - 1
+    g = torch.randn((B, R, 27), generator=torch.Generator().manual_seed(17))
+    leaf = table.clone().requires_grad_(True)
+    out = path_replay.gather_rows(leaf, sel)
+    kept = sel >= 0
+    assert bool((out[~kept] == 0).all()) and torch.equal(out[kept], table[sel[kept]])
+    (d,) = torch.autograd.grad(out, leaf, g)
+    assert torch.equal(d, _embedding64(g, torch.where(kept, sel, P), P + 1)[:P].float())
+    _assert_within_an_ulp(d, _float64_sum(g[kept], sel[kept], P))
 
 
 def test_any_index_and_row_shape():
@@ -221,7 +306,8 @@ def test_any_index_and_row_shape():
     out = tr.take_rows(transforms, dc)
     assert out.shape == (7, 4, 4) and torch.equal(out, transforms[dc])
     (d,) = torch.autograd.grad(out, transforms, g)
-    assert torch.equal(d, torch.autograd.grad(transforms[dc], transforms, g)[0])
+    want = _float64_sum(g.reshape(7, 16), dc, 2).reshape(2, 4, 4)
+    assert torch.equal(d, want.to(torch.float32))
 
 
 def test_backward_runs_inside_its_span():
@@ -255,22 +341,38 @@ def _small_config4():
     return pkt, cam, RenderConfig(width=16, height=8, max_depth=3)
 
 
+def _other_gathers(names):
+    """The graph nodes of a row gather that is not `take_rows`: indexing,
+    ``embedding`` or any other gather op's."""
+    return {n for n in names if n.startswith(("Index", "Embedding")) or "Gather" in n}
+
+
 def test_kernels_tables_hold_no_index_backward():
     """The path tracer's unified table (drawcall transforms, materials, the
-    Morton permutation) and the raster table are built by `take_rows`:
-    their graphs hold its node and no ``IndexBackward0``."""
+    Morton permutation), the raster table, and the staged route's
+    (closest-hit and material) and replay route's (winner rows) gathers are
+    `take_rows`: their graphs hold its node and no other gather's."""
     pkt, cam, cfg = _small_config4()
     color = train.sample_color(_leaves(pkt, cam), pkt, cam, cfg, 2, 0)
     names = _graph_names(color)
-    assert "IndexBackward0" not in names and "_TakeRowsBackward" in names
+    assert not _other_gathers(names) and "_TakeRowsBackward" in names
     rpkt = demo.config4_mixed_scene(12, 6).build_packet(spheres_as_triangles=True, device="cpu")
     rp, rc = sh.apply_params(_leaves(rpkt, cam), rpkt, cam)
     cols, _ = rk.pack_raster_tris(rp, rc, RasterConfig(width=16, height=8, supersample=2))
     names = _graph_names(cols)
-    assert "IndexBackward0" not in names and "_TakeRowsBackward" in names
+    assert not _other_gathers(names) and "_TakeRowsBackward" in names
+    dpkt = demo.reference_demo_scene(8, 4).build_packet(device="cpu")
+    for sweep, p in (("staged", pkt), ("replay", dpkt)):
+        c = dataclasses.replace(cfg, grad_sweep=sweep)
+        assert integrator.grad_route(c, p) == sweep
+        names = _graph_names(train.sample_color(_leaves(p, cam), p, cam, c, 2, 0))
+        assert not _other_gathers(names) and "_TakeRowsBackward" in names, sweep
 
 
-def test_cpu_mse_step_equals_the_plain_gather_bit_for_bit(one_thread, monkeypatch):
+def test_cpu_mse_step_equals_the_plain_gather_bit_for_bit(monkeypatch):
+    """A CPU training step against the same step through ``table[idx]``,
+    whose backward adds float32 in sequence: the loss the same bits, each
+    gradient leaf within GRAD_ULPS float32 ulps of its largest entry."""
     pkt, cam, cfg = _small_config4()
     target = torch.full((cam.height * cam.width, 3), 0.25)
 
@@ -279,12 +381,58 @@ def test_cpu_mse_step_equals_the_plain_gather_bit_for_bit(one_thread, monkeypatc
                               seed=5, spp=2)
 
     loss, grads = step()
-    for mod in SITES:
-        monkeypatch.setattr(mod, "take_rows", lambda t, i: t[i.long()])
+    plain_gathers(monkeypatch)
     loss0, grads0 = step()
     assert float(loss) == float(loss0) and set(grads) == set(grads0)
     for k in grads:
-        assert torch.equal(grads[k], grads0[k]), k
+        apart = ulps_apart(grads[k], grads0[k])
+        assert apart <= GRAD_ULPS, f"d({k}) {apart:.1f} ulps from table[idx]'s"
+
+
+@pytest.fixture
+def world_cpu():
+    """A gloo world of one, left as it was found."""
+    started = not dist.is_initialized()
+    yield sh.make_mesh((1, 1), device_type="cpu")
+    if started:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("step", ["mse_step", "raster_mse_step", "dual_train_step"])
+def test_cpu_training_steps_are_the_same_bits_on_any_thread_count(world_cpu, step):
+    """A config-4 scene of 2,304 triangle rows (2,688 as raster rows): the
+    drawcall transforms' gather alone sums 36,864 cotangents, past the
+    32,768 from which ``table[idx]``'s backward adds across threads by
+    atomics. The loss and every gradient leaf are the same bits on 1 thread
+    and on 8."""
+    W, H = 16, 8
+    pkt = demo.config4_mixed_scene(48, 24).build_packet(device="cpu")
+    rpkt = demo.config4_mixed_scene(48, 24).build_packet(spheres_as_triangles=True,
+                                                         device="cpu")
+    cam = cam_ops.Camera.create(width=W, height=H, device="cpu")
+    cfg = RenderConfig(width=W, height=H, max_depth=3)
+    rcfg = RasterConfig(width=W, height=H, supersample=2)
+    target = torch.full((H, W, 3), 0.25)
+    run = {
+        "mse_step": lambda: train.mse_step(sh.differentiable_params(pkt, cam), pkt, cam,
+                                           target.reshape(-1, 3), cfg, seed=5, spp=2),
+        "raster_mse_step": lambda: train.raster_mse_step(sh.differentiable_params(rpkt, cam),
+                                                         rpkt, cam, target, rcfg),
+        "dual_train_step": lambda: sh.dual_train_step(
+            world_cpu, sh.differentiable_params(pkt, cam), pkt, rpkt, cam, target,
+            rng.key_for(5), cfg, rcfg, spp=1),
+    }[step]
+    threads = torch.get_num_threads()
+    try:
+        torch.set_num_threads(1)
+        loss1, grads1 = run()
+        torch.set_num_threads(8)
+        loss8, grads8 = run()
+    finally:
+        torch.set_num_threads(threads)
+    assert torch.equal(loss1, loss8) and set(grads1) == set(grads8)
+    for k in grads1:
+        assert torch.equal(grads1[k], grads8[k]), k
 
 
 # ---- on the card -----------------------------------------------------------------------
@@ -305,11 +453,23 @@ def _card_sum(g, idx, n):
 @pytest.mark.parametrize("case", CASES, ids=[c[0] for c in CASES])
 def test_kernel_within_an_ulp_of_float64_and_equal_to_the_host_build(cuda, host, case):
     n, f, idx, g = _case(case, seed=21)
-    kind = tr.instantiation(n, f, build.load_library().ptre_take_rows_max_cells())
+    kind = tr.instantiation(n, f, idx.numel(), build.load_library().ptre_take_rows_max_cells())
     got = _card_sum(g, idx, n)
     _assert_within_an_ulp(got, _float64_sum(g, idx, n))
     if kind == "shared" or case[0].endswith(("perm_27", "perm_32")):
         assert torch.equal(got.cpu(), _host_sum(host, kind, g, idx, n))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CASES, ids=[c[0] for c in CASES])
+def test_kernel_pad_row_is_zero_and_the_rest_unchanged(cuda, case):
+    n, f, idx, g = _case(case, seed=23)
+    pad = _pad_of(idx)
+    got = tr.rows_backward(g.cuda(), idx.cuda(), n, pad)
+    want = _card_sum(g, idx, n)
+    assert bool((got[pad] == 0).all())
+    keep = torch.arange(n, device=cuda) != pad
+    assert torch.equal(got[keep], want[keep])
 
 
 @pytest.mark.cuda
@@ -410,9 +570,11 @@ def ulps_apart(a, b):
 
 
 def plain_gathers(monkeypatch):
-    """The six sites' `take_rows` as ``table[idx]``: the parent's gathers."""
+    """Every site's `take_rows` as ``table[idx]``, whose backward adds
+    float32 in sequence. A pad row is kept: the sites pad with a zero row
+    that is no leaf, so its cotangents reach nothing either way."""
     for mod in SITES:
-        monkeypatch.setattr(mod, "take_rows", lambda t, i: t[i.long()])
+        monkeypatch.setattr(mod, "take_rows", lambda t, i, pad_row=-1: t[i.long()])
 
 
 def config4_steps(dev, mesh, seed=3, W=1920, H=1080):
