@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Ablations of the hard raster kernel, the culled megakernel, the replay
-pair, the mask kernel and the material select on one GPU.
+pair, the mask kernel, the material select and the bounce kernel's sweep
+on one GPU.
 
-    python3 chip_ablations.py [raster_mega] [replay] [mask] [materials] [present] [culled_flips]
-                              [syncs [--root DIR]]
+    python3 chip_ablations.py [raster_mega] [replay] [mask] [materials] [bounce] [present]
+                              [culled_flips] [syncs [--root DIR]]
     (no argument: raster_mega and replay)
 
 Not a gate: ``chip_smoke.py`` holds the shipped kernels to their plain
@@ -85,6 +86,31 @@ opcode, cuobjdump). Then, on config 4 with
 in place against the variant "dynamic shared": every block stages the
 whole table (num_mats x 32 B) in dynamic shared memory; bounce kernel at
 bounces 1-4 and culled megakernel. Every output equal bit for bit.
+
+Bounce kernel ("bounce"): the wavefront's bounce kernel (`csrc/
+wave_kernel.cu`: the warp sweeps a leaf's passing rays one at a time, each
+lane's two rows loaded once a visit through L1/L2, the (t, row) minimum by a
+REDUX of order keys and two ballots, `wave.cuh sweep_leaf_warp`) at every
+bounce of one 1920x1080 sample of BASELINE config 4 (the screen-binned
+bounce 0 and the masked bounces 1-4, chip_smoke.py's `mask_states`) and at
+bounce 1 of the 65,024-row and 4,080-leaf meshes, both instantiations, with
+the counting instantiation's counters, against:
+  * "per lane, staged": the unit shipped before it (``csrc/baseline/
+    wave_lane/``: each passing ray sweeps the leaf on its own lane, rows
+    staged in shared memory by cp.async, a block barrier a leaf);
+  * "spread, staged": that unit with the warp sweep reading the staged rows
+    in place of the per-lane sweep;
+  * "fallback >= n" for n in 8, 16, 24: a (warp, leaf) visit that n or more
+    lanes pass swept per lane (each lane its own ray, the rows through
+    L1/L2) instead of by the warp;
+  * "rows a ray": the lane's rows loaded for every ray swept;
+  * "butterfly": the (t, row) minimum by five shuffle steps;
+  * "rows a ray, butterfly": both (the culled megakernel's sweep before);
+timed in turns (CUDA events), next states and selections bit for bit the
+shipped kernel's, with each build's registers, spills and shared memory
+(ptxas) and SASS instruction counts (`sass_counts`); and the culled
+megakernel (one recording sample of config 4) with the three sweep
+variants, colours and selections bit for bit.
 
 Culled megakernel flips ("culled_flips", no variant built): the four cases
 of the card test ``test_culled_megakernel_matches_plain_version`` (culling
@@ -177,13 +203,16 @@ SPREAD_CALL = """          const float* leaf_rows = rows + (int64_t)leaf * kLeaf
           }"""
 
 
-def variant(build, unit, tag, edits, flags=()):
+def variant(build, unit, tag, edits, flags=(), base=None):
     """Start nvcc on ``unit`` of a copy of csrc/ with ``edits`` made: (old,
     new) pairs, each old text present, to ``unit``, or {file: pairs} to the
-    files named (the unit or its headers)."""
+    files named (the unit or its headers). ``base``: a file of csrc/ copied
+    over ``unit`` first (a frozen unit built against the shipped headers)."""
     src = os.path.join(build.BUILD_DIR, f"{tag}_src.{os.getpid()}")
     shutil.rmtree(src, ignore_errors=True)
     shutil.copytree(build.CSRC_DIR, src, ignore=shutil.ignore_patterns("baseline"))
+    if base is not None:
+        shutil.copy(os.path.join(build.CSRC_DIR, base), os.path.join(src, unit))
     for name, pairs in (edits if isinstance(edits, dict) else {unit: edits}).items():
         path = os.path.join(src, name)
         with open(path) as f:
@@ -209,8 +238,8 @@ def main():
     print(card, flush=True)
     parts = args or ["raster_mega", "replay"]
     for part in parts:
-        cs.check(part in ("raster_mega", "replay", "mask", "materials", "culled_flips",
-                          "present", "syncs"), f"unknown part {part}")
+        cs.check(part in ("raster_mega", "replay", "mask", "materials", "bounce",
+                          "culled_flips", "present", "syncs"), f"unknown part {part}")
     if "raster_mega" in parts:
         raster_mega(dev, card)
     if "replay" in parts:
@@ -219,6 +248,8 @@ def main():
         mask(dev, card)
     if "materials" in parts:
         materials(dev, card)
+    if "bounce" in parts:
+        bounce(dev, card)
     if "present" in parts:
         present(dev, card)
     if "culled_flips" in parts:
@@ -570,6 +601,248 @@ def materials(dev, card):
     for label, lib in (("parent's unit", parent["wave_kernel.cu"]),
                        *((v, lib) for v, lib in wave_v.items())):
         sass_report(label, ship_sass, sass_counts(lib._name, "wave_bounce_kernel"))
+    cs.check(not unequal, "; ".join(unequal))
+
+
+# wave_kernel.cu: the warp sweep of a leaf's passing rays, and the per-lane
+# sweep of the "fallback >= n" variants (PER_LANE's function, inserted
+# before the kernel); the parent unit's per-lane sweep of staged rows, and
+# the warp sweep of those rows that replaces it in "spread, staged"
+BOUNCE_WARP_CALL = """      if (passed != 0) {
+        sweep_leaf_warp(rows + (int64_t)leaf * kLeafFloats, leaf, passed, r, p, best);
+      }"""
+BOUNCE_FALLBACK_CALL = """      const float* leaf_rows = rows + (int64_t)leaf * kLeafFloats;
+      if (passed != 0 && __popc(passed) < FALLBACK_MIN) {
+        sweep_leaf_warp(leaf_rows, leaf, passed, r, p, best);
+      } else if (passed >> (tid & 31) & 1u) {
+        sweep_leaf_lane(leaf_rows, leaf, r, p, best);
+      }"""
+KERNEL_HEAD = "\ntemplate <bool kRecord, bool kStats>\n__global__"
+LANE_STAGED_CALL = """    if (live && slab_pass_within(boxes + leaf * kBoxStride, r.o, iv, p.t_min, best.t)) {
+      sweep_leaf(s_rows[k & 1], leaf, r, p, best);
+    }"""
+SPREAD_STAGED_CALL = """    const unsigned passed = __ballot_sync(
+        kFullWarp, live && slab_pass_within(boxes + leaf * kBoxStride, r.o, iv, p.t_min, best.t));
+    if (passed != 0) sweep_leaf_warp(s_rows[k & 1], leaf, passed, r, p, best);"""
+GLOBAL_ROW_LOADS = "const float4 a = __ldg(q), b = __ldg(q + 1), c = __ldg(q + 2);"
+SHARED_ROW_LOADS = "const float4 a = q[0], b = q[1], c = q[2];"
+# wave.cuh sweep_leaf_warp's parts as shipped, and the variants' in their
+# place: the rows loaded for every ray instead of once a visit ("rows a
+# ray"), the (t, row) minimum by a butterfly of shuffles instead of a REDUX
+# of order keys and two ballots ("butterfly"), and both (the culled
+# megakernel's sweep before the bounce kernel took it)
+SWEEP_HOIST = """  const int lane = threadIdx.x & 31;
+  float rw[2][kRowStride];
+  for (int h = 0; h < 2; ++h) {
+    const float4* q = reinterpret_cast<const float4*>(rows + (lane + 32 * h) * kRowStride);
+    const float4 a = __ldg(q), b = __ldg(q + 1), c = __ldg(q + 2);
+    const float v[kRowStride] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w, c.x, c.y, c.z, c.w};
+    for (int i = 0; i < kRowStride; ++i) rw[h][i] = v[i];
+  }
+  for (unsigned m = passed; m != 0; m &= m - 1) {"""
+SWEEP_NO_HOIST = """  const int lane = threadIdx.x & 31;
+  for (unsigned m = passed; m != 0; m &= m - 1) {"""
+ROW_LOAD = """      const float4* q = reinterpret_cast<const float4*>(rows + (lane + 32 * h) * kRowStride);
+      const float4 a = __ldg(q), b = __ldg(q + 1), c = __ldg(q + 2);
+      const float rw_h[kRowStride] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w,
+                                      c.x, c.y, c.z, c.w};
+"""
+SWEEP_TESTS = """    for (int h = 0; h < 2; ++h) {
+      acc[h] = row_accepts(rw[h], o, d, p.t_min, p.t_max, p.det_eps, &t_row[h]);
+    }"""
+SWEEP_REDUX = """    float t_row[2];
+    bool acc[2];
+""" + SWEEP_TESTS + """
+    if (!__any_sync(kFullWarp, acc[0] || acc[1])) continue;
+    // a row that accepts nothing as +inf: the least key is an accepted row's
+    const float inf = __int_as_float(0x7f800000);
+    const float t_lane = fminf(acc[0] ? t_row[0] : inf, acc[1] ? t_row[1] : inf);
+    const unsigned k_min = __reduce_min_sync(kFullWarp, order_key(t_lane));
+    const unsigned lo = __ballot_sync(kFullWarp, acc[0] && order_key(t_row[0]) == k_min);
+    const unsigned hi = __ballot_sync(kFullWarp, acc[1] && order_key(t_row[1]) == k_min);
+    const int j_min = lo != 0 ? __ffs(lo) - 1 : 31 + __ffs(hi);
+    const float t_min = __shfl_sync(kFullWarp, j_min < 32 ? t_row[0] : t_row[1], j_min & 31);"""
+SWEEP_BUTTERFLY = """    float t_min = kBig;
+    int j_min = kLeaf;  // past every row: loses every tie
+    bool any = false;
+    for (int h = 0; h < 2; ++h) {
+      float t;
+      if (row_accepts(rw[h], o, d, p.t_min, p.t_max, p.det_eps, &t)) {
+        any = true;
+        if (t < t_min) {
+          t_min = t;
+          j_min = lane + 32 * h;
+        }
+      }
+    }
+    if (!__any_sync(kFullWarp, any)) continue;
+    for (int off = 16; off > 0; off >>= 1) {
+      const float t_o = __shfl_xor_sync(kFullWarp, t_min, off);
+      const int j_o = __shfl_xor_sync(kFullWarp, j_min, off);
+      if (t_o < t_min || (t_o == t_min && j_o < j_min)) {
+        t_min = t_o;
+        j_min = j_o;
+      }
+    }"""
+
+
+def _rows_a_ray(text):
+    """``text`` (a block of sweep_leaf_warp's ray loop) loading the lane's
+    rows in each iteration of its row loop."""
+    head = "    for (int h = 0; h < 2; ++h) {\n"
+    cs.check(head in text, "the row loop is not in the sweep")
+    return text.replace(head, head + ROW_LOAD, 1).replace("rw[h]", "rw_h")
+
+
+SWEEP_EDITS = {
+    "rows a ray": [(SWEEP_HOIST, SWEEP_NO_HOIST), (SWEEP_TESTS, _rows_a_ray(SWEEP_TESTS))],
+    "butterfly": [(SWEEP_REDUX, SWEEP_BUTTERFLY)],
+    "rows a ray, butterfly": [(SWEEP_HOIST, SWEEP_NO_HOIST),
+                              (SWEEP_REDUX, _rows_a_ray(SWEEP_BUTTERFLY))],
+}
+BOUNCE_FALLBACKS = (8, 16, 24)
+BOUNCE_MESHES = (("config 4", cs.TRI_CONFIGS[1]),
+                 ("65,024-row mesh", ("65,024-row mesh", cs.STAGED_SCENE, cs.W_MAIN, cs.H_MAIN)),
+                 ("4,080-leaf mesh", MASK_MESHES[1]))
+
+
+def bounce(dev, card):
+    """The bounce kernel's warp sweep against the parent's per-lane unit and
+    the variants above, every output bit for bit the shipped kernel's, timed
+    in turns at each bounce (config 4) or at bounce 1 (the two meshes past
+    the row cap); the culled megakernel with each sweep variant."""
+    import torch
+
+    from ptre_tpu_torch.ops.cuda import build
+    from ptre_tpu_torch.ops.cuda import megakernel as mk
+    from ptre_tpu_torch.ops.cuda import wavefront as wf
+
+    def fallback(n):
+        return [(BOUNCE_WARP_CALL, BOUNCE_FALLBACK_CALL.replace("FALLBACK_MIN", str(n))),
+                (KERNEL_HEAD, PER_LANE)]
+
+    def tag(label):
+        return "".join(c if c.isalnum() else "_" for c in label)
+
+    lane_base = os.path.join("baseline", "wave_lane", "wave_kernel.cu")
+    builds = {
+        "per lane, staged": cs.start_wave_lane_build(),
+        "spread, staged": variant(build, "wave_kernel.cu", "spreadstaged", {
+            "wave_kernel.cu": [(LANE_STAGED_CALL, SPREAD_STAGED_CALL)],
+            "wave.cuh": [(GLOBAL_ROW_LOADS, SHARED_ROW_LOADS)]}, base=lane_base),
+        **{f"fallback >= {n}": variant(build, "wave_kernel.cu", f"fallback{n}", fallback(n))
+           for n in BOUNCE_FALLBACKS},
+        **{label: variant(build, "wave_kernel.cu", tag(label), {"wave.cuh": edits})
+           for label, edits in SWEEP_EDITS.items()}}
+    mega_builds = {label: variant(build, "mega_kernel.cu", "mega_" + tag(label),
+                                  {"wave.cuh": edits}) for label, edits in SWEEP_EDITS.items()}
+    shipped = build.load_library()
+    if build.last_build is not None:
+        print("shipped: " + "; ".join(x for x in cs.ptxas_summary(build.last_build[1])
+                                      if "wave_bounce" in x or "mega" in x) + f" [{card}]",
+              flush=True)
+    fns = {"shipped": wf.wave_bounce}
+    libs = {"shipped": shipped}
+    for label, b in builds.items():
+        report = []
+        libs[label] = cs.finish_unit_build(b, report)
+        print(f"{label}: " + "; ".join(x for x in report if "wave_bounce" in x) + f" [{card}]",
+              flush=True)
+        fns[label] = cs.lib_wave_bounce(libs[label], wf)
+    for label, lib in libs.items():
+        for name, ops in sorted(sass_counts(lib._name, "wave_bounce_kernel").items()):
+            print(f"  SASS {label}: {name} {sum(ops.values())} instructions, "
+                  f"{ops.get('SHFL', 0)} SHFL, {ops.get('BAR', 0)} BAR, {ops.get('LDS', 0)} LDS, "
+                  f"{ops.get('LDG', 0)} LDG", flush=True)
+    mega_fns = {}
+    for label, b in mega_builds.items():
+        report = []
+        lib = cs.finish_unit_build(b, report)
+        print(f"culled megakernel, {label}: " + "; ".join(x for x in report if "mega" in x)
+              + f" [{card}]", flush=True)
+        lib.ptre_trace_culled.restype = ctypes.c_int
+        lib.ptre_trace_culled.argtypes = shipped.ptre_trace_culled.argtypes
+        mega_fns[label] = lib
+
+    unequal, sums = [], {}
+    for mesh, config in BOUNCE_MESHES:
+        _, _, scene, k, o, d, short0, states = cs.mask_states(dev, config, seed=0x27)
+        W, H = config[2], config[3]
+        R, B = W * H, 5
+        bounces = [(b, s, i, *wf.shortlists_from_mask(wf.wave_mask(
+            s, scene.boxes, k.t_min, supers=scene.mask_supers))) for b, s, i in states]
+        if mesh == "config 4":
+            s0, i0, _ = wf.primary_state(o, d, scene, (H, W))
+            bounces = [(0, s0, i0, *short0)] + bounces
+        else:
+            bounces = bounces[:1]
+        del states
+        sel = torch.full((B, R), -1, dtype=torch.int32, device=dev)
+        for b, state, ids, short, cnt in bounces:
+            stats = torch.zeros(len(wf.BOUNCE_STATS), dtype=torch.int64, device=dev)
+            wf.wave_bounce(state, ids, short, cnt, scene, k, b, 0x27, 1, stats=stats)
+            st = dict(zip(wf.BOUNCE_STATS, stats.tolist()))
+            print(f"  {mesh} bounce {b}: counts {st}; rays a warp visit "
+                  f"{st['own_pairs'] / max(st['warp_visits'], 1):.3f}, busy lane share of a "
+                  f"per-lane sweep {100 * st['own_pairs'] / max(st['lane_slots'], 1):.2f} %",
+                  flush=True)
+            for rec in (False, True):
+                def call(fn, state=state, ids=ids, short=short, cnt=cnt, b=b, rec=rec):
+                    return lambda: fn(state, ids, short, cnt, scene, k, b, 0x27, 1,
+                                      sel=sel if rec else None)
+
+                outs = {}
+                for label, fn in fns.items():
+                    sel.fill_(-1)
+                    outs[label] = (call(fn)(), sel.clone())
+                torch.cuda.synchronize()
+                diff = [label for label, (st, se) in outs.items()
+                        if not (torch.equal(st, outs["shipped"][0])
+                                and torch.equal(se, outs["shipped"][1]))]
+                if diff:
+                    unequal.append(f"{mesh} bounce {b} recording {rec}: {diff}")
+                what = f"{mesh} bounce {b}{' recording' if rec else ''}"
+                for _ in range(2):
+                    times = cs.in_turns({label: call(fn) for label, fn in fns.items()}, 10)
+                    print(f"  {what} ({int((state[9] > 0.5).sum())} live rays): " + ", ".join(
+                        f"{label} {ms:.4f} ms" for label, ms in times.items())
+                        + f" (CUDA events, in turns); differ from shipped: {diff} [{card}]",
+                        flush=True)
+                    for label, ms in times.items():
+                        key = (mesh, rec, label)
+                        sums[key] = sums.get(key, 0.0) + ms / 2
+        del bounces, sel
+        if mesh == "config 4":
+            def culled(lib=None):
+                def fn():
+                    load = build.load_library
+                    if lib is not None:
+                        build.load_library = lambda: lib
+                    try:
+                        return mk.trace_culled(o, d, scene, k, B, 0x27, 0, record=True)
+                    finally:
+                        build.load_library = load
+                return fn
+
+            cfns = {"shipped": culled(), **{v: culled(lib) for v, lib in mega_fns.items()}}
+            outs = {label: fn() for label, fn in cfns.items()}
+            torch.cuda.synchronize()
+            diff = [label for label, out in outs.items() if not all(
+                torch.equal(a, b) for a, b in zip(out, outs["shipped"]))]
+            if diff:
+                unequal.append(f"culled megakernel: {diff}")
+            for _ in range(2):
+                times = cs.in_turns(cfns, 5)
+                print(f"  culled megakernel, config 4, one recording sample: " + ", ".join(
+                    f"{label} {ms:.4f} ms" for label, ms in times.items())
+                    + f" (CUDA events, in turns); differ from shipped: {diff} [{card}]",
+                    flush=True)
+        del scene
+        torch.cuda.empty_cache()
+    for (mesh, rec, label), ms in sums.items():
+        base = sums[(mesh, rec, "shipped")]
+        print(f"  {mesh}{' recording' if rec else ''}, bounces summed: {label} {ms:.4f} ms "
+              f"({ms / base:.4f} of shipped) [{card}]", flush=True)
     cs.check(not unequal, "; ".join(unequal))
 
 

@@ -553,6 +553,9 @@ def main():
     first["mask_static"] = start_unit_build(
         "mask_kernel.cu", "mask_static", ("-I", build.CSRC_DIR),
         os.path.join(build.CSRC_DIR, "baseline", "mask_static"))
+    # the bounce unit as shipped before the warp sweep (csrc/baseline/
+    # wave_lane/): phases 10 and 24 hold the shipped unit to it and time both
+    first["wave_lane"] = start_wave_lane_build()
     t0 = time.perf_counter()
     build.load_library()
     build_s = time.perf_counter() - t0
@@ -776,9 +779,10 @@ def main():
     from ptre_tpu_torch.ops.cuda import wavefront
 
     static_mask = lean_wave_mask(first["mask_static"], wavefront, mk)
+    lane_bounce = lib_wave_bounce(first["wave_lane"], wavefront)
     kernels += wavefront_phases(dev, card, rs,
                                 baseline_wave_mask(first["mask_kernel.cu"], wavefront, mk),
-                                static_mask)
+                                static_mask, lane_bounce)
     from ptre_tpu_torch.ops.cuda import raster_kernel as rast
 
     kernels += raster_phases(dev, card, rs, baseline_raster_hard(first["raster_kernel.cu"], rast))
@@ -792,7 +796,7 @@ def main():
                              lib_replay_pair(first["replay_kernel.cu"], rpk, mk))
     engine_phase(dev, card)
     sharding_phase(dev, card)
-    kernels.append(past_cap_phase(dev, card, rs, static_mask))
+    kernels.append(past_cap_phase(dev, card, rs, static_mask, lane_bounce))
     materials_phase(dev, card, rs)
     remat_phase(dev, card)
     kernels.append(take_rows_phase(dev, card))
@@ -1362,13 +1366,14 @@ def mask_work(state, scene, mask, stats):
     return nbytes, (stats["supertile_tests"] + stats["leaf_tests"]) * OPS_SLAB
 
 
-def wavefront_phases(dev, card, rs, first_mask, static_mask):
+def wavefront_phases(dev, card, rs, first_mask, static_mask, lane_bounce):
     """Phases 9-11: the wavefront's mask and bounce kernels against their
     plain versions (the mask also against its first design, ``first_mask``,
     and the unit shipped before it took more than 1,024 leaves,
-    ``static_mask``, at every live bounce of a sample), then the
-    triangle-scale render path. Returns the two kernels' entries of the
-    ``kernels`` line."""
+    ``static_mask``, at every live bounce of a sample; the bounce kernel at
+    every bounce of that sample against the unit shipped before the warp
+    sweep, ``lane_bounce``), then the triangle-scale render path. Returns
+    the two kernels' entries of the ``kernels`` line."""
     import numpy as np
     import torch
 
@@ -1383,7 +1388,7 @@ def wavefront_phases(dev, card, rs, first_mask, static_mask):
     from ptre_tpu_torch.render import pathtracer as pt
 
     B = 5
-    setups, times = {}, {}
+    setups, times, lane_times = {}, {}, {}
     mask_err, bounce_err = 0.0, 0.0
     # the three units timed alike: through their C interfaces
     shipped_mask = lean_wave_mask(build.load_library(), wf, mk, shipped=True)
@@ -1447,6 +1452,16 @@ def wavefront_phases(dev, card, rs, first_mask, static_mask):
         share0 = float(short0[1].float().sum()) / (short0[1].numel() * scene.n_leaf)
         print(f"  screen binning at bounce 0 lists {100 * share0:.3f} % of (block, leaf) "
               "pairs", flush=True)
+        print(f"phase 10: bounce kernel vs the unit shipped before the warp sweep, {name} at "
+              f"{W}x{H}, every bounce of the sample, same states and shortlists", flush=True)
+        state0, ids0, _ = wf.primary_state(o, d, scene, (H, W))
+        bounces = [(0, state0, ids0, *short0)] + [
+            (b, state, ids, *wf.shortlists_from_mask(wf.wave_mask(
+                state, scene.boxes, k.t_min, supers=scene.mask_supers)))
+            for b, state, ids in states]
+        urand = torch.from_numpy(rs.random((2 + 2 * B, R), dtype=np.float32)).to(dev)
+        lane_times[name] = hold_wave_lane(name, scene, k, bounces, lane_bounce, urand, card)
+        del bounces, state0, urand
         mask_plain_ms = cuda_events(
             lambda: wf.wave_mask_reference(state1, scene.boxes, k.t_min), 1)
         got = mask1
@@ -1477,6 +1492,7 @@ def wavefront_phases(dev, card, rs, first_mask, static_mask):
             check(tight >= TIGHT_FRAC, f"{name} {mode}: only {tight:.6f} within {TIGHT}")
             check(int(flip.sum()) <= allowed, f"{name} {mode}: {int(flip.sum())} flipped")
             check(torch.equal(bk[:, dead], state1[:, dead]), f"{name} {mode}: dead rays changed")
+        hold_bounce_counts(f"{name} bounce 1", scene, k, 1, state1, ids1, short, cnt, pairs)
         bounce_ms = cuda_events(lambda: wf.wave_bounce(state1, ids1, short, cnt, scene, k, 1,
                                                        WAVE_SEED, 1), 10)
         bounce_plain_ms = cuda_events(lambda: wf.wave_bounce_reference(
@@ -1491,14 +1507,14 @@ def wavefront_phases(dev, card, rs, first_mask, static_mask):
         live = state1[9] > 0.5
         n_live = int(live.sum())
         r_pad = state1.shape[1]
-        print(f"  bounce 1's (live ray, leaf) pairs: {pairs['listed_pairs']} listed by the "
+        print(f"  bounce 1's (live ray, leaf) pairs: {pairs['listed_tests']} listed by the "
               f"blocks' shortlists, {pairs['own_pairs']} of them "
-              f"({100 * pairs['own_pairs'] / max(pairs['listed_pairs'], 1):.2f} %) whose box "
+              f"({100 * pairs['own_pairs'] / max(pairs['listed_tests'], 1):.2f} %) whose box "
               f"the ray itself passes, {n_live * scene.n_leaf} without culling", flush=True)
         work = {
             "mask": mask_work1,
             "bounce": (r_pad * (80 + 4) + short.numel() * 4 + cnt.numel() * 4,
-                       pairs["listed_pairs"] * OPS_SLAB
+                       pairs["listed_tests"] * OPS_SLAB
                        + pairs["own_pairs"] * wf.LEAF * OPS_TRI_TEST
                        + n_live * (int(pkt.num_spheres) * OPS_SPH_TEST + OPS_SHADE)),
         }
@@ -1618,6 +1634,7 @@ def wavefront_phases(dev, card, rs, first_mask, static_mask):
         "max_abs_err": bounce_err,
         "ms": bounce_ms,
         "plain_ms": bounce_plain_ms,
+        "parent_unit_ms": lane_times["config 4"][1]["parent's unit"],
     }, *work["bounce"])]
 
 
@@ -1876,10 +1893,10 @@ def triangle_training_phases(dev, card, rs, fma_bwd, first_bwd, first_culled, de
         live = state1[9] > 0.5
         n_live = int(live.sum())
         r_pad = state1.shape[1]
-        print(f"  bounce 1's (live ray, leaf) pairs: {pairs['listed_pairs']} listed, "
+        print(f"  bounce 1's (live ray, leaf) pairs: {pairs['listed_tests']} listed, "
               f"{pairs['own_pairs']} whose box the ray itself passes", flush=True)
         rec_work = (r_pad * (80 + 4) + short.numel() * 4 + cnt.numel() * 4 + n_live * 4,
-                    pairs["listed_pairs"] * OPS_SLAB + pairs["own_pairs"] * wf.LEAF * OPS_TRI_TEST
+                    pairs["listed_tests"] * OPS_SLAB + pairs["own_pairs"] * wf.LEAF * OPS_TRI_TEST
                     + n_live * (int(pkt.num_spheres) * OPS_SPH_TEST + OPS_SHADE))
         rec_times = (b_rec_ms, b_plain_ms)
         del state0, state1, got, same, want, sel_k, sel_r, err
@@ -2337,6 +2354,120 @@ def lean_wave_mask(lib, wf, mk, shipped=False):
         return mask
 
     return fn
+
+
+def start_wave_lane_build():
+    """`start_unit_build` of the bounce unit as shipped before the warp sweep
+    (``csrc/baseline/wave_lane/``, each passing ray swept on its own lane
+    from rows staged in shared memory), against the shipped headers."""
+    from ptre_tpu_torch.ops.cuda import build
+
+    return start_unit_build("wave_kernel.cu", "wave_lane", ("-I", build.CSRC_DIR),
+                            os.path.join(build.CSRC_DIR, "baseline", "wave_lane"))
+
+
+def lib_wave_bounce(lib, wf):
+    """`wave_bounce` launching another build of the bounce unit from ``lib``
+    (the parent's, `start_wave_lane_build`, or a variant), both
+    instantiations, through the shipped C interface; it counts nothing and
+    takes no ``stats``."""
+    import ctypes
+
+    shipped = wf.build.load_library()
+    lib.ptre_wave_bounce.restype = ctypes.c_int
+    lib.ptre_wave_bounce.argtypes = shipped.ptre_wave_bounce.argtypes
+
+    def fn(*args, **kw):
+        check(kw.get("stats") is None, "another bounce unit counts nothing")
+        load, count = wf.build.load_library, wf.bounce_launches
+        wf.build.load_library = lambda: lib
+        try:
+            return wf.wave_bounce(*args, **kw)
+        finally:
+            wf.build.load_library, wf.bounce_launches = load, count
+
+    return fn
+
+
+#: relative gap allowed between the counting bounce kernel's ray_bounces and
+#: own_pairs and the plain version's: the unit contracts a*b+c in the row
+#: tests, so a closest hit may sit an ulp from the plain version's and a box
+#: test bounded by it go the other way
+COUNT_REL = 1e-3
+#: labels of `hold_wave_lane`'s timings
+LANE_TURNS = ("shipped", "parent's unit", "shipped recording", "parent's recording")
+
+
+def hold_wave_lane(what, scene, k, bounces, lane_bounce, urand, card, reps=10):
+    """The shipped bounce kernel against the unit shipped before the warp
+    sweep (``lane_bounce``, `lib_wave_bounce`) at each bounce of ``bounces``
+    ([(bounce, state, ids, short, cnt)], seed WAVE_SEED, sample 1): next
+    states and selections bit-equal, with Philox and the external
+    ``urand``, recording and not; both instantiations of both timed in
+    turns (CUDA events, Philox). Returns {bounce: {label: ms}}."""
+    import torch
+
+    from ptre_tpu_torch.ops.cuda import wavefront as wf
+
+    B, R = (urand.shape[0] - 2) // 2, urand.shape[1]
+    out = {}
+    for b, state, ids, short, cnt in bounces:
+        for ur in (None, urand):
+            sels = [torch.full((B, R), -1, dtype=torch.int32, device=state.device)
+                    for _ in range(2)]
+            got = [fn(state, ids, short, cnt, scene, k, b, WAVE_SEED, 1, ur, sel=sel)
+                   for fn, sel in ((wf.wave_bounce, sels[0]), (lane_bounce, sels[1]))]
+            plain = [fn(state, ids, short, cnt, scene, k, b, WAVE_SEED, 1, ur)
+                     for fn in (wf.wave_bounce, lane_bounce)]
+            torch.cuda.synchronize()
+            check(torch.equal(got[0], got[1]) and torch.equal(sels[0], sels[1])
+                  and torch.equal(plain[0], got[0]) and torch.equal(plain[1], got[1]),
+                  f"{what} bounce {b} ({'external' if ur is not None else 'Philox'}): the "
+                  "state or selections differ from the parent unit's")
+        sel = torch.full((B, R), -1, dtype=torch.int32, device=state.device)
+
+        def call(fn, rec, state=state, ids=ids, short=short, cnt=cnt, b=b):
+            return lambda: fn(state, ids, short, cnt, scene, k, b, WAVE_SEED, 1,
+                              sel=sel if rec else None)
+
+        out[b] = in_turns(dict(zip(LANE_TURNS, (
+            call(wf.wave_bounce, False), call(lane_bounce, False),
+            call(wf.wave_bounce, True), call(lane_bounce, True)))), reps)
+        print(f"  {what} bounce {b} ({int((state[9] > 0.5).sum())} live rays, "
+              f"{float(cnt.float().mean()):.1f} leaves a block listed): states and selections "
+              "bit-equal to the parent unit's (Philox and external, recording and not); in "
+              "turns: " + ", ".join(f"{label} {ms:.4f} ms" for label, ms in out[b].items())
+              + f" [{card}]", flush=True)
+    total = [sum(t[label] for t in out.values()) for label in LANE_TURNS]
+    print(f"  {what} bounces {min(out)}-{max(out)} summed: " + ", ".join(
+        f"{label} {ms:.4f} ms" for label, ms in zip(LANE_TURNS, total))
+        + f"; shipped / parent's unit {total[0] / total[1]:.4f}, recording "
+        f"{total[2] / total[3]:.4f} [{card}]", flush=True)
+    return out
+
+
+def hold_bounce_counts(what, scene, k, b, state, ids, short, cnt, pairs):
+    """The counting instantiation at bounce ``b``: the same next state as
+    the shipped one, and its ``ray_bounces`` and ``own_pairs`` within
+    COUNT_REL of the plain version's (``pairs``, `wave_bounce_reference`'s
+    ``stats``). Returns its counters."""
+    import torch
+
+    from ptre_tpu_torch.ops.cuda import wavefront as wf
+
+    stats = torch.zeros(len(wf.BOUNCE_STATS), dtype=torch.int64, device=state.device)
+    counted = wf.wave_bounce(state, ids, short, cnt, scene, k, b, WAVE_SEED, 1, stats=stats)
+    check(torch.equal(counted, wf.wave_bounce(state, ids, short, cnt, scene, k, b, WAVE_SEED,
+                                              1)),
+          f"{what}: the counting instantiation's state differs")
+    st = dict(zip(wf.BOUNCE_STATS, stats.tolist()))
+    for key in ("ray_bounces", "own_pairs"):
+        check(abs(st[key] - pairs[key]) <= COUNT_REL * pairs[key],
+              f"{what}: {key} {st[key]} against the plain version's {pairs[key]}")
+    print(f"  {what}: counting instantiation {st} (plain version {pairs}); rays a warp visit "
+          f"{st['own_pairs'] / max(st['warp_visits'], 1):.2f}, lane occupancy of a per-lane "
+          f"sweep {100 * st['own_pairs'] / max(st['lane_slots'], 1):.2f} %", flush=True)
+    return st
 
 
 @functools.lru_cache(maxsize=None)
@@ -2912,12 +3043,13 @@ PACK_PERM_FRAC = 1e-3
 PACK_REL = 1e-5
 
 
-def past_cap_phase(dev, card, rs, static_mask):
+def past_cap_phase(dev, card, rs, static_mask, lane_bounce):
     """Phase 24: the default route on meshes past the reference's 49,152-row
     cap, every stage held against its plain version, the mask's global
     instantiation against the plain version with its counted bound, the
     staged instantiation in turns with the parent's unit (``static_mask``),
-    and the before/after table: the forced staged route against the default
+    bounce 1 of the bounce kernel in turns with the unit shipped before the
+    warp sweep (``lane_bounce``), and the before/after table: the forced staged route against the default
     route and force="culled" at 1920x1080, spp 1, in turns. Returns the
     global instantiation's entry of the ``kernels`` line."""
     import numpy as np
@@ -3074,19 +3206,17 @@ def past_cap_phase(dev, card, rs, static_mask):
         print(f"  bounce 1: bounce kernel against plain max_abs_err {float(err[:, ~flip].max()):.3e}"
               f" outside {int(flip.sum())} flipped rays, {100 * tight:.4f} % within {TIGHT:g}; "
               f"recording state bit-equal, {int(other.sum())} other winners outside flipped "
-              f"rays (allowed {math.ceil(FLIP_FRAC * R)}); (live ray, leaf) pairs {pairs['listed_pairs']} listed, "
+              f"rays (allowed {math.ceil(FLIP_FRAC * R)}); (live ray, leaf) pairs {pairs['listed_tests']} listed, "
               f"{pairs['own_pairs']} whose box the ray passes", flush=True)
         check(torch.equal(bk, bk_rec), f"{name}: the recording bounce kernel's state differs")
         allowed = math.ceil(FLIP_FRAC * R)
         check(tight >= TIGHT_FRAC and int(flip.sum()) <= allowed and int(other.sum()) <= allowed,
               f"{name}: the bounce kernel disagrees with its plain version")
-        wave_ms = in_turns({"bounce": lambda: wf.wave_bounce(state1, ids1, short, cnt, scene, k,
-                                                             1, seed, 1),
-                            "recording": lambda: wf.wave_bounce(state1, ids1, short, cnt, scene,
-                                                                k, 1, seed, 1, sel=sel_k)}, 5)
-        print(f"  bounce 1: wave kernel {wave_ms['bounce']:.4f} ms, recording "
-              f"{wave_ms['recording']:.4f} ms (CUDA events, in turns) [{card}]", flush=True)
-        del state, state1, bk, bk_rec, bp, sel_k, sel_r, err, short, cnt, bounce1
+        hold_bounce_counts(f"{name} bounce 1", scene, k, 1, state1, ids1, short, cnt, pairs)
+        urand = torch.from_numpy(rs.random((2 + 2 * B, R), dtype=np.float32)).to(dev)
+        hold_wave_lane(name, scene, k, [(1, state1, ids1, short, cnt)], lane_bounce, urand, card,
+                       reps=5)
+        del state, state1, bk, bk_rec, bp, sel_k, sel_r, err, short, cnt, bounce1, urand
 
         # the whole trace on PAST_CAP_ROWS rows, kernels against plain versions
         t0 = time.perf_counter()

@@ -1,10 +1,10 @@
 // Host build of the wavefront kernels' and the culled megakernel's per-ray
 // bodies, for checks on machines without a GPU: the same slab_pass,
-// super_union, slab_pass_within, sweep_leaf and finish_bounce_at (wave.cuh,
+// super_union, slab_pass_within, row_accepts and finish_bounce_at (wave.cuh,
 // trace.cuh, philox.cuh) that mask_kernel.cu, wave_kernel.cu and
 // mega_kernel.cu run per thread, looped over the ray blocks or warps on the
-// CPU, a warp's votes taken by a loop over its rays. The sweeps read each
-// leaf's compact rows straight from the table instead of staging them.
+// CPU, a warp's votes taken by a loop over its rays, the warp's sweep of a
+// leaf (wave.cuh sweep_leaf_warp) by its twin below.
 //
 //   g++ -std=c++17 -O2 -shared -fPIC -o libptre_host_wave.so host_wave.cpp
 //
@@ -13,6 +13,9 @@
 // megakernel's first design (csrc/baseline/raster_mega/).
 
 #include <algorithm>
+#include <cmath>
+#include <cstring>
+#include <limits>
 #include <vector>
 
 #include "wave.cuh"
@@ -77,6 +80,67 @@ extern "C" void ptre_wave_mask_host(const ptre::MaskParams* params,
   }
 }
 
+namespace {
+
+// wave.cuh order_key: a float's order as an unsigned, -0.0 taken as +0.0.
+unsigned order_key(float t) {
+  t += 0.0f;
+  unsigned u;
+  std::memcpy(&u, &t, sizeof(u));
+  return (u & 0x80000000u) != 0 ? ~u : (u | 0x80000000u);
+}
+
+// wave.cuh sweep_leaf_warp, which the bounce kernel and the culled
+// megakernel run: for each lane of `passed` in ascending order, its ray
+// against the leaf's 64 rows, row j on lane j % 32; the least order key of
+// the lanes' accepted t (the REDUX), then the lowest row that has it, among
+// the first rows and then the second (the two ballots), merged into the
+// ray's best with strict t < best.
+void sweep_leaf_warp(const float* rows, int leaf, const bool* passed, int m,
+                     const ptre::WaveRay* rays, const ptre::WaveParams& wp,
+                     ptre::TriBest* best) {
+  const float* leaf_rows = rows + (int64_t)leaf * ptre::kLeaf * ptre::kRowStride;
+  const float inf = std::numeric_limits<float>::infinity();
+  for (int src = 0; src < m; ++src) {
+    if (!passed[src]) continue;
+    float t_row[2][32];
+    bool acc[2][32];
+    bool any = false;
+    unsigned k_min = ~0u;
+    for (int lane = 0; lane < 32; ++lane) {
+      for (int h = 0; h < 2; ++h) {
+        acc[h][lane] = ptre::row_accepts(leaf_rows + (lane + 32 * h) * ptre::kRowStride,
+                                         rays[src].o, rays[src].d, wp.t_min, wp.t_max,
+                                         wp.det_eps, &t_row[h][lane]);
+        any = any || acc[h][lane];
+      }
+      const float t_lane = std::fmin(acc[0][lane] ? t_row[0][lane] : inf,
+                                     acc[1][lane] ? t_row[1][lane] : inf);
+      k_min = std::min(k_min, order_key(t_lane));
+    }
+    if (!any) continue;
+    int j_min = -1;
+    for (int j = 0; j < ptre::kLeaf && j_min < 0; ++j) {
+      if (acc[j / 32][j % 32] && order_key(t_row[j / 32][j % 32]) == k_min) j_min = j;
+    }
+    const float t_min = t_row[j_min / 32][j_min % 32];
+    best[src].hit = true;
+    if (t_min < best[src].t) {
+      best[src].t = t_min;
+      best[src].idx = leaf * ptre::kLeaf + j_min;
+    }
+  }
+}
+
+}  // namespace
+
+// wave_kernel.cu's block over every block of `lanes` rays, warp by warp of
+// 32 columns, lanes in the kernel's order: a warp with a live lane walks the
+// block's shortlist; for each listed leaf every live lane tests the leaf's
+// box against its own ray, bounded by its closest hit so far, and the rays
+// of the lanes that pass are swept by the warp (sweep_leaf_warp); then each
+// live lane's finish. `sel` (max_depth, n_sel) int32 or null; `stats` null
+// or 5 counters that the call adds wavefront.BOUNCE_STATS to.
 extern "C" void ptre_wave_bounce_host(const ptre::WaveParams* params,
                                       const float* state, const int32_t* ids,
                                       const int32_t* shortlist,
@@ -84,92 +148,61 @@ extern "C" void ptre_wave_bounce_host(const ptre::WaveParams* params,
                                       const float* rows, const float* boxes,
                                       const float* sphs, const float* mats,
                                       const float* sky, const float* urand,
-                                      float* out, int32_t* sel, int lanes) {
+                                      float* out, int32_t* sel, long long* stats,
+                                      int lanes) {
   const ptre::WaveParams& p = *params;
   const ptre::SceneTables sc = {tris, sphs, mats, sky, 0, p.n_sph, p.num_mats};
-  for (int64_t col = 0; col < p.r_pad; ++col) {
-    const int64_t b = col / lanes;
-    ptre::WaveRay r = ptre::load_ray(state, col, p.r_pad);
-    if (r.act > 0.5f) {
-      ptre::TriBest best = {ptre::kBig, 0, false};
-      const float iv[3] = {ptre::slab_inv(r.d[0]), ptre::slab_inv(r.d[1]),
-                           ptre::slab_inv(r.d[2])};
-      for (int k = 0; k < counts[b]; ++k) {
+  ptre::WaveRay rays[32];
+  ptre::TriBest best[32];
+  float iv[32][3];
+  for (int64_t w0 = 0; w0 < p.r_pad; w0 += 32) {
+    const int64_t b = w0 / lanes;
+    int n_live = 0;
+    for (int i = 0; i < 32; ++i) {
+      rays[i] = ptre::load_ray(state, w0 + i, p.r_pad);
+      best[i] = {ptre::kBig, 0, false};
+      for (int k = 0; k < 3; ++k) iv[i][k] = ptre::slab_inv(rays[i].d[k]);
+      n_live += rays[i].act > 0.5f;
+    }
+    if (n_live > 0) {
+      const int n = counts[b];
+      long long n_own = 0, n_visits = 0;
+      for (int k = 0; k < n; ++k) {
         const int leaf = shortlist[b * p.list_stride + k];
-        // the ray's own cull, bounded by its closest hit so far
-        if (!ptre::slab_pass_within(boxes + leaf * ptre::kBoxStride, r.o, iv, p.t_min,
-                                    best.t)) {
-          continue;
+        bool own[32];
+        int n_pass = 0;
+        for (int i = 0; i < 32; ++i) {
+          own[i] = rays[i].act > 0.5f &&
+                   ptre::slab_pass_within(boxes + leaf * ptre::kBoxStride, rays[i].o, iv[i],
+                                          p.t_min, best[i].t);
+          n_pass += own[i];
         }
-        ptre::sweep_leaf(rows + (int64_t)leaf * ptre::kLeaf * ptre::kRowStride, leaf, r,
-                         p, best);
+        n_own += n_pass;
+        n_visits += n_pass > 0;
+        sweep_leaf_warp(rows, leaf, own, 32, rays, p, best);
       }
-      if (sel != nullptr) {
-        const ptre::WinnerWriter rec = {ptre::sel_slot(sel, p, p.bounce, ids[col])};
-        ptre::finish_bounce_at(p, sc, best, ids[col], urand, rec, r);
-      } else {
-        ptre::finish_bounce_at(p, sc, best, ids[col], urand, ptre::NoWinner(), r);
+      if (stats != nullptr) {
+        stats[0] += n_live;
+        stats[1] += (long long)n_live * n;
+        stats[2] += n_own;
+        stats[3] += n_visits;
+        stats[4] += n_live * n_visits;
       }
     }
-    ptre::store_ray(out, col, p.r_pad, r);
-  }
-}
-
-namespace {
-
-// mega_kernel.cu sweep_leaf_warp: for each lane of `passed` in ascending
-// order, its ray against the leaf's 64 rows, the rows split between the 32
-// lanes (row j on lane j % 32), each lane's strict t < best over its two rows,
-// the lanes' (t, row) minimum by the kernel's butterfly, then merged into the
-// ray's best with strict t < best.
-void sweep_leaf_warp(const float* rows, int leaf, const bool* passed, int m,
-                     const ptre::WaveRay* rays, const ptre::WaveParams& wp,
-                     ptre::TriBest* best) {
-  const float* leaf_rows = rows + (int64_t)leaf * ptre::kLeaf * ptre::kRowStride;
-  for (int src = 0; src < m; ++src) {
-    if (!passed[src]) continue;
-    float t_min[32];
-    int j_min[32];
-    bool any = false;
-    for (int lane = 0; lane < 32; ++lane) {
-      t_min[lane] = ptre::kBig;
-      j_min[lane] = ptre::kLeaf;
-      for (int j = lane; j < ptre::kLeaf; j += 32) {
-        float t;
-        if (ptre::row_accepts(leaf_rows + j * ptre::kRowStride, rays[src].o, rays[src].d,
-                              wp.t_min, wp.t_max, wp.det_eps, &t)) {
-          any = true;
-          if (t < t_min[lane]) {
-            t_min[lane] = t;
-            j_min[lane] = j;
-          }
+    for (int i = 0; i < 32; ++i) {
+      const int64_t col = w0 + i;
+      if (rays[i].act > 0.5f) {
+        if (sel != nullptr) {
+          const ptre::WinnerWriter rec = {ptre::sel_slot(sel, p, p.bounce, ids[col])};
+          ptre::finish_bounce_at(p, sc, best[i], ids[col], urand, rec, rays[i]);
+        } else {
+          ptre::finish_bounce_at(p, sc, best[i], ids[col], urand, ptre::NoWinner(), rays[i]);
         }
       }
-    }
-    if (!any) continue;
-    for (int off = 16; off > 0; off >>= 1) {  // __shfl_xor_sync, all lanes at once
-      float t_o[32];
-      int j_o[32];
-      for (int lane = 0; lane < 32; ++lane) {
-        t_o[lane] = t_min[lane ^ off];
-        j_o[lane] = j_min[lane ^ off];
-      }
-      for (int lane = 0; lane < 32; ++lane) {
-        if (t_o[lane] < t_min[lane] || (t_o[lane] == t_min[lane] && j_o[lane] < j_min[lane])) {
-          t_min[lane] = t_o[lane];
-          j_min[lane] = j_o[lane];
-        }
-      }
-    }
-    best[src].hit = true;
-    if (t_min[src] < best[src].t) {
-      best[src].t = t_min[src];
-      best[src].idx = leaf * ptre::kLeaf + j_min[src];
+      ptre::store_ray(out, col, p.r_pad, rays[i]);
     }
   }
 }
-
-}  // namespace
 
 // mega_kernel.cu's warp over every warp of 32 rays, lanes in the kernel's
 // order: per bounce the warp's walk — a supertile that no live lane passes

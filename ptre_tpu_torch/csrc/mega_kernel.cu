@@ -14,12 +14,13 @@
 // (__any_sync). In a supertile that some lane passes, every live lane tests
 // each leaf's box the same way, and a ballot lists the lanes whose own ray
 // passes it: only those rays are tested against the leaf's 64 rows. The
-// warp tests them one ray at a time, two rows a lane, and a shuffle
-// reduction takes the lexicographic (t, row) minimum (sweep_leaf_warp: the
-// result of wave.cuh sweep_leaf, strict t < best over ascending Morton rows,
-// so ties go to the lowest row within a leaf and across the walk). A leaf
-// that no lane passes costs the warp one box test. The compact rows (48 B,
-// three 16-byte loads each) are read through L1/L2, not staged. Then, per
+// warp tests them one ray at a time, two rows a lane, and takes the
+// lexicographic (t, row) minimum (wave.cuh sweep_leaf_warp, which the
+// wavefront's bounce kernel runs too: the result of sweep_leaf, strict t <
+// best over ascending Morton rows, so ties go to the lowest row within a
+// leaf and across the walk). A leaf that no lane passes costs the warp one
+// box test. The compact rows (48 B, three 16-byte loads each) are read
+// through L1/L2, not staged, each lane's two once a visit. Then, per
 // lane, wave.cuh finish_bounce: spheres bounded by the best triangle, the
 // winner's row read by index from global memory, its attributes re-derived,
 // shading, the next ray. A warp stops at the first bounce none of its lanes
@@ -64,68 +65,8 @@
 
 namespace ptre {
 
-constexpr unsigned kMegaFull = 0xffffffffu;
-constexpr int kLeafFloats = kLeaf * kRowStride;  // 768 floats, 3 KB
-
 // The counters of the stats instantiation (megakernel.CULLED_STATS), in order.
 enum : int { kRayBounces, kSuperTests, kLeafTests, kPairsPassed, kPairsVisited };
-
-// The 64 rows of one leaf (compact rows in global memory, three 16-byte
-// loads each through the read-only path) against the ray of every lane of
-// `passed`, in ascending lane order: the warp tests one such ray at a time,
-// two rows a lane (rows lane and lane + 32, wave.cuh row_accepts), and a
-// shuffle reduction takes the lexicographic (t, row) minimum of the rows that
-// accept, which the ray's lane merges into its best with strict t < best.
-// That is sweep_leaf's result: strict t < best over ascending rows keeps the
-// smallest t at its lowest row, and a tie with an earlier leaf keeps the
-// earlier (lower) row. Every lane of the warp calls it with the same `passed`.
-__device__ __forceinline__ void sweep_leaf_warp(const float* rows, int leaf, unsigned passed,
-                                                const WaveRay& r, const WaveParams& p,
-                                                TriBest& best) {
-  const int lane = threadIdx.x & 31;
-  for (unsigned m = passed; m != 0; m &= m - 1) {
-    const int src = __ffs(m) - 1;
-    float o[3], d[3];
-    for (int k = 0; k < 3; ++k) {
-      o[k] = __shfl_sync(kMegaFull, r.o[k], src);
-      d[k] = __shfl_sync(kMegaFull, r.d[k], src);
-    }
-    float t_min = kBig;
-    int j_min = kLeaf;  // past every row: loses every tie
-    bool any = false;
-    for (int h = 0; h < 2; ++h) {
-      const int j = lane + 32 * h;
-      const float4* q = reinterpret_cast<const float4*>(rows + j * kRowStride);
-      const float4 a = __ldg(q), b = __ldg(q + 1), c = __ldg(q + 2);
-      const float row[kRowStride] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w,
-                                     c.x, c.y, c.z, c.w};
-      float t;
-      if (row_accepts(row, o, d, p.t_min, p.t_max, p.det_eps, &t)) {
-        any = true;
-        if (t < t_min) {
-          t_min = t;
-          j_min = j;
-        }
-      }
-    }
-    if (!__any_sync(kMegaFull, any)) continue;
-    for (int off = 16; off > 0; off >>= 1) {
-      const float t_o = __shfl_xor_sync(kMegaFull, t_min, off);
-      const int j_o = __shfl_xor_sync(kMegaFull, j_min, off);
-      if (t_o < t_min || (t_o == t_min && j_o < j_min)) {
-        t_min = t_o;
-        j_min = j_o;
-      }
-    }
-    if (lane == src) {
-      best.hit = true;
-      if (t_min < best.t) {
-        best.t = t_min;
-        best.idx = leaf * kLeaf + j_min;
-      }
-    }
-  }
-}
 
 template <bool kRecord, bool kStats>
 __global__ void __launch_bounds__(kMaxLanes)
@@ -161,7 +102,7 @@ __global__ void __launch_bounds__(kMaxLanes)
   // bounds and the votes' results are uniform over the warp
   for (; bounce < p.max_depth; ++bounce) {
     const bool live = r.act > 0.5f;
-    const unsigned live_lanes = __ballot_sync(kMegaFull, live);
+    const unsigned live_lanes = __ballot_sync(kFullWarp, live);
     if (live_lanes == 0) break;  // no ray of the warp goes on
     const int n_live = __popc(live_lanes);
     wp.bounce = bounce;
@@ -171,14 +112,14 @@ __global__ void __launch_bounds__(kMaxLanes)
       const float iv[3] = {slab_inv(r.d[0]), slab_inv(r.d[1]), slab_inv(r.d[2])};
       for (int js = 0; js < p.n_super; ++js) {
         if (kStats) n_super += n_live;
-        if (!__any_sync(kMegaFull, live && slab_pass_within(boxes2 + js * kBoxStride, r.o, iv,
+        if (!__any_sync(kFullWarp, live && slab_pass_within(boxes2 + js * kBoxStride, r.o, iv,
                                                             wp.t_min, best.t))) {
           continue;
         }
         const int end = min((js + 1) * kSuper, wp.n_leaf);
         for (int leaf = js * kSuper; leaf < end; ++leaf) {
           const unsigned passed = __ballot_sync(
-              kMegaFull,
+              kFullWarp,
               live && slab_pass_within(boxes + leaf * kBoxStride, r.o, iv, wp.t_min, best.t));
           if (kStats) {
             n_leaf += n_live;

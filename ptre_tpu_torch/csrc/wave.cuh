@@ -1,6 +1,8 @@
 // Per-ray bodies of the wavefront path and of the culled megakernel, shared
 // by the CUDA mask, bounce and culled kernels (mask_kernel.cu,
-// wave_kernel.cu, mega_kernel.cu) and their host build (host_wave.cpp).
+// wave_kernel.cu, mega_kernel.cu) and their host build (host_wave.cpp), and
+// the warp's leaf sweep that the bounce and culled kernels both run
+// (sweep_leaf_warp, CUDA only; host_wave.cpp keeps its g++ twin).
 //
 // These are the one-ray forms of ptre_tpu/ops/pallas/wavefront.py
 // _mask_kernel (:102) and _wave_kernel (:209), and of the sweep and finish
@@ -38,6 +40,7 @@ constexpr int kSuper = 8;       // leaves per supertile: the culled sweep's seco
 // three 16-byte loads. e1 and e2 are rounded once on the host, as one float32
 // subtraction rounds them in a kernel.
 constexpr int kRowStride = 12;
+constexpr int kLeafFloats = kLeaf * kRowStride;  // a leaf's compact rows: 768 floats, 3 KB
 
 // Arguments of the mask kernel, passed by value. Mirrored field for field by
 // MaskParams in ops/cuda/wavefront.py (every field 4 bytes).
@@ -182,6 +185,72 @@ PTRE_HD void sweep_leaf(const float* rows, int leaf, const WaveRay& r,
     }
   }
 }
+
+#ifdef __CUDACC__
+constexpr unsigned kFullWarp = 0xffffffffu;
+
+// A float's order as an unsigned, -0.0 taken as +0.0: for floats a, b that
+// are not NaN, a < b iff order_key(a) < order_key(b), a == b iff the keys
+// are equal.
+__device__ __forceinline__ unsigned order_key(float t) {
+  const unsigned u = __float_as_uint(t + 0.0f);
+  return (u & 0x80000000u) != 0 ? ~u : (u | 0x80000000u);
+}
+
+// The 64 rows of one leaf (compact rows in global memory, 16-byte aligned)
+// against the ray of every lane of `passed`, in ascending lane order. Each
+// lane loads rows lane and lane + 32 once, three 16-byte loads each through
+// the read-only path; the warp then tests one passing ray at a time, two
+// rows a lane (row_accepts), and takes the lexicographic (t, row) minimum of
+// the rows that accept: the least t by a REDUX of order keys, then the
+// lowest row that has it by two ballots (the first rows, then the second).
+// The ray's lane merges it into its best with strict t < best. That is
+// sweep_leaf's result: strict t < best over ascending rows keeps the
+// smallest t at its lowest row, and a tie with an earlier leaf keeps the
+// earlier (lower) row. Every lane of the warp calls it with the same
+// `passed`.
+__device__ __forceinline__ void sweep_leaf_warp(const float* rows, int leaf, unsigned passed,
+                                                const WaveRay& r, const WaveParams& p,
+                                                TriBest& best) {
+  const int lane = threadIdx.x & 31;
+  float rw[2][kRowStride];
+  for (int h = 0; h < 2; ++h) {
+    const float4* q = reinterpret_cast<const float4*>(rows + (lane + 32 * h) * kRowStride);
+    const float4 a = __ldg(q), b = __ldg(q + 1), c = __ldg(q + 2);
+    const float v[kRowStride] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w, c.x, c.y, c.z, c.w};
+    for (int i = 0; i < kRowStride; ++i) rw[h][i] = v[i];
+  }
+  for (unsigned m = passed; m != 0; m &= m - 1) {
+    const int src = __ffs(m) - 1;
+    float o[3], d[3];
+    for (int k = 0; k < 3; ++k) {
+      o[k] = __shfl_sync(kFullWarp, r.o[k], src);
+      d[k] = __shfl_sync(kFullWarp, r.d[k], src);
+    }
+    float t_row[2];
+    bool acc[2];
+    for (int h = 0; h < 2; ++h) {
+      acc[h] = row_accepts(rw[h], o, d, p.t_min, p.t_max, p.det_eps, &t_row[h]);
+    }
+    if (!__any_sync(kFullWarp, acc[0] || acc[1])) continue;
+    // a row that accepts nothing as +inf: the least key is an accepted row's
+    const float inf = __int_as_float(0x7f800000);
+    const float t_lane = fminf(acc[0] ? t_row[0] : inf, acc[1] ? t_row[1] : inf);
+    const unsigned k_min = __reduce_min_sync(kFullWarp, order_key(t_lane));
+    const unsigned lo = __ballot_sync(kFullWarp, acc[0] && order_key(t_row[0]) == k_min);
+    const unsigned hi = __ballot_sync(kFullWarp, acc[1] && order_key(t_row[1]) == k_min);
+    const int j_min = lo != 0 ? __ffs(lo) - 1 : 31 + __ffs(hi);
+    const float t_min = __shfl_sync(kFullWarp, j_min < 32 ? t_row[0] : t_row[1], j_min & 31);
+    if (lane == src) {
+      best.hit = true;
+      if (t_min < best.t) {
+        best.t = t_min;
+        best.idx = leaf * kLeaf + j_min;
+      }
+    }
+  }
+}
+#endif  // __CUDACC__
 
 // Near root of a sphere row, or the far one when the near root lies behind
 // t_min (wavefront.py:326-332, :422-428). Returns the root; *delta and

@@ -1,44 +1,56 @@
 // Wavefront bounce kernel for Hopper (sm_90a): one bounce of a sorted ray
-// block, each ray sweeping only the leaves of the block's shortlist whose box
-// it passes itself.
+// block, each ray swept only against the leaves of the block's shortlist
+// whose box it passes itself, the warp sweeping the passing rays one at a
+// time.
 //
-// Replaces the TPU kernel ptre_tpu/ops/pallas/wavefront.py _wave_kernel
-// (:209, launched at :486). One CUDA block per ray block, one thread per
-// ray. The block walks its shortlist (leaf ids, ascending, from the mask
-// kernel: some ray of the block passes the leaf's box). Each leaf's 64
-// compact intersection rows (3 KB: v0, e1, e2, valid; wave.cuh kRowStride)
-// are staged into one of two shared buffers with cp.async while the leaf
-// before it is swept, one barrier a leaf. Before a leaf's rows, each live
-// thread runs the slab test of its own ray against the leaf's box, bounded
-// by its closest hit so far (slab_pass_within, on the dilated cull boxes),
-// and only a ray that passes runs the 64 tests; a warp whose lanes all fail
-// skips the leaf. Tests keep strict t < best (ties go to the lowest Morton
-// row, within a leaf and across the ascending list). Then, per thread
-// (wave.cuh finish_bounce): spheres bounded by the best triangle, the
-// winner's 32-float row read by index from global memory, its attributes
-// re-derived, shading (trace.cuh scatter_shade / sky_color: the material
-// row by index, from shared memory up to 8 materials, else from the table
-// in global memory) and the next state. Dead rays pass through unchanged;
-// a block without a live ray copies its state and stops. The recording
-// instantiation (wavefront.py:345-349, `record_sel`) also writes each live
-// ray's winner, as a unified-table row or -1, straight to the ray's slot of
-// this bounce's selection row by its original id: the ids already ride the
-// sort, so nothing else has to (the TPU let four selection rows per bounce
-// ride every later sort and scattered once at the end).
+// Replaces the TPU kernel ptre_tpu/ops/pallas/wavefront.py _wave_kernel (:209,
+// launched at :486). One CUDA block per ray block, one thread per ray. Each
+// warp walks the block's shortlist (leaf ids, ascending, from the mask kernel:
+// some ray of the block passes the leaf's box) on its own, with warp votes and
+// no block barrier. For a listed leaf every live lane runs the slab test of its
+// own ray against the leaf's box, bounded by its closest hit so far
+// (slab_pass_within, on the dilated cull boxes), and a ballot lists the lanes
+// that pass; a warp with no passing lane skips the leaf. The warp then tests
+// the listed rays one at a time against the leaf's 64 compact rows, two rows a
+// lane (48 B each, loaded once a visit, three 16-byte loads through L1/L2), and
+// takes the lexicographic (t, row) minimum by a REDUX of order keys and two
+// ballots, which the ray's lane merges with strict t < best (wave.cuh
+// sweep_leaf_warp, the culled megakernel's sweep): ties go to the lowest Morton
+// row, within a leaf and across the ascending list, as sweep_leaf's per-ray
+// loop gives them. Then, per thread (wave.cuh finish_bounce): spheres bounded
+// by the best triangle, the winner's 32-float row read by index from global
+// memory, its attributes re-derived, shading (trace.cuh scatter_shade /
+// sky_color: the material row by index, from shared memory up to 8 materials,
+// else from the table in global memory) and the next state. Dead rays pass
+// through unchanged; a block without a live ray copies its state and stops, and
+// a warp without one walks nothing. The recording instantiation
+// (wavefront.py:345-349, `record_sel`) also writes each live ray's winner, as a
+// unified-table row or -1, straight to the ray's slot of this bounce's
+// selection row by its original id: the ids already ride the sort, so nothing
+// else has to (the TPU let four selection rows per bounce ride every later sort
+// and scattered once at the end). With `stats` given, a separate instantiation
+// also counts the live rays, the (live ray, listed leaf) box tests, the pairs
+// whose box the ray passes, the (warp, leaf) visits with a passing lane and the
+// live lanes of those visits (wavefront.BOUNCE_STATS); a launch without `stats`
+// counts nothing.
 //
-// What bounds it on this card: divergent float32 ALU work in the sweep, not
-// bytes. The shortlist is a block verdict; the first design made every live
-// thread test all 64 rows of every listed leaf (measured 4.61-4.71 ms a
-// bounce at config 4's bounce-1 state, 1920x1080, NVIDIA H100 80GB HBM3,
-// 700.00 W). The ray's own box test removes the (ray, leaf) pairs whose box
-// the ray misses or meets only beyond its closest hit, for one slab test a
-// pair; staging the 12-float rows instead of the 32-float ones moves 3 KB a
-// leaf instead of 8 KB, and the double buffer hides it behind the previous
-// leaf's tests. The table (48 B a row, 0.8 MB at config 4) and the 32-float
-// rows stay in the 50 MB L2; the state is 40 B a ray in and out. Every
-// thread, dead or ragged, takes part in every staging barrier. The selection
-// equals the first design's: the box dilation makes the per-ray cull
-// conservative (wavefront.CULL_PAD_REL).
+// What bounds it on this card: float32 ALU work in the row tests, not DRAM.
+// The first design made every live thread test all 64 rows of every listed leaf
+// (4.61-4.71 ms at config 4's bounce-1 state, 1920x1080, NVIDIA H100 80GB HBM3,
+// 700.00 W). The ray's own box test leaves 16 % of the listed (ray, leaf)
+// pairs; the design before this one swept each such pair on the ray's own lane
+// from rows staged in shared memory by cp.async, one block barrier a leaf (2.16
+// ms; csrc/baseline/wave_lane/), so in most warp visits a few lanes ran 64
+// serial row tests while the others waited. Spreading the rows over the lanes
+// keeps every lane busy in the row tests, as it did for the culled megakernel
+// (10.8 -> 2.9 ms a sample); loading a lane's rows once a visit, not once a
+// ray, and the REDUX in place of a butterfly of shuffles keep the coherent
+// primary rays (29 passing rays a warp visit at bounce 0) faster than the
+// per-lane sweep was there (chip_ablations.py bounce). The table (48 B a row,
+// 0.8 MB at config 4) and the 32-float rows stay in the 50 MB L2; the state is
+// 40 B a ray in and out. The selection equals the per-lane designs': the box
+// dilation makes the per-ray cull conservative (wavefront.CULL_PAD_REL), and
+// the warp's (t, row) minimum is sweep_leaf's.
 //
 // Not carried over from the TPU kernel: the (12, lanes) transposed state,
 // groups of 4 leaves per accumulator round trip, the trailing all-invalid
@@ -52,39 +64,10 @@
 
 namespace ptre {
 
-// Asynchronous staging of a leaf's rows from global to shared memory
-// (cp.async): a copy is issued, overlaps the sweep of the leaf staged
-// before it, and is waited for before its rows are read.
-//
-// Copy 16 bytes global -> shared without passing through registers; both
-// addresses 16-byte aligned. Cached in L2 only (.cg): a leaf is read once a
-// block, and the table stays in L2.
-__device__ __forceinline__ void cp_async16(void* smem_dst, const void* gmem_src) {
-  const uint32_t dst = static_cast<uint32_t>(__cvta_generic_to_shared(smem_dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem_src));
-}
+// The counters of the stats instantiation (wavefront.BOUNCE_STATS), in order.
+enum : int { kRayBounces, kListedTests, kOwnPairs, kWarpVisits, kLaneSlots };
 
-// Close the copies this thread issued since the last commit into one group.
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-// Wait until at most `kPending` of this thread's groups are still in flight.
-// Another thread's copies are visible only after a barrier that follows it.
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
-}
-
-// Stage `n16` 16-byte chunks from `src` to `dst`, chunk k by thread k modulo
-// `n_threads`, as one committed group (possibly empty) per thread.
-__device__ __forceinline__ void stage_async(float* dst, const float* src, int n16, int tid,
-                                            int n_threads) {
-  for (int k = tid; k < n16; k += n_threads) cp_async16(dst + 4 * k, src + 4 * k);
-  cp_async_commit();
-}
-
-template <bool kRecord>
+template <bool kRecord, bool kStats>
 __global__ void __launch_bounds__(kMaxLanes)
     wave_bounce_kernel(const WaveParams p, const float* __restrict__ state,
                        const int32_t* __restrict__ ids,
@@ -97,9 +80,7 @@ __global__ void __launch_bounds__(kMaxLanes)
                        const float* __restrict__ mats,
                        const float* __restrict__ sky,
                        const float* __restrict__ urand, float* __restrict__ out,
-                       int32_t* __restrict__ sel) {
-  constexpr int kLeafFloats = kLeaf * kRowStride;
-  __shared__ __align__(16) float s_rows[2][kLeafFloats];
+                       int32_t* __restrict__ sel, unsigned long long* __restrict__ stats) {
   __shared__ float s_mat[kStagedMats * kMatStride];
   __shared__ float s_sky[8];
 
@@ -116,31 +97,40 @@ __global__ void __launch_bounds__(kMaxLanes)
     for (int i = tid; i < kStagedMats * kMatStride; i += blockDim.x) s_mat[i] = mats[i];
   }
   if (tid < 8) s_sky[tid] = sky[tid];
+  // s_mat, s_sky staged; from here on each warp runs on its own
+  __syncthreads();
 
   TriBest best = {kBig, 0, false};
-  const float iv[3] = {slab_inv(r.d[0]), slab_inv(r.d[1]), slab_inv(r.d[2])};
-  const int n = counts[blockIdx.x];
-  const int32_t* list = shortlist + (int64_t)blockIdx.x * p.list_stride;
-  if (n > 0) {
-    stage_async(s_rows[0], rows + (int64_t)list[0] * kLeafFloats, kLeafFloats / 4, tid,
-                blockDim.x);
-  }
-  for (int k = 0; k < n; ++k) {
-    const int leaf = list[k];
-    cp_async_wait<0>();
-    // leaf k's rows are visible to every thread, and every thread is done
-    // with leaf k - 1's buffer, which the next copy overwrites
-    __syncthreads();
-    if (k + 1 < n) {
-      stage_async(s_rows[(k + 1) & 1], rows + (int64_t)list[k + 1] * kLeafFloats,
-                  kLeafFloats / 4, tid, blockDim.x);
+  const unsigned live_lanes = __ballot_sync(kFullWarp, live);
+  if (live_lanes != 0) {  // uniform over the warp
+    const float iv[3] = {slab_inv(r.d[0]), slab_inv(r.d[1]), slab_inv(r.d[2])};
+    const int n = counts[blockIdx.x];
+    const int32_t* list = shortlist + (int64_t)blockIdx.x * p.list_stride;
+    // warp-uniform counts (kStats only), in the order of the enum above
+    unsigned long long n_own = 0, n_visits = 0;
+    for (int k = 0; k < n; ++k) {
+      const int leaf = list[k];
+      // the rays' own culls; a leaf that no lane passes costs one box test
+      const unsigned passed = __ballot_sync(
+          kFullWarp,
+          live && slab_pass_within(boxes + leaf * kBoxStride, r.o, iv, p.t_min, best.t));
+      if (kStats) {
+        n_own += __popc(passed);
+        n_visits += passed != 0;
+      }
+      if (passed != 0) {
+        sweep_leaf_warp(rows + (int64_t)leaf * kLeafFloats, leaf, passed, r, p, best);
+      }
     }
-    // the ray's own cull; a warp whose lanes all fail skips the 64 tests
-    if (live && slab_pass_within(boxes + leaf * kBoxStride, r.o, iv, p.t_min, best.t)) {
-      sweep_leaf(s_rows[k & 1], leaf, r, p, best);
+    if (kStats && (tid & 31) == 0) {
+      const unsigned long long n_live = __popc(live_lanes);
+      atomicAdd(stats + kRayBounces, n_live);
+      atomicAdd(stats + kListedTests, n_live * n);
+      atomicAdd(stats + kOwnPairs, n_own);
+      atomicAdd(stats + kWarpVisits, n_visits);
+      atomicAdd(stats + kLaneSlots, n_live * n_visits);
     }
   }
-  __syncthreads();  // s_mat, s_sky staged (also when the list is empty)
 
   if (live) {
     // the winner's row is read from the table in global memory (and L2)
@@ -154,6 +144,37 @@ __global__ void __launch_bounds__(kMaxLanes)
     }
   }
   store_ray(out, col, p.r_pad, r);
+}
+
+template <bool kStats>
+void launch_bounce(const WaveParams& p, const float* state, const int32_t* ids,
+                   const int32_t* shortlist, const int32_t* counts, const float* tris,
+                   const float* rows, const float* boxes, const float* sphs, const float* mats,
+                   const float* sky, const float* urand, float* out, int32_t* sel,
+                   unsigned long long* stats, int lanes, void* stream) {
+  if (sel != nullptr) {
+    wave_bounce_kernel<true, kStats><<<p.r_pad / lanes, lanes, 0, (cudaStream_t)stream>>>(
+        p, state, ids, shortlist, counts, tris, rows, boxes, sphs, mats, sky, urand, out,
+        sel, stats);
+  } else {
+    wave_bounce_kernel<false, kStats><<<p.r_pad / lanes, lanes, 0, (cudaStream_t)stream>>>(
+        p, state, ids, shortlist, counts, tris, rows, boxes, sphs, mats, sky, urand, out,
+        sel, stats);
+  }
+}
+
+// Whether the C interface takes these arguments (cudaSuccess) or refuses
+// them (cudaErrorInvalidValue).
+int check_bounce(const WaveParams& p, const float* rows, const float* urand, int32_t* sel,
+                 int lanes) {
+  if (p.n_leaf < 0 || p.n_sph < 0 || p.num_mats > kMaxMaterials || lanes < 32 ||
+      lanes > kMaxLanes || lanes % 32 != 0 || p.r_pad % lanes != 0 ||
+      (p.external_rng && urand == nullptr) ||
+      (sel != nullptr && (p.n_sel < 1 || p.sph_offset < 0 || p.bounce < 0)) ||
+      reinterpret_cast<uintptr_t>(rows) % 16 != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaSuccess;
 }
 
 }  // namespace ptre
@@ -174,21 +195,27 @@ extern "C" int ptre_wave_bounce(const ptre::WaveParams* params,
                                 const float* urand, float* out, int32_t* sel,
                                 int lanes, void* stream) {
   const ptre::WaveParams p = *params;
-  if (p.n_leaf < 0 || p.n_sph < 0 || p.num_mats > ptre::kMaxMaterials || lanes < 32 ||
-      lanes > ptre::kMaxLanes || lanes % 32 != 0 || p.r_pad % lanes != 0 ||
-      (p.external_rng && urand == nullptr) ||
-      (sel != nullptr && (p.n_sel < 1 || p.sph_offset < 0 || p.bounce < 0)) ||
-      reinterpret_cast<uintptr_t>(rows) % 16 != 0) {
-    return (int)cudaErrorInvalidValue;
-  }
-  if (sel != nullptr) {
-    ptre::wave_bounce_kernel<true><<<p.r_pad / lanes, lanes, 0, (cudaStream_t)stream>>>(
-        p, state, ids, shortlist, counts, tris, rows, boxes, sphs, mats, sky, urand, out,
-        sel);
-  } else {
-    ptre::wave_bounce_kernel<false><<<p.r_pad / lanes, lanes, 0, (cudaStream_t)stream>>>(
-        p, state, ids, shortlist, counts, tris, rows, boxes, sphs, mats, sky, urand, out,
-        sel);
-  }
+  const int rc = ptre::check_bounce(p, rows, urand, sel, lanes);
+  if (rc != 0) return rc;
+  ptre::launch_bounce<false>(p, state, ids, shortlist, counts, tris, rows, boxes, sphs, mats,
+                             sky, urand, out, sel, nullptr, lanes, stream);
+  return (int)cudaGetLastError();
+}
+
+// ptre_wave_bounce through the counting instantiation: the same outputs, and
+// 5 uint64 counters that the launch adds to (wavefront.BOUNCE_STATS).
+extern "C" int ptre_wave_bounce_counted(const ptre::WaveParams* params,
+                                        const float* state, const int32_t* ids,
+                                        const int32_t* shortlist, const int32_t* counts,
+                                        const float* tris, const float* rows,
+                                        const float* boxes, const float* sphs,
+                                        const float* mats, const float* sky,
+                                        const float* urand, float* out, int32_t* sel,
+                                        unsigned long long* stats, int lanes, void* stream) {
+  const ptre::WaveParams p = *params;
+  const int rc = ptre::check_bounce(p, rows, urand, sel, lanes);
+  if (rc != 0 || stats == nullptr) return rc != 0 ? rc : (int)cudaErrorInvalidValue;
+  ptre::launch_bounce<true>(p, state, ids, shortlist, counts, tris, rows, boxes, sphs, mats,
+                            sky, urand, out, sel, stats, lanes, stream);
   return (int)cudaGetLastError();
 }

@@ -155,6 +155,10 @@ def load_library() -> ctypes.CDLL:
     # (params, state, ids, shortlist, counts, tris, rows, boxes, sphs, mats,
     #  sky, urand, out, sel, lanes, stream)
     lib.ptre_wave_bounce.argtypes = [ptr] * 14 + [ctypes.c_int, ptr]
+    lib.ptre_wave_bounce_counted.restype = ctypes.c_int
+    # (params, state, ids, shortlist, counts, tris, rows, boxes, sphs, mats,
+    #  sky, urand, out, sel, stats, lanes, stream)
+    lib.ptre_wave_bounce_counted.argtypes = [ptr] * 15 + [ctypes.c_int, ptr]
     lib.ptre_trace_culled.restype = ctypes.c_int
     # (params, o, d, urand, tris, rows, boxes, boxes2, sphs, mats, sky, color,
     #  sel, stats, lanes, stream)

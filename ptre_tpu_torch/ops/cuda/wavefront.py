@@ -12,10 +12,12 @@ Port of `ptre_tpu/ops/pallas/wavefront.py`. Per bounce:
      block's live rays;
   3. PyTorch compacts the (nb, n_leaf) mask into ascending leaf shortlists
      (`shortlists_from_mask`);
-  4. the BOUNCE kernel walks each block's shortlist; a ray sweeps a listed
-     leaf's rows only where it passes the leaf's box itself, bounded by its
-     closest hit so far; then it tests the spheres, re-derives the winner
-     and shades it, and writes the next state.
+  4. the BOUNCE kernel walks each block's shortlist, a warp at a time; a
+     ray is swept against a listed leaf's rows only where it passes the
+     leaf's box itself, bounded by its closest hit so far, and the warp
+     sweeps such rays one at a time, two rows a lane; then each ray tests
+     the spheres, re-derives the winner, shades it, and writes the next
+     state.
 
 A final scatter puts the colours back in ray order. With ``record`` the
 bounce also writes every live ray's winner into a (B, R) int32 selection
@@ -446,6 +448,15 @@ def _listed(short, cnt, n_leaf: int):
     return listed[:, :n_leaf]
 
 
+#: the counters of the bounce kernel's counting instantiation (`wave_bounce`'s
+#: ``stats``), and the keys of `wave_bounce_reference`'s: live rays entering,
+#: (live ray, listed leaf) box tests, pairs whose box the ray itself passes
+#: before its closest hit so far (64 row tests each), (warp, leaf) visits with
+#: a passing lane (the warp sweeps the leaf), and the live lanes of those
+#: visits (the lane slots a per-lane sweep would hold)
+BOUNCE_STATS = ("ray_bounces", "listed_tests", "own_pairs", "warp_visits", "lane_slots")
+
+
 def wave_bounce_reference(state, ids, short, cnt, scene: WaveScene, consts, bounce: int,
                           seed: int = 0, sample: int = 0, urand=None, lanes: int = LANES,
                           sel=None, stats: dict = None):
@@ -454,26 +465,28 @@ def wave_bounce_reference(state, ids, short, cnt, scene: WaveScene, consts, boun
     live ray of the blocks that list it, as the TPU kernel sweeps them
     (`wavefront.py:209-466`): no per-ray cull. With ``sel`` (B, R) int32 the
     live rays' winners are written into row ``bounce`` at their ids, in
-    place (`record_sel`, `:345-349`). ``stats`` receives the work the
-    kernel's per-ray cull leaves, without changing what is swept:
-    ``listed_pairs`` ((live ray, listed leaf) pairs, each one slab test) and
-    ``own_pairs`` (those whose cull box the ray itself passes before its
-    closest hit so far, each 64 row tests); leaves are visited in ascending
-    order, as the kernel walks a shortlist."""
+    place (`record_sel`, `:345-349`). ``stats`` (a dict) receives the
+    `BOUNCE_STATS` of the kernel's per-ray cull and warps of 32 columns,
+    without changing what is swept; leaves are visited in ascending order,
+    as the kernel walks a shortlist."""
     active = state[9] > 0.5
     listed = _listed(short, cnt, scene.n_leaf)
     best = mk.TriBest(state)
     if stats is not None:
         iv = [mk.slab_inv(state[3 + c]) for c in range(3)]
         boxes = scene.cull_boxes[:scene.n_leaf, :6].tolist()
-        stats.update(listed_pairs=0, own_pairs=0)
+        warp_live = active.view(-1, 32).sum(dim=1)
+        stats.update(dict.fromkeys(BOUNCE_STATS, 0), ray_bounces=int(active.sum()))
     for leaf in range(scene.n_leaf):
         cand = listed[:, leaf].repeat_interleave(lanes) & active
         if stats is not None:
             tn, tf = mk.slab_interval(boxes[leaf], state[0:3], iv)
-            stats["listed_pairs"] += int(cand.sum())
-            stats["own_pairs"] += int((cand & (tn <= tf) & (tf >= consts.t_min)
-                                       & (tn <= best.t)).sum())
+            own = cand & (tn <= tf) & (tf >= consts.t_min) & (tn <= best.t)
+            visit = own.view(-1, 32).any(dim=1)
+            stats["listed_tests"] += int(cand.sum())
+            stats["own_pairs"] += int(own.sum())
+            stats["warp_visits"] += int(visit.sum())
+            stats["lane_slots"] += int(warp_live[visit].sum())
         ray = cand.nonzero().squeeze(1)
         if ray.numel():
             mk.sweep_leaf_reference(scene.tris, leaf, ray, state, consts, best)
@@ -517,21 +530,42 @@ def _check_bounce_inputs(state, ids, short, cnt, scene: WaveScene, urand, lanes,
                             "16-byte aligned, and cull_boxes n_leaf boxes")
 
 
+def _bounce_reference(state, ids, short, cnt, scene: WaveScene, consts, bounce: int,
+                      seed: int = 0, sample: int = 0, urand=None, lanes: int = LANES,
+                      sel=None, stats=None):
+    """`wave_bounce_reference` adding its counts into ``stats``, a (5,) int64
+    tensor as `wave_bounce` takes it, or None."""
+    count = None if stats is None else {}
+    out = wave_bounce_reference(state, ids, short, cnt, scene, consts, bounce, seed, sample,
+                                urand, lanes, sel, count)
+    if stats is not None:
+        stats += torch.tensor([count[n] for n in BOUNCE_STATS], dtype=torch.int64,
+                              device=stats.device)
+    return out
+
+
 def wave_bounce(state, ids, short, cnt, scene: WaveScene, consts, bounce: int,
-                seed: int = 0, sample: int = 0, urand=None, lanes: int = LANES, sel=None):
+                seed: int = 0, sample: int = 0, urand=None, lanes: int = LANES, sel=None,
+                stats=None):
     """One bounce of the sorted state: the next (10, r_pad) state (a new
     tensor). ``ids`` (r_pad,) int32 are the original ray ids; ``short`` /
     ``cnt`` the blocks' shortlists (`shortlists_from_mask`); ``urand`` None
     (Philox keyed by (seed, id, sample)) or (2 + 2 * max_depth, R) external
     uniforms. With ``sel`` (B, R) int32 the recording instantiation runs: it
     writes each live ray's winner (a unified-table row, -1 for a miss) into
-    ``sel[bounce, id]`` in place; ids >= R are dropped. CUDA tensors launch
+    ``sel[bounce, id]`` in place; ids >= R are dropped. ``stats``: None, or
+    a (5,) int64 tensor on the state's device that the bounce adds
+    `BOUNCE_STATS` into (on the card the counting instantiation, with the
+    same outputs; nothing is read back). CUDA tensors launch
     `csrc/wave_kernel.cu` (counted in ``bounce_launches``); CPU tensors run
     `wave_bounce_reference`; anything else raises."""
     global bounce_launches
+    if stats is not None:
+        mk.check_tensors("state", state.device,
+                         [("stats", stats, (len(BOUNCE_STATS),), torch.int64)])
     if state.device.type == "cpu":
-        return wave_bounce_reference(state, ids, short, cnt, scene, consts, bounce,
-                                     seed, sample, urand, lanes, sel)
+        return _bounce_reference(state, ids, short, cnt, scene, consts, bounce, seed, sample,
+                                 urand, lanes, sel, stats)
     if state.device.type != "cuda":
         raise RendererError(f"wave_bounce runs on cuda or cpu, not {state.device}")
     _check_bounce_inputs(state, ids, short, cnt, scene, urand, lanes, sel, bounce)
@@ -544,13 +578,16 @@ def wave_bounce(state, ids, short, cnt, scene: WaveScene, consts, bounce: int,
     lib = build.load_library()
     with torch.cuda.device(state.device):
         stream = torch.cuda.current_stream(state.device).cuda_stream
-        rc = lib.ptre_wave_bounce(
-            ctypes.addressof(p), state.data_ptr(), ids.data_ptr(), short.data_ptr(),
-            cnt.data_ptr(), scene.tris.data_ptr(), scene.rows.data_ptr(),
-            scene.cull_boxes.data_ptr(), scene.sphs.data_ptr(),
-            scene.mats.data_ptr(), scene.sky.data_ptr(),
-            None if urand is None else urand.data_ptr(), out.data_ptr(),
-            None if sel is None else sel.data_ptr(), lanes, stream)
+        args = (ctypes.addressof(p), state.data_ptr(), ids.data_ptr(), short.data_ptr(),
+                cnt.data_ptr(), scene.tris.data_ptr(), scene.rows.data_ptr(),
+                scene.cull_boxes.data_ptr(), scene.sphs.data_ptr(),
+                scene.mats.data_ptr(), scene.sky.data_ptr(),
+                None if urand is None else urand.data_ptr(), out.data_ptr(),
+                None if sel is None else sel.data_ptr())
+        if stats is None:
+            rc = lib.ptre_wave_bounce(*args, lanes, stream)
+        else:
+            rc = lib.ptre_wave_bounce_counted(*args, stats.data_ptr(), lanes, stream)
     if rc != 0:
         raise RendererError(
             f"bounce kernel launch failed: {lib.ptre_cuda_error_string(rc).decode()}")
@@ -667,7 +704,7 @@ def coherence_order(state, scene: WaveScene, do_sort=None):
 def trace(o, d, scene: WaveScene, consts, max_depth: int, seed: int = 0,
           sample: int = 0, urand=None, cull: bool = True, tile_hint=None,
           sort_min_live=SORT_MIN_LIVE, lanes: int = LANES, plain: bool = False,
-          timer: StageTimer = None, record: bool = False, stats=None):
+          timer: StageTimer = None, record: bool = False, stats=None, bounce_stats=None):
     """Wavefront trace, one sample per ray: (R, 3) rays → (R, 3) float32
     linear colour, unclamped (`wavefront.py:709-871`). With ``record`` it
     returns (colour, selections (max_depth, R) int32, ``scene.perm_tri``):
@@ -689,16 +726,21 @@ def trace(o, d, scene: WaveScene, consts, max_depth: int, seed: int = 0,
     (comparisons). Each stage is a span (`STAGE_SPANS`); ``timer`` (a
     `StageTimer`, CUDA only) also times the stages. ``stats``: None, or a
     zeroed (3,) int64 tensor on the rays' device that the trace adds
-    `TRACE_STATS` into, on the device."""
+    `TRACE_STATS` into, on the device; ``bounce_stats`` likewise a (5,)
+    tensor that every bounce adds its `BOUNCE_STATS` into (`wave_bounce`'s
+    ``stats``: on the card the counting instantiation, no synchronize)."""
     global live_bounces, binned_bounces
     R = o.shape[0]
     dev = o.device
     if stats is not None:
         mk.check_tensors("o", dev, [("stats", stats, (len(TRACE_STATS),), torch.int64)])
+    if bounce_stats is not None:
+        mk.check_tensors("o", dev, [("bounce_stats", bounce_stats, (len(BOUNCE_STATS),),
+                                     torch.int64)])
     stage = timer or _stage_span
     mask_fn = (wave_mask_reference if plain
                else functools.partial(wave_mask, supers=scene.mask_supers))
-    bounce_fn = wave_bounce_reference if plain else wave_bounce
+    bounce_fn = _bounce_reference if plain else wave_bounce
     with stage("gather"):
         state, ids, short0 = primary_state(o, d, scene, tile_hint, cull, lanes)
     r_pad = state.shape[1]
@@ -728,7 +770,7 @@ def trace(o, d, scene: WaveScene, consts, max_depth: int, seed: int = 0,
             short, cnt = all_leaves(nb, scene.n_leaf, device=dev)
         with stage("bounce"):
             state = bounce_fn(state, ids, short, cnt, scene, consts, b, seed, sample,
-                              urand, lanes, sel)
+                              urand, lanes, sel, bounce_stats)
     with stage("gather"):
         color = torch.empty((state.shape[1], 3), dtype=torch.float32, device=dev)
         color[ids.long()] = state[6:9].T

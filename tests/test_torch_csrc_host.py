@@ -132,7 +132,7 @@ def wave_lib(tmp_path_factory):
     lib.ptre_wave_mask_host.restype = None
     lib.ptre_wave_mask_host.argtypes = [ptr] * 5 + [ctypes.c_int]
     lib.ptre_wave_bounce_host.restype = None
-    lib.ptre_wave_bounce_host.argtypes = [ptr] * 14 + [ctypes.c_int]
+    lib.ptre_wave_bounce_host.argtypes = [ptr] * 15 + [ctypes.c_int]
     lib.ptre_trace_culled_host.restype = None
     lib.ptre_trace_culled_host.argtypes = [ptr] * 14
     return lib
@@ -196,7 +196,7 @@ def test_host_wave_build_matches_plain_versions(wave_lib, name, external):
                 scene.cull_boxes.data_ptr(), scene.sphs.data_ptr(),
                 scene.mats.data_ptr(), scene.sky.data_ptr(),
                 None if urand is None else urand.data_ptr(), out.data_ptr(),
-                None if rec is None else rec.data_ptr(), lanes)
+                None if rec is None else rec.data_ptr(), None, lanes)
         assert torch.equal(got, plain_state)  # recording changes no state
         want = wf.wave_bounce_reference(state, ids, short, cnt, scene, k, b, 0xBEEF, 5,
                                         urand, lanes, sel=want_sel)
@@ -938,7 +938,7 @@ def test_host_wave_and_culled_bodies_take_any_material_table(wave_lib, M, advers
         ctypes.addressof(p), state.data_ptr(), ids_.data_ptr(), short.data_ptr(),
         cnt.data_ptr(), scene.tris.data_ptr(), scene.rows.data_ptr(),
         scene.cull_boxes.data_ptr(), scene.sphs.data_ptr(), scene.mats.data_ptr(),
-        scene.sky.data_ptr(), urand.data_ptr(), got.data_ptr(), None, lanes)
+        scene.sky.data_ptr(), urand.data_ptr(), got.data_ptr(), None, None, lanes)
     want = wf.wave_bounce_reference(state, ids_, short, cnt, scene, k, 0, 0, 0, urand, lanes)
     if adversarial:
         assert torch.equal(got[6:10], want[6:10])

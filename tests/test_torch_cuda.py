@@ -735,6 +735,106 @@ def test_wave_mask_every_bounce_equals_plain_and_first_design(cuda, first_design
         assert int(counts[1]) <= n_live * scene.n_leaf
 
 
+@pytest.fixture(scope="module")
+def lane_bounce():
+    """The bounce unit as shipped before the warp sweep (csrc/baseline/
+    wave_lane/: each passing ray swept on its own lane from rows staged in
+    shared memory), built against the shipped headers by chip_smoke.py's
+    `start_wave_lane_build`, as a function of `wave_bounce`'s arguments."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    import chip_smoke
+
+    lib = chip_smoke.finish_unit_build(chip_smoke.start_wave_lane_build())
+    return chip_smoke.lib_wave_bounce(lib, wf)
+
+
+#: config 4's scene and the meshes past the reference's row cap: the
+#: 65,024-row uv-sphere (1,016 leaves) and the 4,080-leaf one
+WAVE_LANE_SCENES = {
+    "config4": ("config4_mixed_scene", dict(segments=128, rings=64)),
+    "65024 rows": ("config3_scene", dict(flat=False, segments=256, rings=128, diffuse=True)),
+    "4080 leaves": ("config3_scene", dict(flat=False, segments=512, rings=256, diffuse=True)),
+}
+
+
+@pytest.mark.parametrize("mesh", list(WAVE_LANE_SCENES))
+@pytest.mark.parametrize("external", [True, False])
+def test_wave_bounce_equals_parent_unit(cuda, lane_bounce, mesh, external):
+    """Next states and selections of both instantiations bit for bit the
+    parent unit's, at every bounce of a 480x272 sample of config 4's scene
+    (the screen-binned bounce 0, then the masked, sorted states) and at
+    bounce 1 of the meshes past the row cap: the per-ray cull is the same,
+    and the warp's (t, row) minimum is sweep_leaf's. The counting
+    instantiation gives the same state; at bounce 1 its live rays and box
+    tests equal the plain version's, its pairs passed within
+    chip_smoke.COUNT_REL."""
+    import chip_smoke
+
+    W, H, B = 480, 272, 5  # whole 8x32 pixel tiles: bounce 0 is screen-binned
+    R = W * H
+    _, _, scene, k, o, d, short0, states = chip_smoke.mask_states(
+        cuda, (mesh, WAVE_LANE_SCENES[mesh], W, H))
+    bounces = [(b, state, ids, *wf.shortlists_from_mask(wf.wave_mask(
+        state, scene.boxes, k.t_min, supers=scene.mask_supers))) for b, state, ids in states]
+    if mesh == "config4":
+        state0, ids0, _ = wf.primary_state(o, d, scene, (H, W))
+        bounces = [(0, state0, ids0, *short0)] + bounces
+        assert len(bounces) == B
+    else:
+        bounces = bounces[:1]
+    urand = (torch.rand((2 + 2 * B, R), device=cuda,
+                        generator=torch.Generator(cuda).manual_seed(6)) if external else None)
+    for b, state, ids, short, cnt in bounces:
+        sel, lane_sel = (torch.full((B, R), -1, dtype=torch.int32, device=cuda)
+                         for _ in range(2))
+        got = wf.wave_bounce(state, ids, short, cnt, scene, k, b, 9, 1, urand, sel=sel)
+        want = lane_bounce(state, ids, short, cnt, scene, k, b, 9, 1, urand, sel=lane_sel)
+        plain = wf.wave_bounce(state, ids, short, cnt, scene, k, b, 9, 1, urand)
+        lane_plain = lane_bounce(state, ids, short, cnt, scene, k, b, 9, 1, urand)
+        stats = torch.zeros(len(wf.BOUNCE_STATS), dtype=torch.int64, device=cuda)
+        counted = wf.wave_bounce(state, ids, short, cnt, scene, k, b, 9, 1, urand, stats=stats)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want) and torch.equal(sel, lane_sel), b
+        assert torch.equal(plain, got) and torch.equal(lane_plain, got), b
+        assert torch.equal(counted, got), b
+        assert int((sel[b] >= 0).sum()) > 0 and bool((sel[b + 1:] == -1).all())
+        if b == 1:
+            count = {}
+            wf.wave_bounce_reference(state, ids, short, cnt, scene, k, b, 9, 1, urand,
+                                     stats=count)
+            st = dict(zip(wf.BOUNCE_STATS, stats.tolist()))
+            assert st["ray_bounces"] == count["ray_bounces"] > 0
+            assert st["listed_tests"] == count["listed_tests"]
+            assert abs(st["own_pairs"] - count["own_pairs"]) <= (
+                chip_smoke.COUNT_REL * count["own_pairs"])
+            assert 0 < st["warp_visits"] <= st["own_pairs"] <= st["lane_slots"]
+
+
+def test_trace_bounce_stats_on_the_card_match_plain_version(cuda, monkeypatch):
+    """`trace(bounce_stats=)` counts on the card with no synchronizing call,
+    changes no colour, and its counters are within chip_smoke.COUNT_REL of
+    the plain trace's on the same rays and draws (a ray that FMA
+    contraction flips may live one bounce more or less)."""
+    import chip_smoke
+
+    cfg, _, _, scene, k, o, d = _tri_rays(cuda)
+    args = (o, d, scene, k, cfg.max_depth, 9, 1)
+    color = wf.trace(*args, tile_hint=(cfg.height, cfg.width))
+    stats = torch.zeros(len(wf.BOUNCE_STATS), dtype=torch.int64, device=cuda)
+    counted = _without_synchronize(
+        monkeypatch, lambda: wf.trace(*args, tile_hint=(cfg.height, cfg.width),
+                                      bounce_stats=stats), "trace(bounce_stats=)")
+    plain = torch.zeros_like(stats)
+    wf.trace(*args, tile_hint=(cfg.height, cfg.width), plain=True, bounce_stats=plain)
+    torch.cuda.synchronize()
+    assert torch.equal(counted, color)
+    st, want = (dict(zip(wf.BOUNCE_STATS, t.tolist())) for t in (stats, plain))
+    assert st["ray_bounces"] > o.shape[0]
+    for key in ("ray_bounces", "listed_tests", "own_pairs"):
+        assert abs(st[key] - want[key]) <= chip_smoke.COUNT_REL * want[key], key
+
+
 def test_mse_step_triangle_scene_goes_through_the_kernels(cuda):
     W, H = 256, 128
     cfg = RenderConfig(width=W, height=H, max_depth=4)
