@@ -232,6 +232,10 @@ cudaError_t launch_mask_global(int n_blocks, int lanes, cudaStream_t st, const M
 
 }  // namespace ptre
 
+// Leaves the staged instantiation takes (kMaxMaskLeaves); more take the
+// global one (wavefront.py counts those launches in mask_launches_global).
+extern "C" int ptre_wave_mask_max_staged_leaves() { return ptre::kMaxMaskLeaves; }
+
 // C interface for ctypes. Launches on the caller's stream, allocates
 // nothing, does not synchronise; returns cudaGetLastError() of the launch.
 // `lanes` rays per block; r_pad must be a whole number of blocks. `supers`:

@@ -151,6 +151,8 @@ def load_library() -> ctypes.CDLL:
     lib.ptre_wave_mask.restype = ctypes.c_int
     # (params, state, boxes, supers, mask, stats, lanes, stream)
     lib.ptre_wave_mask.argtypes = [ptr] * 6 + [ctypes.c_int, ptr]
+    lib.ptre_wave_mask_max_staged_leaves.restype = ctypes.c_int
+    lib.ptre_wave_mask_max_staged_leaves.argtypes = []
     lib.ptre_wave_bounce.restype = ctypes.c_int
     # (params, state, ids, shortlist, counts, tris, rows, boxes, sphs, mats,
     #  sky, urand, out, sel, lanes, stream)

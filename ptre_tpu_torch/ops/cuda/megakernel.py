@@ -726,7 +726,7 @@ def slab_inv(c):
 def slab_interval(box, o, iv):
     """(t_near, t_far) of rays ``o`` (3 rows), inverse directions ``iv``
     through one box, six Python floats lo.xyz hi.xyz (wave.cuh
-    slab_interval)."""
+    slab_interval); or through L boxes, six (L, 1) tensors: (L, R) each."""
     tn = tf = None
     for c in range(3):
         lo, hi = box[c], box[3 + c]

@@ -25,10 +25,12 @@ array by the ray's original id: the forward of the triangle-scale gradient
 path (`ops/cuda/fused_grad.trace_grad`).
 
   * `wave_mask` / `wave_bounce` are the wrappers of `csrc/mask_kernel.cu` and
-    `csrc/wave_kernel.cu` (launches counted in ``mask_launches`` and
+    `csrc/wave_kernel.cu` (launches counted in ``mask_launches``, those of
+    the mask's global instantiation also in ``mask_launches_global``, and
     ``bounce_launches``); on CPU tensors they run `wave_mask_reference` /
-    `wave_bounce_reference`, the plain versions, vectorised over (rays x one
-    64-row leaf). Anything else raises; nothing falls back.
+    `wave_bounce_reference`, the plain versions, vectorised over (a chunk
+    of leaves x rays) and (rays x one 64-row leaf). Anything else raises;
+    nothing falls back.
   * `trace` runs the bounce loop (`wavefront.py:709-871`); `prepare_scene` packs a
     packet once, so a caller can reuse it for every sample.
 
@@ -101,6 +103,10 @@ CULL_PAD_REL = 1e-5
 #: kernel launches made by `wave_mask` and `wave_bounce` in this process
 mask_launches = 0
 bounce_launches = 0
+#: of ``mask_launches``, those that took the mask kernel's global
+#: instantiation (wave_mask_global_kernel: more leaves than the staged one
+#: takes, ``ptre_wave_mask_max_staged_leaves``)
+mask_launches_global = 0
 
 
 def supports(packet) -> bool:
@@ -364,21 +370,29 @@ class MaskParams(ctypes.Structure):
                 ("n_leaf", ctypes.c_int32)]
 
 
+#: (leaf, ray) pairs `wave_mask_reference` tests at once
+_PAIRS_A_CHUNK = 1 << 22
+
+
 def wave_mask_reference(state, boxes, t_min: float, lanes: int = LANES):
     """Plain version of the mask kernel: (nb, n_leaf) bool, True where some
     live ray of the block passes leaf l's slab test ``tn <= tf and tf >=
-    t_min`` (`wavefront.py:102-157`). Loops over leaves."""
+    t_min`` (`wavefront.py:102-157`). Takes the leaves a chunk at a time,
+    every (leaf, ray) pair of a chunk at once."""
     r_pad = state.shape[1]
     nb = r_pad // lanes
     o = state[0:3]
     iv = [mk.slab_inv(state[3 + k]) for k in range(3)]
     live = state[9] > 0.5
     t_min = mk.f32(t_min)
-    mask = torch.zeros((nb, boxes.shape[0]), dtype=torch.bool, device=state.device)
-    for l, box in enumerate(boxes[:, :6].tolist()):
-        tn, tf = mk.slab_interval(box, o, iv)
+    n_leaf = boxes.shape[0]
+    mask = torch.zeros((nb, n_leaf), dtype=torch.bool, device=state.device)
+    step = max(1, _PAIRS_A_CHUNK // max(r_pad, 1))
+    for a in range(0, n_leaf, step):
+        box = boxes[a:a + step, :6]
+        tn, tf = mk.slab_interval([box[:, c:c + 1] for c in range(6)], o, iv)
         ok = (tn <= tf) & (tf >= t_min) & live
-        mask[:, l] = ok.view(nb, lanes).any(dim=1)
+        mask[:, a:a + step] = ok.view(-1, nb, lanes).any(dim=2).T
     return mask
 
 
@@ -398,12 +412,13 @@ def wave_mask(state, boxes, t_min: float, lanes: int = LANES, stats=None, supers
     """The (nb, n_leaf) bool cull mask of one bounce. CUDA tensors launch
     `csrc/mask_kernel.cu` (counted in ``mask_launches``); CPU tensors run
     `wave_mask_reference`; anything else raises. Up to 1,024 leaves the
-    kernel stages the boxes in shared memory; past that it reads them and
-    ``supers``, their (ceil(n_leaf / 8), 8) supertile unions
-    (`WaveScene.mask_supers`; None: formed here), through L1/L2.
+    kernel stages the boxes in shared memory; past that (counted in
+    ``mask_launches_global`` too) it reads them and ``supers``, their
+    (ceil(n_leaf / 8), 8) supertile unions (`WaveScene.mask_supers`; None:
+    formed here), through L1/L2.
     ``stats``: None, or a zeroed (3,) int64 CUDA tensor that the counting
     instantiation adds `MASK_STATS` into (the verdicts are the same)."""
-    global mask_launches
+    global mask_launches, mask_launches_global
     if state.device.type == "cpu":
         return wave_mask_reference(state, boxes, t_min, lanes)
     if state.device.type != "cuda":
@@ -434,6 +449,8 @@ def wave_mask(state, boxes, t_min: float, lanes: int = LANES, stats=None, supers
         raise RendererError(
             f"mask kernel launch failed: {lib.ptre_cuda_error_string(rc).decode()}")
     mask_launches += 1
+    if n_leaf > lib.ptre_wave_mask_max_staged_leaves():
+        mask_launches_global += 1
     return mask
 
 
@@ -467,8 +484,8 @@ def wave_bounce_reference(state, ids, short, cnt, scene: WaveScene, consts, boun
     live rays' winners are written into row ``bounce`` at their ids, in
     place (`record_sel`, `:345-349`). ``stats`` (a dict) receives the
     `BOUNCE_STATS` of the kernel's per-ray cull and warps of 32 columns,
-    without changing what is swept; leaves are visited in ascending order,
-    as the kernel walks a shortlist."""
+    without changing what is swept; the leaves some block lists are visited
+    in ascending order, as the kernel walks a shortlist."""
     active = state[9] > 0.5
     listed = _listed(short, cnt, scene.n_leaf)
     best = mk.TriBest(state)
@@ -477,7 +494,7 @@ def wave_bounce_reference(state, ids, short, cnt, scene: WaveScene, consts, boun
         boxes = scene.cull_boxes[:scene.n_leaf, :6].tolist()
         warp_live = active.view(-1, 32).sum(dim=1)
         stats.update(dict.fromkeys(BOUNCE_STATS, 0), ray_bounces=int(active.sum()))
-    for leaf in range(scene.n_leaf):
+    for leaf in listed.any(dim=0).nonzero().squeeze(1).tolist():  # no other has a pair
         cand = listed[:, leaf].repeat_interleave(lanes) & active
         if stats is not None:
             tn, tf = mk.slab_interval(boxes[leaf], state[0:3], iv)
