@@ -571,8 +571,8 @@ def materials(dev, card):
             print(f"{label}: the table ({scene.num_mats} rows) read in place against staged in "
                   f"dynamic shared memory, {W}x{H}, max_depth {B}:", flush=True)
         for b, state, ids in states:
-            short, cnt = wf.shortlists_from_mask(wf.wave_mask(state, scene.boxes, kk.t_min,
-                                                              supers=scene.mask_supers))
+            short, cnt = wf.wave_mask_lists(state, scene.boxes, kk.t_min,
+                                            supers=scene.mask_supers)
 
             def bounce(state=state, ids=ids, short=short, cnt=cnt, b=b):
                 return wf.wave_bounce(state, ids, short, cnt, scene, kk, b, seed, 1)
@@ -769,8 +769,9 @@ def bounce(dev, card):
         _, _, scene, k, o, d, short0, states = cs.mask_states(dev, config, seed=0x27)
         W, H = config[2], config[3]
         R, B = W * H, 5
-        bounces = [(b, s, i, *wf.shortlists_from_mask(wf.wave_mask(
-            s, scene.boxes, k.t_min, supers=scene.mask_supers))) for b, s, i in states]
+        bounces = [(b, s, i, *wf.wave_mask_lists(s, scene.boxes, k.t_min,
+                                                 supers=scene.mask_supers))
+                   for b, s, i in states]
         if mesh == "config 4":
             s0, i0, _ = wf.primary_state(o, d, scene, (H, W))
             bounces = [(0, s0, i0, *short0)] + bounces

@@ -39,7 +39,11 @@ source, all at once), then:
        first of a sample of BASELINE config 3 (16,128 triangles) at 512x512
        and config 4 (16,140 triangles) at 1920x1080, each bounce timed in
        turns beside its bound and the supertile and leaf tests its counting
-       instantiation made; the bounce kernel against its plain version on
+       instantiation made, and at config 4's bounce 1 the kernel writing
+       the shortlists in turns with the dense mask and its sort
+       (``python3 chip_smoke.py shortlists`` runs that timing alone, with
+       bounces 1-4 of the 4,080-leaf mesh); the bounce kernel against its
+       plain version on
        the bounce-1 state, with the (ray, leaf) pairs the shortlists list
        and those whose box the ray itself passes, then the whole kernel
        ``wavefront.trace`` against the plain one;
@@ -143,8 +147,10 @@ source, all at once), then:
        against the CPU's, the screen binning (bounce 0 bit-equal to every
        leaf listed), the mask at every live bounce (against the plain
        version, with its counted bound; the staged instantiation in turns
-       with the parent's unit), the compaction against the CPU's, the bounce
-       kernel plain and recording, the whole trace on 8 rows of pixels, the
+       with the parent's unit; at 4,080 leaves the kernel writing the
+       shortlists in turns with the dense mask and its sort), the
+       shortlists against the CPU's compaction, the bounce kernel plain and
+       recording, the whole trace on 8 rows of pixels, the
        table and its Morton gather, the global backward (as phase 17) and
        the culled megakernel on those rows against their plain versions;
        then ``render_step`` and ``mse_step`` on the default route in turns
@@ -1340,8 +1346,8 @@ def mask_states(dev, config, seed=WAVE_SEED, sample=1, pkt=None):
                 perm = wf.coherence_order(state, scene)
                 state, ids = state[:, perm].contiguous(), ids[perm].contiguous()
             states.append((b, state, ids))
-            short, cnt = wf.shortlists_from_mask(wf.wave_mask(state, scene.boxes, k.t_min,
-                                                              supers=scene.mask_supers))
+            short, cnt = wf.wave_mask_lists(state, scene.boxes, k.t_min,
+                                            supers=scene.mask_supers)
         else:
             short, cnt = short0
         state = wf.wave_bounce(state, ids, short, cnt, scene, k, b, seed, sample)
@@ -1364,6 +1370,48 @@ def mask_work(state, scene, mask, stats):
     if scene.n_leaf > MASK_STAGED_LEAVES:
         nbytes += scene.mask_supers.numel() * 4
     return nbytes, (stats["supertile_tests"] + stats["leaf_tests"]) * OPS_SLAB
+
+
+def lists_equal(got, want):
+    """Whether two (shortlists, counts) pairs have the same counts and the
+    same entries in each row's [0, count), on ``want``'s device: the mask
+    kernel writes nothing past a row's count."""
+    import torch
+
+    short, cnt = (x.to(want[0].device) for x in got)
+    w_short, w_cnt = want
+    if not torch.equal(cnt, w_cnt):
+        return False
+    on = torch.arange(short.shape[1], device=short.device)[None, :] < cnt[:, None].long()
+    return torch.equal(short[on], w_short[on])
+
+
+def hold_lists(what, state, scene, k, mask, card, reps=10):
+    """The mask kernel writing the shortlists (`wave_mask_lists`) against
+    the dense mask ``mask`` compacted by the standalone kernel and by
+    `torch.sort` (`shortlists_reference`: the path before the kernel wrote
+    the lists), list for list; then in turns the kernel writing lists, the
+    kernel writing the dense mask, and the dense mask with the sort. Returns
+    {label: ms}."""
+    from ptre_tpu_torch.ops.cuda import wavefront as wf
+
+    def lists():
+        return wf.wave_mask_lists(state, scene.boxes, k.t_min, supers=scene.mask_supers)
+
+    def dense():
+        return wf.wave_mask(state, scene.boxes, k.t_min, supers=scene.mask_supers)
+
+    want = wf.shortlists_reference(mask)
+    check(lists_equal(lists(), want) and lists_equal(wf.shortlists_from_mask(mask), want),
+          f"{what}: the shortlists differ from the sorted compaction's")
+    turns = in_turns({"mask writing lists": lists, "mask writing bytes": dense,
+                      "bytes + sort": lambda: wf.shortlists_reference(dense())}, reps)
+    print(f"  {what}: shortlists equal to the sorted compaction's ({float(want[1].float().mean()):.1f}"
+          f" leaves a block on average); in turns: " + ", ".join(
+              f"{label} {ms:.4f} ms" for label, ms in turns.items())
+          + f"; the sort path {turns['bytes + sort'] - turns['mask writing bytes']:.4f} ms past "
+          f"its kernel [{card}]", flush=True)
+    return turns
 
 
 def wavefront_phases(dev, card, rs, first_mask, static_mask, lane_bounce):
@@ -1448,6 +1496,8 @@ def wavefront_phases(dev, card, rs, first_mask, static_mask, lane_bounce):
                   f"[{card}]", flush=True)
             if b == 1:
                 mask1, mask_ms, mask_work1 = got, turns["shipped"], (nbytes, ops)
+                if name == "config 4":
+                    hold_lists(f"{name} bounce 1", state, scene, k, got, card)
             del want, first, counted
         share0 = float(short0[1].float().sum()) / (short0[1].numel() * scene.n_leaf)
         print(f"  screen binning at bounce 0 lists {100 * share0:.3f} % of (block, leaf) "
@@ -1456,8 +1506,8 @@ def wavefront_phases(dev, card, rs, first_mask, static_mask, lane_bounce):
               f"{W}x{H}, every bounce of the sample, same states and shortlists", flush=True)
         state0, ids0, _ = wf.primary_state(o, d, scene, (H, W))
         bounces = [(0, state0, ids0, *short0)] + [
-            (b, state, ids, *wf.shortlists_from_mask(wf.wave_mask(
-                state, scene.boxes, k.t_min, supers=scene.mask_supers)))
+            (b, state, ids, *wf.wave_mask_lists(state, scene.boxes, k.t_min,
+                                                supers=scene.mask_supers))
             for b, state, ids in states]
         urand = torch.from_numpy(rs.random((2 + 2 * B, R), dtype=np.float32)).to(dev)
         lane_times[name] = hold_wave_lane(name, scene, k, bounces, lane_bounce, urand, card)
@@ -1856,7 +1906,7 @@ def triangle_training_phases(dev, card, rs, fma_bwd, first_bwd, first_culled, de
         state1 = wf.wave_bounce(state0, ids0, *short0, scene, k, 0, TRAIN_SEED, 0)
         perm = wf.coherence_order(state1, scene)
         state1, ids1 = state1[:, perm].contiguous(), ids0[perm].contiguous()
-        short, cnt = wf.shortlists_from_mask(wf.wave_mask(state1, scene.boxes, k.t_min))
+        short, cnt = wf.wave_mask_lists(state1, scene.boxes, k.t_min)
         sel_k = torch.full((B, R), -1, dtype=torch.int32, device=dev)
         sel_r = sel_k.clone()
         got = wf.wave_bounce(state1, ids1, short, cnt, scene, k, 1, TRAIN_SEED, 0, sel=sel_k)
@@ -3024,7 +3074,8 @@ def staged_phases(dev, card, rs, report):
 # PACK_PERM_FRAC of the rows, and the rows and leaf boxes that do not move
 # within PACK_REL of the scene's scale), the screen binning (the bounce-0
 # state equal bit for bit to the one with every leaf listed), the mask at
-# every live bounce (verdicts equal), the compaction (equal to the CPU's),
+# every live bounce (verdicts equal), the shortlists (equal to the CPU's
+# compaction in each row's [0, count)),
 # the bounce kernel plain and recording (as phase 10), the whole trace on
 # PAST_CAP_ROWS rows of pixels (as the card test: TIGHT_FRAC of the
 # channels within TIGHT, rays beyond it on at most 1e-4 of them), the table
@@ -3172,18 +3223,23 @@ def past_cap_phase(dev, card, rs, static_mask, lane_bounce):
                   f"{n_live * n_leaf} (live ray, leaf) pairs; in turns: " + ", ".join(
                       f"{label} {ms:.4f} ms" for label, ms in turns.items())
                   + f"; bound {b_ms:.4f} ms by {b_by} [{card}]", flush=True)
-            short, cnt = wf.shortlists_from_mask(got)
+            if n_leaf > MASK_STAGED_LEAVES:
+                hold_lists(f"{name} bounce {b}", state, scene, k, got, card)
+            short, cnt = wf.wave_mask_lists(state, scene.boxes, k.t_min,
+                                            supers=scene.mask_supers)
             if b == 1:
                 plain_ms = cuda_events(lambda: wf.wave_mask_reference(state, scene.boxes,
                                                                       k.t_min), 1)
                 mask_rows.append((n_leaf, turns["shipped"], plain_ms, nbytes, ops))
                 s_cpu, c_cpu = wf.shortlists_from_mask(got.cpu())
-                check(torch.equal(short.cpu(), s_cpu) and torch.equal(cnt.cpu(), c_cpu),
-                      f"{name}: the compaction differs from the CPU's")
+                check(lists_equal((short, cnt), (s_cpu, c_cpu)),
+                      f"{name}: the shortlists differ from the CPU's compaction")
                 compact_ms = cuda_events(lambda: wf.shortlists_from_mask(got), 3)
-                print(f"  bounce 1: compaction of the ({nb}, {n_leaf}) mask equal to the CPU's, "
-                      f"{compact_ms:.3f} ms on the card; shortlists of {float(cnt.float().mean()):.1f}"
-                      f" leaves a block on average, {int(cnt.max())} at most [{card}]", flush=True)
+                print(f"  bounce 1: the mask kernel's shortlists equal the CPU's compaction of "
+                      f"the ({nb}, {n_leaf}) mask; the standalone kernel compacts that mask in "
+                      f"{compact_ms:.3f} ms on the card; shortlists of "
+                      f"{float(cnt.float().mean()):.1f} leaves a block on average, "
+                      f"{int(cnt.max())} at most [{card}]", flush=True)
                 bounce1 = (state, ids, short, cnt)
             state = wf.wave_bounce(state, ids, short, cnt, scene, k, b, seed, 1)
         del got, want, counted
@@ -5674,10 +5730,38 @@ def take_rows_main():
           flush=True)
 
 
+def shortlists_main():
+    """``python3 chip_smoke.py shortlists``: the kernel library, then the
+    mask kernel writing the shortlists against the dense mask and the sort
+    (`hold_lists`) at every live bounce past 0 of a 1080p sample of the
+    4,080-leaf mesh and at bounce 1 of config 4's."""
+    import torch
+
+    from ptre_tpu_torch.ops.cuda import build
+    from ptre_tpu_torch.ops.cuda import wavefront as wf
+    from ptre_tpu_torch.utils.device import require_cuda
+
+    dev = require_cuda()
+    card = sh(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
+    print(card, f"torch {torch.__version__}", flush=True)
+    build.load_library()
+    for name, mesh in (PAST_CAP_MESHES[1], (TRI_CONFIGS[1][0], TRI_CONFIGS[1][1])):
+        _, _, scene, k, _, _, _, states = mask_states(dev, (name, mesh, W_MAIN, H_MAIN))
+        print(f"shortlists: {name}, {scene.n_leaf} leaves at {W_MAIN}x{H_MAIN}", flush=True)
+        for b, state, _ in states if scene.n_leaf > MASK_STAGED_LEAVES else states[:1]:
+            hold_lists(f"{name} bounce {b}", state, scene, k,
+                       wf.wave_mask(state, scene.boxes, k.t_min, supers=scene.mask_supers),
+                       card)
+    print(json.dumps({"ok": True, "device": {"kind": torch.cuda.get_device_name(0)}}),
+          flush=True)
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--shard-rank"]:
         shard_rank_main(sys.argv[2:])
     elif sys.argv[1:2] == ["take_rows"]:
         take_rows_main()
+    elif sys.argv[1:2] == ["shortlists"]:
+        shortlists_main()
     else:
         main()

@@ -4,7 +4,8 @@
 // trace.cuh, philox.cuh) that mask_kernel.cu, wave_kernel.cu and
 // mega_kernel.cu run per thread, looped over the ray blocks or warps on the
 // CPU, a warp's votes taken by a loop over its rays, the warp's sweep of a
-// leaf (wave.cuh sweep_leaf_warp) by its twin below.
+// leaf (wave.cuh sweep_leaf_warp) and the block's shortlist (wave.cuh
+// bits_to_list) by their twins below.
 //
 //   g++ -std=c++17 -O2 -shared -fPIC -o libptre_host_wave.so host_wave.cpp
 //
@@ -20,19 +21,20 @@
 
 #include "wave.cuh"
 
-// mask_kernel.cu's block over every block of `lanes` rays: the supertile
+namespace {
+
+// mask_kernel.cu's walk over every block of `lanes` rays: the supertile
 // union boxes — taken from `supers` (the global instantiation's table,
 // megakernel.pack_super_boxes) where it is given, else formed by
 // super_union as the staged instantiation forms them —, then per warp of 32
 // rays the two-level walk — a supertile whose leaves are all listed is
 // skipped, else its box is voted on by the live lanes, and, where one
-// passes, each leaf not yet listed — into the block's bit mask, written as
-// one byte a leaf. The kernel's warps run at once and list leaves in
-// another order; the verdict is an OR, so the mask is the same.
-extern "C" void ptre_wave_mask_host(const ptre::MaskParams* params,
-                                    const float* state, const float* boxes,
-                                    const float* supers, uint8_t* mask, int lanes) {
-  const ptre::MaskParams& p = *params;
+// passes, each leaf not yet listed — into the block's listed leaves, which
+// `emit(b, listed)` receives. The kernel's warps run at once and list
+// leaves in another order; the verdict is an OR, so the result is the same.
+template <class Emit>
+void mask_walk_host(const ptre::MaskParams& p, const float* state, const float* boxes,
+                    const float* supers, int lanes, Emit emit) {
   const int n_super = (p.n_leaf + ptre::kSuper - 1) / ptre::kSuper;
   std::vector<float> sup((size_t)n_super * ptre::kBoxStride);
   for (int s = 0; s < n_super; ++s) {
@@ -76,8 +78,81 @@ extern "C" void ptre_wave_mask_host(const ptre::MaskParams* params,
           if (!listed[l] && vote(boxes + l * ptre::kBoxStride)) listed[l] = 1;
       }
     }
-    for (int l = 0; l < p.n_leaf; ++l) mask[b * p.n_leaf + l] = listed[l];
+    emit(b, listed.data());
   }
+}
+
+// wave.cuh bits_to_list, a block of kMaxLanes threads emulated in turn: the
+// words taken kMaxLanes at a time, each warp's inclusive scan of their
+// popcounts, warp 0's exclusive scan of the warps' totals, carried from
+// chunk to chunk; then each warp's non-zero words in ascending order, lane l
+// storing leaf 32 w + l, if set, at the word's offset plus list_slot.
+// list[0, cnt) is written, and *count = cnt.
+void bits_to_list_host(const std::vector<unsigned>& words, int32_t* list, int32_t* count) {
+  constexpr int kWarps = ptre::kMaxLanes / 32;
+  const int n_words = (int)words.size();
+  int base = 0;
+  for (int c = 0; c < n_words; c += ptre::kMaxLanes) {
+    int incl[ptre::kMaxLanes], warp_off[kWarps];
+    for (int t = 0; t < ptre::kMaxLanes; ++t) {
+      const int pc = c + t < n_words ? ptre::popc32(words[c + t]) : 0;
+      incl[t] = (t % 32 == 0 ? 0 : incl[t - 1]) + pc;
+    }
+    int total = 0;
+    for (int w = 0; w < kWarps; ++w) {
+      warp_off[w] = total;
+      total += incl[32 * w + 31];
+    }
+    for (int t = 0; t < ptre::kMaxLanes && c + t < n_words; ++t) {
+      const unsigned word = words[c + t];
+      const int at = base + warp_off[t / 32] + incl[t] - ptre::popc32(word);
+      for (int lane = 0; lane < 32; ++lane)
+        if ((word >> lane) & 1u) list[at + ptre::list_slot(word, lane)] = 32 * (c + t) + lane;
+    }
+    base += total;
+  }
+  *count = base;
+}
+
+// The bit mask of one block's listed leaves (one byte, 0 or 1, a leaf).
+std::vector<unsigned> to_words(const uint8_t* listed, int n_leaf) {
+  std::vector<unsigned> words((n_leaf + 31) / 32, 0u);
+  for (int l = 0; l < n_leaf; ++l)
+    if (listed[l] != 0) words[l >> 5] |= 1u << (l & 31);
+  return words;
+}
+
+}  // namespace
+
+// mask_kernel.cu's launch writing the dense mask (ptre_wave_mask): one byte
+// a leaf, `mask` (r_pad / lanes, n_leaf).
+extern "C" void ptre_wave_mask_host(const ptre::MaskParams* params,
+                                    const float* state, const float* boxes,
+                                    const float* supers, uint8_t* mask, int lanes) {
+  const ptre::MaskParams& p = *params;
+  mask_walk_host(p, state, boxes, supers, lanes, [&](int64_t b, const uint8_t* listed) {
+    std::copy(listed, listed + p.n_leaf, mask + b * p.n_leaf);
+  });
+}
+
+// mask_kernel.cu's launch writing the shortlists (ptre_wave_mask_lists):
+// row b of `list` ((r_pad / lanes, n_leaf) int32) written in [0, count[b]).
+extern "C" void ptre_wave_mask_lists_host(const ptre::MaskParams* params,
+                                          const float* state, const float* boxes,
+                                          const float* supers, int32_t* list, int32_t* count,
+                                          int lanes) {
+  const ptre::MaskParams& p = *params;
+  mask_walk_host(p, state, boxes, supers, lanes, [&](int64_t b, const uint8_t* listed) {
+    bits_to_list_host(to_words(listed, p.n_leaf), list + b * p.n_leaf, count + b);
+  });
+}
+
+// mask_kernel.cu's shortlist_rows_kernel (ptre_shortlists): the shortlists
+// of the nb rows of a dense (nb, n_leaf) bool mask.
+extern "C" void ptre_shortlists_host(const uint8_t* mask, int nb, int n_leaf, int32_t* list,
+                                     int32_t* count) {
+  for (int64_t b = 0; b < nb; ++b)
+    bits_to_list_host(to_words(mask + b * n_leaf, n_leaf), list + b * n_leaf, count + b);
 }
 
 namespace {

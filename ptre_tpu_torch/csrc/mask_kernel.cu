@@ -4,7 +4,7 @@
 // Replaces the TPU kernel ptre_tpu/ops/pallas/wavefront.py _mask_kernel
 // (:102, launched at :164). One CUDA block per ray block of `lanes` rays,
 // one thread per ray of the sorted state. A block with no live ray reads no
-// box and writes zeros. Each warp walks two levels for its own 32 rays: the
+// box. Each warp walks two levels for its own 32 rays: the
 // union box of every supertile of kSuper = 8 Morton-consecutive leaves
 // (wave.cuh super_union), and the leaves of a supertile that some live lane
 // passes; a leaf's verdict is the warp's __any_sync over its live lanes. A
@@ -13,9 +13,16 @@
 // it moves to the next; it skips a supertile whose leaves are all listed
 // already and a leaf that is, by itself or another warp (the verdict is an
 // OR, so the result does not depend on the order). A warp with no live ray
-// tests nothing. After one barrier the block writes its n_leaf bytes,
-// coalesced. Output: the dense (nb, n_leaf) uint8 mask that PyTorch
-// compacts into shortlists (wavefront.shortlists_from_mask).
+// tests nothing. After one barrier the block writes its verdicts in one of
+// two forms (template flag kLists): its shortlist, the ascending ids of the
+// listed leaves, and their count (wave.cuh bits_to_list: a scan of the
+// words' popcounts, then each word's bits at its offset), which the bounce
+// kernel reads (ptre_wave_mask_lists, wavefront.wave_mask_lists); or the
+// dense (nb, n_leaf) byte row, coalesced (ptre_wave_mask, wavefront.
+// wave_mask), for the checks that compare verdicts. A block with no live ray
+// writes a count of 0, or n_leaf zero bytes. shortlist_rows_kernel runs the
+// same routine on a dense bool mask made elsewhere (bounce 0's screen
+// binning, wavefront.shortlists_from_mask), a row a block.
 //
 // Two instantiations of that walk, by where the boxes are read:
 //   * staged, n_leaf <= kMaxMaskLeaves: the block stages the leaf boxes of
@@ -64,6 +71,8 @@
 // whole box table resident in every block (the reference's VMEM budget).
 
 #include <cuda_runtime.h>
+
+#include <algorithm>
 
 #include "wave.cuh"
 
@@ -141,24 +150,54 @@ __device__ __forceinline__ void mask_walk(const MaskParams& p, int n_super,
   }
 }
 
+// Where a launch writes the verdicts: `mask`, (nb, n_leaf) bytes, or, with
+// kLists, `list` (nb, n_leaf) int32 (row b's [0, count[b]) written) and
+// `count` (nb,).
+struct MaskOut {
+  uint8_t* mask;
+  int32_t* list;
+  int32_t* count;
+};
+
+// The block's verdicts, its bit mask `bits` (at least kListScratch words),
+// written as `out` asks; a block with no live ray passes null `bits`. Every
+// thread of the block calls it.
+template <bool kLists>
+__device__ __forceinline__ void write_verdicts(const MaskParams& p, unsigned* bits,
+                                               const MaskOut& out) {
+  const int tid = threadIdx.x;
+  if (kLists) {
+    if (bits == nullptr) {
+      if (tid == 0) out.count[blockIdx.x] = 0;
+      return;
+    }
+    bits_to_list(bits, (p.n_leaf + 31) / 32, out.list + (int64_t)blockIdx.x * p.n_leaf,
+                 out.count + blockIdx.x);
+    return;
+  }
+  uint8_t* row = out.mask + (int64_t)blockIdx.x * p.n_leaf;
+  for (int l = tid; l < p.n_leaf; l += blockDim.x)
+    row[l] = bits == nullptr ? 0 : (bits[l >> 5] >> (l & 31)) & 1u;
+}
+
 // The staged instantiation: n_leaf <= kMaxMaskLeaves.
-template <bool kStats>
+template <bool kStats, bool kLists>
 __global__ void __launch_bounds__(kMaxLanes)
     wave_mask_kernel(const MaskParams p, const float* __restrict__ state,
-                     const float* __restrict__ boxes, uint8_t* __restrict__ mask,
+                     const float* __restrict__ boxes, const MaskOut out,
                      unsigned long long* __restrict__ stats) {
   __shared__ __align__(16) float s_box[kMaxMaskLeaves * kBoxStride];
   __shared__ __align__(16) float s_sup[kMaxMaskSupers * kBoxStride];
   __shared__ unsigned s_bits[kMaskWords];
+  static_assert(kMaskWords >= kListScratch, "the shortlist's scratch");
   const int tid = threadIdx.x;
   const int n_super = (p.n_leaf + kSuper - 1) / kSuper;
 
   const int64_t col = (int64_t)blockIdx.x * blockDim.x + tid;
   const bool live = state[9 * (int64_t)p.r_pad + col] > 0.5f;
-  uint8_t* row = mask + (int64_t)blockIdx.x * p.n_leaf;
   // a block with no live ray reads no box
   if (!__syncthreads_or(live)) {
-    for (int l = tid; l < p.n_leaf; l += blockDim.x) row[l] = 0;
+    write_verdicts<kLists>(p, nullptr, out);
     return;
   }
   float o[3], dir[3];
@@ -175,17 +214,17 @@ __global__ void __launch_bounds__(kMaxLanes)
 
   mask_walk<kStats>(p, n_super, s_box, s_sup, s_bits, live, o, dir, stats);
   __syncthreads();
-  for (int l = tid; l < p.n_leaf; l += blockDim.x) row[l] = (s_bits[l >> 5] >> (l & 31)) & 1u;
+  write_verdicts<kLists>(p, s_bits, out);
 }
 
-// The global instantiation: any n_leaf. `supers` holds the n_super =
-// ceil(n_leaf / kSuper) supertile boxes of `boxes`; the dynamic shared
-// memory, ceil(n_leaf / 32) words, the block's bit mask.
-template <bool kStats>
+// The global instantiation: any n_leaf past kMaxMaskLeaves. `supers` holds
+// the n_super = ceil(n_leaf / kSuper) supertile boxes of `boxes`; the
+// dynamic shared memory, ceil(n_leaf / 32) words, the block's bit mask.
+template <bool kStats, bool kLists>
 __global__ void __launch_bounds__(kMaxLanes)
     wave_mask_global_kernel(const MaskParams p, const float* __restrict__ state,
                             const float* __restrict__ boxes,
-                            const float* __restrict__ supers, uint8_t* __restrict__ mask,
+                            const float* __restrict__ supers, const MaskOut out,
                             unsigned long long* __restrict__ stats) {
   extern __shared__ unsigned s_words[];
   const int tid = threadIdx.x;
@@ -194,9 +233,8 @@ __global__ void __launch_bounds__(kMaxLanes)
 
   const int64_t col = (int64_t)blockIdx.x * blockDim.x + tid;
   const bool live = state[9 * (int64_t)p.r_pad + col] > 0.5f;
-  uint8_t* row = mask + (int64_t)blockIdx.x * p.n_leaf;
   if (!__syncthreads_or(live)) {
-    for (int l = tid; l < p.n_leaf; l += blockDim.x) row[l] = 0;
+    write_verdicts<kLists>(p, nullptr, out);
     return;
   }
   float o[3], dir[3];
@@ -209,25 +247,75 @@ __global__ void __launch_bounds__(kMaxLanes)
 
   mask_walk<kStats>(p, n_super, boxes, supers, s_words, live, o, dir, stats);
   __syncthreads();
-  for (int l = tid; l < p.n_leaf; l += blockDim.x) row[l] = (s_words[l >> 5] >> (l & 31)) & 1u;
+  write_verdicts<kLists>(p, s_words, out);
 }
 
 // Launches the global instantiation with its bit mask's words of dynamic
 // shared memory, opting in past the 48 KB a launch gets without asking.
-template <bool kStats>
+template <bool kStats, bool kLists>
 cudaError_t launch_mask_global(int n_blocks, int lanes, cudaStream_t st, const MaskParams& p,
                                const float* state, const float* boxes, const float* supers,
-                               uint8_t* mask, unsigned long long* stats) {
+                               const MaskOut& out, unsigned long long* stats) {
   const size_t bytes = sizeof(unsigned) * (size_t)((p.n_leaf + 31) / 32);
   if (bytes > 48 * 1024) {
     const cudaError_t rc = cudaFuncSetAttribute(
-        wave_mask_global_kernel<kStats>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        wave_mask_global_kernel<kStats, kLists>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)bytes);
     if (rc != cudaSuccess) return rc;
   }
-  wave_mask_global_kernel<kStats><<<n_blocks, lanes, bytes, st>>>(p, state, boxes, supers, mask,
-                                                                  stats);
+  wave_mask_global_kernel<kStats, kLists><<<n_blocks, lanes, bytes, st>>>(p, state, boxes,
+                                                                          supers, out, stats);
   return cudaGetLastError();
+}
+
+// One launch of either instantiation, by n_leaf, with or without counting.
+template <bool kLists>
+int launch_mask(const MaskParams* params, const float* state, const float* boxes,
+                const float* supers, const MaskOut& out, unsigned long long* stats, int lanes,
+                void* stream) {
+  const MaskParams p = *params;
+  if (p.n_leaf < 1 || lanes < 32 || lanes > kMaxLanes || lanes % 32 != 0 ||
+      p.r_pad % lanes != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int n_blocks = p.r_pad / lanes;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (p.n_leaf > kMaxMaskLeaves) {
+    if (supers == nullptr || reinterpret_cast<uintptr_t>(supers) % 16 != 0 ||
+        reinterpret_cast<uintptr_t>(boxes) % 16 != 0) {
+      return (int)cudaErrorInvalidValue;
+    }
+    return (int)(stats != nullptr
+                     ? launch_mask_global<true, kLists>(n_blocks, lanes, st, p, state, boxes,
+                                                        supers, out, stats)
+                     : launch_mask_global<false, kLists>(n_blocks, lanes, st, p, state, boxes,
+                                                         supers, out, nullptr));
+  }
+  if (stats != nullptr) {
+    wave_mask_kernel<true, kLists><<<n_blocks, lanes, 0, st>>>(p, state, boxes, out, stats);
+  } else {
+    wave_mask_kernel<false, kLists><<<n_blocks, lanes, 0, st>>>(p, state, boxes, out, nullptr);
+  }
+  return (int)cudaGetLastError();
+}
+
+// The shortlist of each row of a dense (nb, n_leaf) bool mask, a block of
+// kMaxLanes threads a row: a warp reads 32 consecutive bytes and its ballot
+// is the row's word, then bits_to_list. The dynamic shared memory holds
+// max(ceil(n_leaf / 32), kListScratch) words.
+__global__ void __launch_bounds__(kMaxLanes)
+    shortlist_rows_kernel(const uint8_t* __restrict__ mask, int n_leaf,
+                          int32_t* __restrict__ list, int32_t* __restrict__ count) {
+  extern __shared__ unsigned s_words[];
+  const int n_words = (n_leaf + 31) / 32;
+  const uint8_t* row = mask + (int64_t)blockIdx.x * n_leaf;
+  for (int l0 = 0; l0 < n_words * 32; l0 += blockDim.x) {
+    const int l = l0 + threadIdx.x;
+    const unsigned word = __ballot_sync(kFullWarp, l < n_leaf && row[l] != 0);
+    if ((threadIdx.x & 31) == 0 && l < n_words * 32) s_words[l >> 5] = word;
+  }
+  __syncthreads();
+  bits_to_list(s_words, n_words, list + (int64_t)blockIdx.x * n_leaf, count + blockIdx.x);
 }
 
 }  // namespace ptre
@@ -244,32 +332,40 @@ extern "C" int ptre_wave_mask_max_staged_leaves() { return ptre::kMaxMaskLeaves;
 // must be 16-byte aligned; may be null at or below it. `stats`: null, or
 // three zeroed uint64 counters (the counting instantiation): the supertile
 // tests and the leaf tests, each times the warp's live rays, and the live
-// rays.
+// rays. ptre_wave_mask writes the dense (r_pad / lanes, n_leaf) byte mask.
 extern "C" int ptre_wave_mask(const ptre::MaskParams* params, const float* state,
                               const float* boxes, const float* supers, uint8_t* mask,
                               unsigned long long* stats, int lanes, void* stream) {
-  const ptre::MaskParams p = *params;
-  if (p.n_leaf < 1 || lanes < 32 || lanes > ptre::kMaxLanes || lanes % 32 != 0 ||
-      p.r_pad % lanes != 0) {
-    return (int)cudaErrorInvalidValue;
+  const ptre::MaskOut out = {mask, nullptr, nullptr};
+  return ptre::launch_mask<false>(params, state, boxes, supers, out, stats, lanes, stream);
+}
+
+// The same launch writing each block's shortlist instead: row b of `list`
+// ((r_pad / lanes, n_leaf) int32) holds the ascending ids of the leaves
+// block b lists in [0, count[b]) and is not written past them.
+extern "C" int ptre_wave_mask_lists(const ptre::MaskParams* params, const float* state,
+                                    const float* boxes, const float* supers, int32_t* list,
+                                    int32_t* count, unsigned long long* stats, int lanes,
+                                    void* stream) {
+  const ptre::MaskOut out = {nullptr, list, count};
+  return ptre::launch_mask<true>(params, state, boxes, supers, out, stats, lanes, stream);
+}
+
+// The shortlists of the nb rows of a dense (nb, n_leaf) bool mask (one byte,
+// 0 or 1, a leaf), as ptre_wave_mask_lists writes them. n_leaf at most
+// wavefront.MAX_MASK_LEAVES (the words in a block's shared memory).
+extern "C" int ptre_shortlists(const uint8_t* mask, int nb, int n_leaf, int32_t* list,
+                               int32_t* count, void* stream) {
+  if (nb < 0 || n_leaf < 1) return (int)cudaErrorInvalidValue;
+  if (nb == 0) return (int)cudaSuccess;
+  const size_t bytes =
+      sizeof(unsigned) * (size_t)std::max((n_leaf + 31) / 32, ptre::kListScratch);
+  if (bytes > 48 * 1024) {
+    const cudaError_t rc = cudaFuncSetAttribute(
+        ptre::shortlist_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (rc != cudaSuccess) return (int)rc;
   }
-  const int n_blocks = p.r_pad / lanes;
-  const cudaStream_t st = (cudaStream_t)stream;
-  if (p.n_leaf > ptre::kMaxMaskLeaves) {
-    if (supers == nullptr || reinterpret_cast<uintptr_t>(supers) % 16 != 0 ||
-        reinterpret_cast<uintptr_t>(boxes) % 16 != 0) {
-      return (int)cudaErrorInvalidValue;
-    }
-    return (int)(stats != nullptr
-                     ? ptre::launch_mask_global<true>(n_blocks, lanes, st, p, state, boxes,
-                                                      supers, mask, stats)
-                     : ptre::launch_mask_global<false>(n_blocks, lanes, st, p, state, boxes,
-                                                       supers, mask, nullptr));
-  }
-  if (stats != nullptr) {
-    ptre::wave_mask_kernel<true><<<n_blocks, lanes, 0, st>>>(p, state, boxes, mask, stats);
-  } else {
-    ptre::wave_mask_kernel<false><<<n_blocks, lanes, 0, st>>>(p, state, boxes, mask, nullptr);
-  }
+  ptre::shortlist_rows_kernel<<<nb, ptre::kMaxLanes, bytes, (cudaStream_t)stream>>>(
+      mask, n_leaf, list, count);
   return (int)cudaGetLastError();
 }

@@ -186,8 +186,78 @@ PTRE_HD void sweep_leaf(const float* rows, int leaf, const WaveRay& r,
   }
 }
 
+// A block's shortlist (mask_kernel.cu): the ascending ids of the set bits of
+// its bit mask, bit l & 31 of word l >> 5 for leaf l. The routine borrows
+// kListScratch words of the mask, which it has read by then, for its scan:
+// one a warp, and the chunk's total in the last.
+constexpr int kListScratch = kMaxLanes / 32 + 1;
+
+PTRE_HD int popc32(unsigned x) {
+#ifdef __CUDA_ARCH__
+  return __popc(x);
+#else
+  return __builtin_popcount(x);
+#endif
+}
+
+// Where set bit `bit` of `word` goes among the word's set bits: the count of
+// the set bits below it.
+PTRE_HD int list_slot(unsigned word, int bit) { return popc32(word & ((1u << bit) - 1u)); }
+
 #ifdef __CUDACC__
 constexpr unsigned kFullWarp = 0xffffffffu;
+
+// A warp's inclusive prefix sum of `v` over its lanes, by shuffles.
+__device__ __forceinline__ int warp_scan(int v) {
+  const int lane = threadIdx.x & 31;
+  for (int k = 1; k < 32; k <<= 1) {
+    const int up = __shfl_up_sync(kFullWarp, v, k);
+    if (lane >= k) v += up;
+  }
+  return v;
+}
+
+// The shortlist of a block's bit mask `words` (n_words words in shared
+// memory, at least kListScratch of them; the bits past the last leaf 0):
+// list[0, cnt) the set bits' leaf ids in ascending order, *count = cnt; the
+// list past cnt is not written, and the words are overwritten. Every thread
+// of the block calls it after a barrier that follows the mask's last write.
+// The words are taken blockDim.x at a time, a word a thread: an exclusive
+// scan of their popcounts (shuffles within a warp, then warp 0 over the
+// warps' totals, in the scratch words) gives each word's offset, carried
+// from chunk to chunk; then a warp expands its non-zero words one at a time,
+// lane l storing leaf 32 w + l, if set, at the word's offset plus
+// list_slot, so a word's stores are consecutive.
+__device__ __forceinline__ void bits_to_list(unsigned* words, int n_words, int32_t* list,
+                                             int32_t* count) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  int* scratch = reinterpret_cast<int*>(words);
+  int base = 0;  // entries the chunks before this one wrote
+  for (int c = 0; c < n_words; c += blockDim.x) {
+    const unsigned word = c + tid < n_words ? words[c + tid] : 0u;
+    const int pc = popc32(word);
+    const int incl = warp_scan(pc);
+    __syncthreads();  // the chunk's words are read, the last chunk's offsets too
+    if (lane == 31) scratch[warp] = incl;
+    __syncthreads();
+    if (warp == 0) {
+      const int v = lane < (int)(blockDim.x >> 5) ? scratch[lane] : 0;
+      const int x = warp_scan(v);
+      if (lane < (int)(blockDim.x >> 5)) scratch[lane] = x - v;
+      if (lane == 31) scratch[kListScratch - 1] = x;
+    }
+    __syncthreads();
+    const int off = base + scratch[warp] + incl - pc;
+    base += scratch[kListScratch - 1];
+    for (unsigned nz = __ballot_sync(kFullWarp, word != 0u); nz != 0u; nz &= nz - 1u) {
+      const int src = __ffs(nz) - 1;
+      const unsigned w = __shfl_sync(kFullWarp, word, src);
+      const int at = __shfl_sync(kFullWarp, off, src);
+      if ((w >> lane) & 1u) list[at + list_slot(w, lane)] = ((c + (warp << 5) + src) << 5) + lane;
+    }
+  }
+  if (tid == 0) *count = base;
+}
 
 // A float's order as an unsigned, -0.0 taken as +0.0: for floats a, b that
 // are not NaN, a < b iff order_key(a) < order_key(b), a == b iff the keys

@@ -151,6 +151,12 @@ def load_library() -> ctypes.CDLL:
     lib.ptre_wave_mask.restype = ctypes.c_int
     # (params, state, boxes, supers, mask, stats, lanes, stream)
     lib.ptre_wave_mask.argtypes = [ptr] * 6 + [ctypes.c_int, ptr]
+    lib.ptre_wave_mask_lists.restype = ctypes.c_int
+    # (params, state, boxes, supers, list, count, stats, lanes, stream)
+    lib.ptre_wave_mask_lists.argtypes = [ptr] * 7 + [ctypes.c_int, ptr]
+    lib.ptre_shortlists.restype = ctypes.c_int
+    # (mask, nb, n_leaf, list, count, stream)
+    lib.ptre_shortlists.argtypes = [ptr, ctypes.c_int, ctypes.c_int, ptr, ptr, ptr]
     lib.ptre_wave_mask_max_staged_leaves.restype = ctypes.c_int
     lib.ptre_wave_mask_max_staged_leaves.argtypes = []
     lib.ptre_wave_bounce.restype = ctypes.c_int

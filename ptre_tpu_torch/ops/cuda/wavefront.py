@@ -1,5 +1,5 @@
 """Wavefront path tracing for triangle-scale scenes: sorted ray blocks, a
-per-bounce cull mask compacted into leaf shortlists, and a shortlist sweep.
+per-bounce cull mask written as leaf shortlists, and a shortlist sweep.
 
 Port of `ptre_tpu/ops/pallas/wavefront.py`. Per bounce:
 
@@ -10,8 +10,11 @@ Port of `ptre_tpu/ops/pallas/wavefront.py`. Per bounce:
      whose projected box overlaps the tile); later bounces run the MASK
      kernel, the slab verdict of every (ray block, leaf box) ORed over the
      block's live rays;
-  3. PyTorch compacts the (nb, n_leaf) mask into ascending leaf shortlists
-     (`shortlists_from_mask`);
+  3. the mask kernel writes each block's verdicts as its ascending leaf
+     shortlist and count (`wave_mask_lists`), and bounce 0's screen-binned
+     mask becomes shortlists in a small kernel of the same unit
+     (`shortlists_from_mask`); the plain versions (CPU tensors, ``plain``)
+     compact a dense mask with `torch.sort` (`shortlists_reference`);
   4. the BOUNCE kernel walks each block's shortlist, a warp at a time; a
      ray is swept against a listed leaf's rows only where it passes the
      leaf's box itself, bounded by its closest hit so far, and the warp
@@ -24,10 +27,13 @@ bounce also writes every live ray's winner into a (B, R) int32 selection
 array by the ray's original id: the forward of the triangle-scale gradient
 path (`ops/cuda/fused_grad.trace_grad`).
 
-  * `wave_mask` / `wave_bounce` are the wrappers of `csrc/mask_kernel.cu` and
-    `csrc/wave_kernel.cu` (launches counted in ``mask_launches``, those of
-    the mask's global instantiation also in ``mask_launches_global``, and
-    ``bounce_launches``); on CPU tensors they run `wave_mask_reference` /
+  * `wave_mask_lists` / `wave_bounce` are the wrappers of
+    `csrc/mask_kernel.cu` and `csrc/wave_kernel.cu` (launches counted in
+    ``mask_launches``, those of the mask's global instantiation also in
+    ``mask_launches_global``, and ``bounce_launches``; compactions in
+    ``shortlists_on_card`` and ``shortlists_sorted``); `wave_mask` is the
+    mask kernel writing the dense mask, for the checks that compare
+    verdicts. On CPU tensors they run `wave_mask_reference` /
     `wave_bounce_reference`, the plain versions, vectorised over (a chunk
     of leaves x rays) and (rays x one 64-row leaf). Anything else raises;
     nothing falls back.
@@ -107,6 +113,12 @@ bounce_launches = 0
 #: instantiation (wave_mask_global_kernel: more leaves than the staged one
 #: takes, ``ptre_wave_mask_max_staged_leaves``)
 mask_launches_global = 0
+#: shortlist compactions on CUDA tensors in this process: written on the
+#: card by `csrc/mask_kernel.cu`'s routine, in the mask kernel's launch
+#: (`wave_mask_lists`) or from a dense mask (`shortlists_from_mask`), and
+#: sorted by `torch.sort` (`shortlists_reference`)
+shortlists_on_card = 0
+shortlists_sorted = 0
 
 
 def supports(packet) -> bool:
@@ -168,18 +180,52 @@ def coherence_key(state, lo, hi):
     return torch.where(act, key, 0x40000000)
 
 
-def shortlists_from_mask(mask):
-    """(nb, n_leaf) bool survival mask → (shortlists (nb, n_leaf) int32,
-    counts (nb,) int32). Row b lists the surviving leaves of block b in
-    ascending order (the Morton tie-break order, as `top_k` gives it in
-    `wavefront.py:180-201`), then n_leaf. The reference also pads its
-    counts to whole sweep groups and appends a group of pad entries; the
-    kernel here needs neither."""
+def shortlists_reference(mask):
+    """Plain version of the compaction, on any device: (nb, n_leaf) bool
+    survival mask → (shortlists (nb, n_leaf) int32, counts (nb,) int32).
+    Row b lists the surviving leaves of block b in ascending order (the
+    Morton tie-break order, as `top_k` gives it in `wavefront.py:180-201`),
+    then n_leaf. The reference also pads its counts to whole sweep groups
+    and appends a group of pad entries; the kernel here needs neither."""
+    global shortlists_sorted
     n_leaf = mask.shape[1]
     cnt = mask.sum(dim=1, dtype=torch.int32)
     dropped, order = torch.sort(torch.logical_not(mask).view(torch.uint8), dim=1,
                                 stable=True)
     short = order.to(torch.int32).masked_fill_(dropped.view(torch.bool), n_leaf)
+    if mask.device.type == "cuda":
+        shortlists_sorted += 1
+    return short, cnt
+
+
+def shortlists_from_mask(mask):
+    """(shortlists, counts) of an (nb, n_leaf) bool mask, as the bounce
+    kernel reads them: row b's ``[0, counts[b])`` the leaves block b lists,
+    ascending. A CUDA mask launches `csrc/mask_kernel.cu`'s
+    shortlist_rows_kernel, which writes nothing past a row's count (counted
+    in ``shortlists_on_card``); a CPU mask runs `shortlists_reference`,
+    which pads the rows with n_leaf; anything else raises."""
+    global shortlists_on_card
+    if mask.device.type == "cpu":
+        return shortlists_reference(mask)
+    if mask.device.type != "cuda":
+        raise RendererError(f"shortlists_from_mask runs on cuda or cpu, not {mask.device}")
+    nb, n_leaf = mask.shape
+    if mask.dtype != torch.bool or not 1 <= n_leaf <= MAX_MASK_LEAVES:
+        raise RendererError(f"shortlists_from_mask takes a bool mask of 1 to "
+                            f"{MAX_MASK_LEAVES} leaves, got {mask.dtype} {tuple(mask.shape)}")
+    mask = mask.contiguous()
+    short = torch.empty((nb, n_leaf), dtype=torch.int32, device=mask.device)
+    cnt = torch.empty((nb,), dtype=torch.int32, device=mask.device)
+    lib = build.load_library()
+    with torch.cuda.device(mask.device):
+        stream = torch.cuda.current_stream(mask.device).cuda_stream
+        rc = lib.ptre_shortlists(mask.data_ptr(), nb, n_leaf, short.data_ptr(),
+                                 cnt.data_ptr(), stream)
+    if rc != 0:
+        raise RendererError(
+            f"shortlist kernel launch failed: {lib.ptre_cuda_error_string(rc).decode()}")
+    shortlists_on_card += 1
     return short, cnt
 
 
@@ -408,21 +454,13 @@ def _check_lanes(r_pad: int, lanes: int):
 MASK_STATS = ("supertile_tests", "leaf_tests", "live_rays")
 
 
-def wave_mask(state, boxes, t_min: float, lanes: int = LANES, stats=None, supers=None):
-    """The (nb, n_leaf) bool cull mask of one bounce. CUDA tensors launch
-    `csrc/mask_kernel.cu` (counted in ``mask_launches``); CPU tensors run
-    `wave_mask_reference`; anything else raises. Up to 1,024 leaves the
-    kernel stages the boxes in shared memory; past that (counted in
-    ``mask_launches_global`` too) it reads them and ``supers``, their
-    (ceil(n_leaf / 8), 8) supertile unions (`WaveScene.mask_supers`; None:
-    formed here), through L1/L2.
-    ``stats``: None, or a zeroed (3,) int64 CUDA tensor that the counting
-    instantiation adds `MASK_STATS` into (the verdicts are the same)."""
-    global mask_launches, mask_launches_global
-    if state.device.type == "cpu":
-        return wave_mask_reference(state, boxes, t_min, lanes)
+def _launch_mask(state, boxes, t_min: float, lanes: int, stats, supers, lists: bool):
+    """One launch of the mask kernel on CUDA tensors: the dense (nb, n_leaf)
+    bool mask, or with ``lists`` its (shortlists, counts)."""
+    global mask_launches, mask_launches_global, shortlists_on_card
     if state.device.type != "cuda":
-        raise RendererError(f"wave_mask runs on cuda or cpu, not {state.device}")
+        what = "wave_mask_lists" if lists else "wave_mask"
+        raise RendererError(f"{what} runs on cuda or cpu, not {state.device}")
     r_pad, n_leaf = state.shape[1], boxes.shape[0]
     if supers is None:
         supers = mk.pack_super_boxes(boxes).contiguous()
@@ -437,21 +475,60 @@ def wave_mask(state, boxes, t_min: float, lanes: int = LANES, stats=None, supers
     if stats is not None:
         mk.check_tensors("state", state.device, [
             ("stats", stats, (len(MASK_STATS),), torch.int64)])
-    mask = torch.empty((r_pad // lanes, n_leaf), dtype=torch.bool, device=state.device)
+    nb, dev = r_pad // lanes, state.device
     p = MaskParams(t_min=mk.f32(t_min), r_pad=r_pad, n_leaf=n_leaf)
+    counts = None if stats is None else stats.data_ptr()
     lib = build.load_library()
-    with torch.cuda.device(state.device):
-        stream = torch.cuda.current_stream(state.device).cuda_stream
-        rc = lib.ptre_wave_mask(ctypes.addressof(p), state.data_ptr(), boxes.data_ptr(),
-                                supers.data_ptr(), mask.data_ptr(),
-                                None if stats is None else stats.data_ptr(), lanes, stream)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        common = (ctypes.addressof(p), state.data_ptr(), boxes.data_ptr(), supers.data_ptr())
+        if lists:
+            short = torch.empty((nb, n_leaf), dtype=torch.int32, device=dev)
+            cnt = torch.empty((nb,), dtype=torch.int32, device=dev)
+            out = (short, cnt)
+            rc = lib.ptre_wave_mask_lists(*common, short.data_ptr(), cnt.data_ptr(), counts,
+                                          lanes, stream)
+        else:
+            out = torch.empty((nb, n_leaf), dtype=torch.bool, device=dev)
+            rc = lib.ptre_wave_mask(*common, out.data_ptr(), counts, lanes, stream)
     if rc != 0:
         raise RendererError(
             f"mask kernel launch failed: {lib.ptre_cuda_error_string(rc).decode()}")
     mask_launches += 1
     if n_leaf > lib.ptre_wave_mask_max_staged_leaves():
         mask_launches_global += 1
-    return mask
+    if lists:
+        shortlists_on_card += 1
+    return out
+
+
+def wave_mask(state, boxes, t_min: float, lanes: int = LANES, stats=None, supers=None):
+    """The (nb, n_leaf) bool cull mask of one bounce. CUDA tensors launch
+    `csrc/mask_kernel.cu` (counted in ``mask_launches``); CPU tensors run
+    `wave_mask_reference`; anything else raises. Up to 1,024 leaves the
+    kernel stages the boxes in shared memory; past that (counted in
+    ``mask_launches_global`` too) it reads them and ``supers``, their
+    (ceil(n_leaf / 8), 8) supertile unions (`WaveScene.mask_supers`; None:
+    formed here), through L1/L2.
+    ``stats``: None, or a zeroed (3,) int64 CUDA tensor that the counting
+    instantiation adds `MASK_STATS` into (the verdicts are the same)."""
+    if state.device.type == "cpu":
+        return wave_mask_reference(state, boxes, t_min, lanes)
+    return _launch_mask(state, boxes, t_min, lanes, stats, supers, lists=False)
+
+
+def wave_mask_lists(state, boxes, t_min: float, lanes: int = LANES, stats=None, supers=None):
+    """The cull of one bounce as the bounce kernel reads it: (shortlists
+    (nb, n_leaf) int32, counts (nb,) int32), row b's ``[0, counts[b])`` the
+    leaves `wave_mask` lists for block b, ascending. CUDA tensors launch the
+    mask kernel as `wave_mask` does (the same counters and ``stats``), which
+    writes each block's shortlist and count itself and nothing past the
+    count (counted in ``shortlists_on_card`` too); CPU tensors run
+    `wave_mask_reference` and `shortlists_reference`; anything else
+    raises."""
+    if state.device.type == "cpu":
+        return shortlists_reference(wave_mask_reference(state, boxes, t_min, lanes))
+    return _launch_mask(state, boxes, t_min, lanes, stats, supers, lists=True)
 
 
 # ---- the bounce kernel (B6) ----------------------------------------------------
@@ -635,7 +712,8 @@ STAGE_SPANS = {name: "ptre.wave." + name for name in ("gather", "sort", "mask", 
 
 class StageTimer:
     """Device time of `trace`'s stages by CUDA events, summed by stage name:
-    mask (kernel), compact (shortlists), sort (coherence key + argsort),
+    mask (kernel, which writes the shortlists), compact (the plain
+    versions' sort of a dense mask), sort (coherence key + argsort),
     gather (state permutations and the final scatter), bounce (kernel).
     Each stage opens its span (`STAGE_SPANS`) as it does without a timer."""
 
@@ -685,11 +763,12 @@ def initial_state(o, d, lanes: int = LANES):
 
 
 def primary_state(o, d, scene: WaveScene, tile_hint=None, cull: bool = True,
-                  lanes: int = LANES):
+                  lanes: int = LANES, plain: bool = False):
     """The bounce-0 state and ids, in pixel-tile order when ``tile_hint``
     (H, W) tiles the R rays, and then — with ``cull`` and the scene's screen
     boxes, and no padding — the screen-binned bounce-0 shortlists (else
-    None) (`wavefront.py:747-785`)."""
+    None) (`wavefront.py:747-785`): `shortlists_from_mask`, or with
+    ``plain`` `shortlists_reference`."""
     R = o.shape[0]
     state, ids = initial_state(o, d, lanes)
     r_pad = state.shape[1]
@@ -703,8 +782,9 @@ def primary_state(o, d, scene: WaveScene, tile_hint=None, cull: bool = True,
     state, ids = state[:, perm0], ids[perm0]
     short0 = None
     if cull and scene.leaf_screen is not None and r_pad == R:
-        short0 = shortlists_from_mask(screen_block_mask(
-            scene.leaf_screen, tile_hint[0], tile_hint[1], TILE_ROWS, lanes // TILE_ROWS))
+        compact = shortlists_reference if plain else shortlists_from_mask
+        short0 = compact(screen_block_mask(scene.leaf_screen, tile_hint[0], tile_hint[1],
+                                           TILE_ROWS, lanes // TILE_ROWS))
     return state, ids, short0
 
 
@@ -755,11 +835,10 @@ def trace(o, d, scene: WaveScene, consts, max_depth: int, seed: int = 0,
         mk.check_tensors("o", dev, [("bounce_stats", bounce_stats, (len(BOUNCE_STATS),),
                                      torch.int64)])
     stage = timer or _stage_span
-    mask_fn = (wave_mask_reference if plain
-               else functools.partial(wave_mask, supers=scene.mask_supers))
+    plain_cull = plain or dev.type == "cpu"
     bounce_fn = _bounce_reference if plain else wave_bounce
     with stage("gather"):
-        state, ids, short0 = primary_state(o, d, scene, tile_hint, cull, lanes)
+        state, ids, short0 = primary_state(o, d, scene, tile_hint, cull, lanes, plain)
     r_pad = state.shape[1]
     nb = r_pad // lanes
     sel = torch.full((max_depth, R), -1, dtype=torch.int32, device=dev) if record else None
@@ -778,11 +857,15 @@ def trace(o, d, scene: WaveScene, consts, max_depth: int, seed: int = 0,
         if b == 0 and short0 is not None:
             short, cnt = short0
             binned_bounces += 1
+        elif cull and scene.n_leaf and plain_cull:
+            with stage("mask"):
+                mask = wave_mask_reference(state, scene.boxes, consts.t_min, lanes)
+            with stage("compact"):
+                short, cnt = shortlists_reference(mask)
         elif cull and scene.n_leaf:
             with stage("mask"):
-                mask = mask_fn(state, scene.boxes, consts.t_min, lanes)
-            with stage("compact"):
-                short, cnt = shortlists_from_mask(mask)
+                short, cnt = wave_mask_lists(state, scene.boxes, consts.t_min, lanes,
+                                             supers=scene.mask_supers)
         else:
             short, cnt = all_leaves(nb, scene.n_leaf, device=dev)
         with stage("bounce"):

@@ -13,7 +13,10 @@ the reference's formulas, float32 in another order.
 Marked ``cuda`` (skipped without a card): the counter of the mask kernel's
 global instantiation, `wavefront.mask_launches_global`, against the
 launches of wave_mask_global_kernel, and the benchmark's readers of that
-kernel (`benchmark/metrics/mask_global.*_ms.py`) on traced runs.
+kernel (`benchmark/metrics/mask_global.*_ms.py`) on traced runs; the
+shortlists the mask kernel writes itself (`wavefront.wave_mask_lists`)
+against the dense mask compacted by `torch.sort`, list for list and, through
+1080p render steps and recording traces, pixel for pixel.
 """
 
 from __future__ import annotations
@@ -32,7 +35,9 @@ from benchmark.reference.scene import Scene as RefScene
 from benchmark.rooflines import mask_global
 from ptre_tpu_torch.models import demo
 from ptre_tpu_torch.models.scene import PACKET_COUNTS, PACKET_LEAVES
+from ptre_tpu_torch.ops import camera as cam_ops
 from ptre_tpu_torch.ops import integrator
+from ptre_tpu_torch.ops.cuda import megakernel as mk
 from ptre_tpu_torch.ops.cuda import build
 from ptre_tpu_torch.ops.cuda import wavefront as wf
 from ptre_tpu_torch.render import pathtracer as pt
@@ -49,8 +54,8 @@ LEAVES = ("transforms", "sph_center", "sph_radius", "mat_albedo", "mat_param", "
           "sky_top", "cam_position", "cam_forward", "cam_fov")
 
 
-def _config(width: int = W, height: int = H) -> dict:
-    with open(os.path.join(ROOT, "benchmark", "configs", "big_mesh.json")) as f:
+def _config(width: int = W, height: int = H, name: str = "big_mesh") -> dict:
+    with open(os.path.join(ROOT, "benchmark", "configs", name + ".json")) as f:
         config = json.load(f)
     config.update(width=width, height=height)
     return config
@@ -236,3 +241,107 @@ def test_mask_global_ms_reads_none_on_mixed_mesh(cuda, workload):
     assert run.profile.kernel(lambda n: "wave_mask_kernel" in n)[0] > 0
     for metric in ("mask_global.render_ms", "mask_global.train_ms"):
         assert harness.read_metric(run, metric) is None
+
+
+def _sorted_lists(mask):
+    """The compaction as `torch.sort` made it before the mask kernel wrote
+    the shortlists: each row's leaves ascending, then n_leaf."""
+    n_leaf = mask.shape[1]
+    cnt = mask.sum(dim=1, dtype=torch.int32)
+    dropped, order = torch.sort(torch.logical_not(mask).view(torch.uint8), dim=1, stable=True)
+    return order.to(torch.int32).masked_fill_(dropped.view(torch.bool), n_leaf), cnt
+
+
+def _dense_then_sorted(state, boxes, t_min, lanes=wf.LANES, stats=None, supers=None):
+    """`wave_mask_lists` as the dense mask and the sort."""
+    return _sorted_lists(wf.wave_mask(state, boxes, t_min, lanes, stats, supers))
+
+
+def _assert_lists_equal(got, want):
+    (short, cnt), (w_short, w_cnt) = got, want
+    assert torch.equal(cnt, w_cnt)
+    on = torch.arange(short.shape[1], device=short.device)[None, :] < cnt[:, None].long()
+    assert torch.equal(short[on], w_short[on])
+
+
+#: the 1080p scenes of the two mask instantiations: config 4 (254 leaves,
+#: staged) and the 4,080-leaf mesh (global)
+LIST_SCENES = {
+    "config4": ("config4_mixed_scene", dict(segments=128, rings=64)),
+    "4080_leaves": ("config3_scene", dict(flat=False, segments=512, rings=256, diffuse=True)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mesh", list(LIST_SCENES))
+def test_mask_lists_equal_the_sorted_dense_mask(cuda, mesh):
+    """At every bounce past 0 of a 1080p sample: `wave_mask_lists`' counts
+    and each row's [0, count) equal those of the dense mask compacted by
+    the standalone kernel (`shortlists_from_mask`) and by `torch.sort`, and
+    the counting instantiation gives the same lists and the dense form's
+    live rays (the tests a walk makes depend on the order its warps list
+    leaves in, so they differ from launch to launch); each call is one more
+    ``shortlists_on_card``."""
+    import chip_smoke
+
+    _, _, scene, k, _, _, short0, states = chip_smoke.mask_states(
+        cuda, (mesh, LIST_SCENES[mesh], 1920, 1080))
+    assert len(states) == 4 and (scene.n_leaf > STAGED_LEAVES) == (mesh == "4080_leaves")
+    for b, state, _ in states:
+        before = (wf.shortlists_on_card, wf.shortlists_sorted)
+        got = wf.wave_mask_lists(state, scene.boxes, k.t_min, supers=scene.mask_supers)
+        mask = wf.wave_mask(state, scene.boxes, k.t_min, supers=scene.mask_supers)
+        standalone = wf.shortlists_from_mask(mask)
+        assert (wf.shortlists_on_card, wf.shortlists_sorted) == (before[0] + 2, before[1])
+        counts = [torch.zeros(len(wf.MASK_STATS), dtype=torch.int64, device=cuda)
+                  for _ in range(2)]
+        counted = wf.wave_mask_lists(state, scene.boxes, k.t_min, stats=counts[0],
+                                     supers=scene.mask_supers)
+        wf.wave_mask(state, scene.boxes, k.t_min, stats=counts[1], supers=scene.mask_supers)
+        want = _sorted_lists(mask)
+        for lists in (got, standalone, counted):
+            _assert_lists_equal(lists, want)
+        live = wf.MASK_STATS.index("live_rays")
+        assert int(counts[0][live]) == int(counts[1][live]) == int((state[9] > 0.5).sum()), b
+        assert bool((counts[0] > 0).all()), b
+        assert 0 < int(got[1].sum()) < mask.numel(), b
+    _assert_lists_equal(short0, _sorted_lists(wf.screen_block_mask(
+        scene.leaf_screen, 1080, 1920, wf.TILE_ROWS, wf.LANES // wf.TILE_ROWS)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["big_mesh", "mixed_mesh"])
+def test_render_step_equals_the_sorted_compaction(cuda, name, monkeypatch):
+    """A 1080p `render_step` at spp 4 of the benchmark's configuration
+    compacts 20 times on the card (bounce 0's screen-binned mask and 4 mask
+    bounces a sample) and sorts nothing, and its image is bit for bit that
+    of the same step with every compaction the dense mask and `torch.sort`;
+    so are a recording trace's colours and selections."""
+    c = _config(1920, 1080, name)
+    packet = program.build_scene(c).build_packet(device=cuda)
+    cam, cfg = program.camera(c, cuda), program.render_config(c)
+    assert cfg.max_depth == 5 and pt.route(packet, cfg) == "wavefront"
+    scene = wf.prepare_scene(packet, screen_cam=cam)
+    k = mk.TraceConsts.from_config(cfg)
+    px, py = pt.pixel_grid(1080, 1920, cuda)
+    o, d = (x.contiguous() for x in cam_ops.get_rays(cam, px, py, torch.zeros(
+        (1920 * 1080, 2), device=cuda)))
+
+    def run():
+        accum = program.render_step(packet, cam, program.AccumState.create(1080, 1920),
+                                    RENDER_SEED, cfg, spp=4)
+        rec = wf.trace(o, d, scene, k, cfg.max_depth, 11, 1, tile_hint=(1080, 1920),
+                       record=True)
+        return accum.linear, rec[0], rec[1]
+
+    before = (wf.shortlists_on_card, wf.shortlists_sorted)
+    got = run()
+    torch.cuda.synchronize()
+    assert wf.shortlists_on_card - before[0] == 20 + 5  # the step, then the trace
+    assert wf.shortlists_sorted == before[1]
+    monkeypatch.setattr(wf, "wave_mask_lists", _dense_then_sorted)
+    monkeypatch.setattr(wf, "shortlists_from_mask", _sorted_lists)
+    want = run()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert float(got[0].max()) > 0.05 and int((got[2] >= 0).sum()) > 0

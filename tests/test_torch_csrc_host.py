@@ -131,6 +131,10 @@ def wave_lib(tmp_path_factory):
     ptr = ctypes.c_void_p
     lib.ptre_wave_mask_host.restype = None
     lib.ptre_wave_mask_host.argtypes = [ptr] * 5 + [ctypes.c_int]
+    lib.ptre_wave_mask_lists_host.restype = None
+    lib.ptre_wave_mask_lists_host.argtypes = [ptr] * 6 + [ctypes.c_int]
+    lib.ptre_shortlists_host.restype = None
+    lib.ptre_shortlists_host.argtypes = [ptr, ctypes.c_int, ctypes.c_int, ptr, ptr]
     lib.ptre_wave_bounce_host.restype = None
     lib.ptre_wave_bounce_host.argtypes = [ptr] * 15 + [ctypes.c_int]
     lib.ptre_trace_culled_host.restype = None
@@ -333,12 +337,21 @@ def test_host_mask_two_level_walk_matches_plain_on_adversarial_rays(wave_lib, na
     assert n_leaf % mk.SUPER != 0 and (n_leaf > 1024) == (name == "past_1024")
     want = wf.wave_mask_reference(state, boxes, t_min, lanes)
     mp = wf.MaskParams(t_min=t_min, r_pad=state.shape[1], n_leaf=n_leaf)
+    want_short, want_cnt = wf.shortlists_from_mask(want)
     for supers in (None, mk.pack_super_boxes(boxes).contiguous()):
         mask = torch.full((state.shape[1] // lanes, n_leaf), 7, dtype=torch.uint8)
         wave_lib.ptre_wave_mask_host(ctypes.addressof(mp), state.data_ptr(), boxes.data_ptr(),
                                      None if supers is None else supers.data_ptr(),
                                      mask.data_ptr(), lanes)
         np.testing.assert_array_equal(mask.numpy(), want.numpy().astype(np.uint8))
+        # the same walk writing each block's shortlist (ptre_wave_mask_lists)
+        short = torch.full((state.shape[1] // lanes, n_leaf), _UNWRITTEN, dtype=torch.int32)
+        cnt = torch.full((state.shape[1] // lanes,), _UNWRITTEN, dtype=torch.int32)
+        wave_lib.ptre_wave_mask_lists_host(
+            ctypes.addressof(mp), state.data_ptr(), boxes.data_ptr(),
+            None if supers is None else supers.data_ptr(), short.data_ptr(), cnt.data_ptr(),
+            lanes)
+        _assert_lists_equal(short, cnt, want_short, want_cnt)
     assert bool(want.any()) and not bool(want.all()) and not bool(want[-1].any())
     # per ray: leaf passes imply supertile passes
     o = state[0:3]
@@ -352,6 +365,49 @@ def test_host_mask_two_level_walk_matches_plain_on_adversarial_rays(wave_lib, na
         assert bool((~passes | ((tn_s <= tf_s) & (tf_s >= t_min))).all()), leaf
         n_pass += int(passes.sum())
     assert n_pass > 0
+
+
+#: what the shortlist tests fill the lists with before a call: an entry past
+#: a row's count must keep it
+_UNWRITTEN = -7
+
+
+def _assert_lists_equal(short, cnt, want_short, want_cnt):
+    """Counts equal, each row's [0, count) equal to the sorted compaction's
+    entry for entry, and nothing written past the count."""
+    assert torch.equal(cnt, want_cnt)
+    on = torch.arange(short.shape[1])[None, :] < cnt[:, None].long()
+    assert torch.equal(short[on], want_short[on])
+    assert bool((short[~on] == _UNWRITTEN).all())
+
+
+def _shortlist_rows(n_leaf: int, rs) -> torch.Tensor:
+    """Rows of a bool mask: empty, full, alternating leaves, the last leaf
+    alone, and three random rows (dense, sparse, one leaf in 500)."""
+    leaf = torch.arange(n_leaf)
+    rows = [torch.zeros(n_leaf, dtype=torch.bool), torch.ones(n_leaf, dtype=torch.bool),
+            leaf % 2 == 0, leaf == n_leaf - 1]
+    rows += [torch.from_numpy(rs.random(n_leaf) < p) for p in (0.5, 0.05, 0.002)]
+    return torch.stack(rows)
+
+
+@pytest.mark.parametrize("n_leaf", [1, 31, 32, 33, 254, 1024, 1025, 4080, 262_176])
+def test_host_shortlists_match_the_sorted_compaction(wave_lib, n_leaf):
+    """csrc/host_wave.cpp's twin of the shortlist routine (wave.cuh
+    bits_to_list: the popcount scan in chunks of a block's 256 words, each
+    word's bits at its offset), as the standalone kernel runs it on a dense
+    mask, gives `shortlists_reference`'s counts and the same ascending
+    leaves in [0, count), and writes nothing past the count: one word and
+    less, whole words, a ragged last word, the staged and global
+    instantiations' sizes, and 8,193 words (more chunks than one)."""
+    mask = _shortlist_rows(n_leaf, np.random.default_rng(n_leaf))
+    want_short, want_cnt = wf.shortlists_reference(mask)
+    short = torch.full(mask.shape, _UNWRITTEN, dtype=torch.int32)
+    cnt = torch.full(mask.shape[:1], _UNWRITTEN, dtype=torch.int32)
+    wave_lib.ptre_shortlists_host(mask.contiguous().data_ptr(), mask.shape[0], n_leaf,
+                                  short.data_ptr(), cnt.data_ptr())
+    _assert_lists_equal(short, cnt, want_short, want_cnt)
+    assert cnt[0] == 0 and cnt[1] == n_leaf and cnt[3] == 1 and short[3, 0] == n_leaf - 1
 
 
 @pytest.mark.parametrize("name", list(WAVE_CASES))

@@ -500,15 +500,18 @@ def test_render_step_triangle_scene_goes_through_wavefront_kernels(cuda):
     pkt = demo.config4_mixed_scene(64, 32).build_packet(device=cuda)
     cam = cam_ops.Camera.create(width=W, height=H)
     before = (wf.mask_launches, wf.bounce_launches, wf.live_bounces, wf.binned_bounces,
-              rk.launches)
+              rk.launches, wf.shortlists_on_card, wf.shortlists_sorted)
     acc = pt.render_step(pkt, cam, pt.AccumState.create(H, W, cuda), 3, cfg, spp=2)
     torch.cuda.synchronize()
-    masks, bounces, live, binned, renders = (
+    masks, bounces, live, binned, renders, on_card, sorted_ = (
         a - b for a, b in zip((wf.mask_launches, wf.bounce_launches, wf.live_bounces,
-                               wf.binned_bounces, rk.launches), before))
+                               wf.binned_bounces, rk.launches, wf.shortlists_on_card,
+                               wf.shortlists_sorted), before))
     # every bounce is launched, with live rays or not (no host read decides)
     assert renders == 0 and binned == 2 and live == 2 * cfg.max_depth
     assert bounces == live and masks == live - binned
+    # every bounce's shortlists written on the card, none sorted
+    assert on_card == live and sorted_ == 0
     lin = acc.linear
     assert bool(torch.isfinite(lin).all()) and 0.0 <= float(lin.min()) <= float(lin.max()) <= 1.0 + 1e-6
     # the same step with the plain versions on the CPU, same seed and draws
@@ -525,6 +528,12 @@ def test_wavefront_wrappers_reject_bad_inputs(cuda):
         wf.wave_mask(state.double(), scene.boxes, k.t_min)
     with pytest.raises(RendererError, match="lanes"):
         wf.wave_mask(state, scene.boxes, k.t_min, lanes=512)
+    with pytest.raises(RendererError, match="contiguous"):
+        wf.wave_mask_lists(state.double(), scene.boxes, k.t_min)
+    with pytest.raises(RendererError, match="lanes"):
+        wf.wave_mask_lists(state, scene.boxes, k.t_min, lanes=512)
+    with pytest.raises(RendererError, match="bool mask"):
+        wf.shortlists_from_mask(torch.ones((2, scene.n_leaf), dtype=torch.uint8, device=cuda))
     short, cnt = wf.all_leaves(state.shape[1] // wf.LANES, scene.n_leaf, device=cuda)
     with pytest.raises(RendererError, match="contiguous"):
         wf.wave_bounce(state, ids.long(), short, cnt, scene, k, 0)
